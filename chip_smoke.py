@@ -6,25 +6,32 @@ It needs one CUDA device, nvcc and nvidia-smi, and exits nonzero without a
 result line when any phase fails or no CUDA device is present.
 
 Phases:
-  1. The card: its name and power limit, then the build of the four CUDA
-     kernels from cruise_control_tpu_torch/kernels/csrc.
+  1. The card: its name and power limit, then the build of the five CUDA
+     kernel libraries from cruise_control_tpu_torch/kernels/csrc.
   2. Each kernel against its plain PyTorch version on the card, on the
      inputs of one north-star anneal step, with the kernel's and the plain
-     version's times (CUDA events) and the least time the card could take.
+     version's times and the least time the card could take: the step's
+     three kernels (candidates, select_survivors, apply_moves, the last bit
+     for bit, also on a case of survivors meeting on shared hosts), and
+     the two standalone kernels the candidates kernel fused
+     (threefry_uniform, move_delta) on the same step's draws and deltas.
   3. A small cluster optimized on the card agrees with the same run on the
      CPU (whose parity with the JAX package the test suite holds).
   4. The main path: GoalOptimizer.optimize on the north-star cluster
      (2,600 brokers, 200k partitions, ~500k replicas) with the north-star
-     search config; launch counts are zeroed just before and read just after.
-  5. A second request on the same optimizer: decommission 1% of the
+     search config, twice with the same seed: identical placements, rounds
+     and proposals.  Launch counts are zeroed just before the first call
+     and read just after.
+  5. A third request on the same optimizer: decommission 1% of the
      brokers; it must reuse the cached engine and evacuate every replica.
-  6. Where a north-star step's time goes: host clock per step, round prep
-     and full-chain evaluation, and the device's kernel time per step from
-     torch.profiler.
+  6. Where a north-star step's time goes: host clock per step, launches
+     per step of each kernel, round prep and full-chain evaluation, and
+     the device's time per step from torch.profiler.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -57,15 +64,20 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
 #: the package's own CUDA kernels, by the names the profiler reports
-OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "select_min_kernel",
-               "select_keep_kernel", "apply_kernel")
+OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
+               "candidates_kernel", "select_min_kernel", "select_keep_kernel",
+               "apply_rows_kernel", "apply_owner_kernel")
 
 SOURCES = {
     "threefry_uniform": ("threefry.cu", "cruise_control_tpu/analyzer/engine.py:958"),
     "move_delta": ("move_delta.cu", "cruise_control_tpu/analyzer/engine.py:2439"),
+    "candidates": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:2569"),
     "select_survivors": ("select.cu", "cruise_control_tpu/analyzer/engine.py:2643"),
     "apply_moves": ("apply.cu", "cruise_control_tpu/analyzer/engine.py:2715"),
 }
+#: the kernels a step launches; the other two are standalone since the
+#: candidates kernel fused them, and the main path must launch them 0 times
+PATH_KERNELS = ("candidates", "select_survivors", "apply_moves")
 
 
 def check(ok, message: str) -> None:
@@ -147,20 +159,12 @@ class Capture:
     anneal step runs, in call order (tensors cloned, so in-place kernels
     leave them)."""
 
-    def __init__(self):
-        from cruise_control_tpu_torch.kernels import apply as apply_k
-        from cruise_control_tpu_torch.kernels import move_delta as md
-        from cruise_control_tpu_torch.kernels import select as select_k
-
-        self.targets = [
-            (md, "move_delta"), (select_k, "select_survivors"), (apply_k, "apply_moves"),
-        ]
+    def __init__(self, targets):
+        self.targets = targets
         self.calls = {}
 
     @staticmethod
     def _clone(x):
-        import dataclasses
-
         import torch
 
         if isinstance(x, torch.Tensor):
@@ -195,6 +199,47 @@ def timings(kernel: dict, plain: dict) -> dict:
                 ms_source=kernel["ms_source"], plain_ms_source=plain["ms_source"])
 
 
+def delta_bar(plain):
+    """move_delta's bar: the kernel divides where PyTorch's CUDA ops
+    multiply by reciprocals of scalars, and each delta is a difference of
+    lane sums, so rounding shows relative to the batch's largest delta."""
+    return 1e-4 * (plain.abs() + 1e-2 * float(plain.abs().max())) + 1e-12
+
+
+def candidates_bound_bytes(eng, carry, prop) -> int:
+    """Bytes one step's candidates need, each read or written once: the
+    sampled replicas' rows (59 B: placement, partition, topic, flags,
+    position, both load rows), the members' brokers and leader flags (5 B),
+    the member rows, the rack cells, the rows of the brokers (64 B) and
+    hosts (33 B) the candidates touch with those brokers' disk rows, the
+    plan's CDF, the globals, the draws' destination ids and the outputs:
+    22 B of bundle a candidate, 53 B a relocation row, 64 B a leadership row."""
+    import torch
+
+    sx, st = eng.statics, eng.statics.state
+    s = st.shape
+    payr, payl = prop["payr"], prop["payl"]
+    sampled = torch.unique(torch.cat([payr["r"], payl["rf"], payl["rt"]]).long())
+    parts = torch.unique(torch.cat([prop["part1"], prop["part2"]]).long())
+    members = sx.part_replicas[parts].flatten()
+    members = torch.unique(members[members < s.R].long())
+    member_only = int(members.numel()) - int(torch.isin(members, sampled).sum())
+    brokers = torch.unique(torch.cat([prop["src"], prop["dst"]]).long())
+    hosts = torch.unique(st.broker_host[brokers])
+    cells = torch.unique(torch.cat([
+        prop["part1"].long() * s.num_racks + st.broker_rack[prop["src"].long()],
+        prop["part1"].long() * s.num_racks + st.broker_rack[prop["dst"].long()],
+        prop["part2"].long() * s.num_racks + st.broker_rack[prop["src"].long()],
+        prop["part2"].long() * s.num_racks + st.broker_rack[prop["dst"].long()],
+    ]))
+    D, K = s.max_disks_per_broker, int(prop["delta"].shape[0])
+    return (59 * int(sampled.numel()) + 5 * member_only
+            + 4 * int(parts.numel()) * int(sx.part_replicas.shape[1]) + 4 * int(cells.numel())
+            + (64 + 9 * D) * int(brokers.numel()) + 33 * int(hosts.numel())
+            + 4 * s.B + 4 * eng.K_r + 4 * (22 + s.num_topics)
+            + 22 * K + 53 * int(payr["r"].shape[0]) + 64 * int(payl["rf"].shape[0]))
+
+
 def check_kernels(state, cfg) -> dict:
     """Phase 2: every kernel against its plain version on one real step's inputs."""
     import torch
@@ -202,6 +247,7 @@ def check_kernels(state, cfg) -> dict:
     from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
     from cruise_control_tpu_torch.analyzer.draws import Key
     from cruise_control_tpu_torch.kernels import apply as apply_k
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
     from cruise_control_tpu_torch.kernels import move_delta as md
     from cruise_control_tpu_torch.kernels import select as select_k
     from cruise_control_tpu_torch.kernels import threefry
@@ -209,54 +255,85 @@ def check_kernels(state, cfg) -> dict:
     eng = Engine(state, DEFAULT_CHAIN, config=cfg)
     carry = eng.init_carry(Key.from_seed(cfg.seed))
     plan = eng.plan(carry)
-    with Capture() as cap:
+    targets = [(cand_k, "candidates"), (select_k, "select_survivors"), (apply_k, "apply_moves")]
+    with Capture(targets) as cap:
         eng.step(carry, 0.0, plan)
     torch.cuda.synchronize()
     out = {}
-
-    # threefry_uniform: the Metropolis draw over all K candidates and a
-    # source-index draw over the replica prefix; bit-exact
-    K, n_src = eng.K_r + eng.K_s + eng.K_l, eng.statics.n_source
-    key = Key.from_seed(7).words
     dev = state.device
-    uk = threefry.uniform(key, K, minval=1e-12, maxval=1.0, device=dev)
-    up = threefry.uniform_plain(key, K, 1e-12, 1.0, dev)
-    ik = threefry.uniform_idx(key, K, n_src, device=dev)
-    ip = threefry.uniform_idx_plain(key, K, n_src, dev)
-    same = bool((uk.view(torch.int32) == up.view(torch.int32)).all()) and bool((ik == ip).all())
-    err = max(float((uk - up).abs().max()), float((ik - ip).abs().max()))
+
+    # candidates: ids, masks and payload rows exact, deltas within the bar,
+    # acceptance identical except within the bar of the threshold; the
+    # plain version's move_delta inputs are recorded for the check below
+    (c_args, c_kw), = cap.calls["candidates"]
+    cp, sx, c0, keys, g, plan_c, temp = c_args
+    ck = cand_k.candidates(*c_args, **c_kw)
+    with Capture([(md, "move_delta_plain")]) as md_cap:
+        cpl = cand_k.candidates_plain(*c_args, **c_kw)
+    K = int(cpl["delta"].shape[0])
+    for f in ("feas", "src", "dst", "part1", "part2"):
+        check(torch.equal(ck[f], cpl[f]), f"candidates: {f} differs from the plain version")
+    for name in ("payr", "payl"):
+        for f, want in cpl[name].items():
+            check(torch.equal(ck[name][f], want), f"candidates: payload {name}.{f} differs")
+    err = float((ck["delta"] - cpl["delta"]).abs().max())
+    bar = delta_bar(cpl["delta"])
+    bad = int(((ck["delta"] - cpl["delta"]).abs() > bar).sum())
+    check(bool(torch.isfinite(ck["delta"]).all()) and bad == 0,
+          f"candidates: {bad} deltas outside tolerance (max err {err})")
+    u = threefry.uniform_plain(keys.u.words, K, cand_k.U_MIN, 1.0, dev)
+    thresh = -temp * torch.log(u) - 1e-12
+    near = (cpl["delta"] - thresh).abs() <= bar
+    differ = ck["accept"] != cpl["accept"]
+    check(not bool((differ & ~near).any()), "candidates: acceptance differs away from the threshold")
+    kt = measure(lambda: cand_k.candidates(*c_args, **c_kw))
+    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw))
+    nb = candidates_bound_bytes(eng, c0, ck)
+    # ~600 operations a candidate: 3-6 threefry hashes of ~80, two broker
+    # lanes of ~75, host terms, the tiebreak and the extra terms; ~90 a
+    # broker or host in the prologue
+    b_ms, b_by = bound(nb, 600.0 * K + 90.0 * (state.shape.B + state.shape.num_hosts))
+    out["candidates"] = dict(
+        max_abs_err=err, **timings(kt, pt), bound_ms=b_ms, bound_by=b_by, bound_bytes=nb,
+        tolerance="ids, masks, payload exact; |d| <= 1e-4 (|plain| + 1e-2 max|plain|); "
+                  "accept exact outside that bar of the threshold",
+        accept_differs=int(differ.sum()), accepted=int(ck["accept"].sum()), n=K,
+    )
+
+    # threefry_uniform (standalone since the candidates kernel draws
+    # inline): the Metropolis draw over all K candidates and a source-index
+    # draw over the replica prefix, under the step's keys; bit-exact
+    n_src = eng.statics.n_source
+    uk = threefry.uniform(keys.u.words, K, minval=cand_k.U_MIN, maxval=1.0, device=dev)
+    ik = threefry.uniform_idx(keys.lead.words, K, n_src, device=dev)
+    ip = threefry.uniform_idx_plain(keys.lead.words, K, n_src, dev)
+    same = bool((uk.view(torch.int32) == u.view(torch.int32)).all()) and bool((ik == ip).all())
+    err = max(float((uk - u).abs().max()), float((ik - ip).abs().max()))
     check(same, f"threefry_uniform differs from its plain version (max err {err})")
-    kt = measure(lambda: threefry.uniform(key, K, minval=1e-12, maxval=1.0, device=dev))
-    pt = measure(lambda: threefry.uniform_plain(key, K, 1e-12, 1.0, dev))
+    kt = measure(lambda: threefry.uniform(keys.u.words, K, minval=cand_k.U_MIN, maxval=1.0, device=dev))
+    pt = measure(lambda: threefry.uniform_plain(keys.u.words, K, cand_k.U_MIN, 1.0, dev))
     # 4 bytes written per draw; ~80 integer operations per draw (20 rounds of
     # add/rotate/xor, key injections, the float tail)
     b_ms, b_by = bound(4 * K, 80.0 * K)
     out["threefry_uniform"] = dict(max_abs_err=err, **timings(kt, pt), bound_ms=b_ms,
                                    bound_by=b_by, tolerance="bit-exact", n=K)
 
-    # move_delta: each of the step's three calls (relocations, swaps,
-    # leadership transfers) at its own shape; `ms`, `plain_ms` and
-    # `bound_ms` are the mean per launch over the three
-    calls = cap.calls["move_delta"]
-    check(len(calls) == 3, f"move_delta: {len(calls)} calls in one step, expected 3")
+    # move_delta (standalone since the candidates kernel fused it): the
+    # plain candidates' three evaluations (relocations, swaps, leadership
+    # transfers), each at its own shape; `ms`, `plain_ms` and `bound_ms`
+    # are the mean per launch over the three
+    calls = md_cap.calls["move_delta_plain"]
+    check(len(calls) == 3, f"move_delta: {len(calls)} evaluations in one step, expected 3")
     per_call = []
     for kind, K_kind, (args, kw) in zip(("relocation", "swap", "leadership"),
                                         (eng.K_r, eng.K_s, eng.K_l), calls):
         tp, sx, c, g = args
-        kw = dict(kw)
-        kw.setdefault("dlbin_src", kw["dlbin"])
-        kw.setdefault("ddisk_src", kw["ddisk"])
         n = int(kw["src"].shape[0])
         check(n == K_kind, f"move_delta: the {kind} call has {n} candidates, expected {K_kind}")
         dk = md.move_delta(tp, sx, c, g, **kw)
         dp = md.move_delta_plain(tp, sx, c, g, **kw)
         err = float((dk - dp).abs().max())
-        scale = float(dp.abs().max())
-        # the kernel divides where PyTorch's CUDA ops multiply by reciprocals
-        # of scalars, and each delta is a difference of four lane sums, so
-        # rounding shows relative to the batch's largest delta
-        tol = 1e-4 * (dp.abs() + 1e-2 * scale) + 1e-12
-        bad = int(((dk - dp).abs() > tol).sum())
+        bad = int(((dk - dp).abs() > delta_bar(dp)).sum())
         check(torch.isfinite(dk).all() and bad == 0,
               f"move_delta ({kind}): {bad} deltas outside tolerance (max err {err})")
         flips = int(((dk < 0) != (dp < 0)).sum())
@@ -287,12 +364,10 @@ def check_kernels(state, cfg) -> dict:
     # the two lanes shows
     args, kw = calls[2]
     g = args[3]
-    u = torch.linspace(1.0, 2.0, eng.K_l, device=dev)
-    kw = dict(kw, dlbin_src=kw["dlbin"] + g["avg_lbin"] * u)
-    kw.setdefault("ddisk_src", kw["ddisk"])
+    u2 = torch.linspace(1.0, 2.0, eng.K_l, device=dev)
+    kw = dict(kw, dlbin_src=kw["dlbin"] + g["avg_lbin"] * u2)
     dk, dp = md.move_delta(*args, **kw), md.move_delta_plain(*args, **kw)
-    tol = 1e-4 * (dp.abs() + 1e-2 * float(dp.abs().max())) + 1e-12
-    check(bool(((dk - dp).abs() <= tol).all()), "move_delta: distinct dlbin_src outside tolerance")
+    check(bool(((dk - dp).abs() <= delta_bar(dp)).all()), "move_delta: distinct dlbin_src outside tolerance")
     per_call[2]["max_abs_err_distinct_dlbin_src"] = float((dk - dp).abs().max())
     mean = {k: sum(r[k] for r in per_call) / 3 for k in ("ms", "call_ms", "plain_ms", "plain_call_ms",
                                                           "bound_ms")}
@@ -320,7 +395,10 @@ def check_kernels(state, cfg) -> dict:
                                    bound_by=b_by, tolerance="exact survivor set",
                                    survivors=int(sk.sum()), n=Ks)
 
-    # apply_moves: in place, from a clone of the captured carry each time
+    # apply_moves: in place, from a clone of the captured carry each time;
+    # bit for bit (one broker per host here, so the plain version's CUDA
+    # index_add_ never repeats an index inside one call, and adds in the
+    # reference's order too)
     ((sx_a, c0, sv_r, payr, sv_l, payl), _), = cap.calls["apply_moves"]
     ck, cp = c0.clone(), c0.clone()
     apply_k.apply_moves(sx_a, ck, sv_r, payr, sv_l, payl)
@@ -328,14 +406,13 @@ def check_kernels(state, cfg) -> dict:
     torch.cuda.synchronize()
     err = 0.0
     for f in ("replica_broker", "replica_disk", "replica_is_leader", "broker_replica_count",
-              "broker_leader_count", "broker_topic_count", "part_rack_count"):
-        check(torch.equal(getattr(ck, f), getattr(cp, f)), f"apply_moves: {f} differs")
-    for f in ("broker_load", "broker_potential_nw_out", "broker_leader_bytes_in", "disk_load", "host_load"):
+              "broker_leader_count", "broker_topic_count", "part_rack_count", "broker_load",
+              "broker_potential_nw_out", "broker_leader_bytes_in", "disk_load", "host_load"):
         a, b = getattr(ck, f), getattr(cp, f)
-        e = float((a - b).abs().max())
-        # float atomics add in no fixed order: a few ulps of the array's scale
-        check(e <= 1e-5 * float(b.abs().max()) + 1e-6, f"apply_moves: {f} max err {e}")
-        err = max(err, e)
+        if a.dtype == torch.float32:
+            err = max(err, float((a - b).abs().max()))
+        check(torch.equal(a, b), f"apply_moves: {f} differs from the plain version")
+    collisions = check_apply_collisions(cfg, dev)
     # timed on a scratch carry: repeated application moves the same rows
     # again, which is the same work (the values drift, the indices do not)
     kt = measure(lambda: apply_k.apply_moves(sx_a, ck, sv_r, payr, sv_l, payl))
@@ -349,13 +426,50 @@ def check_kernels(state, cfg) -> dict:
     nb = nbytes(sv_r, sv_l) + (row_r + 264) * n_rel + (row_l + 186) * n_lead
     b_ms, b_by = bound(nb, 60.0 * (n_rel + n_lead))
     out["apply_moves"] = dict(max_abs_err=err, **timings(kt, pt), bound_ms=b_ms, bound_by=b_by,
-                              tolerance="ints exact; floats <= 1e-5 max|plain| + 1e-6",
+                              tolerance="bit for bit", collision_case=collisions,
                               survivor_rows=n_rel + n_lead, bound_bytes=nb,
                               payload_row_bytes=[row_r, row_l], n=int(sv_r.shape[0] + sv_l.shape[0]))
     for name, rec in out.items():
         log(json.dumps({"phase": "kernel", "name": name, **rec}))
     del eng, carry, plan, cap
     return out
+
+
+def check_apply_collisions(cfg, device) -> str:
+    """apply_moves on survivors that meet on shared hosts and on a swap's
+    two brokers, with values from 1e-2 to 1e8: the card's floats equal the
+    plain version's on the CPU (index order, the reference's) bit for bit,
+    on each of three runs."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+    from cruise_control_tpu_torch.analyzer.draws import Key
+    from cruise_control_tpu_torch.kernels import apply as apply_k
+    from cruise_control_tpu_torch.testing.fixtures import apply_collision_case, collision_cluster
+
+    small = dict(num_candidates=256, leadership_candidates=64, steps_per_round=8, num_rounds=2)
+    ref = None
+    for dev in ("cpu", device, device, device):
+        state = collision_cluster(dev)
+        eng = Engine(state, DEFAULT_CHAIN, config=dataclasses.replace(cfg, **small))
+        sv_r, payr, sv_l, payl, agg = apply_collision_case(state, 0)
+        carry = eng.init_carry(Key.from_seed(0))
+        for f, a in agg.items():
+            setattr(carry, f, torch.from_numpy(a.copy()).to(dev))
+
+        def t(a, dev=dev):
+            return torch.from_numpy(a).to(dev)
+
+        apply_k.apply_moves(eng.statics, carry, t(sv_r), {k: t(v) for k, v in payr.items()},
+                            t(sv_l), {k: t(v) for k, v in payl.items()})
+        got = {f: getattr(carry, f).cpu() for f in agg}
+        if ref is None:
+            ref = got
+            continue
+        for f in agg:
+            check(torch.equal(got[f].view(torch.int32), ref[f].view(torch.int32)),
+                  f"apply_moves: {f} differs from the plain version on the collision case")
+    return "bit for bit on 3 runs"
 
 
 def check_small_cluster() -> None:
@@ -387,12 +501,14 @@ def check_small_cluster() -> None:
 
 def profile_steps(state, cfg) -> dict:
     """Phase 6: where a north-star step's time goes.  Host clock around
-    32 steps, one round prep and one full-chain evaluation; then
-    torch.profiler over 16 more steps for the device's kernel time."""
+    32 steps (with the launches of each kernel per step), one round prep
+    and one full-chain evaluation; then torch.profiler over 16 more steps
+    for the device's time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from cruise_control_tpu_torch import kernels as kernels_mod
     from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
     from cruise_control_tpu_torch.analyzer.draws import Key
 
@@ -410,7 +526,9 @@ def profile_steps(state, cfg) -> dict:
         return (time.monotonic() - t0) / n * 1e3
 
     steps(4)
+    kernels_mod.reset_launches()
     step_ms = steps(32)
+    launches_per_step = {k: v / 32 for k, v in kernels_mod.LAUNCHES.items()}
     t0 = time.monotonic()
     carry, plan, cheap = eng.round_prep(carry)
     float(cheap)
@@ -436,10 +554,15 @@ def profile_steps(state, cfg) -> dict:
         device_busy_ms_per_step=busy if kernels else "not measured",
         device_busy_share=busy / step_ms if kernels else "not measured",
         own_kernels_ms_per_step=own if kernels else "not measured",
+        device_busy_share_profiled=busy / profiled_step_ms if kernels else "not measured",
         device_ops_per_step=sum(v[1] for v in kernels.values()) / n,
+        launches_per_step=launches_per_step,
         top_kernels=[[k[:80], round(v[0], 5), v[1] // n] for k, v in top],
     )
     log(json.dumps(out))
+    check(launches_per_step["candidates"] == 1 and launches_per_step["threefry_uniform"] == 0
+          and launches_per_step["move_delta"] == 0,
+          f"a step's launches are not the fused path's: {launches_per_step}")
     del eng, carry, plan
     return out
 
@@ -476,8 +599,10 @@ def run_proposal(opt, state, label):
         "violated_after": res.violated_goals_after(), "engine_cache_hit": timing["engine_cache_hit"],
         "blocking_syncs": timing["blocking_syncs"], "launches": launches,
     }))
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PATH_KERNELS if launches[k] == 0]
     check(not missing, f"kernels never launched on the {label} path: {missing}")
+    fused = {k: v for k, v in launches.items() if k not in PATH_KERNELS and v}
+    check(not fused, f"standalone kernels launched on the {label} path: {fused}")
     return res, launches
 
 
@@ -494,8 +619,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    import dataclasses
-
     import numpy as np
 
     from cruise_control_tpu_torch.analyzer import GoalOptimizer, OptimizerConfig
@@ -530,9 +653,23 @@ def main() -> int:
     # phase 3: a small cluster on the card agrees with the CPU run
     check_small_cluster()
 
-    # phase 4: the main path
+    # phase 4: the main path, twice with the same seed: the anneal is
+    # deterministic on the card, so placements, rounds and proposals agree
     opt = GoalOptimizer(config=cfg, device="cuda")
-    _, launches = run_proposal(opt, state, "north_star_proposal")
+    res4, launches = run_proposal(opt, state, "north_star_proposal")
+    again, launches_again = run_proposal(opt, state, "north_star_proposal_repeat")
+    same = {
+        f: bool(torch.equal(getattr(res4.state_after, f), getattr(again.state_after, f)))
+        for f in ("replica_broker", "replica_is_leader", "replica_disk")
+    }
+    rounds = [len([h for h in r.history if "round" in h]) for r in (res4, again)]
+    log(json.dumps({"phase": "determinism", "identical": same, "rounds": rounds,
+                    "proposals": [len(res4.proposals), len(again.proposals)],
+                    "launches_equal": launches == launches_again}))
+    check(all(same.values()), f"two proposals with the same seed differ: {same}")
+    check(rounds[0] == rounds[1], f"two proposals with the same seed ran {rounds} rounds")
+    check(len(res4.proposals) == len(again.proposals), "two proposals with the same seed differ in size")
+    del res4, again
 
     # phase 5: decommission 1% of the brokers on the same optimizer
     B = s.B
@@ -545,7 +682,7 @@ def main() -> int:
         replica_offline=offline,
     )
     res5, _ = run_proposal(opt, decom, "decommission")
-    check(opt.engine_cache_hits == 1 and opt.engine_cache_misses == 1, "second request did not rebind")
+    check(opt.engine_cache_hits == 2 and opt.engine_cache_misses == 1, "later requests did not rebind")
     after = res5.state_after
     on_dead = after.replica_valid & ~after.broker_alive[after.replica_broker]
     remaining = int(on_dead.sum())

@@ -8,9 +8,10 @@ trajectories can be held against it.
 
 A `Key` is two uint32 words kept on the host: deriving keys (`split`,
 `fold_in`) hashes a handful of counters, which costs microseconds in
-Python and needs no device round trip.  The bulk draws run in the
-`threefry_uniform` kernel (kernels/threefry.py) on the device of the
-caller's choosing.
+Python and needs no device round trip.  An anneal step's draws are hashed
+inside the candidates kernel (kernels/candidates.py) under the keys the
+host derives; `uniform` and `uniform_idx` here draw a whole stream, with
+the `threefry_uniform` kernel (kernels/threefry.py) on CUDA.
 """
 
 from __future__ import annotations

@@ -18,10 +18,11 @@ polish rounds while the full goal chain keeps improving.  The schedule is
 the one the JAX package's fused program runs (its `_fused_round_step`),
 driven here by one host loop with one small device sync per round.
 
-The step's hot programs are hand-written CUDA kernels (kernels/): the
-draw stream (threefry_uniform), the candidate deltas (move_delta), the
-conflict resolution (select_survivors) and the scatter (apply_moves).
-Everything else is PyTorch.  The carry is updated in place by each step.
+A step is three hand-written CUDA kernels (kernels/): the candidates
+(draws, gathers, feasibility, exact deltas and Metropolis acceptance,
+kernels/candidates.py), the conflict resolution (select_survivors) and
+the scatter (apply_moves), around the per-step globals in PyTorch ops.
+The carry is updated in place by each step.
 
 With the same cluster, configuration and seed, the draws are bit-identical
 to the JAX package's and, on small clusters where float reductions agree,
@@ -42,13 +43,13 @@ import time
 import numpy as np
 import torch
 
-from cruise_control_tpu_torch.analyzer import draws
 from cruise_control_tpu_torch.analyzer.draws import Key
 from cruise_control_tpu_torch.analyzer.objective import TIE_WEIGHT, GoalChain
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.kernels import apply as apply_k
+from cruise_control_tpu_torch.kernels import candidates as cand_k
 from cruise_control_tpu_torch.kernels import move_delta as md
 from cruise_control_tpu_torch.kernels import select as select_k
 from cruise_control_tpu_torch.models.aggregates import (
@@ -57,8 +58,6 @@ from cruise_control_tpu_torch.models.aggregates import (
     segment_sum,
 )
 from cruise_control_tpu_torch.models.state import ClusterShape, ClusterState
-
-_NW_IN, _NW_OUT, _DISK = int(Resource.NW_IN), int(Resource.NW_OUT), int(Resource.DISK)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +183,13 @@ class EngineStatics:
     n_dest: int
     #: valid broker count (clips the importance sampler's CDF search)
     n_brokers: int
+    #: broker ids grouped by host (stable), brokers with no host in range
+    #: last, and the i32[H + 2] group offsets: apply_moves' owner threads
+    host_brokers: torch.Tensor
+    host_start: torch.Tensor
+    #: i32[2, B] scratch of apply_moves (each broker's surviving src and
+    #: dst row), -1 between calls
+    apply_slots: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,6 +254,9 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
     np.add.at(host_cap, host[valid_b & alive], cap[valid_b & alive])
     dmask = h["disk_alive"] & alive[:, None]
     n_valid_int = int(h["replica_valid"].sum())
+    host_group = np.where((host >= 0) & (host < s.num_hosts), host, s.num_hosts)
+    host_start = np.zeros(s.num_hosts + 2, np.int32)
+    host_start[1:] = np.cumsum(np.bincount(host_group, minlength=s.num_hosts + 1))
     front_packed = bool(h["replica_valid"][:n_valid_int].all())
     n_source = n_valid_int if front_packed else s.R
 
@@ -273,6 +282,9 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
         n_source=max(1, n_source),
         n_dest=int(dest_idx.size),
         n_brokers=max(1, int(valid_b.sum())),
+        host_brokers=t(np.argsort(host_group, kind="stable"), torch.int32),
+        host_start=t(host_start),
+        apply_slots=torch.full((2, s.B), -1, dtype=torch.int32, device=dev),
     )
 
 
@@ -390,6 +402,15 @@ class Engine:
         self.tp = md.TermParams.build(
             self.w, self.constraint, sx.total_cap.cpu().numpy(), sx.n_valid, sx.n_alive,
             sx.total_disk_cap,
+        )
+        cfg = self.config
+        self.cand = cand_k.CandParams(
+            tp=self.tp, K_r=self.K_r, K_s=self.K_s, K_l=self.K_l,
+            w_rack=self.w.rack, w_offline=self.w.offline, w_topic=self.w.topic_dist,
+            w_pref=self.w.pref_leader,
+            topic_tt=self.constraint.topic_replica_count_balance_threshold,
+            replica_move_cost=cfg.replica_move_cost, leadership_move_cost=cfg.leadership_move_cost,
+            importance_fraction=cfg.importance_fraction, num_parts=max(1, self.shape.P),
         )
         return self
 
@@ -587,371 +608,23 @@ class Engine:
         )
 
     # ------------------------------------------------------------------
-    # candidate generation + delta evaluation
-    # ------------------------------------------------------------------
-
-    def _sample_sources(self, key: Key, n: int, plan: SamplingPlan | None) -> torch.Tensor:
-        """n source replica ids: `importance_fraction` of them by the
-        two-stage plan draw (broker ~ categorical, then a replica on it),
-        the rest uniform over the valid prefix."""
-        sx = self.statics
-        dev = self.device
-        k1, k3, k4, k5 = key.split(4)
-        n_imp = int(round(n * self.config.importance_fraction)) if plan is not None else 0
-        r = draws.uniform_idx(k1, n - n_imp, sx.n_source, device=dev)
-        if n_imp:
-            u = draws.uniform(k3, n_imp, device=dev)
-            bsel = torch.clamp(
-                torch.searchsorted(plan.broker_cdf, u, right=True), 0, sx.n_brokers - 1
-            )
-            cnt = plan.count[bsel]
-            j = (draws.uniform(k4, n_imp, device=dev) * cnt).to(torch.int32)
-            r_imp = plan.order[torch.clamp(plan.start[bsel] + j, 0, self.shape.R - 1)]
-            fallback = draws.uniform_idx(k5, n_imp, sx.n_source, device=dev)
-            r = torch.cat([r, torch.where(cnt > 0, r_imp, fallback)])
-        return r
-
-    def _member_brokers(self, carry: EngineCarry, part: torch.Tensor) -> torch.Tensor:
-        """[K, max_rf] current brokers of each partition's replicas, -1 on
-        the table's padding."""
-        R = self.shape.R
-        members = self.statics.part_replicas[part]
-        vals = carry.replica_broker[torch.clamp(members, max=R - 1)]
-        return torch.where(members < R, vals, -1)
-
-    def _replica_candidates(self, carry: EngineCarry, key: Key, g, plan=None):
-        """K_r replica-move candidates -> (delta, feasible, src, dst, part, payload)."""
-        sx = self.statics
-        st = sx.state
-        K = self.K_r
-        k1, k2 = key.split(2)
-        r = self._sample_sources(k1, K, plan)
-        dst = sx.dest_ids[draws.uniform_idx(k2, K, sx.n_dest, device=self.device)]
-        src = carry.replica_broker[r]
-        part = st.replica_partition[r]
-        disk = carry.replica_disk[r]
-        topic = st.replica_topic[r]
-        valid = st.replica_valid[r]
-        is_lead = carry.replica_is_leader[r]
-        ll, lf = st.replica_load_leader[r], st.replica_load_follower[r]
-
-        # feasibility (reference GoalUtils.legitMove:153 + exclusions)
-        offline = ~(st.broker_alive[src] & st.disk_alive[src, disk])
-        movable = sx.topic_movable[topic] | offline
-        feasible = valid & movable & (src != dst)
-        # no second replica of the partition on dst
-        feasible &= ~(self._member_brokers(carry, part) == dst[:, None]).any(1)
-
-        load = torch.where(is_lead[:, None], ll, lf)
-        load = torch.where(valid[:, None], load, 0.0)
-
-        # destination logdir: most-free alive disk on dst
-        ddst_pct = carry.disk_load[dst] / (st.disk_capacity[dst] + 1e-12)
-        ddst_pct = torch.where(st.disk_alive[dst], ddst_pct, float("inf"))
-        d_dst = torch.argmin(ddst_pct, dim=1).to(torch.int32)
-
-        pot = ll[:, _NW_OUT]
-        lbin = torch.where(is_lead, ll[:, _NW_IN], 0.0)
-        delta = md.move_delta(
-            self.tp, sx, carry, g,
-            src=src, dst=dst, dload_src=-load, dload_dst=load,
-            dcount=torch.ones_like(r), dlcount=is_lead.to(torch.int32),
-            dpot=pot, dlbin=lbin, d_src=disk, d_dst=d_dst, ddisk=load[:, _DISK],
-        )
-
-        # rack cells (reference RackAwareGoal)
-        rack_s, rack_d = st.broker_rack[src], st.broker_rack[dst]
-        c_s = carry.part_rack_count[part, rack_s].to(torch.float32)
-        c_d = carry.part_rack_count[part, rack_d].to(torch.float32)
-        drack = (_relu(c_s - 2.0) - _relu(c_s - 1.0)) + (_relu(c_d) - _relu(c_d - 1.0))
-        delta = delta + self.w.rack * torch.where(rack_s != rack_d, drack, 0.0) / sx.n_valid
-
-        # topic cells (reference TopicReplicaDistributionGoal)
-        if self.w.topic_dist != 0.0:
-            dtop = self._topic_cell_delta(carry, g, topic, src, dst)
-            delta = delta + self.w.topic_dist * dtop / g["total_count"]
-
-        # offline-replica term (reference OptimizationVerifier BROKEN_BROKERS)
-        dst_ok = st.broker_alive[dst] & st.disk_alive[dst, d_dst]
-        doff = (~dst_ok).to(torch.float32) - offline.to(torch.float32)
-        delta = delta + self.w.offline * doff / sx.n_valid
-
-        # preferred-leader eligibility shift (reference PreferredLeaderElectionGoal)
-        if self.w.pref_leader != 0.0:
-            pref = (st.replica_pos[r] == 0) & valid & ~is_lead
-            was = pref & ~offline
-            now = pref & dst_ok
-            delta = delta + (
-                self.w.pref_leader
-                * (now.to(torch.float32) - was.to(torch.float32))
-                / max(1, self.shape.P)
-            )
-
-        # movement pricing: cost to stray from the ORIGINAL broker, refunded
-        # when moving home (reference ExecutionProposal data-to-move)
-        if plan is not None and self.config.replica_move_cost:
-            orig = st.replica_broker[r]
-            stray = (dst != orig).to(torch.float32) - (src != orig).to(torch.float32)
-            delta = delta + plan.replica_cost * stray
-
-        payload = dict(r=r, dst=dst, d_dst=d_dst, load=load, is_lead=is_lead,
-                       pot=pot, lbin=lbin, d_src=disk)
-        return delta, feasible, src, dst, part, payload
-
-    def _topic_cell_delta(self, carry, g, t, b_from, b_to):
-        """Topic-distribution cell change of one replica of topic t moving
-        b_from -> b_to."""
-        tt = self.constraint.topic_replica_count_balance_threshold
-        upper = torch.ceil(g["topic_avg"][t] * tt)
-        lower = torch.floor(g["topic_avg"][t] * max(0.0, 2.0 - tt))
-
-        def cell(cnt):
-            return _relu(cnt - upper) + _relu(lower - cnt)
-
-        ct_f = carry.broker_topic_count[t, b_from].to(torch.float32)
-        ct_t = carry.broker_topic_count[t, b_to].to(torch.float32)
-        return (cell(ct_f - 1.0) - cell(ct_f)) + (cell(ct_t + 1.0) - cell(ct_t))
-
-    def _swap_candidates(self, carry: EngineCarry, key: Key, g, plan=None):
-        """K_s replica-swap candidates: r <-> q exchange brokers (and disk
-        slots), escaping local optima single relocations cannot leave
-        (reference ResourceDistributionGoal swap-in/out :502-599).
-
-        Returns (delta, feasible, src, dst, part_r, part_q, payload)."""
-        sx = self.statics
-        st = sx.state
-        K = self.K_s
-        dev = self.device
-        if K == 0:
-            z = torch.zeros(0, dtype=torch.float32, device=dev)
-            zi = torch.zeros(0, dtype=torch.int32, device=dev)
-            zb = torch.zeros(0, dtype=torch.bool, device=dev)
-            zl = torch.zeros((0, NUM_RESOURCES), dtype=torch.float32, device=dev)
-            payload = dict(r=zi, q=zi, load_r=zl, load_q=zl, lead_r=zb, lead_q=zb,
-                           pot_r=z, pot_q=z, lbin_r=z, lbin_q=z, d_r=zi, d_q=zi)
-            return z, zb, zi, zi, zi, zi, payload
-        k1, k2 = key.split(2)
-        r = self._sample_sources(k1, K, plan)
-        q = draws.uniform_idx(k2, K, sx.n_source, device=dev)
-        src, dst = carry.replica_broker[r], carry.replica_broker[q]
-        part_r, part_q = st.replica_partition[r], st.replica_partition[q]
-        d_r, d_q = carry.replica_disk[r], carry.replica_disk[q]
-        topic_r, topic_q = st.replica_topic[r], st.replica_topic[q]
-        valid_r, valid_q = st.replica_valid[r], st.replica_valid[q]
-        lead_r, lead_q = carry.replica_is_leader[r], carry.replica_is_leader[q]
-        ll_r, ll_q = st.replica_load_leader[r], st.replica_load_leader[q]
-
-        off_r = ~(st.broker_alive[src] & st.disk_alive[src, d_r])
-        off_q = ~(st.broker_alive[dst] & st.disk_alive[dst, d_q])
-        movable_r = sx.topic_movable[topic_r] | off_r
-        movable_q = sx.topic_movable[topic_q] | off_q
-        feasible = (
-            valid_r & valid_q & movable_r & movable_q
-            & (src != dst)
-            & (part_r != part_q)
-            # both ends receive a replica, so both must be allowed destinations
-            & sx.dest_ok[src] & sx.dest_ok[dst]
-            # each replica inherits the other's disk slot, which must be alive
-            & st.disk_alive[dst, d_q] & st.disk_alive[src, d_r]
-        )
-        # neither partition may end up duplicated on its new broker
-        feasible &= ~(self._member_brokers(carry, part_r) == dst[:, None]).any(1)
-        feasible &= ~(self._member_brokers(carry, part_q) == src[:, None]).any(1)
-
-        load_r = torch.where(lead_r[:, None], ll_r, st.replica_load_follower[r])
-        load_r = torch.where(valid_r[:, None], load_r, 0.0)
-        load_q = torch.where(lead_q[:, None], ll_q, st.replica_load_follower[q])
-        load_q = torch.where(valid_q[:, None], load_q, 0.0)
-        pot_r, pot_q = ll_r[:, _NW_OUT], ll_q[:, _NW_OUT]
-        lbin_r = torch.where(lead_r, ll_r[:, _NW_IN], 0.0)
-        lbin_q = torch.where(lead_q, ll_q[:, _NW_IN], 0.0)
-
-        # r -> (dst, q's disk slot), q -> (src, r's disk slot)
-        delta = md.move_delta(
-            self.tp, sx, carry, g,
-            src=src, dst=dst, dload_src=load_q - load_r, dload_dst=load_r - load_q,
-            dcount=torch.zeros_like(r), dlcount=lead_r.to(torch.int32) - lead_q.to(torch.int32),
-            dpot=pot_r - pot_q, dlbin=lbin_r - lbin_q, d_src=d_r, d_dst=d_q,
-            ddisk=load_r[:, _DISK] - load_q[:, _DISK],
-        )
-
-        # rack cells for both partitions
-        rack_s, rack_d = st.broker_rack[src], st.broker_rack[dst]
-
-        def rack_delta(part, rack_from, rack_to):
-            c_f = carry.part_rack_count[part, rack_from].to(torch.float32)
-            c_t = carry.part_rack_count[part, rack_to].to(torch.float32)
-            d = (_relu(c_f - 2.0) - _relu(c_f - 1.0)) + (_relu(c_t) - _relu(c_t - 1.0))
-            return torch.where(rack_from != rack_to, d, 0.0)
-
-        delta = delta + self.w.rack * (
-            rack_delta(part_r, rack_s, rack_d) + rack_delta(part_q, rack_d, rack_s)
-        ) / sx.n_valid
-
-        if self.w.topic_dist != 0.0:
-            delta = delta + self.w.topic_dist * (
-                self._topic_cell_delta(carry, g, topic_r, src, dst)
-                + self._topic_cell_delta(carry, g, topic_q, dst, src)
-            ) / g["total_count"]
-
-        # offline-replica shifts for both replicas
-        r_ok = st.broker_alive[dst] & st.disk_alive[dst, d_q]
-        q_ok = st.broker_alive[src] & st.disk_alive[src, d_r]
-        f32 = torch.float32
-        doff = (~r_ok).to(f32) - off_r.to(f32) + (~q_ok).to(f32) - off_q.to(f32)
-        delta = delta + self.w.offline * doff / sx.n_valid
-
-        if self.w.pref_leader != 0.0:
-            def pref_delta(x, valid_x, was_off, now_ok, lead):
-                pref = (st.replica_pos[x] == 0) & valid_x & ~lead
-                return (pref & now_ok).to(f32) - (pref & ~was_off).to(f32)
-
-            delta = delta + (
-                self.w.pref_leader
-                * (pref_delta(r, valid_r, off_r, r_ok, lead_r)
-                   + pref_delta(q, valid_q, off_q, q_ok, lead_q))
-                / max(1, self.shape.P)
-            )
-
-        if plan is not None and self.config.replica_move_cost:
-            orig_r, orig_q = st.replica_broker[r], st.replica_broker[q]
-            stray = (
-                (dst != orig_r).to(f32) - (src != orig_r).to(f32)
-                + (src != orig_q).to(f32) - (dst != orig_q).to(f32)
-            )
-            delta = delta + plan.replica_cost * stray
-
-        payload = dict(r=r, q=q, load_r=load_r, load_q=load_q, lead_r=lead_r, lead_q=lead_q,
-                       pot_r=pot_r, pot_q=pot_q, lbin_r=lbin_r, lbin_q=lbin_q, d_r=d_r, d_q=d_q)
-        return delta, feasible, src, dst, part_r, part_q, payload
-
-    def _leadership_candidates(self, carry: EngineCarry, key: Key, g, plan=None):
-        """K_l leadership-transfer candidates (reference relocateLeadership:374)."""
-        sx = self.statics
-        st = sx.state
-        K = self.K_l
-        R = self.shape.R
-        dev = self.device
-        if K == 0:
-            z = torch.zeros(0, dtype=torch.float32, device=dev)
-            zi = torch.zeros(0, dtype=torch.int32, device=dev)
-            zb = torch.zeros(0, dtype=torch.bool, device=dev)
-            zl = torch.zeros((0, NUM_RESOURCES), dtype=torch.float32, device=dev)
-            payload = dict(rf=zi, rt=zi, dl_f=zl, dl_t=zl, dlbin_src=z, dlbin_dst=z)
-            return z, zb, zi, zi, zi, payload
-        rt = draws.uniform_idx(key, K, sx.n_source, device=dev)
-        part = st.replica_partition[rt]
-        members = sx.part_replicas[part]  # [K, max_rf]
-        m_idx = torch.clamp(members, max=R - 1)
-        m_lead = torch.where(members < R, carry.replica_is_leader[m_idx], False)
-        first_lead = torch.argmax(m_lead.to(torch.int8), dim=1)
-        rf = m_idx.gather(1, first_lead[:, None]).squeeze(1)
-
-        src, dst = carry.replica_broker[rf], carry.replica_broker[rt]
-        disk_f, disk_t = carry.replica_disk[rf], carry.replica_disk[rt]
-        dst_ok = st.broker_alive[dst] & st.disk_alive[dst, disk_t]
-        feasible = (
-            st.replica_valid[rt] & ~carry.replica_is_leader[rt] & m_lead.any(1)
-            & dst_ok & sx.lead_ok[dst]
-        )
-
-        # load shift: rf leader->follower on src, rt follower->leader on dst
-        ll_f, ll_t = st.replica_load_leader[rf], st.replica_load_leader[rt]
-        dl_f = st.replica_load_follower[rf] - ll_f  # [K, 4]
-        dl_t = ll_t - st.replica_load_follower[rt]
-        dlbin = ll_t[:, _NW_IN]  # gained by dst
-        dlbin_src = ll_f[:, _NW_IN]  # lost by src
-        delta = md.move_delta(
-            self.tp, sx, carry, g,
-            src=src, dst=dst, dload_src=dl_f, dload_dst=dl_t,
-            dcount=torch.zeros_like(rt), dlcount=torch.ones_like(rt),
-            dpot=torch.zeros(K, dtype=torch.float32, device=dev),
-            dlbin_src=dlbin_src, dlbin=dlbin,
-            d_src=disk_f, d_dst=disk_t, ddisk_src=dl_f[:, _DISK], ddisk=dl_t[:, _DISK],
-        )
-
-        f32 = torch.float32
-        if self.w.pref_leader != 0.0:
-            src_ok = st.broker_alive[src] & st.disk_alive[src, disk_f]
-            pref_f = (st.replica_pos[rf] == 0) & src_ok  # rf becomes violating
-            pref_t = (st.replica_pos[rt] == 0) & dst_ok  # rt stops violating
-            delta = delta + (
-                self.w.pref_leader * (pref_f.to(f32) - pref_t.to(f32)) / max(1, self.shape.P)
-            )
-
-        # movement pricing: a new leader that is not the partition's ORIGINAL
-        # leader pays; restoring the original leader refunds
-        if plan is not None and self.config.leadership_move_cost:
-            stray = (~st.replica_is_leader[rt]).to(f32) - (~st.replica_is_leader[rf]).to(f32)
-            delta = delta + plan.lead_cost * stray
-
-        payload = dict(rf=rf, rt=rt, dl_f=dl_f, dl_t=dl_t, dlbin_src=dlbin_src, dlbin_dst=dlbin)
-        return delta, feasible, src, dst, part, payload
-
-    def _assemble_prop(self, carry: EngineCarry, raw_r, raw_s, raw_l) -> dict:
-        """Concatenate the per-kind bundles into the selection/apply bundle;
-        a swap applies as two linked relocation rows."""
-        st = self.statics.state
-        dr, fr, sr, tr, pr, payr = raw_r
-        ds, fs, ss, ts, ps1, ps2, pays = raw_s
-        dl, fl, sl, tl, pl, payl = raw_l
-        r_ext = torch.cat([payr["r"], pays["r"], pays["q"]])
-        payr_ext = dict(
-            r=r_ext,
-            src=torch.cat([sr, ss, ts]),
-            dst=torch.cat([payr["dst"], ts, ss]),
-            d_dst=torch.cat([payr["d_dst"], pays["d_q"], pays["d_r"]]),
-            load=torch.cat([payr["load"], pays["load_r"], pays["load_q"]]),
-            is_lead=torch.cat([payr["is_lead"], pays["lead_r"], pays["lead_q"]]),
-            pot=torch.cat([payr["pot"], pays["pot_r"], pays["pot_q"]]),
-            lbin=torch.cat([payr["lbin"], pays["lbin_r"], pays["lbin_q"]]),
-            d_src=torch.cat([payr["d_src"], pays["d_r"], pays["d_q"]]),
-            topic=st.replica_topic[r_ext],
-            part=torch.cat([pr, ps1, ps2]),
-        )
-        payl_ext = dict(
-            payl, src_b=sl, dst_b=tl,
-            d_f=carry.replica_disk[payl["rf"]], d_t=carry.replica_disk[payl["rt"]],
-        )
-        return dict(
-            delta=torch.cat([dr, ds, dl]),
-            feas=torch.cat([fr, fs, fl]),
-            src=torch.cat([sr, ss, sl]),
-            dst=torch.cat([tr, ts, tl]),
-            # two partition lanes: swaps touch two partitions, other kinds
-            # duplicate their single partition
-            part1=torch.cat([pr, ps1, pl]),
-            part2=torch.cat([pr, ps2, pl]),
-            nr=int(dr.shape[0]), ns=int(ds.shape[0]), payr=payr_ext, payl=payl_ext,
-        )
-
-    # ------------------------------------------------------------------
-    # step: propose -> evaluate -> accept -> select -> apply
+    # step: propose + evaluate + accept -> select -> apply
     # ------------------------------------------------------------------
 
     def step(self, carry: EngineCarry, temperature: float, plan: SamplingPlan | None = None):
         """One anneal step at `temperature` (an f32 value); updates `carry`
         in place and returns (carry, stats) with device-side counts."""
-        key, k_r, k_s, k_l, k_u = carry.key.split(5)
-        g = self._globals(carry)
-        prop = self._assemble_prop(
-            carry,
-            self._replica_candidates(carry, k_r, g, plan),
-            self._swap_candidates(carry, k_s, g, plan),
-            self._leadership_candidates(carry, k_l, g, plan),
+        keys = cand_k.StepKeys.of(carry.key)
+        prop = cand_k.candidates(
+            self.cand, self.statics, carry, keys, self._globals(carry), plan, temperature
         )
-        return self.accept_select_apply(carry, prop, temperature, key, k_u)
+        return self.select_apply(carry, prop, keys.next)
 
-    def accept_select_apply(self, carry: EngineCarry, prop: dict, temperature: float,
-                            key: Key, k_u: Key):
-        """Metropolis acceptance + conflict resolution + scatter."""
+    def select_apply(self, carry: EngineCarry, prop: dict, next_key: Key):
+        """Conflict resolution + scatter of an accepted candidate bundle."""
         delta, feas = prop["delta"], prop["feas"]
-        # Metropolis acceptance: delta < -T log u  (greedy at T=0)
-        u = draws.uniform(k_u, int(delta.shape[0]), minval=1e-12, maxval=1.0, device=self.device)
-        thresh = -temperature * torch.log(u)
-        accept = feas & (delta < thresh - 1e-12)
         survive = select_k.select_survivors(
-            accept, delta, prop["src"], prop["dst"], prop["part1"], prop["part2"],
+            prop["accept"], delta, prop["src"], prop["dst"], prop["part1"], prop["part2"],
             num_brokers=self.shape.B, num_parts=self.shape.P,
         )
         nr, ns = prop["nr"], prop["ns"]
@@ -959,7 +632,7 @@ class Engine:
         sv_r_ext = torch.cat([survive[:nr], sv_s, sv_s])
         apply_k.apply_moves(self.statics, carry, sv_r_ext, prop["payr"], survive[nr + ns:],
                             prop["payl"])
-        carry.key = key
+        carry.key = next_key
         stats = dict(
             accepted=survive.sum(),
             improving=(feas & (delta < 0)).sum(),

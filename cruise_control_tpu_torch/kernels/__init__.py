@@ -13,6 +13,7 @@ from __future__ import annotations
 LAUNCHES: dict[str, int] = {
     "threefry_uniform": 0,
     "move_delta": 0,
+    "candidates": 0,
     "select_survivors": 0,
     "apply_moves": 0,
 }

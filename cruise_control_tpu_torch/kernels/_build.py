@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-Each `csrc/<name>.cu` holds one kernel family behind a plain C interface.
+Each `csrc/<name>.cu` holds one kernel family behind a plain C interface;
+the headers `csrc/*.cuh` hold device functions they share.
 It is compiled by `nvcc` for Hopper (`sm_90a`) into its own shared library
 under the package's `_build/` directory and loaded with `ctypes`; no source
 includes PyTorch's headers, so a build takes seconds.  A library's file
@@ -26,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-KERNEL_SOURCES = ("threefry", "move_delta", "select", "apply")
+KERNEL_SOURCES = ("threefry", "move_delta", "candidates", "select", "apply")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -54,7 +55,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha1()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

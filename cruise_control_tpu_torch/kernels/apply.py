@@ -8,14 +8,19 @@ the replica and leader counts, potential NW-out, leader bytes-in,
 broker_topic_count[T,B], part_rack_count[P,racks], disk_load[B,D] and
 host_load[H,4].
 
-Bound on the card: bytes — every row reads ~60 bytes of payload and a
-survivor read-modify-writes ~30 aggregate words; with a few hundred
-survivors per step the launch dominates.  Design: one thread per payload
-row, survivors only, in-place updates of the carry (the reference donates
-its carry; here the step owns it), integer and float `atomicAdd`.
-Survivors touch distinct partitions, so the placement writes never race.
-The float atomics add in no fixed order; the round's aggregate refresh
-recomputes every aggregate from the placement, as the reference's does.
+Bound on the card: bytes — every row's survivor flag is read, and only a
+survivor reads its ~60-byte payload row and read-modify-writes ~30
+aggregate words; with a few hundred survivors per step the launches
+dominate.  Design: in-place updates of the carry (the reference donates
+its carry; here the step owns it).  A row pass writes the placement
+(survivors touch distinct partitions, so it never races), the integer
+counts with atomics (their sums do not depend on order) and each
+survivor's row id into per-broker slots; an owner pass, one thread per
+host, adds every float of its brokers and of its host in the reference's
+order.  So the card's aggregates are bit for bit the plain version's, run
+after run, and a seed gives one trajectory.  It relies on each broker
+being the src of at most one surviving row and the dst of at most one,
+which `select_survivors` guarantees (csrc/apply.cu).
 
 The plain version mirrors the reference's scatter order exactly: all src
 subtractions in row order, then all dst additions, relocations before
@@ -104,6 +109,10 @@ class _LeadRows(ctypes.Structure):
     )]
 
 
+class _Owners(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in ("host_brokers", "host_start", "slots")]
+
+
 class _Carry(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "replica_broker", "replica_disk", "replica_is_leader", "broker_load", "rcount",
@@ -116,7 +125,7 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("apply").cc_apply_moves
-        fn.argtypes = [_Dims, _RelRows, _LeadRows, _Carry, ctypes.c_void_p]
+        fn.argtypes = [_Dims, _RelRows, _LeadRows, _Carry, _Owners, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -174,11 +183,16 @@ def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
         broker_rack=_need("broker_rack", st.broker_rack, i32, (B,)),
         broker_host=_need("broker_host", st.broker_host, i32, (B,)),
     )
+    owners = _Owners(
+        host_brokers=_need("host_brokers", sx.host_brokers, i32, (B,)),
+        host_start=_need("host_start", sx.host_start, i32, (H + 2,)),
+        slots=_need("apply_slots", sx.apply_slots, i32, (2, B)),
+    )
     dims = _Dims(n_rel, n_lead, R, B, T, P, s.num_racks, D, H)
     if n_rel + n_lead == 0:
         return
     stream = torch.cuda.current_stream(sv_r.device).cuda_stream
-    status = _fn()(dims, rel, lead, c, stream)
+    status = _fn()(dims, rel, lead, c, owners, stream)
     _build.check(status, "apply_moves")
     kernels.LAUNCHES["apply_moves"] += 1
 

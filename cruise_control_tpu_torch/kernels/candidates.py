@@ -1,0 +1,666 @@
+"""candidates — one anneal step's candidate moves: drawn, scored, accepted.
+
+Replaces, per step: `jax.random.uniform` / `_uniform_idx` draws and
+`_sample_sources` (cruise_control_tpu/analyzer/engine.py:958, :1810), the
+three candidate kinds `_replica_candidates` (:1954), `_swap_candidates`
+(:2160) and `_leadership_candidates` (:2348) with their `_move_delta`
+(:2439), `_assemble_prop` (:2580) and the Metropolis acceptance of
+`_accept_select_apply` (:2669).  Out come the bundle that `select_survivors`
+reads (delta, feas, accept, src, dst, part1, part2) and the payload rows
+that `apply_moves` reads (`apply.REL_FIELDS`, a swap as two linked rows at
+nr+i and nr+ns+i; `apply.LEAD_FIELDS`).
+
+Bound on the card: bytes, and latency.  Each candidate gathers one or two
+replica rows, a partition's member row, the src/dst broker, host and disk
+rows, and (for the importance-sampled sources) ~12 probes of the broker
+CDF, then writes ~22 bytes of bundle and a 53- or 64-byte payload row; a
+north-star step (K=16,384) needs a few MB, about a microsecond of HBM
+time.  The work per candidate is a dependent chain of gathers, so what
+the kernel can do is keep the chain short and every intermediate in
+registers.  Design (csrc/candidates.cu): a prologue launch computes the
+old-state objective terms once per broker and host; one launch then runs
+all K candidates, each move kind in its own block range, one thread per
+candidate, drawing its own threefry counters inline (the draws never
+touch HBM), staging the broker CDF in shared memory, and writing straight
+into the bundle and payload layouts.  Tensor cores and TMA have nothing to
+do here: there is no matrix product, and the gathers are scattered rows.
+
+Keys: the host derives a step's keys in Python integers, exactly as the
+reference splits them (`StepKeys.of`), and passes them by value.
+
+The plain version (`candidates_plain`) is the engine's candidate code as
+PyTorch ops, with the draws and deltas of the plain threefry and
+move_delta functions; the CPU tests hold it against the JAX reference.
+The intra-broker disk goals are covered by the plain version only; the
+kernel refuses them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from cruise_control_tpu_torch import kernels
+from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
+from cruise_control_tpu_torch.kernels import _build, threefry
+from cruise_control_tpu_torch.kernels import move_delta as md
+
+if TYPE_CHECKING:
+    from cruise_control_tpu_torch.analyzer.draws import Key
+
+_NW_IN, _NW_OUT, _DISK = int(Resource.NW_IN), int(Resource.NW_OUT), int(Resource.DISK)
+#: the Metropolis draw's minval (engine.py:950 of the reference)
+U_MIN = 1e-12
+_FN = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StepKeys:
+    """The threefry keys of one anneal step, split from the carry key as
+    the reference's `_step` (split(5)), candidate kinds (split(2)) and
+    `_sample_sources` (split(4)) split them."""
+
+    next: Key  # the carry's key after the step
+    rel_src: tuple[Key, Key, Key, Key]  # relocation sources: uniform, CDF u, slot u, fallback
+    rel_dst: Key
+    swap_src: tuple[Key, Key, Key, Key]  # swap sources r, as rel_src
+    swap_q: Key
+    lead: Key
+    u: Key  # Metropolis draw over all K candidates
+
+    @staticmethod
+    def of(key: Key) -> "StepKeys":
+        nxt, k_r, k_s, k_l, k_u = key.split(5)
+        r_src, r_dst = k_r.split(2)
+        s_src, s_q = k_s.split(2)
+        return StepKeys(nxt, tuple(r_src.split(4)), r_dst, tuple(s_src.split(4)), s_q, k_l, k_u)
+
+    def c_struct(self) -> "_StepKeysC":
+        def k(key):
+            return _Key2(key.k0, key.k1)
+
+        return _StepKeysC(
+            rel_src=(_Key2 * 4)(*map(k, self.rel_src)), rel_dst=k(self.rel_dst),
+            swap_src=(_Key2 * 4)(*map(k, self.swap_src)), swap_q=k(self.swap_q),
+            lead=k(self.lead), u=k(self.u),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CandParams:
+    """Per-engine constants of candidate generation: the objective terms'
+    parameters, the candidate split, and the goal weights of the terms
+    that live outside the broker terms."""
+
+    tp: md.TermParams
+    K_r: int
+    K_s: int
+    K_l: int
+    w_rack: float
+    w_offline: float
+    w_topic: float
+    w_pref: float
+    topic_tt: float  # topic replica-count balance threshold
+    replica_move_cost: float
+    leadership_move_cost: float
+    importance_fraction: float
+    num_parts: int  # max(1, P): the preferred-leader term's denominator
+
+    def n_imp(self, n: int, plan) -> int:
+        """Importance-sampled sources among n (the tail of the n)."""
+        return int(round(n * self.importance_fraction)) if plan is not None else 0
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch version (the engine's candidate generation)
+# ----------------------------------------------------------------------
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, min=0.0)
+
+
+def _uniform(key: Key, n: int, dev) -> torch.Tensor:
+    return threefry.uniform_plain(key.words, n, 0.0, 1.0, dev)
+
+
+def _uniform_idx(key: Key, n: int, bound: int, dev) -> torch.Tensor:
+    return threefry.uniform_idx_plain(key.words, n, bound, dev)
+
+
+def _sample_sources(cp: CandParams, sx, keys4, n: int, plan) -> torch.Tensor:
+    """n source replica ids: the last n_imp of them by the two-stage plan
+    draw (broker ~ categorical, then a replica on it), the rest uniform
+    over the valid prefix."""
+    dev = sx.alive.device
+    k1, k3, k4, k5 = keys4
+    n_imp = cp.n_imp(n, plan)
+    r = _uniform_idx(k1, n - n_imp, sx.n_source, dev)
+    if n_imp:
+        u = _uniform(k3, n_imp, dev)
+        bsel = torch.clamp(
+            torch.searchsorted(plan.broker_cdf, u, right=True), 0, sx.n_brokers - 1
+        )
+        cnt = plan.count[bsel]
+        j = (_uniform(k4, n_imp, dev) * cnt).to(torch.int32)
+        r_imp = plan.order[torch.clamp(plan.start[bsel] + j, 0, sx.state.shape.R - 1)]
+        fallback = _uniform_idx(k5, n_imp, sx.n_source, dev)
+        r = torch.cat([r, torch.where(cnt > 0, r_imp, fallback)])
+    return r
+
+
+def _member_brokers(sx, carry, part: torch.Tensor) -> torch.Tensor:
+    """[K, max_rf] current brokers of each partition's replicas, -1 on the
+    table's padding."""
+    R = sx.state.shape.R
+    members = sx.part_replicas[part]
+    vals = carry.replica_broker[torch.clamp(members, max=R - 1)]
+    return torch.where(members < R, vals, -1)
+
+
+def _topic_cell_delta(cp: CandParams, carry, g, t, b_from, b_to):
+    """Topic-distribution cell change of one replica of topic t moving
+    b_from -> b_to."""
+    tt = cp.topic_tt
+    upper = torch.ceil(g["topic_avg"][t] * tt)
+    lower = torch.floor(g["topic_avg"][t] * max(0.0, 2.0 - tt))
+
+    def cell(cnt):
+        return _relu(cnt - upper) + _relu(lower - cnt)
+
+    ct_f = carry.broker_topic_count[t, b_from].to(torch.float32)
+    ct_t = carry.broker_topic_count[t, b_to].to(torch.float32)
+    return (cell(ct_f - 1.0) - cell(ct_f)) + (cell(ct_t + 1.0) - cell(ct_t))
+
+
+def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
+    """K_r replica-move candidates -> (delta, feasible, src, dst, part, payload)."""
+    st = sx.state
+    K = cp.K_r
+    r = _sample_sources(cp, sx, keys.rel_src, K, plan)
+    dst = sx.dest_ids[_uniform_idx(keys.rel_dst, K, sx.n_dest, sx.alive.device)]
+    src = carry.replica_broker[r]
+    part = st.replica_partition[r]
+    disk = carry.replica_disk[r]
+    topic = st.replica_topic[r]
+    valid = st.replica_valid[r]
+    is_lead = carry.replica_is_leader[r]
+    ll, lf = st.replica_load_leader[r], st.replica_load_follower[r]
+
+    # feasibility (reference GoalUtils.legitMove:153 + exclusions)
+    offline = ~(st.broker_alive[src] & st.disk_alive[src, disk])
+    movable = sx.topic_movable[topic] | offline
+    feasible = valid & movable & (src != dst)
+    # no second replica of the partition on dst
+    feasible &= ~(_member_brokers(sx, carry, part) == dst[:, None]).any(1)
+
+    load = torch.where(is_lead[:, None], ll, lf)
+    load = torch.where(valid[:, None], load, 0.0)
+
+    # destination logdir: most-free alive disk on dst
+    ddst_pct = carry.disk_load[dst] / (st.disk_capacity[dst] + 1e-12)
+    ddst_pct = torch.where(st.disk_alive[dst], ddst_pct, float("inf"))
+    d_dst = torch.argmin(ddst_pct, dim=1).to(torch.int32)
+
+    pot = ll[:, _NW_OUT]
+    lbin = torch.where(is_lead, ll[:, _NW_IN], 0.0)
+    delta = md.move_delta_plain(
+        cp.tp, sx, carry, g,
+        src=src, dst=dst, dload_src=-load, dload_dst=load,
+        dcount=torch.ones_like(r), dlcount=is_lead.to(torch.int32),
+        dpot=pot, dlbin=lbin, dlbin_src=lbin, d_src=disk, d_dst=d_dst,
+        ddisk=load[:, _DISK], ddisk_src=load[:, _DISK],
+    )
+
+    # rack cells (reference RackAwareGoal)
+    rack_s, rack_d = st.broker_rack[src], st.broker_rack[dst]
+    c_s = carry.part_rack_count[part, rack_s].to(torch.float32)
+    c_d = carry.part_rack_count[part, rack_d].to(torch.float32)
+    drack = (_relu(c_s - 2.0) - _relu(c_s - 1.0)) + (_relu(c_d) - _relu(c_d - 1.0))
+    delta = delta + cp.w_rack * torch.where(rack_s != rack_d, drack, 0.0) / sx.n_valid
+
+    # topic cells (reference TopicReplicaDistributionGoal)
+    if cp.w_topic != 0.0:
+        dtop = _topic_cell_delta(cp, carry, g, topic, src, dst)
+        delta = delta + cp.w_topic * dtop / g["total_count"]
+
+    # offline-replica term (reference OptimizationVerifier BROKEN_BROKERS)
+    dst_ok = st.broker_alive[dst] & st.disk_alive[dst, d_dst]
+    doff = (~dst_ok).to(torch.float32) - offline.to(torch.float32)
+    delta = delta + cp.w_offline * doff / sx.n_valid
+
+    # preferred-leader eligibility shift (reference PreferredLeaderElectionGoal)
+    if cp.w_pref != 0.0:
+        pref = (st.replica_pos[r] == 0) & valid & ~is_lead
+        was = pref & ~offline
+        now = pref & dst_ok
+        delta = delta + cp.w_pref * (now.to(torch.float32) - was.to(torch.float32)) / cp.num_parts
+
+    # movement pricing: cost to stray from the ORIGINAL broker, refunded
+    # when moving home (reference ExecutionProposal data-to-move)
+    if plan is not None and cp.replica_move_cost:
+        orig = st.replica_broker[r]
+        stray = (dst != orig).to(torch.float32) - (src != orig).to(torch.float32)
+        delta = delta + plan.replica_cost * stray
+
+    payload = dict(r=r, dst=dst, d_dst=d_dst, load=load, is_lead=is_lead,
+                   pot=pot, lbin=lbin, d_src=disk)
+    return delta, feasible, src, dst, part, payload
+
+
+def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
+    """K_s replica-swap candidates: r <-> q exchange brokers (and disk
+    slots), escaping local optima single relocations cannot leave
+    (reference ResourceDistributionGoal swap-in/out :502-599).
+
+    Returns (delta, feasible, src, dst, part_r, part_q, payload)."""
+    st = sx.state
+    K = cp.K_s
+    dev = sx.alive.device
+    if K == 0:
+        z = torch.zeros(0, dtype=torch.float32, device=dev)
+        zi = torch.zeros(0, dtype=torch.int32, device=dev)
+        zb = torch.zeros(0, dtype=torch.bool, device=dev)
+        zl = torch.zeros((0, NUM_RESOURCES), dtype=torch.float32, device=dev)
+        payload = dict(r=zi, q=zi, load_r=zl, load_q=zl, lead_r=zb, lead_q=zb,
+                       pot_r=z, pot_q=z, lbin_r=z, lbin_q=z, d_r=zi, d_q=zi)
+        return z, zb, zi, zi, zi, zi, payload
+    r = _sample_sources(cp, sx, keys.swap_src, K, plan)
+    q = _uniform_idx(keys.swap_q, K, sx.n_source, dev)
+    src, dst = carry.replica_broker[r], carry.replica_broker[q]
+    part_r, part_q = st.replica_partition[r], st.replica_partition[q]
+    d_r, d_q = carry.replica_disk[r], carry.replica_disk[q]
+    topic_r, topic_q = st.replica_topic[r], st.replica_topic[q]
+    valid_r, valid_q = st.replica_valid[r], st.replica_valid[q]
+    lead_r, lead_q = carry.replica_is_leader[r], carry.replica_is_leader[q]
+    ll_r, ll_q = st.replica_load_leader[r], st.replica_load_leader[q]
+
+    off_r = ~(st.broker_alive[src] & st.disk_alive[src, d_r])
+    off_q = ~(st.broker_alive[dst] & st.disk_alive[dst, d_q])
+    movable_r = sx.topic_movable[topic_r] | off_r
+    movable_q = sx.topic_movable[topic_q] | off_q
+    feasible = (
+        valid_r & valid_q & movable_r & movable_q
+        & (src != dst)
+        & (part_r != part_q)
+        # both ends receive a replica, so both must be allowed destinations
+        & sx.dest_ok[src] & sx.dest_ok[dst]
+        # each replica inherits the other's disk slot, which must be alive
+        & st.disk_alive[dst, d_q] & st.disk_alive[src, d_r]
+    )
+    # neither partition may end up duplicated on its new broker
+    feasible &= ~(_member_brokers(sx, carry, part_r) == dst[:, None]).any(1)
+    feasible &= ~(_member_brokers(sx, carry, part_q) == src[:, None]).any(1)
+
+    load_r = torch.where(lead_r[:, None], ll_r, st.replica_load_follower[r])
+    load_r = torch.where(valid_r[:, None], load_r, 0.0)
+    load_q = torch.where(lead_q[:, None], ll_q, st.replica_load_follower[q])
+    load_q = torch.where(valid_q[:, None], load_q, 0.0)
+    pot_r, pot_q = ll_r[:, _NW_OUT], ll_q[:, _NW_OUT]
+    lbin_r = torch.where(lead_r, ll_r[:, _NW_IN], 0.0)
+    lbin_q = torch.where(lead_q, ll_q[:, _NW_IN], 0.0)
+
+    # r -> (dst, q's disk slot), q -> (src, r's disk slot)
+    ddisk = load_r[:, _DISK] - load_q[:, _DISK]
+    delta = md.move_delta_plain(
+        cp.tp, sx, carry, g,
+        src=src, dst=dst, dload_src=load_q - load_r, dload_dst=load_r - load_q,
+        dcount=torch.zeros_like(r), dlcount=lead_r.to(torch.int32) - lead_q.to(torch.int32),
+        dpot=pot_r - pot_q, dlbin=lbin_r - lbin_q, dlbin_src=lbin_r - lbin_q,
+        d_src=d_r, d_dst=d_q, ddisk=ddisk, ddisk_src=ddisk,
+    )
+
+    # rack cells for both partitions
+    rack_s, rack_d = st.broker_rack[src], st.broker_rack[dst]
+
+    def rack_delta(part, rack_from, rack_to):
+        c_f = carry.part_rack_count[part, rack_from].to(torch.float32)
+        c_t = carry.part_rack_count[part, rack_to].to(torch.float32)
+        d = (_relu(c_f - 2.0) - _relu(c_f - 1.0)) + (_relu(c_t) - _relu(c_t - 1.0))
+        return torch.where(rack_from != rack_to, d, 0.0)
+
+    delta = delta + cp.w_rack * (
+        rack_delta(part_r, rack_s, rack_d) + rack_delta(part_q, rack_d, rack_s)
+    ) / sx.n_valid
+
+    if cp.w_topic != 0.0:
+        delta = delta + cp.w_topic * (
+            _topic_cell_delta(cp, carry, g, topic_r, src, dst)
+            + _topic_cell_delta(cp, carry, g, topic_q, dst, src)
+        ) / g["total_count"]
+
+    # offline-replica shifts for both replicas
+    r_ok = st.broker_alive[dst] & st.disk_alive[dst, d_q]
+    q_ok = st.broker_alive[src] & st.disk_alive[src, d_r]
+    f32 = torch.float32
+    doff = (~r_ok).to(f32) - off_r.to(f32) + (~q_ok).to(f32) - off_q.to(f32)
+    delta = delta + cp.w_offline * doff / sx.n_valid
+
+    if cp.w_pref != 0.0:
+        def pref_delta(x, valid_x, was_off, now_ok, lead):
+            pref = (st.replica_pos[x] == 0) & valid_x & ~lead
+            return (pref & now_ok).to(f32) - (pref & ~was_off).to(f32)
+
+        delta = delta + cp.w_pref * (
+            pref_delta(r, valid_r, off_r, r_ok, lead_r) + pref_delta(q, valid_q, off_q, q_ok, lead_q)
+        ) / cp.num_parts
+
+    if plan is not None and cp.replica_move_cost:
+        orig_r, orig_q = st.replica_broker[r], st.replica_broker[q]
+        stray = (
+            (dst != orig_r).to(f32) - (src != orig_r).to(f32)
+            + (src != orig_q).to(f32) - (dst != orig_q).to(f32)
+        )
+        delta = delta + plan.replica_cost * stray
+
+    payload = dict(r=r, q=q, load_r=load_r, load_q=load_q, lead_r=lead_r, lead_q=lead_q,
+                   pot_r=pot_r, pot_q=pot_q, lbin_r=lbin_r, lbin_q=lbin_q, d_r=d_r, d_q=d_q)
+    return delta, feasible, src, dst, part_r, part_q, payload
+
+
+def _leadership_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
+    """K_l leadership-transfer candidates (reference relocateLeadership:374)."""
+    st = sx.state
+    K = cp.K_l
+    R = st.shape.R
+    dev = sx.alive.device
+    if K == 0:
+        z = torch.zeros(0, dtype=torch.float32, device=dev)
+        zi = torch.zeros(0, dtype=torch.int32, device=dev)
+        zb = torch.zeros(0, dtype=torch.bool, device=dev)
+        zl = torch.zeros((0, NUM_RESOURCES), dtype=torch.float32, device=dev)
+        payload = dict(rf=zi, rt=zi, dl_f=zl, dl_t=zl, dlbin_src=z, dlbin_dst=z)
+        return z, zb, zi, zi, zi, payload
+    rt = _uniform_idx(keys.lead, K, sx.n_source, dev)
+    part = st.replica_partition[rt]
+    members = sx.part_replicas[part]  # [K, max_rf]
+    m_idx = torch.clamp(members, max=R - 1)
+    m_lead = torch.where(members < R, carry.replica_is_leader[m_idx], False)
+    first_lead = torch.argmax(m_lead.to(torch.int8), dim=1)
+    rf = m_idx.gather(1, first_lead[:, None]).squeeze(1)
+
+    src, dst = carry.replica_broker[rf], carry.replica_broker[rt]
+    disk_f, disk_t = carry.replica_disk[rf], carry.replica_disk[rt]
+    dst_ok = st.broker_alive[dst] & st.disk_alive[dst, disk_t]
+    feasible = (
+        st.replica_valid[rt] & ~carry.replica_is_leader[rt] & m_lead.any(1)
+        & dst_ok & sx.lead_ok[dst]
+    )
+
+    # load shift: rf leader->follower on src, rt follower->leader on dst
+    ll_f, ll_t = st.replica_load_leader[rf], st.replica_load_leader[rt]
+    dl_f = st.replica_load_follower[rf] - ll_f  # [K, 4]
+    dl_t = ll_t - st.replica_load_follower[rt]
+    dlbin = ll_t[:, _NW_IN]  # gained by dst
+    dlbin_src = ll_f[:, _NW_IN]  # lost by src
+    delta = md.move_delta_plain(
+        cp.tp, sx, carry, g,
+        src=src, dst=dst, dload_src=dl_f, dload_dst=dl_t,
+        dcount=torch.zeros_like(rt), dlcount=torch.ones_like(rt),
+        dpot=torch.zeros(K, dtype=torch.float32, device=dev),
+        dlbin_src=dlbin_src, dlbin=dlbin,
+        d_src=disk_f, d_dst=disk_t, ddisk_src=dl_f[:, _DISK], ddisk=dl_t[:, _DISK],
+    )
+
+    f32 = torch.float32
+    if cp.w_pref != 0.0:
+        src_ok = st.broker_alive[src] & st.disk_alive[src, disk_f]
+        pref_f = (st.replica_pos[rf] == 0) & src_ok  # rf becomes violating
+        pref_t = (st.replica_pos[rt] == 0) & dst_ok  # rt stops violating
+        delta = delta + cp.w_pref * (pref_f.to(f32) - pref_t.to(f32)) / cp.num_parts
+
+    # movement pricing: a new leader that is not the partition's ORIGINAL
+    # leader pays; restoring the original leader refunds
+    if plan is not None and cp.leadership_move_cost:
+        stray = (~st.replica_is_leader[rt]).to(f32) - (~st.replica_is_leader[rf]).to(f32)
+        delta = delta + plan.lead_cost * stray
+
+    payload = dict(rf=rf, rt=rt, dl_f=dl_f, dl_t=dl_t, dlbin_src=dlbin_src, dlbin_dst=dlbin)
+    return delta, feasible, src, dst, part, payload
+
+
+def _assemble_prop(sx, carry, raw_r, raw_s, raw_l) -> dict:
+    """Concatenate the per-kind bundles into the selection/apply bundle;
+    a swap applies as two linked relocation rows."""
+    st = sx.state
+    dr, fr, sr, tr, pr, payr = raw_r
+    ds, fs, ss, ts, ps1, ps2, pays = raw_s
+    dl, fl, sl, tl, pl, payl = raw_l
+    r_ext = torch.cat([payr["r"], pays["r"], pays["q"]])
+    payr_ext = dict(
+        r=r_ext,
+        src=torch.cat([sr, ss, ts]),
+        dst=torch.cat([payr["dst"], ts, ss]),
+        d_dst=torch.cat([payr["d_dst"], pays["d_q"], pays["d_r"]]),
+        load=torch.cat([payr["load"], pays["load_r"], pays["load_q"]]),
+        is_lead=torch.cat([payr["is_lead"], pays["lead_r"], pays["lead_q"]]),
+        pot=torch.cat([payr["pot"], pays["pot_r"], pays["pot_q"]]),
+        lbin=torch.cat([payr["lbin"], pays["lbin_r"], pays["lbin_q"]]),
+        d_src=torch.cat([payr["d_src"], pays["d_r"], pays["d_q"]]),
+        topic=st.replica_topic[r_ext],
+        part=torch.cat([pr, ps1, ps2]),
+    )
+    payl_ext = dict(
+        payl, src_b=sl, dst_b=tl,
+        d_f=carry.replica_disk[payl["rf"]], d_t=carry.replica_disk[payl["rt"]],
+    )
+    return dict(
+        delta=torch.cat([dr, ds, dl]),
+        feas=torch.cat([fr, fs, fl]),
+        src=torch.cat([sr, ss, sl]),
+        dst=torch.cat([tr, ts, tl]),
+        # two partition lanes: swaps touch two partitions, other kinds
+        # duplicate their single partition
+        part1=torch.cat([pr, ps1, pl]),
+        part2=torch.cat([pr, ps2, pl]),
+        nr=int(dr.shape[0]), ns=int(ds.shape[0]), payr=payr_ext, payl=payl_ext,
+    )
+
+
+def accept_plain(keys: StepKeys, delta, feas, temperature: float) -> torch.Tensor:
+    """Metropolis acceptance: delta < -T log u - 1e-12 (greedy at T=0)."""
+    u = threefry.uniform_plain(keys.u.words, int(delta.shape[0]), U_MIN, 1.0, delta.device)
+    thresh = -temperature * torch.log(u)
+    return feas & (delta < thresh - 1e-12)
+
+
+def candidates_plain(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperature: float) -> dict:
+    prop = _assemble_prop(
+        sx, carry,
+        _replica_candidates(cp, sx, carry, keys, g, plan),
+        _swap_candidates(cp, sx, carry, keys, g, plan),
+        _leadership_candidates(cp, sx, carry, keys, g, plan),
+    )
+    prop["accept"] = accept_plain(keys, prop["delta"], prop["feas"], temperature)
+    return prop
+
+
+# ----------------------------------------------------------------------
+# kernel
+# ----------------------------------------------------------------------
+
+
+class _Key2(ctypes.Structure):
+    _fields_ = [("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32)]
+
+
+class _StepKeysC(ctypes.Structure):
+    """Mirror of `struct StepKeys` in csrc/candidates.cu."""
+
+    _fields_ = [("rel_src", _Key2 * 4), ("rel_dst", _Key2), ("swap_src", _Key2 * 4),
+                ("swap_q", _Key2), ("lead", _Key2), ("u", _Key2)]
+
+
+class _Dims(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "R", "B", "P", "T", "D", "H", "racks",
+        "max_rf", "n_source", "n_dest", "n_brokers", "has_plan", "has_topic", "has_pref",
+        "price_r", "price_l", "cdf_in_smem",
+    )]
+
+
+class _Scalars(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_float) for f in (
+        "w_rack", "w_offline", "w_topic", "w_pref", "topic_tt", "topic_tt_low", "num_parts",
+        "temperature", "u_min", "u_span",
+    )]
+
+
+_IN_FIELDS = (
+    # state
+    "orig_broker", "part_of", "topic_of", "valid", "pos", "orig_lead", "load_leader",
+    "load_follower", "broker_alive", "broker_rack", "broker_host", "capacity", "disk_alive",
+    "disk_capacity",
+    # statics
+    "part_replicas", "alive", "dest_ids", "dest_ok", "lead_ok", "topic_movable", "host_multi",
+    "host_cap",
+    # carry
+    "replica_broker", "replica_is_leader", "replica_disk", "broker_load", "rcount", "lcount",
+    "pot", "lbin", "topic_count", "part_rack_count", "disk_load", "host_load",
+    # per-step globals and the round's plan
+    "g", "topic_avg", "cdf", "order", "start", "count", "replica_cost", "lead_cost",
+)
+_OUT_FIELDS = (
+    "delta", "feas", "accept", "src", "dst", "part1", "part2",
+    "r", "r_src", "r_dst", "d_src", "d_dst", "load", "is_lead", "pot", "lbin", "topic", "part",
+    "rf", "rt", "src_b", "dst_b", "dl_f", "dl_t", "dlbin_src", "dlbin_dst", "d_f", "d_t",
+    "old_broker", "old_host", "old_tie",
+)
+
+
+class _Inputs(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in _IN_FIELDS]
+
+
+class _Outputs(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in _OUT_FIELDS]
+
+
+#: dynamic shared memory the kernel may take for the broker CDF (below the
+#: card's 227 KB a block can use)
+CDF_SMEM_MAX = 200 * 1024
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = _build.library("candidates").cc_candidates
+        fn.argtypes = [_Dims, md.MDParams, _Scalars, _StepKeysC, _Inputs, _Outputs, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _ptr(name, t, dtype, shape) -> int:
+    """The data pointer of a contiguous tensor of this type and shape
+    (rows of four floats 16-byte aligned: the kernel loads them whole)."""
+    aligned = not (len(shape) == 2 and shape[1] == 4) or t.data_ptr() % 16 == 0
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() or not aligned:
+        raise ValueError(
+            f"candidates: {name} must be contiguous {dtype}{list(shape)} (rows of 4 aligned "
+            f"to 16 bytes), got {t.dtype}{list(t.shape)} contiguous={t.is_contiguous()}"
+        )
+    return t.data_ptr()
+
+
+def candidates_cuda(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperature: float) -> dict:
+    st = sx.state
+    s = st.shape
+    dev = carry.broker_load.device
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    B, R, P, T, D, H = s.B, s.R, s.P, s.num_topics, s.max_disks_per_broker, s.num_hosts
+    racks, max_rf = s.num_racks, int(sx.part_replicas.shape[1])
+    K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
+    K, nr = K_r + K_s + K_l, K_r + 2 * K_s
+    gvec = md.pack_globals(g)
+    inputs = dict(
+        orig_broker=(st.replica_broker, i32, (R,)), part_of=(st.replica_partition, i32, (R,)),
+        topic_of=(st.replica_topic, i32, (R,)), valid=(st.replica_valid, b8, (R,)),
+        pos=(st.replica_pos, i32, (R,)), orig_lead=(st.replica_is_leader, b8, (R,)),
+        load_leader=(st.replica_load_leader, f32, (R, 4)),
+        load_follower=(st.replica_load_follower, f32, (R, 4)),
+        broker_alive=(st.broker_alive, b8, (B,)), broker_rack=(st.broker_rack, i32, (B,)),
+        broker_host=(st.broker_host, i32, (B,)), capacity=(st.broker_capacity, f32, (B, 4)),
+        disk_alive=(st.disk_alive, b8, (B, D)), disk_capacity=(st.disk_capacity, f32, (B, D)),
+        part_replicas=(sx.part_replicas, i32, (P, max_rf)), alive=(sx.alive, b8, (B,)),
+        dest_ids=(sx.dest_ids, i32, (B,)), dest_ok=(sx.dest_ok, b8, (B,)),
+        lead_ok=(sx.lead_ok, b8, (B,)), topic_movable=(sx.topic_movable, b8, (T,)),
+        host_multi=(sx.host_multi, b8, (H,)), host_cap=(sx.host_cap, f32, (H, 4)),
+        replica_broker=(carry.replica_broker, i32, (R,)),
+        replica_is_leader=(carry.replica_is_leader, b8, (R,)),
+        replica_disk=(carry.replica_disk, i32, (R,)), broker_load=(carry.broker_load, f32, (B, 4)),
+        rcount=(carry.broker_replica_count, i32, (B,)), lcount=(carry.broker_leader_count, i32, (B,)),
+        pot=(carry.broker_potential_nw_out, f32, (B,)), lbin=(carry.broker_leader_bytes_in, f32, (B,)),
+        topic_count=(carry.broker_topic_count, i32, (T, B)),
+        part_rack_count=(carry.part_rack_count, i32, (P, racks)),
+        disk_load=(carry.disk_load, f32, (B, D)), host_load=(carry.host_load, f32, (H, 4)),
+        g=(gvec, f32, (22,)), topic_avg=(g["topic_avg"], f32, (T,)),
+    )
+    if plan is not None:
+        inputs.update(
+            cdf=(plan.broker_cdf, f32, (B,)), order=(plan.order, i32, (R,)),
+            start=(plan.start, i32, (B,)), count=(plan.count, i32, (B,)),
+            replica_cost=(plan.replica_cost, f32, ()), lead_cost=(plan.lead_cost, f32, ()),
+        )
+    c_in = _Inputs(**{k: _ptr(k, *v) for k, v in inputs.items()})
+
+    def e(*shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = dict(
+        delta=e(K, dtype=f32), feas=e(K, dtype=b8), accept=e(K, dtype=b8), src=e(K), dst=e(K),
+        part1=e(K), part2=e(K),
+    )
+    payr = dict(r=e(nr), src=e(nr), dst=e(nr), d_src=e(nr), d_dst=e(nr), load=e(nr, 4, dtype=f32),
+                is_lead=e(nr, dtype=b8), pot=e(nr, dtype=f32), lbin=e(nr, dtype=f32), topic=e(nr),
+                part=e(nr))
+    payl = dict(rf=e(K_l), rt=e(K_l), src_b=e(K_l), dst_b=e(K_l), dl_f=e(K_l, 4, dtype=f32),
+                dl_t=e(K_l, 4, dtype=f32), dlbin_src=e(K_l, dtype=f32), dlbin_dst=e(K_l, dtype=f32),
+                d_f=e(K_l), d_t=e(K_l))
+    # old-state terms: f32[B] per broker, f32[H] per host, the old tiebreak
+    scratch = e(B + H + 1, dtype=f32)
+    rows = {("r_" + k if k in ("src", "dst") else k): t for k, t in payr.items()}
+    c_out = _Outputs(
+        **{k: t.data_ptr() for k, t in {**out, **rows, **payl}.items()},
+        old_broker=scratch.data_ptr(), old_host=scratch.data_ptr() + 4 * B,
+        old_tie=scratch.data_ptr() + 4 * (B + H),
+    )
+    tt = cp.topic_tt
+    dims = _Dims(
+        K_r=K_r, K_s=K_s, K_l=K_l, n_imp_r=cp.n_imp(K_r, plan), n_imp_s=cp.n_imp(K_s, plan),
+        R=R, B=B, P=P, T=T, D=D, H=H, racks=racks, max_rf=max_rf, n_source=sx.n_source,
+        n_dest=sx.n_dest, n_brokers=sx.n_brokers, has_plan=plan is not None,
+        has_topic=cp.w_topic != 0.0, has_pref=cp.w_pref != 0.0,
+        price_r=plan is not None and bool(cp.replica_move_cost),
+        price_l=plan is not None and bool(cp.leadership_move_cost),
+        cdf_in_smem=plan is not None and 4 * B <= CDF_SMEM_MAX,
+    )
+    lo = np.float32(U_MIN)
+    scalars = _Scalars(
+        w_rack=cp.w_rack, w_offline=cp.w_offline, w_topic=cp.w_topic, w_pref=cp.w_pref,
+        topic_tt=tt, topic_tt_low=max(0.0, 2.0 - tt), num_parts=float(cp.num_parts),
+        temperature=temperature, u_min=float(lo), u_span=float(np.float32(np.float32(1.0) - lo)),
+    )
+    if K > 0:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = _fn()(dims, cp.tp.c_struct, scalars, keys.c_struct(), c_in, c_out, stream)
+        _build.check(status, "candidates")
+        kernels.LAUNCHES["candidates"] += 1
+    return dict(out, nr=K_r, ns=K_s, payr=payr, payl=payl)
+
+
+def candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperature: float) -> dict:
+    """One step's candidate bundle (delta, feas, accept, src, dst, part1,
+    part2, nr, ns, payr, payl): the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if kernels.route(carry.broker_load, carry.replica_broker, sx.alive) == "cpu":
+        return candidates_plain(cp, sx, carry, keys, g, plan, temperature)
+    if cp.tp.has_disk_terms:
+        raise NotImplementedError(
+            "candidates kernel: intra-broker disk goals in the chain are not ported to CUDA"
+        )
+    return candidates_cuda(cp, sx, carry, keys, g, plan, temperature)

@@ -1,0 +1,625 @@
+// candidates: one anneal step's K candidate moves, drawn, scored and
+// accepted in registers, written straight into the layouts that
+// select_survivors and apply_moves read.
+//
+// Replaces (cruise_control_tpu/analyzer/engine.py): the draws of
+// `_uniform_idx` (:958) and `_sample_sources` (:1810), `_replica_candidates`
+// (:1954), `_swap_candidates` (:2160), `_leadership_candidates` (:2348),
+// their `_move_delta` (:2439), `_assemble_prop` (:2580) and the Metropolis
+// acceptance of `_accept_select_apply` (:2669).  The arithmetic follows
+// candidates_plain() in kernels/candidates.py term for term, branching
+// where it branches (topic cells, preferred leader, pricing), so that no
+// `0 * x` turns a -0.0 into +0.0.
+//
+// What bounds it on this card: latency.  The bytes a north-star step needs
+// (K = 16,384 candidates: replica rows, member rows, src/dst broker, host
+// and disk rows, CDF probes, ~22 B of bundle and a 53/64 B payload row
+// each) are a few MB, about a microsecond of HBM time; the ALU work is a
+// few hundred flops a candidate.  What is left is each candidate's chain
+// of dependent gathers (source draw -> replica row -> broker row ->
+// aggregates), so the design keeps that chain short:
+//  - Old-state terms once per broker: broker_terms() of a broker's
+//    current row depends on the broker and the step's globals only, so a
+//    prologue launch (B + H + 1 threads) writes them to f32[B], the host
+//    terms to f32[H] and the old tiebreak to f32[1].  A candidate then
+//    evaluates only its two "new" lanes.  The same function of the same
+//    inputs: the bits do not change.
+//  - Draws inline: each candidate hashes its own threefry counters
+//    (common.cuh) under keys the host passes by value, so no draw touches
+//    HBM.  The counter of uniform draw i under a key is i, as in the
+//    `uniform(key, n)` call it replaces; the importance branch uses
+//    i - (n - n_imp), the Metropolis u the candidate's index in K.
+//  - The broker CDF (B floats, 10.4 KB at B = 2,600) is staged in shared
+//    memory by the blocks that hold importance-sampled sources, so the
+//    ~12 dependent probes of the upper-bound search hit shared memory.
+//  - One launch for all K candidates, each move kind in its own block
+//    range; one thread per candidate.  K = 16,384 is ~124 threads an SM,
+//    so occupancy is low; splitting a candidate over 2-4 threads (the
+//    src/dst lanes, the member scan) joined by shuffles is the next step
+//    if the profile shows the chain, not the launch, dominating.
+// Tensor cores do not apply (there is no matrix product), and TMA is not
+// worth it for scattered row gathers.
+#include "terms.cuh"
+
+struct Key2 {
+  uint32_t k0, k1;
+};
+
+// Mirror of kernels/candidates.py `_StepKeysC`.
+struct StepKeys {
+  Key2 rel_src[4];  // uniform source, CDF u, slot u, fallback (split(4))
+  Key2 rel_dst;
+  Key2 swap_src[4];
+  Key2 swap_q;
+  Key2 lead;
+  Key2 u;
+};
+
+struct CandDims {
+  int K_r, K_s, K_l, n_imp_r, n_imp_s;
+  int R, B, P, T, D, H, racks, max_rf;
+  int n_source, n_dest, n_brokers;
+  int has_plan, has_topic, has_pref, price_r, price_l, cdf_in_smem;
+};
+
+struct CandScalars {
+  float w_rack, w_offline, w_topic, w_pref, topic_tt, topic_tt_low, num_parts, temperature;
+  float u_min, u_span;
+};
+
+struct CandInputs {
+  // state
+  const int* orig_broker;
+  const int* part_of;
+  const int* topic_of;
+  const bool* valid;
+  const int* pos;
+  const bool* orig_lead;
+  const float* load_leader;    // [R, 4]
+  const float* load_follower;  // [R, 4]
+  const bool* broker_alive;
+  const int* broker_rack;
+  const int* broker_host;
+  const float* capacity;  // [B, 4]
+  const bool* disk_alive;        // [B, D]
+  const float* disk_capacity;    // [B, D]
+  // statics
+  const int* part_replicas;  // [P, max_rf], padded with R
+  const bool* alive;
+  const int* dest_ids;
+  const bool* dest_ok;
+  const bool* lead_ok;
+  const bool* topic_movable;
+  const bool* host_multi;
+  const float* host_cap;  // [H, 4]
+  // carry
+  const int* replica_broker;
+  const bool* replica_is_leader;
+  const int* replica_disk;
+  const float* broker_load;  // [B, 4]
+  const int* rcount;
+  const int* lcount;
+  const float* pot;
+  const float* lbin;
+  const int* topic_count;      // [T, B]
+  const int* part_rack_count;  // [P, racks]
+  const float* disk_load;      // [B, D]
+  const float* host_load;      // [H, 4]
+  // per-step globals (move_delta.pack_globals) and the round's plan
+  const float* g;
+  const float* topic_avg;  // [T]
+  const float* cdf;        // [B]
+  const int* order;        // [R]
+  const int* start;        // [B]
+  const int* count;        // [B]
+  const float* replica_cost;
+  const float* lead_cost;
+};
+
+struct CandOutputs {
+  float* delta;
+  bool* feas;
+  bool* accept;
+  int* src;
+  int* dst;
+  int* part1;
+  int* part2;
+  // relocation rows: K_r relocations, then each swap at K_r + i and K_r + K_s + i
+  int* r;
+  int* r_src;
+  int* r_dst;
+  int* d_src;
+  int* d_dst;
+  float* load;  // [K_r + 2 K_s, 4]
+  bool* is_lead;
+  float* pot;
+  float* lbin;
+  int* topic;
+  int* part;
+  // leadership rows
+  int* rf;
+  int* rt;
+  int* src_b;
+  int* dst_b;
+  float* dl_f;  // [K_l, 4]
+  float* dl_t;  // [K_l, 4]
+  float* dlbin_src;
+  float* dlbin_dst;
+  int* d_f;
+  int* d_t;
+  // old-state terms (the prologue's output)
+  float* old_broker;  // [B]
+  float* old_host;    // [H]
+  float* old_tie;     // [1]
+};
+
+struct Ctx {
+  CandDims n;
+  MDParams p;
+  CandScalars s;
+  StepKeys k;
+  CandInputs in;
+  CandOutputs out;
+};
+
+__device__ __forceinline__ float f01(bool b) { return b ? 1.0f : 0.0f; }
+
+__device__ __forceinline__ float unit(const Key2& k, unsigned long long i) {
+  return cc_unit_float(k.k0, k.k1, i);
+}
+
+__device__ __forceinline__ void row4(const float* __restrict__ a, int i, float v[4]) {
+  const float4 x = reinterpret_cast<const float4*>(a)[i];
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__device__ __forceinline__ void put4(float* __restrict__ a, int i, const float v[4]) {
+  reinterpret_cast<float4*>(a)[i] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// ---------------------------------------------------------------------------
+// prologue: old-state terms
+// ---------------------------------------------------------------------------
+
+__global__ void candidates_prologue_kernel(Ctx c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const CandInputs& in = c.in;
+  if (i < c.n.B) {
+    float cap[4], load[4];
+    row4(in.capacity, i, cap);
+    row4(in.broker_load, i, load);
+    const bool single = !in.host_multi[in.broker_host[i]];
+    c.out.old_broker[i] = broker_terms(c.p, in.g, cap, in.alive[i], single, load, in.rcount[i],
+                                       in.lcount[i], in.pot[i], in.lbin[i]);
+  } else if (i < c.n.B + c.n.H) {
+    const int h = i - c.n.B;
+    float hl[4], hc[4];
+    row4(in.host_load, h, hl);
+    row4(in.host_cap, h, hc);
+    c.out.old_host[h] = host_terms(c.p, in.host_multi[h], hl, hc);
+  } else if (i == c.n.B + c.n.H) {
+    c.out.old_tie[0] = tie_term(c.p, in.g + G_PCT_SUM, in.g + G_PCT_SUMSQ);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// per-candidate pieces
+// ---------------------------------------------------------------------------
+
+// Source replica i of n (_sample_sources): the last n_imp by the plan's
+// two-stage draw (broker by upper-bound search of the CDF, then a slot of
+// its replica group), the rest uniform over the valid prefix.
+__device__ int sample_source(const Ctx& c, const Key2* ks, int i, int n, int n_imp,
+                             const float* cdf) {
+  const int n_uni = n - n_imp;
+  if (i < n_uni) return cc_uniform_idx(unit(ks[0], i), c.n.n_source);
+  const int ii = i - n_uni;
+  const float u = unit(ks[1], ii);
+  // torch.searchsorted(right=True): the first index whose value is > u
+  int lo = 0, hi = c.n.B;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (!(cdf[mid] > u)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int bsel = max(0, min(lo, c.n.n_brokers - 1));
+  const int cnt = c.in.count[bsel];
+  const int j = __float2int_rz(__fmul_rn(unit(ks[2], ii), (float)cnt));
+  const int slot = max(0, min(c.in.start[bsel] + j, c.n.R - 1));
+  const int fallback = cc_uniform_idx(unit(ks[3], ii), c.n.n_source);
+  return cnt > 0 ? c.in.order[slot] : fallback;
+}
+
+// Does a replica of partition `part` (other than padding) sit on broker b?
+__device__ bool member_on(const Ctx& c, int part, int b) {
+  const int* m = c.in.part_replicas + (size_t)part * c.n.max_rf;
+  bool hit = false;
+  for (int k = 0; k < c.n.max_rf; ++k) {
+    const int id = m[k];
+    const int v = id < c.n.R ? c.in.replica_broker[min(id, c.n.R - 1)] : -1;
+    hit = hit || v == b;
+  }
+  return hit;
+}
+
+// A topic cell's violation: its count's distance outside [lower, upper].
+__device__ __forceinline__ float cell_topic(float cnt, float upper, float lower) {
+  return cc_relu(cnt - upper) + cc_relu(lower - cnt);
+}
+
+// Topic-distribution cell change of one replica of topic t moving b_from -> b_to.
+__device__ float topic_cell_delta(const Ctx& c, int t, int b_from, int b_to) {
+  const float avg = c.in.topic_avg[t];
+  const float upper = ceilf(avg * c.s.topic_tt);
+  const float lower = floorf(avg * c.s.topic_tt_low);
+  const float ct_f = (float)c.in.topic_count[(size_t)t * c.n.B + b_from];
+  const float ct_t = (float)c.in.topic_count[(size_t)t * c.n.B + b_to];
+  return (cell_topic(ct_f - 1.0f, upper, lower) - cell_topic(ct_f, upper, lower)) +
+         (cell_topic(ct_t + 1.0f, upper, lower) - cell_topic(ct_t, upper, lower));
+}
+
+// Rack-cell change of one replica of partition `part` moving rack_from -> rack_to.
+__device__ float rack_delta(const Ctx& c, int part, int rack_from, int rack_to) {
+  const int* row = c.in.part_rack_count + (size_t)part * c.n.racks;
+  const float c_f = (float)row[rack_from];
+  const float c_t = (float)row[rack_to];
+  const float d = (cc_relu(c_f - 2.0f) - cc_relu(c_f - 1.0f)) + (cc_relu(c_t) - cc_relu(c_t - 1.0f));
+  return rack_from != rack_to ? d : 0.0f;
+}
+
+// move_delta_plain without the intra-broker disk terms: the two new broker
+// lanes against the prologue's old ones, the host terms, the tiebreak.
+__device__ float move_delta_core(const Ctx& c, int s, int d, const float dls[4],
+                                 const float dld[4], int dc, int dlc, float dp, float dlbin,
+                                 float dlbin_src) {
+  const CandInputs& in = c.in;
+  float ls[4], ld[4], ls2[4], ld2[4], cap_s[4], cap_d[4];
+  row4(in.broker_load, s, ls);
+  row4(in.broker_load, d, ld);
+  row4(in.capacity, s, cap_s);
+  row4(in.capacity, d, cap_d);
+  for (int r = 0; r < 4; ++r) {
+    ls2[r] = ls[r] + dls[r];
+    ld2[r] = ld[r] + dld[r];
+  }
+  const bool a_s = in.alive[s], a_d = in.alive[d];
+  const int h_s = in.broker_host[s], h_d = in.broker_host[d];
+  const bool m_s = in.host_multi[h_s], m_d = in.host_multi[h_d];
+  const float t0 = c.out.old_broker[s];
+  const float t1 = c.out.old_broker[d];
+  const float t2 = broker_terms(c.p, in.g, cap_s, a_s, !m_s, ls2, in.rcount[s] - dc,
+                                in.lcount[s] - dlc, in.pot[s] - dp, in.lbin[s] - dlbin_src);
+  const float t3 = broker_terms(c.p, in.g, cap_d, a_d, !m_d, ld2, in.rcount[d] + dc,
+                                in.lcount[d] + dlc, in.pot[d] + dp, in.lbin[d] + dlbin);
+  float delta = (t2 + t3) - (t0 + t1);
+
+  // host-granularity capacity (same-host moves cancel)
+  if (h_s != h_d) {
+    float hl_s[4], hl_d[4], hc_s[4], hc_d[4];
+    row4(in.host_load, h_s, hl_s);
+    row4(in.host_load, h_d, hl_d);
+    row4(in.host_cap, h_s, hc_s);
+    row4(in.host_cap, h_d, hc_d);
+    for (int r = 0; r < 4; ++r) {
+      hl_s[r] = hl_s[r] + dls[r];
+      hl_d[r] = hl_d[r] + dld[r];
+    }
+    const float th0 = host_terms(c.p, m_s, hl_s, hc_s);
+    const float th2 = host_terms(c.p, m_d, hl_d, hc_d);
+    delta = delta + (((th0 - c.out.old_host[h_s]) + th2) - c.out.old_host[h_d]);
+  } else {
+    delta = delta + 0.0f;
+  }
+
+  // dispersion tiebreaker via sufficient statistics
+  const float as = f01(a_s), ad = f01(a_d);
+  float s_new[4], sq_new[4];
+  for (int r = 0; r < 4; ++r) {
+    const float cs = cap_s[r] + 1e-12f, cd = cap_d[r] + 1e-12f;
+    const float p_s = ls[r] / cs, p_d = ld[r] / cd;
+    const float p_s2 = ls2[r] / cs, p_d2 = ld2[r] / cd;
+    const float dsum = as * (p_s2 - p_s) + ad * (p_d2 - p_d);
+    const float dsumsq = as * (p_s2 * p_s2 - p_s * p_s) + ad * (p_d2 * p_d2 - p_d * p_d);
+    s_new[r] = in.g[G_PCT_SUM + r] + dsum;
+    sq_new[r] = in.g[G_PCT_SUMSQ + r] + dsumsq;
+  }
+  return delta + (tie_term(c.p, s_new, sq_new) - c.out.old_tie[0]);
+}
+
+__device__ __forceinline__ bool disk_ok(const Ctx& c, int b, int disk) {
+  return c.in.disk_alive[(size_t)b * c.n.D + disk];
+}
+
+// The bundle entry of candidate k (index in the concatenated K) with its
+// Metropolis acceptance: delta < -T log u - 1e-12, u drawn with minval 1e-12.
+__device__ void put_candidate(const Ctx& c, int k, float delta, bool feas, int src, int dst,
+                              int part1, int part2) {
+  const float u = cc_uniform_in(unit(c.k.u, k), c.s.u_min, c.s.u_span);
+  const float thresh = __fmul_rn(-c.s.temperature, logf(u));
+  c.out.delta[k] = delta;
+  c.out.feas[k] = feas;
+  c.out.accept[k] = feas && (delta < __fsub_rn(thresh, 1e-12f));
+  c.out.src[k] = src;
+  c.out.dst[k] = dst;
+  c.out.part1[k] = part1;
+  c.out.part2[k] = part2;
+}
+
+// One relocation payload row.
+__device__ void put_rel_row(const Ctx& c, int row, int r, int src, int dst, int d_src, int d_dst,
+                            const float load[4], bool is_lead, float pot, float lbin, int topic,
+                            int part) {
+  const CandOutputs& o = c.out;
+  o.r[row] = r;
+  o.r_src[row] = src;
+  o.r_dst[row] = dst;
+  o.d_src[row] = d_src;
+  o.d_dst[row] = d_dst;
+  put4(o.load, row, load);
+  o.is_lead[row] = is_lead;
+  o.pot[row] = pot;
+  o.lbin[row] = lbin;
+  o.topic[row] = topic;
+  o.part[row] = part;
+}
+
+// The load a replica moves with: its leader or follower row, 0 when invalid.
+__device__ __forceinline__ void replica_load(const Ctx& c, int r, bool lead, bool valid,
+                                             float out[4]) {
+  row4(lead ? c.in.load_leader : c.in.load_follower, r, out);
+  if (!valid) {
+    for (int k = 0; k < 4; ++k) out[k] = 0.0f;
+  }
+}
+
+__device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
+  const CandInputs& in = c.in;
+  const int r = sample_source(c, c.k.rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
+  const int dst = in.dest_ids[cc_uniform_idx(unit(c.k.rel_dst, i), c.n.n_dest)];
+  const int src = in.replica_broker[r];
+  const int part = in.part_of[r];
+  const int disk = in.replica_disk[r];
+  const int topic = in.topic_of[r];
+  const bool valid = in.valid[r];
+  const bool is_lead = in.replica_is_leader[r];
+  float ll[4];
+  row4(in.load_leader, r, ll);
+
+  const bool offline = !(in.broker_alive[src] && disk_ok(c, src, disk));
+  const bool movable = in.topic_movable[topic] || offline;
+  const bool feas = valid && movable && src != dst && !member_on(c, part, dst);
+
+  float load[4];
+  replica_load(c, r, is_lead, valid, load);
+
+  // destination logdir: most-free alive disk on dst, first on ties (argmin)
+  int d_dst = 0;
+  float best = 0.0f;
+  for (int d = 0; d < c.n.D; ++d) {
+    const size_t a = (size_t)dst * c.n.D + d;
+    const float v = in.disk_alive[a] ? in.disk_load[a] / (in.disk_capacity[a] + 1e-12f)
+                                    : __int_as_float(0x7f800000);  // +inf
+    if (d == 0 || (!(best != best) && (v < best || v != v))) {
+      best = v;
+      d_dst = d;
+    }
+  }
+
+  const float pot = ll[2];
+  const float lbin = is_lead ? ll[1] : 0.0f;
+  float dls[4];
+  for (int k = 0; k < 4; ++k) dls[k] = -load[k];
+  float delta = move_delta_core(c, src, dst, dls, load, 1, is_lead ? 1 : 0, pot, lbin, lbin);
+
+  const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
+  delta = delta + (c.s.w_rack * rack_delta(c, part, rack_s, rack_d)) / c.p.n_valid;
+  if (c.n.has_topic) {
+    delta = delta + (c.s.w_topic * topic_cell_delta(c, topic, src, dst)) / in.g[G_TOTAL_COUNT];
+  }
+  const bool dst_ok = in.broker_alive[dst] && disk_ok(c, dst, d_dst);
+  delta = delta + (c.s.w_offline * (f01(!dst_ok) - f01(offline))) / c.p.n_valid;
+  if (c.n.has_pref) {
+    const bool pref = in.pos[r] == 0 && valid && !is_lead;
+    const bool was = pref && !offline;
+    const bool now = pref && dst_ok;
+    delta = delta + (c.s.w_pref * (f01(now) - f01(was))) / c.s.num_parts;
+  }
+  if (c.n.price_r) {
+    const int orig = in.orig_broker[r];
+    delta = delta + in.replica_cost[0] * (f01(dst != orig) - f01(src != orig));
+  }
+  put_candidate(c, i, delta, feas, src, dst, part, part);
+  put_rel_row(c, i, r, src, dst, disk, d_dst, load, is_lead, pot, lbin, topic, part);
+}
+
+__device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
+  const CandInputs& in = c.in;
+  const int r = sample_source(c, c.k.swap_src, i, c.n.K_s, c.n.n_imp_s, cdf);
+  const int q = cc_uniform_idx(unit(c.k.swap_q, i), c.n.n_source);
+  const int src = in.replica_broker[r], dst = in.replica_broker[q];
+  const int part_r = in.part_of[r], part_q = in.part_of[q];
+  const int d_r = in.replica_disk[r], d_q = in.replica_disk[q];
+  const int topic_r = in.topic_of[r], topic_q = in.topic_of[q];
+  const bool valid_r = in.valid[r], valid_q = in.valid[q];
+  const bool lead_r = in.replica_is_leader[r], lead_q = in.replica_is_leader[q];
+  float ll_r[4], ll_q[4];
+  row4(in.load_leader, r, ll_r);
+  row4(in.load_leader, q, ll_q);
+
+  const bool off_r = !(in.broker_alive[src] && disk_ok(c, src, d_r));
+  const bool off_q = !(in.broker_alive[dst] && disk_ok(c, dst, d_q));
+  const bool movable_r = in.topic_movable[topic_r] || off_r;
+  const bool movable_q = in.topic_movable[topic_q] || off_q;
+  const bool feas = valid_r && valid_q && movable_r && movable_q && src != dst &&
+                    part_r != part_q && in.dest_ok[src] && in.dest_ok[dst] &&
+                    disk_ok(c, dst, d_q) && disk_ok(c, src, d_r) && !member_on(c, part_r, dst) &&
+                    !member_on(c, part_q, src);
+
+  float load_r[4], load_q[4], dls[4], dld[4];
+  replica_load(c, r, lead_r, valid_r, load_r);
+  replica_load(c, q, lead_q, valid_q, load_q);
+  for (int k = 0; k < 4; ++k) {
+    dls[k] = load_q[k] - load_r[k];
+    dld[k] = load_r[k] - load_q[k];
+  }
+  const float pot_r = ll_r[2], pot_q = ll_q[2];
+  const float lbin_r = lead_r ? ll_r[1] : 0.0f;
+  const float lbin_q = lead_q ? ll_q[1] : 0.0f;
+  const float dlbin = lbin_r - lbin_q;
+  float delta = move_delta_core(c, src, dst, dls, dld, 0, (int)lead_r - (int)lead_q,
+                                pot_r - pot_q, dlbin, dlbin);
+
+  const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
+  delta = delta + (c.s.w_rack * (rack_delta(c, part_r, rack_s, rack_d) +
+                                 rack_delta(c, part_q, rack_d, rack_s))) / c.p.n_valid;
+  if (c.n.has_topic) {
+    delta = delta + (c.s.w_topic * (topic_cell_delta(c, topic_r, src, dst) +
+                                    topic_cell_delta(c, topic_q, dst, src))) / in.g[G_TOTAL_COUNT];
+  }
+  const bool r_ok = in.broker_alive[dst] && disk_ok(c, dst, d_q);
+  const bool q_ok = in.broker_alive[src] && disk_ok(c, src, d_r);
+  const float doff = ((f01(!r_ok) - f01(off_r)) + f01(!q_ok)) - f01(off_q);
+  delta = delta + (c.s.w_offline * doff) / c.p.n_valid;
+  if (c.n.has_pref) {
+    const bool pref_r = in.pos[r] == 0 && valid_r && !lead_r;
+    const bool pref_q = in.pos[q] == 0 && valid_q && !lead_q;
+    const float pd_r = f01(pref_r && r_ok) - f01(pref_r && !off_r);
+    const float pd_q = f01(pref_q && q_ok) - f01(pref_q && !off_q);
+    delta = delta + (c.s.w_pref * (pd_r + pd_q)) / c.s.num_parts;
+  }
+  if (c.n.price_r) {
+    const int orig_r = in.orig_broker[r], orig_q = in.orig_broker[q];
+    const float stray = ((f01(dst != orig_r) - f01(src != orig_r)) + f01(src != orig_q)) -
+                        f01(dst != orig_q);
+    delta = delta + in.replica_cost[0] * stray;
+  }
+  put_candidate(c, c.n.K_r + i, delta, feas, src, dst, part_r, part_q);
+  // r -> (dst, q's disk slot), q -> (src, r's disk slot)
+  put_rel_row(c, c.n.K_r + i, r, src, dst, d_r, d_q, load_r, lead_r, pot_r, lbin_r, topic_r,
+              part_r);
+  put_rel_row(c, c.n.K_r + c.n.K_s + i, q, dst, src, d_q, d_r, load_q, lead_q, pot_q, lbin_q,
+              topic_q, part_q);
+}
+
+__device__ void cand_leadership(const Ctx& c, int i) {
+  const CandInputs& in = c.in;
+  const int R = c.n.R;
+  const int rt = cc_uniform_idx(unit(c.k.lead, i), c.n.n_source);
+  const int part = in.part_of[rt];
+  // the partition's first leader (argmax of the member leader flags)
+  const int* m = in.part_replicas + (size_t)part * c.n.max_rf;
+  int first = -1;
+  for (int k = 0; k < c.n.max_rf; ++k) {
+    const int id = m[k];
+    if (first < 0 && id < R && in.replica_is_leader[min(id, R - 1)]) first = k;
+  }
+  const int rf = min(m[first < 0 ? 0 : first], R - 1);
+
+  const int src = in.replica_broker[rf], dst = in.replica_broker[rt];
+  const int disk_f = in.replica_disk[rf], disk_t = in.replica_disk[rt];
+  const bool dst_ok = in.broker_alive[dst] && disk_ok(c, dst, disk_t);
+  const bool feas = in.valid[rt] && !in.replica_is_leader[rt] && first >= 0 && dst_ok &&
+                    in.lead_ok[dst];
+
+  // load shift: rf leader->follower on src, rt follower->leader on dst
+  float ll_f[4], ll_t[4], lf_f[4], lf_t[4], dl_f[4], dl_t[4];
+  row4(in.load_leader, rf, ll_f);
+  row4(in.load_leader, rt, ll_t);
+  row4(in.load_follower, rf, lf_f);
+  row4(in.load_follower, rt, lf_t);
+  for (int k = 0; k < 4; ++k) {
+    dl_f[k] = lf_f[k] - ll_f[k];
+    dl_t[k] = ll_t[k] - lf_t[k];
+  }
+  const float dlbin = ll_t[1], dlbin_src = ll_f[1];
+  float delta = move_delta_core(c, src, dst, dl_f, dl_t, 0, 1, 0.0f, dlbin, dlbin_src);
+
+  if (c.n.has_pref) {
+    const bool src_ok = in.broker_alive[src] && disk_ok(c, src, disk_f);
+    const bool pref_f = in.pos[rf] == 0 && src_ok;
+    const bool pref_t = in.pos[rt] == 0 && dst_ok;
+    delta = delta + (c.s.w_pref * (f01(pref_f) - f01(pref_t))) / c.s.num_parts;
+  }
+  if (c.n.price_l) {
+    delta = delta + in.lead_cost[0] * (f01(!in.orig_lead[rt]) - f01(!in.orig_lead[rf]));
+  }
+  put_candidate(c, c.n.K_r + c.n.K_s + i, delta, feas, src, dst, part, part);
+  const CandOutputs& o = c.out;
+  o.rf[i] = rf;
+  o.rt[i] = rt;
+  o.src_b[i] = src;
+  o.dst_b[i] = dst;
+  put4(o.dl_f, i, dl_f);
+  put4(o.dl_t, i, dl_t);
+  o.dlbin_src[i] = dlbin_src;
+  o.dlbin_dst[i] = dlbin;
+  o.d_f[i] = disk_f;
+  o.d_t[i] = disk_t;
+}
+
+// ---------------------------------------------------------------------------
+// the candidate launch: blocks [0, nb_r) relocations, then swaps, then
+// leadership transfers
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads) candidates_kernel(Ctx c) {
+  extern __shared__ float s_cdf[];
+  const int nb_r = (c.n.K_r + kThreads - 1) / kThreads;
+  const int nb_s = (c.n.K_s + kThreads - 1) / kThreads;
+  int b = blockIdx.x;
+  int kind, n, n_imp;
+  if (b < nb_r) {
+    kind = 0, n = c.n.K_r, n_imp = c.n.n_imp_r;
+  } else if (b < nb_r + nb_s) {
+    kind = 1, n = c.n.K_s, n_imp = c.n.n_imp_s, b -= nb_r;
+  } else {
+    kind = 2, n = c.n.K_l, n_imp = 0, b -= nb_r + nb_s;
+  }
+  const int i = b * kThreads + threadIdx.x;
+  // blocks holding importance-sampled sources stage the CDF (block-uniform)
+  const float* cdf = c.in.cdf;
+  const bool imp = kind < 2 && n_imp > 0 && (b + 1) * kThreads > n - n_imp;
+  if (imp && c.n.cdf_in_smem) {
+    for (int j = threadIdx.x; j < c.n.B; j += kThreads) s_cdf[j] = c.in.cdf[j];
+    __syncthreads();
+    cdf = s_cdf;
+  }
+  if (i >= n) return;
+  if (kind == 0) {
+    cand_relocation(c, i, cdf);
+  } else if (kind == 1) {
+    cand_swap(c, i, cdf);
+  } else {
+    cand_leadership(c, i);
+  }
+}
+
+CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, StepKeys k, CandInputs in,
+                            CandOutputs out, void* stream) {
+  const long long K = (long long)n.K_r + n.K_s + n.K_l;
+  if (K <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  Ctx c{n, p, s, k, in, out};
+  const int pro = n.B + n.H + 1;
+  candidates_prologue_kernel<<<cc_blocks(pro, 256), 256, 0, st>>>(c);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = n.cdf_in_smem ? sizeof(float) * (size_t)n.B : 0;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(candidates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned int blocks = cc_blocks(n.K_r, kThreads) + cc_blocks(n.K_s, kThreads) +
+                              cc_blocks(n.K_l, kThreads);
+  candidates_kernel<<<blocks, kThreads, smem, st>>>(c);
+  return (int)cudaGetLastError();
+}

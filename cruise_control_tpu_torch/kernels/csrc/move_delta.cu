@@ -1,121 +1,11 @@
 // move_delta: objective delta of each of K candidate moves, one thread per
 // candidate.  The arithmetic follows move_delta_plain() in
 // kernels/move_delta.py term for term: four broker lanes (src/dst x
-// old/new), the host-capacity terms, and the dispersion tiebreak.
-#include "common.cuh"
-
-struct MDParams {
-  float cth[4];
-  float w_cap_tc[4];
-  float w_cap_host_tc[4];
-  float t_bal[4];
-  float t_low[4];
-  float w_dist[4];
-  int host_res[4];
-  int max_replicas;
-  float w_replica_cap;
-  float w_pot_nw_out;
-  float cth_nw_out;
-  float total_cap_nw_out;
-  float w_replica_dist;
-  float t_rc;
-  float t_rc_low;
-  float w_leader_dist;
-  float t_lc;
-  float t_lc_low;
-  float w_lbin_dist;
-  float t_lbin;
-  float w_tie;
-  float n_valid;
-  float n_alive;
-};
-
-// g layout (pack_globals): avg_pct[4] total_load[4] pct_sum[4] pct_sumsq[4]
-// avg_count total_count avg_lcount total_lcount avg_lbin total_lbin
-#define G_AVG_PCT 0
-#define G_TOTAL_LOAD 4
-#define G_PCT_SUM 8
-#define G_PCT_SUMSQ 12
-#define G_AVG_COUNT 16
-#define G_TOTAL_COUNT 17
-#define G_AVG_LCOUNT 18
-#define G_TOTAL_LCOUNT 19
-#define G_AVG_LBIN 20
-#define G_TOTAL_LBIN 21
-
-__device__ float broker_terms(const MDParams& p, const float* __restrict__ g, const float cap[4],
-                              bool alive, bool single, const float load[4], int rcount,
-                              int lcount, float pot, float lbin) {
-  // capacity goals (broker granularity)
-  float out = 0.0f;
-  for (int r = 0; r < 4; ++r) {
-    const float excess = cc_relu(load[r] - p.cth[r] * cap[r]);
-    const bool gate = alive && (single || !p.host_res[r]);
-    const float t = (gate ? excess : 0.0f) * p.w_cap_tc[r];
-    out = (r == 0) ? t : out + t;
-  }
-  // replica capacity
-  float exc = cc_relu((float)(rcount - p.max_replicas));
-  out = out + (p.w_replica_cap * (alive ? exc : 0.0f)) / p.n_valid;
-  // potential nw out
-  exc = cc_relu(pot - p.cth_nw_out * cap[2]);
-  out = out + (p.w_pot_nw_out * (alive ? exc : 0.0f)) / p.total_cap_nw_out;
-  // resource distribution bands
-  float s = 0.0f;
-  for (int r = 0; r < 4; ++r) {
-    const float upper = (g[G_AVG_PCT + r] * p.t_bal[r]) * cap[r];
-    const float lower = (g[G_AVG_PCT + r] * p.t_low[r]) * cap[r];
-    const float term = cc_relu(load[r] - upper) + cc_relu(lower - load[r]);
-    const float wd = p.w_dist[r] / (g[G_TOTAL_LOAD + r] + 1e-12f);
-    const float t = (alive ? term : 0.0f) * wd;
-    s = (r == 0) ? t : s + t;
-  }
-  out = out + s;
-  // replica count distribution
-  {
-    const float upper = ceilf(g[G_AVG_COUNT] * p.t_rc);
-    const float lower = floorf(g[G_AVG_COUNT] * p.t_rc_low);
-    const float rc = (float)rcount;
-    const float term = cc_relu(rc - upper) + cc_relu(lower - rc);
-    out = out + (p.w_replica_dist * (alive ? term : 0.0f)) / g[G_TOTAL_COUNT];
-  }
-  // leader count distribution
-  {
-    const float upper = ceilf(g[G_AVG_LCOUNT] * p.t_lc);
-    const float lower = floorf(g[G_AVG_LCOUNT] * p.t_lc_low);
-    const float lc = (float)lcount;
-    const float term = cc_relu(lc - upper) + cc_relu(lower - lc);
-    out = out + (p.w_leader_dist * (alive ? term : 0.0f)) / g[G_TOTAL_LCOUNT];
-  }
-  // leader bytes-in distribution (upper band only)
-  {
-    const float term = cc_relu(lbin - g[G_AVG_LBIN] * p.t_lbin);
-    out = out + (p.w_lbin_dist * (alive ? term : 0.0f)) / g[G_TOTAL_LBIN];
-  }
-  return out;
-}
-
-__device__ float host_terms(const MDParams& p, bool multi, const float hload[4],
-                            const float hcap[4]) {
-  float out = 0.0f;
-  for (int r = 0; r < 4; ++r) {
-    const float excess = cc_relu(hload[r] - p.cth[r] * hcap[r]);
-    const float t = (multi ? excess : 0.0f) * p.w_cap_host_tc[r];
-    out = (r == 0) ? t : out + t;
-  }
-  return out;
-}
-
-__device__ float tie_term(const MDParams& p, const float s[4], const float sq[4]) {
-  float out = 0.0f;
-  for (int r = 0; r < 4; ++r) {
-    const float mean = s[r] / p.n_alive;
-    const float var = cc_relu(sq[r] / p.n_alive - mean * mean);
-    const float t = sqrtf(var + 1e-18f);
-    out = (r == 0) ? t : out + t;
-  }
-  return p.w_tie * out;
-}
+// old/new), the host-capacity terms, and the dispersion tiebreak
+// (terms.cuh).  The engine's step runs the fused candidates kernel
+// (candidates.cu), which evaluates the same terms; this one stays as a
+// standalone check of them.
+#include "terms.cuh"
 
 __global__ void move_delta_kernel(
     int K, MDParams p, const float* __restrict__ g, const int* __restrict__ src,

@@ -8,38 +8,6 @@
 // kernel (4 per draw); the hash is ~80 integer operations per draw.
 #include "common.cuh"
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-#define TF_ROUND(r)      \
-  {                      \
-    x0 += x1;            \
-    x1 = rotl32(x1, r);  \
-    x1 ^= x0;            \
-  }
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1;
-  x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2;
-  x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0;
-  x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1;
-  x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2;
-  x1 += k0 + 5u;
-}
-
 // out_i != nullptr: indices min(int(u * bound), bound - 1) (the engine's
 // _uniform_idx); otherwise floats max(minval, u * span + minval).
 __global__ void threefry_uniform_kernel(uint32_t k0, uint32_t k1, long long n, float minval,
@@ -47,17 +15,11 @@ __global__ void threefry_uniform_kernel(uint32_t k0, uint32_t k1, long long n, f
                                         int* __restrict__ out_i) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t x0 = (uint32_t)((unsigned long long)i >> 32);
-  uint32_t x1 = (uint32_t)((unsigned long long)i);
-  threefry2x32(k0, k1, x0, x1);
-  const uint32_t bits = x0 ^ x1;
-  const float u = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+  const float u = cc_unit_float(k0, k1, (unsigned long long)i);
   if (out_i != nullptr) {
-    const int v = __float2int_rz(__fmul_rn(u, (float)bound));
-    out_i[i] = v < bound - 1 ? v : bound - 1;
+    out_i[i] = cc_uniform_idx(u, bound);
   } else {
-    const float v = __fadd_rn(__fmul_rn(u, span), minval);
-    out_f[i] = v > minval ? v : minval;
+    out_f[i] = cc_uniform_in(u, minval, span);
   }
 }
 

@@ -22,7 +22,10 @@ covers them, the kernel refuses them.
 
 The plain functions here are also the package's only implementation of the
 per-broker objective terms; the engine's O(B) objective and sampling plan
-call `broker_terms` directly.
+call `broker_terms` directly, and the plain candidate step calls
+`move_delta_plain`.  The engine's step runs the fused candidates kernel
+(kernels/candidates.py), whose device terms are this kernel's
+(csrc/terms.cuh); this kernel stays as a standalone check of them.
 """
 
 from __future__ import annotations
@@ -138,19 +141,19 @@ class TermParams:
         return self.w_intra_cap != 0.0 or self.w_intra_dist != 0.0
 
     @functools.cached_property
-    def c_struct(self) -> "_MDParams":
-        s = _MDParams()
+    def c_struct(self) -> "MDParams":
+        s = MDParams()
         for name in ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist"):
             getattr(s, name)[:] = [float(v) for v in getattr(self, name)]
         s.host_res[:] = [int(v) for v in _HOST_RES]
-        for f, _ in _MDParams._fields_:
+        for f, _ in MDParams._fields_:
             if f not in ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist", "host_res"):
                 setattr(s, f, getattr(self, f))
         return s
 
 
-class _MDParams(ctypes.Structure):
-    """Mirror of `struct MDParams` in csrc/move_delta.cu (field order matters)."""
+class MDParams(ctypes.Structure):
+    """Mirror of `struct MDParams` in csrc/terms.cuh (field order matters)."""
 
     _fields_ = [
         ("cth", ctypes.c_float * 4),
@@ -365,7 +368,7 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("move_delta").cc_move_delta
-        fn.argtypes = [ctypes.c_int, _MDParams] + [ctypes.c_void_p] * 23
+        fn.argtypes = [ctypes.c_int, MDParams] + [ctypes.c_void_p] * 23
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN

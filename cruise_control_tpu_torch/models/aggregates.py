@@ -5,9 +5,9 @@ Every O(replicas) walk the reference performs inside goal hot loops
 here.  Aggregates are computed once per optimizer round and updated
 incrementally by move deltas in between, so a candidate costs O(1) gathers.
 
-Segment sums are `index_add_` into a buffer with one sentinel row past the
-end: padding rows are routed there and sliced off, so no index ever leaves
-the buffer.
+Segment sums add into a buffer with one sentinel row past the end:
+padding rows are routed there and sliced off, so no index ever leaves the
+buffer.
 """
 
 from __future__ import annotations
@@ -40,10 +40,18 @@ class BrokerAggregates:
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Sum of `data` rows per segment id in [0, num_segments); ids must lie in
-    that range (callers route padding to a sentinel segment they slice off)."""
+    that range (callers route padding to a sentinel segment they slice off).
+
+    Each segment adds its rows in row order, as the reference's scatter
+    does: `index_add_` on the CPU; on CUDA, whose `index_add_` adds floats
+    with atomics in no fixed order, `index_put_`'s accumulation, which adds
+    a segment's rows in row order after a stable sort by segment.  So a
+    seed gives the same aggregates, and the same anneal, run after run."""
     out = torch.zeros(
         (num_segments,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device
     )
+    if data.is_cuda and data.is_floating_point():
+        return out.index_put_((segment_ids.long(),), data, accumulate=True)
     return out.index_add_(0, segment_ids, data)
 
 

@@ -108,6 +108,76 @@ def jbod_cluster(device=None) -> ClusterState:
     return b.build(device)
 
 
+#: host of each broker of `collision_cluster`: four brokers share h0 and
+#: three share h1, so several surviving moves meet on one host
+COLLISION_HOSTS = ("h0", "h0", "h0", "h1", "h1", "h2", "h3", "h4", "h0", "h1", "h5", "h6")
+
+
+def collision_cluster(device=None) -> ClusterState:
+    """12 JBOD brokers (2 logdirs each) on 7 hosts, for apply_moves' order
+    of float additions (`apply_collision_case`)."""
+    b = ClusterModelBuilder()
+    cap = np.array([100.0, 1e9, 1e9, 2e9], np.float32)
+    for i, host in enumerate(COLLISION_HOSTS):
+        b.add_broker(BrokerSpec(i, rack=f"r{i % 3}", host=host, capacity=cap,
+                                disk_capacities=[1e9, 1e9]))
+    load = np.array([1.0, 10.0, 10.0, 100.0], np.float32)
+    for p in range(8):
+        brokers = [p % 12, (p + 5) % 12]
+        b.add_partition(PartitionSpec("T1" if p % 2 else "T2", p, brokers, load,
+                                      replica_disks=[p % 2, (p + 1) % 2]))
+    return b.build(device)
+
+
+def apply_collision_case(state: ClusterState, seed: int = 0):
+    """A hand-built survivor set for apply_moves on `collision_cluster`:
+    (sv_r, payr, sv_l, payl, aggregates), numpy arrays.
+
+    Four relocation rows (three survive), one swap as its two linked rows
+    (src->dst and dst->src of brokers 4 and 7), three leadership rows (two
+    survive); the rows that do not survive touch survivors' brokers.
+    Every broker is the src of at most one surviving row and the dst of at
+    most one, as select_survivors guarantees.  Host h0 gets four events
+    (two relocation srcs, a relocation dst, a leadership src) and h1 four.
+    Loads and aggregates span 1e-2..1e8, so any other order of the float
+    additions shows in the last bits.  `aggregates` holds float values to
+    put in the carry's broker_load, broker_potential_nw_out,
+    broker_leader_bytes_in, disk_load and host_load first."""
+    rng = np.random.default_rng(seed)
+    s = state.shape
+    B, D, H = s.B, s.max_disks_per_broker, s.num_hosts
+
+    def mixed(*shape):
+        return (10.0 ** rng.uniform(-2.0, 8.0, shape)).astype(np.float32)
+
+    i32 = np.int32
+    src = np.array([0, 1, 6, 0, 4, 7], i32)
+    dst = np.array([3, 5, 2, 1, 7, 4], i32)
+    n_rel = src.size
+    payr = dict(
+        r=np.array([0, 2, 12, 4, 8, 13], i32), src=src, dst=dst,
+        d_src=np.array([0, 1, 1, 0, 1, 0], i32), d_dst=np.array([1, 0, 1, 1, 0, 1], i32),
+        load=mixed(n_rel, NUM_RESOURCES), is_lead=np.array([True, False, True, False, False, True]),
+        pot=mixed(n_rel), lbin=mixed(n_rel), topic=np.array([0, 1, 0, 1, 0, 1], i32),
+        part=np.array([0, 1, 6, 2, 4, 7], i32),
+    )
+    sv_r = np.array([True, True, True, False, True, True])
+    n_lead = 3
+    payl = dict(
+        rf=np.array([1, 3, 5], i32), rt=np.array([9, 11, 15], i32),
+        src_b=np.array([8, 10, 0], i32), dst_b=np.array([9, 11, 3], i32),
+        dl_f=-mixed(n_lead, NUM_RESOURCES), dl_t=mixed(n_lead, NUM_RESOURCES),
+        dlbin_src=mixed(n_lead), dlbin_dst=mixed(n_lead),
+        d_f=np.array([1, 0, 0], i32), d_t=np.array([0, 1, 1], i32),
+    )
+    sv_l = np.array([True, True, False])
+    aggregates = dict(
+        broker_load=mixed(B, NUM_RESOURCES), broker_potential_nw_out=mixed(B),
+        broker_leader_bytes_in=mixed(B), disk_load=mixed(B, D), host_load=mixed(H, NUM_RESOURCES),
+    )
+    return sv_r, payr, sv_l, payl, aggregates
+
+
 @dataclasses.dataclass
 class RandomClusterSpec:
     """Knobs of the random generator (reference common/ClusterProperty.java)."""

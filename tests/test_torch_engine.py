@@ -32,6 +32,7 @@ from cruise_control_tpu_torch.analyzer.draws import Key
 from cruise_control_tpu_torch.analyzer.engine import build_statics as t_build_statics
 from cruise_control_tpu_torch.analyzer.options import OptimizationOptions as TOptions
 from cruise_control_tpu_torch.convert import from_jax_arrays
+from cruise_control_tpu_torch.kernels.candidates import StepKeys, candidates_plain
 from cruise_control_tpu_torch.kernels.select import select_plain
 from cruise_control_tpu_torch.models import compute_aggregates
 from cruise_control_tpu_torch.models.state import STATE_FIELDS
@@ -108,27 +109,22 @@ def test_one_step_matches(name):
     # candidates from the same carry, plan and key: ids exact, deltas within
     # rtol of the reference's op-by-op (IEEE, uncontracted) evaluation
     key, k_r, k_s, k_l, k_u = jax.random.split(jc.key, 5)
-    tkeys = tc.key.split(5)
+    tkeys = StepKeys.of(tc.key)
     g = je._globals(jsx, jc)
     jprop = je._assemble_prop(jsx, jc, *je._propose_kinds(jsx, jc, k_r, k_s, k_l, g, jp))
     tg = te._globals(tc)
-    tprop = te._assemble_prop(
-        tc,
-        te._replica_candidates(tc, tkeys[1], tg, tp),
-        te._swap_candidates(tc, tkeys[2], tg, tp),
-        te._leadership_candidates(tc, tkeys[3], tg, tp),
-    )
-    for f in ("r", "src", "dst", "d_dst", "topic", "part"):
-        np.testing.assert_array_equal(tprop["payr"][f].numpy(), np.asarray(jprop["payr"][f]), err_msg=f)
-    for f in ("rf", "rt", "src_b", "dst_b"):
-        np.testing.assert_array_equal(tprop["payl"][f].numpy(), np.asarray(jprop["payl"][f]), err_msg=f)
-    np.testing.assert_array_equal(tprop["feas"].numpy(), np.asarray(jprop["feas"]))
-    np.testing.assert_allclose(tprop["delta"].numpy(), np.asarray(jprop["delta"]), rtol=RTOL, atol=ATOL)
-
-    # survivors exact, post-apply carry matching, greedy and Metropolis
     for temperature in (0.0, 1e-3):
+        tprop = candidates_plain(te.cand, te.statics, tc, tkeys, tg, tp, temperature)
+        for f in ("r", "src", "dst", "d_dst", "topic", "part"):
+            np.testing.assert_array_equal(tprop["payr"][f].numpy(), np.asarray(jprop["payr"][f]), err_msg=f)
+        for f in ("rf", "rt", "src_b", "dst_b"):
+            np.testing.assert_array_equal(tprop["payl"][f].numpy(), np.asarray(jprop["payl"][f]), err_msg=f)
+        np.testing.assert_array_equal(tprop["feas"].numpy(), np.asarray(jprop["feas"]))
+        np.testing.assert_allclose(tprop["delta"].numpy(), np.asarray(jprop["delta"]), rtol=RTOL, atol=ATOL)
+
+        # survivors exact, post-apply carry matching, greedy and Metropolis
         jc2, jstats = je._accept_select_apply(jsx, jc, jprop, jnp.float32(temperature), key, k_u)
-        tc2, tstats = te.accept_select_apply(tc.clone(), tprop, temperature, tkeys[0], tkeys[4])
+        tc2, tstats = te.select_apply(tc.clone(), tprop, tkeys.next)
         assert int(tstats["accepted"]) == int(jstats["accepted"]) > 0
         assert tc2.key.words == tuple(int(x) for x in np.asarray(jc2.key))
         _assert_carry_equal(jc2, tc2)
@@ -206,14 +202,11 @@ def _report_divergence():
     for step in range(64):
         g, tg = je._globals(jsx, jc), te._globals(tc)
         key, k_r, k_s, k_l, k_u = jax.random.split(jc.key, 5)
-        tkeys = tc.key.split(5)
+        tkeys = StepKeys.of(tc.key)
         jprop = je._assemble_prop(jsx, jc, *je._propose_kinds(jsx, jc, k_r, k_s, k_l, g, jp))
-        tprop = te._assemble_prop(
-            tc, te._replica_candidates(tc, tkeys[1], tg, tp),
-            te._swap_candidates(tc, tkeys[2], tg, tp), te._leadership_candidates(tc, tkeys[3], tg, tp),
-        )
+        tprop = candidates_plain(te.cand, te.statics, tc, tkeys, tg, tp, 0.0)
         jc, js_ = je._accept_select_apply(jsx, jc, jprop, jnp.float32(0.0), key, k_u)
-        tc, ts_ = te.accept_select_apply(tc, tprop, 0.0, tkeys[0], tkeys[4])
+        tc, ts_ = te.select_apply(tc, tprop, tkeys.next)
         if int(js_["accepted"]) != int(ts_["accepted"]):
             print(f"first diverging step {step}: survivors {int(js_['accepted'])} (reference) "
                   f"vs {int(ts_['accepted'])} (port)")
