@@ -6,27 +6,37 @@ It needs one CUDA device, nvcc and nvidia-smi, and exits nonzero without a
 result line when any phase fails or no CUDA device is present.
 
 Phases:
-  1. The card: its name and power limit, then the build of the five CUDA
+  1. The card: its name and power limit, then the build of the nine CUDA
      kernel libraries from cruise_control_tpu_torch/kernels/csrc.
   2. Each kernel against its plain PyTorch version on the card, on the
      inputs of one north-star anneal step, with the kernel's and the plain
      version's times and the least time the card could take: the step's
-     three kernels (candidates, select_survivors, apply_moves, the last bit
-     for bit, also on a case of survivors meeting on shared hosts), and
-     the two standalone kernels the candidates kernel fused
+     four kernels (step_globals, candidates, select_survivors, apply_moves,
+     the last bit for bit, also on a case of survivors meeting on shared
+     hosts), the round prep's two (group_by_broker exact, and
+     refresh_aggregates bit for bit against the plain version on the CPU),
+     the schedule kernel (round_schedule, exact over a table of gate
+     inputs), and the two standalone kernels the candidates kernel fused
      (threefry_uniform, move_delta) on the same step's draws and deltas.
   3. A small cluster optimized on the card agrees with the same run on the
      CPU (whose parity with the JAX package the test suite holds).
   4. The main path: GoalOptimizer.optimize on the north-star cluster
      (2,600 brokers, 200k partitions, ~500k replicas) with the north-star
-     search config, twice with the same seed: identical placements, rounds
-     and proposals.  Launch counts are zeroed just before the first call
-     and read just after.
+     search config, twice with the same seed, through the fused route
+     (captured CUDA graphs behind conditional nodes, one blocking sync):
+     identical placements, rounds and proposals.  Launch counts are zeroed
+     just before the first call and read just after; graph launches count
+     per replay.
   5. A third request on the same optimizer: decommission 1% of the
-     brokers; it must reuse the cached engine and evacuate every replica.
-  6. Where a north-star step's time goes: host clock per step, launches
-     per step of each kernel, round prep and full-chain evaluation, and
-     the device's time per step from torch.profiler.
+     brokers; it must reuse the cached engine (capturing its graphs anew)
+     and evacuate every replica.
+  6. The graph route against the legacy host loop at T=0 on the north
+     star and on the decommission: identical placements, rounds and
+     accepted counts.
+  7. Where the time goes: a whole fused run under torch.profiler (device
+     busy, idle share), the captured graphs' nodes, a masked round, a full
+     check and a round body replayed alone; and an eager north-star step
+     (the legacy route's): host clock, launches and device time per step.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -66,7 +76,10 @@ ALU_OPS_PER_S = 67e12
 #: the package's own CUDA kernels, by the names the profiler reports
 OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
                "candidates_kernel", "select_min_kernel", "select_keep_kernel",
-               "apply_rows_kernel", "apply_owner_kernel")
+               "apply_rows_kernel", "apply_owner_kernel", "group_hist_kernel",
+               "group_colscan_kernel", "group_scan_kernel", "group_scatter_kernel",
+               "refresh_zero_kernel", "refresh_broker_kernel", "refresh_host_kernel",
+               "step_globals_kernel", "round_schedule_kernel")
 
 SOURCES = {
     "threefry_uniform": ("threefry.cu", "cruise_control_tpu/analyzer/engine.py:958"),
@@ -74,10 +87,15 @@ SOURCES = {
     "candidates": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:2569"),
     "select_survivors": ("select.cu", "cruise_control_tpu/analyzer/engine.py:2643"),
     "apply_moves": ("apply.cu", "cruise_control_tpu/analyzer/engine.py:2715"),
+    "group_by_broker": ("group.cu", "cruise_control_tpu/analyzer/engine.py:1597"),
+    "refresh_aggregates": ("refresh.cu", "cruise_control_tpu/analyzer/engine.py:1433"),
+    "step_globals": ("step_globals.cu", "cruise_control_tpu/analyzer/engine.py:1623"),
+    "round_schedule": ("schedule.cu", "cruise_control_tpu/analyzer/engine.py:2941"),
 }
-#: the kernels a step launches; the other two are standalone since the
-#: candidates kernel fused them, and the main path must launch them 0 times
-PATH_KERNELS = ("candidates", "select_survivors", "apply_moves")
+#: the kernels the main path launches; the other two are standalone since
+#: the candidates kernel fused them, and the main path must launch them 0 times
+PATH_KERNELS = ("candidates", "select_survivors", "apply_moves", "group_by_broker",
+                "refresh_aggregates", "step_globals", "round_schedule")
 
 
 def check(ok, message: str) -> None:
@@ -412,6 +430,7 @@ def check_kernels(state, cfg) -> dict:
         if a.dtype == torch.float32:
             err = max(err, float((a - b).abs().max()))
         check(torch.equal(a, b), f"apply_moves: {f} differs from the plain version")
+    moved = ck.clone()
     collisions = check_apply_collisions(cfg, dev)
     # timed on a scratch carry: repeated application moves the same rows
     # again, which is the same work (the values drift, the indices do not)
@@ -429,9 +448,171 @@ def check_kernels(state, cfg) -> dict:
                               tolerance="bit for bit", collision_case=collisions,
                               survivor_rows=n_rel + n_lead, bound_bytes=nb,
                               payload_row_bytes=[row_r, row_l], n=int(sv_r.shape[0] + sv_l.shape[0]))
+    out.update(check_round_kernels(eng, moved))
     for name, rec in out.items():
         log(json.dumps({"phase": "kernel", "name": name, **rec}))
-    del eng, carry, plan, cap
+    del eng, carry, plan, cap, moved
+    return out
+
+
+def cpu_copy(x):
+    """A dataclass of tensors (a cluster state, a grouping) on the CPU."""
+    import torch
+
+    return dataclasses.replace(x, **{
+        f.name: v.cpu() if isinstance(v, torch.Tensor) else v
+        for f in dataclasses.fields(x) for v in (getattr(x, f.name),)
+    })
+
+
+def host_time_ms(fn, reps=20) -> float:
+    """Mean host wall of fn() (a CPU function) over reps calls."""
+    fn()
+    t0 = time.monotonic()
+    for _ in range(reps):
+        fn()
+    return (time.monotonic() - t0) / reps * 1e3
+
+
+def check_round_kernels(eng, carry) -> dict:
+    """Phase 2, the round's kernels on the north-star carry one step in:
+    group_by_broker exact; refresh_aggregates bit for bit against the plain
+    version on the CPU (row order, the reference's), three times;
+    step_globals within rtol 1e-6 of the plain version and the same run
+    after run; round_schedule exact against the plain version on the CPU
+    over a table of gate inputs."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.kernels import schedule as sk
+    from cruise_control_tpu_torch.kernels import step_globals as gk
+    from cruise_control_tpu_torch.kernels.group import Grouping, group_by_broker, group_plain
+    from cruise_control_tpu_torch.kernels.refresh import (
+        AGG_FIELDS,
+        HostGroups,
+        refresh_aggregates,
+        refresh_plain,
+        replica_segments,
+    )
+
+    sx, st = eng.statics, eng.statics.state
+    s = st.shape
+    R, B, T, P, D, H = s.R, s.B, s.num_topics, s.P, s.max_disks_per_broker, s.num_hosts
+    dev = st.device
+    out = {}
+
+    # group_by_broker: the replica rows of the carry's placement by broker
+    seg = replica_segments(st, carry.replica_broker).contiguous()
+    got = group_by_broker(seg, B)
+    want = group_plain(seg, B, Grouping.empty(R, B, dev))
+    for f in ("count", "start", "order"):
+        check(torch.equal(getattr(got, f), getattr(want, f)), f"group_by_broker: {f} differs")
+    kt = measure(lambda: group_by_broker(seg, B, out=got))
+    pt = measure(lambda: group_plain(seg, B, want))
+    lib = measure(lambda: (torch.argsort(seg, stable=True), torch.bincount(seg, minlength=B + 1)))
+    # the segment ids read once, the order and the per-broker count and
+    # start written once; ~10 integer operations a row
+    b_ms, b_by = bound(8 * R + 8 * B, 10.0 * R)
+    out["group_by_broker"] = dict(max_abs_err=0.0, **timings(kt, pt), library_ms=lib["ms"],
+                                  library_call_ms=lib["call_ms"], bound_ms=b_ms, bound_by=b_by,
+                                  tolerance="exact (order, count, start)", n=R, segments=B)
+
+    # refresh_aggregates: the card against the plain version on the CPU
+    place = (carry.replica_broker, carry.replica_is_leader, carry.replica_disk)
+    st_cpu = cpu_copy(st)
+    hosts_cpu = HostGroups(sx.host_groups.seg.cpu(), cpu_copy(sx.host_groups.group))
+    want = {f: torch.empty_like(t, device="cpu") for f, t in carry.aggregates().items()}
+    refresh_plain(st_cpu, *[t.cpu() for t in place], want, hosts_cpu)
+    for _ in range(3):
+        res = {f: torch.full_like(t, -1) for f, t in carry.aggregates().items()}
+        refresh_aggregates(st, *place, res, hosts=sx.host_groups, group=got)
+        for f in (*AGG_FIELDS, "host_load"):
+            a, b = res[f].cpu(), want[f]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a, b), f"refresh_aggregates: {f} differs from the plain version on the CPU")
+    kt = measure(lambda: refresh_aggregates(st, *place, res, hosts=sx.host_groups, group=got))
+    plain_out = {f: torch.empty_like(t) for f, t in res.items()}
+    pt = measure(lambda: refresh_plain(st, *place, plain_out, sx.host_groups))
+    leaders = int(carry.replica_is_leader[st.replica_valid].sum())
+    valid = int(st.replica_valid.sum())
+    # a row: its order id, leader flag, disk, topic and partition (17 B) and
+    # its leader load row (16 B), a follower's also its follower row; a
+    # broker: start, count, rack and host grouping (16 B) and its outputs
+    # (32 B + 4 B a disk); the topic x broker and partition x rack tables
+    # written once; host rows written; ~12 operations a row
+    nb = (33 * valid + 16 * (valid - leaders) + (48 + 4 * D) * B + 4 * T * B
+          + 4 * P * s.num_racks + 16 * H)
+    b_ms, b_by = bound(nb, 12.0 * valid)
+    out["refresh_aggregates"] = dict(max_abs_err=0.0, **timings(kt, pt), library_ms=None,
+                                     bound_ms=b_ms, bound_by=b_by, bound_bytes=nb,
+                                     tolerance="bit for bit against the plain version on the CPU, "
+                                               "3 runs", n=valid)
+
+    # step_globals
+    buf = torch.empty(gk.size(T), device=dev)
+    want = gk.globals_plain(sx, carry, torch.empty(gk.size(T), device=dev))
+    first, err, rel = None, 0.0, 0.0
+    for _ in range(3):
+        g = gk.step_globals(sx, carry, buf)
+        for k, v in want.items():
+            check(bool(torch.allclose(g[k], v, rtol=1e-6, atol=0.0)), f"step_globals: {k} outside rtol 1e-6")
+            err = max(err, float((g[k] - v).abs().max()))
+            rel = max(rel, float(((g[k] - v).abs() / v.abs().clamp(min=1e-30)).max()))
+        first = buf.clone() if first is None else first
+        check(torch.equal(buf.view(torch.int32), first.view(torch.int32)), "step_globals differs run to run")
+    kt = measure(lambda: gk.step_globals(sx, carry, buf))
+    pbuf = torch.empty_like(buf)
+    pt = measure(lambda: gk.globals_plain(sx, carry, pbuf))
+    nb = B * (1 + 16 + 16 + 12 + 5 * D) + 4 * T * B + 16 + 4 * gk.size(T)
+    b_ms, b_by = bound(nb, 40.0 * B + T * B)
+    out["step_globals"] = dict(max_abs_err=err, max_rel_err=rel, **timings(kt, pt), library_ms=None,
+                               bound_ms=b_ms,
+                               bound_by=b_by, tolerance="rtol 1e-6, the same run after run", n=B)
+
+    # round_schedule: every phase over a table of gate inputs (3 main and 2
+    # polish rounds), the card's state against the plain version's
+    tol = float(np.float32(1e-6))
+    dims = sk.ScheduleDims(n_main=3, total=5, tol_on=True, checks=2, verbose=True, tol=tol,
+                           scale=float(np.float32(1e-2)))
+    rows = 0
+    for row in itertools.product([0, 1, 2, 3, 4], [0, 1], [0, 1, 2], [0.0, tol, 1e-3, float("inf")],
+                                 [0.0, tol, 5e-4, 1e-3], [float("inf"), 1e-3, 5e-4], [0, 1]):
+        states = []
+        for d in ("cpu", dev):
+            sc = sk.Schedule.create(5, 0.7, d)
+            sc.sf[sk.OBJ] = 37.0
+            sk.round_schedule(sk.INIT, sc, dims)
+            rnd, done, checks, cheap_prev, full_v, prev_v, has_prev = row
+            sc.si[sk.RND], sc.si[sk.DONE], sc.si[sk.CHECKS], sc.si[sk.HAS_PREV] = rnd, done, checks, has_prev
+            sc.sf[sk.CHEAP_PREV], sc.sf[sk.PREV_V] = cheap_prev, prev_v
+            sk.round_schedule(sk.GATE, sc, dims)
+            if sc.si[sk.NEED_FULL]:
+                sc.sf[sk.FULL_V] = full_v
+            sk.round_schedule(sk.DECIDE, sc, dims)
+            if sc.si[sk.RUN]:
+                sc.acc += 11
+                sc.sf[sk.CHEAP] = 2e-3
+                sc.sf[sk.OBJ] = 5.0
+            sk.round_schedule(sk.CLOSE, sc, dims)
+            states.append([t.cpu() for t in (sc.si, sc.sf, sc.acc, sc.ys)])
+        for a, b in zip(*states):
+            same = torch.equal(a, b) or (a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+                                         and torch.equal(a.nan_to_num(), b.nan_to_num()))
+            check(same, f"round_schedule differs from the plain version on {row}")
+        rows += 1
+    sc = sk.Schedule.create(5, 0.7, dev)
+    sc_cpu = sk.Schedule.create(5, 0.7, "cpu")
+    kt = measure(lambda: sk.round_schedule(sk.GATE, sc, dims))
+    p_ms = host_time_ms(lambda: sk.round_schedule(sk.GATE, sc_cpu, dims))
+    # a phase reads and writes the int and float state once (64 B) and one
+    # ys row (56 B); a few dozen scalar operations
+    b_ms, b_by = bound(120, 60.0)
+    out["round_schedule"] = dict(max_abs_err=0.0, **timings(kt, dict(ms=p_ms, call_ms=p_ms, ms_source="host clock, CPU tensors")),
+                                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                                 tolerance=f"exact, every phase over {rows} table rows", n=1)
     return out
 
 
@@ -500,28 +681,30 @@ def check_small_cluster() -> None:
 
 
 def profile_steps(state, cfg) -> dict:
-    """Phase 6: where a north-star step's time goes.  Host clock around
-    32 steps (with the launches of each kernel per step), one round prep
-    and one full-chain evaluation; then torch.profiler over 16 more steps
-    for the device's time."""
+    """Phase 7: where an eager north-star step's time goes (the legacy
+    route's step, in the run's buffers, at T=0).  Host clock around 32
+    steps (with the launches of each kernel per step), one round prep and
+    one full-chain evaluation; then torch.profiler over 16 more steps for
+    the device's time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cruise_control_tpu_torch import kernels as kernels_mod
     from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
-    from cruise_control_tpu_torch.analyzer.draws import Key
+    from cruise_control_tpu_torch.kernels import schedule as sched_k
 
-    eng = Engine(state, DEFAULT_CHAIN, config=cfg)
-    carry = eng.init_carry(Key.from_seed(cfg.seed))
-    plan = eng.plan(carry)
+    eng = Engine(state, DEFAULT_CHAIN, config=dataclasses.replace(cfg, fused_rounds=False))
+    ws = eng._workspace()
+    eng._init_run(ws, eng._sched_dims(False))
+    ws.sched.value(sched_k.T_R).fill_(0.0)
+    carry, plan = ws.carry, ws.plan
 
     def steps(n):
-        nonlocal carry
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        for _ in range(n):
-            carry, _ = eng.step(carry, 0.0, plan)
+        for i in range(n):
+            eng._step(ws, i % cfg.steps_per_round)
         torch.cuda.synchronize()
         return (time.monotonic() - t0) / n * 1e3
 
@@ -530,7 +713,7 @@ def profile_steps(state, cfg) -> dict:
     step_ms = steps(32)
     launches_per_step = {k: v / 32 for k, v in kernels_mod.LAUNCHES.items()}
     t0 = time.monotonic()
-    carry, plan, cheap = eng.round_prep(carry)
+    _, _, cheap = eng.round_prep(carry, plan, ws.gbuf)
     float(cheap)
     prep_ms = (time.monotonic() - t0) * 1e3
     t0 = time.monotonic()
@@ -560,10 +743,11 @@ def profile_steps(state, cfg) -> dict:
         top_kernels=[[k[:80], round(v[0], 5), v[1] // n] for k, v in top],
     )
     log(json.dumps(out))
-    check(launches_per_step["candidates"] == 1 and launches_per_step["threefry_uniform"] == 0
-          and launches_per_step["move_delta"] == 0,
+    check(launches_per_step["candidates"] == 1 and launches_per_step["step_globals"] == 1
+          and launches_per_step["threefry_uniform"] == 0 and launches_per_step["move_delta"] == 0,
           f"a step's launches are not the fused path's: {launches_per_step}")
-    del eng, carry, plan
+    eng.release()
+    del eng, ws, carry, plan
     return out
 
 
@@ -590,8 +774,14 @@ def run_proposal(opt, state, label):
     check(np.isfinite(res.violations_after).all(), "non-finite goal violations")
     rounds = [h for h in res.history if "round" in h]
     timing = next(h for h in res.history if h.get("timing"))
+    check(timing.get("fused") is True and timing["blocking_syncs"] == 1,
+          f"the {label} did not run the fused route with one blocking sync: {timing}")
+    engine = next(iter(opt._engines.values()))
     log(json.dumps({
         "phase": label, "wall_s": wall, "rounds": len(rounds),
+        "host_dispatch_s": timing["host_dispatch_s"], "device_s": timing["device_s"],
+        "host_extract_s": timing["host_extract_s"],
+        "graph_captures": engine.graph_stats.get("captures", []),
         "accepted": [h["accepted"] for h in rounds], "objective_before": res.objective_before,
         "objective_after": res.objective_after, "balancedness_before": res.balancedness_before,
         "balancedness_after": res.balancedness_after, "proposals": len(res.proposals),
@@ -604,6 +794,103 @@ def run_proposal(opt, state, label):
     fused = {k: v for k, v in launches.items() if k not in PATH_KERNELS and v}
     check(not fused, f"standalone kernels launched on the {label} path: {fused}")
     return res, launches
+
+
+def compare_routes(state, cfg, label) -> dict:
+    """Phase 6: the graph route and the legacy host loop, which share every
+    kernel, on one cluster at T=0: identical placements, rounds and
+    accepted counts."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+
+    base = dataclasses.replace(cfg, init_temperature_scale=0.0)
+    res = {}
+    for fused in (True, False):
+        eng = Engine(state, DEFAULT_CHAIN, config=dataclasses.replace(base, fused_rounds=fused))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        final, hist = eng.run()
+        torch.cuda.synchronize()
+        res[fused] = (final, hist, time.monotonic() - t0)
+        eng.release()
+    (ff, hf, wf), (fl, hl, wl) = res[True], res[False]
+
+    def rounds(h):
+        return [(r["round"], r["accepted"], r.get("early_stop"), r.get("extra")) for r in h if "round" in r]
+
+    same = {f: bool(torch.equal(getattr(ff, f), getattr(fl, f)))
+            for f in ("replica_broker", "replica_is_leader", "replica_disk")}
+    tf_, tl = hf[-1], hl[-1]
+    rec = dict(phase="routes_t0", cluster=label, identical=same, rounds_fused=rounds(hf),
+               rounds_legacy=rounds(hl), syncs_fused=tf_["blocking_syncs"], syncs_legacy=tl["blocking_syncs"],
+               wall_fused_s=wf, wall_legacy_s=wl)
+    log(json.dumps(rec))
+    check(all(same.values()), f"{label}: the graph and legacy routes' placements differ at T=0: {same}")
+    check(rounds(hf) == rounds(hl), f"{label}: the graph and legacy routes' rounds differ at T=0")
+    check(tf_["fused"] is True and tf_["blocking_syncs"] == 1, f"{label}: the graph route synced {tf_}")
+    return rec
+
+
+def profile_fused(state, cfg) -> dict:
+    """Phase 7: a whole fused north-star run (graphs captured by a first
+    run) under torch.profiler: device busy and idle share; then, alone and
+    timed with CUDA events, a masked round (the run is done), a full-chain
+    check and a round body replayed from their captured graphs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+    from cruise_control_tpu_torch.kernels import schedule as sched_k
+
+    eng = Engine(state, DEFAULT_CHAIN, config=cfg)
+    eng.run()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, hist = eng.run()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, hist_p = eng.run()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.monotonic() - t0) * 1e3
+    kernels, ops = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = kernels.setdefault(e.name.split("(")[0][:60], [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+            ops += 1
+    busy = sum(v[0] for v in kernels.values())
+    ws = eng._ws
+    rg = ws.rounds[False]
+    stream = torch.cuda.current_stream()
+    # the run is done, so every further launch of the round graph is masked
+    masked = time_ms(lambda: rg.launch(stream.cuda_stream), reps=100)
+    full = time_ms(lambda: ws.graphs["eval"].replay(), reps=10)
+    init = time_ms(lambda: ws.graphs["init"].replay(), reps=5)
+    # a round body alone: round 0's keys, at T=0 (the init replay above set
+    # the carry and the plan)
+    ws.sched.si[sched_k.RND] = 0
+    ws.sched.sf[sched_k.T_R] = 0.0
+    body = time_ms(lambda: ws.graphs["body"].replay(), reps=5)
+    rounds = [h for h in hist_p if "round" in h]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:14]
+    out = dict(
+        phase="profile_fused", run_wall_ms=wall_ms, profiled_run_wall_ms=prof_wall_ms,
+        rounds=len(rounds), timing=hist_p[-1],
+        device_busy_ms=busy if kernels else "not measured",
+        device_idle_share=1.0 - busy / prof_wall_ms if kernels else "not measured",
+        device_ops=ops, graph_captures=eng.graph_stats.get("captures", []),
+        masked_round_ms=masked, full_check_ms=full, round_body_ms=body, init_ms=init,
+        top_kernels=[[k, round(v[0], 5), v[1]] for k, v in top],
+    )
+    log(json.dumps(out))
+    check(hist_p[-1]["blocking_syncs"] == 1, "the profiled fused run synced more than once")
+    eng.release()
+    return out
 
 
 def main() -> int:
@@ -690,7 +977,16 @@ def main() -> int:
                     "offline_before": int(offline.sum()), "offline_after": remaining}))
     check(remaining == 0, f"{remaining} replicas left on dead brokers")
 
-    # phase 6: where a step's time goes (outside the counted runs)
+    for engine in opt._engines.values():
+        engine.release()
+    del res5, opt
+
+    # phase 6: the graph route against the legacy route at T=0
+    compare_routes(state, cfg, "north_star")
+    compare_routes(decom, cfg, "decommission")
+
+    # phase 7: where the time goes (outside the counted runs)
+    profile_fused(state, cfg)
     profile_steps(state, cfg)
 
     rows = []
@@ -701,7 +997,7 @@ def main() -> int:
             "source": f"cruise_control_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None,
+            "library_ms": k.get("library_ms"),
         })
     check(all(np.isfinite([r["ms"], r["plain_ms"], r["bound_ms"]]).all() for r in rows),
           "non-finite kernel timing")

@@ -14,25 +14,45 @@ Rounds: between rounds the aggregates are recomputed from the placement
 (washing out float drift), the importance-sampling plan is rebuilt, and
 the early-stop signals are read; the temperature decays geometrically and
 the last scheduled round runs at T=0, followed by up to `max_extra_rounds`
-polish rounds while the full goal chain keeps improving.  The schedule is
-the one the JAX package's fused program runs (its `_fused_round_step`),
-driven here by one host loop with one small device sync per round.
+polish rounds while the full goal chain keeps improving.
 
-A step is three hand-written CUDA kernels (kernels/): the candidates
-(draws, gathers, feasibility, exact deltas and Metropolis acceptance,
-kernels/candidates.py), the conflict resolution (select_survivors) and
-the scatter (apply_moves), around the per-step globals in PyTorch ops.
-The carry is updated in place by each step.
+Execution model (fused rounds, the default; the JAX package's
+`_run_fused`): the host issues the whole schedule without reading a device
+value, then makes ONE blocking sync to fetch the per-round scalars.  On
+CUDA, a run replays a captured init graph and then launches, once per
+scheduled round, one CUDA graph: the schedule kernel's gate, a conditional
+IF node around the full-chain check, the schedule kernel's decision, a
+conditional IF node around the round body (its steps and the round prep),
+and the schedule kernel's close (kernels/schedule.py).  The steps, the
+round prep and the goal chain are captured once per model generation from
+the same code that runs eagerly; a masked round (after an early stop)
+costs three one-thread launches.  On the CPU the same route runs op by op:
+the schedule state lives in tensors, the conditionals read its flags, and
+the ys are read once at the end.
+
+The legacy round loop (`fused_rounds=False`, the JAX package's
+`_run_legacy`) drives the rounds from the host with one or more blocking
+syncs a round; both routes share every kernel, key and temperature rule,
+so at T=0 with a fixed seed they give identical trajectories.
+
+A step is four hand-written CUDA kernels (kernels/): the per-step
+globals (step_globals), the candidates (draws, gathers, feasibility, exact
+deltas and Metropolis acceptance, kernels/candidates.py), the conflict
+resolution (select_survivors) and the scatter (apply_moves).  A round prep
+is group_by_broker and refresh_aggregates (every aggregate recomputed from
+the placement) and step_globals, around the plan's PyTorch ops.  The
+carry, the plan and the step's buffers are fixed tensors updated in place,
+so a step allocates nothing of its own and can be captured.
 
 With the same cluster, configuration and seed, the draws are bit-identical
 to the JAX package's and, on small clusters where float reductions agree,
-so is the whole trajectory (tests/test_torch_optimizer.py).
+so is the whole trajectory (tests/test_torch_optimizer.py,
+tests/test_torch_fused.py).
 
 Not in this port yet (each raises NotImplementedError when configured):
 intra-broker disk moves, the learned move-acceptance prior, convergence
-diagnostics, bf16 scoring, the legacy round loop; segmented execution,
-ahead-of-time compilation, the streaming cycle and the mesh engines have
-no entry point here.
+diagnostics, bf16 scoring; segmented execution, ahead-of-time compilation,
+the streaming cycle and the mesh engines have no entry point here.
 """
 
 from __future__ import annotations
@@ -43,20 +63,27 @@ import time
 import numpy as np
 import torch
 
+from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.analyzer.draws import Key
 from cruise_control_tpu_torch.analyzer.objective import TIE_WEIGHT, GoalChain
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
+from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.kernels import apply as apply_k
 from cruise_control_tpu_torch.kernels import candidates as cand_k
 from cruise_control_tpu_torch.kernels import move_delta as md
+from cruise_control_tpu_torch.kernels import schedule as sched_k
 from cruise_control_tpu_torch.kernels import select as select_k
-from cruise_control_tpu_torch.models.aggregates import (
-    BrokerAggregates,
-    compute_aggregates,
-    segment_sum,
+from cruise_control_tpu_torch.kernels import step_globals as glob_k
+from cruise_control_tpu_torch.kernels.group import Grouping, group_by_broker
+from cruise_control_tpu_torch.kernels.refresh import (
+    AGG_FIELDS,
+    HostGroups,
+    refresh_aggregates,
+    replica_segments,
 )
+from cruise_control_tpu_torch.models.aggregates import BrokerAggregates, empty_aggregates
 from cruise_control_tpu_torch.models.state import ClusterShape, ClusterState
 
 
@@ -86,8 +113,8 @@ class OptimizerConfig:
     #: extra T=0 polish rounds past num_rounds while the full goal chain
     #: still reports violations and each round keeps improving; 0 disables
     max_extra_rounds: int = 8
-    #: the port has one round loop, the fused schedule; False (the JAX
-    #: package's legacy loop) is not ported and raises
+    #: True: the fused schedule (one blocking sync a run); False: the
+    #: legacy host-driven round loop (syncs every round)
     fused_rounds: bool = True
     prior_enabled: bool = False  # not ported: raises
     diagnostics: bool = False  # not ported: raises
@@ -126,7 +153,6 @@ class OptimizerConfig:
                 ("prior_enabled", self.prior_enabled),
                 ("diagnostics", self.diagnostics),
                 ("score_dtype=bfloat16", self.score_dtype != "float32"),
-                ("fused_rounds=False", not self.fused_rounds),
             ) if on
         ]
         if missing:
@@ -157,6 +183,11 @@ class EngineCarry:
             for f in dataclasses.fields(self)
             for v in (getattr(self, f.name),)
         })
+
+    def aggregates(self) -> dict:
+        """The aggregate tensors by field (AGG_FIELDS and host_load): what
+        the refresh writes in place."""
+        return {f: getattr(self, f) for f in (*AGG_FIELDS, "host_load")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +221,9 @@ class EngineStatics:
     #: i32[2, B] scratch of apply_moves (each broker's surviving src and
     #: dst row), -1 between calls
     apply_slots: torch.Tensor
+    #: valid brokers grouped by host (the rest by the sentinel H): the
+    #: refresh's host pass
+    host_groups: HostGroups
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,6 +291,9 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
     host_group = np.where((host >= 0) & (host < s.num_hosts), host, s.num_hosts)
     host_start = np.zeros(s.num_hosts + 2, np.int32)
     host_start[1:] = np.cumsum(np.bincount(host_group, minlength=s.num_hosts + 1))
+    # the refresh's grouping: a valid broker's host, the sentinel H otherwise
+    hseg = np.where(valid_b, host, s.num_hosts).astype(np.int32)
+    h_count = np.bincount(hseg, minlength=s.num_hosts + 1)[: s.num_hosts]
     front_packed = bool(h["replica_valid"][:n_valid_int].all())
     n_source = n_valid_int if front_packed else s.R
 
@@ -285,6 +322,10 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
         host_brokers=t(np.argsort(host_group, kind="stable"), torch.int32),
         host_start=t(host_start),
         apply_slots=torch.full((2, s.B), -1, dtype=torch.int32, device=dev),
+        host_groups=HostGroups(seg=t(hseg), group=Grouping(
+            count=t(h_count, torch.int32), start=t(np.cumsum(h_count) - h_count, torch.int32),
+            order=t(np.argsort(hseg, kind="stable"), torch.int32),
+        )),
     )
 
 
@@ -352,6 +393,26 @@ def _relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0)
 
 
+def _same_value(a, b) -> bool:
+    """Equal tensors (by value), dataclasses of them field by field, or
+    equal plain values."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b)))
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return type(a) is type(b) and all(
+            _same_value(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)
+        )
+    return a == b
+
+
+def _same_statics(a: EngineStatics, b: EngineStatics) -> bool:
+    """Whether two model generations give the engine the same statics (the
+    apply_slots scratch aside)."""
+    return all(_same_value(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(EngineStatics) if f.name != "apply_slots")
+
+
 def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 prefix sum accumulated in f32, element after element.
     PyTorch's CPU cumsum accumulates in f64, which rounds differently from
@@ -360,6 +421,34 @@ def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.from_numpy(np.cumsum(x.numpy(), dtype=np.float32))
     return torch.cumsum(x, 0)
+
+
+@dataclasses.dataclass
+class _Workspace:
+    """The fixed buffers of a run, allocated once per model generation:
+    every kernel and every captured graph reads and writes these."""
+
+    carry: EngineCarry
+    plan: SamplingPlan  # its order/start/count are `group`'s tensors
+    group: Grouping  # the replica rows grouped by the carry's brokers
+    gbuf: torch.Tensor  # the step's globals (kernels/step_globals.py)
+    sched: sched_k.Schedule
+    keys: torch.Tensor  # the run's key table, i32[steps, KEY_WORDS]
+    cand: dict | None  # the candidates kernel's outputs (CUDA)
+    sel: tuple | None  # select_survivors' buffers (CUDA)
+    sv_r: torch.Tensor  # bool[K_r + 2 K_s]: relocation rows' survivor flags
+    #: captured CUDA graphs by name, their launches per replay, and the
+    #: round graphs by verbose flag
+    graphs: dict = dataclasses.field(default_factory=dict)
+    graph_launches: dict = dataclasses.field(default_factory=dict)
+    rounds: dict = dataclasses.field(default_factory=dict)
+    ys_host: torch.Tensor | None = None  # pinned host copy of the ys
+
+    def close(self) -> None:
+        for rg in self.rounds.values():
+            rg.close()
+        self.rounds.clear()
+        self.graphs.clear()
 
 
 class Engine:
@@ -389,15 +478,27 @@ class Engine:
         self.K_l = min(config.leadership_candidates, config.num_candidates - 1)
         self.K_s = min(config.swap_candidates, max(0, (config.num_candidates - self.K_l) // 2))
         self.K_r = config.num_candidates - self.K_l - self.K_s
+        self._chain_w = torch.tensor(chain.weights, dtype=torch.float32, device=self.device)
+        self._ws: _Workspace | None = None
+        #: capture and graph statistics of the current model generation
+        self.graph_stats: dict = {}
         self.rebind(state, options)
 
     def rebind(self, state: ClusterState, options: OptimizationOptions = DEFAULT_OPTIONS) -> "Engine":
-        """Swap in a new model generation of the same shape."""
+        """Swap in a new model generation of the same shape.  Captured
+        graphs hold the generation's tensors and the values derived from
+        them, so they are kept only when the new generation's statics equal
+        the old ones (a repeated request); otherwise they are released and
+        the next run captures anew."""
         if state.shape != self.shape:
             raise ValueError(f"shape changed {self.shape} -> {state.shape}; build a new Engine")
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the engine on {self.device}")
-        self.statics = build_statics(state, options)
+        statics = build_statics(state, options)
+        if self._ws is not None and _same_statics(self.statics, statics):
+            return self
+        self.release()
+        self.statics = statics
         sx = self.statics
         self.tp = md.TermParams.build(
             self.w, self.constraint, sx.total_cap.cpu().numpy(), sx.n_valid, sx.n_alive,
@@ -414,20 +515,40 @@ class Engine:
         )
         return self
 
+    def release(self) -> None:
+        """Free the run's buffers and captured graphs."""
+        if self._ws is not None:
+            self._ws.close()
+            self._ws = None
+        self.graph_stats = {}
+
     # ------------------------------------------------------------------
     # state <-> carry
     # ------------------------------------------------------------------
 
+    def _empty_carry(self, key: Key) -> EngineCarry:
+        st = self.statics.state
+        return EngineCarry(
+            key=key, replica_broker=torch.empty_like(st.replica_broker),
+            replica_is_leader=torch.empty_like(st.replica_is_leader),
+            replica_disk=torch.empty_like(st.replica_disk),
+            host_load=torch.empty((self.shape.num_hosts, NUM_RESOURCES), dtype=torch.float32,
+                                  device=self.device),
+            **empty_aggregates(st),
+        )
+
+    def _reset_carry(self, carry: EngineCarry, group: Grouping | None = None) -> EngineCarry:
+        """The statics' placement copied into `carry`, with its aggregates."""
+        st = self.statics.state
+        carry.replica_broker.copy_(st.replica_broker)
+        carry.replica_is_leader.copy_(st.replica_is_leader)
+        carry.replica_disk.copy_(st.replica_disk)
+        return self.refresh(carry, group)
+
     def init_carry(self, key: Key) -> EngineCarry:
         """Carry seeded from the statics' placement, with aggregates
         computed from it."""
-        st = self.statics.state
-        placement = dict(
-            replica_broker=st.replica_broker.clone(),
-            replica_is_leader=st.replica_is_leader.clone(),
-            replica_disk=st.replica_disk.clone(),
-        )
-        return EngineCarry(key=key, **placement, **self._aggregates(**placement))
+        return self._reset_carry(self._empty_carry(key))
 
     def carry_to_state(self, carry: EngineCarry) -> ClusterState:
         return self._placed_state(carry.replica_broker, carry.replica_is_leader, carry.replica_disk)
@@ -444,31 +565,16 @@ class Engine:
             replica_offline=offline & st.replica_valid,
         )
 
-    def _aggregates(self, **placement) -> dict:
-        """The carry's aggregate fields, computed from a placement."""
-        state = self._placed_state(**placement)
-        agg = compute_aggregates(state)
-        H = self.shape.num_hosts
-        hseg = torch.where(state.broker_valid, state.broker_host, H)
-        return dict(
-            broker_load=agg.broker_load,
-            broker_replica_count=agg.broker_replica_count,
-            broker_leader_count=agg.broker_leader_count,
-            broker_potential_nw_out=agg.broker_potential_nw_out,
-            broker_leader_bytes_in=agg.broker_leader_bytes_in,
-            broker_topic_count=agg.broker_topic_count,
-            part_rack_count=agg.part_rack_count,
-            disk_load=agg.disk_load,
-            host_load=segment_sum(agg.broker_load, hseg, H + 1)[:H],
-        )
-
-    def refresh(self, carry: EngineCarry) -> EngineCarry:
-        """Recompute every aggregate of the carry from its placement."""
-        return dataclasses.replace(carry, **self._aggregates(
-            replica_broker=carry.replica_broker,
-            replica_is_leader=carry.replica_is_leader,
-            replica_disk=carry.replica_disk,
-        ))
+    def refresh(self, carry: EngineCarry, group: Grouping | None = None) -> EngineCarry:
+        """Recompute every aggregate of the carry from its placement, in
+        place (group_by_broker then refresh_aggregates).  `group`, when
+        given, receives the placement's grouping by broker (the plan's
+        order/start/count)."""
+        st = self.statics.state
+        group = group_by_broker(replica_segments(st, carry.replica_broker), self.shape.B, out=group)
+        refresh_aggregates(st, carry.replica_broker, carry.replica_is_leader, carry.replica_disk,
+                           carry.aggregates(), hosts=self.statics.host_groups, group=group)
+        return carry
 
     # ------------------------------------------------------------------
     # objective views
@@ -479,6 +585,11 @@ class Engine:
 
     def _tie_term(self, pct_sum, pct_sumsq):
         return md.tie_term(self.tp, pct_sum, pct_sumsq)
+
+    def _globals(self, carry: EngineCarry, out: torch.Tensor | None = None) -> dict:
+        """Per-step frozen global scalars, O(B + T*B) from the aggregates
+        (the step_globals kernel), as named views of `out`."""
+        return glob_k.step_globals(self.statics, carry, out)
 
     def carry_objective(self, carry: EngineCarry, g=None) -> torch.Tensor:
         """Scalar SA objective from carry aggregates: the delta-decomposed
@@ -505,39 +616,47 @@ class Engine:
         terms = terms + self.w.offline * offline / sx.n_valid
         return terms + self._tie_term(g["pct_sum"], g["pct_sumsq"])
 
-    def cheap_violations(self, carry: EngineCarry) -> torch.Tensor:
+    def cheap_violations(self, carry: EngineCarry, g=None) -> torch.Tensor:
         """O(B) lower-bound signal: the delta-decomposed objective minus the
         dispersion tiebreaker.  It misses goals folded into candidate deltas
         only (topic distribution), so `run` uses it to gate the
         authoritative full-chain check."""
-        g = self._globals(carry)
+        if g is None:
+            g = self._globals(carry)
         return self.carry_objective(carry, g) - self._tie_term(g["pct_sum"], g["pct_sumsq"])
 
     def evaluate(self, carry: EngineCarry):
         """(full objective, per-goal violation vector f32[G]) of the carry,
         scored by the goal chain against the carry's aggregates."""
-        agg = BrokerAggregates(
-            broker_load=carry.broker_load,
-            broker_replica_count=carry.broker_replica_count,
-            broker_leader_count=carry.broker_leader_count,
-            broker_potential_nw_out=carry.broker_potential_nw_out,
-            broker_leader_bytes_in=carry.broker_leader_bytes_in,
-            broker_topic_count=carry.broker_topic_count,
-            part_rack_count=carry.part_rack_count,
-            disk_load=carry.disk_load,
-        )
+        agg = BrokerAggregates(**{f: getattr(carry, f) for f in AGG_FIELDS})
         obj, viol, _ = self.chain.evaluate(
-            self.carry_to_state(carry), agg=agg, constraint=self.constraint
+            self.carry_to_state(carry), agg=agg, constraint=self.constraint, weights=self._chain_w
         )
         return obj, viol
 
-    def plan(self, carry: EngineCarry) -> SamplingPlan:
-        """Importance-sampling + movement-pricing plan from the aggregates."""
+    def _empty_plan(self, group: Grouping) -> SamplingPlan:
+        def scalar():
+            return torch.zeros((), dtype=torch.float32, device=self.device)
+
+        return SamplingPlan(
+            broker_cdf=torch.empty(self.shape.B, dtype=torch.float32, device=self.device),
+            order=group.order, start=group.start, count=group.count,
+            replica_cost=scalar(), lead_cost=scalar(),
+        )
+
+    def plan(self, carry: EngineCarry, g=None, out: SamplingPlan | None = None) -> SamplingPlan:
+        """Importance-sampling + movement-pricing plan from the aggregates,
+        written into `out` (new buffers when None).  With `out` given, its
+        order/start/count must already hold the carry's grouping by broker
+        (the refresh writes it there); without, it is computed here."""
         sx = self.statics
         st = sx.state
-        B, R = self.shape.B, self.shape.R
-        g = self._globals(carry)
-        b = torch.arange(B, device=self.device)
+        if out is None:
+            group = group_by_broker(replica_segments(st, carry.replica_broker), self.shape.B)
+            out = self._empty_plan(group)
+        if g is None:
+            g = self._globals(carry)
+        b = torch.arange(self.shape.B, device=self.device)
         w = self._broker_terms(
             b, carry.broker_load, carry.broker_replica_count, carry.broker_leader_count,
             carry.broker_potential_nw_out, carry.broker_leader_bytes_in, g,
@@ -562,58 +681,20 @@ class Engine:
         uni = uni / torch.clamp(uni.sum(), min=1.0)
         probs = torch.where(total > 1e-12, w / torch.clamp(total, min=1e-12), uni)
         unit = self.carry_objective(carry, g) / sx.n_valid
-
-        seg = torch.where(st.replica_valid, carry.replica_broker, B)
-        count = segment_sum(torch.ones(R, dtype=torch.int32, device=self.device), seg, B + 1)[:B]
-        start = torch.cat([
-            torch.zeros(1, dtype=torch.int32, device=self.device),
-            torch.cumsum(count, 0)[:-1].to(torch.int32),
-        ])
-        return SamplingPlan(
-            broker_cdf=_cumsum_f32(probs),
-            order=torch.argsort(seg, stable=True).to(torch.int32),
-            start=start,
-            count=count,
-            replica_cost=self.config.replica_move_cost * unit,
-            lead_cost=self.config.leadership_move_cost * unit,
-        )
-
-    def _globals(self, carry: EngineCarry) -> dict:
-        """Per-step frozen global scalars, O(B + T*B) from the aggregates."""
-        sx = self.statics
-        st = sx.state
-        am = sx.alive
-        load = torch.where(am[:, None], carry.broker_load, 0.0)
-        total_load = load.sum(0)
-        total_count = torch.where(am, carry.broker_replica_count, 0).sum().to(torch.float32)
-        total_lcount = torch.where(am, carry.broker_leader_count, 0).sum().to(torch.float32)
-        total_lbin = torch.where(am, carry.broker_leader_bytes_in, 0.0).sum()
-        topic_total = torch.where(am[None, :], carry.broker_topic_count, 0).sum(1)
-        dmask = st.disk_alive & am[:, None]
-        total_disk_load = torch.where(dmask, carry.disk_load, 0.0).sum()
-        pct = torch.where(am[:, None], carry.broker_load / (st.broker_capacity + 1e-12), 0.0)
-        return dict(
-            total_load=total_load,
-            avg_pct=total_load / sx.total_cap,
-            avg_count=total_count / sx.n_alive,
-            total_count=torch.clamp(total_count, min=1.0),
-            avg_lcount=total_lcount / sx.n_alive,
-            total_lcount=torch.clamp(total_lcount, min=1.0),
-            avg_lbin=total_lbin / sx.n_alive,
-            total_lbin=total_lbin + 1e-12,
-            topic_avg=topic_total.to(torch.float32) / sx.n_alive,
-            total_disk_load=total_disk_load + 1e-12,
-            pct_sum=pct.sum(0),
-            pct_sumsq=(pct * pct).sum(0),
-        )
+        out.broker_cdf.copy_(_cumsum_f32(probs))
+        out.replica_cost.copy_(self.config.replica_move_cost * unit)
+        out.lead_cost.copy_(self.config.leadership_move_cost * unit)
+        return out
 
     # ------------------------------------------------------------------
     # step: propose + evaluate + accept -> select -> apply
     # ------------------------------------------------------------------
 
     def step(self, carry: EngineCarry, temperature: float, plan: SamplingPlan | None = None):
-        """One anneal step at `temperature` (an f32 value); updates `carry`
-        in place and returns (carry, stats) with device-side counts."""
+        """One anneal step at `temperature` (an f32 value) under the carry's
+        key; updates `carry` in place and returns (carry, stats) with
+        device-side counts.  (A run's steps read their keys and temperature
+        from the device instead: `_step`.)"""
         keys = cand_k.StepKeys.of(carry.key)
         prop = cand_k.candidates(
             self.cand, self.statics, carry, keys, self._globals(carry), plan, temperature
@@ -622,17 +703,9 @@ class Engine:
 
     def select_apply(self, carry: EngineCarry, prop: dict, next_key: Key):
         """Conflict resolution + scatter of an accepted candidate bundle."""
-        delta, feas = prop["delta"], prop["feas"]
-        survive = select_k.select_survivors(
-            prop["accept"], delta, prop["src"], prop["dst"], prop["part1"], prop["part2"],
-            num_brokers=self.shape.B, num_parts=self.shape.P,
-        )
-        nr, ns = prop["nr"], prop["ns"]
-        sv_s = survive[nr: nr + ns]
-        sv_r_ext = torch.cat([survive[:nr], sv_s, sv_s])
-        apply_k.apply_moves(self.statics, carry, sv_r_ext, prop["payr"], survive[nr + ns:],
-                            prop["payl"])
+        survive = self._survive_apply(carry, prop)
         carry.key = next_key
+        delta, feas = prop["delta"], prop["feas"]
         stats = dict(
             accepted=survive.sum(),
             improving=(feas & (delta < 0)).sum(),
@@ -640,12 +713,101 @@ class Engine:
         )
         return carry, stats
 
-    def round_prep(self, carry: EngineCarry):
+    def _survive_apply(self, carry: EngineCarry, prop: dict, ws: _Workspace | None = None):
+        """The survivors of a bundle, scattered into `carry`; into the
+        workspace's buffers when given.  Returns the survivor mask."""
+        survive = select_k.select_survivors(
+            prop["accept"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
+            num_brokers=self.shape.B, num_parts=self.shape.P, bufs=ws.sel if ws else None,
+        )
+        nr, ns = prop["nr"], prop["ns"]
+        sv_s = survive[nr: nr + ns]
+        sv_r_ext = torch.cat([survive[:nr], sv_s, sv_s], out=ws.sv_r if ws else None)
+        apply_k.apply_moves(self.statics, carry, sv_r_ext, prop["payr"], survive[nr + ns:],
+                            prop["payl"])
+        return survive
+
+    def round_prep(self, carry: EngineCarry, plan: SamplingPlan | None = None,
+                   gbuf: torch.Tensor | None = None):
         """Between rounds: recompute the aggregates (wash float drift),
-        build the next round's sampling plan, read the cheap early-stop
-        signal."""
-        carry = self.refresh(carry)
-        return carry, self.plan(carry), self.cheap_violations(carry)
+        build the next round's sampling plan (into `plan` when given),
+        read the cheap early-stop signal (globals into `gbuf` when given)."""
+        if plan is None:
+            plan = self._empty_plan(Grouping.empty(self.shape.R, self.shape.B, self.device))
+        self.refresh(carry, Grouping(plan.count, plan.start, plan.order))
+        g = self._globals(carry, gbuf)
+        return carry, self.plan(carry, g, plan), self.cheap_violations(carry, g)
+
+    # ------------------------------------------------------------------
+    # the run's buffers and the pieces of a round, all in place
+    # ------------------------------------------------------------------
+
+    def _n_rounds(self) -> int:
+        return self.config.num_rounds + self.config.extra_round_budget
+
+    def _workspace(self) -> _Workspace:
+        if self._ws is not None:
+            return self._ws
+        cfg, dev, s = self.config, self.device, self.shape
+        total = self._n_rounds()
+        table = cand_k.key_table(Key.from_seed(cfg.seed), total * cfg.steps_per_round)
+        group = Grouping.empty(s.R, s.B, dev)
+        cuda = dev.type == "cuda"
+        K = self.K_r + self.K_s + self.K_l
+        self._ws = _Workspace(
+            carry=self._empty_carry(Key.from_seed(cfg.seed)),
+            plan=self._empty_plan(group),
+            group=group,
+            gbuf=torch.empty(glob_k.size(s.num_topics), dtype=torch.float32, device=dev),
+            sched=sched_k.Schedule.create(total, cfg.temperature_decay, dev),
+            keys=torch.from_numpy(table.view(np.int32)).to(dev),
+            cand=cand_k.candidate_buffers(self.cand, self.statics, dev) if cuda else None,
+            sel=select_k.select_buffers(K, s.B, s.P, dev) if cuda else None,
+            sv_r=torch.empty(self.K_r + 2 * self.K_s, dtype=torch.bool, device=dev),
+        )
+        return self._ws
+
+    def _sched_dims(self, verbose: bool) -> sched_k.ScheduleDims:
+        cfg = self.config
+        return sched_k.ScheduleDims(
+            n_main=cfg.num_rounds, total=self._n_rounds(), tol_on=cfg.early_stop_violations >= 0.0,
+            checks=FULL_CHECK_BUDGET, verbose=verbose, tol=cfg.early_stop_tol,
+            scale=float(np.float32(cfg.init_temperature_scale)),
+        )
+
+    def _init_run(self, ws: _Workspace, dims: sched_k.ScheduleDims) -> None:
+        """`_schedule_init`: the statics' placement into the carry with its
+        aggregates, the initial objective, t0, the round-0 plan."""
+        carry = self._reset_carry(ws.carry, ws.group)
+        ws.sched.value(sched_k.OBJ).copy_(self.evaluate(carry)[0])
+        sched_k.round_schedule(sched_k.INIT, ws.sched, dims)
+        self.plan(carry, self._globals(carry, ws.gbuf), ws.plan)
+
+    def _full_check(self, ws: _Workspace) -> None:
+        """The authoritative early-stop signal: the worst goal violation."""
+        ws.sched.value(sched_k.FULL_V).copy_(self.evaluate(ws.carry)[1].max())
+
+    def _objective(self, ws: _Workspace) -> None:
+        ws.sched.value(sched_k.OBJ).copy_(self.evaluate(ws.carry)[0])
+
+    def _step(self, ws: _Workspace, i: int) -> None:
+        """Step i of the round: keys from the key table at the device-side
+        round index, the temperature from the device scalar t_r."""
+        carry = ws.carry
+        cursor = cand_k.KeyCursor(ws.keys, ws.sched.si[sched_k.RND: sched_k.RND + 1], i,
+                                  self.config.steps_per_round)
+        prop = cand_k.candidates(self.cand, self.statics, carry, cursor,
+                                 self._globals(carry, ws.gbuf), ws.plan,
+                                 ws.sched.value(sched_k.T_R), bufs=ws.cand)
+        ws.sched.acc.add_(self._survive_apply(carry, prop, ws).sum())
+
+    def _round_body(self, ws: _Workspace) -> None:
+        """A round's steps, then the round prep; the accepted count
+        accumulates in sched.acc, the cheap signal lands in sched CHEAP."""
+        for i in range(self.config.steps_per_round):
+            self._step(ws, i)
+        _, _, cheap = self.round_prep(ws.carry, ws.plan, ws.gbuf)
+        ws.sched.value(sched_k.CHEAP).copy_(cheap)
 
     # ------------------------------------------------------------------
     # the round schedule
@@ -657,73 +819,238 @@ class Engine:
         history holds one record per round that ran (round, temperature,
         accepted, early_stop on the round whose state satisfied the full
         chain, extra on polish rounds, objective when verbose) and one
-        timing record (blocking host syncs, run wall seconds).  The schedule is the JAX package's fused one: the
-        main rounds' temperatures T0 * decay^round with the last main round
-        at T=0; from round 1 on, a cheap O(B) signal at or below the tolerance
-        opens at most FULL_CHECK_BUDGET full-chain checks that may stop the
-        run; after the main rounds, polish rounds at T=0 while the worst goal
-        violation exceeds the tolerance and falls by 10% or more a round.
+        timing record.  The main rounds' temperatures are T0 * decay^round
+        with the last main round at T=0; from round 1 on, a cheap O(B)
+        signal at or below the tolerance opens at most FULL_CHECK_BUDGET
+        full-chain checks that may stop the run; after the main rounds,
+        polish rounds at T=0 while the worst goal violation exceeds the
+        tolerance and falls by 10% or more a round.
         """
-        cfg = self.config
+        if self.config.fused_rounds:
+            return self._run_fused(verbose=verbose)
+        return self._run_legacy(verbose=verbose)
+
+    def _final_state(self, ws: _Workspace) -> ClusterState:
+        """The run's result, on placement tensors of its own (the
+        workspace's are the next run's)."""
+        c = ws.carry
+        return self._placed_state(c.replica_broker.clone(), c.replica_is_leader.clone(),
+                                  c.replica_disk.clone())
+
+    def _round_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims) -> None:
+        """One round of the fused schedule op by op (the CPU route): the
+        conditionals read the flags the round graph's IF nodes read."""
+        sched_k.round_schedule(sched_k.GATE, ws.sched, dims)
+        if ws.sched.si[sched_k.NEED_FULL]:
+            self._full_check(ws)
+        sched_k.round_schedule(sched_k.DECIDE, ws.sched, dims)
+        if ws.sched.si[sched_k.RUN]:
+            self._round_body(ws)
+            if dims.verbose:
+                self._objective(ws)
+        sched_k.round_schedule(sched_k.CLOSE, ws.sched, dims)
+
+    def _capture(self, ws: _Workspace, verbose: bool) -> sched_k.RoundGraph:
+        """The round graph of this model generation (and verbose flag),
+        capturing the init, full check, round body and objective graphs on
+        first use.  Each piece runs once eagerly first, on the capture
+        stream, so that lazy initialisations happen outside the capture;
+        the init graph's replay resets everything they touched."""
+        rg = ws.rounds.get(verbose)
+        if rg is not None:
+            return rg
+        dims = self._sched_dims(verbose)
+        pieces = dict(init=lambda: self._init_run(ws, dims), eval=lambda: self._full_check(ws),
+                      body=lambda: self._round_body(ws), obj=lambda: self._objective(ws))
+        # the body's warm-up is one step and a round prep: the code of
+        # every step is the same
+        warm = dict(pieces, body=lambda: (self._step(ws, 0),
+                                          self.round_prep(ws.carry, ws.plan, ws.gbuf)))
+        todo = [n for n in ("init", "eval", "body", "obj") if n not in ws.graphs]
+        if not verbose and "obj" in todo:
+            todo.remove("obj")
+        t0 = time.monotonic()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for name in todo:
+                warm[name]()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        t_warm = time.monotonic()
+        for name in todo:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = dict(kernels.LAUNCHES)
+            with torch.cuda.graph(graph, stream=stream):
+                pieces[name]()
+            ws.graph_launches[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            kernels.LAUNCHES.update(before)
+            ws.graphs[name] = graph
+        t_cap = time.monotonic()
+        if "init" in todo:
+            ws.graphs["init"].instantiate()
+        rg = sched_k.RoundGraph(ws.sched, dims, ws.graphs["eval"], ws.graphs["body"],
+                                ws.graphs["obj"] if verbose else None)
+        ws.rounds[verbose] = rg
+        if ws.ys_host is None:
+            ws.ys_host = torch.empty(ws.sched.ys.shape, dtype=torch.float64, pin_memory=True)
+        t_inst = time.monotonic()
+        stats = self.graph_stats.setdefault("captures", [])
+        stats.append(dict(
+            verbose=verbose, warmup_s=t_warm - t0, capture_s=t_cap - t_warm,
+            instantiate_s=t_inst - t_cap, graphs=todo,
+            nodes={n: sched_k.graph_nodes(ws.graphs[n]) for n in todo},
+            launches_per_replay={n: {k: v for k, v in ws.graph_launches[n].items() if v}
+                                 for n in todo},
+        ))
+        return rg
+
+    def _run_fused(self, *, verbose: bool = False):
         t_start = time.monotonic()
-        syncs = 0
-        carry = self.init_carry(Key.from_seed(cfg.seed))
-        obj0, _ = self.evaluate(carry)
-        plan = self.plan(carry)
-        t0 = np.float32(obj0.item()) * np.float32(cfg.init_temperature_scale)
-        syncs += 1
+        ws = self._workspace()
+        dims = self._sched_dims(verbose)
+        count_dispatch("engine.init")
+        if self.device.type == "cuda":
+            rg = self._capture(ws, verbose)
+            ws.graphs["init"].replay()
+            count_dispatch("engine.run")
+            stream = torch.cuda.current_stream(self.device)
+            for _ in range(dims.total):
+                rg.launch(stream.cuda_stream)
+            ws.ys_host.copy_(ws.sched.ys, non_blocking=True)
+            t_disp = time.monotonic()
+            # the run's ONE blocking sync: the per-round scalars (complete
+            # only when every round has); the carry stays on the device
+            count_dispatch("engine.sync")
+            stream.synchronize()
+            ys = ws.ys_host.numpy().copy()
+            self._count_replays(ws, ys, verbose)
+        else:
+            self._init_run(ws, dims)
+            count_dispatch("engine.run")
+            for _ in range(dims.total):
+                self._round_eager(ws, dims)
+            t_disp = time.monotonic()
+            count_dispatch("engine.sync")
+            ys = ws.sched.ys.numpy().copy()
+        t_sync = time.monotonic()
+        history = self._fused_history(ys, verbose=verbose)
+        history.append(dict(
+            timing=True, fused=True, blocking_syncs=1,
+            host_dispatch_s=round(t_disp - t_start, 6), device_s=round(t_sync - t_disp, 6),
+        ))
+        return self._final_state(ws), history
 
-        n_main = cfg.num_rounds
-        total = n_main + cfg.extra_round_budget
-        tol_on = cfg.early_stop_violations >= 0.0
-        tol = cfg.early_stop_tol
-        cheap_prev = float("inf")
-        checks_left = FULL_CHECK_BUDGET
-        prev_v = np.float32(np.inf)
-        has_prev = False
+    def _count_replays(self, ws: _Workspace, ys: np.ndarray, verbose: bool) -> None:
+        """Kernel launches of a graph run: each graph's launches per replay
+        times its replays, which the ys record (a body replays on rounds
+        that ran, the check on rounds that needed it)."""
+        col = {k: i for i, k in enumerate(sched_k.YS)}
+        ran = int(ys[:, col["ran"]].sum())
+        kernels.add_launches(ws.graph_launches["init"], 1)
+        kernels.add_launches(ws.graph_launches["eval"], int(ys[:, col["full_check"]].sum()))
+        kernels.add_launches(ws.graph_launches["body"], ran)
+        if verbose:
+            kernels.add_launches(ws.graph_launches["obj"], ran)
+        kernels.LAUNCHES["round_schedule"] += 3 * len(ys)
+
+    def _fused_history(self, ys: np.ndarray, *, verbose: bool) -> list[dict]:
+        """Per-round history records from the run's ys (the JAX package's
+        `_fused_history`)."""
+        col = {k: i for i, k in enumerate(sched_k.YS)}
         history: list[dict] = []
-
-        for rnd in range(total):
-            is_extra = rnd >= n_main
-            if tol_on:
-                main_gate = (not is_extra) and rnd > 0 and checks_left > 0 and cheap_prev <= tol
-                if main_gate or is_extra:
-                    full_v = np.float32(self.evaluate(carry)[1].max().item())
-                    syncs += 1
-                else:
-                    full_v = np.float32(np.inf)
-                main_stop = main_gate and full_v <= tol
-                if main_gate and not main_stop:
-                    checks_left -= 1
-                extra_stop = is_extra and (
-                    full_v <= tol or (has_prev and full_v > prev_v * np.float32(0.9))
-                )
-                if main_stop and history:
-                    history[-1]["early_stop"] = True
-                if main_stop or extra_stop:
-                    break
-                if is_extra:
-                    prev_v, has_prev = full_v, True
-            if is_extra or rnd == n_main - 1:
-                t_r = np.float32(0.0)
-            else:
-                t_r = t0 * np.float32(cfg.temperature_decay) ** np.float32(rnd)
-            accepted = torch.zeros((), dtype=torch.int64, device=self.device)
-            for _ in range(cfg.steps_per_round):
-                carry, stats = self.step(carry, float(t_r), plan)
-                accepted += stats["accepted"]
-            carry, plan, cheap = self.round_prep(carry)
-            # the round's one sync: both scalars in one transfer (f64 holds
-            # the count and the f32 signal exactly)
-            acc, cheap_prev = torch.stack([accepted.double(), cheap.double()]).tolist()
-            syncs += 1
-            rec = dict(round=len(history), temperature=float(t_r), accepted=int(acc))
-            if is_extra:
+        for r in range(len(ys)):
+            if ys[r, col["stopped"]] and history:
+                history[-1]["early_stop"] = True
+            if not ys[r, col["ran"]]:
+                continue
+            rec = dict(round=len(history), temperature=float(ys[r, col["temperature"]]),
+                       accepted=int(ys[r, col["accepted"]]))
+            if r >= self.config.num_rounds:
                 rec["extra"] = True
             if verbose:
-                rec["objective"] = float(self.evaluate(carry)[0].item())
+                rec["objective"] = float(ys[r, col["objective"]])
             history.append(rec)
+        return history
+
+    def _run_legacy(self, *, verbose: bool = False):
+        """The host-driven round loop (the JAX package's `_run_legacy`):
+        temperatures as Python floats, the early-stop check at the bottom
+        of a round, then the polish loop; one blocking sync (or more) a
+        round.  The carry is updated in place, so no round is dispatched
+        ahead of the previous round's check, and the history is the
+        reference's."""
+        cfg = self.config
+        t_start = time.monotonic()
+        sync = dict(n=0, s=0.0)
+
+        def fetch(x: torch.Tensor) -> list:
+            """The values of x on the host, the blocking wait metered."""
+            t0 = time.monotonic()
+            count_dispatch("engine.sync")
+            v = x.tolist()
+            sync["n"] += 1
+            sync["s"] += time.monotonic() - t0
+            return v
+
+        count_dispatch("engine.init")
+        ws = self._workspace()
+        sched = ws.sched
+        carry = self._reset_carry(ws.carry, ws.group)
+        t0_obj = float(fetch(self.evaluate(carry)[0])) * cfg.init_temperature_scale
+        self.plan(carry, self._globals(carry, ws.gbuf), ws.plan)
+        tol = cfg.early_stop_tol
+
+        def _temp(rnd: int) -> float:
+            if rnd == cfg.num_rounds - 1:
+                return 0.0
+            return t0_obj * (cfg.temperature_decay ** rnd)
+
+        def do_round(rnd: int, temperature: float) -> list:
+            """Round rnd at `temperature`; returns [accepted, cheap]."""
+            count_dispatch("engine.run")
+            sched.si[sched_k.RND: sched_k.RND + 1].fill_(rnd)
+            sched.value(sched_k.T_R).fill_(float(np.float32(temperature)))
+            sched.acc.zero_()
+            self._round_body(ws)
+            return fetch(torch.stack([sched.acc[0].double(), sched.sf[sched_k.CHEAP].double()]))
+
+        def objective() -> float:
+            return float(fetch(self.evaluate(carry)[0]))
+
+        def worst() -> float:
+            return float(fetch(self.evaluate(carry)[1].max()))
+
+        history = []
+        full_checks_left = FULL_CHECK_BUDGET
+        for rnd in range(cfg.num_rounds):
+            acc, cheap = do_round(rnd, _temp(rnd))
+            history.append(dict(round=rnd, temperature=_temp(rnd), accepted=int(acc)))
+            if verbose:
+                history[-1]["objective"] = objective()
+            if (cfg.early_stop_violations >= 0.0 and rnd < cfg.num_rounds - 1
+                    and full_checks_left > 0 and cheap <= tol):
+                if worst() <= tol:
+                    history[-1]["early_stop"] = True
+                    break
+                full_checks_left -= 1
+        else:
+            # schedule exhausted with goals possibly unsatisfied (bad
+            # starts: mass decommission): polish with extra greedy rounds
+            # while the full chain reports violations and they keep shrinking
+            prev_v = None
+            for extra in range(cfg.extra_round_budget):
+                v = worst()
+                if v <= tol or (prev_v is not None
+                                and v > float(np.float32(prev_v) * np.float32(0.9))):
+                    break
+                prev_v = v
+                acc, _ = do_round(cfg.num_rounds + extra, 0.0)
+                history.append(dict(round=len(history), temperature=0.0, extra=True,
+                                    accepted=int(acc)))
+                if verbose:
+                    history[-1]["objective"] = objective()
         history.append(dict(
-            timing=True, blocking_syncs=syncs, run_s=round(time.monotonic() - t_start, 6),
+            timing=True, fused=False, blocking_syncs=sync["n"], device_s=round(sync["s"], 6),
+            host_s=round(time.monotonic() - t_start - sync["s"], 6),
         ))
-        return self.carry_to_state(carry), history
+        return self._final_state(ws), history

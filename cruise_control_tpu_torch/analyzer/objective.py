@@ -68,9 +68,12 @@ class GoalChain:
         constraint: BalancingConstraint = DEFAULT_CONSTRAINT,
         *,
         score_dtype: str = "float32",
+        weights: torch.Tensor | None = None,
     ):
         """Full evaluation: (scalar objective, violations[G], scores[G]) as
-        f32 tensors on the state's device."""
+        f32 tensors on the state's device.  `weights`, the chain's weights
+        as an f32[G] tensor on that device, saves a copy from the host (a
+        captured CUDA graph may not make one)."""
         if score_dtype != "float32":
             raise NotImplementedError(
                 f"score_dtype={score_dtype!r}: only float32 scoring is ported"
@@ -79,7 +82,9 @@ class GoalChain:
             agg = compute_aggregates(state)
         violations = torch.stack([g.violation(state, agg, constraint) for g in self.goals])
         scores = torch.stack([g.score(state, agg, constraint) for g in self.goals])
-        w = torch.tensor(self.weights, dtype=torch.float32, device=violations.device)
+        w = weights
+        if w is None:
+            w = torch.tensor(self.weights, dtype=torch.float32, device=violations.device)
         obj = (w * violations).sum() + TIE_WEIGHT * min(self.weights) * scores.sum()
         return obj, violations, scores
 

@@ -133,7 +133,7 @@ class GoalOptimizer:
                         config=config)
         self._engines[key] = engine
         while len(self._engines) > self._cache_capacity:
-            self._engines.popitem(last=False)
+            self._engines.popitem(last=False)[1].release()
         self.engine_cache_misses += 1
         return engine, False
 

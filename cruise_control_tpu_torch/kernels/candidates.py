@@ -25,8 +25,12 @@ touch HBM), staging the broker CDF in shared memory, and writing straight
 into the bundle and payload layouts.  Tensor cores and TMA have nothing to
 do here: there is no matrix product, and the gathers are scattered rows.
 
-Keys: the host derives a step's keys in Python integers, exactly as the
-reference splits them (`StepKeys.of`), and passes them by value.
+Keys: a step's keys are split from the carry key exactly as the reference
+splits them (`StepKeys.of`).  The key chain does not depend on the data,
+so a run derives the keys of all its steps on the host at once
+(`key_table`) and uploads them; the kernel reads its step's row at the
+device-side round index (`KeyCursor`), and the Metropolis temperature from
+a device scalar, so a captured step needs no host value.
 
 The plain version (`candidates_plain`) is the engine's candidate code as
 PyTorch ops, with the draws and deltas of the plain threefry and
@@ -55,6 +59,8 @@ if TYPE_CHECKING:
 _NW_IN, _NW_OUT, _DISK = int(Resource.NW_IN), int(Resource.NW_OUT), int(Resource.DISK)
 #: the Metropolis draw's minval (engine.py:950 of the reference)
 U_MIN = 1e-12
+#: uint32 words of a step's keys in the key table (csrc/candidates.cu StepKeys)
+KEY_WORDS = 24
 _FN = None
 
 
@@ -79,15 +85,63 @@ class StepKeys:
         s_src, s_q = k_s.split(2)
         return StepKeys(nxt, tuple(r_src.split(4)), r_dst, tuple(s_src.split(4)), s_q, k_l, k_u)
 
-    def c_struct(self) -> "_StepKeysC":
-        def k(key):
-            return _Key2(key.k0, key.k1)
+    def words(self) -> list[int]:
+        """The step's row of the key table (next is not in it)."""
+        keys = (*self.rel_src, self.rel_dst, *self.swap_src, self.swap_q, self.lead, self.u)
+        return [w for key in keys for w in key.words]
 
-        return _StepKeysC(
-            rel_src=(_Key2 * 4)(*map(k, self.rel_src)), rel_dst=k(self.rel_dst),
-            swap_src=(_Key2 * 4)(*map(k, self.swap_src)), swap_q=k(self.swap_q),
-            lead=k(self.lead), u=k(self.u),
-        )
+    @staticmethod
+    def from_words(row) -> "StepKeys":
+        from cruise_control_tpu_torch.analyzer.draws import Key  # the analyzer imports this module
+
+        w = [int(x) & threefry.MASK32 for x in row]
+        k = [Key(w[i], w[i + 1]) for i in range(0, KEY_WORDS, 2)]
+        return StepKeys(None, tuple(k[0:4]), k[4], tuple(k[5:9]), k[9], k[10], k[11])
+
+
+def key_table(key: Key, n_steps: int) -> np.ndarray:
+    """uint32[n_steps, KEY_WORDS]: the keys of n_steps consecutive steps
+    from carry key `key`, each row `StepKeys.of(chain key i).words()`.  The
+    chain (one hash a step) runs in Python integers; the other splits hash
+    all steps at once on int64 arrays."""
+    k0 = np.empty(n_steps, np.int64)
+    k1 = np.empty(n_steps, np.int64)
+    cur = (key.k0, key.k1)
+    for i in range(n_steps):
+        k0[i], k1[i] = cur
+        cur = threefry.threefry2x32(cur[0], cur[1], 0, 0)
+
+    def split(pair, i):
+        return threefry.threefry2x32(pair[0], pair[1], 0, i)
+
+    base = (k0, k1)
+    k_r, k_s, k_l, k_u = (split(base, i) for i in (1, 2, 3, 4))
+    r_src, s_src = split(k_r, 0), split(k_s, 0)
+    cols = ([split(r_src, j) for j in range(4)] + [split(k_r, 1)]
+            + [split(s_src, j) for j in range(4)] + [split(k_s, 1), k_l, k_u])
+    return np.stack([w for pair in cols for w in pair], axis=1).astype(np.uint32)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyCursor:
+    """Where a step finds its keys: row rnd * steps_per_round + step of a
+    key table, rnd read from the device scalar `rnd` (i32[1])."""
+
+    table: torch.Tensor  # i32[n, KEY_WORDS], the uint32 words' bits
+    rnd: torch.Tensor  # i32[1]
+    step: int
+    steps_per_round: int
+
+    @staticmethod
+    def of(keys: StepKeys, device) -> "KeyCursor":
+        """A one-row cursor holding `keys`."""
+        row = np.asarray(keys.words(), np.uint32).view(np.int32)[None, :]
+        return KeyCursor(torch.from_numpy(row.copy()).to(device),
+                         torch.zeros(1, dtype=torch.int32, device=device), 0, 1)
+
+    def step_keys(self) -> StepKeys:
+        """The keys the kernel would read (reads the round index)."""
+        return StepKeys.from_words(self.table[int(self.rnd[0]) * self.steps_per_round + self.step].tolist())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -461,14 +515,19 @@ def _assemble_prop(sx, carry, raw_r, raw_s, raw_l) -> dict:
     )
 
 
-def accept_plain(keys: StepKeys, delta, feas, temperature: float) -> torch.Tensor:
-    """Metropolis acceptance: delta < -T log u - 1e-12 (greedy at T=0)."""
+def accept_plain(keys: StepKeys, delta, feas, temperature) -> torch.Tensor:
+    """Metropolis acceptance: delta < -T log u - 1e-12 (greedy at T=0);
+    T an f32 value or an f32[1] tensor."""
     u = threefry.uniform_plain(keys.u.words, int(delta.shape[0]), U_MIN, 1.0, delta.device)
     thresh = -temperature * torch.log(u)
     return feas & (delta < thresh - 1e-12)
 
 
-def candidates_plain(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperature: float) -> dict:
+def candidates_plain(cp: CandParams, sx, carry, keys, g, plan, temperature) -> dict:
+    """`keys` a StepKeys or a KeyCursor (read on the host), `temperature`
+    an f32 value or an f32[1] tensor."""
+    if isinstance(keys, KeyCursor):
+        keys = keys.step_keys()
     prop = _assemble_prop(
         sx, carry,
         _replica_candidates(cp, sx, carry, keys, g, plan),
@@ -484,29 +543,18 @@ def candidates_plain(cp: CandParams, sx, carry, keys: StepKeys, g, plan, tempera
 # ----------------------------------------------------------------------
 
 
-class _Key2(ctypes.Structure):
-    _fields_ = [("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32)]
-
-
-class _StepKeysC(ctypes.Structure):
-    """Mirror of `struct StepKeys` in csrc/candidates.cu."""
-
-    _fields_ = [("rel_src", _Key2 * 4), ("rel_dst", _Key2), ("swap_src", _Key2 * 4),
-                ("swap_q", _Key2), ("lead", _Key2), ("u", _Key2)]
-
-
 class _Dims(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in (
         "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "R", "B", "P", "T", "D", "H", "racks",
         "max_rf", "n_source", "n_dest", "n_brokers", "has_plan", "has_topic", "has_pref",
-        "price_r", "price_l", "cdf_in_smem",
+        "price_r", "price_l", "cdf_in_smem", "step", "steps_per_round",
     )]
 
 
 class _Scalars(ctypes.Structure):
     _fields_ = [(f, ctypes.c_float) for f in (
         "w_rack", "w_offline", "w_topic", "w_pref", "topic_tt", "topic_tt_low", "num_parts",
-        "temperature", "u_min", "u_span",
+        "u_min", "u_span",
     )]
 
 
@@ -523,6 +571,8 @@ _IN_FIELDS = (
     "pot", "lbin", "topic_count", "part_rack_count", "disk_load", "host_load",
     # per-step globals and the round's plan
     "g", "topic_avg", "cdf", "order", "start", "count", "replica_cost", "lead_cost",
+    # the run's key table, the round index and the round's temperature
+    "key_table", "rnd", "temperature",
 )
 _OUT_FIELDS = (
     "delta", "feas", "accept", "src", "dst", "part1", "part2",
@@ -549,7 +599,7 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("candidates").cc_candidates
-        fn.argtypes = [_Dims, md.MDParams, _Scalars, _StepKeysC, _Inputs, _Outputs, ctypes.c_void_p]
+        fn.argtypes = [_Dims, md.MDParams, _Scalars, _Inputs, _Outputs, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -567,7 +617,34 @@ def _ptr(name, t, dtype, shape) -> int:
     return t.data_ptr()
 
 
-def candidates_cuda(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperature: float) -> dict:
+def candidate_buffers(cp: CandParams, sx, device) -> dict:
+    """The kernel's outputs, allocated once and reused by every step: the
+    bundle, the relocation rows `payr`, the leadership rows `payl` and the
+    prologue's old-state terms (f32[B + H + 1])."""
+    s = sx.state.shape
+    B, H = s.B, s.num_hosts
+    K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
+    K, nr = K_r + K_s + K_l, K_r + 2 * K_s
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+
+    def e(*shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return dict(
+        out=dict(delta=e(K, dtype=f32), feas=e(K, dtype=b8), accept=e(K, dtype=b8), src=e(K),
+                 dst=e(K), part1=e(K), part2=e(K)),
+        payr=dict(r=e(nr), src=e(nr), dst=e(nr), d_src=e(nr), d_dst=e(nr), load=e(nr, 4, dtype=f32),
+                  is_lead=e(nr, dtype=b8), pot=e(nr, dtype=f32), lbin=e(nr, dtype=f32), topic=e(nr),
+                  part=e(nr)),
+        payl=dict(rf=e(K_l), rt=e(K_l), src_b=e(K_l), dst_b=e(K_l), dl_f=e(K_l, 4, dtype=f32),
+                  dl_t=e(K_l, 4, dtype=f32), dlbin_src=e(K_l, dtype=f32), dlbin_dst=e(K_l, dtype=f32),
+                  d_f=e(K_l), d_t=e(K_l)),
+        scratch=e(B + H + 1, dtype=f32),
+    )
+
+
+def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, temperature: torch.Tensor,
+                    bufs: dict | None = None) -> dict:
     st = sx.state
     s = st.shape
     dev = carry.broker_load.device
@@ -575,8 +652,9 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperat
     B, R, P, T, D, H = s.B, s.R, s.P, s.num_topics, s.max_disks_per_broker, s.num_hosts
     racks, max_rf = s.num_racks, int(sx.part_replicas.shape[1])
     K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
-    K, nr = K_r + K_s + K_l, K_r + 2 * K_s
-    gvec = md.pack_globals(g)
+    K = K_r + K_s + K_l
+    gvec = g["vec"] if "vec" in g else md.pack_globals(g)
+    n_keys = int(keys.table.shape[0])
     inputs = dict(
         orig_broker=(st.replica_broker, i32, (R,)), part_of=(st.replica_partition, i32, (R,)),
         topic_of=(st.replica_topic, i32, (R,)), valid=(st.replica_valid, b8, (R,)),
@@ -599,6 +677,8 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperat
         part_rack_count=(carry.part_rack_count, i32, (P, racks)),
         disk_load=(carry.disk_load, f32, (B, D)), host_load=(carry.host_load, f32, (H, 4)),
         g=(gvec, f32, (22,)), topic_avg=(g["topic_avg"], f32, (T,)),
+        key_table=(keys.table, i32, (n_keys, KEY_WORDS)), rnd=(keys.rnd, i32, (1,)),
+        temperature=(temperature, f32, (1,)),
     )
     if plan is not None:
         inputs.update(
@@ -607,22 +687,9 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperat
             replica_cost=(plan.replica_cost, f32, ()), lead_cost=(plan.lead_cost, f32, ()),
         )
     c_in = _Inputs(**{k: _ptr(k, *v) for k, v in inputs.items()})
-
-    def e(*shape, dtype=i32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = dict(
-        delta=e(K, dtype=f32), feas=e(K, dtype=b8), accept=e(K, dtype=b8), src=e(K), dst=e(K),
-        part1=e(K), part2=e(K),
-    )
-    payr = dict(r=e(nr), src=e(nr), dst=e(nr), d_src=e(nr), d_dst=e(nr), load=e(nr, 4, dtype=f32),
-                is_lead=e(nr, dtype=b8), pot=e(nr, dtype=f32), lbin=e(nr, dtype=f32), topic=e(nr),
-                part=e(nr))
-    payl = dict(rf=e(K_l), rt=e(K_l), src_b=e(K_l), dst_b=e(K_l), dl_f=e(K_l, 4, dtype=f32),
-                dl_t=e(K_l, 4, dtype=f32), dlbin_src=e(K_l, dtype=f32), dlbin_dst=e(K_l, dtype=f32),
-                d_f=e(K_l), d_t=e(K_l))
-    # old-state terms: f32[B] per broker, f32[H] per host, the old tiebreak
-    scratch = e(B + H + 1, dtype=f32)
+    if bufs is None:
+        bufs = candidate_buffers(cp, sx, dev)
+    out, payr, payl, scratch = bufs["out"], bufs["payr"], bufs["payl"], bufs["scratch"]
     rows = {("r_" + k if k in ("src", "dst") else k): t for k, t in payr.items()}
     c_out = _Outputs(
         **{k: t.data_ptr() for k, t in {**out, **rows, **payl}.items()},
@@ -638,29 +705,37 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperat
         price_r=plan is not None and bool(cp.replica_move_cost),
         price_l=plan is not None and bool(cp.leadership_move_cost),
         cdf_in_smem=plan is not None and 4 * B <= CDF_SMEM_MAX,
+        step=keys.step, steps_per_round=keys.steps_per_round,
     )
     lo = np.float32(U_MIN)
     scalars = _Scalars(
         w_rack=cp.w_rack, w_offline=cp.w_offline, w_topic=cp.w_topic, w_pref=cp.w_pref,
         topic_tt=tt, topic_tt_low=max(0.0, 2.0 - tt), num_parts=float(cp.num_parts),
-        temperature=temperature, u_min=float(lo), u_span=float(np.float32(np.float32(1.0) - lo)),
+        u_min=float(lo), u_span=float(np.float32(np.float32(1.0) - lo)),
     )
     if K > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = _fn()(dims, cp.tp.c_struct, scalars, keys.c_struct(), c_in, c_out, stream)
+        status = _fn()(dims, cp.tp.c_struct, scalars, c_in, c_out, stream)
         _build.check(status, "candidates")
         kernels.LAUNCHES["candidates"] += 1
     return dict(out, nr=K_r, ns=K_s, payr=payr, payl=payl)
 
 
-def candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan, temperature: float) -> dict:
+def candidates(cp: CandParams, sx, carry, keys, g, plan, temperature, bufs: dict | None = None) -> dict:
     """One step's candidate bundle (delta, feas, accept, src, dst, part1,
-    part2, nr, ns, payr, payl): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    part2, nr, ns, payr, payl): the kernel for CUDA tensors, writing into
+    `bufs` (`candidate_buffers`) when given, the plain version for CPU
+    tensors.  `keys` is a KeyCursor (a StepKeys is uploaded as one row),
+    `temperature` an f32[1] tensor (a float is uploaded)."""
     if kernels.route(carry.broker_load, carry.replica_broker, sx.alive) == "cpu":
         return candidates_plain(cp, sx, carry, keys, g, plan, temperature)
     if cp.tp.has_disk_terms:
         raise NotImplementedError(
             "candidates kernel: intra-broker disk goals in the chain are not ported to CUDA"
         )
-    return candidates_cuda(cp, sx, carry, keys, g, plan, temperature)
+    dev = carry.broker_load.device
+    if not isinstance(keys, KeyCursor):
+        keys = KeyCursor.of(keys, dev)
+    if not isinstance(temperature, torch.Tensor):
+        temperature = torch.full((1,), float(temperature), dtype=torch.float32, device=dev)
+    return candidates_cuda(cp, sx, carry, keys, g, plan, temperature, bufs)

@@ -25,8 +25,9 @@
 //    evaluates only its two "new" lanes.  The same function of the same
 //    inputs: the bits do not change.
 //  - Draws inline: each candidate hashes its own threefry counters
-//    (common.cuh) under keys the host passes by value, so no draw touches
-//    HBM.  The counter of uniform draw i under a key is i, as in the
+//    (common.cuh) under the step's keys, read from the run's key table at
+//    the device-side round index (so a captured step replays with the
+//    keys of the round it runs in), and no draw touches HBM.  The counter of uniform draw i under a key is i, as in the
 //    `uniform(key, n)` call it replaces; the importance branch uses
 //    i - (n - n_imp), the Metropolis u the candidate's index in K.
 //  - The broker CDF (B floats, 10.4 KB at B = 2,600) is staged in shared
@@ -45,7 +46,7 @@ struct Key2 {
   uint32_t k0, k1;
 };
 
-// Mirror of kernels/candidates.py `_StepKeysC`.
+// A row of the run's key table (kernels/candidates.py KEY_WORDS words).
 struct StepKeys {
   Key2 rel_src[4];  // uniform source, CDF u, slot u, fallback (split(4))
   Key2 rel_dst;
@@ -60,10 +61,11 @@ struct CandDims {
   int R, B, P, T, D, H, racks, max_rf;
   int n_source, n_dest, n_brokers;
   int has_plan, has_topic, has_pref, price_r, price_l, cdf_in_smem;
+  int step, steps_per_round;  // this step's row: (*rnd) * steps_per_round + step
 };
 
 struct CandScalars {
-  float w_rack, w_offline, w_topic, w_pref, topic_tt, topic_tt_low, num_parts, temperature;
+  float w_rack, w_offline, w_topic, w_pref, topic_tt, topic_tt_low, num_parts;
   float u_min, u_span;
 };
 
@@ -114,6 +116,10 @@ struct CandInputs {
   const int* count;        // [B]
   const float* replica_cost;
   const float* lead_cost;
+  // the run's key table, the round index and the round's temperature
+  const StepKeys* key_table;
+  const int* rnd;
+  const float* temperature;
 };
 
 struct CandOutputs {
@@ -157,10 +163,13 @@ struct Ctx {
   CandDims n;
   MDParams p;
   CandScalars s;
-  StepKeys k;
   CandInputs in;
   CandOutputs out;
 };
+
+__device__ __forceinline__ const StepKeys& keys(const Ctx& c) {
+  return c.in.key_table[(size_t)(*c.in.rnd) * c.n.steps_per_round + c.n.step];
+}
 
 __device__ __forceinline__ float f01(bool b) { return b ? 1.0f : 0.0f; }
 
@@ -340,8 +349,8 @@ __device__ __forceinline__ bool disk_ok(const Ctx& c, int b, int disk) {
 // Metropolis acceptance: delta < -T log u - 1e-12, u drawn with minval 1e-12.
 __device__ void put_candidate(const Ctx& c, int k, float delta, bool feas, int src, int dst,
                               int part1, int part2) {
-  const float u = cc_uniform_in(unit(c.k.u, k), c.s.u_min, c.s.u_span);
-  const float thresh = __fmul_rn(-c.s.temperature, logf(u));
+  const float u = cc_uniform_in(unit(keys(c).u, k), c.s.u_min, c.s.u_span);
+  const float thresh = __fmul_rn(-*c.in.temperature, logf(u));
   c.out.delta[k] = delta;
   c.out.feas[k] = feas;
   c.out.accept[k] = feas && (delta < __fsub_rn(thresh, 1e-12f));
@@ -380,8 +389,8 @@ __device__ __forceinline__ void replica_load(const Ctx& c, int r, bool lead, boo
 
 __device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
   const CandInputs& in = c.in;
-  const int r = sample_source(c, c.k.rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
-  const int dst = in.dest_ids[cc_uniform_idx(unit(c.k.rel_dst, i), c.n.n_dest)];
+  const int r = sample_source(c, keys(c).rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
+  const int dst = in.dest_ids[cc_uniform_idx(unit(keys(c).rel_dst, i), c.n.n_dest)];
   const int src = in.replica_broker[r];
   const int part = in.part_of[r];
   const int disk = in.replica_disk[r];
@@ -440,8 +449,8 @@ __device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
 
 __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
   const CandInputs& in = c.in;
-  const int r = sample_source(c, c.k.swap_src, i, c.n.K_s, c.n.n_imp_s, cdf);
-  const int q = cc_uniform_idx(unit(c.k.swap_q, i), c.n.n_source);
+  const int r = sample_source(c, keys(c).swap_src, i, c.n.K_s, c.n.n_imp_s, cdf);
+  const int q = cc_uniform_idx(unit(keys(c).swap_q, i), c.n.n_source);
   const int src = in.replica_broker[r], dst = in.replica_broker[q];
   const int part_r = in.part_of[r], part_q = in.part_of[q];
   const int d_r = in.replica_disk[r], d_q = in.replica_disk[q];
@@ -510,7 +519,7 @@ __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
 __device__ void cand_leadership(const Ctx& c, int i) {
   const CandInputs& in = c.in;
   const int R = c.n.R;
-  const int rt = cc_uniform_idx(unit(c.k.lead, i), c.n.n_source);
+  const int rt = cc_uniform_idx(unit(keys(c).lead, i), c.n.n_source);
   const int part = in.part_of[rt];
   // the partition's first leader (argmax of the member leader flags)
   const int* m = in.part_replicas + (size_t)part * c.n.max_rf;
@@ -602,12 +611,12 @@ __global__ void __launch_bounds__(kThreads) candidates_kernel(Ctx c) {
   }
 }
 
-CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, StepKeys k, CandInputs in,
-                            CandOutputs out, void* stream) {
+CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in, CandOutputs out,
+                            void* stream) {
   const long long K = (long long)n.K_r + n.K_s + n.K_l;
   if (K <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  Ctx c{n, p, s, k, in, out};
+  Ctx c{n, p, s, in, out};
   const int pro = n.B + n.H + 1;
   candidates_prologue_kernel<<<cc_blocks(pro, 256), 256, 0, st>>>(c);
   cudaError_t e = cudaGetLastError();

@@ -1,0 +1,253 @@
+// round_schedule: the scalar logic of the fused anneal's round loop, and
+// the CUDA graph that runs one round behind device-side conditionals.
+//
+// Replaces (cruise_control_tpu/analyzer/engine.py): `_schedule_init`'s t0
+// (:2931) and the scalar part of `_fused_round_step` (:2941-3060): the
+// early-stop gate, the bounded full-chain checks (`checks_left`), `done`,
+// the polish test `full_v > prev_v * 0.9`, the round's temperature `t_r`
+// and the per-round ys (accepted, ran, stopped, temperature, cheap).  The
+// `lax.cond`s around the full-chain check and around the round body
+// become CUDA conditional IF nodes whose flags this kernel sets
+// (cudaGraphSetConditional), so a masked round costs three one-thread
+// launches and nothing else.
+//
+// What bounds it on this card: latency (one thread, a few dozen scalars).
+//
+// The round graph (cc_round_graph_build), on the engine's captured graphs:
+//   K4(gate) -> IF(need_full){ eval } -> K4(decide) -> IF(run){ body [, obj] }
+//   -> K4(close)
+// `eval` writes full_v, `body` (the round's steps and the round prep)
+// writes the round's accepted count and cheap signal, `obj` (verbose runs)
+// the round's full objective.  The host launches the instantiated graph
+// once per scheduled round and reads nothing until the run's one sync.
+#include "common.cuh"
+
+// indices into the int state (kernels/schedule.py)
+#define S_RND 0
+#define S_DONE 1
+#define S_CHECKS 2
+#define S_HAS_PREV 3
+#define S_NEED_FULL 4
+#define S_RUN 5
+#define S_MAIN_STOP 6
+#define S_MAIN_GATE 7
+#define S_EXTRA_GATE 8
+// indices into the float state
+#define F_T0 0
+#define F_TR 1
+#define F_CHEAP_PREV 2
+#define F_FULL_V 3
+#define F_PREV_V 4
+#define F_CHEAP 5
+#define F_OBJ 6
+// columns of a round's ys row (f64)
+#define Y_ACC 0
+#define Y_RAN 1
+#define Y_STOPPED 2
+#define Y_TEMP 3
+#define Y_CHEAP 4
+#define Y_FULL 5
+#define Y_OBJ 6
+#define Y_COLS 7
+
+#define PHASE_INIT 0
+#define PHASE_GATE 1
+#define PHASE_DECIDE 2
+#define PHASE_CLOSE 3
+
+struct SchedPtrs {
+  int* si;                 // int state
+  float* sf;               // float state
+  long long* acc;          // the round's accepted count
+  const float* decay_pow;  // f32[total]: decay ** round, as the plain version computes it
+  double* ys;              // f64[total, Y_COLS]
+};
+
+struct SchedDims {
+  int n_main, total, tol_on, checks, verbose;
+  float tol, scale;
+};
+
+__global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int has_handle,
+                                      cudaGraphConditionalHandle handle) {
+  int* si = p.si;
+  float* sf = p.sf;
+  const float inf = __int_as_float(0x7f800000);
+  if (phase == PHASE_INIT) {
+    si[S_RND] = 0;
+    si[S_DONE] = 0;
+    si[S_CHECKS] = d.checks;
+    si[S_HAS_PREV] = 0;
+    sf[F_CHEAP_PREV] = inf;
+    sf[F_PREV_V] = inf;
+    sf[F_T0] = __fmul_rn(sf[F_OBJ], d.scale);
+    return;
+  }
+  const int rnd = si[S_RND];
+  const bool in_range = rnd < d.total;
+  const bool active = !si[S_DONE] && in_range;
+  const bool is_extra = rnd >= d.n_main;
+  if (phase == PHASE_GATE) {
+    const bool main_gate = d.tol_on && active && !is_extra && rnd > 0 && si[S_CHECKS] > 0 &&
+                           sf[F_CHEAP_PREV] <= d.tol;
+    const bool extra_gate = d.tol_on && active && is_extra;
+    si[S_MAIN_GATE] = main_gate;
+    si[S_EXTRA_GATE] = extra_gate;
+    si[S_NEED_FULL] = main_gate || extra_gate;
+    sf[F_FULL_V] = inf;
+    if (has_handle) cudaGraphSetConditional(handle, (main_gate || extra_gate) ? 1u : 0u);
+    return;
+  }
+  if (phase == PHASE_DECIDE) {
+    bool run = active, main_stop = false;
+    if (d.tol_on) {
+      const float full_v = sf[F_FULL_V];
+      const bool main_gate = si[S_MAIN_GATE], extra_gate = si[S_EXTRA_GATE];
+      main_stop = main_gate && full_v <= d.tol;
+      if (main_gate && !main_stop) si[S_CHECKS] -= 1;
+      const bool extra_stop =
+          extra_gate && (full_v <= d.tol || (si[S_HAS_PREV] && full_v > __fmul_rn(sf[F_PREV_V], 0.9f)));
+      const bool stop = main_stop || extra_stop;
+      if (stop) si[S_DONE] = 1;
+      run = active && !stop;
+      if (run && is_extra) {
+        sf[F_PREV_V] = full_v;
+        si[S_HAS_PREV] = 1;
+      }
+    }
+    si[S_RUN] = run;
+    si[S_MAIN_STOP] = main_stop;
+    const bool cold = is_extra || rnd == d.n_main - 1;
+    sf[F_TR] = cold ? 0.0f : __fmul_rn(sf[F_T0], p.decay_pow[in_range ? rnd : 0]);
+    p.acc[0] = 0;
+    sf[F_CHEAP] = inf;
+    sf[F_OBJ] = __int_as_float(0x7fffffff);  // NaN unless the round runs and reports
+    if (has_handle) cudaGraphSetConditional(handle, run ? 1u : 0u);
+    return;
+  }
+  // PHASE_CLOSE
+  const bool run = si[S_RUN];
+  if (in_range) {
+    double* y = p.ys + (size_t)rnd * Y_COLS;
+    y[Y_ACC] = run ? (double)p.acc[0] : 0.0;
+    y[Y_RAN] = run;
+    y[Y_STOPPED] = si[S_MAIN_STOP];
+    y[Y_TEMP] = sf[F_TR];
+    y[Y_CHEAP] = run ? sf[F_CHEAP] : inf;
+    y[Y_FULL] = si[S_NEED_FULL];
+    y[Y_OBJ] = run && d.verbose ? sf[F_OBJ] : __int_as_float(0x7fffffff);
+  }
+  sf[F_CHEAP_PREV] = run ? sf[F_CHEAP] : inf;
+  si[S_RND] = rnd + 1;
+}
+
+// One phase outside any graph (the run's init, and checks against the
+// plain version).
+CC_EXPORT int cc_round_schedule(int phase, SchedPtrs p, SchedDims d, void* stream) {
+  round_schedule_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(phase, p, d, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+static cudaError_t add_phase(cudaGraph_t g, cudaGraphNode_t* node, const cudaGraphNode_t* dep,
+                             int phase, SchedPtrs* p, SchedDims* d, int has_handle,
+                             cudaGraphConditionalHandle* h) {
+  void* args[5] = {&phase, p, d, &has_handle, h};
+  cudaKernelNodeParams kp = {};
+  kp.func = (void*)round_schedule_kernel;
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(1);
+  kp.kernelParams = args;
+  return cudaGraphAddKernelNode(node, g, dep, dep ? 1 : 0, &kp);
+}
+
+// An IF node on `h` after `dep` whose body runs the given graphs in turn
+// (each added as a child graph node, which copies it).
+static cudaError_t add_if(cudaGraph_t g, cudaGraphNode_t* node, const cudaGraphNode_t* dep,
+                          cudaGraphConditionalHandle h, cudaGraph_t* bodies, int n_bodies) {
+  cudaGraphNodeParams cp = {};
+  cp.type = cudaGraphNodeTypeConditional;
+  cp.conditional.handle = h;
+  cp.conditional.type = cudaGraphCondTypeIf;
+  cp.conditional.size = 1;
+  cudaError_t e = cudaGraphAddNode(node, g, dep, 1, &cp);
+  if (e != cudaSuccess) return e;
+  cudaGraph_t body = cp.conditional.phGraph_out[0];
+  cudaGraphNode_t prev = nullptr, child;
+  for (int i = 0; i < n_bodies; ++i) {
+    e = cudaGraphAddChildGraphNode(&child, body, prev ? &prev : nullptr, prev ? 1 : 0, bodies[i]);
+    if (e != cudaSuccess) return e;
+    prev = child;
+  }
+  return cudaSuccess;
+}
+
+// The round graph over the captured graphs `eval` and `body` (and `obj`
+// when not null), instantiated into *exec_out; *graph_out keeps the
+// template for cc_round_graph_destroy.
+CC_EXPORT int cc_round_graph_build(void* eval, void* body, void* obj, SchedPtrs p, SchedDims d,
+                                   void** exec_out, void** graph_out) {
+  cudaGraph_t g;
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return (int)e;
+  cudaGraphConditionalHandle h_full, h_run, none = 0;
+  cudaGraphNode_t gate, if_full, decide, if_run, close;
+  cudaGraph_t run_bodies[2] = {(cudaGraph_t)body, (cudaGraph_t)obj};
+  cudaGraph_t eval_g = (cudaGraph_t)eval;
+  do {
+    if ((e = cudaGraphConditionalHandleCreate(&h_full, g, 0, 0)) != cudaSuccess) break;
+    if ((e = cudaGraphConditionalHandleCreate(&h_run, g, 0, 0)) != cudaSuccess) break;
+    if ((e = add_phase(g, &gate, nullptr, PHASE_GATE, &p, &d, 1, &h_full)) != cudaSuccess) break;
+    if ((e = add_if(g, &if_full, &gate, h_full, &eval_g, 1)) != cudaSuccess) break;
+    if ((e = add_phase(g, &decide, &if_full, PHASE_DECIDE, &p, &d, 1, &h_run)) != cudaSuccess) break;
+    if ((e = add_if(g, &if_run, &decide, h_run, run_bodies, obj ? 2 : 1)) != cudaSuccess) break;
+    if ((e = add_phase(g, &close, &if_run, PHASE_CLOSE, &p, &d, 0, &none)) != cudaSuccess) break;
+    cudaGraphExec_t ex;
+    if ((e = cudaGraphInstantiate(&ex, g, 0)) != cudaSuccess) break;
+    *exec_out = (void*)ex;
+    *graph_out = (void*)g;
+    return 0;
+  } while (0);
+  cudaGraphDestroy(g);
+  return (int)e;
+}
+
+CC_EXPORT int cc_round_graph_launch(void* exec, void* stream) {
+  return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
+}
+
+CC_EXPORT int cc_round_graph_destroy(void* exec, void* graph) {
+  cudaError_t e = cudaGraphExecDestroy((cudaGraphExec_t)exec);
+  const cudaError_t e2 = cudaGraphDestroy((cudaGraph_t)graph);
+  return (int)(e != cudaSuccess ? e : e2);
+}
+
+// Kernel nodes of a captured graph, child graphs counted through.
+static int count_kernels(cudaGraph_t g) {
+  size_t n = 0;
+  if (cudaGraphGetNodes(g, nullptr, &n) != cudaSuccess || n == 0) return 0;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  int k = 0;
+  if (cudaGraphGetNodes(g, nodes, &n) == cudaSuccess) {
+    for (size_t i = 0; i < n; ++i) {
+      cudaGraphNodeType t;
+      if (cudaGraphNodeGetType(nodes[i], &t) != cudaSuccess) continue;
+      if (t == cudaGraphNodeTypeKernel) {
+        ++k;
+      } else if (t == cudaGraphNodeTypeGraph) {
+        cudaGraph_t c;
+        if (cudaGraphChildGraphNodeGetGraph(nodes[i], &c) == cudaSuccess) k += count_kernels(c);
+      }
+    }
+  }
+  delete[] nodes;
+  return k;
+}
+
+// (all nodes, kernel nodes) of a captured graph.
+CC_EXPORT int cc_graph_nodes(void* graph, int* nodes, int* kernel_nodes) {
+  size_t n = 0;
+  const cudaError_t e = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+  *nodes = (int)n;
+  *kernel_nodes = count_kernels((cudaGraph_t)graph);
+  return (int)e;
+}

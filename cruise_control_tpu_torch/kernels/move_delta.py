@@ -92,6 +92,20 @@ class TermParams:
     d_thresh: float
     t_disk: float
     total_disk_cap: float
+    #: the f32[4] parameter vectors as tensors, per device (`on`)
+    _on: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def on(self, device) -> dict:
+        """The f32[4] vectors (and the host-resource mask) as tensors on
+        `device`, made once: a captured graph may not copy from the host."""
+        key = str(device)
+        got = self._on.get(key)
+        if got is None:
+            names = ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist")
+            got = {n: torch.as_tensor(getattr(self, n), device=device) for n in names}
+            got["host_res"] = torch.as_tensor(_HOST_RES, device=device)
+            self._on[key] = got
+        return got
 
     @staticmethod
     def build(w, constraint, total_cap: np.ndarray, n_valid: float, n_alive: float,
@@ -182,10 +196,6 @@ class MDParams(ctypes.Structure):
     ]
 
 
-def _t(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(a, device=device)
-
-
 # ----------------------------------------------------------------------
 # plain PyTorch version (the objective-term math of the reference engine)
 # ----------------------------------------------------------------------
@@ -200,14 +210,14 @@ def broker_terms(tp: TermParams, sx, b, load, rcount, lcount, pot, lbin, g) -> t
     Replica/LeaderReplicaDistributionGoal, LeaderBytesInDistributionGoal.
     """
     st = sx.state
-    dev = load.device
+    v = tp.on(load.device)
     cap = st.broker_capacity[b]  # [..., 4]
     alive = sx.alive[b]
     # capacity goals (broker granularity; multi-broker hosts in host_terms)
     single = ~sx.host_multi[st.broker_host[b]]
-    excess = relu(load - _t(tp.cth, dev) * cap)
-    gate = alive[..., None] & (single[..., None] | ~_t(_HOST_RES, dev))
-    out = (torch.where(gate, excess, 0.0) * _t(tp.w_cap_tc, dev)).sum(-1)
+    excess = relu(load - v["cth"] * cap)
+    gate = alive[..., None] & (single[..., None] | ~v["host_res"])
+    out = (torch.where(gate, excess, 0.0) * v["w_cap_tc"]).sum(-1)
 
     exc = relu((rcount - tp.max_replicas).to(torch.float32))
     out = out + tp.w_replica_cap * torch.where(alive, exc, 0.0) / tp.n_valid
@@ -216,12 +226,12 @@ def broker_terms(tp: TermParams, sx, b, load, rcount, lcount, pot, lbin, g) -> t
     out = out + tp.w_pot_nw_out * torch.where(alive, exc, 0.0) / tp.total_cap_nw_out
 
     # resource distribution bands
-    upper = g["avg_pct"] * _t(tp.t_bal, dev) * cap
-    lower = g["avg_pct"] * _t(tp.t_low, dev) * cap
+    upper = g["avg_pct"] * v["t_bal"] * cap
+    lower = g["avg_pct"] * v["t_low"] * cap
     term = relu(load - upper) + relu(lower - load)
     out = out + (
         torch.where(alive[..., None], term, 0.0)
-        * (_t(tp.w_dist, dev) / (g["total_load"] + 1e-12))
+        * (v["w_dist"] / (g["total_load"] + 1e-12))
     ).sum(-1)
 
     # replica count distribution
@@ -246,11 +256,11 @@ def broker_terms(tp: TermParams, sx, b, load, rcount, lcount, pot, lbin, g) -> t
 
 def host_terms(tp: TermParams, sx, h, hload) -> torch.Tensor:
     """Host-granularity capacity terms for multi-broker hosts."""
-    dev = hload.device
+    v = tp.on(hload.device)
     hcap = sx.host_cap[h]
     multi = sx.host_multi[h]
-    excess = relu(hload - _t(tp.cth, dev) * hcap)
-    return (torch.where(multi[..., None], excess, 0.0) * _t(tp.w_cap_host_tc, dev)).sum(-1)
+    excess = relu(hload - v["cth"] * hcap)
+    return (torch.where(multi[..., None], excess, 0.0) * v["w_cap_host_tc"]).sum(-1)
 
 
 def disk_terms(tp: TermParams, sx, b, disk_row, broker_disk_load, g) -> torch.Tensor:

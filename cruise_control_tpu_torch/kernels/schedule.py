@@ -1,0 +1,238 @@
+"""round_schedule — the fused anneal's round loop on the device.
+
+Replaces: `_schedule_init`'s t0 and the scalar logic of `_fused_round_step`
+(cruise_control_tpu/analyzer/engine.py:2931, :2941-3060): the early-stop
+gate and the bounded full-chain checks, `done`, the polish-round test
+`full_v > prev_v * 0.9`, the round's temperature and the per-round ys.
+Its `lax.cond`s become CUDA conditional IF nodes (CUDA 12.4 or later) of a
+graph built here around the engine's captured graphs (`RoundGraph`).
+
+Bound on the card: latency — one thread reads and writes a few dozen
+scalars; a masked round is the graph's three one-thread launches.
+
+A round is four phases on one `Schedule`: GATE (is a full-chain check
+due: sets `need_full`), then the check if due (the engine writes `full_v`),
+DECIDE (stop or run; the round's temperature), then the round body if it
+runs (the engine writes the accepted count and the cheap signal, and in a
+verbose run the objective), CLOSE (the round's ys row; the next round).
+INIT seeds the schedule from the initial objective.  `schedule_plain` is
+the same logic on CPU tensors in f32 arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from cruise_control_tpu_torch import kernels
+from cruise_control_tpu_torch.kernels import _build
+
+INIT, GATE, DECIDE, CLOSE = range(4)
+#: int state (csrc/schedule.cu S_*)
+RND, DONE, CHECKS, HAS_PREV, NEED_FULL, RUN, MAIN_STOP, MAIN_GATE, EXTRA_GATE = range(9)
+N_INT = 9
+#: float state (csrc/schedule.cu F_*)
+T0, T_R, CHEAP_PREV, FULL_V, PREV_V, CHEAP, OBJ = range(7)
+N_FLOAT = 7
+#: ys columns (csrc/schedule.cu Y_*)
+YS = ("accepted", "ran", "stopped", "temperature", "cheap", "full_check", "objective")
+_F32 = np.float32
+_NAN = float("nan")
+_FN = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleDims:
+    n_main: int
+    total: int
+    tol_on: bool
+    checks: int  # full-chain check budget
+    verbose: bool
+    tol: float  # f32 value
+    scale: float  # init_temperature_scale as an f32 value
+
+
+@dataclasses.dataclass
+class Schedule:
+    """The schedule's device state: int and float scalars, the round's
+    accepted count, decay ** round per round, and the ys rows."""
+
+    si: torch.Tensor  # i32[N_INT]
+    sf: torch.Tensor  # f32[N_FLOAT]
+    acc: torch.Tensor  # i64[1]
+    decay_pow: torch.Tensor  # f32[total]
+    ys: torch.Tensor  # f64[total, len(YS)]
+
+    @staticmethod
+    def create(total: int, decay: float, device) -> "Schedule":
+        return Schedule(
+            si=torch.zeros(N_INT, dtype=torch.int32, device=device),
+            sf=torch.zeros(N_FLOAT, dtype=torch.float32, device=device),
+            acc=torch.zeros(1, dtype=torch.int64, device=device),
+            decay_pow=decay_powers(decay, total).to(device),
+            ys=torch.zeros((total, len(YS)), dtype=torch.float64, device=device),
+        )
+
+    def value(self, i: int) -> torch.Tensor:
+        """f32[1] view of float scalar i (what kernels read by pointer)."""
+        return self.sf[i: i + 1]
+
+
+def decay_powers(decay: float, total: int) -> torch.Tensor:
+    """f32[total]: decay ** round, the f32 power of the reference's
+    `temperature_decay ** rnd.astype(f32)`."""
+    return torch.pow(torch.tensor(decay, dtype=torch.float32),
+                     torch.arange(max(total, 1), dtype=torch.float32))
+
+
+def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
+    """One phase on CPU tensors (the kernel's logic in f32 scalars)."""
+    si, sf = s.si, s.sf
+    inf = _F32(np.inf)
+    if phase == INIT:
+        si[RND], si[DONE], si[CHECKS], si[HAS_PREV] = 0, 0, d.checks, 0
+        sf[CHEAP_PREV] = sf[PREV_V] = float(inf)
+        sf[T0] = float(_F32(sf[OBJ].item()) * _F32(d.scale))
+        return
+    rnd = int(si[RND])
+    in_range = rnd < d.total
+    active = not si[DONE] and in_range
+    is_extra = rnd >= d.n_main
+    if phase == GATE:
+        main_gate = (d.tol_on and active and not is_extra and rnd > 0 and int(si[CHECKS]) > 0
+                     and _F32(sf[CHEAP_PREV].item()) <= _F32(d.tol))
+        extra_gate = d.tol_on and active and is_extra
+        si[MAIN_GATE], si[EXTRA_GATE] = int(main_gate), int(extra_gate)
+        si[NEED_FULL] = int(main_gate or extra_gate)
+        sf[FULL_V] = float(inf)
+        return
+    if phase == DECIDE:
+        run, main_stop = active, False
+        if d.tol_on:
+            full_v = _F32(sf[FULL_V].item())
+            main_gate, extra_gate = bool(si[MAIN_GATE]), bool(si[EXTRA_GATE])
+            main_stop = main_gate and full_v <= _F32(d.tol)
+            if main_gate and not main_stop:
+                si[CHECKS] -= 1
+            extra_stop = extra_gate and (
+                full_v <= _F32(d.tol)
+                or (bool(si[HAS_PREV]) and full_v > _F32(sf[PREV_V].item()) * _F32(0.9))
+            )
+            stop = main_stop or extra_stop
+            if stop:
+                si[DONE] = 1
+            run = active and not stop
+            if run and is_extra:
+                sf[PREV_V] = float(full_v)
+                si[HAS_PREV] = 1
+        si[RUN], si[MAIN_STOP] = int(run), int(main_stop)
+        cold = is_extra or rnd == d.n_main - 1
+        pw = _F32(s.decay_pow[rnd if in_range else 0].item())
+        sf[T_R] = 0.0 if cold else float(_F32(sf[T0].item()) * pw)
+        s.acc.zero_()
+        sf[CHEAP] = float(inf)
+        sf[OBJ] = _NAN
+        return
+    run = bool(si[RUN])
+    if in_range:
+        s.ys[rnd] = torch.tensor([
+            float(s.acc.item()) if run else 0.0, float(run), float(si[MAIN_STOP]),
+            float(sf[T_R]), float(sf[CHEAP]) if run else float(inf), float(si[NEED_FULL]),
+            float(sf[OBJ]) if run and d.verbose else _NAN,
+        ], dtype=torch.float64)
+    sf[CHEAP_PREV] = float(sf[CHEAP]) if run else float(inf)
+    si[RND] = rnd + 1
+
+
+class _Ptrs(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in ("si", "sf", "acc", "decay_pow", "ys")]
+
+
+class _Dims(ctypes.Structure):
+    _fields_ = [("n_main", ctypes.c_int), ("total", ctypes.c_int), ("tol_on", ctypes.c_int),
+                ("checks", ctypes.c_int), ("verbose", ctypes.c_int), ("tol", ctypes.c_float),
+                ("scale", ctypes.c_float)]
+
+
+def _lib_fn(name, argtypes):
+    fn = _FN.get(name)
+    if fn is None:
+        fn = getattr(_build.library("schedule"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FN[name] = fn
+    return fn
+
+
+def _c(s: Schedule, d: ScheduleDims) -> tuple[_Ptrs, _Dims]:
+    total = d.total
+    for name, t, dtype, shape in (
+        ("si", s.si, torch.int32, (N_INT,)), ("sf", s.sf, torch.float32, (N_FLOAT,)),
+        ("acc", s.acc, torch.int64, (1,)), ("decay_pow", s.decay_pow, torch.float32, (total,)),
+        ("ys", s.ys, torch.float64, (total, len(YS))),
+    ):
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"round_schedule: {name} must be contiguous {dtype}{list(shape)}")
+    ptrs = _Ptrs(si=s.si.data_ptr(), sf=s.sf.data_ptr(), acc=s.acc.data_ptr(),
+                 decay_pow=s.decay_pow.data_ptr(), ys=s.ys.data_ptr())
+    dims = _Dims(d.n_main, d.total, int(d.tol_on), d.checks, int(d.verbose), d.tol, d.scale)
+    return ptrs, dims
+
+
+def schedule_cuda(phase: int, s: Schedule, d: ScheduleDims) -> None:
+    ptrs, dims = _c(s, d)
+    fn = _lib_fn("cc_round_schedule", [ctypes.c_int, _Ptrs, _Dims, ctypes.c_void_p])
+    status = fn(phase, ptrs, dims, torch.cuda.current_stream(s.si.device).cuda_stream)
+    _build.check(status, "round_schedule")
+    kernels.LAUNCHES["round_schedule"] += 1
+
+
+def round_schedule(phase: int, s: Schedule, d: ScheduleDims) -> None:
+    """Run one schedule phase: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if kernels.route(s.si, s.sf, s.ys) == "cpu":
+        schedule_plain(phase, s, d)
+    else:
+        schedule_cuda(phase, s, d)
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> tuple[int, int]:
+    """(nodes, kernel nodes) of a captured graph (kept with keep_graph)."""
+    fn = _lib_fn("cc_graph_nodes", [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)])
+    n, k = ctypes.c_int(), ctypes.c_int()
+    _build.check(fn(graph.raw_cuda_graph(), ctypes.byref(n), ctypes.byref(k)), "cudaGraphGetNodes")
+    return n.value, k.value
+
+
+class RoundGraph:
+    """One round of the fused schedule as an instantiated CUDA graph:
+    GATE -> IF(need_full){eval} -> DECIDE -> IF(run){body [, obj]} -> CLOSE,
+    over the captured graphs `eval`, `body` and `obj` (which must outlive
+    it: their memory pools hold the buffers the nodes use)."""
+
+    def __init__(self, s: Schedule, d: ScheduleDims, eval_graph, body_graph, obj_graph=None):
+        self._ptrs, self._dims = _c(s, d)
+        fn = _lib_fn("cc_round_graph_build", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                              _Ptrs, _Dims, ctypes.POINTER(ctypes.c_void_p),
+                                              ctypes.POINTER(ctypes.c_void_p)])
+        self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
+        status = fn(eval_graph.raw_cuda_graph(), body_graph.raw_cuda_graph(),
+                    obj_graph.raw_cuda_graph() if obj_graph is not None else None,
+                    self._ptrs, self._dims, ctypes.byref(self._exec), ctypes.byref(self._graph))
+        _build.check(status, "round graph build")
+        self._keep = (s, eval_graph, body_graph, obj_graph)
+
+    def launch(self, stream: int) -> None:
+        fn = _lib_fn("cc_round_graph_launch", [ctypes.c_void_p, ctypes.c_void_p])
+        _build.check(fn(self._exec, stream), "round graph launch")
+
+    def close(self) -> None:
+        if self._exec:
+            fn = _lib_fn("cc_round_graph_destroy", [ctypes.c_void_p, ctypes.c_void_p])
+            _build.check(fn(self._exec, self._graph), "round graph destroy")
+            self._exec = ctypes.c_void_p()
+            self._keep = None

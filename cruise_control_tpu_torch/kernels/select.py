@@ -66,7 +66,14 @@ def _fn():
     return _FN
 
 
-def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_parts: int):
+def select_buffers(K: int, num_brokers: int, num_parts: int, device) -> tuple:
+    """(segment minima i64[B + P], survivors bool[K]), reusable across calls."""
+    return (torch.empty(num_brokers + num_parts, dtype=torch.int64, device=device),
+            torch.empty(K, dtype=torch.bool, device=device))
+
+
+def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_parts: int,
+                bufs: tuple | None = None):
     K = int(delta.shape[0])
     for name, t, dt in (
         ("accept", accept, torch.bool), ("delta", delta, torch.float32),
@@ -75,8 +82,8 @@ def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_par
     ):
         if t.dtype != dt or tuple(t.shape) != (K,) or not t.is_contiguous():
             raise ValueError(f"select_survivors: {name} must be contiguous {dt}[{K}]")
-    segmin = torch.empty(num_brokers + num_parts, dtype=torch.int64, device=delta.device)
-    survive = torch.empty(K, dtype=torch.bool, device=delta.device)
+    segmin, survive = bufs if bufs is not None else select_buffers(K, num_brokers, num_parts,
+                                                                   delta.device)
     if K == 0:
         return survive
     stream = torch.cuda.current_stream(delta.device).cuda_stream
@@ -91,9 +98,10 @@ def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_par
 
 
 def select_survivors(accept, delta, src, dst, part1, part2, *, num_brokers: int,
-                     num_parts: int) -> torch.Tensor:
+                     num_parts: int, bufs: tuple | None = None) -> torch.Tensor:
     """bool[K] survivors (engine.py:2643 `_select`): the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, into `bufs` (`select_buffers`) when given, the plain version
+    for CPU tensors."""
     if kernels.route(accept, delta, src, dst, part1, part2) == "cpu":
         return select_plain(accept, delta, src, dst, part1, part2, num_brokers, num_parts)
-    return select_cuda(accept, delta, src, dst, part1, part2, num_brokers, num_parts)
+    return select_cuda(accept, delta, src, dst, part1, part2, num_brokers, num_parts, bufs)

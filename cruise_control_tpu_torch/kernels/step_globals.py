@@ -1,0 +1,152 @@
+"""step_globals — the anneal step's frozen global scalars.
+
+Replaces: `Engine._globals` (cruise_control_tpu/analyzer/engine.py:1623)
+and its packing for the candidates kernel: masked sums over the brokers
+(total load, replica, leader and leader-bytes-in totals, the tiebreak's
+utilization sums, disk load) and over topic x broker (per-topic averages).
+
+Bound on the card: latency.  The inputs are B broker rows and the T x B
+topic counts (~2 MB at the north star), under a microsecond of HBM time,
+so the launch is the cost.  Design (csrc/step_globals.cu): one launch;
+block 0 sums the broker rows in a fixed order (each thread a strided
+slice, then a fixed tree), so the result is the same run after run; the
+other blocks sum one topic row a warp, in integers.  The kernel's sums run
+in another order than PyTorch's, so the two agree to f32 rounding.
+
+The output is one f32 vector laid out as `LAYOUT`: its first 22 floats are
+the vector the candidates kernel reads, then the total disk load, then the
+T per-topic averages.  `unpack` gives the named views the objective terms
+read.  The plain version is the reference's sums as PyTorch ops.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cruise_control_tpu_torch import kernels
+from cruise_control_tpu_torch.kernels import _build
+
+_FN = None
+#: (name, length) in the order of the output vector (csrc/step_globals.cu)
+LAYOUT = (
+    ("avg_pct", 4), ("total_load", 4), ("pct_sum", 4), ("pct_sumsq", 4),
+    ("avg_count", 1), ("total_count", 1), ("avg_lcount", 1), ("total_lcount", 1),
+    ("avg_lbin", 1), ("total_lbin", 1), ("total_disk_load", 1),
+)
+#: floats before the per-topic averages; the candidates kernel reads the first 22
+HEAD = sum(n for _, n in LAYOUT)
+KERNEL_VEC = 22
+
+
+def size(num_topics: int) -> int:
+    return HEAD + num_topics
+
+
+def unpack(buf: torch.Tensor) -> dict:
+    """Named views of a globals vector: 4-vectors, 0-d scalars, "topic_avg"
+    [T] and "vec", the candidates kernel's f32[22]."""
+    g, at = {}, 0
+    for name, n in LAYOUT:
+        g[name] = buf[at: at + n] if n > 1 else buf[at]
+        at += n
+    g["topic_avg"] = buf[HEAD:]
+    g["vec"] = buf[:KERNEL_VEC]
+    return g
+
+
+def globals_plain(sx, carry, out: torch.Tensor) -> dict:
+    st = sx.state
+    am = sx.alive
+    load = torch.where(am[:, None], carry.broker_load, 0.0)
+    total_load = load.sum(0)
+    total_count = torch.where(am, carry.broker_replica_count, 0).sum().to(torch.float32)
+    total_lcount = torch.where(am, carry.broker_leader_count, 0).sum().to(torch.float32)
+    total_lbin = torch.where(am, carry.broker_leader_bytes_in, 0.0).sum()
+    topic_total = torch.where(am[None, :], carry.broker_topic_count, 0).sum(1)
+    dmask = st.disk_alive & am[:, None]
+    total_disk_load = torch.where(dmask, carry.disk_load, 0.0).sum()
+    pct = torch.where(am[:, None], carry.broker_load / (st.broker_capacity + 1e-12), 0.0)
+    vals = dict(
+        avg_pct=total_load / sx.total_cap,
+        total_load=total_load,
+        pct_sum=pct.sum(0),
+        pct_sumsq=(pct * pct).sum(0),
+        avg_count=total_count / sx.n_alive,
+        total_count=torch.clamp(total_count, min=1.0),
+        avg_lcount=total_lcount / sx.n_alive,
+        total_lcount=torch.clamp(total_lcount, min=1.0),
+        avg_lbin=total_lbin / sx.n_alive,
+        total_lbin=total_lbin + 1e-12,
+        total_disk_load=total_disk_load + 1e-12,
+    )
+    g = unpack(out)
+    for name, _ in LAYOUT:
+        g[name].copy_(vals[name])
+    g["topic_avg"].copy_(topic_total.to(torch.float32) / sx.n_alive)
+    return g
+
+
+class _In(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "alive", "broker_load", "capacity", "rcount", "lcount", "lbin", "topic_count",
+        "disk_alive", "disk_load", "total_cap",
+    )]
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = _build.library("step_globals").cc_step_globals
+        fn.argtypes = [_In, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _ptr(name, t, dtype, shape) -> int:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"step_globals: {name} must be contiguous {dtype}{list(shape)}, "
+                         f"got {t.dtype}{list(t.shape)}")
+    if len(shape) == 2 and shape[1] == 4 and t.data_ptr() % 16:
+        raise ValueError(f"step_globals: {name} rows must be 16-byte aligned")
+    return t.data_ptr()
+
+
+def globals_cuda(sx, carry, out: torch.Tensor) -> dict:
+    st = sx.state
+    s = st.shape
+    B, T, D = s.B, s.num_topics, s.max_disks_per_broker
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    c_in = _In(
+        alive=_ptr("alive", sx.alive, b8, (B,)),
+        broker_load=_ptr("broker_load", carry.broker_load, f32, (B, 4)),
+        capacity=_ptr("broker_capacity", st.broker_capacity, f32, (B, 4)),
+        rcount=_ptr("broker_replica_count", carry.broker_replica_count, i32, (B,)),
+        lcount=_ptr("broker_leader_count", carry.broker_leader_count, i32, (B,)),
+        lbin=_ptr("broker_leader_bytes_in", carry.broker_leader_bytes_in, f32, (B,)),
+        topic_count=_ptr("broker_topic_count", carry.broker_topic_count, i32, (T, B)),
+        disk_alive=_ptr("disk_alive", st.disk_alive, b8, (B, D)),
+        disk_load=_ptr("disk_load", carry.disk_load, f32, (B, D)),
+        total_cap=_ptr("total_cap", sx.total_cap, f32, (4,)),
+    )
+    buf = _ptr("out", out, f32, (size(T),))
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    status = _fn()(c_in, B, T, D, sx.n_alive, buf, stream)
+    _build.check(status, "step_globals")
+    kernels.LAUNCHES["step_globals"] += 1
+    return unpack(out)
+
+
+def step_globals(sx, carry, out: torch.Tensor | None = None) -> dict:
+    """The step's globals of `carry` written into `out` (f32[size(T)],
+    allocated when None), returned as `unpack(out)`: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if out is None:
+        out = torch.empty(size(sx.state.shape.num_topics), dtype=torch.float32,
+                          device=carry.broker_load.device)
+    if kernels.route(carry.broker_load, sx.alive, out) == "cpu":
+        return globals_plain(sx, carry, out)
+    return globals_cuda(sx, carry, out)

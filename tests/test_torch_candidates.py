@@ -34,7 +34,7 @@ from cruise_control_tpu_torch.analyzer.draws import Key
 from cruise_control_tpu_torch.analyzer.engine import SamplingPlan
 from cruise_control_tpu_torch.convert import from_jax_arrays, to_numpy
 from cruise_control_tpu_torch.kernels.apply import apply_plain
-from cruise_control_tpu_torch.kernels.candidates import StepKeys, candidates_plain
+from cruise_control_tpu_torch.kernels.candidates import StepKeys, candidates_plain, key_table
 from cruise_control_tpu_torch.models.state import STATE_FIELDS
 from cruise_control_tpu_torch.testing.fixtures import apply_collision_case, collision_cluster
 
@@ -53,7 +53,11 @@ def _words(k) -> tuple[int, int]:
 def test_step_keys_match_jax_split(seed):
     jkey = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
     keys = StepKeys.of(Key(*_words(jkey)))
-    c = keys.c_struct()
+    # the row the kernel reads: the run's key table, whose first row is
+    # this carry key's step
+    row = key_table(Key(*_words(jkey)), 2)[0]
+    assert [int(x) for x in row] == keys.words()
+    c = StepKeys.from_words(row)
     nxt, k_r, k_s, k_l, k_u = jax.random.split(jkey, 5)
     r_src, r_dst = jax.random.split(k_r)
     s_src, s_q = jax.random.split(k_s)
@@ -168,5 +172,6 @@ def test_cpu_step_launches_no_kernel():
     carry, stats = te.step(carry, 0.0, te.plan(carry))
     assert int(stats["accepted"]) > 0
     assert set(kernels.LAUNCHES) == {"threefry_uniform", "move_delta", "candidates",
-                                     "select_survivors", "apply_moves"}
+                                     "select_survivors", "apply_moves", "group_by_broker",
+                                     "refresh_aggregates", "step_globals", "round_schedule"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

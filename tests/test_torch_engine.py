@@ -183,7 +183,7 @@ def test_select_plain_equals_argsort_formula(case):
 
 @pytest.mark.parametrize("field,value", [
     ("intra_broker", True), ("prior_enabled", True), ("diagnostics", True),
-    ("score_dtype", "bfloat16"), ("fused_rounds", False),
+    ("score_dtype", "bfloat16"),
 ])
 def test_unported_modes_raise(field, value):
     ts = _port(_jax_state("small_cluster"))

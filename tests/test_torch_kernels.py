@@ -248,3 +248,162 @@ def test_segment_sum_adds_in_row_order(cuda):
     for _ in range(3):
         got = segment_sum(torch.from_numpy(data).to(cuda), torch.from_numpy(seg).to(cuda), 38)
         assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# ----------------------------------------------------------------------
+# the fused route's kernels: group_by_broker, refresh_aggregates,
+# step_globals, round_schedule, and the round graph
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["replicas", "one_segment", "all_padding", "few_segments", "empty"])
+def test_group_matches_plain(cuda, case):
+    from cruise_control_tpu_torch.kernels.group import group_by_broker, group_plain, Grouping
+
+    rng = np.random.default_rng(len(case))
+    n_seg, n = 2600, 500_245
+    seg = {
+        "replicas": rng.integers(0, n_seg + 1, n),
+        "one_segment": np.full(n, 7),
+        "all_padding": np.full(n, n_seg),
+        "few_segments": rng.choice([0, 1, 2599, n_seg], n),
+        "empty": np.zeros(0),
+    }[case].astype(np.int32)
+    t = torch.from_numpy(seg).to(cuda)
+    before = kernels.LAUNCHES["group_by_broker"]
+    got = group_by_broker(t, n_seg)
+    assert kernels.LAUNCHES["group_by_broker"] == before + 1
+    want = group_plain(t, n_seg, Grouping.empty(len(seg), n_seg, cuda))
+    for f in ("count", "start", "order"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def _moved_carry(cuda, steps=6):
+    """A small cluster's carry a few greedy steps from its input (brokers
+    hold moved rows, leaders changed), on the card (or the CPU)."""
+    state = random_cluster(RandomClusterSpec(num_brokers=40, num_partitions=3000, skew=1.0), seed=4,
+                           device=cuda)
+    eng = Engine(state, DEFAULT_CHAIN, config=CFG)
+    carry = eng.init_carry(Key.from_seed(1))
+    for _ in range(steps):
+        carry, _ = eng.step(carry, 0.0)
+    return eng, carry
+
+
+def test_refresh_matches_plain_bitwise(cuda):
+    """The card's aggregates equal the plain version's on the CPU (row
+    order, the reference's) bit for bit, run after run.  (The plain version
+    on the card is no yardstick here: CUDA's index_put_ accumulation sums a
+    one-column segment's rows in a tree.)"""
+    from cruise_control_tpu_torch.kernels.refresh import AGG_FIELDS, refresh_aggregates, refresh_plain
+
+    eng, carry = _moved_carry(cuda)
+    st = eng.statics.state
+    place = (carry.replica_broker, carry.replica_is_leader, carry.replica_disk)
+    cpu = Engine(random_cluster(RandomClusterSpec(num_brokers=40, num_partitions=3000, skew=1.0), seed=4,
+                                device="cpu"), DEFAULT_CHAIN, config=CFG).statics
+    want = {f: torch.empty_like(t, device="cpu") for f, t in carry.aggregates().items()}
+    refresh_plain(cpu.state, *[t.cpu() for t in place], want, cpu.host_groups)
+    want = {f: t.to(cuda) for f, t in want.items()}
+    for _ in range(3):
+        got = {f: torch.full_like(t, -1) for f, t in carry.aggregates().items()}
+        before = kernels.LAUNCHES["refresh_aggregates"]
+        refresh_aggregates(st, *place, got, hosts=eng.statics.host_groups)
+        assert kernels.LAUNCHES["refresh_aggregates"] == before + 1
+        for f in (*AGG_FIELDS, "host_load"):
+            a, b = got[f], want[f]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f
+
+
+def test_step_globals_matches_plain(cuda):
+    from cruise_control_tpu_torch.kernels import step_globals as gk
+
+    eng, carry = _moved_carry(cuda)
+    T = eng.shape.num_topics
+    want = gk.globals_plain(eng.statics, carry, torch.empty(gk.size(T), device=cuda))
+    first = None
+    for _ in range(3):
+        buf = torch.full((gk.size(T),), float("nan"), device=cuda)
+        before = kernels.LAUNCHES["step_globals"]
+        got = gk.step_globals(eng.statics, carry, buf)
+        assert kernels.LAUNCHES["step_globals"] == before + 1
+        for k, v in want.items():
+            assert torch.allclose(got[k], v, rtol=1e-6, atol=0.0), k
+        first = buf.clone() if first is None else first
+        assert torch.equal(buf.view(torch.int32), first.view(torch.int32))  # the same run after run
+
+
+def test_round_schedule_matches_plain(cuda):
+    """Each phase on the card against the plain version on the CPU, over a
+    table of gate inputs (round, done, checks left, cheap signal, full-chain
+    violation, previous violation, has-previous) and a decay whose powers
+    are not exact."""
+    import itertools
+
+    from cruise_control_tpu_torch.kernels import schedule as sk
+
+    tol = float(np.float32(1e-6))
+    dims = sk.ScheduleDims(n_main=3, total=5, tol_on=True, checks=2, verbose=True, tol=tol,
+                           scale=float(np.float32(1e-2)))
+    table = itertools.product([0, 1, 2, 3, 4], [0, 1], [0, 1, 2], [0.0, tol, 1e-3, float("inf")],
+                              [0.0, tol, 5e-4, 1e-3], [float("inf"), 1e-3, 5e-4], [0, 1])
+    for row in table:
+        states = []
+        for dev in ("cpu", cuda):
+            s = sk.Schedule.create(5, 0.7, dev)
+            s.sf[sk.OBJ] = 37.0
+            sk.round_schedule(sk.INIT, s, dims)
+            rnd, done, checks, cheap_prev, full_v, prev_v, has_prev = row
+            s.si[sk.RND], s.si[sk.DONE], s.si[sk.CHECKS], s.si[sk.HAS_PREV] = rnd, done, checks, has_prev
+            s.sf[sk.CHEAP_PREV], s.sf[sk.PREV_V] = cheap_prev, prev_v
+            sk.round_schedule(sk.GATE, s, dims)
+            if s.si[sk.NEED_FULL]:
+                s.sf[sk.FULL_V] = full_v
+            sk.round_schedule(sk.DECIDE, s, dims)
+            if s.si[sk.RUN]:
+                s.acc += 11
+                s.sf[sk.CHEAP] = 2e-3
+                s.sf[sk.OBJ] = 5.0
+            sk.round_schedule(sk.CLOSE, s, dims)
+            states.append([t.cpu() for t in (s.si, s.sf, s.acc, s.ys)])
+        for a, b in zip(*states):
+            assert torch.equal(a, b) or (a.is_floating_point() and torch.allclose(a, b, equal_nan=True)
+                                         and torch.equal(a.isnan(), b.isnan())), row
+
+
+def test_graph_route_matches_legacy_at_t0(cuda):
+    """The fused route on the card (captured graphs behind conditional
+    nodes, one blocking sync) and the legacy host loop, which share every
+    kernel: identical placements and rounds at T=0; the graph route's
+    launches counted per replay."""
+    import dataclasses
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    cfg = dataclasses.replace(CFG, init_temperature_scale=0.0, num_rounds=4)
+    kernels.reset_launches()
+    eng = Engine(state, DEFAULT_CHAIN, config=cfg)
+    final_f, hist_f = eng.run()
+    launches = dict(kernels.LAUNCHES)
+    # a verbose run captures the objective graph and a second round graph
+    again, hist_again = eng.run(verbose=True)
+    legacy = Engine(state, DEFAULT_CHAIN, config=dataclasses.replace(cfg, fused_rounds=False))
+    final_l, hist_l = legacy.run(verbose=True)
+    assert [h["objective"] for h in hist_again if "round" in h] == \
+        [h["objective"] for h in hist_l if "round" in h]
+    rounds = [(h["round"], h["accepted"], h.get("early_stop"), h.get("extra")) for h in hist_f if "round" in h]
+    assert rounds == [(h["round"], h["accepted"], h.get("early_stop"), h.get("extra"))
+                      for h in hist_l if "round" in h]
+    assert rounds == [(h["round"], h["accepted"], h.get("early_stop"), h.get("extra"))
+                      for h in hist_again if "round" in h]
+    for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+        assert torch.equal(getattr(final_f, f), getattr(final_l, f)), f
+        assert torch.equal(getattr(final_f, f), getattr(again, f)), f
+    timing = next(h for h in hist_f if h.get("timing"))
+    assert timing["fused"] is True and timing["blocking_syncs"] == 1
+    # one candidates launch per step that ran (plus the capture's warm-up step)
+    assert launches["candidates"] == cfg.steps_per_round * len(rounds) + 1
+    assert launches["round_schedule"] >= 3 * (cfg.num_rounds + cfg.extra_round_budget)
+    assert eng.graph_stats["captures"][0]["nodes"]["body"][1] > 0
