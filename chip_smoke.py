@@ -11,10 +11,13 @@ Phases:
   2. Each kernel against its plain PyTorch version on the card, on the
      inputs of one north-star anneal step, with the kernel's and the plain
      version's times and the least time the card could take: the step's
-     four kernels (step_globals, candidates, select_survivors, apply_moves,
-     the last bit for bit, also on a case of survivors meeting on shared
-     hosts), the round prep's two (group_by_broker exact, and
-     refresh_aggregates bit for bit against the plain version on the CPU),
+     four kernels (step_globals within rtol 1e-6 and the same bits over
+     100 calls; candidates; select_survivors' survivors, relocation mask
+     and count exact, fresh and over successive epochs of one buffer, also
+     on synthetic cases; apply_moves bit for bit, also on a case of
+     survivors meeting on shared hosts), the round prep's two
+     (group_by_broker exact, and refresh_aggregates bit for bit against
+     the plain version on the CPU),
      the schedule kernel (round_schedule, exact over a table of gate
      inputs), and the two standalone kernels the candidates kernel fused
      (threefry_uniform, move_delta) on the same step's draws and deltas.
@@ -36,7 +39,9 @@ Phases:
   7. Where the time goes: a whole fused run under torch.profiler (device
      busy, idle share), the captured graphs' nodes, a masked round, a full
      check and a round body replayed alone; and an eager north-star step
-     (the legacy route's): host clock, launches and device time per step.
+     (the legacy route's): host clock, launches and device time per step,
+     one select launch and no other device operation between candidates
+     and apply_moves.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -75,9 +80,9 @@ ALU_OPS_PER_S = 67e12
 
 #: the package's own CUDA kernels, by the names the profiler reports
 OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
-               "candidates_kernel", "select_min_kernel", "select_keep_kernel",
-               "apply_rows_kernel", "apply_owner_kernel", "group_hist_kernel",
-               "group_colscan_kernel", "group_scan_kernel", "group_scatter_kernel",
+               "candidates_kernel", "select_survivors_kernel", "apply_rows_kernel",
+               "apply_owner_kernel", "group_hist_kernel", "group_colscan_kernel",
+               "group_scan_kernel", "group_scatter_kernel",
                "refresh_zero_kernel", "refresh_broker_kernel", "refresh_host_kernel",
                "step_globals_kernel", "round_schedule_kernel")
 
@@ -398,20 +403,26 @@ def check_kernels(state, cfg) -> dict:
         calls=per_call, n=sum(r["n"] for r in per_call),
     )
 
-    # select_survivors: exact survivor set
+    # select_survivors: exact survivors, relocation mask and count, on the
+    # captured step and the synthetic cases, fresh and over epochs of one
+    # buffer
     (args, kw), = cap.calls["select_survivors"]
-    sk = select_k.select_survivors(*args, **kw)
-    sp = select_k.select_plain(*args, kw["num_brokers"], kw["num_parts"])
-    diff = int((sk != sp).sum())
-    check(diff == 0, f"select_survivors: {diff} survivors differ from the plain version")
-    check(int(sk.sum()) > 0, "select_survivors: no survivor in the captured step")
-    kt = measure(lambda: select_k.select_survivors(*args, **kw))
-    pt = measure(lambda: select_k.select_plain(*args, kw["num_brokers"], kw["num_parts"]))
+    sizes = dict(B=kw["num_brokers"], P=kw["num_parts"], n_r=kw["n_r"], n_s=kw["n_s"])
+    diff = check_select(select_k, [args, perturbed_select_args(args, 1), args,
+                                   perturbed_select_args(args, 2), args], **sizes)
+    cases = check_select_cases(select_k, dev)
+    survive, sv_r, acc = select_k.select_survivors(*args, **kw)
+    check(int(acc) > 0, "select_survivors: no survivor in the captured step")
     Ks = int(args[0].shape[0])
-    b_ms, b_by = bound(nbytes(*args) + Ks, 12.0 * Ks)
+    bufs = select_k.select_buffers(Ks, sizes["n_r"], sizes["n_s"], sizes["B"], sizes["P"], dev)
+    kt = measure(lambda: select_k.select_survivors(*args, **{**kw, "acc": acc, "bufs": bufs}))
+    pt = measure(lambda: select_k.select_plain(*args, *sizes.values()))
+    b_ms, b_by = bound(nbytes(*args, survive, sv_r, acc), 12.0 * Ks)
     out["select_survivors"] = dict(max_abs_err=float(diff), **timings(kt, pt), bound_ms=b_ms,
-                                   bound_by=b_by, tolerance="exact survivor set",
-                                   survivors=int(sk.sum()), n=Ks)
+                                   bound_by=b_by,
+                                   tolerance="exact survivors, relocation mask and count; fresh and "
+                                             "over 5 epochs of one buffer up to the last",
+                                   synthetic_cases=cases, survivors=int(survive.sum()), n=Ks)
 
     # apply_moves: in place, from a clone of the captured carry each time;
     # bit for bit (one broker per host here, so the plain version's CUDA
@@ -453,6 +464,70 @@ def check_kernels(state, cfg) -> dict:
         log(json.dumps({"phase": "kernel", "name": name, **rec}))
     del eng, carry, plan, cap, moved
     return out
+
+
+def perturbed_select_args(args, seed: int) -> list:
+    """The step's select inputs with its deltas shuffled and its acceptance
+    redrawn (same sizes, other winners)."""
+    import torch
+
+    g = torch.Generator(device=args[1].device).manual_seed(seed)
+    accept, delta, *rest = args
+    perm = torch.randperm(delta.shape[0], generator=g, device=delta.device)
+    redrawn = torch.rand(accept.shape, generator=g, device=accept.device) < 0.5
+    return [redrawn, delta[perm].contiguous(), *rest]
+
+
+def check_select(select_k, runs, B, P, n_r, n_s) -> int:
+    """select_survivors on runs[0] in fresh buffers, then on each run in
+    turn in one buffer at epochs 1, 2, 3, then the last two the keys can
+    tag: survivors, relocation mask and count exactly the plain version's
+    each time (a minimum left by an earlier epoch must lose).  Returns the
+    number of differing outputs (0)."""
+    import torch
+
+    K = int(runs[0][1].shape[0])
+    top = select_k.max_epoch(K)
+    bufs = select_k.select_buffers(K, n_r, n_s, B, P, runs[0][1].device, n_epochs=top)
+    acc = torch.full((1,), 3, dtype=torch.int64, device=runs[0][1].device)
+    calls = [(runs[0], None, None, 1)] + list(zip(runs, [bufs] * len(runs), [acc] * len(runs),
+                                                  (1, 2, 3, top - 1, top)))
+    kept = 0
+    for args, b, a, epoch in calls:
+        before = 0 if a is None else int(a)
+        got = select_k.select_survivors(*args, num_brokers=B, num_parts=P, n_r=n_r, n_s=n_s, acc=a,
+                                        bufs=b, epoch=select_k.Epoch(epoch - 1))
+        want = select_k.select_plain(*args, B, P, n_r, n_s)
+        diff = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+        check(diff == 0, f"select_survivors: {diff} mask entries differ from the plain version "
+                         f"at epoch {epoch}")
+        check(int(got[2]) - before == int(want[2]),
+              f"select_survivors: count {int(got[2]) - before} != {int(want[2])} at epoch {epoch}")
+        kept += int(want[2])
+    check(kept > 0, "select_survivors: no survivor in any call")
+    return 0
+
+
+def check_select_cases(select_k, dev) -> list:
+    """check_select on each synthetic case, new draws each epoch."""
+    import torch
+
+    from cruise_control_tpu_torch.testing.fixtures import SELECT_CASES, SELECT_INPUTS, select_case
+
+    done = []
+    for name in SELECT_CASES:
+        cs = [select_case(name, seed) for seed in (0, 1, 2, 3, 0)]
+        runs = [[torch.from_numpy(c[f]).to(dev) for f in SELECT_INPUTS] for c in cs]
+        if name == "none_accepted":
+            # no survivor anywhere: the count and masks stay zero
+            got = select_k.select_survivors(*runs[0], num_brokers=cs[0]["B"], num_parts=cs[0]["P"],
+                                            n_r=cs[0]["n_r"], n_s=cs[0]["n_s"])
+            check(not bool(got[0].any()) and not bool(got[1].any()) and int(got[2]) == 0,
+                  "select_survivors: a survivor with none accepted")
+        else:
+            check_select(select_k, runs, cs[0]["B"], cs[0]["P"], cs[0]["n_r"], cs[0]["n_s"])
+        done.append(name)
+    return done
 
 
 def cpu_copy(x):
@@ -554,14 +629,16 @@ def check_round_kernels(eng, carry) -> dict:
     # step_globals
     buf = torch.empty(gk.size(T), device=dev)
     want = gk.globals_plain(sx, carry, torch.empty(gk.size(T), device=dev))
-    first, err, rel = None, 0.0, 0.0
-    for _ in range(3):
-        g = gk.step_globals(sx, carry, buf)
-        for k, v in want.items():
-            check(bool(torch.allclose(g[k], v, rtol=1e-6, atol=0.0)), f"step_globals: {k} outside rtol 1e-6")
-            err = max(err, float((g[k] - v).abs().max()))
-            rel = max(rel, float(((g[k] - v).abs() / v.abs().clamp(min=1e-30)).max()))
-        first = buf.clone() if first is None else first
+    g = gk.step_globals(sx, carry, buf)
+    err, rel = 0.0, 0.0
+    for k, v in want.items():
+        check(bool(torch.allclose(g[k], v, rtol=1e-6, atol=0.0)), f"step_globals: {k} outside rtol 1e-6")
+        err = max(err, float((g[k] - v).abs().max()))
+        rel = max(rel, float(((g[k] - v).abs() / v.abs().clamp(min=1e-30)).max()))
+    first = buf.clone()
+    for _ in range(100):
+        buf.fill_(float("nan"))
+        gk.step_globals(sx, carry, buf)
         check(torch.equal(buf.view(torch.int32), first.view(torch.int32)), "step_globals differs run to run")
     kt = measure(lambda: gk.step_globals(sx, carry, buf))
     pbuf = torch.empty_like(buf)
@@ -570,7 +647,7 @@ def check_round_kernels(eng, carry) -> dict:
     b_ms, b_by = bound(nb, 40.0 * B + T * B)
     out["step_globals"] = dict(max_abs_err=err, max_rel_err=rel, **timings(kt, pt), library_ms=None,
                                bound_ms=b_ms,
-                               bound_by=b_by, tolerance="rtol 1e-6, the same run after run", n=B)
+                               bound_by=b_by, tolerance="rtol 1e-6, the same bits over 100 calls", n=B)
 
     # round_schedule: every phase over a table of gate inputs (3 main and 2
     # polish rounds), the card's state against the plain version's
@@ -685,7 +762,9 @@ def profile_steps(state, cfg) -> dict:
     route's step, in the run's buffers, at T=0).  Host clock around 32
     steps (with the launches of each kernel per step), one round prep and
     one full-chain evaluation; then torch.profiler over 16 more steps for
-    the device's time."""
+    the device's time, and the order of the step's device operations: one
+    select launch and nothing else between candidates and apply_moves.
+    The steps are the first 52 of round 0, each at its own select epoch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -700,11 +779,14 @@ def profile_steps(state, cfg) -> dict:
     ws.sched.value(sched_k.T_R).fill_(0.0)
     carry, plan = ws.carry, ws.plan
 
+    done = [0]
+
     def steps(n):
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        for i in range(n):
-            eng._step(ws, i % cfg.steps_per_round)
+        for _ in range(n):
+            eng._step(ws, done[0])
+            done[0] += 1
         torch.cuda.synchronize()
         return (time.monotonic() - t0) / n * 1e3
 
@@ -722,12 +804,24 @@ def profile_steps(state, cfg) -> dict:
     n = 16
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_step_ms = steps(n)
-    kernels = {}
+    kernels, order = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             rec = kernels.setdefault(e.name, [0.0, 0])
             rec[0] += e.time_range.elapsed_us() / 1e3 / n
             rec[1] += 1
+            order.append((e.time_range.start, e.name.split("(")[0]))
+    # the device operations between each candidates launch and the next
+    # apply_moves launch
+    between, cur = [], None
+    for _, name in sorted(order):
+        if name == "candidates_kernel":
+            cur = []
+        elif name == "apply_rows_kernel" and cur is not None:
+            between.append(cur)
+            cur = None
+        elif cur is not None:
+            cur.append(name)
     busy = sum(v[0] for v in kernels.values())
     own = sum(v[0] for k, v in kernels.items() if k.split("(")[0] in OWN_KERNELS)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
@@ -739,13 +833,18 @@ def profile_steps(state, cfg) -> dict:
         own_kernels_ms_per_step=own if kernels else "not measured",
         device_busy_share_profiled=busy / profiled_step_ms if kernels else "not measured",
         device_ops_per_step=sum(v[1] for v in kernels.values()) / n,
-        launches_per_step=launches_per_step,
+        launches_per_step=launches_per_step, between_candidates_and_apply=between[:1],
         top_kernels=[[k[:80], round(v[0], 5), v[1] // n] for k, v in top],
     )
     log(json.dumps(out))
     check(launches_per_step["candidates"] == 1 and launches_per_step["step_globals"] == 1
+          and launches_per_step["select_survivors"] == 1 and launches_per_step["apply_moves"] == 1
           and launches_per_step["threefry_uniform"] == 0 and launches_per_step["move_delta"] == 0,
           f"a step's launches are not the fused path's: {launches_per_step}")
+    if kernels:
+        # the profiler may drop a few of the steps' events; most steps show
+        check(len(between) >= n // 2 and all(b == ["select_survivors_kernel"] for b in between),
+              f"device operations between candidates and apply_moves: {between[:2]}")
     eng.release()
     del eng, ws, carry, plan
     return out
@@ -871,11 +970,18 @@ def profile_fused(state, cfg) -> dict:
     masked = time_ms(lambda: rg.launch(stream.cuda_stream), reps=100)
     full = time_ms(lambda: ws.graphs["eval"].replay(), reps=10)
     init = time_ms(lambda: ws.graphs["init"].replay(), reps=5)
-    # a round body alone: round 0's keys, at T=0 (the init replay above set
-    # the carry and the plan)
-    ws.sched.si[sched_k.RND] = 0
+    # a round body alone, at T=0 (the init replay above set the carry and
+    # the plan, and cleared the select minima): rounds 0, 1, ... in turn,
+    # each with its own keys and select epochs
     ws.sched.sf[sched_k.T_R] = 0.0
-    body = time_ms(lambda: ws.graphs["body"].replay(), reps=5)
+    rnd = [0]
+
+    def body():
+        ws.sched.si[sched_k.RND] = rnd[0]
+        rnd[0] += 1
+        ws.graphs["body"].replay()
+
+    body_ms = time_ms(body, reps=5)
     rounds = [h for h in hist_p if "round" in h]
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:14]
     out = dict(
@@ -884,7 +990,7 @@ def profile_fused(state, cfg) -> dict:
         device_busy_ms=busy if kernels else "not measured",
         device_idle_share=1.0 - busy / prof_wall_ms if kernels else "not measured",
         device_ops=ops, graph_captures=eng.graph_stats.get("captures", []),
-        masked_round_ms=masked, full_check_ms=full, round_body_ms=body, init_ms=init,
+        masked_round_ms=masked, full_check_ms=full, round_body_ms=body_ms, init_ms=init,
         top_kernels=[[k, round(v[0], 5), v[1]] for k, v in top],
     )
     log(json.dumps(out))

@@ -38,7 +38,9 @@ so at T=0 with a fixed seed they give identical trajectories.
 A step is four hand-written CUDA kernels (kernels/): the per-step
 globals (step_globals), the candidates (draws, gathers, feasibility, exact
 deltas and Metropolis acceptance, kernels/candidates.py), the conflict
-resolution (select_survivors) and the scatter (apply_moves).  A round prep
+resolution (select_survivors, which also writes the scatter's relocation
+mask and adds the step's survivor count into the round's accumulator) and
+the scatter (apply_moves), with no PyTorch op between them.  A round prep
 is group_by_broker and refresh_aggregates (every aggregate recomputed from
 the placement) and step_globals, around the plan's PyTorch ops.  The
 carry, the plan and the step's buffers are fixed tensors updated in place,
@@ -435,8 +437,7 @@ class _Workspace:
     sched: sched_k.Schedule
     keys: torch.Tensor  # the run's key table, i32[steps, KEY_WORDS]
     cand: dict | None  # the candidates kernel's outputs (CUDA)
-    sel: tuple | None  # select_survivors' buffers (CUDA)
-    sv_r: torch.Tensor  # bool[K_r + 2 K_s]: relocation rows' survivor flags
+    sel: select_k.SelectBuffers | None  # select_survivors' buffers (CUDA)
     #: captured CUDA graphs by name, their launches per replay, and the
     #: round graphs by verbose flag
     graphs: dict = dataclasses.field(default_factory=dict)
@@ -703,29 +704,30 @@ class Engine:
 
     def select_apply(self, carry: EngineCarry, prop: dict, next_key: Key):
         """Conflict resolution + scatter of an accepted candidate bundle."""
-        survive = self._survive_apply(carry, prop)
+        survive, accepted = self._survive_apply(carry, prop)
         carry.key = next_key
         delta, feas = prop["delta"], prop["feas"]
         stats = dict(
-            accepted=survive.sum(),
+            accepted=accepted[0],
             improving=(feas & (delta < 0)).sum(),
             delta=torch.where(survive, delta, 0.0).sum(),
         )
         return carry, stats
 
-    def _survive_apply(self, carry: EngineCarry, prop: dict, ws: _Workspace | None = None):
-        """The survivors of a bundle, scattered into `carry`; into the
-        workspace's buffers when given.  Returns the survivor mask."""
-        survive = select_k.select_survivors(
-            prop["accept"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
-            num_brokers=self.shape.B, num_parts=self.shape.P, bufs=ws.sel if ws else None,
-        )
+    def _survive_apply(self, carry: EngineCarry, prop: dict, ws: _Workspace | None = None,
+                       epoch: select_k.Epoch = select_k.Epoch()):
+        """The survivors of a bundle, scattered into `carry`.  With the
+        workspace, select_survivors writes into its buffers at `epoch` and
+        adds the survivor count into sched.acc.  Returns (survivor mask,
+        the accumulator the count was added to)."""
         nr, ns = prop["nr"], prop["ns"]
-        sv_s = survive[nr: nr + ns]
-        sv_r_ext = torch.cat([survive[:nr], sv_s, sv_s], out=ws.sv_r if ws else None)
-        apply_k.apply_moves(self.statics, carry, sv_r_ext, prop["payr"], survive[nr + ns:],
-                            prop["payl"])
-        return survive
+        survive, sv_r, acc = select_k.select_survivors(
+            prop["accept"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
+            num_brokers=self.shape.B, num_parts=self.shape.P, n_r=nr, n_s=ns,
+            acc=ws.sched.acc if ws else None, bufs=ws.sel if ws else None, epoch=epoch,
+        )
+        apply_k.apply_moves(self.statics, carry, sv_r, prop["payr"], survive[nr + ns:], prop["payl"])
+        return survive, acc
 
     def round_prep(self, carry: EngineCarry, plan: SamplingPlan | None = None,
                    gbuf: torch.Tensor | None = None):
@@ -762,8 +764,8 @@ class Engine:
             sched=sched_k.Schedule.create(total, cfg.temperature_decay, dev),
             keys=torch.from_numpy(table.view(np.int32)).to(dev),
             cand=cand_k.candidate_buffers(self.cand, self.statics, dev) if cuda else None,
-            sel=select_k.select_buffers(K, s.B, s.P, dev) if cuda else None,
-            sv_r=torch.empty(self.K_r + 2 * self.K_s, dtype=torch.bool, device=dev),
+            sel=select_k.select_buffers(K, self.K_r, self.K_s, s.B, s.P, dev,
+                                        n_epochs=total * cfg.steps_per_round) if cuda else None,
         )
         return self._ws
 
@@ -775,10 +777,18 @@ class Engine:
             scale=float(np.float32(cfg.init_temperature_scale)),
         )
 
+    def _reset_run(self, ws: _Workspace) -> EngineCarry:
+        """The statics' placement into the workspace's carry, with its
+        aggregates; the select minima cleared, as the run's step epochs
+        start over."""
+        if ws.sel is not None:
+            ws.sel.clear()
+        return self._reset_carry(ws.carry, ws.group)
+
     def _init_run(self, ws: _Workspace, dims: sched_k.ScheduleDims) -> None:
         """`_schedule_init`: the statics' placement into the carry with its
         aggregates, the initial objective, t0, the round-0 plan."""
-        carry = self._reset_carry(ws.carry, ws.group)
+        carry = self._reset_run(ws)
         ws.sched.value(sched_k.OBJ).copy_(self.evaluate(carry)[0])
         sched_k.round_schedule(sched_k.INIT, ws.sched, dims)
         self.plan(carry, self._globals(carry, ws.gbuf), ws.plan)
@@ -794,12 +804,12 @@ class Engine:
         """Step i of the round: keys from the key table at the device-side
         round index, the temperature from the device scalar t_r."""
         carry = ws.carry
-        cursor = cand_k.KeyCursor(ws.keys, ws.sched.si[sched_k.RND: sched_k.RND + 1], i,
-                                  self.config.steps_per_round)
+        rnd, spr = ws.sched.si[sched_k.RND: sched_k.RND + 1], self.config.steps_per_round
+        cursor = cand_k.KeyCursor(ws.keys, rnd, i, spr)
         prop = cand_k.candidates(self.cand, self.statics, carry, cursor,
                                  self._globals(carry, ws.gbuf), ws.plan,
                                  ws.sched.value(sched_k.T_R), bufs=ws.cand)
-        ws.sched.acc.add_(self._survive_apply(carry, prop, ws).sum())
+        self._survive_apply(carry, prop, ws, select_k.Epoch(i, rnd, spr))
 
     def _round_body(self, ws: _Workspace) -> None:
         """A round's steps, then the round prep; the accepted count
@@ -995,7 +1005,7 @@ class Engine:
         count_dispatch("engine.init")
         ws = self._workspace()
         sched = ws.sched
-        carry = self._reset_carry(ws.carry, ws.group)
+        carry = self._reset_run(ws)
         t0_obj = float(fetch(self.evaluate(carry)[0])) * cfg.init_temperature_scale
         self.plan(carry, self._globals(carry, ws.gbuf), ws.plan)
         tol = cfg.early_stop_tol

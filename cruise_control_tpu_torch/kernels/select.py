@@ -1,28 +1,37 @@
-"""select_survivors — conflict resolution of the accepted candidates.
+"""select_survivors — conflict resolution of the accepted candidates, and
+the step's bookkeeping around it.
 
 Replaces: `Engine._select` (cruise_control_tpu/analyzer/engine.py:2643),
 the stable double `argsort` of the deltas plus a `segment_min` of the ranks
-over B + P segments.  A candidate survives when it is accepted and is the
-best-ranked accepted candidate at its src broker, its dst broker and each
-of its (one or two) partitions; rank is the stable order of (delta, index).
+over B + P segments; and of `_accept_select_apply` (:2669-2699) the
+extended relocation mask `sv_r_ext = [sv_r, sv_s, sv_s]` the scatter reads
+and the survivor count `accepted = survive.sum()`.  A candidate survives
+when it is accepted and is the best-ranked accepted candidate at its src
+broker, its dst broker and each of its (one or two) partitions; rank is
+the stable order of (delta, index).
 
-Bound on the card: bytes — each candidate reads ~25 bytes and does four
-8-byte atomics; the B + P = ~200k segment minima are cleared and read once.
-Design: no sort.  A packed 64-bit key, (order-preserving bits of delta) <<
-32 | index, orders candidates exactly as the stable argsort does (-0.0 is
-folded onto +0.0 first, since argsort ranks them equal), so pass 1 takes
-an `atomicMin` of the key into each of a candidate's segments and pass 2
-keeps the candidates whose key is every one of their segments' minimum.
-Rejected candidates never touch a segment: every accepted delta ranks
-ahead of the +inf that rejection assigns in the reference.
+Bound on the card: latency.  A step reads ~21 bytes a candidate and writes
+~3 (~0.1 us of HBM time at K = 16,384); the chain of dependent steps is
+what costs.  Design (csrc/select.cu): one cooperative launch over the
+card's SMs, no sort and no clear.  A 64-bit key `epoch_keys` orders the
+candidates exactly as the stable argsort does; pass 1 takes an
+`atomicMin` of the key into each of a candidate's segments, and after a
+grid-wide barrier pass 2 keeps the candidates whose key is every one of
+their segments' minimum, writes both masks and adds the survivor count
+into the caller's accumulator.  The key's top bits tag the step's epoch so
+that the minima need clearing once per run (`SelectBuffers.clear`), not
+once per step.  Rejected candidates never touch a segment: every accepted
+delta ranks ahead of the +inf that rejection assigns in the reference.
 
-The plain version computes the same packed keys in int64 and takes the
-segment minima with `scatter_reduce`.
+The plain version computes the same keys in int64 (a signed twin of the
+kernel's unsigned keys: the same order) and takes fresh segment minima
+with `scatter_reduce` each call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -32,19 +41,48 @@ from cruise_control_tpu_torch.kernels import _build
 _FN = None
 
 
-def packed_keys(delta: torch.Tensor) -> torch.Tensor:
-    """int64 keys ordered as the stable argsort of delta orders candidates
-    (a signed twin of the kernel's unsigned keys: the same order)."""
+def index_bits(K: int) -> int:
+    """Bits of a key that hold the candidate index (K <= 2**bits)."""
+    if not 0 <= K <= 1 << 31:
+        raise ValueError(f"select_survivors: K={K} does not fit a 31-bit candidate index")
+    return max(1, (K - 1).bit_length())
+
+
+def max_epoch(K: int) -> int:
+    """The last epoch the keys of K candidates can tag (epoch 0 is the
+    cleared state)."""
+    return (1 << (32 - index_bits(K))) - 1
+
+
+def epoch_keys(delta: torch.Tensor, epoch: int) -> torch.Tensor:
+    """int64 keys of the candidates at `epoch`: the kernel's unsigned keys
+    [(2**E - 1 - epoch) : E][ordered delta bits : 32][index : 32 - E]
+    minus 2**63, so they order as the unsigned keys do.  Within an epoch
+    they order candidates as the stable argsort of delta does (-0.0 ranks
+    equal to +0.0); every key of an earlier epoch is larger, and the
+    cleared value (int64 max) is larger still."""
+    K = int(delta.shape[0])
+    ib = index_bits(K)
+    if not 1 <= epoch <= max_epoch(K):
+        raise ValueError(f"select_survivors: epoch {epoch} outside 1..{max_epoch(K)} for K={K}")
     d = torch.where(delta == 0, torch.zeros_like(delta), delta)  # -0.0 -> +0.0
     bits = d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     ordered = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
-    idx = torch.arange(delta.shape[0], dtype=torch.int64, device=delta.device)
-    return (ordered - (1 << 31)) * (1 << 32) + idx
+    idx = torch.arange(K, dtype=torch.int64, device=delta.device)
+    tag = (1 << (32 - ib)) - 1 - epoch
+    top = (tag << ib) | (ordered >> (32 - ib))  # bits 63..32 of the unsigned key
+    low = ((ordered & ((1 << (32 - ib)) - 1)) << ib) | idx
+    return (top - (1 << 31)) * (1 << 32) + low
 
 
-def select_plain(accept, delta, src, dst, part1, part2, num_brokers: int, num_parts: int):
+def select_plain(accept, delta, src, dst, part1, part2, num_brokers: int, num_parts: int,
+                 n_r: int, n_s: int, acc: torch.Tensor | None = None):
+    """(survive bool[K], sv_r bool[n_r + 2 n_s], acc i64[1]): the survivors,
+    the relocation rows' mask [survive[:n_r], sv_s, sv_s] with sv_s =
+    survive[n_r:n_r + n_s], and `acc` (zeros when None) with the survivor
+    count added in place."""
     B, P = num_brokers, num_parts
-    key = packed_keys(delta)
+    key = epoch_keys(delta, 1)
     seg = torch.stack([src.long(), dst.long(), B + part1.long(), B + part2.long()])  # [4, K]
     n_seg = B + P
     ok = accept[None, :] & (seg >= 0) & (seg < n_seg)
@@ -53,55 +91,123 @@ def select_plain(accept, delta, src, dst, part1, part2, num_brokers: int, num_pa
     key4 = key[None, :].expand_as(seg)
     segmin.scatter_reduce_(0, seg[ok], key4[ok], reduce="amin")
     mins = segmin[seg.clamp(0, n_seg - 1)]
-    return accept & (mins == key[None, :]).all(0)
+    survive = accept & (mins == key[None, :]).all(0)
+    if acc is None:
+        acc = torch.zeros(1, dtype=torch.int64, device=delta.device)
+    acc.add_(survive.sum())
+    sv_s = survive[n_r: n_r + n_s]
+    return survive, torch.cat([survive[:n_r], sv_s, sv_s]), acc
+
+
+@dataclasses.dataclass
+class SelectBuffers:
+    """The kernel's outputs and its epoch-tagged segment minima, reused by
+    every step of a run; the minima are cleared once per run (`clear`)."""
+
+    segmin: torch.Tensor  # i64[B + P]
+    survive: torch.Tensor  # bool[K]
+    sv_r: torch.Tensor  # bool[n_r + 2 n_s]
+    n_epochs: int  # epochs the run may use, 1..n_epochs
+
+    def clear(self) -> None:
+        self.segmin.fill_(-1)
+
+
+def select_buffers(K: int, n_r: int, n_s: int, num_brokers: int, num_parts: int, device,
+                   n_epochs: int = 1) -> SelectBuffers:
+    """Cleared buffers for a run of up to `n_epochs` steps of K candidates;
+    raises when the keys of K candidates cannot tag that many epochs."""
+    if n_epochs > max_epoch(K):
+        raise ValueError(f"select_survivors: {n_epochs} steps exceed the {max_epoch(K)} epochs "
+                         f"the keys of K={K} candidates can tag")
+    return SelectBuffers(
+        segmin=torch.full((num_brokers + num_parts,), -1, dtype=torch.int64, device=device),
+        survive=torch.empty(K, dtype=torch.bool, device=device),
+        sv_r=torch.empty(n_r + 2 * n_s, dtype=torch.bool, device=device),
+        n_epochs=n_epochs,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Epoch:
+    """A step's epoch: 1 + rnd[0] * steps + step, the round index `rnd`
+    (i32[1]) read on the device; 1 + step without `rnd`."""
+
+    step: int = 0
+    rnd: torch.Tensor | None = None
+    steps: int = 1
+
+
+class _Args(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "accept", "delta", "src", "dst", "part1", "part2", "segmin", "survive", "sv_r", "acc", "rnd",
+    )] + [(f, ctypes.c_int) for f in ("K", "B", "P", "n_r", "n_s", "idx_bits", "step", "steps")])
 
 
 def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("select").cc_select_survivors
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+        fn.argtypes = [_Args, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def select_buffers(K: int, num_brokers: int, num_parts: int, device) -> tuple:
-    """(segment minima i64[B + P], survivors bool[K]), reusable across calls."""
-    return (torch.empty(num_brokers + num_parts, dtype=torch.int64, device=device),
-            torch.empty(K, dtype=torch.bool, device=device))
+def _ptr(name, t, dtype, n) -> int:
+    if t.dtype != dtype or tuple(t.shape) != (n,) or not t.is_contiguous():
+        raise ValueError(f"select_survivors: {name} must be contiguous {dtype}[{n}], "
+                         f"got {t.dtype}{list(t.shape)}")
+    return t.data_ptr()
 
 
 def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_parts: int,
-                bufs: tuple | None = None):
+                n_r: int, n_s: int, acc: torch.Tensor | None = None,
+                bufs: SelectBuffers | None = None, epoch: Epoch = Epoch()):
     K = int(delta.shape[0])
-    for name, t, dt in (
-        ("accept", accept, torch.bool), ("delta", delta, torch.float32),
-        ("src", src, torch.int32), ("dst", dst, torch.int32),
-        ("part1", part1, torch.int32), ("part2", part2, torch.int32),
-    ):
-        if t.dtype != dt or tuple(t.shape) != (K,) or not t.is_contiguous():
-            raise ValueError(f"select_survivors: {name} must be contiguous {dt}[{K}]")
-    segmin, survive = bufs if bufs is not None else select_buffers(K, num_brokers, num_parts,
-                                                                   delta.device)
-    if K == 0:
-        return survive
-    stream = torch.cuda.current_stream(delta.device).cuda_stream
-    status = _fn()(
-        K, num_brokers, num_parts,
-        *[t.data_ptr() for t in (accept, delta, src, dst, part1, part2, segmin, survive)],
-        stream,
+    B, P = num_brokers, num_parts
+    if not (0 <= n_r and 0 <= n_s and n_r + n_s <= K):
+        raise ValueError(f"select_survivors: n_r={n_r}, n_s={n_s} do not fit K={K}")
+    if bufs is None:
+        bufs = select_buffers(K, n_r, n_s, B, P, delta.device)
+    if epoch.rnd is None and not 1 <= 1 + epoch.step <= bufs.n_epochs:
+        raise ValueError(f"select_survivors: epoch {1 + epoch.step} outside 1..{bufs.n_epochs}")
+    if epoch.rnd is not None and not 0 <= epoch.step < epoch.steps:
+        raise ValueError(f"select_survivors: step {epoch.step} outside 0..{epoch.steps - 1}")
+    if acc is None:
+        acc = torch.zeros(1, dtype=torch.int64, device=delta.device)
+    args = _Args(
+        accept=_ptr("accept", accept, torch.bool, K), delta=_ptr("delta", delta, torch.float32, K),
+        src=_ptr("src", src, torch.int32, K), dst=_ptr("dst", dst, torch.int32, K),
+        part1=_ptr("part1", part1, torch.int32, K), part2=_ptr("part2", part2, torch.int32, K),
+        segmin=_ptr("segmin", bufs.segmin, torch.int64, B + P),
+        survive=_ptr("survive", bufs.survive, torch.bool, K),
+        sv_r=_ptr("sv_r", bufs.sv_r, torch.bool, n_r + 2 * n_s),
+        acc=_ptr("acc", acc, torch.int64, 1),
+        rnd=None if epoch.rnd is None else _ptr("rnd", epoch.rnd, torch.int32, 1),
+        K=K, B=B, P=P, n_r=n_r, n_s=n_s, idx_bits=index_bits(K), step=epoch.step,
+        steps=epoch.steps,
     )
-    _build.check(status, "select_survivors")
-    kernels.LAUNCHES["select_survivors"] += 1
-    return survive
+    if K > 0:
+        stream = torch.cuda.current_stream(delta.device).cuda_stream
+        n_sm = torch.cuda.get_device_properties(delta.device).multi_processor_count
+        _build.check(_fn()(args, n_sm, stream), "select_survivors")
+        kernels.LAUNCHES["select_survivors"] += 1
+    return bufs.survive, bufs.sv_r, acc
 
 
-def select_survivors(accept, delta, src, dst, part1, part2, *, num_brokers: int,
-                     num_parts: int, bufs: tuple | None = None) -> torch.Tensor:
-    """bool[K] survivors (engine.py:2643 `_select`): the kernel for CUDA
-    tensors, into `bufs` (`select_buffers`) when given, the plain version
-    for CPU tensors."""
+def select_survivors(accept, delta, src, dst, part1, part2, *, num_brokers: int, num_parts: int,
+                     n_r: int, n_s: int, acc: torch.Tensor | None = None,
+                     bufs: SelectBuffers | None = None, epoch: Epoch = Epoch()):
+    """(survive bool[K], sv_r bool[n_r + 2 n_s], acc i64[1]) of a candidate
+    bundle (engine.py:2643 `_select` and `_accept_select_apply`'s sv_r_ext
+    and accepted), the survivor count added into `acc` (a new zero
+    accumulator when None): the kernel for CUDA tensors, into `bufs`
+    (`select_buffers`, fresh ones when None) at `epoch`, which must grow
+    from step to step between two `bufs.clear()`; the plain version for
+    CPU tensors."""
     if kernels.route(accept, delta, src, dst, part1, part2) == "cpu":
-        return select_plain(accept, delta, src, dst, part1, part2, num_brokers, num_parts)
-    return select_cuda(accept, delta, src, dst, part1, part2, num_brokers, num_parts, bufs)
+        return select_plain(accept, delta, src, dst, part1, part2, num_brokers, num_parts, n_r, n_s,
+                            acc)
+    return select_cuda(accept, delta, src, dst, part1, part2, num_brokers, num_parts, n_r, n_s,
+                       acc, bufs, epoch)

@@ -6,12 +6,16 @@ and its packing for the candidates kernel: masked sums over the brokers
 utilization sums, disk load) and over topic x broker (per-topic averages).
 
 Bound on the card: latency.  The inputs are B broker rows and the T x B
-topic counts (~2 MB at the north star), under a microsecond of HBM time,
-so the launch is the cost.  Design (csrc/step_globals.cu): one launch;
-block 0 sums the broker rows in a fixed order (each thread a strided
-slice, then a fixed tree), so the result is the same run after run; the
-other blocks sum one topic row a warp, in integers.  The kernel's sums run
-in another order than PyTorch's, so the two agree to f32 rounding.
+topic counts (~2.2 MB at the north star), ~0.7 us of HBM time; the rest
+is fixed latency.  Design (csrc/step_globals.cu): one launch, in
+thread-block clusters.  The first cluster's 8 blocks sum the broker rows,
+each thread a fixed slice in order, then fixed shuffle and pairwise trees;
+each block pushes its partials into block 0's shared memory (distributed
+shared memory) and, after one cluster barrier, block 0 adds them in a
+fixed tree, so the result is the same bits run after run.  Every other
+block sums one topic row with 16-byte loads, in integers.  The kernel's
+sums run in another order than PyTorch's, so the two agree to f32
+rounding.
 
 The output is one f32 vector laid out as `LAYOUT`: its first 22 floats are
 the vector the candidates kernel reads, then the total disk load, then the

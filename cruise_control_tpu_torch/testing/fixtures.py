@@ -178,6 +178,45 @@ def apply_collision_case(state: ClusterState, seed: int = 0):
     return sv_r, payr, sv_l, payl, aggregates
 
 
+#: select_survivors' synthetic cases (`select_case`)
+SELECT_CASES = ("ties", "signed_zero", "two_partitions", "random", "part2_out_of_range",
+                "none_accepted", "k16383", "k16384", "north_star_segments")
+#: select_survivors' array inputs, in its argument order
+SELECT_INPUTS = ("accept", "delta", "src", "dst", "part1", "part2")
+
+
+def select_case(name: str, seed: int = 0) -> dict:
+    """Inputs of select_survivors for one synthetic case (numpy arrays
+    `SELECT_INPUTS`, and the sizes K, B, P, n_r, n_s; a quarter of the
+    candidates are leadership rows, 1/32 swaps).  Cases: ties, signed
+    zeros, two partitions a candidate, random deltas, part2 outside the
+    segments on both sides (dropped on the write, clamped on the read), no
+    candidate accepted (9 brokers, 13 partitions, K = 4,096); K = 16,383
+    (not a multiple of any block size) and 16,384 over 64 brokers and 500
+    partitions; the north star's segments (2,600 brokers, 200,000
+    partitions, K = 16,384).  `seed` varies the draws, not the sizes."""
+    B, P, K = {"k16383": (64, 500, 16383), "k16384": (64, 500, 16384),
+               "north_star_segments": (2600, 200_000, 16384)}.get(name, (9, 13, 4096))
+    rng = np.random.default_rng([SELECT_CASES.index(name), seed])
+    delta = rng.normal(size=K).astype(np.float32)
+    if name == "ties":
+        delta = rng.choice(np.float32([-2.0, -1.0, -1.0, 0.5]), K)
+    elif name == "signed_zero":
+        delta = rng.choice(np.float32([-0.0, 0.0, -1e-30, 1e-30, -3.0]), K)
+    part1 = rng.integers(0, P, K).astype(np.int32)
+    part2 = part1
+    if name in ("two_partitions", "part2_out_of_range", "k16383", "k16384", "north_star_segments"):
+        part2 = rng.integers(0, P, K).astype(np.int32)
+    if name == "part2_out_of_range":
+        out = rng.random(K) < 0.2
+        part2 = np.where(out, rng.choice(np.int32([P, P + 5, -B - 1, -B - 40]), K), part2)
+    accept = rng.random(K) < (0.0 if name == "none_accepted" else 0.7)
+    n_s, n_l = K // 32, K // 4
+    return dict(accept=accept, delta=delta, src=rng.integers(0, B, K).astype(np.int32),
+                dst=rng.integers(0, B, K).astype(np.int32), part1=part1,
+                part2=part2.astype(np.int32), K=K, B=B, P=P, n_r=K - n_s - n_l, n_s=n_s)
+
+
 @dataclasses.dataclass
 class RandomClusterSpec:
     """Knobs of the random generator (reference common/ClusterProperty.java)."""

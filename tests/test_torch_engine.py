@@ -173,11 +173,16 @@ def test_select_plain_equals_argsort_formula(case):
         jnp.asarray(accept), jnp.asarray(delta), jnp.asarray(src), jnp.asarray(dst),
         jnp.asarray(part1), jnp.asarray(part2),
     )
-    got = select_plain(
+    n_r, n_s = 40, 8
+    got, sv_r, acc = select_plain(
         torch.from_numpy(accept), torch.from_numpy(delta), torch.from_numpy(src),
-        torch.from_numpy(dst), torch.from_numpy(part1), torch.from_numpy(part2), B, P,
+        torch.from_numpy(dst), torch.from_numpy(part1), torch.from_numpy(part2), B, P, n_r, n_s,
     )
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(sv_r.numpy(), np.concatenate([ref[:n_r], ref[n_r:n_r + n_s],
+                                                               ref[n_r:n_r + n_s]]))
+    assert acc.tolist() == [int(ref.sum())]
     assert got.any()
 
 

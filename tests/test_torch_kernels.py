@@ -3,8 +3,11 @@
 Every test here needs a CUDA device and skips without one.  On a machine
 with a card (and no JAX) run them with
 `python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py`.
-Bars: threefry draws bit-exact; survivor sets exact; apply_moves bit for
-bit (it adds in the reference's order); move_delta within 1e-4 relative
+Bars: threefry draws bit-exact; select_survivors' survivors, relocation
+mask and survivor count exact (fresh, over successive epochs of one buffer
+and replayed from a captured graph); step_globals within rtol 1e-6 and the
+same bits call after call; apply_moves bit for bit (it adds in the
+reference's order); move_delta within 1e-4 relative
 plus 1e-6 of the batch's largest delta (the kernel divides where PyTorch's
 CUDA ops multiply by reciprocals of scalars, and each delta is a
 difference of lane sums); the candidates kernel's ids, masks and payload
@@ -26,10 +29,13 @@ from cruise_control_tpu_torch.kernels import move_delta as md
 from cruise_control_tpu_torch.kernels import select as select_k
 from cruise_control_tpu_torch.kernels import threefry
 from cruise_control_tpu_torch.testing.fixtures import (
+    SELECT_CASES,
+    SELECT_INPUTS,
     RandomClusterSpec,
     apply_collision_case,
     collision_cluster,
     random_cluster,
+    select_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -57,24 +63,72 @@ def test_threefry_bit_exact(cuda, n):
                                threefry.uniform_idx_plain(key, n, bound, cuda))
 
 
-@pytest.mark.parametrize("case", ["ties", "signed_zero", "two_partitions", "random"])
+def _select_args(case: dict, device) -> list:
+    return [torch.from_numpy(case[f]).to(device) for f in SELECT_INPUTS]
+
+
+def _same_select(got, want, acc_before: int) -> None:
+    """The kernel's (survive, sv_r, acc) against the plain version's; the
+    kernel added its count to an accumulator that held acc_before."""
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert int(got[2]) - acc_before == int(want[2])
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
 def test_select_exact(cuda, case):
-    B, P, K = 9, 13, 4096
-    rng = np.random.default_rng(len(case))
-    delta = rng.normal(size=K).astype(np.float32)
-    if case == "ties":
-        delta = rng.choice(np.float32([-2.0, -1.0, -1.0, 0.5]), K)
-    elif case == "signed_zero":
-        delta = rng.choice(np.float32([-0.0, 0.0, -1e-30, 1e-30, -3.0]), K)
-    part1 = rng.integers(0, P, K).astype(np.int32)
-    part2 = rng.integers(0, P, K).astype(np.int32) if case == "two_partitions" else part1
-    args = [torch.from_numpy(a).to(cuda) for a in (
-        rng.random(K) < 0.7, delta, rng.integers(0, B, K).astype(np.int32),
-        rng.integers(0, B, K).astype(np.int32), part1, part2,
-    )]
-    got = select_k.select_survivors(*args, num_brokers=B, num_parts=P)
-    assert torch.equal(got, select_k.select_plain(*args, B, P))
-    assert bool(got.any())
+    """Survivors, the relocation rows' mask and the survivor count exactly
+    the plain version's: in fresh buffers, and in one buffer over
+    successive epochs with new inputs each (a minimum left by an earlier
+    step must lose), up to the last epoch the keys can tag."""
+    c = select_case(case)
+    K, B, P, n_r, n_s = (c[k] for k in ("K", "B", "P", "n_r", "n_s"))
+    args = _select_args(c, cuda)
+    before = kernels.LAUNCHES["select_survivors"]
+    got = select_k.select_survivors(*args, num_brokers=B, num_parts=P, n_r=n_r, n_s=n_s)
+    assert kernels.LAUNCHES["select_survivors"] == before + 1
+    want = select_k.select_plain(*args, B, P, n_r, n_s)
+    _same_select(got, want, 0)
+    assert bool(got[0].any()) == (case != "none_accepted")
+    top = select_k.max_epoch(K)
+    bufs = select_k.select_buffers(K, n_r, n_s, B, P, cuda, n_epochs=top)
+    acc = torch.full((1,), 5, dtype=torch.int64, device=cuda)
+    for seed, epoch in ((1, 1), (2, 2), (0, 3), (3, top - 1), (1, top)):
+        args = _select_args(select_case(case, seed), cuda)
+        before = int(acc)
+        got = select_k.select_survivors(*args, num_brokers=B, num_parts=P, n_r=n_r, n_s=n_s, acc=acc,
+                                        bufs=bufs, epoch=select_k.Epoch(epoch - 1))
+        assert got[2] is acc
+        _same_select(got, select_k.select_plain(*args, B, P, n_r, n_s), before)
+
+
+def test_select_replays_in_a_captured_graph(cuda):
+    """The cluster launch captured into a CUDA graph (the round body's
+    way): replays at growing epochs, the round index read on the device,
+    give the plain version's outputs on new inputs each replay."""
+    c = select_case("k16384")
+    K, B, P, n_r, n_s = (c[k] for k in ("K", "B", "P", "n_r", "n_s"))
+    args = _select_args(c, cuda)
+    rnd = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bufs = select_k.select_buffers(K, n_r, n_s, B, P, cuda, n_epochs=8)
+    acc = torch.zeros(1, dtype=torch.int64, device=cuda)
+
+    def step():
+        return select_k.select_survivors(*args, num_brokers=B, num_parts=P, n_r=n_r, n_s=n_s,
+                                         acc=acc, bufs=bufs, epoch=select_k.Epoch(1, rnd, 2))
+
+    step()  # loads the kernel outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    bufs.clear()
+    for r in range(4):
+        for t, a in zip(args, _select_args(select_case("k16384", r), cuda)):
+            t.copy_(a)
+        rnd.fill_(r)
+        before = int(acc)
+        graph.replay()
+        _same_select(out, select_k.select_plain(*args, B, P, n_r, n_s), before)
 
 
 def _step_inputs(cuda, temperature=0.0, with_plan=True):
@@ -135,12 +189,11 @@ def test_move_delta_matches_plain(cuda, kind):
 
 def test_apply_matches_plain(cuda):
     eng, carry, _, prop, _, _ = _step_inputs(cuda)
-    survive = select_k.select_survivors(
-        prop["feas"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
-        num_brokers=eng.shape.B, num_parts=eng.shape.P,
-    )
     nr, ns = prop["nr"], prop["ns"]
-    sv_r = torch.cat([survive[:nr], survive[nr:nr + ns], survive[nr:nr + ns]])
+    survive, sv_r, _ = select_k.select_survivors(
+        prop["feas"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
+        num_brokers=eng.shape.B, num_parts=eng.shape.P, n_r=nr, n_s=ns,
+    )
     sv_l = survive[nr + ns:]
     ck, cp = carry.clone(), carry.clone()
     apply_k.apply_moves(eng.statics, ck, sv_r, prop["payr"], sv_l, prop["payl"])
@@ -333,6 +386,57 @@ def test_step_globals_matches_plain(cuda):
             assert torch.allclose(got[k], v, rtol=1e-6, atol=0.0), k
         first = buf.clone() if first is None else first
         assert torch.equal(buf.view(torch.int32), first.view(torch.int32))  # the same run after run
+
+
+def _globals_case(B: int, T: int, D: int, device):
+    """step_globals' inputs at B brokers (about one in five dead, broker 0
+    alive), T topics and D disks a broker (about one in ten dead), as the
+    (statics, carry) views the wrapper reads."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng([B, T, D])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    alive = rng.random(B) < 0.8
+    alive[0] = True
+    cap = rng.uniform(50.0, 5e6, (B, 4)).astype(np.float32)
+    state = SimpleNamespace(
+        shape=SimpleNamespace(B=B, num_topics=T, max_disks_per_broker=D),
+        broker_capacity=t(cap), disk_alive=t(rng.random((B, D)) < 0.9),
+    )
+    sx = SimpleNamespace(state=state, alive=t(alive), total_cap=t(cap[alive].sum(0)),
+                         n_alive=float(alive.sum()))
+    carry = SimpleNamespace(
+        broker_load=t((cap * rng.uniform(0.0, 1.2, (B, 4))).astype(np.float32)),
+        broker_replica_count=t(rng.integers(0, 400, B).astype(np.int32)),
+        broker_leader_count=t(rng.integers(0, 200, B).astype(np.int32)),
+        broker_leader_bytes_in=t(rng.uniform(0.0, 1e5, B).astype(np.float32)),
+        broker_topic_count=t(rng.integers(0, 30, (T, B)).astype(np.int32)),
+        disk_load=t(rng.uniform(0.0, 4e3, (B, D)).astype(np.float32)),
+    )
+    return sx, carry
+
+
+@pytest.mark.parametrize("T", [1, 200, 1000])
+@pytest.mark.parametrize("B", [1, 31, 2600, 25_000])
+def test_step_globals_over_sizes(cuda, B, T):
+    """rtol 1e-6 of the plain version with dead brokers and disks, and the
+    same bits on each of 100 calls."""
+    from cruise_control_tpu_torch.kernels import step_globals as gk
+
+    sx, carry = _globals_case(B, T, 3, cuda)
+    want = gk.globals_plain(sx, carry, torch.empty(gk.size(T), device=cuda))
+    buf = torch.full((gk.size(T),), float("nan"), device=cuda)
+    got = gk.step_globals(sx, carry, buf)
+    for k, v in want.items():
+        assert torch.allclose(got[k], v, rtol=1e-6, atol=0.0), k
+    first = buf.clone()
+    for _ in range(100):
+        buf.fill_(float("nan"))
+        gk.step_globals(sx, carry, buf)
+        assert torch.equal(buf.view(torch.int32), first.view(torch.int32))
 
 
 def test_round_schedule_matches_plain(cuda):
