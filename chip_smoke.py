@@ -15,9 +15,12 @@ Phases:
      100 calls; candidates; select_survivors' survivors, relocation mask
      and count exact, fresh and over successive epochs of one buffer, also
      on synthetic cases; apply_moves bit for bit, also on a case of
-     survivors meeting on shared hosts), the round prep's two
-     (group_by_broker exact, and refresh_aggregates bit for bit against
-     the plain version on the CPU),
+     survivors meeting on shared hosts), the round prep's two, each one
+     cooperative launch (group_by_broker exact through the engine's
+     broker/valid entry and the seg entry, and refresh_aggregates bit for
+     bit against the plain version on the CPU, three calls each; the
+     refresh also without its host pass, the host pass alone, and on the
+     same rows dealt round-robin, which shows the hottest broker's tail),
      the schedule kernel (round_schedule, exact over a table of gate
      inputs), and the two standalone kernels the candidates kernel fused
      (threefry_uniform, move_delta) on the same step's draws and deltas.
@@ -37,8 +40,10 @@ Phases:
      star and on the decommission: identical placements, rounds and
      accepted counts.
   7. Where the time goes: a whole fused run under torch.profiler (device
-     busy, idle share), the captured graphs' nodes, a masked round, a full
-     check and a round body replayed alone; and an eager north-star step
+     busy, idle share; the package's kernel events inside the run's window
+     and outside it, beside the run's launches), the captured graphs'
+     nodes, a masked round, a full check and a round body replayed alone;
+     and an eager north-star step
      (the legacy route's): host clock, launches and device time per step,
      one select launch and no other device operation between candidates
      and apply_moves.
@@ -81,9 +86,7 @@ ALU_OPS_PER_S = 67e12
 #: the package's own CUDA kernels, by the names the profiler reports
 OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
                "candidates_kernel", "select_survivors_kernel", "apply_rows_kernel",
-               "apply_owner_kernel", "group_hist_kernel", "group_colscan_kernel",
-               "group_scan_kernel", "group_scatter_kernel",
-               "refresh_zero_kernel", "refresh_broker_kernel", "refresh_host_kernel",
+               "apply_owner_kernel", "group_by_broker_kernel", "refresh_aggregates_kernel",
                "step_globals_kernel", "round_schedule_kernel")
 
 SOURCES = {
@@ -138,11 +141,14 @@ def time_ms(fn, reps=50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20) -> tuple[float, float] | None:
+def device_ms(fn, reps=20) -> tuple[float, float, dict] | None:
     """(device time per call of everything fn() launches, of which the
-    package's own kernels), from torch.profiler's CUDA activity over reps
-    calls after one warm-up call; None when the profiler saw no device
-    activity."""
+    package's own kernels, {device operation: [ms per event, events per
+    call]}), from torch.profiler's CUDA activity over reps calls after one
+    warm-up call; None when the profiler saw no device activity.  The
+    profiler may drop a few events of a window (18 of 20 in some runs), so
+    an operation's time per call is its mean time per event times its
+    events per call rounded to a whole number (at least one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -153,16 +159,22 @@ def device_ms(fn, reps=20) -> tuple[float, float] | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = own = 0.0
+    by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            total += us
-            if e.name.split("(")[0] in OWN_KERNELS:
-                own += us
-    if total == 0.0:
+            rec = by_name.setdefault(e.name.split("(")[0][:60], [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    if not by_name:
         return None
-    return total / reps / 1e3, own / reps / 1e3
+    total = own = 0.0
+    for name, rec in by_name.items():
+        per_call = rec[0] / rec[1] * max(1, round(rec[1] / reps))
+        by_name[name] = [rec[0] / rec[1], rec[1] / reps]
+        total += per_call
+        if name in OWN_KERNELS:
+            own += per_call
+    return total, own, by_name
 
 
 def measure(fn, reps=20) -> dict:
@@ -173,8 +185,8 @@ def measure(fn, reps=20) -> dict:
     call = time_ms(fn, reps)
     dev = device_ms(fn, reps)
     if dev is None:
-        return dict(ms=call, own_kernel_ms=None, call_ms=call, ms_source="cuda events")
-    return dict(ms=dev[0], own_kernel_ms=dev[1], call_ms=call, ms_source="profiler")
+        return dict(ms=call, own_kernel_ms=None, call_ms=call, ms_source="cuda events", by_kernel=None)
+    return dict(ms=dev[0], own_kernel_ms=dev[1], call_ms=call, ms_source="profiler", by_kernel=dev[2])
 
 
 class Capture:
@@ -216,10 +228,19 @@ class Capture:
             setattr(m, n, fn)
 
 
+def one_launch(rec: dict, kernel: str) -> None:
+    """The measured call ran one device operation, `kernel` (no copy, no
+    clear, no PyTorch op around it), where the profiler saw the device."""
+    if rec["by_kernel"] is not None:
+        check(set(rec["by_kernel"]) == {kernel},
+              f"{kernel}: the call ran other device operations: {sorted(rec['by_kernel'])}")
+
+
 def timings(kernel: dict, plain: dict) -> dict:
     return dict(ms=kernel["ms"], own_kernel_ms=kernel["own_kernel_ms"], call_ms=kernel["call_ms"],
                 plain_ms=plain["ms"], plain_call_ms=plain["call_ms"],
-                ms_source=kernel["ms_source"], plain_ms_source=plain["ms_source"])
+                ms_source=kernel["ms_source"], plain_ms_source=plain["ms_source"],
+                by_kernel=kernel.get("by_kernel"))
 
 
 def delta_bar(plain):
@@ -551,7 +572,8 @@ def host_time_ms(fn, reps=20) -> float:
 
 def check_round_kernels(eng, carry) -> dict:
     """Phase 2, the round's kernels on the north-star carry one step in:
-    group_by_broker exact; refresh_aggregates bit for bit against the plain
+    group_by_broker exact (the engine's broker/valid entry, three times,
+    and the seg entry); refresh_aggregates bit for bit against the plain
     version on the CPU (row order, the reference's), three times;
     step_globals within rtol 1e-6 of the plain version and the same run
     after run; round_schedule exact against the plain version on the CPU
@@ -563,13 +585,18 @@ def check_round_kernels(eng, carry) -> dict:
 
     from cruise_control_tpu_torch.kernels import schedule as sk
     from cruise_control_tpu_torch.kernels import step_globals as gk
-    from cruise_control_tpu_torch.kernels.group import Grouping, group_by_broker, group_plain
+    from cruise_control_tpu_torch.kernels.group import (
+        Grouping,
+        group_by_broker,
+        group_placement,
+        group_plain,
+        placement_segments,
+    )
     from cruise_control_tpu_torch.kernels.refresh import (
         AGG_FIELDS,
         HostGroups,
         refresh_aggregates,
         refresh_plain,
-        replica_segments,
     )
 
     sx, st = eng.statics, eng.statics.state
@@ -578,53 +605,86 @@ def check_round_kernels(eng, carry) -> dict:
     dev = st.device
     out = {}
 
-    # group_by_broker: the replica rows of the carry's placement by broker
-    seg = replica_segments(st, carry.replica_broker).contiguous()
-    got = group_by_broker(seg, B)
+    # group_by_broker: the engine's call (the broker/valid entry) on the
+    # carry's placement, three times into one grouping, and the seg entry
+    seg = placement_segments(carry.replica_broker, st.replica_valid, B)
     want = group_plain(seg, B, Grouping.empty(R, B, dev))
+    got = Grouping.empty(R, B, dev)
+    for _ in range(3):
+        for f in ("count", "start", "order"):
+            getattr(got, f).fill_(-1)
+        group_placement(carry.replica_broker, st.replica_valid, B, out=got)
+        for f in ("count", "start", "order"):
+            check(torch.equal(getattr(got, f), getattr(want, f)), f"group_by_broker: {f} differs")
+    by_seg = group_by_broker(seg, B)
     for f in ("count", "start", "order"):
-        check(torch.equal(getattr(got, f), getattr(want, f)), f"group_by_broker: {f} differs")
-    kt = measure(lambda: group_by_broker(seg, B, out=got))
-    pt = measure(lambda: group_plain(seg, B, want))
+        check(torch.equal(getattr(by_seg, f), getattr(want, f)), f"group_by_broker (seg entry): {f} differs")
+    kt = measure(lambda: group_placement(carry.replica_broker, st.replica_valid, B, out=got))
+    one_launch(kt, "group_by_broker_kernel")
+    pt = measure(lambda: group_plain(placement_segments(carry.replica_broker, st.replica_valid, B), B, want))
     lib = measure(lambda: (torch.argsort(seg, stable=True), torch.bincount(seg, minlength=B + 1)))
-    # the segment ids read once, the order and the per-broker count and
-    # start written once; ~10 integer operations a row
-    b_ms, b_by = bound(8 * R + 8 * B, 10.0 * R)
+    # each row's broker id and valid flag read once, its id written once
+    # into the order, and the per-broker count and start written once;
+    # ~10 integer operations a row
+    b_ms, b_by = bound(9 * R + 8 * B, 10.0 * R)
     out["group_by_broker"] = dict(max_abs_err=0.0, **timings(kt, pt), library_ms=lib["ms"],
                                   library_call_ms=lib["call_ms"], bound_ms=b_ms, bound_by=b_by,
-                                  tolerance="exact (order, count, start)", n=R, segments=B)
+                                  bound_bytes=9 * R + 8 * B,
+                                  tolerance="exact (order, count, start), 3 calls and the seg entry",
+                                  n=R, segments=B)
 
-    # refresh_aggregates: the card against the plain version on the CPU
+    # refresh_aggregates: the engine's call on the card against the plain
+    # version on the CPU, three times
     place = (carry.replica_broker, carry.replica_is_leader, carry.replica_disk)
     st_cpu = cpu_copy(st)
     hosts_cpu = HostGroups(sx.host_groups.seg.cpu(), cpu_copy(sx.host_groups.group))
     want = {f: torch.empty_like(t, device="cpu") for f, t in carry.aggregates().items()}
     refresh_plain(st_cpu, *[t.cpu() for t in place], want, hosts_cpu)
+    kw = dict(hosts=sx.host_groups, group=got, members=sx.part_replicas)
     for _ in range(3):
         res = {f: torch.full_like(t, -1) for f, t in carry.aggregates().items()}
-        refresh_aggregates(st, *place, res, hosts=sx.host_groups, group=got)
+        refresh_aggregates(st, *place, res, **kw)
         for f in (*AGG_FIELDS, "host_load"):
             a, b = res[f].cpu(), want[f]
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             check(torch.equal(a, b), f"refresh_aggregates: {f} differs from the plain version on the CPU")
-    kt = measure(lambda: refresh_aggregates(st, *place, res, hosts=sx.host_groups, group=got))
+    kt = measure(lambda: refresh_aggregates(st, *place, res, **kw))
+    one_launch(kt, "refresh_aggregates_kernel")
     plain_out = {f: torch.empty_like(t) for f, t in res.items()}
     pt = measure(lambda: refresh_plain(st, *place, plain_out, sx.host_groups))
+    # the passes: without the host pass (and its barrier), the host pass alone
+    no_hosts = measure(lambda: refresh_aggregates(st, *place, res, **dict(kw, hosts=None)))
+    hosts_only = measure(lambda: refresh_aggregates(st, *place, res, hosts=sx.host_groups, brokers=False))
+    # the hottest broker's tail: the same rows dealt round-robin over the
+    # brokers (every broker within one row of the mean), same bytes
+    rows = torch.nonzero(st.replica_valid).flatten()
+    even = carry.replica_broker.clone()
+    even[rows] = (torch.arange(rows.numel(), device=dev) % B).to(torch.int32)
+    g_even = group_placement(even, st.replica_valid, B)
+    res_even = {f: torch.empty_like(t) for f, t in res.items()}
+    even_t = measure(lambda: refresh_aggregates(st, even, carry.replica_is_leader, carry.replica_disk,
+                                                res_even, **dict(kw, group=g_even)))
     leaders = int(carry.replica_is_leader[st.replica_valid].sum())
     valid = int(st.replica_valid.sum())
-    # a row: its order id, leader flag, disk, topic and partition (17 B) and
+    M = int(sx.part_replicas.shape[1])
+    # what the function needs, each byte once: every row's valid flag; a
+    # valid row's broker, partition, topic, leader flag and disk (17 B) and
     # its leader load row (16 B), a follower's also its follower row; a
-    # broker: start, count, rack and host grouping (16 B) and its outputs
-    # (32 B + 4 B a disk); the topic x broker and partition x rack tables
-    # written once; host rows written; ~12 operations a row
-    nb = (33 * valid + 16 * (valid - leaders) + (48 + 4 * D) * B + 4 * T * B
+    # broker's rack and host (8 B) and its outputs (32 B + 4 B a disk); the
+    # topic x broker and partition x rack tables written once; a host's
+    # load row (16 B); ~12 operations a row
+    nb = (R + 33 * valid + 16 * (valid - leaders) + (40 + 4 * D) * B + 4 * T * B
           + 4 * P * s.num_racks + 16 * H)
     b_ms, b_by = bound(nb, 12.0 * valid)
-    out["refresh_aggregates"] = dict(max_abs_err=0.0, **timings(kt, pt), library_ms=None,
-                                     bound_ms=b_ms, bound_by=b_by, bound_bytes=nb,
-                                     tolerance="bit for bit against the plain version on the CPU, "
-                                               "3 runs", n=valid)
+    counts = got.count.float()
+    out["refresh_aggregates"] = dict(
+        max_abs_err=0.0, **timings(kt, pt), library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        bound_bytes=nb, tolerance="bit for bit against the plain version on the CPU, 3 runs", n=valid,
+        no_hosts_ms=no_hosts["ms"], hosts_only_ms=hosts_only["ms"], round_robin_ms=even_t["ms"],
+        broker_rows_max=int(got.count.max()), broker_rows_mean=float(counts.mean()),
+        members_per_partition=M)
+    del g_even, res_even, even
 
     # step_globals
     buf = torch.empty(gk.size(T), device=dev)
@@ -777,7 +837,7 @@ def profile_steps(state, cfg) -> dict:
     ws = eng._workspace()
     eng._init_run(ws, eng._sched_dims(False))
     ws.sched.value(sched_k.T_R).fill_(0.0)
-    carry, plan = ws.carry, ws.plan
+    carry = ws.carry
 
     done = [0]
 
@@ -795,7 +855,7 @@ def profile_steps(state, cfg) -> dict:
     step_ms = steps(32)
     launches_per_step = {k: v / 32 for k, v in kernels_mod.LAUNCHES.items()}
     t0 = time.monotonic()
-    _, _, cheap = eng.round_prep(carry, plan, ws.gbuf)
+    cheap = eng.round_prep(ws)
     float(cheap)
     prep_ms = (time.monotonic() - t0) * 1e3
     t0 = time.monotonic()
@@ -846,7 +906,7 @@ def profile_steps(state, cfg) -> dict:
         check(len(between) >= n // 2 and all(b == ["select_survivors_kernel"] for b in between),
               f"device operations between candidates and apply_moves: {between[:2]}")
     eng.release()
-    del eng, ws, carry, plan
+    del eng, ws, carry
     return out
 
 
@@ -938,8 +998,9 @@ def profile_fused(state, cfg) -> dict:
     check and a round body replayed from their captured graphs."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from cruise_control_tpu_torch import kernels as kernels_mod
     from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
     from cruise_control_tpu_torch.kernels import schedule as sched_k
 
@@ -950,18 +1011,31 @@ def profile_fused(state, cfg) -> dict:
     _, hist = eng.run()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
+    kernels_mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        _, hist_p = eng.run()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.monotonic() - t0) * 1e3
-    kernels, ops = {}, 0
+        with record_function("fused_run"):
+            t0 = time.monotonic()
+            _, hist_p = eng.run()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.monotonic() - t0) * 1e3
+    launches = {k: v for k, v in kernels_mod.LAUNCHES.items() if v}
+    # the run's window on the profiler's clock: a device event outside it
+    # (a stale record from an earlier session) is counted apart
+    window = [e.time_range for e in prof.events()
+              if e.name == "fused_run" and e.device_type == DeviceType.CPU]
+    kernels, ops, in_window, outside = {}, 0, {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = kernels.setdefault(e.name.split("(")[0][:60], [0.0, 0])
+        # (the window's own range is mirrored on the device's timeline)
+        if e.device_type == DeviceType.CUDA and e.name != "fused_run":
+            name = e.name.split("(")[0][:60]
+            rec = kernels.setdefault(name, [0.0, 0])
             rec[0] += e.time_range.elapsed_us() / 1e3
             rec[1] += 1
             ops += 1
+            if name in OWN_KERNELS:
+                inside = any(w.start <= e.time_range.start and e.time_range.end <= w.end for w in window)
+                tally = in_window if inside else outside
+                tally[name] = tally.get(name, 0) + 1
     busy = sum(v[0] for v in kernels.values())
     ws = eng._ws
     rg = ws.rounds[False]
@@ -989,7 +1063,9 @@ def profile_fused(state, cfg) -> dict:
         rounds=len(rounds), timing=hist_p[-1],
         device_busy_ms=busy if kernels else "not measured",
         device_idle_share=1.0 - busy / prof_wall_ms if kernels else "not measured",
-        device_ops=ops, graph_captures=eng.graph_stats.get("captures", []),
+        device_ops=ops, own_events_in_window=in_window, own_events_outside_window=outside,
+        launches=launches, window_found=len(window) == 1,
+        graph_captures=eng.graph_stats.get("captures", []),
         masked_round_ms=masked, full_check_ms=full, round_body_ms=body_ms, init_ms=init,
         top_kernels=[[k, round(v[0], 5), v[1]] for k, v in top],
     )

@@ -78,15 +78,10 @@ from cruise_control_tpu_torch.kernels import move_delta as md
 from cruise_control_tpu_torch.kernels import schedule as sched_k
 from cruise_control_tpu_torch.kernels import select as select_k
 from cruise_control_tpu_torch.kernels import step_globals as glob_k
-from cruise_control_tpu_torch.kernels.group import Grouping, group_by_broker
-from cruise_control_tpu_torch.kernels.refresh import (
-    AGG_FIELDS,
-    HostGroups,
-    refresh_aggregates,
-    replica_segments,
-)
+from cruise_control_tpu_torch.kernels.group import Grouping, group_placement
+from cruise_control_tpu_torch.kernels.refresh import AGG_FIELDS, HostGroups, refresh_aggregates
 from cruise_control_tpu_torch.models.aggregates import BrokerAggregates, empty_aggregates
-from cruise_control_tpu_torch.models.state import ClusterShape, ClusterState
+from cruise_control_tpu_torch.models.state import ClusterShape, ClusterState, replica_members
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +192,9 @@ class EngineStatics:
     """Per-model-generation inputs of the engine."""
 
     state: ClusterState
-    part_replicas: torch.Tensor  # i32[P, max_rf] replica ids, padded with R
+    #: i32[P, max_rf] valid replica ids of each partition, padded with R
+    #: (models/state.py replica_members: every valid row exactly once)
+    part_replicas: torch.Tensor
     alive: torch.Tensor  # bool[B] valid & alive
     dest_ids: torch.Tensor  # i32[B] allowed destination ids, cyclically padded
     dest_ok: torch.Tensor  # bool[B] allowed-destination mask
@@ -243,23 +240,6 @@ class SamplingPlan:
     lead_cost: torch.Tensor  # f32 scalar: price per strayed leadership
 
 
-def partition_replica_table(
-    valid: np.ndarray, part: np.ndarray, pos: np.ndarray, shape: ClusterShape
-) -> np.ndarray:
-    """i32[P, max_rf] replica indices per partition, padded with R (host
-    numpy; membership never changes during optimization)."""
-    P, R = shape.P, shape.R
-    max_rf = 1
-    counts = np.bincount(part[valid], minlength=P)
-    if counts.size:
-        max_rf = max(1, int(counts.max()))
-    table = np.full((P, max_rf), R, np.int32)
-    idx = np.nonzero(valid)[0]
-    slot = np.minimum(pos[idx], max_rf - 1)
-    table[part[idx], slot] = idx
-    return table
-
-
 def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineStatics:
     """Host-side (numpy) preprocessing of one model generation."""
     s = state.shape
@@ -293,9 +273,6 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
     host_group = np.where((host >= 0) & (host < s.num_hosts), host, s.num_hosts)
     host_start = np.zeros(s.num_hosts + 2, np.int32)
     host_start[1:] = np.cumsum(np.bincount(host_group, minlength=s.num_hosts + 1))
-    # the refresh's grouping: a valid broker's host, the sentinel H otherwise
-    hseg = np.where(valid_b, host, s.num_hosts).astype(np.int32)
-    h_count = np.bincount(hseg, minlength=s.num_hosts + 1)[: s.num_hosts]
     front_packed = bool(h["replica_valid"][:n_valid_int].all())
     n_source = n_valid_int if front_packed else s.R
 
@@ -304,7 +281,7 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
 
     return EngineStatics(
         state=state,
-        part_replicas=t(partition_replica_table(
+        part_replicas=t(replica_members(
             h["replica_valid"], h["replica_partition"], h["replica_pos"], s
         )),
         alive=t(alive),
@@ -324,10 +301,7 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
         host_brokers=t(np.argsort(host_group, kind="stable"), torch.int32),
         host_start=t(host_start),
         apply_slots=torch.full((2, s.B), -1, dtype=torch.int32, device=dev),
-        host_groups=HostGroups(seg=t(hseg), group=Grouping(
-            count=t(h_count, torch.int32), start=t(np.cumsum(h_count) - h_count, torch.int32),
-            order=t(np.argsort(hseg, kind="stable"), torch.int32),
-        )),
+        host_groups=HostGroups.of(t(valid_b), t(host, torch.int32), s.num_hosts),
     )
 
 
@@ -571,10 +545,12 @@ class Engine:
         place (group_by_broker then refresh_aggregates).  `group`, when
         given, receives the placement's grouping by broker (the plan's
         order/start/count)."""
-        st = self.statics.state
-        group = group_by_broker(replica_segments(st, carry.replica_broker), self.shape.B, out=group)
+        sx = self.statics
+        st = sx.state
+        group = group_placement(carry.replica_broker, st.replica_valid, self.shape.B, out=group)
         refresh_aggregates(st, carry.replica_broker, carry.replica_is_leader, carry.replica_disk,
-                           carry.aggregates(), hosts=self.statics.host_groups, group=group)
+                           carry.aggregates(), hosts=sx.host_groups, group=group,
+                           members=sx.part_replicas)
         return carry
 
     # ------------------------------------------------------------------
@@ -653,7 +629,7 @@ class Engine:
         sx = self.statics
         st = sx.state
         if out is None:
-            group = group_by_broker(replica_segments(st, carry.replica_broker), self.shape.B)
+            group = group_placement(carry.replica_broker, st.replica_valid, self.shape.B)
             out = self._empty_plan(group)
         if g is None:
             g = self._globals(carry)
@@ -729,16 +705,15 @@ class Engine:
         apply_k.apply_moves(self.statics, carry, sv_r, prop["payr"], survive[nr + ns:], prop["payl"])
         return survive, acc
 
-    def round_prep(self, carry: EngineCarry, plan: SamplingPlan | None = None,
-                   gbuf: torch.Tensor | None = None):
-        """Between rounds: recompute the aggregates (wash float drift),
-        build the next round's sampling plan (into `plan` when given),
-        read the cheap early-stop signal (globals into `gbuf` when given)."""
-        if plan is None:
-            plan = self._empty_plan(Grouping.empty(self.shape.R, self.shape.B, self.device))
-        self.refresh(carry, Grouping(plan.count, plan.start, plan.order))
-        g = self._globals(carry, gbuf)
-        return carry, self.plan(carry, g, plan), self.cheap_violations(carry, g)
+    def round_prep(self, ws: _Workspace) -> torch.Tensor:
+        """Between rounds, on the workspace's carry: recompute the
+        aggregates (wash float drift) and the grouping by broker, whose
+        tensors the plan's order/start/count are, build the next round's
+        sampling plan and return the cheap early-stop signal."""
+        self.refresh(ws.carry, ws.group)
+        g = self._globals(ws.carry, ws.gbuf)
+        self.plan(ws.carry, g, ws.plan)
+        return self.cheap_violations(ws.carry, g)
 
     # ------------------------------------------------------------------
     # the run's buffers and the pieces of a round, all in place
@@ -816,7 +791,7 @@ class Engine:
         accumulates in sched.acc, the cheap signal lands in sched CHEAP."""
         for i in range(self.config.steps_per_round):
             self._step(ws, i)
-        _, _, cheap = self.round_prep(ws.carry, ws.plan, ws.gbuf)
+        cheap = self.round_prep(ws)
         ws.sched.value(sched_k.CHEAP).copy_(cheap)
 
     # ------------------------------------------------------------------
@@ -874,8 +849,7 @@ class Engine:
                       body=lambda: self._round_body(ws), obj=lambda: self._objective(ws))
         # the body's warm-up is one step and a round prep: the code of
         # every step is the same
-        warm = dict(pieces, body=lambda: (self._step(ws, 0),
-                                          self.round_prep(ws.carry, ws.plan, ws.gbuf)))
+        warm = dict(pieces, body=lambda: (self._step(ws, 0), self.round_prep(ws)))
         todo = [n for n in ("init", "eval", "body", "obj") if n not in ws.graphs]
         if not verbose and "obj" in todo:
             todo.remove("obj")

@@ -15,6 +15,7 @@ import time
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 from cruise_control_tpu_torch.analyzer.engine import Engine, OptimizerConfig
 from cruise_control_tpu_torch.analyzer.objective import (
@@ -137,8 +138,8 @@ class GoalOptimizer:
         self.engine_cache_misses += 1
         return engine, False
 
-    def _report(self, state: ClusterState):
-        agg = compute_aggregates(state)
+    def _report(self, state: ClusterState, members: torch.Tensor):
+        agg = compute_aggregates(state, members)
         obj, viol, _ = self.chain.evaluate(state, agg, constraint=self.constraint)
         return obj, viol, compute_stats(state, agg)
 
@@ -170,10 +171,11 @@ class GoalOptimizer:
         t_build = time.monotonic()
         engine, hit = self._engine_for(state, options, cfg)
         build_s = time.monotonic() - t_build
-        obj_b, viol_b, stats_b = self._report(state)
+        members = engine.statics.part_replicas  # the same cluster's, before and after
+        obj_b, viol_b, stats_b = self._report(state, members)
         before_host = fetch_before_host(state)
         final, history = engine.run(verbose=verbose)
-        obj_a, viol_a, stats_a = self._report(final)
+        obj_a, viol_a, stats_a = self._report(final, members)
         final_checks = validate_on_device(final).cpu().numpy()
         t_extract = time.monotonic()
         proposals = extract_proposals(state, final, before_host=before_host)

@@ -12,9 +12,8 @@ import dataclasses
 
 import numpy as np
 
-from cruise_control_tpu_torch.analyzer.engine import partition_replica_table
 from cruise_control_tpu_torch.common.resources import Resource
-from cruise_control_tpu_torch.models.state import ClusterState
+from cruise_control_tpu_torch.models.state import ClusterState, replica_members
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,7 +260,7 @@ def extract_proposals(
     touched = np.unique(part_arr[changed])
 
     # padded per-partition replica rows, already in preferred (pos) order
-    table = partition_replica_table(valid, part_arr, pos_arr, before.shape)[touched]
+    table = replica_members(valid, part_arr, pos_arr, before.shape)[touched]
     R = before.shape.R
     mask = table < R  # [N, max_rf]
     rows = np.minimum(table, R - 1)

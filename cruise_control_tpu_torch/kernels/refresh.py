@@ -7,14 +7,19 @@ replica and leader counts, potential NW-out, leader bytes-in, the topic x
 broker and partition x rack replica counts, disk load [B, D] and host load
 [H, 4].
 
-Bound on the card: bytes — each replica row is read once (~50 B) and the
-partition x rack table is cleared (P x racks ints): ~70 MB, ~20 us at the
-north star.  Design (csrc/refresh.cu): over `group_by_broker`'s order, one
-warp per broker loads 32 of its rows at a time and adds the floats in row
-order with shuffles, so every float is bit for bit the plain version's
-(`index_add_` adds in row order on the CPU, and `index_put_`'s
-accumulation does on CUDA); the integer cells take atomics, exact in any
-order; one thread per host adds its brokers' rows in broker order.
+Bound on the card: bytes — each replica row is read once (~33 B) and the
+partition x rack table (P x racks ints) written once: ~65 MB, ~20 us at
+the north star.  Design (csrc/refresh.cu): one cooperative launch.  Over
+`group_by_broker`'s order, a warp a broker gathers its rows a tile at a
+time with all lanes, stages their addends in shared memory, and one lane
+per accumulator adds them in row order, so every float is bit for bit the
+plain version's (`index_add_` adds in row order on the CPU, and
+`index_put_`'s accumulation does on CUDA); a block of eight brokers counts
+their topics in shared memory and writes its columns of the topic x
+broker table; the partition x rack table is written a partition row at a
+time, whole, from the partitions' member table (`ClusterState.members`); after
+a grid-wide barrier one thread per host adds its brokers' rows in broker
+order.  Every output cell is written once; no clear, no global atomic.
 
 The plain version is the reference's segment sums, written into the
 outputs in place.
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import TYPE_CHECKING
 
 import torch
@@ -31,12 +37,14 @@ import torch
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import _build
-from cruise_control_tpu_torch.kernels.group import Grouping, group_by_broker
+from cruise_control_tpu_torch.kernels.group import Grouping, group_by_broker, group_placement
 
 if TYPE_CHECKING:
     from cruise_control_tpu_torch.models.state import ClusterState
 
-_FN = None
+_FNS = None
+#: the most members a partition may have in the kernel's member table
+MAX_MEMBERS = 16
 _NW_IN, _NW_OUT, _DISK = int(Resource.NW_IN), int(Resource.NW_OUT), int(Resource.DISK)
 #: the broker aggregates the kernel writes, in BrokerAggregates' order
 AGG_FIELDS = ("broker_load", "broker_replica_count", "broker_leader_count",
@@ -78,12 +86,6 @@ class HostGroups:
         return HostGroups(seg=seg, group=group_by_broker(seg, num_hosts))
 
 
-def replica_segments(st: ClusterState, replica_broker: torch.Tensor) -> torch.Tensor:
-    """i32[R]: a valid replica's broker, B for padding (the grouping key)."""
-    B = st.shape.B
-    return torch.where(st.replica_valid & (replica_broker >= 0), replica_broker, B).to(torch.int32)
-
-
 def refresh_plain(st: ClusterState, replica_broker, replica_is_leader, replica_disk, out: dict,
                   hosts: HostGroups | None, brokers: bool = True) -> dict:
     s = st.shape
@@ -120,13 +122,13 @@ def refresh_plain(st: ClusterState, replica_broker, replica_is_leader, replica_d
 
 
 class _Dims(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_int) for f in ("R", "B", "T", "P", "racks", "D", "H")]
+    _fields_ = [(f, ctypes.c_int) for f in ("R", "B", "T", "P", "racks", "D", "H", "M")]
 
 
 class _In(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "order", "start", "count", "is_leader", "replica_disk", "load_leader", "load_follower",
-        "topic", "partition", "broker_rack", "host_order", "host_start", "host_count",
+        "topic", "replica_broker", "members", "broker_rack", "host_order", "host_start", "host_count",
     )]
 
 
@@ -137,35 +139,58 @@ class _Out(ctypes.Structure):
     )]
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = _build.library("refresh").cc_refresh_aggregates
-        fn.argtypes = [_Dims, _In, _Out, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def _fns():
+    global _FNS
+    if _FNS is None:
+        lib = _build.library("refresh")
+        geo, run = lib.cc_refresh_geometry, lib.cc_refresh_aggregates
+        geo.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        run.argtypes = [_Dims, _In, _Out, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        geo.restype = run.restype = ctypes.c_int
+        _FNS = geo, run
+    return _FNS
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks(T: int, M: int, device_index: int) -> int:
+    """The most blocks resident at once with T topics and M members a
+    partition (the launch's grid bound)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.check(_fns()[0](T, M, ctypes.byref(out)), "refresh_aggregates (geometry)")
+    if out.value < 1:
+        raise ValueError(f"refresh_aggregates: {T} topics and {M} members a partition exceed "
+                         f"the kernel's shared memory")
+    return out.value
 
 
 def _ptr(name, t, dtype, shape) -> int:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(f"refresh_aggregates: {name} must be contiguous {dtype}{list(shape)}, "
                          f"got {t.dtype}{list(t.shape)}")
-    if len(shape) == 2 and shape[1] == 4 and t.data_ptr() % 16:
-        raise ValueError(f"refresh_aggregates: {name} rows must be 16-byte aligned")
+    if ((len(shape) == 2 and shape[1] == 4) or name == "part_rack_count") and t.data_ptr() % 16:
+        raise ValueError(f"refresh_aggregates: {name} must be 16-byte aligned")
     return t.data_ptr()
 
 
 def refresh_cuda(st: ClusterState, replica_broker, replica_is_leader, replica_disk, out: dict,
-                 hosts: HostGroups | None, group: Grouping | None, brokers: bool = True) -> dict:
+                 hosts: HostGroups | None, group: Grouping | None, brokers: bool = True,
+                 members: torch.Tensor | None = None) -> dict:
     s = st.shape
     R, B, T, P, nr, D, H = s.R, s.B, s.num_topics, s.P, s.num_racks, s.max_disks_per_broker, s.num_hosts
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    M = 0
     if D > 32:
         raise ValueError(f"refresh_aggregates: {D} disks a broker exceed the kernel's 32 lanes")
     if brokers:
         if group is None:
-            group = group_by_broker(replica_segments(st, replica_broker), B)
+            group = group_placement(replica_broker, st.replica_valid, B)
+        if members is None:
+            members = st.members
+        M = int(members.shape[1]) if members.dim() == 2 else -1
+        if not 1 <= M <= MAX_MEMBERS:
+            raise ValueError(f"refresh_aggregates: the member table must be i32[P, 1..{MAX_MEMBERS}], "
+                             f"got {list(members.shape)}")
         c_in = dict(
             order=_ptr("order", group.order, i32, (R,)), start=_ptr("start", group.start, i32, (B,)),
             count=_ptr("count", group.count, i32, (B,)),
@@ -174,7 +199,8 @@ def refresh_cuda(st: ClusterState, replica_broker, replica_is_leader, replica_di
             load_leader=_ptr("load_leader", st.replica_load_leader, f32, (R, 4)),
             load_follower=_ptr("load_follower", st.replica_load_follower, f32, (R, 4)),
             topic=_ptr("replica_topic", st.replica_topic, i32, (R,)),
-            partition=_ptr("replica_partition", st.replica_partition, i32, (R,)),
+            replica_broker=_ptr("replica_broker", replica_broker, i32, (R,)),
+            members=_ptr("members", members, i32, (P, M)),
             broker_rack=_ptr("broker_rack", st.broker_rack, i32, (B,)),
         )
         c_out = dict(
@@ -188,6 +214,7 @@ def refresh_cuda(st: ClusterState, replica_broker, replica_is_leader, replica_di
         )
     else:
         c_in, c_out = {}, {}
+    dev = out["broker_load"].device
     c_out["broker_load"] = _ptr("broker_load", out["broker_load"], f32, (B, 4))
     if hosts is not None:
         hg = hosts.group
@@ -195,8 +222,11 @@ def refresh_cuda(st: ClusterState, replica_broker, replica_is_leader, replica_di
                     host_start=_ptr("host_start", hg.start, i32, (H,)),
                     host_count=_ptr("host_count", hg.count, i32, (H,)))
         c_out["host_load"] = _ptr("host_load", out["host_load"], f32, (H, 4))
-    stream = torch.cuda.current_stream(out["broker_load"].device).cuda_stream
-    status = _fn()(_Dims(R, B, T, P, nr, D, H), _In(**c_in), _Out(**c_out), int(brokers), stream)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    blocks = _blocks(T if brokers else 0, M, index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = _fns()[1](_Dims(R, B, T, P, nr, D, H, M), _In(**c_in), _Out(**c_out), int(brokers), blocks,
+                       stream)
     _build.check(status, "refresh_aggregates")
     kernels.LAUNCHES["refresh_aggregates"] += 1
     return out
@@ -204,14 +234,16 @@ def refresh_cuda(st: ClusterState, replica_broker, replica_is_leader, replica_di
 
 def refresh_aggregates(st: ClusterState, replica_broker, replica_is_leader, replica_disk, out: dict,
                        *, hosts: HostGroups | None = None, group: Grouping | None = None,
-                       brokers: bool = True) -> dict:
+                       brokers: bool = True, members: torch.Tensor | None = None) -> dict:
     """Write the aggregates of the placement (replica_broker,
     replica_is_leader, replica_disk) of `st`'s cluster into `out` (the
     AGG_FIELDS when `brokers`, and "host_load" from out["broker_load"] when
     `hosts` is given): the kernel for CUDA tensors, over `group` (the
-    placement's grouping by broker, computed when None), the plain version
-    for CPU tensors."""
-    if kernels.route(replica_broker, out["broker_load"], st.replica_valid) == "cpu":
+    placement's grouping by broker, computed when None) and `members` (the
+    cluster's member table; `st.members` when None), the plain version for
+    CPU tensors."""
+    given = [] if members is None else [members]
+    if kernels.route(replica_broker, out["broker_load"], st.replica_valid, *given) == "cpu":
         return refresh_plain(st, replica_broker, replica_is_leader, replica_disk, out, hosts, brokers)
     return refresh_cuda(st, replica_broker, replica_is_leader, replica_disk, out, hosts, group,
-                        brokers)
+                        brokers, members)

@@ -62,9 +62,12 @@ def empty_aggregates(state: ClusterState) -> dict:
     return {f: torch.empty(shape, dtype=dt, device=state.device) for f, (shape, dt) in shapes.items()}
 
 
-def compute_aggregates(state: ClusterState) -> BrokerAggregates:
+def compute_aggregates(state: ClusterState, members: torch.Tensor | None = None) -> BrokerAggregates:
+    """The state's aggregates.  `members` is the cluster's member table,
+    which the card's kernel counts partition x rack cells from;
+    `state.members` (built once per state) when None."""
     out = refresh_aggregates(state, state.replica_broker, state.replica_is_leader,
-                             state.replica_disk, empty_aggregates(state))
+                             state.replica_disk, empty_aggregates(state), members=members)
     return BrokerAggregates(**{f: out[f] for f in AGG_FIELDS})
 
 

@@ -37,6 +37,7 @@ model/ClusterModel.java:374).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -120,6 +121,15 @@ class ClusterState:
     def device(self) -> torch.device:
         return self.replica_broker.device
 
+    @functools.cached_property
+    def members(self) -> torch.Tensor:
+        """i32[P, max_rf] member table of the state's cluster on its device
+        (`replica_members`), built once per state: membership never
+        changes during optimization, so callers that hold the table (the
+        engine's statics) pass it instead."""
+        h = [t.cpu().numpy() for t in (self.replica_valid, self.replica_partition, self.replica_pos)]
+        return torch.as_tensor(replica_members(*h, self.shape), device=self.device)
+
     @property
     def replica_load(self) -> torch.Tensor:
         """Effective [R, 4] utilization given current leadership."""
@@ -159,6 +169,29 @@ class ClusterState:
         lead[from_replica] = False
         lead[to_replica] = True
         return dataclasses.replace(self, replica_is_leader=lead)
+
+
+def replica_members(valid: np.ndarray, part: np.ndarray, pos: np.ndarray,
+                    shape: ClusterShape) -> np.ndarray:
+    """i32[P, max_rf] the valid replica rows of each partition, in position
+    order, padded with R (host numpy).  Raises unless the table holds every
+    valid row exactly once: two valid rows of one partition whose positions
+    clamp to one slot would drop a row (the refresh counts partition x rack
+    cells from this table)."""
+    P, R = shape.P, shape.R
+    max_rf = 1
+    counts = np.bincount(part[valid], minlength=P)
+    if counts.size:
+        max_rf = max(1, int(counts.max()))
+    table = np.full((P, max_rf), R, np.int32)
+    idx = np.nonzero(valid)[0]
+    slot = np.minimum(pos[idx], max_rf - 1)
+    table[part[idx], slot] = idx
+    held = int((table < R).sum())
+    if held != idx.size:
+        raise ValueError(f"replica positions collide: the member table holds {held} of "
+                         f"{idx.size} valid replicas")
+    return table
 
 
 #: check names for validate_on_device's count vector, in order

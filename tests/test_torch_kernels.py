@@ -309,19 +309,23 @@ def test_segment_sum_adds_in_row_order(cuda):
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["replicas", "one_segment", "all_padding", "few_segments", "empty"])
+@pytest.mark.parametrize("case", ["replicas", "one_segment", "all_padding", "few_segments", "empty",
+                                  "many_segments", "hot_segment"])
 def test_group_matches_plain(cuda, case):
     from cruise_control_tpu_torch.kernels.group import group_by_broker, group_plain, Grouping
 
     rng = np.random.default_rng(len(case))
-    n_seg, n = 2600, 500_245
+    n_seg, n = (25_000 if case == "many_segments" else 2600), 500_245
     seg = {
-        "replicas": rng.integers(0, n_seg + 1, n),
-        "one_segment": np.full(n, 7),
-        "all_padding": np.full(n, n_seg),
-        "few_segments": rng.choice([0, 1, 2599, n_seg], n),
-        "empty": np.zeros(0),
-    }[case].astype(np.int32)
+        "replicas": lambda: rng.integers(0, n_seg + 1, n),
+        "one_segment": lambda: np.full(n, 7),
+        "all_padding": lambda: np.full(n, n_seg),
+        "few_segments": lambda: rng.choice([0, 1, 2599, n_seg], n),
+        "empty": lambda: np.zeros(0),
+        "many_segments": lambda: rng.integers(0, n_seg + 1, n),
+        # 20,010 rows in segment 11, spread over every block's rows
+        "hot_segment": lambda: np.where(np.arange(n) % 25 == 0, 11, rng.integers(0, n_seg + 1, n)),
+    }[case]().astype(np.int32)
     t = torch.from_numpy(seg).to(cuda)
     before = kernels.LAUNCHES["group_by_broker"]
     got = group_by_broker(t, n_seg)
@@ -329,6 +333,39 @@ def test_group_matches_plain(cuda, case):
     want = group_plain(t, n_seg, Grouping.empty(len(seg), n_seg, cuda))
     for f in ("count", "start", "order"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("case", ["engine", "random"])
+def test_group_placement_matches_plain(cuda, case):
+    """The broker/valid entry (the engine's call): the kernel computes each
+    row's segment itself; exactly the plain grouping of
+    placement_segments, three calls into one grouping."""
+    from cruise_control_tpu_torch.kernels.group import (
+        Grouping,
+        group_placement,
+        group_plain,
+        placement_segments,
+    )
+
+    if case == "engine":
+        eng, carry = _moved_carry(cuda)
+        broker, valid, B = carry.replica_broker, eng.statics.state.replica_valid, eng.shape.B
+    else:
+        rng = np.random.default_rng(5)
+        B, n = 2600, 500_245
+        broker = torch.from_numpy(rng.integers(-2, B + 3, n).astype(np.int32)).to(cuda)
+        valid = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    n = int(broker.shape[0])
+    want = group_plain(placement_segments(broker, valid, B), B, Grouping.empty(n, B, cuda))
+    out = Grouping.empty(n, B, cuda)
+    for _ in range(3):
+        for f in ("count", "start", "order"):
+            getattr(out, f).fill_(-1)
+        before = kernels.LAUNCHES["group_by_broker"]
+        group_placement(broker, valid, B, out=out)
+        assert kernels.LAUNCHES["group_by_broker"] == before + 1
+        for f in ("count", "start", "order"):
+            assert torch.equal(getattr(out, f), getattr(want, f)), f
 
 
 def _moved_carry(cuda, steps=6):
@@ -368,6 +405,161 @@ def test_refresh_matches_plain_bitwise(cuda):
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             assert torch.equal(a, b), f
+
+
+def _to(x, device):
+    """A dataclass of tensors (a cluster state, a grouping) on `device`."""
+    import dataclasses
+
+    return dataclasses.replace(x, **{
+        f.name: v.to(device) for f in dataclasses.fields(x)
+        for v in (getattr(x, f.name),) if isinstance(v, torch.Tensor)
+    })
+
+
+def _refresh_case(kind: str):
+    """(CPU state, CPU placement) of a refresh case: a random cluster (JBOD
+    for "jbod"), its placement with 20,000 rows on broker 0 ("hot_broker")
+    or with every fifth broker emptied ("empty_brokers")."""
+    D = 3 if kind == "jbod" else 1
+    P = 12_000 if kind == "hot_broker" else 3000
+    state = random_cluster(RandomClusterSpec(num_brokers=40, num_partitions=P, skew=1.0, disks_per_broker=D),
+                           seed=5, device="cpu")
+    broker = state.replica_broker.clone()
+    disk = state.replica_disk.clone()
+    if kind == "hot_broker":
+        rows = torch.nonzero(state.replica_valid).flatten()[:20_000]
+        assert rows.numel() == 20_000
+        broker[rows] = 0
+        disk[rows] = 0
+    elif kind == "empty_brokers":
+        broker = torch.where(broker % 5 == 0, broker + 1, broker)
+    return state, (broker, state.replica_is_leader.clone(), disk)
+
+
+@pytest.mark.parametrize("kind", ["no_hosts", "hosts_only", "jbod", "hot_broker", "empty_brokers"])
+def test_refresh_cases_match_plain_bitwise(cuda, kind):
+    """The card's refresh against the plain version on the CPU, bit for
+    bit, three calls: without the host pass, the host pass alone
+    (host_load's call), JBOD brokers, one broker holding 20,000 rows, and
+    brokers holding none.  Cells a call must not write keep their -1."""
+    from cruise_control_tpu_torch.kernels.refresh import (
+        AGG_FIELDS,
+        HostGroups,
+        refresh_aggregates,
+        refresh_plain,
+    )
+    from cruise_control_tpu_torch.models.aggregates import empty_aggregates
+
+    state, place = _refresh_case(kind)
+    s = state.shape
+    hosts = None if kind == "no_hosts" else HostGroups.of(state.broker_valid, state.broker_host, s.num_hosts)
+    want = empty_aggregates(state)
+    want["host_load"] = torch.full((s.num_hosts, 4), -1.0)
+    refresh_plain(state, *place, want, hosts)
+    st, place_c = _to(state, cuda), [t.to(cuda) for t in place]
+    hosts_c = None if hosts is None else HostGroups(hosts.seg.to(cuda), _to(hosts.group, cuda))
+    members = st.members
+    fields = ("broker_load", "host_load") if kind == "hosts_only" else (*AGG_FIELDS, "host_load")
+    for _ in range(3):
+        got = {f: torch.full_like(want[f], -1, device=cuda) for f in fields}
+        if kind == "hosts_only":
+            got["broker_load"].copy_(want["broker_load"])
+        before = kernels.LAUNCHES["refresh_aggregates"]
+        refresh_aggregates(st, *place_c, got, hosts=hosts_c, brokers=kind != "hosts_only", members=members)
+        assert kernels.LAUNCHES["refresh_aggregates"] == before + 1
+        for f in fields:
+            a, b = got[f].cpu(), want[f]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f
+
+
+def test_group_refresh_graph_replay(cuda):
+    """group_placement and refresh_aggregates captured in one CUDA graph
+    (two cooperative launches) and replayed over three changed placements:
+    each replay's grouping exactly and aggregates bit for bit the plain
+    versions' on the CPU (no stale scratch, no stale cells)."""
+    from cruise_control_tpu_torch.kernels.group import Grouping, group_placement, group_plain, placement_segments
+    from cruise_control_tpu_torch.kernels.refresh import (
+        AGG_FIELDS,
+        HostGroups,
+        refresh_aggregates,
+        refresh_plain,
+    )
+    from cruise_control_tpu_torch.models.aggregates import empty_aggregates
+
+    state, place = _refresh_case("jbod")
+    s = state.shape
+    hosts = HostGroups.of(state.broker_valid, state.broker_host, s.num_hosts)
+    st = _to(state, cuda)
+    hosts_c = HostGroups(hosts.seg.to(cuda), _to(hosts.group, cuda))
+    members = st.members
+    broker, lead, disk = [t.to(cuda) for t in place]
+    group = Grouping.empty(s.R, s.B, cuda)
+    out = empty_aggregates(st)
+    out["host_load"] = torch.empty((s.num_hosts, 4), device=cuda)
+
+    def prep():
+        group_placement(broker, st.replica_valid, s.B, out=group)
+        refresh_aggregates(st, broker, lead, disk, out, hosts=hosts_c, group=group, members=members)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        prep()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        prep()
+    rng = np.random.default_rng(0)
+    valid = state.replica_valid.numpy()
+    for _ in range(3):
+        b = place[0].numpy().copy()
+        moved = rng.random(s.R) < 0.2
+        b[moved] = rng.integers(0, s.B, int(moved.sum()))
+        d = np.where(moved, rng.integers(0, s.max_disks_per_broker, s.R), place[2].numpy()).astype(np.int32)
+        ld = np.where(rng.random(s.R) < 0.1, ~place[1].numpy(), place[1].numpy())
+        broker.copy_(torch.from_numpy(b))
+        disk.copy_(torch.from_numpy(d))
+        lead.copy_(torch.from_numpy(ld))
+        for t in (*out.values(), group.count, group.start, group.order):
+            t.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        bc, dc, lc = torch.from_numpy(b), torch.from_numpy(d), torch.from_numpy(ld)
+        g_want = group_plain(placement_segments(bc, torch.from_numpy(valid), s.B), s.B,
+                             Grouping.empty(s.R, s.B, "cpu"))
+        for f in ("count", "start", "order"):
+            assert torch.equal(getattr(group, f).cpu(), getattr(g_want, f)), f
+        want = empty_aggregates(state)
+        want["host_load"] = torch.empty((s.num_hosts, 4))
+        refresh_plain(state, bc, lc, dc, want, hosts)
+        for f in (*AGG_FIELDS, "host_load"):
+            a, w = out[f].cpu(), want[f]
+            if a.dtype == torch.float32:
+                a, w = a.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(a, w), f
+
+
+def test_round_prep_refuses_foreign_inputs(cuda):
+    """A member table on the CPU beside a state on the card, and a grouping
+    on the card without the kernel's scratch, raise before any launch."""
+    from cruise_control_tpu_torch.kernels.group import Grouping, group_placement
+    from cruise_control_tpu_torch.kernels.refresh import refresh_aggregates
+    from cruise_control_tpu_torch.models.aggregates import empty_aggregates
+
+    state, (broker, lead, disk) = _refresh_case("jbod")
+    s = state.shape
+    st = _to(state, cuda)
+    broker, lead, disk = broker.to(cuda), lead.to(cuda), disk.to(cuda)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="all be on CUDA or all on the CPU"):
+        refresh_aggregates(st, broker, lead, disk, empty_aggregates(st), members=state.members)
+    bare = Grouping(*(torch.empty(n, dtype=torch.int32, device=cuda) for n in (s.B, s.B, s.R)))
+    with pytest.raises(ValueError, match="Grouping.empty"):
+        group_placement(broker, st.replica_valid, s.B, out=bare)
+    assert kernels.LAUNCHES == before
 
 
 def test_step_globals_matches_plain(cuda):
