@@ -7,32 +7,35 @@ result line when any phase fails or no CUDA device is present.
 
 Phases:
   1. The card: its name and power limit, then the build of the nine CUDA
-     kernel libraries from cruise_control_tpu_torch/kernels/csrc.
+     kernel libraries from cruise_control_tpu_torch/kernels/csrc, and the
+     CUDA runtime and driver versions (the loop graph needs 12.4+).
   2. Each kernel against its plain PyTorch version on the card, on the
      inputs of one north-star anneal step, with the kernel's and the plain
      version's times and the least time the card could take: the step's
      four kernels (step_globals within rtol 1e-6 and the same bits over
      100 calls; candidates; select_survivors' survivors, relocation mask
      and count exact, fresh and over successive epochs of one buffer, also
-     on synthetic cases; apply_moves bit for bit, also on a case of
-     survivors meeting on shared hosts), the round prep's two, each one
+     on synthetic cases; apply_moves bit for bit, one device operation a
+     call, every slot back at -1, three times, also on a case of survivors
+     meeting on shared hosts), the round prep's two, each one
      cooperative launch (group_by_broker exact through the engine's
      broker/valid entry and the seg entry, and refresh_aggregates bit for
      bit against the plain version on the CPU, three calls each; the
      refresh also without its host pass, the host pass alone, and on the
      same rows dealt round-robin, which shows the hottest broker's tail),
      the schedule kernel (round_schedule, exact over a table of gate
-     inputs), and the two standalone kernels the candidates kernel fused
+     inputs, EXIT included), and the two standalone kernels the candidates kernel fused
      (threefry_uniform, move_delta) on the same step's draws and deltas.
   3. A small cluster optimized on the card agrees with the same run on the
      CPU (whose parity with the JAX package the test suite holds).
   4. The main path: GoalOptimizer.optimize on the north-star cluster
      (2,600 brokers, 200k partitions, ~500k replicas) with the north-star
      search config, twice with the same seed, through the fused route
-     (captured CUDA graphs behind conditional nodes, one blocking sync):
+     (one launch of one CUDA graph, a WHILE node over the rounds with
+     conditional nodes inside, no masked round, one blocking sync):
      identical placements, rounds and proposals.  Launch counts are zeroed
      just before the first call and read just after; graph launches count
-     per replay.
+     per replay, round_schedule three a loop iteration plus INIT and EXIT.
   5. A third request on the same optimizer: decommission 1% of the
      brokers; it must reuse the cached engine (capturing its graphs anew)
      and evacuate every replica.
@@ -40,9 +43,11 @@ Phases:
      star and on the decommission: identical placements, rounds and
      accepted counts.
   7. Where the time goes: a whole fused run under torch.profiler (device
-     busy, idle share; the package's kernel events inside the run's window
-     and outside it, beside the run's launches), the captured graphs'
-     nodes, a masked round, a full check and a round body replayed alone;
+     busy, idle share, each kernel's device time; the package's kernel
+     events inside the run's window and outside it, beside the run's
+     launches; one loop-graph launch, no masked round), the captured
+     graphs' nodes, one loop iteration on a finished run, a full check and
+     a round body replayed alone;
      and an eager north-star step
      (the legacy route's): host clock, launches and device time per step,
      one select launch and no other device operation between candidates
@@ -85,9 +90,9 @@ ALU_OPS_PER_S = 67e12
 
 #: the package's own CUDA kernels, by the names the profiler reports
 OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
-               "candidates_kernel", "select_survivors_kernel", "apply_rows_kernel",
-               "apply_owner_kernel", "group_by_broker_kernel", "refresh_aggregates_kernel",
-               "step_globals_kernel", "round_schedule_kernel")
+               "candidates_kernel", "select_survivors_kernel", "apply_moves_kernel",
+               "group_by_broker_kernel", "refresh_aggregates_kernel", "step_globals_kernel",
+               "round_schedule_kernel")
 
 SOURCES = {
     "threefry_uniform": ("threefry.cu", "cruise_control_tpu/analyzer/engine.py:958"),
@@ -445,28 +450,31 @@ def check_kernels(state, cfg) -> dict:
                                              "over 5 epochs of one buffer up to the last",
                                    synthetic_cases=cases, survivors=int(survive.sum()), n=Ks)
 
-    # apply_moves: in place, from a clone of the captured carry each time;
-    # bit for bit (one broker per host here, so the plain version's CUDA
-    # index_add_ never repeats an index inside one call, and adds in the
-    # reference's order too)
+    # apply_moves: in place, from a clone of the captured carry each time,
+    # three times; bit for bit (one broker per host here, so the plain
+    # version's CUDA index_add_ never repeats an index inside one call, and
+    # adds in the reference's order too); every slot back at -1
     ((sx_a, c0, sv_r, payr, sv_l, payl), _), = cap.calls["apply_moves"]
-    ck, cp = c0.clone(), c0.clone()
-    apply_k.apply_moves(sx_a, ck, sv_r, payr, sv_l, payl)
-    apply_k.apply_plain(sx_a, cp, sv_r, payr, sv_l, payl)
-    torch.cuda.synchronize()
     err = 0.0
-    for f in ("replica_broker", "replica_disk", "replica_is_leader", "broker_replica_count",
-              "broker_leader_count", "broker_topic_count", "part_rack_count", "broker_load",
-              "broker_potential_nw_out", "broker_leader_bytes_in", "disk_load", "host_load"):
-        a, b = getattr(ck, f), getattr(cp, f)
-        if a.dtype == torch.float32:
-            err = max(err, float((a - b).abs().max()))
-        check(torch.equal(a, b), f"apply_moves: {f} differs from the plain version")
+    for _ in range(3):
+        ck, cp = c0.clone(), c0.clone()
+        apply_k.apply_moves(sx_a, ck, sv_r, payr, sv_l, payl)
+        apply_k.apply_plain(sx_a, cp, sv_r, payr, sv_l, payl)
+        torch.cuda.synchronize()
+        for f in ("replica_broker", "replica_disk", "replica_is_leader", "broker_replica_count",
+                  "broker_leader_count", "broker_topic_count", "part_rack_count", "broker_load",
+                  "broker_potential_nw_out", "broker_leader_bytes_in", "disk_load", "host_load"):
+            a, b = getattr(ck, f), getattr(cp, f)
+            if a.dtype == torch.float32:
+                err = max(err, float((a - b).abs().max()))
+            check(torch.equal(a, b), f"apply_moves: {f} differs from the plain version")
+        check(bool((sx_a.apply_slots == -1).all()), "apply_moves left a slot set")
     moved = ck.clone()
     collisions = check_apply_collisions(cfg, dev)
     # timed on a scratch carry: repeated application moves the same rows
     # again, which is the same work (the values drift, the indices do not)
     kt = measure(lambda: apply_k.apply_moves(sx_a, ck, sv_r, payr, sv_l, payl))
+    one_launch(kt, "apply_moves_kernel")
     pt = measure(lambda: apply_k.apply_plain(sx_a, cp, sv_r, payr, sv_l, payl))
     n_rel, n_lead = int(sv_r.sum()), int(sv_l.sum())
     # every row's survivor flag is read; only a survivor reads its payload
@@ -710,7 +718,8 @@ def check_round_kernels(eng, carry) -> dict:
                                bound_by=b_by, tolerance="rtol 1e-6, the same bits over 100 calls", n=B)
 
     # round_schedule: every phase over a table of gate inputs (3 main and 2
-    # polish rounds), the card's state against the plain version's
+    # polish rounds; EXIT after the round fills the rounds after it), the
+    # card's state against the plain version's
     tol = float(np.float32(1e-6))
     dims = sk.ScheduleDims(n_main=3, total=5, tol_on=True, checks=2, verbose=True, tol=tol,
                            scale=float(np.float32(1e-2)))
@@ -734,7 +743,8 @@ def check_round_kernels(eng, carry) -> dict:
                 sc.sf[sk.CHEAP] = 2e-3
                 sc.sf[sk.OBJ] = 5.0
             sk.round_schedule(sk.CLOSE, sc, dims)
-            states.append([t.cpu() for t in (sc.si, sc.sf, sc.acc, sc.ys)])
+            sk.round_schedule(sk.EXIT, sc, dims)
+            states.append([t.cpu() for t in (sc.si, sc.sf, sc.acc, sc.ys, sc.count)])
         for a, b in zip(*states):
             same = torch.equal(a, b) or (a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
                                          and torch.equal(a.nan_to_num(), b.nan_to_num()))
@@ -744,9 +754,10 @@ def check_round_kernels(eng, carry) -> dict:
     sc_cpu = sk.Schedule.create(5, 0.7, "cpu")
     kt = measure(lambda: sk.round_schedule(sk.GATE, sc, dims))
     p_ms = host_time_ms(lambda: sk.round_schedule(sk.GATE, sc_cpu, dims))
-    # a phase reads and writes the int and float state once (64 B) and one
-    # ys row (56 B); a few dozen scalar operations
-    b_ms, b_by = bound(120, 60.0)
+    # a phase reads and writes the int and float state once (68 B), the
+    # loop's counters (8 B) and one ys row (56 B); a few dozen scalar
+    # operations
+    b_ms, b_by = bound(132, 60.0)
     out["round_schedule"] = dict(max_abs_err=0.0, **timings(kt, dict(ms=p_ms, call_ms=p_ms, ms_source="host clock, CPU tensors")),
                                  library_ms=None, bound_ms=b_ms, bound_by=b_by,
                                  tolerance=f"exact, every phase over {rows} table rows", n=1)
@@ -877,7 +888,7 @@ def profile_steps(state, cfg) -> dict:
     for _, name in sorted(order):
         if name == "candidates_kernel":
             cur = []
-        elif name == "apply_rows_kernel" and cur is not None:
+        elif name == "apply_moves_kernel" and cur is not None:
             between.append(cur)
             cur = None
         elif cur is not None:
@@ -935,10 +946,19 @@ def run_proposal(opt, state, label):
     timing = next(h for h in res.history if h.get("timing"))
     check(timing.get("fused") is True and timing["blocking_syncs"] == 1,
           f"the {label} did not run the fused route with one blocking sync: {timing}")
+    check(timing["graph_launches"] == 1 and timing["masked_rounds"] == 0,
+          f"the {label} did not run as one loop-graph launch without masked rounds: {timing}")
     engine = next(iter(opt._engines.values()))
+    # round_schedule: INIT in the init graph, three a loop iteration, EXIT,
+    # and INIT once more in a capture's warm-up
+    want = 3 * timing["loop_iterations"] + 2 + int("init" in timing["captured"])
+    check(launches["round_schedule"] == want,
+          f"the {label} launched round_schedule {launches['round_schedule']} times, expected {want}")
     log(json.dumps({
         "phase": label, "wall_s": wall, "rounds": len(rounds),
         "host_dispatch_s": timing["host_dispatch_s"], "device_s": timing["device_s"],
+        "graph_launches": timing["graph_launches"], "loop_iterations": timing["loop_iterations"],
+        "masked_rounds": timing["masked_rounds"],
         "host_extract_s": timing["host_extract_s"],
         "graph_captures": engine.graph_stats.get("captures", []),
         "accepted": [h["accepted"] for h in rounds], "objective_before": res.objective_before,
@@ -993,9 +1013,12 @@ def compare_routes(state, cfg, label) -> dict:
 
 def profile_fused(state, cfg) -> dict:
     """Phase 7: a whole fused north-star run (graphs captured by a first
-    run) under torch.profiler: device busy and idle share; then, alone and
-    timed with CUDA events, a masked round (the run is done), a full-chain
-    check and a round body replayed from their captured graphs."""
+    run) under torch.profiler: device busy and idle share, each of the
+    package's kernels' device time, one loop-graph launch and no masked
+    round; then, alone and timed with CUDA events, one loop iteration on
+    the finished run (the loop graph without its init: one masked round and
+    EXIT), a full-chain check, the init graph and a round body replayed
+    from their captured graphs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1037,11 +1060,17 @@ def profile_fused(state, cfg) -> dict:
                 tally = in_window if inside else outside
                 tally[name] = tally.get(name, 0) + 1
     busy = sum(v[0] for v in kernels.values())
+    timing = hist_p[-1]
+    check(timing["graph_launches"] == 1 and timing["masked_rounds"] == 0,
+          f"the profiled fused run was not one loop-graph launch without masked rounds: {timing}")
     ws = eng._ws
-    rg = ws.rounds[False]
     stream = torch.cuda.current_stream()
-    # the run is done, so every further launch of the round graph is masked
-    masked = time_ms(lambda: rg.launch(stream.cuda_stream), reps=100)
+    # the run is done, so each launch of the loop alone runs one masked
+    # iteration (its handle starts at 1; CLOSE ends it) and EXIT
+    dims = eng._sched_dims(False)
+    loop_only = sched_k.LoopGraph(ws.sched, dims, None, ws.graphs["eval"], ws.graphs["body"])
+    iteration = time_ms(lambda: loop_only.launch(stream.cuda_stream), reps=100)
+    loop_only.close()
     full = time_ms(lambda: ws.graphs["eval"].replay(), reps=10)
     init = time_ms(lambda: ws.graphs["init"].replay(), reps=5)
     # a round body alone, at T=0 (the init replay above set the carry and
@@ -1060,13 +1089,15 @@ def profile_fused(state, cfg) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:14]
     out = dict(
         phase="profile_fused", run_wall_ms=wall_ms, profiled_run_wall_ms=prof_wall_ms,
-        rounds=len(rounds), timing=hist_p[-1],
+        rounds=len(rounds), timing=timing,
         device_busy_ms=busy if kernels else "not measured",
         device_idle_share=1.0 - busy / prof_wall_ms if kernels else "not measured",
         device_ops=ops, own_events_in_window=in_window, own_events_outside_window=outside,
         launches=launches, window_found=len(window) == 1,
         graph_captures=eng.graph_stats.get("captures", []),
-        masked_round_ms=masked, full_check_ms=full, round_body_ms=body_ms, init_ms=init,
+        loop_iteration_ms=iteration, full_check_ms=full, round_body_ms=body_ms, init_ms=init,
+        own_kernel_ms={k: round(v[0], 6) for k, v in kernels.items() if k in OWN_KERNELS},
+        own_kernel_events={k: v[1] for k, v in kernels.items() if k in OWN_KERNELS},
         top_kernels=[[k, round(v[0], 5), v[1]] for k, v in top],
     )
     log(json.dumps(out))
@@ -1092,6 +1123,7 @@ def main() -> int:
 
     from cruise_control_tpu_torch.analyzer import GoalOptimizer, OptimizerConfig
     from cruise_control_tpu_torch.kernels import _build
+    from cruise_control_tpu_torch.kernels import schedule as sched_k
     from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster_fast
 
     # phase 1: the card and the build
@@ -1103,8 +1135,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.monotonic()
     took = _build.build()
+    runtime, driver = sched_k.cuda_versions()
     log(json.dumps({"phase": "build", "seconds": time.monotonic() - t0,
-                    "per_library_s": took, "dir": str(_build.BUILD_DIR.relative_to(ROOT))}))
+                    "per_library_s": took, "dir": str(_build.BUILD_DIR.relative_to(ROOT)),
+                    "cuda_runtime": runtime, "cuda_driver": driver}))
     torch.backends.cuda.matmul.allow_tf32 = False
 
     cfg = OptimizerConfig(**SEARCH)

@@ -19,16 +19,18 @@ polish rounds while the full goal chain keeps improving.
 Execution model (fused rounds, the default; the JAX package's
 `_run_fused`): the host issues the whole schedule without reading a device
 value, then makes ONE blocking sync to fetch the per-round scalars.  On
-CUDA, a run replays a captured init graph and then launches, once per
-scheduled round, one CUDA graph: the schedule kernel's gate, a conditional
-IF node around the full-chain check, the schedule kernel's decision, a
-conditional IF node around the round body (its steps and the round prep),
-and the schedule kernel's close (kernels/schedule.py).  The steps, the
-round prep and the goal chain are captured once per model generation from
-the same code that runs eagerly; a masked round (after an early stop)
-costs three one-thread launches.  On the CPU the same route runs op by op:
-the schedule state lives in tensors, the conditionals read its flags, and
-the ys are read once at the end.
+CUDA, a run is one launch of one CUDA graph (kernels/schedule.py
+`LoopGraph`): the captured init graph, then a conditional WHILE node whose
+body is one round (the schedule kernel's gate, a conditional IF node around
+the full-chain check, the schedule kernel's decision, a conditional IF node
+around the round body, i.e. its steps and the round prep, and the schedule
+kernel's close, which ends the loop once the run is done), then the
+schedule kernel's exit, which writes the rounds the loop never reached as
+the reference's masked rounds would.  The init, steps, round prep and goal
+chain are captured once per model generation from the same code that runs
+eagerly.  On the CPU the same route runs op by op: the schedule state lives
+in tensors, the conditionals and the loop read its flags, and the ys are
+read once at the end.
 
 The legacy round loop (`fused_rounds=False`, the JAX package's
 `_run_legacy`) drives the rounds from the host with one or more blocking
@@ -214,12 +216,18 @@ class EngineStatics:
     #: valid broker count (clips the importance sampler's CDF search)
     n_brokers: int
     #: broker ids grouped by host (stable), brokers with no host in range
-    #: last, and the i32[H + 2] group offsets: apply_moves' owner threads
+    #: last, and the i32[H + 2] group offsets: apply_moves' walk over the
+    #: brokers of a host that holds several
     host_brokers: torch.Tensor
     host_start: torch.Tensor
     #: i32[2, B] scratch of apply_moves (each broker's surviving src and
-    #: dst row), -1 between calls
+    #: dst row), -1 between calls, and f32[2, B, 8] beside it (the slot's
+    #: event: its load row, pot, leader bytes-in and disk)
     apply_slots: torch.Tensor
+    apply_events: torch.Tensor
+    #: whether a host in range holds more than one broker (apply_moves then
+    #: walks such hosts' brokers for the host's order of float additions)
+    shared_hosts: bool
     #: valid brokers grouped by host (the rest by the sentinel H): the
     #: refresh's host pass
     host_groups: HostGroups
@@ -301,6 +309,8 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
         host_brokers=t(np.argsort(host_group, kind="stable"), torch.int32),
         host_start=t(host_start),
         apply_slots=torch.full((2, s.B), -1, dtype=torch.int32, device=dev),
+        apply_events=torch.zeros((2, s.B, 8), dtype=torch.float32, device=dev),
+        shared_hosts=bool((np.diff(host_start)[:s.num_hosts] > 1).any()),
         host_groups=HostGroups.of(t(valid_b), t(host, torch.int32), s.num_hosts),
     )
 
@@ -384,9 +394,10 @@ def _same_value(a, b) -> bool:
 
 def _same_statics(a: EngineStatics, b: EngineStatics) -> bool:
     """Whether two model generations give the engine the same statics (the
-    apply_slots scratch aside)."""
+    apply_moves scratch aside)."""
     return all(_same_value(getattr(a, f.name), getattr(b, f.name))
-               for f in dataclasses.fields(EngineStatics) if f.name != "apply_slots")
+               for f in dataclasses.fields(EngineStatics)
+               if f.name not in ("apply_slots", "apply_events"))
 
 
 def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -413,16 +424,17 @@ class _Workspace:
     cand: dict | None  # the candidates kernel's outputs (CUDA)
     sel: select_k.SelectBuffers | None  # select_survivors' buffers (CUDA)
     #: captured CUDA graphs by name, their launches per replay, and the
-    #: round graphs by verbose flag
+    #: loop graphs by verbose flag
     graphs: dict = dataclasses.field(default_factory=dict)
     graph_launches: dict = dataclasses.field(default_factory=dict)
-    rounds: dict = dataclasses.field(default_factory=dict)
+    loops: dict = dataclasses.field(default_factory=dict)
     ys_host: torch.Tensor | None = None  # pinned host copy of the ys
+    count_host: torch.Tensor | None = None  # pinned host copy of the loop's counters
 
     def close(self) -> None:
-        for rg in self.rounds.values():
-            rg.close()
-        self.rounds.clear()
+        for lg in self.loops.values():
+            lg.close()
+        self.loops.clear()
         self.graphs.clear()
 
 
@@ -824,7 +836,7 @@ class Engine:
 
     def _round_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims) -> None:
         """One round of the fused schedule op by op (the CPU route): the
-        conditionals read the flags the round graph's IF nodes read."""
+        conditionals read the flags the loop graph's IF nodes read."""
         sched_k.round_schedule(sched_k.GATE, ws.sched, dims)
         if ws.sched.si[sched_k.NEED_FULL]:
             self._full_check(ws)
@@ -835,15 +847,16 @@ class Engine:
                 self._objective(ws)
         sched_k.round_schedule(sched_k.CLOSE, ws.sched, dims)
 
-    def _capture(self, ws: _Workspace, verbose: bool) -> sched_k.RoundGraph:
-        """The round graph of this model generation (and verbose flag),
+    def _capture(self, ws: _Workspace, verbose: bool) -> sched_k.LoopGraph:
+        """The loop graph of this model generation (and verbose flag),
         capturing the init, full check, round body and objective graphs on
         first use.  Each piece runs once eagerly first, on the capture
         stream, so that lazy initialisations happen outside the capture;
-        the init graph's replay resets everything they touched."""
-        rg = ws.rounds.get(verbose)
-        if rg is not None:
-            return rg
+        the init graph, at the head of every run, resets everything they
+        touched."""
+        lg = ws.loops.get(verbose)
+        if lg is not None:
+            return lg
         dims = self._sched_dims(verbose)
         pieces = dict(init=lambda: self._init_run(ws, dims), eval=lambda: self._full_check(ws),
                       body=lambda: self._round_body(ws), obj=lambda: self._objective(ws))
@@ -870,13 +883,12 @@ class Engine:
             kernels.LAUNCHES.update(before)
             ws.graphs[name] = graph
         t_cap = time.monotonic()
-        if "init" in todo:
-            ws.graphs["init"].instantiate()
-        rg = sched_k.RoundGraph(ws.sched, dims, ws.graphs["eval"], ws.graphs["body"],
-                                ws.graphs["obj"] if verbose else None)
-        ws.rounds[verbose] = rg
+        lg = sched_k.LoopGraph(ws.sched, dims, ws.graphs["init"], ws.graphs["eval"],
+                               ws.graphs["body"], ws.graphs["obj"] if verbose else None)
+        ws.loops[verbose] = lg
         if ws.ys_host is None:
             ws.ys_host = torch.empty(ws.sched.ys.shape, dtype=torch.float64, pin_memory=True)
+            ws.count_host = torch.empty(ws.sched.count.shape, dtype=torch.int32, pin_memory=True)
         t_inst = time.monotonic()
         stats = self.graph_stats.setdefault("captures", [])
         stats.append(dict(
@@ -886,7 +898,7 @@ class Engine:
             launches_per_replay={n: {k: v for k, v in ws.graph_launches[n].items() if v}
                                  for n in todo},
         ))
-        return rg
+        return lg
 
     def _run_fused(self, *, verbose: bool = False):
         t_start = time.monotonic()
@@ -894,40 +906,56 @@ class Engine:
         dims = self._sched_dims(verbose)
         count_dispatch("engine.init")
         if self.device.type == "cuda":
-            rg = self._capture(ws, verbose)
-            ws.graphs["init"].replay()
+            n_caps = len(self.graph_stats.get("captures", []))
+            lg = self._capture(ws, verbose)
+            captured = [g for c in self.graph_stats.get("captures", [])[n_caps:] for g in c["graphs"]]
             count_dispatch("engine.run")
             stream = torch.cuda.current_stream(self.device)
-            for _ in range(dims.total):
-                rg.launch(stream.cuda_stream)
+            before = lg.launches
+            lg.launch(stream.cuda_stream)
+            graph_launches = lg.launches - before
             ws.ys_host.copy_(ws.sched.ys, non_blocking=True)
+            ws.count_host.copy_(ws.sched.count, non_blocking=True)
             t_disp = time.monotonic()
             # the run's ONE blocking sync: the per-round scalars (complete
-            # only when every round has); the carry stays on the device
+            # only when the loop has ended); the carry stays on the device
             count_dispatch("engine.sync")
             stream.synchronize()
             ys = ws.ys_host.numpy().copy()
-            self._count_replays(ws, ys, verbose)
+            count = ws.count_host.numpy().copy()
+            self._count_replays(ws, ys, int(count[sched_k.ITERS]), verbose)
         else:
+            graph_launches, captured = 0, []
             self._init_run(ws, dims)
             count_dispatch("engine.run")
-            for _ in range(dims.total):
+            # the loop graph's loop, op by op: round after round until CLOSE
+            # ends the loop, then EXIT
+            while True:
                 self._round_eager(ws, dims)
+                if not ws.sched.si[sched_k.LOOP]:
+                    break
+            sched_k.round_schedule(sched_k.EXIT, ws.sched, dims)
             t_disp = time.monotonic()
             count_dispatch("engine.sync")
             ys = ws.sched.ys.numpy().copy()
+            count = ws.sched.count.numpy().copy()
         t_sync = time.monotonic()
         history = self._fused_history(ys, verbose=verbose)
         history.append(dict(
-            timing=True, fused=True, blocking_syncs=1,
+            timing=True, fused=True, blocking_syncs=1, graph_launches=graph_launches,
+            captured=captured, loop_iterations=int(count[sched_k.ITERS]),
+            masked_rounds=int(count[sched_k.MASKED]),
             host_dispatch_s=round(t_disp - t_start, 6), device_s=round(t_sync - t_disp, 6),
         ))
         return self._final_state(ws), history
 
-    def _count_replays(self, ws: _Workspace, ys: np.ndarray, verbose: bool) -> None:
+    def _count_replays(self, ws: _Workspace, ys: np.ndarray, iterations: int,
+                       verbose: bool) -> None:
         """Kernel launches of a graph run: each graph's launches per replay
         times its replays, which the ys record (a body replays on rounds
-        that ran, the check on rounds that needed it)."""
+        that ran, the check on rounds that needed it; the rows EXIT wrote
+        record neither), and the schedule's own: INIT in the init graph,
+        three a loop iteration, and EXIT."""
         col = {k: i for i, k in enumerate(sched_k.YS)}
         ran = int(ys[:, col["ran"]].sum())
         kernels.add_launches(ws.graph_launches["init"], 1)
@@ -935,7 +963,7 @@ class Engine:
         kernels.add_launches(ws.graph_launches["body"], ran)
         if verbose:
             kernels.add_launches(ws.graph_launches["obj"], ran)
-        kernels.LAUNCHES["round_schedule"] += 3 * len(ys)
+        kernels.LAUNCHES["round_schedule"] += 3 * iterations + 1
 
     def _fused_history(self, ys: np.ndarray, *, verbose: bool) -> list[dict]:
         """Per-round history records from the run's ys (the JAX package's

@@ -8,23 +8,35 @@ the replica and leader counts, potential NW-out, leader bytes-in,
 broker_topic_count[T,B], part_rack_count[P,racks], disk_load[B,D] and
 host_load[H,4].
 
-Bound on the card: bytes — every row's survivor flag is read, and only a
-survivor reads its ~60-byte payload row and read-modify-writes ~30
-aggregate words; with a few hundred survivors per step the launches
-dominate.  Design: in-place updates of the carry (the reference donates
-its carry; here the step owns it).  A row pass writes the placement
-(survivors touch distinct partitions, so it never races), the integer
-counts with atomics (their sums do not depend on order) and each
-survivor's row id into per-broker slots; an owner pass, one thread per
-host, adds every float of its brokers and of its host in the reference's
-order.  So the card's aggregates are bit for bit the plain version's, run
-after run, and a seed gives one trajectory.  It relies on each broker
-being the src of at most one surviving row and the dst of at most one,
-which `select_survivors` guarantees (csrc/apply.cu).
+Bound on the card: latency, and where the requests queue — every row's
+survivor flag is read, and only a survivor reads its ~60-byte payload row
+and read-modify-writes ~30 aggregate words; with a few hundred survivors
+per step each survivor's chain of dependent requests sets the time, and
+its scattered requests must be spread over the SMs.  Design: in-place
+updates of the carry (the reference donates its carry; here the step owns
+it), in one cooperative launch of one block an SM whose work after the
+flag sweep is proportional to the survivors (csrc/apply.cu): each block
+lists the survivors of its slice of the rows in row order (warp ballots),
+then one thread a side of a survivor (src or dst) loads what it will add
+to, writes the placement (survivors touch distinct partitions, so it
+never races) and its integer counts with atomics (their sums do not
+depend on order), and puts its row and event in its broker's slot; after
+a grid barrier each side reads the other slot of its broker, and the
+broker's first event adds both events, and on a host of one broker the
+host's load, in the reference's order; the reader of a slot clears it.
+(Where a host holds several brokers, its first event walks them, and the
+slots are reset after a second barrier.)  So the card's aggregates are
+bit for bit the plain version's, run after run, and a seed gives one
+trajectory.  It relies on each broker being the src of at most one
+surviving row and the dst of at most one, which `select_survivors`
+guarantees.
 
 The plain version mirrors the reference's scatter order exactly: all src
 subtractions in row order, then all dst additions, relocations before
-leadership transfers (`index_add_` on the CPU adds in index order).
+leadership transfers (`index_add_` on the CPU adds in index order).  Like
+the kernel, it drops what lies out of range: a row whose src or dst broker
+is out of range adds nothing, and a replica, topic, partition, disk or
+host id out of range drops its own write or add.
 """
 
 from __future__ import annotations
@@ -39,21 +51,39 @@ from cruise_control_tpu_torch.kernels import _build
 
 _DISK = int(Resource.DISK)
 _FN = None
+#: words of 32 rows one block takes: it lists the survivors of its slice
+#: of the rows in shared memory (384 bytes a word), within the 227 KB a
+#: block may use
+_MAX_WORDS_PER_BLOCK = (226 * 1024) // 384
 
 #: payload fields of a relocation row and of a leadership row
 REL_FIELDS = ("r", "src", "dst", "d_src", "d_dst", "load", "is_lead", "pot", "lbin", "topic", "part")
 LEAD_FIELDS = ("rf", "rt", "src_b", "dst_b", "dl_f", "dl_t", "dlbin_src", "dlbin_dst", "d_f", "d_t")
 
 
+def _within(x: torch.Tensor, n: int) -> torch.Tensor:
+    return (x >= 0) & (x < n)
+
+
+def _add(t: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ok: torch.Tensor) -> None:
+    """t.index_add_ of the rows where ok holds (the kernel drops the rest)."""
+    t.index_add_(0, idx[ok], vals[ok])
+
+
 def apply_plain(sx, carry, sv_r, payr, sv_l, payl) -> None:
     st = sx.state
     s = st.shape
-    B, D, nr = s.B, s.max_disks_per_broker, s.num_racks
+    B, D, H, R, nr = s.B, s.max_disks_per_broker, s.num_hosts, s.R, s.num_racks
     i = torch.nonzero(sv_r).squeeze(1)
-    r, src, dst = payr["r"][i].long(), payr["src"][i].long(), payr["dst"][i].long()
+    r = payr["r"][i].long()
+    placed = _within(r, R)
+    carry.replica_broker[r[placed]] = payr["dst"][i][placed]
+    carry.replica_disk[r[placed]] = payr["d_dst"][i][placed]
+    # a row with a src or dst broker out of range adds nothing (its
+    # placement write above stays)
+    i = i[_within(payr["src"][i], B) & _within(payr["dst"][i], B)]
+    src, dst = payr["src"][i].long(), payr["dst"][i].long()
     load = payr["load"][i]
-    carry.replica_broker[r] = payr["dst"][i]
-    carry.replica_disk[r] = payr["d_dst"][i]
     ones = torch.ones(i.shape[0], dtype=torch.int32, device=load.device)
     carry.broker_load.index_add_(0, src, -load).index_add_(0, dst, load)
     carry.broker_replica_count.index_add_(0, src, -ones).index_add_(0, dst, ones)
@@ -65,21 +95,26 @@ def apply_plain(sx, carry, sv_r, payr, sv_l, payl) -> None:
     carry.broker_leader_bytes_in.index_add_(0, src, -lbin).index_add_(0, dst, lbin)
     t = payr["topic"][i].long()
     tc = carry.broker_topic_count.view(-1)
-    tc.index_add_(0, t * B + src, -ones).index_add_(0, t * B + dst, ones)
+    _add(tc, t * B + src, -ones, _within(t, s.num_topics))
+    _add(tc, t * B + dst, ones, _within(t, s.num_topics))
     p = payr["part"][i].long()
     prc = carry.part_rack_count.view(-1)
-    prc.index_add_(0, p * nr + st.broker_rack[src].long(), -ones)
-    prc.index_add_(0, p * nr + st.broker_rack[dst].long(), ones)
+    _add(prc, p * nr + st.broker_rack[src].long(), -ones, _within(p, s.P))
+    _add(prc, p * nr + st.broker_rack[dst].long(), ones, _within(p, s.P))
     ddisk = load[:, _DISK]
     dl = carry.disk_load.view(-1)
-    dl.index_add_(0, src * D + payr["d_src"][i].long(), -ddisk)
-    dl.index_add_(0, dst * D + payr["d_dst"][i].long(), ddisk)
-    carry.host_load.index_add_(0, st.broker_host[src].long(), -load)
-    carry.host_load.index_add_(0, st.broker_host[dst].long(), load)
+    d_src, d_dst = payr["d_src"][i].long(), payr["d_dst"][i].long()
+    _add(dl, src * D + d_src, -ddisk, _within(d_src, D))
+    _add(dl, dst * D + d_dst, ddisk, _within(d_dst, D))
+    h_src, h_dst = st.broker_host[src].long(), st.broker_host[dst].long()
+    _add(carry.host_load, h_src, -load, _within(h_src, H))
+    _add(carry.host_load, h_dst, load, _within(h_dst, H))
 
     j = torch.nonzero(sv_l).squeeze(1)
-    carry.replica_is_leader[payl["rf"][j].long()] = False
-    carry.replica_is_leader[payl["rt"][j].long()] = True
+    rf, rt = payl["rf"][j].long(), payl["rt"][j].long()
+    carry.replica_is_leader[rf[_within(rf, R)]] = False
+    carry.replica_is_leader[rt[_within(rt, R)]] = True
+    j = j[_within(payl["src_b"][j], B) & _within(payl["dst_b"][j], B)]
     sl, tl = payl["src_b"][j].long(), payl["dst_b"][j].long()
     dl_f, dl_t = payl["dl_f"][j], payl["dl_t"][j]
     carry.broker_load.index_add_(0, sl, dl_f).index_add_(0, tl, dl_t)
@@ -87,10 +122,12 @@ def apply_plain(sx, carry, sv_r, payr, sv_l, payl) -> None:
     carry.broker_leader_count.index_add_(0, sl, -ones_l).index_add_(0, tl, ones_l)
     carry.broker_leader_bytes_in.index_add_(0, sl, -payl["dlbin_src"][j])
     carry.broker_leader_bytes_in.index_add_(0, tl, payl["dlbin_dst"][j])
-    dl.index_add_(0, sl * D + payl["d_f"][j].long(), dl_f[:, _DISK])
-    dl.index_add_(0, tl * D + payl["d_t"][j].long(), dl_t[:, _DISK])
-    carry.host_load.index_add_(0, st.broker_host[sl].long(), dl_f)
-    carry.host_load.index_add_(0, st.broker_host[tl].long(), dl_t)
+    d_f, d_t = payl["d_f"][j].long(), payl["d_t"][j].long()
+    _add(dl, sl * D + d_f, dl_f[:, _DISK], _within(d_f, D))
+    _add(dl, tl * D + d_t, dl_t[:, _DISK], _within(d_t, D))
+    h_f, h_t = st.broker_host[sl].long(), st.broker_host[tl].long()
+    _add(carry.host_load, h_f, dl_f, _within(h_f, H))
+    _add(carry.host_load, h_t, dl_t, _within(h_t, H))
 
 
 class _Dims(ctypes.Structure):
@@ -110,7 +147,8 @@ class _LeadRows(ctypes.Structure):
 
 
 class _Owners(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_void_p) for f in ("host_brokers", "host_start", "slots")]
+    _fields_ = [(f, ctypes.c_void_p) for f in ("host_brokers", "host_start", "slots", "events")] + [
+        ("shared_hosts", ctypes.c_int)]
 
 
 class _Carry(ctypes.Structure):
@@ -125,7 +163,7 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("apply").cc_apply_moves
-        fn.argtypes = [_Dims, _RelRows, _LeadRows, _Carry, _Owners, ctypes.c_void_p]
+        fn.argtypes = [_Dims, _RelRows, _LeadRows, _Carry, _Owners, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -141,8 +179,10 @@ def _need(name, t, dtype, shape):
 
 
 def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
-    # payload columns often arrive as strided views of [K, 4] rows; the
-    # contiguous copies must outlive the launch, so keep them referenced
+    # the candidates kernel's buffers are contiguous, so on the engine's
+    # path these are the tensors themselves; a strided view (a plain
+    # bundle's column of [K, 4] rows) is copied, and the copy must outlive
+    # the launch, so it stays referenced
     payr = {f: payr[f].contiguous() for f in REL_FIELDS}
     payl = {f: payl[f].contiguous() for f in LEAD_FIELDS}
     sv_r, sv_l = sv_r.contiguous(), sv_l.contiguous()
@@ -187,12 +227,19 @@ def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
         host_brokers=_need("host_brokers", sx.host_brokers, i32, (B,)),
         host_start=_need("host_start", sx.host_start, i32, (H + 2,)),
         slots=_need("apply_slots", sx.apply_slots, i32, (2, B)),
+        events=_need("apply_events", sx.apply_events, f32, (2, B, 8)),
+        shared_hosts=int(sx.shared_hosts),
     )
     dims = _Dims(n_rel, n_lead, R, B, T, P, s.num_racks, D, H)
     if n_rel + n_lead == 0:
         return
+    n_sm = torch.cuda.get_device_properties(sv_r.device).multi_processor_count
+    max_rows = _MAX_WORDS_PER_BLOCK * 32 * n_sm
+    if n_rel + n_lead > max_rows:
+        raise ValueError(f"apply_moves: {n_rel + n_lead} rows, the kernel takes at most {max_rows} "
+                         "(a block lists its slice's survivors in shared memory)")
     stream = torch.cuda.current_stream(sv_r.device).cuda_stream
-    status = _fn()(dims, rel, lead, c, owners, stream)
+    status = _fn()(dims, rel, lead, c, owners, n_sm, stream)
     _build.check(status, "apply_moves")
     kernels.LAUNCHES["apply_moves"] += 1
 

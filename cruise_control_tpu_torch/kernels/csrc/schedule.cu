@@ -1,25 +1,35 @@
 // round_schedule: the scalar logic of the fused anneal's round loop, and
-// the CUDA graph that runs one round behind device-side conditionals.
+// the CUDA graph that runs the whole anneal behind device-side conditionals.
 //
 // Replaces (cruise_control_tpu/analyzer/engine.py): `_schedule_init`'s t0
 // (:2931) and the scalar part of `_fused_round_step` (:2941-3060): the
 // early-stop gate, the bounded full-chain checks (`checks_left`), `done`,
 // the polish test `full_v > prev_v * 0.9`, the round's temperature `t_r`
 // and the per-round ys (accepted, ran, stopped, temperature, cheap).  The
-// `lax.cond`s around the full-chain check and around the round body
-// become CUDA conditional IF nodes whose flags this kernel sets
-// (cudaGraphSetConditional), so a masked round costs three one-thread
-// launches and nothing else.
+// reference's `lax.scan` over all rounds becomes a conditional WHILE node,
+// and its `lax.cond`s around the full-chain check and around the round body
+// become conditional IF nodes inside it, whose flags this kernel sets
+// (cudaGraphSetConditional).
 //
 // What bounds it on this card: latency (one thread, a few dozen scalars).
+// The first design launched a graph of one round once per scheduled round
+// (num_rounds + max_extra_rounds, 16 at the north star): each launch cost
+// the host 0.16-0.45 ms, and the rounds after an early stop still ran as
+// masked rounds (three one-thread launches behind two IF nodes each).
 //
-// The round graph (cc_round_graph_build), on the engine's captured graphs:
-//   K4(gate) -> IF(need_full){ eval } -> K4(decide) -> IF(run){ body [, obj] }
-//   -> K4(close)
-// `eval` writes full_v, `body` (the round's steps and the round prep)
-// writes the round's accepted count and cheap signal, `obj` (verbose runs)
-// the round's full objective.  The host launches the instantiated graph
-// once per scheduled round and reads nothing until the run's one sync.
+// The loop graph (cc_loop_graph_build), on the engine's captured graphs:
+//   child(init) -> WHILE(loop) { K4(gate) -> IF(need_full){ eval }
+//     -> K4(decide) -> IF(run){ body [, obj] } -> K4(close) } -> K4(exit)
+// `init` seeds the carry and the schedule, `eval` writes full_v, `body`
+// (the round's steps and the round prep) writes the round's accepted
+// count and cheap signal, `obj` (verbose runs) the round's full
+// objective.  CLOSE sets the loop's flag to !done && rnd + 1 < total, so
+// the loop leaves right after the round that stops the run; EXIT then
+// writes the ys rows of the rounds it never reached, and the state, as
+// the masked rounds of the reference's scan would have left them.  The
+// host launches the graph once a run and reads nothing until its one sync.
+// Conditional nodes nested in a WHILE body need CUDA 12.4 or later, in
+// the runtime and in the driver (checked before the graph is built).
 #include "common.cuh"
 
 // indices into the int state (kernels/schedule.py)
@@ -32,6 +42,7 @@
 #define S_MAIN_STOP 6
 #define S_MAIN_GATE 7
 #define S_EXTRA_GATE 8
+#define S_LOOP 9
 // indices into the float state
 #define F_T0 0
 #define F_TR 1
@@ -54,6 +65,10 @@
 #define PHASE_GATE 1
 #define PHASE_DECIDE 2
 #define PHASE_CLOSE 3
+#define PHASE_EXIT 4
+// counters (kernels/schedule.py): loop iterations run, of which masked
+#define C_ITERS 0
+#define C_MASKED 1
 
 struct SchedPtrs {
   int* si;                 // int state
@@ -61,12 +76,32 @@ struct SchedPtrs {
   long long* acc;          // the round's accepted count
   const float* decay_pow;  // f32[total]: decay ** round, as the plain version computes it
   double* ys;              // f64[total, Y_COLS]
+  int* count;              // i32[2]: rounds the loop ran, of which masked (done or past total)
 };
 
 struct SchedDims {
   int n_main, total, tol_on, checks, verbose;
   float tol, scale;
 };
+
+// The temperature DECIDE gives round rnd: 0 on the last main round and on
+// polish rounds (every round past total is one), else t0 * decay ** rnd.
+__device__ __forceinline__ float round_temperature(const SchedPtrs& p, const SchedDims& d, int rnd) {
+  const bool cold = rnd >= d.n_main || rnd == d.n_main - 1;
+  return cold ? 0.0f : __fmul_rn(p.sf[F_T0], p.decay_pow[rnd]);
+}
+
+// The ys row of a round that does not run and checks nothing.
+__device__ __forceinline__ void masked_row(const SchedPtrs& p, const SchedDims& d, int rnd) {
+  double* y = p.ys + (size_t)rnd * Y_COLS;
+  y[Y_ACC] = 0.0;
+  y[Y_RAN] = 0.0;
+  y[Y_STOPPED] = 0.0;
+  y[Y_TEMP] = round_temperature(p, d, rnd);
+  y[Y_CHEAP] = __int_as_float(0x7f800000);
+  y[Y_FULL] = 0.0;
+  y[Y_OBJ] = __int_as_float(0x7fffffff);
+}
 
 __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int has_handle,
                                       cudaGraphConditionalHandle handle) {
@@ -78,16 +113,40 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
     si[S_DONE] = 0;
     si[S_CHECKS] = d.checks;
     si[S_HAS_PREV] = 0;
+    si[S_LOOP] = 1;
     sf[F_CHEAP_PREV] = inf;
     sf[F_PREV_V] = inf;
     sf[F_T0] = __fmul_rn(sf[F_OBJ], d.scale);
+    p.count[C_ITERS] = 0;
+    p.count[C_MASKED] = 0;
     return;
   }
   const int rnd = si[S_RND];
   const bool in_range = rnd < d.total;
+  if (phase == PHASE_EXIT) {
+    // the rounds the loop never reached, as masked rounds leave them: their
+    // ys rows, and the state after the last of them
+    if (!in_range) return;
+    for (int r = rnd; r < d.total; ++r) masked_row(p, d, r);
+    si[S_MAIN_GATE] = 0;
+    si[S_EXTRA_GATE] = 0;
+    si[S_NEED_FULL] = 0;
+    si[S_RUN] = 0;
+    si[S_MAIN_STOP] = 0;
+    sf[F_FULL_V] = inf;
+    sf[F_TR] = round_temperature(p, d, d.total - 1);
+    p.acc[0] = 0;
+    sf[F_CHEAP] = inf;
+    sf[F_OBJ] = __int_as_float(0x7fffffff);
+    sf[F_CHEAP_PREV] = inf;
+    si[S_RND] = d.total;
+    return;
+  }
   const bool active = !si[S_DONE] && in_range;
   const bool is_extra = rnd >= d.n_main;
   if (phase == PHASE_GATE) {
+    p.count[C_ITERS] += 1;
+    if (!active) p.count[C_MASKED] += 1;
     const bool main_gate = d.tol_on && active && !is_extra && rnd > 0 && si[S_CHECKS] > 0 &&
                            sf[F_CHEAP_PREV] <= d.tol;
     const bool extra_gate = d.tol_on && active && is_extra;
@@ -117,8 +176,7 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
     }
     si[S_RUN] = run;
     si[S_MAIN_STOP] = main_stop;
-    const bool cold = is_extra || rnd == d.n_main - 1;
-    sf[F_TR] = cold ? 0.0f : __fmul_rn(sf[F_T0], p.decay_pow[in_range ? rnd : 0]);
+    sf[F_TR] = round_temperature(p, d, rnd);  // past total: a polish round's 0
     p.acc[0] = 0;
     sf[F_CHEAP] = inf;
     sf[F_OBJ] = __int_as_float(0x7fffffff);  // NaN unless the round runs and reports
@@ -139,6 +197,9 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
   }
   sf[F_CHEAP_PREV] = run ? sf[F_CHEAP] : inf;
   si[S_RND] = rnd + 1;
+  const bool loop = !si[S_DONE] && rnd + 1 < d.total;
+  si[S_LOOP] = loop;
+  if (has_handle) cudaGraphSetConditional(handle, loop ? 1u : 0u);
 }
 
 // One phase outside any graph (the run's init, and checks against the
@@ -160,47 +221,85 @@ static cudaError_t add_phase(cudaGraph_t g, cudaGraphNode_t* node, const cudaGra
   return cudaGraphAddKernelNode(node, g, dep, dep ? 1 : 0, &kp);
 }
 
-// An IF node on `h` after `dep` whose body runs the given graphs in turn
-// (each added as a child graph node, which copies it).
-static cudaError_t add_if(cudaGraph_t g, cudaGraphNode_t* node, const cudaGraphNode_t* dep,
-                          cudaGraphConditionalHandle h, cudaGraph_t* bodies, int n_bodies) {
+// A conditional node of `type` on `h` after `dep` (none if null); its body
+// graph is returned in *body.
+static cudaError_t add_cond(cudaGraph_t g, cudaGraphNode_t* node, const cudaGraphNode_t* dep,
+                            cudaGraphConditionalHandle h, cudaGraphConditionalNodeType type,
+                            cudaGraph_t* body) {
   cudaGraphNodeParams cp = {};
   cp.type = cudaGraphNodeTypeConditional;
   cp.conditional.handle = h;
-  cp.conditional.type = cudaGraphCondTypeIf;
+  cp.conditional.type = type;
   cp.conditional.size = 1;
-  cudaError_t e = cudaGraphAddNode(node, g, dep, 1, &cp);
-  if (e != cudaSuccess) return e;
-  cudaGraph_t body = cp.conditional.phGraph_out[0];
-  cudaGraphNode_t prev = nullptr, child;
-  for (int i = 0; i < n_bodies; ++i) {
-    e = cudaGraphAddChildGraphNode(&child, body, prev ? &prev : nullptr, prev ? 1 : 0, bodies[i]);
+  const cudaError_t e = cudaGraphAddNode(node, g, dep, dep ? 1 : 0, &cp);
+  if (e == cudaSuccess) *body = cp.conditional.phGraph_out[0];
+  return e;
+}
+
+// Child graph nodes running the given graphs in turn after `dep` (each
+// added graph is copied); *last is the last node.
+static cudaError_t add_children(cudaGraph_t g, const cudaGraphNode_t* dep, cudaGraph_t* graphs,
+                                int n, cudaGraphNode_t* last) {
+  cudaGraphNode_t prev = dep ? *dep : nullptr;
+  for (int i = 0; i < n; ++i) {
+    cudaGraphNode_t child;
+    const cudaError_t e =
+        cudaGraphAddChildGraphNode(&child, g, prev ? &prev : nullptr, prev ? 1 : 0, graphs[i]);
     if (e != cudaSuccess) return e;
     prev = child;
   }
+  *last = prev;
   return cudaSuccess;
 }
 
-// The round graph over the captured graphs `eval` and `body` (and `obj`
-// when not null), instantiated into *exec_out; *graph_out keeps the
-// template for cc_round_graph_destroy.
-CC_EXPORT int cc_round_graph_build(void* eval, void* body, void* obj, SchedPtrs p, SchedDims d,
-                                   void** exec_out, void** graph_out) {
+// An IF node on `h` after `dep` whose body runs the given graphs in turn.
+static cudaError_t add_if(cudaGraph_t g, cudaGraphNode_t* node, const cudaGraphNode_t* dep,
+                          cudaGraphConditionalHandle h, cudaGraph_t* bodies, int n_bodies) {
+  cudaGraph_t body;
+  const cudaError_t e = add_cond(g, node, dep, h, cudaGraphCondTypeIf, &body);
+  if (e != cudaSuccess) return e;
+  cudaGraphNode_t last;
+  return add_children(body, nullptr, bodies, n_bodies, &last);
+}
+
+// The CUDA runtime's and the driver's versions (e.g. 12040 for 12.4).
+CC_EXPORT int cc_cuda_versions(int* runtime, int* driver) {
+  const cudaError_t e = cudaRuntimeGetVersion(runtime);
+  const cudaError_t e2 = cudaDriverGetVersion(driver);
+  return (int)(e != cudaSuccess ? e : e2);
+}
+
+// The loop graph over the captured graphs `init` (null: the loop alone,
+// to time an iteration), `eval` and `body` (and `obj` when not null),
+// instantiated into *exec_out; *graph_out keeps the template for
+// cc_loop_graph_destroy.  The loop's handle is set to 1 at every launch.
+CC_EXPORT int cc_loop_graph_build(void* init, void* eval, void* body, void* obj, SchedPtrs p,
+                                  SchedDims d, void** exec_out, void** graph_out) {
   cudaGraph_t g;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return (int)e;
-  cudaGraphConditionalHandle h_full, h_run, none = 0;
-  cudaGraphNode_t gate, if_full, decide, if_run, close;
-  cudaGraph_t run_bodies[2] = {(cudaGraph_t)body, (cudaGraph_t)obj};
-  cudaGraph_t eval_g = (cudaGraph_t)eval;
+  cudaGraphConditionalHandle h_loop, h_full, h_run, none = 0;
+  cudaGraphNode_t start = nullptr, loop, gate, if_full, decide, if_run, close, exit_node;
+  cudaGraph_t loop_body, run_bodies[2] = {(cudaGraph_t)body, (cudaGraph_t)obj};
+  cudaGraph_t init_g = (cudaGraph_t)init, eval_g = (cudaGraph_t)eval;
   do {
-    if ((e = cudaGraphConditionalHandleCreate(&h_full, g, 0, 0)) != cudaSuccess) break;
-    if ((e = cudaGraphConditionalHandleCreate(&h_run, g, 0, 0)) != cudaSuccess) break;
-    if ((e = add_phase(g, &gate, nullptr, PHASE_GATE, &p, &d, 1, &h_full)) != cudaSuccess) break;
-    if ((e = add_if(g, &if_full, &gate, h_full, &eval_g, 1)) != cudaSuccess) break;
-    if ((e = add_phase(g, &decide, &if_full, PHASE_DECIDE, &p, &d, 1, &h_run)) != cudaSuccess) break;
-    if ((e = add_if(g, &if_run, &decide, h_run, run_bodies, obj ? 2 : 1)) != cudaSuccess) break;
-    if ((e = add_phase(g, &close, &if_run, PHASE_CLOSE, &p, &d, 0, &none)) != cudaSuccess) break;
+    if ((e = cudaGraphConditionalHandleCreate(&h_loop, g, 1, cudaGraphCondAssignDefault)) != cudaSuccess)
+      break;
+    if (init_g && (e = add_children(g, nullptr, &init_g, 1, &start)) != cudaSuccess) break;
+    if ((e = add_cond(g, &loop, start ? &start : nullptr, h_loop, cudaGraphCondTypeWhile,
+                      &loop_body)) != cudaSuccess)
+      break;
+    // the IF nodes' handles belong to the graph that holds the nodes
+    if ((e = cudaGraphConditionalHandleCreate(&h_full, loop_body, 0, 0)) != cudaSuccess) break;
+    if ((e = cudaGraphConditionalHandleCreate(&h_run, loop_body, 0, 0)) != cudaSuccess) break;
+    if ((e = add_phase(loop_body, &gate, nullptr, PHASE_GATE, &p, &d, 1, &h_full)) != cudaSuccess) break;
+    if ((e = add_if(loop_body, &if_full, &gate, h_full, &eval_g, 1)) != cudaSuccess) break;
+    if ((e = add_phase(loop_body, &decide, &if_full, PHASE_DECIDE, &p, &d, 1, &h_run)) != cudaSuccess)
+      break;
+    if ((e = add_if(loop_body, &if_run, &decide, h_run, run_bodies, obj ? 2 : 1)) != cudaSuccess) break;
+    if ((e = add_phase(loop_body, &close, &if_run, PHASE_CLOSE, &p, &d, 1, &h_loop)) != cudaSuccess)
+      break;
+    if ((e = add_phase(g, &exit_node, &loop, PHASE_EXIT, &p, &d, 0, &none)) != cudaSuccess) break;
     cudaGraphExec_t ex;
     if ((e = cudaGraphInstantiate(&ex, g, 0)) != cudaSuccess) break;
     *exec_out = (void*)ex;
@@ -211,11 +310,11 @@ CC_EXPORT int cc_round_graph_build(void* eval, void* body, void* obj, SchedPtrs 
   return (int)e;
 }
 
-CC_EXPORT int cc_round_graph_launch(void* exec, void* stream) {
+CC_EXPORT int cc_loop_graph_launch(void* exec, void* stream) {
   return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
 }
 
-CC_EXPORT int cc_round_graph_destroy(void* exec, void* graph) {
+CC_EXPORT int cc_loop_graph_destroy(void* exec, void* graph) {
   cudaError_t e = cudaGraphExecDestroy((cudaGraphExec_t)exec);
   const cudaError_t e2 = cudaGraphDestroy((cudaGraph_t)graph);
   return (int)(e != cudaSuccess ? e : e2);

@@ -4,19 +4,26 @@ Replaces: `_schedule_init`'s t0 and the scalar logic of `_fused_round_step`
 (cruise_control_tpu/analyzer/engine.py:2931, :2941-3060): the early-stop
 gate and the bounded full-chain checks, `done`, the polish-round test
 `full_v > prev_v * 0.9`, the round's temperature and the per-round ys.
-Its `lax.cond`s become CUDA conditional IF nodes (CUDA 12.4 or later) of a
-graph built here around the engine's captured graphs (`RoundGraph`).
+The reference's `lax.scan` over the rounds becomes a conditional WHILE
+node and its `lax.cond`s conditional IF nodes inside it (CUDA 12.4 or
+later), in one graph built here around the engine's captured graphs
+(`LoopGraph`): the host launches it once a run.
 
 Bound on the card: latency — one thread reads and writes a few dozen
-scalars; a masked round is the graph's three one-thread launches.
+scalars; a loop iteration is three one-thread launches around the round's
+conditional bodies.
 
 A round is four phases on one `Schedule`: GATE (is a full-chain check
 due: sets `need_full`), then the check if due (the engine writes `full_v`),
 DECIDE (stop or run; the round's temperature), then the round body if it
 runs (the engine writes the accepted count and the cheap signal, and in a
-verbose run the objective), CLOSE (the round's ys row; the next round).
-INIT seeds the schedule from the initial objective.  `schedule_plain` is
-the same logic on CPU tensors in f32 arithmetic.
+verbose run the objective), CLOSE (the round's ys row; the next round;
+`loop`: whether another round follows, false once the run is done).  INIT
+seeds the schedule from the initial objective; EXIT, after the loop, writes
+the rounds the loop never reached as the reference's masked rounds would
+(their ys rows, and the state after them), so the ys and the final state
+equal those of running every scheduled round.  `schedule_plain` is the same
+logic on CPU tensors in f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -30,10 +37,14 @@ import torch
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.kernels import _build
 
-INIT, GATE, DECIDE, CLOSE = range(4)
+INIT, GATE, DECIDE, CLOSE, EXIT = range(5)
 #: int state (csrc/schedule.cu S_*)
-RND, DONE, CHECKS, HAS_PREV, NEED_FULL, RUN, MAIN_STOP, MAIN_GATE, EXTRA_GATE = range(9)
-N_INT = 9
+RND, DONE, CHECKS, HAS_PREV, NEED_FULL, RUN, MAIN_STOP, MAIN_GATE, EXTRA_GATE, LOOP = range(10)
+N_INT = 10
+#: counters (csrc/schedule.cu C_*): loop iterations run, of which masked
+ITERS, MASKED = range(2)
+#: the CUDA version (runtime and driver) that runs IF nodes inside a WHILE body
+MIN_CUDA = 12040
 #: float state (csrc/schedule.cu F_*)
 T0, T_R, CHEAP_PREV, FULL_V, PREV_V, CHEAP, OBJ = range(7)
 N_FLOAT = 7
@@ -65,6 +76,7 @@ class Schedule:
     acc: torch.Tensor  # i64[1]
     decay_pow: torch.Tensor  # f32[total]
     ys: torch.Tensor  # f64[total, len(YS)]
+    count: torch.Tensor  # i32[2]: loop iterations run, of which masked
 
     @staticmethod
     def create(total: int, decay: float, device) -> "Schedule":
@@ -74,6 +86,7 @@ class Schedule:
             acc=torch.zeros(1, dtype=torch.int64, device=device),
             decay_pow=decay_powers(decay, total).to(device),
             ys=torch.zeros((total, len(YS)), dtype=torch.float64, device=device),
+            count=torch.zeros(2, dtype=torch.int32, device=device),
         )
 
     def value(self, i: int) -> torch.Tensor:
@@ -88,20 +101,50 @@ def decay_powers(decay: float, total: int) -> torch.Tensor:
                      torch.arange(max(total, 1), dtype=torch.float32))
 
 
+def _temperature(s: Schedule, d: ScheduleDims, rnd: int) -> float:
+    """DECIDE's temperature of round rnd: 0 on the last main round and on
+    polish rounds (every round past total is one), else t0 * decay ** rnd."""
+    if rnd >= d.n_main or rnd == d.n_main - 1:
+        return 0.0
+    return float(_F32(s.sf[T0].item()) * _F32(s.decay_pow[rnd].item()))
+
+
+def _masked_row(s: Schedule, d: ScheduleDims, rnd: int) -> list[float]:
+    """The ys row of a round that does not run and checks nothing."""
+    return [0.0, 0.0, 0.0, _temperature(s, d, rnd), float(np.inf), 0.0, _NAN]
+
+
 def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
     """One phase on CPU tensors (the kernel's logic in f32 scalars)."""
     si, sf = s.si, s.sf
     inf = _F32(np.inf)
     if phase == INIT:
-        si[RND], si[DONE], si[CHECKS], si[HAS_PREV] = 0, 0, d.checks, 0
+        si[RND], si[DONE], si[CHECKS], si[HAS_PREV], si[LOOP] = 0, 0, d.checks, 0, 1
         sf[CHEAP_PREV] = sf[PREV_V] = float(inf)
         sf[T0] = float(_F32(sf[OBJ].item()) * _F32(d.scale))
+        s.count.zero_()
         return
     rnd = int(si[RND])
     in_range = rnd < d.total
+    if phase == EXIT:
+        if not in_range:
+            return
+        s.ys[rnd:] = torch.tensor([_masked_row(s, d, r) for r in range(rnd, d.total)],
+                                  dtype=torch.float64)
+        for i in (MAIN_GATE, EXTRA_GATE, NEED_FULL, RUN, MAIN_STOP):
+            si[i] = 0
+        sf[FULL_V] = sf[CHEAP] = sf[CHEAP_PREV] = float(inf)
+        sf[T_R] = _temperature(s, d, d.total - 1)
+        s.acc.zero_()
+        sf[OBJ] = _NAN
+        si[RND] = d.total
+        return
     active = not si[DONE] and in_range
     is_extra = rnd >= d.n_main
     if phase == GATE:
+        s.count[ITERS] += 1
+        if not active:
+            s.count[MASKED] += 1
         main_gate = (d.tol_on and active and not is_extra and rnd > 0 and int(si[CHECKS]) > 0
                      and _F32(sf[CHEAP_PREV].item()) <= _F32(d.tol))
         extra_gate = d.tol_on and active and is_extra
@@ -129,9 +172,7 @@ def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
                 sf[PREV_V] = float(full_v)
                 si[HAS_PREV] = 1
         si[RUN], si[MAIN_STOP] = int(run), int(main_stop)
-        cold = is_extra or rnd == d.n_main - 1
-        pw = _F32(s.decay_pow[rnd if in_range else 0].item())
-        sf[T_R] = 0.0 if cold else float(_F32(sf[T0].item()) * pw)
+        sf[T_R] = _temperature(s, d, rnd)
         s.acc.zero_()
         sf[CHEAP] = float(inf)
         sf[OBJ] = _NAN
@@ -145,10 +186,11 @@ def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
         ], dtype=torch.float64)
     sf[CHEAP_PREV] = float(sf[CHEAP]) if run else float(inf)
     si[RND] = rnd + 1
+    si[LOOP] = int(not si[DONE] and rnd + 1 < d.total)
 
 
 class _Ptrs(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_void_p) for f in ("si", "sf", "acc", "decay_pow", "ys")]
+    _fields_ = [(f, ctypes.c_void_p) for f in ("si", "sf", "acc", "decay_pow", "ys", "count")]
 
 
 class _Dims(ctypes.Structure):
@@ -172,12 +214,12 @@ def _c(s: Schedule, d: ScheduleDims) -> tuple[_Ptrs, _Dims]:
     for name, t, dtype, shape in (
         ("si", s.si, torch.int32, (N_INT,)), ("sf", s.sf, torch.float32, (N_FLOAT,)),
         ("acc", s.acc, torch.int64, (1,)), ("decay_pow", s.decay_pow, torch.float32, (total,)),
-        ("ys", s.ys, torch.float64, (total, len(YS))),
+        ("ys", s.ys, torch.float64, (total, len(YS))), ("count", s.count, torch.int32, (2,)),
     ):
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"round_schedule: {name} must be contiguous {dtype}{list(shape)}")
     ptrs = _Ptrs(si=s.si.data_ptr(), sf=s.sf.data_ptr(), acc=s.acc.data_ptr(),
-                 decay_pow=s.decay_pow.data_ptr(), ys=s.ys.data_ptr())
+                 decay_pow=s.decay_pow.data_ptr(), ys=s.ys.data_ptr(), count=s.count.data_ptr())
     dims = _Dims(d.n_main, d.total, int(d.tol_on), d.checks, int(d.verbose), d.tol, d.scale)
     return ptrs, dims
 
@@ -208,31 +250,53 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> tuple[int, int]:
     return n.value, k.value
 
 
-class RoundGraph:
-    """One round of the fused schedule as an instantiated CUDA graph:
-    GATE -> IF(need_full){eval} -> DECIDE -> IF(run){body [, obj]} -> CLOSE,
-    over the captured graphs `eval`, `body` and `obj` (which must outlive
-    it: their memory pools hold the buffers the nodes use)."""
+def cuda_versions() -> tuple[int, int]:
+    """(runtime, driver) CUDA versions, e.g. 12040 for 12.4."""
+    fn = _lib_fn("cc_cuda_versions", [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+    rt, dv = ctypes.c_int(), ctypes.c_int()
+    _build.check(fn(ctypes.byref(rt), ctypes.byref(dv)), "cudaRuntimeGetVersion")
+    return rt.value, dv.value
 
-    def __init__(self, s: Schedule, d: ScheduleDims, eval_graph, body_graph, obj_graph=None):
+
+class LoopGraph:
+    """The whole fused schedule as one instantiated CUDA graph:
+    child(init) -> WHILE(loop){GATE -> IF(need_full){eval} -> DECIDE ->
+    IF(run){body [, obj]} -> CLOSE} -> EXIT, over the captured graphs
+    `init`, `eval`, `body` and `obj` (which must outlive it: their memory
+    pools hold the buffers the nodes use).  Without `init` it is the loop
+    alone, which on a finished run times one masked iteration."""
+
+    def __init__(self, s: Schedule, d: ScheduleDims, init_graph, eval_graph, body_graph,
+                 obj_graph=None):
+        rt, dv = cuda_versions()
+        if min(rt, dv) < MIN_CUDA:
+            raise RuntimeError(
+                f"the fused route's loop graph nests conditional IF nodes in a WHILE node, which "
+                f"needs CUDA 12.4 or later in the runtime and the driver; found runtime {rt}, "
+                f"driver {dv}"
+            )
         self._ptrs, self._dims = _c(s, d)
-        fn = _lib_fn("cc_round_graph_build", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                              _Ptrs, _Dims, ctypes.POINTER(ctypes.c_void_p),
-                                              ctypes.POINTER(ctypes.c_void_p)])
+        fn = _lib_fn("cc_loop_graph_build", [ctypes.c_void_p] * 4 + [
+            _Ptrs, _Dims, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p)])
         self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
-        status = fn(eval_graph.raw_cuda_graph(), body_graph.raw_cuda_graph(),
-                    obj_graph.raw_cuda_graph() if obj_graph is not None else None,
+
+        def raw(g):
+            return g.raw_cuda_graph() if g is not None else None
+
+        status = fn(raw(init_graph), raw(eval_graph), raw(body_graph), raw(obj_graph),
                     self._ptrs, self._dims, ctypes.byref(self._exec), ctypes.byref(self._graph))
-        _build.check(status, "round graph build")
-        self._keep = (s, eval_graph, body_graph, obj_graph)
+        _build.check(status, "loop graph build")
+        self._keep = (s, init_graph, eval_graph, body_graph, obj_graph)
+        self.launches = 0
 
     def launch(self, stream: int) -> None:
-        fn = _lib_fn("cc_round_graph_launch", [ctypes.c_void_p, ctypes.c_void_p])
-        _build.check(fn(self._exec, stream), "round graph launch")
+        fn = _lib_fn("cc_loop_graph_launch", [ctypes.c_void_p, ctypes.c_void_p])
+        _build.check(fn(self._exec, stream), "loop graph launch")
+        self.launches += 1
 
     def close(self) -> None:
         if self._exec:
-            fn = _lib_fn("cc_round_graph_destroy", [ctypes.c_void_p, ctypes.c_void_p])
-            _build.check(fn(self._exec, self._graph), "round graph destroy")
+            fn = _lib_fn("cc_loop_graph_destroy", [ctypes.c_void_p, ctypes.c_void_p])
+            _build.check(fn(self._exec, self._graph), "loop graph destroy")
             self._exec = ctypes.c_void_p()
             self._keep = None

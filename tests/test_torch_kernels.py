@@ -7,7 +7,12 @@ Bars: threefry draws bit-exact; select_survivors' survivors, relocation
 mask and survivor count exact (fresh, over successive epochs of one buffer
 and replayed from a captured graph); step_globals within rtol 1e-6 and the
 same bits call after call; apply_moves bit for bit (it adds in the
-reference's order); move_delta within 1e-4 relative
+reference's order), with every slot back at -1 after a call, on a real
+step, hand-built survivor sets (none, all on one shared host, brokers with
+no host, one broker a host, ids out of range) and a captured graph's
+replays; round_schedule's phases exact against the plain version, EXIT
+included; the loop graph's ys bytes, final carry and counted launches
+equal to the same schedule run round by round on the card; move_delta within 1e-4 relative
 plus 1e-6 of the batch's largest delta (the kernel divides where PyTorch's
 CUDA ops multiply by reciprocals of scalars, and each delta is a
 difference of lane sums); the candidates kernel's ids, masks and payload
@@ -15,6 +20,9 @@ rows exact, its deltas within move_delta's bar, and its acceptance
 identical except where the plain delta lies within that bar of the
 Metropolis threshold.
 """
+
+import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -232,6 +240,177 @@ def test_apply_bitwise_on_collisions(cuda, seed):
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             assert torch.equal(a, b), f
+
+
+def _apply_rows(state, survivors: list, seed: int, n_rel: int = 12, n_lead: int = 6,
+                bad_rows: bool = False):
+    """A survivor set for apply_moves on `state`, numpy arrays as
+    `apply_collision_case` gives them: the (src, dst) pairs `survivors`
+    (the first n_rel // 2 relocation rows, the rest leadership rows) at
+    random positions among rows that do not survive, distinct replicas,
+    and loads and float aggregates from 1e-2 to 1e8.  With `bad_rows`,
+    surviving rows whose ids lie out of range: a src or a dst broker, a
+    replica, topic, partition or disk.  Each broker must be the src of at
+    most one pair and the dst of at most one, as select_survivors
+    guarantees."""
+    rng = np.random.default_rng(seed)
+    s = state.shape
+    B, D, H, R, T, P = s.B, s.max_disks_per_broker, s.num_hosts, s.R, s.num_topics, s.P
+
+    def mixed(*shape):
+        return (10.0 ** rng.uniform(-2.0, 8.0, shape)).astype(np.float32)
+
+    i32 = np.int32
+    payr = dict(r=rng.integers(0, R, n_rel, dtype=i32), src=rng.integers(0, B, n_rel, dtype=i32),
+                dst=rng.integers(0, B, n_rel, dtype=i32), d_src=rng.integers(0, D, n_rel, dtype=i32),
+                d_dst=rng.integers(0, D, n_rel, dtype=i32), load=mixed(n_rel, 4),
+                is_lead=rng.random(n_rel) < 0.5, pot=mixed(n_rel), lbin=mixed(n_rel),
+                topic=rng.integers(0, T, n_rel, dtype=i32), part=rng.integers(0, P, n_rel, dtype=i32))
+    payl = dict(rf=rng.integers(0, R, n_lead, dtype=i32), rt=rng.integers(0, R, n_lead, dtype=i32),
+                src_b=rng.integers(0, B, n_lead, dtype=i32), dst_b=rng.integers(0, B, n_lead, dtype=i32),
+                dl_f=-mixed(n_lead, 4), dl_t=mixed(n_lead, 4), dlbin_src=mixed(n_lead),
+                dlbin_dst=mixed(n_lead), d_f=rng.integers(0, D, n_lead, dtype=i32),
+                d_t=rng.integers(0, D, n_lead, dtype=i32))
+    sv_r, sv_l = np.zeros(n_rel, bool), np.zeros(n_lead, bool)
+    k_r = min(len(survivors) // 2 + len(survivors) % 2, n_rel // 2)
+    rel_rows = np.sort(rng.choice(n_rel, k_r, replace=False))
+    lead_rows = np.sort(rng.choice(n_lead, len(survivors) - k_r, replace=False))
+    for row, (a, b) in zip(rel_rows, survivors[:k_r]):
+        payr["src"][row], payr["dst"][row], sv_r[row] = a, b, True
+    for row, (a, b) in zip(lead_rows, survivors[k_r:]):
+        payl["src_b"][row], payl["dst_b"][row], sv_l[row] = a, b, True
+    bad_r = bad_l = []
+    if bad_rows:
+        bad_r = [x for x in range(n_rel) if not sv_r[x]][:3]
+        bad_l = [x for x in range(n_lead) if not sv_l[x]][:2]
+        sv_r[bad_r], sv_l[bad_l] = True, True
+        # a src out of range, a dst out of range, and in-range brokers no
+        # survivor uses with every other id out of range
+        payr["src"][bad_r[0]], payr["dst"][bad_r[1]] = B, -1
+        used = {x for pair in survivors for x in pair}
+        spare = [x for x in range(B) if x not in used][:2]
+        payr["src"][bad_r[2]], payr["dst"][bad_r[2]] = spare
+        payr["topic"][bad_r[2]], payr["part"][bad_r[2]] = T, P
+        payr["d_src"][bad_r[2]], payr["d_dst"][bad_r[2]] = D, -1
+        payl["src_b"][bad_l[0]], payl["dst_b"][bad_l[0]] = spare[1], spare[0]
+        payl["d_f"][bad_l[0]], payl["d_t"][bad_l[0]] = -1, D
+        payl["src_b"][bad_l[1]] = B + 3
+    # survivors move distinct replicas (they touch distinct partitions)
+    reps = iter(rng.permutation(R).astype(i32))
+    for row in np.nonzero(sv_r)[0]:
+        payr["r"][row] = next(reps)
+    for row in np.nonzero(sv_l)[0]:
+        payl["rf"][row], payl["rt"][row] = next(reps), next(reps)
+    if bad_rows:
+        payr["r"][bad_r[2]] = R
+        payl["rf"][bad_l[0]], payl["rt"][bad_l[0]] = -1, R
+    aggregates = dict(
+        broker_load=mixed(B, 4), broker_potential_nw_out=mixed(B), broker_leader_bytes_in=mixed(B),
+        disk_load=mixed(B, D), host_load=mixed(H, 4),
+    )
+    return sv_r, payr, sv_l, payl, aggregates
+
+
+def _cycle(brokers) -> list:
+    """(src, dst) pairs moving each broker's row to the next broker."""
+    return [(int(a), int(b)) for a, b in zip(brokers, np.roll(brokers, -1))]
+
+
+def _apply_state(kind: str, device):
+    if kind == "host_per_broker":
+        return random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0),
+                              seed=2, device=device)
+    state = collision_cluster(device)
+    if kind == "no_host":
+        # brokers 3 and 5 have no host in range, as padding brokers may (the
+        # statics' sentinel group; a valid broker always has a host)
+        host, valid = state.broker_host.clone(), state.broker_valid.clone()
+        host[[3, 5]] = state.shape.num_hosts
+        valid[[3, 5]] = False
+        state = dataclasses.replace(state, broker_host=host, broker_valid=valid)
+    return state
+
+
+#: apply_moves' cases: the state and the survivors' (src, dst) pairs
+APPLY_CASES = {
+    "zero_survivors": ("collision", []),
+    # brokers 0, 1, 2 and 8 share host h0
+    "one_host": ("collision", _cycle([0, 1, 2, 8])),
+    "no_host": ("no_host", _cycle([3, 0, 5]) + _cycle([4, 9])),
+    "host_per_broker": ("host_per_broker", _cycle([3, 17, 5, 0, 11, 8, 2])),
+    "out_of_range": ("collision", _cycle([0, 6, 1, 7])),
+}
+
+
+def _apply_on_both(state_kind: str, cuda, case, graph_cases=()):
+    """apply_moves on the card (once, or captured in a CUDA graph and
+    replayed on each of `graph_cases` in turn) and apply_plain on the CPU
+    from the same carry: every carry field bit for bit, the slots back at
+    -1 and one launch a call."""
+    sx = Engine(_apply_state(state_kind, cuda), DEFAULT_CHAIN, config=CFG).statics
+    sx_cpu = Engine(_apply_state(state_kind, "cpu"), DEFAULT_CHAIN, config=CFG).statics
+    sv_r, payr, sv_l, payl, agg = case
+    carry = Engine(sx.state, DEFAULT_CHAIN, config=CFG).init_carry(Key.from_seed(0))
+    for f, a in agg.items():
+        setattr(carry, f, torch.from_numpy(a.copy()).to(cuda))
+    want = carry.clone()
+    for f in _tensor_fields(want):
+        setattr(want, f, getattr(want, f).cpu())
+    inputs = _case(sv_r, payr, sv_l, payl, cuda)
+    before = kernels.LAUNCHES["apply_moves"]
+    if not graph_cases:
+        apply_k.apply_plain(sx_cpu, want, *_case(sv_r, payr, sv_l, payl, "cpu"))
+        apply_k.apply_moves(sx, carry, *inputs)
+        assert kernels.LAUNCHES["apply_moves"] == before + 1
+    else:
+        apply_k.apply_moves(sx, carry.clone(), *inputs)  # loads the kernel outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            apply_k.apply_moves(sx, carry, *inputs)
+        for c in graph_cases:
+            sv_r, payr, sv_l, payl, _ = c
+            for t, a in zip(_flat(inputs), _flat(_case(sv_r, payr, sv_l, payl, cuda))):
+                t.copy_(a)
+            graph.replay()
+            apply_k.apply_plain(sx_cpu, want, *_case(sv_r, payr, sv_l, payl, "cpu"))
+    torch.cuda.synchronize()
+    for f in _tensor_fields(want):
+        a, b = getattr(carry, f).cpu(), getattr(want, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+    assert torch.equal(sx.apply_slots, torch.full_like(sx.apply_slots, -1))
+
+
+def _flat(case) -> list:
+    sv_r, payr, sv_l, payl = case
+    return [sv_r, *payr.values(), sv_l, *payl.values()]
+
+
+@pytest.mark.parametrize("name", APPLY_CASES)
+def test_apply_cases_bitwise(cuda, name):
+    """Zero survivors (nothing changes, every slot back at -1), all
+    survivors on one host of four brokers, brokers with no host in range,
+    one broker a host (H == B), and surviving rows with ids out of range:
+    the card's carry equals the plain version's on the CPU bit for bit."""
+    state_kind, pairs = APPLY_CASES[name]
+    state = _apply_state(state_kind, "cpu")
+    if name == "host_per_broker":
+        assert state.shape.num_hosts == state.shape.B
+    case = _apply_rows(state, pairs, seed=len(name), bad_rows=name == "out_of_range")
+    if name == "zero_survivors":
+        assert not case[0].any() and not case[2].any()
+    _apply_on_both(state_kind, cuda, case)
+
+
+def test_apply_replays_in_a_captured_graph(cuda):
+    """apply_moves captured in a CUDA graph (the round body's way) and
+    replayed over three survivor sets in turn, each moving the carry the
+    last left: bit for bit the plain version's sequence on the CPU."""
+    state = _apply_state("collision", "cpu")
+    cases = [_apply_rows(state, pairs, seed) for seed, pairs in
+             enumerate((_cycle([0, 1, 2, 8]), _cycle([3, 4, 9, 7]), _cycle([5, 6, 10, 11, 0])))]
+    _apply_on_both("collision", cuda, cases[0], graph_cases=cases)
 
 
 def _tensor_fields(carry) -> list[str]:
@@ -703,3 +882,112 @@ def test_graph_route_matches_legacy_at_t0(cuda):
     assert launches["candidates"] == cfg.steps_per_round * len(rounds) + 1
     assert launches["round_schedule"] >= 3 * (cfg.num_rounds + cfg.extra_round_budget)
     assert eng.graph_stats["captures"][0]["nodes"]["body"][1] > 0
+
+
+def test_round_schedule_exit_matches_plain(cuda):
+    """The loop's phases on the card against the plain version on the CPU,
+    the loop run as the graph runs it (until CLOSE clears `loop`, then
+    EXIT) over scripted stops: in round 1, in the last main round, in a
+    polish round, on a polish stall, and never; every state word, counter
+    and ys row the same (NaN where the plain version has NaN)."""
+    from cruise_control_tpu_torch.kernels import schedule as sk
+
+    tol = float(np.float32(1e-6))
+    big = 1e-2
+    scripts = (
+        ([tol] + [big] * 6, [big, 0.0] + [big] * 5),
+        ([big, big, tol] + [big] * 4, [big, big, big, tol, big, big, big]),
+        ([big] * 7, [big] * 4 + [1e-3, tol, big]),
+        ([big] * 7, [big] * 4 + [1e-3, 9.5e-4, big]),
+        ([big] * 7, [big] * 4 + [1e-3, 5e-4, 2e-4]),
+    )
+    for (cheap, full), verbose, decay in itertools.product(scripts, (False, True), (0.5, 0.7)):
+        dims = sk.ScheduleDims(n_main=4, total=7, tol_on=True, checks=2, verbose=verbose, tol=tol,
+                               scale=float(np.float32(1e-2)))
+        states = []
+        for dev in ("cpu", cuda):
+            s = sk.Schedule.create(7, decay, dev)
+            s.sf[sk.OBJ] = 37.0
+            sk.round_schedule(sk.INIT, s, dims)
+            while True:
+                rnd = int(s.si[sk.RND])
+                sk.round_schedule(sk.GATE, s, dims)
+                if s.si[sk.NEED_FULL]:
+                    s.sf[sk.FULL_V] = full[rnd]
+                sk.round_schedule(sk.DECIDE, s, dims)
+                if s.si[sk.RUN]:
+                    s.acc += 7 + rnd
+                    s.sf[sk.CHEAP] = cheap[rnd]
+                    s.sf[sk.OBJ] = 3.0 / (rnd + 1)
+                sk.round_schedule(sk.CLOSE, s, dims)
+                if not s.si[sk.LOOP]:
+                    break
+            sk.round_schedule(sk.EXIT, s, dims)
+            states.append([t.cpu() for t in (s.si, s.sf, s.acc, s.ys, s.count)])
+        for a, b in zip(*states):
+            assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert int(states[1][4][sk.MASKED]) == 0
+
+
+#: the loop graph's cases on random_cluster(20/400): steps a round,
+#: init_temperature_scale, verbose; 24 steps stop in a main round, 8 in a
+#: polish round (on the CPU's trajectory as on the card's)
+LOOP_CASES = {
+    "main_stop_t0": (24, 0.0, False),
+    "main_stop_hot_verbose": (24, 1e-2, True),
+    "polish_stop_t0_verbose": (8, 0.0, True),
+    "polish_stop_hot": (8, 1e-2, False),
+}
+
+
+@pytest.mark.parametrize("name", LOOP_CASES)
+def test_loop_graph_matches_round_eager(cuda, name):
+    """One launch of the loop graph against the same schedule run round by
+    round on the card (`_round_eager` until CLOSE clears `loop`, then
+    EXIT), from the same workspace: the ys bytes, the final carry and the
+    counted kernel launches are the same; the graph route launched one
+    graph and ran no masked round."""
+    from cruise_control_tpu_torch.kernels import schedule as sk
+
+    steps, scale, verbose = LOOP_CASES[name]
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    cfg = OptimizerConfig(num_candidates=256, leadership_candidates=64, steps_per_round=steps,
+                          num_rounds=6, seed=1, init_temperature_scale=scale)
+    eng = Engine(state, DEFAULT_CHAIN, config=cfg)
+    eng.run(verbose=verbose)  # captures the graphs
+    kernels.reset_launches()
+    final, hist = eng.run(verbose=verbose)
+    torch.cuda.synchronize()
+    graph_launches = dict(kernels.LAUNCHES)
+    ws = eng._ws
+    ys_graph = ws.sched.ys.clone()
+    carry_graph = ws.carry.clone()
+    timing = hist[-1]
+
+    kernels.reset_launches()
+    dims = eng._sched_dims(verbose)
+    eng._init_run(ws, dims)
+    rounds = 0
+    while True:
+        eng._round_eager(ws, dims)
+        rounds += 1
+        if not ws.sched.si[sk.LOOP]:
+            break
+    sk.round_schedule(sk.EXIT, ws.sched, dims)
+    torch.cuda.synchronize()
+    assert torch.equal(ys_graph.view(torch.int64), ws.sched.ys.view(torch.int64))
+    for f in _tensor_fields(carry_graph):
+        a, b = getattr(carry_graph, f), getattr(ws.carry, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+    assert graph_launches == dict(kernels.LAUNCHES)
+    assert timing["graph_launches"] == 1 and timing["blocking_syncs"] == 1
+    assert timing["masked_rounds"] == 0 and timing["loop_iterations"] == rounds
+    recs = [h for h in hist if "round" in h]
+    if name.startswith("main_stop"):
+        assert recs[-1].get("early_stop") is True and not recs[-1].get("extra")
+    else:
+        assert recs[-1].get("extra") is True and rounds < eng._n_rounds()
+    assert ("objective" in recs[0]) == verbose
