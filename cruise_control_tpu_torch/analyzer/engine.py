@@ -53,10 +53,17 @@ to the JAX package's and, on small clusters where float reductions agree,
 so is the whole trajectory (tests/test_torch_optimizer.py,
 tests/test_torch_fused.py).
 
+`intra_broker=True` is the JAX package's rebalance_disk mode: every
+candidate is an intra-broker disk move (the candidates kernel's intra
+kind), with no swaps and no leadership transfers.  `run(initial_placement=)`
+warm-starts the anneal from another placement: the init graph reads the
+start placement from fixed staging tensors that the run fills before its
+launch, so a warm start neither recaptures nor adds a sync.
+
 Not in this port yet (each raises NotImplementedError when configured):
-intra-broker disk moves, the learned move-acceptance prior, convergence
-diagnostics, bf16 scoring; segmented execution, ahead-of-time compilation,
-the streaming cycle and the mesh engines have no entry point here.
+the learned move-acceptance prior, convergence diagnostics, bf16 scoring;
+segmented execution, ahead-of-time compilation, the streaming cycle and
+the mesh engines have no entry point here.
 """
 
 from __future__ import annotations
@@ -106,7 +113,8 @@ class OptimizerConfig:
     #: fraction of replica-move sources importance-sampled from brokers with
     #: the largest objective contribution (the rest uniform)
     importance_fraction: float = 0.5
-    intra_broker: bool = False  # not ported: raises
+    #: rebalance_disk: only intra-broker disk moves (K_r = num_candidates)
+    intra_broker: bool = False
     #: stop once the weighted goal violations fall to this level; <0 disables
     early_stop_violations: float = 1e-6
     #: extra T=0 polish rounds past num_rounds while the full goal chain
@@ -148,7 +156,6 @@ class OptimizerConfig:
         """Raise NotImplementedError for the modes this port lacks."""
         missing = [
             name for name, on in (
-                ("intra_broker", self.intra_broker),
                 ("prior_enabled", self.prior_enabled),
                 ("diagnostics", self.diagnostics),
                 ("score_dtype=bfloat16", self.score_dtype != "float32"),
@@ -232,6 +239,26 @@ class EngineStatics:
     #: refresh's host pass
     host_groups: HostGroups
 
+    def check_placement(self, placement) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A (replica_broker, replica_is_leader, replica_disk) triple of
+        this cluster's shape, dtypes and device, or ValueError."""
+        st = self.state
+        try:
+            rb, il, dk = placement
+        except (TypeError, ValueError):
+            raise ValueError("initial_placement must be a (replica_broker, replica_is_leader, "
+                             "replica_disk) triple") from None
+        for name, t, want in (("replica_broker", rb, st.replica_broker),
+                              ("replica_is_leader", il, st.replica_is_leader),
+                              ("replica_disk", dk, st.replica_disk)):
+            if not isinstance(t, torch.Tensor):
+                raise ValueError(f"initial_placement: {name} must be a tensor, got {type(t).__name__}")
+            if t.dtype != want.dtype or t.shape != want.shape or t.device != want.device:
+                raise ValueError(
+                    f"initial_placement: {name} must be {want.dtype}{list(want.shape)} on "
+                    f"{want.device}, got {t.dtype}{list(t.shape)} on {t.device}")
+        return rb, il, dk
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplingPlan:
@@ -278,7 +305,8 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
     np.add.at(host_cap, host[valid_b & alive], cap[valid_b & alive])
     dmask = h["disk_alive"] & alive[:, None]
     n_valid_int = int(h["replica_valid"].sum())
-    host_group = np.where((host >= 0) & (host < s.num_hosts), host, s.num_hosts)
+    # padding brokers (broker_valid False) hold no replica: no host of theirs
+    host_group = np.where(valid_b & (host >= 0) & (host < s.num_hosts), host, s.num_hosts)
     host_start = np.zeros(s.num_hosts + 2, np.int32)
     host_start[1:] = np.cumsum(np.bincount(host_group, minlength=s.num_hosts + 1))
     front_packed = bool(h["replica_valid"][:n_valid_int].all())
@@ -423,6 +451,10 @@ class _Workspace:
     keys: torch.Tensor  # the run's key table, i32[steps, KEY_WORDS]
     cand: dict | None  # the candidates kernel's outputs (CUDA)
     sel: select_k.SelectBuffers | None  # select_survivors' buffers (CUDA)
+    #: the run's start placement (replica_broker, replica_is_leader,
+    #: replica_disk), which the init reads: the statics' placement on a cold
+    #: start, the caller's on a warm one, copied in before the run
+    start: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     #: captured CUDA graphs by name, their launches per replay, and the
     #: loop graphs by verbose flag
     graphs: dict = dataclasses.field(default_factory=dict)
@@ -461,10 +493,14 @@ class Engine:
         self.shape: ClusterShape = state.shape
         self.device = state.device
         # effective candidate split: leadership + swap carved out of K; swaps
-        # never take more than half the non-leadership budget
-        self.K_l = min(config.leadership_candidates, config.num_candidates - 1)
-        self.K_s = min(config.swap_candidates, max(0, (config.num_candidates - self.K_l) // 2))
-        self.K_r = config.num_candidates - self.K_l - self.K_s
+        # never take more than half the non-leadership budget; disk
+        # rebalancing draws intra-broker disk moves only
+        if config.intra_broker:
+            self.K_l, self.K_s, self.K_r = 0, 0, config.num_candidates
+        else:
+            self.K_l = min(config.leadership_candidates, config.num_candidates - 1)
+            self.K_s = min(config.swap_candidates, max(0, (config.num_candidates - self.K_l) // 2))
+            self.K_r = config.num_candidates - self.K_l - self.K_s
         self._chain_w = torch.tensor(chain.weights, dtype=torch.float32, device=self.device)
         self._ws: _Workspace | None = None
         #: capture and graph statistics of the current model generation
@@ -499,6 +535,7 @@ class Engine:
             topic_tt=self.constraint.topic_replica_count_balance_threshold,
             replica_move_cost=cfg.replica_move_cost, leadership_move_cost=cfg.leadership_move_cost,
             importance_fraction=cfg.importance_fraction, num_parts=max(1, self.shape.P),
+            intra=cfg.intra_broker,
         )
         return self
 
@@ -524,18 +561,33 @@ class Engine:
             **empty_aggregates(st),
         )
 
-    def _reset_carry(self, carry: EngineCarry, group: Grouping | None = None) -> EngineCarry:
-        """The statics' placement copied into `carry`, with its aggregates."""
+    def _statics_placement(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         st = self.statics.state
-        carry.replica_broker.copy_(st.replica_broker)
-        carry.replica_is_leader.copy_(st.replica_is_leader)
-        carry.replica_disk.copy_(st.replica_disk)
+        return st.replica_broker, st.replica_is_leader, st.replica_disk
+
+    def _reset_carry(self, carry: EngineCarry, group: Grouping | None = None,
+                     placement=None) -> EngineCarry:
+        """`placement` (the statics' when None) copied into `carry`, with
+        its aggregates."""
+        rb, il, dk = placement if placement is not None else self._statics_placement()
+        carry.replica_broker.copy_(rb)
+        carry.replica_is_leader.copy_(il)
+        carry.replica_disk.copy_(dk)
         return self.refresh(carry, group)
 
     def init_carry(self, key: Key) -> EngineCarry:
         """Carry seeded from the statics' placement, with aggregates
         computed from it."""
         return self._reset_carry(self._empty_carry(key))
+
+    def init_carry_from(self, key: Key, placement) -> EngineCarry:
+        """Carry seeded from another placement (replica_broker,
+        replica_is_leader, replica_disk), with aggregates computed from it:
+        a warm start.  The statics keep the cluster's current placement, so
+        movement pricing still charges strays against what the executor
+        would have to move.  The placement is copied, never aliased."""
+        return self._reset_carry(self._empty_carry(key),
+                                 placement=self.statics.check_placement(placement))
 
     def carry_to_state(self, carry: EngineCarry) -> ClusterState:
         return self._placed_state(carry.replica_broker, carry.replica_is_leader, carry.replica_disk)
@@ -684,7 +736,7 @@ class Engine:
         key; updates `carry` in place and returns (carry, stats) with
         device-side counts.  (A run's steps read their keys and temperature
         from the device instead: `_step`.)"""
-        keys = cand_k.StepKeys.of(carry.key)
+        keys = cand_k.StepKeys.of(carry.key, intra=self.config.intra_broker)
         prop = cand_k.candidates(
             self.cand, self.statics, carry, keys, self._globals(carry), plan, temperature
         )
@@ -739,7 +791,8 @@ class Engine:
             return self._ws
         cfg, dev, s = self.config, self.device, self.shape
         total = self._n_rounds()
-        table = cand_k.key_table(Key.from_seed(cfg.seed), total * cfg.steps_per_round)
+        table = cand_k.key_table(Key.from_seed(cfg.seed), total * cfg.steps_per_round,
+                                 intra=cfg.intra_broker)
         group = Grouping.empty(s.R, s.B, dev)
         cuda = dev.type == "cuda"
         K = self.K_r + self.K_s + self.K_l
@@ -753,6 +806,7 @@ class Engine:
             cand=cand_k.candidate_buffers(self.cand, self.statics, dev) if cuda else None,
             sel=select_k.select_buffers(K, self.K_r, self.K_s, s.B, s.P, dev,
                                         n_epochs=total * cfg.steps_per_round) if cuda else None,
+            start=tuple(t.clone() for t in self._statics_placement()),
         )
         return self._ws
 
@@ -764,17 +818,26 @@ class Engine:
             scale=float(np.float32(cfg.init_temperature_scale)),
         )
 
+    def _stage(self, ws: _Workspace, initial_placement) -> None:
+        """The run's start placement into the workspace's staging tensors:
+        the statics' (cold start) or the caller's (warm start), by device
+        copies ordered on the stream before the run."""
+        src = (self._statics_placement() if initial_placement is None
+               else self.statics.check_placement(initial_placement))
+        for dst, t in zip(ws.start, src):
+            dst.copy_(t)
+
     def _reset_run(self, ws: _Workspace) -> EngineCarry:
-        """The statics' placement into the workspace's carry, with its
+        """The staged start placement into the workspace's carry, with its
         aggregates; the select minima cleared, as the run's step epochs
         start over."""
         if ws.sel is not None:
             ws.sel.clear()
-        return self._reset_carry(ws.carry, ws.group)
+        return self._reset_carry(ws.carry, ws.group, ws.start)
 
     def _init_run(self, ws: _Workspace, dims: sched_k.ScheduleDims) -> None:
-        """`_schedule_init`: the statics' placement into the carry with its
-        aggregates, the initial objective, t0, the round-0 plan."""
+        """`_schedule_init`: the staged start placement into the carry with
+        its aggregates, the initial objective, t0, the round-0 plan."""
         carry = self._reset_run(ws)
         ws.sched.value(sched_k.OBJ).copy_(self.evaluate(carry)[0])
         sched_k.round_schedule(sched_k.INIT, ws.sched, dims)
@@ -810,8 +873,16 @@ class Engine:
     # the round schedule
     # ------------------------------------------------------------------
 
-    def run(self, *, verbose: bool = False):
+    def run(self, *, verbose: bool = False, initial_placement=None):
         """Execute the annealing schedule; returns (final_state, history).
+
+        `initial_placement`, a (replica_broker, replica_is_leader,
+        replica_disk) triple of this cluster's shape, dtypes and device,
+        warm-starts the anneal from that placement instead of the statics'
+        (the streaming controller's incremental re-anneal); it is copied,
+        never written.  The key chain, schedule and early stop are
+        unchanged, and movement pricing still counts against the statics'
+        placement.
 
         history holds one record per round that ran (round, temperature,
         accepted, early_stop on the round whose state satisfied the full
@@ -824,8 +895,8 @@ class Engine:
         tolerance and falls by 10% or more a round.
         """
         if self.config.fused_rounds:
-            return self._run_fused(verbose=verbose)
-        return self._run_legacy(verbose=verbose)
+            return self._run_fused(verbose=verbose, initial_placement=initial_placement)
+        return self._run_legacy(verbose=verbose, initial_placement=initial_placement)
 
     def _final_state(self, ws: _Workspace) -> ClusterState:
         """The run's result, on placement tensors of its own (the
@@ -900,11 +971,12 @@ class Engine:
         ))
         return lg
 
-    def _run_fused(self, *, verbose: bool = False):
+    def _run_fused(self, *, verbose: bool = False, initial_placement=None):
         t_start = time.monotonic()
         ws = self._workspace()
         dims = self._sched_dims(verbose)
         count_dispatch("engine.init")
+        self._stage(ws, initial_placement)
         if self.device.type == "cuda":
             n_caps = len(self.graph_stats.get("captures", []))
             lg = self._capture(ws, verbose)
@@ -984,7 +1056,7 @@ class Engine:
             history.append(rec)
         return history
 
-    def _run_legacy(self, *, verbose: bool = False):
+    def _run_legacy(self, *, verbose: bool = False, initial_placement=None):
         """The host-driven round loop (the JAX package's `_run_legacy`):
         temperatures as Python floats, the early-stop check at the bottom
         of a round, then the polish loop; one blocking sync (or more) a
@@ -1007,6 +1079,7 @@ class Engine:
         count_dispatch("engine.init")
         ws = self._workspace()
         sched = ws.sched
+        self._stage(ws, initial_placement)
         carry = self._reset_run(ws)
         t0_obj = float(fetch(self.evaluate(carry)[0])) * cfg.init_temperature_scale
         self.plan(carry, self._globals(carry, ws.gbuf), ws.plan)

@@ -153,11 +153,13 @@ class GoalOptimizer:
         initial_placement=None,
         prior=None,
     ) -> OptimizerResult:
-        """Run the goal chain on `state` and diff the result into proposals."""
-        if initial_placement is not None or prior is not None:
-            raise NotImplementedError(
-                "warm-start placements and the move-acceptance prior are not ported"
-            )
+        """Run the goal chain on `state` and diff the result into proposals.
+
+        `initial_placement` (replica_broker, replica_is_leader,
+        replica_disk) warm-starts the anneal from that placement; the
+        proposals still diff against `state`'s own placement."""
+        if prior is not None:
+            raise NotImplementedError("the move-acceptance prior is not ported")
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         t0 = time.monotonic()
@@ -174,7 +176,7 @@ class GoalOptimizer:
         members = engine.statics.part_replicas  # the same cluster's, before and after
         obj_b, viol_b, stats_b = self._report(state, members)
         before_host = fetch_before_host(state)
-        final, history = engine.run(verbose=verbose)
+        final, history = engine.run(verbose=verbose, initial_placement=initial_placement)
         obj_a, viol_a, stats_a = self._report(final, members)
         final_checks = validate_on_device(final).cpu().numpy()
         t_extract = time.monotonic()

@@ -4,7 +4,9 @@ Replaces, per step: `jax.random.uniform` / `_uniform_idx` draws and
 `_sample_sources` (cruise_control_tpu/analyzer/engine.py:958, :1810), the
 three candidate kinds `_replica_candidates` (:1954), `_swap_candidates`
 (:2160) and `_leadership_candidates` (:2348) with their `_move_delta`
-(:2439), `_assemble_prop` (:2580) and the Metropolis acceptance of
+(:2439) and its intra-broker disk terms (`_disk_terms`, :1767), or, in
+the rebalance_disk mode, `_intra_disk_candidates` (:2078) alone;
+`_assemble_prop` (:2580) and the Metropolis acceptance of
 `_accept_select_apply` (:2669).  Out come the bundle that `select_survivors`
 reads (delta, feas, accept, src, dst, part1, part2) and the payload rows
 that `apply_moves` reads (`apply.REL_FIELDS`, a swap as two linked rows at
@@ -22,8 +24,14 @@ old-state objective terms once per broker and host; one launch then runs
 all K candidates, each move kind in its own block range, one thread per
 candidate, drawing its own threefry counters inline (the draws never
 touch HBM), staging the broker CDF in shared memory, and writing straight
-into the bundle and payload layouts.  Tensor cores and TMA have nothing to
-do here: there is no matrix product, and the gathers are scattered rows.
+into the bundle and payload layouts.  Where the chain weighs the
+intra-broker disk goals, a lane also loads its brokers' D-wide logdir rows
+and evaluates the disk terms in registers.  The kernel is templated on
+the disk terms and the intra kind, so each mode compiles apart; the
+intra mode (rebalance_disk) reads no old-state term and launches no
+prologue.  Tensor cores and TMA have
+nothing to do here: there is no matrix product, and the gathers are
+scattered rows.
 
 Keys: a step's keys are split from the carry key exactly as the reference
 splits them (`StepKeys.of`).  The key chain does not depend on the data,
@@ -35,8 +43,6 @@ a device scalar, so a captured step needs no host value.
 The plain version (`candidates_plain`) is the engine's candidate code as
 PyTorch ops, with the draws and deltas of the plain threefry and
 move_delta functions; the CPU tests hold it against the JAX reference.
-The intra-broker disk goals are covered by the plain version only; the
-kernel refuses them.
 """
 
 from __future__ import annotations
@@ -71,7 +77,10 @@ class StepKeys:
     `_sample_sources` (split(4)) split them."""
 
     next: Key  # the carry's key after the step
-    rel_src: tuple[Key, Key, Key, Key]  # relocation sources: uniform, CDF u, slot u, fallback
+    #: relocation sources: uniform, CDF u, slot u, fallback (split(4) of the
+    #: relocation kind's first key; of the kind's key itself for intra-broker
+    #: moves, whose `_intra_disk_candidates` draws no destination broker)
+    rel_src: tuple[Key, Key, Key, Key]
     rel_dst: Key
     swap_src: tuple[Key, Key, Key, Key]  # swap sources r, as rel_src
     swap_q: Key
@@ -79,11 +88,12 @@ class StepKeys:
     u: Key  # Metropolis draw over all K candidates
 
     @staticmethod
-    def of(key: Key) -> "StepKeys":
+    def of(key: Key, intra: bool = False) -> "StepKeys":
         nxt, k_r, k_s, k_l, k_u = key.split(5)
         r_src, r_dst = k_r.split(2)
         s_src, s_q = k_s.split(2)
-        return StepKeys(nxt, tuple(r_src.split(4)), r_dst, tuple(s_src.split(4)), s_q, k_l, k_u)
+        rel_src = (k_r if intra else r_src).split(4)
+        return StepKeys(nxt, tuple(rel_src), r_dst, tuple(s_src.split(4)), s_q, k_l, k_u)
 
     def words(self) -> list[int]:
         """The step's row of the key table (next is not in it)."""
@@ -99,9 +109,9 @@ class StepKeys:
         return StepKeys(None, tuple(k[0:4]), k[4], tuple(k[5:9]), k[9], k[10], k[11])
 
 
-def key_table(key: Key, n_steps: int) -> np.ndarray:
+def key_table(key: Key, n_steps: int, intra: bool = False) -> np.ndarray:
     """uint32[n_steps, KEY_WORDS]: the keys of n_steps consecutive steps
-    from carry key `key`, each row `StepKeys.of(chain key i).words()`.  The
+    from carry key `key`, each row `StepKeys.of(chain key i, intra).words()`.  The
     chain (one hash a step) runs in Python integers; the other splits hash
     all steps at once on int64 arrays."""
     k0 = np.empty(n_steps, np.int64)
@@ -116,7 +126,7 @@ def key_table(key: Key, n_steps: int) -> np.ndarray:
 
     base = (k0, k1)
     k_r, k_s, k_l, k_u = (split(base, i) for i in (1, 2, 3, 4))
-    r_src, s_src = split(k_r, 0), split(k_s, 0)
+    r_src, s_src = (k_r if intra else split(k_r, 0)), split(k_s, 0)
     cols = ([split(r_src, j) for j in range(4)] + [split(k_r, 1)]
             + [split(s_src, j) for j in range(4)] + [split(k_s, 1), k_l, k_u])
     return np.stack([w for pair in cols for w in pair], axis=1).astype(np.uint32)
@@ -163,6 +173,7 @@ class CandParams:
     leadership_move_cost: float
     importance_fraction: float
     num_parts: int  # max(1, P): the preferred-leader term's denominator
+    intra: bool = False  # intra-broker disk moves in place of relocations
 
     def n_imp(self, n: int, plan) -> int:
         """Importance-sampled sources among n (the tail of the n)."""
@@ -304,6 +315,63 @@ def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     payload = dict(r=r, dst=dst, d_dst=d_dst, load=load, is_lead=is_lead,
                    pot=pot, lbin=lbin, d_src=disk)
     return delta, feasible, src, dst, part, payload
+
+
+def _intra_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
+    """K_r intra-broker disk moves (rebalance_disk mode): a replica moves to
+    the most-free alive logdir of its own broker, so only the intra-broker
+    disk terms, the offline term and the logdir pricing move.  Returned in
+    the relocation rows' shape with src == dst."""
+    st = sx.state
+    K = cp.K_r
+    D = st.shape.max_disks_per_broker
+    r = _sample_sources(cp, sx, keys.rel_src, K, plan)
+    b = carry.replica_broker[r]
+    d_src = carry.replica_disk[r]
+    part = st.replica_partition[r]
+    topic = st.replica_topic[r]
+    valid = st.replica_valid[r]
+    is_lead = carry.replica_is_leader[r]
+    ll, lf = st.replica_load_leader[r], st.replica_load_follower[r]
+
+    # destination logdir: most-free alive disk on b, the current slot excluded
+    oh_s = torch.nn.functional.one_hot(d_src.long(), D)
+    pct = carry.disk_load[b] / (st.disk_capacity[b] + 1e-12)
+    pct = torch.where(st.disk_alive[b], pct, float("inf"))
+    pct = torch.where(oh_s.bool(), float("inf"), pct)
+    d_dst = torch.argmin(pct, dim=1).to(torch.int32)
+
+    off_src = ~(st.broker_alive[b] & st.disk_alive[b, d_src])
+    movable = sx.topic_movable[topic] | off_src
+    dst_ok = st.broker_alive[b] & st.disk_alive[b, d_dst]
+    feasible = valid & movable & dst_ok & (d_dst != d_src)
+
+    load = torch.where(is_lead[:, None], ll, lf)
+    load = torch.where(valid[:, None], load, 0.0)
+    ddisk = load[:, _DISK]
+
+    # one broker, one row reshuffled
+    f32 = torch.float32
+    if cp.tp.has_disk_terms:
+        row = carry.disk_load[b]
+        shift = (torch.nn.functional.one_hot(d_dst.long(), D).to(f32) - oh_s.to(f32)) * ddisk[:, None]
+        bsum = row.sum(-1)
+        delta = (md.disk_terms(cp.tp, sx, b, row + shift, bsum, g)
+                 - md.disk_terms(cp.tp, sx, b, row, bsum, g))
+    else:
+        delta = torch.zeros(K, dtype=f32, device=b.device)
+    # offline-replica shift (rescuing off a failed logdir)
+    delta = delta + cp.w_offline * ((~dst_ok).to(f32) - off_src.to(f32)) / sx.n_valid
+    # movement pricing against the ORIGINAL logdir (the executor copies the
+    # whole replica)
+    if plan is not None and cp.replica_move_cost:
+        orig = st.replica_disk[r]
+        stray = (d_dst != orig).to(f32) - (d_src != orig).to(f32)
+        delta = delta + plan.replica_cost * stray
+
+    payload = dict(r=r, dst=b, d_dst=d_dst, load=load, is_lead=is_lead, pot=ll[:, _NW_OUT],
+                   lbin=torch.where(is_lead, ll[:, _NW_IN], 0.0), d_src=d_src)
+    return delta, feasible, b, b, part, payload
 
 
 def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
@@ -530,7 +598,7 @@ def candidates_plain(cp: CandParams, sx, carry, keys, g, plan, temperature) -> d
         keys = keys.step_keys()
     prop = _assemble_prop(
         sx, carry,
-        _replica_candidates(cp, sx, carry, keys, g, plan),
+        (_intra_candidates if cp.intra else _replica_candidates)(cp, sx, carry, keys, g, plan),
         _swap_candidates(cp, sx, carry, keys, g, plan),
         _leadership_candidates(cp, sx, carry, keys, g, plan),
     )
@@ -547,7 +615,7 @@ class _Dims(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in (
         "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "R", "B", "P", "T", "D", "H", "racks",
         "max_rf", "n_source", "n_dest", "n_brokers", "has_plan", "has_topic", "has_pref",
-        "price_r", "price_l", "cdf_in_smem", "step", "steps_per_round",
+        "price_r", "price_l", "cdf_in_smem", "intra", "step", "steps_per_round",
     )]
 
 
@@ -560,7 +628,7 @@ class _Scalars(ctypes.Structure):
 
 _IN_FIELDS = (
     # state
-    "orig_broker", "part_of", "topic_of", "valid", "pos", "orig_lead", "load_leader",
+    "orig_broker", "part_of", "topic_of", "valid", "pos", "orig_lead", "orig_disk", "load_leader",
     "load_follower", "broker_alive", "broker_rack", "broker_host", "capacity", "disk_alive",
     "disk_capacity",
     # statics
@@ -653,12 +721,12 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
     racks, max_rf = s.num_racks, int(sx.part_replicas.shape[1])
     K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
     K = K_r + K_s + K_l
-    gvec = g["vec"] if "vec" in g else md.pack_globals(g)
     n_keys = int(keys.table.shape[0])
     inputs = dict(
         orig_broker=(st.replica_broker, i32, (R,)), part_of=(st.replica_partition, i32, (R,)),
         topic_of=(st.replica_topic, i32, (R,)), valid=(st.replica_valid, b8, (R,)),
         pos=(st.replica_pos, i32, (R,)), orig_lead=(st.replica_is_leader, b8, (R,)),
+        orig_disk=(st.replica_disk, i32, (R,)),
         load_leader=(st.replica_load_leader, f32, (R, 4)),
         load_follower=(st.replica_load_follower, f32, (R, 4)),
         broker_alive=(st.broker_alive, b8, (B,)), broker_rack=(st.broker_rack, i32, (B,)),
@@ -676,7 +744,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         topic_count=(carry.broker_topic_count, i32, (T, B)),
         part_rack_count=(carry.part_rack_count, i32, (P, racks)),
         disk_load=(carry.disk_load, f32, (B, D)), host_load=(carry.host_load, f32, (H, 4)),
-        g=(gvec, f32, (22,)), topic_avg=(g["topic_avg"], f32, (T,)),
+        g=(g["vec"], f32, (23,)), topic_avg=(g["topic_avg"], f32, (T,)),
         key_table=(keys.table, i32, (n_keys, KEY_WORDS)), rnd=(keys.rnd, i32, (1,)),
         temperature=(temperature, f32, (1,)),
     )
@@ -704,7 +772,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         has_topic=cp.w_topic != 0.0, has_pref=cp.w_pref != 0.0,
         price_r=plan is not None and bool(cp.replica_move_cost),
         price_l=plan is not None and bool(cp.leadership_move_cost),
-        cdf_in_smem=plan is not None and 4 * B <= CDF_SMEM_MAX,
+        cdf_in_smem=plan is not None and 4 * B <= CDF_SMEM_MAX, intra=cp.intra,
         step=keys.step, steps_per_round=keys.steps_per_round,
     )
     lo = np.float32(U_MIN)
@@ -726,13 +794,10 @@ def candidates(cp: CandParams, sx, carry, keys, g, plan, temperature, bufs: dict
     part2, nr, ns, payr, payl): the kernel for CUDA tensors, writing into
     `bufs` (`candidate_buffers`) when given, the plain version for CPU
     tensors.  `keys` is a KeyCursor (a StepKeys is uploaded as one row),
-    `temperature` an f32[1] tensor (a float is uploaded)."""
+    `g` the step's globals as `step_globals` returns them (the kernel reads
+    their "vec"), `temperature` an f32[1] tensor (a float is uploaded)."""
     if kernels.route(carry.broker_load, carry.replica_broker, sx.alive) == "cpu":
         return candidates_plain(cp, sx, carry, keys, g, plan, temperature)
-    if cp.tp.has_disk_terms:
-        raise NotImplementedError(
-            "candidates kernel: intra-broker disk goals in the chain are not ported to CUDA"
-        )
     dev = carry.broker_load.device
     if not isinstance(keys, KeyCursor):
         keys = KeyCursor.of(keys, dev)

@@ -4,8 +4,10 @@
 //
 // Replaces (cruise_control_tpu/analyzer/engine.py): the draws of
 // `_uniform_idx` (:958) and `_sample_sources` (:1810), `_replica_candidates`
-// (:1954), `_swap_candidates` (:2160), `_leadership_candidates` (:2348),
-// their `_move_delta` (:2439), `_assemble_prop` (:2580) and the Metropolis
+// (:1954) or, in the rebalance_disk mode, `_intra_disk_candidates` (:2078),
+// `_swap_candidates` (:2160), `_leadership_candidates` (:2348), their
+// `_move_delta` (:2439) with `_disk_terms` (:1767) when the chain weighs
+// the intra-broker disk goals, `_assemble_prop` (:2580) and the Metropolis
 // acceptance of `_accept_select_apply` (:2669).  The arithmetic follows
 // candidates_plain() in kernels/candidates.py term for term, branching
 // where it branches (topic cells, preferred leader, pricing), so that no
@@ -23,7 +25,8 @@
 //    prologue launch (B + H + 1 threads) writes them to f32[B], the host
 //    terms to f32[H] and the old tiebreak to f32[1].  A candidate then
 //    evaluates only its two "new" lanes.  The same function of the same
-//    inputs: the bits do not change.
+//    inputs: the bits do not change.  The intra mode reads none of them
+//    and skips the prologue.
 //  - Draws inline: each candidate hashes its own threefry counters
 //    (common.cuh) under the step's keys, read from the run's key table at
 //    the device-side round index (so a captured step replays with the
@@ -38,6 +41,14 @@
 //    so occupancy is low; splitting a candidate over 2-4 threads (the
 //    src/dst lanes, the member scan) joined by shuffles is the next step
 //    if the profile shows the chain, not the launch, dominating.
+//  - The JBOD path: a lane whose move touches logdirs loads the D-wide
+//    disk rows (load, capacity, health) of its src and dst beside their
+//    broker rows and evaluates the intra-broker disk terms of the four
+//    rows (src and dst, after and before) in registers, summing over the
+//    logdirs in disk order as the plain version does.  An intra-broker
+//    lane (rebalance_disk) draws no destination broker: it picks the
+//    most-free other alive logdir of its replica's broker and writes a
+//    relocation row with src == dst.
 // Tensor cores do not apply (there is no matrix product), and TMA is not
 // worth it for scattered row gathers.
 #include "terms.cuh"
@@ -61,6 +72,7 @@ struct CandDims {
   int R, B, P, T, D, H, racks, max_rf;
   int n_source, n_dest, n_brokers;
   int has_plan, has_topic, has_pref, price_r, price_l, cdf_in_smem;
+  int intra;  // the K_r lanes are intra-broker disk moves
   int step, steps_per_round;  // this step's row: (*rnd) * steps_per_round + step
 };
 
@@ -77,6 +89,7 @@ struct CandInputs {
   const bool* valid;
   const int* pos;
   const bool* orig_lead;
+  const int* orig_disk;
   const float* load_leader;    // [R, 4]
   const float* load_follower;  // [R, 4]
   const bool* broker_alive;
@@ -107,7 +120,7 @@ struct CandInputs {
   const int* part_rack_count;  // [P, racks]
   const float* disk_load;      // [B, D]
   const float* host_load;      // [H, 4]
-  // per-step globals (move_delta.pack_globals) and the round's plan
+  // per-step globals (step_globals: the first 23 floats) and the round's plan
   const float* g;
   const float* topic_avg;  // [T]
   const float* cdf;        // [B]
@@ -282,11 +295,43 @@ __device__ float rack_delta(const Ctx& c, int part, int rack_from, int rack_to) 
   return rack_from != rack_to ? d : 0.0f;
 }
 
-// move_delta_plain without the intra-broker disk terms: the two new broker
-// lanes against the prologue's old ones, the host terms, the tiebreak.
+// The disk-load sum of broker b's logdirs in disk order.
+__device__ __forceinline__ float disk_sum(const Ctx& c, int b) {
+  const float* row = c.in.disk_load + (size_t)b * c.n.D;
+  float s = 0.0f;
+  for (int d = 0; d < c.n.D; ++d) s = d == 0 ? row[d] : s + row[d];
+  return s;
+}
+
+// disk_terms() of broker b's logdir row edited by m.
+__device__ __forceinline__ float broker_disk_terms(const Ctx& c, int b, const DiskEdit& m,
+                                                   float bsum) {
+  const size_t o = (size_t)b * c.n.D;
+  return disk_terms(c.p, c.in.g[G_TOTAL_DISK_LOAD], c.n.D, c.in.disk_load + o,
+                    c.in.disk_capacity + o, c.in.disk_alive + o, c.in.alive[b], m, bsum);
+}
+
+// move_delta_plain's intra-broker disk block: src's row less ddisk_src at
+// d_src and dst's row plus ddisk at d_dst, against both as they are.
+__device__ float disk_move_delta(const Ctx& c, int s, int d, int d_src, int d_dst,
+                                 float ddisk_src, float ddisk) {
+  const float bsum_s = disk_sum(c, s), bsum_d = disk_sum(c, d);
+  const DiskEdit none{0, 0, 0, 0.0f};
+  const float td0 = broker_disk_terms(c, s, DiskEdit{1, d_src, 0, ddisk_src}, bsum_s - ddisk_src);
+  const float td1 = broker_disk_terms(c, s, none, bsum_s);
+  const float td2 = broker_disk_terms(c, d, DiskEdit{2, d_dst, 0, ddisk}, bsum_d + ddisk);
+  const float td3 = broker_disk_terms(c, d, none, bsum_d);
+  return ((td0 - td1) + td2) - td3;
+}
+
+// move_delta_plain: the two new broker lanes against the prologue's old
+// ones, the host terms, the intra-broker disk terms (DISK: the chain
+// weighs them), the tiebreak.
+template <bool DISK>
 __device__ float move_delta_core(const Ctx& c, int s, int d, const float dls[4],
                                  const float dld[4], int dc, int dlc, float dp, float dlbin,
-                                 float dlbin_src) {
+                                 float dlbin_src, int d_src, int d_dst, float ddisk_src,
+                                 float ddisk) {
   const CandInputs& in = c.in;
   float ls[4], ld[4], ls2[4], ld2[4], cap_s[4], cap_d[4];
   row4(in.broker_load, s, ls);
@@ -325,6 +370,8 @@ __device__ float move_delta_core(const Ctx& c, int s, int d, const float dls[4],
   } else {
     delta = delta + 0.0f;
   }
+
+  if (DISK) delta = delta + disk_move_delta(c, s, d, d_src, d_dst, ddisk_src, ddisk);
 
   // dispersion tiebreaker via sufficient statistics
   const float as = f01(a_s), ad = f01(a_d);
@@ -387,6 +434,7 @@ __device__ __forceinline__ void replica_load(const Ctx& c, int r, bool lead, boo
   }
 }
 
+template <bool DISK>
 __device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
   const CandInputs& in = c.in;
   const int r = sample_source(c, keys(c).rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
@@ -424,7 +472,8 @@ __device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
   const float lbin = is_lead ? ll[1] : 0.0f;
   float dls[4];
   for (int k = 0; k < 4; ++k) dls[k] = -load[k];
-  float delta = move_delta_core(c, src, dst, dls, load, 1, is_lead ? 1 : 0, pot, lbin, lbin);
+  float delta = move_delta_core<DISK>(c, src, dst, dls, load, 1, is_lead ? 1 : 0, pot, lbin,
+                                      lbin, disk, d_dst, load[3], load[3]);
 
   const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
   delta = delta + (c.s.w_rack * rack_delta(c, part, rack_s, rack_d)) / c.p.n_valid;
@@ -447,6 +496,61 @@ __device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
   put_rel_row(c, i, r, src, dst, disk, d_dst, load, is_lead, pot, lbin, topic, part);
 }
 
+// An intra-broker disk move (`_intra_disk_candidates`): replica r to the
+// most-free other alive logdir of its own broker b.
+template <bool DISK>
+__device__ void cand_intra(const Ctx& c, int i, const float* cdf) {
+  const CandInputs& in = c.in;
+  const int r = sample_source(c, keys(c).rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
+  const int b = in.replica_broker[r];
+  const int part = in.part_of[r];
+  const int d_src = in.replica_disk[r];
+  const int topic = in.topic_of[r];
+  const bool valid = in.valid[r];
+  const bool is_lead = in.replica_is_leader[r];
+  float ll[4];
+  row4(in.load_leader, r, ll);
+
+  // destination logdir: most-free alive disk on b, the current slot
+  // excluded, first on ties (argmin); all excluded gives 0
+  int d_dst = 0;
+  float best = 0.0f;
+  for (int d = 0; d < c.n.D; ++d) {
+    const size_t a = (size_t)b * c.n.D + d;
+    const float v = (d != d_src && in.disk_alive[a])
+                        ? in.disk_load[a] / (in.disk_capacity[a] + 1e-12f)
+                        : __int_as_float(0x7f800000);  // +inf
+    if (d == 0 || (!(best != best) && (v < best || v != v))) {
+      best = v;
+      d_dst = d;
+    }
+  }
+
+  const bool off_src = !(in.broker_alive[b] && disk_ok(c, b, d_src));
+  const bool movable = in.topic_movable[topic] || off_src;
+  const bool dst_ok = in.broker_alive[b] && disk_ok(c, b, d_dst);
+  const bool feas = valid && movable && dst_ok && d_dst != d_src;
+
+  float load[4];
+  replica_load(c, r, is_lead, valid, load);
+  // one broker, one row reshuffled
+  float delta = 0.0f;
+  if (DISK) {
+    const float bsum = disk_sum(c, b);
+    delta = broker_disk_terms(c, b, DiskEdit{3, d_dst, d_src, load[3]}, bsum) -
+            broker_disk_terms(c, b, DiskEdit{0, 0, 0, 0.0f}, bsum);
+  }
+  delta = delta + (c.s.w_offline * (f01(!dst_ok) - f01(off_src))) / c.p.n_valid;
+  if (c.n.price_r) {
+    const int orig = in.orig_disk[r];
+    delta = delta + in.replica_cost[0] * (f01(d_dst != orig) - f01(d_src != orig));
+  }
+  put_candidate(c, i, delta, feas, b, b, part, part);
+  put_rel_row(c, i, r, b, b, d_src, d_dst, load, is_lead, ll[2], is_lead ? ll[1] : 0.0f, topic,
+              part);
+}
+
+template <bool DISK>
 __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
   const CandInputs& in = c.in;
   const int r = sample_source(c, keys(c).swap_src, i, c.n.K_s, c.n.n_imp_s, cdf);
@@ -481,8 +585,9 @@ __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
   const float lbin_r = lead_r ? ll_r[1] : 0.0f;
   const float lbin_q = lead_q ? ll_q[1] : 0.0f;
   const float dlbin = lbin_r - lbin_q;
-  float delta = move_delta_core(c, src, dst, dls, dld, 0, (int)lead_r - (int)lead_q,
-                                pot_r - pot_q, dlbin, dlbin);
+  const float ddisk = load_r[3] - load_q[3];
+  float delta = move_delta_core<DISK>(c, src, dst, dls, dld, 0, (int)lead_r - (int)lead_q,
+                                      pot_r - pot_q, dlbin, dlbin, d_r, d_q, ddisk, ddisk);
 
   const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
   delta = delta + (c.s.w_rack * (rack_delta(c, part_r, rack_s, rack_d) +
@@ -516,6 +621,7 @@ __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
               topic_q, part_q);
 }
 
+template <bool DISK>
 __device__ void cand_leadership(const Ctx& c, int i) {
   const CandInputs& in = c.in;
   const int R = c.n.R;
@@ -547,7 +653,8 @@ __device__ void cand_leadership(const Ctx& c, int i) {
     dl_t[k] = ll_t[k] - lf_t[k];
   }
   const float dlbin = ll_t[1], dlbin_src = ll_f[1];
-  float delta = move_delta_core(c, src, dst, dl_f, dl_t, 0, 1, 0.0f, dlbin, dlbin_src);
+  float delta = move_delta_core<DISK>(c, src, dst, dl_f, dl_t, 0, 1, 0.0f, dlbin, dlbin_src,
+                                      disk_f, disk_t, dl_f[3], dl_t[3]);
 
   if (c.n.has_pref) {
     const bool src_ok = in.broker_alive[src] && disk_ok(c, src, disk_f);
@@ -579,6 +686,10 @@ __device__ void cand_leadership(const Ctx& c, int i) {
 
 constexpr int kThreads = 128;
 
+// DISK: the chain weighs the intra-broker disk goals; INTRA: the K_r lanes
+// are intra-broker disk moves.  Each is a compile-time branch, so a chain
+// without the disk goals runs the lanes it ran before the JBOD path.
+template <bool DISK, bool INTRA>
 __global__ void __launch_bounds__(kThreads) candidates_kernel(Ctx c) {
   extern __shared__ float s_cdf[];
   const int nb_r = (c.n.K_r + kThreads - 1) / kThreads;
@@ -602,13 +713,29 @@ __global__ void __launch_bounds__(kThreads) candidates_kernel(Ctx c) {
     cdf = s_cdf;
   }
   if (i >= n) return;
-  if (kind == 0) {
-    cand_relocation(c, i, cdf);
+  if (INTRA) {
+    cand_intra<DISK>(c, i, cdf);  // K_s = K_l = 0: every lane is an intra move
+  } else if (kind == 0) {
+    cand_relocation<DISK>(c, i, cdf);
   } else if (kind == 1) {
-    cand_swap(c, i, cdf);
+    cand_swap<DISK>(c, i, cdf);
   } else {
-    cand_leadership(c, i);
+    cand_leadership<DISK>(c, i);
   }
+}
+
+template <bool DISK, bool INTRA>
+static cudaError_t launch_candidates(const Ctx& c, cudaStream_t st) {
+  const size_t smem = c.n.cdf_in_smem ? sizeof(float) * (size_t)c.n.B : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        candidates_kernel<DISK, INTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const unsigned int blocks = cc_blocks(c.n.K_r, kThreads) + cc_blocks(c.n.K_s, kThreads) +
+                              cc_blocks(c.n.K_l, kThreads);
+  candidates_kernel<DISK, INTRA><<<blocks, kThreads, smem, st>>>(c);
+  return cudaGetLastError();
 }
 
 CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in, CandOutputs out,
@@ -616,19 +743,19 @@ CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in
   const long long K = (long long)n.K_r + n.K_s + n.K_l;
   if (K <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (n.intra && (n.K_s > 0 || n.K_l > 0)) return (int)cudaErrorInvalidValue;
   Ctx c{n, p, s, in, out};
-  const int pro = n.B + n.H + 1;
-  candidates_prologue_kernel<<<cc_blocks(pro, 256), 256, 0, st>>>(c);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = n.cdf_in_smem ? sizeof(float) * (size_t)n.B : 0;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(candidates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  if (!n.intra) {
+    // no intra lane reads the old broker, host or tie terms
+    const int pro = n.B + n.H + 1;
+    candidates_prologue_kernel<<<cc_blocks(pro, 256), 256, 0, st>>>(c);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned int blocks = cc_blocks(n.K_r, kThreads) + cc_blocks(n.K_s, kThreads) +
-                              cc_blocks(n.K_l, kThreads);
-  candidates_kernel<<<blocks, kThreads, smem, st>>>(c);
-  return (int)cudaGetLastError();
+  if (n.intra) {
+    return (int)(p.has_disk ? launch_candidates<true, true>(c, st)
+                            : launch_candidates<false, true>(c, st));
+  }
+  return (int)(p.has_disk ? launch_candidates<true, false>(c, st)
+                          : launch_candidates<false, false>(c, st));
 }

@@ -1,8 +1,9 @@
-// The per-broker, per-host and dispersion terms of the anneal's objective,
-// shared by move_delta.cu and candidates.cu.  The arithmetic follows
-// broker_terms(), host_terms() and tie_term() of kernels/move_delta.py
-// term for term (sequential sums over the four resources; -fmad=false
-// keeps every multiply and add rounded on its own).
+// The per-broker, per-host, intra-broker disk and dispersion terms of the
+// anneal's objective, shared by move_delta.cu and candidates.cu.  The
+// arithmetic follows broker_terms(), host_terms(), disk_terms() and
+// tie_term() of kernels/move_delta.py term for term (sequential sums over
+// the four resources and over a broker's logdirs in disk order;
+// -fmad=false keeps every multiply and add rounded on its own).
 #pragma once
 #include "common.cuh"
 
@@ -32,10 +33,19 @@ struct MDParams {
   float w_tie;
   float n_valid;
   float n_alive;
+  // intra-broker disk goals (has_disk: either weighs in the chain)
+  int has_disk;
+  float w_intra_cap;
+  float w_intra_dist;
+  float d_thresh;
+  float t_disk;
+  float t_disk_low;
+  float total_disk_cap;
 };
 
 // g layout (pack_globals): avg_pct[4] total_load[4] pct_sum[4] pct_sumsq[4]
 // avg_count total_count avg_lcount total_lcount avg_lbin total_lbin
+// total_disk_load (step_globals' layout; move_delta.cu reads the first 22)
 #define G_AVG_PCT 0
 #define G_TOTAL_LOAD 4
 #define G_PCT_SUM 8
@@ -46,6 +56,7 @@ struct MDParams {
 #define G_TOTAL_LCOUNT 19
 #define G_AVG_LBIN 20
 #define G_TOTAL_LBIN 21
+#define G_TOTAL_DISK_LOAD 22
 
 __device__ float broker_terms(const MDParams& p, const float* __restrict__ g, const float cap[4],
                               bool alive, bool single, const float load[4], int rcount,
@@ -119,4 +130,51 @@ __device__ float tie_term(const MDParams& p, const float s[4], const float sq[4]
     out = (r == 0) ? t : out + t;
   }
   return p.w_tie * out;
+}
+
+// A hypothetical logdir row of one broker: its current row with one or two
+// cells changed, as the plain version writes it (so that the same
+// products and sums round the same way).
+struct DiskEdit {
+  int mode;  // 0: row; 1: row - onehot(a) * x; 2: row + onehot(a) * x;
+             // 3: row + (onehot(a) - onehot(b)) * x
+  int a, b;
+  float x;
+};
+
+__device__ __forceinline__ float disk_cell(const DiskEdit& m, int d, float v) {
+  const float ia = d == m.a ? 1.0f : 0.0f;
+  if (m.mode == 1) return v - ia * m.x;
+  if (m.mode == 2) return v + ia * m.x;
+  if (m.mode == 3) return v + (ia - (d == m.b ? 1.0f : 0.0f)) * m.x;
+  return v;
+}
+
+// IntraBrokerDiskCapacityGoal + IntraBrokerDiskUsageDistributionGoal of one
+// broker: its D logdirs' loads `row` edited by `m`, their sum `bsum`, its
+// logdirs' capacities and health, whether the broker is alive.
+__device__ float disk_terms(const MDParams& p, float total_disk_load, int D,
+                            const float* __restrict__ row, const float* __restrict__ dcap,
+                            const bool* __restrict__ dalive, bool alive, const DiskEdit& m,
+                            float bsum) {
+  float cap_term = 0.0f, bcap = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    const float v = disk_cell(m, d, row[d]);
+    const bool ok = alive && dalive[d];
+    const float t = ok ? cc_relu(v - p.d_thresh * dcap[d]) : v;
+    cap_term = d == 0 ? t : cap_term + t;
+    const float c = ok ? dcap[d] : 0.0f;
+    bcap = d == 0 ? c : bcap + c;
+  }
+  const float out = (p.w_intra_cap * cap_term) / p.total_disk_cap;
+  const float avg_pct = bsum / (bcap + 1e-12f);
+  float dist = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    const float v = disk_cell(m, d, row[d]);
+    const float upper = (avg_pct * p.t_disk) * dcap[d];
+    const float lower = (avg_pct * p.t_disk_low) * dcap[d];
+    const float t = (alive && dalive[d]) ? cc_relu(v - upper) + cc_relu(lower - v) : 0.0f;
+    dist = d == 0 ? t : dist + t;
+  }
+  return out + (p.w_intra_dist * dist) / total_disk_load;
 }

@@ -18,7 +18,8 @@ contraction), so the two agree to within f32 rounding of the sums.
 
 `_disk_terms` (:1767) contributes only when the intra-broker disk goals
 are in the chain (they are not in the default chain): the plain version
-covers them, the kernel refuses them.
+covers them and the fused candidates kernel computes them
+(csrc/terms.cuh `disk_terms`); this standalone kernel refuses them.
 
 The plain functions here are also the package's only implementation of the
 per-broker objective terms; the engine's O(B) objective and sampling plan
@@ -160,9 +161,12 @@ class TermParams:
         for name in ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist"):
             getattr(s, name)[:] = [float(v) for v in getattr(self, name)]
         s.host_res[:] = [int(v) for v in _HOST_RES]
+        # the f32 values the plain version's products round the disk
+        # balance thresholds to (a Python float scalar times an f32 tensor)
+        derived = dict(has_disk=int(self.has_disk_terms), t_disk_low=max(0.0, 2.0 - self.t_disk))
         for f, _ in MDParams._fields_:
             if f not in ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist", "host_res"):
-                setattr(s, f, getattr(self, f))
+                setattr(s, f, derived[f] if f in derived else getattr(self, f))
         return s
 
 
@@ -193,6 +197,13 @@ class MDParams(ctypes.Structure):
         ("w_tie", ctypes.c_float),
         ("n_valid", ctypes.c_float),
         ("n_alive", ctypes.c_float),
+        ("has_disk", ctypes.c_int),
+        ("w_intra_cap", ctypes.c_float),
+        ("w_intra_dist", ctypes.c_float),
+        ("d_thresh", ctypes.c_float),
+        ("t_disk", ctypes.c_float),
+        ("t_disk_low", ctypes.c_float),
+        ("total_disk_cap", ctypes.c_float),
     ]
 
 

@@ -15,11 +15,12 @@ shared memory) and, after one cluster barrier, block 0 adds them in a
 fixed tree, so the result is the same bits run after run.  Every other
 block sums one topic row with 16-byte loads, in integers.  The kernel's
 sums run in another order than PyTorch's, so the two agree to f32
-rounding.
+rounding.  (On the CPU the plain version adds the disk load in the
+reference's order; the intra-broker disk deltas divide by it.)
 
-The output is one f32 vector laid out as `LAYOUT`: its first 22 floats are
-the vector the candidates kernel reads, then the total disk load, then the
-T per-topic averages.  `unpack` gives the named views the objective terms
+The output is one f32 vector laid out as `LAYOUT`: its first 23 floats
+(the total disk load last) are the vector the candidates kernel reads,
+then come the T per-topic averages.  `unpack` gives the named views the objective terms
 read.  The plain version is the reference's sums as PyTorch ops.
 """
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cruise_control_tpu_torch import kernels
@@ -39,9 +41,9 @@ LAYOUT = (
     ("avg_count", 1), ("total_count", 1), ("avg_lcount", 1), ("total_lcount", 1),
     ("avg_lbin", 1), ("total_lbin", 1), ("total_disk_load", 1),
 )
-#: floats before the per-topic averages; the candidates kernel reads the first 22
+#: floats before the per-topic averages, all of which the candidates kernel reads
 HEAD = sum(n for _, n in LAYOUT)
-KERNEL_VEC = 22
+KERNEL_VEC = HEAD
 
 
 def size(num_topics: int) -> int:
@@ -50,7 +52,7 @@ def size(num_topics: int) -> int:
 
 def unpack(buf: torch.Tensor) -> dict:
     """Named views of a globals vector: 4-vectors, 0-d scalars, "topic_avg"
-    [T] and "vec", the candidates kernel's f32[22]."""
+    [T] and "vec", the candidates kernel's f32[23]."""
     g, at = {}, 0
     for name, n in LAYOUT:
         g[name] = buf[at: at + n] if n > 1 else buf[at]
@@ -58,6 +60,16 @@ def unpack(buf: torch.Tensor) -> dict:
     g["topic_avg"] = buf[HEAD:]
     g["vec"] = buf[:KERNEL_VEC]
     return g
+
+
+def _sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The sum of x's elements in f32.  On the CPU element after element in
+    row-major order, as the reference adds them (PyTorch's CPU sum of more
+    than a few elements adds in vector lanes, which rounds differently);
+    on CUDA PyTorch's sum."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.cumsum(x.reshape(-1).numpy(), dtype=np.float32)[-1:]).reshape(())
+    return x.sum()
 
 
 def globals_plain(sx, carry, out: torch.Tensor) -> dict:
@@ -70,7 +82,7 @@ def globals_plain(sx, carry, out: torch.Tensor) -> dict:
     total_lbin = torch.where(am, carry.broker_leader_bytes_in, 0.0).sum()
     topic_total = torch.where(am[None, :], carry.broker_topic_count, 0).sum(1)
     dmask = st.disk_alive & am[:, None]
-    total_disk_load = torch.where(dmask, carry.disk_load, 0.0).sum()
+    total_disk_load = _sum_f32(torch.where(dmask, carry.disk_load, 0.0))
     pct = torch.where(am[:, None], carry.broker_load / (st.broker_capacity + 1e-12), 0.0)
     vals = dict(
         avg_pct=total_load / sx.total_cap,

@@ -2,8 +2,12 @@
 
 Plays the role of reference model/ClusterModel.java's creation API
 (createRack:892, createBroker:867, createReplica:768, setReplicaLoad:684):
-callers feed it brokers and partitions; it emits the state's tensors on the
-requested device.
+callers feed it brokers and partitions (one at a time, `ClusterModelBuilder`,
+or as columns, `build_state_columnar`); it emits the state's tensors on the
+requested device.  With a `ShapeBucketPolicy` the shape is rounded up to
+its bucket and the rows beyond the data become masked padding; `pad_state`
+pads a built state the same way, and `prewarm_state` is a minimal valid
+state of a given shape.
 """
 
 from __future__ import annotations
@@ -15,7 +19,12 @@ import torch
 
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
 from cruise_control_tpu_torch.device import resolve_device
-from cruise_control_tpu_torch.models.state import ClusterShape, ClusterState
+from cruise_control_tpu_torch.models.state import (
+    STATE_FIELDS,
+    ClusterShape,
+    ClusterState,
+    ShapeBucketPolicy,
+)
 
 
 @dataclasses.dataclass
@@ -28,6 +37,31 @@ class BrokerSpec:
     alive: bool = True
     new_broker: bool = False
     bad_disks: list[int] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterCatalog:
+    """Host-side id <-> name mappings of one built ClusterState: the state
+    carries dense integer ids, and whatever talks to the outside world
+    resolves names here."""
+
+    topics: tuple[str, ...]  # topic name by topic id
+    partitions: tuple[tuple[str, int], ...]  # (topic name, partition number) by global pid
+    racks: tuple[str, ...] = ()
+    hosts: tuple[str, ...] = ()
+
+    def __post_init__(self):
+        # name -> id dict built once (frozen dataclass: bypass the setattr guard)
+        object.__setattr__(self, "_topic_idx", {t: i for i, t in enumerate(self.topics)})
+
+    def topic_id(self, name: str) -> int:
+        return self._topic_idx[name]
+
+    def partition_key(self, pid: int) -> tuple[str, int]:
+        return self.partitions[pid]
+
+    def topic_names_by_id(self) -> dict[int, str]:
+        return dict(enumerate(self.topics))
 
 
 @dataclasses.dataclass
@@ -147,6 +181,8 @@ def _assemble_state(
     r_ll, r_fl,
     device,
 ) -> ClusterState:
+    # shape may be a bucketed superset of the data: replica rows beyond the
+    # data and broker rows beyond the real brokers become padding
     B_real = ba.capacity.shape[0]
     B = shape.B
     broker_valid = np.zeros(B, bool)
@@ -177,17 +213,189 @@ def _assemble_state(
     return state_from_numpy(arrays, shape, device)
 
 
+def _replica_arrays(R: int) -> dict:
+    """Zeroed host arrays of the replica axis, in `_assemble_state`'s
+    argument order."""
+    return dict(
+        r_broker=np.zeros(R, np.int32), r_part=np.zeros(R, np.int32),
+        r_topic=np.zeros(R, np.int32), r_pos=np.zeros(R, np.int32),
+        r_leader=np.zeros(R, bool), r_valid=np.zeros(R, bool), r_offline=np.zeros(R, bool),
+        r_disk=np.zeros(R, np.int32), r_ll=np.zeros((R, NUM_RESOURCES), np.float32),
+        r_fl=np.zeros((R, NUM_RESOURCES), np.float32),
+    )
+
+
+def build_state_columnar(
+    brokers: list[BrokerSpec],
+    cols,
+    leader_load: np.ndarray,
+    follower_load: np.ndarray,
+    *,
+    replica_capacity: int | None = None,
+    bucket_policy: ShapeBucketPolicy | None = None,
+    device=None,
+) -> tuple[ClusterState, ClusterCatalog]:
+    """Vectorized twin of ClusterModelBuilder.build for monitor-shaped input.
+
+    `cols` is array-encoded partition metadata with the fields of the JAX
+    package's monitor.topology.TopologyColumns: topic_names (by first-seen
+    topic id), part_topic, part_num, part_leader_pos and replica_counts [P],
+    replica_offsets [P] into the flat replica_broker array.  leader_load /
+    follower_load: f32[P, 4] in cols' partition order.  The output (order,
+    catalog and arrays) is what feeding the same data through
+    ClusterModelBuilder one PartitionSpec at a time gives.
+    """
+    device = resolve_device(device)
+    ba = _broker_arrays(brokers)
+    B = ba.capacity.shape[0]
+    # partitions sorted by (topic name, partition number), the builder's
+    # order; topic ids in cols are first-seen, ranked here by name
+    T = len(cols.topic_names)
+    by_name = sorted(range(T), key=lambda i: cols.topic_names[i])
+    topics_sorted = [cols.topic_names[i] for i in by_name]
+    rank_of_tid = np.empty(T, np.int32)
+    rank_of_tid[by_name] = np.arange(T, dtype=np.int32)
+    part_rank = rank_of_tid[np.asarray(cols.part_topic)]
+    order = np.lexsort((np.asarray(cols.part_num), part_rank))
+    P = order.size
+
+    counts_o = np.asarray(cols.replica_counts)[order].astype(np.int64)
+    total = int(counts_o.sum())
+    R = replica_capacity or total
+    if R < total:
+        raise ValueError(f"replica_capacity {R} < actual replicas {total}")
+
+    # each sorted partition's replica segment of the flat array
+    seg_start = np.repeat(np.asarray(cols.replica_offsets)[order], counts_o)
+    new_off = np.concatenate(([0], np.cumsum(counts_o)))
+    within = np.arange(total, dtype=np.int64) - np.repeat(new_off[:-1], counts_o)
+    src = seg_start + within
+
+    a = _replica_arrays(R)
+    rb = np.asarray(cols.replica_broker)[src]
+    a["r_broker"][:total] = rb
+    a["r_part"][:total] = np.repeat(np.arange(P, dtype=np.int32), counts_o)
+    a["r_topic"][:total] = np.repeat(part_rank[order], counts_o)
+    a["r_pos"][:total] = within
+    a["r_leader"][:total] = within == np.repeat(
+        np.asarray(cols.part_leader_pos)[order].astype(np.int64), counts_o)
+    a["r_valid"][:total] = True
+    # the monitor places replicas on disk 0
+    a["r_offline"][:total] = ~ba.alive[rb] | ~ba.disk_alive[rb, 0]
+    a["r_ll"][:total] = np.repeat(np.asarray(leader_load, np.float32)[order], counts_o, axis=0)
+    a["r_fl"][:total] = np.repeat(np.asarray(follower_load, np.float32)[order], counts_o, axis=0)
+
+    names_by_part = [cols.topic_names[t] for t in np.asarray(cols.part_topic)[order]]
+    catalog = ClusterCatalog(
+        topics=tuple(topics_sorted),
+        partitions=tuple(zip(names_by_part, np.asarray(cols.part_num)[order].tolist())),
+        racks=tuple(ba.racks),
+        hosts=tuple(ba.hosts),
+    )
+    shape = ClusterShape(
+        num_replicas=R,
+        num_brokers=B,
+        num_partitions=P,
+        num_topics=max(len(topics_sorted), 1),
+        num_racks=max(len(ba.racks), 1),
+        num_hosts=max(len(ba.hosts), 1),
+        max_disks_per_broker=ba.D,
+    )
+    if bucket_policy is not None:
+        shape = bucket_policy.bucket_shape(shape)
+    return _assemble_state(ba, shape, *a.values(), device), catalog
+
+
+_REPLICA_FIELDS = STATE_FIELDS[:11]
+_BROKER_FIELDS = STATE_FIELDS[11:]
+
+
+def pad_state(state: ClusterState, shape: ClusterShape) -> ClusterState:
+    """An already-built ClusterState padded out to a (bucketed) superset
+    shape, on the state's device: replica and broker rows beyond the
+    current shape become masked padding (replica_valid / broker_valid
+    False, zeros elsewhere); the partition, topic, rack and host axes grow
+    in the shape only (no replica references them)."""
+    s = state.shape
+    if shape == s:
+        return state
+    for f in dataclasses.fields(ClusterShape):
+        if getattr(shape, f.name) < getattr(s, f.name):
+            raise ValueError(f"pad_state cannot shrink {f.name}: {s} -> {shape}")
+
+    def pad(t: torch.Tensor, n: int) -> torch.Tensor:
+        out = torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        out[: t.shape[0]] = t
+        return out
+
+    kw = {f: pad(getattr(state, f), shape.R) for f in _REPLICA_FIELDS}
+    D = shape.max_disks_per_broker
+    for f in _BROKER_FIELDS:
+        a = pad(getattr(state, f), shape.B)
+        if f in ("disk_capacity", "disk_alive") and a.shape[1] < D:
+            wide = torch.zeros((shape.B, D), dtype=a.dtype, device=a.device)
+            wide[:, : a.shape[1]] = a
+            a = wide
+        kw[f] = a
+    return dataclasses.replace(state, shape=shape, **kw)
+
+
+def prewarm_state(shape: ClusterShape, *, max_rf: int = 1, device=None) -> ClusterState:
+    """A minimal valid ClusterState of `shape`: one partition with max_rf
+    replicas on distinct brokers, front-packed, everything else zeros or
+    defaults (engines are built per shape, and the partition member
+    table's width is the max replication factor)."""
+    R, B, D = shape.R, shape.B, shape.max_disks_per_broker
+    max_rf = max(1, min(int(max_rf), R, B))
+    n = max_rf
+    r_broker = np.zeros(R, np.int32)
+    r_broker[:n] = np.arange(n, dtype=np.int32)
+    r_pos = np.zeros(R, np.int32)
+    r_pos[:n] = np.arange(n, dtype=np.int32)
+    r_leader = np.zeros(R, bool)
+    r_leader[0] = True
+    r_valid = np.zeros(R, bool)
+    r_valid[:n] = True
+    zeros_load = np.zeros((R, NUM_RESOURCES), np.float32)
+    arrays = dict(
+        replica_broker=r_broker,
+        replica_partition=np.zeros(R, np.int32),
+        replica_topic=np.zeros(R, np.int32),
+        replica_pos=r_pos,
+        replica_is_leader=r_leader,
+        replica_valid=r_valid,
+        replica_orig_broker=r_broker.copy(),
+        replica_offline=np.zeros(R, bool),
+        replica_disk=np.zeros(R, np.int32),
+        replica_load_leader=zeros_load,
+        replica_load_follower=zeros_load.copy(),
+        broker_capacity=np.ones((B, NUM_RESOURCES), np.float32),
+        broker_rack=np.zeros(B, np.int32),
+        broker_host=np.arange(B, dtype=np.int32) % max(1, shape.num_hosts),
+        broker_alive=np.ones(B, bool),
+        broker_new=np.zeros(B, bool),
+        broker_valid=np.ones(B, bool),
+        disk_capacity=np.ones((B, D), np.float32),
+        disk_alive=np.ones((B, D), bool),
+    )
+    return state_from_numpy(arrays, shape, resolve_device(device))
+
+
 class ClusterModelBuilder:
     def __init__(
         self,
         *,
         replica_capacity: int | None = None,
         follower_cpu_fraction: float = 0.3,
+        bucket_policy: ShapeBucketPolicy | None = None,
     ):
         self._brokers: list[BrokerSpec] = []
         self._partitions: list[PartitionSpec] = []
         self._replica_capacity = replica_capacity
         self._follower_cpu_fraction = follower_cpu_fraction
+        self._bucket_policy = bucket_policy
+        #: the last build's catalog
+        self.catalog: ClusterCatalog | None = None
 
     def add_broker(self, spec: BrokerSpec) -> "ClusterModelBuilder":
         self._brokers.append(spec)
@@ -213,16 +421,8 @@ class ClusterModelBuilder:
         if R < n_replicas:
             raise ValueError(f"replica_capacity {R} < actual replicas {n_replicas}")
 
-        r_broker = np.zeros(R, np.int32)
-        r_part = np.zeros(R, np.int32)
-        r_topic = np.zeros(R, np.int32)
-        r_pos = np.zeros(R, np.int32)
-        r_leader = np.zeros(R, bool)
-        r_valid = np.zeros(R, bool)
-        r_offline = np.zeros(R, bool)
-        r_disk = np.zeros(R, np.int32)
-        r_ll = np.zeros((R, NUM_RESOURCES), np.float32)
-        r_fl = np.zeros((R, NUM_RESOURCES), np.float32)
+        r = _replica_arrays(R)
+        r_broker, r_part, r_topic, r_pos, r_leader, r_valid, r_offline, r_disk, r_ll, r_fl = r.values()
 
         k = 0
         for pid, p in enumerate(parts):
@@ -246,6 +446,12 @@ class ClusterModelBuilder:
                 r_fl[k] = fl
                 k += 1
 
+        self.catalog = ClusterCatalog(
+            topics=tuple(topics),
+            partitions=tuple((p.topic, p.partition) for p in parts),
+            racks=tuple(ba.racks),
+            hosts=tuple(ba.hosts),
+        )
         shape = ClusterShape(
             num_replicas=R,
             num_brokers=B,
@@ -255,9 +461,6 @@ class ClusterModelBuilder:
             num_hosts=max(len(ba.hosts), 1),
             max_disks_per_broker=ba.D,
         )
-        return _assemble_state(
-            ba, shape,
-            r_broker, r_part, r_topic, r_pos, r_leader, r_valid, r_offline,
-            r_disk, r_ll, r_fl,
-            device,
-        )
+        if self._bucket_policy is not None:
+            shape = self._bucket_policy.bucket_shape(shape)
+        return _assemble_state(ba, shape, *r.values(), device)

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -89,6 +90,85 @@ class ClusterShape:
     @property
     def P(self) -> int:  # noqa: N802
         return self.num_partitions
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeBucketPolicy:
+    """Geometric shape-bucketing policy for engine-cache stability.
+
+    Engines and their captured graphs are built per exact ClusterShape; a
+    Kafka cluster creates partitions and adds brokers continuously, so an
+    exact shape key makes nearly every model generation under churn a cache
+    miss.  Rounding each axis up to the next bucket of the series
+    ceil(floor * growth^k) makes successive generations land in the SAME
+    padded shape, so `Engine.rebind()` swaps in the fresh data and only a
+    bucket overflow (>= growth x accumulated churn) builds a new engine.
+
+    The padding is masked everywhere: `replica_valid` for replicas,
+    `broker_valid` for brokers (never alive, zero capacity, never a
+    destination, outside every goal's denominator), and shape-only padding
+    for partitions, topics, racks and hosts (no replica references them).
+    """
+
+    enabled: bool = True
+    #: bucket growth factor between adjacent buckets (> 1)
+    growth: float = 1.25
+    #: smallest bucket; also the series base
+    floor: int = 8
+
+    def __post_init__(self):
+        if self.growth <= 1.0:
+            raise ValueError(f"bucket growth must be > 1, got {self.growth}")
+        if self.floor < 1:
+            raise ValueError(f"bucket floor must be >= 1, got {self.floor}")
+
+    def bucket(self, n: int) -> int:
+        """Smallest bucket >= n in the series ceil(floor * growth^k)."""
+        if not self.enabled:
+            return int(n)
+        if n <= self.floor:
+            return self.floor
+        # the float log gets within one step of the right k; walk to the
+        # exact smallest bucket so the series is deterministic and monotone
+        k = max(0, int(math.log(n / self.floor) / math.log(self.growth)) - 1)
+        b = int(math.ceil(self.floor * self.growth**k))
+        while b < n:
+            k += 1
+            b = int(math.ceil(self.floor * self.growth**k))
+        return b
+
+    def bucket_shape(self, shape: ClusterShape) -> ClusterShape:
+        """Every churn-prone axis rounded up to its bucket (D stays exact:
+        logdir counts change only on hardware refresh)."""
+        if not self.enabled:
+            return shape
+        return ClusterShape(
+            num_replicas=self.bucket(shape.num_replicas),
+            num_brokers=self.bucket(shape.num_brokers),
+            num_partitions=self.bucket(shape.num_partitions),
+            num_topics=self.bucket(shape.num_topics),
+            num_racks=self.bucket(shape.num_racks),
+            num_hosts=self.bucket(shape.num_hosts),
+            max_disks_per_broker=shape.max_disks_per_broker,
+        )
+
+    def next_bucket_shape(self, shape: ClusterShape) -> ClusterShape:
+        """The shape one partition-churn overflow lands in: the replica and
+        partition axes bumped past their current bucket, the other axes at
+        their current bucket (their churn is an order of magnitude rarer)."""
+        return ClusterShape(
+            num_replicas=self.bucket(self.bucket(shape.num_replicas) + 1),
+            num_brokers=self.bucket(shape.num_brokers),
+            num_partitions=self.bucket(self.bucket(shape.num_partitions) + 1),
+            num_topics=self.bucket(shape.num_topics),
+            num_racks=self.bucket(shape.num_racks),
+            num_hosts=self.bucket(shape.num_hosts),
+            max_disks_per_broker=shape.max_disks_per_broker,
+        )
+
+
+#: the default policy (the JAX package's config keys tpu.shape.bucket.*)
+DEFAULT_BUCKET_POLICY = ShapeBucketPolicy()
 
 
 @dataclasses.dataclass(frozen=True)

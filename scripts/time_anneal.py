@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's scatter kernel and its fused anneal of one checkout on one GPU.
+"""Time the port's candidates and scatter kernels and its fused anneal of one checkout on one GPU.
 
     python3 scripts/time_anneal.py [DIR]
 
@@ -9,6 +9,11 @@ kernels, makes the north-star cluster and search of chip_smoke.py (same
 spec and seed) and times, with this checkout's chip_smoke.py `measure`
 whatever DIR is (so two commits run in one call are held to one method):
 
+- DIR's `candidates` on the inputs of one north-star step at T=0
+  (back to back), as `apply_moves` below; where DIR has the JBOD path,
+  also on one step of BASELINE configuration 3 (chip_smoke.py's
+  `MID_SPEC` with 4 logdirs a broker, seed 42, its four-goal chain: the
+  disk terms) and of rebalance_disk on that cluster (the intra kind);
 - DIR's `apply_moves` on the inputs of one north-star step at T=0 (the
   step's survivors scattered into a scratch carry, back to back): device
   time per call from torch.profiler (each operation's mean time per event
@@ -21,10 +26,12 @@ whatever DIR is (so two commits run in one call are held to one method):
   schedule (`len(ys)`), and one run under torch.profiler: device busy, and
   the device time of the operations whose names start with `apply_`.
 
-It prints the card's `nvidia-smi` name and power limit, then one JSON
-line.  `digest` hashes the carry after one apply call and the placement
-after the run, so two commits that compute the same function print the
-same digest.  It needs a CUDA device, nvcc and nvidia-smi.
+It prints the card's `nvidia-smi` name and power limit, then two JSON
+lines (the north star's, then the JBOD cases', `"jbod": null` without
+them).  `digest` hashes the carry after one apply call and the placement
+after the run, and each candidates record's `digest` the step's bundle,
+so two commits that compute the same function print the same digests.
+It needs a CUDA device, nvcc and nvidia-smi.
 """
 
 from __future__ import annotations
@@ -46,6 +53,56 @@ def _timing():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def time_candidates(cs, state, chain, cfg) -> dict:
+    """DIR's candidates on the inputs of one step at T=0: device and call
+    time (chip_smoke.py's `measure`) and a digest of the bundle."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import Engine
+    from cruise_control_tpu_torch.analyzer.draws import Key
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
+
+    eng = Engine(state, chain, config=cfg)
+    carry = eng.init_carry(Key.from_seed(cfg.seed))
+    plan = eng.plan(carry)
+    with cs.Capture([(cand_k, "candidates")]) as cap:
+        eng.step(carry, 0.0, plan)
+    (args, kw), = cap.calls["candidates"]
+    bundle = cand_k.candidates(*args, **kw)
+    h = hashlib.sha256()
+    for f in ("delta", "feas", "accept", "src", "dst"):
+        h.update(bundle[f].cpu().numpy().tobytes())
+    rec = cs.measure(lambda: cand_k.candidates(*args, **kw))
+    eng.release()
+    torch.cuda.empty_cache()
+    return dict(ms=rec["ms"], own_kernel_ms=rec["own_kernel_ms"], call_ms=rec["call_ms"],
+                ms_source=rec["ms_source"], by_kernel=rec["by_kernel"], digest=h.hexdigest()[:16])
+
+
+def time_jbod(cs, cfg) -> dict | None:
+    """time_candidates on configuration 3 and on rebalance_disk, or None
+    where DIR has no JBOD path."""
+    import dataclasses
+
+    from cruise_control_tpu_torch.analyzer.goals import DEFAULT_INTRA_BROKER_GOAL_ORDER
+    from cruise_control_tpu_torch.analyzer.objective import GoalChain
+    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster_fast
+
+    try:
+        cfg_d = dataclasses.replace(cfg, intra_broker=True)
+        cfg_d.check_ported()
+    except NotImplementedError:
+        return None
+    state = random_cluster_fast(RandomClusterSpec(**{**cs.MID_SPEC, "disks_per_broker": 4}), seed=42,
+                                device="cuda")
+    return {
+        "candidates_disk_terms": time_candidates(cs, state, GoalChain.from_names(list(cs.CONFIG3_CHAIN)),
+                                                 cfg),
+        "candidates_intra": time_candidates(
+            cs, state, GoalChain.from_names(list(DEFAULT_INTRA_BROKER_GOAL_ORDER)), cfg_d),
+    }
 
 
 def main(tree: str = ".") -> int:
@@ -77,6 +134,7 @@ def main(tree: str = ".") -> int:
     cfg = OptimizerConfig(**cs.SEARCH)
     state = random_cluster_fast(RandomClusterSpec(**cs.NORTH_STAR_SPEC), seed=42, device="cuda")
     h = hashlib.sha256()
+    cands = {"candidates": time_candidates(cs, state, DEFAULT_CHAIN, cfg)}
 
     # apply_moves on one north-star step's survivors
     eng = Engine(state, DEFAULT_CHAIN, config=cfg)
@@ -122,6 +180,7 @@ def main(tree: str = ".") -> int:
                 apply_events += 1
     print(json.dumps({
         "tree": str(root), "card": smi,
+        **cands,
         "apply": dict(ms=apply_rec["ms"], call_ms=apply_rec["call_ms"], ms_source=apply_rec["ms_source"],
                       by_kernel=apply_rec["by_kernel"], survivor_rows=survivors,
                       rows=int(sv_r.shape[0] + sv_l.shape[0])),
@@ -130,6 +189,9 @@ def main(tree: str = ".") -> int:
         "digest": h.hexdigest()[:16],
     }), flush=True)
     eng.release()
+    del eng, final, state
+    torch.cuda.empty_cache()
+    print(json.dumps({"tree": str(root), "card": smi, "jbod": time_jbod(cs, cfg)}), flush=True)
     return 0
 
 

@@ -191,7 +191,14 @@ def test_select_plain_equals_argsort_formula(case):
     ("score_dtype", "bfloat16"),
 ])
 def test_unported_modes_raise(field, value):
+    """The modes the port lacks raise; intra_broker (the rebalance_disk
+    mode) is ported and builds an engine whose candidates are all
+    intra-broker disk moves."""
     ts = _port(_jax_state("small_cluster"))
+    if field == "intra_broker":
+        eng = TEngine(ts, T_CHAIN, config=TConfig(**{**FAST, field: value}))
+        assert (eng.K_r, eng.K_s, eng.K_l) == (FAST["num_candidates"], 0, 0)
+        return
     with pytest.raises(NotImplementedError):
         TEngine(ts, T_CHAIN, config=TConfig(**{**FAST, field: value}))
 

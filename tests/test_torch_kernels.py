@@ -18,7 +18,11 @@ CUDA ops multiply by reciprocals of scalars, and each delta is a
 difference of lane sums); the candidates kernel's ids, masks and payload
 rows exact, its deltas within move_delta's bar, and its acceptance
 identical except where the plain delta lies within that bar of the
-Metropolis threshold.
+Metropolis threshold, also with the intra-broker disk terms in every delta
+and with the intra-broker kind (rebalance_disk: no swap or leadership
+rows) on the JBOD fixtures; apply_moves bit for bit on the intra kind's
+survivors, whose src and dst are one broker; the graph route against the
+legacy route at T=0 in the intra-broker mode and with a warm start.
 """
 
 import dataclasses
@@ -31,11 +35,14 @@ import torch
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine, OptimizerConfig
 from cruise_control_tpu_torch.analyzer.draws import Key
+from cruise_control_tpu_torch.analyzer.goals import DEFAULT_INTRA_BROKER_GOAL_ORDER
+from cruise_control_tpu_torch.analyzer.objective import GoalChain
 from cruise_control_tpu_torch.kernels import apply as apply_k
 from cruise_control_tpu_torch.kernels import candidates as cand_k
 from cruise_control_tpu_torch.kernels import move_delta as md
 from cruise_control_tpu_torch.kernels import select as select_k
 from cruise_control_tpu_torch.kernels import threefry
+from cruise_control_tpu_torch.testing import fixtures
 from cruise_control_tpu_torch.testing.fixtures import (
     SELECT_CASES,
     SELECT_INPUTS,
@@ -432,6 +439,13 @@ def _delta_bar(ref: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("with_plan", [False, True])
 def test_candidates_matches_plain(cuda, with_plan, hot):
     eng, carry, g, _, keys, plan = _step_inputs(cuda, with_plan=with_plan)
+    _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot)
+
+
+def _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot: bool):
+    """The candidates kernel against its plain version on one step: ids,
+    masks and payload rows exact, deltas within the bar, acceptance equal
+    away from the threshold."""
     # T > 0: the first round's temperature, init_temperature_scale x objective
     temperature = float(np.float32(float(eng.evaluate(carry)[0]) * 1e-2)) if hot else 0.0
     ref = cand_k.candidates_plain(eng.cand, eng.statics, carry, keys, g, plan, temperature)
@@ -458,6 +472,108 @@ def test_candidates_matches_plain(cuda, with_plan, hot):
     print(f"accept differs in {int(differ.sum())} candidates, all within the bar of the threshold")
     assert not bool((differ & ~near).any())
     assert bool(ref["accept"].any())
+
+
+CONFIG3_CHAIN = ("RackAwareGoal", "DiskCapacityGoal", "IntraBrokerDiskCapacityGoal",
+                 "IntraBrokerDiskUsageDistributionGoal")
+
+
+def _jbod_step(cuda, fixture: str, intra: bool, with_plan: bool = True, seed: int = 5,
+               device=None):
+    """One step's inputs on a JBOD fixture: BASELINE configuration 3's
+    chain (disk terms in every delta), or the intra-broker mode."""
+    state = getattr(fixtures, fixture)(device or cuda)
+    chain = GoalChain.from_names(list(DEFAULT_INTRA_BROKER_GOAL_ORDER if intra else CONFIG3_CHAIN))
+    eng = Engine(state, chain, config=dataclasses.replace(CFG, intra_broker=intra))
+    carry = eng.init_carry(Key.from_seed(seed))
+    plan = eng.plan(carry) if with_plan else None
+    return eng, carry, eng._globals(carry), cand_k.StepKeys.of(carry.key, intra=intra), plan
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("with_plan", [False, True])
+@pytest.mark.parametrize("intra", [False, True], ids=["disk_terms", "intra"])
+@pytest.mark.parametrize("fixture", ["jbod_cluster", "collision_cluster"])
+def test_candidates_jbod_matches_plain(cuda, fixture, intra, with_plan, hot):
+    eng, carry, g, keys, plan = _jbod_step(cuda, fixture, intra, with_plan)
+    assert eng.tp.has_disk_terms and eng.shape.max_disks_per_broker == 2
+    if intra:
+        assert (eng.K_s, eng.K_l) == (0, 0)
+    _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot)
+
+
+@pytest.mark.parametrize("fixture", ["jbod_cluster", "collision_cluster"])
+def test_apply_intra_rows_bitwise(cuda, fixture):
+    """The intra kind's survivors (src == dst: a broker's load goes out and
+    back, two cells of its disk row change) through select_survivors and
+    apply_moves on the card, against apply_plain on the CPU bit for bit,
+    every slot back at -1; the step has no swap and no leadership rows."""
+    eng, carry, g, keys, plan = _jbod_step(cuda, fixture, True)
+    prop = cand_k.candidates(eng.cand, eng.statics, carry, keys, g, plan, 0.0)
+    nr, ns = prop["nr"], prop["ns"]
+    assert ns == 0 and prop["payl"]["rf"].numel() == 0
+    survive, sv_r, acc = select_k.select_survivors(
+        prop["accept"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
+        num_brokers=eng.shape.B, num_parts=eng.shape.P, n_r=nr, n_s=ns,
+    )
+    sv_l = survive[nr:]
+    assert sv_l.numel() == 0 and int(acc) == int(sv_r.sum()) > 0
+    payr = prop["payr"]
+    assert torch.equal(payr["src"][sv_r], payr["dst"][sv_r])
+    assert bool((payr["d_src"][sv_r] != payr["d_dst"][sv_r]).all())
+    sx_cpu = _jbod_step(cuda, fixture, True, device="cpu")[0].statics
+    want = carry.clone()
+    for f in _tensor_fields(want):
+        setattr(want, f, getattr(want, f).cpu())
+    cpu = {k: v.cpu() for k, v in payr.items()}
+    apply_k.apply_plain(sx_cpu, want, sv_r.cpu(), cpu, sv_l.cpu(), {k: v.cpu() for k, v in prop["payl"].items()})
+    before = kernels.LAUNCHES["apply_moves"]
+    apply_k.apply_moves(eng.statics, carry, sv_r, payr, sv_l, prop["payl"])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["apply_moves"] == before + 1
+    for f in _tensor_fields(want):
+        a, b = getattr(carry, f).cpu(), getattr(want, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+    assert torch.equal(eng.statics.apply_slots, torch.full_like(eng.statics.apply_slots, -1))
+
+
+@pytest.mark.parametrize("mode", ["intra", "warm_start"])
+def test_graph_route_matches_legacy_jbod(cuda, mode):
+    """The fused route and the legacy host loop at T=0 in the intra-broker
+    mode, and warm-started from another placement with configuration 3's
+    chain: identical placements and rounds, one blocking sync; the warm
+    start leaves the caller's tensors as they were."""
+    intra = mode == "intra"
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0,
+                                             disks_per_broker=3), seed=2, device=cuda)
+    chain = GoalChain.from_names(list(DEFAULT_INTRA_BROKER_GOAL_ORDER if intra else CONFIG3_CHAIN))
+    cfg = dataclasses.replace(CFG, init_temperature_scale=0.0, num_rounds=4, intra_broker=intra)
+    start = None
+    if not intra:
+        first, _ = Engine(state, chain, config=dataclasses.replace(cfg, seed=11)).run()
+        start = (first.replica_broker, first.replica_is_leader, first.replica_disk)
+        kept = tuple(t.clone() for t in start)
+    out = {}
+    for fused in (True, False):
+        eng = Engine(state, chain, config=dataclasses.replace(cfg, fused_rounds=fused))
+        out[fused] = eng.run(initial_placement=start)
+    (final_f, hist_f), (final_l, hist_l) = out[True], out[False]
+    rounds = [(h["round"], h["accepted"], h.get("early_stop"), h.get("extra")) for h in hist_f if "round" in h]
+    assert rounds == [(h["round"], h["accepted"], h.get("early_stop"), h.get("extra"))
+                      for h in hist_l if "round" in h]
+    assert sum(r[1] for r in rounds) > 0
+    for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+        assert torch.equal(getattr(final_f, f), getattr(final_l, f)), f
+    timing = hist_f[-1]
+    assert timing["fused"] is True and timing["blocking_syncs"] == 1 and timing["graph_launches"] == 1
+    if intra:
+        assert torch.equal(final_f.replica_broker, state.replica_broker)
+        assert torch.equal(final_f.replica_is_leader, state.replica_is_leader)
+    else:
+        for t, k in zip(start, kept):
+            assert torch.equal(t, k)
 
 
 def test_candidates_refuse_mixed_devices(cuda):
