@@ -72,6 +72,24 @@ Phases:
  11. Warm start on the north star: from the statics' own placement, the
      cold run's trajectory exactly; from phase 4's result, one graph
      launch and one sync, the caller's tensors unchanged.
+ 12. Convergence diagnostics on the north star (diagnostics=True): phase
+     4's placements, rounds and proposals, one graph launch and one sync,
+     every round's diagnostics with accepted == sum(accepted_by_kind), the
+     convergence summary's last objective the after-report's; warmed runs
+     with and without diagnostics timed in turns; select_survivors'
+     diagnostics instantiation against its plain version (exact).
+ 13. The learned prior on the north star: a cold prior is phase 4's run
+     bit for bit; the candidates prior variant against its plain version on
+     one warm-prior step (a MoveAcceptancePrior fitted on phase 4's
+     proposals at mix 0.5), acceptance and the took-the-prior mask
+     identical on every candidate; the warm-prior proposal; a second table
+     through optimize(prior=) and a third through rebind_prior: no capture,
+     one graph launch.
+ 14. bf16 scoring on the north star: the candidates bf16 variant against
+     the bf16 plain version on one step (acceptance identical on every
+     candidate, deltas bit for bit), timed against the f32 call in turns;
+     the proposal meets
+     the JAX package's tolerance gate against phase 4's f32 objective.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -149,6 +167,12 @@ SOURCES = {
 JBOD_CASES = {
     "candidates_disk_terms": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:1767"),
     "candidates_intra": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:2078"),
+}
+#: the variants of phases 12-14, as rows of their own in the kernels line
+VARIANT_CASES = {
+    "select_survivors_diag": ("select.cu", "cruise_control_tpu/analyzer/engine.py:2699"),
+    "candidates_prior": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:1832"),
+    "candidates_bf16": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:1656"),
 }
 #: the kernels the main path launches; the other two are standalone since
 #: the candidates kernel fused them, and the main path must launch them 0 times
@@ -993,7 +1017,7 @@ def profile_steps(state, cfg) -> dict:
     return out
 
 
-def run_proposal(opt, state, label, initial_placement=None):
+def run_proposal(opt, state, label, initial_placement=None, prior=None):
     import numpy as np
     import torch
 
@@ -1004,7 +1028,7 @@ def run_proposal(opt, state, label, initial_placement=None):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.monotonic()
-    res = opt.optimize(state, initial_placement=initial_placement)
+    res = opt.optimize(state, initial_placement=initial_placement, prior=prior)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1420,6 +1444,354 @@ def check_warm_start(state, cfg, exact: dict) -> dict:
     return rec
 
 
+def on_cpu(x):
+    """A copy of x on the CPU: a tensor, or a dict or dataclass of them
+    (recursively)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: on_cpu(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(on_cpu(v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: on_cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def capture_step(state, cfg, prior=None):
+    """An engine of `cfg` (and `prior`) and the recorded wrapper calls of
+    its first step at T=0 (the legacy route's eager step)."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+    from cruise_control_tpu_torch.analyzer.draws import Key
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
+    from cruise_control_tpu_torch.kernels import select as select_k
+
+    eng = Engine(state, DEFAULT_CHAIN, config=cfg, prior=prior)
+    carry = eng.init_carry(Key.from_seed(cfg.seed))
+    plan = eng.plan(carry)
+    with Capture([(cand_k, "candidates"), (select_k, "select_survivors")]) as cap:
+        eng.step(carry, 0.0, plan)
+    torch.cuda.synchronize()
+    return eng, cap
+
+
+def prior_probe_bytes(eng, ck, keys) -> int:
+    """Bytes of the prior table the prior-drawn lanes of one step read,
+    each once: the CDF entries their binary searches probe (replayed here
+    on the step's draws), 4 B each."""
+    import torch
+
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
+
+    sx = eng.statics
+    fp = ck["from_prior"]
+    t = sx.state.replica_topic[ck["payr"]["r"][:eng.K_r][fp].long()].long()
+    if isinstance(keys, cand_k.KeyCursor):
+        keys = keys.step_keys()
+    u = cand_k._uniform(keys.prior_p, eng.K_r, t.device)[fp]
+    B = sx.prior_cdf.shape[1]
+    cdf = sx.prior_cdf.flatten()
+    lo, hi = torch.zeros_like(t), torch.full_like(t, sx.n_dest)
+    probed = []
+    while bool((lo < hi).any()):
+        act = lo < hi
+        mid = lo + (hi - lo) // 2
+        probed.append((t * B + mid)[act])
+        go = cdf[t * B + mid.clamp(max=B - 1)] <= u
+        lo = torch.where(act & go, mid + 1, lo)
+        hi = torch.where(act & ~go, mid, hi)
+    return 4 * (int(torch.unique(torch.cat(probed)).numel()) if probed else 0)
+
+
+def check_candidates_variant(eng, cap, label: str, extra_ops: float, extra_bytes,
+                             bitwise: bool = False) -> tuple[dict, dict]:
+    """Phases 13-14: a candidates variant against its plain version on the
+    card on one real north-star step: ids, masks, the took-the-prior mask
+    and payload rows exact, acceptance identical on every candidate,
+    deltas within the delta bar (bit-identical ones counted, and against
+    the plain version on the CPU too; with `bitwise`, every delta bit for
+    bit against both); the kernel's and the plain version's times and the
+    bound."""
+    import torch
+
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
+
+    (c_args, c_kw), = cap.calls["candidates"]
+    ck = cand_k.candidates(*c_args, **c_kw)
+    cpl = cand_k.candidates_plain(*c_args, **c_kw)
+    K = int(cpl["delta"].shape[0])
+    for f in ("feas", "src", "dst", "part1", "part2", "accept"):
+        check(torch.equal(ck[f], cpl[f]), f"{label}: candidates {f} differs from the plain version")
+    check((ck["from_prior"] is None) == (cpl["from_prior"] is None)
+          and (cpl["from_prior"] is None or torch.equal(ck["from_prior"], cpl["from_prior"])),
+          f"{label}: the took-the-prior mask differs from the plain version")
+    for name in ("payr", "payl"):
+        for f, want in cpl[name].items():
+            check(torch.equal(ck[name][f], want), f"{label}: candidates payload {name}.{f} differs")
+    err = float((ck["delta"] - cpl["delta"]).abs().max())
+    bad = int(((ck["delta"] - cpl["delta"]).abs() > delta_bar(cpl["delta"])).sum())
+    check(bool(torch.isfinite(ck["delta"]).all()) and bad == 0,
+          f"{label}: {bad} candidate deltas outside tolerance (max err {err})")
+    same_bits = int((ck["delta"].view(torch.int32) == cpl["delta"].view(torch.int32)).sum())
+    cpu = cand_k.candidates_plain(*on_cpu(c_args), **on_cpu(c_kw))
+    same_bits_cpu = int((ck["delta"].cpu().view(torch.int32) == cpu["delta"].view(torch.int32)).sum())
+    accept_cpu = bool(torch.equal(ck["accept"].cpu(), cpu["accept"]))
+    check(not bitwise or (same_bits == same_bits_cpu == K and accept_cpu),
+          f"{label}: deltas not bit for bit: {same_bits} / {same_bits_cpu} of {K} (card / CPU plain)")
+    kt = measure(lambda: cand_k.candidates(*c_args, **c_kw))
+    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw))
+    nb = candidates_bound_bytes(eng, c_args[2], ck) + extra_bytes(ck, c_args[3])
+    s = eng.shape
+    b_ms, b_by = bound(nb, (600.0 + extra_ops) * K + 90.0 * (s.B + s.num_hosts))
+    rec = dict(
+        max_abs_err=err, **timings(kt, pt), library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        bound_bytes=nb, tolerance="ids, masks, payload and acceptance exact; " + (
+            "deltas bit for bit (the plain version on the card and on the CPU)" if bitwise else
+            "|d| <= 1e-4 (|plain| + 1e-2 max|plain|)"),
+        deltas_bit_identical=same_bits, deltas_bit_identical_cpu=same_bits_cpu,
+        accept_identical_cpu=accept_cpu, accepted=int(ck["accept"].sum()),
+        from_prior=None if ck["from_prior"] is None else int(ck["from_prior"].sum()), n=K,
+    )
+    log(json.dumps({"phase": "kernel", "name": label, **rec}))
+    return rec, dict(args=c_args, kw=c_kw)
+
+
+def engine_runs(state, cfgs: dict, order) -> dict:
+    """Warmed fused runs of one engine per config (each captured by a
+    first run), in `order`: host wall to the sync and `device_s` of each."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+
+    engs = {k: Engine(state, DEFAULT_CHAIN, config=c) for k, c in cfgs.items()}
+    for e in engs.values():
+        e.run()
+    out = {k: dict(wall_ms=[], device_s=[]) for k in engs}
+    for k in order:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, hist = engs[k].run()
+        torch.cuda.synchronize()
+        out[k]["wall_ms"].append((time.monotonic() - t0) * 1e3)
+        out[k]["device_s"].append(hist[-1]["device_s"])
+    for e in engs.values():
+        e.release()
+    return out
+
+
+def check_diagnostics(state, cfg, exact: dict) -> dict:
+    """Phase 12: convergence diagnostics on the north star through
+    optimize: the placements, rounds and proposals of phase 4's run; one
+    graph launch and one sync; every round record carries the diagnostics
+    with accepted == sum(accepted_by_kind); the convergence summary's last
+    objective is the after-report's (rtol 1e-5, after the summary's
+    rounding to 8 decimals); warmed runs with and without diagnostics
+    timed in turns; and select_survivors' diagnostics instantiation
+    against its plain version on the step's inputs."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.kernels import select as select_k
+
+    cfg_d = dataclasses.replace(cfg, diagnostics=True)
+    dev = state.device
+    opt = GoalOptimizer(config=cfg_d, device=dev)
+    res, launches = run_proposal(opt, state, "diagnostics_north_star")
+    rounds = [h for h in res.history if "round" in h]
+    timing = next(h for h in res.history if h.get("timing"))
+    conv = timing["convergence"]
+    same = all(bool(torch.equal(getattr(res.state_after, f), exact[f])) for f in PLACEMENT)
+    kinds_ok = all(r["accepted"] == sum(r["accepted_by_kind"].values())
+                   and len(r["goal_violations"]) == len(res.goal_names) for r in rounds)
+    last = conv["objective_trajectory"][-1]
+    obj_gap = abs(last - res.objective_after)
+    rec = dict(phase="diagnostics_check", identical_to_phase4=same, rounds=len(rounds),
+               proposals=len(res.proposals), accepted=[r["accepted"] for r in rounds],
+               accepted_by_kind=conv["accepted_by_kind"], prior=conv["prior"],
+               objective_trajectory=conv["objective_trajectory"],
+               last_round_objective=rounds[-1]["objective"], objective_after=res.objective_after,
+               final_goal_violations=conv["final_goal_violations"], graph_launches=timing["graph_launches"],
+               blocking_syncs=timing["blocking_syncs"], wall_s=res.wall_seconds,
+               device_s=timing["device_s"], launches=launches)
+    check(same and len(rounds) == exact["rounds"] and len(res.proposals) == exact["proposals"],
+          f"diagnostics changed the north star's run: {rec}")
+    check(kinds_ok, "diagnostics: a round record's counts do not add up")
+    check(obj_gap <= 5e-9 + 1e-5 * abs(res.objective_after)
+          and abs(rounds[-1]["objective"] - res.objective_after) <= 1e-5 * abs(res.objective_after),
+          f"diagnostics: last objective {last} / {rounds[-1]['objective']} vs {res.objective_after}")
+    for engine in opt._engines.values():
+        engine.release()
+    del opt, res
+    runs = engine_runs(state, {"off": cfg, "on": cfg_d}, ("off", "on", "on", "off", "off", "on"))
+    rec["warm_runs"] = runs
+    log(json.dumps(rec))
+
+    # select_survivors<true> on the step's inputs, with a took-the-prior
+    # mask over 40% of the relocations (seeded) so that every count moves
+    eng, cap = capture_step(state, cfg)
+    (args, kw), = cap.calls["select_survivors"]
+    sizes = dict(B=kw["num_brokers"], P=kw["num_parts"], n_r=kw["n_r"], n_s=kw["n_s"])
+    g = torch.Generator(device=dev).manual_seed(12)
+    fp = torch.rand(sizes["n_r"], generator=g, device=dev) < 0.4
+    K = int(args[0].shape[0])
+    bufs = select_k.select_buffers(K, sizes["n_r"], sizes["n_s"], sizes["B"], sizes["P"], dev,
+                                   n_epochs=3)
+    n_acc = len(select_k.DIAG_FIELDS)
+    acc = torch.zeros(n_acc, dtype=torch.int64, device=dev)
+    for epoch, mask in ((1, fp), (2, None), (3, fp)):
+        before = acc.clone()
+        got = select_k.select_survivors(*args, num_brokers=sizes["B"], num_parts=sizes["P"],
+                                        n_r=sizes["n_r"], n_s=sizes["n_s"], acc=acc, bufs=bufs,
+                                        epoch=select_k.Epoch(epoch - 1), from_prior=mask, diag=True)
+        want = select_k.select_plain(*args, *sizes.values(), from_prior=mask, diag=True)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and (acc - before).tolist() == want[2].tolist(),
+              f"select_survivors_diag differs from the plain version at epoch {epoch}")
+    counts = dict(zip(select_k.DIAG_FIELDS, want[2].tolist()))
+    check(counts["accepted"] == counts["acc_replica"] + counts["acc_swap"] + counts["acc_lead"] > 0,
+          f"select_survivors_diag: counts do not add up: {counts}")
+    acc_t = torch.zeros(n_acc, dtype=torch.int64, device=dev)
+    kt = measure(lambda: select_k.select_survivors(*args, **{**kw, "acc": acc_t, "bufs": bufs,
+                                                             "from_prior": fp, "diag": True}))
+    one_launch(kt, "select_survivors_kernel")
+    pt = measure(lambda: select_k.select_plain(*args, *sizes.values(), from_prior=fp, diag=True))
+    acc1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    default = measure(lambda: select_k.select_survivors(*args, **{**kw, "acc": acc1, "bufs": bufs}))
+    # the default kernel's bytes, the mask (1 B a relocation) and five more
+    # 8-byte counts; ~12 operations a candidate and ~6 for the tally
+    nb = nbytes(*args, got[0], got[1], acc1) + nbytes(fp) + 8 * (n_acc - 1)
+    b_ms, b_by = bound(nb, 18.0 * K)
+    out = dict(max_abs_err=0.0, **timings(kt, pt), library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               bound_bytes=nb, default_kernel_ms=default["ms"], default_kernel_call_ms=default["call_ms"],
+               tolerance="exact survivors, relocation mask and the six counts, fresh and over 3 "
+                         "epochs of one buffer, with and without a prior mask",
+               counts=counts, n=K, launches=launches["select_survivors"])
+    log(json.dumps({"phase": "kernel", "name": "select_survivors_diag", **out}))
+    eng.release()
+    return out
+
+
+def fit_prior(res, state, mix: float):
+    """Phase 13's warm prior: MoveAcceptancePrior(mix, min_observations=0)
+    fitted on a proposal's moves, materialised on the cluster's (T, B).  The
+    north-star fixture has no ClusterCatalog, so the catalog names topic t
+    "t<t>": the table is the one ProposalSet.destination_pairs gives
+    directly, mass per (topic, destination broker)."""
+    from cruise_control_tpu_torch.controller import MoveAcceptancePrior
+    from cruise_control_tpu_torch.models.builder import ClusterCatalog
+
+    catalog = ClusterCatalog(topics=tuple(f"t{t}" for t in range(state.shape.num_topics)), partitions=())
+    prior = MoveAcceptancePrior(mix=mix, min_observations=0)
+    n = prior.observe_proposals(res.proposals, catalog)
+    return prior.table(catalog, state.shape), n
+
+
+def check_prior(state, cfg, exact: dict, table, table2, table3) -> dict:
+    """Phase 13: the learned prior on the north star.  A cold prior
+    (prior_enabled, no prior: mix 0) is phase 4's run bit for bit; the
+    candidates prior variant against its plain version on one warm-prior
+    step (acceptance and the took-the-prior mask identical on every
+    candidate); the warm-prior proposal (hard goals met, validation clean:
+    rounds, proposals and objective reported, not claimed better); then
+    `optimize(prior=)` with a second table and `rebind_prior` with a third
+    on the same engine: no capture, one graph launch."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+
+    cfg_p = dataclasses.replace(cfg, prior_enabled=True)
+    opt = GoalOptimizer(config=cfg_p, device=state.device)
+    cold, _ = run_proposal(opt, state, "prior_cold_north_star")
+    rounds = [h["accepted"] for h in cold.history if "round" in h]
+    same = all(bool(torch.equal(getattr(cold.state_after, f), exact[f])) for f in PLACEMENT)
+    check(same and rounds == exact["accepted"] and len(cold.proposals) == exact["proposals"],
+          f"a cold prior is not phase 4's run: identical={same}, rounds {rounds}")
+    del cold
+    eng, cap = capture_step(state, cfg_p, prior=table)
+    krec, _ = check_candidates_variant(eng, cap, "candidates_prior", 180.0,
+                                       lambda ck, keys: 16 + 4 + eng.K_r + prior_probe_bytes(eng, ck, keys))
+    eng.release()
+    del eng, cap
+    warm, launches = run_proposal(opt, state, "prior_warm_north_star", prior=table)
+    w_rounds = [h for h in warm.history if "round" in h]
+    second, _ = run_proposal(opt, state, "prior_second_table", prior=table2)
+    t2 = next(h for h in second.history if h.get("timing"))
+    engine = next(iter(opt._engines.values()))
+    n_caps = len(engine.graph_stats.get("captures", []))
+    engine.rebind_prior(table3)
+    final3, hist3 = engine.run()
+    t3 = hist3[-1]
+    rec = dict(phase="prior_check", cold_identical_to_phase4=same, warm_mix=table.mix,
+               warm_rounds=len(w_rounds), warm_accepted=[h["accepted"] for h in w_rounds],
+               warm_proposals=len(warm.proposals), warm_objective=[warm.objective_before,
+                                                                   warm.objective_after],
+               warm_violated_after=warm.violated_goals_after(), phase4_rounds=exact["rounds"],
+               phase4_proposals=exact["proposals"], phase4_objective_after=exact["objective_after"],
+               second_table_captured=t2["captured"], second_table_graph_launches=t2["graph_launches"],
+               rebind_prior_captured=t3["captured"], rebind_prior_graph_launches=t3["graph_launches"],
+               captures_before_after_rebind_prior=[n_caps, len(engine.graph_stats.get("captures", []))],
+               launches=launches)
+    log(json.dumps(rec))
+    check(t2["captured"] == [] and t2["graph_launches"] == 1 and t2["engine_cache_hit"],
+          f"optimize(prior=) with a second table captured anew: {t2}")
+    check(t3["captured"] == [] and t3["graph_launches"] == 1 and t3["blocking_syncs"] == 1
+          and rec["captures_before_after_rebind_prior"][0] == rec["captures_before_after_rebind_prior"][1],
+          f"rebind_prior captured anew: {t3}")
+    for engine in opt._engines.values():
+        engine.release()
+    krec["launches"] = launches["candidates"]
+    return krec
+
+
+def check_bf16(state, cfg, exact: dict) -> dict:
+    """Phase 14: bf16 scoring on the north star.  The candidates bf16
+    variant against the bf16 plain version on one step (acceptance
+    identical on every candidate; deltas bit for bit, against the plain
+    version on the card and on the CPU);
+    its time against the f32 call's in turns; the proposal: hard goals
+    met, validation clean, and the JAX package's tolerance gate against
+    phase 4's f32 objective, |obj_bf16 - obj_f32| <= 0.02 max(|obj_f32|,
+    1e-6) (analyzer.precision.tolerance)."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
+
+    cfg_b = dataclasses.replace(cfg, score_dtype="bfloat16")
+    eng, cap = capture_step(state, cfg_b)
+    krec, call = check_candidates_variant(eng, cap, "candidates_bf16", 30.0, lambda ck, keys: 0,
+                                          bitwise=True)
+    f32_eng, f32_cap = capture_step(state, cfg)
+    (f_args, f_kw), = f32_cap.calls["candidates"]
+    turns = []
+    for which in ("f32", "bf16", "bf16", "f32"):
+        a, k = (f_args, f_kw) if which == "f32" else (call["args"], call["kw"])
+        turns.append([which, measure(lambda: cand_k.candidates(*a, **k))["ms"]])
+    krec["f32_vs_bf16_ms"] = turns
+    eng.release()
+    f32_eng.release()
+    del eng, cap, f32_eng, f32_cap, call
+    opt = GoalOptimizer(config=cfg_b, device=state.device)
+    res, launches = run_proposal(opt, state, "bf16_north_star")
+    ref = exact["objective_after"]
+    gap = abs(res.objective_after - ref)
+    bar = 0.02 * max(abs(ref), 1e-6)
+    rounds = [h for h in res.history if "round" in h]
+    rec = dict(phase="bf16_check", objective_after=res.objective_after, f32_objective_after=ref,
+               gap=gap, gate=bar, rounds=len(rounds), accepted=[h["accepted"] for h in rounds],
+               proposals=len(res.proposals), violated_after=res.violated_goals_after(),
+               candidates_ms_turns=turns, launches=launches)
+    log(json.dumps(rec))
+    check(gap <= bar, f"bf16: objective {res.objective_after} vs f32 {ref} fails the 0.02 gate")
+    for engine in opt._engines.values():
+        engine.release()
+    krec["launches"] = launches["candidates"]
+    return krec
+
+
 def main() -> int:
     try:
         import torch
@@ -1438,7 +1810,7 @@ def main() -> int:
     from cruise_control_tpu_torch.analyzer import GoalOptimizer, OptimizerConfig
     from cruise_control_tpu_torch.kernels import _build
     from cruise_control_tpu_torch.kernels import schedule as sched_k
-    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster_fast
+    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, prior_table, random_cluster_fast
 
     # phase 1: the card and the build
     smi = subprocess.run(
@@ -1490,6 +1862,12 @@ def main() -> int:
     exact.update(objective_before=res4.objective_before, objective_after=res4.objective_after,
                  violated_after=res4.violated_goals_after(), proposals=len(res4.proposals),
                  rounds=rounds[0], accepted=[h["accepted"] for h in res4.history if "round" in h])
+    # phase 13's tables: the prior fitted on this run's moves at mix 0.5 and
+    # 1.0, and a seeded table of testing/fixtures.py at mix 0.25
+    fitted = [fit_prior(res4, state, mix) for mix in (0.5, 1.0)]
+    prior_tables = [t for t, _ in fitted] + [prior_table(s, 7, 0.25)]
+    log(json.dumps({"phase": "prior_fit", "pairs": fitted[0][1],
+                    "topics_with_mass": int((prior_tables[0].weights.sum(1) > 0).sum())}))
     del res4, again
 
     # phase 5: decommission 1% of the brokers on the same optimizer
@@ -1530,6 +1908,13 @@ def main() -> int:
     check_bucketed(state, cfg, exact)
     # phase 11: warm starts on the north star
     check_warm_start(state, cfg, exact)
+    torch.cuda.empty_cache()
+    # phase 12: convergence diagnostics on the north star
+    variants = {"select_survivors_diag": check_diagnostics(state, cfg, exact)}
+    # phase 13: the learned prior on the north star
+    variants["candidates_prior"] = check_prior(state, cfg, exact, *prior_tables)
+    # phase 14: bf16 scoring on the north star
+    variants["candidates_bf16"] = check_bf16(state, cfg, exact)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
@@ -1541,8 +1926,8 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
         })
-    for name, (src, replaces) in JBOD_CASES.items():
-        k = jbod[name]
+    for name, (src, replaces) in {**JBOD_CASES, **VARIANT_CASES}.items():
+        k = jbod[name] if name in jbod else variants[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"cruise_control_tpu_torch/kernels/csrc/{src}", "replaces": replaces,

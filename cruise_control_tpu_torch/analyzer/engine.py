@@ -60,9 +60,22 @@ warm-starts the anneal from another placement: the init graph reads the
 start placement from fixed staging tensors that the run fills before its
 launch, so a warm start neither recaptures nor adds a sync.
 
-Not in this port yet (each raises NotImplementedError when configured):
-the learned move-acceptance prior, convergence diagnostics, bf16 scoring;
-segmented execution, ahead-of-time compilation, the streaming cycle and
+`prior_enabled=True` mixes the learned move-acceptance prior
+(controller/prior.py) into the relocations' destination draws: the
+candidates kernel reads the prior's per-topic CDF and mix from fixed
+statics tensors, which `rebind(prior=)` and `rebind_prior` refill in place,
+so a new prior is data, never a recapture; a cold prior (mix 0) draws the
+uniform stream bit for bit.  `diagnostics=True` adds to every round that
+ran its survivors by kind, its prior usage and the full chain's objective
+and per-goal violations after the round (counted by select_survivors and
+evaluated inside the captured round body, written by the schedule's
+CLOSE), with no extra sync; the run's timing record carries the
+`convergence` summary.  The legacy route ignores it, as the JAX
+package's does.  `score_dtype="bfloat16"` sums the broker terms (in the
+candidates kernel and the plain objective views) and the chain's weighted
+objective in bf16; violations, scores and reports stay f32.
+
+Segmented execution, ahead-of-time compilation, the streaming cycle and
 the mesh engines have no entry point here.
 """
 
@@ -76,7 +89,7 @@ import torch
 
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.analyzer.draws import Key
-from cruise_control_tpu_torch.analyzer.objective import TIE_WEIGHT, GoalChain
+from cruise_control_tpu_torch.analyzer.objective import SCORE_DTYPES, TIE_WEIGHT, GoalChain
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
 from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
@@ -123,9 +136,17 @@ class OptimizerConfig:
     #: True: the fused schedule (one blocking sync a run); False: the
     #: legacy host-driven round loop (syncs every round)
     fused_rounds: bool = True
-    prior_enabled: bool = False  # not ported: raises
-    diagnostics: bool = False  # not ported: raises
-    score_dtype: str = "float32"  # "bfloat16" not ported: raises
+    #: learned move-acceptance prior: relocation destination draws mix a
+    #: per-(source topic, destination) categorical (controller/prior.py)
+    #: into the uniform draw; a cold prior (mix 0) is the uniform stream
+    prior_enabled: bool = False
+    #: convergence diagnostics: each round's objective, per-goal
+    #: violations, survivors by kind and prior usage, in the fused run's
+    #: ys (no extra sync); the legacy route ignores it
+    diagnostics: bool = False
+    #: "bfloat16" sums the broker terms and the chain's weighted objective
+    #: in bf16 (analyzer.precision.score.dtype); violations stay f32
+    score_dtype: str = "float32"
 
     def __post_init__(self):
         if self.num_rounds < 1:
@@ -136,7 +157,7 @@ class OptimizerConfig:
             raise ValueError(f"max_extra_rounds must be >= 0, got {self.max_extra_rounds}")
         if self.num_candidates < 1:
             raise ValueError(f"num_candidates must be >= 1, got {self.num_candidates}")
-        if self.score_dtype not in ("float32", "bfloat16"):
+        if self.score_dtype not in SCORE_DTYPES:
             raise ValueError(
                 f"score_dtype must be 'float32' or 'bfloat16', got {self.score_dtype!r}"
             )
@@ -152,17 +173,15 @@ class OptimizerConfig:
         """The early-stop threshold as the f32 value the checks compare against."""
         return float(np.float32(self.early_stop_violations))
 
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for the modes this port lacks."""
-        missing = [
-            name for name, on in (
-                ("prior_enabled", self.prior_enabled),
-                ("diagnostics", self.diagnostics),
-                ("score_dtype=bfloat16", self.score_dtype != "float32"),
-            ) if on
-        ]
-        if missing:
-            raise NotImplementedError(f"not ported to the PyTorch engine: {', '.join(missing)}")
+
+#: per-round keys of the fused run's ys (the JAX package's FUSED_YS_KEYS)
+FUSED_YS_KEYS = ("accepted", "ran", "stopped", "temperature", "cheap")
+#: the keys with convergence diagnostics: the full chain's objective, the
+#: per-goal violation vector, survivors by kind and prior usage
+FUSED_DIAG_YS_KEYS = FUSED_YS_KEYS + (
+    "objective", "goal_viol", "acc_replica", "acc_swap", "acc_lead",
+    "prior_cands", "prior_acc",
+)
 
 
 @dataclasses.dataclass
@@ -238,6 +257,12 @@ class EngineStatics:
     #: valid brokers grouped by host (the rest by the sentinel H): the
     #: refresh's host pass
     host_groups: HostGroups
+    #: f32[T, B] per-source-topic inclusive CDF over destination positions
+    #: (the learned prior; 1.0 from n_dest on), f32[1, 1] zeros when the
+    #: engine has no prior; and the f32[1] mix.  Fixed tensors: a new
+    #: prior is copied into them (`Engine.rebind_prior`)
+    prior_cdf: torch.Tensor
+    prior_mix: torch.Tensor
 
     def check_placement(self, placement) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """A (replica_broker, replica_is_leader, replica_disk) triple of
@@ -275,8 +300,43 @@ class SamplingPlan:
     lead_cost: torch.Tensor  # f32 scalar: price per strayed leadership
 
 
-def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineStatics:
-    """Host-side (numpy) preprocessing of one model generation."""
+def _prior_fields(prior, T: int, B: int, dest_idx: np.ndarray) -> tuple[np.ndarray, float]:
+    """(prior_cdf f32[T, B], prior_mix) from a duck-typed prior (`.weights`
+    f32[T, B] in broker-id space, `.mix` float) and the real destination
+    list `dest_idx`: the prior's weights moved onto destination positions,
+    normalised per topic (uniform over the real destinations for a topic
+    with no weight), as inclusive CDFs; 1.0 from n_dest on.  The JAX
+    package's `_prior_fields`."""
+    n_dest_int = int(dest_idx.size)
+    prior_cdf = np.ones((T, B), np.float32)
+    w = None if prior is None else getattr(prior, "weights", None)
+    if w is not None:
+        w = np.asarray(w, np.float32)
+        if w.shape != (T, B):
+            raise ValueError(f"prior weights shape {w.shape} != model (T={T}, B={B})")
+        w_pos = np.maximum(w[:, dest_idx], 0.0)  # [T, n_dest]
+    else:
+        w_pos = np.zeros((T, n_dest_int), np.float32)
+    tot = w_pos.sum(1, keepdims=True)
+    uni = np.full((T, n_dest_int), 1.0 / max(1, n_dest_int), np.float32)
+    probs = np.where(tot > 0.0, w_pos / np.maximum(tot, 1e-12), uni)
+    prior_cdf[:, :n_dest_int] = np.cumsum(probs, axis=1)
+    prior_mix = float(getattr(prior, "mix", 0.0)) if prior is not None else 0.0
+    if not 0.0 <= prior_mix <= 1.0:
+        raise ValueError(f"prior mix must be in [0, 1], got {prior_mix}")
+    return prior_cdf, prior_mix
+
+
+def build_statics(state: ClusterState, options: OptimizationOptions, *, prior=None,
+                  prior_full_shape: bool = False, layout_out: dict | None = None) -> EngineStatics:
+    """Host-side (numpy) preprocessing of one model generation.
+
+    `prior` (`.weights` f32[T, B] on this generation's topic ids, `.mix`)
+    is the learned move-acceptance prior, moved onto destination positions
+    here; without `prior_full_shape` (an engine with prior_enabled=False)
+    the statics carry an f32[1, 1] placeholder and mix 0.  `layout_out`,
+    when given, receives the real destination list ("dest_idx") that a
+    later prior refresh needs (`Engine.rebind_prior`)."""
     s = state.shape
     dev = state.device
     h = {
@@ -311,6 +371,12 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
     host_start[1:] = np.cumsum(np.bincount(host_group, minlength=s.num_hosts + 1))
     front_packed = bool(h["replica_valid"][:n_valid_int].all())
     n_source = n_valid_int if front_packed else s.R
+    if layout_out is not None:
+        layout_out["dest_idx"] = dest_idx
+    if prior_full_shape:
+        prior_cdf, prior_mix = _prior_fields(prior, s.num_topics, s.B, dest_idx)
+    else:
+        prior_cdf, prior_mix = np.zeros((1, 1), np.float32), 0.0
 
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -340,6 +406,8 @@ def build_statics(state: ClusterState, options: OptimizationOptions) -> EngineSt
         apply_events=torch.zeros((2, s.B, 8), dtype=torch.float32, device=dev),
         shared_hosts=bool((np.diff(host_start)[:s.num_hosts] > 1).any()),
         host_groups=HostGroups.of(t(valid_b), t(host, torch.int32), s.num_hosts),
+        prior_cdf=t(prior_cdf),
+        prior_mix=t(np.asarray([prior_mix], np.float32)),
     )
 
 
@@ -420,12 +488,17 @@ def _same_value(a, b) -> bool:
     return a == b
 
 
+#: statics fields a model generation may change without new graphs: the
+#: apply_moves scratch, and the prior, which is copied into the kept
+#: statics' tensors
+_DATA_FIELDS = ("apply_slots", "apply_events", "prior_cdf", "prior_mix")
+
+
 def _same_statics(a: EngineStatics, b: EngineStatics) -> bool:
     """Whether two model generations give the engine the same statics (the
-    apply_moves scratch aside)."""
+    apply_moves scratch and the prior aside)."""
     return all(_same_value(getattr(a, f.name), getattr(b, f.name))
-               for f in dataclasses.fields(EngineStatics)
-               if f.name not in ("apply_slots", "apply_events"))
+               for f in dataclasses.fields(EngineStatics) if f.name not in _DATA_FIELDS)
 
 
 def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -449,6 +522,8 @@ class _Workspace:
     gbuf: torch.Tensor  # the step's globals (kernels/step_globals.py)
     sched: sched_k.Schedule
     keys: torch.Tensor  # the run's key table, i32[steps, KEY_WORDS]
+    #: the prior draws' keys of each step, i32[steps, PRIOR_KEY_WORDS], or None
+    prior_keys: torch.Tensor | None
     cand: dict | None  # the candidates kernel's outputs (CUDA)
     sel: select_k.SelectBuffers | None  # select_survivors' buffers (CUDA)
     #: the run's start placement (replica_broker, replica_is_leader,
@@ -474,7 +549,9 @@ class Engine:
     """Optimization engine bound to one ClusterShape and device.
 
     Reuse one Engine across model generations of the same shape with
-    `rebind(state)`.
+    `rebind(state)`; `prior` (prior_enabled engines) is the learned
+    move-acceptance prior (`.weights` f32[T, B], `.mix`), refreshed by
+    `rebind(prior=)` or `rebind_prior`.
     """
 
     def __init__(
@@ -484,8 +561,8 @@ class Engine:
         constraint: BalancingConstraint = DEFAULT_CONSTRAINT,
         options: OptimizationOptions = DEFAULT_OPTIONS,
         config: OptimizerConfig = OptimizerConfig(),
+        prior=None,
     ):
-        config.check_ported()
         self.chain = chain
         self.constraint = constraint
         self.config = config
@@ -503,29 +580,38 @@ class Engine:
             self.K_r = config.num_candidates - self.K_l - self.K_s
         self._chain_w = torch.tensor(chain.weights, dtype=torch.float32, device=self.device)
         self._ws: _Workspace | None = None
+        #: the real destination list of the current statics (rebind_prior)
+        self._dest_idx: np.ndarray | None = None
         #: capture and graph statistics of the current model generation
         self.graph_stats: dict = {}
-        self.rebind(state, options)
+        self.rebind(state, options, prior=prior)
 
-    def rebind(self, state: ClusterState, options: OptimizationOptions = DEFAULT_OPTIONS) -> "Engine":
+    def rebind(self, state: ClusterState, options: OptimizationOptions = DEFAULT_OPTIONS,
+               prior=None) -> "Engine":
         """Swap in a new model generation of the same shape.  Captured
         graphs hold the generation's tensors and the values derived from
         them, so they are kept only when the new generation's statics equal
         the old ones (a repeated request); otherwise they are released and
-        the next run captures anew."""
+        the next run captures anew.  The prior (a cold one when None) rides
+        the statics as data: it never decides between the two."""
         if state.shape != self.shape:
             raise ValueError(f"shape changed {self.shape} -> {state.shape}; build a new Engine")
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the engine on {self.device}")
-        statics = build_statics(state, options)
+        layout: dict = {}
+        statics = build_statics(state, options, prior=prior,
+                                prior_full_shape=self.config.prior_enabled, layout_out=layout)
+        self._dest_idx = layout["dest_idx"]
         if self._ws is not None and _same_statics(self.statics, statics):
+            self.statics.prior_cdf.copy_(statics.prior_cdf)
+            self.statics.prior_mix.copy_(statics.prior_mix)
             return self
         self.release()
         self.statics = statics
         sx = self.statics
         self.tp = md.TermParams.build(
             self.w, self.constraint, sx.total_cap.cpu().numpy(), sx.n_valid, sx.n_alive,
-            sx.total_disk_cap,
+            sx.total_disk_cap, bf16=self.config.score_dtype == "bfloat16",
         )
         cfg = self.config
         self.cand = cand_k.CandParams(
@@ -535,9 +621,21 @@ class Engine:
             topic_tt=self.constraint.topic_replica_count_balance_threshold,
             replica_move_cost=cfg.replica_move_cost, leadership_move_cost=cfg.leadership_move_cost,
             importance_fraction=cfg.importance_fraction, num_parts=max(1, self.shape.P),
-            intra=cfg.intra_broker,
+            intra=cfg.intra_broker, prior=cfg.prior_enabled and not cfg.intra_broker,
         )
         return self
+
+    def rebind_prior(self, prior) -> None:
+        """Refresh only the learned prior (the streaming controller's
+        per-window refresh): its CDF and mix, computed on the host from the
+        current statics' destination list, copied into the statics' fixed
+        tensors in stream order.  No statics are rebuilt and no graph is
+        captured.  A no-op without prior_enabled or without a prior."""
+        if not self.config.prior_enabled or prior is None:
+            return
+        cdf, mix = _prior_fields(prior, self.shape.num_topics, self.shape.B, self._dest_idx)
+        self.statics.prior_cdf.copy_(torch.from_numpy(cdf))
+        self.statics.prior_mix.fill_(float(np.float32(mix)))
 
     def release(self) -> None:
         """Free the run's buffers and captured graphs."""
@@ -671,7 +769,8 @@ class Engine:
         scored by the goal chain against the carry's aggregates."""
         agg = BrokerAggregates(**{f: getattr(carry, f) for f in AGG_FIELDS})
         obj, viol, _ = self.chain.evaluate(
-            self.carry_to_state(carry), agg=agg, constraint=self.constraint, weights=self._chain_w
+            self.carry_to_state(carry), agg=agg, constraint=self.constraint, weights=self._chain_w,
+            score_dtype=self.config.score_dtype,
         )
         return obj, viol
 
@@ -736,7 +835,7 @@ class Engine:
         key; updates `carry` in place and returns (carry, stats) with
         device-side counts.  (A run's steps read their keys and temperature
         from the device instead: `_step`.)"""
-        keys = cand_k.StepKeys.of(carry.key, intra=self.config.intra_broker)
+        keys = cand_k.StepKeys.of(carry.key, intra=self.config.intra_broker, prior=self.cand.prior)
         prop = cand_k.candidates(
             self.cand, self.statics, carry, keys, self._globals(carry), plan, temperature
         )
@@ -758,13 +857,15 @@ class Engine:
                        epoch: select_k.Epoch = select_k.Epoch()):
         """The survivors of a bundle, scattered into `carry`.  With the
         workspace, select_survivors writes into its buffers at `epoch` and
-        adds the survivor count into sched.acc.  Returns (survivor mask,
-        the accumulator the count was added to)."""
+        adds the survivor count (with diagnostics, the six counts) into
+        sched.acc.  Returns (survivor mask, the accumulator the count was
+        added to)."""
         nr, ns = prop["nr"], prop["ns"]
         survive, sv_r, acc = select_k.select_survivors(
             prop["accept"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
             num_brokers=self.shape.B, num_parts=self.shape.P, n_r=nr, n_s=ns,
             acc=ws.sched.acc if ws else None, bufs=ws.sel if ws else None, epoch=epoch,
+            from_prior=prop.get("from_prior"), diag=bool(ws and ws.sched.stage is not None),
         )
         apply_k.apply_moves(self.statics, carry, sv_r, prop["payr"], survive[nr + ns:], prop["payl"])
         return survive, acc
@@ -791,8 +892,9 @@ class Engine:
             return self._ws
         cfg, dev, s = self.config, self.device, self.shape
         total = self._n_rounds()
-        table = cand_k.key_table(Key.from_seed(cfg.seed), total * cfg.steps_per_round,
-                                 intra=cfg.intra_broker)
+        table = torch.from_numpy(cand_k.key_table(
+            Key.from_seed(cfg.seed), total * cfg.steps_per_round, intra=cfg.intra_broker,
+            prior=self.cand.prior).view(np.int32))
         group = Grouping.empty(s.R, s.B, dev)
         cuda = dev.type == "cuda"
         K = self.K_r + self.K_s + self.K_l
@@ -801,8 +903,10 @@ class Engine:
             plan=self._empty_plan(group),
             group=group,
             gbuf=torch.empty(glob_k.size(s.num_topics), dtype=torch.float32, device=dev),
-            sched=sched_k.Schedule.create(total, cfg.temperature_decay, dev),
-            keys=torch.from_numpy(table.view(np.int32)).to(dev),
+            sched=sched_k.Schedule.create(total, cfg.temperature_decay, dev, diag=cfg.diagnostics,
+                                          n_goals=len(self.chain.goals)),
+            keys=table[:, :cand_k.KEY_WORDS].contiguous().to(dev),
+            prior_keys=table[:, cand_k.KEY_WORDS:].contiguous().to(dev) if self.cand.prior else None,
             cand=cand_k.candidate_buffers(self.cand, self.statics, dev) if cuda else None,
             sel=select_k.select_buffers(K, self.K_r, self.K_s, s.B, s.P, dev,
                                         n_epochs=total * cfg.steps_per_round) if cuda else None,
@@ -815,7 +919,8 @@ class Engine:
         return sched_k.ScheduleDims(
             n_main=cfg.num_rounds, total=self._n_rounds(), tol_on=cfg.early_stop_violations >= 0.0,
             checks=FULL_CHECK_BUDGET, verbose=verbose, tol=cfg.early_stop_tol,
-            scale=float(np.float32(cfg.init_temperature_scale)),
+            scale=float(np.float32(cfg.init_temperature_scale)), diag=cfg.diagnostics,
+            n_goals=len(self.chain.goals),
         )
 
     def _stage(self, ws: _Workspace, initial_placement) -> None:
@@ -855,19 +960,26 @@ class Engine:
         round index, the temperature from the device scalar t_r."""
         carry = ws.carry
         rnd, spr = ws.sched.si[sched_k.RND: sched_k.RND + 1], self.config.steps_per_round
-        cursor = cand_k.KeyCursor(ws.keys, rnd, i, spr)
+        cursor = cand_k.KeyCursor(ws.keys, rnd, i, spr, ws.prior_keys)
         prop = cand_k.candidates(self.cand, self.statics, carry, cursor,
                                  self._globals(carry, ws.gbuf), ws.plan,
                                  ws.sched.value(sched_k.T_R), bufs=ws.cand)
         self._survive_apply(carry, prop, ws, select_k.Epoch(i, rnd, spr))
 
-    def _round_body(self, ws: _Workspace) -> None:
+    def _round_body(self, ws: _Workspace, diag: bool | None = None) -> None:
         """A round's steps, then the round prep; the accepted count
-        accumulates in sched.acc, the cheap signal lands in sched CHEAP."""
+        accumulates in sched.acc, the cheap signal lands in sched CHEAP.
+        With diagnostics (the config's, unless `diag` says otherwise), the
+        full chain's objective and violations of the post-round carry land
+        in the schedule's stage."""
         for i in range(self.config.steps_per_round):
             self._step(ws, i)
         cheap = self.round_prep(ws)
         ws.sched.value(sched_k.CHEAP).copy_(cheap)
+        if self.config.diagnostics if diag is None else diag:
+            obj, viol = self.evaluate(ws.carry)
+            ws.sched.stage[:1].copy_(obj.reshape(1))
+            ws.sched.stage[1:].copy_(viol)
 
     # ------------------------------------------------------------------
     # the round schedule
@@ -914,7 +1026,7 @@ class Engine:
         sched_k.round_schedule(sched_k.DECIDE, ws.sched, dims)
         if ws.sched.si[sched_k.RUN]:
             self._round_body(ws)
-            if dims.verbose:
+            if dims.verbose and not dims.diag:
                 self._objective(ws)
         sched_k.round_schedule(sched_k.CLOSE, ws.sched, dims)
 
@@ -934,8 +1046,11 @@ class Engine:
         # the body's warm-up is one step and a round prep: the code of
         # every step is the same
         warm = dict(pieces, body=lambda: (self._step(ws, 0), self.round_prep(ws)))
+        # the verbose objective graph; with diagnostics the round body
+        # writes the objective itself
+        obj = verbose and not dims.diag
         todo = [n for n in ("init", "eval", "body", "obj") if n not in ws.graphs]
-        if not verbose and "obj" in todo:
+        if not obj and "obj" in todo:
             todo.remove("obj")
         t0 = time.monotonic()
         stream = torch.cuda.Stream(self.device)
@@ -955,7 +1070,7 @@ class Engine:
             ws.graphs[name] = graph
         t_cap = time.monotonic()
         lg = sched_k.LoopGraph(ws.sched, dims, ws.graphs["init"], ws.graphs["eval"],
-                               ws.graphs["body"], ws.graphs["obj"] if verbose else None)
+                               ws.graphs["body"], ws.graphs["obj"] if obj else None)
         ws.loops[verbose] = lg
         if ws.ys_host is None:
             ws.ys_host = torch.empty(ws.sched.ys.shape, dtype=torch.float64, pin_memory=True)
@@ -1013,12 +1128,16 @@ class Engine:
             count = ws.sched.count.numpy().copy()
         t_sync = time.monotonic()
         history = self._fused_history(ys, verbose=verbose)
-        history.append(dict(
+        timing = dict(
             timing=True, fused=True, blocking_syncs=1, graph_launches=graph_launches,
             captured=captured, loop_iterations=int(count[sched_k.ITERS]),
             masked_rounds=int(count[sched_k.MASKED]),
             host_dispatch_s=round(t_disp - t_start, 6), device_s=round(t_sync - t_disp, 6),
-        ))
+        )
+        conv = self._convergence_summary(ys)
+        if conv is not None:
+            timing["convergence"] = conv
+        history.append(timing)
         return self._final_state(ws), history
 
     def _count_replays(self, ws: _Workspace, ys: np.ndarray, iterations: int,
@@ -1033,14 +1152,34 @@ class Engine:
         kernels.add_launches(ws.graph_launches["init"], 1)
         kernels.add_launches(ws.graph_launches["eval"], int(ys[:, col["full_check"]].sum()))
         kernels.add_launches(ws.graph_launches["body"], ran)
-        if verbose:
+        if verbose and not self.config.diagnostics:
             kernels.add_launches(ws.graph_launches["obj"], ran)
         kernels.LAUNCHES["round_schedule"] += 3 * iterations + 1
 
+    def _ys_keys(self) -> tuple:
+        """The keys of the run's per-round ys: FUSED_YS_KEYS, and the
+        diagnostics' with convergence diagnostics."""
+        return FUSED_DIAG_YS_KEYS if self.config.diagnostics else FUSED_YS_KEYS
+
+    def _ys_dict(self, ys: np.ndarray) -> dict:
+        """The run's ys rows as {key: per-round column} (`_ys_keys`;
+        goal_viol f32[rounds, G])."""
+        col = sched_k.ys_columns(self._sched_dims(False))
+        out = {k: ys[:, col[k]] for k in self._ys_keys() if k != "goal_viol"}
+        if self.config.diagnostics:
+            g0 = col["goal_viol"]
+            out["goal_viol"] = ys[:, g0: g0 + len(self.chain.goals)].astype(np.float32)
+            out["objective"] = out["objective"].astype(np.float32)
+        return out
+
     def _fused_history(self, ys: np.ndarray, *, verbose: bool) -> list[dict]:
         """Per-round history records from the run's ys (the JAX package's
-        `_fused_history`)."""
+        `_fused_history`); with diagnostics each record also carries the
+        round's objective, per-goal violations, survivors by kind and
+        prior usage."""
         col = {k: i for i, k in enumerate(sched_k.YS)}
+        diag = self.config.diagnostics
+        d = self._ys_dict(ys) if diag else None
         history: list[dict] = []
         for r in range(len(ys)):
             if ys[r, col["stopped"]] and history:
@@ -1051,10 +1190,54 @@ class Engine:
                        accepted=int(ys[r, col["accepted"]]))
             if r >= self.config.num_rounds:
                 rec["extra"] = True
-            if verbose:
+            if diag:
+                rec["objective"] = float(d["objective"][r])
+                rec["goal_violations"] = [round(float(v), 8) for v in d["goal_viol"][r]]
+                rec["accepted_by_kind"] = {
+                    "replica": int(d["acc_replica"][r]),
+                    "swap": int(d["acc_swap"][r]),
+                    "leadership": int(d["acc_lead"][r]),
+                }
+                rec["prior"] = {
+                    "candidates": int(d["prior_cands"][r]),
+                    "accepted": int(d["prior_acc"][r]),
+                }
+            elif verbose:
                 rec["objective"] = float(ys[r, col["objective"]])
             history.append(rec)
         return history
+
+    def _convergence_summary(self, ys: np.ndarray) -> dict | None:
+        """The run's convergence summary (the JAX package's
+        `_convergence_summary`), None without diagnostics: rounds, early
+        stop, the objective, temperature and acceptance trajectories, the
+        survivors by kind and prior usage summed, and the last round's
+        per-goal violations."""
+        if not self.config.diagnostics:
+            return None
+        d = self._ys_dict(ys)
+        ran = d["ran"].astype(bool)
+        last = int(np.nonzero(ran)[0][-1]) if ran.any() else None
+        return dict(
+            rounds=int(ran.sum()),
+            early_stop=bool(d["stopped"].any()),
+            objective_trajectory=[round(float(x), 8) for x in d["objective"][ran]],
+            temperatures=[float(x) for x in d["temperature"][ran]],
+            accepted=[int(x) for x in d["accepted"][ran]],
+            accepted_by_kind=dict(
+                replica=int(d["acc_replica"][ran].sum()),
+                swap=int(d["acc_swap"][ran].sum()),
+                leadership=int(d["acc_lead"][ran].sum()),
+            ),
+            prior=dict(
+                candidates=int(d["prior_cands"][ran].sum()),
+                accepted=int(d["prior_acc"][ran].sum()),
+            ),
+            goal_names=self.chain.names(),
+            final_goal_violations=(
+                [round(float(v), 8) for v in d["goal_viol"][last]] if last is not None else []
+            ),
+        )
 
     def _run_legacy(self, *, verbose: bool = False, initial_placement=None):
         """The host-driven round loop (the JAX package's `_run_legacy`):
@@ -1062,7 +1245,8 @@ class Engine:
         of a round, then the polish loop; one blocking sync (or more) a
         round.  The carry is updated in place, so no round is dispatched
         ahead of the previous round's check, and the history is the
-        reference's."""
+        reference's.  It ignores `diagnostics`, as the reference's does
+        (`verbose` is its per-round view)."""
         cfg = self.config
         t_start = time.monotonic()
         sync = dict(n=0, s=0.0)
@@ -1096,7 +1280,7 @@ class Engine:
             sched.si[sched_k.RND: sched_k.RND + 1].fill_(rnd)
             sched.value(sched_k.T_R).fill_(float(np.float32(temperature)))
             sched.acc.zero_()
-            self._round_body(ws)
+            self._round_body(ws, diag=False)
             return fetch(torch.stack([sched.acc[0].double(), sched.sf[sched_k.CHEAP].double()]))
 
         def objective() -> float:

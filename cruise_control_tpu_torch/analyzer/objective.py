@@ -25,6 +25,7 @@ import torch
 from cruise_control_tpu_torch.analyzer.goals import DEFAULT_GOAL_ORDER, GOALS_BY_NAME
 from cruise_control_tpu_torch.analyzer.goals.base import Goal
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
+from cruise_control_tpu_torch.kernels.move_delta import round_bf16
 from cruise_control_tpu_torch.models.aggregates import BrokerAggregates, compute_aggregates
 from cruise_control_tpu_torch.models.state import ClusterState
 
@@ -35,6 +36,21 @@ PRIORITY_DECAY = 0.5
 #: weight of the continuous tiebreaker scores relative to the smallest
 #: violation weight
 TIE_WEIGHT = 1e-3
+#: accepted values of score_dtype (config analyzer.precision.score.dtype)
+SCORE_DTYPES = ("float32", "bfloat16")
+
+
+def bf16_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of a vector taken element after element, rounded to
+    bf16 once: what XLA:CPU makes of a bf16 `.sum()` (it keeps the
+    products and the running sum in f32).  On the CPU the sum is numpy's
+    sequential f32 sum; on CUDA PyTorch's prefix sum, which is
+    deterministic."""
+    if x.device.type == "cpu":
+        total = torch.from_numpy(np.cumsum(x.numpy(), dtype=np.float32)[-1:])[0]
+    else:
+        total = torch.cumsum(x, 0)[-1]
+    return round_bf16(total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,11 +89,16 @@ class GoalChain:
         """Full evaluation: (scalar objective, violations[G], scores[G]) as
         f32 tensors on the state's device.  `weights`, the chain's weights
         as an f32[G] tensor on that device, saves a copy from the host (a
-        captured CUDA graph may not make one)."""
-        if score_dtype != "float32":
-            raise NotImplementedError(
-                f"score_dtype={score_dtype!r}: only float32 scoring is ported"
-            )
+        captured CUDA graph may not make one).
+
+        `score_dtype` (config analyzer.precision.score.dtype) sets the
+        precision of the weighted objective sum only; the violations and
+        scores stay f32.  "bfloat16" sums as the JAX package's compiled
+        program does on XLA:CPU: the weights, violations and scores rounded
+        to bf16, the products left in f32, each sum taken in f32 element
+        after element and rounded to bf16 once (`bf16_sum`)."""
+        if score_dtype not in SCORE_DTYPES:
+            raise ValueError(f"score_dtype must be one of {SCORE_DTYPES}, got {score_dtype!r}")
         if agg is None:
             agg = compute_aggregates(state)
         violations = torch.stack([g.violation(state, agg, constraint) for g in self.goals])
@@ -85,7 +106,11 @@ class GoalChain:
         w = weights
         if w is None:
             w = torch.tensor(self.weights, dtype=torch.float32, device=violations.device)
-        obj = (w * violations).sum() + TIE_WEIGHT * min(self.weights) * scores.sum()
+        if score_dtype == "bfloat16":
+            obj = (bf16_sum(round_bf16(w) * round_bf16(violations))
+                   + TIE_WEIGHT * min(self.weights) * bf16_sum(round_bf16(scores)))
+        else:
+            obj = (w * violations).sum() + TIE_WEIGHT * min(self.weights) * scores.sum()
         return obj, violations, scores
 
     def hard_mask(self) -> np.ndarray:

@@ -109,7 +109,6 @@ class GoalOptimizer:
     ):
         if engine_cache_size < 1:
             raise ValueError(f"engine_cache_size must be >= 1, got {engine_cache_size}")
-        config.check_ported()
         self.chain = chain
         self.constraint = constraint
         self.config = config
@@ -122,16 +121,18 @@ class GoalOptimizer:
         self.engine_cache_misses = 0
 
     def _engine_for(self, state: ClusterState, options: OptimizationOptions,
-                    config: OptimizerConfig) -> tuple[Engine, bool]:
+                    config: OptimizerConfig, prior=None) -> tuple[Engine, bool]:
+        """The cached engine of (shape, config), rebound to `state` and
+        `prior` on a hit, built on a miss; and whether it was a hit."""
         key = (state.shape, config)
         engine = self._engines.get(key)
         if engine is not None:
             self._engines.move_to_end(key)
-            engine.rebind(state, options)
+            engine.rebind(state, options, prior=prior)
             self.engine_cache_hits += 1
             return engine, True
         engine = Engine(state, self.chain, constraint=self.constraint, options=options,
-                        config=config)
+                        config=config, prior=prior)
         self._engines[key] = engine
         while len(self._engines) > self._cache_capacity:
             self._engines.popitem(last=False)[1].release()
@@ -157,21 +158,24 @@ class GoalOptimizer:
 
         `initial_placement` (replica_broker, replica_is_leader,
         replica_disk) warm-starts the anneal from that placement; the
-        proposals still diff against `state`'s own placement."""
-        if prior is not None:
-            raise NotImplementedError("the move-acceptance prior is not ported")
+        proposals still diff against `state`'s own placement.  `prior`, the
+        learned move-acceptance prior (a `PriorTable` of controller/prior.py,
+        or anything with `.weights` f32[T, B] and `.mix`), steers the
+        relocations' destination draws of a prior_enabled config.  With
+        diagnostics, the timing record carries the run's `convergence`
+        summary.  The before and after reports are f32 whatever the
+        config's score_dtype."""
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         t0 = time.monotonic()
         cfg = config or self.config
-        cfg.check_ported()
         input_checks = validate_on_device(state).cpu().numpy()
         if input_checks.any():
             validate(state)  # raises with per-invariant detail
             bad = [n for n, c in zip(DEVICE_CHECKS, input_checks) if c]
             raise ValueError(f"input state failed sanity checks: {bad}")
         t_build = time.monotonic()
-        engine, hit = self._engine_for(state, options, cfg)
+        engine, hit = self._engine_for(state, options, cfg, prior=prior)
         build_s = time.monotonic() - t_build
         members = engine.statics.part_replicas  # the same cluster's, before and after
         obj_b, viol_b, stats_b = self._report(state, members)

@@ -40,6 +40,17 @@ so a run derives the keys of all its steps on the host at once
 device-side round index (`KeyCursor`), and the Metropolis temperature from
 a device scalar, so a captured step needs no host value.
 
+The learned prior (`CandParams.prior`; the prior branch of `_sample_dests`,
+:1832-1873) draws a relocation's destination from its source topic's CDF
+(the statics' `prior_cdf`, f32[T, B]) where a mix draw falls below
+`prior_mix` (an f32[1] device scalar, so a captured step reads the run's
+value), with two keys a step of their own (`PRIOR_KEY_WORDS` more words a
+row of a prior-enabled key table; the default table is unchanged), and
+returns the took-the-prior mask as `from_prior` for the diagnostics.
+bf16 scoring (`TermParams.bf16`) sums the broker terms in bf16
+(move_delta.py `accumulate_bf16`, csrc/terms.cuh).  Each is a template
+parameter of the kernel beside the disk terms and the intra kind.
+
 The plain version (`candidates_plain`) is the engine's candidate code as
 PyTorch ops, with the draws and deltas of the plain threefry and
 move_delta functions; the CPU tests hold it against the JAX reference.
@@ -67,6 +78,8 @@ _NW_IN, _NW_OUT, _DISK = int(Resource.NW_IN), int(Resource.NW_OUT), int(Resource
 U_MIN = 1e-12
 #: uint32 words of a step's keys in the key table (csrc/candidates.cu StepKeys)
 KEY_WORDS = 24
+#: the words a prior-enabled table adds to a row (the prior draws' two keys)
+PRIOR_KEY_WORDS = 4
 _FN = None
 
 
@@ -74,7 +87,8 @@ _FN = None
 class StepKeys:
     """The threefry keys of one anneal step, split from the carry key as
     the reference's `_step` (split(5)), candidate kinds (split(2)) and
-    `_sample_sources` (split(4)) split them."""
+    `_sample_sources` (split(4)) split them; with the learned prior, the keys of its two
+    draws, `split(fold_in(rel_dst, 1))` as `_sample_dests` derives them."""
 
     next: Key  # the carry's key after the step
     #: relocation sources: uniform, CDF u, slot u, fallback (split(4) of the
@@ -86,18 +100,25 @@ class StepKeys:
     swap_q: Key
     lead: Key
     u: Key  # Metropolis draw over all K candidates
+    #: the prior's draws (prior-enabled engines): which branch, and the CDF u
+    prior_m: Key | None = None
+    prior_p: Key | None = None
 
     @staticmethod
-    def of(key: Key, intra: bool = False) -> "StepKeys":
+    def of(key: Key, intra: bool = False, prior: bool = False) -> "StepKeys":
         nxt, k_r, k_s, k_l, k_u = key.split(5)
         r_src, r_dst = k_r.split(2)
         s_src, s_q = k_s.split(2)
         rel_src = (k_r if intra else r_src).split(4)
-        return StepKeys(nxt, tuple(rel_src), r_dst, tuple(s_src.split(4)), s_q, k_l, k_u)
+        k_m, k_p = r_dst.fold_in(1).split(2) if prior else (None, None)
+        return StepKeys(nxt, tuple(rel_src), r_dst, tuple(s_src.split(4)), s_q, k_l, k_u, k_m, k_p)
 
     def words(self) -> list[int]:
-        """The step's row of the key table (next is not in it)."""
+        """The step's row of the key table (next is not in it), the
+        prior's keys last when it has them."""
         keys = (*self.rel_src, self.rel_dst, *self.swap_src, self.swap_q, self.lead, self.u)
+        if self.prior_m is not None:
+            keys += (self.prior_m, self.prior_p)
         return [w for key in keys for w in key.words]
 
     @staticmethod
@@ -105,15 +126,17 @@ class StepKeys:
         from cruise_control_tpu_torch.analyzer.draws import Key  # the analyzer imports this module
 
         w = [int(x) & threefry.MASK32 for x in row]
-        k = [Key(w[i], w[i + 1]) for i in range(0, KEY_WORDS, 2)]
-        return StepKeys(None, tuple(k[0:4]), k[4], tuple(k[5:9]), k[9], k[10], k[11])
+        k = [Key(w[i], w[i + 1]) for i in range(0, len(w), 2)]
+        prior = (k[12], k[13]) if len(w) > KEY_WORDS else (None, None)
+        return StepKeys(None, tuple(k[0:4]), k[4], tuple(k[5:9]), k[9], k[10], k[11], *prior)
 
 
-def key_table(key: Key, n_steps: int, intra: bool = False) -> np.ndarray:
-    """uint32[n_steps, KEY_WORDS]: the keys of n_steps consecutive steps
-    from carry key `key`, each row `StepKeys.of(chain key i, intra).words()`.  The
-    chain (one hash a step) runs in Python integers; the other splits hash
-    all steps at once on int64 arrays."""
+def key_table(key: Key, n_steps: int, intra: bool = False, prior: bool = False) -> np.ndarray:
+    """uint32[n_steps, KEY_WORDS (+ PRIOR_KEY_WORDS with `prior`)]: the keys
+    of n_steps consecutive steps from carry key `key`, each row
+    `StepKeys.of(chain key i, intra, prior).words()`.  The chain (one hash
+    a step) runs in Python integers; the other splits hash all steps at
+    once on int64 arrays."""
     k0 = np.empty(n_steps, np.int64)
     k1 = np.empty(n_steps, np.int64)
     cur = (key.k0, key.k1)
@@ -127,8 +150,12 @@ def key_table(key: Key, n_steps: int, intra: bool = False) -> np.ndarray:
     base = (k0, k1)
     k_r, k_s, k_l, k_u = (split(base, i) for i in (1, 2, 3, 4))
     r_src, s_src = (k_r if intra else split(k_r, 0)), split(k_s, 0)
-    cols = ([split(r_src, j) for j in range(4)] + [split(k_r, 1)]
+    r_dst = split(k_r, 1)
+    cols = ([split(r_src, j) for j in range(4)] + [r_dst]
             + [split(s_src, j) for j in range(4)] + [split(k_s, 1), k_l, k_u])
+    if prior:
+        folded = split(r_dst, 1)  # fold_in(r_dst, 1) hashes the counter (0, 1) too
+        cols += [split(folded, 0), split(folded, 1)]
     return np.stack([w for pair in cols for w in pair], axis=1).astype(np.uint32)
 
 
@@ -141,17 +168,22 @@ class KeyCursor:
     rnd: torch.Tensor  # i32[1]
     step: int
     steps_per_round: int
+    #: i32[n, PRIOR_KEY_WORDS]: the prior draws' keys of each row, or None
+    prior: torch.Tensor | None = None
 
     @staticmethod
     def of(keys: StepKeys, device) -> "KeyCursor":
         """A one-row cursor holding `keys`."""
-        row = np.asarray(keys.words(), np.uint32).view(np.int32)[None, :]
-        return KeyCursor(torch.from_numpy(row.copy()).to(device),
-                         torch.zeros(1, dtype=torch.int32, device=device), 0, 1)
+        row = torch.from_numpy(np.asarray(keys.words(), np.uint32).view(np.int32)[None, :].copy())
+        prior = row[:, KEY_WORDS:].contiguous().to(device) if keys.prior_m is not None else None
+        return KeyCursor(row[:, :KEY_WORDS].contiguous().to(device),
+                         torch.zeros(1, dtype=torch.int32, device=device), 0, 1, prior)
 
     def step_keys(self) -> StepKeys:
         """The keys the kernel would read (reads the round index)."""
-        return StepKeys.from_words(self.table[int(self.rnd[0]) * self.steps_per_round + self.step].tolist())
+        i = int(self.rnd[0]) * self.steps_per_round + self.step
+        row = self.table[i].tolist() + ([] if self.prior is None else self.prior[i].tolist())
+        return StepKeys.from_words(row)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +206,8 @@ class CandParams:
     importance_fraction: float
     num_parts: int  # max(1, P): the preferred-leader term's denominator
     intra: bool = False  # intra-broker disk moves in place of relocations
+    #: relocation destinations mixed from the learned prior (never intra)
+    prior: bool = False
 
     def n_imp(self, n: int, plan) -> int:
         """Importance-sampled sources among n (the tail of the n)."""
@@ -242,12 +276,30 @@ def _topic_cell_delta(cp: CandParams, carry, g, t, b_from, b_to):
     return (cell(ct_f - 1.0) - cell(ct_f)) + (cell(ct_t + 1.0) - cell(ct_t))
 
 
+def _sample_dests(cp: CandParams, sx, keys: StepKeys, n: int, r: torch.Tensor):
+    """(n destination positions into dest_ids, the took-the-prior mask or
+    None) for relocations of the sources r: uniform over the real head of
+    dest_ids, or, with the prior, each draw from its source topic's prior
+    CDF where the mix draw falls below prior_mix (`_sample_dests`)."""
+    dev = sx.alive.device
+    uni = _uniform_idx(keys.rel_dst, n, sx.n_dest, dev)
+    if not cp.prior:
+        return uni, None
+    t = sx.state.replica_topic[torch.clamp(r, max=sx.state.shape.R - 1)]
+    cdf = sx.prior_cdf[t]  # [n, B] per-topic inclusive CDF
+    u = _uniform(keys.prior_p, n, dev)
+    p_idx = torch.clamp((u[:, None] >= cdf).sum(-1).to(torch.int32), max=sx.n_dest - 1)
+    use = _uniform(keys.prior_m, n, dev) < sx.prior_mix
+    return torch.where(use, p_idx, uni), use
+
+
 def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     """K_r replica-move candidates -> (delta, feasible, src, dst, part, payload)."""
     st = sx.state
     K = cp.K_r
     r = _sample_sources(cp, sx, keys.rel_src, K, plan)
-    dst = sx.dest_ids[_uniform_idx(keys.rel_dst, K, sx.n_dest, sx.alive.device)]
+    pos, from_prior = _sample_dests(cp, sx, keys, K, r)
+    dst = sx.dest_ids[pos]
     src = carry.replica_broker[r]
     part = st.replica_partition[r]
     disk = carry.replica_disk[r]
@@ -313,7 +365,7 @@ def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
         delta = delta + plan.replica_cost * stray
 
     payload = dict(r=r, dst=dst, d_dst=d_dst, load=load, is_lead=is_lead,
-                   pot=pot, lbin=lbin, d_src=disk)
+                   pot=pot, lbin=lbin, d_src=disk, from_prior=from_prior)
     return delta, feasible, src, dst, part, payload
 
 
@@ -370,7 +422,7 @@ def _intra_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
         delta = delta + plan.replica_cost * stray
 
     payload = dict(r=r, dst=b, d_dst=d_dst, load=load, is_lead=is_lead, pot=ll[:, _NW_OUT],
-                   lbin=torch.where(is_lead, ll[:, _NW_IN], 0.0), d_src=d_src)
+                   lbin=torch.where(is_lead, ll[:, _NW_IN], 0.0), d_src=d_src, from_prior=None)
     return delta, feasible, b, b, part, payload
 
 
@@ -547,9 +599,14 @@ def _leadership_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
 
 def _assemble_prop(sx, carry, raw_r, raw_s, raw_l) -> dict:
     """Concatenate the per-kind bundles into the selection/apply bundle;
-    a swap applies as two linked relocation rows."""
+    a swap applies as two linked relocation rows.  The relocations'
+    took-the-prior mask rides beside the bundle as `from_prior` (None
+    without the prior): the diagnostics count it, the scatter never
+    reads it."""
     st = sx.state
     dr, fr, sr, tr, pr, payr = raw_r
+    payr = dict(payr)
+    from_prior = payr.pop("from_prior")
     ds, fs, ss, ts, ps1, ps2, pays = raw_s
     dl, fl, sl, tl, pl, payl = raw_l
     r_ext = torch.cat([payr["r"], pays["r"], pays["q"]])
@@ -580,6 +637,7 @@ def _assemble_prop(sx, carry, raw_r, raw_s, raw_l) -> dict:
         part1=torch.cat([pr, ps1, pl]),
         part2=torch.cat([pr, ps2, pl]),
         nr=int(dr.shape[0]), ns=int(ds.shape[0]), payr=payr_ext, payl=payl_ext,
+        from_prior=from_prior,
     )
 
 
@@ -615,7 +673,7 @@ class _Dims(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in (
         "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "R", "B", "P", "T", "D", "H", "racks",
         "max_rf", "n_source", "n_dest", "n_brokers", "has_plan", "has_topic", "has_pref",
-        "price_r", "price_l", "cdf_in_smem", "intra", "step", "steps_per_round",
+        "price_r", "price_l", "cdf_in_smem", "intra", "step", "steps_per_round", "prior", "bf16",
     )]
 
 
@@ -641,12 +699,14 @@ _IN_FIELDS = (
     "g", "topic_avg", "cdf", "order", "start", "count", "replica_cost", "lead_cost",
     # the run's key table, the round index and the round's temperature
     "key_table", "rnd", "temperature",
+    # the learned prior: its draws' keys, the per-topic CDF and the mix
+    "prior_keys", "prior_cdf", "prior_mix",
 )
 _OUT_FIELDS = (
     "delta", "feas", "accept", "src", "dst", "part1", "part2",
     "r", "r_src", "r_dst", "d_src", "d_dst", "load", "is_lead", "pot", "lbin", "topic", "part",
     "rf", "rt", "src_b", "dst_b", "dl_f", "dl_t", "dlbin_src", "dlbin_dst", "d_f", "d_t",
-    "old_broker", "old_host", "old_tie",
+    "old_broker", "old_host", "old_tie", "from_prior",
 )
 
 
@@ -687,7 +747,8 @@ def _ptr(name, t, dtype, shape) -> int:
 
 def candidate_buffers(cp: CandParams, sx, device) -> dict:
     """The kernel's outputs, allocated once and reused by every step: the
-    bundle, the relocation rows `payr`, the leadership rows `payl` and the
+    bundle (with the relocations' took-the-prior mask under the prior),
+    the relocation rows `payr`, the leadership rows `payl` and the
     prologue's old-state terms (f32[B + H + 1])."""
     s = sx.state.shape
     B, H = s.B, s.num_hosts
@@ -698,9 +759,12 @@ def candidate_buffers(cp: CandParams, sx, device) -> dict:
     def e(*shape, dtype=i32):
         return torch.empty(shape, dtype=dtype, device=device)
 
+    out = dict(delta=e(K, dtype=f32), feas=e(K, dtype=b8), accept=e(K, dtype=b8), src=e(K),
+               dst=e(K), part1=e(K), part2=e(K))
+    if cp.prior:
+        out["from_prior"] = e(K_r, dtype=b8)
     return dict(
-        out=dict(delta=e(K, dtype=f32), feas=e(K, dtype=b8), accept=e(K, dtype=b8), src=e(K),
-                 dst=e(K), part1=e(K), part2=e(K)),
+        out=out,
         payr=dict(r=e(nr), src=e(nr), dst=e(nr), d_src=e(nr), d_dst=e(nr), load=e(nr, 4, dtype=f32),
                   is_lead=e(nr, dtype=b8), pot=e(nr, dtype=f32), lbin=e(nr, dtype=f32), topic=e(nr),
                   part=e(nr)),
@@ -748,6 +812,13 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         key_table=(keys.table, i32, (n_keys, KEY_WORDS)), rnd=(keys.rnd, i32, (1,)),
         temperature=(temperature, f32, (1,)),
     )
+    if cp.prior:
+        if keys.prior is None:
+            raise ValueError("candidates: a prior-enabled step needs the prior's keys")
+        inputs.update(
+            prior_keys=(keys.prior, i32, (n_keys, PRIOR_KEY_WORDS)),
+            prior_cdf=(sx.prior_cdf, f32, (T, B)), prior_mix=(sx.prior_mix, f32, (1,)),
+        )
     if plan is not None:
         inputs.update(
             cdf=(plan.broker_cdf, f32, (B,)), order=(plan.order, i32, (R,)),
@@ -759,6 +830,8 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         bufs = candidate_buffers(cp, sx, dev)
     out, payr, payl, scratch = bufs["out"], bufs["payr"], bufs["payl"], bufs["scratch"]
     rows = {("r_" + k if k in ("src", "dst") else k): t for k, t in payr.items()}
+    if cp.prior and "from_prior" not in out:
+        raise ValueError("candidates: a prior-enabled step needs a from_prior buffer")
     c_out = _Outputs(
         **{k: t.data_ptr() for k, t in {**out, **rows, **payl}.items()},
         old_broker=scratch.data_ptr(), old_host=scratch.data_ptr() + 4 * B,
@@ -773,7 +846,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         price_r=plan is not None and bool(cp.replica_move_cost),
         price_l=plan is not None and bool(cp.leadership_move_cost),
         cdf_in_smem=plan is not None and 4 * B <= CDF_SMEM_MAX, intra=cp.intra,
-        step=keys.step, steps_per_round=keys.steps_per_round,
+        step=keys.step, steps_per_round=keys.steps_per_round, prior=cp.prior, bf16=cp.tp.bf16,
     )
     lo = np.float32(U_MIN)
     scalars = _Scalars(
@@ -786,7 +859,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         status = _fn()(dims, cp.tp.c_struct, scalars, c_in, c_out, stream)
         _build.check(status, "candidates")
         kernels.LAUNCHES["candidates"] += 1
-    return dict(out, nr=K_r, ns=K_s, payr=payr, payl=payl)
+    return dict(out, nr=K_r, ns=K_s, payr=payr, payl=payl, from_prior=out.get("from_prior"))
 
 
 def candidates(cp: CandParams, sx, carry, keys, g, plan, temperature, bufs: dict | None = None) -> dict:

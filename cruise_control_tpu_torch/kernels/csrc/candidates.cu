@@ -49,6 +49,26 @@
 //    lane (rebalance_disk) draws no destination broker: it picks the
 //    most-free other alive logdir of its replica's broker and writes a
 //    relocation row with src == dst.
+//  - The learned prior (PRIOR; `_sample_dests`, engine.py:1832-1873): a
+//    relocation's destination position is the uniform draw, or, where a
+//    third draw falls below prior_mix (a device scalar, so that a captured
+//    step reads the value of the run), the upper bound of a fourth draw in
+//    its source topic's prior CDF (f32[T, B], a fixed buffer refilled by
+//    Engine.rebind_prior), clamped to n_dest - 1.  The reference counts
+//    u >= cdf over the whole row; the CDF is a sequential f32 prefix sum
+//    of non-negative values (non-decreasing) and 1.0 past n_dest (never
+//    <= u < 1), so a binary search over the first n_dest entries gives the
+//    same index in ~12 probes of one 10.4 KB row (the table, 2.08 MB at the
+//    north star, stays in L2).  The two draws' keys are a table of their
+//    own (`prior_keys`), so the default key table is unchanged.  The lane
+//    also writes whether it took the prior (`from_prior`, read by the
+//    diagnostics' counts in select_survivors).
+//  - bf16 scoring (BF16): the broker terms' running sum in bf16
+//    (terms.cuh), here and in the prologue; every other term stays f32.
+//  DISK, INTRA, PRIOR and BF16 are template parameters, so each mode
+//  compiles apart and the default lanes are the ones without them; the
+//  intra kind has no prior and no broker terms, so it has no PRIOR or BF16
+//  variant: 10 instantiations of candidates_kernel, 2 of the prologue.
 // Tensor cores do not apply (there is no matrix product), and TMA is not
 // worth it for scattered row gathers.
 #include "terms.cuh"
@@ -74,6 +94,8 @@ struct CandDims {
   int has_plan, has_topic, has_pref, price_r, price_l, cdf_in_smem;
   int intra;  // the K_r lanes are intra-broker disk moves
   int step, steps_per_round;  // this step's row: (*rnd) * steps_per_round + step
+  int prior;  // relocation destinations mixed from the learned prior
+  int bf16;   // the broker terms summed in bf16
 };
 
 struct CandScalars {
@@ -133,6 +155,11 @@ struct CandInputs {
   const StepKeys* key_table;
   const int* rnd;
   const float* temperature;
+  // the learned prior: per key-table row its two draws' keys (mix, CDF u),
+  // the per-topic CDF over destination positions, f32[T, B], and the mix
+  const Key2* prior_keys;
+  const float* prior_cdf;
+  const float* prior_mix;
 };
 
 struct CandOutputs {
@@ -170,6 +197,8 @@ struct CandOutputs {
   float* old_broker;  // [B]
   float* old_host;    // [H]
   float* old_tie;     // [1]
+  // the relocations' took-the-prior mask [K_r] (PRIOR)
+  bool* from_prior;
 };
 
 struct Ctx {
@@ -206,6 +235,7 @@ __device__ __forceinline__ void put4(float* __restrict__ a, int i, const float v
 // prologue: old-state terms
 // ---------------------------------------------------------------------------
 
+template <bool BF16>
 __global__ void candidates_prologue_kernel(Ctx c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const CandInputs& in = c.in;
@@ -214,8 +244,8 @@ __global__ void candidates_prologue_kernel(Ctx c) {
     row4(in.capacity, i, cap);
     row4(in.broker_load, i, load);
     const bool single = !in.host_multi[in.broker_host[i]];
-    c.out.old_broker[i] = broker_terms(c.p, in.g, cap, in.alive[i], single, load, in.rcount[i],
-                                       in.lcount[i], in.pot[i], in.lbin[i]);
+    c.out.old_broker[i] = broker_terms<BF16>(c.p, in.g, cap, in.alive[i], single, load,
+                                             in.rcount[i], in.lcount[i], in.pot[i], in.lbin[i]);
   } else if (i < c.n.B + c.n.H) {
     const int h = i - c.n.B;
     float hl[4], hc[4];
@@ -327,7 +357,7 @@ __device__ float disk_move_delta(const Ctx& c, int s, int d, int d_src, int d_ds
 // move_delta_plain: the two new broker lanes against the prologue's old
 // ones, the host terms, the intra-broker disk terms (DISK: the chain
 // weighs them), the tiebreak.
-template <bool DISK>
+template <bool DISK, bool BF16>
 __device__ float move_delta_core(const Ctx& c, int s, int d, const float dls[4],
                                  const float dld[4], int dc, int dlc, float dp, float dlbin,
                                  float dlbin_src, int d_src, int d_dst, float ddisk_src,
@@ -347,10 +377,10 @@ __device__ float move_delta_core(const Ctx& c, int s, int d, const float dls[4],
   const bool m_s = in.host_multi[h_s], m_d = in.host_multi[h_d];
   const float t0 = c.out.old_broker[s];
   const float t1 = c.out.old_broker[d];
-  const float t2 = broker_terms(c.p, in.g, cap_s, a_s, !m_s, ls2, in.rcount[s] - dc,
-                                in.lcount[s] - dlc, in.pot[s] - dp, in.lbin[s] - dlbin_src);
-  const float t3 = broker_terms(c.p, in.g, cap_d, a_d, !m_d, ld2, in.rcount[d] + dc,
-                                in.lcount[d] + dlc, in.pot[d] + dp, in.lbin[d] + dlbin);
+  const float t2 = broker_terms<BF16>(c.p, in.g, cap_s, a_s, !m_s, ls2, in.rcount[s] - dc,
+                                      in.lcount[s] - dlc, in.pot[s] - dp, in.lbin[s] - dlbin_src);
+  const float t3 = broker_terms<BF16>(c.p, in.g, cap_d, a_d, !m_d, ld2, in.rcount[d] + dc,
+                                      in.lcount[d] + dlc, in.pot[d] + dp, in.lbin[d] + dlbin);
   float delta = (t2 + t3) - (t0 + t1);
 
   // host-granularity capacity (same-host moves cancel)
@@ -434,11 +464,38 @@ __device__ __forceinline__ void replica_load(const Ctx& c, int r, bool lead, boo
   }
 }
 
-template <bool DISK>
+// The prior branch of relocation i's destination draw (`_sample_dests`):
+// where the mix draw falls below prior_mix, the upper bound of the CDF draw
+// in topic t's prior CDF over the first n_dest positions, clamped to
+// n_dest - 1; else the uniform position `uni`.  Writes the lane's
+// took-the-prior flag.
+__device__ int prior_dest(const Ctx& c, int i, int t, int uni) {
+  const size_t row = (size_t)(*c.in.rnd) * c.n.steps_per_round + c.n.step;
+  const bool use = unit(c.in.prior_keys[2 * row], i) < *c.in.prior_mix;
+  c.out.from_prior[i] = use;
+  if (!use) return uni;
+  const float u = unit(c.in.prior_keys[2 * row + 1], i);
+  const float* cdf = c.in.prior_cdf + (size_t)t * c.n.B;
+  // the number of entries <= u: the first index whose value is > u
+  int lo = 0, hi = c.n.n_dest;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (cdf[mid] <= u) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return min(lo, c.n.n_dest - 1);
+}
+
+template <bool DISK, bool PRIOR, bool BF16>
 __device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
   const CandInputs& in = c.in;
   const int r = sample_source(c, keys(c).rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
-  const int dst = in.dest_ids[cc_uniform_idx(unit(keys(c).rel_dst, i), c.n.n_dest)];
+  int pos = cc_uniform_idx(unit(keys(c).rel_dst, i), c.n.n_dest);
+  if (PRIOR) pos = prior_dest(c, i, in.topic_of[r], pos);
+  const int dst = in.dest_ids[pos];
   const int src = in.replica_broker[r];
   const int part = in.part_of[r];
   const int disk = in.replica_disk[r];
@@ -472,8 +529,8 @@ __device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
   const float lbin = is_lead ? ll[1] : 0.0f;
   float dls[4];
   for (int k = 0; k < 4; ++k) dls[k] = -load[k];
-  float delta = move_delta_core<DISK>(c, src, dst, dls, load, 1, is_lead ? 1 : 0, pot, lbin,
-                                      lbin, disk, d_dst, load[3], load[3]);
+  float delta = move_delta_core<DISK, BF16>(c, src, dst, dls, load, 1, is_lead ? 1 : 0, pot, lbin,
+                                            lbin, disk, d_dst, load[3], load[3]);
 
   const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
   delta = delta + (c.s.w_rack * rack_delta(c, part, rack_s, rack_d)) / c.p.n_valid;
@@ -550,7 +607,7 @@ __device__ void cand_intra(const Ctx& c, int i, const float* cdf) {
               part);
 }
 
-template <bool DISK>
+template <bool DISK, bool BF16>
 __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
   const CandInputs& in = c.in;
   const int r = sample_source(c, keys(c).swap_src, i, c.n.K_s, c.n.n_imp_s, cdf);
@@ -586,8 +643,8 @@ __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
   const float lbin_q = lead_q ? ll_q[1] : 0.0f;
   const float dlbin = lbin_r - lbin_q;
   const float ddisk = load_r[3] - load_q[3];
-  float delta = move_delta_core<DISK>(c, src, dst, dls, dld, 0, (int)lead_r - (int)lead_q,
-                                      pot_r - pot_q, dlbin, dlbin, d_r, d_q, ddisk, ddisk);
+  float delta = move_delta_core<DISK, BF16>(c, src, dst, dls, dld, 0, (int)lead_r - (int)lead_q,
+                                            pot_r - pot_q, dlbin, dlbin, d_r, d_q, ddisk, ddisk);
 
   const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
   delta = delta + (c.s.w_rack * (rack_delta(c, part_r, rack_s, rack_d) +
@@ -621,7 +678,7 @@ __device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
               topic_q, part_q);
 }
 
-template <bool DISK>
+template <bool DISK, bool BF16>
 __device__ void cand_leadership(const Ctx& c, int i) {
   const CandInputs& in = c.in;
   const int R = c.n.R;
@@ -653,8 +710,8 @@ __device__ void cand_leadership(const Ctx& c, int i) {
     dl_t[k] = ll_t[k] - lf_t[k];
   }
   const float dlbin = ll_t[1], dlbin_src = ll_f[1];
-  float delta = move_delta_core<DISK>(c, src, dst, dl_f, dl_t, 0, 1, 0.0f, dlbin, dlbin_src,
-                                      disk_f, disk_t, dl_f[3], dl_t[3]);
+  float delta = move_delta_core<DISK, BF16>(c, src, dst, dl_f, dl_t, 0, 1, 0.0f, dlbin, dlbin_src,
+                                            disk_f, disk_t, dl_f[3], dl_t[3]);
 
   if (c.n.has_pref) {
     const bool src_ok = in.broker_alive[src] && disk_ok(c, src, disk_f);
@@ -687,9 +744,11 @@ __device__ void cand_leadership(const Ctx& c, int i) {
 constexpr int kThreads = 128;
 
 // DISK: the chain weighs the intra-broker disk goals; INTRA: the K_r lanes
-// are intra-broker disk moves.  Each is a compile-time branch, so a chain
-// without the disk goals runs the lanes it ran before the JBOD path.
-template <bool DISK, bool INTRA>
+// are intra-broker disk moves; PRIOR: relocation destinations mixed from
+// the learned prior; BF16: the broker terms summed in bf16.  Each is a
+// compile-time branch, so a chain without the disk goals, the prior or
+// bf16 runs the lanes it ran before them.
+template <bool DISK, bool INTRA, bool PRIOR, bool BF16>
 __global__ void __launch_bounds__(kThreads) candidates_kernel(Ctx c) {
   extern __shared__ float s_cdf[];
   const int nb_r = (c.n.K_r + kThreads - 1) / kThreads;
@@ -716,26 +775,39 @@ __global__ void __launch_bounds__(kThreads) candidates_kernel(Ctx c) {
   if (INTRA) {
     cand_intra<DISK>(c, i, cdf);  // K_s = K_l = 0: every lane is an intra move
   } else if (kind == 0) {
-    cand_relocation<DISK>(c, i, cdf);
+    cand_relocation<DISK, PRIOR, BF16>(c, i, cdf);
   } else if (kind == 1) {
-    cand_swap<DISK>(c, i, cdf);
+    cand_swap<DISK, BF16>(c, i, cdf);
   } else {
-    cand_leadership<DISK>(c, i);
+    cand_leadership<DISK, BF16>(c, i);
   }
 }
 
-template <bool DISK, bool INTRA>
+template <bool DISK, bool INTRA, bool PRIOR, bool BF16>
 static cudaError_t launch_candidates(const Ctx& c, cudaStream_t st) {
   const size_t smem = c.n.cdf_in_smem ? sizeof(float) * (size_t)c.n.B : 0;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        candidates_kernel<DISK, INTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(candidates_kernel<DISK, INTRA, PRIOR, BF16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const unsigned int blocks = cc_blocks(c.n.K_r, kThreads) + cc_blocks(c.n.K_s, kThreads) +
                               cc_blocks(c.n.K_l, kThreads);
-  candidates_kernel<DISK, INTRA><<<blocks, kThreads, smem, st>>>(c);
+  candidates_kernel<DISK, INTRA, PRIOR, BF16><<<blocks, kThreads, smem, st>>>(c);
   return cudaGetLastError();
+}
+
+// The inter-broker instantiations, by the run-time flags.
+template <bool DISK, bool PRIOR>
+static cudaError_t launch_bf16(const Ctx& c, cudaStream_t st) {
+  return c.n.bf16 ? launch_candidates<DISK, false, PRIOR, true>(c, st)
+                  : launch_candidates<DISK, false, PRIOR, false>(c, st);
+}
+
+template <bool DISK>
+static cudaError_t launch_inter(const Ctx& c, cudaStream_t st) {
+  return c.n.prior ? launch_bf16<DISK, true>(c, st) : launch_bf16<DISK, false>(c, st);
 }
 
 CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in, CandOutputs out,
@@ -743,19 +815,27 @@ CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in
   const long long K = (long long)n.K_r + n.K_s + n.K_l;
   if (K <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (n.intra && (n.K_s > 0 || n.K_l > 0)) return (int)cudaErrorInvalidValue;
+  if (n.intra && (n.K_s > 0 || n.K_l > 0 || n.prior)) return (int)cudaErrorInvalidValue;
+  if (n.prior && (in.prior_keys == nullptr || in.prior_cdf == nullptr || in.prior_mix == nullptr ||
+                  out.from_prior == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Ctx c{n, p, s, in, out};
   if (!n.intra) {
     // no intra lane reads the old broker, host or tie terms
     const int pro = n.B + n.H + 1;
-    candidates_prologue_kernel<<<cc_blocks(pro, 256), 256, 0, st>>>(c);
+    if (n.bf16) {
+      candidates_prologue_kernel<true><<<cc_blocks(pro, 256), 256, 0, st>>>(c);
+    } else {
+      candidates_prologue_kernel<false><<<cc_blocks(pro, 256), 256, 0, st>>>(c);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if (n.intra) {
-    return (int)(p.has_disk ? launch_candidates<true, true>(c, st)
-                            : launch_candidates<false, true>(c, st));
+    // no intra lane reads a broker term: the bf16 flag changes nothing there
+    return (int)(p.has_disk ? launch_candidates<true, true, false, false>(c, st)
+                            : launch_candidates<false, true, false, false>(c, st));
   }
-  return (int)(p.has_disk ? launch_candidates<true, false>(c, st)
-                          : launch_candidates<false, false>(c, st));
+  return (int)(p.has_disk ? launch_inter<true>(c, st) : launch_inter<false>(c, st));
 }

@@ -30,6 +30,15 @@
 // host launches the graph once a run and reads nothing until its one sync.
 // Conditional nodes nested in a WHILE body need CUDA 12.4 or later, in
 // the runtime and in the driver (checked before the graph is built).
+//
+// Convergence diagnostics (SchedDims.diag; `_fused_round_step`'s
+// diagnostics ys, engine.py:2996-3046): acc holds six counts (the total,
+// then by kind and the prior's, added by select_survivors), the round body
+// writes the full chain's objective and G violations into `stage`, and a
+// row has Y_BASE + 5 + G columns.  CLOSE copies the counts and the stage
+// into the row of a round that ran, the objective into Y_OBJ; a round that
+// did not run, EXIT's included, gets 0 counts and NaN violations.  Only
+// these one-thread phases read the flag.
 #include "common.cuh"
 
 // indices into the int state (kernels/schedule.py)
@@ -59,7 +68,9 @@
 #define Y_CHEAP 4
 #define Y_FULL 5
 #define Y_OBJ 6
-#define Y_COLS 7
+#define Y_BASE 7
+// diagnostics: the five counts after the total, then one violation a goal
+#define Y_DIAG_COUNTS 5
 
 #define PHASE_INIT 0
 #define PHASE_GATE 1
@@ -75,14 +86,33 @@ struct SchedPtrs {
   float* sf;               // float state
   long long* acc;          // the round's accepted count
   const float* decay_pow;  // f32[total]: decay ** round, as the plain version computes it
-  double* ys;              // f64[total, Y_COLS]
+  double* ys;              // f64[total, ycols(d)]
   int* count;              // i32[2]: rounds the loop ran, of which masked (done or past total)
+  const float* stage;      // f32[1 + n_goals]: the round's objective and violations (diag)
 };
 
 struct SchedDims {
   int n_main, total, tol_on, checks, verbose;
   float tol, scale;
+  int diag, n_goals;
 };
+
+__device__ __forceinline__ int ycols(const SchedDims& d) {
+  return Y_BASE + (d.diag ? Y_DIAG_COUNTS + d.n_goals : 0);
+}
+
+// acc's counts: the total, and the diagnostics' five
+__device__ __forceinline__ int n_acc(const SchedDims& d) { return d.diag ? 1 + Y_DIAG_COUNTS : 1; }
+
+// The diagnostics' columns of row y: the counts and the stage's violations
+// of a round that ran, else 0 counts and NaN.
+__device__ __forceinline__ void diag_cols(const SchedPtrs& p, const SchedDims& d, double* y, bool run) {
+  if (!d.diag) return;
+  for (int i = 0; i < Y_DIAG_COUNTS; ++i) y[Y_BASE + i] = run ? (double)p.acc[1 + i] : 0.0;
+  for (int g = 0; g < d.n_goals; ++g) {
+    y[Y_BASE + Y_DIAG_COUNTS + g] = run ? (double)p.stage[1 + g] : (double)__int_as_float(0x7fffffff);
+  }
+}
 
 // The temperature DECIDE gives round rnd: 0 on the last main round and on
 // polish rounds (every round past total is one), else t0 * decay ** rnd.
@@ -93,7 +123,7 @@ __device__ __forceinline__ float round_temperature(const SchedPtrs& p, const Sch
 
 // The ys row of a round that does not run and checks nothing.
 __device__ __forceinline__ void masked_row(const SchedPtrs& p, const SchedDims& d, int rnd) {
-  double* y = p.ys + (size_t)rnd * Y_COLS;
+  double* y = p.ys + (size_t)rnd * ycols(d);
   y[Y_ACC] = 0.0;
   y[Y_RAN] = 0.0;
   y[Y_STOPPED] = 0.0;
@@ -101,6 +131,7 @@ __device__ __forceinline__ void masked_row(const SchedPtrs& p, const SchedDims& 
   y[Y_CHEAP] = __int_as_float(0x7f800000);
   y[Y_FULL] = 0.0;
   y[Y_OBJ] = __int_as_float(0x7fffffff);
+  diag_cols(p, d, y, false);
 }
 
 __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int has_handle,
@@ -135,7 +166,7 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
     si[S_MAIN_STOP] = 0;
     sf[F_FULL_V] = inf;
     sf[F_TR] = round_temperature(p, d, d.total - 1);
-    p.acc[0] = 0;
+    for (int i = 0; i < n_acc(d); ++i) p.acc[i] = 0;
     sf[F_CHEAP] = inf;
     sf[F_OBJ] = __int_as_float(0x7fffffff);
     sf[F_CHEAP_PREV] = inf;
@@ -177,7 +208,7 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
     si[S_RUN] = run;
     si[S_MAIN_STOP] = main_stop;
     sf[F_TR] = round_temperature(p, d, rnd);  // past total: a polish round's 0
-    p.acc[0] = 0;
+    for (int i = 0; i < n_acc(d); ++i) p.acc[i] = 0;
     sf[F_CHEAP] = inf;
     sf[F_OBJ] = __int_as_float(0x7fffffff);  // NaN unless the round runs and reports
     if (has_handle) cudaGraphSetConditional(handle, run ? 1u : 0u);
@@ -186,14 +217,16 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
   // PHASE_CLOSE
   const bool run = si[S_RUN];
   if (in_range) {
-    double* y = p.ys + (size_t)rnd * Y_COLS;
+    double* y = p.ys + (size_t)rnd * ycols(d);
     y[Y_ACC] = run ? (double)p.acc[0] : 0.0;
     y[Y_RAN] = run;
     y[Y_STOPPED] = si[S_MAIN_STOP];
     y[Y_TEMP] = sf[F_TR];
     y[Y_CHEAP] = run ? sf[F_CHEAP] : inf;
     y[Y_FULL] = si[S_NEED_FULL];
-    y[Y_OBJ] = run && d.verbose ? sf[F_OBJ] : __int_as_float(0x7fffffff);
+    const float obj = d.diag ? p.stage[0] : sf[F_OBJ];
+    y[Y_OBJ] = run && (d.diag || d.verbose) ? obj : __int_as_float(0x7fffffff);
+    diag_cols(p, d, y, run);
   }
   sf[F_CHEAP_PREV] = run ? sf[F_CHEAP] : inf;
   si[S_RND] = rnd + 1;

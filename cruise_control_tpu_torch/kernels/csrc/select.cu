@@ -41,6 +41,15 @@
 // minimum an earlier step left is larger than every fresh key and never
 // equal to one.  The minima are cleared once per run, to all ones (the
 // tag of epoch 0, which no step uses).
+//
+// Convergence diagnostics (`select_survivors_kernel<true>`, the second
+// instantiation, so the default one is unchanged): pass 2 also tallies the
+// survivors by kind (relocations [0, n_r), swaps [n_r, n_r + n_s),
+// leadership transfers after them) and, from the candidates kernel's
+// took-the-prior mask over the relocations (null without the prior), the
+// prior-drawn candidates and those that survived; each block adds its six
+// counts into acc[0..5] (the `stats` of `_accept_select_apply`,
+// engine.py:2699-2711).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -59,7 +68,9 @@ struct SelectArgs {
   bool* sv_r;                     // [n_r + 2 n_s]
   unsigned long long* acc;        // i64[1], the survivor count is added
   const int* rnd;                 // i32[1], the run's round index; null: round 0
+  const bool* from_prior;         // [n_r] relocations drawn from the prior; null: none
   int K, B, P, n_r, n_s, idx_bits, step, steps;
+  int diag;                       // acc is i64[6]: the diagnostics counts
 };
 
 constexpr int kThreads = 256;
@@ -122,6 +133,20 @@ __device__ __forceinline__ int keep(const SelectArgs& a, const Cand& c, int k, l
   return kept ? 1 : 0;
 }
 
+// DIAG: a kept candidate's kind, and the prior counts, into t[0..4]
+// (replica, swap, leadership, prior candidates, prior survivors)
+template <bool DIAG>
+__device__ __forceinline__ void tally(const SelectArgs& a, int k, int kept, int t[5]) {
+  if (!DIAG) return;
+  t[k < a.n_r ? 0 : (k < a.n_r + a.n_s ? 1 : 2)] += kept;
+  if (k < a.n_r && a.from_prior != nullptr) {
+    const int fp = a.from_prior[k] ? 1 : 0;
+    t[3] += fp;
+    t[4] += fp & kept;
+  }
+}
+
+template <bool DIAG>
 __global__ void __launch_bounds__(kThreads) select_survivors_kernel(SelectArgs a) {
   cg::grid_group grid = cg::this_grid();
   const unsigned int epoch = 1u + (unsigned int)((a.rnd ? *a.rnd : 0) * a.steps + a.step);
@@ -141,17 +166,32 @@ __global__ void __launch_bounds__(kThreads) select_survivors_kernel(SelectArgs a
   for (int k = first + stride; k < a.K; k += stride) take_min(a, load_cand(a, k, tag), n_seg);
   grid.sync();  // its fence makes every block's atomics visible to every block
 
-  int kept = first < a.K ? keep(a, c0, first, n_seg) : 0;
-  for (int k = first + stride; k < a.K; k += stride) kept += keep(a, load_cand(a, k, tag), k, n_seg);
+  int t[5] = {0, 0, 0, 0, 0};
+  int kept = 0;
+  if (first < a.K) {
+    kept = keep(a, c0, first, n_seg);
+    tally<DIAG>(a, first, kept, t);
+  }
+  for (int k = first + stride; k < a.K; k += stride) {
+    const int kk = keep(a, load_cand(a, k, tag), k, n_seg);
+    kept += kk;
+    tally<DIAG>(a, k, kk, t);
+  }
 
-  __shared__ int warp_kept[kThreads / 32];
-  kept = __reduce_add_sync(0xFFFFFFFFu, kept);
-  if ((threadIdx.x & 31) == 0) warp_kept[threadIdx.x >> 5] = kept;
+  // block sums of the counts, one integer atomic each
+  constexpr int kCounts = DIAG ? 6 : 1;
+  __shared__ int warp_sum[kCounts][kThreads / 32];
+  for (int j = 0; j < kCounts; ++j) {
+    const int v = __reduce_add_sync(0xFFFFFFFFu, j == 0 ? kept : t[j - 1]);
+    if ((threadIdx.x & 31) == 0) warp_sum[j][threadIdx.x >> 5] = v;
+  }
   __syncthreads();
   if (threadIdx.x < 32) {
-    int v = threadIdx.x < kThreads / 32 ? warp_kept[threadIdx.x] : 0;
-    v = __reduce_add_sync(0xFFFFFFFFu, v);
-    if (threadIdx.x == 0 && v != 0) atomicAdd(a.acc, (unsigned long long)v);
+    for (int j = 0; j < kCounts; ++j) {
+      int v = threadIdx.x < kThreads / 32 ? warp_sum[j][threadIdx.x] : 0;
+      v = __reduce_add_sync(0xFFFFFFFFu, v);
+      if (threadIdx.x == 0 && v != 0) atomicAdd(a.acc + j, (unsigned long long)v);
+    }
   }
 }
 
@@ -170,6 +210,7 @@ CC_EXPORT int cc_select_survivors(SelectArgs a, int n_sm, void* stream) {
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, select_survivors_kernel, a);
+  const cudaError_t e = a.diag ? cudaLaunchKernelEx(&cfg, select_survivors_kernel<true>, a)
+                               : cudaLaunchKernelEx(&cfg, select_survivors_kernel<false>, a);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

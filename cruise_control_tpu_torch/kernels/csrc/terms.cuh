@@ -4,7 +4,17 @@
 // tie_term() of kernels/move_delta.py term for term (sequential sums over
 // the four resources and over a broker's logdirs in disk order;
 // -fmad=false keeps every multiply and add rounded on its own).
+//
+// bf16 scoring (score_dtype "bfloat16", `broker_terms<true>`): each term is
+// computed in f32 as before; their running sum is bf16 as XLA:CPU computes
+// the JAX package's `out += term.astype(bf16)` chain: each term rounded to
+// bf16, each add taken in f32 and rounded to bf16 with
+// __float2bfloat16_rn, except the last add, whose f32 result is kept (XLA
+// drops the bf16 round trip before the final cast to f32).  No native bf16
+// add: it would round once where f32-then-bf16 rounds twice.
 #pragma once
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 // Goal weights, thresholds and statics scalars: mirror of
@@ -58,23 +68,42 @@ struct MDParams {
 #define G_TOTAL_LBIN 21
 #define G_TOTAL_DISK_LOAD 22
 
+// f32 x rounded to the nearest bf16 (ties to even), as f32
+__device__ __forceinline__ float cc_round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The running sum of broker_terms' terms: f32, or bf16 (see the top).
+template <bool BF16>
+struct TermSum {
+  float v;
+  __device__ __forceinline__ void first(float t) { v = BF16 ? cc_round_bf16(t) : t; }
+  __device__ __forceinline__ void add(float t) {
+    v = BF16 ? cc_round_bf16(v + cc_round_bf16(t)) : v + t;
+  }
+  __device__ __forceinline__ float last(float t) const { return BF16 ? v + cc_round_bf16(t) : v + t; }
+};
+
+template <bool BF16 = false>
 __device__ float broker_terms(const MDParams& p, const float* __restrict__ g, const float cap[4],
                               bool alive, bool single, const float load[4], int rcount,
                               int lcount, float pot, float lbin) {
   // capacity goals (broker granularity)
-  float out = 0.0f;
+  float cap_t = 0.0f;
   for (int r = 0; r < 4; ++r) {
     const float excess = cc_relu(load[r] - p.cth[r] * cap[r]);
     const bool gate = alive && (single || !p.host_res[r]);
     const float t = (gate ? excess : 0.0f) * p.w_cap_tc[r];
-    out = (r == 0) ? t : out + t;
+    cap_t = (r == 0) ? t : cap_t + t;
   }
+  TermSum<BF16> out;
+  out.first(cap_t);
   // replica capacity
   float exc = cc_relu((float)(rcount - p.max_replicas));
-  out = out + (p.w_replica_cap * (alive ? exc : 0.0f)) / p.n_valid;
+  out.add((p.w_replica_cap * (alive ? exc : 0.0f)) / p.n_valid);
   // potential nw out
   exc = cc_relu(pot - p.cth_nw_out * cap[2]);
-  out = out + (p.w_pot_nw_out * (alive ? exc : 0.0f)) / p.total_cap_nw_out;
+  out.add((p.w_pot_nw_out * (alive ? exc : 0.0f)) / p.total_cap_nw_out);
   // resource distribution bands
   float s = 0.0f;
   for (int r = 0; r < 4; ++r) {
@@ -85,14 +114,14 @@ __device__ float broker_terms(const MDParams& p, const float* __restrict__ g, co
     const float t = (alive ? term : 0.0f) * wd;
     s = (r == 0) ? t : s + t;
   }
-  out = out + s;
+  out.add(s);
   // replica count distribution
   {
     const float upper = ceilf(g[G_AVG_COUNT] * p.t_rc);
     const float lower = floorf(g[G_AVG_COUNT] * p.t_rc_low);
     const float rc = (float)rcount;
     const float term = cc_relu(rc - upper) + cc_relu(lower - rc);
-    out = out + (p.w_replica_dist * (alive ? term : 0.0f)) / g[G_TOTAL_COUNT];
+    out.add((p.w_replica_dist * (alive ? term : 0.0f)) / g[G_TOTAL_COUNT]);
   }
   // leader count distribution
   {
@@ -100,14 +129,11 @@ __device__ float broker_terms(const MDParams& p, const float* __restrict__ g, co
     const float lower = floorf(g[G_AVG_LCOUNT] * p.t_lc_low);
     const float lc = (float)lcount;
     const float term = cc_relu(lc - upper) + cc_relu(lower - lc);
-    out = out + (p.w_leader_dist * (alive ? term : 0.0f)) / g[G_TOTAL_LCOUNT];
+    out.add((p.w_leader_dist * (alive ? term : 0.0f)) / g[G_TOTAL_LCOUNT]);
   }
   // leader bytes-in distribution (upper band only)
-  {
-    const float term = cc_relu(lbin - g[G_AVG_LBIN] * p.t_lbin);
-    out = out + (p.w_lbin_dist * (alive ? term : 0.0f)) / g[G_TOTAL_LBIN];
-  }
-  return out;
+  const float term = cc_relu(lbin - g[G_AVG_LBIN] * p.t_lbin);
+  return out.last((p.w_lbin_dist * (alive ? term : 0.0f)) / g[G_TOTAL_LBIN]);
 }
 
 __device__ float host_terms(const MDParams& p, bool multi, const float hload[4],

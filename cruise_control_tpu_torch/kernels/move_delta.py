@@ -93,6 +93,8 @@ class TermParams:
     d_thresh: float
     t_disk: float
     total_disk_cap: float
+    #: bf16 accumulation of the broker terms (score_dtype "bfloat16")
+    bf16: bool = False
     #: the f32[4] parameter vectors as tensors, per device (`on`)
     _on: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
@@ -110,9 +112,10 @@ class TermParams:
 
     @staticmethod
     def build(w, constraint, total_cap: np.ndarray, n_valid: float, n_alive: float,
-              total_disk_cap: float) -> "TermParams":
+              total_disk_cap: float, bf16: bool = False) -> "TermParams":
         """From an engine's goal weights (`engine._Weights`), its constraint
-        and the statics scalars (f32 values)."""
+        and the statics scalars (f32 values); `bf16`, the broker terms
+        accumulated in bf16."""
         total_cap = np.asarray(total_cap, _F32)
         w_cap = np.asarray(w.cap, _F32)
         w_cap_host = np.asarray(
@@ -149,6 +152,7 @@ class TermParams:
             d_thresh=_f32(constraint.capacity_threshold[int(Resource.DISK)]),
             t_disk=constraint.balance_threshold[int(Resource.DISK)],
             total_disk_cap=_f32(total_disk_cap),
+            bf16=bf16,
         )
 
     @property
@@ -219,50 +223,75 @@ def broker_terms(tp: TermParams, sx, b, load, rcount, lcount, pot, lbin, g) -> t
     Mirrors, in delta-decomposable form: CapacityGoal (broker granularity),
     ReplicaCapacityGoal, PotentialNwOutGoal, ResourceDistributionGoal,
     Replica/LeaderReplicaDistributionGoal, LeaderBytesInDistributionGoal.
+    Each term is computed in f32; with `tp.bf16` their running sum is
+    bf16 (`accumulate_bf16`).
     """
     st = sx.state
     v = tp.on(load.device)
     cap = st.broker_capacity[b]  # [..., 4]
     alive = sx.alive[b]
+    terms = []
     # capacity goals (broker granularity; multi-broker hosts in host_terms)
     single = ~sx.host_multi[st.broker_host[b]]
     excess = relu(load - v["cth"] * cap)
     gate = alive[..., None] & (single[..., None] | ~v["host_res"])
-    out = (torch.where(gate, excess, 0.0) * v["w_cap_tc"]).sum(-1)
+    terms.append((torch.where(gate, excess, 0.0) * v["w_cap_tc"]).sum(-1))
 
     exc = relu((rcount - tp.max_replicas).to(torch.float32))
-    out = out + tp.w_replica_cap * torch.where(alive, exc, 0.0) / tp.n_valid
+    terms.append(tp.w_replica_cap * torch.where(alive, exc, 0.0) / tp.n_valid)
 
     exc = relu(pot - tp.cth_nw_out * cap[..., int(Resource.NW_OUT)])
-    out = out + tp.w_pot_nw_out * torch.where(alive, exc, 0.0) / tp.total_cap_nw_out
+    terms.append(tp.w_pot_nw_out * torch.where(alive, exc, 0.0) / tp.total_cap_nw_out)
 
     # resource distribution bands
     upper = g["avg_pct"] * v["t_bal"] * cap
     lower = g["avg_pct"] * v["t_low"] * cap
     term = relu(load - upper) + relu(lower - load)
-    out = out + (
+    terms.append((
         torch.where(alive[..., None], term, 0.0)
         * (v["w_dist"] / (g["total_load"] + 1e-12))
-    ).sum(-1)
+    ).sum(-1))
 
     # replica count distribution
     upper = torch.ceil(g["avg_count"] * tp.t_rc)
     lower = torch.floor(g["avg_count"] * tp.t_rc_low)
     rc = rcount.to(torch.float32)
     term = relu(rc - upper) + relu(lower - rc)
-    out = out + tp.w_replica_dist * torch.where(alive, term, 0.0) / g["total_count"]
+    terms.append(tp.w_replica_dist * torch.where(alive, term, 0.0) / g["total_count"])
 
     # leader count distribution
     upper = torch.ceil(g["avg_lcount"] * tp.t_lc)
     lower = torch.floor(g["avg_lcount"] * tp.t_lc_low)
     lc = lcount.to(torch.float32)
     term = relu(lc - upper) + relu(lower - lc)
-    out = out + tp.w_leader_dist * torch.where(alive, term, 0.0) / g["total_lcount"]
+    terms.append(tp.w_leader_dist * torch.where(alive, term, 0.0) / g["total_lcount"])
 
     # leader bytes-in distribution (upper band only)
     term = relu(lbin - g["avg_lbin"] * tp.t_lbin)
-    out = out + tp.w_lbin_dist * torch.where(alive, term, 0.0) / g["total_lbin"]
+    terms.append(tp.w_lbin_dist * torch.where(alive, term, 0.0) / g["total_lbin"])
+    if tp.bf16:
+        return accumulate_bf16(terms)
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
     return out
+
+
+def accumulate_bf16(terms: list[torch.Tensor]) -> torch.Tensor:
+    """The sum of f32 terms into a bf16 accumulator, back in f32, as the
+    JAX package's compiled program computes it on XLA:CPU: each term
+    rounded to bf16, each add taken in f32 and rounded to bf16, except the
+    last, whose f32 result is kept (XLA drops the bf16 round trip before
+    the final cast to f32)."""
+    acc = round_bf16(terms[0])
+    for t in terms[1:-1]:
+        acc = round_bf16(acc + round_bf16(t))
+    return acc + round_bf16(terms[-1])
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to the nearest bf16 (ties to even), as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def host_terms(tp: TermParams, sx, h, hload) -> torch.Tensor:
@@ -473,9 +502,10 @@ def move_delta(
             dcount=dcount, dlcount=dlcount, dpot=dpot, dlbin=dlbin, dlbin_src=dlbin_src,
             d_src=d_src, d_dst=d_dst, ddisk=ddisk, ddisk_src=ddisk_src,
         )
-    if tp.has_disk_terms:
+    if tp.has_disk_terms or tp.bf16:
         raise NotImplementedError(
-            "move_delta kernel: intra-broker disk goals in the chain are not ported to CUDA"
+            "move_delta kernel: intra-broker disk goals and bf16 scoring are computed only by "
+            "the fused candidates kernel"
         )
     return move_delta_cuda(
         tp, sx, carry, g, src=src, dst=dst, dload_src=dload_src, dload_dst=dload_dst,

@@ -24,6 +24,16 @@ the rounds the loop never reached as the reference's masked rounds would
 (their ys rows, and the state after them), so the ys and the final state
 equal those of running every scheduled round.  `schedule_plain` is the same
 logic on CPU tensors in f32 arithmetic.
+
+With convergence diagnostics (`ScheduleDims.diag`; `_fused_round_step`'s
+diagnostics ys, engine.py:2996-3046) the accumulator holds the step
+kernels' six counts (kernels/select.py DIAG_FIELDS), the round body
+writes the full chain's objective and per-goal violations of the
+post-round carry into the f32[1 + G] `stage`, and each ys row gains
+DIAG_YS and G violation columns: CLOSE copies the counts and the stage
+into the row of a round that ran (the objective into `objective`), and a
+round that did not run, EXIT's included, gets 0 counts and NaN
+violations.
 """
 
 from __future__ import annotations
@@ -50,6 +60,9 @@ T0, T_R, CHEAP_PREV, FULL_V, PREV_V, CHEAP, OBJ = range(7)
 N_FLOAT = 7
 #: ys columns (csrc/schedule.cu Y_*)
 YS = ("accepted", "ran", "stopped", "temperature", "cheap", "full_check", "objective")
+#: the ys columns diagnostics add after YS (the accumulator's counts after
+#: the total), then one column a goal: its violation
+DIAG_YS = ("acc_replica", "acc_swap", "acc_lead", "prior_cands", "prior_acc")
 _F32 = np.float32
 _NAN = float("nan")
 _FN = {}
@@ -64,29 +77,53 @@ class ScheduleDims:
     verbose: bool
     tol: float  # f32 value
     scale: float  # init_temperature_scale as an f32 value
+    diag: bool = False  # convergence diagnostics
+    n_goals: int = 0  # the chain's goals (the diagnostics' violation columns)
+
+    @property
+    def n_acc(self) -> int:
+        """The accumulator's counts: the total, and DIAG_YS with diagnostics."""
+        return 1 + len(DIAG_YS) if self.diag else 1
+
+    @property
+    def n_cols(self) -> int:
+        return len(YS) + (len(DIAG_YS) + self.n_goals if self.diag else 0)
+
+
+def ys_columns(d: ScheduleDims) -> dict[str, int]:
+    """Column of each ys key; with diagnostics "goal_viol" is the first of
+    the G violation columns."""
+    names = YS + (DIAG_YS + ("goal_viol",) if d.diag else ())
+    return {k: i for i, k in enumerate(names)}
 
 
 @dataclasses.dataclass
 class Schedule:
     """The schedule's device state: int and float scalars, the round's
-    accepted count, decay ** round per round, and the ys rows."""
+    accepted count (and the diagnostics' counts), decay ** round per
+    round, the ys rows, and the diagnostics' stage."""
 
     si: torch.Tensor  # i32[N_INT]
     sf: torch.Tensor  # f32[N_FLOAT]
-    acc: torch.Tensor  # i64[1]
+    acc: torch.Tensor  # i64[n_acc]
     decay_pow: torch.Tensor  # f32[total]
-    ys: torch.Tensor  # f64[total, len(YS)]
+    ys: torch.Tensor  # f64[total, n_cols]
     count: torch.Tensor  # i32[2]: loop iterations run, of which masked
+    #: f32[1 + G]: the round's full objective and violations (diagnostics)
+    stage: torch.Tensor | None = None
 
     @staticmethod
-    def create(total: int, decay: float, device) -> "Schedule":
+    def create(total: int, decay: float, device, diag: bool = False,
+               n_goals: int = 0) -> "Schedule":
+        d = ScheduleDims(0, total, False, 0, False, 0.0, 0.0, diag, n_goals)
         return Schedule(
             si=torch.zeros(N_INT, dtype=torch.int32, device=device),
             sf=torch.zeros(N_FLOAT, dtype=torch.float32, device=device),
-            acc=torch.zeros(1, dtype=torch.int64, device=device),
+            acc=torch.zeros(d.n_acc, dtype=torch.int64, device=device),
             decay_pow=decay_powers(decay, total).to(device),
-            ys=torch.zeros((total, len(YS)), dtype=torch.float64, device=device),
+            ys=torch.zeros((total, d.n_cols), dtype=torch.float64, device=device),
             count=torch.zeros(2, dtype=torch.int32, device=device),
+            stage=torch.zeros(1 + n_goals, dtype=torch.float32, device=device) if diag else None,
         )
 
     def value(self, i: int) -> torch.Tensor:
@@ -109,9 +146,19 @@ def _temperature(s: Schedule, d: ScheduleDims, rnd: int) -> float:
     return float(_F32(s.sf[T0].item()) * _F32(s.decay_pow[rnd].item()))
 
 
+def _diag_cols(s: Schedule, d: ScheduleDims, run: bool) -> list[float]:
+    """The diagnostics' columns of a round's row: the counts and the
+    stage's violations of a round that ran, else 0 counts and NaN."""
+    if not d.diag:
+        return []
+    if run:
+        return [float(v) for v in s.acc[1:].tolist()] + [float(v) for v in s.stage[1:].tolist()]
+    return [0.0] * len(DIAG_YS) + [_NAN] * d.n_goals
+
+
 def _masked_row(s: Schedule, d: ScheduleDims, rnd: int) -> list[float]:
     """The ys row of a round that does not run and checks nothing."""
-    return [0.0, 0.0, 0.0, _temperature(s, d, rnd), float(np.inf), 0.0, _NAN]
+    return [0.0, 0.0, 0.0, _temperature(s, d, rnd), float(np.inf), 0.0, _NAN] + _diag_cols(s, d, False)
 
 
 def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
@@ -179,10 +226,14 @@ def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
         return
     run = bool(si[RUN])
     if in_range:
+        if d.diag:
+            obj = float(s.stage[0]) if run else _NAN
+        else:
+            obj = float(sf[OBJ]) if run and d.verbose else _NAN
         s.ys[rnd] = torch.tensor([
-            float(s.acc.item()) if run else 0.0, float(run), float(si[MAIN_STOP]),
-            float(sf[T_R]), float(sf[CHEAP]) if run else float(inf), float(si[NEED_FULL]),
-            float(sf[OBJ]) if run and d.verbose else _NAN,
+            float(s.acc[0]) if run else 0.0, float(run), float(si[MAIN_STOP]),
+            float(sf[T_R]), float(sf[CHEAP]) if run else float(inf), float(si[NEED_FULL]), obj,
+            *_diag_cols(s, d, run),
         ], dtype=torch.float64)
     sf[CHEAP_PREV] = float(sf[CHEAP]) if run else float(inf)
     si[RND] = rnd + 1
@@ -190,13 +241,13 @@ def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
 
 
 class _Ptrs(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_void_p) for f in ("si", "sf", "acc", "decay_pow", "ys", "count")]
+    _fields_ = [(f, ctypes.c_void_p) for f in ("si", "sf", "acc", "decay_pow", "ys", "count", "stage")]
 
 
 class _Dims(ctypes.Structure):
     _fields_ = [("n_main", ctypes.c_int), ("total", ctypes.c_int), ("tol_on", ctypes.c_int),
                 ("checks", ctypes.c_int), ("verbose", ctypes.c_int), ("tol", ctypes.c_float),
-                ("scale", ctypes.c_float)]
+                ("scale", ctypes.c_float), ("diag", ctypes.c_int), ("n_goals", ctypes.c_int)]
 
 
 def _lib_fn(name, argtypes):
@@ -213,14 +264,17 @@ def _c(s: Schedule, d: ScheduleDims) -> tuple[_Ptrs, _Dims]:
     total = d.total
     for name, t, dtype, shape in (
         ("si", s.si, torch.int32, (N_INT,)), ("sf", s.sf, torch.float32, (N_FLOAT,)),
-        ("acc", s.acc, torch.int64, (1,)), ("decay_pow", s.decay_pow, torch.float32, (total,)),
-        ("ys", s.ys, torch.float64, (total, len(YS))), ("count", s.count, torch.int32, (2,)),
+        ("acc", s.acc, torch.int64, (d.n_acc,)), ("decay_pow", s.decay_pow, torch.float32, (total,)),
+        ("ys", s.ys, torch.float64, (total, d.n_cols)), ("count", s.count, torch.int32, (2,)),
+        *((("stage", s.stage, torch.float32, (1 + d.n_goals,)),) if d.diag else ()),
     ):
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        if t is None or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"round_schedule: {name} must be contiguous {dtype}{list(shape)}")
     ptrs = _Ptrs(si=s.si.data_ptr(), sf=s.sf.data_ptr(), acc=s.acc.data_ptr(),
-                 decay_pow=s.decay_pow.data_ptr(), ys=s.ys.data_ptr(), count=s.count.data_ptr())
-    dims = _Dims(d.n_main, d.total, int(d.tol_on), d.checks, int(d.verbose), d.tol, d.scale)
+                 decay_pow=s.decay_pow.data_ptr(), ys=s.ys.data_ptr(), count=s.count.data_ptr(),
+                 stage=s.stage.data_ptr() if d.diag else None)
+    dims = _Dims(d.n_main, d.total, int(d.tol_on), d.checks, int(d.verbose), d.tol, d.scale,
+                 int(d.diag), d.n_goals)
     return ptrs, dims
 
 

@@ -23,6 +23,15 @@ that the minima need clearing once per run (`SelectBuffers.clear`), not
 once per step.  Rejected candidates never touch a segment: every accepted
 delta ranks ahead of the +inf that rejection assigns in the reference.
 
+With convergence diagnostics (`diag`), the accumulator is i64[6]
+(`DIAG_FIELDS`): besides the survivor count, the step's survivors by kind
+(relocations [0, n_r), swaps [n_r, n_r + n_s), leadership transfers after
+them) and, from the candidates kernel's took-the-prior mask over the
+relocations, the prior-drawn candidates and those that survived (the
+`stats` of `_accept_select_apply`, engine.py:2699-2711).  The kernel
+counts them in a second instantiation (`select_survivors_kernel<true>`),
+so the default one is unchanged.
+
 The plain version computes the same keys in int64 (a signed twin of the
 kernel's unsigned keys: the same order) and takes fresh segment minima
 with `scatter_reduce` each call.
@@ -39,6 +48,8 @@ from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.kernels import _build
 
 _FN = None
+#: the diagnostics accumulator's counts, in order (i64[len(DIAG_FIELDS)])
+DIAG_FIELDS = ("accepted", "acc_replica", "acc_swap", "acc_lead", "prior_cands", "prior_acc")
 
 
 def index_bits(K: int) -> int:
@@ -75,12 +86,19 @@ def epoch_keys(delta: torch.Tensor, epoch: int) -> torch.Tensor:
     return (top - (1 << 31)) * (1 << 32) + low
 
 
+def _acc_len(diag: bool) -> int:
+    return len(DIAG_FIELDS) if diag else 1
+
+
 def select_plain(accept, delta, src, dst, part1, part2, num_brokers: int, num_parts: int,
-                 n_r: int, n_s: int, acc: torch.Tensor | None = None):
-    """(survive bool[K], sv_r bool[n_r + 2 n_s], acc i64[1]): the survivors,
-    the relocation rows' mask [survive[:n_r], sv_s, sv_s] with sv_s =
+                 n_r: int, n_s: int, acc: torch.Tensor | None = None,
+                 from_prior: torch.Tensor | None = None, diag: bool = False):
+    """(survive bool[K], sv_r bool[n_r + 2 n_s], acc): the survivors, the
+    relocation rows' mask [survive[:n_r], sv_s, sv_s] with sv_s =
     survive[n_r:n_r + n_s], and `acc` (zeros when None) with the survivor
-    count added in place."""
+    count added in place; with `diag`, acc is i64[6] and the DIAG_FIELDS
+    counts are added (`from_prior`, bool[n_r] or None, the relocations
+    drawn from the prior)."""
     B, P = num_brokers, num_parts
     key = epoch_keys(delta, 1)
     seg = torch.stack([src.long(), dst.long(), B + part1.long(), B + part2.long()])  # [4, K]
@@ -93,10 +111,15 @@ def select_plain(accept, delta, src, dst, part1, part2, num_brokers: int, num_pa
     mins = segmin[seg.clamp(0, n_seg - 1)]
     survive = accept & (mins == key[None, :]).all(0)
     if acc is None:
-        acc = torch.zeros(1, dtype=torch.int64, device=delta.device)
-    acc.add_(survive.sum())
-    sv_s = survive[n_r: n_r + n_s]
-    return survive, torch.cat([survive[:n_r], sv_s, sv_s]), acc
+        acc = torch.zeros(_acc_len(diag), dtype=torch.int64, device=delta.device)
+    sv_r, sv_s = survive[:n_r], survive[n_r: n_r + n_s]
+    if diag:
+        fp = from_prior if from_prior is not None else torch.zeros_like(sv_r)
+        acc.add_(torch.stack([survive.sum(), sv_r.sum(), sv_s.sum(), survive[n_r + n_s:].sum(),
+                              fp.sum(), (sv_r & fp).sum()]))
+    else:
+        acc.add_(survive.sum())
+    return survive, torch.cat([sv_r, sv_s, sv_s]), acc
 
 
 @dataclasses.dataclass
@@ -141,7 +164,9 @@ class Epoch:
 class _Args(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "accept", "delta", "src", "dst", "part1", "part2", "segmin", "survive", "sv_r", "acc", "rnd",
-    )] + [(f, ctypes.c_int) for f in ("K", "B", "P", "n_r", "n_s", "idx_bits", "step", "steps")])
+        "from_prior",
+    )] + [(f, ctypes.c_int) for f in ("K", "B", "P", "n_r", "n_s", "idx_bits", "step", "steps",
+                                      "diag")])
 
 
 def _fn():
@@ -163,7 +188,8 @@ def _ptr(name, t, dtype, n) -> int:
 
 def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_parts: int,
                 n_r: int, n_s: int, acc: torch.Tensor | None = None,
-                bufs: SelectBuffers | None = None, epoch: Epoch = Epoch()):
+                bufs: SelectBuffers | None = None, epoch: Epoch = Epoch(),
+                from_prior: torch.Tensor | None = None, diag: bool = False):
     K = int(delta.shape[0])
     B, P = num_brokers, num_parts
     if not (0 <= n_r and 0 <= n_s and n_r + n_s <= K):
@@ -175,7 +201,7 @@ def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_par
     if epoch.rnd is not None and not 0 <= epoch.step < epoch.steps:
         raise ValueError(f"select_survivors: step {epoch.step} outside 0..{epoch.steps - 1}")
     if acc is None:
-        acc = torch.zeros(1, dtype=torch.int64, device=delta.device)
+        acc = torch.zeros(_acc_len(diag), dtype=torch.int64, device=delta.device)
     args = _Args(
         accept=_ptr("accept", accept, torch.bool, K), delta=_ptr("delta", delta, torch.float32, K),
         src=_ptr("src", src, torch.int32, K), dst=_ptr("dst", dst, torch.int32, K),
@@ -183,10 +209,12 @@ def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_par
         segmin=_ptr("segmin", bufs.segmin, torch.int64, B + P),
         survive=_ptr("survive", bufs.survive, torch.bool, K),
         sv_r=_ptr("sv_r", bufs.sv_r, torch.bool, n_r + 2 * n_s),
-        acc=_ptr("acc", acc, torch.int64, 1),
+        acc=_ptr("acc", acc, torch.int64, _acc_len(diag)),
         rnd=None if epoch.rnd is None else _ptr("rnd", epoch.rnd, torch.int32, 1),
+        from_prior=(None if from_prior is None or not diag
+                    else _ptr("from_prior", from_prior, torch.bool, n_r)),
         K=K, B=B, P=P, n_r=n_r, n_s=n_s, idx_bits=index_bits(K), step=epoch.step,
-        steps=epoch.steps,
+        steps=epoch.steps, diag=int(diag),
     )
     if K > 0:
         stream = torch.cuda.current_stream(delta.device).cuda_stream
@@ -198,16 +226,18 @@ def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_par
 
 def select_survivors(accept, delta, src, dst, part1, part2, *, num_brokers: int, num_parts: int,
                      n_r: int, n_s: int, acc: torch.Tensor | None = None,
-                     bufs: SelectBuffers | None = None, epoch: Epoch = Epoch()):
-    """(survive bool[K], sv_r bool[n_r + 2 n_s], acc i64[1]) of a candidate
+                     bufs: SelectBuffers | None = None, epoch: Epoch = Epoch(),
+                     from_prior: torch.Tensor | None = None, diag: bool = False):
+    """(survive bool[K], sv_r bool[n_r + 2 n_s], acc) of a candidate
     bundle (engine.py:2643 `_select` and `_accept_select_apply`'s sv_r_ext
-    and accepted), the survivor count added into `acc` (a new zero
-    accumulator when None): the kernel for CUDA tensors, into `bufs`
-    (`select_buffers`, fresh ones when None) at `epoch`, which must grow
-    from step to step between two `bufs.clear()`; the plain version for
-    CPU tensors."""
+    and accepted), the survivor count added into `acc`, i64[1] (a new
+    zero accumulator when None), or with `diag` the DIAG_FIELDS counts
+    into an i64[6] (`from_prior` the relocations' took-the-prior mask, or
+    None): the kernel for CUDA tensors, into `bufs` (`select_buffers`,
+    fresh ones when None) at `epoch`, which must grow from step to step
+    between two `bufs.clear()`; the plain version for CPU tensors."""
     if kernels.route(accept, delta, src, dst, part1, part2) == "cpu":
         return select_plain(accept, delta, src, dst, part1, part2, num_brokers, num_parts, n_r, n_s,
-                            acc)
+                            acc, from_prior, diag)
     return select_cuda(accept, delta, src, dst, part1, part2, num_brokers, num_parts, n_r, n_s,
-                       acc, bufs, epoch)
+                       acc, bufs, epoch, from_prior, diag)

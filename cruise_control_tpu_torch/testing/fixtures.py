@@ -376,3 +376,21 @@ def random_cluster_fast(spec: RandomClusterSpec, seed: int = 0, device=None) -> 
         disk_alive=np.tile(alive[:, None], (1, D)).copy(),
     )
     return state_from_numpy(arrays, shape, resolve_device(device))
+
+
+def prior_table(shape: ClusterShape, seed: int = 0, mix: float = 0.5):
+    """A warm learned prior for a cluster of `shape` (controller/prior.py
+    `PriorTable`): per topic, acceptance mass on a few brokers drawn from
+    `seed` (a quarter of the topics have none, and draw uniformly), at
+    `mix`."""
+    from cruise_control_tpu_torch.controller.prior import PriorTable
+
+    rng = np.random.default_rng(seed)
+    T, B = shape.num_topics, shape.B
+    w = np.zeros((T, B), np.float32)
+    for t in range(T):
+        if rng.random() < 0.25:
+            continue
+        hot = rng.choice(B, size=min(B, int(rng.integers(1, 6))), replace=False)
+        w[t, hot] = rng.uniform(0.5, 4.0, hot.size).astype(np.float32)
+    return PriorTable(weights=w, mix=mix, observations=float(w.sum()))

@@ -34,7 +34,7 @@ from cruise_control_tpu_torch.analyzer.options import OptimizationOptions as TOp
 from cruise_control_tpu_torch.convert import from_jax_arrays
 from cruise_control_tpu_torch.kernels.candidates import StepKeys, candidates_plain
 from cruise_control_tpu_torch.kernels.select import select_plain
-from cruise_control_tpu_torch.models import compute_aggregates
+from cruise_control_tpu_torch.models import compute_aggregates, validate
 from cruise_control_tpu_torch.models.state import STATE_FIELDS
 
 RTOL, ATOL = 1e-6, 1e-12
@@ -191,16 +191,27 @@ def test_select_plain_equals_argsort_formula(case):
     ("score_dtype", "bfloat16"),
 ])
 def test_unported_modes_raise(field, value):
-    """The modes the port lacks raise; intra_broker (the rebalance_disk
-    mode) is ported and builds an engine whose candidates are all
-    intra-broker disk moves."""
+    """Every mode of the JAX package's OptimizerConfig is ported (the name
+    is kept from when these raised): each builds an engine and runs on the
+    fused route with one blocking sync.  intra_broker draws intra-broker
+    disk moves only; prior_enabled carries the prior's CDF (a cold prior
+    with none) and the step keys' prior columns; diagnostics adds the
+    convergence summary; bfloat16 sums the broker terms in bf16."""
     ts = _port(_jax_state("small_cluster"))
+    eng = TEngine(ts, T_CHAIN, config=TConfig(**{**FAST, field: value}))
+    final, hist = eng.run()
+    timing = hist[-1]
+    assert timing["fused"] is True and timing["blocking_syncs"] == 1
+    assert validate(final, strict=False) == []
     if field == "intra_broker":
-        eng = TEngine(ts, T_CHAIN, config=TConfig(**{**FAST, field: value}))
         assert (eng.K_r, eng.K_s, eng.K_l) == (FAST["num_candidates"], 0, 0)
-        return
-    with pytest.raises(NotImplementedError):
-        TEngine(ts, T_CHAIN, config=TConfig(**{**FAST, field: value}))
+    elif field == "prior_enabled":
+        assert tuple(eng.statics.prior_cdf.shape) == (ts.shape.num_topics, ts.shape.B)
+        assert float(eng.statics.prior_mix) == 0.0 and eng._ws.prior_keys is not None
+    elif field == "diagnostics":
+        assert timing["convergence"]["rounds"] == len(hist) - 1
+    else:
+        assert eng.tp.bf16
 
 
 def _report_divergence():

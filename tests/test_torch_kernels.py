@@ -22,7 +22,14 @@ Metropolis threshold, also with the intra-broker disk terms in every delta
 and with the intra-broker kind (rebalance_disk: no swap or leadership
 rows) on the JBOD fixtures; apply_moves bit for bit on the intra kind's
 survivors, whose src and dst are one broker; the graph route against the
-legacy route at T=0 in the intra-broker mode and with a warm start.
+legacy route at T=0 in the intra-broker mode and with a warm start.  The
+prior and bf16 variants of candidates against their plain versions under
+the same bars, the took-the-prior mask exact (a cold prior's bundle the
+prior-off one); select_survivors' diagnostics instantiation: survivors and
+its six counts exact; the schedule's diagnostics columns exact, EXIT
+included; each mode's fused run with one graph launch and one sync
+(diagnostics: the placements of the run without them; the prior:
+rebind_prior with no capture).
 """
 
 import dataclasses
@@ -472,6 +479,11 @@ def _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot: bool):
     print(f"accept differs in {int(differ.sum())} candidates, all within the bar of the threshold")
     assert not bool((differ & ~near).any())
     assert bool(ref["accept"].any())
+    # the prior variant's took-the-prior mask (None without the prior)
+    assert (got["from_prior"] is None) == (ref["from_prior"] is None)
+    if ref["from_prior"] is not None:
+        assert torch.equal(got["from_prior"], ref["from_prior"])
+    return got
 
 
 CONFIG3_CHAIN = ("RackAwareGoal", "DiskCapacityGoal", "IntraBrokerDiskCapacityGoal",
@@ -1046,13 +1058,16 @@ def test_round_schedule_exit_matches_plain(cuda):
 
 
 #: the loop graph's cases on random_cluster(20/400): steps a round,
-#: init_temperature_scale, verbose; 24 steps stop in a main round, 8 in a
-#: polish round (on the CPU's trajectory as on the card's)
+#: init_temperature_scale, verbose (and convergence diagnostics); 24 steps
+#: stop in a main round, 8 in a polish round (on the CPU's trajectory as on
+#: the card's)
 LOOP_CASES = {
     "main_stop_t0": (24, 0.0, False),
     "main_stop_hot_verbose": (24, 1e-2, True),
     "polish_stop_t0_verbose": (8, 0.0, True),
     "polish_stop_hot": (8, 1e-2, False),
+    "main_stop_hot_diag": (24, 1e-2, False, True),
+    "polish_stop_t0_verbose_diag": (8, 0.0, True, True),
 }
 
 
@@ -1065,11 +1080,12 @@ def test_loop_graph_matches_round_eager(cuda, name):
     graph and ran no masked round."""
     from cruise_control_tpu_torch.kernels import schedule as sk
 
-    steps, scale, verbose = LOOP_CASES[name]
+    steps, scale, verbose, *diag = LOOP_CASES[name]
+    diag = bool(diag)
     state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
                            device=cuda)
     cfg = OptimizerConfig(num_candidates=256, leadership_candidates=64, steps_per_round=steps,
-                          num_rounds=6, seed=1, init_temperature_scale=scale)
+                          num_rounds=6, seed=1, init_temperature_scale=scale, diagnostics=diag)
     eng = Engine(state, DEFAULT_CHAIN, config=cfg)
     eng.run(verbose=verbose)  # captures the graphs
     kernels.reset_launches()
@@ -1106,4 +1122,181 @@ def test_loop_graph_matches_round_eager(cuda, name):
         assert recs[-1].get("early_stop") is True and not recs[-1].get("extra")
     else:
         assert recs[-1].get("extra") is True and rounds < eng._n_rounds()
-    assert ("objective" in recs[0]) == verbose
+    assert ("objective" in recs[0]) == (verbose or diag)
+    assert ("accepted_by_kind" in recs[0]) == diag
+
+
+# ---------------------------------------------------------------------------
+# the learned prior, bf16 scoring and convergence diagnostics
+# ---------------------------------------------------------------------------
+
+
+def _mode_step(cuda, *, prior_mix=None, bf16=False, jbod=False, seed=5):
+    """One step's inputs of an engine with the prior (at `prior_mix`, a
+    warm table of testing/fixtures.py `prior_table`) and/or bf16 scoring:
+    random_cluster(20/400) with the default chain, or the JBOD fixture
+    with configuration 3's chain (the disk terms)."""
+    if jbod:
+        state = fixtures.jbod_cluster(cuda)
+        chain = GoalChain.from_names(list(CONFIG3_CHAIN))
+    else:
+        state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                               device=cuda)
+        chain = DEFAULT_CHAIN
+    prior = None if prior_mix is None else fixtures.prior_table(state.shape, 1, prior_mix)
+    cfg = dataclasses.replace(CFG, prior_enabled=prior is not None,
+                              score_dtype="bfloat16" if bf16 else "float32")
+    eng = Engine(state, chain, config=cfg, prior=prior)
+    carry = eng.init_carry(Key.from_seed(seed))
+    plan = eng.plan(carry)
+    keys = cand_k.StepKeys.of(carry.key, prior=prior is not None)
+    return eng, carry, eng._globals(carry), keys, plan
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("mix", [0.0, 0.5, 1.0])
+def test_candidates_prior_matches_plain(cuda, mix, hot):
+    """The prior variant against its plain version (the took-the-prior
+    mask exact too); a cold prior's bundle is the prior-off engine's."""
+    eng, carry, g, keys, plan = _mode_step(cuda, prior_mix=mix)
+    assert eng.cand.prior and tuple(eng.statics.prior_cdf.shape) == (eng.shape.num_topics, eng.shape.B)
+    got = _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot)
+    fp = got["from_prior"]
+    assert fp.shape == (eng.K_r,)
+    if mix == 0.0:
+        assert not bool(fp.any())
+        off = Engine(eng.statics.state, DEFAULT_CHAIN, config=CFG)
+        base = cand_k.candidates(off.cand, off.statics, carry, cand_k.StepKeys.of(carry.key), g,
+                                 plan, 0.0)
+        for f in ("delta", "feas", "src", "dst") + (() if hot else ("accept",)):
+            assert torch.equal(got[f], base[f]), f
+    elif mix == 1.0:
+        assert bool(fp.all())
+    else:
+        assert 0 < int(fp.sum()) < eng.K_r
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("case", ["default", "disk_terms", "prior"])
+def test_candidates_bf16_matches_plain(cuda, case, hot):
+    """The bf16 variant against the bf16 plain version: ids, masks and
+    payload rows exact, deltas within the bar, acceptance equal away from
+    the threshold; with the disk terms and with the prior too."""
+    eng, carry, g, keys, plan = _mode_step(cuda, bf16=True, jbod=case == "disk_terms",
+                                           prior_mix=0.5 if case == "prior" else None)
+    assert eng.tp.bf16
+    _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot)
+
+
+@pytest.mark.parametrize("with_prior", [False, True])
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_select_diag_counts_exact(cuda, case, with_prior):
+    """The diagnostics instantiation: survivors and relocation mask exactly
+    the plain version's, and its six counts (total, by kind, prior
+    candidates and survivors) added exactly, into a fresh accumulator and
+    over epochs of one buffer."""
+    c = select_case(case)
+    K, B, P, n_r, n_s = (c[k] for k in ("K", "B", "P", "n_r", "n_s"))
+    g = torch.Generator().manual_seed(len(case))
+    fp = (torch.rand(n_r, generator=g) < 0.4).to(cuda) if with_prior else None
+    bufs = select_k.select_buffers(K, n_r, n_s, B, P, cuda, n_epochs=4)
+    acc = torch.full((len(select_k.DIAG_FIELDS),), 3, dtype=torch.int64, device=cuda)
+    for seed, epoch in ((0, 1), (1, 2), (2, 4)):
+        args = _select_args(select_case(case, seed), cuda)
+        before = acc.clone()
+        got = select_k.select_survivors(*args, num_brokers=B, num_parts=P, n_r=n_r, n_s=n_s, acc=acc,
+                                        bufs=bufs, epoch=select_k.Epoch(epoch - 1), from_prior=fp,
+                                        diag=True)
+        want = select_k.select_plain(*args, B, P, n_r, n_s, from_prior=fp, diag=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (acc - before).tolist() == want[2].tolist()
+        assert int(want[2][0]) == int(want[2][1:4].sum())
+
+
+def test_round_schedule_diag_matches_plain(cuda):
+    """The diagnostics' schedule on the card against the plain version on
+    the CPU, the loop run as the graph runs it, EXIT included, over the
+    stops of test_round_schedule_exit_matches_plain: the counts and the
+    stage copied into the rows of rounds that ran, 0 counts and NaN
+    violations elsewhere; every word the same."""
+    from cruise_control_tpu_torch.kernels import schedule as sk
+
+    tol = float(np.float32(1e-6))
+    big = 1e-2
+    scripts = (
+        ([tol] + [big] * 6, [big, 0.0] + [big] * 5),
+        ([big] * 7, [big] * 4 + [1e-3, 9.5e-4, big]),
+        ([big] * 7, [big] * 4 + [1e-3, 5e-4, 2e-4]),
+    )
+    G = 3
+    for (cheap, full), verbose in itertools.product(scripts, (False, True)):
+        dims = sk.ScheduleDims(n_main=4, total=7, tol_on=True, checks=2, verbose=verbose, tol=tol,
+                               scale=float(np.float32(1e-2)), diag=True, n_goals=G)
+        states = []
+        for dev in ("cpu", cuda):
+            s = sk.Schedule.create(7, 0.7, dev, diag=True, n_goals=G)
+            s.sf[sk.OBJ] = 37.0
+            sk.round_schedule(sk.INIT, s, dims)
+            while True:
+                rnd = int(s.si[sk.RND])
+                sk.round_schedule(sk.GATE, s, dims)
+                if s.si[sk.NEED_FULL]:
+                    s.sf[sk.FULL_V] = full[rnd]
+                sk.round_schedule(sk.DECIDE, s, dims)
+                if s.si[sk.RUN]:
+                    s.acc += torch.tensor([12 + rnd, 5, 4, 3 + rnd, 9, 2], dtype=torch.int64, device=dev)
+                    s.sf[sk.CHEAP] = cheap[rnd]
+                    s.stage.copy_(torch.tensor([3.0 / (rnd + 1), 0.5, 0.0, 1e-7 * rnd]))
+                sk.round_schedule(sk.CLOSE, s, dims)
+                if not s.si[sk.LOOP]:
+                    break
+            sk.round_schedule(sk.EXIT, s, dims)
+            states.append([t.cpu() for t in (s.si, s.sf, s.acc, s.ys, s.count)])
+        for a, b in zip(*states):
+            assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+        ys = states[1][3]
+        ran = ys[:, 1] == 1
+        assert bool(ran.any()) and bool(ys[~ran][:, -G:].isnan().all())
+        assert bool((ys[ran][:, 7:10].sum(1) == ys[ran][:, 0]).all())
+
+
+@pytest.mark.parametrize("mode", ["diagnostics", "prior", "bf16"])
+def test_mode_runs_on_card(cuda, mode):
+    """Each mode through the fused route on the card: one graph launch and
+    one sync; with diagnostics, the placements of the run without them
+    and accepted == sum(accepted_by_kind) on every round; with the prior,
+    `rebind_prior` refills the statics with no new capture and the run
+    equals a new engine's with that prior; with bf16, a valid placement
+    whose objective falls."""
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    kw = {"diagnostics": dict(diagnostics=True), "prior": dict(prior_enabled=True),
+          "bf16": dict(score_dtype="bfloat16")}[mode]
+    cfg = dataclasses.replace(CFG, num_rounds=4, **kw)
+    prior = fixtures.prior_table(state.shape, 2, 0.5) if mode == "prior" else None
+    eng = Engine(state, DEFAULT_CHAIN, config=cfg, prior=prior)
+    final, hist = eng.run()
+    timing = hist[-1]
+    assert timing["graph_launches"] == 1 and timing["blocking_syncs"] == 1
+    if mode == "diagnostics":
+        base, _ = Engine(state, DEFAULT_CHAIN, config=dataclasses.replace(cfg, diagnostics=False)).run()
+        for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+            assert torch.equal(getattr(final, f), getattr(base, f)), f
+        for rec in hist[:-1]:
+            assert rec["accepted"] == sum(rec["accepted_by_kind"].values())
+            assert len(rec["goal_violations"]) == len(DEFAULT_CHAIN.goals)
+        assert timing["convergence"]["rounds"] == len(hist) - 1
+    elif mode == "prior":
+        captures = len(eng.graph_stats.get("captures", []))
+        other = fixtures.prior_table(state.shape, 3, 1.0)
+        eng.rebind_prior(other)
+        again, hist2 = eng.run()
+        assert len(eng.graph_stats.get("captures", [])) == captures and hist2[-1]["captured"] == []
+        fresh, _ = Engine(state, DEFAULT_CHAIN, config=cfg, prior=other).run()
+        for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+            assert torch.equal(getattr(again, f), getattr(fresh, f)), f
+    else:
+        from cruise_control_tpu_torch.models import validate
+
+        assert validate(final, strict=False) == []
+        assert float(DEFAULT_CHAIN.evaluate(final)[0]) < float(DEFAULT_CHAIN.evaluate(state)[0])

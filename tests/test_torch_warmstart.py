@@ -28,6 +28,7 @@ from cruise_control_tpu_torch.analyzer import Engine as TEngine
 from cruise_control_tpu_torch.analyzer import GoalOptimizer as TOptimizer
 from cruise_control_tpu_torch.analyzer import OptimizerConfig as TConfig
 from cruise_control_tpu_torch.analyzer.draws import Key
+from cruise_control_tpu_torch.controller import PriorTable
 from cruise_control_tpu_torch.convert import from_jax_arrays
 from cruise_control_tpu_torch.kernels import candidates as cand_k
 from cruise_control_tpu_torch.models.state import STATE_FIELDS
@@ -206,10 +207,25 @@ def test_initial_placement_is_checked(bad):
 
 
 def test_the_prior_still_raises():
-    ts = _port(jf.small_cluster())
-    with pytest.raises(NotImplementedError, match="prior"):
-        TOptimizer(config=TConfig(**FAST), device="cpu").optimize(ts, prior=object())
+    """The prior is ported (the name is kept from when it raised):
+    `optimize(prior=)` with a warm prior and a warm start together runs as
+    the JAX package's does, placements and proposals; the modes that
+    raised before build and run through optimize."""
+    js = jf.small_cluster()
+    ts = _port(js)
+    start = _start(js)
+    prior = PriorTable(weights=np.zeros((js.shape.num_topics, js.shape.B), np.float32), mix=0.5,
+                       observations=1.0)
+    prior.weights[:, 0] = 1.0
+    cfg = dict(FAST, prior_enabled=True)
+    jr = JOptimizer(config=JConfig(**cfg)).optimize(js, prior=prior, initial_placement=start)
+    tr = TOptimizer(config=TConfig(**cfg), device="cpu").optimize(ts, prior=prior,
+                                                                  initial_placement=_torch(start))
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(getattr(tr.state_after, f).numpy(),
+                                      np.asarray(getattr(jr.state_after, f)), err_msg=f)
+    assert len(tr.proposals) == len(jr.proposals)
     for kw in (dict(prior_enabled=True), dict(diagnostics=True), dict(score_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            TConfig(**FAST, **kw).check_ported()
-    TConfig(**FAST, intra_broker=True).check_ported()
+        res = TOptimizer(config=TConfig(**FAST, **kw), device="cpu").optimize(ts)
+        assert res.objective_after < res.objective_before
+    assert not hasattr(TConfig(**FAST), "check_ported")
