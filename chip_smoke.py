@@ -6,7 +6,7 @@ It needs one CUDA device, nvcc and nvidia-smi, and exits nonzero without a
 result line when any phase fails or no CUDA device is present.
 
 Phases:
-  1. The card: its name and power limit, then the build of the nine CUDA
+  1. The card: its name and power limit, then the build of the ten CUDA
      kernel libraries from cruise_control_tpu_torch/kernels/csrc, and the
      CUDA runtime and driver versions (the loop graph needs 12.4+).
   2. Each kernel against its plain PyTorch version on the card, on the
@@ -90,6 +90,22 @@ Phases:
      candidate, deltas bit for bit), timed against the f32 call in turns;
      the proposal meets
      the JAX package's tolerance gate against phase 4's f32 objective.
+ 15. The streaming replay on the north star with the prior (phase 13's
+     fitted table at mix 0.5, refreshed every window from the previous
+     window's proposals): a fused path (LiveState +
+     optimize_streaming_cycle) and a staged path
+     (LiveState.set_partition_loads + optimize(initial_placement=,
+     prior=)), side by side from the same state, over a reflatten and five
+     windows (every partition x1.03, 2,000 partitions x1.2, an empty
+     window, 20,000 x0.9, every partition x1.03): identical placements,
+     proposal columns, reports and live loads every window; one blocking
+     sync, no capture, one scatter_loads launch and the dispatches
+     {engine.cycle: 1, engine.extract: 1} on every fused cycle; no capture
+     on the staged path after the reflatten; every hard goal met.  Then
+     scatter_loads against its plain version, bit for bit, on the window-2
+     and window-3 inputs (with sentinel, past-the-end and negative rows)
+     and an empty window, timed beside the plain version and an
+     `index_copy_` pair.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -138,7 +154,7 @@ ALU_OPS_PER_S = 67e12
 OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
                "candidates_kernel", "select_survivors_kernel", "apply_moves_kernel",
                "group_by_broker_kernel", "refresh_aggregates_kernel", "step_globals_kernel",
-               "round_schedule_kernel")
+               "round_schedule_kernel", "scatter_loads_kernel")
 
 
 def kernel_name(name: str) -> str:
@@ -174,10 +190,17 @@ VARIANT_CASES = {
     "candidates_prior": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:1832"),
     "candidates_bf16": ("candidates.cu", "cruise_control_tpu/analyzer/engine.py:1656"),
 }
-#: the kernels the main path launches; the other two are standalone since
-#: the candidates kernel fused them, and the main path must launch them 0 times
+#: the kernels the main path launches (scatter_loads in the reported run's
+#: head, with an empty window on a proposal); the other two are standalone
+#: since the candidates kernel fused them, and the main path must launch
+#: them 0 times
 PATH_KERNELS = ("candidates", "select_survivors", "apply_moves", "group_by_broker",
-                "refresh_aggregates", "step_globals", "round_schedule")
+                "refresh_aggregates", "step_globals", "round_schedule", "scatter_loads")
+#: phase 15's kernel, a row of its own in the kernels line
+STREAM_CASES = {"scatter_loads": ("scatter.cu", "cruise_control_tpu/models/whatif.py:393")}
+#: phase 15's windows after the reflatten: (partitions, load factor); None
+#: is every partition
+STREAM_WINDOWS = ((None, 1.03), (2_000, 1.2), (0, 1.0), (20_000, 0.9), (None, 1.03))
 
 
 def check(ok, message: str) -> None:
@@ -1688,7 +1711,7 @@ def fit_prior(res, state, mix: float):
     catalog = ClusterCatalog(topics=tuple(f"t{t}" for t in range(state.shape.num_topics)), partitions=())
     prior = MoveAcceptancePrior(mix=mix, min_observations=0)
     n = prior.observe_proposals(res.proposals, catalog)
-    return prior.table(catalog, state.shape), n
+    return prior.table(catalog, state.shape), n, prior, catalog
 
 
 def check_prior(state, cfg, exact: dict, table, table2, table3) -> dict:
@@ -1792,6 +1815,242 @@ def check_bf16(state, cfg, exact: dict) -> dict:
     return krec
 
 
+def stream_window(host: dict, live_state, n_parts, factor: float, rng):
+    """One window of phase 15: the leader and follower rows of `n_parts`
+    partitions drawn from `rng` (every partition when None, none when 0)
+    at `factor` times their live loads (host numpy: rows i32[n], f32[n, 4]
+    each)."""
+    import numpy as np
+
+    valid, part = host["replica_valid"], host["replica_partition"]
+    if n_parts is None:
+        rows = np.nonzero(valid)[0]
+    elif n_parts == 0:
+        rows = np.zeros(0, np.int64)
+    else:
+        chosen = rng.choice(int(part[valid].max()) + 1, size=n_parts, replace=False)
+        rows = np.nonzero(valid & np.isin(part, chosen))[0]
+    rows = rows.astype(np.int32)
+    ll = live_state.replica_load_leader.cpu().numpy()[rows] * np.float32(factor)
+    fl = live_state.replica_load_follower.cpu().numpy()[rows] * np.float32(factor)
+    return rows, ll.astype(np.float32), fl.astype(np.float32)
+
+
+def check_scatter_kernel(state, windows: list) -> dict:
+    """Phase 15's kernel: scatter_loads against scatter_loads_plain, bit for
+    bit, from a staging buffer of capacity R (as the cycle's), on the
+    window-2 and window-3 inputs (window 3 with sentinel, past-the-end and
+    negative rows among its real ones) and on an empty window; then its
+    time on window 2's 500,245 rows beside the plain version's and one
+    `index_copy_` pair's on the unpadded rows, and the bound: 68 B a row."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.kernels import scatter as scatter_k
+
+    dev = state.device
+    R = state.shape.R
+    base = (state.replica_load_leader.clone(), state.replica_load_follower.clone())
+
+    def staging(rows, ll, fl):
+        n = int(rows.size)
+        st_rows = torch.full((R,), R, dtype=torch.int32, device=dev)
+        st_ll = torch.zeros((R, 4), dtype=torch.float32, device=dev)
+        st_fl = torch.zeros((R, 4), dtype=torch.float32, device=dev)
+        if n:
+            st_rows[:n] = torch.from_numpy(rows).to(dev)
+            st_ll[:n] = torch.from_numpy(ll).to(dev)
+            st_fl[:n] = torch.from_numpy(fl).to(dev)
+        return st_rows, st_ll, st_fl, torch.tensor([n], dtype=torch.int32, device=dev)
+
+    rows3, ll3, fl3 = windows[1]
+    rows3 = rows3.copy()
+    rows3[2::83] -= R  # the same rows counted from the end, as a JAX index is
+    rows3[::97] = R  # the sentinel
+    rows3[1::89] = R + 17  # past the end
+    cases = {"window2": windows[0], "window3_sentinels": (rows3, ll3, fl3),
+             "empty": (np.zeros(0, np.int32), np.zeros((0, 4), np.float32),
+                       np.zeros((0, 4), np.float32))}
+    checked = {}
+    for name, (rows, ll, fl) in cases.items():
+        args = staging(rows, ll, fl)
+        got = [t.clone() for t in base]
+        want = [t.clone() for t in base]
+        for _ in range(3):
+            scatter_k.scatter_loads(*got, *args)
+        scatter_k.scatter_loads_plain(*want, *args)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(g.view(torch.int32), w.view(torch.int32)))
+                   for g, w in zip(got, want))
+        changed = int((got[0] != base[0]).any(1).sum())
+        checked[name] = dict(rows=int(rows.size), bit_for_bit=same, rows_changed=changed)
+        check(same, f"scatter_loads differs from its plain version on {name}")
+    rows2, ll2, fl2 = windows[0]
+    args = staging(rows2, ll2, fl2)
+    out = [t.clone() for t in base]
+    kt = measure(lambda: scatter_k.scatter_loads(*out, *args))
+    one_launch(kt, "scatter_loads_kernel")
+    pt = measure(lambda: scatter_k.scatter_loads_plain(*out, *args))
+    idx = torch.from_numpy(rows2.astype(np.int64)).to(dev)
+    new_ll, new_fl = torch.from_numpy(ll2).to(dev), torch.from_numpy(fl2).to(dev)
+    lib = measure(lambda: (out[0].index_copy_(0, idx, new_ll), out[1].index_copy_(0, idx, new_fl)))
+    n = int(rows2.size)
+    nb = 68 * n  # a row's index, two new rows read, two rows written
+    b_ms, b_by = bound(nb, 0.0)
+    rec = dict(max_abs_err=0.0, **timings(kt, pt), library_ms=lib["ms"], library_call_ms=lib["call_ms"],
+               bound_ms=b_ms, bound_by=b_by, bound_bytes=nb, n=n, cases=checked,
+               tolerance="bit for bit, three calls, window 2, window 3 with sentinel, past-the-end "
+                         "and negative rows, and an empty window")
+    log(json.dumps({"phase": "kernel", "name": "scatter_loads", **rec}))
+    return rec
+
+
+def check_streaming(state, cfg, prior, catalog) -> dict:
+    """Phase 15: the streaming replay at full width.  Two optimizers from
+    the same state, SEARCH with the prior on: `fused` (LiveState +
+    optimize_streaming_cycle) and `staged` (LiveState.set_partition_loads +
+    optimize(initial_placement=, prior=)); a reflatten (a cold optimize on
+    each), then STREAM_WINDOWS, the prior refreshed before each window
+    from the previous window's proposals.  Each window: identical
+    placements, proposal columns and live loads on both paths; one
+    blocking sync, no capture and the two counted dispatches on every
+    fused cycle; no capture on the staged path after the reflatten; every
+    hard goal met on both.  Launch counts are zeroed just before each
+    fused cycle and read just after."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.goals import HARD_GOAL_NAMES
+    from cruise_control_tpu_torch.analyzer.proposals import fetch_before_host
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+    from cruise_control_tpu_torch.models.whatif import LiveState
+
+    cfg_p = dataclasses.replace(cfg, prior_enabled=True)
+    dev = state.device
+    shape = state.shape
+    host = {f: getattr(state, f).cpu().numpy() for f in ("replica_valid", "replica_partition")}
+    rng = np.random.default_rng(15)
+
+    def live():
+        return LiveState(dataclasses.replace(
+            state, replica_load_leader=state.replica_load_leader.clone(),
+            replica_load_follower=state.replica_load_follower.clone()))
+
+    paths = {"fused": (GoalOptimizer(config=cfg_p, device=dev), live()),
+             "staged": (GoalOptimizer(config=cfg_p, device=dev), live())}
+
+    def hard_ok(res) -> bool:
+        return all(v <= 1e-6 for n, v in zip(res.goal_names, res.violations_after)
+                   if n in HARD_GOAL_NAMES)
+
+    def record(res, wall, counts, rows):
+        t = next(h for h in res.history if h.get("timing"))
+        return dict(rows=rows, scatter_width=t.get("scatter_width"), wall_s=wall,
+                    host_dispatch_s=t["host_dispatch_s"], device_s=t["device_s"],
+                    host_extract_s=t["host_extract_s"],
+                    rounds=len([h for h in res.history if "round" in h]),
+                    graph_launches=t["graph_launches"], report_graph_launches=t["report_graph_launches"],
+                    blocking_syncs=t["blocking_syncs"], captured=t["captured"], dispatches=counts,
+                    proposals=len(res.proposals), objective=[res.objective_before, res.objective_after],
+                    hard_goals_met=hard_ok(res), fused_cycle=bool(t.get("fused_cycle")))
+
+    # window 1: the reflatten, a cold optimize on both paths
+    table = prior.table(catalog, shape)
+    res, windows_out = {}, []
+    rec1 = {}
+    for name, (opt, lv) in paths.items():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with dispatch_meter() as m:
+            res[name] = opt.optimize(lv.state, prior=table)
+        torch.cuda.synchronize()
+        rec1[name] = record(res[name], time.monotonic() - t0, dict(m.counts), 0)
+    before_host = fetch_before_host(paths["fused"][1].state)
+    log(json.dumps({"phase": "stream_window", "window": 1, "kind": "reflatten", **rec1}))
+    check(all(r["hard_goals_met"] for r in rec1.values()), f"stream window 1: a hard goal is violated: {rec1}")
+    fused_launches = {k: 0 for k in kernels.LAUNCHES}
+    kernel_windows = []
+    for w, (n_parts, factor) in enumerate(STREAM_WINDOWS, start=2):
+        prior.observe_proposals(res["fused"].proposals, catalog)
+        table = prior.table(catalog, shape)
+        rows, ll, fl = stream_window(host, paths["fused"][1].state, n_parts, factor, rng)
+        if w in (2, 3):
+            kernel_windows.append((rows, ll, fl))
+        rec = {}
+        # fused: one cycle
+        opt, lv = paths["fused"]
+        warm = tuple(getattr(res["fused"].state_after, f) for f in PLACEMENT)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        with dispatch_meter() as m:
+            out = opt.optimize_streaming_cycle(lv.state, rows=rows, leader_loads=ll, follower_loads=fl,
+                                               initial_placement=warm, prior=table,
+                                               before_host=before_host)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(kernels.LAUNCHES)
+        check(out is not None, f"stream window {w}: no cached engine for the fused cycle")
+        res["fused"], (n_ll, n_fl) = out
+        lv.adopt_loads(n_ll, n_fl)
+        rec["fused"] = record(res["fused"], wall, dict(m.counts), int(rows.size))
+        rec["fused"]["launches"] = launches
+        for k, v in launches.items():
+            fused_launches[k] += v
+        # staged: the scatter, then a warm optimize
+        opt, lv = paths["staged"]
+        warm = tuple(getattr(res["staged"].state_after, f) for f in PLACEMENT)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with dispatch_meter() as m:
+            width = lv.set_partition_loads(rows, ll, fl)
+            res["staged"] = opt.optimize(lv.state, initial_placement=warm, prior=table)
+        torch.cuda.synchronize()
+        rec["staged"] = record(res["staged"], time.monotonic() - t0, dict(m.counts), int(rows.size))
+        rec["staged"]["scatter_width"] = width
+        f, g = res["fused"], res["staged"]
+        same_place = all(bool(torch.equal(getattr(f.state_after, x), getattr(g.state_after, x)))
+                         for x in (*PLACEMENT, "replica_offline"))
+        fc, gc = f.proposals._c, g.proposals._c
+        same_prop = fc.keys() == gc.keys() and all(np.array_equal(fc[k], gc[k]) for k in fc)
+        lf, ls = paths["fused"][1].state, paths["staged"][1].state
+        same_loads = all(bool(torch.equal(getattr(lf, x).view(torch.int32), getattr(ls, x).view(torch.int32)))
+                         for x in ("replica_load_leader", "replica_load_follower"))
+        same_reports = (f.objective_before == g.objective_before and f.objective_after == g.objective_after
+                        and np.array_equal(f.violations_after, g.violations_after))
+        rec.update(phase="stream_window", window=w, partitions=n_parts, factor=factor, mix=table.mix,
+                   identical_placements=same_place, identical_proposals=same_prop,
+                   identical_live_loads=same_loads, identical_reports=same_reports)
+        log(json.dumps(rec))
+        check(same_place and same_prop and same_loads and same_reports,
+              f"stream window {w}: the fused cycle differs from the staged path")
+        fr = rec["fused"]
+        check(fr["fused_cycle"] and fr["blocking_syncs"] == 1 and fr["captured"] == []
+              and fr["dispatches"] == {"engine.cycle": 1, "engine.extract": 1},
+              f"stream window {w}: the fused cycle broke its contract: {fr}")
+        check(rec["staged"]["captured"] == [], f"stream window {w}: the staged path captured anew")
+        check(fr["hard_goals_met"] and rec["staged"]["hard_goals_met"],
+              f"stream window {w}: a hard goal is violated")
+        missing = [k for k in PATH_KERNELS if launches[k] == 0]
+        check(not missing, f"stream window {w}: kernels never launched by the cycle: {missing}")
+        check(launches["scatter_loads"] == 1,
+              f"stream window {w}: the cycle launched scatter_loads {launches['scatter_loads']} times")
+        windows_out.append(rec)
+    for opt, _ in paths.values():
+        for engine in opt._engines.values():
+            engine.release()
+    del paths, res
+    torch.cuda.empty_cache()
+    krec = check_scatter_kernel(state, kernel_windows)
+    krec["launches"] = fused_launches["scatter_loads"]
+    krec["launches_a_cycle"] = fused_launches["scatter_loads"] / len(STREAM_WINDOWS)
+    log(json.dumps({"phase": "stream_check", "windows": len(windows_out) + 1,
+                    "fused_cycle_launches": fused_launches}))
+    return krec
+
+
 def main() -> int:
     try:
         import torch
@@ -1865,7 +2124,7 @@ def main() -> int:
     # phase 13's tables: the prior fitted on this run's moves at mix 0.5 and
     # 1.0, and a seeded table of testing/fixtures.py at mix 0.25
     fitted = [fit_prior(res4, state, mix) for mix in (0.5, 1.0)]
-    prior_tables = [t for t, _ in fitted] + [prior_table(s, 7, 0.25)]
+    prior_tables = [f[0] for f in fitted] + [prior_table(s, 7, 0.25)]
     log(json.dumps({"phase": "prior_fit", "pairs": fitted[0][1],
                     "topics_with_mass": int((prior_tables[0].weights.sum(1) > 0).sum())}))
     del res4, again
@@ -1915,6 +2174,10 @@ def main() -> int:
     variants["candidates_prior"] = check_prior(state, cfg, exact, *prior_tables)
     # phase 14: bf16 scoring on the north star
     variants["candidates_bf16"] = check_bf16(state, cfg, exact)
+    torch.cuda.empty_cache()
+    # phase 15: the streaming replay at full width, with phase 13's fitted
+    # prior at mix 0.5, refreshed every window
+    variants["scatter_loads"] = check_streaming(state, cfg, fitted[0][2], fitted[0][3])
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
@@ -1926,7 +2189,7 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
         })
-    for name, (src, replaces) in {**JBOD_CASES, **VARIANT_CASES}.items():
+    for name, (src, replaces) in {**JBOD_CASES, **VARIANT_CASES, **STREAM_CASES}.items():
         k = jbod[name] if name in jbod else variants[name]
         rows.append({
             "name": name, "route": "cuda",

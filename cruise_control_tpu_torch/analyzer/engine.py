@@ -75,8 +75,23 @@ package's does.  `score_dtype="bfloat16"` sums the broker terms (in the
 candidates kernel and the plain objective views) and the chain's weighted
 objective in bf16; violations, scores and reports stay f32.
 
-Segmented execution, ahead-of-time compilation, the streaming cycle and
-the mesh engines have no entry point here.
+The streaming cycle (`run_cycle`, the JAX package's `run_cycle` and
+`_cycle_impl`) is a fused run with its reports: a window's new load rows
+scattered into the engine's own load tables (kernels/scatter.py), the
+before-report, the warm anneal, the after-report and the device checks,
+fetched with the ys in one blocking sync.  On CUDA the scatter and the
+before-report are one captured graph (`pre`), the after-report and the
+checks another (`post`), launched around the loop graph; the scatter reads
+the window's width on the device from fixed staging tensors, so every
+window replays the same graphs.  `run_reported` is the same run without a
+window (the optimizer's reports ride it), so the first optimize of a model
+generation captures what every later cycle replays.  The loads are data:
+the engine copies each generation's load columns into tensors of its own,
+which every graph reads, so a generation that differs only in its loads
+keeps the captured graphs (`rebind`).
+
+Segmented execution, ahead-of-time compilation and the mesh engines have
+no entry point here.
 """
 
 from __future__ import annotations
@@ -97,13 +112,34 @@ from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, Balanc
 from cruise_control_tpu_torch.kernels import apply as apply_k
 from cruise_control_tpu_torch.kernels import candidates as cand_k
 from cruise_control_tpu_torch.kernels import move_delta as md
+from cruise_control_tpu_torch.kernels import scatter as scatter_k
 from cruise_control_tpu_torch.kernels import schedule as sched_k
 from cruise_control_tpu_torch.kernels import select as select_k
 from cruise_control_tpu_torch.kernels import step_globals as glob_k
 from cruise_control_tpu_torch.kernels.group import Grouping, group_placement
 from cruise_control_tpu_torch.kernels.refresh import AGG_FIELDS, HostGroups, refresh_aggregates
-from cruise_control_tpu_torch.models.aggregates import BrokerAggregates, empty_aggregates
-from cruise_control_tpu_torch.models.state import ClusterShape, ClusterState, replica_members
+from cruise_control_tpu_torch.models.aggregates import (
+    BrokerAggregates,
+    compute_aggregates,
+    empty_aggregates,
+)
+from cruise_control_tpu_torch.models.state import (
+    STATE_FIELDS,
+    ClusterShape,
+    ClusterState,
+    replica_members,
+    validate_on_device,
+)
+from cruise_control_tpu_torch.models.stats import ClusterStats, compute_stats
+from cruise_control_tpu_torch.models.whatif import _round_up_pow2
+
+#: the state's load columns: data to the engine, which keeps them in
+#: tensors of its own (`build_statics(loads=)`)
+LOAD_FIELDS = ("replica_load_leader", "replica_load_follower")
+#: a report's ClusterStats fields and their lengths, in the report row's
+#: order after the objective and the per-goal violations
+REPORT_STATS = (("avg", 4), ("max", 4), ("min", 4), ("std", 4), ("replica_count_std", 1),
+                ("leader_count_std", 1), ("potential_nw_out_std", 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,8 +364,16 @@ def _prior_fields(prior, T: int, B: int, dest_idx: np.ndarray) -> tuple[np.ndarr
 
 
 def build_statics(state: ClusterState, options: OptimizationOptions, *, prior=None,
-                  prior_full_shape: bool = False, layout_out: dict | None = None) -> EngineStatics:
+                  prior_full_shape: bool = False, layout_out: dict | None = None,
+                  loads: tuple[torch.Tensor, torch.Tensor] | None = None) -> EngineStatics:
     """Host-side (numpy) preprocessing of one model generation.
+
+    `loads`, an engine's own (leader, follower) pair of f32[R, 4] tensors,
+    receives the state's load columns (copied last, after every check),
+    and the statics' state reads them instead of the caller's tensors, so
+    a later generation's loads can be copied into the same tensors while
+    the caller's stay as they are.  Without it the statics hold the
+    caller's state as it is.
 
     `prior` (`.weights` f32[T, B] on this generation's topic ids, `.mix`)
     is the learned move-acceptance prior, moved onto destination positions
@@ -381,11 +425,14 @@ def build_statics(state: ClusterState, options: OptimizationOptions, *, prior=No
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
+    part_replicas = t(replica_members(h["replica_valid"], h["replica_partition"], h["replica_pos"], s))
+    if loads is not None:
+        for buf, f in zip(loads, LOAD_FIELDS):
+            buf.copy_(getattr(state, f))
+        state = dataclasses.replace(state, **dict(zip(LOAD_FIELDS, loads)))
     return EngineStatics(
         state=state,
-        part_replicas=t(replica_members(
-            h["replica_valid"], h["replica_partition"], h["replica_pos"], s
-        )),
+        part_replicas=part_replicas,
         alive=t(alive),
         dest_ids=t(dest_pad, torch.int32),
         dest_ok=t(dest),
@@ -490,15 +537,21 @@ def _same_value(a, b) -> bool:
 
 #: statics fields a model generation may change without new graphs: the
 #: apply_moves scratch, and the prior, which is copied into the kept
-#: statics' tensors
+#: statics' tensors (the state's load columns are data too: both
+#: generations' states read the engine's own load tensors)
 _DATA_FIELDS = ("apply_slots", "apply_events", "prior_cdf", "prior_mix")
 
 
 def _same_statics(a: EngineStatics, b: EngineStatics) -> bool:
     """Whether two model generations give the engine the same statics (the
-    apply_moves scratch and the prior aside)."""
+    apply_moves scratch, the prior and the loads aside)."""
+    if a.state.shape != b.state.shape or not all(
+            _same_value(getattr(a.state, f), getattr(b.state, f))
+            for f in STATE_FIELDS if f not in LOAD_FIELDS):
+        return False
     return all(_same_value(getattr(a, f.name), getattr(b, f.name))
-               for f in dataclasses.fields(EngineStatics) if f.name not in _DATA_FIELDS)
+               for f in dataclasses.fields(EngineStatics)
+               if f.name not in _DATA_FIELDS and f.name != "state")
 
 
 def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -509,6 +562,24 @@ def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.from_numpy(np.cumsum(x.numpy(), dtype=np.float32))
     return torch.cumsum(x, 0)
+
+
+def _placed_state(base: ClusterState, replica_broker, replica_is_leader,
+                  replica_disk) -> ClusterState:
+    """`base` with another placement, and the replica_offline it implies."""
+    offline = ~(base.broker_alive[replica_broker] & base.disk_alive[replica_broker, replica_disk])
+    return dataclasses.replace(
+        base,
+        replica_broker=replica_broker,
+        replica_is_leader=replica_is_leader,
+        replica_disk=replica_disk,
+        replica_offline=offline & base.replica_valid,
+    )
+
+
+def _report_width(n_goals: int) -> int:
+    """Floats of one report row: the objective, the violations, REPORT_STATS."""
+    return 1 + n_goals + sum(n for _, n in REPORT_STATS)
 
 
 @dataclasses.dataclass
@@ -530,6 +601,18 @@ class _Workspace:
     #: replica_disk), which the init reads: the statics' placement on a cold
     #: start, the caller's on a warm one, copied in before the run
     start: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    #: the streaming window's staging, capacity R: i32[R] rows, f32[R, 4]
+    #: leader and follower rows and the i32[1] count n, which the scatter
+    #: reads on the device (n = 0 on a run without a window)
+    delta: dict
+    #: the reports: f32[2, 1 + G + 19], the before and after rows (the
+    #: objective, the per-goal violations, REPORT_STATS), i32[5] device
+    #: checks of the final placement, its bool[R] replica_offline and the
+    #: f32[R] disk bytes of the (scattered) leader loads
+    report: torch.Tensor
+    checks: torch.Tensor
+    offline: torch.Tensor
+    disk_bytes: torch.Tensor
     #: captured CUDA graphs by name, their launches per replay, and the
     #: loop graphs by verbose flag
     graphs: dict = dataclasses.field(default_factory=dict)
@@ -537,6 +620,9 @@ class _Workspace:
     loops: dict = dataclasses.field(default_factory=dict)
     ys_host: torch.Tensor | None = None  # pinned host copy of the ys
     count_host: torch.Tensor | None = None  # pinned host copy of the loop's counters
+    #: host copies of the reported run's payload (pinned on CUDA),
+    #: allocated by the first reported run
+    payload_host: dict | None = None
 
     def close(self) -> None:
         for lg in self.loops.values():
@@ -551,7 +637,9 @@ class Engine:
     Reuse one Engine across model generations of the same shape with
     `rebind(state)`; `prior` (prior_enabled engines) is the learned
     move-acceptance prior (`.weights` f32[T, B], `.mix`), refreshed by
-    `rebind(prior=)` or `rebind_prior`.
+    `rebind(prior=)` or `rebind_prior`.  The engine keeps the bound
+    state's load columns in tensors of its own, which its graphs read; no
+    state it returns holds them.
     """
 
     def __init__(
@@ -580,6 +668,16 @@ class Engine:
             self.K_r = config.num_candidates - self.K_l - self.K_s
         self._chain_w = torch.tensor(chain.weights, dtype=torch.float32, device=self.device)
         self._ws: _Workspace | None = None
+        #: the engine's own load tables (leader, follower), f32[R, 4]: each
+        #: generation's loads are copied in (`build_statics(loads=)`)
+        self._loads = tuple(torch.empty((state.shape.R, NUM_RESOURCES), dtype=torch.float32,
+                                        device=self.device) for _ in LOAD_FIELDS)
+        #: the caller's state of the current generation: results carry its
+        #: tensors, never the engine's load tables
+        self._state: ClusterState | None = None
+        #: host staging of a streaming window (pinned on CUDA), allocated by
+        #: the engine's first cycle and kept across model generations
+        self._delta_host: dict | None = None
         #: the real destination list of the current statics (rebind_prior)
         self._dest_idx: np.ndarray | None = None
         #: capture and graph statistics of the current model generation
@@ -591,17 +689,21 @@ class Engine:
         """Swap in a new model generation of the same shape.  Captured
         graphs hold the generation's tensors and the values derived from
         them, so they are kept only when the new generation's statics equal
-        the old ones (a repeated request); otherwise they are released and
-        the next run captures anew.  The prior (a cold one when None) rides
-        the statics as data: it never decides between the two."""
+        the old ones (a repeated request, or new loads on the same
+        cluster); otherwise they are released and the next run captures
+        anew.  The prior (a cold one when None) and the loads ride the
+        statics as data, copied into the engine's own tensors: they never
+        decide between the two."""
         if state.shape != self.shape:
             raise ValueError(f"shape changed {self.shape} -> {state.shape}; build a new Engine")
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the engine on {self.device}")
         layout: dict = {}
         statics = build_statics(state, options, prior=prior,
-                                prior_full_shape=self.config.prior_enabled, layout_out=layout)
+                                prior_full_shape=self.config.prior_enabled, layout_out=layout,
+                                loads=self._loads)
         self._dest_idx = layout["dest_idx"]
+        self._state = state
         if self._ws is not None and _same_statics(self.statics, statics):
             self.statics.prior_cdf.copy_(statics.prior_cdf)
             self.statics.prior_mix.copy_(statics.prior_mix)
@@ -688,19 +790,16 @@ class Engine:
                                  placement=self.statics.check_placement(placement))
 
     def carry_to_state(self, carry: EngineCarry) -> ClusterState:
-        return self._placed_state(carry.replica_broker, carry.replica_is_leader, carry.replica_disk)
+        """The bound (caller's) state with the carry's placement (the
+        carry's own tensors)."""
+        return _placed_state(self._state, carry.replica_broker, carry.replica_is_leader,
+                             carry.replica_disk)
 
-    def _placed_state(self, replica_broker, replica_is_leader, replica_disk) -> ClusterState:
-        """The statics' cluster with another placement."""
-        st = self.statics.state
-        offline = ~(st.broker_alive[replica_broker] & st.disk_alive[replica_broker, replica_disk])
-        return dataclasses.replace(
-            st,
-            replica_broker=replica_broker,
-            replica_is_leader=replica_is_leader,
-            replica_disk=replica_disk,
-            replica_offline=offline & st.replica_valid,
-        )
+    def _carry_view(self, carry: EngineCarry) -> ClusterState:
+        """The statics' state, whose loads are the engine's own tensors,
+        with the carry's placement: what the engine's graphs read."""
+        return _placed_state(self.statics.state, carry.replica_broker, carry.replica_is_leader,
+                             carry.replica_disk)
 
     def refresh(self, carry: EngineCarry, group: Grouping | None = None) -> EngineCarry:
         """Recompute every aggregate of the carry from its placement, in
@@ -769,7 +868,7 @@ class Engine:
         scored by the goal chain against the carry's aggregates."""
         agg = BrokerAggregates(**{f: getattr(carry, f) for f in AGG_FIELDS})
         obj, viol, _ = self.chain.evaluate(
-            self.carry_to_state(carry), agg=agg, constraint=self.constraint, weights=self._chain_w,
+            self._carry_view(carry), agg=agg, constraint=self.constraint, weights=self._chain_w,
             score_dtype=self.config.score_dtype,
         )
         return obj, viol
@@ -898,6 +997,7 @@ class Engine:
         group = Grouping.empty(s.R, s.B, dev)
         cuda = dev.type == "cuda"
         K = self.K_r + self.K_s + self.K_l
+        f32, i32 = torch.float32, torch.int32
         self._ws = _Workspace(
             carry=self._empty_carry(Key.from_seed(cfg.seed)),
             plan=self._empty_plan(group),
@@ -911,6 +1011,14 @@ class Engine:
             sel=select_k.select_buffers(K, self.K_r, self.K_s, s.B, s.P, dev,
                                         n_epochs=total * cfg.steps_per_round) if cuda else None,
             start=tuple(t.clone() for t in self._statics_placement()),
+            delta=dict(rows=torch.full((s.R,), s.R, dtype=i32, device=dev),
+                       ll=torch.zeros((s.R, NUM_RESOURCES), dtype=f32, device=dev),
+                       fl=torch.zeros((s.R, NUM_RESOURCES), dtype=f32, device=dev),
+                       n=torch.zeros(1, dtype=i32, device=dev)),
+            report=torch.zeros((2, _report_width(len(self.chain.goals))), dtype=f32, device=dev),
+            checks=torch.zeros(5, dtype=i32, device=dev),
+            offline=torch.zeros(s.R, dtype=torch.bool, device=dev),
+            disk_bytes=torch.zeros(s.R, dtype=f32, device=dev),
         )
         return self._ws
 
@@ -954,6 +1062,101 @@ class Engine:
 
     def _objective(self, ws: _Workspace) -> None:
         ws.sched.value(sched_k.OBJ).copy_(self.evaluate(ws.carry)[0])
+
+    def _stage_delta(self, ws: _Workspace, cycle) -> None:
+        """The run's window into the workspace's staging tensors, ordered on
+        the stream before the run: none (n = 0) without `cycle`; with it,
+        (ll, fl, rows, new_ll, new_fl), the live load tensors are first
+        copied into the engine's own (whatever generation they last held),
+        then the window's n rows go up from (pinned) host memory without a
+        blocking copy."""
+        d = ws.delta
+        if cycle is None:
+            d["n"].zero_()
+            return
+        ll, fl, rows, new_ll, new_fl = cycle
+        n = int(rows.size)
+        for buf, t in zip(self._loads, (ll, fl)):
+            buf.copy_(t)
+        if self._delta_host is None:
+            pin = self.device.type == "cuda"
+            self._delta_host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                                for k, t in d.items()}
+        h = self._delta_host
+        h["n"][0] = n
+        for k, a in (("rows", rows), ("ll", new_ll), ("fl", new_fl)):
+            if n:
+                h[k][:n].numpy()[...] = a
+                d[k][:n].copy_(h[k][:n], non_blocking=True)
+        d["n"].copy_(h["n"], non_blocking=True)
+
+    def _report_row(self, st: ClusterState, row: torch.Tensor) -> None:
+        """The f32 report of `st` (the optimizer's before and after
+        reports: the objective and per-goal violations in f32 whatever the
+        score dtype, then the cluster stats) into `row`."""
+        agg = compute_aggregates(st, self.statics.part_replicas)
+        obj, viol, _ = self.chain.evaluate(st, agg=agg, constraint=self.constraint,
+                                           weights=self._chain_w)
+        stats = compute_stats(st, agg)
+        row.copy_(torch.cat([obj.reshape(1), viol,
+                             *(getattr(stats, f).reshape(-1) for f, _ in REPORT_STATS)]))
+
+    def _cycle_pre(self, ws: _Workspace) -> None:
+        """The head of a reported run: the staged window scattered into the
+        engine's load tables, then the before-report of the statics' state
+        (the JAX package's `_cycle_impl`, up to the anneal)."""
+        st, d = self.statics.state, ws.delta
+        scatter_k.scatter_loads(st.replica_load_leader, st.replica_load_follower, d["rows"],
+                                d["ll"], d["fl"], d["n"])
+        self._report_row(st, ws.report[0])
+
+    def _cycle_post(self, ws: _Workspace) -> None:
+        """The tail of a reported run: the after-report and the device
+        checks of the final placement, its replica_offline and the leader
+        loads' disk bytes (the JAX package's `_cycle_impl` payload)."""
+        final = self._carry_view(ws.carry)
+        self._report_row(final, ws.report[1])
+        ws.checks.copy_(validate_on_device(final))
+        ws.offline.copy_(final.replica_offline)
+        ws.disk_bytes.copy_(self.statics.state.replica_load_leader[:, int(Resource.DISK)])
+
+    def _payload_sources(self, ws: _Workspace) -> dict:
+        c = ws.carry
+        return dict(report=ws.report, checks=ws.checks, replica_broker=c.replica_broker,
+                    replica_is_leader=c.replica_is_leader, replica_disk=c.replica_disk,
+                    replica_offline=ws.offline, replica_disk_bytes=ws.disk_bytes)
+
+    def _payload_to_host(self, ws: _Workspace) -> None:
+        """Copies of the reported run's payload into host buffers (pinned,
+        and not waited for, on CUDA), ordered on the stream after the run;
+        read them with `_payload` once the stream is synchronised."""
+        src = self._payload_sources(ws)
+        if ws.payload_host is None:
+            pin = self.device.type == "cuda"
+            ws.payload_host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                               for k, t in src.items()}
+        for k, t in src.items():
+            ws.payload_host[k].copy_(t, non_blocking=True)
+
+    def _payload(self, ws: _Workspace) -> dict:
+        """The reported run's payload on the host (copies): obj_before,
+        viol_before, stats_before, obj_after, viol_after, stats_after (f32;
+        stats as ClusterStats of CPU tensors), checks (i32[5]), the final
+        placement, its replica_offline and replica_disk_bytes (numpy)."""
+        h = {k: t.numpy().copy() for k, t in ws.payload_host.items()}
+        G = len(self.chain.goals)
+        out = {k: h[k] for k in ("checks", "replica_broker", "replica_is_leader", "replica_disk",
+                                 "replica_offline", "replica_disk_bytes")}
+        for row, when in zip(h["report"], ("before", "after")):
+            stats, at = {}, 1 + G
+            for f, n in REPORT_STATS:
+                v = torch.from_numpy(row[at: at + n].copy())
+                stats[f] = v if n > 1 else v.reshape(())
+                at += n
+            out[f"obj_{when}"] = np.float32(row[0])
+            out[f"viol_{when}"] = row[1: 1 + G].copy()
+            out[f"stats_{when}"] = ClusterStats(**stats)
+        return out
 
     def _step(self, ws: _Workspace, i: int) -> None:
         """Step i of the round: keys from the key table at the device-side
@@ -1007,15 +1210,69 @@ class Engine:
         tolerance and falls by 10% or more a round.
         """
         if self.config.fused_rounds:
-            return self._run_fused(verbose=verbose, initial_placement=initial_placement)
-        return self._run_legacy(verbose=verbose, initial_placement=initial_placement)
+            final, history, _ = self._run_fused(verbose=verbose, initial_placement=initial_placement)
+        else:
+            final, history, _ = self._run_legacy(verbose=verbose,
+                                                 initial_placement=initial_placement)
+        return final, history
+
+    def run_reported(self, *, verbose: bool = False, initial_placement=None):
+        """`run` with the optimizer's reports: the before-report of the
+        statics' state, the anneal, the after-report and the device checks
+        of the result, fetched with the run's own (one blocking sync on the
+        fused route).  Returns (final_state, history, payload), the payload
+        as `run_cycle`'s without its "placement"."""
+        if self.config.fused_rounds:
+            return self._run_fused(verbose=verbose, initial_placement=initial_placement,
+                                   reports=True)
+        return self._run_legacy(verbose=verbose, initial_placement=initial_placement, reports=True)
+
+    def run_cycle(self, ll, fl, rows, new_ll, new_fl, initial_placement):
+        """The steady-state streaming cycle (the JAX package's `run_cycle`
+        and `_cycle_impl`): the window's scatter, the before-report, the
+        warm fused anneal, the after-report, the device checks and the
+        payload, with ONE blocking sync.
+
+        `ll` / `fl` are the LIVE f32[R, 4] load tensors (the live state's:
+        they are copied into the engine's load tables first, and get the
+        scattered rows back, in place, before the sync); `rows` / `new_ll`
+        / `new_fl` are the window (i32[n] replica rows, at most R of them,
+        and their new f32[n, 4] leader and follower loads; rows outside [0,
+        R) are dropped, the sentinel R among them); `initial_placement` is
+        the warm-start (replica_broker, replica_is_leader, replica_disk)
+        triple of device tensors.  The fused route whatever
+        `fused_rounds` says, as in the JAX package.
+
+        Returns (ll, fl, payload, history): the live pair, scattered; the
+        payload on the host (obj/viol/stats before and after, checks, the
+        final placement, replica_offline and replica_disk_bytes as numpy)
+        and under "placement" the final (replica_broker, replica_is_leader,
+        replica_disk, replica_offline) as copies on the device; history as
+        `run` gives it, its timing record also with `fused_cycle` and the
+        JAX package's `scatter_width`.  Counts the dispatches
+        "engine.cycle" and "engine.extract" only."""
+        R = self.shape.R
+        rows = np.asarray(rows, np.int32).reshape(-1)
+        n = int(rows.size)
+        if n > R:
+            raise ValueError(f"a window holds at most R={R} rows, got {n}")
+        new_ll = np.asarray(new_ll, np.float32).reshape(n, NUM_RESOURCES)
+        new_fl = np.asarray(new_fl, np.float32).reshape(n, NUM_RESOURCES)
+        final, history, payload = self._run_fused(
+            initial_placement=initial_placement, cycle=(ll, fl, rows, new_ll, new_fl))
+        payload["placement"] = (final.replica_broker, final.replica_is_leader,
+                                final.replica_disk, final.replica_offline)
+        timing = history[-1]
+        timing["fused_cycle"] = True
+        timing["scatter_width"] = _round_up_pow2(n)
+        return ll, fl, payload, history
 
     def _final_state(self, ws: _Workspace) -> ClusterState:
-        """The run's result, on placement tensors of its own (the
-        workspace's are the next run's)."""
+        """The run's result: the bound (caller's) state, on placement
+        tensors of its own (the workspace's are the next run's)."""
         c = ws.carry
-        return self._placed_state(c.replica_broker.clone(), c.replica_is_leader.clone(),
-                                  c.replica_disk.clone())
+        return _placed_state(self._state, c.replica_broker.clone(), c.replica_is_leader.clone(),
+                             c.replica_disk.clone())
 
     def _round_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims) -> None:
         """One round of the fused schedule op by op (the CPU route): the
@@ -1030,28 +1287,30 @@ class Engine:
                 self._objective(ws)
         sched_k.round_schedule(sched_k.CLOSE, ws.sched, dims)
 
-    def _capture(self, ws: _Workspace, verbose: bool) -> sched_k.LoopGraph:
+    def _capture(self, ws: _Workspace, verbose: bool, reports: bool = False) -> sched_k.LoopGraph:
         """The loop graph of this model generation (and verbose flag),
         capturing the init, full check, round body and objective graphs on
-        first use.  Each piece runs once eagerly first, on the capture
-        stream, so that lazy initialisations happen outside the capture;
-        the init graph, at the head of every run, resets everything they
-        touched."""
-        lg = ws.loops.get(verbose)
-        if lg is not None:
-            return lg
+        first use, and with `reports` the reported run's `pre` and `post`
+        graphs.  Each piece runs once eagerly first, on the capture stream,
+        so that lazy initialisations happen outside the capture; the init
+        graph, at the head of every run, resets everything they touched,
+        and a second scatter of the same window writes the same rows."""
         dims = self._sched_dims(verbose)
-        pieces = dict(init=lambda: self._init_run(ws, dims), eval=lambda: self._full_check(ws),
-                      body=lambda: self._round_body(ws), obj=lambda: self._objective(ws))
-        # the body's warm-up is one step and a round prep: the code of
-        # every step is the same
-        warm = dict(pieces, body=lambda: (self._step(ws, 0), self.round_prep(ws)))
         # the verbose objective graph; with diagnostics the round body
         # writes the objective itself
         obj = verbose and not dims.diag
-        todo = [n for n in ("init", "eval", "body", "obj") if n not in ws.graphs]
-        if not obj and "obj" in todo:
-            todo.remove("obj")
+        names = ("init", "eval", "body") + (("obj",) if obj else ()) + (
+            ("pre", "post") if reports else ())
+        todo = [n for n in names if n not in ws.graphs]
+        lg = ws.loops.get(verbose)
+        if lg is not None and not todo:
+            return lg
+        pieces = dict(init=lambda: self._init_run(ws, dims), eval=lambda: self._full_check(ws),
+                      body=lambda: self._round_body(ws), obj=lambda: self._objective(ws),
+                      pre=lambda: self._cycle_pre(ws), post=lambda: self._cycle_post(ws))
+        # the body's warm-up is one step and a round prep: the code of
+        # every step is the same
+        warm = dict(pieces, body=lambda: (self._step(ws, 0), self.round_prep(ws)))
         t0 = time.monotonic()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -1069,9 +1328,10 @@ class Engine:
             kernels.LAUNCHES.update(before)
             ws.graphs[name] = graph
         t_cap = time.monotonic()
-        lg = sched_k.LoopGraph(ws.sched, dims, ws.graphs["init"], ws.graphs["eval"],
-                               ws.graphs["body"], ws.graphs["obj"] if obj else None)
-        ws.loops[verbose] = lg
+        if lg is None:
+            lg = sched_k.LoopGraph(ws.sched, dims, ws.graphs["init"], ws.graphs["eval"],
+                                   ws.graphs["body"], ws.graphs["obj"] if obj else None)
+            ws.loops[verbose] = lg
         if ws.ys_host is None:
             ws.ys_host = torch.empty(ws.sched.ys.shape, dtype=torch.float64, pin_memory=True)
             ws.count_host = torch.empty(ws.sched.count.shape, dtype=torch.int32, pin_memory=True)
@@ -1086,35 +1346,48 @@ class Engine:
         ))
         return lg
 
-    def _run_fused(self, *, verbose: bool = False, initial_placement=None):
+    def _run_fused(self, *, verbose: bool = False, initial_placement=None, reports: bool = False,
+                   cycle=None):
+        """The fused route; returns (final_state, history, payload or None).
+        With `reports` the before-report heads the run and the
+        after-report and the checks end it, and their payload comes back
+        with the ys; `cycle`, (ll, fl, rows, new_ll, new_fl), makes it the
+        streaming cycle (`run_cycle`): reports, the window scattered first,
+        the live tensors written back, and the dispatches counted as
+        "engine.cycle" and "engine.extract"."""
         t_start = time.monotonic()
         ws = self._workspace()
         dims = self._sched_dims(verbose)
-        count_dispatch("engine.init")
+        reports = reports or cycle is not None
+        if cycle is None:
+            count_dispatch("engine.init")
         self._stage(ws, initial_placement)
+        if reports:
+            self._stage_delta(ws, cycle)
+        run_tag, sync_tag = ("engine.cycle", "engine.extract") if cycle else ("engine.run", "engine.sync")
+        report_launches = 0
         if self.device.type == "cuda":
             n_caps = len(self.graph_stats.get("captures", []))
-            lg = self._capture(ws, verbose)
+            lg = self._capture(ws, verbose, reports)
             captured = [g for c in self.graph_stats.get("captures", [])[n_caps:] for g in c["graphs"]]
-            count_dispatch("engine.run")
+            count_dispatch(run_tag)
             stream = torch.cuda.current_stream(self.device)
             before = lg.launches
+            if reports:
+                ws.graphs["pre"].replay()
             lg.launch(stream.cuda_stream)
+            if reports:
+                ws.graphs["post"].replay()
+                report_launches = 2
             graph_launches = lg.launches - before
             ws.ys_host.copy_(ws.sched.ys, non_blocking=True)
             ws.count_host.copy_(ws.sched.count, non_blocking=True)
-            t_disp = time.monotonic()
-            # the run's ONE blocking sync: the per-round scalars (complete
-            # only when the loop has ended); the carry stays on the device
-            count_dispatch("engine.sync")
-            stream.synchronize()
-            ys = ws.ys_host.numpy().copy()
-            count = ws.count_host.numpy().copy()
-            self._count_replays(ws, ys, int(count[sched_k.ITERS]), verbose)
         else:
             graph_launches, captured = 0, []
+            if reports:
+                self._cycle_pre(ws)
             self._init_run(ws, dims)
-            count_dispatch("engine.run")
+            count_dispatch(run_tag)
             # the loop graph's loop, op by op: round after round until CLOSE
             # ends the loop, then EXIT
             while True:
@@ -1122,31 +1395,48 @@ class Engine:
                 if not ws.sched.si[sched_k.LOOP]:
                     break
             sched_k.round_schedule(sched_k.EXIT, ws.sched, dims)
-            t_disp = time.monotonic()
-            count_dispatch("engine.sync")
+            if reports:
+                self._cycle_post(ws)
+        if cycle is not None:
+            for t, buf in zip(cycle[:2], self._loads):
+                t.copy_(buf)
+        if reports:
+            self._payload_to_host(ws)
+        t_disp = time.monotonic()
+        # the run's ONE blocking sync: the per-round scalars (complete only
+        # when the loop has ended) and the payload; the carry stays on the
+        # device
+        count_dispatch(sync_tag)
+        if self.device.type == "cuda":
+            stream.synchronize()
+            ys = ws.ys_host.numpy().copy()
+            count = ws.count_host.numpy().copy()
+            self._count_replays(ws, ys, int(count[sched_k.ITERS]), verbose, reports)
+        else:
             ys = ws.sched.ys.numpy().copy()
             count = ws.sched.count.numpy().copy()
         t_sync = time.monotonic()
         history = self._fused_history(ys, verbose=verbose)
         timing = dict(
             timing=True, fused=True, blocking_syncs=1, graph_launches=graph_launches,
-            captured=captured, loop_iterations=int(count[sched_k.ITERS]),
-            masked_rounds=int(count[sched_k.MASKED]),
+            report_graph_launches=report_launches, captured=captured,
+            loop_iterations=int(count[sched_k.ITERS]), masked_rounds=int(count[sched_k.MASKED]),
             host_dispatch_s=round(t_disp - t_start, 6), device_s=round(t_sync - t_disp, 6),
         )
         conv = self._convergence_summary(ys)
         if conv is not None:
             timing["convergence"] = conv
         history.append(timing)
-        return self._final_state(ws), history
+        return self._final_state(ws), history, self._payload(ws) if reports else None
 
     def _count_replays(self, ws: _Workspace, ys: np.ndarray, iterations: int,
-                       verbose: bool) -> None:
+                       verbose: bool, reports: bool = False) -> None:
         """Kernel launches of a graph run: each graph's launches per replay
         times its replays, which the ys record (a body replays on rounds
         that ran, the check on rounds that needed it; the rows EXIT wrote
-        record neither), and the schedule's own: INIT in the init graph,
-        three a loop iteration, and EXIT."""
+        record neither), the report graphs once each on a reported run, and
+        the schedule's own: INIT in the init graph, three a loop iteration,
+        and EXIT."""
         col = {k: i for i, k in enumerate(sched_k.YS)}
         ran = int(ys[:, col["ran"]].sum())
         kernels.add_launches(ws.graph_launches["init"], 1)
@@ -1154,6 +1444,9 @@ class Engine:
         kernels.add_launches(ws.graph_launches["body"], ran)
         if verbose and not self.config.diagnostics:
             kernels.add_launches(ws.graph_launches["obj"], ran)
+        if reports:
+            kernels.add_launches(ws.graph_launches["pre"], 1)
+            kernels.add_launches(ws.graph_launches["post"], 1)
         kernels.LAUNCHES["round_schedule"] += 3 * iterations + 1
 
     def _ys_keys(self) -> tuple:
@@ -1239,14 +1532,15 @@ class Engine:
             ),
         )
 
-    def _run_legacy(self, *, verbose: bool = False, initial_placement=None):
+    def _run_legacy(self, *, verbose: bool = False, initial_placement=None, reports: bool = False):
         """The host-driven round loop (the JAX package's `_run_legacy`):
         temperatures as Python floats, the early-stop check at the bottom
         of a round, then the polish loop; one blocking sync (or more) a
         round.  The carry is updated in place, so no round is dispatched
         ahead of the previous round's check, and the history is the
         reference's.  It ignores `diagnostics`, as the reference's does
-        (`verbose` is its per-round view)."""
+        (`verbose` is its per-round view).  Returns (final_state, history,
+        payload or None); `reports` as `_run_fused`'s, op by op."""
         cfg = self.config
         t_start = time.monotonic()
         sync = dict(n=0, s=0.0)
@@ -1264,6 +1558,9 @@ class Engine:
         ws = self._workspace()
         sched = ws.sched
         self._stage(ws, initial_placement)
+        if reports:
+            self._stage_delta(ws, None)
+            self._cycle_pre(ws)
         carry = self._reset_run(ws)
         t0_obj = float(fetch(self.evaluate(carry)[0])) * cfg.init_temperature_scale
         self.plan(carry, self._globals(carry, ws.gbuf), ws.plan)
@@ -1318,8 +1615,14 @@ class Engine:
                                     accepted=int(acc)))
                 if verbose:
                     history[-1]["objective"] = objective()
+        payload = None
+        if reports:
+            self._cycle_post(ws)
+            self._payload_to_host(ws)
+            fetch(ws.checks)
+            payload = self._payload(ws)
         history.append(dict(
             timing=True, fused=False, blocking_syncs=sync["n"], device_s=round(sync["s"], 6),
             host_s=round(time.monotonic() - t_start - sync["s"], 6),
         ))
-        return self._final_state(ws), history
+        return self._final_state(ws), history, payload

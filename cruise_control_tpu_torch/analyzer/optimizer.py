@@ -15,7 +15,6 @@ import time
 from collections import OrderedDict
 
 import numpy as np
-import torch
 
 from cruise_control_tpu_torch.analyzer.engine import Engine, OptimizerConfig
 from cruise_control_tpu_torch.analyzer.objective import (
@@ -31,14 +30,13 @@ from cruise_control_tpu_torch.analyzer.proposals import (
 )
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.device import resolve_device
-from cruise_control_tpu_torch.models.aggregates import compute_aggregates
 from cruise_control_tpu_torch.models.state import (
     DEVICE_CHECKS,
     ClusterState,
     validate,
     validate_on_device,
 )
-from cruise_control_tpu_torch.models.stats import ClusterStats, compute_stats
+from cruise_control_tpu_torch.models.stats import ClusterStats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,10 +137,35 @@ class GoalOptimizer:
         self.engine_cache_misses += 1
         return engine, False
 
-    def _report(self, state: ClusterState, members: torch.Tensor):
-        agg = compute_aggregates(state, members)
-        obj, viol, _ = self.chain.evaluate(state, agg, constraint=self.constraint)
-        return obj, viol, compute_stats(state, agg)
+    def has_engine_for(self, shape, *, config: OptimizerConfig | None = None) -> bool:
+        """True when an engine for (shape, config) is cached: the streaming
+        cycle's fast path (`optimize_streaming_cycle`) needs one."""
+        return (shape, config or self.config) in self._engines
+
+    def _result(self, state_before, state_after, out: dict, proposals, history, t0) -> OptimizerResult:
+        """The OptimizerResult of a reported run's payload `out`."""
+        pw, sw = self.balancedness_weights
+        viol_b, viol_a = out["viol_before"], out["viol_after"]
+        return OptimizerResult(
+            proposals=proposals,
+            state_before=state_before,
+            state_after=state_after,
+            stats_before=out["stats_before"],
+            stats_after=out["stats_after"],
+            goal_names=self.chain.names(),
+            violations_before=viol_b,
+            violations_after=viol_a,
+            balancedness_before=balancedness_score(
+                viol_b, self.chain, priority_weight=pw, strictness_weight=sw
+            ),
+            balancedness_after=balancedness_score(
+                viol_a, self.chain, priority_weight=pw, strictness_weight=sw
+            ),
+            objective_before=float(out["obj_before"]),
+            objective_after=float(out["obj_after"]),
+            wall_seconds=time.monotonic() - t0,
+            history=history,
+        )
 
     def optimize(
         self,
@@ -164,7 +187,9 @@ class GoalOptimizer:
         relocations' destination draws of a prior_enabled config.  With
         diagnostics, the timing record carries the run's `convergence`
         summary.  The before and after reports are f32 whatever the
-        config's score_dtype."""
+        config's score_dtype; they ride the engine's reported run
+        (`Engine.run_reported`), so the first call of a model generation
+        captures the graphs the streaming cycle replays."""
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         t0 = time.monotonic()
@@ -177,45 +202,100 @@ class GoalOptimizer:
         t_build = time.monotonic()
         engine, hit = self._engine_for(state, options, cfg, prior=prior)
         build_s = time.monotonic() - t_build
-        members = engine.statics.part_replicas  # the same cluster's, before and after
-        obj_b, viol_b, stats_b = self._report(state, members)
         before_host = fetch_before_host(state)
-        final, history = engine.run(verbose=verbose, initial_placement=initial_placement)
-        obj_a, viol_a, stats_a = self._report(final, members)
-        final_checks = validate_on_device(final).cpu().numpy()
+        final, history, out = engine.run_reported(verbose=verbose,
+                                                  initial_placement=initial_placement)
         t_extract = time.monotonic()
-        proposals = extract_proposals(state, final, before_host=before_host)
+        proposals = extract_proposals(state, final, before_host=before_host, after_host=out)
         timing = next(h for h in history if h.get("timing"))
         timing["host_extract_s"] = round(time.monotonic() - t_extract, 6)
         timing["engine_cache_hit"] = hit
         timing["engine_build_s"] = round(build_s, 6)
         s = state.shape
         timing["bucket"] = dict(R=s.R, B=s.B, P=s.P, T=s.num_topics)
-        if final_checks.any():
-            bad = [n for n, c in zip(DEVICE_CHECKS, final_checks) if c]
+        if out["checks"].any():
+            bad = [n for n, c in zip(DEVICE_CHECKS, out["checks"]) if c]
             validate(final)
             raise ValueError(f"optimized state failed sanity checks: {bad}")
-        viol_b = viol_b.cpu().numpy()
-        viol_a = viol_a.cpu().numpy()
-        pw, sw = self.balancedness_weights
-        return OptimizerResult(
-            proposals=proposals,
-            state_before=state,
-            state_after=final,
-            stats_before=stats_b,
-            stats_after=stats_a,
-            goal_names=self.chain.names(),
-            violations_before=viol_b,
-            violations_after=viol_a,
-            balancedness_before=balancedness_score(
-                viol_b, self.chain, priority_weight=pw, strictness_weight=sw
-            ),
-            balancedness_after=balancedness_score(
-                viol_a, self.chain, priority_weight=pw, strictness_weight=sw
-            ),
-            objective_before=float(obj_b),
-            objective_after=float(obj_a),
-            wall_seconds=time.monotonic() - t0,
-            history=history,
-        )
+        return self._result(state, final, out, proposals, history, t0)
 
+    def optimize_streaming_cycle(
+        self,
+        state: ClusterState,
+        *,
+        rows,
+        leader_loads,
+        follower_loads,
+        initial_placement,
+        options: OptimizationOptions = DEFAULT_OPTIONS,
+        config: OptimizerConfig | None = None,
+        prior=None,
+        before_host: dict | None = None,
+    ):
+        """The steady-state streaming cycle as ONE run with ONE blocking
+        sync (Engine.run_cycle): the window's scatter, the warm re-anneal,
+        the before and after reports, the device checks and the proposal
+        payload.
+
+        `state` is the live state (models/whatif.py LiveState): the cached
+        engine keeps the statics of the generation it was last bound to
+        (the live cluster's, unchanged between reflattens), and `options`
+        is accepted for the staged path's signature only.  `rows`,
+        `leader_loads` and `follower_loads` are the window (i32[n] replica
+        rows, f32[n, 4] each); `initial_placement` the warm start, device
+        tensors of the state's dtypes (a previous result's state_after
+        placement); `prior` the learned prior, refreshed into the engine as
+        data (`Engine.rebind_prior`), never a rebind.
+
+        Returns `(OptimizerResult, (new_ll, new_fl))`: `state`'s own load
+        tensors, scattered in place, which the caller adopts as the live
+        pair (`LiveState.adopt_loads`); or None when no engine is cached for
+        (state.shape, config) — the caller then takes the staged path
+        (`LiveState.set_partition_loads` + `optimize`), which builds and
+        caches one, so the NEXT cycle goes fused.
+
+        `before_host` is the caller's reflatten-time placement cache
+        (fetch_before_host of the live state): placement columns do not
+        change between reflattens, so only `replica_disk_bytes`, which the
+        scatter just changed, is refreshed, from the cycle's payload.  The
+        result's state_after placement columns are copies on the engine's
+        device, ready as the next cycle's warm start.  Raises on failed
+        final checks."""
+        if state.device != self.device:
+            raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
+        cfg = config or self.config
+        key = (state.shape, cfg)
+        engine = self._engines.get(key)
+        if engine is None:
+            return None
+        self._engines.move_to_end(key)
+        t0 = time.monotonic()
+        engine.rebind_prior(prior)
+        ll, fl, out, history = engine.run_cycle(
+            state.replica_load_leader, state.replica_load_follower, rows, leader_loads,
+            follower_loads, initial_placement,
+        )
+        self.engine_cache_hits += 1
+        if out["checks"].any():
+            bad = [n for n, c in zip(DEVICE_CHECKS, out["checks"]) if c]
+            raise ValueError(f"optimized state failed sanity checks: {bad}")
+        # the BEFORE state is the live state with the scattered loads; the
+        # AFTER state adds the final placement (device copies)
+        state_before = dataclasses.replace(state, replica_load_leader=ll, replica_load_follower=fl)
+        rb, il, dk, off = out["placement"]
+        state_after = dataclasses.replace(state_before, replica_broker=rb, replica_is_leader=il,
+                                          replica_disk=dk, replica_offline=off)
+        t_extract = time.monotonic()
+        if before_host is not None:
+            before_host = dict(before_host, replica_disk_bytes=out["replica_disk_bytes"])
+        else:
+            before_host = fetch_before_host(state_before)
+        proposals = extract_proposals(state_before, state_after, before_host=before_host,
+                                      after_host=out)
+        timing = next(h for h in history if h.get("timing"))
+        timing["host_extract_s"] = round(time.monotonic() - t_extract, 6)
+        timing["engine_cache_hit"] = True
+        timing["engine_build_s"] = 0.0
+        s = state.shape
+        timing["bucket"] = dict(R=s.R, B=s.B, P=s.P, T=s.num_topics)
+        return self._result(state_before, state_after, out, proposals, history, t0), (ll, fl)

@@ -228,6 +228,7 @@ def extract_proposals(
     before: ClusterState,
     after: ClusterState,
     before_host: dict | None = None,
+    after_host: dict | None = None,
 ) -> ProposalSet:
     """Diff two placements into per-partition proposals
     (reference analyzer/AnalyzerUtils.getDiff:50-117).
@@ -238,7 +239,9 @@ def extract_proposals(
     columnar ProposalSet; ExecutionProposal objects materialize lazily.
 
     before_host: pre-fetched numpy copies of the before-state arrays
-    (fetch_before_host) — skips re-transferring them.
+    (fetch_before_host) — skips re-transferring them.  after_host: numpy
+    copies of the after placement (replica_broker, replica_is_leader,
+    replica_disk; a reported run's payload) — likewise.
     """
     if before_host is None:
         before_host = fetch_before_host(before)
@@ -250,9 +253,12 @@ def extract_proposals(
     disk_bytes = before_host["replica_disk_bytes"]
     part_arr = before_host["replica_partition"]
     pos_arr = before_host["replica_pos"]
-    b_new = after.replica_broker.cpu().numpy()
-    l_new = after.replica_is_leader.cpu().numpy()
-    d_new = after.replica_disk.cpu().numpy()
+    if after_host is None:
+        after_host = {k: getattr(after, k).cpu().numpy()
+                      for k in ("replica_broker", "replica_is_leader", "replica_disk")}
+    b_new = after_host["replica_broker"]
+    l_new = after_host["replica_is_leader"]
+    d_new = after_host["replica_disk"]
 
     changed = valid & ((b_old != b_new) | (l_old != l_new) | (d_old != d_new))
     if not changed.any():

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the anneal step, with their plain versions.
+"""Hand-written CUDA kernels of the anneal and the streaming cycle, with
+their plain versions.
 
 Each wrapper module holds the kernel's launch, the plain PyTorch version of
 the same function, and a header note naming the JAX function it replaces.
@@ -23,6 +24,7 @@ LAUNCHES: dict[str, int] = {
     "refresh_aggregates": 0,
     "step_globals": 0,
     "round_schedule": 0,
+    "scatter_loads": 0,
 }
 
 

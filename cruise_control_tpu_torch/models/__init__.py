@@ -19,6 +19,7 @@ from cruise_control_tpu_torch.models.state import (
     validate_on_device,
 )
 from cruise_control_tpu_torch.models.stats import ClusterStats, compute_stats
+from cruise_control_tpu_torch.models.whatif import HostState, LiveState
 
 __all__ = [
     "BrokerAggregates",
@@ -30,6 +31,8 @@ __all__ = [
     "ClusterStats",
     "DEFAULT_BUCKET_POLICY",
     "DEVICE_CHECKS",
+    "HostState",
+    "LiveState",
     "PartitionSpec",
     "ShapeBucketPolicy",
     "build_state_columnar",

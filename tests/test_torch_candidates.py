@@ -173,5 +173,6 @@ def test_cpu_step_launches_no_kernel():
     assert int(stats["accepted"]) > 0
     assert set(kernels.LAUNCHES) == {"threefry_uniform", "move_delta", "candidates",
                                      "select_survivors", "apply_moves", "group_by_broker",
-                                     "refresh_aggregates", "step_globals", "round_schedule"}
+                                     "refresh_aggregates", "step_globals", "round_schedule",
+                                     "scatter_loads"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

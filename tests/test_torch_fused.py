@@ -300,18 +300,24 @@ def test_schedule_plain_matches_jax(decay):
 
 def test_rebind_keeps_the_run_buffers_only_for_equal_statics():
     """A repeated request (equal statics) keeps the run's buffers (and, on
-    the card, its captured graphs); another generation releases them, and
-    the next run is a fresh engine's."""
+    the card, its captured graphs), and so does a generation with new loads
+    only (the loads are data, copied into the engine's own tensors);
+    another generation releases them.  Either way the next run is a fresh
+    engine's."""
     st = tf.dead_broker_cluster("cpu")
     te = TEngine(st, T_CHAIN, config=TConfig(**FAST))
     te.run()
     ws = te._ws
     te.rebind(tf.dead_broker_cluster("cpu"))
     assert te._ws is ws
-    other = dataclasses.replace(st, replica_load_leader=st.replica_load_leader * 1.5)
-    te.rebind(other)
-    assert te._ws is None
-    a, ha = te.run()
-    b, hb = TEngine(other, T_CHAIN, config=TConfig(**FAST)).run()
-    assert torch.equal(a.replica_broker, b.replica_broker)
-    assert _rounds(ha) == _rounds(hb)
+    loads = dataclasses.replace(st, replica_load_leader=st.replica_load_leader * 1.5)
+    te.rebind(loads)
+    assert te._ws is ws
+    other = dataclasses.replace(loads, broker_capacity=st.broker_capacity * 2.0)
+    for gen in (loads, other):
+        te.rebind(gen)
+        assert (te._ws is ws) == (gen is loads)
+        a, ha = te.run()
+        b, hb = TEngine(gen, T_CHAIN, config=TConfig(**FAST)).run()
+        assert torch.equal(a.replica_broker, b.replica_broker)
+        assert _rounds(ha) == _rounds(hb)

@@ -29,7 +29,11 @@ prior-off one); select_survivors' diagnostics instantiation: survivors and
 its six counts exact; the schedule's diagnostics columns exact, EXIT
 included; each mode's fused run with one graph launch and one sync
 (diagnostics: the placements of the run without them; the prior:
-rebind_prior with no capture).
+rebind_prior with no capture).  scatter_loads bit for bit against its
+plain version (no row, one, a subset, every row, sentinel, negative and
+out-of-range rows); a steady-state streaming cycle that captures nothing,
+launches the loop graph and the two report graphs once each, makes one
+sync and equals the staged path bit for bit.
 """
 
 import dataclasses
@@ -1300,3 +1304,93 @@ def test_mode_runs_on_card(cuda, mode):
 
         assert validate(final, strict=False) == []
         assert float(DEFAULT_CHAIN.evaluate(final)[0]) < float(DEFAULT_CHAIN.evaluate(state)[0])
+
+
+@pytest.mark.parametrize("case", ["empty", "one", "subset", "all", "sentinels"])
+def test_scatter_loads_matches_plain(cuda, case):
+    """scatter_loads against its plain version, bit for bit, from a staging
+    buffer larger than the window (the count read on the device): no row,
+    one row, a random subset, every row, and sentinel, negative and
+    out-of-range rows among real ones; one launch a call."""
+    from cruise_control_tpu_torch.kernels import scatter as scatter_k
+
+    R, cap = 50_000, 60_000
+    rng = np.random.default_rng(11)
+    n = {"empty": 0, "one": 1, "subset": 7_000, "all": R, "sentinels": 9_000}[case]
+    rows = np.full(cap, R, np.int32)
+    rows[:n] = rng.permutation(R)[:n] if n else rows[:0]
+    if case == "sentinels":
+        # rows counted from the end (as a JAX index is) name their own row,
+        # so the window's rows stay unique; the rest are dropped
+        rows[2:n:13] -= R
+        rows[:n:7] = R
+        rows[1:n:11] = rng.integers(R + 1, 2 * R, rows[1:n:11].size)
+        rows[3:n:17] = -R - 5
+    new = rng.random((2, cap, 4), dtype=np.float32)
+    base = rng.random((2, R, 4), dtype=np.float32)
+    args = [torch.from_numpy(rows).to(cuda), *(torch.from_numpy(x).to(cuda) for x in new),
+            torch.tensor([n], dtype=torch.int32, device=cuda)]
+    got = [torch.from_numpy(b.copy()).to(cuda) for b in base]
+    want = [t.clone() for t in got]
+    before = kernels.LAUNCHES["scatter_loads"]
+    scatter_k.scatter_loads(*got, *args)
+    assert kernels.LAUNCHES["scatter_loads"] == before + 1
+    scatter_k.scatter_loads_plain(*want, *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    changed = int((got[0] != torch.from_numpy(base[0]).to(cuda)).any(1).sum())
+    assert (changed == 0) == (n == 0)
+
+
+def test_steady_state_cycle_captures_nothing(cuda):
+    """The streaming cycle on the card: the first optimize of a model
+    generation captures every graph a cycle replays; each later cycle
+    captures nothing, launches the loop graph once and the two report graphs
+    once each, makes one blocking sync and counts exactly its two
+    dispatches; and it publishes the staged path's placements, live loads
+    and reports bit for bit."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+    from cruise_control_tpu_torch.models.whatif import LiveState
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    cfg = dataclasses.replace(CFG, prior_enabled=True)
+    prior = fixtures.prior_table(state.shape, 2, 0.5)
+    paths = [GoalOptimizer(config=cfg, device=cuda) for _ in range(2)]
+    lives = [LiveState(dataclasses.replace(state, replica_load_leader=state.replica_load_leader.clone(),
+                                           replica_load_follower=state.replica_load_follower.clone()))
+             for _ in range(2)]
+    res = [opt.optimize(live.state, prior=prior) for opt, live in zip(paths, lives)]
+    first = next(h for h in res[0].history if h.get("timing"))
+    assert {"init", "pre", "post"} <= set(first["captured"])
+    valid = state.replica_valid.cpu().numpy()
+    part = state.replica_partition.cpu().numpy()
+    ll0 = state.replica_load_leader.cpu().numpy()
+    fl0 = state.replica_load_follower.cpu().numpy()
+    PL = ("replica_broker", "replica_is_leader", "replica_disk")
+    for w, (every, factor) in enumerate(((3, 1.2), (1, 1.03), (5, 0.9))):
+        rows = np.nonzero(valid & (part % every == w % every))[0].astype(np.int32)
+        ll, fl = ll0[rows] * np.float32(factor), fl0[rows] * np.float32(factor)
+        warm = [tuple(getattr(r.state_after, f) for f in PL) for r in res]
+        with dispatch_meter() as m:
+            fused, (n_ll, n_fl) = paths[0].optimize_streaming_cycle(
+                lives[0].state, rows=rows, leader_loads=ll, follower_loads=fl,
+                initial_placement=warm[0], prior=prior)
+        lives[0].adopt_loads(n_ll, n_fl)
+        assert m.counts == {"engine.cycle": 1, "engine.extract": 1}
+        t = next(h for h in fused.history if h.get("timing"))
+        assert t["captured"] == [] and t["graph_launches"] == 1 and t["report_graph_launches"] == 2
+        assert t["blocking_syncs"] == 1 and t["fused_cycle"]
+        lives[1].set_partition_loads(rows, ll, fl)
+        staged = paths[1].optimize(lives[1].state, initial_placement=warm[1], prior=prior)
+        assert next(h for h in staged.history if h.get("timing"))["captured"] == []
+        for f in PL:
+            assert torch.equal(getattr(fused.state_after, f), getattr(staged.state_after, f)), (w, f)
+        for f in ("replica_load_leader", "replica_load_follower"):
+            assert torch.equal(getattr(lives[0].state, f), getattr(lives[1].state, f)), (w, f)
+        assert fused.objective_before == staged.objective_before
+        assert fused.objective_after == staged.objective_after
+        assert len(fused.proposals) == len(staged.proposals)
+        res = [fused, staged]
