@@ -6,7 +6,7 @@ It needs one CUDA device, nvcc and nvidia-smi, and exits nonzero without a
 result line when any phase fails or no CUDA device is present.
 
 Phases:
-  1. The card: its name and power limit, then the build of the ten CUDA
+  1. The card: its name and power limit, then the build of the eleven CUDA
      kernel libraries from cruise_control_tpu_torch/kernels/csrc, and the
      CUDA runtime and driver versions (the loop graph needs 12.4+).
   2. Each kernel against its plain PyTorch version on the card, on the
@@ -106,6 +106,30 @@ Phases:
      and window-3 inputs (with sentinel, past-the-end and negative rows)
      and an empty window, timed beside the plain version and an
      `index_copy_` pair.
+ 16. The scenario batch on the north star: 32 what-ifs as bench.py's
+     scenarios bench builds them (kill a rack, add 1-3 brokers, remove a
+     broker, scale a topic) in one planned shape, scored by
+     ScenarioEvaluator.evaluate_states: one graph launch (a WHILE node
+     over the captured goal chain and the scenario_step kernel) and one
+     sync (dispatch_meter), the loop's counter read back from the device
+     equal to the batch size and the launches exactly the capture's
+     warm-up plus one body a scenario, every objective and violation bit
+     for bit the sequential `_single_eval`'s; warmed batched and sequential walls
+     (batched <= sequential asserted), device ms per scenario, the
+     capture's seconds and the body's nodes; a second batch of 12 other
+     what-ifs with the same varying fields captures nothing.  Then
+     scenario_step against its plain version (exact) and timed.
+ 17. The planner end to end: evaluate(optimize=True) on a lose-rack /
+     add-3 / double-a-topic batch of the north star (one engine built and
+     rebound twice; the captures each anneal made; every fix meets the hard
+     goals), then Rightsizer.rightsize with max_anneals=16 on bench.py's
+     scenarios cluster (500 brokers, 50,000 partitions, 20 racks, 100
+     topics, skew 0.5, seed 7) and on the north star: the verdict, anneals,
+     wall and each anneal's captures; feasibility monotone in the broker
+     count; the north star not under-provisioned.
+ 18. The greedy oracle on the card against its CPU run on small_cluster,
+     rack_violated_cluster and dead_broker_cluster: the same violated
+     goals, the objective within rtol 1e-5; ms per candidate evaluation.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -154,7 +178,7 @@ ALU_OPS_PER_S = 67e12
 OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
                "candidates_kernel", "select_survivors_kernel", "apply_moves_kernel",
                "group_by_broker_kernel", "refresh_aggregates_kernel", "step_globals_kernel",
-               "round_schedule_kernel", "scatter_loads_kernel")
+               "round_schedule_kernel", "scatter_loads_kernel", "scenario_step_kernel")
 
 
 def kernel_name(name: str) -> str:
@@ -198,6 +222,8 @@ PATH_KERNELS = ("candidates", "select_survivors", "apply_moves", "group_by_broke
                 "refresh_aggregates", "step_globals", "round_schedule", "scatter_loads")
 #: phase 15's kernel, a row of its own in the kernels line
 STREAM_CASES = {"scatter_loads": ("scatter.cu", "cruise_control_tpu/models/whatif.py:393")}
+#: phase 16's kernel, a row of its own in the kernels line
+SCENARIO_CASES = {"scenario_step": ("scenario.cu", "cruise_control_tpu/analyzer/scenario_eval.py:205")}
 #: phase 15's windows after the reflatten: (partitions, load factor); None
 #: is every partition
 STREAM_WINDOWS = ((None, 1.03), (2_000, 1.2), (0, 1.0), (20_000, 0.9), (None, 1.03))
@@ -2051,6 +2077,306 @@ def check_streaming(state, cfg, prior, catalog) -> dict:
     return krec
 
 
+def scenario_batch(n: int, start: int, racks: int, brokers: int, topics: int) -> list:
+    """`bench.py:scenarios_bench`'s what-ifs (bench.py:1992-2007), i from
+    `start`: i % 4 picks the kind — kill rack i % racks, add 1 + i % 3
+    brokers, remove broker i % brokers, or scale topic i % topics by
+    1 + 0.25 (i % 5)."""
+    from cruise_control_tpu_torch.planner import BrokerAdd, Scenario
+
+    out = []
+    for i in range(start, start + n):
+        kind = i % 4
+        if kind == 0:
+            out.append(Scenario(name=f"kill-rack-{i}", kill_racks=(i % racks,)))
+        elif kind == 1:
+            out.append(Scenario(name=f"add-{i}", add_brokers=(BrokerAdd(count=1 + i % 3),)))
+        elif kind == 2:
+            out.append(Scenario(name=f"remove-{i}", remove_brokers=(i % brokers,)))
+        else:
+            out.append(Scenario(name=f"scale-{i}", topic_load_factors={i % topics: 1.0 + 0.25 * (i % 5)}))
+    return out
+
+
+def check_scenario_step() -> dict:
+    """Phase 16's kernel: scenario_step against its plain version on a
+    table of (i, n) cases (exact), then its time beside the plain
+    version's (host, CPU tensors) and its bound: one thread reads ctrl and
+    the slot's 1 + G floats and writes a row and the counter."""
+    import torch
+
+    from cruise_control_tpu_torch.kernels import scenario as scen_k
+
+    G = 16
+    cases = [(0, 5), (4, 5), (7, 5), (3, 40), (31, 32), (-1, 3), (0, 0)]
+    for i, n in cases:
+        got, want = (scen_k.ScenarioLoop.create(32, G, d) for d in ("cuda", "cpu"))
+        for s in (got, want):
+            s.obj_slot.fill_(1.25)
+            s.viol_slot.copy_(torch.linspace(0.0, 1.0, G))
+            s.ctrl.copy_(torch.tensor([i, n], dtype=torch.int32))
+        scen_k.scenario_step(got)
+        scen_k.scenario_step_plain(want)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(got, f).cpu(), getattr(want, f)) for f in ("ctrl", "obj_out", "viol_out"))
+        check(same, f"scenario_step differs from its plain version at i={i}, n={n}")
+    # timed with i kept below n, so every call stores its row
+    cap = 1 << 20
+    loop = scen_k.ScenarioLoop.create(cap, G, "cuda")
+    loop.ctrl.copy_(torch.tensor([0, cap], dtype=torch.int32, device="cuda"))
+    kt = measure(lambda: scen_k.scenario_step_cuda(loop))
+    one_launch(kt, "scenario_step_kernel")
+    plain = scen_k.ScenarioLoop.create(cap, G, "cpu")
+    plain.ctrl[1] = cap
+    p_ms = host_time_ms(lambda: scen_k.scenario_step_plain(plain))
+    nb = 8 + 4 * (1 + G) + 4 * (1 + G) + 4
+    b_ms, b_by = bound(nb, 0.0)
+    rec = dict(max_abs_err=0.0, ms=kt["ms"], own_kernel_ms=kt["own_kernel_ms"], call_ms=kt["call_ms"],
+               ms_source=kt["ms_source"], plain_ms=p_ms, plain_ms_source="host, CPU tensors",
+               library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_bytes=nb,
+               tolerance=f"exact on {len(cases)} (i, n) cases")
+    log(json.dumps({"phase": "kernel", "name": "scenario_step", **rec}))
+    return rec
+
+
+def check_scenarios(state) -> dict:
+    """Phase 16: 32 north-star what-ifs of one planned shape as one batch:
+    one graph launch and one sync, each scenario's objective and
+    violations bit for bit `_single_eval`'s (the sequential chain, every
+    launch from the host); warmed batched and sequential walls (the JAX
+    package's gate: batched <= sequential); a second batch of 12 other
+    scenarios with the same varying fields captures nothing.  Launch
+    counts are zeroed just before the first batch and read just after."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import ScenarioEvaluator
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.planner import apply_scenario, plan_shape
+
+    s = state.shape
+    dims = (NORTH_STAR_SPEC["num_racks"], NORTH_STAR_SPEC["num_brokers"], NORTH_STAR_SPEC["num_topics"])
+    scenarios = scenario_batch(32, 0, *dims)
+    second = scenario_batch(12, 32, *dims)
+    t0 = time.monotonic()
+    shape = plan_shape(state, scenarios + second)
+    base = pad_state(state, shape) if shape != s else state
+    states = [apply_scenario(base, sc, shape=shape) for sc in scenarios]
+    states2 = [apply_scenario(base, sc, shape=shape) for sc in second]
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    ev = ScenarioEvaluator(max_scenarios=32)
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    with dispatch_meter() as m:
+        obj, viol, _ = ev.evaluate_states(states)
+    first_wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    first = dict(ev.last_batch)
+    check(m.counts == {"scenario.batch": 1, "scenario.sync": 1},
+          f"the scenario batch made other dispatches than one launch and one sync: {m.counts}")
+    # the loop's counter, read back from the device in the batch's one
+    # sync: the scenarios the WHILE node ran
+    check(first["steps"] == 32, f"the batch graph ran {first['steps']} scenarios of 32")
+    body = first["body_launches"]
+    missing = [k for k in ("group_by_broker", "refresh_aggregates") if not body.get(k)]
+    check(not missing, f"kernels missing from the captured scenario body: {missing}")
+    want = {k: first["warmup_launches"].get(k, 0) + body.get(k, 0) * first["steps"]
+            for k in set(body) | set(first["warmup_launches"])}
+    want["scenario_step"] = first["steps"]
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want, f"the batch's launches {got} are not the warm-up's and one body a scenario: {want}")
+    check(np.isfinite(obj).all() and np.isfinite(viol).all() and viol.shape == (32, 16),
+          "non-finite or misshapen scenario outputs")
+    # the sequential twin: each scenario scored alone, warmed
+    ev._single_eval(states[0])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    singles = [ev._single_eval(st) for st in states]
+    seq_wall = time.monotonic() - t0
+    mism = [i for i, (o, v) in enumerate(singles)
+            if float(o) != obj[i] or not np.array_equal(np.asarray(v, np.float64), viol[i])]
+    check(not mism, f"the batch differs from scoring each scenario alone at {mism}")
+    # warmed batched walls
+    walls, dev_ms = [], []
+    for _ in range(3):
+        t0 = time.monotonic()
+        again, _, _ = ev.evaluate_states(states)
+        walls.append(time.monotonic() - t0)
+        dev_ms.append(ev.last_batch["device_ms"])
+        check(np.array_equal(again, obj), "a repeated batch differs")
+    batched_wall = min(walls)
+    with dispatch_meter() as m2:
+        obj2, viol2, _ = ev.evaluate_states(states2)
+    rec2 = dict(ev.last_batch)
+    check(m2.counts == {"scenario.batch": 1, "scenario.sync": 1} and not rec2["captured"],
+          f"the second batch captured or dispatched anew: {m2.counts}, captured={rec2['captured']}")
+    check(rec2["steps"] == 12, f"the second batch graph ran {rec2['steps']} scenarios of 12")
+    check(rec2["varying"] == first["varying"], "the second batch varies other fields")
+    mism2 = [i for i, st in enumerate(states2) if float(ev._single_eval(st)[0]) != obj2[i]]
+    check(not mism2, f"the second batch differs from scoring each scenario alone at {mism2}")
+    rec = dict(phase="scenario_batch", scenarios=32, shape=dict(R=shape.R, B=shape.B, P=shape.P),
+               setup_s=setup_s, first_wall_s=first_wall, batched_wall_s=batched_wall,
+               batched_walls_s=walls, device_ms=dev_ms, device_ms_per_scenario=min(dev_ms) / 32,
+               sequential_wall_s=seq_wall, sequential_ms_per_scenario=seq_wall / 32 * 1e3,
+               batched_ms_per_scenario=batched_wall / 32 * 1e3,
+               batched_le_sequential=batched_wall <= seq_wall,
+               capture=dict(warmup_s=first["warmup_s"], capture_s=first["capture_s"],
+                            instantiate_s=first["instantiate_s"]),
+               body_nodes=first["body_nodes"], body_launches=body, warmup_launches=first["warmup_launches"],
+               device_steps=first["steps"], varying=first["varying"], identical_to_single=True,
+               second_batch=dict(n=12, wall_s=rec2["wall_s"], device_ms=rec2["device_ms"], captured=False),
+               objective_range=[float(obj.min()), float(obj.max())], launches=launches)
+    log(json.dumps(rec))
+    check(batched_wall <= seq_wall, f"batched wall {batched_wall} s above the sequential {seq_wall} s")
+    del states, states2, ev
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_planner(state, cfg) -> dict:
+    """Phase 17: evaluate(optimize=True) on a lose-rack / add-3 /
+    double-a-topic batch of the north star (one engine, rebound twice;
+    the captures each scenario's anneal made), then Rightsizer.rightsize
+    with max_anneals=16 on bench.py's scenarios cluster (500 brokers,
+    50,000 partitions, 20 racks, 100 topics, skew 0.5, seed 7) and on the
+    north star."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer, ScenarioEvaluator
+    from cruise_control_tpu_torch.planner import BrokerAdd, Scenario
+    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster_fast
+
+    opt = GoalOptimizer(config=cfg, device="cuda")
+    ev = ScenarioEvaluator(optimizer=opt)
+    scs = [Scenario(name="lose-rack", kill_racks=(0,)),
+           Scenario(name="add-3", add_brokers=(BrokerAdd(count=3),)),
+           Scenario(name="double-T0", topic_load_factors={0: 2.0})]
+    base_alive = int((state.broker_valid & state.broker_alive).sum())
+    t0 = time.monotonic()
+    out = ev.evaluate(state, scs, optimize=True)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    fixes = ev.last_batch["fix"]
+    rec = dict(phase="planner_simulate", wall_s=wall, engine_cache_hits=opt.engine_cache_hits,
+               engine_cache_misses=opt.engine_cache_misses,
+               captures=[dict(name=f["name"], engine_cache_hit=f["engine_cache_hit"],
+                              captured=f["captured"], wall_s=f["wall_s"]) for f in fixes],
+               outcomes=[dict(o.to_json(), fix={k: o.fix[k] for k in (
+                   "numReplicaMovements", "numLeaderMovements", "objectiveBefore", "objectiveAfter",
+                   "violatedGoalsBefore", "violatedGoalsAfter", "hardGoalsSatisfiedAfter", "wallSeconds")})
+                   for o in out])
+    log(json.dumps(rec))
+    check((opt.engine_cache_misses, opt.engine_cache_hits) == (1, 2),
+          f"the batch's anneals built {opt.engine_cache_misses} engines")
+    lose, add3, double = out
+    rack_size = int((state.broker_rack == 0).sum())
+    check([o.brokers_alive for o in out] == [base_alive - rack_size, base_alive + 3, base_alive],
+          f"brokers alive: {[o.brokers_alive for o in out]}")
+    check("OfflineReplicaGoal" in lose.violated_goals and lose.fix["numReplicaMovements"] > 0,
+          "losing a rack stranded no replica, or the fix moved none")
+    check(all(o.fix["hardGoalsSatisfiedAfter"] for o in out),
+          f"a fix leaves a hard goal violated: {[o.fix['violatedGoalsAfter'] for o in out]}")
+    check(all(np.isfinite(o.objective) for o in out), "non-finite scenario objective")
+    for engine in opt._engines.values():
+        engine.release()
+    del opt, ev, out
+    torch.cuda.empty_cache()
+
+    spec = RandomClusterSpec(num_brokers=500, num_partitions=50_000, num_racks=20, num_topics=100, skew=0.5)
+    mid = random_cluster_fast(spec, seed=7, device="cuda")
+    rec = run_rightsize("scenarios_cluster", mid, cfg)
+    del mid
+    rec_north = run_rightsize("north_star", state, cfg)
+    check(rec_north["provisionStatus"] != "UNDER_PROVISIONED",
+          "the north star, whose proposal meets every hard goal, came out under-provisioned")
+    return dict(scenarios_cluster=rec, north_star=rec_north)
+
+
+def run_rightsize(label: str, st, cfg) -> dict:
+    """One Rightsizer.rightsize (max_anneals=16) on `st` through a fresh
+    optimizer and evaluator: the verdict, the anneals (each one's
+    engine-cache hit and captures), the wall; feasibility monotone in the
+    broker count."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer, ScenarioEvaluator
+    from cruise_control_tpu_torch.planner import Rightsizer
+
+    opt = GoalOptimizer(config=cfg, device="cuda")
+    rightsizer = Rightsizer(ScenarioEvaluator(optimizer=opt))
+    t0 = time.monotonic()
+    rs = rightsizer.rightsize(st)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    fixes = rightsizer.last_anneals
+    verdict = {k: rs[k] for k in ("provisionStatus", "currentBrokers", "minBrokers", "minBrokersUpperBound",
+                                  "searchedRange", "annealsRun", "undecided", "wallSeconds")}
+    rec = dict(phase="rightsize", cluster=label, brokers=int(st.broker_valid.sum()), replicas=st.shape.R,
+               wall_s=wall, **verdict, candidates=rs["candidates"],
+               screened=sorted(int(n) for n in rs["preMoveViolations"]),
+               engine_cache_hits=opt.engine_cache_hits, engine_cache_misses=opt.engine_cache_misses,
+               anneals=fixes, anneals_that_captured=sum(1 for f in fixes if f["captured"]))
+    log(json.dumps(rec))
+    check(rs["provisionStatus"] in ("RIGHT_SIZED", "OVER_PROVISIONED", "UNDER_PROVISIONED", "UNDECIDED"),
+          f"rightsize verdict {rs['provisionStatus']}")
+    check(1 <= rs["annealsRun"] <= 16 and len(fixes) == rs["annealsRun"],
+          f"rightsize ran {rs['annealsRun']} anneals")
+    lo, hi = rs["searchedRange"]
+    if rs["minBrokers"] is not None:
+        check(lo <= rs["minBrokers"] <= hi, "minBrokers outside the searched range")
+    feas = sorted((c["brokers"], c["feasible"]) for c in rs["candidates"])
+    check(all(not a[1] or b[1] for a, b in zip(feas, feas[1:])),
+          f"feasibility is not monotone in the broker count: {feas}")
+    for engine in opt._engines.values():
+        engine.release()
+    del opt, rightsizer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_greedy() -> dict:
+    """Phase 18: the greedy oracle on the card against its CPU run on the
+    small fixtures: the same violated goals, the objective within rtol
+    1e-5; the placements' identity and the ms per candidate evaluation
+    printed."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN
+    from cruise_control_tpu_torch.analyzer.greedy import greedy_optimize
+    from cruise_control_tpu_torch.testing import fixtures
+
+    out = {}
+    for name in ("small_cluster", "rack_violated_cluster", "dead_broker_cluster"):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            st = getattr(fixtures, name)(dev)
+            t0 = time.monotonic()
+            final, info = greedy_optimize(st, DEFAULT_CHAIN, return_info=True, device=dev)
+            wall = time.monotonic() - t0
+            obj, viol, _ = DEFAULT_CHAIN.evaluate(final)
+            res[dev] = dict(final=final, info=info, wall=wall, evals=info["evaluations"],
+                            objective=float(obj), violated=[n for n, v in zip(DEFAULT_CHAIN.names(),
+                                                                               viol.tolist()) if v > 1e-6])
+        a, b = res["cpu"], res["cuda"]
+        same = all(bool(torch.equal(getattr(a["final"], f), getattr(b["final"], f).cpu()))
+                   for f in ("replica_broker", "replica_is_leader"))
+        rec = dict(moves=[a["info"]["moves"], b["info"]["moves"]], evals=[a["evals"], b["evals"]],
+                   ms_per_eval_cpu=a["wall"] / max(a["evals"], 1) * 1e3,
+                   ms_per_eval_cuda=b["wall"] / max(b["evals"], 1) * 1e3,
+                   objective=[a["objective"], b["objective"]], violated=b["violated"],
+                   identical_placement=same)
+        log(json.dumps({"phase": "greedy", "fixture": name, **rec}))
+        check(a["violated"] == b["violated"], f"greedy on {name}: the card's violated goals differ")
+        check(abs(a["objective"] - b["objective"]) <= 1e-5 * abs(a["objective"]) + 1e-12,
+              f"greedy on {name}: objective {b['objective']} against the CPU's {a['objective']}")
+        out[name] = rec
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2178,6 +2504,15 @@ def main() -> int:
     # phase 15: the streaming replay at full width, with phase 13's fitted
     # prior at mix 0.5, refreshed every window
     variants["scatter_loads"] = check_streaming(state, cfg, fitted[0][2], fitted[0][3])
+    torch.cuda.empty_cache()
+    # phase 16: 32 north-star what-ifs as one batch graph launch
+    scenario_launches = check_scenarios(state)
+    variants["scenario_step"] = check_scenario_step()
+    variants["scenario_step"]["launches"] = scenario_launches["scenario_step"]
+    # phase 17: the planner end to end (simulate with fixes, rightsize)
+    check_planner(state, cfg)
+    # phase 18: the greedy oracle on the card
+    check_greedy()
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
@@ -2189,7 +2524,7 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
         })
-    for name, (src, replaces) in {**JBOD_CASES, **VARIANT_CASES, **STREAM_CASES}.items():
+    for name, (src, replaces) in {**JBOD_CASES, **VARIANT_CASES, **STREAM_CASES, **SCENARIO_CASES}.items():
         k = jbod[name] if name in jbod else variants[name]
         rows.append({
             "name": name, "route": "cuda",

@@ -9,6 +9,7 @@ from cruise_control_tpu_torch.analyzer.objective import (
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer, OptimizerResult
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
 from cruise_control_tpu_torch.analyzer.proposals import ExecutionProposal, extract_proposals
+from cruise_control_tpu_torch.analyzer.scenario_eval import ScenarioEvaluator, ScenarioOutcome
 
 __all__ = [
     "DEFAULT_CHAIN",
@@ -20,6 +21,8 @@ __all__ = [
     "OptimizationOptions",
     "OptimizerConfig",
     "OptimizerResult",
+    "ScenarioEvaluator",
+    "ScenarioOutcome",
     "balancedness_score",
     "extract_proposals",
 ]

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the anneal and the streaming cycle, with
-their plain versions.
+"""Hand-written CUDA kernels of the anneal, the streaming cycle and the
+scenario batch, with their plain versions.
 
 Each wrapper module holds the kernel's launch, the plain PyTorch version of
 the same function, and a header note naming the JAX function it replaces.
@@ -25,6 +25,7 @@ LAUNCHES: dict[str, int] = {
     "step_globals": 0,
     "round_schedule": 0,
     "scatter_loads": 0,
+    "scenario_step": 0,
 }
 
 

@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 KERNEL_SOURCES = ("threefry", "move_delta", "candidates", "select", "apply", "group", "refresh",
-                  "step_globals", "schedule", "scatter")
+                  "step_globals", "schedule", "scatter", "scenario")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

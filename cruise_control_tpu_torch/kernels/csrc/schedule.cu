@@ -343,6 +343,9 @@ CC_EXPORT int cc_loop_graph_build(void* init, void* eval, void* body, void* obj,
   return (int)e;
 }
 
+// Launch and destroy any instantiated graph of the package's libraries (the
+// loop graph here, the scenario batch graph of scenario.cu): both act on
+// opaque handles.
 CC_EXPORT int cc_loop_graph_launch(void* exec, void* stream) {
   return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
 }

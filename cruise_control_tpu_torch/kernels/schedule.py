@@ -312,6 +312,30 @@ def cuda_versions() -> tuple[int, int]:
     return rt.value, dv.value
 
 
+def require_conditional_graphs(what: str) -> None:
+    """Raise unless the runtime and the driver run `what` (a graph with
+    conditional nodes around child graphs): CUDA 12.4 or later in both."""
+    rt, dv = cuda_versions()
+    if min(rt, dv) < MIN_CUDA:
+        raise RuntimeError(
+            f"{what}, which needs CUDA 12.4 or later in the runtime and the driver; found "
+            f"runtime {rt}, driver {dv}"
+        )
+
+
+def launch_graph_exec(exec_: ctypes.c_void_p, stream: int, what: str) -> None:
+    """Launch an instantiated graph built by one of the package's
+    libraries (an opaque cudaGraphExec_t) on `stream`."""
+    fn = _lib_fn("cc_loop_graph_launch", [ctypes.c_void_p, ctypes.c_void_p])
+    _build.check(fn(exec_, stream), f"{what} launch")
+
+
+def destroy_graph_exec(exec_: ctypes.c_void_p, graph: ctypes.c_void_p, what: str) -> None:
+    """Destroy an instantiated graph and its template (opaque handles)."""
+    fn = _lib_fn("cc_loop_graph_destroy", [ctypes.c_void_p, ctypes.c_void_p])
+    _build.check(fn(exec_, graph), f"{what} destroy")
+
+
 class LoopGraph:
     """The whole fused schedule as one instantiated CUDA graph:
     child(init) -> WHILE(loop){GATE -> IF(need_full){eval} -> DECIDE ->
@@ -322,13 +346,8 @@ class LoopGraph:
 
     def __init__(self, s: Schedule, d: ScheduleDims, init_graph, eval_graph, body_graph,
                  obj_graph=None):
-        rt, dv = cuda_versions()
-        if min(rt, dv) < MIN_CUDA:
-            raise RuntimeError(
-                f"the fused route's loop graph nests conditional IF nodes in a WHILE node, which "
-                f"needs CUDA 12.4 or later in the runtime and the driver; found runtime {rt}, "
-                f"driver {dv}"
-            )
+        require_conditional_graphs(
+            "the fused route's loop graph nests conditional IF nodes in a WHILE node")
         self._ptrs, self._dims = _c(s, d)
         fn = _lib_fn("cc_loop_graph_build", [ctypes.c_void_p] * 4 + [
             _Ptrs, _Dims, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p)])
@@ -344,13 +363,11 @@ class LoopGraph:
         self.launches = 0
 
     def launch(self, stream: int) -> None:
-        fn = _lib_fn("cc_loop_graph_launch", [ctypes.c_void_p, ctypes.c_void_p])
-        _build.check(fn(self._exec, stream), "loop graph launch")
+        launch_graph_exec(self._exec, stream, "loop graph")
         self.launches += 1
 
     def close(self) -> None:
         if self._exec:
-            fn = _lib_fn("cc_loop_graph_destroy", [ctypes.c_void_p, ctypes.c_void_p])
-            _build.check(fn(self._exec, self._graph), "loop graph destroy")
+            destroy_graph_exec(self._exec, self._graph, "loop graph")
             self._exec = ctypes.c_void_p()
             self._keep = None

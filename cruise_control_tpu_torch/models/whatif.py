@@ -45,6 +45,8 @@ _BROKER_FIELDS = (
     "broker_capacity", "broker_rack", "broker_host", "broker_alive",
     "broker_new", "broker_valid", "disk_capacity", "disk_alive",
 )
+#: the fields ClusterState.members is built from
+_MEMBER_FIELDS = frozenset(("replica_valid", "replica_partition", "replica_pos"))
 
 
 @dataclasses.dataclass
@@ -79,10 +81,17 @@ class HostState:
     def to_state(self, base: ClusterState) -> ClusterState:
         """Re-materialize a ClusterState (same shape as `base`) on `base`'s
         device; only the mutated fields become new tensors, the rest are
-        `base`'s."""
+        `base`'s.  An edit that leaves the replica rows' partition,
+        position and validity alone shares `base`'s member table (built
+        once per base), so a batch of scenario states builds it once."""
         kw = {f: torch.from_numpy(self.arrays[f].copy()).to(base.device)
               for f in sorted(self.dirty)}
-        return dataclasses.replace(base, **kw) if kw else base
+        if not kw:
+            return base
+        out = dataclasses.replace(base, **kw)
+        if not self.dirty & _MEMBER_FIELDS:
+            vars(out)["members"] = base.members  # the cached_property's slot
+        return out
 
     # ------------------------------------------------------------------
     # derived views

@@ -33,7 +33,11 @@ rebind_prior with no capture).  scatter_loads bit for bit against its
 plain version (no row, one, a subset, every row, sentinel, negative and
 out-of-range rows); a steady-state streaming cycle that captures nothing,
 launches the loop graph and the two report graphs once each, makes one
-sync and equals the staged path bit for bit.
+sync and equals the staged path bit for bit.  scenario_step exact against
+its plain version; the scenario batch graph: one graph launch and one sync
+a batch, each scenario's objective and violations bit for bit those of
+scoring it alone, no capture on a second batch; score_state's graph bit
+for bit the eager chain and stats.
 """
 
 import dataclasses
@@ -1394,3 +1398,106 @@ def test_steady_state_cycle_captures_nothing(cuda):
         assert fused.objective_after == staged.objective_after
         assert len(fused.proposals) == len(staged.proposals)
         res = [fused, staged]
+
+
+@pytest.mark.parametrize("i,n", [(0, 5), (4, 5), (7, 5), (3, 40), (-1, 3), (0, 0)])
+def test_scenario_step_matches_plain(cuda, i, n):
+    """scenario_step against its plain version: row i stored when i < n
+    (n clamped to the capacity), i advanced; exact."""
+    from cruise_control_tpu_torch.kernels import scenario as scen_k
+
+    loops = {}
+    for dev in (cuda, torch.device("cpu")):
+        s = scen_k.ScenarioLoop.create(32, 16, dev)
+        s.obj_slot.fill_(3.5)
+        s.viol_slot.copy_(torch.arange(16, dtype=torch.float32))
+        s.obj_out.fill_(-1.0)
+        s.ctrl.copy_(torch.tensor([i, n], dtype=torch.int32))
+        before = kernels.LAUNCHES["scenario_step"]
+        more = scen_k.scenario_step(s)
+        if dev.type == "cuda":
+            assert more is None and kernels.LAUNCHES["scenario_step"] == before + 1
+        else:
+            assert more == (i + 1 < min(n, 32))
+        loops[dev.type] = s
+    torch.cuda.synchronize()
+    for f in ("ctrl", "obj_out", "viol_out"):
+        assert torch.equal(getattr(loops["cuda"], f).cpu(), getattr(loops["cpu"], f)), f
+
+
+def _scenario_batch(device):
+    from cruise_control_tpu_torch.planner import BrokerAdd, Scenario, apply_scenario, plan_shape
+
+    spec = RandomClusterSpec(num_brokers=24, num_partitions=600, num_racks=6, num_topics=12, skew=0.8)
+    st = fixtures.random_cluster_fast(spec, seed=7, device=device)
+    scs = []
+    for i in range(12):
+        kind = i % 4
+        if kind == 0:
+            scs.append(Scenario(name=f"kill-{i}", kill_racks=(i % 6,)))
+        elif kind == 1:
+            scs.append(Scenario(name=f"add-{i}", add_brokers=(BrokerAdd(count=1 + i % 3),)))
+        elif kind == 2:
+            scs.append(Scenario(name=f"rm-{i}", remove_brokers=(i % 24,)))
+        else:
+            scs.append(Scenario(name=f"scale-{i}", topic_load_factors={i % 12: 1.0 + 0.25 * (i % 5)}))
+    shape = plan_shape(st, scs)
+    from cruise_control_tpu_torch.models.builder import pad_state
+
+    base = pad_state(st, shape)
+    return base, [apply_scenario(base, sc, shape=shape) for sc in scs]
+
+
+def test_scenario_batch_graph_equals_single_eval(cuda):
+    """The batch graph on the card: one graph launch and one sync a batch,
+    every scenario's objective and violations those of scoring it alone
+    (bit for bit), the step kernel launched once a scenario, no capture on
+    a second batch of another size; the card's numbers within the chain's
+    bar of the CPU's."""
+    from cruise_control_tpu_torch.analyzer import ScenarioEvaluator
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+
+    base, states = _scenario_batch(cuda)
+    ev = ScenarioEvaluator(device=cuda)
+    before = kernels.LAUNCHES["scenario_step"]
+    with dispatch_meter() as m:
+        obj, viol, _ = ev.evaluate_states(states)
+    assert m.counts == {"scenario.batch": 1, "scenario.sync": 1}
+    assert kernels.LAUNCHES["scenario_step"] == before + len(states)
+    assert ev.last_batch["captured"] and ev.last_batch["graph_launches"] == 1
+    # the loop's counter, read back from the device: the scenarios it ran
+    assert ev.last_batch["steps"] == len(states)
+    body = ev.last_batch["body_launches"]
+    assert body.get("group_by_broker") and body.get("refresh_aggregates"), body
+    for i, s in enumerate(states):
+        o, v = ev._single_eval(s)
+        assert float(o) == obj[i], i
+        assert np.array_equal(np.asarray(v, np.float64), viol[i]), i
+    with dispatch_meter() as m:
+        obj2, _, _ = ev.evaluate_states(states[3:10])
+    assert m.counts == {"scenario.batch": 1, "scenario.sync": 1}
+    assert not ev.last_batch["captured"] and ev.last_batch["steps"] == 7
+    assert np.array_equal(obj2, obj[3:10])
+    _, cpu_states = _scenario_batch(torch.device("cpu"))
+    obj_cpu, _, _ = ScenarioEvaluator(device="cpu").evaluate_states(cpu_states)
+    np.testing.assert_allclose(obj, obj_cpu, rtol=1e-5)
+
+
+def test_score_state_graph_equals_eager(cuda):
+    """score_state's captured graph on the card: the chain and the stats of
+    the eager evaluation, bit for bit, one sync a call."""
+    from cruise_control_tpu_torch.analyzer import ScenarioEvaluator
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+    from cruise_control_tpu_torch.models.stats import compute_stats
+
+    base, states = _scenario_batch(cuda)
+    ev = ScenarioEvaluator(device=cuda)
+    for s in (base, states[1], base):
+        with dispatch_meter() as m:
+            obj, viol, stats, _ = ev.score_state(s)
+        assert m.counts == {"scenario.score": 1, "scenario.sync": 1}
+        o, v = ev._single_eval(s)
+        assert obj == float(o) and np.array_equal(viol, np.asarray(v, np.float64))
+        want = compute_stats(s)
+        for f in dataclasses.fields(stats):
+            assert torch.equal(getattr(stats, f.name), getattr(want, f.name).cpu()), f.name
