@@ -117,8 +117,12 @@ Phases:
      for bit the sequential `_single_eval`'s; warmed batched and sequential walls
      (batched <= sequential asserted), device ms per scenario, the
      capture's seconds and the body's nodes; a second batch of 12 other
-     what-ifs with the same varying fields captures nothing.  Then
-     scenario_step against its plain version (exact) and timed.
+     what-ifs with the same varying fields captures nothing.  Then a
+     batch whose replica rows vary: the base and the placements of
+     phases 4, 5 and 13, the last with its replicas' positions reversed
+     in 1,000 partitions (a member table of its own), one launch and one
+     sync, each score bit for bit its sequential one.  Then scenario_step
+     against its plain version (exact) and timed.
  17. The planner end to end: evaluate(optimize=True) on a lose-rack /
      add-3 / double-a-topic batch of the north star (one engine built and
      rebound twice; the captures each anneal made; every fix meets the hard
@@ -130,6 +134,12 @@ Phases:
  18. The greedy oracle on the card against its CPU run on small_cluster,
      rack_violated_cluster and dead_broker_cluster: the same violated
      goals, the objective within rtol 1e-5; ms per candidate evaluation.
+ 19. One GoalOptimizer shared by two threads on the card: FAST on a
+     20-broker cluster, three runs each on one shape and two shapes
+     alternating through a one-engine cache, every run the single-thread
+     run's placements, proposals and rounds, no engine released while a
+     run holds it; then the north star once from each thread, both phase
+     4's placements, rounds and proposals.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -175,8 +185,7 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
 #: the package's own CUDA kernels, by the names the profiler reports
-OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_prologue_kernel",
-               "candidates_kernel", "select_survivors_kernel", "apply_moves_kernel",
+OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_kernel", "select_survivors_kernel", "apply_moves_kernel",
                "group_by_broker_kernel", "refresh_aggregates_kernel", "step_globals_kernel",
                "round_schedule_kernel", "scatter_loads_kernel", "scenario_step_kernel")
 
@@ -227,6 +236,9 @@ SCENARIO_CASES = {"scenario_step": ("scenario.cu", "cruise_control_tpu/analyzer/
 #: phase 15's windows after the reflatten: (partitions, load factor); None
 #: is every partition
 STREAM_WINDOWS = ((None, 1.03), (2_000, 1.2), (0, 1.0), (20_000, 0.9), (None, 1.03))
+#: placements of earlier phases ("4", "5", "13": replica_broker,
+#: replica_is_leader, replica_disk), for phase 16's batch that varies them
+PLACEMENTS: dict = {}
 
 
 def check(ok, message: str) -> None:
@@ -482,10 +494,15 @@ def check_kernels(state, cfg) -> dict:
     check(not bool((differ & ~near).any()), "candidates: acceptance differs away from the threshold")
     kt = measure(lambda: cand_k.candidates(*c_args, **c_kw))
     pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw))
+    if kt["by_kernel"] is not None:
+        own = {k: v[1] for k, v in kt["by_kernel"].items() if k in OWN_KERNELS}
+        check(list(own) == ["candidates_kernel"] and round(own["candidates_kernel"]) == 1,
+              f"candidates: a call ran other kernels of the package than one candidates_kernel: {own}")
     nb = candidates_bound_bytes(eng, c0, ck)
     # ~600 operations a candidate: 3-6 threefry hashes of ~80, two broker
     # lanes of ~75, host terms, the tiebreak and the extra terms; ~90 a
-    # broker or host in the prologue
+    # broker or host for the old-state terms, the least work counting
+    # them once each (the kernel repeats them on spare lanes)
     b_ms, b_by = bound(nb, 600.0 * K + 90.0 * (state.shape.B + state.shape.num_hosts))
     out["candidates"] = dict(
         max_abs_err=err, **timings(kt, pt), bound_ms=b_ms, bound_by=b_by, bound_bytes=nb,
@@ -1767,6 +1784,7 @@ def check_prior(state, cfg, exact: dict, table, table2, table3) -> dict:
     eng.release()
     del eng, cap
     warm, launches = run_proposal(opt, state, "prior_warm_north_star", prior=table)
+    PLACEMENTS["13"] = {f: getattr(warm.state_after, f).clone() for f in PLACEMENT}
     w_rounds = [h for h in warm.history if "round" in h]
     second, _ = run_proposal(opt, state, "prior_second_table", prior=table2)
     t2 = next(h for h in second.history if h.get("timing"))
@@ -2236,6 +2254,150 @@ def check_scenarios(state) -> dict:
     return launches
 
 
+def check_placement_batch(state) -> dict:
+    """Phase 16, the replica rows varying: the base north star and the
+    placements of phases 4, 5 and 13, the last with its replicas'
+    positions reversed within partitions 0-999 (a member table of its
+    own), scored as one batch: one graph launch and one sync, each score
+    bit for bit its sequential `_single_eval`."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import ScenarioEvaluator
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+
+    states = [state] + [dataclasses.replace(state, **PLACEMENTS[k]) for k in ("4", "5", "13")]
+    last = states[-1]
+    part, valid = last.replica_partition.long(), last.replica_valid
+    rf = torch.bincount(part[valid], minlength=last.shape.P)[part]
+    flip = valid & (part < 1000)
+    pos = torch.where(flip, rf - 1 - last.replica_pos.long(), last.replica_pos.long())
+    states[-1] = dataclasses.replace(last, replica_pos=pos.to(torch.int32))
+    check(not torch.equal(states[-1].members, state.members),
+          "the reversed positions left the member table as it was")
+    ev = ScenarioEvaluator(max_scenarios=len(states))
+    t0 = time.monotonic()
+    with dispatch_meter() as m:
+        obj, viol, _ = ev.evaluate_states(states)
+    wall = time.monotonic() - t0
+    rec = dict(ev.last_batch)
+    check(m.counts == {"scenario.batch": 1, "scenario.sync": 1},
+          f"the placement batch made other dispatches than one launch and one sync: {m.counts}")
+    check(rec["steps"] == len(states), f"the placement batch ran {rec['steps']} scenarios")
+    want = {"replica_broker", "replica_is_leader", "replica_disk", "replica_pos"}
+    check(want <= set(rec["varying"]), f"the placement batch varies {rec['varying']}")
+    singles = [ev._single_eval(st) for st in states]
+    mism = [i for i, (o, v) in enumerate(singles)
+            if float(o) != obj[i] or not np.array_equal(np.asarray(v, np.float64), viol[i])]
+    check(not mism, f"the placement batch differs from scoring each state alone at {mism}")
+    check(np.isfinite(obj).all() and len(set(obj.tolist())) > 1,
+          f"the placements' objectives are not finite and distinct: {obj.tolist()}")
+    out = dict(phase="placement_batch", states=len(states), varying=rec["varying"], wall_s=wall,
+               device_ms=rec["device_ms"], capture_s=rec["capture_s"], body_nodes=rec["body_nodes"],
+               objectives=obj.tolist(), identical_to_single=True, dispatches=m.counts)
+    log(json.dumps(out))
+    del ev, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_threads(state, cfg, exact: dict) -> dict:
+    """Phase 19: one GoalOptimizer shared by two threads on the card.
+    FAST on random_cluster(20/400) and on a second shape of it (30
+    brokers): three runs a thread on one shape, then the two shapes
+    alternating through a one-engine cache; every run the single-thread
+    run's placements, proposals and rounds, and no engine evicted from the
+    cache released while a run holds it.  Then the north star (SEARCH)
+    once from each of two threads: both phase 4's placements, rounds and
+    proposals."""
+    import threading
+
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import Engine, GoalOptimizer, OptimizerConfig
+    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster
+
+    def outcome(res):
+        place = tuple(getattr(res.state_after, f).cpu().numpy().tobytes() for f in PLACEMENT)
+        props = [(p.partition, p.old_leader, p.new_leader, p.old_replicas, p.new_replicas)
+                 for p in res.proposals]
+        return place, props, [h["accepted"] for h in res.history if "round" in h]
+
+    def in_threads(jobs):
+        results, errors = [[] for _ in jobs], []
+        start = threading.Barrier(len(jobs))
+
+        def work(i):
+            try:
+                start.wait()
+                for job in jobs[i]:
+                    results[i].append(job())
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return results
+
+    pinned_releases = []
+    real_release = Engine.release
+
+    def release(self):
+        if getattr(self, "_cc_evicted", False) and self._cc_pins:
+            pinned_releases.append(self._cc_pins)
+        real_release(self)
+
+    Engine.release = release
+    try:
+        fast = OptimizerConfig(**FAST)
+        shapes = {n: random_cluster(RandomClusterSpec(num_brokers=n, num_partitions=400, skew=1.0),
+                                    seed=2, device="cuda") for n in (20, 30)}
+        single = {n: outcome(GoalOptimizer(config=fast, device="cuda").optimize(st))
+                  for n, st in shapes.items()}
+        t0 = time.monotonic()
+        opt = GoalOptimizer(config=fast, device="cuda")
+        one = in_threads([[lambda: outcome(opt.optimize(shapes[20]))] * 3] * 2)
+        check(all(r == [single[20]] * 3 for r in one), "threads on one shape differ from one thread")
+        opt1 = GoalOptimizer(config=fast, device="cuda", engine_cache_size=1)
+
+        def job(n):
+            return lambda: (n, outcome(opt1.optimize(shapes[n])))
+
+        alt = in_threads([[job(20), job(30), job(20)], [job(30), job(20), job(30)]])
+        check(all(got == single[n] for r in alt for n, got in r),
+              "threads alternating two shapes differ from one thread")
+        small_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        north = GoalOptimizer(config=cfg, device="cuda")
+        both = in_threads([[lambda: north.optimize(state)]] * 2)
+        north_s = time.monotonic() - t0
+        for (res,) in both:
+            same = all(bool(torch.equal(getattr(res.state_after, f), exact[f])) for f in PLACEMENT)
+            check(same and [h["accepted"] for h in res.history if "round" in h] == exact["accepted"]
+                  and len(res.proposals) == exact["proposals"],
+                  "a north-star run from a thread is not phase 4's run")
+        hits = [next(h for h in r.history if h.get("timing"))["engine_cache_hit"] for (r,) in both]
+        check(sorted(hits) == [False, True], f"the two north-star threads' cache hits: {hits}")
+        check(not pinned_releases, f"engines released while pinned: {pinned_releases}")
+        rec = dict(phase="threads", small_runs=12, small_wall_s=small_s,
+                   cache1_misses=opt1.engine_cache_misses, cache1_hits=opt1.engine_cache_hits,
+                   north_star_runs=2, north_star_wall_s=north_s, north_star_identical_to_phase4=True,
+                   released_while_pinned=0)
+        log(json.dumps(rec))
+        for o in (opt, opt1, north):
+            for engine in o._engines.values():
+                engine.release()
+    finally:
+        Engine.release = real_release
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_planner(state, cfg) -> dict:
     """Phase 17: evaluate(optimize=True) on a lose-rack / add-3 /
     double-a-topic batch of the north star (one engine, rebound twice;
@@ -2444,6 +2606,7 @@ def main() -> int:
     check(rounds[0] == rounds[1], f"two proposals with the same seed ran {rounds} rounds")
     check(len(res4.proposals) == len(again.proposals), "two proposals with the same seed differ in size")
     exact = {f: getattr(res4.state_after, f).clone() for f in PLACEMENT}
+    PLACEMENTS["4"] = {f: exact[f] for f in PLACEMENT}
     exact.update(objective_before=res4.objective_before, objective_after=res4.objective_after,
                  violated_after=res4.violated_goals_after(), proposals=len(res4.proposals),
                  rounds=rounds[0], accepted=[h["accepted"] for h in res4.history if "round" in h])
@@ -2473,6 +2636,7 @@ def main() -> int:
     log(json.dumps({"phase": "decommission_check", "dead_brokers": n_dead,
                     "offline_before": int(offline.sum()), "offline_after": remaining}))
     check(remaining == 0, f"{remaining} replicas left on dead brokers")
+    PLACEMENTS["5"] = {f: getattr(after, f).clone() for f in PLACEMENT}
 
     for engine in opt._engines.values():
         engine.release()
@@ -2507,12 +2671,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 16: 32 north-star what-ifs as one batch graph launch
     scenario_launches = check_scenarios(state)
+    check_placement_batch(state)
     variants["scenario_step"] = check_scenario_step()
     variants["scenario_step"]["launches"] = scenario_launches["scenario_step"]
     # phase 17: the planner end to end (simulate with fixes, rightsize)
     check_planner(state, cfg)
     # phase 18: the greedy oracle on the card
     check_greedy()
+    # phase 19: two threads optimizing through one GoalOptimizer
+    check_threads(state, cfg, exact)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

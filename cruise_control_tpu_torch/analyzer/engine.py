@@ -1007,7 +1007,7 @@ class Engine:
                                           n_goals=len(self.chain.goals)),
             keys=table[:, :cand_k.KEY_WORDS].contiguous().to(dev),
             prior_keys=table[:, cand_k.KEY_WORDS:].contiguous().to(dev) if self.cand.prior else None,
-            cand=cand_k.candidate_buffers(self.cand, self.statics, dev) if cuda else None,
+            cand=cand_k.candidate_buffers(self.cand, dev) if cuda else None,
             sel=select_k.select_buffers(K, self.K_r, self.K_s, s.B, s.P, dev,
                                         n_epochs=total * cfg.steps_per_round) if cuda else None,
             start=tuple(t.clone() for t in self._statics_placement()),
@@ -1321,11 +1321,9 @@ class Engine:
         t_warm = time.monotonic()
         for name in todo:
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            before = dict(kernels.LAUNCHES)
-            with torch.cuda.graph(graph, stream=stream):
+            with kernels.capture(graph, stream) as rec:
                 pieces[name]()
-            ws.graph_launches[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-            kernels.LAUNCHES.update(before)
+            ws.graph_launches[name] = {k: rec.get(k, 0) for k in kernels.LAUNCHES}
             ws.graphs[name] = graph
         t_cap = time.monotonic()
         if lg is None:
@@ -1447,7 +1445,7 @@ class Engine:
         if reports:
             kernels.add_launches(ws.graph_launches["pre"], 1)
             kernels.add_launches(ws.graph_launches["post"], 1)
-        kernels.LAUNCHES["round_schedule"] += 3 * iterations + 1
+        kernels.count("round_schedule", 3 * iterations + 1)
 
     def _ys_keys(self) -> tuple:
         """The keys of the run's per-round ys: FUSED_YS_KEYS, and the

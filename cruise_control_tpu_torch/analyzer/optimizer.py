@@ -6,11 +6,20 @@ weighted goal chain at once through the annealing engine and reports the
 per-goal violations before and after, cluster stats, the balancedness score
 and the proposal diff.  Single device; engines are cached per
 (shape, config) and rebound to each new model generation.
+
+Callers may share one optimizer across threads.  A lock guards the engine
+cache; a run pins its engine until its result is on the host, and an
+eviction that finds the engine pinned leaves its release to the last
+unpin.  An engine owns one fixed workspace and the graphs captured on it,
+so runs on one engine take its run lock from the rebind to the fetch, one
+at a time; runs on different engines overlap.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from collections import OrderedDict
 
@@ -112,35 +121,91 @@ class GoalOptimizer:
         self.config = config
         self.device = resolve_device(device)
         self.balancedness_weights = balancedness_weights
-        #: engines per (ClusterShape, config) in LRU order; a hit rebinds
+        #: engines per (ClusterShape, config) in LRU order; a hit rebinds.
+        #: `_cache_lock` guards it and every engine's pin count
         self._engines: OrderedDict = OrderedDict()
         self._cache_capacity = engine_cache_size
+        self._cache_lock = threading.Lock()
         self.engine_cache_hits = 0
         self.engine_cache_misses = 0
 
-    def _engine_for(self, state: ClusterState, options: OptimizationOptions,
-                    config: OptimizerConfig, prior=None) -> tuple[Engine, bool]:
-        """The cached engine of (shape, config), rebound to `state` and
-        `prior` on a hit, built on a miss; and whether it was a hit."""
-        key = (state.shape, config)
+    def _pin(self, key) -> Engine | None:
+        """The cached engine of `key`, pinned, or None (under the lock)."""
         engine = self._engines.get(key)
         if engine is not None:
             self._engines.move_to_end(key)
-            engine.rebind(state, options, prior=prior)
-            self.engine_cache_hits += 1
-            return engine, True
-        engine = Engine(state, self.chain, constraint=self.constraint, options=options,
-                        config=config, prior=prior)
-        self._engines[key] = engine
-        while len(self._engines) > self._cache_capacity:
-            self._engines.popitem(last=False)[1].release()
-        self.engine_cache_misses += 1
-        return engine, False
+            engine._cc_pins += 1
+        return engine
+
+    def _unpin(self, engine: Engine) -> None:
+        """Drop a run's pin; the last unpin of an evicted engine releases it."""
+        with self._cache_lock:
+            engine._cc_pins -= 1
+            release = engine._cc_pins == 0 and engine._cc_evicted
+        if release:
+            engine.release()
+
+    def _publish(self, key, engine: Engine) -> Engine:
+        """Cache a new engine pinned and evict the least recent beyond the
+        capacity: at once where no run holds it, else at its last unpin.
+        Where another thread cached one for `key` first, that one is
+        pinned and returned, and `engine` (never run) is released."""
+        evicted = []
+        with self._cache_lock:
+            won = self._pin(key)
+            if won is None:
+                engine._cc_pins = 1
+                self._engines[key] = engine
+                while len(self._engines) > self._cache_capacity:
+                    old = self._engines.popitem(last=False)[1]
+                    old._cc_evicted = True
+                    if old._cc_pins == 0:
+                        evicted.append(old)
+                self.engine_cache_misses += 1
+            else:
+                self.engine_cache_hits += 1
+        for old in evicted:
+            old.release()
+        if won is not None:
+            engine.release()
+            return won
+        return engine
+
+    @contextlib.contextmanager
+    def _engine_for(self, state: ClusterState, options: OptimizationOptions,
+                    config: OptimizerConfig, prior=None):
+        """The cached engine of (shape, config) bound to `state` and
+        `prior`, built on a miss, pinned and under its run lock for the
+        body; yields (engine, hit)."""
+        key = (state.shape, config)
+        with self._cache_lock:
+            engine = self._pin(key)
+            if engine is not None:
+                self.engine_cache_hits += 1
+        hit = engine is not None
+        if engine is None:
+            built = Engine(state, self.chain, constraint=self.constraint, options=options,
+                           config=config, prior=prior)
+            built._cc_pins, built._cc_evicted = 0, False
+            built._cc_run_lock, built._cc_fresh = threading.Lock(), True
+            engine = self._publish(key, built)
+            hit = engine is not built
+        try:
+            with engine._cc_run_lock:
+                # an engine is built bound to its builder's state: only a
+                # run that found it cached, or came after another, rebinds
+                if hit or not engine._cc_fresh:
+                    engine.rebind(state, options, prior=prior)
+                engine._cc_fresh = False
+                yield engine, hit
+        finally:
+            self._unpin(engine)
 
     def has_engine_for(self, shape, *, config: OptimizerConfig | None = None) -> bool:
         """True when an engine for (shape, config) is cached: the streaming
         cycle's fast path (`optimize_streaming_cycle`) needs one."""
-        return (shape, config or self.config) in self._engines
+        with self._cache_lock:
+            return (shape, config or self.config) in self._engines
 
     def _result(self, state_before, state_after, out: dict, proposals, history, t0) -> OptimizerResult:
         """The OptimizerResult of a reported run's payload `out`."""
@@ -200,11 +265,11 @@ class GoalOptimizer:
             bad = [n for n, c in zip(DEVICE_CHECKS, input_checks) if c]
             raise ValueError(f"input state failed sanity checks: {bad}")
         t_build = time.monotonic()
-        engine, hit = self._engine_for(state, options, cfg, prior=prior)
-        build_s = time.monotonic() - t_build
-        before_host = fetch_before_host(state)
-        final, history, out = engine.run_reported(verbose=verbose,
-                                                  initial_placement=initial_placement)
+        with self._engine_for(state, options, cfg, prior=prior) as (engine, hit):
+            build_s = time.monotonic() - t_build
+            before_host = fetch_before_host(state)
+            final, history, out = engine.run_reported(verbose=verbose,
+                                                      initial_placement=initial_placement)
         t_extract = time.monotonic()
         proposals = extract_proposals(state, final, before_host=before_host, after_host=out)
         timing = next(h for h in history if h.get("timing"))
@@ -264,18 +329,21 @@ class GoalOptimizer:
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         cfg = config or self.config
-        key = (state.shape, cfg)
-        engine = self._engines.get(key)
-        if engine is None:
-            return None
-        self._engines.move_to_end(key)
+        with self._cache_lock:
+            engine = self._pin((state.shape, cfg))
+            if engine is None:
+                return None
+            self.engine_cache_hits += 1
         t0 = time.monotonic()
-        engine.rebind_prior(prior)
-        ll, fl, out, history = engine.run_cycle(
-            state.replica_load_leader, state.replica_load_follower, rows, leader_loads,
-            follower_loads, initial_placement,
-        )
-        self.engine_cache_hits += 1
+        try:
+            with engine._cc_run_lock:
+                engine.rebind_prior(prior)
+                ll, fl, out, history = engine.run_cycle(
+                    state.replica_load_leader, state.replica_load_follower, rows, leader_loads,
+                    follower_loads, initial_placement,
+                )
+        finally:
+            self._unpin(engine)
         if out["checks"].any():
             bad = [n for n, c in zip(DEVICE_CHECKS, out["checks"]) if c]
             raise ValueError(f"optimized state failed sanity checks: {bad}")

@@ -61,15 +61,12 @@ from cruise_control_tpu_torch.models.aggregates import compute_aggregates
 from cruise_control_tpu_torch.models.builder import pad_state
 from cruise_control_tpu_torch.models.state import STATE_FIELDS, ClusterState
 from cruise_control_tpu_torch.models.stats import ClusterStats, compute_stats
-from cruise_control_tpu_torch.models.whatif import HostState
+from cruise_control_tpu_torch.models.whatif import _MEMBER_FIELDS, HostState
 from cruise_control_tpu_torch.planner.scenario import _apply, plan_shape
 
 #: goals violated above this are "failed" — the same f32-noise epsilon
 #: balancedness_score and OptimizerResult.violated_goals_after use
 VIOLATION_TOL = 1e-6
-#: fields no scenario changes (adds create no replicas); the batch's
-#: member table is built from them once, so a batch varying one raises
-_FIXED_FIELDS = ("replica_valid", "replica_partition", "replica_pos", "replica_broker")
 #: bounded LRU of batch programs (each holds a graph and its buffers)
 _CACHE_CAP = 8
 
@@ -111,7 +108,7 @@ class _Program:
 
     slot: ClusterState  # every field a buffer of the program's own
     members: torch.Tensor  # i32[P, M]: the member table the chain reads
-    stacks: dict  # varying field -> [cap, *field shape]
+    stacks: dict  # varying field -> [cap, *field shape]; "members" when the rows vary
     loop: ScenarioLoop
     body: torch.cuda.CUDAGraph | None = None
     graph: ScenarioGraph | None = None
@@ -245,24 +242,25 @@ class ScenarioEvaluator:
             return (np.full(n, float(obj), np.float64),
                     np.tile(np.asarray(viol, np.float64), (n, 1)),
                     dict(n=n, identity=True, wall_s=time.monotonic() - t0))
-        fixed = sorted(set(varying) & set(_FIXED_FIELDS))
-        if fixed:
-            raise ValueError(f"scenario states differ in {fixed}; a scenario never changes "
-                             f"the replica rows' partition, position, validity or broker")
         base = states[0]
-        members = base.members
-        key = (base.shape, int(members.shape[1]), frozenset(varying))
+        # where the replica rows' partition, position or validity differ,
+        # each scenario's member table is one more varying field, padded
+        # with R to the widest
+        rows_vary = bool(set(varying) & _MEMBER_FIELDS)
+        tables = [s.members for s in states] if rows_vary else [base.members]
+        width = max(int(t.shape[1]) for t in tables)
+        key = (base.shape, width, frozenset(varying))
         with self._lock:
             prog = self._programs.get(key)
             captured = prog is None
             if prog is None:
-                prog = self._new_program(base, members, varying)
+                prog = self._new_program(base, width, varying, rows_vary)
                 self._programs[key] = prog
                 while len(self._programs) > _CACHE_CAP:
                     self._programs.popitem(last=False)[1].close()
             else:
                 self._programs.move_to_end(key)
-            self._fill(prog, states, shared, varying, members)
+            self._fill(prog, states, shared, varying, tables)
             if self.device.type == "cuda":
                 obj, viol, rec = self._run_graph(prog, n, captured)
             else:
@@ -271,21 +269,26 @@ class ScenarioEvaluator:
                    varying=sorted(varying))
         return obj.astype(np.float64), viol.astype(np.float64), rec
 
-    def _new_program(self, base: ClusterState, members: torch.Tensor, varying) -> _Program:
+    def _new_program(self, base: ClusterState, width: int, varying, rows_vary: bool) -> _Program:
         cap = self.max_scenarios
+        stacks = {f: torch.empty((cap,) + tuple(getattr(base, f).shape),
+                                 dtype=getattr(base, f).dtype, device=self.device)
+                  for f in varying}
+        if rows_vary:
+            stacks["members"] = torch.empty((cap, base.shape.P, width), dtype=torch.int32,
+                                            device=self.device)
         return _Program(
             slot=_empty_like_state(base),
-            members=torch.empty_like(members),
-            stacks={f: torch.empty((cap,) + tuple(getattr(base, f).shape),
-                                   dtype=getattr(base, f).dtype, device=self.device)
-                    for f in varying},
+            members=torch.empty((base.shape.P, width), dtype=torch.int32, device=self.device),
+            stacks=stacks,
             loop=ScenarioLoop.create(cap, len(self.chain.goals), self.device),
         )
 
-    def _fill(self, prog: _Program, states, shared, varying, members) -> None:
+    def _fill(self, prog: _Program, states, shared, varying, tables) -> None:
         """This batch's data into the program's buffers, in stream order:
         the base's shared fields into the slot, each scenario's varying
-        fields into its row of the stacks, the member table."""
+        fields into its row of the stacks, and the member tables: the
+        base's one, or each scenario's into its row, padded with R."""
         base = states[0]
         for f in shared:
             getattr(prog.slot, f).copy_(getattr(base, f))
@@ -293,7 +296,14 @@ class ScenarioEvaluator:
             stack = prog.stacks[f]
             for j, s in enumerate(states):
                 stack[j].copy_(getattr(s, f))
-        prog.members.copy_(members)
+        if "members" not in prog.stacks:
+            prog.members.copy_(tables[0])
+            return
+        stack = prog.stacks["members"]
+        for j, table in enumerate(tables):
+            w = int(table.shape[1])
+            stack[j, :, :w].copy_(table)
+            stack[j, :, w:].fill_(base.shape.R)
 
     def _chain_eval(self, state: ClusterState, members: torch.Tensor):
         """(objective, violations) of `state`: its aggregates from the
@@ -308,7 +318,8 @@ class ScenarioEvaluator:
         on the slot, its outputs into the loop's slot outputs."""
         i = prog.loop.ctrl[:1]
         for f, stack in prog.stacks.items():
-            torch.index_select(stack, 0, i, out=getattr(prog.slot, f).unsqueeze(0))
+            dst = prog.members if f == "members" else getattr(prog.slot, f)
+            torch.index_select(stack, 0, i, out=dst.unsqueeze(0))
         obj, viol = self._chain_eval(prog.slot, prog.members)
         prog.loop.obj_slot.copy_(obj.reshape(1))
         prog.loop.viol_slot.copy_(viol)
@@ -340,11 +351,9 @@ class ScenarioEvaluator:
         warmup = _launches_since(before)
         t_warm = time.monotonic()
         body = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dict(kernels.LAUNCHES)
-        with torch.cuda.graph(body, stream=stream):
+        with kernels.capture(body, stream) as rec:
             self._body(prog)
-        prog.launches_per_replay = _launches_since(before)
-        kernels.LAUNCHES.update(before)
+        prog.launches_per_replay = {k: n for k, n in rec.items() if n}
         t_cap = time.monotonic()
         prog.body = body
         prog.graph = ScenarioGraph(prog.loop, body)
@@ -381,7 +390,7 @@ class ScenarioEvaluator:
         stream.synchronize()
         steps = int(h["ctrl_out"][0])
         kernels.add_launches(prog.launches_per_replay, steps)
-        kernels.LAUNCHES["scenario_step"] += steps
+        kernels.count("scenario_step", steps)
         if steps != n:
             raise RuntimeError(f"the scenario batch graph ran {steps} scenarios of {n}")
         rec = dict(graph_launches=1, blocking_syncs=1, device_ms=start.elapsed_time(end),
@@ -448,7 +457,7 @@ class ScenarioEvaluator:
                         self._score_row(prog)
                     torch.cuda.current_stream(self.device).wait_stream(stream)
                     graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, stream=stream):
+                    with kernels.capture(graph, stream):
                         self._score_row(prog)
                     prog.graph = graph
                     prog.host_row = torch.empty(prog.row.shape, dtype=torch.float32,

@@ -5,14 +5,25 @@ Each wrapper module holds the kernel's launch, the plain PyTorch version of
 the same function, and a header note naming the JAX function it replaces.
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; anything else raises.  `LAUNCHES` counts kernel
-launches per wrapper (one per wrapper call that launched), so a run can show
-that its path went through the kernels.  A wrapper called while a CUDA
-graph is being captured counts the launch it records; the engine takes
-those counts out of `LAUNCHES` at capture and adds them back per replay
-(`add_launches`).
+launches per wrapper (one per wrapper call that launched, `count`), so a
+run can show that its path went through the kernels.  A wrapper called
+while its thread captures a CUDA graph counts the launch it records into
+the capture's own record (`capture`), not into `LAUNCHES`; the engine
+adds those counts per replay (`add_launches`).  Counting is locked, so
+threads that run on the card at once lose no count.  Every capture of the
+package goes through `capture`, one at a time in the process: entering a
+capture synchronises the whole device, which a capture in flight on
+another thread forbids.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
+
+_LOCK = threading.Lock()
+_TLS = threading.local()
+_CAPTURE_LOCK = threading.Lock()
 
 LAUNCHES: dict[str, int] = {
     "threefry_uniform": 0,
@@ -30,15 +41,46 @@ LAUNCHES: dict[str, int] = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count(name: str, n: int = 1) -> None:
+    """`n` launches of wrapper `name`: into this thread's capture record
+    while it captures (`capture`), else into `LAUNCHES`."""
+    rec = getattr(_TLS, "record", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + n
+        return
+    with _LOCK:
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def capture(graph, stream):
+    """Capture `graph` (a torch.cuda.CUDAGraph) on `stream`, the only
+    capture in the process while it lasts; yields the capture's launch
+    record (wrapper -> launches a replay), which the launches this thread
+    counts inside go into.  Other threads' work on the card goes on: the
+    capture forbids unsafe calls to its own thread only (thread_local)."""
+    import torch
+
+    with _CAPTURE_LOCK:
+        _TLS.record = rec = {}
+        try:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                yield rec
+        finally:
+            _TLS.record = None
 
 
 def add_launches(per_replay: dict[str, int], replays: int) -> None:
     """Count the launches of a CUDA graph's replays: `per_replay` holds the
     wrapper launches recorded into the graph when it was captured."""
-    for k, n in per_replay.items():
-        LAUNCHES[k] += n * replays
+    with _LOCK:
+        for k, n in per_replay.items():
+            LAUNCHES[k] += n * replays
 
 
 def route(*tensors) -> str:

@@ -241,7 +241,7 @@ def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
     stream = torch.cuda.current_stream(sv_r.device).cuda_stream
     status = _fn()(dims, rel, lead, c, owners, n_sm, stream)
     _build.check(status, "apply_moves")
-    kernels.LAUNCHES["apply_moves"] += 1
+    kernels.count("apply_moves")
 
 
 def apply_moves(sx, carry, sv_r, payr, sv_l, payl) -> None:

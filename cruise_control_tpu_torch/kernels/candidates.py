@@ -12,26 +12,28 @@ reads (delta, feas, accept, src, dst, part1, part2) and the payload rows
 that `apply_moves` reads (`apply.REL_FIELDS`, a swap as two linked rows at
 nr+i and nr+ns+i; `apply.LEAD_FIELDS`).
 
-Bound on the card: bytes, and latency.  Each candidate gathers one or two
-replica rows, a partition's member row, the src/dst broker, host and disk
-rows, and (for the importance-sampled sources) ~12 probes of the broker
-CDF, then writes ~22 bytes of bundle and a 53- or 64-byte payload row; a
-north-star step (K=16,384) needs a few MB, about a microsecond of HBM
-time.  The work per candidate is a dependent chain of gathers, so what
-the kernel can do is keep the chain short and every intermediate in
-registers.  Design (csrc/candidates.cu): a prologue launch computes the
-old-state objective terms once per broker and host; one launch then runs
-all K candidates, each move kind in its own block range, one thread per
-candidate, drawing its own threefry counters inline (the draws never
-touch HBM), staging the broker CDF in shared memory, and writing straight
-into the bundle and payload layouts.  Where the chain weighs the
-intra-broker disk goals, a lane also loads its brokers' D-wide logdir rows
-and evaluates the disk terms in registers.  The kernel is templated on
-the disk terms and the intra kind, so each mode compiles apart; the
-intra mode (rebalance_disk) reads no old-state term and launches no
-prologue.  Tensor cores and TMA have
-nothing to do here: there is no matrix product, and the gathers are
-scattered rows.
+Bound on the card: latency.  Each candidate gathers one or two replica
+rows, a partition's member row, the src/dst broker, host and disk rows,
+and (for the importance-sampled sources) ~12 probes of the broker CDF,
+then writes ~22 bytes of bundle and a 53- or 64-byte payload row; a
+north-star step (K=16,384) needs ~3.2 MB, about a microsecond of HBM
+time, and ~600 operations a candidate.  What is left is each candidate's
+chain: 7 dependent gathers, then ~50 IEEE divisions and 8 square roots.
+Design (csrc/candidates.cu): one launch runs all K candidates, each move
+kind in its own block range, a candidate a team of lanes of one warp (4;
+8 for a swap, whose two replicas' rows, member scans and cells run side
+by side) whose roles run one instruction stream on different data: the
+threefry draws (inline: the draws never touch HBM), the member scan, the
+four broker and host rows of the move (src and dst, after the move and as
+they are, so the old-state terms need no launch of their own), the
+tiebreak's four resources, the four logdir rows of the disk terms; each
+partial is combined by shuffles in the single-lane expression's order,
+so the bits are those of one lane doing it all.  The broker CDF is staged
+in shared memory with asynchronous copies that overlap the draws (probed
+from global memory where it does not fit).  The kernel is templated on the
+disk terms, the intra kind, the prior and bf16, so each mode compiles
+apart.  Tensor cores and TMA have nothing to do here: there is no matrix
+product, and the gathers are scattered rows.
 
 Keys: a step's keys are split from the carry key exactly as the reference
 splits them (`StepKeys.of`).  The key chain does not depend on the data,
@@ -706,7 +708,7 @@ _OUT_FIELDS = (
     "delta", "feas", "accept", "src", "dst", "part1", "part2",
     "r", "r_src", "r_dst", "d_src", "d_dst", "load", "is_lead", "pot", "lbin", "topic", "part",
     "rf", "rt", "src_b", "dst_b", "dl_f", "dl_t", "dlbin_src", "dlbin_dst", "d_f", "d_t",
-    "old_broker", "old_host", "old_tie", "from_prior",
+    "from_prior",
 )
 
 
@@ -745,13 +747,10 @@ def _ptr(name, t, dtype, shape) -> int:
     return t.data_ptr()
 
 
-def candidate_buffers(cp: CandParams, sx, device) -> dict:
+def candidate_buffers(cp: CandParams, device) -> dict:
     """The kernel's outputs, allocated once and reused by every step: the
     bundle (with the relocations' took-the-prior mask under the prior),
-    the relocation rows `payr`, the leadership rows `payl` and the
-    prologue's old-state terms (f32[B + H + 1])."""
-    s = sx.state.shape
-    B, H = s.B, s.num_hosts
+    the relocation rows `payr` and the leadership rows `payl`."""
     K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
     K, nr = K_r + K_s + K_l, K_r + 2 * K_s
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
@@ -771,7 +770,6 @@ def candidate_buffers(cp: CandParams, sx, device) -> dict:
         payl=dict(rf=e(K_l), rt=e(K_l), src_b=e(K_l), dst_b=e(K_l), dl_f=e(K_l, 4, dtype=f32),
                   dl_t=e(K_l, 4, dtype=f32), dlbin_src=e(K_l, dtype=f32), dlbin_dst=e(K_l, dtype=f32),
                   d_f=e(K_l), d_t=e(K_l)),
-        scratch=e(B + H + 1, dtype=f32),
     )
 
 
@@ -827,16 +825,12 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         )
     c_in = _Inputs(**{k: _ptr(k, *v) for k, v in inputs.items()})
     if bufs is None:
-        bufs = candidate_buffers(cp, sx, dev)
-    out, payr, payl, scratch = bufs["out"], bufs["payr"], bufs["payl"], bufs["scratch"]
+        bufs = candidate_buffers(cp, dev)
+    out, payr, payl = bufs["out"], bufs["payr"], bufs["payl"]
     rows = {("r_" + k if k in ("src", "dst") else k): t for k, t in payr.items()}
     if cp.prior and "from_prior" not in out:
         raise ValueError("candidates: a prior-enabled step needs a from_prior buffer")
-    c_out = _Outputs(
-        **{k: t.data_ptr() for k, t in {**out, **rows, **payl}.items()},
-        old_broker=scratch.data_ptr(), old_host=scratch.data_ptr() + 4 * B,
-        old_tie=scratch.data_ptr() + 4 * (B + H),
-    )
+    c_out = _Outputs(**{k: t.data_ptr() for k, t in {**out, **rows, **payl}.items()})
     tt = cp.topic_tt
     dims = _Dims(
         K_r=K_r, K_s=K_s, K_l=K_l, n_imp_r=cp.n_imp(K_r, plan), n_imp_s=cp.n_imp(K_s, plan),
@@ -858,7 +852,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _fn()(dims, cp.tp.c_struct, scalars, c_in, c_out, stream)
         _build.check(status, "candidates")
-        kernels.LAUNCHES["candidates"] += 1
+        kernels.count("candidates")
     return dict(out, nr=K_r, ns=K_s, payr=payr, payl=payl, from_prior=out.get("from_prior"))
 
 

@@ -13,40 +13,67 @@
 // where it branches (topic cells, preferred leader, pricing), so that no
 // `0 * x` turns a -0.0 into +0.0.
 //
-// What bounds it on this card: latency.  The bytes a north-star step needs
-// (K = 16,384 candidates: replica rows, member rows, src/dst broker, host
-// and disk rows, CDF probes, ~22 B of bundle and a 53/64 B payload row
-// each) are a few MB, about a microsecond of HBM time; the ALU work is a
-// few hundred flops a candidate.  What is left is each candidate's chain
-// of dependent gathers (source draw -> replica row -> broker row ->
-// aggregates), so the design keeps that chain short:
-//  - Old-state terms once per broker: broker_terms() of a broker's
-//    current row depends on the broker and the step's globals only, so a
-//    prologue launch (B + H + 1 threads) writes them to f32[B], the host
-//    terms to f32[H] and the old tiebreak to f32[1].  A candidate then
-//    evaluates only its two "new" lanes.  The same function of the same
-//    inputs: the bits do not change.  The intra mode reads none of them
-//    and skips the prologue.
-//  - Draws inline: each candidate hashes its own threefry counters
-//    (common.cuh) under the step's keys, read from the run's key table at
-//    the device-side round index (so a captured step replays with the
-//    keys of the round it runs in), and no draw touches HBM.  The counter of uniform draw i under a key is i, as in the
-//    `uniform(key, n)` call it replaces; the importance branch uses
-//    i - (n - n_imp), the Metropolis u the candidate's index in K.
-//  - The broker CDF (B floats, 10.4 KB at B = 2,600) is staged in shared
-//    memory by the blocks that hold importance-sampled sources, so the
-//    ~12 dependent probes of the upper-bound search hit shared memory.
-//  - One launch for all K candidates, each move kind in its own block
-//    range; one thread per candidate.  K = 16,384 is ~124 threads an SM,
-//    so occupancy is low; splitting a candidate over 2-4 threads (the
-//    src/dst lanes, the member scan) joined by shuffles is the next step
-//    if the profile shows the chain, not the launch, dominating.
+// What bounds it on this card: the latency of each candidate's chain, not
+// bytes or operations.  The bytes a north-star step needs (K = 16,384:
+// replica rows, member rows, src/dst broker, host and disk rows, CDF
+// probes, ~22 B of bundle and a 53/64 B payload row each) are ~3.2 MB,
+// 0.00095 ms of HBM time; the ALU work is ~600 operations a candidate,
+// ~0.15 us at the f32 rate.  The chain is 5 dependent global loads deep
+// for a uniformly drawn relocation (round index -> key row -> replica
+// row -> its broker rows, member ids and cells' operands -> host rows,
+// the members' brokers, the rack cells), 7 for an importance-sampled one
+// (the plan's count/start and order after ~12 shared-memory CDF probes),
+// 12 L2 probes of the topic's prior CDF more under the prior; after them
+// come ~50 IEEE divisions and 8 square roots.  On an H100 the 512 swaps
+// alone, one warp an SM, take ~70% of the whole launch's time
+// (scripts/time_candidates.py): the chain's latency sets the time, ~11x
+// the byte bound, and the other warps mostly fill its stalls.  One thread
+// a candidate (the design before this one) gave K = 16,384 threads, ~4
+// warps an SM, and one lane's stalls had no other warp to hide behind.
+// So a candidate is a team of lanes of one warp, with fixed roles that
+// run ONE instruction stream on different data (a role that ran code of
+// its own would only serialise the warp), and each candidate issues a
+// round's loads together before it uses any of them:
+//  - Draws: the team's lanes hash different (key, counter) pairs in the
+//    same code, one pair a lane and round (threefry, common.cuh): source,
+//    slot, fallback and destination, then the Metropolis u and the prior's
+//    two; the values reach every lane by shuffles.  The counter of uniform
+//    draw i under a key is i, as in the `uniform(key, n)` call it replaces;
+//    the importance branch uses i - (n - n_imp), the Metropolis u the
+//    candidate's index in K.  Keys come from the run's key table at the
+//    device-side round index, so a captured step replays with the keys of
+//    the round it runs in.
+//  - Member scans: one member slot a lane, OR-ed by a ballot.
+//  - move_delta_core: lane 0 scores src after the move, lane 1 dst after,
+//    lane 2 src before, lane 3 dst before, with the same broker_terms and
+//    host_terms (and, under DISK, the four logdir rows of
+//    disk_move_delta); lane r scores resource r of the dispersion
+//    tiebreak before and after.  The old-state terms are computed here on
+//    lanes that the new ones leave free, from the same inputs as the old
+//    prologue launch computed them per broker, so the step needs no
+//    second launch.  Every lane combines the partials, fetched by
+//    shuffles, in the order of the single-lane expression tree
+//    ((t2 + t3) - (t0 + t1), then the host terms, disk, tie, rack, topic,
+//    offline, preferred and price terms); -fmad=false rounds each
+//    operation on its own, so a partial has the same bits on any lane and
+//    so does the sum.
+//  - The terms after move_delta_core (rack, topic, offline, preferred
+//    leader): one division a lane, added in the expression's order.
+//  - Stores: the team's lanes store different fields of the bundle and
+//    payload row in one instruction (pointer and value picked by lane).
+// A relocation, leadership transfer or intra move has a team of 4 lanes,
+// a swap (two replicas' rows, member scans, rack and topic cells) of 8:
+// lanes 0-3 take r's side, 4-7 q's.  K = 16,384 is 16 warps an SM.
+//  - The broker CDF (B floats, 10.4 KB at B = 2,600): where CandDims says
+//    so, the blocks that hold importance-sampled sources stage it in shared
+//    memory with asynchronous copies (cp.async) issued before the draws,
+//    so the copy overlaps the hashes; else the probes read it from global
+//    memory (cached in L1).
 //  - The JBOD path: a lane whose move touches logdirs loads the D-wide
-//    disk rows (load, capacity, health) of its src and dst beside their
-//    broker rows and evaluates the intra-broker disk terms of the four
-//    rows (src and dst, after and before) in registers, summing over the
+//    disk rows (load, capacity, health) of its broker and evaluates the
+//    intra-broker disk terms of its row in registers, summing over the
 //    logdirs in disk order as the plain version does.  An intra-broker
-//    lane (rebalance_disk) draws no destination broker: it picks the
+//    candidate (rebalance_disk) draws no destination broker: it picks the
 //    most-free other alive logdir of its replica's broker and writes a
 //    relocation row with src == dst.
 //  - The learned prior (PRIOR; `_sample_dests`, engine.py:1832-1873): a
@@ -58,19 +85,20 @@
 //    u >= cdf over the whole row; the CDF is a sequential f32 prefix sum
 //    of non-negative values (non-decreasing) and 1.0 past n_dest (never
 //    <= u < 1), so a binary search over the first n_dest entries gives the
-//    same index in ~12 probes of one 10.4 KB row (the table, 2.08 MB at the
-//    north star, stays in L2).  The two draws' keys are a table of their
-//    own (`prior_keys`), so the default key table is unchanged.  The lane
+//    same index.  The two draws' keys are a table of their own
+//    (`prior_keys`), so the default key table is unchanged.  The team
 //    also writes whether it took the prior (`from_prior`, read by the
 //    diagnostics' counts in select_survivors).
 //  - bf16 scoring (BF16): the broker terms' running sum in bf16
-//    (terms.cuh), here and in the prologue; every other term stays f32.
+//    (terms.cuh); every other term stays f32.
 //  DISK, INTRA, PRIOR and BF16 are template parameters, so each mode
 //  compiles apart and the default lanes are the ones without them; the
 //  intra kind has no prior and no broker terms, so it has no PRIOR or BF16
-//  variant: 10 instantiations of candidates_kernel, 2 of the prologue.
+//  variant: 10 instantiations of candidates_kernel.
 // Tensor cores do not apply (there is no matrix product), and TMA is not
 // worth it for scattered row gathers.
+#include <cuda_pipeline.h>
+
 #include "terms.cuh"
 
 struct Key2 {
@@ -193,10 +221,6 @@ struct CandOutputs {
   float* dlbin_dst;
   int* d_f;
   int* d_t;
-  // old-state terms (the prologue's output)
-  float* old_broker;  // [B]
-  float* old_host;    // [H]
-  float* old_tie;     // [1]
   // the relocations' took-the-prior mask [K_r] (PRIOR)
   bool* from_prior;
 };
@@ -209,14 +233,40 @@ struct Ctx {
   CandOutputs out;
 };
 
+constexpr int kThreads = 128;
+constexpr int kTeam = 4;      // lanes of a relocation, leadership transfer or intra move
+constexpr int kSwapTeam = 8;  // lanes of a swap
+constexpr unsigned kFull = 0xffffffffu;
+
+// A candidate's lanes: N consecutive lanes of one warp.  Every lane of the
+// warp reaches each shuffle and ballot (no lane returns early), so the
+// collectives take the full mask.
+template <int N>
+struct Team {
+  int lane;  // 0 .. N-1
+  int base;  // the team's first lane in its warp
+  __device__ explicit Team(int tid) : lane(tid & (N - 1)), base((tid & 31) & ~(N - 1)) {}
+  // lane j's v, on every lane of the team
+  __device__ __forceinline__ float from(float v, int j) const {
+    return __shfl_sync(kFull, v, base + j);
+  }
+  __device__ __forceinline__ int from(int v, int j) const {
+    return __shfl_sync(kFull, v, base + j);
+  }
+  // the lanes [lo, lo + n) of the team where p holds, as bits from lo
+  __device__ __forceinline__ unsigned ballot(bool p, int lo, int n) const {
+    return (__ballot_sync(kFull, p) >> (base + lo)) & ((1u << n) - 1u);
+  }
+};
+
 __device__ __forceinline__ const StepKeys& keys(const Ctx& c) {
   return c.in.key_table[(size_t)(*c.in.rnd) * c.n.steps_per_round + c.n.step];
 }
 
 __device__ __forceinline__ float f01(bool b) { return b ? 1.0f : 0.0f; }
 
-__device__ __forceinline__ float unit(const Key2& k, unsigned long long i) {
-  return cc_unit_float(k.k0, k.k1, i);
+__device__ __forceinline__ float unit(const Key2* k, unsigned long long i) {
+  return cc_unit_float(k->k0, k->k1, i);
 }
 
 __device__ __forceinline__ void row4(const float* __restrict__ a, int i, float v[4]) {
@@ -231,50 +281,38 @@ __device__ __forceinline__ void put4(float* __restrict__ a, int i, const float v
   reinterpret_cast<float4*>(a)[i] = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// ---------------------------------------------------------------------------
-// prologue: old-state terms
-// ---------------------------------------------------------------------------
+// v[j] for a lane-dependent j, by selects (no local memory)
+__device__ __forceinline__ float pick4(const float v[4], int j) {
+  return j == 0 ? v[0] : j == 1 ? v[1] : j == 2 ? v[2] : v[3];
+}
 
-template <bool BF16>
-__global__ void candidates_prologue_kernel(Ctx c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const CandInputs& in = c.in;
-  if (i < c.n.B) {
-    float cap[4], load[4];
-    row4(in.capacity, i, cap);
-    row4(in.broker_load, i, load);
-    const bool single = !in.host_multi[in.broker_host[i]];
-    c.out.old_broker[i] = broker_terms<BF16>(c.p, in.g, cap, in.alive[i], single, load,
-                                             in.rcount[i], in.lcount[i], in.pot[i], in.lbin[i]);
-  } else if (i < c.n.B + c.n.H) {
-    const int h = i - c.n.B;
-    float hl[4], hc[4];
-    row4(in.host_load, h, hl);
-    row4(in.host_cap, h, hc);
-    c.out.old_host[h] = host_terms(c.p, in.host_multi[h], hl, hc);
-  } else if (i == c.n.B + c.n.H) {
-    c.out.old_tie[0] = tie_term(c.p, in.g + G_PCT_SUM, in.g + G_PCT_SUMSQ);
-  }
+// One store instruction for four fields: lane j of a group of four writes
+// v_j to p_j[row] (p_j null: nothing).
+template <class T>
+__device__ __forceinline__ void put_lanes(int lane, bool on, int row, T* p0, T v0, T* p1, T v1,
+                                          T* p2, T v2, T* p3, T v3) {
+  T* p = lane == 0 ? p0 : lane == 1 ? p1 : lane == 2 ? p2 : p3;
+  const T v = lane == 0 ? v0 : lane == 1 ? v1 : lane == 2 ? v2 : v3;
+  if (on && p != nullptr) p[row] = v;
 }
 
 // ---------------------------------------------------------------------------
 // per-candidate pieces
 // ---------------------------------------------------------------------------
 
-// Source replica i of n (_sample_sources): the last n_imp by the plan's
-// two-stage draw (broker by upper-bound search of the CDF, then a slot of
-// its replica group), the rest uniform over the valid prefix.
-__device__ int sample_source(const Ctx& c, const Key2* ks, int i, int n, int n_imp,
-                             const float* cdf) {
-  const int n_uni = n - n_imp;
-  if (i < n_uni) return cc_uniform_idx(unit(ks[0], i), c.n.n_source);
-  const int ii = i - n_uni;
-  const float u = unit(ks[1], ii);
+// `_sample_sources`' pick of a source from its draws: the uniform draw
+// u_src over the valid prefix, or for an importance-sampled source the
+// plan's two-stage draw (broker by upper-bound search of the CDF with
+// u_src, then a slot of its replica group with u_slot; u_fb's uniform pick
+// where the broker holds none).
+__device__ int pick_source(const Ctx& c, bool imp, float u_src, float u_slot, float u_fb,
+                           const float* cdf) {
+  if (!imp) return cc_uniform_idx(u_src, c.n.n_source);
   // torch.searchsorted(right=True): the first index whose value is > u
   int lo = 0, hi = c.n.B;
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (!(cdf[mid] > u)) {
+    if (!(cdf[mid] > u_src)) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -282,48 +320,28 @@ __device__ int sample_source(const Ctx& c, const Key2* ks, int i, int n, int n_i
   }
   const int bsel = max(0, min(lo, c.n.n_brokers - 1));
   const int cnt = c.in.count[bsel];
-  const int j = __float2int_rz(__fmul_rn(unit(ks[2], ii), (float)cnt));
+  const int j = __float2int_rz(__fmul_rn(u_slot, (float)cnt));
   const int slot = max(0, min(c.in.start[bsel] + j, c.n.R - 1));
-  const int fallback = cc_uniform_idx(unit(ks[3], ii), c.n.n_source);
+  const int fallback = cc_uniform_idx(u_fb, c.n.n_source);
   return cnt > 0 ? c.in.order[slot] : fallback;
 }
 
-// Does a replica of partition `part` (other than padding) sit on broker b?
-__device__ bool member_on(const Ctx& c, int part, int b) {
-  const int* m = c.in.part_replicas + (size_t)part * c.n.max_rf;
-  bool hit = false;
-  for (int k = 0; k < c.n.max_rf; ++k) {
-    const int id = m[k];
-    const int v = id < c.n.R ? c.in.replica_broker[min(id, c.n.R - 1)] : -1;
-    hit = hit || v == b;
-  }
-  return hit;
+// A lane's draw: its key and counter are picked first and hashed by one
+// call, so the team's lanes hash in one instruction stream.
+struct Draw {
+  const Key2* k;
+  unsigned long long i;
+};
+
+// The source draws' (key, counter) of team lane 0, 1 or 2: the source (the
+// uniform key at i, or the CDF key at ii), the slot, the fallback.
+__device__ __forceinline__ Draw source_draw(const Key2* ks, int lane, bool imp, int i, int ii) {
+  using u64 = unsigned long long;
+  if (lane == 0) return imp ? Draw{&ks[1], (u64)ii} : Draw{&ks[0], (u64)i};
+  return Draw{&ks[lane == 1 ? 2 : 3], (u64)ii};
 }
 
-// A topic cell's violation: its count's distance outside [lower, upper].
-__device__ __forceinline__ float cell_topic(float cnt, float upper, float lower) {
-  return cc_relu(cnt - upper) + cc_relu(lower - cnt);
-}
-
-// Topic-distribution cell change of one replica of topic t moving b_from -> b_to.
-__device__ float topic_cell_delta(const Ctx& c, int t, int b_from, int b_to) {
-  const float avg = c.in.topic_avg[t];
-  const float upper = ceilf(avg * c.s.topic_tt);
-  const float lower = floorf(avg * c.s.topic_tt_low);
-  const float ct_f = (float)c.in.topic_count[(size_t)t * c.n.B + b_from];
-  const float ct_t = (float)c.in.topic_count[(size_t)t * c.n.B + b_to];
-  return (cell_topic(ct_f - 1.0f, upper, lower) - cell_topic(ct_f, upper, lower)) +
-         (cell_topic(ct_t + 1.0f, upper, lower) - cell_topic(ct_t, upper, lower));
-}
-
-// Rack-cell change of one replica of partition `part` moving rack_from -> rack_to.
-__device__ float rack_delta(const Ctx& c, int part, int rack_from, int rack_to) {
-  const int* row = c.in.part_rack_count + (size_t)part * c.n.racks;
-  const float c_f = (float)row[rack_from];
-  const float c_t = (float)row[rack_to];
-  const float d = (cc_relu(c_f - 2.0f) - cc_relu(c_f - 1.0f)) + (cc_relu(c_t) - cc_relu(c_t - 1.0f));
-  return rack_from != rack_to ? d : 0.0f;
-}
+__device__ __forceinline__ float draw_u(const Draw& d) { return unit(d.k, d.i); }
 
 // The disk-load sum of broker b's logdirs in disk order.
 __device__ __forceinline__ float disk_sum(const Ctx& c, int b) {
@@ -341,140 +359,210 @@ __device__ __forceinline__ float broker_disk_terms(const Ctx& c, int b, const Di
                     c.in.disk_capacity + o, c.in.disk_alive + o, c.in.alive[b], m, bsum);
 }
 
-// move_delta_plain's intra-broker disk block: src's row less ddisk_src at
-// d_src and dst's row plus ddisk at d_dst, against both as they are.
-__device__ float disk_move_delta(const Ctx& c, int s, int d, int d_src, int d_dst,
-                                 float ddisk_src, float ddisk) {
-  const float bsum_s = disk_sum(c, s), bsum_d = disk_sum(c, d);
-  const DiskEdit none{0, 0, 0, 0.0f};
-  const float td0 = broker_disk_terms(c, s, DiskEdit{1, d_src, 0, ddisk_src}, bsum_s - ddisk_src);
-  const float td1 = broker_disk_terms(c, s, none, bsum_s);
-  const float td2 = broker_disk_terms(c, d, DiskEdit{2, d_dst, 0, ddisk}, bsum_d + ddisk);
-  const float td3 = broker_disk_terms(c, d, none, bsum_d);
-  return ((td0 - td1) + td2) - td3;
-}
-
-// move_delta_plain: the two new broker lanes against the prologue's old
-// ones, the host terms, the intra-broker disk terms (DISK: the chain
-// weighs them), the tiebreak.
-template <bool DISK, bool BF16>
-__device__ float move_delta_core(const Ctx& c, int s, int d, const float dls[4],
-                                 const float dld[4], int dc, int dlc, float dp, float dlbin,
-                                 float dlbin_src, int d_src, int d_dst, float ddisk_src,
-                                 float ddisk) {
-  const CandInputs& in = c.in;
-  float ls[4], ld[4], ls2[4], ld2[4], cap_s[4], cap_d[4];
-  row4(in.broker_load, s, ls);
-  row4(in.broker_load, d, ld);
-  row4(in.capacity, s, cap_s);
-  row4(in.capacity, d, cap_d);
-  for (int r = 0; r < 4; ++r) {
-    ls2[r] = ls[r] + dls[r];
-    ld2[r] = ld[r] + dld[r];
-  }
-  const bool a_s = in.alive[s], a_d = in.alive[d];
-  const int h_s = in.broker_host[s], h_d = in.broker_host[d];
-  const bool m_s = in.host_multi[h_s], m_d = in.host_multi[h_d];
-  const float t0 = c.out.old_broker[s];
-  const float t1 = c.out.old_broker[d];
-  const float t2 = broker_terms<BF16>(c.p, in.g, cap_s, a_s, !m_s, ls2, in.rcount[s] - dc,
-                                      in.lcount[s] - dlc, in.pot[s] - dp, in.lbin[s] - dlbin_src);
-  const float t3 = broker_terms<BF16>(c.p, in.g, cap_d, a_d, !m_d, ld2, in.rcount[d] + dc,
-                                      in.lcount[d] + dlc, in.pot[d] + dp, in.lbin[d] + dlbin);
-  float delta = (t2 + t3) - (t0 + t1);
-
-  // host-granularity capacity (same-host moves cancel)
-  if (h_s != h_d) {
-    float hl_s[4], hl_d[4], hc_s[4], hc_d[4];
-    row4(in.host_load, h_s, hl_s);
-    row4(in.host_load, h_d, hl_d);
-    row4(in.host_cap, h_s, hc_s);
-    row4(in.host_cap, h_d, hc_d);
-    for (int r = 0; r < 4; ++r) {
-      hl_s[r] = hl_s[r] + dls[r];
-      hl_d[r] = hl_d[r] + dld[r];
-    }
-    const float th0 = host_terms(c.p, m_s, hl_s, hc_s);
-    const float th2 = host_terms(c.p, m_d, hl_d, hc_d);
-    delta = delta + (((th0 - c.out.old_host[h_s]) + th2) - c.out.old_host[h_d]);
-  } else {
-    delta = delta + 0.0f;
-  }
-
-  if (DISK) delta = delta + disk_move_delta(c, s, d, d_src, d_dst, ddisk_src, ddisk);
-
-  // dispersion tiebreaker via sufficient statistics
-  const float as = f01(a_s), ad = f01(a_d);
-  float s_new[4], sq_new[4];
-  for (int r = 0; r < 4; ++r) {
-    const float cs = cap_s[r] + 1e-12f, cd = cap_d[r] + 1e-12f;
-    const float p_s = ls[r] / cs, p_d = ld[r] / cd;
-    const float p_s2 = ls2[r] / cs, p_d2 = ld2[r] / cd;
-    const float dsum = as * (p_s2 - p_s) + ad * (p_d2 - p_d);
-    const float dsumsq = as * (p_s2 * p_s2 - p_s * p_s) + ad * (p_d2 * p_d2 - p_d * p_d);
-    s_new[r] = in.g[G_PCT_SUM + r] + dsum;
-    sq_new[r] = in.g[G_PCT_SUMSQ + r] + dsumsq;
-  }
-  return delta + (tie_term(c.p, s_new, sq_new) - c.out.old_tie[0]);
-}
-
 __device__ __forceinline__ bool disk_ok(const Ctx& c, int b, int disk) {
   return c.in.disk_alive[(size_t)b * c.n.D + disk];
 }
 
-// The bundle entry of candidate k (index in the concatenated K) with its
-// Metropolis acceptance: delta < -T log u - 1e-12, u drawn with minval 1e-12.
-__device__ void put_candidate(const Ctx& c, int k, float delta, bool feas, int src, int dst,
-                              int part1, int part2) {
-  const float u = cc_uniform_in(unit(keys(c).u, k), c.s.u_min, c.s.u_span);
-  const float thresh = __fmul_rn(-*c.in.temperature, logf(u));
-  c.out.delta[k] = delta;
-  c.out.feas[k] = feas;
-  c.out.accept[k] = feas && (delta < __fsub_rn(thresh, 1e-12f));
-  c.out.src[k] = src;
-  c.out.dst[k] = dst;
-  c.out.part1[k] = part1;
-  c.out.part2[k] = part2;
+// The rows of the broker a lane of move_delta_core scores: capacity, load,
+// liveness (the statics'), host, replica and leader counts, potential
+// NW-out, leader bytes-in.
+struct BrokerRows {
+  float cap[4], load[4];
+  int host, rc, lc;
+  float pot, lbin;
+  bool alive;
+};
+
+__device__ __forceinline__ void load_broker(const Ctx& c, int b, BrokerRows& r) {
+  const CandInputs& in = c.in;
+  row4(in.capacity, b, r.cap);
+  row4(in.broker_load, b, r.load);
+  r.alive = in.alive[b];
+  r.host = in.broker_host[b];
+  r.rc = in.rcount[b];
+  r.lc = in.lcount[b];
+  r.pot = in.pot[b];
+  r.lbin = in.lbin[b];
 }
 
-// One relocation payload row.
-__device__ void put_rel_row(const Ctx& c, int row, int r, int src, int dst, int d_src, int d_dst,
-                            const float load[4], bool is_lead, float pot, float lbin, int topic,
-                            int part) {
+// A lane's host rows: whether it holds several brokers, its load and capacity.
+struct HostRows {
+  float hl[4], hc[4];
+  bool multi;
+};
+
+__device__ __forceinline__ void load_host(const Ctx& c, int h, HostRows& r) {
+  r.multi = c.in.host_multi[h];
+  row4(c.in.host_load, h, r.hl);
+  row4(c.in.host_cap, h, r.hc);
+}
+
+// Resource L of a broker's load and capacity, and its liveness: the
+// tiebreak's inputs on lane L.
+struct TieCol {
+  float load, cap;
+  bool alive;
+};
+
+__device__ __forceinline__ void load_tie(const Ctx& c, int b, int L, TieCol& t) {
+  t.load = c.in.broker_load[4 * (size_t)b + L];
+  t.cap = c.in.capacity[4 * (size_t)b + L];
+  t.alive = c.in.alive[b];
+}
+
+// move_delta_plain of src s -> dst d on the team (roles by lane & 3; a
+// swap's lanes 4-7 repeat 0-3), from rows loaded before: `br` and `hr` the
+// lane's broker (s on lanes 0 and 2, d on 1 and 3) and its host, `ts` and
+// `td` resource L of s and d.  The four broker and host lanes, the
+// intra-broker disk terms (DISK: the chain weighs them), the tiebreak one
+// resource a lane.  Every lane returns the delta.
+template <bool DISK, bool BF16, int N>
+__device__ float move_delta_core(const Ctx& c, const Team<N>& tm, const BrokerRows& br,
+                                 const HostRows& hr, const TieCol& ts, const TieCol& td, int s,
+                                 int d, const float dls[4], const float dld[4], int dc, int dlc,
+                                 float dp, float dlbin, float dlbin_src, int d_src, int d_dst,
+                                 float ddisk_src, float ddisk) {
+  const int L = tm.lane & 3;
+  const bool on_s = (L & 1) == 0;  // lanes 0, 2: src; 1, 3: dst
+  const bool after = L < 2;        // lanes 0, 1: after the move; 2, 3: as it is
+  float load[4], hl[4];
+  int rc = br.rc, lc = br.lc;
+  float pot = br.pot, lbin = br.lbin;
+  for (int r = 0; r < 4; ++r) {
+    load[r] = br.load[r];
+    hl[r] = hr.hl[r];
+  }
+  if (after) {
+    for (int r = 0; r < 4; ++r) {
+      const float x = on_s ? dls[r] : dld[r];
+      load[r] = load[r] + x;
+      hl[r] = hl[r] + x;
+    }
+    if (on_s) {
+      rc = rc - dc;
+      lc = lc - dlc;
+      pot = pot - dp;
+      lbin = lbin - dlbin_src;
+    } else {
+      rc = rc + dc;
+      lc = lc + dlc;
+      pot = pot + dp;
+      lbin = lbin + dlbin;
+    }
+  }
+  // t2 = src after, t3 = dst after, t0 = src before, t1 = dst before
+  const float t = broker_terms<BF16>(c.p, c.in.g, br.cap, br.alive, !hr.multi, load, rc, lc, pot,
+                                     lbin);
+  float delta = (tm.from(t, 0) + tm.from(t, 1)) - (tm.from(t, 2) + tm.from(t, 3));
+
+  // host-granularity capacity (same-host moves cancel)
+  const float th = host_terms(c.p, hr.multi, hl, hr.hc);
+  const float th0 = tm.from(th, 0), th2 = tm.from(th, 1);
+  const float old_s = tm.from(th, 2), old_d = tm.from(th, 3);
+  if (tm.from(br.host, 0) != tm.from(br.host, 1)) {
+    delta = delta + (((th0 - old_s) + th2) - old_d);
+  } else {
+    delta = delta + 0.0f;
+  }
+
+  if (DISK) {
+    // td0 = src after (lane 0), td1 = src before (2), td2 = dst after (1),
+    // td3 = dst before (3)
+    const int b = on_s ? s : d;
+    const float bsum = disk_sum(c, b);
+    DiskEdit m{0, 0, 0, 0.0f};
+    float arg = bsum;
+    if (L == 0) {
+      m = DiskEdit{1, d_src, 0, ddisk_src};
+      arg = bsum - ddisk_src;
+    } else if (L == 1) {
+      m = DiskEdit{2, d_dst, 0, ddisk};
+      arg = bsum + ddisk;
+    }
+    const float tdk = broker_disk_terms(c, b, m, arg);
+    delta = delta + (((tm.from(tdk, 0) - tm.from(tdk, 2)) + tm.from(tdk, 1)) - tm.from(tdk, 3));
+  }
+
+  // dispersion tiebreaker via sufficient statistics, resource L on lane L
+  const float cs = ts.cap + 1e-12f, cd = td.cap + 1e-12f;
+  const float as = f01(ts.alive), ad = f01(td.alive);
+  const float p_s = ts.load / cs, p_d = td.load / cd;
+  const float p_s2 = (ts.load + pick4(dls, L)) / cs, p_d2 = (td.load + pick4(dld, L)) / cd;
+  const float dsum = as * (p_s2 - p_s) + ad * (p_d2 - p_d);
+  const float dsumsq = as * (p_s2 * p_s2 - p_s * p_s) + ad * (p_d2 * p_d2 - p_d * p_d);
+  const float s_old = c.in.g[G_PCT_SUM + L], sq_old = c.in.g[G_PCT_SUMSQ + L];
+  const float tn = tie_part(c.p, s_old + dsum, sq_old + dsumsq);
+  const float to = tie_part(c.p, s_old, sq_old);
+  const float tie_new =
+      c.p.w_tie * (((tm.from(tn, 0) + tm.from(tn, 1)) + tm.from(tn, 2)) + tm.from(tn, 3));
+  const float tie_old =
+      c.p.w_tie * (((tm.from(to, 0) + tm.from(to, 1)) + tm.from(to, 2)) + tm.from(to, 3));
+  return delta + (tie_new - tie_old);
+}
+
+// The Metropolis acceptance of candidate k: delta < -T log u - 1e-12, u
+// drawn (as u01) with minval 1e-12.
+__device__ __forceinline__ bool accepted(const Ctx& c, float u01, float delta, bool feas) {
+  const float u = cc_uniform_in(u01, c.s.u_min, c.s.u_span);
+  const float thresh = __fmul_rn(-*c.in.temperature, logf(u));
+  return feas && (delta < __fsub_rn(thresh, 1e-12f));
+}
+
+// The bundle entry of candidate k, by a group of four lanes.
+__device__ void put_candidate(const Ctx& c, int L, bool on, int k, float delta, bool feas,
+                              bool accept, int src, int dst, int part1, int part2,
+                              bool* from_prior, int i_prior, bool took_prior) {
   const CandOutputs& o = c.out;
-  o.r[row] = r;
-  o.r_src[row] = src;
-  o.r_dst[row] = dst;
-  o.d_src[row] = d_src;
-  o.d_dst[row] = d_dst;
-  put4(o.load, row, load);
-  o.is_lead[row] = is_lead;
-  o.pot[row] = pot;
-  o.lbin[row] = lbin;
-  o.topic[row] = topic;
-  o.part[row] = part;
+  put_lanes<int>(L, on, k, o.src, src, o.dst, dst, o.part1, part1, o.part2, part2);
+  put_lanes<bool>(L, on, k, (bool*)nullptr, false, o.feas, feas, o.accept, accept, (bool*)nullptr,
+                  false);
+  if (on && L == 0) c.out.delta[k] = delta;
+  if (on && L == 3 && from_prior != nullptr) from_prior[i_prior] = took_prior;
+}
+
+// One relocation payload row, by a group of four lanes.
+__device__ void put_rel_row(const Ctx& c, int L, bool on, int row, int r, int src, int dst,
+                            int d_src, int d_dst, const float load[4], bool is_lead, float pot,
+                            float lbin, int topic, int part) {
+  const CandOutputs& o = c.out;
+  put_lanes<int>(L, on, row, o.r, r, o.r_src, src, o.r_dst, dst, o.d_src, d_src);
+  put_lanes<int>(L, on, row, o.d_dst, d_dst, o.topic, topic, o.part, part, (int*)nullptr, 0);
+  put_lanes<float>(L, on, row, o.pot, pot, o.lbin, lbin, (float*)nullptr, 0.0f, (float*)nullptr,
+                   0.0f);
+  if (on && L == 2) put4(o.load, row, load);
+  if (on && L == 3) o.is_lead[row] = is_lead;
+}
+
+// A replica's row: what the candidate kinds read of it, loaded at once.
+struct ReplicaRow {
+  float ll[4], lf[4];  // leader and follower load rows
+  int broker, part, disk, topic, pos, orig;
+  bool valid, lead;
+};
+
+__device__ __forceinline__ void load_replica(const Ctx& c, int r, ReplicaRow& x) {
+  const CandInputs& in = c.in;
+  x.broker = in.replica_broker[r];
+  x.part = in.part_of[r];
+  x.disk = in.replica_disk[r];
+  x.topic = in.topic_of[r];
+  x.valid = in.valid[r];
+  x.lead = in.replica_is_leader[r];
+  x.pos = in.pos[r];
+  x.orig = in.orig_broker[r];
+  row4(in.load_leader, r, x.ll);
+  row4(in.load_follower, r, x.lf);
 }
 
 // The load a replica moves with: its leader or follower row, 0 when invalid.
-__device__ __forceinline__ void replica_load(const Ctx& c, int r, bool lead, bool valid,
-                                             float out[4]) {
-  row4(lead ? c.in.load_leader : c.in.load_follower, r, out);
-  if (!valid) {
-    for (int k = 0; k < 4; ++k) out[k] = 0.0f;
-  }
+__device__ __forceinline__ void replica_load(const ReplicaRow& x, float out[4]) {
+  for (int k = 0; k < 4; ++k) out[k] = x.valid ? (x.lead ? x.ll[k] : x.lf[k]) : 0.0f;
 }
 
-// The prior branch of relocation i's destination draw (`_sample_dests`):
-// where the mix draw falls below prior_mix, the upper bound of the CDF draw
-// in topic t's prior CDF over the first n_dest positions, clamped to
-// n_dest - 1; else the uniform position `uni`.  Writes the lane's
-// took-the-prior flag.
-__device__ int prior_dest(const Ctx& c, int i, int t, int uni) {
-  const size_t row = (size_t)(*c.in.rnd) * c.n.steps_per_round + c.n.step;
-  const bool use = unit(c.in.prior_keys[2 * row], i) < *c.in.prior_mix;
-  c.out.from_prior[i] = use;
-  if (!use) return uni;
-  const float u = unit(c.in.prior_keys[2 * row + 1], i);
+// The prior's destination position (`_sample_dests`): the upper bound of
+// u in topic t's prior CDF over the first n_dest positions, clamped to
+// n_dest - 1.
+__device__ int prior_dest(const Ctx& c, int t, float u) {
   const float* cdf = c.in.prior_cdf + (size_t)t * c.n.B;
   // the number of entries <= u: the first index whose value is > u
   int lo = 0, hi = c.n.n_dest;
@@ -489,92 +577,16 @@ __device__ int prior_dest(const Ctx& c, int i, int t, int uni) {
   return min(lo, c.n.n_dest - 1);
 }
 
-template <bool DISK, bool PRIOR, bool BF16>
-__device__ void cand_relocation(const Ctx& c, int i, const float* cdf) {
+// The most-free alive logdir of broker b (first on ties, argmin), the
+// logdir `skip` excluded (-1: none); all excluded gives 0.
+__device__ int most_free_disk(const Ctx& c, int b, int skip) {
   const CandInputs& in = c.in;
-  const int r = sample_source(c, keys(c).rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
-  int pos = cc_uniform_idx(unit(keys(c).rel_dst, i), c.n.n_dest);
-  if (PRIOR) pos = prior_dest(c, i, in.topic_of[r], pos);
-  const int dst = in.dest_ids[pos];
-  const int src = in.replica_broker[r];
-  const int part = in.part_of[r];
-  const int disk = in.replica_disk[r];
-  const int topic = in.topic_of[r];
-  const bool valid = in.valid[r];
-  const bool is_lead = in.replica_is_leader[r];
-  float ll[4];
-  row4(in.load_leader, r, ll);
-
-  const bool offline = !(in.broker_alive[src] && disk_ok(c, src, disk));
-  const bool movable = in.topic_movable[topic] || offline;
-  const bool feas = valid && movable && src != dst && !member_on(c, part, dst);
-
-  float load[4];
-  replica_load(c, r, is_lead, valid, load);
-
-  // destination logdir: most-free alive disk on dst, first on ties (argmin)
-  int d_dst = 0;
-  float best = 0.0f;
-  for (int d = 0; d < c.n.D; ++d) {
-    const size_t a = (size_t)dst * c.n.D + d;
-    const float v = in.disk_alive[a] ? in.disk_load[a] / (in.disk_capacity[a] + 1e-12f)
-                                    : __int_as_float(0x7f800000);  // +inf
-    if (d == 0 || (!(best != best) && (v < best || v != v))) {
-      best = v;
-      d_dst = d;
-    }
-  }
-
-  const float pot = ll[2];
-  const float lbin = is_lead ? ll[1] : 0.0f;
-  float dls[4];
-  for (int k = 0; k < 4; ++k) dls[k] = -load[k];
-  float delta = move_delta_core<DISK, BF16>(c, src, dst, dls, load, 1, is_lead ? 1 : 0, pot, lbin,
-                                            lbin, disk, d_dst, load[3], load[3]);
-
-  const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
-  delta = delta + (c.s.w_rack * rack_delta(c, part, rack_s, rack_d)) / c.p.n_valid;
-  if (c.n.has_topic) {
-    delta = delta + (c.s.w_topic * topic_cell_delta(c, topic, src, dst)) / in.g[G_TOTAL_COUNT];
-  }
-  const bool dst_ok = in.broker_alive[dst] && disk_ok(c, dst, d_dst);
-  delta = delta + (c.s.w_offline * (f01(!dst_ok) - f01(offline))) / c.p.n_valid;
-  if (c.n.has_pref) {
-    const bool pref = in.pos[r] == 0 && valid && !is_lead;
-    const bool was = pref && !offline;
-    const bool now = pref && dst_ok;
-    delta = delta + (c.s.w_pref * (f01(now) - f01(was))) / c.s.num_parts;
-  }
-  if (c.n.price_r) {
-    const int orig = in.orig_broker[r];
-    delta = delta + in.replica_cost[0] * (f01(dst != orig) - f01(src != orig));
-  }
-  put_candidate(c, i, delta, feas, src, dst, part, part);
-  put_rel_row(c, i, r, src, dst, disk, d_dst, load, is_lead, pot, lbin, topic, part);
-}
-
-// An intra-broker disk move (`_intra_disk_candidates`): replica r to the
-// most-free other alive logdir of its own broker b.
-template <bool DISK>
-__device__ void cand_intra(const Ctx& c, int i, const float* cdf) {
-  const CandInputs& in = c.in;
-  const int r = sample_source(c, keys(c).rel_src, i, c.n.K_r, c.n.n_imp_r, cdf);
-  const int b = in.replica_broker[r];
-  const int part = in.part_of[r];
-  const int d_src = in.replica_disk[r];
-  const int topic = in.topic_of[r];
-  const bool valid = in.valid[r];
-  const bool is_lead = in.replica_is_leader[r];
-  float ll[4];
-  row4(in.load_leader, r, ll);
-
-  // destination logdir: most-free alive disk on b, the current slot
-  // excluded, first on ties (argmin); all excluded gives 0
+  if (c.n.D == 1) return 0;  // the loop below picks d = 0 whatever its value
   int d_dst = 0;
   float best = 0.0f;
   for (int d = 0; d < c.n.D; ++d) {
     const size_t a = (size_t)b * c.n.D + d;
-    const float v = (d != d_src && in.disk_alive[a])
+    const float v = (d != skip && in.disk_alive[a])
                         ? in.disk_load[a] / (in.disk_capacity[a] + 1e-12f)
                         : __int_as_float(0x7f800000);  // +inf
     if (d == 0 || (!(best != best) && (v < best || v != v))) {
@@ -582,204 +594,525 @@ __device__ void cand_intra(const Ctx& c, int i, const float* cdf) {
       d_dst = d;
     }
   }
+  return d_dst;
+}
 
-  const bool off_src = !(in.broker_alive[b] && disk_ok(c, b, d_src));
-  const bool movable = in.topic_movable[topic] || off_src;
-  const bool dst_ok = in.broker_alive[b] && disk_ok(c, b, d_dst);
+// Wait for the block's staged CDF (block-uniform).
+__device__ __forceinline__ void staged_wait(bool staged) {
+  if (staged) {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+}
+
+// A topic cell's violation: its count's distance outside [lower, upper].
+__device__ __forceinline__ float cell_topic(float cnt, float upper, float lower) {
+  return cc_relu(cnt - upper) + cc_relu(lower - cnt);
+}
+
+// Topic-distribution cell change of one replica of a topic with average
+// `avg` moving from a broker holding cnt_f of its replicas to one holding
+// cnt_t.
+__device__ float topic_cell_delta(const Ctx& c, float avg, int cnt_f, int cnt_t) {
+  const float upper = ceilf(avg * c.s.topic_tt);
+  const float lower = floorf(avg * c.s.topic_tt_low);
+  const float ct_f = (float)cnt_f;
+  const float ct_t = (float)cnt_t;
+  return (cell_topic(ct_f - 1.0f, upper, lower) - cell_topic(ct_f, upper, lower)) +
+         (cell_topic(ct_t + 1.0f, upper, lower) - cell_topic(ct_t, upper, lower));
+}
+
+// Rack-cell change of one replica of a partition moving rack_from ->
+// rack_to, whose racks hold cnt_f and cnt_t of its replicas.
+__device__ float rack_delta(int rack_from, int rack_to, int cnt_f, int cnt_t) {
+  const float c_f = (float)cnt_f;
+  const float c_t = (float)cnt_t;
+  const float d =
+      (cc_relu(c_f - 2.0f) - cc_relu(c_f - 1.0f)) + (cc_relu(c_t) - cc_relu(c_t - 1.0f));
+  return rack_from != rack_to ? d : 0.0f;
+}
+
+__device__ __forceinline__ int rack_count(const Ctx& c, int part, int rack) {
+  return c.in.part_rack_count[(size_t)part * c.n.racks + rack];
+}
+
+__device__ __forceinline__ int topic_count(const Ctx& c, int t, int b) {
+  return c.in.topic_count[(size_t)t * c.n.B + b];
+}
+
+// Member slot `sl` of partition `part` (R past the row), and the broker of
+// a member id (-1 for padding).
+__device__ __forceinline__ int member_id(const Ctx& c, int part, int sl) {
+  return sl < c.n.max_rf ? c.in.part_replicas[(size_t)part * c.n.max_rf + sl] : c.n.R;
+}
+
+__device__ __forceinline__ int member_broker(const Ctx& c, int id) {
+  return id < c.n.R ? c.in.replica_broker[min(id, c.n.R - 1)] : -1;
+}
+
+// Does a replica of partition `part` (other than padding) sit on broker b?
+// Lanes [lo, lo + n) of the team scan one member slot each: slot
+// tm.lane - lo's broker v0 was loaded before; further passes take the
+// slots past n.
+template <int N>
+__device__ bool member_on(const Ctx& c, const Team<N>& tm, int part, int b, int lo, int n,
+                          int v0) {
+  const int sl = tm.lane - lo;
+  bool hit = v0 == b;
+  for (int k0 = n; k0 < c.n.max_rf; k0 += n) {
+    const int k = k0 + sl;
+    if (k < c.n.max_rf) hit = hit || member_broker(c, member_id(c, part, k)) == b;
+  }
+  return tm.ballot(hit, lo, n) != 0u;
+}
+
+// The source replica of draw i from the team's draws (lanes 0-2: source,
+// slot, fallback).
+template <int N>
+__device__ __forceinline__ int team_source(const Ctx& c, const Team<N>& tm, bool imp, float u1,
+                                           const float* cdf) {
+  return pick_source(c, imp, tm.from(u1, 0), tm.from(u1, 1), tm.from(u1, 2), cdf);
+}
+
+// The four terms a move adds after move_delta_core (rack, topic, offline,
+// preferred leader): lane j of each group of four divides numerator j by
+// denominator j, and every lane gets the four quotients.
+template <int N>
+__device__ __forceinline__ void lane_quotients(const Team<N>& tm, const float num[4],
+                                               const float den[4], float q[4]) {
+  const int L = tm.lane & 3;
+  const float v = pick4(num, L) / pick4(den, L);
+  for (int j = 0; j < 4; ++j) q[j] = tm.from(v, j);
+}
+
+// Each candidate loads its rows in rounds, each round's loads issued
+// together before any is used: the rows a round's addresses need come
+// from the round before (replica row -> broker rows, member ids, rack and
+// topic cells' operands -> host rows, member brokers, cells), so the
+// chain is as deep as its data dependences and no deeper.
+template <bool DISK, bool PRIOR, bool BF16>
+__device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, bool on,
+                                const float* cdf, bool staged) {
+  const CandInputs& in = c.in;
+  const StepKeys& ks = keys(c);
+  const int L = tm.lane;
+  const bool on_s = (L & 1) == 0;
+  const int n_uni = c.n.K_r - c.n.n_imp_r;
+  const bool imp = i >= n_uni;
+  const int ii = i - n_uni;
+  // draws: (source, slot, fallback, destination), then (Metropolis, the
+  // prior's mix and CDF u); a uniform source needs no slot or fallback,
+  // so without the prior its Metropolis u takes the slot's lane
+  Draw d1 = L == 3 ? Draw{&ks.rel_dst, (unsigned long long)i}
+                   : source_draw(ks.rel_src, L, imp, i, ii);
+  if (L == 1 && !imp) d1 = Draw{&ks.u, (unsigned long long)i};
+  const float u1 = draw_u(d1);
+  float u2 = 0.0f;
+  if (PRIOR || imp) {
+    const size_t krow = (size_t)(*in.rnd) * c.n.steps_per_round + c.n.step;
+    const Key2* k2 = &ks.u;
+    if (PRIOR && L == 1) k2 = &in.prior_keys[2 * krow];
+    if (PRIOR && L == 2) k2 = &in.prior_keys[2 * krow + 1];
+    u2 = draw_u(Draw{k2, (unsigned long long)i});
+  }
+  int pos = cc_uniform_idx(tm.from(u1, 3), c.n.n_dest);
+  // without the prior the destination is drawn: its id is in flight
+  // while the source is picked
+  int dst = PRIOR ? 0 : in.dest_ids[pos];
+  staged_wait(staged);
+  const float u_acc2 = tm.from(u2, 0), u_acc1 = tm.from(u1, 1);
+  const float u_acc = imp ? u_acc2 : u_acc1;
+  const int r = team_source(c, tm, imp, u1, cdf);
+  ReplicaRow x;
+  load_replica(c, r, x);
+  const int src = x.broker;
+  // the source's round: its broker rows (and the drawn destination's),
+  // the member ids, the cells' operands
+  BrokerRows br;
+  TieCol ts, td;
+  if (PRIOR) {
+    if (on_s) load_broker(c, src, br);
+  } else {
+    load_broker(c, on_s ? src : dst, br);
+  }
+  load_tie(c, src, L, ts);
+  const int id0 = member_id(c, x.part, L);
+  const bool alive_s = in.broker_alive[src];
+  const bool dok_s = disk_ok(c, src, x.disk);
+  const bool movable_t = in.topic_movable[x.topic];
+  const int rack_s = in.broker_rack[src];
+  const float avg = in.topic_avg[x.topic];
+  const int cnt_ts = topic_count(c, x.topic, src);
+  bool took = false;
+  if (PRIOR) {
+    const float u_mix = tm.from(u2, 1), u_pr = tm.from(u2, 2);
+    took = u_mix < *in.prior_mix;
+    if (took) pos = prior_dest(c, x.topic, u_pr);
+    dst = in.dest_ids[pos];
+  }
+  // the destination's round
+  if (PRIOR && !on_s) load_broker(c, dst, br);
+  load_tie(c, dst, L, td);
+  const bool alive_d = in.broker_alive[dst];
+  const int rack_d = in.broker_rack[dst];
+  const int cnt_td = topic_count(c, x.topic, dst);
+  const int d_dst = most_free_disk(c, dst, -1);
+  // the last round: host rows, the members' brokers, the rack cells
+  HostRows hr;
+  load_host(c, br.host, hr);
+  const int v0 = member_broker(c, id0);
+  const int cnt_rs = rack_count(c, x.part, rack_s), cnt_rd = rack_count(c, x.part, rack_d);
+  const bool dok_d = disk_ok(c, dst, d_dst);
+
+  const bool offline = !(alive_s && dok_s);
+  const bool movable = movable_t || offline;
+  const bool member = member_on(c, tm, x.part, dst, 0, kTeam, v0);
+  const bool feas = x.valid && movable && src != dst && !member;
+
+  float load[4];
+  replica_load(x, load);
+  const float pot = x.ll[2];
+  const float lbin = x.lead ? x.ll[1] : 0.0f;
+  float dls[4];
+  for (int k = 0; k < 4; ++k) dls[k] = -load[k];
+  float delta = move_delta_core<DISK, BF16>(c, tm, br, hr, ts, td, src, dst, dls, load, 1,
+                                            x.lead ? 1 : 0, pot, lbin, lbin, x.disk, d_dst,
+                                            load[3], load[3]);
+
+  const bool dst_ok = alive_d && dok_d;
+  const bool pref = x.pos == 0 && x.valid && !x.lead;
+  const bool was = pref && !offline;
+  const bool now = pref && dst_ok;
+  const float num[4] = {c.s.w_rack * rack_delta(rack_s, rack_d, cnt_rs, cnt_rd),
+                        c.s.w_topic * topic_cell_delta(c, avg, cnt_ts, cnt_td),
+                        c.s.w_offline * (f01(!dst_ok) - f01(offline)),
+                        c.s.w_pref * (f01(now) - f01(was))};
+  const float den[4] = {c.p.n_valid, in.g[G_TOTAL_COUNT], c.p.n_valid, c.s.num_parts};
+  float quo[4];
+  lane_quotients(tm, num, den, quo);
+  delta = delta + quo[0];
+  if (c.n.has_topic) delta = delta + quo[1];
+  delta = delta + quo[2];
+  if (c.n.has_pref) delta = delta + quo[3];
+  if (c.n.price_r) {
+    delta = delta + in.replica_cost[0] * (f01(dst != x.orig) - f01(src != x.orig));
+  }
+  put_candidate(c, L, on, i, delta, feas, accepted(c, u_acc, delta, feas), src, dst, x.part,
+                x.part, PRIOR ? c.out.from_prior : nullptr, i, took);
+  put_rel_row(c, L, on, i, r, src, dst, x.disk, d_dst, load, x.lead, pot, lbin, x.topic, x.part);
+}
+
+// An intra-broker disk move (`_intra_disk_candidates`): replica r to the
+// most-free other alive logdir of its own broker b.
+template <bool DISK>
+__device__ void cand_intra(const Ctx& c, const Team<kTeam>& tm, int i, bool on, const float* cdf,
+                           bool staged) {
+  const CandInputs& in = c.in;
+  const StepKeys& ks = keys(c);
+  const int L = tm.lane;
+  const int n_uni = c.n.K_r - c.n.n_imp_r;
+  const bool imp = i >= n_uni;
+  // draws: (source, slot, fallback, Metropolis)
+  const float u1 = draw_u(L < 3 ? source_draw(ks.rel_src, L, imp, i, i - n_uni)
+                                : Draw{&ks.u, (unsigned long long)i});
+  staged_wait(staged);
+  const int r = team_source(c, tm, imp, u1, cdf);
+  const float u_acc = tm.from(u1, 3);
+  const int b = in.replica_broker[r];
+  const int part = in.part_of[r];
+  const int d_src = in.replica_disk[r];
+  const int topic = in.topic_of[r];
+  const bool valid = in.valid[r];
+  const bool is_lead = in.replica_is_leader[r];
+  const int orig = in.orig_disk[r];
+  float ll[4], lf[4];
+  row4(in.load_leader, r, ll);
+  row4(in.load_follower, r, lf);
+  const bool movable_t = in.topic_movable[topic];
+  const bool alive_b = in.broker_alive[b];
+  const bool dok_src = disk_ok(c, b, d_src);
+  const int d_dst = most_free_disk(c, b, d_src);
+
+  const bool off_src = !(alive_b && dok_src);
+  const bool movable = movable_t || off_src;
+  const bool dst_ok = alive_b && disk_ok(c, b, d_dst);
   const bool feas = valid && movable && dst_ok && d_dst != d_src;
 
   float load[4];
-  replica_load(c, r, is_lead, valid, load);
-  // one broker, one row reshuffled
+  for (int k = 0; k < 4; ++k) load[k] = valid ? (is_lead ? ll[k] : lf[k]) : 0.0f;
+  // one broker, one row reshuffled: lane 0 the row after, the others as it is
   float delta = 0.0f;
   if (DISK) {
     const float bsum = disk_sum(c, b);
-    delta = broker_disk_terms(c, b, DiskEdit{3, d_dst, d_src, load[3]}, bsum) -
-            broker_disk_terms(c, b, DiskEdit{0, 0, 0, 0.0f}, bsum);
+    const DiskEdit m = L == 0 ? DiskEdit{3, d_dst, d_src, load[3]} : DiskEdit{0, 0, 0, 0.0f};
+    const float td = broker_disk_terms(c, b, m, bsum);
+    delta = tm.from(td, 0) - tm.from(td, 1);
   }
   delta = delta + (c.s.w_offline * (f01(!dst_ok) - f01(off_src))) / c.p.n_valid;
   if (c.n.price_r) {
-    const int orig = in.orig_disk[r];
     delta = delta + in.replica_cost[0] * (f01(d_dst != orig) - f01(d_src != orig));
   }
-  put_candidate(c, i, delta, feas, b, b, part, part);
-  put_rel_row(c, i, r, b, b, d_src, d_dst, load, is_lead, ll[2], is_lead ? ll[1] : 0.0f, topic,
-              part);
+  put_candidate(c, L, on, i, delta, feas, accepted(c, u_acc, delta, feas), b, b, part, part,
+                nullptr, 0, false);
+  put_rel_row(c, L, on, i, r, b, b, d_src, d_dst, load, is_lead, ll[2], is_lead ? ll[1] : 0.0f,
+              topic, part);
 }
 
 template <bool DISK, bool BF16>
-__device__ void cand_swap(const Ctx& c, int i, const float* cdf) {
+__device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, bool on,
+                          const float* cdf, bool staged) {
   const CandInputs& in = c.in;
-  const int r = sample_source(c, keys(c).swap_src, i, c.n.K_s, c.n.n_imp_s, cdf);
-  const int q = cc_uniform_idx(unit(keys(c).swap_q, i), c.n.n_source);
-  const int src = in.replica_broker[r], dst = in.replica_broker[q];
-  const int part_r = in.part_of[r], part_q = in.part_of[q];
-  const int d_r = in.replica_disk[r], d_q = in.replica_disk[q];
-  const int topic_r = in.topic_of[r], topic_q = in.topic_of[q];
-  const bool valid_r = in.valid[r], valid_q = in.valid[q];
-  const bool lead_r = in.replica_is_leader[r], lead_q = in.replica_is_leader[q];
-  float ll_r[4], ll_q[4];
-  row4(in.load_leader, r, ll_r);
-  row4(in.load_leader, q, ll_q);
+  const StepKeys& ks = keys(c);
+  const int L = tm.lane;
+  const int L4 = L & 3;
+  const bool on_s = (L4 & 1) == 0;
+  const int side = L >> 2;  // 0: r's lanes, 1: q's
+  const int n_uni = c.n.K_s - c.n.n_imp_s;
+  const bool imp = i >= n_uni;
+  // draws: (r's source, slot, fallback, q, Metropolis) on lanes 0-4
+  const float u1 = draw_u(L < 3    ? source_draw(ks.swap_src, L, imp, i, i - n_uni)
+                          : L == 3 ? Draw{&ks.swap_q, (unsigned long long)i}
+                                   : Draw{&ks.u, (unsigned long long)(c.n.K_r + i)});
+  // q is drawn: its row is in flight while r is picked
+  const int q = cc_uniform_idx(tm.from(u1, 3), c.n.n_source);
+  const float u_acc = tm.from(u1, 4);
+  ReplicaRow xq;
+  load_replica(c, q, xq);
+  staged_wait(staged);
+  const int r = team_source(c, tm, imp, u1, cdf);
+  ReplicaRow xr;
+  load_replica(c, r, xr);
+  const int src = xr.broker, dst = xq.broker;
+  // the brokers' round (r's cells on lanes 0-3, q's on 4-7)
+  BrokerRows br;
+  TieCol ts, td;
+  load_broker(c, on_s ? src : dst, br);
+  load_tie(c, src, L4, ts);
+  load_tie(c, dst, L4, td);
+  const int part_x = side ? xq.part : xr.part;
+  const int id0 = member_id(c, part_x, L4);
+  const bool alive_s = in.broker_alive[src], alive_d = in.broker_alive[dst];
+  const bool dok_r = disk_ok(c, src, xr.disk), dok_q = disk_ok(c, dst, xq.disk);
+  const bool dest_s = in.dest_ok[src], dest_d = in.dest_ok[dst];
+  const bool movable_tr = in.topic_movable[xr.topic], movable_tq = in.topic_movable[xq.topic];
+  const bool dq_on_dst = disk_ok(c, dst, xq.disk), dr_on_src = disk_ok(c, src, xr.disk);
+  const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
+  const int topic_x = side ? xq.topic : xr.topic;
+  const int from_x = side ? dst : src, to_x = side ? src : dst;
+  const float avg = in.topic_avg[topic_x];
+  const int cnt_tf = topic_count(c, topic_x, from_x), cnt_tt = topic_count(c, topic_x, to_x);
+  // the last round: host rows, the members' brokers, the rack cells
+  HostRows hr;
+  load_host(c, br.host, hr);
+  const int v0 = member_broker(c, id0);
+  const int rack_f = side ? rack_d : rack_s, rack_t = side ? rack_s : rack_d;
+  const int cnt_rf = rack_count(c, part_x, rack_f), cnt_rt = rack_count(c, part_x, rack_t);
 
-  const bool off_r = !(in.broker_alive[src] && disk_ok(c, src, d_r));
-  const bool off_q = !(in.broker_alive[dst] && disk_ok(c, dst, d_q));
-  const bool movable_r = in.topic_movable[topic_r] || off_r;
-  const bool movable_q = in.topic_movable[topic_q] || off_q;
-  const bool feas = valid_r && valid_q && movable_r && movable_q && src != dst &&
-                    part_r != part_q && in.dest_ok[src] && in.dest_ok[dst] &&
-                    disk_ok(c, dst, d_q) && disk_ok(c, src, d_r) && !member_on(c, part_r, dst) &&
-                    !member_on(c, part_q, src);
+  const bool off_r = !(alive_s && dok_r);
+  const bool off_q = !(alive_d && dok_q);
+  const bool movable_r = movable_tr || off_r;
+  const bool movable_q = movable_tq || off_q;
+  // r's partition on dst (lanes 0-3), q's on src (lanes 4-7)
+  const bool member = member_on(c, tm, part_x, side ? src : dst, 4 * side, 4, v0);
+  const bool member_r = tm.from((int)member, 0) != 0, member_q = tm.from((int)member, 4) != 0;
+  const bool feas = xr.valid && xq.valid && movable_r && movable_q && src != dst &&
+                    xr.part != xq.part && dest_s && dest_d && dq_on_dst && dr_on_src &&
+                    !member_r && !member_q;
 
   float load_r[4], load_q[4], dls[4], dld[4];
-  replica_load(c, r, lead_r, valid_r, load_r);
-  replica_load(c, q, lead_q, valid_q, load_q);
+  replica_load(xr, load_r);
+  replica_load(xq, load_q);
   for (int k = 0; k < 4; ++k) {
     dls[k] = load_q[k] - load_r[k];
     dld[k] = load_r[k] - load_q[k];
   }
-  const float pot_r = ll_r[2], pot_q = ll_q[2];
-  const float lbin_r = lead_r ? ll_r[1] : 0.0f;
-  const float lbin_q = lead_q ? ll_q[1] : 0.0f;
+  const float pot_r = xr.ll[2], pot_q = xq.ll[2];
+  const float lbin_r = xr.lead ? xr.ll[1] : 0.0f;
+  const float lbin_q = xq.lead ? xq.ll[1] : 0.0f;
   const float dlbin = lbin_r - lbin_q;
   const float ddisk = load_r[3] - load_q[3];
-  float delta = move_delta_core<DISK, BF16>(c, src, dst, dls, dld, 0, (int)lead_r - (int)lead_q,
-                                            pot_r - pot_q, dlbin, dlbin, d_r, d_q, ddisk, ddisk);
+  float delta = move_delta_core<DISK, BF16>(c, tm, br, hr, ts, td, src, dst, dls, dld, 0,
+                                            (int)xr.lead - (int)xq.lead, pot_r - pot_q, dlbin,
+                                            dlbin, xr.disk, xq.disk, ddisk, ddisk);
 
-  const int rack_s = in.broker_rack[src], rack_d = in.broker_rack[dst];
-  delta = delta + (c.s.w_rack * (rack_delta(c, part_r, rack_s, rack_d) +
-                                 rack_delta(c, part_q, rack_d, rack_s))) / c.p.n_valid;
-  if (c.n.has_topic) {
-    delta = delta + (c.s.w_topic * (topic_cell_delta(c, topic_r, src, dst) +
-                                    topic_cell_delta(c, topic_q, dst, src))) / in.g[G_TOTAL_COUNT];
-  }
-  const bool r_ok = in.broker_alive[dst] && disk_ok(c, dst, d_q);
-  const bool q_ok = in.broker_alive[src] && disk_ok(c, src, d_r);
+  // r's cells on lanes 0-3, q's on 4-7
+  const float rk = rack_delta(rack_f, rack_t, cnt_rf, cnt_rt);
+  const float tc = topic_cell_delta(c, avg, cnt_tf, cnt_tt);
+  const bool r_ok = alive_d && dq_on_dst;
+  const bool q_ok = alive_s && dr_on_src;
   const float doff = ((f01(!r_ok) - f01(off_r)) + f01(!q_ok)) - f01(off_q);
-  delta = delta + (c.s.w_offline * doff) / c.p.n_valid;
-  if (c.n.has_pref) {
-    const bool pref_r = in.pos[r] == 0 && valid_r && !lead_r;
-    const bool pref_q = in.pos[q] == 0 && valid_q && !lead_q;
-    const float pd_r = f01(pref_r && r_ok) - f01(pref_r && !off_r);
-    const float pd_q = f01(pref_q && q_ok) - f01(pref_q && !off_q);
-    delta = delta + (c.s.w_pref * (pd_r + pd_q)) / c.s.num_parts;
-  }
+  const bool pref_r = xr.pos == 0 && xr.valid && !xr.lead;
+  const bool pref_q = xq.pos == 0 && xq.valid && !xq.lead;
+  const float pd_r = f01(pref_r && r_ok) - f01(pref_r && !off_r);
+  const float pd_q = f01(pref_q && q_ok) - f01(pref_q && !off_q);
+  const float num[4] = {c.s.w_rack * (tm.from(rk, 0) + tm.from(rk, 4)),
+                        c.s.w_topic * (tm.from(tc, 0) + tm.from(tc, 4)), c.s.w_offline * doff,
+                        c.s.w_pref * (pd_r + pd_q)};
+  const float den[4] = {c.p.n_valid, in.g[G_TOTAL_COUNT], c.p.n_valid, c.s.num_parts};
+  float quo[4];
+  lane_quotients(tm, num, den, quo);
+  delta = delta + quo[0];
+  if (c.n.has_topic) delta = delta + quo[1];
+  delta = delta + quo[2];
+  if (c.n.has_pref) delta = delta + quo[3];
   if (c.n.price_r) {
-    const int orig_r = in.orig_broker[r], orig_q = in.orig_broker[q];
+    const int orig_r = xr.orig, orig_q = xq.orig;
     const float stray = ((f01(dst != orig_r) - f01(src != orig_r)) + f01(src != orig_q)) -
                         f01(dst != orig_q);
     delta = delta + in.replica_cost[0] * stray;
   }
-  put_candidate(c, c.n.K_r + i, delta, feas, src, dst, part_r, part_q);
-  // r -> (dst, q's disk slot), q -> (src, r's disk slot)
-  put_rel_row(c, c.n.K_r + i, r, src, dst, d_r, d_q, load_r, lead_r, pot_r, lbin_r, topic_r,
-              part_r);
-  put_rel_row(c, c.n.K_r + c.n.K_s + i, q, dst, src, d_q, d_r, load_q, lead_q, pot_q, lbin_q,
-              topic_q, part_q);
+  put_candidate(c, L4, on && side == 0, c.n.K_r + i, delta, feas, accepted(c, u_acc, delta, feas),
+                src, dst, xr.part, xq.part, nullptr, 0, false);
+  // r -> (dst, q's disk slot) on lanes 0-3, q -> (src, r's disk slot) on 4-7
+  if (side == 0) {
+    put_rel_row(c, L4, on, c.n.K_r + i, r, src, dst, xr.disk, xq.disk, load_r, xr.lead, pot_r,
+                lbin_r, xr.topic, xr.part);
+  } else {
+    put_rel_row(c, L4, on, c.n.K_r + c.n.K_s + i, q, dst, src, xq.disk, xr.disk, load_q, xq.lead,
+                pot_q, lbin_q, xq.topic, xq.part);
+  }
 }
 
 template <bool DISK, bool BF16>
-__device__ void cand_leadership(const Ctx& c, int i) {
+__device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, bool on) {
   const CandInputs& in = c.in;
+  const StepKeys& ks = keys(c);
   const int R = c.n.R;
-  const int rt = cc_uniform_idx(unit(keys(c).lead, i), c.n.n_source);
+  const int L = tm.lane;
+  const bool on_s = (L & 1) == 0;
+  const int k = c.n.K_r + c.n.K_s + i;
+  // draws: (target, Metropolis)
+  const float u1 = draw_u(L == 0 ? Draw{&ks.lead, (unsigned long long)i}
+                                 : Draw{&ks.u, (unsigned long long)k});
+  const int rt = cc_uniform_idx(tm.from(u1, 0), c.n.n_source);
+  const float u_acc = tm.from(u1, 1);
   const int part = in.part_of[rt];
-  // the partition's first leader (argmax of the member leader flags)
-  const int* m = in.part_replicas + (size_t)part * c.n.max_rf;
+  const int dst = in.replica_broker[rt];
+  const int disk_t = in.replica_disk[rt];
+  const bool valid_t = in.valid[rt], lead_t = in.replica_is_leader[rt];
+  const int pos_t = in.pos[rt];
+  const bool orig_lead_t = in.orig_lead[rt];
+  float ll_t[4], lf_t[4];
+  row4(in.load_leader, rt, ll_t);
+  row4(in.load_follower, rt, lf_t);
+  // the target's round: the member ids, the destination's rows
+  const int id0 = member_id(c, part, L);
+  BrokerRows br;
+  TieCol ts, td;
+  if (!on_s) load_broker(c, dst, br);
+  load_tie(c, dst, L, td);
+  const bool alive_d = in.broker_alive[dst];
+  const bool dok_t = disk_ok(c, dst, disk_t);
+  const bool lead_ok = in.lead_ok[dst];
+  // the partition's first leader (argmax of the member leader flags), one
+  // member slot a lane
   int first = -1;
-  for (int k = 0; k < c.n.max_rf; ++k) {
-    const int id = m[k];
-    if (first < 0 && id < R && in.replica_is_leader[min(id, R - 1)]) first = k;
+  for (int k0 = 0; k0 < c.n.max_rf; k0 += kTeam) {
+    const int kk = k0 + L;
+    const int id = k0 == 0 ? id0 : member_id(c, part, kk);
+    const bool lead = kk < c.n.max_rf && id < R && in.replica_is_leader[min(id, R - 1)];
+    const unsigned bits = tm.ballot(lead, 0, kTeam);
+    if (first < 0 && bits != 0u) first = k0 + __ffs(bits) - 1;
   }
-  const int rf = min(m[first < 0 ? 0 : first], R - 1);
+  const int rf = min(member_id(c, part, first < 0 ? 0 : first), R - 1);
 
-  const int src = in.replica_broker[rf], dst = in.replica_broker[rt];
-  const int disk_f = in.replica_disk[rf], disk_t = in.replica_disk[rt];
-  const bool dst_ok = in.broker_alive[dst] && disk_ok(c, dst, disk_t);
-  const bool feas = in.valid[rt] && !in.replica_is_leader[rt] && first >= 0 && dst_ok &&
-                    in.lead_ok[dst];
+  const int src = in.replica_broker[rf];
+  const int disk_f = in.replica_disk[rf];
+  const int pos_f = in.pos[rf];
+  const bool orig_lead_f = in.orig_lead[rf];
+  float ll_f[4], lf_f[4];
+  row4(in.load_leader, rf, ll_f);
+  row4(in.load_follower, rf, lf_f);
+  // the source's round
+  if (on_s) load_broker(c, src, br);
+  load_tie(c, src, L, ts);
+  const bool alive_s = in.broker_alive[src];
+  const bool dok_f = disk_ok(c, src, disk_f);
+  HostRows hr;
+  load_host(c, br.host, hr);
+
+  const bool dst_ok = alive_d && dok_t;
+  const bool feas = valid_t && !lead_t && first >= 0 && dst_ok && lead_ok;
 
   // load shift: rf leader->follower on src, rt follower->leader on dst
-  float ll_f[4], ll_t[4], lf_f[4], lf_t[4], dl_f[4], dl_t[4];
-  row4(in.load_leader, rf, ll_f);
-  row4(in.load_leader, rt, ll_t);
-  row4(in.load_follower, rf, lf_f);
-  row4(in.load_follower, rt, lf_t);
-  for (int k = 0; k < 4; ++k) {
-    dl_f[k] = lf_f[k] - ll_f[k];
-    dl_t[k] = ll_t[k] - lf_t[k];
+  float dl_f[4], dl_t[4];
+  for (int j = 0; j < 4; ++j) {
+    dl_f[j] = lf_f[j] - ll_f[j];
+    dl_t[j] = ll_t[j] - lf_t[j];
   }
   const float dlbin = ll_t[1], dlbin_src = ll_f[1];
-  float delta = move_delta_core<DISK, BF16>(c, src, dst, dl_f, dl_t, 0, 1, 0.0f, dlbin, dlbin_src,
-                                            disk_f, disk_t, dl_f[3], dl_t[3]);
+  float delta = move_delta_core<DISK, BF16>(c, tm, br, hr, ts, td, src, dst, dl_f, dl_t, 0, 1,
+                                            0.0f, dlbin, dlbin_src, disk_f, disk_t, dl_f[3],
+                                            dl_t[3]);
 
   if (c.n.has_pref) {
-    const bool src_ok = in.broker_alive[src] && disk_ok(c, src, disk_f);
-    const bool pref_f = in.pos[rf] == 0 && src_ok;
-    const bool pref_t = in.pos[rt] == 0 && dst_ok;
+    const bool src_ok = alive_s && dok_f;
+    const bool pref_f = pos_f == 0 && src_ok;
+    const bool pref_t = pos_t == 0 && dst_ok;
     delta = delta + (c.s.w_pref * (f01(pref_f) - f01(pref_t))) / c.s.num_parts;
   }
   if (c.n.price_l) {
-    delta = delta + in.lead_cost[0] * (f01(!in.orig_lead[rt]) - f01(!in.orig_lead[rf]));
+    delta = delta + in.lead_cost[0] * (f01(!orig_lead_t) - f01(!orig_lead_f));
   }
-  put_candidate(c, c.n.K_r + c.n.K_s + i, delta, feas, src, dst, part, part);
+  put_candidate(c, L, on, k, delta, feas, accepted(c, u_acc, delta, feas), src, dst, part, part,
+                nullptr, 0, false);
   const CandOutputs& o = c.out;
-  o.rf[i] = rf;
-  o.rt[i] = rt;
-  o.src_b[i] = src;
-  o.dst_b[i] = dst;
-  put4(o.dl_f, i, dl_f);
-  put4(o.dl_t, i, dl_t);
-  o.dlbin_src[i] = dlbin_src;
-  o.dlbin_dst[i] = dlbin;
-  o.d_f[i] = disk_f;
-  o.d_t[i] = disk_t;
+  put_lanes<int>(L, on, i, o.rf, rf, o.rt, rt, o.src_b, src, o.dst_b, dst);
+  put_lanes<int>(L, on, i, o.d_f, disk_f, o.d_t, disk_t, (int*)nullptr, 0, (int*)nullptr, 0);
+  put_lanes<float>(L, on, i, o.dlbin_src, dlbin_src, o.dlbin_dst, dlbin, (float*)nullptr, 0.0f,
+                   (float*)nullptr, 0.0f);
+  if (on && L == 2) put4(o.dl_f, i, dl_f);
+  if (on && L == 3) put4(o.dl_t, i, dl_t);
 }
 
 // ---------------------------------------------------------------------------
-// the candidate launch: blocks [0, nb_r) relocations, then swaps, then
-// leadership transfers
+// the candidate launch: blocks [0, nb_r) relocations (or intra moves), then
+// swaps, then leadership transfers
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;
-
-// DISK: the chain weighs the intra-broker disk goals; INTRA: the K_r lanes
-// are intra-broker disk moves; PRIOR: relocation destinations mixed from
-// the learned prior; BF16: the broker terms summed in bf16.  Each is a
-// compile-time branch, so a chain without the disk goals, the prior or
-// bf16 runs the lanes it ran before them.
+// DISK: the chain weighs the intra-broker disk goals; INTRA: the K_r
+// candidates are intra-broker disk moves; PRIOR: relocation destinations
+// mixed from the learned prior; BF16: the broker terms summed in bf16.
+// Each is a compile-time branch, so a chain without the disk goals, the
+// prior or bf16 runs the lanes it ran before them.  No lane returns early:
+// a team past its kind's end repeats the kind's last candidate and stores
+// nothing, so every warp collective sees all 32 lanes.
 template <bool DISK, bool INTRA, bool PRIOR, bool BF16>
-__global__ void __launch_bounds__(kThreads) candidates_kernel(Ctx c) {
+__global__ void __launch_bounds__(kThreads, 4) candidates_kernel(Ctx c) {
   extern __shared__ float s_cdf[];
-  const int nb_r = (c.n.K_r + kThreads - 1) / kThreads;
-  const int nb_s = (c.n.K_s + kThreads - 1) / kThreads;
+  constexpr int per_r = kThreads / kTeam, per_s = kThreads / kSwapTeam;
+  const int nb_r = (c.n.K_r + per_r - 1) / per_r;
+  const int nb_s = (c.n.K_s + per_s - 1) / per_s;
   int b = blockIdx.x;
-  int kind, n, n_imp;
+  int kind, n, n_imp, per;
   if (b < nb_r) {
-    kind = 0, n = c.n.K_r, n_imp = c.n.n_imp_r;
+    kind = 0, n = c.n.K_r, n_imp = c.n.n_imp_r, per = per_r;
   } else if (b < nb_r + nb_s) {
-    kind = 1, n = c.n.K_s, n_imp = c.n.n_imp_s, b -= nb_r;
+    kind = 1, n = c.n.K_s, n_imp = c.n.n_imp_s, per = per_s, b -= nb_r;
   } else {
-    kind = 2, n = c.n.K_l, n_imp = 0, b -= nb_r + nb_s;
+    kind = 2, n = c.n.K_l, n_imp = 0, per = per_r, b -= nb_r + nb_s;
   }
-  const int i = b * kThreads + threadIdx.x;
-  // blocks holding importance-sampled sources stage the CDF (block-uniform)
-  const float* cdf = c.in.cdf;
-  const bool imp = kind < 2 && n_imp > 0 && (b + 1) * kThreads > n - n_imp;
-  if (imp && c.n.cdf_in_smem) {
-    for (int j = threadIdx.x; j < c.n.B; j += kThreads) s_cdf[j] = c.in.cdf[j];
-    __syncthreads();
-    cdf = s_cdf;
+  // blocks holding importance-sampled sources stage the CDF (block-uniform),
+  // the copies in flight while the draws hash
+  const bool staged = c.n.cdf_in_smem && kind < 2 && n_imp > 0 && (b + 1) * per > n - n_imp;
+  if (staged) {
+    for (int j = threadIdx.x; j < c.n.B; j += kThreads) {
+      __pipeline_memcpy_async(s_cdf + j, c.in.cdf + j, sizeof(float));
+    }
+    __pipeline_commit();
   }
-  if (i >= n) return;
+  const float* cdf = staged ? s_cdf : c.in.cdf;
+  const int i_raw = b * per + threadIdx.x / (kind == 1 ? kSwapTeam : kTeam);
+  const bool on = i_raw < n;
+  const int i = min(i_raw, n - 1);
   if (INTRA) {
-    cand_intra<DISK>(c, i, cdf);  // K_s = K_l = 0: every lane is an intra move
+    cand_intra<DISK>(c, Team<kTeam>(threadIdx.x), i, on, cdf, staged);  // K_s = K_l = 0
   } else if (kind == 0) {
-    cand_relocation<DISK, PRIOR, BF16>(c, i, cdf);
+    cand_relocation<DISK, PRIOR, BF16>(c, Team<kTeam>(threadIdx.x), i, on, cdf, staged);
   } else if (kind == 1) {
-    cand_swap<DISK, BF16>(c, i, cdf);
+    cand_swap<DISK, BF16>(c, Team<kSwapTeam>(threadIdx.x), i, on, cdf, staged);
   } else {
-    cand_leadership<DISK, BF16>(c, i);
+    cand_leadership<DISK, BF16>(c, Team<kTeam>(threadIdx.x), i, on);
   }
 }
 
@@ -792,8 +1125,9 @@ static cudaError_t launch_candidates(const Ctx& c, cudaStream_t st) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const unsigned int blocks = cc_blocks(c.n.K_r, kThreads) + cc_blocks(c.n.K_s, kThreads) +
-                              cc_blocks(c.n.K_l, kThreads);
+  const unsigned int blocks = cc_blocks(c.n.K_r, kThreads / kTeam) +
+                              cc_blocks(c.n.K_s, kThreads / kSwapTeam) +
+                              cc_blocks(c.n.K_l, kThreads / kTeam);
   candidates_kernel<DISK, INTRA, PRIOR, BF16><<<blocks, kThreads, smem, st>>>(c);
   return cudaGetLastError();
 }
@@ -820,20 +1154,9 @@ CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in
                   out.from_prior == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Ctx c{n, p, s, in, out};
-  if (!n.intra) {
-    // no intra lane reads the old broker, host or tie terms
-    const int pro = n.B + n.H + 1;
-    if (n.bf16) {
-      candidates_prologue_kernel<true><<<cc_blocks(pro, 256), 256, 0, st>>>(c);
-    } else {
-      candidates_prologue_kernel<false><<<cc_blocks(pro, 256), 256, 0, st>>>(c);
-    }
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  const Ctx c{n, p, s, in, out};
   if (n.intra) {
-    // no intra lane reads a broker term: the bf16 flag changes nothing there
+    // no intra candidate reads a broker term: the bf16 flag changes nothing there
     return (int)(p.has_disk ? launch_candidates<true, true, false, false>(c, st)
                             : launch_candidates<false, true, false, false>(c, st));
   }

@@ -147,12 +147,18 @@ __device__ float host_terms(const MDParams& p, bool multi, const float hload[4],
   return out;
 }
 
+// One resource's dispersion: the std of the alive brokers' utilization from
+// its sum s and sum of squares sq.
+__device__ __forceinline__ float tie_part(const MDParams& p, float s, float sq) {
+  const float mean = s / p.n_alive;
+  const float var = cc_relu(sq / p.n_alive - mean * mean);
+  return sqrtf(var + 1e-18f);
+}
+
 __device__ float tie_term(const MDParams& p, const float s[4], const float sq[4]) {
   float out = 0.0f;
   for (int r = 0; r < 4; ++r) {
-    const float mean = s[r] / p.n_alive;
-    const float var = cc_relu(sq[r] / p.n_alive - mean * mean);
-    const float t = sqrtf(var + 1e-18f);
+    const float t = tie_part(p, s[r], sq[r]);
     out = (r == 0) ? t : out + t;
   }
   return p.w_tie * out;

@@ -140,7 +140,7 @@ def _launch(args: dict, n: int, n_seg: int, out: Grouping, device) -> Grouping:
               order=out.order.data_ptr(), n=n, nbins=n_seg + 1, rows_per_warp=rows_per_warp, **args)
     stream = torch.cuda.current_stream(device).cuda_stream
     _build.check(_fns()[1](a, blocks, warps, stream), "group_by_broker")
-    kernels.LAUNCHES["group_by_broker"] += 1
+    kernels.count("group_by_broker")
     return out
 
 

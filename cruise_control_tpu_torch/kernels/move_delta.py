@@ -482,7 +482,7 @@ def move_delta_cuda(tp: TermParams, sx, carry, g, *, src, dst, dload_src, dload_
     stream = torch.cuda.current_stream(src.device).cuda_stream
     status = _fn()(K, tp.c_struct, *[p.data_ptr() for p in ptrs], stream)
     _build.check(status, "move_delta")
-    kernels.LAUNCHES["move_delta"] += 1
+    kernels.count("move_delta")
     return out
 
 

@@ -228,7 +228,7 @@ def refresh_cuda(st: ClusterState, replica_broker, replica_is_leader, replica_di
     status = _fns()[1](_Dims(R, B, T, P, nr, D, H, M), _In(**c_in), _Out(**c_out), int(brokers), blocks,
                        stream)
     _build.check(status, "refresh_aggregates")
-    kernels.LAUNCHES["refresh_aggregates"] += 1
+    kernels.count("refresh_aggregates")
     return out
 
 

@@ -88,5 +88,5 @@ def scatter_loads(ll, fl, rows, new_ll, new_fl, n) -> None:
     status = _fn()(ll.data_ptr(), fl.data_ptr(), rows.data_ptr(), new_ll.data_ptr(),
                    new_fl.data_ptr(), n.data_ptr(), R, cap, stream)
     _build.check(status, "scatter_loads")
-    kernels.LAUNCHES["scatter_loads"] += 1
+    kernels.count("scatter_loads")
     return None

@@ -113,7 +113,7 @@ def scenario_step_cuda(s: ScenarioLoop) -> None:
     fn = _lib_fn("cc_scenario_step", [_Ptrs, _Dims, ctypes.c_void_p])
     _build.check(fn(ptrs, dims, torch.cuda.current_stream(s.ctrl.device).cuda_stream),
                  "scenario_step")
-    kernels.LAUNCHES["scenario_step"] += 1
+    kernels.count("scenario_step")
 
 
 def scenario_step(s: ScenarioLoop) -> bool | None:

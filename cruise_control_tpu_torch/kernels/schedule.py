@@ -283,7 +283,7 @@ def schedule_cuda(phase: int, s: Schedule, d: ScheduleDims) -> None:
     fn = _lib_fn("cc_round_schedule", [ctypes.c_int, _Ptrs, _Dims, ctypes.c_void_p])
     status = fn(phase, ptrs, dims, torch.cuda.current_stream(s.si.device).cuda_stream)
     _build.check(status, "round_schedule")
-    kernels.LAUNCHES["round_schedule"] += 1
+    kernels.count("round_schedule")
 
 
 def round_schedule(phase: int, s: Schedule, d: ScheduleDims) -> None:

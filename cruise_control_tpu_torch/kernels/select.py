@@ -220,7 +220,7 @@ def select_cuda(accept, delta, src, dst, part1, part2, num_brokers: int, num_par
         stream = torch.cuda.current_stream(delta.device).cuda_stream
         n_sm = torch.cuda.get_device_properties(delta.device).multi_processor_count
         _build.check(_fn()(args, n_sm, stream), "select_survivors")
-        kernels.LAUNCHES["select_survivors"] += 1
+        kernels.count("select_survivors")
     return bufs.survive, bufs.sv_r, acc
 
 

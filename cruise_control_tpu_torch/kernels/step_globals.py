@@ -152,7 +152,7 @@ def globals_cuda(sx, carry, out: torch.Tensor) -> dict:
     stream = torch.cuda.current_stream(out.device).cuda_stream
     status = _fn()(c_in, B, T, D, sx.n_alive, buf, stream)
     _build.check(status, "step_globals")
-    kernels.LAUNCHES["step_globals"] += 1
+    kernels.count("step_globals")
     return unpack(out)
 
 

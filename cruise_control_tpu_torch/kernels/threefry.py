@@ -89,7 +89,7 @@ def _launch(key, n, minval, span, bound, out_f, out_i, device):
         stream,
     )
     _build.check(status, "threefry_uniform")
-    kernels.LAUNCHES["threefry_uniform"] += 1
+    kernels.count("threefry_uniform")
 
 
 def uniform(key, n: int, *, minval: float = 0.0, maxval: float = 1.0, device) -> torch.Tensor:

@@ -457,10 +457,11 @@ def test_candidates_matches_plain(cuda, with_plan, hot):
     _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot)
 
 
-def _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot: bool):
+def _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot: bool, some_accepted=True):
     """The candidates kernel against its plain version on one step: ids,
     masks and payload rows exact, deltas within the bar, acceptance equal
-    away from the threshold."""
+    away from the threshold (and, with `some_accepted`, some candidate
+    accepted)."""
     # T > 0: the first round's temperature, init_temperature_scale x objective
     temperature = float(np.float32(float(eng.evaluate(carry)[0]) * 1e-2)) if hot else 0.0
     ref = cand_k.candidates_plain(eng.cand, eng.statics, carry, keys, g, plan, temperature)
@@ -486,7 +487,7 @@ def _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot: bool):
     differ = got["accept"] != ref["accept"]
     print(f"accept differs in {int(differ.sum())} candidates, all within the bar of the threshold")
     assert not bool((differ & ~near).any())
-    assert bool(ref["accept"].any())
+    assert bool(ref["accept"].any()) or not some_accepted
     # the prior variant's took-the-prior mask (None without the prior)
     assert (got["from_prior"] is None) == (ref["from_prior"] is None)
     if ref["from_prior"] is not None:
@@ -594,6 +595,111 @@ def test_graph_route_matches_legacy_jbod(cuda, mode):
     else:
         for t, k in zip(start, kept):
             assert torch.equal(t, k)
+
+
+#: the variants of the candidates kernel (its template instantiations)
+CAND_VARIANTS = ("default", "prior", "bf16", "disk_terms", "intra")
+#: (num_candidates, swap_candidates, leadership_candidates) whose kinds fill
+#: their blocks' teams only partly: K_r, K_s, K_l of 81, 7, 13; of 61, 0, 9;
+#: and one candidate of each kind
+PARTIAL_SPLITS = {"odd": (101, 7, 13), "no_swaps": (70, 0, 9), "one_each": (3, 1, 1)}
+
+
+def _variant_step(cuda, variant: str, fixture: str, split=None, with_plan=True, rf=None):
+    """One step's inputs of a candidates variant on a fixture: random_cluster
+    (20 brokers, 400 partitions; 2 logdirs a broker for the disk terms and
+    the intra kind; every partition of `rf` replicas when given), or a
+    JBOD fixture; the candidate split `split` when given."""
+    disks = variant in ("disk_terms", "intra")
+    if fixture == "random":
+        rep = {} if rf is None else dict(min_replication=rf, max_replication=rf, num_brokers=12)
+        spec = {**dict(num_brokers=20, num_partitions=400, skew=1.0, disks_per_broker=2 if disks else 1),
+                **rep}
+        state = random_cluster(RandomClusterSpec(**spec), seed=2 + (rf or 0), device=cuda)
+    else:
+        state = getattr(fixtures, fixture)(cuda)
+    names = {"disk_terms": CONFIG3_CHAIN, "intra": DEFAULT_INTRA_BROKER_GOAL_ORDER}
+    chain = GoalChain.from_names(list(names[variant])) if variant in names else DEFAULT_CHAIN
+    prior = fixtures.prior_table(state.shape, 1, 0.5) if variant == "prior" else None
+    cfg = dataclasses.replace(CFG, prior_enabled=prior is not None, intra_broker=variant == "intra",
+                              score_dtype="bfloat16" if variant == "bf16" else "float32")
+    if split is not None:
+        n, s, l = split
+        cfg = dataclasses.replace(cfg, num_candidates=n, swap_candidates=s, leadership_candidates=l)
+    eng = Engine(state, chain, config=cfg, prior=prior)
+    carry = eng.init_carry(Key.from_seed(7))
+    plan = eng.plan(carry) if with_plan else None
+    keys = cand_k.StepKeys.of(carry.key, intra=variant == "intra", prior=prior is not None)
+    return eng, carry, eng._globals(carry), keys, plan
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("fixture", ["random", "jbod_cluster", "collision_cluster"])
+@pytest.mark.parametrize("variant", CAND_VARIANTS)
+def test_candidates_variants_match_plain(cuda, variant, fixture, hot):
+    """Each template instantiation of the candidates kernel against its
+    plain version on each of the file's three fixtures."""
+    eng, carry, g, keys, plan = _variant_step(cuda, variant, fixture)
+    assert eng.cand.prior == (variant == "prior") and eng.tp.bf16 == (variant == "bf16")
+    assert eng.tp.has_disk_terms == (variant in ("disk_terms", "intra"))
+    _candidates_against_plain(cuda, eng, carry, g, keys, plan, hot,
+                              some_accepted=fixture == "random")
+
+
+@pytest.mark.parametrize("with_plan", [False, True], ids=["n_imp_0", "plan"])
+@pytest.mark.parametrize("split", PARTIAL_SPLITS)
+@pytest.mark.parametrize("variant", ["default", "prior", "intra"])
+def test_candidates_partial_teams(cuda, variant, split, with_plan):
+    """Kinds whose counts leave a block's teams partly empty (a team past
+    its kind's end computes and stores nothing), no swap at all, and no
+    importance-sampled source (no plan): against the plain version, and
+    nothing written past each kind's rows."""
+    counts = PARTIAL_SPLITS[split]
+    if variant == "intra":
+        counts = (sum(counts) - 2, 0, 0)
+    eng, carry, g, keys, plan = _variant_step(cuda, variant, "random", split=counts,
+                                              with_plan=with_plan)
+    assert eng.K_r + eng.K_s + eng.K_l == counts[0]
+    if counts[1] == 0:
+        assert eng.K_s == 0
+    if not with_plan:
+        assert eng.cand.n_imp(eng.K_r, plan) == 0
+    bufs, tails = _padded_buffers(eng.cand, cuda)
+    got = _candidates_against_plain(cuda, eng, carry, g, keys, plan, False, some_accepted=False)
+    again = cand_k.candidates(eng.cand, eng.statics, carry, keys, g, plan, 0.0, bufs=bufs)
+    torch.cuda.synchronize()
+    for f in ("delta", "feas", "accept", "src", "dst", "part1", "part2"):
+        assert torch.equal(again[f], got[f]), f
+    for name in ("payr", "payl"):
+        for f, t in got[name].items():
+            assert torch.equal(again[name][f], t), (name, f)
+    assert all(bool((t.view(torch.uint8) == 0xA5).all()) for t in tails)
+
+
+def _padded_buffers(cp, device, pad: int = 64):
+    """candidate_buffers whose every tensor is the head of one allocation
+    `pad` rows longer, filled with 0xA5 bytes; and the tails, which show a
+    store past a buffer's end."""
+    bufs = cand_k.candidate_buffers(cp, device)
+    tails = []
+
+    def grow(t):
+        big = torch.empty((t.shape[0] + pad, *t.shape[1:]), dtype=t.dtype, device=device)
+        big.view(torch.uint8).fill_(0xA5)
+        tails.append(big[t.shape[0]:])
+        return big[: t.shape[0]]
+
+    return {k: {f: grow(t) for f, t in bufs[k].items()} for k in ("out", "payr", "payl")}, tails
+
+
+@pytest.mark.parametrize("rf", [1, 2, 3, 5, 9])
+def test_candidates_member_widths(cuda, rf):
+    """Member tables of width 1 to 9 (the scans and the first-leader search
+    take a slot a lane, in several passes past a team's width)."""
+    for variant in ("default", "prior"):
+        eng, carry, g, keys, plan = _variant_step(cuda, variant, "random", rf=rf)
+        assert int(eng.statics.part_replicas.shape[1]) == rf
+        _candidates_against_plain(cuda, eng, carry, g, keys, plan, True)
 
 
 def test_candidates_refuse_mixed_devices(cuda):

@@ -213,6 +213,77 @@ def test_second_batch_reuses_the_program(cluster):
     assert ev.last_batch["identity"] and obj[0] == obj[1] and np.array_equal(viol[0], viol[1])
 
 
+def test_states_built_twice_score_as_jax(cluster):
+    """The catalogued cluster built twice shares no tensor, so every field
+    varies, the replica rows and the member table with them: the JAX
+    package's objectives, each bit for bit the port's `_single_eval`."""
+    js, _, ts, _ = cluster
+    jother = _catalogued()[0]
+    jobj, jviol, _ = JEvaluator(chain=JChain.from_names(COMPACT)).evaluate_states([js, jother])
+    np.testing.assert_allclose(jobj, [0.05212026, 0.05212026], rtol=1e-7)
+    ev, _ = _port_evaluator()
+    states = [ts, _port(jother)]
+    obj, viol, degraded = ev.evaluate_states(states)
+    assert not degraded and not ev.last_batch["identity"]
+    assert {"replica_broker", "replica_partition", "replica_pos",
+            "replica_valid"} <= set(ev.last_batch["varying"])
+    np.testing.assert_allclose(obj, jobj, rtol=1e-5)
+    np.testing.assert_allclose(viol, jviol, rtol=1e-5, atol=1e-9)
+    for i, s in enumerate(states):
+        o, v = ev._single_eval(s)
+        assert float(o) == obj[i], i
+        assert np.array_equal(np.asarray(v, np.float64), viol[i]), i
+
+
+def _placements(js):
+    """Four placements of the catalogued cluster's one shape, as numpy
+    field edits: the base, two replicas moved, a leadership moved, and
+    partition 3's two replicas with their positions swapped (another
+    member table)."""
+    rb = np.asarray(js.replica_broker).copy()
+    lead = np.asarray(js.replica_is_leader).copy()
+    pos = np.asarray(js.replica_pos).copy()
+    part = np.asarray(js.replica_partition)
+    moved = rb.copy()
+    moved[1], moved[5] = 2, 2  # replicas on broker 1 -> broker 2
+    led = lead.copy()
+    p0 = np.nonzero(part == 0)[0]
+    led[p0] = ~led[p0]
+    swapped = pos.copy()
+    p3 = np.nonzero(part == 3)[0]
+    swapped[p3] = swapped[p3][::-1]
+    return [{}, {"replica_broker": moved}, {"replica_is_leader": led}, {"replica_pos": swapped}]
+
+
+def test_placements_of_one_shape_score_as_jax(cluster):
+    """A batch of different placements of one shape (the base and the base
+    after applied moves, one with a member table of its own): each score
+    bit for bit its `_single_eval`, the objectives the JAX package's on
+    the same states."""
+    import jax.numpy as jnp
+
+    js, _, ts, _ = cluster
+    edits = _placements(js)
+    jstates = [dataclasses.replace(js, **{k: jnp.asarray(v) for k, v in e.items()}) for e in edits]
+    jobj, jviol, _ = JEvaluator(chain=JChain.from_names(COMPACT)).evaluate_states(jstates)
+    states = [dataclasses.replace(ts, **{k: torch.from_numpy(v) for k, v in e.items()})
+              for e in edits]
+    assert not torch.equal(states[3].members, ts.members)
+    ev, _ = _port_evaluator()
+    obj, viol, _ = ev.evaluate_states(states)
+    assert set(ev.last_batch["varying"]) == {"replica_broker", "replica_is_leader", "replica_pos"}
+    np.testing.assert_allclose(obj, jobj, rtol=1e-5)
+    np.testing.assert_allclose(viol, jviol, rtol=1e-5, atol=1e-9)
+    assert len(set(obj.tolist())) > 1  # the placements score apart
+    for i, s in enumerate(states):
+        o, v = ev._single_eval(s)
+        assert float(o) == obj[i], i
+        assert np.array_equal(np.asarray(v, np.float64), viol[i]), i
+    # the same varying set again: the cached program, the tables refilled
+    again, _, _ = ev.evaluate_states(states[::-1])
+    assert not ev.last_batch["captured"] and list(again) == list(obj[::-1])
+
+
 def test_batch_guards(cluster):
     _, _, ts, tc = cluster
     ev, _ = _port_evaluator(max_scenarios=2)
@@ -220,9 +291,6 @@ def test_batch_guards(cluster):
         ev.evaluate(ts, [Scenario(name=str(i)) for i in range(3)], tc)
     with pytest.raises(ValueError, match="exceed max_scenarios"):
         ev.evaluate_states([ts] * 3)
-    other = _port(_catalogued()[0])  # the same cluster in tensors of its own
-    with pytest.raises(ValueError, match="never changes"):
-        ev.evaluate_states([ts, other])
     padded = pad_state(ts, plan_shape(ts, [Scenario(add_brokers=(Scenario.from_json(
         {"addBrokers": [{"count": 9}]}).add_brokers))]))
     with pytest.raises(ValueError, match="shapes"):
