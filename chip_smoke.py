@@ -35,10 +35,14 @@ Phases:
      conditional nodes inside, no masked round, one blocking sync):
      identical placements, rounds and proposals.  Launch counts are zeroed
      just before the first call and read just after; graph launches count
-     per replay, round_schedule three a loop iteration plus INIT and EXIT.
+     per replay, round_schedule three a loop iteration plus INIT and EXIT
+     (a capture's eager warm-up counts apart, into its thread's record).
   5. A third request on the same optimizer: decommission 1% of the
-     brokers; it must reuse the cached engine (capturing its graphs anew)
-     and evacuate every replica.
+     brokers; it must reuse the cached engine and its captured graphs (a
+     model generation is data: no capture), evacuate every replica and
+     give byte for byte the placements of a fresh optimizer's run on the
+     same state; its wall is printed beside phase 4's first and repeated
+     calls.
   6. The graph route against the legacy host loop at T=0 on the north
      star and on the decommission: identical placements, rounds and
      accepted counts.
@@ -105,7 +109,10 @@ Phases:
      scatter_loads against its plain version, bit for bit, on the window-2
      and window-3 inputs (with sentinel, past-the-end and negative rows)
      and an empty window, timed beside the plain version and an
-     `index_copy_` pair.
+     `index_copy_` pair.  Then a second reflatten on the fused path (the
+     live state with its loads, and a broker dead): no capture, the
+     placements of a fresh optimizer's run; the captures of each reflatten
+     printed, at most one per (bucket, max_rf).
  16. The scenario batch on the north star: 32 what-ifs as bench.py's
      scenarios bench builds them (kill a rack, add 1-3 brokers, remove a
      broker, scale a topic) in one planned shape, scored by
@@ -125,21 +132,34 @@ Phases:
      against its plain version (exact) and timed.
  17. The planner end to end: evaluate(optimize=True) on a lose-rack /
      add-3 / double-a-topic batch of the north star (one engine built and
-     rebound twice; the captures each anneal made; every fix meets the hard
-     goals), then Rightsizer.rightsize with max_anneals=16 on bench.py's
+     rebound twice; every fix meets the hard goals; the captures of each
+     anneal printed, at most one per (bucket, max_rf) key, so the later two
+     capture nothing, and each of those two fixes is, number for number,
+     the fix of a fresh optimizer on that scenario alone), then
+     Rightsizer.rightsize with max_anneals=16 on bench.py's
      scenarios cluster (500 brokers, 50,000 partitions, 20 racks, 100
      topics, skew 0.5, seed 7) and on the north star: the verdict, anneals,
-     wall and each anneal's captures; feasibility monotone in the broker
-     count; the north star not under-provisioned.
+     wall and each anneal's captures (at most one per (bucket, max_rf));
+     feasibility monotone in the broker count; the north star not
+     under-provisioned.
  18. The greedy oracle on the card against its CPU run on small_cluster,
      rack_violated_cluster and dead_broker_cluster: the same violated
-     goals, the objective within rtol 1e-5; ms per candidate evaluation.
+     goals, the objective within rtol 1e-5; ms per candidate evaluation;
+     the engine captures the phase made, per bucket (the oracle builds no
+     engine: none).
  19. One GoalOptimizer shared by two threads on the card: FAST on a
      20-broker cluster, three runs each on one shape and two shapes
      alternating through a one-engine cache, every run the single-thread
      run's placements, proposals and rounds, no engine released while a
      run holds it; then the north star once from each thread, both phase
      4's placements, rounds and proposals.
+ 20. Prewarm: GoalOptimizer.prewarm of the north star's bucket-padded
+     state (phase 10's) captures its engine's graphs on the warm pool
+     while a request runs the north star on the same optimizer (phase 4's
+     launch counts hold for it); the padded request then captures nothing
+     on its path and gives phase 10's unprewarmed placements byte for
+     byte.  Both walls, the boot report's captures and
+     compile_attribution() are printed.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -239,6 +259,9 @@ STREAM_WINDOWS = ((None, 1.03), (2_000, 1.2), (0, 1.0), (20_000, 0.9), (None, 1.
 #: placements of earlier phases ("4", "5", "13": replica_broker,
 #: replica_is_leader, replica_disk), for phase 16's batch that varies them
 PLACEMENTS: dict = {}
+#: phase 10's unprewarmed run of the bucket-padded north star (its
+#: placements and wall), which phase 20's prewarmed run must match
+PADDED_RUN: dict = {}
 
 
 def check(ok, message: str) -> None:
@@ -514,7 +537,7 @@ def check_kernels(state, cfg) -> dict:
     # threefry_uniform (standalone since the candidates kernel draws
     # inline): the Metropolis draw over all K candidates and a source-index
     # draw over the replica prefix, under the step's keys; bit-exact
-    n_src = eng.statics.n_source
+    n_src = eng.statics.gen.values()["n_source"]
     uk = threefry.uniform(keys.u.words, K, minval=cand_k.U_MIN, maxval=1.0, device=dev)
     ik = threefry.uniform_idx(keys.lead.words, K, n_src, device=dev)
     ip = threefry.uniform_idx_plain(keys.lead.words, K, n_src, dev)
@@ -1090,6 +1113,7 @@ def run_proposal(opt, state, label, initial_placement=None, prior=None):
     from cruise_control_tpu_torch import kernels
     from cruise_control_tpu_torch.analyzer.goals import HARD_GOAL_NAMES
     from cruise_control_tpu_torch.models import validate
+    from cruise_control_tpu_torch.models.state import member_width
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1110,10 +1134,10 @@ def run_proposal(opt, state, label, initial_placement=None, prior=None):
           f"the {label} did not run the fused route with one blocking sync: {timing}")
     check(timing["graph_launches"] == 1 and timing["masked_rounds"] == 0,
           f"the {label} did not run as one loop-graph launch without masked rounds: {timing}")
-    engine = next(iter(opt._engines.values()))
-    # round_schedule: INIT in the init graph, three a loop iteration, EXIT,
-    # and INIT once more in a capture's warm-up
-    want = 3 * timing["loop_iterations"] + 2 + int("init" in timing["captured"])
+    engine = opt._engines[(state.shape, member_width(state), opt.config)]
+    # round_schedule: INIT in the init graph, three a loop iteration and
+    # EXIT (a capture's warm-up counts into its own record)
+    want = 3 * timing["loop_iterations"] + 2
     check(launches["round_schedule"] == want,
           f"the {label} launched round_schedule {launches['round_schedule']} times, expected {want}")
     log(json.dumps({
@@ -1135,6 +1159,47 @@ def run_proposal(opt, state, label, initial_placement=None, prior=None):
     fused = {k: v for k, v in launches.items() if k not in PATH_KERNELS and v}
     check(not fused, f"standalone kernels launched on the {label} path: {fused}")
     return res, launches
+
+
+def check_generation(res, state, cfg, label: str, walls: dict, prior=None) -> None:
+    """A request on a cached engine's new model generation (`res`, of
+    `state`): it captured nothing, and its placements are byte for byte a
+    fresh optimizer's run on the same state.  Its wall is printed beside
+    the fresh run's and `walls`."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+
+    timing = next(h for h in res.history if h.get("timing"))
+    opt = GoalOptimizer(config=cfg, device="cuda")
+    fresh = opt.optimize(state, prior=prior)
+    same = {f: bool(torch.equal(getattr(res.state_after, f), getattr(fresh.state_after, f)))
+            for f in PLACEMENT}
+    log(json.dumps({"phase": f"{label}_generation", "captured": timing["captured"],
+                    "engine_cache_hit": timing["engine_cache_hit"], "bucket": timing["bucket"],
+                    "wall_s": dict(walls, **{label: res.wall_seconds,
+                                             f"{label}_fresh_engine": fresh.wall_seconds}),
+                    "identical_to_fresh_engine": same,
+                    "objective_after": [res.objective_after, fresh.objective_after]}))
+    check(timing["engine_cache_hit"] and timing["captured"] == [],
+          f"the {label} captured on its path: {timing['captured']}")
+    check(all(same.values()), f"the {label} is not a fresh engine's run: {same}")
+    for engine in opt._engines.values():
+        engine.release()
+
+
+def captures_per_key(label: str, records: list) -> dict:
+    """Phases 15 and 17: each anneal's or reflatten's captures (1 where its
+    run captured) summed per (bucket, max_rf) key, printed; at most one a
+    key."""
+    per: dict = {}
+    for r in records:
+        key = json.dumps(r["bucket"], sort_keys=True)
+        per[key] = per.get(key, 0) + r["captures"]
+    log(json.dumps({"phase": f"{label}_captures", "per_bucket": per,
+                    "runs": [r["captures"] for r in records]}))
+    check(all(n <= 1 for n in per.values()), f"{label}: a bucket captured more than once: {per}")
+    return per
 
 
 def compare_routes(state, cfg, label, chain=None) -> dict:
@@ -1472,6 +1537,11 @@ def check_bucketed(state, cfg, exact: dict) -> dict:
           f"bucketed: placements differ and objective {res.objective_after} vs the exact run's "
           f"{exact['objective_after']}")
     check(padding_kept, "bucketed: a padding replica row changed")
+    timing = next(h for h in res.history if h.get("timing"))
+    (cap,) = next(iter(opt._engines.values())).graph_stats["captures"]
+    PADDED_RUN.update(wall_s=res.wall_seconds, engine_build_s=timing["engine_build_s"],
+                      capture_s=cap["warmup_s"] + cap["capture_s"] + cap["instantiate_s"],
+                      **{f: getattr(after, f).clone() for f in PLACEMENT})
     for engine in opt._engines.values():
         engine.release()
     return rec
@@ -1562,7 +1632,7 @@ def prior_probe_bytes(eng, ck, keys) -> int:
     u = cand_k._uniform(keys.prior_p, eng.K_r, t.device)[fp]
     B = sx.prior_cdf.shape[1]
     cdf = sx.prior_cdf.flatten()
-    lo, hi = torch.zeros_like(t), torch.full_like(t, sx.n_dest)
+    lo, hi = torch.zeros_like(t), torch.full_like(t, sx.gen.values()["n_dest"])
     probed = []
     while bool((lo < hi).any()):
         act = lo < hi
@@ -2012,6 +2082,7 @@ def check_streaming(state, cfg, prior, catalog) -> dict:
         torch.cuda.synchronize()
         rec1[name] = record(res[name], time.monotonic() - t0, dict(m.counts), 0)
     before_host = fetch_before_host(paths["fused"][1].state)
+    reflattens = [next(h for h in res["fused"].history if h.get("timing"))]
     log(json.dumps({"phase": "stream_window", "window": 1, "kind": "reflatten", **rec1}))
     check(all(r["hard_goals_met"] for r in rec1.values()), f"stream window 1: a hard goal is violated: {rec1}")
     fused_launches = {k: 0 for k in kernels.LAUNCHES}
@@ -2082,10 +2153,27 @@ def check_streaming(state, cfg, prior, catalog) -> dict:
         check(launches["scatter_loads"] == 1,
               f"stream window {w}: the cycle launched scatter_loads {launches['scatter_loads']} times")
         windows_out.append(rec)
+    # a second reflatten on the fused path: the live state (the loads the
+    # windows left) with broker 3 dead, a new model generation of the bucket
+    opt, lv = paths["fused"]
+    st = lv.state
+    alive = st.broker_alive.clone()
+    alive[3] = False
+    gen = dataclasses.replace(st, broker_alive=alive, disk_alive=alive[:, None] & st.disk_alive,
+                              replica_offline=st.replica_offline | (st.replica_valid
+                                                                     & ~alive[st.replica_broker]))
+    torch.cuda.synchronize()
+    again = opt.optimize(gen, prior=table)
+    torch.cuda.synchronize()
+    reflattens.append(next(h for h in again.history if h.get("timing")))
+    check_generation(again, gen, cfg_p, "stream_reflatten", dict(reflatten_1=rec1["fused"]["wall_s"]),
+                     prior=table)
+    captures_per_key("stream_reflatten", [dict(bucket=t["bucket"], captures=int(bool(t["captured"])))
+                                          for t in reflattens])
     for opt, _ in paths.values():
         for engine in opt._engines.values():
             engine.release()
-    del paths, res
+    del paths, res, again
     torch.cuda.empty_cache()
     krec = check_scatter_kernel(state, kernel_windows)
     krec["launches"] = fused_launches["scatter_loads"]
@@ -2426,7 +2514,8 @@ def check_planner(state, cfg) -> dict:
     rec = dict(phase="planner_simulate", wall_s=wall, engine_cache_hits=opt.engine_cache_hits,
                engine_cache_misses=opt.engine_cache_misses,
                captures=[dict(name=f["name"], engine_cache_hit=f["engine_cache_hit"],
-                              captured=f["captured"], wall_s=f["wall_s"]) for f in fixes],
+                              captured=f["captured"], captures=f["captures"], bucket=f["bucket"],
+                              wall_s=f["wall_s"]) for f in fixes],
                outcomes=[dict(o.to_json(), fix={k: o.fix[k] for k in (
                    "numReplicaMovements", "numLeaderMovements", "objectiveBefore", "objectiveAfter",
                    "violatedGoalsBefore", "violatedGoalsAfter", "hardGoalsSatisfiedAfter", "wallSeconds")})
@@ -2443,8 +2532,23 @@ def check_planner(state, cfg) -> dict:
     check(all(o.fix["hardGoalsSatisfiedAfter"] for o in out),
           f"a fix leaves a hard goal violated: {[o.fix['violatedGoalsAfter'] for o in out]}")
     check(all(np.isfinite(o.objective) for o in out), "non-finite scenario objective")
+    captures_per_key("planner_simulate", fixes)
     for engine in opt._engines.values():
         engine.release()
+    # the two later anneals (rebound, no capture) against a fresh engine's:
+    # the same batch with that scenario first, on a new optimizer
+    keys = ("numReplicaMovements", "numLeaderMovements", "dataToMoveMB", "objectiveBefore",
+            "objectiveAfter", "balancednessAfter", "violatedGoalsAfter")
+    for i in (1, 2):
+        fresh_opt = GoalOptimizer(config=cfg, device="cuda")
+        order = [scs[i]] + [sc for j, sc in enumerate(scs) if j != i]
+        first = ScenarioEvaluator(optimizer=fresh_opt).evaluate(state, order, optimize=True)[0]
+        got, want = {k: out[i].fix[k] for k in keys}, {k: first.fix[k] for k in keys}
+        log(json.dumps({"phase": "planner_fresh_engine", "scenario": scs[i].name, "rebound": got,
+                        "fresh": want}))
+        check(got == want, f"the rebound anneal of {scs[i].name} is not a fresh engine's")
+        for engine in fresh_opt._engines.values():
+            engine.release()
     del opt, ev, out
     torch.cuda.empty_cache()
 
@@ -2483,6 +2587,7 @@ def run_rightsize(label: str, st, cfg) -> dict:
                engine_cache_hits=opt.engine_cache_hits, engine_cache_misses=opt.engine_cache_misses,
                anneals=fixes, anneals_that_captured=sum(1 for f in fixes if f["captured"]))
     log(json.dumps(rec))
+    captures_per_key(f"rightsize_{label}", fixes)
     check(rs["provisionStatus"] in ("RIGHT_SIZED", "OVER_PROVISIONED", "UNDER_PROVISIONED", "UNDECIDED"),
           f"rightsize verdict {rs['provisionStatus']}")
     check(1 <= rs["annealsRun"] <= 16 and len(fixes) == rs["annealsRun"],
@@ -2509,8 +2614,10 @@ def check_greedy() -> dict:
 
     from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN
     from cruise_control_tpu_torch.analyzer.greedy import greedy_optimize
+    from cruise_control_tpu_torch.common import compilation_cache
     from cruise_control_tpu_torch.testing import fixtures
 
+    captures0 = compilation_cache.engine_capture_counts()
     out = {}
     for name in ("small_cluster", "rack_violated_cluster", "dead_broker_cluster"):
         res = {}
@@ -2536,7 +2643,74 @@ def check_greedy() -> dict:
         check(abs(a["objective"] - b["objective"]) <= 1e-5 * abs(a["objective"]) + 1e-12,
               f"greedy on {name}: objective {b['objective']} against the CPU's {a['objective']}")
         out[name] = rec
+    made = {k: {s: n - captures0.get(k, {}).get(s, 0) for s, n in v.items()}
+            for k, v in compilation_cache.engine_capture_counts().items()}
+    made = {k: v for k, v in made.items() if any(v.values())}
+    log(json.dumps({"phase": "greedy_captures", "engine_captures": made}))
+    check(all(sum(v.values()) <= 1 for v in made.values()), f"greedy: a bucket captured twice: {made}")
     return out
+
+
+def check_prewarm(state, cfg, exact: dict) -> dict:
+    """Phase 20: GoalOptimizer.prewarm of the bucket-padded north star
+    (phase 10's state) on the warm pool while the north star runs on the
+    same optimizer (phase 4's placements and launch counts); then the
+    padded request captures nothing on its path and gives phase 10's
+    unprewarmed placements byte for byte."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.common import compilation_cache
+    from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
+    from cruise_control_tpu_torch.models import DEFAULT_BUCKET_POLICY, pad_state
+    from cruise_control_tpu_torch.models.state import member_width
+
+    padded = pad_state(state, DEFAULT_BUCKET_POLICY.bucket_shape(state.shape))
+    opt = GoalOptimizer(config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    opt.prewarm(padded)
+    prewarm_build_s = opt.compile_attribution()[bucket_key(padded.shape)]["buildSeconds"]
+    check(opt.has_engine_for(padded.shape) and (opt.engine_cache_hits, opt.engine_cache_misses) == (0, 0),
+          "prewarm did not cache its engine, or counted a hit or miss")
+    res, _ = run_proposal(opt, state, "north_star_beside_prewarm")
+    beside = all(bool(torch.equal(getattr(res.state_after, f), exact[f])) for f in PLACEMENT)
+    warm = opt._engines[(padded.shape, member_width(padded), cfg)]
+    warm._warm.result(timeout=600)
+    prewarm_s = time.monotonic() - t0
+    cap = warm.graph_stats["captures"]
+    check(beside, "the north star run beside the prewarm is not phase 4's run")
+    check([c["source"] for c in cap] == ["prewarm"], f"the prewarm's captures: {cap}")
+    res_p, launches = run_proposal(opt, padded, "prewarmed_bucket")
+    timing = next(h for h in res_p.history if h.get("timing"))
+    same = {f: bool(torch.equal(getattr(res_p.state_after, f), PADDED_RUN[f])) for f in PLACEMENT}
+    prewarm_capture_s = cap[0]["warmup_s"] + cap[0]["capture_s"] + cap[0]["instantiate_s"]
+    # the unprewarmed request built its engine and captured on its path;
+    # the prewarmed one only rebinds: its saving set beside the build and
+    # capture the prewarm took off the path
+    rec = dict(phase="prewarm", prewarm_s=prewarm_s, captured=timing["captured"],
+               engine_cache_hit=timing["engine_cache_hit"],
+               wall_s=dict(prewarmed=res_p.wall_seconds, unprewarmed_phase_10=PADDED_RUN["wall_s"],
+                           north_star_beside=res.wall_seconds),
+               saving_s=PADDED_RUN["wall_s"] - res_p.wall_seconds,
+               engine_build_s=dict(prewarmed=timing["engine_build_s"],
+                                   unprewarmed_phase_10=PADDED_RUN["engine_build_s"],
+                                   prewarm=prewarm_build_s),
+               capture_s=dict(prewarmed=0.0, unprewarmed_phase_10=PADDED_RUN["capture_s"],
+                              prewarm=prewarm_capture_s),
+               prewarm_capture=dict(warmup_s=cap[0]["warmup_s"], capture_s=cap[0]["capture_s"],
+                                    instantiate_s=cap[0]["instantiate_s"],
+                                    warmup_launches=cap[0]["warmup_launches"]),
+               identical_to_unprewarmed=same, compile_attribution=opt.compile_attribution(),
+               engine_captures=compilation_cache.engine_capture_counts(),
+               cache=[opt.engine_cache_hits, opt.engine_cache_misses])
+    log(json.dumps(rec))
+    check(timing["engine_cache_hit"] and timing["captured"] == [],
+          f"the prewarmed bucket's request captured on its path: {timing['captured']}")
+    check(all(same.values()), f"the prewarmed bucket's run differs from the unprewarmed one: {same}")
+    for engine in opt._engines.values():
+        engine.release()
+    return rec
 
 
 def main() -> int:
@@ -2616,6 +2790,7 @@ def main() -> int:
     prior_tables = [f[0] for f in fitted] + [prior_table(s, 7, 0.25)]
     log(json.dumps({"phase": "prior_fit", "pairs": fitted[0][1],
                     "topics_with_mass": int((prior_tables[0].weights.sum(1) > 0).sum())}))
+    walls4 = [res4.wall_seconds, again.wall_seconds]
     del res4, again
 
     # phase 5: decommission 1% of the brokers on the same optimizer
@@ -2630,6 +2805,8 @@ def main() -> int:
     )
     res5, _ = run_proposal(opt, decom, "decommission")
     check(opt.engine_cache_hits == 2 and opt.engine_cache_misses == 1, "later requests did not rebind")
+    check_generation(res5, decom, cfg, "decommission",
+                     dict(north_star_first=walls4[0], north_star_repeat=walls4[1]))
     after = res5.state_after
     on_dead = after.replica_valid & ~after.broker_alive[after.replica_broker]
     remaining = int(on_dead.sum())
@@ -2680,6 +2857,8 @@ def main() -> int:
     check_greedy()
     # phase 19: two threads optimizing through one GoalOptimizer
     check_threads(state, cfg, exact)
+    # phase 20: a bucket prewarmed on the warm pool beside a request
+    check_prewarm(state, cfg, exact)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

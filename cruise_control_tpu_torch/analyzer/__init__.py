@@ -8,6 +8,7 @@ from cruise_control_tpu_torch.analyzer.objective import (
 )
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer, OptimizerResult
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
+from cruise_control_tpu_torch.analyzer.prewarm import PrewarmStore
 from cruise_control_tpu_torch.analyzer.proposals import ExecutionProposal, extract_proposals
 from cruise_control_tpu_torch.analyzer.scenario_eval import ScenarioEvaluator, ScenarioOutcome
 
@@ -21,6 +22,7 @@ __all__ = [
     "OptimizationOptions",
     "OptimizerConfig",
     "OptimizerResult",
+    "PrewarmStore",
     "ScenarioEvaluator",
     "ScenarioOutcome",
     "balancedness_score",

@@ -27,10 +27,11 @@ around the round body, i.e. its steps and the round prep, and the schedule
 kernel's close, which ends the loop once the run is done), then the
 schedule kernel's exit, which writes the rounds the loop never reached as
 the reference's masked rounds would.  The init, steps, round prep and goal
-chain are captured once per model generation from the same code that runs
-eagerly.  On the CPU the same route runs op by op: the schedule state lives
-in tensors, the conditionals and the loop read its flags, and the ys are
-read once at the end.
+chain are captured once per engine, from the same code that runs eagerly,
+and serve every model generation it is bound to (below).  On the CPU the
+same route runs op by op: the schedule state lives in tensors, the
+conditionals and the loop read its flags, and the ys are read once at the
+end.
 
 The legacy round loop (`fused_rounds=False`, the JAX package's
 `_run_legacy`) drives the rounds from the host with one or more blocking
@@ -84,11 +85,22 @@ before-report are one captured graph (`pre`), the after-report and the
 checks another (`post`), launched around the loop graph; the scatter reads
 the window's width on the device from fixed staging tensors, so every
 window replays the same graphs.  `run_reported` is the same run without a
-window (the optimizer's reports ride it), so the first optimize of a model
-generation captures what every later cycle replays.  The loads are data:
-the engine copies each generation's load columns into tensors of its own,
-which every graph reads, so a generation that differs only in its loads
-keeps the captured graphs (`rebind`).
+window (the optimizer's reports ride it), so the first optimize of an
+engine captures what every later cycle replays.
+
+A model generation is data to the captured graphs, as one XLA compile
+serves every generation of a shape in the JAX package: the engine keeps
+the bound state's fields, the statics and a small generation block (the
+counts and capacity totals the kernels and the objective read,
+kernels/move_delta.py `Generation`) in tensors of its own, and `rebind`
+copies each generation into them in stream order; no launch argument and
+no Python value inside the captured region comes from the generation.
+So an engine captures once per shape bucket: its ClusterShape and its
+member table's width (max_rf), the optimizer's cache key with the
+config; a rebind that changes max_rf alone reallocates the buffers and
+captures anew.
+`precompile_async` captures ahead of use on the shared warm pool
+(`_WarmPool`); a run waits for a capture in flight and raises its error.
 
 Segmented execution, ahead-of-time compilation and the mesh engines have
 no entry point here.
@@ -96,7 +108,12 @@ no entry point here.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import heapq
+import itertools
+import logging
+import threading
 import time
 
 import numpy as np
@@ -106,6 +123,8 @@ from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.analyzer.draws import Key
 from cruise_control_tpu_torch.analyzer.objective import SCORE_DTYPES, TIE_WEIGHT, GoalChain
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
+from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
+from cruise_control_tpu_torch.common import compilation_cache
 from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
@@ -132,6 +151,8 @@ from cruise_control_tpu_torch.models.state import (
 )
 from cruise_control_tpu_torch.models.stats import ClusterStats, compute_stats
 from cruise_control_tpu_torch.models.whatif import _round_up_pow2
+
+log = logging.getLogger(__name__)
 
 #: the state's load columns: data to the engine, which keeps them in
 #: tensors of its own (`build_statics(loads=)`)
@@ -253,7 +274,11 @@ class EngineCarry:
 
 @dataclasses.dataclass(frozen=True)
 class EngineStatics:
-    """Per-model-generation inputs of the engine."""
+    """Per-model-generation inputs of the engine.  An engine keeps one set
+    of these tensors for its shape bucket and each rebind refills them in
+    place (`build_statics(out=)`), so the graphs captured on them serve
+    every generation.  The generation's counts and totals live only in
+    its block (`gen`; `gen.values()` reads them on the host)."""
 
     state: ClusterState
     #: i32[P, max_rf] valid replica ids of each partition, padded with R
@@ -267,16 +292,9 @@ class EngineStatics:
     host_multi: torch.Tensor  # bool[H]
     host_cap: torch.Tensor  # f32[H, 4]
     total_cap: torch.Tensor  # f32[4]
-    n_alive: float  # f32 value
-    n_valid: float  # f32 value
-    total_disk_cap: float  # f32 value
-    #: replica slots uniform source draws cover (the valid prefix when
-    #: replicas are front-packed, else R)
-    n_source: int
-    #: real entries at the head of dest_ids
-    n_dest: int
-    #: valid broker count (clips the importance sampler's CDF search)
-    n_brokers: int
+    #: the generation's values on the device (kernels/move_delta.py
+    #: `Generation`), which the kernels and the engine's PyTorch ops read
+    gen: md.Generation
     #: broker ids grouped by host (stable), brokers with no host in range
     #: last, and the i32[H + 2] group offsets: apply_moves' walk over the
     #: brokers of a host that holds several
@@ -287,9 +305,6 @@ class EngineStatics:
     #: event: its load row, pot, leader bytes-in and disk)
     apply_slots: torch.Tensor
     apply_events: torch.Tensor
-    #: whether a host in range holds more than one broker (apply_moves then
-    #: walks such hosts' brokers for the host's order of float additions)
-    shared_hosts: bool
     #: valid brokers grouped by host (the rest by the sentinel H): the
     #: refresh's host pass
     host_groups: HostGroups
@@ -365,15 +380,27 @@ def _prior_fields(prior, T: int, B: int, dest_idx: np.ndarray) -> tuple[np.ndarr
 
 def build_statics(state: ClusterState, options: OptimizationOptions, *, prior=None,
                   prior_full_shape: bool = False, layout_out: dict | None = None,
-                  loads: tuple[torch.Tensor, torch.Tensor] | None = None) -> EngineStatics:
+                  loads: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  cap_weights=None, out: EngineStatics | None = None) -> EngineStatics:
     """Host-side (numpy) preprocessing of one model generation.
 
     `loads`, an engine's own (leader, follower) pair of f32[R, 4] tensors,
     receives the state's load columns (copied last, after every check),
-    and the statics' state reads them instead of the caller's tensors, so
-    a later generation's loads can be copied into the same tensors while
-    the caller's stay as they are.  Without it the statics hold the
-    caller's state as it is.
+    and the statics' state is the engine's own: its other fields are
+    copies of the caller's tensors, so a later generation can be copied
+    into the same tensors while the caller's stay as they are.  Without
+    it the statics hold the caller's state as it is.
+
+    `out`, an engine's current statics, receives the generation in place:
+    every tensor of it (its state's with `loads`, the generation block,
+    the host grouping) is refilled in stream order, and the returned
+    statics hold those same tensors with this generation's state, so
+    graphs captured on `out` run the new generation.  Where the member
+    table's width (the generation's max_rf, which its shape does not fix)
+    differs from out's, nothing is refilled and new tensors are allocated:
+    the caller's graphs cannot serve it.  `cap_weights`, the chain's
+    capacity-goal weights by resource, enter the generation block (zeros
+    when None).
 
     `prior` (`.weights` f32[T, B] on this generation's topic ids, `.mix`)
     is the learned move-acceptance prior, moved onto destination positions
@@ -422,40 +449,80 @@ def build_statics(state: ClusterState, options: OptimizationOptions, *, prior=No
     else:
         prior_cdf, prior_mix = np.zeros((1, 1), np.float32), 0.0
 
-    def t(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
-
-    part_replicas = t(replica_members(h["replica_valid"], h["replica_partition"], h["replica_pos"], s))
-    if loads is not None:
-        for buf, f in zip(loads, LOAD_FIELDS):
-            buf.copy_(getattr(state, f))
-        state = dataclasses.replace(state, **dict(zip(LOAD_FIELDS, loads)))
-    return EngineStatics(
-        state=state,
-        part_replicas=part_replicas,
-        alive=t(alive),
-        dest_ids=t(dest_pad, torch.int32),
-        dest_ok=t(dest),
-        lead_ok=t(alive & options.leadership_allowed(state)),
-        topic_movable=t(options.topic_movable(state)),
-        host_multi=t(bph > 1),
-        host_cap=t(host_cap),
-        total_cap=t(((cap * alive[:, None]).sum(0) + np.float32(1e-12)).astype(np.float32)),
+    members = replica_members(h["replica_valid"], h["replica_partition"], h["replica_pos"], s)
+    total_cap = ((cap * alive[:, None]).sum(0) + np.float32(1e-12)).astype(np.float32)
+    words = md.Generation.host_words(
+        cap_weights, total_cap,
         n_alive=float(np.float32(max(1.0, float(alive.sum())))),
         n_valid=float(np.float32(max(1.0, float(n_valid_int)))),
         total_disk_cap=float(np.float32((h["disk_capacity"] * dmask).sum() + 1e-12)),
         n_source=max(1, n_source),
         n_dest=int(dest_idx.size),
         n_brokers=max(1, int(valid_b.sum())),
-        host_brokers=t(np.argsort(host_group, kind="stable"), torch.int32),
-        host_start=t(host_start),
+        shared_hosts=bool((np.diff(host_start)[:s.num_hosts] > 1).any()),
+    )
+    arrays = dict(
+        part_replicas=members,
+        alive=alive,
+        dest_ids=dest_pad.astype(np.int32),
+        dest_ok=dest,
+        lead_ok=alive & options.leadership_allowed(state),
+        topic_movable=options.topic_movable(state),
+        host_multi=bph > 1,
+        host_cap=host_cap,
+        total_cap=total_cap,
+        host_brokers=np.argsort(host_group, kind="stable").astype(np.int32),
+        host_start=host_start,
+        prior_cdf=prior_cdf,
+        prior_mix=np.asarray([prior_mix], np.float32),
+    )
+    if out is not None and tuple(out.part_replicas.shape) == members.shape:
+        for name, a in arrays.items():
+            getattr(out, name).copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        if loads is not None:
+            state = _own_state(state, loads, out.state)
+            vars(state)["members"] = out.part_replicas  # the cached_property's slot
+        out.gen.write(words)
+        HostGroups.of(state.broker_valid, state.broker_host, s.num_hosts, out=out.host_groups)
+        return dataclasses.replace(out, state=state)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    tensors = {name: t(a) for name, a in arrays.items()}
+    if loads is not None:
+        state = _own_state(state, loads)
+        vars(state)["members"] = tensors["part_replicas"]  # the cached_property's slot
+    gen = md.Generation.empty(dev)
+    gen.write(words)
+    return EngineStatics(
+        state=state,
+        **tensors,
+        gen=gen,
         apply_slots=torch.full((2, s.B), -1, dtype=torch.int32, device=dev),
         apply_events=torch.zeros((2, s.B, 8), dtype=torch.float32, device=dev),
-        shared_hosts=bool((np.diff(host_start)[:s.num_hosts] > 1).any()),
-        host_groups=HostGroups.of(t(valid_b), t(host, torch.int32), s.num_hosts),
-        prior_cdf=t(prior_cdf),
-        prior_mix=t(np.asarray([prior_mix], np.float32)),
+        host_groups=HostGroups.of(state.broker_valid, state.broker_host, s.num_hosts),
     )
+
+
+def _own_state(state: ClusterState, loads, into: ClusterState | None = None) -> ClusterState:
+    """`state`'s fields in tensors of the engine's own, in stream order:
+    its load columns in `loads`, every other field in `into`'s tensors
+    (copies of the caller's when None).  A new ClusterState on those
+    tensors, whose member table is left to the statics' (`part_replicas`)."""
+    own = {}
+    for f in STATE_FIELDS:
+        src = getattr(state, f)
+        if f in LOAD_FIELDS:
+            dst = loads[LOAD_FIELDS.index(f)]
+            dst.copy_(src)
+        elif into is None:
+            dst = src.clone()
+        else:
+            dst = getattr(into, f)
+            dst.copy_(src)
+        own[f] = dst
+    return dataclasses.replace(state, **own)
 
 
 _RES_DIST_NAMES = {
@@ -522,38 +589,6 @@ def _relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0)
 
 
-def _same_value(a, b) -> bool:
-    """Equal tensors (by value), dataclasses of them field by field, or
-    equal plain values."""
-    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
-        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
-                and a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b)))
-    if dataclasses.is_dataclass(a) and not isinstance(a, type):
-        return type(a) is type(b) and all(
-            _same_value(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)
-        )
-    return a == b
-
-
-#: statics fields a model generation may change without new graphs: the
-#: apply_moves scratch, and the prior, which is copied into the kept
-#: statics' tensors (the state's load columns are data too: both
-#: generations' states read the engine's own load tensors)
-_DATA_FIELDS = ("apply_slots", "apply_events", "prior_cdf", "prior_mix")
-
-
-def _same_statics(a: EngineStatics, b: EngineStatics) -> bool:
-    """Whether two model generations give the engine the same statics (the
-    apply_moves scratch, the prior and the loads aside)."""
-    if a.state.shape != b.state.shape or not all(
-            _same_value(getattr(a.state, f), getattr(b.state, f))
-            for f in STATE_FIELDS if f not in LOAD_FIELDS):
-        return False
-    return all(_same_value(getattr(a, f.name), getattr(b, f.name))
-               for f in dataclasses.fields(EngineStatics)
-               if f.name not in _DATA_FIELDS and f.name != "state")
-
-
 def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 prefix sum accumulated in f32, element after element.
     PyTorch's CPU cumsum accumulates in f64, which rounds differently from
@@ -584,8 +619,9 @@ def _report_width(n_goals: int) -> int:
 
 @dataclasses.dataclass
 class _Workspace:
-    """The fixed buffers of a run, allocated once per model generation:
-    every kernel and every captured graph reads and writes these."""
+    """The fixed buffers of a run, allocated once per engine and kept
+    across the model generations it is bound to: every kernel and every
+    captured graph reads and writes these."""
 
     carry: EngineCarry
     plan: SamplingPlan  # its order/start/count are `group`'s tensors
@@ -631,6 +667,53 @@ class _Workspace:
         self.graphs.clear()
 
 
+class _WarmPool:
+    """The process's warm pool: engines' graph captures run ahead of use on
+    one daemon worker thread, in (priority, submission) order, lower
+    priority values first (the JAX package's `_WarmPool`).  One worker is
+    all it can use: every capture of the package runs under
+    `kernels.capture`'s process lock, one at a time.  A daemon thread: a
+    capture stuck on the device never blocks the interpreter's exit.  A
+    thunk's error is set on its Future, which the engine's next rebind or
+    run raises."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._heap: list = []
+        self._seq = itertools.count()
+        self._worker: threading.Thread | None = None
+
+    def submit(self, thunk, *, priority: int = 0) -> concurrent.futures.Future:
+        fut = concurrent.futures.Future()
+        with self._cond:
+            heapq.heappush(self._heap, (priority, next(self._seq), fut, thunk))
+            if self._worker is None:
+                self._worker = threading.Thread(target=self._work, daemon=True, name="engine-warm")
+                self._worker.start()
+            self._cond.notify()
+        return fut
+
+    def _work(self) -> None:
+        while True:
+            with self._cond:
+                while not self._heap:
+                    self._cond.wait()
+                _, _, fut, thunk = heapq.heappop(self._heap)
+            if fut.set_running_or_notify_cancel():
+                try:
+                    fut.set_result(thunk())
+                except BaseException as e:  # noqa: BLE001 -- raised by the waiting run
+                    fut.set_exception(e)
+
+
+_WARM_POOL = _WarmPool()
+
+
+def warm_pool_submit(thunk, *, priority: int = 0) -> concurrent.futures.Future:
+    """Run `thunk` on the shared warm pool; returns its Future."""
+    return _WARM_POOL.submit(thunk, priority=priority)
+
+
 class Engine:
     """Optimization engine bound to one ClusterShape and device.
 
@@ -638,8 +721,10 @@ class Engine:
     `rebind(state)`; `prior` (prior_enabled engines) is the learned
     move-acceptance prior (`.weights` f32[T, B], `.mix`), refreshed by
     `rebind(prior=)` or `rebind_prior`.  The engine keeps the bound
-    state's load columns in tensors of its own, which its graphs read; no
-    state it returns holds them.
+    state's fields, its statics and its generation block in tensors of its
+    own, which its graphs read and each rebind refills; no state it
+    returns holds them.  `precompile_async` captures the graphs on the
+    warm pool before the first run needs them.
     """
 
     def __init__(
@@ -667,7 +752,19 @@ class Engine:
             self.K_s = min(config.swap_candidates, max(0, (config.num_candidates - self.K_l) // 2))
             self.K_r = config.num_candidates - self.K_l - self.K_s
         self._chain_w = torch.tensor(chain.weights, dtype=torch.float32, device=self.device)
+        self.tp = md.TermParams.build(self.w, constraint, bf16=config.score_dtype == "bfloat16")
+        self.cand = cand_k.CandParams(
+            tp=self.tp, K_r=self.K_r, K_s=self.K_s, K_l=self.K_l,
+            w_rack=self.w.rack, w_offline=self.w.offline, w_topic=self.w.topic_dist,
+            w_pref=self.w.pref_leader,
+            topic_tt=constraint.topic_replica_count_balance_threshold,
+            replica_move_cost=config.replica_move_cost,
+            leadership_move_cost=config.leadership_move_cost,
+            importance_fraction=config.importance_fraction, num_parts=max(1, self.shape.P),
+            intra=config.intra_broker, prior=config.prior_enabled and not config.intra_broker,
+        )
         self._ws: _Workspace | None = None
+        self.statics: EngineStatics | None = None
         #: the engine's own load tables (leader, follower), f32[R, 4]: each
         #: generation's loads are copied in (`build_statics(loads=)`)
         self._loads = tuple(torch.empty((state.shape.R, NUM_RESOURCES), dtype=torch.float32,
@@ -680,51 +777,45 @@ class Engine:
         self._delta_host: dict | None = None
         #: the real destination list of the current statics (rebind_prior)
         self._dest_idx: np.ndarray | None = None
-        #: capture and graph statistics of the current model generation
+        #: capture and graph statistics of the engine's graphs
         self.graph_stats: dict = {}
+        #: the warm pool's capture of this engine's graphs (a Future), once
+        #: `precompile_async` submitted it; every rebind and run waits for it
+        self._warm = None
+        #: called as (seconds, source) after each capture: the optimizer's
+        #: per-bucket attribution
+        self.on_capture = None
         self.rebind(state, options, prior=prior)
+
+    @property
+    def max_rf(self) -> int:
+        """The member table's width: with the shape, what sizes the graphs."""
+        return int(self.statics.part_replicas.shape[1])
 
     def rebind(self, state: ClusterState, options: OptimizationOptions = DEFAULT_OPTIONS,
                prior=None) -> "Engine":
-        """Swap in a new model generation of the same shape.  Captured
-        graphs hold the generation's tensors and the values derived from
-        them, so they are kept only when the new generation's statics equal
-        the old ones (a repeated request, or new loads on the same
-        cluster); otherwise they are released and the next run captures
-        anew.  The prior (a cold one when None) and the loads ride the
-        statics as data, copied into the engine's own tensors: they never
-        decide between the two."""
+        """Swap in a new model generation of the same shape: its state, its
+        statics, its generation block, the prior (a cold one when None) and
+        the loads are copied into the engine's own tensors in stream
+        order, so the graphs captured on them run the new generation with
+        no capture.  Only a generation whose member table is wider or
+        narrower (another max_rf, which the shape does not fix) releases
+        the graphs and buffers: the next run captures anew.  Waits first
+        for a capture in flight on the warm pool, and raises its error."""
         if state.shape != self.shape:
             raise ValueError(f"shape changed {self.shape} -> {state.shape}; build a new Engine")
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the engine on {self.device}")
+        self._wait_warm()
         layout: dict = {}
         statics = build_statics(state, options, prior=prior,
                                 prior_full_shape=self.config.prior_enabled, layout_out=layout,
-                                loads=self._loads)
+                                loads=self._loads, cap_weights=self.w.cap, out=self.statics)
+        if self.statics is not None and statics.part_replicas is not self.statics.part_replicas:
+            self.release()
         self._dest_idx = layout["dest_idx"]
         self._state = state
-        if self._ws is not None and _same_statics(self.statics, statics):
-            self.statics.prior_cdf.copy_(statics.prior_cdf)
-            self.statics.prior_mix.copy_(statics.prior_mix)
-            return self
-        self.release()
         self.statics = statics
-        sx = self.statics
-        self.tp = md.TermParams.build(
-            self.w, self.constraint, sx.total_cap.cpu().numpy(), sx.n_valid, sx.n_alive,
-            sx.total_disk_cap, bf16=self.config.score_dtype == "bfloat16",
-        )
-        cfg = self.config
-        self.cand = cand_k.CandParams(
-            tp=self.tp, K_r=self.K_r, K_s=self.K_s, K_l=self.K_l,
-            w_rack=self.w.rack, w_offline=self.w.offline, w_topic=self.w.topic_dist,
-            w_pref=self.w.pref_leader,
-            topic_tt=self.constraint.topic_replica_count_balance_threshold,
-            replica_move_cost=cfg.replica_move_cost, leadership_move_cost=cfg.leadership_move_cost,
-            importance_fraction=cfg.importance_fraction, num_parts=max(1, self.shape.P),
-            intra=cfg.intra_broker, prior=cfg.prior_enabled and not cfg.intra_broker,
-        )
         return self
 
     def rebind_prior(self, prior) -> None:
@@ -739,8 +830,44 @@ class Engine:
         self.statics.prior_cdf.copy_(torch.from_numpy(cdf))
         self.statics.prior_mix.fill_(float(np.float32(mix)))
 
+    def precompile_async(self, *, priority: int = 0) -> None:
+        """Capture the engine's graphs ahead of use on the warm pool (the
+        JAX package's `precompile_async`): on a worker thread, on a stream
+        of its own, the init, full check, round body and the reported
+        run's `pre` and `post` graphs and the loop graph, as the first
+        `optimize` or streaming cycle of the engine needs them.  A rebind
+        or run that comes while the capture is in flight waits for it and
+        captures nothing itself; an error of the capture is raised to it.
+        On the CPU there is nothing to capture: the worker only allocates
+        the run's buffers.  `priority` orders the capture on the shared
+        pool (lower first).  Once per engine."""
+        if self._warm is None:
+            self._warm = warm_pool_submit(self._warm_up, priority=priority)
+
+    def _warm_up(self) -> None:
+        """The warm pool's work for this engine (`precompile_async`)."""
+        if self.device.type != "cuda":
+            self._workspace()
+            return
+        with torch.cuda.device(self.device):
+            self._capture(self._workspace(), False, reports=True, source="prewarm")
+
+    def _wait_warm(self) -> None:
+        """Wait for the warm pool's capture of this engine, if one was
+        submitted; raise its error (every time: the engine's graphs were
+        never made)."""
+        if self._warm is not None:
+            self._warm.result()
+
     def release(self) -> None:
-        """Free the run's buffers and captured graphs."""
+        """Free the run's buffers and captured graphs (after a capture in
+        flight on the warm pool, whose error it leaves to the next run)."""
+        if self._warm is not None:
+            concurrent.futures.wait([self._warm])
+            if self._warm.exception() is not None:
+                log.warning("engine released after its warm-pool capture failed",
+                            exc_info=self._warm.exception())
+            self._warm = None
         if self._ws is not None:
             self._ws.close()
             self._ws = None
@@ -822,7 +949,7 @@ class Engine:
         return md.broker_terms(self.tp, self.statics, b, load, rcount, lcount, pot, lbin, g)
 
     def _tie_term(self, pct_sum, pct_sumsq):
-        return md.tie_term(self.tp, pct_sum, pct_sumsq)
+        return md.tie_term(self.tp, self.statics.gen, pct_sum, pct_sumsq)
 
     def _globals(self, carry: EngineCarry, out: torch.Tensor | None = None) -> dict:
         """Per-step frozen global scalars, O(B + T*B) from the aggregates
@@ -842,7 +969,7 @@ class Engine:
             carry.broker_potential_nw_out, carry.broker_leader_bytes_in, g,
         ).sum()
         rack = torch.clamp(carry.part_rack_count - 1, min=0).sum().to(torch.float32)
-        terms = terms + self.w.rack * rack / sx.n_valid
+        terms = terms + md.div(self.w.rack * rack, sx.gen, "n_valid")
         st = sx.state
         offline = (
             st.replica_valid
@@ -851,7 +978,7 @@ class Engine:
                 & st.disk_alive[carry.replica_broker, carry.replica_disk]
             )
         ).sum().to(torch.float32)
-        terms = terms + self.w.offline * offline / sx.n_valid
+        terms = terms + md.div(self.w.offline * offline, sx.gen, "n_valid")
         return terms + self._tie_term(g["pct_sum"], g["pct_sumsq"])
 
     def cheap_violations(self, carry: EngineCarry, g=None) -> torch.Tensor:
@@ -902,9 +1029,9 @@ class Engine:
         )
         # stranded replicas on dead brokers/disks carry the offline-goal mass
         dead = st.broker_valid & ~sx.alive
-        w = w + self.w.offline * torch.where(
+        w = w + md.div(self.w.offline * torch.where(
             dead, carry.broker_replica_count.to(torch.float32), 0.0
-        ) / sx.n_valid
+        ), sx.gen, "n_valid")
         # topic-distribution violations live in [T, B] cells the broker
         # terms cannot see
         if self.w.topic_dist != 0.0:
@@ -919,7 +1046,7 @@ class Engine:
         uni = torch.where(st.broker_valid, 1.0, 0.0)
         uni = uni / torch.clamp(uni.sum(), min=1.0)
         probs = torch.where(total > 1e-12, w / torch.clamp(total, min=1e-12), uni)
-        unit = self.carry_objective(carry, g) / sx.n_valid
+        unit = md.div(self.carry_objective(carry, g), sx.gen, "n_valid")
         out.broker_cdf.copy_(_cumsum_f32(probs))
         out.replica_cost.copy_(self.config.replica_move_cost * unit)
         out.lead_cost.copy_(self.config.leadership_move_cost * unit)
@@ -1287,14 +1414,20 @@ class Engine:
                 self._objective(ws)
         sched_k.round_schedule(sched_k.CLOSE, ws.sched, dims)
 
-    def _capture(self, ws: _Workspace, verbose: bool, reports: bool = False) -> sched_k.LoopGraph:
-        """The loop graph of this model generation (and verbose flag),
-        capturing the init, full check, round body and objective graphs on
-        first use, and with `reports` the reported run's `pre` and `post`
-        graphs.  Each piece runs once eagerly first, on the capture stream,
-        so that lazy initialisations happen outside the capture; the init
-        graph, at the head of every run, resets everything they touched,
-        and a second scatter of the same window writes the same rows."""
+    def _capture(self, ws: _Workspace, verbose: bool, reports: bool = False,
+                 source: str = "request") -> sched_k.LoopGraph:
+        """The loop graph of this engine (and verbose flag), capturing the
+        init, full check, round body and objective graphs on first use,
+        and with `reports` the reported run's `pre` and `post` graphs:
+        once per engine, whatever generation it is bound to.  Each piece
+        runs once eagerly first, on the capture stream, so that lazy
+        initialisations happen outside the capture; its launches count
+        into this thread's record (`kernels.recording`), kept as the
+        capture's `warmup_launches`, not into any run's.  The init graph,
+        at the head of every run, resets everything they touched, and a
+        second scatter of the same window writes the same rows.  `source`
+        ("request" or "prewarm") goes to the capture accounting
+        (common/compilation_cache.py) and `on_capture`."""
         dims = self._sched_dims(verbose)
         # the verbose objective graph; with diagnostics the round body
         # writes the objective itself
@@ -1314,7 +1447,7 @@ class Engine:
         t0 = time.monotonic()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), kernels.recording() as warm_rec:
             for name in todo:
                 warm[name]()
         torch.cuda.current_stream(self.device).wait_stream(stream)
@@ -1336,12 +1469,16 @@ class Engine:
         t_inst = time.monotonic()
         stats = self.graph_stats.setdefault("captures", [])
         stats.append(dict(
-            verbose=verbose, warmup_s=t_warm - t0, capture_s=t_cap - t_warm,
-            instantiate_s=t_inst - t_cap, graphs=todo,
+            verbose=verbose, source=source, max_rf=self.max_rf, warmup_s=t_warm - t0,
+            capture_s=t_cap - t_warm, instantiate_s=t_inst - t_cap, graphs=todo,
             nodes={n: sched_k.graph_nodes(ws.graphs[n]) for n in todo},
             launches_per_replay={n: {k: v for k, v in ws.graph_launches[n].items() if v}
                                  for n in todo},
+            warmup_launches={k: v for k, v in warm_rec.items() if v},
         ))
+        compilation_cache.record_engine_capture(bucket_key(self.shape), source=source)
+        if self.on_capture is not None:
+            self.on_capture(t_inst - t0, source)
         return lg
 
     def _run_fused(self, *, verbose: bool = False, initial_placement=None, reports: bool = False,
@@ -1354,6 +1491,7 @@ class Engine:
         the live tensors written back, and the dispatches counted as
         "engine.cycle" and "engine.extract"."""
         t_start = time.monotonic()
+        self._wait_warm()
         ws = self._workspace()
         dims = self._sched_dims(verbose)
         reports = reports or cycle is not None
@@ -1553,6 +1691,7 @@ class Engine:
             return v
 
         count_dispatch("engine.init")
+        self._wait_warm()
         ws = self._workspace()
         sched = ws.sched
         self._stage(ws, initial_placement)

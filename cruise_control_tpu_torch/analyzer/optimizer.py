@@ -4,8 +4,11 @@ Reference: analyzer/GoalOptimizer.java:416-487 (per-goal optimize + stats +
 diff) and analyzer/OptimizerResult.java:31.  One proposal runs the whole
 weighted goal chain at once through the annealing engine and reports the
 per-goal violations before and after, cluster stats, the balancedness score
-and the proposal diff.  Single device; engines are cached per
-(shape, config) and rebound to each new model generation.
+and the proposal diff.  Single device; engines are cached per (shape,
+max_rf, config) and rebound to each new model generation: max_rf, the
+width of the member table (`models/state.py member_width`), sizes an
+engine's buffers beside the shape, as it sizes the JAX package's compiled
+programs.
 
 Callers may share one optimizer across threads.  A lock guards the engine
 cache; a run pins its engine until its result is on the host, and an
@@ -13,6 +16,15 @@ eviction that finds the engine pinned leaves its release to the last
 unpin.  An engine owns one fixed workspace and the graphs captured on it,
 so runs on one engine take its run lock from the rebind to the fetch, one
 at a time; runs on different engines overlap.
+
+An engine captures its graphs once for its bucket and serves every later
+model generation of it without a capture (analyzer/engine.py).
+`prewarm` builds the engine of a bucket ahead of use and captures its
+graphs on the warm pool, pinned until the capture is done;
+`compile_attribution` bills each bucket its captures, their seconds and
+the request-path runs that paid for one.  With a `PrewarmStore`, every
+build and rebind records its bucket in the boot manifest
+(analyzer/prewarm.py).
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from cruise_control_tpu_torch.analyzer.objective import (
     balancedness_score,
 )
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
+from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
 from cruise_control_tpu_torch.analyzer.proposals import (
     ExecutionProposal,
     extract_proposals,
@@ -42,6 +55,7 @@ from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.models.state import (
     DEVICE_CHECKS,
     ClusterState,
+    member_width,
     validate,
     validate_on_device,
 )
@@ -113,6 +127,7 @@ class GoalOptimizer:
         device=None,
         balancedness_weights: tuple[float, float] = (1.1, 1.5),
         engine_cache_size: int = 8,
+        prewarm_store=None,
     ):
         if engine_cache_size < 1:
             raise ValueError(f"engine_cache_size must be >= 1, got {engine_cache_size}")
@@ -121,13 +136,22 @@ class GoalOptimizer:
         self.config = config
         self.device = resolve_device(device)
         self.balancedness_weights = balancedness_weights
-        #: engines per (ClusterShape, config) in LRU order; a hit rebinds.
-        #: `_cache_lock` guards it and every engine's pin count
+        #: engines per (ClusterShape, max_rf, config) in LRU order; a hit
+        #: rebinds.  `_cache_lock` guards it, every engine's pin count and
+        #: `_bound`
         self._engines: OrderedDict = OrderedDict()
+        #: (ClusterShape, config) -> the max_rf of the engine a request
+        #: last bound: the engine whose statics the streaming cycle runs on
+        self._bound: dict = {}
         self._cache_capacity = engine_cache_size
         self._cache_lock = threading.Lock()
         self.engine_cache_hits = 0
         self.engine_cache_misses = 0
+        #: the boot manifest (analyzer/prewarm.py PrewarmStore), or None
+        self.prewarm_store = prewarm_store
+        #: bucket key -> captures, their seconds, cold request-path walls
+        #: and engine build seconds (`compile_attribution`)
+        self._compile_attribution: dict[str, dict] = {}
 
     def _pin(self, key) -> Engine | None:
         """The cached engine of `key`, pinned, or None (under the lock)."""
@@ -145,11 +169,13 @@ class GoalOptimizer:
         if release:
             engine.release()
 
-    def _publish(self, key, engine: Engine) -> Engine:
+    def _publish(self, key, engine: Engine, count: bool = True) -> Engine:
         """Cache a new engine pinned and evict the least recent beyond the
         capacity: at once where no run holds it, else at its last unpin.
         Where another thread cached one for `key` first, that one is
-        pinned and returned, and `engine` (never run) is released."""
+        pinned and returned, and `engine` (never run) is released.
+        `count`: a miss or hit in the cache's counters (a prewarm's is
+        neither)."""
         evicted = []
         with self._cache_lock:
             won = self._pin(key)
@@ -161,9 +187,9 @@ class GoalOptimizer:
                     old._cc_evicted = True
                     if old._cc_pins == 0:
                         evicted.append(old)
-                self.engine_cache_misses += 1
+                self.engine_cache_misses += count
             else:
-                self.engine_cache_hits += 1
+                self.engine_cache_hits += count
         for old in evicted:
             old.release()
         if won is not None:
@@ -174,22 +200,22 @@ class GoalOptimizer:
     @contextlib.contextmanager
     def _engine_for(self, state: ClusterState, options: OptimizationOptions,
                     config: OptimizerConfig, prior=None):
-        """The cached engine of (shape, config) bound to `state` and
-        `prior`, built on a miss, pinned and under its run lock for the
-        body; yields (engine, hit)."""
-        key = (state.shape, config)
+        """The cached engine of (shape, max_rf, config) bound to `state`
+        and `prior`, built on a miss, pinned and under its run lock for
+        the body; yields (engine, hit)."""
+        key = (state.shape, member_width(state), config)
         with self._cache_lock:
             engine = self._pin(key)
             if engine is not None:
                 self.engine_cache_hits += 1
         hit = engine is not None
         if engine is None:
-            built = Engine(state, self.chain, constraint=self.constraint, options=options,
-                           config=config, prior=prior)
-            built._cc_pins, built._cc_evicted = 0, False
-            built._cc_run_lock, built._cc_fresh = threading.Lock(), True
+            t0 = time.monotonic()
+            built = self._new_engine(state, options, config, prior)
             engine = self._publish(key, built)
             hit = engine is not built
+            if not hit:
+                self._attribute(state.shape, buildSeconds=time.monotonic() - t0)
         try:
             with engine._cc_run_lock:
                 # an engine is built bound to its builder's state: only a
@@ -197,15 +223,93 @@ class GoalOptimizer:
                 if hit or not engine._cc_fresh:
                     engine.rebind(state, options, prior=prior)
                 engine._cc_fresh = False
+                with self._cache_lock:
+                    self._bound[(state.shape, config)] = key[1]
+                if self.prewarm_store is not None:
+                    self.prewarm_store.note(state.shape, engine.max_rf, config)
                 yield engine, hit
         finally:
             self._unpin(engine)
 
-    def has_engine_for(self, shape, *, config: OptimizerConfig | None = None) -> bool:
-        """True when an engine for (shape, config) is cached: the streaming
-        cycle's fast path (`optimize_streaming_cycle`) needs one."""
+    def _new_engine(self, state: ClusterState, options: OptimizationOptions,
+                    config: OptimizerConfig, prior=None) -> Engine:
+        """An engine of the cache, unpinned, its captures billed to its
+        bucket."""
+        built = Engine(state, self.chain, constraint=self.constraint, options=options,
+                       config=config, prior=prior)
+        built._cc_pins, built._cc_evicted = 0, False
+        built._cc_run_lock, built._cc_fresh = threading.Lock(), True
+        shape = state.shape
+        built.on_capture = lambda seconds, source: self._attribute(
+            shape, compiles=1, captureSeconds=seconds)
+        return built
+
+    def prewarm(self, state: ClusterState, options: OptimizationOptions = DEFAULT_OPTIONS, *,
+                config: OptimizerConfig | None = None, priority: int = 0) -> None:
+        """Build the engine of `state`'s bucket and capture its graphs on
+        the warm pool without running it (`Engine.precompile_async`), so
+        the bucket's first request captures nothing on its path (the JAX
+        package's `prewarm`, the branch without a supervisor).  Build
+        only, never a rebind: where an engine of (shape, max_rf, config)
+        is cached, including one a request cached while this one was built,
+        it is left as it is.  The hit and miss counters are not touched.
+        The engine counts as pinned until its capture is done, so an
+        eviction meanwhile releases it only then; the capture's error is
+        raised to the first run that takes the engine.  `priority` orders
+        the capture on the shared pool (lower first)."""
+        if state.device != self.device:
+            raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
+        cfg = config or self.config
+        key = (state.shape, member_width(state), cfg)
         with self._cache_lock:
-            return (shape, config or self.config) in self._engines
+            if key in self._engines:
+                return
+        t0 = time.monotonic()
+        built = self._new_engine(state, options, cfg)
+        engine = self._publish(key, built, count=False)
+        if engine is not built:
+            self._unpin(engine)  # a request cached one first
+            return
+        self._attribute(state.shape, buildSeconds=time.monotonic() - t0)
+        try:
+            engine.precompile_async(priority=priority)
+        except BaseException:
+            self._unpin(engine)
+            raise
+        engine._warm.add_done_callback(lambda _fut: self._unpin(engine))
+
+    def _attribute(self, shape, **add) -> None:
+        """Add to the bucket's row of `compile_attribution`."""
+        with self._cache_lock:
+            row = self._compile_attribution.setdefault(bucket_key(shape), {
+                "compiles": 0, "captureSeconds": 0.0, "coldWallSeconds": 0.0,
+                "buildSeconds": 0.0})
+            for k, v in add.items():
+                row[k] = row[k] + v if k == "compiles" else round(row[k] + v, 6)
+
+    def compile_attribution(self) -> dict[str, dict]:
+        """Per shape bucket (`prewarm.bucket_key`): `compiles`, the
+        captures of its engines' graphs (on a run's path or the warm
+        pool's), `captureSeconds`, their warm-up, capture and instantiation
+        seconds, `coldWallSeconds`, the walls of the runs that captured on
+        their path (capture included), and `buildSeconds`, the host build
+        of its engines."""
+        with self._cache_lock:
+            return {k: dict(v) for k, v in self._compile_attribution.items()}
+
+    def compile_attribution_values(self) -> list[tuple[dict, float]]:
+        """Collector callback: [({"bucket": key}, coldWallSeconds), ...]."""
+        return [({"bucket": k}, v["coldWallSeconds"]) for k, v in self.compile_attribution().items()]
+
+    def has_engine_for(self, shape, *, config: OptimizerConfig | None = None,
+                       max_rf: int | None = None) -> bool:
+        """True when an engine for (shape, max_rf, config) is cached,
+        prewarmed ones included, of any max_rf when None: a caller skips
+        the prewarm of a bucket that has one."""
+        cfg = config or self.config
+        with self._cache_lock:
+            return any(k[0] == shape and k[2] == cfg and max_rf in (None, k[1])
+                       for k in self._engines)
 
     def _result(self, state_before, state_after, out: dict, proposals, history, t0) -> OptimizerResult:
         """The OptimizerResult of a reported run's payload `out`."""
@@ -253,8 +357,8 @@ class GoalOptimizer:
         diagnostics, the timing record carries the run's `convergence`
         summary.  The before and after reports are f32 whatever the
         config's score_dtype; they ride the engine's reported run
-        (`Engine.run_reported`), so the first call of a model generation
-        captures the graphs the streaming cycle replays."""
+        (`Engine.run_reported`), so the first call of an engine (a
+        bucket) captures the graphs the streaming cycle replays."""
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         t0 = time.monotonic()
@@ -270,6 +374,7 @@ class GoalOptimizer:
             before_host = fetch_before_host(state)
             final, history, out = engine.run_reported(verbose=verbose,
                                                       initial_placement=initial_placement)
+            max_rf = engine.max_rf
         t_extract = time.monotonic()
         proposals = extract_proposals(state, final, before_host=before_host, after_host=out)
         timing = next(h for h in history if h.get("timing"))
@@ -277,7 +382,9 @@ class GoalOptimizer:
         timing["engine_cache_hit"] = hit
         timing["engine_build_s"] = round(build_s, 6)
         s = state.shape
-        timing["bucket"] = dict(R=s.R, B=s.B, P=s.P, T=s.num_topics)
+        timing["bucket"] = dict(R=s.R, B=s.B, P=s.P, T=s.num_topics, max_rf=max_rf)
+        if timing.get("captured"):
+            self._attribute(s, coldWallSeconds=time.monotonic() - t0)
         if out["checks"].any():
             bad = [n for n, c in zip(DEVICE_CHECKS, out["checks"]) if c]
             validate(final)
@@ -302,9 +409,10 @@ class GoalOptimizer:
         the before and after reports, the device checks and the proposal
         payload.
 
-        `state` is the live state (models/whatif.py LiveState): the cached
-        engine keeps the statics of the generation it was last bound to
-        (the live cluster's, unchanged between reflattens), and `options`
+        `state` is the live state (models/whatif.py LiveState): the cycle
+        runs on the engine that the last `optimize` of (state.shape,
+        config) bound, which keeps that generation's statics (the live
+        cluster's, unchanged between reflattens), and `options`
         is accepted for the staged path's signature only.  `rows`,
         `leader_loads` and `follower_loads` are the window (i32[n] replica
         rows, f32[n, 4] each); `initial_placement` the warm start, device
@@ -314,8 +422,9 @@ class GoalOptimizer:
 
         Returns `(OptimizerResult, (new_ll, new_fl))`: `state`'s own load
         tensors, scattered in place, which the caller adopts as the live
-        pair (`LiveState.adopt_loads`); or None when no engine is cached for
-        (state.shape, config) — the caller then takes the staged path
+        pair (`LiveState.adopt_loads`); or None when that engine is not
+        cached (none was bound, or it was evicted) — the caller then
+        takes the staged path
         (`LiveState.set_partition_loads` + `optimize`), which builds and
         caches one, so the NEXT cycle goes fused.
 
@@ -330,7 +439,8 @@ class GoalOptimizer:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         cfg = config or self.config
         with self._cache_lock:
-            engine = self._pin((state.shape, cfg))
+            rf = self._bound.get((state.shape, cfg))
+            engine = None if rf is None else self._pin((state.shape, rf, cfg))
             if engine is None:
                 return None
             self.engine_cache_hits += 1
@@ -342,6 +452,7 @@ class GoalOptimizer:
                     state.replica_load_leader, state.replica_load_follower, rows, leader_loads,
                     follower_loads, initial_placement,
                 )
+                max_rf = engine.max_rf
         finally:
             self._unpin(engine)
         if out["checks"].any():
@@ -365,5 +476,5 @@ class GoalOptimizer:
         timing["engine_cache_hit"] = True
         timing["engine_build_s"] = 0.0
         s = state.shape
-        timing["bucket"] = dict(R=s.R, B=s.B, P=s.P, T=s.num_topics)
+        timing["bucket"] = dict(R=s.R, B=s.B, P=s.P, T=s.num_topics, max_rf=max_rf)
         return self._result(state_before, state_after, out, proposals, history, t0), (ll, fl)

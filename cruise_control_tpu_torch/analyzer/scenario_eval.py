@@ -27,9 +27,11 @@ fallback.
 The optional `optimize=True` pass runs the FULL anneal per scenario
 through the caller's GoalOptimizer: every scenario state shares the batch
 shape, so its engine cache builds ONE engine and rebinds it for the rest.
-A rebind keeps the captured graphs only when the statics are equal, so a
-scenario that changes liveness or capacities captures anew; the captures
-are reported in `last_batch["fix"]`.
+A rebind copies the scenario into the engine's own tensors, so the graphs
+captured by the first anneal serve every later one of the bucket, whatever
+liveness or capacities it changes; only a scenario of another member-table
+width (max_rf) captures anew.  Each anneal's captures and its bucket are
+reported in `last_batch["fix"]`.
 
 The JAX package's analyzer/scenario_eval.py, scoring in f32 as it does,
 without its supervisor: a device failure raises.
@@ -569,7 +571,8 @@ class ScenarioEvaluator:
     def _fix_summary(self, state: ClusterState) -> tuple[dict, dict]:
         """Run the full anneal on one scenario state; the projected
         post-fix cluster as a summary dict, and a record of the run (the
-        engine-cache hit and the graphs it captured).  Every scenario
+        engine-cache hit, the graphs it captured, `captures` (1 where its
+        run captured, else 0) and its bucket with max_rf).  Every scenario
         shares the planned shape, so the optimizer builds one engine and
         rebinds it N-1 times."""
         result = self.optimizer.optimize(state)
@@ -586,6 +589,8 @@ class ScenarioEvaluator:
             (after[hard[: after.size]] <= VIOLATION_TOL).all()
         )
         timing = next(h for h in result.history if h.get("timing"))
-        rec = dict(engine_cache_hit=timing.get("engine_cache_hit"),
-                   captured=list(timing.get("captured", [])), wall_s=result.wall_seconds)
+        captured = list(timing.get("captured", []))
+        rec = dict(engine_cache_hit=timing.get("engine_cache_hit"), captured=captured,
+                   captures=int(bool(captured)), bucket=dict(timing.get("bucket", {})),
+                   wall_s=result.wall_seconds)
         return out, rec

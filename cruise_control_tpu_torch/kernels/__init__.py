@@ -9,8 +9,11 @@ launches per wrapper (one per wrapper call that launched, `count`), so a
 run can show that its path went through the kernels.  A wrapper called
 while its thread captures a CUDA graph counts the launch it records into
 the capture's own record (`capture`), not into `LAUNCHES`; the engine
-adds those counts per replay (`add_launches`).  Counting is locked, so
-threads that run on the card at once lose no count.  Every capture of the
+adds those counts per replay (`add_launches`).  The eager warm-up before
+a capture counts into a record of its thread too (`recording`), so a
+capture on a pool thread beside a run adds nothing to that run's counts.
+Counting is locked, so threads that run on the card at once lose no
+count.  Every capture of the
 package goes through `capture`, one at a time in the process: entering a
 capture synchronises the whole device, which a capture in flight on
 another thread forbids.
@@ -73,6 +76,19 @@ def capture(graph, stream):
                 yield rec
         finally:
             _TLS.record = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches this thread makes inside the block into a record
+    of its own (wrapper -> launches), yielded, and not into `LAUNCHES`:
+    the eager warm-up of a capture, whose launches belong to no run."""
+    prev = getattr(_TLS, "record", None)
+    _TLS.record = rec = {}
+    try:
+        yield rec
+    finally:
+        _TLS.record = prev
 
 
 def add_launches(per_replay: dict[str, int], replays: int) -> None:

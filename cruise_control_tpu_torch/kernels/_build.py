@@ -41,6 +41,10 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: the libraries this process found already built (reused from BUILD_DIR)
+#: and the ones it compiled, by name (common/compilation_cache.py reports them)
+REUSED: set[str] = set()
+BUILT: set[str] = set()
 
 
 def nvcc_path() -> str:
@@ -68,6 +72,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
     if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
+    REUSED.update(n for n in names if n not in todo and n not in BUILT)
     if not todo:
         return {}
     nvcc = nvcc_path()
@@ -86,6 +91,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
             failed.append(f"--- {n}.cu (nvcc exit {p.returncode})\n{log.decode(errors='replace')}")
             continue
         tmp.replace(library_path(n))
+        BUILT.add(n)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took

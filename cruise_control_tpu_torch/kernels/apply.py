@@ -25,7 +25,10 @@ a grid barrier each side reads the other slot of its broker, and the
 broker's first event adds both events, and on a host of one broker the
 host's load, in the reference's order; the reader of a slot clears it.
 (Where a host holds several brokers, its first event walks them, and the
-slots are reset after a second barrier.)  So the card's aggregates are
+slots are reset after a second barrier; whether one does is the
+`shared_hosts` word of the engine's generation block, which the kernel
+reads on the device and branches on grid-uniformly, so one captured step
+serves every generation.)  So the card's aggregates are
 bit for bit the plain version's, run after run, and a seed gives one
 trajectory.  It relies on each broker being the src of at most one
 surviving row and the dst of at most one, which `select_survivors`
@@ -48,6 +51,7 @@ import torch
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.kernels import _build
+from cruise_control_tpu_torch.kernels import move_delta as md
 
 _DISK = int(Resource.DISK)
 _FN = None
@@ -147,8 +151,8 @@ class _LeadRows(ctypes.Structure):
 
 
 class _Owners(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_void_p) for f in ("host_brokers", "host_start", "slots", "events")] + [
-        ("shared_hosts", ctypes.c_int)]
+    _fields_ = [(f, ctypes.c_void_p) for f in ("host_brokers", "host_start", "slots", "events",
+                                               "gen")]
 
 
 class _Carry(ctypes.Structure):
@@ -228,7 +232,7 @@ def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
         host_start=_need("host_start", sx.host_start, i32, (H + 2,)),
         slots=_need("apply_slots", sx.apply_slots, i32, (2, B)),
         events=_need("apply_events", sx.apply_events, f32, (2, B, 8)),
-        shared_hosts=int(sx.shared_hosts),
+        gen=_need("gen", sx.gen.words, i32, (md.GEN_WORDS,)),
     )
     dims = _Dims(n_rel, n_lead, R, B, T, P, s.num_racks, D, H)
     if n_rel + n_lead == 0:

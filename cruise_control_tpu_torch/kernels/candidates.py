@@ -240,16 +240,18 @@ def _sample_sources(cp: CandParams, sx, keys4, n: int, plan) -> torch.Tensor:
     dev = sx.alive.device
     k1, k3, k4, k5 = keys4
     n_imp = cp.n_imp(n, plan)
-    r = _uniform_idx(k1, n - n_imp, sx.n_source, dev)
+    gen = sx.gen
+    r = _uniform_idx(k1, n - n_imp, gen.n_source, dev)
     if n_imp:
         u = _uniform(k3, n_imp, dev)
-        bsel = torch.clamp(
-            torch.searchsorted(plan.broker_cdf, u, right=True), 0, sx.n_brokers - 1
+        bsel = torch.minimum(
+            torch.clamp(torch.searchsorted(plan.broker_cdf, u, right=True), min=0),
+            gen.n_brokers - 1,
         )
         cnt = plan.count[bsel]
         j = (_uniform(k4, n_imp, dev) * cnt).to(torch.int32)
         r_imp = plan.order[torch.clamp(plan.start[bsel] + j, 0, sx.state.shape.R - 1)]
-        fallback = _uniform_idx(k5, n_imp, sx.n_source, dev)
+        fallback = _uniform_idx(k5, n_imp, gen.n_source, dev)
         r = torch.cat([r, torch.where(cnt > 0, r_imp, fallback)])
     return r
 
@@ -284,13 +286,13 @@ def _sample_dests(cp: CandParams, sx, keys: StepKeys, n: int, r: torch.Tensor):
     dest_ids, or, with the prior, each draw from its source topic's prior
     CDF where the mix draw falls below prior_mix (`_sample_dests`)."""
     dev = sx.alive.device
-    uni = _uniform_idx(keys.rel_dst, n, sx.n_dest, dev)
+    uni = _uniform_idx(keys.rel_dst, n, sx.gen.n_dest, dev)
     if not cp.prior:
         return uni, None
     t = sx.state.replica_topic[torch.clamp(r, max=sx.state.shape.R - 1)]
     cdf = sx.prior_cdf[t]  # [n, B] per-topic inclusive CDF
     u = _uniform(keys.prior_p, n, dev)
-    p_idx = torch.clamp((u[:, None] >= cdf).sum(-1).to(torch.int32), max=sx.n_dest - 1)
+    p_idx = torch.clamp((u[:, None] >= cdf).sum(-1).to(torch.int32), max=sx.gen.n_dest - 1)
     use = _uniform(keys.prior_m, n, dev) < sx.prior_mix
     return torch.where(use, p_idx, uni), use
 
@@ -340,7 +342,8 @@ def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     c_s = carry.part_rack_count[part, rack_s].to(torch.float32)
     c_d = carry.part_rack_count[part, rack_d].to(torch.float32)
     drack = (_relu(c_s - 2.0) - _relu(c_s - 1.0)) + (_relu(c_d) - _relu(c_d - 1.0))
-    delta = delta + cp.w_rack * torch.where(rack_s != rack_d, drack, 0.0) / sx.n_valid
+    delta = delta + md.div(cp.w_rack * torch.where(rack_s != rack_d, drack, 0.0), sx.gen,
+                           "n_valid")
 
     # topic cells (reference TopicReplicaDistributionGoal)
     if cp.w_topic != 0.0:
@@ -350,7 +353,7 @@ def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     # offline-replica term (reference OptimizationVerifier BROKEN_BROKERS)
     dst_ok = st.broker_alive[dst] & st.disk_alive[dst, d_dst]
     doff = (~dst_ok).to(torch.float32) - offline.to(torch.float32)
-    delta = delta + cp.w_offline * doff / sx.n_valid
+    delta = delta + md.div(cp.w_offline * doff, sx.gen, "n_valid")
 
     # preferred-leader eligibility shift (reference PreferredLeaderElectionGoal)
     if cp.w_pref != 0.0:
@@ -415,7 +418,8 @@ def _intra_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     else:
         delta = torch.zeros(K, dtype=f32, device=b.device)
     # offline-replica shift (rescuing off a failed logdir)
-    delta = delta + cp.w_offline * ((~dst_ok).to(f32) - off_src.to(f32)) / sx.n_valid
+    delta = delta + md.div(cp.w_offline * ((~dst_ok).to(f32) - off_src.to(f32)), sx.gen,
+                           "n_valid")
     # movement pricing against the ORIGINAL logdir (the executor copies the
     # whole replica)
     if plan is not None and cp.replica_move_cost:
@@ -446,7 +450,7 @@ def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
                        pot_r=z, pot_q=z, lbin_r=z, lbin_q=z, d_r=zi, d_q=zi)
         return z, zb, zi, zi, zi, zi, payload
     r = _sample_sources(cp, sx, keys.swap_src, K, plan)
-    q = _uniform_idx(keys.swap_q, K, sx.n_source, dev)
+    q = _uniform_idx(keys.swap_q, K, sx.gen.n_source, dev)
     src, dst = carry.replica_broker[r], carry.replica_broker[q]
     part_r, part_q = st.replica_partition[r], st.replica_partition[q]
     d_r, d_q = carry.replica_disk[r], carry.replica_disk[q]
@@ -499,9 +503,9 @@ def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
         d = (_relu(c_f - 2.0) - _relu(c_f - 1.0)) + (_relu(c_t) - _relu(c_t - 1.0))
         return torch.where(rack_from != rack_to, d, 0.0)
 
-    delta = delta + cp.w_rack * (
+    delta = delta + md.div(cp.w_rack * (
         rack_delta(part_r, rack_s, rack_d) + rack_delta(part_q, rack_d, rack_s)
-    ) / sx.n_valid
+    ), sx.gen, "n_valid")
 
     if cp.w_topic != 0.0:
         delta = delta + cp.w_topic * (
@@ -514,7 +518,7 @@ def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     q_ok = st.broker_alive[src] & st.disk_alive[src, d_r]
     f32 = torch.float32
     doff = (~r_ok).to(f32) - off_r.to(f32) + (~q_ok).to(f32) - off_q.to(f32)
-    delta = delta + cp.w_offline * doff / sx.n_valid
+    delta = delta + md.div(cp.w_offline * doff, sx.gen, "n_valid")
 
     if cp.w_pref != 0.0:
         def pref_delta(x, valid_x, was_off, now_ok, lead):
@@ -551,7 +555,7 @@ def _leadership_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
         zl = torch.zeros((0, NUM_RESOURCES), dtype=torch.float32, device=dev)
         payload = dict(rf=zi, rt=zi, dl_f=zl, dl_t=zl, dlbin_src=z, dlbin_dst=z)
         return z, zb, zi, zi, zi, payload
-    rt = _uniform_idx(keys.lead, K, sx.n_source, dev)
+    rt = _uniform_idx(keys.lead, K, sx.gen.n_source, dev)
     part = st.replica_partition[rt]
     members = sx.part_replicas[part]  # [K, max_rf]
     m_idx = torch.clamp(members, max=R - 1)
@@ -674,7 +678,7 @@ def candidates_plain(cp: CandParams, sx, carry, keys, g, plan, temperature) -> d
 class _Dims(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in (
         "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "R", "B", "P", "T", "D", "H", "racks",
-        "max_rf", "n_source", "n_dest", "n_brokers", "has_plan", "has_topic", "has_pref",
+        "max_rf", "has_plan", "has_topic", "has_pref",
         "price_r", "price_l", "cdf_in_smem", "intra", "step", "steps_per_round", "prior", "bf16",
     )]
 
@@ -703,6 +707,8 @@ _IN_FIELDS = (
     "key_table", "rnd", "temperature",
     # the learned prior: its draws' keys, the per-topic CDF and the mix
     "prior_keys", "prior_cdf", "prior_mix",
+    # the engine's generation block
+    "gen",
 )
 _OUT_FIELDS = (
     "delta", "feas", "accept", "src", "dst", "part1", "part2",
@@ -808,7 +814,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         disk_load=(carry.disk_load, f32, (B, D)), host_load=(carry.host_load, f32, (H, 4)),
         g=(g["vec"], f32, (23,)), topic_avg=(g["topic_avg"], f32, (T,)),
         key_table=(keys.table, i32, (n_keys, KEY_WORDS)), rnd=(keys.rnd, i32, (1,)),
-        temperature=(temperature, f32, (1,)),
+        temperature=(temperature, f32, (1,)), gen=(sx.gen.words, i32, (md.GEN_WORDS,)),
     )
     if cp.prior:
         if keys.prior is None:
@@ -834,8 +840,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
     tt = cp.topic_tt
     dims = _Dims(
         K_r=K_r, K_s=K_s, K_l=K_l, n_imp_r=cp.n_imp(K_r, plan), n_imp_s=cp.n_imp(K_s, plan),
-        R=R, B=B, P=P, T=T, D=D, H=H, racks=racks, max_rf=max_rf, n_source=sx.n_source,
-        n_dest=sx.n_dest, n_brokers=sx.n_brokers, has_plan=plan is not None,
+        R=R, B=B, P=P, T=T, D=D, H=H, racks=racks, max_rf=max_rf, has_plan=plan is not None,
         has_topic=cp.w_topic != 0.0, has_pref=cp.w_pref != 0.0,
         price_r=plan is not None and bool(cp.replica_move_cost),
         price_l=plan is not None and bool(cp.leadership_move_cost),

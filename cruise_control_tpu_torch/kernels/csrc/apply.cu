@@ -57,7 +57,11 @@
 //     event's thread walks the host's brokers' slots (the statics group
 //     brokers by host) and adds the host's events in (pass, row) order by
 //     repeated minimum; then every side resets its own slot after a second
-//     grid barrier.
+//     grid barrier.  Whether a host does is a value of the model
+//     generation: each thread reads it from the engine's generation block
+//     (GenParams) with its first loads, so a captured step replays with
+//     the generation it runs on; it is the same word in every block, so
+//     the branch, barriers included, is grid-uniform.
 // Tensor cores and TMA have no part here: there is no matrix product, and
 // the gathers and scatters land at a few hundred random addresses.
 #include <cooperative_groups.h>
@@ -121,7 +125,8 @@ struct Owners {
   const int* host_start;    // [H + 2] group offsets
   int* slots;               // [2, B] surviving src / dst row per broker, -1 if none
   float4* events;           // [2, B, 2] the slot's event (load; pot, lbin, disk bits, -)
-  int shared_hosts;         // whether a host in range holds more than one broker
+  const GenParams* gen;     // the generation block: shared_hosts, whether a host in
+                            // range holds more than one broker
 };
 
 constexpr int kThreads = 256;
@@ -185,7 +190,8 @@ struct Side {
 // and event with its broker's floats and rack, then its host's (nothing
 // writes those before the float pass).
 __device__ Side load_side(const ApplyDims& n, const RelRows& rel, const LeadRows& lead,
-                          const Carry& c, const Owners& o, int row, int s, int d, bool dst) {
+                          const Carry& c, const Owners& o, int row, int s, int d, bool dst,
+                          bool shared) {
   Side sd;
   sd.row = row;
   sd.dst = dst;
@@ -219,7 +225,7 @@ __device__ Side load_side(const ApplyDims& n, const RelRows& rel, const LeadRows
   if (is_rel && in(sd.p, n.P)) sd.rack = c.broker_rack[b];
   if (in(sd.h, n.H)) {
     for (int k = 0; k < 4; ++k) sd.hl[k] = c.host_load[sd.h * 4 + k];
-    if (o.shared_hosts) {
+    if (shared) {
       sd.lo = o.host_start[sd.h];
       sd.hi = o.host_start[sd.h + 1];
     } else {
@@ -386,6 +392,8 @@ __global__ void __launch_bounds__(kThreads)
   const int nw = max(0, min(per_block, n_words - w_begin));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
+  // the generation's shared_hosts word, loaded now and first used in phase 2
+  const bool shared = o.gen->shared_hosts != 0;
 
   // 1. the survivors listed: a pass of kWarps x kUnroll words, each warp
   // kUnroll consecutive words; a row's brokers are loaded with its flag
@@ -448,18 +456,19 @@ __global__ void __launch_bounds__(kThreads)
   mine.ok = false;
   for (int q = tid; q < 2 * S; q += kThreads) {
     const int i = q % S;
-    const Side sd = load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S);
+    const Side sd = load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
     write_side(n, c, o, sd);
     if (q == tid) mine = sd;
   }
   cg::this_grid().sync();  // every block's slots set and visible to every block
 
   // 3. the float pass (a side past the thread's first: its loads again)
-  if (!o.shared_hosts) {
+  if (!shared) {
     for (int q = tid; q < 2 * S; q += kThreads) {
       const int i = q % S;
       const Side sd =
-          q == tid ? mine : load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S);
+          q == tid ? mine
+                   : load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
       if (sd.ok) float_pass(n, c, o, sd);
     }
     return;
@@ -469,7 +478,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int q = tid; q < 2 * S; q += kThreads) {
     const int i = q % S;
     const Side sd =
-        q == tid ? mine : load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S);
+        q == tid ? mine
+                 : load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
     if (!sd.ok) continue;
     walk_host(n, rel, lead, c, o, sd);
     add_side(n, c, sd, other_of(n, o, sd));

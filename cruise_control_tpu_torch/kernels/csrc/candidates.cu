@@ -91,6 +91,14 @@
 //    diagnostics' counts in select_survivors).
 //  - bf16 scoring (BF16): the broker terms' running sum in bf16
 //    (terms.cuh); every other term stays f32.
+//  - The model generation's values (GenParams: the source and destination
+//    counts, the valid broker count, n_valid, n_alive, the capacity
+//    totals and weights) come from the engine's generation block, not the
+//    launch's arguments, so one captured step serves every generation of
+//    its shape.  Each block stages the 80-byte block in shared memory with
+//    asynchronous copies issued first, in a commit group of its own before
+//    the CDF's; the draws hash while it lands, and each kind waits for it
+//    (`gen_wait`) just before its first use, after the draws.
 //  DISK, INTRA, PRIOR and BF16 are template parameters, so each mode
 //  compiles apart and the default lanes are the ones without them; the
 //  intra kind has no prior and no broker terms, so it has no PRIOR or BF16
@@ -118,7 +126,6 @@ struct StepKeys {
 struct CandDims {
   int K_r, K_s, K_l, n_imp_r, n_imp_s;
   int R, B, P, T, D, H, racks, max_rf;
-  int n_source, n_dest, n_brokers;
   int has_plan, has_topic, has_pref, price_r, price_l, cdf_in_smem;
   int intra;  // the K_r lanes are intra-broker disk moves
   int step, steps_per_round;  // this step's row: (*rnd) * steps_per_round + step
@@ -188,6 +195,8 @@ struct CandInputs {
   const Key2* prior_keys;
   const float* prior_cdf;
   const float* prior_mix;
+  // the engine's generation block (GenParams, kGenWords words)
+  const int* gen;
 };
 
 struct CandOutputs {
@@ -234,6 +243,9 @@ struct Ctx {
 };
 
 constexpr int kThreads = 128;
+
+// The block's copy of the generation block (staged by candidates_kernel).
+__shared__ GenParams s_gen;
 constexpr int kTeam = 4;      // lanes of a relocation, leadership transfer or intra move
 constexpr int kSwapTeam = 8;  // lanes of a swap
 constexpr unsigned kFull = 0xffffffffu;
@@ -307,7 +319,7 @@ __device__ __forceinline__ void put_lanes(int lane, bool on, int row, T* p0, T v
 // where the broker holds none).
 __device__ int pick_source(const Ctx& c, bool imp, float u_src, float u_slot, float u_fb,
                            const float* cdf) {
-  if (!imp) return cc_uniform_idx(u_src, c.n.n_source);
+  if (!imp) return cc_uniform_idx(u_src, s_gen.n_source);
   // torch.searchsorted(right=True): the first index whose value is > u
   int lo = 0, hi = c.n.B;
   while (lo < hi) {
@@ -318,11 +330,11 @@ __device__ int pick_source(const Ctx& c, bool imp, float u_src, float u_slot, fl
       hi = mid;
     }
   }
-  const int bsel = max(0, min(lo, c.n.n_brokers - 1));
+  const int bsel = max(0, min(lo, s_gen.n_brokers - 1));
   const int cnt = c.in.count[bsel];
   const int j = __float2int_rz(__fmul_rn(u_slot, (float)cnt));
   const int slot = max(0, min(c.in.start[bsel] + j, c.n.R - 1));
-  const int fallback = cc_uniform_idx(u_fb, c.n.n_source);
+  const int fallback = cc_uniform_idx(u_fb, s_gen.n_source);
   return cnt > 0 ? c.in.order[slot] : fallback;
 }
 
@@ -355,7 +367,7 @@ __device__ __forceinline__ float disk_sum(const Ctx& c, int b) {
 __device__ __forceinline__ float broker_disk_terms(const Ctx& c, int b, const DiskEdit& m,
                                                    float bsum) {
   const size_t o = (size_t)b * c.n.D;
-  return disk_terms(c.p, c.in.g[G_TOTAL_DISK_LOAD], c.n.D, c.in.disk_load + o,
+  return disk_terms(c.p, s_gen, c.in.g[G_TOTAL_DISK_LOAD], c.n.D, c.in.disk_load + o,
                     c.in.disk_capacity + o, c.in.disk_alive + o, c.in.alive[b], m, bsum);
 }
 
@@ -451,12 +463,12 @@ __device__ float move_delta_core(const Ctx& c, const Team<N>& tm, const BrokerRo
     }
   }
   // t2 = src after, t3 = dst after, t0 = src before, t1 = dst before
-  const float t = broker_terms<BF16>(c.p, c.in.g, br.cap, br.alive, !hr.multi, load, rc, lc, pot,
-                                     lbin);
+  const float t = broker_terms<BF16>(c.p, s_gen, c.in.g, br.cap, br.alive, !hr.multi, load, rc,
+                                     lc, pot, lbin);
   float delta = (tm.from(t, 0) + tm.from(t, 1)) - (tm.from(t, 2) + tm.from(t, 3));
 
   // host-granularity capacity (same-host moves cancel)
-  const float th = host_terms(c.p, hr.multi, hl, hr.hc);
+  const float th = host_terms(c.p, s_gen, hr.multi, hl, hr.hc);
   const float th0 = tm.from(th, 0), th2 = tm.from(th, 1);
   const float old_s = tm.from(th, 2), old_d = tm.from(th, 3);
   if (tm.from(br.host, 0) != tm.from(br.host, 1)) {
@@ -491,8 +503,8 @@ __device__ float move_delta_core(const Ctx& c, const Team<N>& tm, const BrokerRo
   const float dsum = as * (p_s2 - p_s) + ad * (p_d2 - p_d);
   const float dsumsq = as * (p_s2 * p_s2 - p_s * p_s) + ad * (p_d2 * p_d2 - p_d * p_d);
   const float s_old = c.in.g[G_PCT_SUM + L], sq_old = c.in.g[G_PCT_SUMSQ + L];
-  const float tn = tie_part(c.p, s_old + dsum, sq_old + dsumsq);
-  const float to = tie_part(c.p, s_old, sq_old);
+  const float tn = tie_part(s_gen, s_old + dsum, sq_old + dsumsq);
+  const float to = tie_part(s_gen, s_old, sq_old);
   const float tie_new =
       c.p.w_tie * (((tm.from(tn, 0) + tm.from(tn, 1)) + tm.from(tn, 2)) + tm.from(tn, 3));
   const float tie_old =
@@ -565,7 +577,7 @@ __device__ __forceinline__ void replica_load(const ReplicaRow& x, float out[4]) 
 __device__ int prior_dest(const Ctx& c, int t, float u) {
   const float* cdf = c.in.prior_cdf + (size_t)t * c.n.B;
   // the number of entries <= u: the first index whose value is > u
-  int lo = 0, hi = c.n.n_dest;
+  int lo = 0, hi = s_gen.n_dest;
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
     if (cdf[mid] <= u) {
@@ -574,7 +586,7 @@ __device__ int prior_dest(const Ctx& c, int t, float u) {
       hi = mid;
     }
   }
-  return min(lo, c.n.n_dest - 1);
+  return min(lo, s_gen.n_dest - 1);
 }
 
 // The most-free alive logdir of broker b (first on ties, argmin), the
@@ -595,6 +607,13 @@ __device__ int most_free_disk(const Ctx& c, int b, int skip) {
     }
   }
   return d_dst;
+}
+
+// Wait for the block's generation block: every commit group but the last
+// (the CDF's, empty where the block stages none) has landed.
+__device__ __forceinline__ void gen_wait() {
+  __pipeline_wait_prior(1);
+  __syncthreads();
 }
 
 // Wait for the block's staged CDF (block-uniform).
@@ -715,7 +734,8 @@ __device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, bool
     if (PRIOR && L == 2) k2 = &in.prior_keys[2 * krow + 1];
     u2 = draw_u(Draw{k2, (unsigned long long)i});
   }
-  int pos = cc_uniform_idx(tm.from(u1, 3), c.n.n_dest);
+  gen_wait();
+  int pos = cc_uniform_idx(tm.from(u1, 3), s_gen.n_dest);
   // without the prior the destination is drawn: its id is in flight
   // while the source is picked
   int dst = PRIOR ? 0 : in.dest_ids[pos];
@@ -787,7 +807,7 @@ __device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, bool
                         c.s.w_topic * topic_cell_delta(c, avg, cnt_ts, cnt_td),
                         c.s.w_offline * (f01(!dst_ok) - f01(offline)),
                         c.s.w_pref * (f01(now) - f01(was))};
-  const float den[4] = {c.p.n_valid, in.g[G_TOTAL_COUNT], c.p.n_valid, c.s.num_parts};
+  const float den[4] = {s_gen.n_valid, in.g[G_TOTAL_COUNT], s_gen.n_valid, c.s.num_parts};
   float quo[4];
   lane_quotients(tm, num, den, quo);
   delta = delta + quo[0];
@@ -815,6 +835,7 @@ __device__ void cand_intra(const Ctx& c, const Team<kTeam>& tm, int i, bool on, 
   // draws: (source, slot, fallback, Metropolis)
   const float u1 = draw_u(L < 3 ? source_draw(ks.rel_src, L, imp, i, i - n_uni)
                                 : Draw{&ks.u, (unsigned long long)i});
+  gen_wait();
   staged_wait(staged);
   const int r = team_source(c, tm, imp, u1, cdf);
   const float u_acc = tm.from(u1, 3);
@@ -848,7 +869,7 @@ __device__ void cand_intra(const Ctx& c, const Team<kTeam>& tm, int i, bool on, 
     const float td = broker_disk_terms(c, b, m, bsum);
     delta = tm.from(td, 0) - tm.from(td, 1);
   }
-  delta = delta + (c.s.w_offline * (f01(!dst_ok) - f01(off_src))) / c.p.n_valid;
+  delta = delta + (c.s.w_offline * (f01(!dst_ok) - f01(off_src))) / s_gen.n_valid;
   if (c.n.price_r) {
     delta = delta + in.replica_cost[0] * (f01(d_dst != orig) - f01(d_src != orig));
   }
@@ -873,8 +894,9 @@ __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, bool o
   const float u1 = draw_u(L < 3    ? source_draw(ks.swap_src, L, imp, i, i - n_uni)
                           : L == 3 ? Draw{&ks.swap_q, (unsigned long long)i}
                                    : Draw{&ks.u, (unsigned long long)(c.n.K_r + i)});
+  gen_wait();
   // q is drawn: its row is in flight while r is picked
-  const int q = cc_uniform_idx(tm.from(u1, 3), c.n.n_source);
+  const int q = cc_uniform_idx(tm.from(u1, 3), s_gen.n_source);
   const float u_acc = tm.from(u1, 4);
   ReplicaRow xq;
   load_replica(c, q, xq);
@@ -948,7 +970,7 @@ __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, bool o
   const float num[4] = {c.s.w_rack * (tm.from(rk, 0) + tm.from(rk, 4)),
                         c.s.w_topic * (tm.from(tc, 0) + tm.from(tc, 4)), c.s.w_offline * doff,
                         c.s.w_pref * (pd_r + pd_q)};
-  const float den[4] = {c.p.n_valid, in.g[G_TOTAL_COUNT], c.p.n_valid, c.s.num_parts};
+  const float den[4] = {s_gen.n_valid, in.g[G_TOTAL_COUNT], s_gen.n_valid, c.s.num_parts};
   float quo[4];
   lane_quotients(tm, num, den, quo);
   delta = delta + quo[0];
@@ -984,7 +1006,8 @@ __device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, bool
   // draws: (target, Metropolis)
   const float u1 = draw_u(L == 0 ? Draw{&ks.lead, (unsigned long long)i}
                                  : Draw{&ks.u, (unsigned long long)k});
-  const int rt = cc_uniform_idx(tm.from(u1, 0), c.n.n_source);
+  gen_wait();
+  const int rt = cc_uniform_idx(tm.from(u1, 0), s_gen.n_source);
   const float u_acc = tm.from(u1, 1);
   const int part = in.part_of[rt];
   const int dst = in.replica_broker[rt];
@@ -1092,15 +1115,21 @@ __global__ void __launch_bounds__(kThreads, 4) candidates_kernel(Ctx c) {
   } else {
     kind = 2, n = c.n.K_l, n_imp = 0, per = per_r, b -= nb_r + nb_s;
   }
-  // blocks holding importance-sampled sources stage the CDF (block-uniform),
-  // the copies in flight while the draws hash
+  // the generation block, then (in blocks holding importance-sampled
+  // sources, block-uniform) the CDF: two commit groups, the copies in
+  // flight while the draws hash
+  if (threadIdx.x < kGenWords) {
+    __pipeline_memcpy_async(reinterpret_cast<int*>(&s_gen) + threadIdx.x, c.in.gen + threadIdx.x,
+                            sizeof(int));
+  }
+  __pipeline_commit();
   const bool staged = c.n.cdf_in_smem && kind < 2 && n_imp > 0 && (b + 1) * per > n - n_imp;
   if (staged) {
     for (int j = threadIdx.x; j < c.n.B; j += kThreads) {
       __pipeline_memcpy_async(s_cdf + j, c.in.cdf + j, sizeof(float));
     }
-    __pipeline_commit();
   }
+  __pipeline_commit();
   const float* cdf = staged ? s_cdf : c.in.cdf;
   const int i_raw = b * per + threadIdx.x / (kind == 1 ? kSwapTeam : kTeam);
   const bool on = i_raw < n;
@@ -1150,6 +1179,7 @@ CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in
   if (K <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (n.intra && (n.K_s > 0 || n.K_l > 0 || n.prior)) return (int)cudaErrorInvalidValue;
+  if (in.gen == nullptr) return (int)cudaErrorInvalidValue;
   if (n.prior && (in.prior_keys == nullptr || in.prior_cdf == nullptr || in.prior_mix == nullptr ||
                   out.from_prior == nullptr)) {
     return (int)cudaErrorInvalidValue;

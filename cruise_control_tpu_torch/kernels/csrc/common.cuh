@@ -5,6 +5,32 @@
 
 #define CC_EXPORT extern "C" __attribute__((visibility("default")))
 
+// A model generation's values that the engine's kernels read from the
+// device, one fixed block an engine keeps across generations and each
+// rebind rewrites (kernels/move_delta.py `Generation`, field for field):
+// a captured graph bakes its launches' arguments, so what a generation
+// changes is data here, never an argument.  The inv_ words are the f32
+// reciprocals the engine's PyTorch ops multiply by on CUDA; no kernel
+// reads them.
+struct GenParams {
+  float w_cap_tc[4];       // capacity weight / total alive capacity
+  float w_cap_host_tc[4];  // the same, host resources only
+  float total_cap_nw_out;
+  float inv_total_cap_nw_out;
+  float n_valid;
+  float inv_n_valid;
+  float n_alive;
+  float inv_n_alive;
+  float total_disk_cap;
+  float inv_total_disk_cap;
+  int n_source;      // replica slots uniform source draws cover
+  int n_dest;        // real entries at the head of dest_ids
+  int n_brokers;     // valid brokers (clips the CDF search)
+  int shared_hosts;  // a host in range holds more than one broker
+};
+constexpr int kGenWords = sizeof(GenParams) / sizeof(int);
+static_assert(kGenWords == 20, "GenParams must match kernels/move_delta.py GEN_WORDS");
+
 static inline unsigned int cc_blocks(long long n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
 }

@@ -4,12 +4,13 @@
 // old/new), the host-capacity terms, and the dispersion tiebreak
 // (terms.cuh).  The engine's step runs the fused candidates kernel
 // (candidates.cu), which evaluates the same terms; this one stays as a
-// standalone check of them.
+// standalone check of them.  A generation's values come from its block
+// (`GenParams`), read by each thread before its candidate's loads.
 #include "terms.cuh"
 
 __global__ void move_delta_kernel(
-    int K, MDParams p, const float* __restrict__ g, const int* __restrict__ src,
-    const int* __restrict__ dst, const float* __restrict__ dload_src,
+    int K, MDParams p, const GenParams* __restrict__ gen, const float* __restrict__ g,
+    const int* __restrict__ src, const int* __restrict__ dst, const float* __restrict__ dload_src,
     const float* __restrict__ dload_dst, const int* __restrict__ dcount,
     const int* __restrict__ dlcount, const float* __restrict__ dpot,
     const float* __restrict__ dlbin, const float* __restrict__ dlbin_src,
@@ -21,6 +22,7 @@ __global__ void move_delta_kernel(
     const float* __restrict__ host_cap, float* __restrict__ out) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
+  const GenParams q = *gen;
   const int s = src[k];
   const int d = dst[k];
   float ls[4], ld[4], ls2[4], ld2[4], cap_s[4], cap_d[4];
@@ -38,13 +40,13 @@ __global__ void move_delta_kernel(
   const int dc = dcount[k], dlc = dlcount[k];
   const float dp = dpot[k];
 
-  const float t0 = broker_terms(p, g, cap_s, a_s, single_s, ls, rcount[s], lcount[s], bpot[s],
+  const float t0 = broker_terms(p, q, g, cap_s, a_s, single_s, ls, rcount[s], lcount[s], bpot[s],
                                 blbin[s]);
-  const float t1 = broker_terms(p, g, cap_d, a_d, single_d, ld, rcount[d], lcount[d], bpot[d],
+  const float t1 = broker_terms(p, q, g, cap_d, a_d, single_d, ld, rcount[d], lcount[d], bpot[d],
                                 blbin[d]);
-  const float t2 = broker_terms(p, g, cap_s, a_s, single_s, ls2, rcount[s] - dc, lcount[s] - dlc,
+  const float t2 = broker_terms(p, q, g, cap_s, a_s, single_s, ls2, rcount[s] - dc, lcount[s] - dlc,
                                 bpot[s] - dp, blbin[s] - dlbin_src[k]);
-  const float t3 = broker_terms(p, g, cap_d, a_d, single_d, ld2, rcount[d] + dc, lcount[d] + dlc,
+  const float t3 = broker_terms(p, q, g, cap_d, a_d, single_d, ld2, rcount[d] + dc, lcount[d] + dlc,
                                 bpot[d] + dp, blbin[d] + dlbin[k]);
   float delta = (t2 + t3) - (t0 + t1);
 
@@ -60,10 +62,10 @@ __global__ void move_delta_kernel(
       hc_d[r] = host_cap[h_d * 4 + r];
     }
     const bool m_s = host_multi[h_s], m_d = host_multi[h_d];
-    const float th0 = host_terms(p, m_s, hl_s2, hc_s);
-    const float th1 = host_terms(p, m_s, hl_s, hc_s);
-    const float th2 = host_terms(p, m_d, hl_d2, hc_d);
-    const float th3 = host_terms(p, m_d, hl_d, hc_d);
+    const float th0 = host_terms(p, q, m_s, hl_s2, hc_s);
+    const float th1 = host_terms(p, q, m_s, hl_s, hc_s);
+    const float th2 = host_terms(p, q, m_d, hl_d2, hc_d);
+    const float th3 = host_terms(p, q, m_d, hl_d, hc_d);
     delta = delta + (((th0 - th1) + th2) - th3);
   } else {
     delta = delta + 0.0f;
@@ -83,12 +85,13 @@ __global__ void move_delta_kernel(
     s_new[r] = s_old[r] + dsum;
     sq_new[r] = sq_old[r] + dsumsq;
   }
-  delta = delta + (tie_term(p, s_new, sq_new) - tie_term(p, s_old, sq_old));
+  delta = delta + (tie_term(p, q, s_new, sq_new) - tie_term(p, q, s_old, sq_old));
   out[k] = delta;
 }
 
-CC_EXPORT int cc_move_delta(int K, MDParams p, const void* g, const void* src, const void* dst,
-                            const void* dload_src, const void* dload_dst, const void* dcount,
+CC_EXPORT int cc_move_delta(int K, MDParams p, const void* gen, const void* g, const void* src,
+                            const void* dst, const void* dload_src, const void* dload_dst,
+                            const void* dcount,
                             const void* dlcount, const void* dpot, const void* dlbin,
                             const void* dlbin_src, const void* broker_load, const void* rcount,
                             const void* lcount, const void* bpot, const void* blbin,
@@ -98,8 +101,9 @@ CC_EXPORT int cc_move_delta(int K, MDParams p, const void* g, const void* src, c
   if (K <= 0) return 0;
   const int threads = 128;
   move_delta_kernel<<<cc_blocks(K, threads), threads, 0, (cudaStream_t)stream>>>(
-      K, p, (const float*)g, (const int*)src, (const int*)dst, (const float*)dload_src,
-      (const float*)dload_dst, (const int*)dcount, (const int*)dlcount, (const float*)dpot,
+      K, p, (const GenParams*)gen, (const float*)g, (const int*)src, (const int*)dst,
+      (const float*)dload_src, (const float*)dload_dst, (const int*)dcount, (const int*)dlcount,
+      (const float*)dpot,
       (const float*)dlbin, (const float*)dlbin_src, (const float*)broker_load,
       (const int*)rcount, (const int*)lcount, (const float*)bpot, (const float*)blbin,
       (const float*)capacity, (const bool*)alive, (const int*)broker_host,

@@ -27,7 +27,9 @@
 // (four counts and their four alive bytes a load, when B is a multiple of
 // 4) and a shuffle tree; integers, exact in any order.  What is left is
 // fixed latency: the launch, one round trip of loads, the trees, the
-// cluster barrier.
+// cluster barrier.  n_alive, a value of the model generation, is read from
+// the engine's generation block with the block's first loads (not passed
+// by value), so a captured round replays with the generation it runs on.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -59,6 +61,7 @@ struct GlobalsIn {
   const bool* disk_alive;  // [B, D]
   const float* disk_load;  // [B, D]
   const float* total_cap;  // [4]
+  const GenParams* gen;    // the engine's generation block: n_alive
 };
 
 constexpr int kThreads = 256;
@@ -104,8 +107,9 @@ __device__ __forceinline__ Row load_row(const GlobalsIn& in, int b, int D) {
   return r;
 }
 
-__device__ void topic_row(const GlobalsIn& in, int B, int t, bool vec, float n_alive, float* out,
+__device__ void topic_row(const GlobalsIn& in, int B, int t, bool vec, float* out,
                           int* warp_sum) {
+  const float n_alive = threadIdx.x == 0 ? in.gen->n_alive : 0.0f;
   int sum = 0;
   const int* row = in.topic_count + (size_t)t * B;
   if (vec) {
@@ -131,13 +135,12 @@ __device__ void topic_row(const GlobalsIn& in, int B, int t, bool vec, float n_a
 }
 
 __global__ void __launch_bounds__(kThreads) step_globals_kernel(GlobalsIn in, int B, int T, int D,
-                                                                float n_alive, int vec,
-                                                                float* out) {
+                                                                int vec, float* out) {
   __shared__ float warp_part[kNV][kWarps];
   __shared__ int warp_sum[kWarps];
   if (blockIdx.x >= kCluster) {  // a topic block (whole clusters of them)
     const int t = blockIdx.x - kCluster;
-    if (t < T) topic_row(in, B, t, vec != 0, n_alive, out, warp_sum);
+    if (t < T) topic_row(in, B, t, vec != 0, out, warp_sum);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -147,6 +150,7 @@ __global__ void __launch_bounds__(kThreads) step_globals_kernel(GlobalsIn in, in
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   // the epilogue's capacity totals, loaded now rather than at the end
   const float cap_total = blockIdx.x == 0 && threadIdx.x < 4 ? in.total_cap[threadIdx.x] : 0.0f;
+  const float n_alive = blockIdx.x == 0 && threadIdx.x == 0 ? in.gen->n_alive : 0.0f;
   float f[kNF];
   for (int k = 0; k < kNF; ++k) f[k] = 0.0f;
   int cnt = 0, lcnt = 0;
@@ -236,8 +240,7 @@ __global__ void __launch_bounds__(kThreads) step_globals_kernel(GlobalsIn in, in
   out[G_TOTAL_DISK] = __fadd_rn(total[13], 1e-12f);
 }
 
-CC_EXPORT int cc_step_globals(GlobalsIn in, int B, int T, int D, float n_alive, void* out,
-                              void* stream) {
+CC_EXPORT int cc_step_globals(GlobalsIn in, int B, int T, int D, void* out, void* stream) {
   // four counts and their four alive bytes a 16-byte load: rows of a
   // multiple of 4 counts, both arrays aligned
   const int vec = B % 4 == 0 && (uintptr_t)in.topic_count % 16 == 0 && (uintptr_t)in.alive % 4 == 0;
@@ -253,6 +256,6 @@ CC_EXPORT int cc_step_globals(GlobalsIn in, int B, int T, int D, float n_alive, 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, step_globals_kernel, in, B, T, D, n_alive, vec, (float*)out);
+      cudaLaunchKernelEx(&cfg, step_globals_kernel, in, B, T, D, vec, (float*)out);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

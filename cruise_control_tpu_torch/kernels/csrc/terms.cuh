@@ -17,12 +17,11 @@
 
 #include "common.cuh"
 
-// Goal weights, thresholds and statics scalars: mirror of
-// kernels/move_delta.py `MDParams` (field order matters).
+// Goal weights and thresholds, fixed by the engine's chain and constraint:
+// mirror of kernels/move_delta.py `MDParams` (field order matters).  What a
+// model generation changes (capacity totals, counts) is in `GenParams`.
 struct MDParams {
   float cth[4];
-  float w_cap_tc[4];
-  float w_cap_host_tc[4];
   float t_bal[4];
   float t_low[4];
   float w_dist[4];
@@ -31,7 +30,6 @@ struct MDParams {
   float w_replica_cap;
   float w_pot_nw_out;
   float cth_nw_out;
-  float total_cap_nw_out;
   float w_replica_dist;
   float t_rc;
   float t_rc_low;
@@ -41,8 +39,6 @@ struct MDParams {
   float w_lbin_dist;
   float t_lbin;
   float w_tie;
-  float n_valid;
-  float n_alive;
   // intra-broker disk goals (has_disk: either weighs in the chain)
   int has_disk;
   float w_intra_cap;
@@ -50,7 +46,6 @@ struct MDParams {
   float d_thresh;
   float t_disk;
   float t_disk_low;
-  float total_disk_cap;
 };
 
 // g layout (pack_globals): avg_pct[4] total_load[4] pct_sum[4] pct_sumsq[4]
@@ -85,7 +80,8 @@ struct TermSum {
 };
 
 template <bool BF16 = false>
-__device__ float broker_terms(const MDParams& p, const float* __restrict__ g, const float cap[4],
+__device__ float broker_terms(const MDParams& p, const GenParams& q, const float* __restrict__ g,
+                              const float cap[4],
                               bool alive, bool single, const float load[4], int rcount,
                               int lcount, float pot, float lbin) {
   // capacity goals (broker granularity)
@@ -93,17 +89,17 @@ __device__ float broker_terms(const MDParams& p, const float* __restrict__ g, co
   for (int r = 0; r < 4; ++r) {
     const float excess = cc_relu(load[r] - p.cth[r] * cap[r]);
     const bool gate = alive && (single || !p.host_res[r]);
-    const float t = (gate ? excess : 0.0f) * p.w_cap_tc[r];
+    const float t = (gate ? excess : 0.0f) * q.w_cap_tc[r];
     cap_t = (r == 0) ? t : cap_t + t;
   }
   TermSum<BF16> out;
   out.first(cap_t);
   // replica capacity
   float exc = cc_relu((float)(rcount - p.max_replicas));
-  out.add((p.w_replica_cap * (alive ? exc : 0.0f)) / p.n_valid);
+  out.add((p.w_replica_cap * (alive ? exc : 0.0f)) / q.n_valid);
   // potential nw out
   exc = cc_relu(pot - p.cth_nw_out * cap[2]);
-  out.add((p.w_pot_nw_out * (alive ? exc : 0.0f)) / p.total_cap_nw_out);
+  out.add((p.w_pot_nw_out * (alive ? exc : 0.0f)) / q.total_cap_nw_out);
   // resource distribution bands
   float s = 0.0f;
   for (int r = 0; r < 4; ++r) {
@@ -136,12 +132,12 @@ __device__ float broker_terms(const MDParams& p, const float* __restrict__ g, co
   return out.last((p.w_lbin_dist * (alive ? term : 0.0f)) / g[G_TOTAL_LBIN]);
 }
 
-__device__ float host_terms(const MDParams& p, bool multi, const float hload[4],
-                            const float hcap[4]) {
+__device__ float host_terms(const MDParams& p, const GenParams& q, bool multi,
+                            const float hload[4], const float hcap[4]) {
   float out = 0.0f;
   for (int r = 0; r < 4; ++r) {
     const float excess = cc_relu(hload[r] - p.cth[r] * hcap[r]);
-    const float t = (multi ? excess : 0.0f) * p.w_cap_host_tc[r];
+    const float t = (multi ? excess : 0.0f) * q.w_cap_host_tc[r];
     out = (r == 0) ? t : out + t;
   }
   return out;
@@ -149,16 +145,17 @@ __device__ float host_terms(const MDParams& p, bool multi, const float hload[4],
 
 // One resource's dispersion: the std of the alive brokers' utilization from
 // its sum s and sum of squares sq.
-__device__ __forceinline__ float tie_part(const MDParams& p, float s, float sq) {
-  const float mean = s / p.n_alive;
-  const float var = cc_relu(sq / p.n_alive - mean * mean);
+__device__ __forceinline__ float tie_part(const GenParams& q, float s, float sq) {
+  const float mean = s / q.n_alive;
+  const float var = cc_relu(sq / q.n_alive - mean * mean);
   return sqrtf(var + 1e-18f);
 }
 
-__device__ float tie_term(const MDParams& p, const float s[4], const float sq[4]) {
+__device__ float tie_term(const MDParams& p, const GenParams& q, const float s[4],
+                         const float sq[4]) {
   float out = 0.0f;
   for (int r = 0; r < 4; ++r) {
-    const float t = tie_part(p, s[r], sq[r]);
+    const float t = tie_part(q, s[r], sq[r]);
     out = (r == 0) ? t : out + t;
   }
   return p.w_tie * out;
@@ -185,7 +182,7 @@ __device__ __forceinline__ float disk_cell(const DiskEdit& m, int d, float v) {
 // IntraBrokerDiskCapacityGoal + IntraBrokerDiskUsageDistributionGoal of one
 // broker: its D logdirs' loads `row` edited by `m`, their sum `bsum`, its
 // logdirs' capacities and health, whether the broker is alive.
-__device__ float disk_terms(const MDParams& p, float total_disk_load, int D,
+__device__ float disk_terms(const MDParams& p, const GenParams& q, float total_disk_load, int D,
                             const float* __restrict__ row, const float* __restrict__ dcap,
                             const bool* __restrict__ dalive, bool alive, const DiskEdit& m,
                             float bsum) {
@@ -198,7 +195,7 @@ __device__ float disk_terms(const MDParams& p, float total_disk_load, int D,
     const float c = ok ? dcap[d] : 0.0f;
     bcap = d == 0 ? c : bcap + c;
   }
-  const float out = (p.w_intra_cap * cap_term) / p.total_disk_cap;
+  const float out = (p.w_intra_cap * cap_term) / q.total_disk_cap;
   const float avg_pct = bsum / (bcap + 1e-12f);
   float dist = 0.0f;
   for (int d = 0; d < D; ++d) {

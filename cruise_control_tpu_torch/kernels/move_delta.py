@@ -11,8 +11,11 @@ most, microseconds of HBM time, so launch latency dominates.  Design: one
 thread per candidate evaluates the four broker lanes (src/dst x old/new),
 the host-capacity terms and the dispersion tiebreak in registers and
 writes one f32; the per-step globals `g` arrive as a 22-float device
-vector so no host sync is needed, and goal weights and thresholds are a
-by-value parameter struct.  The arithmetic follows the plain version's
+vector so no host sync is needed, goal weights and thresholds are a
+by-value parameter struct (`TermParams`, fixed by the engine's chain and
+constraint), and the values a model generation changes (capacity totals,
+n_valid, n_alive) come from the engine's generation block on the device
+(`Generation`), so a captured call replays with the generation it runs on.  The arithmetic follows the plain version's
 order (sequential sums over the four resources, no multiply-add
 contraction), so the two agree to within f32 rounding of the sums.
 
@@ -34,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -60,14 +64,111 @@ def _f32(x) -> float:
     return float(_F32(x))
 
 
+#: the generation block's f32 words (name, length), then its i32 words:
+#: csrc/common.cuh `GenParams`, field for field.  The inv_ words are the
+#: f32 reciprocals that `div` multiplies by on CUDA
+GEN_F32 = (("w_cap_tc", 4), ("w_cap_host_tc", 4), ("total_cap_nw_out", 1),
+           ("inv_total_cap_nw_out", 1), ("n_valid", 1), ("inv_n_valid", 1), ("n_alive", 1),
+           ("inv_n_alive", 1), ("total_disk_cap", 1), ("inv_total_disk_cap", 1))
+GEN_I32 = ("n_source", "n_dest", "n_brokers", "shared_hosts")
+GEN_WORDS = 20  # sizeof(GenParams) / 4
+#: each f32 field's (offset, length) in the block
+_GEN_AT = {name: (at, n) for (name, n), at in
+           zip(GEN_F32, itertools.accumulate((n for _, n in GEN_F32), initial=0))}
+_N_F32 = sum(n for _, n in GEN_F32)
+
+
+@dataclasses.dataclass(eq=False)
+class Generation:
+    """A model generation's values that the kernels and the engine's
+    PyTorch ops read on the device: one i32[GEN_WORDS] block (`words`, its
+    f32 words viewed as f32) that an engine keeps across generations and
+    each rebind rewrites in place (`write`), so the graphs captured on it
+    read the values of the generation they run on.  Its other attributes
+    are views of the block: f32[4] `w_cap_tc` and `w_cap_host_tc` (a
+    capacity weight over the total alive capacity; host resources only),
+    0-d f32 `total_cap_nw_out`, `n_valid`, `n_alive`, `total_disk_cap` and
+    their `inv_` reciprocals, 0-d i32 `n_source`, `n_dest`, `n_brokers` and
+    `shared_hosts` (0/1).  A dataclass of one tensor, so that copies to
+    another device (`dataclasses.replace(gen, words=...)`) take their
+    views along."""
+
+    words: torch.Tensor
+
+    def __post_init__(self):
+        words = self.words
+        if words.dtype != torch.int32 or tuple(words.shape) != (GEN_WORDS,):
+            raise ValueError(f"a generation block is i32[{GEN_WORDS}], got {words.dtype}"
+                             f"{list(words.shape)}")
+        f = words[:_N_F32].view(torch.float32)
+        for name, (at, n) in _GEN_AT.items():
+            setattr(self, name, f[at] if n == 1 else f[at: at + n])
+        for i, name in enumerate(GEN_I32):
+            setattr(self, name, words[_N_F32 + i])
+
+    @staticmethod
+    def empty(device) -> "Generation":
+        return Generation(torch.zeros(GEN_WORDS, dtype=torch.int32, device=device))
+
+    @staticmethod
+    def host_words(cap_weights, total_cap: np.ndarray, *, n_valid: float, n_alive: float,
+                   total_disk_cap: float, n_source: int, n_dest: int, n_brokers: int,
+                   shared_hosts: bool) -> np.ndarray:
+        """The block's words of one generation: `cap_weights` are the
+        chain's capacity-goal weights by resource (None: no such goal),
+        `total_cap` the f32[4] total alive capacity, the rest its counts
+        and totals (f32 values where float)."""
+        total_cap = np.asarray(total_cap, _F32)
+        w_cap = np.asarray(cap_weights if cap_weights is not None else (0.0,) * NUM_RESOURCES, _F32)
+        w_cap_host = np.where(_HOST_RES, w_cap, _F32(0.0)).astype(_F32)
+        one = _F32(1.0)
+        nw_out = total_cap[int(Resource.NW_OUT)]
+        f = dict(
+            w_cap_tc=(w_cap / total_cap).astype(_F32),
+            w_cap_host_tc=(w_cap_host / total_cap).astype(_F32),
+            total_cap_nw_out=nw_out, inv_total_cap_nw_out=one / nw_out,
+            n_valid=_F32(n_valid), inv_n_valid=one / _F32(n_valid),
+            n_alive=_F32(n_alive), inv_n_alive=one / _F32(n_alive),
+            total_disk_cap=_F32(total_disk_cap), inv_total_disk_cap=one / _F32(total_disk_cap),
+        )
+        words = np.zeros(GEN_WORDS, np.int32)
+        words[:_N_F32] = np.concatenate(
+            [np.asarray(f[name], _F32).reshape(-1) for name, _ in GEN_F32]).view(np.int32)
+        words[_N_F32: _N_F32 + len(GEN_I32)] = [n_source, n_dest, n_brokers, int(shared_hosts)]
+        return words
+
+    def write(self, words: np.ndarray) -> None:
+        """A generation's words (`host_words`) into the block, in stream order."""
+        self.words.copy_(torch.from_numpy(words))
+
+    def values(self) -> dict:
+        """The block's values on the host (a blocking read): name -> float,
+        int or f32[4] array."""
+        w = self.words.cpu().numpy()
+        f = w[:_N_F32].view(np.float32)
+        out = {name: (f[at: at + n].copy() if n > 1 else float(f[at]))
+               for name, (at, n) in _GEN_AT.items()}
+        out.update({name: int(w[_N_F32 + i]) for i, name in enumerate(GEN_I32)})
+        return out
+
+
+def div(x: torch.Tensor, gen: Generation, name: str) -> torch.Tensor:
+    """x over the generation's f32 value `name`, with the bits PyTorch gives
+    for a division by that value as a Python float: on the CPU the IEEE
+    quotient; on CUDA, where PyTorch divides by a host scalar as the product
+    with its f32 reciprocal, that product (the block's `inv_` word)."""
+    if x.device.type == "cuda":
+        return x * getattr(gen, "inv_" + name)
+    return x / getattr(gen, name)
+
+
 @dataclasses.dataclass(frozen=True)
 class TermParams:
-    """Goal weights, thresholds and statics scalars of the objective terms,
-    as the f32 values the reference's traced program uses."""
+    """Goal weights and thresholds of the objective terms, fixed by the
+    engine's chain and constraint, as the f32 values the reference's
+    traced program uses.  A generation's values are its `Generation`."""
 
     cth: np.ndarray  # f32[4] capacity thresholds
-    w_cap_tc: np.ndarray  # f32[4] capacity weight / total alive capacity
-    w_cap_host_tc: np.ndarray  # f32[4] the same, host resources only
     t_bal: np.ndarray  # f32[4] balance thresholds
     t_low: np.ndarray  # f32[4] max(0, 2 - t_bal) in f32
     w_dist: np.ndarray  # f32[4] resource-distribution weights
@@ -75,7 +176,6 @@ class TermParams:
     w_replica_cap: float
     w_pot_nw_out: float
     cth_nw_out: float
-    total_cap_nw_out: float
     w_replica_dist: float
     t_rc: float
     t_rc_low: float
@@ -85,14 +185,11 @@ class TermParams:
     w_lbin_dist: float
     t_lbin: float
     w_tie: float
-    n_valid: float
-    n_alive: float
     # intra-broker disk goals (zero weights in the default chain)
     w_intra_cap: float
     w_intra_dist: float
     d_thresh: float
     t_disk: float
-    total_disk_cap: float
     #: bf16 accumulation of the broker terms (score_dtype "bfloat16")
     bf16: bool = False
     #: the f32[4] parameter vectors as tensors, per device (`on`)
@@ -104,30 +201,21 @@ class TermParams:
         key = str(device)
         got = self._on.get(key)
         if got is None:
-            names = ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist")
+            names = ("cth", "t_bal", "t_low", "w_dist")
             got = {n: torch.as_tensor(getattr(self, n), device=device) for n in names}
             got["host_res"] = torch.as_tensor(_HOST_RES, device=device)
             self._on[key] = got
         return got
 
     @staticmethod
-    def build(w, constraint, total_cap: np.ndarray, n_valid: float, n_alive: float,
-              total_disk_cap: float, bf16: bool = False) -> "TermParams":
-        """From an engine's goal weights (`engine._Weights`), its constraint
-        and the statics scalars (f32 values); `bf16`, the broker terms
-        accumulated in bf16."""
-        total_cap = np.asarray(total_cap, _F32)
-        w_cap = np.asarray(w.cap, _F32)
-        w_cap_host = np.asarray(
-            [w.cap[r] if _HOST_RES[r] else 0.0 for r in range(NUM_RESOURCES)], _F32
-        )
+    def build(w, constraint, bf16: bool = False) -> "TermParams":
+        """From an engine's goal weights (`engine._Weights`) and its
+        constraint; `bf16`, the broker terms accumulated in bf16."""
         t_bal = np.asarray(constraint.balance_threshold, _F32)
         t_rc = constraint.replica_count_balance_threshold
         t_lc = constraint.leader_replica_count_balance_threshold
         return TermParams(
             cth=np.asarray(constraint.capacity_threshold, _F32),
-            w_cap_tc=(w_cap / total_cap).astype(_F32),
-            w_cap_host_tc=(w_cap_host / total_cap).astype(_F32),
             t_bal=t_bal,
             t_low=np.maximum(_F32(0.0), _F32(2.0) - t_bal).astype(_F32),
             w_dist=np.asarray(w.res_dist, _F32),
@@ -135,7 +223,6 @@ class TermParams:
             w_replica_cap=_f32(w.replica_cap),
             w_pot_nw_out=_f32(w.pot_nw_out),
             cth_nw_out=_f32(constraint.capacity_threshold[int(Resource.NW_OUT)]),
-            total_cap_nw_out=float(total_cap[int(Resource.NW_OUT)]),
             w_replica_dist=_f32(w.replica_dist),
             t_rc=_f32(t_rc),
             t_rc_low=_f32(max(0.0, 2.0 - t_rc)),
@@ -145,13 +232,10 @@ class TermParams:
             w_lbin_dist=_f32(w.lbin_dist),
             t_lbin=_f32(constraint.balance_threshold[int(Resource.NW_IN)]),
             w_tie=_f32(w.tie),
-            n_valid=_f32(n_valid),
-            n_alive=_f32(n_alive),
             w_intra_cap=_f32(w.intra_cap),
             w_intra_dist=_f32(w.intra_dist),
             d_thresh=_f32(constraint.capacity_threshold[int(Resource.DISK)]),
             t_disk=constraint.balance_threshold[int(Resource.DISK)],
-            total_disk_cap=_f32(total_disk_cap),
             bf16=bf16,
         )
 
@@ -162,14 +246,15 @@ class TermParams:
     @functools.cached_property
     def c_struct(self) -> "MDParams":
         s = MDParams()
-        for name in ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist"):
+        vectors = ("cth", "t_bal", "t_low", "w_dist")
+        for name in vectors:
             getattr(s, name)[:] = [float(v) for v in getattr(self, name)]
         s.host_res[:] = [int(v) for v in _HOST_RES]
         # the f32 values the plain version's products round the disk
         # balance thresholds to (a Python float scalar times an f32 tensor)
         derived = dict(has_disk=int(self.has_disk_terms), t_disk_low=max(0.0, 2.0 - self.t_disk))
         for f, _ in MDParams._fields_:
-            if f not in ("cth", "w_cap_tc", "w_cap_host_tc", "t_bal", "t_low", "w_dist", "host_res"):
+            if f not in (*vectors, "host_res"):
                 setattr(s, f, derived[f] if f in derived else getattr(self, f))
         return s
 
@@ -179,8 +264,6 @@ class MDParams(ctypes.Structure):
 
     _fields_ = [
         ("cth", ctypes.c_float * 4),
-        ("w_cap_tc", ctypes.c_float * 4),
-        ("w_cap_host_tc", ctypes.c_float * 4),
         ("t_bal", ctypes.c_float * 4),
         ("t_low", ctypes.c_float * 4),
         ("w_dist", ctypes.c_float * 4),
@@ -189,7 +272,6 @@ class MDParams(ctypes.Structure):
         ("w_replica_cap", ctypes.c_float),
         ("w_pot_nw_out", ctypes.c_float),
         ("cth_nw_out", ctypes.c_float),
-        ("total_cap_nw_out", ctypes.c_float),
         ("w_replica_dist", ctypes.c_float),
         ("t_rc", ctypes.c_float),
         ("t_rc_low", ctypes.c_float),
@@ -199,15 +281,12 @@ class MDParams(ctypes.Structure):
         ("w_lbin_dist", ctypes.c_float),
         ("t_lbin", ctypes.c_float),
         ("w_tie", ctypes.c_float),
-        ("n_valid", ctypes.c_float),
-        ("n_alive", ctypes.c_float),
         ("has_disk", ctypes.c_int),
         ("w_intra_cap", ctypes.c_float),
         ("w_intra_dist", ctypes.c_float),
         ("d_thresh", ctypes.c_float),
         ("t_disk", ctypes.c_float),
         ("t_disk_low", ctypes.c_float),
-        ("total_disk_cap", ctypes.c_float),
     ]
 
 
@@ -224,9 +303,11 @@ def broker_terms(tp: TermParams, sx, b, load, rcount, lcount, pot, lbin, g) -> t
     ReplicaCapacityGoal, PotentialNwOutGoal, ResourceDistributionGoal,
     Replica/LeaderReplicaDistributionGoal, LeaderBytesInDistributionGoal.
     Each term is computed in f32; with `tp.bf16` their running sum is
-    bf16 (`accumulate_bf16`).
+    bf16 (`accumulate_bf16`).  The generation's values come from
+    `sx.gen`.
     """
     st = sx.state
+    gen = sx.gen
     v = tp.on(load.device)
     cap = st.broker_capacity[b]  # [..., 4]
     alive = sx.alive[b]
@@ -235,13 +316,13 @@ def broker_terms(tp: TermParams, sx, b, load, rcount, lcount, pot, lbin, g) -> t
     single = ~sx.host_multi[st.broker_host[b]]
     excess = relu(load - v["cth"] * cap)
     gate = alive[..., None] & (single[..., None] | ~v["host_res"])
-    terms.append((torch.where(gate, excess, 0.0) * v["w_cap_tc"]).sum(-1))
+    terms.append((torch.where(gate, excess, 0.0) * gen.w_cap_tc).sum(-1))
 
     exc = relu((rcount - tp.max_replicas).to(torch.float32))
-    terms.append(tp.w_replica_cap * torch.where(alive, exc, 0.0) / tp.n_valid)
+    terms.append(div(tp.w_replica_cap * torch.where(alive, exc, 0.0), gen, "n_valid"))
 
     exc = relu(pot - tp.cth_nw_out * cap[..., int(Resource.NW_OUT)])
-    terms.append(tp.w_pot_nw_out * torch.where(alive, exc, 0.0) / tp.total_cap_nw_out)
+    terms.append(div(tp.w_pot_nw_out * torch.where(alive, exc, 0.0), gen, "total_cap_nw_out"))
 
     # resource distribution bands
     upper = g["avg_pct"] * v["t_bal"] * cap
@@ -300,7 +381,7 @@ def host_terms(tp: TermParams, sx, h, hload) -> torch.Tensor:
     hcap = sx.host_cap[h]
     multi = sx.host_multi[h]
     excess = relu(hload - v["cth"] * hcap)
-    return (torch.where(multi[..., None], excess, 0.0) * v["w_cap_host_tc"]).sum(-1)
+    return (torch.where(multi[..., None], excess, 0.0) * sx.gen.w_cap_host_tc).sum(-1)
 
 
 def disk_terms(tp: TermParams, sx, b, disk_row, broker_disk_load, g) -> torch.Tensor:
@@ -310,7 +391,7 @@ def disk_terms(tp: TermParams, sx, b, disk_row, broker_disk_load, g) -> torch.Te
     dcap = st.disk_capacity[b]
     dalive = st.disk_alive[b] & sx.alive[b][..., None]
     cap_term = torch.where(dalive, relu(disk_row - tp.d_thresh * dcap), disk_row).sum(-1)
-    out = tp.w_intra_cap * cap_term / tp.total_disk_cap
+    out = div(tp.w_intra_cap * cap_term, sx.gen, "total_disk_cap")
     bcap = torch.where(dalive, dcap, 0.0).sum(-1, keepdim=True)
     avg_pct = broker_disk_load[..., None] / (bcap + 1e-12)
     upper = avg_pct * tp.t_disk * dcap
@@ -319,12 +400,12 @@ def disk_terms(tp: TermParams, sx, b, disk_row, broker_disk_load, g) -> torch.Te
     return out + tp.w_intra_dist * dist / g["total_disk_load"]
 
 
-def tie_term(tp: TermParams, pct_sum, pct_sumsq) -> torch.Tensor:
+def tie_term(tp: TermParams, gen: Generation, pct_sum, pct_sumsq) -> torch.Tensor:
     """Dispersion tiebreaker: sum over resources of the std of utilization
-    percentage.  Reduces ONLY the trailing resource axis."""
-    n = tp.n_alive
-    mean = pct_sum / n
-    var = relu(pct_sumsq / n - mean * mean)
+    percentage over the generation's n_alive brokers.  Reduces ONLY the
+    trailing resource axis."""
+    mean = div(pct_sum, gen, "n_alive")
+    var = relu(div(pct_sumsq, gen, "n_alive") - mean * mean)
     return tp.w_tie * exact_sqrt(var + 1e-18).sum(-1)
 
 
@@ -402,8 +483,8 @@ def move_delta_plain(
     dsum = a_s * (p_s2 - p_s) + a_d * (p_d2 - p_d)
     dsumsq = a_s * (p_s2 * p_s2 - p_s * p_s) + a_d * (p_d2 * p_d2 - p_d * p_d)
     return delta + (
-        tie_term(tp, g["pct_sum"] + dsum, g["pct_sumsq"] + dsumsq)
-        - tie_term(tp, g["pct_sum"], g["pct_sumsq"])
+        tie_term(tp, sx.gen, g["pct_sum"] + dsum, g["pct_sumsq"] + dsumsq)
+        - tie_term(tp, sx.gen, g["pct_sum"], g["pct_sumsq"])
     )
 
 
@@ -418,7 +499,7 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("move_delta").cc_move_delta
-        fn.argtypes = [ctypes.c_int, MDParams] + [ctypes.c_void_p] * 23
+        fn.argtypes = [ctypes.c_int, MDParams] + [ctypes.c_void_p] * 24
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -473,7 +554,7 @@ def move_delta_cuda(tp: TermParams, sx, carry, g, *, src, dst, dload_src, dload_
     if K == 0:
         return out
     ptrs = [
-        gvec, src, dst, dload_src, dload_dst, dcount, dlcount, dpot, dlbin, dlbin_src,
+        sx.gen.words, gvec, src, dst, dload_src, dload_dst, dcount, dlcount, dpot, dlbin, dlbin_src,
         carry.broker_load, carry.broker_replica_count, carry.broker_leader_count,
         carry.broker_potential_nw_out, carry.broker_leader_bytes_in,
         st.broker_capacity, sx.alive, st.broker_host, sx.host_multi, carry.host_load,

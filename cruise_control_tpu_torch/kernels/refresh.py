@@ -81,9 +81,17 @@ class HostGroups:
     group: Grouping
 
     @staticmethod
-    def of(broker_valid: torch.Tensor, broker_host: torch.Tensor, num_hosts: int) -> "HostGroups":
-        seg = torch.where(broker_valid, broker_host, num_hosts).to(torch.int32).contiguous()
-        return HostGroups(seg=seg, group=group_by_broker(seg, num_hosts))
+    def of(broker_valid: torch.Tensor, broker_host: torch.Tensor, num_hosts: int,
+           out: "HostGroups | None" = None) -> "HostGroups":
+        """The grouping of a cluster's brokers; with `out`, written into its
+        tensors in place (an engine's fixed buffers) and `out` returned."""
+        seg = torch.where(broker_valid, broker_host, num_hosts).to(torch.int32)
+        if out is None:
+            seg = seg.contiguous()
+            return HostGroups(seg=seg, group=group_by_broker(seg, num_hosts))
+        out.seg.copy_(seg)
+        group_by_broker(out.seg, num_hosts, out=out.group)
+        return out
 
 
 def refresh_plain(st: ClusterState, replica_broker, replica_is_leader, replica_disk, out: dict,

@@ -13,7 +13,9 @@ each thread a fixed slice in order, then fixed shuffle and pairwise trees;
 each block pushes its partials into block 0's shared memory (distributed
 shared memory) and, after one cluster barrier, block 0 adds them in a
 fixed tree, so the result is the same bits run after run.  Every other
-block sums one topic row with 16-byte loads, in integers.  The kernel's
+block sums one topic row with 16-byte loads, in integers.  n_alive, which
+a model generation sets, is read from the engine's generation block
+(`move_delta.Generation`) on the device, not passed by value.  The kernel's
 sums run in another order than PyTorch's, so the two agree to f32
 rounding.  (On the CPU the plain version adds the disk load in the
 reference's order; the intra-broker disk deltas divide by it.)
@@ -33,6 +35,7 @@ import torch
 
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.kernels import _build
+from cruise_control_tpu_torch.kernels import move_delta as md
 
 _FN = None
 #: (name, length) in the order of the output vector (csrc/step_globals.cu)
@@ -89,25 +92,25 @@ def globals_plain(sx, carry, out: torch.Tensor) -> dict:
         total_load=total_load,
         pct_sum=pct.sum(0),
         pct_sumsq=(pct * pct).sum(0),
-        avg_count=total_count / sx.n_alive,
+        avg_count=md.div(total_count, sx.gen, "n_alive"),
         total_count=torch.clamp(total_count, min=1.0),
-        avg_lcount=total_lcount / sx.n_alive,
+        avg_lcount=md.div(total_lcount, sx.gen, "n_alive"),
         total_lcount=torch.clamp(total_lcount, min=1.0),
-        avg_lbin=total_lbin / sx.n_alive,
+        avg_lbin=md.div(total_lbin, sx.gen, "n_alive"),
         total_lbin=total_lbin + 1e-12,
         total_disk_load=total_disk_load + 1e-12,
     )
     g = unpack(out)
     for name, _ in LAYOUT:
         g[name].copy_(vals[name])
-    g["topic_avg"].copy_(topic_total.to(torch.float32) / sx.n_alive)
+    g["topic_avg"].copy_(md.div(topic_total.to(torch.float32), sx.gen, "n_alive"))
     return g
 
 
 class _In(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in (
         "alive", "broker_load", "capacity", "rcount", "lcount", "lbin", "topic_count",
-        "disk_alive", "disk_load", "total_cap",
+        "disk_alive", "disk_load", "total_cap", "gen",
     )]
 
 
@@ -115,8 +118,8 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.library("step_globals").cc_step_globals
-        fn.argtypes = [_In, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [_In, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -147,10 +150,11 @@ def globals_cuda(sx, carry, out: torch.Tensor) -> dict:
         disk_alive=_ptr("disk_alive", st.disk_alive, b8, (B, D)),
         disk_load=_ptr("disk_load", carry.disk_load, f32, (B, D)),
         total_cap=_ptr("total_cap", sx.total_cap, f32, (4,)),
+        gen=_ptr("gen", sx.gen.words, i32, (md.GEN_WORDS,)),
     )
     buf = _ptr("out", out, f32, (size(T),))
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    status = _fn()(c_in, B, T, D, sx.n_alive, buf, stream)
+    status = _fn()(c_in, B, T, D, buf, stream)
     _build.check(status, "step_globals")
     kernels.count("step_globals")
     return unpack(out)

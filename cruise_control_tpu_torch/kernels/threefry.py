@@ -62,7 +62,12 @@ def uniform_plain(key, n, minval, maxval, device) -> torch.Tensor:
 
 
 def uniform_idx_plain(key, n, bound, device) -> torch.Tensor:
+    """min(int(u * bound), bound - 1) of n draws; `bound` an int or a 0-d
+    i32 tensor (a generation's count, read on the device)."""
     u = unit_floats_plain(key, n, device)
+    if isinstance(bound, torch.Tensor):
+        idx = (u * bound.to(torch.float32)).to(torch.int32)
+        return torch.minimum(idx, bound - 1)
     idx = (u * float(np.float32(bound))).to(torch.int32)
     return torch.clamp(idx, max=bound - 1)
 

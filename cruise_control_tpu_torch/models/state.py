@@ -274,6 +274,24 @@ def replica_members(valid: np.ndarray, part: np.ndarray, pos: np.ndarray,
     return table
 
 
+def member_width(state: ClusterState) -> int:
+    """The width of the state's member table (`replica_members`' max_rf:
+    the most valid replicas of one partition, at least 1), without
+    building the table where the state has none yet: one count on the
+    state's device and one small read.  With the shape, it sizes an
+    engine's buffers and the graphs captured on them."""
+    table = vars(state).get("members")
+    if table is not None:
+        return int(table.shape[1])
+    P = state.shape.P
+    if P == 0:
+        return 1
+    part = torch.where(state.replica_valid, state.replica_partition.long().clamp(0, P), P)
+    counts = torch.zeros(P + 1, dtype=torch.int32, device=state.device)
+    counts.scatter_add_(0, part, torch.ones_like(part, dtype=torch.int32))
+    return max(1, int(counts[:P].max()))
+
+
 #: check names for validate_on_device's count vector, in order
 DEVICE_CHECKS = (
     "broker ids out of range",

@@ -91,7 +91,7 @@ class Rightsizer:
         self.sensors = sensors
         #: the last rightsize's anneals in the order they ran: brokers,
         #: feasible, and the evaluator's record of the anneal
-        #: (engine_cache_hit, captured, wall_s)
+        #: (engine_cache_hit, captured, captures, bucket, wall_s)
         self.last_anneals: list[dict] = []
 
     # ------------------------------------------------------------------

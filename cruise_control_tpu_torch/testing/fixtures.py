@@ -394,3 +394,74 @@ def prior_table(shape: ClusterShape, seed: int = 0, mix: float = 0.5):
         hot = rng.choice(B, size=min(B, int(rng.integers(1, 6))), replace=False)
         w[t, hot] = rng.uniform(0.5, 4.0, hot.size).astype(np.float32)
     return PriorTable(weights=w, mix=mix, observations=float(w.sum()))
+
+
+def set_offline_rows(a: dict) -> None:
+    """replica_offline of the arrays' liveness."""
+    ok = a["broker_alive"][a["replica_broker"]] & a["disk_alive"][a["replica_broker"], a["replica_disk"]]
+    a["replica_offline"] = a["replica_valid"] & ~ok
+
+
+def _drop_partition(a: dict, part: int) -> None:
+    """The partition's replica rows made padding rows (as the builder pads)."""
+    rows = a["replica_valid"] & (a["replica_partition"] == part)
+    pad = int(np.nonzero(~a["replica_valid"])[0][-1])
+    for f, v in a.items():
+        if f.startswith("replica_"):
+            v[rows] = v[pad]
+
+
+def generation_sequence(base: dict) -> list[tuple[str, dict, dict]]:
+    """Model generations of one shape, each the `base` arrays (a state's
+    fields as host numpy arrays, by name, with padding replica rows and at
+    least one padding broker) with one change to a value an engine derives
+    from a generation: the loads, liveness (n_alive, a dead broker's
+    offline rows), a broker's capacity (the capacity totals and their
+    weights), a logdir's capacity (total_disk_cap), offline rows (a dead
+    logdir), n_valid with the replicas still front-packed, n_source with a
+    hole in the replica rows, n_dest (the options' excluded brokers),
+    n_brokers (the first padding broker made real) and shared_hosts (two
+    brokers on one host).  Returns (name, arrays, OptimizationOptions
+    keyword arguments) for each."""
+    B = base["broker_valid"].size
+    n_real = int(base["broker_valid"].sum())
+    parts = base["replica_partition"][base["replica_valid"]]
+    out = []
+
+    def gen(name, edit, **opts):
+        a = {f: v.copy() for f, v in base.items()}
+        edit(a)
+        out.append((name, a, opts))
+
+    gen("loads", lambda a: a["replica_load_leader"].__imul__(np.float32(1.3)))
+
+    def dead(a):
+        a["broker_alive"][1] = False
+        a["disk_alive"][1] = False
+        set_offline_rows(a)
+
+    gen("liveness", dead)
+    gen("capacity", lambda a: a["broker_capacity"][2].__imul__(np.float32(2.0)))
+    gen("disk_capacity", lambda a: a["disk_capacity"][3].__imul__(np.float32(1.5)))
+
+    def dead_disk(a):
+        a["disk_alive"][0, 0] = False
+        set_offline_rows(a)
+
+    gen("offline_rows", dead_disk)
+    gen("n_valid", lambda a: _drop_partition(a, int(parts.max())))
+    gen("n_source", lambda a: _drop_partition(a, int(parts.min())))
+    gen("n_dest", lambda a: None, excluded_brokers_for_replica_move=np.arange(B) == 4)
+
+    def new_broker(a):
+        b = n_real
+        a["broker_valid"][b] = a["broker_alive"][b] = a["broker_new"][b] = True
+        a["broker_capacity"][b] = a["broker_capacity"][0]
+        a["disk_capacity"][b] = a["disk_capacity"][0]
+        a["disk_alive"][b] = True
+        a["broker_rack"][b] = 0
+        a["broker_host"][b] = b
+
+    gen("n_brokers", new_broker)
+    gen("shared_hosts", lambda a: a["broker_host"].__setitem__(3, a["broker_host"][2]))
+    return out

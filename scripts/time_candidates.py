@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's candidates kernel of one checkout on one GPU in each variant, and hold two checkouts' outputs bit for bit.
+"""Time the port's step kernels of one checkout on one GPU in each variant, and hold two checkouts' outputs bit for bit.
 
     python3 scripts/time_candidates.py DIR OUT.npz [--cdf both]
     python3 scripts/time_candidates.py --compare A.npz B.npz [...]
@@ -27,9 +27,13 @@ alone (the other kinds' counts set to 0: relocations, swaps, leadership
 transfers).  With `--cdf both`, the default and per-kind cases are timed
 again with the broker CDF probed from global memory, as the kernel does
 where it does not fit in shared memory (`CDF_SMEM_MAX` set to 0 for the
-run).  Every output field of every case (the bundle, both
-payloads, the took-the-prior mask) goes into OUT.npz; one JSON line holds
-the times.
+run).  The same step's `step_globals` and `apply_moves` calls are recorded
+too, and each variant's are run and timed as cases of their own
+(`<variant>:step_globals`, `<variant>:apply_moves`; apply_moves on a copy
+of the step's carry, then back to back on one carry).  Every output field
+of every case (the bundle, both payloads, the took-the-prior mask; the
+globals vector; the SHA-256 of each array of the carry after one scatter)
+goes into OUT.npz; one JSON line holds the times.
 
 The second form compares the files' arrays byte for byte, case by case
 and field by field, prints one JSON line, and exits 1 on any difference.
@@ -39,6 +43,7 @@ It needs a CUDA device, nvcc and nvidia-smi for the first form.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import re
@@ -81,23 +86,66 @@ def ptxas_report(root: Path) -> list[str]:
 
 
 def record_step(cs, state, chain, cfg, prior=None):
-    """DIR's engine of `cfg` and the recorded candidates call of its first
-    step at T=0."""
+    """DIR's engine of `cfg`, the recorded candidates call of its first
+    step at T=0, and that step's step_globals and apply_moves calls (name
+    -> (args, kwargs))."""
     import torch
 
     from cruise_control_tpu_torch.analyzer import Engine
     from cruise_control_tpu_torch.analyzer.draws import Key
+    from cruise_control_tpu_torch.kernels import apply as apply_k
     from cruise_control_tpu_torch.kernels import candidates as cand_k
+    from cruise_control_tpu_torch.kernels import step_globals as glob_k
 
     kw = {} if prior is None else {"prior": prior}
     eng = Engine(state, chain, config=cfg, **kw)
     carry = eng.init_carry(Key.from_seed(cfg.seed))
     plan = eng.plan(carry)
-    with cs.Capture([(cand_k, "candidates")]) as cap:
+    with cs.Capture([(cand_k, "candidates"), (glob_k, "step_globals"),
+                     (apply_k, "apply_moves")]) as cap:
         eng.step(carry, 0.0, plan)
     torch.cuda.synchronize()
     (args, kw), = cap.calls["candidates"]
-    return eng, args, kw
+    step = {name: cap.calls[name][0] for name in ("step_globals", "apply_moves")}
+    return eng, args, kw, step
+
+
+def digest(a: np.ndarray) -> np.ndarray:
+    """The SHA-256 of an array's dtype, shape and bytes, as u8[32]: what
+    the comparison holds byte for byte in place of a carry's arrays (a
+    north-star carry is ~50 MB, most of it the partition x rack counts)."""
+    h = hashlib.sha256(f"{a.dtype}{a.shape}".encode())
+    h.update(np.ascontiguousarray(a).tobytes())
+    return np.frombuffer(h.digest(), np.uint8).copy()
+
+
+def run_step_kernels(cs, name: str, step: dict, arrays: dict, times: dict) -> None:
+    """The step's step_globals and apply_moves calls as cases of their own:
+    outputs (the globals vector; the carry after one scatter into a copy of
+    the step's carry) into `arrays`, times into `times`."""
+    import torch
+
+    from cruise_control_tpu_torch.kernels import apply as apply_k
+    from cruise_control_tpu_torch.kernels import step_globals as glob_k
+
+    (sx, carry, *_), _ = step["step_globals"]
+    buf = torch.empty(glob_k.size(sx.state.shape.num_topics), dtype=torch.float32,
+                      device=carry.broker_load.device)
+    glob_k.step_globals(sx, carry, buf)
+    arrays[f"{name}:step_globals/vec"] = buf.cpu().numpy()
+    rec = cs.measure(lambda: glob_k.step_globals(sx, carry, buf))
+    times[f"{name}:step_globals"] = dict(ms=rec["ms"], own_kernel_ms=rec["own_kernel_ms"],
+                                          call_ms=rec["call_ms"], by_kernel=rec["by_kernel"])
+    (sx, carry, *rest), kw = step["apply_moves"]
+    scratch = carry.clone()
+    apply_k.apply_moves(sx, scratch, *rest, **kw)
+    for f, v in vars(scratch).items():
+        if isinstance(v, torch.Tensor):
+            arrays[f"{name}:apply_moves/{f}"] = digest(v.cpu().numpy())
+    rec = cs.measure(lambda: apply_k.apply_moves(sx, scratch, *rest, **kw))
+    times[f"{name}:apply_moves"] = dict(ms=rec["ms"], own_kernel_ms=rec["own_kernel_ms"],
+                                         call_ms=rec["call_ms"], by_kernel=rec["by_kernel"],
+                                         survivors=int(rest[0].sum()) + int(rest[2].sum()))
 
 
 def outputs(bundle) -> dict:
@@ -169,8 +217,9 @@ def main(tree: str, out: str, cdf: str = "staged") -> int:
     cfg = OptimizerConfig(**cs.SEARCH)
     arrays, times = {}, {}
     state = random_cluster_fast(RandomClusterSpec(**cs.NORTH_STAR_SPEC), seed=42, device="cuda")
-    eng, args, kw = record_step(cs, state, DEFAULT_CHAIN, cfg)
+    eng, args, kw, step = record_step(cs, state, DEFAULT_CHAIN, cfg)
     run_case(cs, cand_k, "default", args, kw, arrays, times)
+    run_step_kernels(cs, "default", step, arrays, times)
     hot = torch.full((1,), 1e-3, dtype=torch.float32, device="cuda")
     run_case(cs, cand_k, "default_t", (*args[:6], hot), kw, arrays, times)
     per_kind(cs, cand_k, "default", args, kw, times)
@@ -179,15 +228,16 @@ def main(tree: str, out: str, cdf: str = "staged") -> int:
         run_case(cs, cand_k, "default_l1", args, kw, arrays, times)
         per_kind(cs, cand_k, "default_l1", args, kw, times)
         cand_k.CDF_SMEM_MAX = kept
-    del eng, args, kw
+    del eng, args, kw, step
     variants = (
         ("prior", dataclasses.replace(cfg, prior_enabled=True), prior_table(state.shape, 0, 0.5)),
         ("bf16", dataclasses.replace(cfg, score_dtype="bfloat16"), None),
     )
     for name, vcfg, prior in variants:
-        eng, args, kw = record_step(cs, state, DEFAULT_CHAIN, vcfg, prior)
+        eng, args, kw, step = record_step(cs, state, DEFAULT_CHAIN, vcfg, prior)
         run_case(cs, cand_k, name, args, kw, arrays, times)
-        del eng, args, kw
+        run_step_kernels(cs, name, step, arrays, times)
+        del eng, args, kw, step
     del state
     torch.cuda.empty_cache()
     jbod = random_cluster_fast(RandomClusterSpec(**{**cs.MID_SPEC, "disks_per_broker": 4}), seed=42,
@@ -197,9 +247,10 @@ def main(tree: str, out: str, cdf: str = "staged") -> int:
         ("intra", GoalChain.from_names(list(DEFAULT_INTRA_BROKER_GOAL_ORDER)),
          dataclasses.replace(cfg, intra_broker=True)),
     ):
-        eng, args, kw = record_step(cs, jbod, chain, vcfg)
+        eng, args, kw, step = record_step(cs, jbod, chain, vcfg)
         run_case(cs, cand_k, name, args, kw, arrays, times)
-        del eng, args, kw
+        run_step_kernels(cs, name, step, arrays, times)
+        del eng, args, kw, step
     np.savez(out, **arrays)
     print(json.dumps({"tree": str(root), "card": smi, "ptxas": ptxas, "times": times}), flush=True)
     return 0

@@ -166,7 +166,7 @@ def test_eviction_waits_for_the_last_unpin(states, release_log, monkeypatch):
     opt.optimize(sb)  # a miss: publishes B's engine and evicts A's, pinned
     assert engine_a._cc_evicted and engine_a._cc_pins == 1
     assert id(engine_a) not in [e for e, _ in release_log]
-    assert (sb.shape, opt.config) in opt._engines and not opt.has_engine_for(sa.shape)
+    assert opt.has_engine_for(sb.shape) and not opt.has_engine_for(sa.shape)
     go_on.set()
     t.join()
     assert out["a"] == want_a

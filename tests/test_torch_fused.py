@@ -40,6 +40,7 @@ from cruise_control_tpu_torch.convert import from_jax_arrays
 from cruise_control_tpu_torch.kernels import schedule as sk
 from cruise_control_tpu_torch.kernels.group import group_by_broker
 from cruise_control_tpu_torch.kernels.refresh import AGG_FIELDS
+from cruise_control_tpu_torch.models.builder import prewarm_state
 from cruise_control_tpu_torch.models.state import STATE_FIELDS
 from cruise_control_tpu_torch.testing import fixtures as tf
 
@@ -299,11 +300,11 @@ def test_schedule_plain_matches_jax(decay):
 
 
 def test_rebind_keeps_the_run_buffers_only_for_equal_statics():
-    """A repeated request (equal statics) keeps the run's buffers (and, on
-    the card, its captured graphs), and so does a generation with new loads
-    only (the loads are data, copied into the engine's own tensors);
-    another generation releases them.  Either way the next run is a fresh
-    engine's."""
+    """Every generation of the engine's bucket keeps the run's buffers (and,
+    on the card, its captured graphs): a repeated request, new loads, other
+    capacities; each is copied into the engine's own tensors.  Only a
+    member table of another width (max_rf), which the shape does not fix,
+    releases them.  Either way the next run is a fresh engine's."""
     st = tf.dead_broker_cluster("cpu")
     te = TEngine(st, T_CHAIN, config=TConfig(**FAST))
     te.run()
@@ -311,12 +312,11 @@ def test_rebind_keeps_the_run_buffers_only_for_equal_statics():
     te.rebind(tf.dead_broker_cluster("cpu"))
     assert te._ws is ws
     loads = dataclasses.replace(st, replica_load_leader=st.replica_load_leader * 1.5)
-    te.rebind(loads)
-    assert te._ws is ws
     other = dataclasses.replace(loads, broker_capacity=st.broker_capacity * 2.0)
-    for gen in (loads, other):
+    wider = prewarm_state(st.shape, max_rf=te.max_rf + 1, device="cpu")
+    for gen in (loads, other, wider):
         te.rebind(gen)
-        assert (te._ws is ws) == (gen is loads)
+        assert (te._ws is ws) == (gen is not wider)
         a, ha = te.run()
         b, hb = TEngine(gen, T_CHAIN, config=TConfig(**FAST)).run()
         assert torch.equal(a.replica_broker, b.replica_broker)

@@ -605,6 +605,17 @@ CAND_VARIANTS = ("default", "prior", "bf16", "disk_terms", "intra")
 PARTIAL_SPLITS = {"odd": (101, 7, 13), "no_swaps": (70, 0, 9), "one_each": (3, 1, 1)}
 
 
+def _variant_engine(variant: str, state, **search):
+    """(chain, config, prior) of a candidates variant's engine on `state`:
+    CFG, or CFG with `search`'s fields."""
+    names = {"disk_terms": CONFIG3_CHAIN, "intra": DEFAULT_INTRA_BROKER_GOAL_ORDER}
+    chain = GoalChain.from_names(list(names[variant])) if variant in names else DEFAULT_CHAIN
+    prior = fixtures.prior_table(state.shape, 1, 0.5) if variant == "prior" else None
+    cfg = dataclasses.replace(CFG, prior_enabled=prior is not None, intra_broker=variant == "intra",
+                              score_dtype="bfloat16" if variant == "bf16" else "float32", **search)
+    return chain, cfg, prior
+
+
 def _variant_step(cuda, variant: str, fixture: str, split=None, with_plan=True, rf=None):
     """One step's inputs of a candidates variant on a fixture: random_cluster
     (20 brokers, 400 partitions; 2 logdirs a broker for the disk terms and
@@ -618,11 +629,7 @@ def _variant_step(cuda, variant: str, fixture: str, split=None, with_plan=True, 
         state = random_cluster(RandomClusterSpec(**spec), seed=2 + (rf or 0), device=cuda)
     else:
         state = getattr(fixtures, fixture)(cuda)
-    names = {"disk_terms": CONFIG3_CHAIN, "intra": DEFAULT_INTRA_BROKER_GOAL_ORDER}
-    chain = GoalChain.from_names(list(names[variant])) if variant in names else DEFAULT_CHAIN
-    prior = fixtures.prior_table(state.shape, 1, 0.5) if variant == "prior" else None
-    cfg = dataclasses.replace(CFG, prior_enabled=prior is not None, intra_broker=variant == "intra",
-                              score_dtype="bfloat16" if variant == "bf16" else "float32")
+    chain, cfg, prior = _variant_engine(variant, state)
     if split is not None:
         n, s, l = split
         cfg = dataclasses.replace(cfg, num_candidates=n, swap_candidates=s, leadership_candidates=l)
@@ -1019,8 +1026,11 @@ def _globals_case(B: int, T: int, D: int, device):
         shape=SimpleNamespace(B=B, num_topics=T, max_disks_per_broker=D),
         broker_capacity=t(cap), disk_alive=t(rng.random((B, D)) < 0.9),
     )
-    sx = SimpleNamespace(state=state, alive=t(alive), total_cap=t(cap[alive].sum(0)),
-                         n_alive=float(alive.sum()))
+    gen = md.Generation.empty(device)
+    gen.write(md.Generation.host_words(None, cap[alive].sum(0), n_valid=1.0,
+                                       n_alive=float(alive.sum()), total_disk_cap=1.0, n_source=1,
+                                       n_dest=1, n_brokers=B, shared_hosts=False))
+    sx = SimpleNamespace(state=state, alive=t(alive), total_cap=t(cap[alive].sum(0)), gen=gen)
     carry = SimpleNamespace(
         broker_load=t((cap * rng.uniform(0.0, 1.2, (B, 4))).astype(np.float32)),
         broker_replica_count=t(rng.integers(0, 400, B).astype(np.int32)),
@@ -1120,9 +1130,13 @@ def test_graph_route_matches_legacy_at_t0(cuda):
         assert torch.equal(getattr(final_f, f), getattr(again, f)), f
     timing = next(h for h in hist_f if h.get("timing"))
     assert timing["fused"] is True and timing["blocking_syncs"] == 1
-    # one candidates launch per step that ran (plus the capture's warm-up step)
-    assert launches["candidates"] == cfg.steps_per_round * len(rounds) + 1
-    assert launches["round_schedule"] >= 3 * (cfg.num_rounds + cfg.extra_round_budget)
+    # one candidates launch per step that ran; the capture's warm-up step
+    # counts into the capture's own record
+    assert launches["candidates"] == cfg.steps_per_round * len(rounds)
+    assert eng.graph_stats["captures"][0]["warmup_launches"]["candidates"] == 1
+    # INIT in the init graph, three a loop iteration and EXIT (the capture's
+    # warm-up INIT counts into the capture's record, as above)
+    assert launches["round_schedule"] == 3 * timing["loop_iterations"] + 2
     assert eng.graph_stats["captures"][0]["nodes"]["body"][1] > 0
 
 
@@ -1607,3 +1621,178 @@ def test_score_state_graph_equals_eager(cuda):
         want = compute_stats(s)
         for f in dataclasses.fields(stats):
             assert torch.equal(getattr(stats, f.name), getattr(want, f.name).cpu()), f.name
+
+
+def _generation(state, kind: str):
+    """Another model generation of the state's shape: three brokers dead
+    (liveness, n_alive, capacity totals, destinations, offline rows), two
+    brokers on one host (shared_hosts), or other capacities (the capacity
+    totals and their weights)."""
+    if kind == "dead_brokers":
+        alive = state.broker_alive.clone()
+        alive[-3:] = False
+        offline = state.replica_valid & ~alive[state.replica_broker]
+        return dataclasses.replace(state, broker_alive=alive, disk_alive=state.disk_alive & alive[:, None],
+                                   replica_offline=state.replica_offline | offline)
+    if kind == "shared_hosts":
+        host = state.broker_host.clone()
+        host[1] = host[0]
+        return dataclasses.replace(state, broker_host=host)
+    return dataclasses.replace(state, broker_capacity=state.broker_capacity * 1.7)
+
+
+@pytest.mark.parametrize("kind", ["dead_brokers", "shared_hosts", "capacity"])
+@pytest.mark.parametrize("variant", ["default", "disk_terms"])
+def test_rebound_generation_kernels_match_plain(cuda, variant, kind):
+    """After a rebind to another generation of the shape, the kernels read
+    the generation block's new values: candidates, step_globals and
+    apply_moves against their plain versions on the new generation's step,
+    and the engine's captured graphs replay the new generation: its run is
+    a fresh engine's, bit for bit."""
+    from types import SimpleNamespace
+
+    from cruise_control_tpu_torch.kernels import step_globals as gk
+
+    eng, *_ = _variant_step(cuda, variant, "random")
+    eng.run()  # captures the graphs on the first generation
+    words = eng.statics.gen.words
+    gen = _generation(eng._state, kind)
+    eng.rebind(gen)
+    assert eng.statics.gen.words is words and eng._ws.graphs
+    if kind == "shared_hosts":
+        assert eng.statics.gen.values()["shared_hosts"] == 1
+    carry = eng.init_carry(Key.from_seed(7))
+    plan = eng.plan(carry)
+    g = eng._globals(carry)
+    keys = cand_k.StepKeys.of(carry.key, intra=False, prior=False)
+    prop = _candidates_against_plain(cuda, eng, carry, g, keys, plan, True, some_accepted=False)
+    T = eng.shape.num_topics
+    want = gk.globals_plain(eng.statics, carry, torch.empty(gk.size(T), device=cuda))
+    got = gk.step_globals(eng.statics, carry, torch.empty(gk.size(T), device=cuda))
+    for k, v in want.items():
+        assert torch.allclose(got[k], v, rtol=1e-6, atol=0.0), k
+    nr, ns = prop["nr"], prop["ns"]
+    survive, sv_r, _ = select_k.select_survivors(
+        prop["accept"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
+        num_brokers=eng.shape.B, num_parts=eng.shape.P, n_r=nr, n_s=ns,
+    )
+    # the plain scatter on the CPU, which adds in the reference's order
+    # where a host holds several brokers (CUDA's index_add_ would not)
+    ck, cp = carry.clone(), _to(carry, "cpu")
+    sx_cpu = SimpleNamespace(state=_to(eng.statics.state, "cpu"))
+    apply_k.apply_moves(eng.statics, ck, sv_r, prop["payr"], survive[nr + ns:], prop["payl"])
+    apply_k.apply_plain(sx_cpu, cp, sv_r.cpu(), {k: v.cpu() for k, v in prop["payr"].items()},
+                        survive[nr + ns:].cpu(), {k: v.cpu() for k, v in prop["payl"].items()})
+    for f in _tensor_fields(ck):
+        assert torch.equal(getattr(ck, f).cpu(), getattr(cp, f)), f
+    final, hist = eng.run()
+    assert next(h for h in hist if h.get("timing"))["captured"] == []
+    fresh, fresh_hist = Engine(gen, eng.chain, config=eng.config).run()
+    for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+        assert torch.equal(getattr(final, f), getattr(fresh, f)), f
+    assert [h for h in hist if "round" in h] == [h for h in fresh_hist if "round" in h]
+
+
+#: the generation replays' search: short, so that each generation's fresh
+#: engine is cheap
+GEN_SEARCH = dict(num_candidates=256, leadership_candidates=64, steps_per_round=8, num_rounds=2)
+#: the generation block's values that the sequence's generations change
+GEN_CHANGED = ("n_valid", "n_alive", "total_disk_cap", "total_cap_nw_out", "n_source", "n_dest",
+               "n_brokers", "shared_hosts")
+
+
+def _generation_base() -> tuple[dict, dict]:
+    """The first generation of `fixtures.generation_sequence` as host arrays
+    and its shape: a small JBOD cluster with padding replica rows, padded by
+    two brokers (one made real by the n_brokers generation)."""
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.models.state import STATE_FIELDS
+
+    spec = RandomClusterSpec(num_brokers=8, num_racks=3, num_topics=4, num_partitions=30, skew=1.0,
+                             disks_per_broker=2, replica_capacity=96)
+    st = random_cluster(spec, seed=5, device="cpu")
+    s = st.shape
+    st = pad_state(st, dataclasses.replace(s, num_brokers=s.num_brokers + 2, num_hosts=s.num_hosts + 2))
+    return {f: getattr(st, f).numpy().copy() for f in STATE_FIELDS}, dataclasses.asdict(st.shape)
+
+
+def _graph_inputs(eng) -> dict:
+    """data_ptr of every tensor the engine's graphs read of its statics,
+    its state, its generation block and its host grouping, by name."""
+    from cruise_control_tpu_torch.models.state import STATE_FIELDS
+
+    sx = eng.statics
+    out = {f"state.{f}": getattr(sx.state, f) for f in STATE_FIELDS}
+    out.update({f.name: getattr(sx, f.name) for f in dataclasses.fields(sx)
+                if isinstance(getattr(sx, f.name), torch.Tensor)})
+    out["gen.words"] = sx.gen.words
+    out["host_groups.seg"] = sx.host_groups.seg
+    out.update({f"host_groups.{f}": getattr(sx.host_groups.group, f) for f in ("count", "start", "order")})
+    return {k: t.data_ptr() for k, t in out.items()}
+
+
+def _captured(history) -> list:
+    return next(h for h in history if h.get("timing"))["captured"]
+
+
+@pytest.mark.parametrize("variant", CAND_VARIANTS)
+def test_generations_replay_in_captured_graphs(cuda, variant):
+    """One engine of each candidates variant captures its graphs on the
+    first generation of `fixtures.generation_sequence` and is rebound
+    through the rest (the loads, liveness, capacities, offline rows,
+    n_valid, n_source with a hole, n_dest, n_brokers, shared_hosts): each
+    rebind keeps every tensor the graphs read, each run replays them with
+    no capture, and each run is bit for bit a fresh engine's on the same
+    generation (which captures its own)."""
+    from cruise_control_tpu_torch.analyzer.options import OptimizationOptions
+    from cruise_control_tpu_torch.convert import from_jax_arrays
+
+    base, shape = _generation_base()
+    first = from_jax_arrays(base, cuda, shape=shape)
+    chain, cfg, prior = _variant_engine(variant, first, **GEN_SEARCH)
+    eng = Engine(first, chain, config=cfg, prior=prior)
+    _, hist = eng.run()
+    assert _captured(hist)
+    ws, ptrs = eng._ws, _graph_inputs(eng)
+    seen = [eng.statics.gen.values()]
+    for name, a, opts in fixtures.generation_sequence(base):
+        st = from_jax_arrays(a, cuda, shape=shape)
+        options = OptimizationOptions(**opts)
+        eng.rebind(st, options, prior=prior)
+        assert eng._ws is ws and _graph_inputs(eng) == ptrs, name
+        final, hist = eng.run()
+        assert _captured(hist) == [], name
+        fresh, fresh_hist = Engine(st, chain, options=options, config=cfg, prior=prior).run()
+        assert _captured(fresh_hist), name
+        for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+            assert torch.equal(getattr(final, f), getattr(fresh, f)), (name, f)
+        assert [h for h in hist if "round" in h] == [h for h in fresh_hist if "round" in h], name
+        seen.append(eng.statics.gen.values())
+    changed = [f for f in GEN_CHANGED if len({v[f] for v in seen}) > 1]
+    assert changed == list(GEN_CHANGED)
+
+
+def test_alternating_widths_capture_once_each(cuda):
+    """Generations of one shape that alternate between two member-table
+    widths (max_rf) through one GoalOptimizer: the first request of each
+    width captures its engine's graphs, no later one captures, and each is
+    a fresh optimizer's run; the bucket is billed two captures."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
+    from cruise_control_tpu_torch.models.builder import prewarm_state
+    from cruise_control_tpu_torch.models.state import member_width
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    wide = prewarm_state(state.shape, max_rf=member_width(state) + 1, device=cuda)
+    cfg = dataclasses.replace(CFG, **GEN_SEARCH)
+    want = {id(st): GoalOptimizer(config=cfg, device=cuda).optimize(st) for st in (state, wide)}
+    opt = GoalOptimizer(config=cfg, device=cuda)
+    captured = []
+    for st in (state, wide, state, wide, state):
+        res = opt.optimize(st)
+        captured.append(bool(_captured(res.history)))
+        for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+            assert torch.equal(getattr(res.state_after, f), getattr(want[id(st)].state_after, f)), f
+    assert captured == [True, True, False, False, False]
+    assert opt.compile_attribution()[bucket_key(state.shape)]["compiles"] == 2

@@ -140,7 +140,8 @@ def test_prior_rebind_is_data_only():
         weights = np.ones((state.shape.num_topics, state.shape.B), np.float32)
 
     eng.rebind(state, prior=P)
-    assert eng._ws is ws and eng.statics is statics and eng.statics.prior_cdf is cdf
+    assert eng._ws is ws and eng.statics.prior_cdf is cdf
+    assert all(getattr(eng.statics, f) is getattr(statics, f) for f in ("part_replicas", "gen"))
     assert float(eng.statics.prior_mix) == 0.25
     assert tuple(eng.statics.prior_cdf.shape) == (state.shape.num_topics, state.shape.B)
     want = build_statics(state, DEFAULT_OPTIONS, prior=P, prior_full_shape=True).prior_cdf
