@@ -24,7 +24,8 @@ Phases:
      refresh also without its host pass, the host pass alone, and on the
      same rows dealt round-robin, which shows the hottest broker's tail),
      the schedule kernel (round_schedule, exact over a table of gate
-     inputs, EXIT included), and the two standalone kernels the candidates kernel fused
+     inputs, EXIT included, every third row at a segmented run's slice
+     end), and the two standalone kernels the candidates kernel fused
      (threefry_uniform, move_delta) on the same step's draws and deltas.
   3. A small cluster optimized on the card agrees with the same run on the
      CPU (whose parity with the JAX package the test suite holds).
@@ -160,6 +161,22 @@ Phases:
      on its path and gives phase 10's unprewarmed placements byte for
      byte.  Both walls, the boot report's captures and
      compile_attribution() are printed.
+ 21. Segmented execution under the device scheduler (fleet/scheduler.py):
+     a north-star optimize granted BACKGROUND with a 0.01 s slice budget
+     runs as at least four launches of the engine's one slice graph (the
+     loop graph without init; the slice's last round read from device
+     memory), one sync each: phase 4's exact run bit for bit, no capture
+     added to the bucket, one slice-graph instantiation, every main-path
+     kernel launched (round_schedule: INIT, three a loop iteration and one
+     EXIT a slice).  Warmed walls of the one-launch, segmented and
+     one-round-slice runs in turns, and the extra seconds a slice.  Then
+     the same BACKGROUND run preempted by an URGENT decommission of the
+     same bucket (phase 5's state) from a second thread on the same
+     optimizer and engine: the urgent request waits at most one slice
+     wall plus 0.05 s, the paused run lets go of the engine and restores
+     itself, and the two results are phases 4's and 5's bit for bit.
+     Then the floor of a one-thread kernel node inside a WHILE body (the
+     bound of round_schedule's and scenario_step's launches).
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 """
@@ -903,20 +920,26 @@ def check_round_kernels(eng, carry) -> dict:
                                bound_by=b_by, tolerance="rtol 1e-6, the same bits over 100 calls", n=B)
 
     # round_schedule: every phase over a table of gate inputs (3 main and 2
-    # polish rounds; EXIT after the round fills the rounds after it), the
-    # card's state against the plain version's
+    # polish rounds; EXIT after the round fills the rounds after it once
+    # the run is over), every third row at a slice end right after its
+    # round (a segmented run's launch: CLOSE ends it, EXIT writes nothing
+    # unless the run is done), the card's state against the plain version's
     tol = float(np.float32(1e-6))
     dims = sk.ScheduleDims(n_main=3, total=5, tol_on=True, checks=2, verbose=True, tol=tol,
                            scale=float(np.float32(1e-2)))
     rows = 0
-    for row in itertools.product([0, 1, 2, 3, 4], [0, 1], [0, 1, 2], [0.0, tol, 1e-3, float("inf")],
-                                 [0.0, tol, 5e-4, 1e-3], [float("inf"), 1e-3, 5e-4], [0, 1]):
+    for i, row in enumerate(itertools.product([0, 1, 2, 3, 4], [0, 1], [0, 1, 2],
+                                              [0.0, tol, 1e-3, float("inf")],
+                                              [0.0, tol, 5e-4, 1e-3], [float("inf"), 1e-3, 5e-4],
+                                              [0, 1])):
         states = []
         for d in ("cpu", dev):
             sc = sk.Schedule.create(5, 0.7, d)
             sc.sf[sk.OBJ] = 37.0
             sk.round_schedule(sk.INIT, sc, dims)
             rnd, done, checks, cheap_prev, full_v, prev_v, has_prev = row
+            if i % 3 == 0:
+                sc.si[sk.SLICE_END] = rnd + 1
             sc.si[sk.RND], sc.si[sk.DONE], sc.si[sk.CHECKS], sc.si[sk.HAS_PREV] = rnd, done, checks, has_prev
             sc.sf[sk.CHEAP_PREV], sc.sf[sk.PREV_V] = cheap_prev, prev_v
             sk.round_schedule(sk.GATE, sc, dims)
@@ -2713,6 +2736,225 @@ def check_prewarm(state, cfg, exact: dict) -> dict:
     return rec
 
 
+def check_node_floor() -> dict:
+    """The floor of a one-thread kernel node inside a WHILE body, the
+    position of round_schedule's GATE, DECIDE and CLOSE and of the
+    scenario loop's step: kernels/schedule.py `NodeFloorGraph`, 1,000
+    iterations a launch with 0 and with 8 empty one-thread nodes after the
+    loop's tick; the difference over 8,000 is one node's time."""
+    import torch
+
+    from cruise_control_tpu_torch.kernels import schedule as sched_k
+
+    iters, extra = 1000, 8
+    stream = torch.cuda.current_stream()
+    graphs = {n: sched_k.NodeFloorGraph(iters, n, "cuda") for n in (0, extra)}
+    try:
+        ms = {}
+        for n, g in list(graphs.items()) + list(graphs.items())[::-1]:  # in turns
+            ms.setdefault(n, []).append(time_ms(lambda g=g: g.launch(stream.cuda_stream), reps=20))
+        counted = {n: g.iterations() for n, g in graphs.items()}
+    finally:
+        for g in graphs.values():
+            g.close()
+    check(counted == {0: iters, extra: iters}, f"the node-floor loops ran {counted} iterations")
+    t0, t8 = (sum(ms[n]) / len(ms[n]) for n in (0, extra))
+    rec = dict(phase="node_floor", iterations=iters, empty_nodes=extra, launch_ms=ms,
+               node_ms=(t8 - t0) / (extra * iters), tick_iteration_ms=t0 / iters)
+    log(json.dumps(rec))
+    check(rec["node_ms"] > 0.0, f"an empty graph node measured {rec['node_ms']} ms")
+    return rec
+
+
+def check_segmented(state, decom, cfg, exact: dict) -> dict:
+    """Phase 21: the fused anneal as preemptible slices of one slice graph
+    under the device scheduler (fleet/scheduler.py).  (a) A north-star
+    optimize granted BACKGROUND with a 0.01 s slice budget: at least four
+    slices, one sync each, phase 4's exact run bit for bit, no capture
+    added to the bucket, one slice-graph instantiation; the main path's
+    kernels all launched (round_schedule three a loop iteration, INIT and
+    one EXIT a slice).  Warmed walls of the one-launch run, the segmented
+    run and a one-round-slice run (SegmentContext(1e-9)) in turns.
+    (b) The same BACKGROUND run preempted mid-run by an URGENT decommission
+    of the same bucket (phase 5's state) from a second thread, through the
+    same optimizer and engine: the urgent request's queue-to-dispatch wait
+    at most one measured slice wall plus 0.05 s, both results bit for bit
+    phases 4's and 5's.  (c) The node floor (`check_node_floor`)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.engine import SegmentContext, segmented_execution
+    from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
+    from cruise_control_tpu_torch.common import compilation_cache
+    from cruise_control_tpu_torch.fleet.scheduler import DeviceScheduler, WorkClass
+
+    budget, slack = 0.01, 0.05
+
+    def timing_of(res):
+        return next(h for h in res.history if h.get("timing"))
+
+    def same_as(res, phase: str) -> bool:
+        return all(bool(torch.equal(getattr(res.state_after, f), PLACEMENTS[phase][f]))
+                   for f in PLACEMENT)
+
+    def scheduler(cls=DeviceScheduler):
+        return cls(slice_budget_s=budget, freshness_slo_s=60.0, aging_s=30.0, shed_queue_depth=8,
+                   brownout_after_s=60.0)
+
+    opt = GoalOptimizer(config=cfg, device="cuda")
+    warm, _ = run_proposal(opt, state, "segmented_warm")  # captures the bucket's graphs
+    check(same_as(warm, "4"), "phase 21's one-launch run is not phase 4's")
+    bucket = bucket_key(state.shape)
+    captures = compilation_cache.engine_capture_counts().get(bucket)
+    slice_graphs = compilation_cache.slice_graph_counts().get(bucket, 0)
+
+    # (a) one BACKGROUND grant, segmented
+    sched = scheduler()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    seg = sched.run(WorkClass.BACKGROUND, lambda: opt.optimize(state), op="drift")
+    torch.cuda.synchronize()
+    seg_wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    t = timing_of(seg)
+    (engine,) = opt._engines.values()
+    rec = dict(phase="segmented", slice_budget_s=budget, wall_s=seg_wall, segments=t["segments"],
+               blocking_syncs=t["blocking_syncs"], slices=t["slices"],
+               loop_iterations=t["loop_iterations"], device_s=t["device_s"],
+               host_dispatch_s=t["host_dispatch_s"], captured=t["captured"],
+               instantiated=t["instantiated"], slice_graph=engine.graph_stats["slice_graphs"],
+               engine_captures=compilation_cache.engine_capture_counts().get(bucket),
+               slice_graphs=compilation_cache.slice_graph_counts().get(bucket), launches=launches,
+               dispatches=sched.stats["dispatches"], identical_to_phase4=same_as(seg, "4"))
+    log(json.dumps(rec))
+    check(t.get("segmented") is True and t["segments"] >= 4,
+          f"the BACKGROUND north star ran {t.get('segments')} slices, expected at least 4")
+    check(t["blocking_syncs"] == t["segments"] == t["graph_launches"],
+          f"not one slice-graph launch and one sync a slice: {t}")
+    check(rec["identical_to_phase4"], "the segmented north star is not phase 4's run")
+    check([h["accepted"] for h in seg.history if "round" in h] == exact["accepted"],
+          "the segmented north star's rounds are not phase 4's")
+    check(t["captured"] == [] and rec["engine_captures"] == captures,
+          f"the segmented run captured: {t['captured']}, {captures} -> {rec['engine_captures']}")
+    check(t["instantiated"] == ["slice"] and rec["slice_graphs"] == slice_graphs + 1
+          and len(rec["slice_graph"]) == 1, f"slice graphs: {rec['slice_graph']}")
+    want = 3 * t["loop_iterations"] + 1 + t["segments"]
+    check(launches["round_schedule"] == want,
+          f"the segmented run launched round_schedule {launches['round_schedule']} times, expected {want}")
+    missing = [k for k in PATH_KERNELS if launches[k] == 0]
+    check(not missing, f"kernels never launched on the segmented path: {missing}")
+    fused = {k: v for k, v in launches.items() if k not in PATH_KERNELS and v}
+    check(not fused, f"standalone kernels launched on the segmented path: {fused}")
+
+    # warmed walls in turns: one launch, segmented, one-round slices
+    def one_launch():
+        return opt.optimize(state)
+
+    def segmented():
+        return scheduler().run(WorkClass.BACKGROUND, lambda: opt.optimize(state))
+
+    def one_round_slices():
+        with segmented_execution(SegmentContext(1e-9)):
+            return opt.optimize(state)
+
+    walls: dict = {}
+    runs = {"one_launch": one_launch, "segmented": segmented, "one_round_slices": one_round_slices}
+    for name in ("one_launch", "segmented", "one_round_slices", "one_round_slices", "segmented",
+                 "one_launch"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = runs[name]()
+        torch.cuda.synchronize()
+        tt = timing_of(res)
+        walls.setdefault(name, []).append(dict(
+            wall_s=time.monotonic() - t0, engine_s=tt["device_s"] + tt["host_dispatch_s"],
+            segments=tt.get("segments", 1), syncs=tt["blocking_syncs"]))
+        check(same_as(res, "4"), f"the {name} north star is not phase 4's run")
+    mean = {k: float(np.mean([w["engine_s"] for w in v])) for k, v in walls.items()}
+    segs = {k: v[0]["segments"] for k, v in walls.items()}
+    per_slice = {k: (mean[k] - mean["one_launch"]) / max(1, segs[k] - 1)
+                 for k in ("segmented", "one_round_slices")}
+    log(json.dumps(dict(phase="segmented_walls", runs=walls, mean_engine_s=mean,
+                        extra_s_per_slice=per_slice)))
+
+    # (b) a same-bucket URGENT decommission preempts a BACKGROUND north star
+    class Signalled(DeviceScheduler):
+        """Signals its first checkpoint (and waits for nothing)."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.first = threading.Event()
+
+        def _checkpoint(self, ticket, ctx=None):
+            self.first.set()
+            return super()._checkpoint(ticket, ctx)
+
+    sched2 = scheduler(Signalled)
+    out, errors = {}, []
+
+    def background():
+        try:
+            out["bg"] = sched2.run(WorkClass.BACKGROUND, lambda: opt.optimize(state), op="drift")
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    def urgent():
+        try:
+            check(sched2.first.wait(120.0), "the background run never reached a checkpoint")
+            t0 = time.monotonic()
+            out["urgent"] = sched2.run(
+                WorkClass.URGENT, lambda: (time.monotonic() - t0, opt.optimize(decom)),
+                op="fix:decommission")
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    kernels.reset_launches()
+    threads = [threading.Thread(target=background, daemon=True),
+               threading.Thread(target=urgent, daemon=True)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300.0)
+    check(not any(th.is_alive() for th in threads), "the same-bucket preemption deadlocked")
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    launches_b = dict(kernels.LAUNCHES)
+    wait, res_u = out["urgent"]
+    tb, tu = timing_of(out["bg"]), timing_of(res_u)
+    slice_wall = max(s["wall_s"] for s in tb["slices"])
+    pre = dict(phase="segmented_preemption", urgent_wait_s=wait, slice_wall_max_s=slice_wall,
+               slack_s=slack, bg_slices=tb["slices"], bg_pauses=tb["pauses"],
+               bg_restores=tb["restores"], bg_paused_s=tb["paused_s"],
+               urgent_captured=tu["captured"], urgent_segmented=tu.get("segmented", False),
+               preemptions=sched2.stats["preemptions"], dispatches=sched2.stats["dispatches"],
+               cache=[opt.engine_cache_hits, opt.engine_cache_misses],
+               bg_identical_to_phase4=same_as(out["bg"], "4"),
+               urgent_identical_to_phase5=same_as(res_u, "5"), launches=launches_b)
+    log(json.dumps(pre))
+    check(sched2.stats["preemptions"] == 1 and tb["pauses"] == 1 and tb["restores"] == 1,
+          f"the background run was not preempted once and restored: {pre}")
+    check(wait <= slice_wall + slack,
+          f"the urgent request waited {wait} s, more than one slice ({slice_wall} s) + {slack} s")
+    check(pre["bg_identical_to_phase4"], "the preempted background run is not phase 4's")
+    check(pre["urgent_identical_to_phase5"], "the urgent decommission is not phase 5's")
+    check(tu["captured"] == [] and opt.engine_cache_misses == 1,
+          f"the urgent run captured or built an engine: {tu['captured']}, {pre['cache']}")
+    missing = [k for k in PATH_KERNELS if launches_b[k] == 0]
+    check(not missing, f"kernels never launched on the preempted path: {missing}")
+    for e in opt._engines.values():
+        e.release()
+    torch.cuda.empty_cache()
+    # (c) the floor of a one-thread control kernel's node
+    floor = check_node_floor()
+    return dict(a=rec, walls=walls, per_slice=per_slice, b=pre, floor=floor)
+
+
 def main() -> int:
     try:
         import torch
@@ -2859,6 +3101,13 @@ def main() -> int:
     check_threads(state, cfg, exact)
     # phase 20: a bucket prewarmed on the warm pool beside a request
     check_prewarm(state, cfg, exact)
+    # phase 21: segmented execution under the device scheduler, a
+    # same-bucket preemption, and the node floor of the control kernels
+    seg = check_segmented(state, decom, cfg, exact)
+    for name in ("round_schedule", "scenario_step"):
+        log(json.dumps({"phase": "control_kernel_floor", "name": name,
+                        "node_floor_ms": seg["floor"]["node_ms"],
+                        "byte_bound_ms": (kstats[name] if name in kstats else variants[name])["bound_ms"]}))
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

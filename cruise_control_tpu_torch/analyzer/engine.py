@@ -102,13 +102,30 @@ captures anew.
 `precompile_async` captures ahead of use on the shared warm pool
 (`_WarmPool`); a run waits for a capture in flight and raises its error.
 
-Segmented execution, ahead-of-time compilation and the mesh engines have
-no entry point here.
+Segmented execution (the JAX package's `_run_segmented`): under an ambient
+`SegmentContext` (`segmented_execution`, set by the device scheduler
+around a preemptible grant, fleet/scheduler.py) `run` and `run_reported`
+split the fused schedule into wall-bounded slices with a checkpoint
+between them, where the scheduler may pause the run while an urgent one
+takes the device.  A slice is one launch of the slice graph, the loop
+graph without init over the same captured graphs, whose last round the
+schedule reads from device memory (kernels/schedule.py SLICE_END), then
+one blocking sync; no slice length captures or instantiates a graph of
+its own, and a segmented run makes the rounds of the one-launch run, bit
+for bit.  An engine has one workspace, so a run paused at a checkpoint
+lets go of the engine: it copies its state into a stash on the device and
+releases the run lock (`locked`), and on resume, where another run used
+the engine meanwhile, rebinds its own generation (data, no capture) and
+copies the stash back.
+
+Ahead-of-time compilation and the mesh engines have no entry point here.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import contextvars
 import dataclasses
 import heapq
 import itertools
@@ -125,6 +142,7 @@ from cruise_control_tpu_torch.analyzer.objective import SCORE_DTYPES, TIE_WEIGHT
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
 from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
 from cruise_control_tpu_torch.common import compilation_cache
+from cruise_control_tpu_torch.common.blackbox import RECORDER as _BLACKBOX
 from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
@@ -584,6 +602,163 @@ class _Weights:
 #: have work
 FULL_CHECK_BUDGET = 2
 
+#: cap on a segmented run's rounds per slice (the JAX package's
+#: SEGMENT_MAX_ROUNDS): slice lengths grow in powers of two up to it
+SEGMENT_MAX_ROUNDS = 64
+
+
+@dataclasses.dataclass
+class CarryCheckpoint:
+    """Host snapshot of a segmented run at a slice boundary (the JAX
+    package's CarryCheckpoint): the next round index, the carry's tensors
+    and the rest of the run's state (`Engine._run_state`: the schedule,
+    the plan, the grouping, the step globals, the select minima and the
+    reports) as numpy arrays that own their memory, and the per-round ys
+    rows of the slices fetched so far.  Taken while the device is idle
+    (the slice's sync), so the copy races nothing, and never changed by
+    the slices that follow."""
+
+    base: int
+    carry: dict
+    seg: dict
+    ys_parts: list
+    n_chains: int = 1
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+class SegmentContext:
+    """A request to run the fused anneal preemptibly (the JAX package's
+    SegmentContext; the device scheduler's bounded-wall preemption,
+    fleet/scheduler.py).
+
+    `slice_budget_s` bounds each slice's wall: the engine sizes its slices
+    so one stays within it.  `checkpoint` is called between slices on the
+    run's thread; the scheduler pauses the run there while an URGENT
+    request takes the device, so an urgent anneal waits on at most one
+    slice of background work.  The callback may block; when it returns,
+    the run resumes, bit for bit.  A checkpoint that pauses wraps its wait
+    in `paused()`: the engine's hooks (`holding`) let go of the engine
+    there, so a preempting run on the same engine can take it, and take it
+    back after.
+
+    Fault tolerance rides the same boundaries: with `snapshot_every` > 0
+    and a `snapshot_sink`, every Nth boundary captures a CarryCheckpoint
+    (the engine's `capture` thunk) and hands it to the sink on a background
+    thread, at most one persist in flight (a due snapshot is skipped, not
+    queued, while the previous one persists).  The capture's wall feeds
+    `checkpoint_clock`.  `snapshot_every=0` (the default) costs one
+    predicate a boundary."""
+
+    __slots__ = (
+        "slice_budget_s", "checkpoint", "snapshot_every", "snapshot_sink",
+        "checkpoint_clock", "snapshots_taken", "snapshots_skipped",
+        "snapshot_seconds", "_snapshot_boundary", "_snapshot_worker",
+        "_snapshot_lock", "_hooks",
+    )
+
+    def __init__(self, slice_budget_s: float, checkpoint=None, *, snapshot_every: int = 0,
+                 snapshot_sink=None, checkpoint_clock=None):
+        self.slice_budget_s = slice_budget_s
+        self.checkpoint = checkpoint
+        self.snapshot_every = int(snapshot_every)
+        self.snapshot_sink = snapshot_sink
+        self.checkpoint_clock = checkpoint_clock
+        self.snapshots_taken = 0
+        self.snapshots_skipped = 0
+        self.snapshot_seconds = 0.0
+        self._snapshot_boundary = 0
+        self._snapshot_worker = None
+        self._snapshot_lock = threading.Lock()
+        self._hooks = None
+
+    @contextlib.contextmanager
+    def holding(self, let_go, take_back):
+        """The engine's pause hooks for the enclosed checkpoint call:
+        `let_go()` runs when the checkpoint pauses, before it yields the
+        device, and returns a token; `take_back(token)` runs when the pause
+        ends."""
+        self._hooks = (let_go, take_back)
+        try:
+            yield
+        finally:
+            self._hooks = None
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Wrap a checkpoint's pause: the run lets go of its engine on
+        entry and takes it back on exit (no-ops outside `holding`)."""
+        hooks = self._hooks
+        token = hooks[0]() if hooks is not None else None
+        try:
+            yield
+        finally:
+            if hooks is not None:
+                hooks[1](token)
+
+    def offer_snapshot(self, capture) -> None:
+        """Engine hook at a slice boundary (device idle): maybe capture a
+        CarryCheckpoint with `capture()` and persist it in the background."""
+        if self.snapshot_every <= 0 or self.snapshot_sink is None:
+            return
+        with self._snapshot_lock:
+            self._snapshot_boundary += 1
+            if self._snapshot_boundary % self.snapshot_every:
+                return
+            worker = self._snapshot_worker
+            if worker is not None and worker.is_alive():
+                # one snapshot in flight: skip, never queue
+                self.snapshots_skipped += 1
+                return
+            t0 = time.monotonic()
+            payload = capture()
+            sink = self.snapshot_sink
+
+            def persist():
+                try:
+                    sink(payload)
+                except Exception:  # noqa: BLE001 -- a checkpoint must never end the run
+                    log.warning("carry snapshot sink failed", exc_info=True)
+
+            worker = threading.Thread(target=persist, daemon=True, name="carry-snapshot")
+            self._snapshot_worker = worker
+            worker.start()
+            dt = time.monotonic() - t0
+            self.snapshots_taken += 1
+            self.snapshot_seconds += dt
+            if self.checkpoint_clock is not None:
+                self.checkpoint_clock.add(dt)
+
+    def wait_snapshot(self, timeout_s: float = 10.0) -> None:
+        """Block until a persist in flight finishes; never raises."""
+        worker = self._snapshot_worker
+        if worker is not None:
+            worker.join(timeout_s)
+
+
+#: the ambient segmented-execution request, set by the device scheduler
+#: around a granted non-urgent dispatch.  A contextvar, so it survives a
+#: hop to a worker thread that runs with a copy of the caller's context.
+#: None (the default) keeps every run on the one-launch fused route.
+_SEGMENT_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "cc-torch-engine-segment-context", default=None
+)
+
+
+def current_segment_context() -> SegmentContext | None:
+    return _SEGMENT_CTX.get()
+
+
+@contextlib.contextmanager
+def segmented_execution(ctx: SegmentContext):
+    """Run the enclosed engine runs in wall-bounded preemptible slices:
+    `Engine.run` and `Engine.run_reported` on the fused route honour it;
+    verbose runs, the legacy route and the streaming cycle ignore it."""
+    token = _SEGMENT_CTX.set(ctx)
+    try:
+        yield
+    finally:
+        _SEGMENT_CTX.reset(token)
+
 
 def _relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0)
@@ -656,14 +831,22 @@ class _Workspace:
     loops: dict = dataclasses.field(default_factory=dict)
     ys_host: torch.Tensor | None = None  # pinned host copy of the ys
     count_host: torch.Tensor | None = None  # pinned host copy of the loop's counters
+    si_host: torch.Tensor | None = None  # pinned host copy of the schedule's int state
     #: host copies of the reported run's payload (pinned on CUDA),
     #: allocated by the first reported run
     payload_host: dict | None = None
+    #: a segmented run's slice graphs (the loop graph without init) by
+    #: reports flag, instantiated once each over the captured graphs
+    slices: dict = dataclasses.field(default_factory=dict)
+    #: device copies of a segmented run's state (`Engine._run_state`),
+    #: made where a checkpoint pauses it, allocated by the first such pause
+    stash: dict | None = None
 
     def close(self) -> None:
-        for lg in self.loops.values():
+        for lg in (*self.loops.values(), *self.slices.values()):
             lg.close()
         self.loops.clear()
+        self.slices.clear()
         self.graphs.clear()
 
 
@@ -785,6 +968,15 @@ class Engine:
         #: called as (seconds, source) after each capture: the optimizer's
         #: per-bucket attribution
         self.on_capture = None
+        #: the run lock of callers that share the engine (`locked`), which
+        #: a segmented run paused at a checkpoint lets go of
+        self.run_lock = threading.Lock()
+        self._run_owner: int | None = None
+        #: rebinds and runs so far: a paused run that finds it moved on
+        #: restores its own generation and state
+        self._uses = 0
+        #: the last rebind's (state, options, prior)
+        self._bound_args: tuple | None = None
         self.rebind(state, options, prior=prior)
 
     @property
@@ -813,6 +1005,8 @@ class Engine:
                                 loads=self._loads, cap_weights=self.w.cap, out=self.statics)
         if self.statics is not None and statics.part_replicas is not self.statics.part_replicas:
             self.release()
+        self._uses += 1
+        self._bound_args = (state, options, prior)
         self._dest_idx = layout["dest_idx"]
         self._state = state
         self.statics = statics
@@ -858,6 +1052,19 @@ class Engine:
         never made)."""
         if self._warm is not None:
             self._warm.result()
+
+    @contextlib.contextmanager
+    def locked(self):
+        """Hold the engine's run lock for the block: callers that share the
+        engine (the optimizer's threads) take it around each rebind and
+        run.  A segmented run of the holding thread that a checkpoint
+        pauses lets go of it for the pause (`_run_segmented`)."""
+        with self.run_lock:
+            self._run_owner = threading.get_ident()
+            try:
+                yield self
+            finally:
+                self._run_owner = None
 
     def release(self) -> None:
         """Free the run's buffers and captured graphs (after a capture in
@@ -1253,17 +1460,22 @@ class Engine:
                     replica_is_leader=c.replica_is_leader, replica_disk=c.replica_disk,
                     replica_offline=ws.offline, replica_disk_bytes=ws.disk_bytes)
 
+    def _payload_buffers(self, ws: _Workspace) -> dict:
+        """The host buffers of the reported run's payload (pinned on CUDA),
+        allocated once per workspace."""
+        if ws.payload_host is None:
+            pin = self.device.type == "cuda"
+            ws.payload_host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                               for k, t in self._payload_sources(ws).items()}
+        return ws.payload_host
+
     def _payload_to_host(self, ws: _Workspace) -> None:
         """Copies of the reported run's payload into host buffers (pinned,
         and not waited for, on CUDA), ordered on the stream after the run;
         read them with `_payload` once the stream is synchronised."""
-        src = self._payload_sources(ws)
-        if ws.payload_host is None:
-            pin = self.device.type == "cuda"
-            ws.payload_host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
-                               for k, t in src.items()}
-        for k, t in src.items():
-            ws.payload_host[k].copy_(t, non_blocking=True)
+        host = self._payload_buffers(ws)
+        for k, t in self._payload_sources(ws).items():
+            host[k].copy_(t, non_blocking=True)
 
     def _payload(self, ws: _Workspace) -> dict:
         """The reported run's payload on the host (copies): obj_before,
@@ -1335,8 +1547,17 @@ class Engine:
         full-chain checks that may stop the run; after the main rounds,
         polish rounds at T=0 while the worst goal violation exceeds the
         tolerance and falls by 10% or more a round.
+
+        Under an ambient SegmentContext (`segmented_execution`: the device
+        scheduler granted the run preemptibly, fleet/scheduler.py) the
+        fused schedule runs as wall-bounded slices with a checkpoint
+        between them, bit for bit the one-launch run (`_run_segmented`).
+        Verbose runs stay unsegmented, as in the JAX package.
         """
-        if self.config.fused_rounds:
+        seg_ctx = current_segment_context()
+        if self.config.fused_rounds and seg_ctx is not None and not verbose:
+            final, history, _ = self._run_segmented(seg_ctx, initial_placement=initial_placement)
+        elif self.config.fused_rounds:
             final, history, _ = self._run_fused(verbose=verbose, initial_placement=initial_placement)
         else:
             final, history, _ = self._run_legacy(verbose=verbose,
@@ -1348,7 +1569,14 @@ class Engine:
         statics' state, the anneal, the after-report and the device checks
         of the result, fetched with the run's own (one blocking sync on the
         fused route).  Returns (final_state, history, payload), the payload
-        as `run_cycle`'s without its "placement"."""
+        as `run_cycle`'s without its "placement".  An ambient
+        SegmentContext segments it as it does `run`: the before-report
+        heads the slices, the last slice's launch ends with the
+        after-report and the checks, and the payload comes back in its
+        sync."""
+        seg_ctx = current_segment_context()
+        if self.config.fused_rounds and seg_ctx is not None and not verbose:
+            return self._run_segmented(seg_ctx, initial_placement=initial_placement, reports=True)
         if self.config.fused_rounds:
             return self._run_fused(verbose=verbose, initial_placement=initial_placement,
                                    reports=True)
@@ -1377,7 +1605,8 @@ class Engine:
         replica_disk, replica_offline) as copies on the device; history as
         `run` gives it, its timing record also with `fused_cycle` and the
         JAX package's `scatter_width`.  Counts the dispatches
-        "engine.cycle" and "engine.extract" only."""
+        "engine.cycle" and "engine.extract" only.  A SegmentContext does
+        not segment it, as in the JAX package."""
         R = self.shape.R
         rows = np.asarray(rows, np.int32).reshape(-1)
         n = int(rows.size)
@@ -1413,6 +1642,19 @@ class Engine:
             if dims.verbose and not dims.diag:
                 self._objective(ws)
         sched_k.round_schedule(sched_k.CLOSE, ws.sched, dims)
+
+    def _loop_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims, reports: bool) -> None:
+        """The loop graph's loop op by op (the CPU route): round after round
+        until CLOSE ends the loop (the run is done, or its launch reached
+        SLICE_END), then EXIT, and with `reports` the after-report and the
+        checks once the run is over."""
+        while True:
+            self._round_eager(ws, dims)
+            if not ws.sched.si[sched_k.LOOP]:
+                break
+        sched_k.round_schedule(sched_k.EXIT, ws.sched, dims)
+        if reports and sched_k.run_over(ws.sched, dims):
+            self._cycle_post(ws)
 
     def _capture(self, ws: _Workspace, verbose: bool, reports: bool = False,
                  source: str = "request") -> sched_k.LoopGraph:
@@ -1493,6 +1735,7 @@ class Engine:
         t_start = time.monotonic()
         self._wait_warm()
         ws = self._workspace()
+        self._uses += 1
         dims = self._sched_dims(verbose)
         reports = reports or cycle is not None
         if cycle is None:
@@ -1524,15 +1767,7 @@ class Engine:
                 self._cycle_pre(ws)
             self._init_run(ws, dims)
             count_dispatch(run_tag)
-            # the loop graph's loop, op by op: round after round until CLOSE
-            # ends the loop, then EXIT
-            while True:
-                self._round_eager(ws, dims)
-                if not ws.sched.si[sched_k.LOOP]:
-                    break
-            sched_k.round_schedule(sched_k.EXIT, ws.sched, dims)
-            if reports:
-                self._cycle_post(ws)
+            self._loop_eager(ws, dims, reports)
         if cycle is not None:
             for t, buf in zip(cycle[:2], self._loads):
                 t.copy_(buf)
@@ -1565,14 +1800,259 @@ class Engine:
         history.append(timing)
         return self._final_state(ws), history, self._payload(ws) if reports else None
 
+    # ------------------------------------------------------------------
+    # segmented (preemptible) execution: fleet/scheduler.py
+    # ------------------------------------------------------------------
+
+    def _slice_graph(self, ws: _Workspace, reports: bool) -> sched_k.LoopGraph:
+        """The slice graph of a segmented run: the loop graph without init
+        over the engine's captured `eval` and `body` graphs, ending with the
+        copies of the ys, the loop's counters and the schedule's int state
+        to pinned host memory, and with `reports` the IF node that runs
+        `post` and copies the payload once the run is over (the last
+        slice).  Instantiated once per engine and reports
+        flag, whatever the slice length (the length is data: SLICE_END);
+        an instantiation, not a capture, recorded in `graph_stats` and
+        common/compilation_cache.py.  The captured graphs must exist."""
+        sl = ws.slices.get(reports)
+        if sl is not None:
+            return sl
+        t0 = time.monotonic()
+        if ws.si_host is None:
+            ws.si_host = torch.empty(ws.sched.si.shape, dtype=torch.int32, pin_memory=True)
+        copies = [(ws.ys_host, ws.sched.ys), (ws.count_host, ws.sched.count),
+                  (ws.si_host, ws.sched.si)]
+        post_copies = []
+        if reports:
+            host = self._payload_buffers(ws)
+            post_copies = [(host[k], t) for k, t in self._payload_sources(ws).items()]
+        sl = sched_k.LoopGraph(ws.sched, self._sched_dims(False), None, ws.graphs["eval"],
+                               ws.graphs["body"], post_graph=ws.graphs["post"] if reports else None,
+                               copies=copies, post_copies=post_copies)
+        ws.slices[reports] = sl
+        self.graph_stats.setdefault("slice_graphs", []).append(dict(
+            reports=reports, instantiate_s=time.monotonic() - t0,
+            copies=len(copies) + len(post_copies)))
+        compilation_cache.record_slice_graph(bucket_key(self.shape))
+        return sl
+
+    @staticmethod
+    def _run_state(ws: _Workspace) -> tuple[dict, dict]:
+        """(carry, rest): the tensors of a run in flight that another run on
+        the engine overwrites and the next slice reads: the carry's, and
+        the schedule's state and ys, the plan, the grouping, the step
+        globals, the select minima and the before-report.  The key table,
+        the decay powers and the apply slots (-1 between steps) are the
+        same for every run of the engine; the generation's tensors come
+        back with a rebind."""
+        c, s, p, g = ws.carry, ws.sched, ws.plan, ws.group
+        carry = {f.name: getattr(c, f.name) for f in dataclasses.fields(c) if f.name != "key"}
+        rest = dict(si=s.si, sf=s.sf, acc=s.acc, ys=s.ys, count=s.count,
+                    broker_cdf=p.broker_cdf, replica_cost=p.replica_cost, lead_cost=p.lead_cost,
+                    group_count=g.count, group_start=g.start, group_order=g.order, gbuf=ws.gbuf,
+                    report=ws.report)
+        if s.stage is not None:
+            rest["stage"] = s.stage
+        if ws.sel is not None:
+            rest["segmin"] = ws.sel.segmin
+        return carry, rest
+
+    def _let_go(self, ws: _Workspace, pauses: dict):
+        """A checkpoint pauses the segmented run: where this thread holds
+        the run lock (`locked`), copy the run's state into the workspace's
+        stash on the device and release the lock, so a preempting run on
+        this engine (the same bucket) can take it.  Returns the token
+        `_take_back` needs, None where nothing was let go."""
+        pauses["n"] += 1
+        if self._run_owner != threading.get_ident():
+            return None
+        carry, rest = self._run_state(ws)
+        state = {**carry, **rest}
+        if ws.stash is None:
+            ws.stash = {k: torch.empty_like(t) for k, t in state.items()}
+        for k, t in state.items():
+            ws.stash[k].copy_(t)
+        token = (self._uses, self._bound_args)
+        self._run_owner = None
+        self.run_lock.release()
+        return token
+
+    def _take_back(self, ws: _Workspace, token, pauses: dict) -> None:
+        """The pause ended: retake the run lock and, where another run or a
+        rebind used the engine meanwhile, rebind the run's own generation
+        (data to the graphs, no capture) and copy its stashed state back."""
+        if token is None:
+            return
+        self.run_lock.acquire()
+        self._run_owner = threading.get_ident()
+        uses, bound = token
+        if self._uses == uses:
+            return
+        self.rebind(*bound)
+        if self._ws is not ws:
+            raise RuntimeError("the engine released its workspace while a segmented run was paused "
+                               "(a rebind to another max_rf); the run cannot resume")
+        carry, rest = self._run_state(ws)
+        for k, t in {**carry, **rest}.items():
+            t.copy_(ws.stash[k])
+        pauses["restores"] += 1
+
+    def _snapshot(self, ws: _Workspace, base: int, parts: list) -> CarryCheckpoint:
+        """The run's state at a slice boundary as host arrays of their own."""
+        count_dispatch("engine.snapshot")
+        carry, rest = self._run_state(ws)
+
+        def host(d):
+            return {k: t.detach().cpu().numpy().copy() for k, t in d.items()}
+
+        return CarryCheckpoint(base=base, carry=host(carry), seg=host(rest),
+                               ys_parts=[dict(p) for p in parts])
+
+    def _run_segmented(self, seg_ctx: SegmentContext, *, initial_placement=None,
+                       reports: bool = False):
+        """The fused anneal in wall-bounded preemptible slices (the JAX
+        package's `_run_segmented`); returns (final_state, history,
+        payload or None).
+
+        The prelude is the run's init: on the card one replay of the
+        engine's captured init graph (after the `pre` report graph with
+        `reports`).  Then slice after slice: the host writes base + L into
+        the schedule's SLICE_END (one stream-ordered write), launches the
+        slice graph (`_slice_graph`: the loop without init, rounds [base,
+        min(base + L, total)), fewer when the run stops; the last slice's
+        launch also runs `post`) and makes one blocking sync, which
+        fetches the ys and the `done` flag; on the CPU the same loop runs
+        op by op.  Between slices `seg_ctx.checkpoint()` runs (the
+        scheduler may pause the run there: `_let_go` / `_take_back`), then
+        `offer_snapshot`.  Every slice replays the same graphs on the same
+        tensors as the one-launch run, so the rounds, placements and ys
+        are bit for bit its own; EXIT writes the masked rounds once the
+        run is over.  L grows in powers of two up to SEGMENT_MAX_ROUNDS
+        from an EWMA of the per-round wall against `slice_budget_s`
+        (floored at 1 ms).  The JAX package keeps the first use of each L
+        out of the EWMA, because that slice compiles; here no slice length
+        compiles or captures, and the captures and the slice graph's
+        instantiation happen before the first slice, outside its wall, so
+        every slice feeds it.  The cost of preemptibility is one blocking
+        sync a slice instead of one a run (`blocking_syncs == segments`)."""
+        t_start = time.monotonic()
+        self._wait_warm()
+        ws = self._workspace()
+        self._uses += 1
+        dims = self._sched_dims(False)
+        total = dims.total
+        cuda = self.device.type == "cuda"
+        count_dispatch("engine.init")
+        self._stage(ws, initial_placement)
+        if reports:
+            self._stage_delta(ws, None)
+        captured, instantiated = [], []
+        if cuda:
+            n_caps = len(self.graph_stats.get("captures", []))
+            n_slices = len(ws.slices)
+            self._capture(ws, False, reports)
+            captured = [g for c in self.graph_stats.get("captures", [])[n_caps:] for g in c["graphs"]]
+            sl = self._slice_graph(ws, reports)
+            instantiated = ["slice"] if len(ws.slices) > n_slices else []
+            stream = torch.cuda.current_stream(self.device)
+            if reports:
+                ws.graphs["pre"].replay()
+            ws.graphs["init"].replay()
+        else:
+            if reports:
+                self._cycle_pre(ws)
+            self._init_run(ws, dims)
+        budget = max(1e-3, float(seg_ctx.slice_budget_s))
+        slices: list[dict] = []
+        parts: list[dict] = []
+        pauses = dict(n=0, restores=0)
+        base, L, round_wall, device_s, paused_s = 0, 1, None, 0.0, 0.0
+        t_end = pause_s = None
+        while base < total:
+            t0s = time.monotonic()
+            # black-box spool: one Begin per slice launch, ended after its
+            # sync, so a hang names the slice in flight (common/blackbox.py)
+            seq = _BLACKBOX.begin("engine-slice", slice=len(slices), base_round=base, rounds=L,
+                                  total_rounds=total)
+            try:
+                count_dispatch("engine.slice")
+                if cuda:
+                    ws.sched.si[sched_k.SLICE_END: sched_k.SLICE_END + 1].fill_(base + L)
+                    sl.launch(stream.cuda_stream)
+                    t_launched = time.monotonic()
+                    # the slice boundary is a blocking sync: the device is
+                    # idle before the scheduler may hand it to another run
+                    count_dispatch("engine.sync")
+                    stream.synchronize()
+                    ys, count, si = (t.numpy().copy() for t in (ws.ys_host, ws.count_host,
+                                                                ws.si_host))
+                else:
+                    ws.sched.si[sched_k.SLICE_END] = base + L
+                    self._loop_eager(ws, dims, reports)
+                    t_launched = time.monotonic()
+                    count_dispatch("engine.sync")
+                    ys, count, si = (t.numpy().copy() for t in (ws.sched.ys, ws.sched.count,
+                                                                ws.sched.si))
+            except BaseException as e:  # noqa: BLE001 -- recorded, re-raised
+                _BLACKBOX.end(seq, ok=False, error=repr(e))
+                raise
+            done = bool(si[sched_k.DONE])
+            _BLACKBOX.end(seq, done=done)
+            wall = time.monotonic() - t0s
+            device_s += wall
+            # issue_s: the slice's fill and launch on the host; gap_s: the
+            # host's turnaround since the previous slice's sync, its
+            # checkpoint's pause left out (the device idles meanwhile)
+            slices.append(dict(base=base, rounds=L, wall_s=round(wall, 6),
+                               issue_s=round(t_launched - t0s, 6),
+                               gap_s=None if t_end is None else round(t0s - t_end - pause_s, 6)))
+            t_end, pause_s = time.monotonic(), 0.0
+            parts.append({k: v[base: min(base + L, total)] for k, v in self._ys_dict(ys).items()})
+            base += L
+            per_round = wall / L
+            round_wall = per_round if round_wall is None else 0.5 * round_wall + 0.5 * per_round
+            if done or base >= total:
+                break
+            L = 1
+            while L * 2 * round_wall <= budget and L * 2 <= SEGMENT_MAX_ROUNDS:
+                L *= 2
+            if seg_ctx.checkpoint is not None:
+                t_pause = time.monotonic()
+                with seg_ctx.holding(lambda: self._let_go(ws, pauses),
+                                     lambda token: self._take_back(ws, token, pauses)):
+                    seg_ctx.checkpoint()
+                pause_s = time.monotonic() - t_pause
+                paused_s += pause_s
+            seg_ctx.offer_snapshot(lambda b=base: self._snapshot(ws, b, parts))
+        if cuda:
+            self._count_replays(ws, ys, int(count[sched_k.ITERS]), False, reports,
+                                exits=len(slices))
+        elif reports:
+            self._payload_to_host(ws)
+        history = self._fused_history(ys, verbose=False)
+        timing = dict(
+            timing=True, fused=True, segmented=True, segments=len(slices),
+            blocking_syncs=len(slices), graph_launches=len(slices) if cuda else 0,
+            report_graph_launches=2 if cuda and reports else 0, captured=captured,
+            instantiated=instantiated, loop_iterations=int(count[sched_k.ITERS]),
+            masked_rounds=int(count[sched_k.MASKED]), slices=slices, pauses=pauses["n"],
+            restores=pauses["restores"], paused_s=round(paused_s, 6), device_s=round(device_s, 6),
+            host_dispatch_s=round(time.monotonic() - t_start - device_s - paused_s, 6),
+        )
+        conv = self._convergence_summary(ys)
+        if conv is not None:
+            timing["convergence"] = conv
+        history.append(timing)
+        return self._final_state(ws), history, self._payload(ws) if reports else None
+
     def _count_replays(self, ws: _Workspace, ys: np.ndarray, iterations: int,
-                       verbose: bool, reports: bool = False) -> None:
+                       verbose: bool, reports: bool = False, exits: int = 1) -> None:
         """Kernel launches of a graph run: each graph's launches per replay
         times its replays, which the ys record (a body replays on rounds
         that ran, the check on rounds that needed it; the rows EXIT wrote
         record neither), the report graphs once each on a reported run, and
         the schedule's own: INIT in the init graph, three a loop iteration,
-        and EXIT."""
+        and EXIT once a launch (`exits`: a segmented run's slices)."""
         col = {k: i for i, k in enumerate(sched_k.YS)}
         ran = int(ys[:, col["ran"]].sum())
         kernels.add_launches(ws.graph_launches["init"], 1)
@@ -1583,7 +2063,7 @@ class Engine:
         if reports:
             kernels.add_launches(ws.graph_launches["pre"], 1)
             kernels.add_launches(ws.graph_launches["post"], 1)
-        kernels.count("round_schedule", 3 * iterations + 1)
+        kernels.count("round_schedule", 3 * iterations + exits)
 
     def _ys_keys(self) -> tuple:
         """The keys of the run's per-round ys: FUSED_YS_KEYS, and the
@@ -1693,6 +2173,7 @@ class Engine:
         count_dispatch("engine.init")
         self._wait_warm()
         ws = self._workspace()
+        self._uses += 1
         sched = ws.sched
         self._stage(ws, initial_placement)
         if reports:

@@ -14,8 +14,13 @@ Callers may share one optimizer across threads.  A lock guards the engine
 cache; a run pins its engine until its result is on the host, and an
 eviction that finds the engine pinned leaves its release to the last
 unpin.  An engine owns one fixed workspace and the graphs captured on it,
-so runs on one engine take its run lock from the rebind to the fetch, one
-at a time; runs on different engines overlap.
+so runs on one engine take its run lock (`Engine.locked`) from the rebind
+to the fetch, one at a time; runs on different engines overlap.  A
+segmented run (the device scheduler's preemptible grant,
+fleet/scheduler.py) that a checkpoint pauses lets go of the lock for the
+pause, so an urgent request on the same bucket runs meanwhile on the same
+engine: no deadlock, and no second engine, whose capture would sit on the
+urgent request's path.
 
 An engine captures its graphs once for its bucket and serves every later
 model generation of it without a capture (analyzer/engine.py).
@@ -217,7 +222,7 @@ class GoalOptimizer:
             if not hit:
                 self._attribute(state.shape, buildSeconds=time.monotonic() - t0)
         try:
-            with engine._cc_run_lock:
+            with engine.locked():
                 # an engine is built bound to its builder's state: only a
                 # run that found it cached, or came after another, rebinds
                 if hit or not engine._cc_fresh:
@@ -238,7 +243,7 @@ class GoalOptimizer:
         built = Engine(state, self.chain, constraint=self.constraint, options=options,
                        config=config, prior=prior)
         built._cc_pins, built._cc_evicted = 0, False
-        built._cc_run_lock, built._cc_fresh = threading.Lock(), True
+        built._cc_fresh = True
         shape = state.shape
         built.on_capture = lambda seconds, source: self._attribute(
             shape, compiles=1, captureSeconds=seconds)
@@ -446,7 +451,7 @@ class GoalOptimizer:
             self.engine_cache_hits += 1
         t0 = time.monotonic()
         try:
-            with engine._cc_run_lock:
+            with engine.locked():
                 engine.rebind_prior(prior)
                 ll, fl, out, history = engine.run_cycle(
                     state.replica_load_leader, state.replica_load_follower, rows, leader_loads,

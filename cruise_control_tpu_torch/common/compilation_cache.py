@@ -10,7 +10,10 @@ pays per shape bucket instead is the capture of an engine's CUDA graphs,
 which cannot be stored on disk.  This module counts those captures per
 bucket and by where they ran (`record_engine_capture`: "request" on a
 run's path, "prewarm" on the warm pool), and `boot_report` gives them
-beside the kernel libraries reused and built.
+beside the kernel libraries reused and built.  A segmented run's slice
+graph is instantiated over an engine's captured graphs and captures
+nothing; its instantiations are counted apart (`record_slice_graph`), so
+the capture counts of a bucket stay what its captures were.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ _cache_dir: str | None = None
 #: {"request": captures on a run's path, "prewarm": on the warm pool}
 _capture_lock = threading.Lock()
 _engine_captures: dict[str, dict[str, int]] = {}
+#: per-bucket slice-graph instantiations since the process started
+_slice_graphs: dict[str, int] = {}
 
 SOURCES = ("request", "prewarm")
 
@@ -43,15 +48,28 @@ def record_engine_capture(bucket: str, *, source: str) -> None:
         row[source] += 1
 
 
+def record_slice_graph(bucket: str) -> None:
+    """Count one instantiation of a segmented run's slice graph for
+    `bucket` (analyzer/engine.py `_slice_graph`): no capture."""
+    with _capture_lock:
+        _slice_graphs[bucket] = _slice_graphs.get(bucket, 0) + 1
+
+
 def engine_capture_counts() -> dict[str, dict[str, int]]:
     with _capture_lock:
         return {k: dict(v) for k, v in _engine_captures.items()}
+
+
+def slice_graph_counts() -> dict[str, int]:
+    with _capture_lock:
+        return dict(_slice_graphs)
 
 
 def reset_engine_capture_counts() -> None:
     """Test seam: the accounting is per process otherwise."""
     with _capture_lock:
         _engine_captures.clear()
+        _slice_graphs.clear()
 
 
 def _scan(cache_dir: str) -> tuple[set[str], int]:
@@ -94,7 +112,8 @@ def enable_persistent_cache(cache_dir: str | None = None) -> str | None:
 def boot_report() -> dict | None:
     """The build directory since boot (files at enable time, files now,
     bytes), the kernel libraries this process reused and built, and the
-    engine captures per bucket and source.  None before
+    engine captures per bucket and source, and the slice graphs
+    instantiated per bucket.  None before
     `enable_persistent_cache`."""
     if not _enabled or _cache_dir is None or _boot_entries is None:
         return None
@@ -108,4 +127,5 @@ def boot_report() -> dict | None:
         "librariesReused": sorted(_build.REUSED),
         "librariesBuilt": sorted(_build.BUILT),
         "engineCaptures": engine_capture_counts(),
+        "sliceGraphs": slice_graph_counts(),
     }

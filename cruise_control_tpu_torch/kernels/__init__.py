@@ -16,12 +16,16 @@ Counting is locked, so threads that run on the card at once lose no
 count.  Every capture of the
 package goes through `capture`, one at a time in the process: entering a
 capture synchronises the whole device, which a capture in flight on
-another thread forbids.
+another thread forbids.  The interpreter's cyclic garbage collector is
+off while a capture lasts: a collection inside it could destroy an
+unreachable CUDA graph, whose reset a capturing stream forbids, and the
+capture would fail.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 
 _LOCK = threading.Lock()
@@ -71,11 +75,15 @@ def capture(graph, stream):
 
     with _CAPTURE_LOCK:
         _TLS.record = rec = {}
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
                 yield rec
         finally:
             _TLS.record = None
+            if collecting:
+                gc.enable()
 
 
 @contextlib.contextmanager

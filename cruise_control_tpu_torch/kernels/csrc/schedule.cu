@@ -23,11 +23,27 @@
 // `init` seeds the carry and the schedule, `eval` writes full_v, `body`
 // (the round's steps and the round prep) writes the round's accepted
 // count and cheap signal, `obj` (verbose runs) the round's full
-// objective.  CLOSE sets the loop's flag to !done && rnd + 1 < total, so
-// the loop leaves right after the round that stops the run; EXIT then
-// writes the ys rows of the rounds it never reached, and the state, as
-// the masked rounds of the reference's scan would have left them.  The
-// host launches the graph once a run and reads nothing until its one sync.
+// objective.  CLOSE sets the loop's flag to !done && rnd + 1 <
+// min(total, slice_end), so the loop leaves right after the round that
+// stops the run; EXIT then writes the ys rows of the rounds it never
+// reached, and the state, as the masked rounds of the reference's scan
+// would have left them.  The host launches the graph once a run and
+// reads nothing until its one sync.
+//
+// Segmented execution (the JAX package's `_run_segmented`,
+// engine.py:3101-3227): the slice graph is the same loop without init,
+//   WHILE(loop) { ... } -> K4(exit) [-> IF(over){ post }]
+// over the same captured graphs.  INIT sets slice_end to total, so a
+// whole run is unchanged; before each slice the host writes base + L into
+// slice_end, and the launch runs rounds [base, min(base + L, total)),
+// fewer when the run stops.  The WHILE handle's default is 1, so every
+// launch enters the loop; the host launches a slice only while the run
+// is not done.  EXIT writes the masked rows only when the run is over
+// (done; a run that reached total has none left), and at the end of a
+// slice that is not the last it does nothing.  It also sets the IF
+// handle around `post` (the reported run's after-report and checks), so
+// the last slice's launch ends with the report and no slice before it
+// runs one.  No slice length has a graph of its own.
 // Conditional nodes nested in a WHILE body need CUDA 12.4 or later, in
 // the runtime and in the driver (checked before the graph is built).
 //
@@ -52,6 +68,9 @@
 #define S_MAIN_GATE 7
 #define S_EXTRA_GATE 8
 #define S_LOOP 9
+// the round that ends this launch: total for a whole run, base + L for a
+// slice of a segmented run (written by the host before the slice)
+#define S_SLICE_END 10
 // indices into the float state
 #define F_T0 0
 #define F_TR 1
@@ -145,6 +164,7 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
     si[S_CHECKS] = d.checks;
     si[S_HAS_PREV] = 0;
     si[S_LOOP] = 1;
+    si[S_SLICE_END] = d.total;
     sf[F_CHEAP_PREV] = inf;
     sf[F_PREV_V] = inf;
     sf[F_T0] = __fmul_rn(sf[F_OBJ], d.scale);
@@ -155,9 +175,13 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
   const int rnd = si[S_RND];
   const bool in_range = rnd < d.total;
   if (phase == PHASE_EXIT) {
+    // the run is over when it stopped or reached total; the IF node after
+    // EXIT (a slice graph's `post`) runs only then
+    if (has_handle) cudaGraphSetConditional(handle, (si[S_DONE] || !in_range) ? 1u : 0u);
     // the rounds the loop never reached, as masked rounds leave them: their
-    // ys rows, and the state after the last of them
-    if (!in_range) return;
+    // ys rows, and the state after the last of them.  Nothing at the end
+    // of a slice that is not the last.
+    if (!in_range || !si[S_DONE]) return;
     for (int r = rnd; r < d.total; ++r) masked_row(p, d, r);
     si[S_MAIN_GATE] = 0;
     si[S_EXTRA_GATE] = 0;
@@ -230,7 +254,7 @@ __global__ void round_schedule_kernel(int phase, SchedPtrs p, SchedDims d, int h
   }
   sf[F_CHEAP_PREV] = run ? sf[F_CHEAP] : inf;
   si[S_RND] = rnd + 1;
-  const bool loop = !si[S_DONE] && rnd + 1 < d.total;
+  const bool loop = !si[S_DONE] && rnd + 1 < min(d.total, si[S_SLICE_END]);
   si[S_LOOP] = loop;
   if (has_handle) cudaGraphSetConditional(handle, loop ? 1u : 0u);
 }
@@ -302,19 +326,46 @@ CC_EXPORT int cc_cuda_versions(int* runtime, int* driver) {
   return (int)(e != cudaSuccess ? e : e2);
 }
 
+// A copy node of the loop graph: `bytes` from device memory `src` to
+// pinned host memory `dst`.
+struct CopySpec {
+  void* dst;
+  const void* src;
+  size_t bytes;
+};
+
+// Copy nodes `copies[0..n)` in `g`, each after `dep`.
+static cudaError_t add_copies(cudaGraph_t g, cudaGraphNode_t dep, const CopySpec* copies, int n) {
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < n && e == cudaSuccess; ++i) {
+    cudaGraphNode_t copy;
+    e = cudaGraphAddMemcpyNode1D(&copy, g, &dep, 1, copies[i].dst, copies[i].src, copies[i].bytes,
+                                 cudaMemcpyDeviceToHost);
+  }
+  return e;
+}
+
 // The loop graph over the captured graphs `init` (null: the loop alone,
-// to time an iteration), `eval` and `body` (and `obj` when not null),
+// a segmented run's slice graph), `eval` and `body` (and `obj` when not
+// null), then EXIT, and with `post` not null an IF node on the run being
+// over around `post` and the `n_post` copies after it (the reported run's
+// payload, fetched once, by the last slice), then the `n_copies` copies (a
+// slice's device-to-host fetch of the schedule, after everything else);
 // instantiated into *exec_out; *graph_out keeps the template for
-// cc_loop_graph_destroy.  The loop's handle is set to 1 at every launch.
-CC_EXPORT int cc_loop_graph_build(void* init, void* eval, void* body, void* obj, SchedPtrs p,
-                                  SchedDims d, void** exec_out, void** graph_out) {
+// cc_loop_graph_destroy.  The copies' host memory is pinned (mapped into
+// the device's address space, as a copy in a conditional body needs).
+// The loop's handle is set to 1 at every launch.
+CC_EXPORT int cc_loop_graph_build(void* init, void* eval, void* body, void* obj, void* post,
+                                  const CopySpec* post_copies, int n_post, const CopySpec* copies,
+                                  int n_copies, SchedPtrs p, SchedDims d, void** exec_out,
+                                  void** graph_out) {
   cudaGraph_t g;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return (int)e;
-  cudaGraphConditionalHandle h_loop, h_full, h_run, none = 0;
-  cudaGraphNode_t start = nullptr, loop, gate, if_full, decide, if_run, close, exit_node;
+  cudaGraphConditionalHandle h_loop, h_full, h_run, h_over = 0;
+  cudaGraphNode_t start = nullptr, loop, gate, if_full, decide, if_run, close, exit_node, if_over;
   cudaGraph_t loop_body, run_bodies[2] = {(cudaGraph_t)body, (cudaGraph_t)obj};
-  cudaGraph_t init_g = (cudaGraph_t)init, eval_g = (cudaGraph_t)eval;
+  cudaGraph_t init_g = (cudaGraph_t)init, eval_g = (cudaGraph_t)eval, post_g = (cudaGraph_t)post;
   do {
     if ((e = cudaGraphConditionalHandleCreate(&h_loop, g, 1, cudaGraphCondAssignDefault)) != cudaSuccess)
       break;
@@ -332,7 +383,20 @@ CC_EXPORT int cc_loop_graph_build(void* init, void* eval, void* body, void* obj,
     if ((e = add_if(loop_body, &if_run, &decide, h_run, run_bodies, obj ? 2 : 1)) != cudaSuccess) break;
     if ((e = add_phase(loop_body, &close, &if_run, PHASE_CLOSE, &p, &d, 1, &h_loop)) != cudaSuccess)
       break;
-    if ((e = add_phase(g, &exit_node, &loop, PHASE_EXIT, &p, &d, 0, &none)) != cudaSuccess) break;
+    if (post_g && (e = cudaGraphConditionalHandleCreate(&h_over, g, 0, 0)) != cudaSuccess) break;
+    if ((e = add_phase(g, &exit_node, &loop, PHASE_EXIT, &p, &d, post_g ? 1 : 0, &h_over)) !=
+        cudaSuccess)
+      break;
+    if (post_g) {
+      cudaGraph_t over_body;
+      cudaGraphNode_t posted;
+      if ((e = add_cond(g, &if_over, &exit_node, h_over, cudaGraphCondTypeIf, &over_body)) !=
+          cudaSuccess)
+        break;
+      if ((e = add_children(over_body, nullptr, &post_g, 1, &posted)) != cudaSuccess) break;
+      if ((e = add_copies(over_body, posted, post_copies, n_post)) != cudaSuccess) break;
+    }
+    if ((e = add_copies(g, post_g ? if_over : exit_node, copies, n_copies)) != cudaSuccess) break;
     cudaGraphExec_t ex;
     if ((e = cudaGraphInstantiate(&ex, g, 0)) != cudaSuccess) break;
     *exec_out = (void*)ex;
@@ -384,5 +448,66 @@ CC_EXPORT int cc_graph_nodes(void* graph, int* nodes, int* kernel_nodes) {
   const cudaError_t e = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
   *nodes = (int)n;
   *kernel_nodes = count_kernels((cudaGraph_t)graph);
+  return (int)e;
+}
+
+// The floor of a one-thread control kernel in a graph: what one kernel
+// node of one thread costs inside a WHILE body, the position of
+// round_schedule's GATE, DECIDE and CLOSE (and of scenario.cu's step).
+// The graph is reset -> WHILE { tick -> empty x extra }: `tick` counts the
+// iterations and ends the loop after `iters`, each `empty` does nothing.
+// A launch with extra = M less one with extra = 0, over M * iters, is the
+// time of one node in that position (chip_smoke.py's bound of the
+// one-thread kernels).
+__global__ void floor_reset_kernel(int* counter) { counter[0] = 0; }
+
+__global__ void floor_tick_kernel(int* counter, int iters, cudaGraphConditionalHandle h) {
+  const int c = ++counter[0];
+  cudaGraphSetConditional(h, c < iters ? 1u : 0u);
+}
+
+__global__ void floor_empty_kernel() {}
+
+static cudaError_t add_kernel(cudaGraph_t g, cudaGraphNode_t* node, const cudaGraphNode_t* dep,
+                              void* func, void** args) {
+  cudaKernelNodeParams kp = {};
+  kp.func = func;
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(1);
+  kp.kernelParams = args;
+  return cudaGraphAddKernelNode(node, g, dep, dep ? 1 : 0, &kp);
+}
+
+CC_EXPORT int cc_node_floor_graph_build(int* counter, int iters, int extra, void** exec_out,
+                                        void** graph_out) {
+  cudaGraph_t g;
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return (int)e;
+  do {
+    cudaGraphConditionalHandle h;
+    cudaGraphNode_t reset, loop, prev;
+    cudaGraph_t body;
+    if ((e = cudaGraphConditionalHandleCreate(&h, g, 1, cudaGraphCondAssignDefault)) != cudaSuccess)
+      break;
+    void* reset_args[1] = {&counter};
+    if ((e = add_kernel(g, &reset, nullptr, (void*)floor_reset_kernel, reset_args)) != cudaSuccess)
+      break;
+    if ((e = add_cond(g, &loop, &reset, h, cudaGraphCondTypeWhile, &body)) != cudaSuccess) break;
+    void* tick_args[3] = {&counter, &iters, &h};
+    if ((e = add_kernel(body, &prev, nullptr, (void*)floor_tick_kernel, tick_args)) != cudaSuccess)
+      break;
+    for (int i = 0; i < extra && e == cudaSuccess; ++i) {
+      cudaGraphNode_t node;
+      e = add_kernel(body, &node, &prev, (void*)floor_empty_kernel, nullptr);
+      prev = node;
+    }
+    if (e != cudaSuccess) break;
+    cudaGraphExec_t ex;
+    if ((e = cudaGraphInstantiate(&ex, g, 0)) != cudaSuccess) break;
+    *exec_out = (void*)ex;
+    *graph_out = (void*)g;
+    return 0;
+  } while (0);
+  cudaGraphDestroy(g);
   return (int)e;
 }

@@ -25,6 +25,17 @@ the rounds the loop never reached as the reference's masked rounds would
 equal those of running every scheduled round.  `schedule_plain` is the same
 logic on CPU tensors in f32 arithmetic.
 
+Segmented execution (the JAX package's `_run_segmented`,
+engine.py:3101-3227): a launch ends at the round in `SLICE_END` as well,
+which INIT sets to `total` and the host sets to base + L before each
+slice; the slice graph is the loop without init (`LoopGraph(init_graph=
+None)`), so every slice length replays one instantiated graph.  EXIT writes
+the masked rows only once the run is over (done, or every scheduled round
+reached): at the end of a slice that is not the last it does nothing.  With
+`post_graph` the graph ends with an IF node that runs it once the run is
+over, so the last slice's launch also runs the reported run's
+after-report and checks.
+
 With convergence diagnostics (`ScheduleDims.diag`; `_fused_round_step`'s
 diagnostics ys, engine.py:2996-3046) the accumulator holds the step
 kernels' six counts (kernels/select.py DIAG_FIELDS), the round body
@@ -49,8 +60,8 @@ from cruise_control_tpu_torch.kernels import _build
 
 INIT, GATE, DECIDE, CLOSE, EXIT = range(5)
 #: int state (csrc/schedule.cu S_*)
-RND, DONE, CHECKS, HAS_PREV, NEED_FULL, RUN, MAIN_STOP, MAIN_GATE, EXTRA_GATE, LOOP = range(10)
-N_INT = 10
+RND, DONE, CHECKS, HAS_PREV, NEED_FULL, RUN, MAIN_STOP, MAIN_GATE, EXTRA_GATE, LOOP, SLICE_END = range(11)
+N_INT = 11
 #: counters (csrc/schedule.cu C_*): loop iterations run, of which masked
 ITERS, MASKED = range(2)
 #: the CUDA version (runtime and driver) that runs IF nodes inside a WHILE body
@@ -167,6 +178,7 @@ def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
     inf = _F32(np.inf)
     if phase == INIT:
         si[RND], si[DONE], si[CHECKS], si[HAS_PREV], si[LOOP] = 0, 0, d.checks, 0, 1
+        si[SLICE_END] = d.total
         sf[CHEAP_PREV] = sf[PREV_V] = float(inf)
         sf[T0] = float(_F32(sf[OBJ].item()) * _F32(d.scale))
         s.count.zero_()
@@ -174,8 +186,8 @@ def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
     rnd = int(si[RND])
     in_range = rnd < d.total
     if phase == EXIT:
-        if not in_range:
-            return
+        if not in_range or not si[DONE]:
+            return  # nothing left, or the end of a slice that is not the last
         s.ys[rnd:] = torch.tensor([_masked_row(s, d, r) for r in range(rnd, d.total)],
                                   dtype=torch.float64)
         for i in (MAIN_GATE, EXTRA_GATE, NEED_FULL, RUN, MAIN_STOP):
@@ -237,7 +249,13 @@ def schedule_plain(phase: int, s: Schedule, d: ScheduleDims) -> None:
         ], dtype=torch.float64)
     sf[CHEAP_PREV] = float(sf[CHEAP]) if run else float(inf)
     si[RND] = rnd + 1
-    si[LOOP] = int(not si[DONE] and rnd + 1 < d.total)
+    si[LOOP] = int(not si[DONE] and rnd + 1 < min(d.total, int(si[SLICE_END])))
+
+
+def run_over(s: Schedule, d: ScheduleDims) -> bool:
+    """Whether the run is over (done, or every scheduled round reached):
+    what EXIT's IF node tests, read on the host."""
+    return bool(s.si[DONE]) or int(s.si[RND]) >= d.total
 
 
 class _Ptrs(ctypes.Structure):
@@ -336,30 +354,58 @@ def destroy_graph_exec(exec_: ctypes.c_void_p, graph: ctypes.c_void_p, what: str
     _build.check(fn(exec_, graph), f"{what} destroy")
 
 
+class _Copy(ctypes.Structure):
+    _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_void_p), ("bytes", ctypes.c_size_t)]
+
+
+def _copy_specs(copies) -> ctypes.Array:
+    """The C copy specs of (pinned host, CUDA) tensor pairs; raises on
+    anything else."""
+    for dst, src in copies:
+        if (not dst.is_pinned() or src.device.type != "cuda" or not dst.is_contiguous()
+                or not src.is_contiguous() or dst.nbytes != src.nbytes):
+            raise ValueError("loop graph copies take contiguous (pinned host, CUDA) tensor pairs "
+                             "of equal size")
+    return (_Copy * max(1, len(copies)))(*(_Copy(dst.data_ptr(), src.data_ptr(), src.nbytes)
+                                           for dst, src in copies))
+
+
 class LoopGraph:
     """The whole fused schedule as one instantiated CUDA graph:
     child(init) -> WHILE(loop){GATE -> IF(need_full){eval} -> DECIDE ->
-    IF(run){body [, obj]} -> CLOSE} -> EXIT, over the captured graphs
-    `init`, `eval`, `body` and `obj` (which must outlive it: their memory
-    pools hold the buffers the nodes use).  Without `init` it is the loop
-    alone, which on a finished run times one masked iteration."""
+    IF(run){body [, obj]} -> CLOSE} -> EXIT [-> IF(over){post -> post_copies}]
+    [-> copies], over the captured graphs `init`, `eval`, `body`, `obj` and
+    `post` (which must outlive it: their memory pools hold the buffers the
+    nodes use).  Without `init` it is the loop alone: a segmented run's
+    slice graph (rounds up to SLICE_END a launch), which on a finished run
+    times one masked iteration.  `copies` and `post_copies`, (pinned host
+    tensor, CUDA tensor) pairs of equal bytes, are copy nodes: `copies`
+    after everything else (a slice's fetch of the schedule, part of every
+    launch), `post_copies` after `post` inside its IF node (the reported
+    run's payload, copied by the last slice only)."""
 
     def __init__(self, s: Schedule, d: ScheduleDims, init_graph, eval_graph, body_graph,
-                 obj_graph=None):
+                 obj_graph=None, post_graph=None, copies=(), post_copies=()):
         require_conditional_graphs(
             "the fused route's loop graph nests conditional IF nodes in a WHILE node")
         self._ptrs, self._dims = _c(s, d)
-        fn = _lib_fn("cc_loop_graph_build", [ctypes.c_void_p] * 4 + [
-            _Ptrs, _Dims, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p)])
+        if post_copies and post_graph is None:
+            raise ValueError("loop graph post_copies need a post graph")
+        fn = _lib_fn("cc_loop_graph_build", [ctypes.c_void_p] * 5 + [
+            ctypes.POINTER(_Copy), ctypes.c_int, ctypes.POINTER(_Copy), ctypes.c_int, _Ptrs, _Dims,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p)])
         self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
 
         def raw(g):
             return g.raw_cuda_graph() if g is not None else None
 
+        post_specs, specs = _copy_specs(post_copies), _copy_specs(copies)
         status = fn(raw(init_graph), raw(eval_graph), raw(body_graph), raw(obj_graph),
-                    self._ptrs, self._dims, ctypes.byref(self._exec), ctypes.byref(self._graph))
+                    raw(post_graph), post_specs, len(post_copies), specs, len(copies), self._ptrs,
+                    self._dims, ctypes.byref(self._exec), ctypes.byref(self._graph))
         _build.check(status, "loop graph build")
-        self._keep = (s, init_graph, eval_graph, body_graph, obj_graph)
+        self._keep = (s, init_graph, eval_graph, body_graph, obj_graph, post_graph, tuple(copies),
+                      tuple(post_copies))
         self.launches = 0
 
     def launch(self, stream: int) -> None:
@@ -371,3 +417,32 @@ class LoopGraph:
             destroy_graph_exec(self._exec, self._graph, "loop graph")
             self._exec = ctypes.c_void_p()
             self._keep = None
+
+
+class NodeFloorGraph:
+    """reset -> WHILE{tick -> `extra` empty one-thread kernels}, `iters`
+    iterations a launch (csrc/schedule.cu `cc_node_floor_graph_build`):
+    what one one-thread kernel node costs inside a WHILE body, the floor
+    of round_schedule's and scenario_step's nodes.  A measuring tool;
+    nothing on the main path builds one."""
+
+    def __init__(self, iters: int, extra: int, device):
+        require_conditional_graphs("the node-floor graph holds a WHILE node")
+        self._counter = torch.zeros(1, dtype=torch.int32, device=device)
+        fn = _lib_fn("cc_node_floor_graph_build", [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_void_p)])
+        self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
+        _build.check(fn(self._counter.data_ptr(), iters, extra, ctypes.byref(self._exec),
+                        ctypes.byref(self._graph)), "node floor graph build")
+
+    def launch(self, stream: int) -> None:
+        launch_graph_exec(self._exec, stream, "node floor graph")
+
+    def iterations(self) -> int:
+        return int(self._counter.item())
+
+    def close(self) -> None:
+        if self._exec:
+            destroy_graph_exec(self._exec, self._graph, "node floor graph")
+            self._exec = ctypes.c_void_p()

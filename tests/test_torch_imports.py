@@ -32,6 +32,9 @@ def _forbidden(name: str) -> bool:
 def test_import_loads_no_jax_in_subprocess():
     mods = _modules()
     assert "cruise_control_tpu_torch.analyzer.optimizer" in mods
+    # the device scheduler and the stdlib modules it needs, copied in
+    for m in ("fleet.scheduler", "detector.anomalies", "common.blackbox", "common.device_watchdog"):
+        assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

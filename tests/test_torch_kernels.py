@@ -37,7 +37,13 @@ sync and equals the staged path bit for bit.  scenario_step exact against
 its plain version; the scenario batch graph: one graph launch and one sync
 a batch, each scenario's objective and violations bit for bit those of
 scoring it alone, no capture on a second batch; score_state's graph bit
-for bit the eager chain and stats.
+for bit the eager chain and stats.  round_schedule driven launch by launch
+to slice ends (segmented execution) exact against the plain version, its
+ys those of the whole run; a segmented run bit for bit the one-launch run
+in every candidates variant and with diagnostics (placements, records, ys
+bytes, carry; one slice-graph launch and one sync a slice, no capture, the
+launches plus one EXIT a slice), and a segmented reported run's payload
+bit for bit the one-launch run's.
 """
 
 import dataclasses
@@ -1796,3 +1802,139 @@ def test_alternating_widths_capture_once_each(cuda):
             assert torch.equal(getattr(res.state_after, f), getattr(want[id(st)].state_after, f)), f
     assert captured == [True, True, False, False, False]
     assert opt.compile_attribution()[bucket_key(state.shape)]["compiles"] == 2
+
+
+# ---------------------------------------------------------------------------
+# segmented execution: the slice end and the slice graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ends", [[1, 2, 3, 4, 5, 6, 7], [2, 4, 8], [3, 100]])
+def test_round_schedule_slice_end_matches_plain(cuda, ends):
+    """The loop's phases driven launch by launch, each launch ending at the
+    host's slice end (CLOSE stops at min(total, slice end); EXIT writes
+    only once the run is over), on the card against the plain version on
+    the CPU over test_round_schedule_exit_matches_plain's scripted stops;
+    every state word, counter and ys row the same, and the ys those of
+    the whole run in one launch (NaN where the plain version has NaN)."""
+    from cruise_control_tpu_torch.kernels import schedule as sk
+
+    tol = float(np.float32(1e-6))
+    big = 1e-2
+    scripts = (
+        ([tol] + [big] * 6, [big, 0.0] + [big] * 5),
+        ([big] * 7, [big] * 4 + [1e-3, tol, big]),
+        ([big] * 7, [big] * 4 + [1e-3, 5e-4, 2e-4]),
+    )
+    dims = sk.ScheduleDims(n_main=4, total=7, tol_on=True, checks=2, verbose=False, tol=tol,
+                           scale=float(np.float32(1e-2)))
+
+    def drive(dev, cheap, full, slice_ends):
+        s = sk.Schedule.create(7, 0.7, dev)
+        s.sf[sk.OBJ] = 37.0
+        sk.round_schedule(sk.INIT, s, dims)
+        for end in slice_ends:
+            if end is not None:
+                s.si[sk.SLICE_END] = end
+            while True:
+                rnd = int(s.si[sk.RND])
+                sk.round_schedule(sk.GATE, s, dims)
+                if s.si[sk.NEED_FULL]:
+                    s.sf[sk.FULL_V] = full[rnd]
+                sk.round_schedule(sk.DECIDE, s, dims)
+                if s.si[sk.RUN]:
+                    s.acc += 7 + rnd
+                    s.sf[sk.CHEAP] = cheap[rnd]
+                sk.round_schedule(sk.CLOSE, s, dims)
+                if not s.si[sk.LOOP]:
+                    break
+            sk.round_schedule(sk.EXIT, s, dims)
+            if s.si[sk.DONE] or int(s.si[sk.RND]) >= 7:
+                break
+        return [t.cpu() for t in (s.si, s.sf, s.acc, s.ys, s.count)]
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    for cheap, full in scripts:
+        cpu, card = drive("cpu", cheap, full, ends), drive(cuda, cheap, full, ends)
+        assert all(same(a, b) for a, b in zip(cpu, card)), ends
+        whole = drive(cuda, cheap, full, [None])
+        assert same(card[3], whole[3]) and same(card[4], whole[4]), ends
+
+
+@pytest.mark.parametrize("variant", CAND_VARIANTS + ("diagnostics",))
+def test_segmented_run_matches_one_launch(cuda, variant):
+    """A segmented run on the card (one-round slices: SegmentContext(1e-9),
+    a checkpoint between every two) against the one-launch run of the same
+    engine, in every candidates variant and with diagnostics: the
+    placements, the round records, the ys bytes and the carry bit for bit;
+    one slice graph launch and one sync a slice; the slice graph
+    instantiated once and nothing captured by a segmented run; the
+    counted launches the one-launch run's, plus one EXIT a slice."""
+    from cruise_control_tpu_torch.analyzer.engine import SegmentContext, segmented_execution
+
+    disks = variant in ("disk_terms", "intra")
+    spec = RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0,
+                             disks_per_broker=2 if disks else 1)
+    state = random_cluster(spec, seed=2, device=cuda)
+    chain, cfg, prior = _variant_engine("default" if variant == "diagnostics" else variant, state,
+                                        num_candidates=256, leadership_candidates=64,
+                                        steps_per_round=8, num_rounds=4)
+    cfg = dataclasses.replace(cfg, diagnostics=variant == "diagnostics")
+    eng = Engine(state, chain, config=cfg, prior=prior)
+    eng.run()  # captures the graphs
+    kernels.reset_launches()
+    one, one_hist = eng.run()
+    torch.cuda.synchronize()
+    one_launches = dict(kernels.LAUNCHES)
+    ys_one, carry_one = eng._ws.sched.ys.clone(), eng._ws.carry.clone()
+    checkpoints = []
+    for again in (False, True):
+        kernels.reset_launches()
+        with segmented_execution(SegmentContext(1e-9, checkpoint=lambda: checkpoints.append(1))):
+            seg, seg_hist = eng.run()
+        torch.cuda.synchronize()
+        t = seg_hist[-1]
+        assert t["segmented"] and t["captured"] == [] and t["instantiated"] == ([] if again else ["slice"])
+        assert t["graph_launches"] == t["blocking_syncs"] == t["segments"] > 1
+        want = dict(one_launches, round_schedule=one_launches["round_schedule"] + t["segments"] - 1)
+        assert dict(kernels.LAUNCHES) == want
+        for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+            assert torch.equal(getattr(one, f), getattr(seg, f)), f
+        assert [h for h in one_hist if "round" in h] == [h for h in seg_hist if "round" in h]
+        assert torch.equal(ys_one.view(torch.int64), eng._ws.sched.ys.view(torch.int64))
+        for f in _tensor_fields(carry_one):
+            a, b = getattr(carry_one, f), getattr(eng._ws.carry, f)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f
+    assert len(eng.graph_stats["slice_graphs"]) == 1
+    assert len(eng.graph_stats["captures"]) == 1
+
+
+def test_segmented_reported_run_payload_on_card(cuda):
+    """`run_reported` in slices on the card: the last slice's launch runs
+    the after-report and the checks and copies the payload, which equals
+    the one-launch reported run's bit for bit; a sync a slice, no more."""
+    from cruise_control_tpu_torch.analyzer.engine import SegmentContext, segmented_execution
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    eng = Engine(state, DEFAULT_CHAIN, config=dataclasses.replace(CFG, num_rounds=4))
+    f1, h1, p1 = eng.run_reported()
+    with segmented_execution(SegmentContext(1e-9)):
+        f2, h2, p2 = eng.run_reported()
+    for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+        assert torch.equal(getattr(f1, f), getattr(f2, f)), f
+    assert [h for h in h1 if "round" in h] == [h for h in h2 if "round" in h]
+    for k in p1:
+        if k.startswith("stats_"):
+            for fld in dataclasses.fields(p1[k]):
+                a, b = getattr(p1[k], fld.name), getattr(p2[k], fld.name)
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (k, fld.name)
+        else:
+            a, b = (np.asarray(p[k]).reshape(-1).view(np.uint8) for p in (p1, p2))
+            assert np.array_equal(a, b), k
+    t = h2[-1]
+    assert t["segmented"] and t["blocking_syncs"] == t["segments"] and t["report_graph_launches"] == 2
