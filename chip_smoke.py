@@ -177,14 +177,55 @@ Phases:
      itself, and the two results are phases 4's and 5's bit for bit.
      Then the floor of a one-thread kernel node inside a WHILE body (the
      bound of round_schedule's and scenario_step's launches).
+     Every optimize result, streaming cycle, scenario batch and outcome of
+     phases 4-21 is checked to come from the card: `degraded` False, and
+     `summary()["degraded"]` False.
+ 22. Supervision on the card (common/device_watchdog.py DeviceSupervisor,
+     analyzer/optimizer.py's supervised route), on the north star.  On
+     the card a classified failure or an open breaker raises
+     `DeviceDegradedError`: the card's work is never answered from the
+     CPU.  (a) a real OOM, the allocator's own, raised on "engine.run"
+     under a supervisor with no retry, a breaker that opens at one
+     failure and a probe at once: `DeviceDegradedError` of class OOM
+     with the allocator's error as its cause, the breaker open, the
+     engine purged, the allocator's bytes back at the phase's start;
+     then the probe closes the breaker and the next optimize runs on the
+     card, phase 4's run bit for bit, re-capturing the purged engine once
+     (its seconds printed).  (b) a real hang: "engine.run" spins the card
+     5 s with `torch.cuda._sleep` under a 2 s budget: HANG in about 2 s
+     (the wall printed); while the abandoned worker still waits for the
+     spin the probe fails and the breaker stays open; the worker then
+     runs its real run to its end; the probe closes the breaker and the
+     next run, under the same 2 s budget (a recovery with its re-capture
+     took 0.61 s on an H100), is phase 4's bit for bit (it
+     starts after the spin has ended, so no device sync of it waits for
+     the spin: the output says so).  (c) a real sticky error, in a child
+     process (`chip_smoke.py --sticky-child`) so that this process's
+     context survives: one supervised optimize on a small fixture on the
+     card, then a device-side assert (an out-of-range index) inside
+     "engine.run": DEVICE_LOST with no retry (two allowed), and a second
+     optimize refused with `BreakerOpenError` and no engine invocation
+     (its probe fails in the dead context); the child prints one JSON
+     line and exits 0.  (d) phase 16's 32 what-ifs under a supervisor
+     with no fault: one launch, one sync, every score bit for bit phase
+     16's, not degraded; then with a real OOM on "scenario.batch-eval":
+     `DeviceDegradedError` of class OOM; then, the probe passed, phase
+     16's scores bit for bit again.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
+
+`python3 chip_smoke.py --sticky-child` is phase 22's child alone; it
+needs the kernels built (phase 1) and leaves its process's CUDA context
+unusable, so it exits without CUDA teardown.
 """
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -279,6 +320,11 @@ PLACEMENTS: dict = {}
 #: phase 10's unprewarmed run of the bucket-padded north star (its
 #: placements and wall), which phase 20's prewarmed run must match
 PADDED_RUN: dict = {}
+#: phase 16's 32 scores (objectives, violations), which phase 22's
+#: supervised batch must match
+SCENARIO_SCORES: dict = {}
+#: the results phases 4-21 checked for `degraded` False, by kind
+AUDIT: dict = {}
 
 
 def check(ok, message: str) -> None:
@@ -2328,6 +2374,7 @@ def check_scenarios(state) -> dict:
     mism = [i for i, (o, v) in enumerate(singles)
             if float(o) != obj[i] or not np.array_equal(np.asarray(v, np.float64), viol[i])]
     check(not mism, f"the batch differs from scoring each scenario alone at {mism}")
+    SCENARIO_SCORES["16"] = (obj.copy(), viol.copy())
     # warmed batched walls
     walls, dev_ms = [], []
     for _ in range(3):
@@ -2955,6 +3002,330 @@ def check_segmented(state, decom, cfg, exact: dict) -> dict:
     return dict(a=rec, walls=walls, per_slice=per_slice, b=pre, floor=floor)
 
 
+@contextlib.contextmanager
+def card_answers_only():
+    """Phases 4-21 run without a supervisor, so none of their answers may
+    be degraded: every GoalOptimizer.optimize result and streaming cycle,
+    every ScenarioEvaluator batch and outcome is checked for `degraded`
+    False (and an optimize result's `summary()["degraded"]` False) as it
+    is returned, and counted into AUDIT."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer, ScenarioEvaluator
+
+    lock = threading.Lock()
+    orig = dict(optimize=GoalOptimizer.optimize, cycle=GoalOptimizer.optimize_streaming_cycle,
+                batch=ScenarioEvaluator.evaluate_states, evaluate=ScenarioEvaluator.evaluate)
+
+    def seen(kind: str, n: int = 1) -> None:
+        with lock:
+            AUDIT[kind] = AUDIT.get(kind, 0) + n
+
+    def optimize(self, *a, **kw):
+        res = orig["optimize"](self, *a, **kw)
+        check(res.degraded is False and res.summary()["degraded"] is False,
+              f"a degraded optimize answer in phases 4-21: {res.history[:1]}")
+        seen("optimize")
+        return res
+
+    def cycle(self, *a, **kw):
+        out = orig["cycle"](self, *a, **kw)
+        if out is not None:
+            check(out[0].degraded is False, "a degraded streaming cycle in phases 4-21")
+            seen("streaming_cycle")
+        return out
+
+    def batch(self, states):
+        obj, viol, degraded = orig["batch"](self, states)
+        check(degraded is False, "a degraded scenario batch in phases 4-21")
+        seen("scenario_batch")
+        return obj, viol, degraded
+
+    def evaluate(self, *a, **kw):
+        outcomes = orig["evaluate"](self, *a, **kw)
+        check(not any(o.degraded for o in outcomes), "a degraded scenario outcome in phases 4-21")
+        seen("scenario_outcome", len(outcomes))
+        return outcomes
+
+    GoalOptimizer.optimize, GoalOptimizer.optimize_streaming_cycle = optimize, cycle
+    ScenarioEvaluator.evaluate_states, ScenarioEvaluator.evaluate = batch, evaluate
+    try:
+        yield
+    finally:
+        GoalOptimizer.optimize, GoalOptimizer.optimize_streaming_cycle = orig["optimize"], orig["cycle"]
+        ScenarioEvaluator.evaluate_states, ScenarioEvaluator.evaluate = orig["batch"], orig["evaluate"]
+
+
+def spin_cycles_per_ms() -> float:
+    """`torch.cuda._sleep` cycles a ms on this card, measured."""
+    import torch
+
+    torch.cuda._sleep(1000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    return 100_000_000 / start.elapsed_time(end)
+
+
+def real_oom(op, fn, args, kwargs):
+    """A fault effect: the caching allocator's own out-of-memory error, from
+    asking it for more bytes than the card has."""
+    import torch
+
+    torch.empty(torch.cuda.get_device_properties(0).total_memory + (1 << 20), dtype=torch.uint8,
+                device="cuda")
+    return fn(*args, **kwargs)
+
+
+def same_placement(res, exact: dict) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(res.state_after, f), exact[f]) for f in PLACEMENT)
+
+
+def check_supervision(state, cfg, exact: dict) -> dict:
+    """Phase 22: supervision on the card.  (a) a real OOM, (b) a real hang,
+    (c) a real sticky error in a child process, (d) the scenario batch
+    supervised, healthy and with a real OOM (module docstring)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer, ScenarioEvaluator
+    from cruise_control_tpu_torch.common.device_watchdog import (
+        BreakerState,
+        DeviceDegradedError,
+        DeviceSupervisor,
+        FailureClass,
+    )
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.planner import apply_scenario, plan_shape
+    from cruise_control_tpu_torch.testing import faults
+
+    def refused(fn, cls):
+        """The DeviceDegradedError of class `cls` that fn raises, and the
+        seconds until it was raised."""
+        t0 = time.monotonic()
+        try:
+            fn()
+        except DeviceDegradedError as e:
+            check(e.failure_class is cls, f"{e!r} is not of class {cls.value}")
+            return e, time.monotonic() - t0
+        raise AssertionError(f"no DeviceDegradedError of class {cls.value} was raised")
+
+    out = {}
+    state.members  # the state's member table, built once, held before the phase
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+
+    # (a) a real OOM
+    sup = DeviceSupervisor(op_timeout_s=120.0, max_retries=0, breaker_failure_threshold=1,
+                           probe_interval_s=0.0, device="cuda")
+    opt = GoalOptimizer(config=cfg, device="cuda", supervisor=sup)
+    with faults.device_fault(real_oom, schedule=faults.first(1)) as fl:
+        err, wall = refused(lambda: opt.optimize(state), FailureClass.OOM)
+    check(fl.fired == {"engine.run": 1}, f"the OOM fault did not fire once on engine.run: {fl.fired}")
+    check(isinstance(err.__cause__, torch.cuda.OutOfMemoryError),
+          f"the failure is not the allocator's: {err.__cause__!r}")
+    check(sup.breaker.state is BreakerState.OPEN, "the breaker is not open after the OOM")
+    check(not opt.has_engine_for(state.shape, config=cfg), "the failed engine stayed cached")
+    del err
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(mem1 == mem0, f"the allocator holds {mem1 - mem0} bytes more after the OOM")
+    out["oom"] = dict(failure_to_error_s=wall, memory_allocated=[mem0, mem1])
+    # recovery: the probe closes the breaker, the engine is re-captured once
+    rec_res, _ = run_proposal(opt, state, "supervised_recovery_after_oom")
+    t = next(h for h in rec_res.history if h.get("timing"))
+    check(not rec_res.degraded and sup.breaker.state is BreakerState.CLOSED, "no recovery after the OOM")
+    check(same_placement(rec_res, exact) and len(rec_res.proposals) == exact["proposals"],
+          "the recovered run is not phase 4's")
+    check(t["captured"], "the purged engine was not re-captured")
+    caps = [c for e in opt._engines.values() for c in e.graph_stats.get("captures", [])]
+    check(len(caps) == 1, f"the purged engine was captured {len(caps)} times")
+    out["oom"].update(recovery_wall_s=rec_res.wall_seconds, probes=sup.num_probes,
+                      recapture_s=caps[0]["warmup_s"] + caps[0]["capture_s"] + caps[0]["instantiate_s"],
+                      recapture=dict(warmup_s=caps[0]["warmup_s"], capture_s=caps[0]["capture_s"],
+                                     instantiate_s=caps[0]["instantiate_s"]),
+                      proposals=len(rec_res.proposals))
+    log(json.dumps({"phase": "supervision_oom", **out["oom"]}))
+    del rec_res
+
+    # (b) a real hang: a 5 s spin on the card under a 2 s budget, which
+    # stays the budget of the recovery
+    cpm = spin_cycles_per_ms()
+    spin_ms, budget = 5000.0, 2.0
+    worker = {}
+
+    def spin(op, fn, args, kwargs):
+        worker["start"] = time.monotonic()
+        torch.cuda._sleep(int(spin_ms * cpm))
+        torch.cuda.current_stream().synchronize()
+        worker["spin_end"] = time.monotonic()
+        out = fn(*args, **kwargs)  # the abandoned run, to its end
+        worker["done"] = time.monotonic()
+        return out
+
+    sup.op_timeout_s = budget
+    with faults.device_fault(spin, schedule=faults.first(1)):
+        _, hang_wall = refused(lambda: opt.optimize(state), FailureClass.HANG)
+        check(sup.breaker.state is BreakerState.OPEN, "the breaker is not open after the hang")
+        # the worker still waits for the spin: the probe must fail
+        spinning = "spin_end" not in worker
+        check(spinning and not sup.available(), "the breaker closed while the spin still ran")
+        diagnosis = sup.last_failure["error"]
+        check("abandoned" in diagnosis, f"the probe failed for another reason: {diagnosis}")
+        deadline = time.monotonic() + 120.0
+        while sup.abandoned_running() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check("done" in worker, "the abandoned worker never finished its run")
+    t_rec = time.monotonic()
+    again, _ = run_proposal(opt, state, "supervised_recovery_after_hang")
+    check(not again.degraded and sup.breaker.state is BreakerState.CLOSED, "no recovery after the hang")
+    check(same_placement(again, exact) and len(again.proposals) == exact["proposals"],
+          "the run after the hang is not phase 4's")
+    t = next(h for h in again.history if h.get("timing"))
+    caps = [c for e in opt._engines.values() for c in e.graph_stats.get("captures", [])]
+    out["hang"] = dict(
+        budget_s=budget, recovery_budget_s=sup.op_timeout_s, spin_ms=spin_ms,
+        spin_s=worker["spin_end"] - worker["start"], failure_to_error_s=hang_wall,
+        breaker_open_while_spinning=True, probe_diagnosis=diagnosis,
+        abandoned_worker_done_after_s=worker["done"] - worker["start"],
+        recovery_started_after_spin_start_s=t_rec - worker["start"],
+        recovery_waited_for_spin="no: the probe held the breaker open until the abandoned "
+                                 "worker, and with it the spin, had ended",
+        recovery_wall_s=again.wall_seconds, captured=t["captured"],
+        recapture_s=(caps[0]["warmup_s"] + caps[0]["capture_s"] + caps[0]["instantiate_s"])
+        if caps else None,
+    )
+    log(json.dumps({"phase": "supervision_hang", **out["hang"]}))
+    del again
+
+    # (c) a real sticky error, in a child process
+    t0 = time.monotonic()
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--sticky-child"],
+                           capture_output=True, text=True, timeout=600, cwd=ROOT)
+    child_wall = time.monotonic() - t0
+    check(child.returncode == 0, f"the sticky-error child failed ({child.returncode}): "
+                                 f"{child.stderr[-3000:]}")
+    lines = child.stdout.strip().splitlines()
+    check(len(lines) == 1, f"the child printed {len(lines)} lines: {child.stdout[-2000:]}")
+    cr = json.loads(lines[0])
+    check(cr["first"]["degraded"] is False, f"the child's first optimize was degraded: {cr}")
+    check(cr["sticky"]["raised"] == "DeviceDegradedError" and cr["sticky"]["reason"] == "device_lost",
+          f"the device-side assert was not DEVICE_LOST: {cr}")
+    check(cr["sticky"]["retries"] == 0 and cr["sticky"]["failure_counts"]["transient"] == 0,
+          f"the sticky error was retried: {cr}")
+    check(cr["second"]["raised"] == "BreakerOpenError" and cr["second"]["reason"] == "breaker-open"
+          and cr["second"]["engine_calls"] == 0, f"the second optimize touched the card: {cr}")
+    check(cr["second"]["probe_failures"] >= 1, f"no probe failed in the dead context: {cr}")
+    out["sticky"] = dict(child_wall_s=child_wall, **cr)
+    log(json.dumps({"phase": "supervision_sticky_child", **out["sticky"]}))
+
+    # (d) phase 16's 32 what-ifs, supervised
+    dims = (NORTH_STAR_SPEC["num_racks"], NORTH_STAR_SPEC["num_brokers"], NORTH_STAR_SPEC["num_topics"])
+    scenarios = scenario_batch(32, 0, *dims)
+    shape = plan_shape(state, scenarios + scenario_batch(12, 32, *dims))
+    base = pad_state(state, shape) if shape != state.shape else state
+    states = [apply_scenario(base, sc, shape=shape) for sc in scenarios]
+    sup2 = DeviceSupervisor(op_timeout_s=120.0, max_retries=0, breaker_failure_threshold=1,
+                            probe_interval_s=0.0, device="cuda")
+    ev = ScenarioEvaluator(max_scenarios=32, supervisor=sup2)
+    want_obj, want_viol = SCENARIO_SCORES["16"]
+    walls, device_ms = [], []
+    for label in ("healthy", "after_oom"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with dispatch_meter() as m:
+            obj, viol, degraded = ev.evaluate_states(states)
+        walls.append(time.monotonic() - t0)
+        batch = dict(ev.last_batch)
+        device_ms.append(batch["device_ms"])
+        check(not degraded and batch["degraded"] is False, f"the supervised batch is degraded ({label})")
+        check(m.counts == {"scenario.batch": 1, "scenario.sync": 1},
+              f"the supervised batch made other dispatches than a launch and a sync: {m.counts}")
+        check(batch["graph_launches"] == 1 and batch["blocking_syncs"] == 1 and batch["steps"] == 32,
+              f"the supervised batch was not one launch and one sync: {batch}")
+        check(np.array_equal(obj, want_obj) and np.array_equal(viol, want_viol),
+              f"the supervised batch's scores are not phase 16's ({label})")
+        if label == "healthy":
+            with faults.device_fault(real_oom, ops=("scenario.batch-eval",),
+                                     schedule=faults.first(1)) as fl:
+                _, oom_wall = refused(lambda: ev.evaluate_states(states), FailureClass.OOM)
+            check(fl.fired == {"scenario.batch-eval": 1}, f"the batch's OOM did not fire: {fl.fired}")
+            check(sup2.breaker.state is BreakerState.OPEN, "the breaker is not open after the OOM")
+    out["scenarios"] = dict(
+        n=32, supervised_wall_s=walls[0], device_ms=device_ms, dispatches=m.counts,
+        identical_to_phase16=True, failure_to_error_s=oom_wall, after_recovery_wall_s=walls[1],
+        probes=sup2.num_probes,
+    )
+    log(json.dumps({"phase": "supervision_scenarios", **out["scenarios"]}))
+    del states, base, ev, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def sticky_child() -> int:
+    """Phase 22 (c), in a process of its own: one supervised optimize on a
+    small fixture on the card, then a device-side assert inside
+    "engine.run" (an out-of-range index on the card), then one more
+    optimize.  Prints one JSON line; exits without CUDA teardown (the
+    context is dead)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer, OptimizerConfig
+    from cruise_control_tpu_torch.common.device_watchdog import DeviceDegradedError, DeviceSupervisor
+    from cruise_control_tpu_torch.testing import faults
+    from cruise_control_tpu_torch.testing.fixtures import dead_broker_cluster
+
+    state = dead_broker_cluster("cuda")
+    sup = DeviceSupervisor(op_timeout_s=120.0, max_retries=2, breaker_failure_threshold=1,
+                           probe_interval_s=0.0, device="cuda")
+    opt = GoalOptimizer(config=OptimizerConfig(**FAST), device="cuda", supervisor=sup)
+    first = opt.optimize(state)
+
+    def device_assert(op, fn, args, kwargs):
+        x = torch.zeros(4, device="cuda")
+        x[torch.tensor([1 << 20], device="cuda")].sum()
+        torch.cuda.synchronize()
+        return fn(*args, **kwargs)
+
+    def refusal(call) -> dict:
+        t0 = time.monotonic()
+        try:
+            call()
+        except DeviceDegradedError as e:
+            return dict(raised=type(e).__name__, reason=e.reason, failure=repr(e)[:300],
+                        wall_s=time.monotonic() - t0)
+        return dict(raised=None)
+
+    with faults.device_fault(device_assert, schedule=faults.first(1)):
+        sticky = refusal(lambda: opt.optimize(state))
+    sticky.update(retries=sup.num_retries, failure_counts=dict(sup.state_json()["failureCounts"]))
+
+    def invoked(op, fn, args, kwargs):
+        raise AssertionError(f"{op} invoked while the breaker is open")
+
+    with faults.device_fault(invoked) as log2:
+        second = refusal(lambda: opt.optimize(state))
+    second.update(engine_calls=log2.total_calls, probes=sup.num_probes,
+                  probe_failures=sup.num_probe_failures,
+                  probe_diagnosis=(sup.state_json()["lastFailure"] or {}).get("error", "")[:300])
+    out = dict(first=dict(degraded=first.degraded, proposals=len(first.proposals)),
+               sticky=sticky, second=second)
+    print(json.dumps(out), flush=True)
+    sys.stderr.flush()
+    os._exit(0)
+
+
 def main() -> int:
     try:
         import torch
@@ -2967,6 +3338,8 @@ def main() -> int:
     if not (ROOT / "cruise_control_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--sticky-child"]:
+        return sticky_child()
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
@@ -3005,6 +3378,9 @@ def main() -> int:
     # phase 3: a small cluster on the card agrees with the CPU run
     check_small_cluster()
 
+    # phases 4-21 have no supervisor: no answer of theirs may be degraded
+    audit = contextlib.ExitStack()
+    audit.enter_context(card_answers_only())
     # phase 4: the main path, twice with the same seed: the anneal is
     # deterministic on the card, so placements, rounds and proposals agree
     opt = GoalOptimizer(config=cfg, device="cuda")
@@ -3108,6 +3484,14 @@ def main() -> int:
         log(json.dumps({"phase": "control_kernel_floor", "name": name,
                         "node_floor_ms": seg["floor"]["node_ms"],
                         "byte_bound_ms": (kstats[name] if name in kstats else variants[name])["bound_ms"]}))
+    audit.close()
+    log(json.dumps({"phase": "degraded_audit", "checked": AUDIT}))
+    check(all(AUDIT.get(k, 0) > 0 for k in ("optimize", "streaming_cycle", "scenario_batch",
+                                            "scenario_outcome")),
+          f"phases 4-21 did not pass every kind of answer through the audit: {AUDIT}")
+    # phase 22: supervision on the card (real OOM, hang, sticky error,
+    # supervised scenario batch)
+    check_supervision(state, cfg, exact)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -143,6 +143,7 @@ from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, Optimizat
 from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
 from cruise_control_tpu_torch.common import compilation_cache
 from cruise_control_tpu_torch.common.blackbox import RECORDER as _BLACKBOX
+from cruise_control_tpu_torch.common.device_watchdog import device_op
 from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
@@ -1527,6 +1528,7 @@ class Engine:
     # the round schedule
     # ------------------------------------------------------------------
 
+    @device_op("engine.run")
     def run(self, *, verbose: bool = False, initial_placement=None):
         """Execute the annealing schedule; returns (final_state, history).
 
@@ -1564,6 +1566,7 @@ class Engine:
                                                  initial_placement=initial_placement)
         return final, history
 
+    @device_op("engine.run")
     def run_reported(self, *, verbose: bool = False, initial_placement=None):
         """`run` with the optimizer's reports: the before-report of the
         statics' state, the anneal, the after-report and the device checks
@@ -1582,6 +1585,7 @@ class Engine:
                                    reports=True)
         return self._run_legacy(verbose=verbose, initial_placement=initial_placement, reports=True)
 
+    @device_op("engine.cycle")
     def run_cycle(self, ll, fl, rows, new_ll, new_fl, initial_placement):
         """The steady-state streaming cycle (the JAX package's `run_cycle`
         and `_cycle_impl`): the window's scatter, the before-report, the
@@ -1689,17 +1693,26 @@ class Engine:
         t0 = time.monotonic()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream), kernels.recording() as warm_rec:
+        try:
+            with torch.cuda.stream(stream), kernels.recording() as warm_rec:
+                for name in todo:
+                    warm[name]()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            t_warm = time.monotonic()
             for name in todo:
-                warm[name]()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        t_warm = time.monotonic()
-        for name in todo:
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with kernels.capture(graph, stream) as rec:
-                pieces[name]()
-            ws.graph_launches[name] = {k: rec.get(k, 0) for k in kernels.LAUNCHES}
-            ws.graphs[name] = graph
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with kernels.capture(graph, stream) as rec:
+                    pieces[name]()
+                ws.graph_launches[name] = {k: rec.get(k, 0) for k in kernels.LAUNCHES}
+                ws.graphs[name] = graph
+        except BaseException:
+            # a failed capture (an OOM, an invalidated capture) leaves none
+            # of this call's graphs behind: nothing half-captured is ever
+            # replayed, and the next run of the engine captures them anew
+            for name in todo:
+                ws.graphs.pop(name, None)
+                ws.graph_launches.pop(name, None)
+            raise
         t_cap = time.monotonic()
         if lg is None:
             lg = sched_k.LoopGraph(ws.sched, dims, ws.graphs["init"], ws.graphs["eval"],

@@ -30,12 +30,26 @@ graphs on the warm pool, pinned until the capture is done;
 the request-path runs that paid for one.  With a `PrewarmStore`, every
 build and rebind records its bucket in the boot manifest
 (analyzer/prewarm.py).
+
+Supervision is opt-in, as in the JAX package: an optimizer built with a
+`DeviceSupervisor` (common/device_watchdog.py) runs every device touch of
+`optimize` (the input checks, the engine's build, rebind and run, the
+fetch) inside one bounded, classified supervisor call
+(`DeviceSupervisor.run`).  On the card a classified device failure
+raises `DeviceDegradedError`, and an open breaker `BreakerOpenError`
+without touching the card: work on the card is never moved to the CPU.
+On the CPU, where the state already lies on the host, they are answered
+as the JAX package answers them, by the CPU greedy oracle
+(analyzer/greedy.py): a result whose `degraded` is True, with a
+`degraded` history record saying why.  Without a supervisor (the
+default) nothing of this runs: a device failure raises from `optimize`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import threading
 import time
 from collections import OrderedDict
@@ -43,6 +57,7 @@ from collections import OrderedDict
 import numpy as np
 
 from cruise_control_tpu_torch.analyzer.engine import Engine, OptimizerConfig
+from cruise_control_tpu_torch.analyzer.greedy import greedy_optimize
 from cruise_control_tpu_torch.analyzer.objective import (
     DEFAULT_CHAIN,
     GoalChain,
@@ -55,8 +70,11 @@ from cruise_control_tpu_torch.analyzer.proposals import (
     extract_proposals,
     fetch_before_host,
 )
+from cruise_control_tpu_torch.common.blackbox import RECORDER as _BLACKBOX
+from cruise_control_tpu_torch.common.blackbox import blackbox_context
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.device import resolve_device
+from cruise_control_tpu_torch.models.aggregates import compute_aggregates
 from cruise_control_tpu_torch.models.state import (
     DEVICE_CHECKS,
     ClusterState,
@@ -64,7 +82,7 @@ from cruise_control_tpu_torch.models.state import (
     validate,
     validate_on_device,
 )
-from cruise_control_tpu_torch.models.stats import ClusterStats
+from cruise_control_tpu_torch.models.stats import ClusterStats, compute_stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +116,15 @@ class OptimizerResult:
     def data_to_move(self) -> float:
         return self.proposals.data_to_move
 
+    @property
+    def degraded(self) -> bool:
+        """True when this result came from the CPU greedy route (a
+        supervised optimizer on the CPU) because the device path was
+        unavailable (the supervisor's breaker open) or failed with a
+        classified device fault; the history carries a `degraded` record
+        with the reason and failure class."""
+        return any(h.get("degraded") for h in self.history)
+
     def violated_goals_after(self, tol: float = 1e-6) -> list[str]:
         """Default tol matches balancedness_score's goal-satisfied epsilon."""
         return [n for n, v in zip(self.goal_names, self.violations_after) if v > tol]
@@ -113,6 +140,7 @@ class OptimizerResult:
             "objectiveAfter": self.objective_after,
             "violatedGoalsAfter": self.violated_goals_after(),
             "wallSeconds": self.wall_seconds,
+            "degraded": self.degraded,
         }
 
 
@@ -121,6 +149,18 @@ class GoalOptimizer:
 
     `device` is where engines run and where input states must live; it
     defaults to the current CUDA device and raises when there is none.
+
+    `supervisor` (a `DeviceSupervisor`, shared by a service's optimizers
+    and evaluators) supervises every device invocation: a hang is bounded,
+    and while its breaker is open, or when a call fails with a classified
+    device failure, `optimize` raises `DeviceDegradedError` on the card
+    and serves a CPU greedy result tagged degraded on the CPU.  None (the
+    default) keeps the direct path with no change of behaviour.
+    `degraded_budget_s` caps the greedy's wall clock.  `sensors` (a common/sensors.py `SensorRegistry`) receives the
+    engine cache's hit/miss counters and size gauge and the
+    `analyzer.degraded-proposals` counter; `tracer` is the flight
+    recorder every `optimize` opens an `analyzer.optimize` span on
+    (common/trace.py; the process-wide TRACER by default).
     """
 
     def __init__(
@@ -133,6 +173,10 @@ class GoalOptimizer:
         balancedness_weights: tuple[float, float] = (1.1, 1.5),
         engine_cache_size: int = 8,
         prewarm_store=None,
+        supervisor=None,
+        degraded_budget_s: float = 30.0,
+        sensors=None,
+        tracer=None,
     ):
         if engine_cache_size < 1:
             raise ValueError(f"engine_cache_size must be >= 1, got {engine_cache_size}")
@@ -157,6 +201,33 @@ class GoalOptimizer:
         #: bucket key -> captures, their seconds, cold request-path walls
         #: and engine build seconds (`compile_attribution`)
         self._compile_attribution: dict[str, dict] = {}
+        self.supervisor = supervisor
+        self.degraded_budget_s = degraded_budget_s
+        self.sensors = sensors
+        from cruise_control_tpu_torch.common.trace import TRACER
+
+        self.tracer = tracer if tracer is not None else TRACER
+        #: the breaker's open epoch last seen: the cache is purged once per
+        #: open transition (`_maybe_purge_after_open`)
+        self._breaker_epoch = supervisor.open_epoch if supervisor is not None else 0
+        #: engines purged after the card's context was lost, kept unreleased
+        #: for the process's life (`_maybe_purge_after_open`)
+        self._abandoned_engines: list = []
+
+    @property
+    def cache_size(self) -> int:
+        """Engines currently cached."""
+        with self._cache_lock:
+            return len(self._engines)
+
+    def _sense_cache(self, hit: bool | None) -> None:
+        """The engine cache's sensors: a hit or a miss (None: neither) and
+        the size gauge."""
+        if self.sensors is None:
+            return
+        if hit is not None:
+            self.sensors.counter(f"analyzer.engine-cache-{'hits' if hit else 'misses'}").inc()
+        self.sensors.gauge("analyzer.engine-cache-size").set(self.cache_size)
 
     def _pin(self, key) -> Engine | None:
         """The cached engine of `key`, pinned, or None (under the lock)."""
@@ -197,6 +268,8 @@ class GoalOptimizer:
                 self.engine_cache_hits += count
         for old in evicted:
             old.release()
+        if count:
+            self._sense_cache(won is not None)
         if won is not None:
             engine.release()
             return won
@@ -214,7 +287,9 @@ class GoalOptimizer:
             if engine is not None:
                 self.engine_cache_hits += 1
         hit = engine is not None
-        if engine is None:
+        if hit:
+            self._sense_cache(True)
+        else:
             t0 = time.monotonic()
             built = self._new_engine(state, options, config, prior)
             engine = self._publish(key, built)
@@ -254,14 +329,33 @@ class GoalOptimizer:
         """Build the engine of `state`'s bucket and capture its graphs on
         the warm pool without running it (`Engine.precompile_async`), so
         the bucket's first request captures nothing on its path (the JAX
-        package's `prewarm`, the branch without a supervisor).  Build
-        only, never a rebind: where an engine of (shape, max_rf, config)
-        is cached, including one a request cached while this one was built,
-        it is left as it is.  The hit and miss counters are not touched.
-        The engine counts as pinned until its capture is done, so an
-        eviction meanwhile releases it only then; the capture's error is
-        raised to the first run that takes the engine.  `priority` orders
-        the capture on the shared pool (lower first)."""
+        package's `prewarm`).  Build only, never a rebind: where an engine
+        of (shape, max_rf, config) is cached, including one a request
+        cached while this one was built, it is left as it is.  The hit and
+        miss counters are not touched.  The engine counts as pinned until
+        its capture is done, so an eviction meanwhile releases it only
+        then; the capture's error is raised to the first run that takes
+        the engine.  `priority` orders the capture on the shared pool
+        (lower first).
+
+        Supervised like `optimize`: with the breaker open nothing is built
+        (prewarming a failed card only queues more failures), and a
+        classified failure of the build is counted and swallowed — a
+        skipped prewarm means the bucket's first request captures."""
+        sup = self.supervisor
+        if sup is None:
+            self._prewarm_on_device(state, options, config=config, priority=priority)
+            return
+        self._maybe_purge_after_open()
+        try:
+            sup.run(lambda: self._prewarm_on_device(state, options, config=config,
+                                                    priority=priority),
+                    op="prewarm", degraded=lambda reason, cause: None)
+        finally:
+            self._maybe_purge_after_open()
+
+    def _prewarm_on_device(self, state: ClusterState, options: OptimizationOptions, *,
+                           config: OptimizerConfig | None, priority: int) -> None:
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         cfg = config or self.config
@@ -363,9 +457,87 @@ class GoalOptimizer:
         summary.  The before and after reports are f32 whatever the
         config's score_dtype; they ride the engine's reported run
         (`Engine.run_reported`), so the first call of an engine (a
-        bucket) captures the graphs the streaming cycle replays."""
+        bucket) captures the graphs the streaming cycle replays.
+
+        Unsupervised (the default) this is `_optimize_on_device`.
+        Supervised, the whole device body runs inside one bounded,
+        classified supervisor call, and a breaker already open skips the
+        device entirely.  Classified failures (hang, OOM, a sticky CUDA
+        error, a failed capture, transient errors past their retries) and
+        an open breaker raise `DeviceDegradedError` on the card; on the
+        CPU they are answered by the CPU greedy route
+        (`_optimize_degraded`).  Application errors (bad states, bad
+        option masks) and install faults (a kernel that does not build or
+        cannot run on the card) propagate unchanged, so a malformed
+        request can neither degrade the service nor be served a greedy
+        answer.
+
+        Traced: every call is an `analyzer.optimize` span carrying the
+        run's timing record and its degradation verdict as attributes."""
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
+        cfg = config or self.config
+        with self.tracer.span("analyzer.optimize", component="analyzer") as sp:
+            if _BLACKBOX.enabled:
+                # the dispatch context the black box's leaf records
+                # (supervised, device-op, engine-slice) cannot know
+                # themselves: which bucket and which search config
+                ctx = blackbox_context(
+                    bucket=bucket_key(state.shape),
+                    config_fp=hashlib.sha1(repr(cfg).encode()).hexdigest()[:12],
+                    parallel_mode="single",
+                )
+            else:
+                ctx = contextlib.nullcontext()
+            with ctx:
+                result = self._optimize_routed(state, options, verbose, cfg,
+                                               initial_placement=initial_placement, prior=prior)
+            timing = next((h for h in result.history if h.get("timing")), {})
+            sp.set(
+                parallel_mode="single",
+                degraded=result.degraded,
+                wall_s=round(result.wall_seconds, 6),
+                num_proposals=len(result.proposals),
+                objective_after=round(result.objective_after, 6),
+                balancedness_after=round(result.balancedness_after, 3),
+                goal_violations_after={n: round(float(v), 6) for n, v in
+                                       zip(result.goal_names, np.asarray(result.violations_after))},
+                **{k: timing.get(k) for k in (
+                    "device_s", "blocking_syncs", "host_extract_s", "engine_cache_hit",
+                    "engine_build_s", "bucket", "segmented", "segments", "convergence",
+                ) if timing.get(k) is not None},
+            )
+            return result
+
+    def _optimize_routed(self, state: ClusterState, options: OptimizationOptions, verbose: bool,
+                         cfg: OptimizerConfig, *, initial_placement=None,
+                         prior=None) -> OptimizerResult:
+        """The supervision routing: the device path under the supervisor;
+        on an open breaker or a classified failure, the CPU greedy route
+        where the state lies on the CPU, else the supervisor's error."""
+        sup = self.supervisor
+        if sup is None:
+            return self._optimize_on_device(state, options, verbose=verbose, config=cfg,
+                                            initial_placement=initial_placement, prior=prior)
+        self._maybe_purge_after_open()
+        degraded = None
+        if self.device.type == "cpu":
+            def degraded(reason, cause):
+                return self._optimize_degraded(state, options, cfg, reason=reason, cause=cause)
+        try:
+            return sup.run(
+                lambda: self._optimize_on_device(state, options, verbose=verbose, config=cfg,
+                                                 initial_placement=initial_placement,
+                                                 prior=prior),
+                op="optimize", degraded=degraded,
+            )
+        finally:
+            self._maybe_purge_after_open()
+
+    def _optimize_on_device(self, state: ClusterState, options: OptimizationOptions, *,
+                            verbose: bool = False, config: OptimizerConfig | None = None,
+                            initial_placement=None, prior=None) -> OptimizerResult:
+        """The device path."""
         t0 = time.monotonic()
         cfg = config or self.config
         input_checks = validate_on_device(state).cpu().numpy()
@@ -394,6 +566,89 @@ class GoalOptimizer:
             bad = [n for n, c in zip(DEVICE_CHECKS, out["checks"]) if c]
             validate(final)
             raise ValueError(f"optimized state failed sanity checks: {bad}")
+        return self._result(state, final, out, proposals, history, t0)
+
+    def _maybe_purge_after_open(self) -> None:
+        """Drop the cached engines once per breaker-open transition: a card
+        that just failed owns buffers of unknown integrity, and recovery
+        rebuilds engines fresh rather than rebinding onto them.  An engine
+        a run still pins (a hung run's abandoned worker holds one) is
+        dropped from the cache and released at its last unpin; the others
+        are released now.
+
+        Where the card's context is lost (`DeviceSupervisor.context_lost`:
+        a sticky CUDA error), the engines are dropped from the cache but
+        never released nor freed: every CUDA call fails in that context,
+        and the destructors of captured graphs and pinned buffers raise
+        from C++, which aborts the process.  They are kept referenced for
+        the process's life, which needs a restart to use the card again;
+        until then its answers are degraded."""
+        sup = self.supervisor
+        if sup is None or sup.open_epoch == self._breaker_epoch:
+            return
+        free = []
+        with self._cache_lock:
+            if sup.open_epoch == self._breaker_epoch:
+                return
+            self._breaker_epoch = sup.open_epoch
+            if sup.context_lost:
+                self._abandoned_engines.extend(self._engines.values())
+            else:
+                for engine in self._engines.values():
+                    engine._cc_evicted = True
+                    if engine._cc_pins == 0:
+                        free.append(engine)
+            self._engines.clear()
+            self._bound.clear()
+        for engine in free:
+            engine.release()
+        self._sense_cache(None)
+
+    def _report_host(self, st: ClusterState):
+        """(objective, violations f32[G], ClusterStats) of a host state,
+        the reports of the degraded route: the chain and the stats on the
+        CPU, as the engine's report graphs compute them on the card."""
+        agg = compute_aggregates(st, st.members)
+        obj, viol, _ = self.chain.evaluate(st, agg=agg, constraint=self.constraint)
+        return np.float32(obj), viol.numpy(), compute_stats(st, agg)
+
+    def _optimize_degraded(self, state: ClusterState, options: OptimizationOptions,
+                           cfg: OptimizerConfig, *, reason: str, cause=None) -> OptimizerResult:
+        """The degraded answer of a state on the CPU: the CPU greedy oracle
+        (analyzer/greedy.py, `device="cpu"`) under `degraded_budget_s` and
+        with the options' exclusions, and the before and after reports on
+        the CPU.  A state on the card is refused: its work is never moved
+        to the CPU.
+
+        The result is a real OptimizerResult tagged with a `degraded`
+        history record (reason, failure, the greedy's info), so callers
+        can tell a greedy answer from the device path's."""
+        if state.device.type != "cpu":
+            raise RuntimeError(
+                f"no degraded answer for a state on {state.device}: work on the card is "
+                "never moved to the CPU") from cause
+        t0 = time.monotonic()
+        # the device path's input contract: a rejected state raises with
+        # per-invariant detail instead of being greedily "optimized"
+        validate(state)
+        final, info = greedy_optimize(state, self.chain, self.constraint, seed=cfg.seed,
+                                      time_budget_s=self.degraded_budget_s, return_info=True,
+                                      device="cpu", options=options)
+        obj_b, viol_b, stats_b = self._report_host(state)
+        obj_a, viol_a, stats_a = self._report_host(final)
+        t_extract = time.monotonic()
+        proposals = extract_proposals(state, final)
+        s = state.shape
+        history = [dict(
+            timing=True, degraded=True, reason=reason,
+            failure=(repr(cause) if cause is not None else None), greedy=info,
+            host_extract_s=round(time.monotonic() - t_extract, 6),
+            bucket=dict(R=s.R, B=s.B, P=s.P, T=s.num_topics),
+        )]
+        if self.sensors is not None:
+            self.sensors.counter("analyzer.degraded-proposals").inc()
+        out = dict(viol_before=viol_b, viol_after=viol_a, stats_before=stats_b,
+                   stats_after=stats_a, obj_before=obj_b, obj_after=obj_a)
         return self._result(state, final, out, proposals, history, t0)
 
     def optimize_streaming_cycle(
@@ -439,9 +694,20 @@ class GoalOptimizer:
         scatter just changed, is refreshed, from the cycle's payload.  The
         result's state_after placement columns are copies on the engine's
         device, ready as the next cycle's warm start.  Raises on failed
-        final checks."""
+        final checks.
+
+        Under a supervisor it returns None while the breaker is open (the
+        staged path then meets the breaker: `BreakerOpenError` on the
+        card, a degraded answer on the CPU); the cycle itself is not supervised, as
+        in the JAX package: it needs an engine that a supervised `optimize`
+        built, and a failure after the window's scatter into the live
+        tensors can only be recovered by a reflatten, whose accounting is
+        the caller's."""
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
+        sup = self.supervisor
+        if sup is not None and not sup.available():
+            return None
         cfg = config or self.config
         with self._cache_lock:
             rf = self._bound.get((state.shape, cfg))
@@ -449,6 +715,7 @@ class GoalOptimizer:
             if engine is None:
                 return None
             self.engine_cache_hits += 1
+        self._sense_cache(True)
         t0 = time.monotonic()
         try:
             with engine.locked():

@@ -33,8 +33,14 @@ liveness or capacities it changes; only a scenario of another member-table
 width (max_rf) captures anew.  Each anneal's captures and its bucket are
 reported in `last_batch["fix"]`.
 
-The JAX package's analyzer/scenario_eval.py, scoring in f32 as it does,
-without its supervisor: a device failure raises.
+The JAX package's analyzer/scenario_eval.py, scoring in f32 as it does.
+With a `supervisor` (common/device_watchdog.py, shared with the
+optimizer) the batch and `score_state` run inside a supervised call
+(`DeviceSupervisor.run`): on the card a classified device failure or an
+open breaker raises `DeviceDegradedError`; on the CPU, where the states
+already lie on the host, it is answered by the sequential CPU twin
+(`_evaluate_cpu`), flagged `degraded`.  Without one (the default) a
+device failure raises.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from cruise_control_tpu_torch.analyzer.objective import (
     GoalChain,
     balancedness_score,
 )
+from cruise_control_tpu_torch.common.device_watchdog import device_op
 from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.device import resolve_device
@@ -84,8 +91,8 @@ class ScenarioOutcome:
     balancedness: float
     hard_goals_satisfied: bool
     brokers_alive: int
-    #: the JAX package's degraded-route flag; this package has no degraded
-    #: route yet, so always False
+    #: scored by the sequential CPU twin because the device path was
+    #: unavailable or failed (a supervised evaluator on the CPU only)
     degraded: bool = False
     #: present when the full anneal ran: the projected post-fix cluster
     fix: dict | None = None
@@ -162,21 +169,25 @@ class ScenarioEvaluator:
         constraint: BalancingConstraint = DEFAULT_CONSTRAINT,
         *,
         optimizer=None,
+        supervisor=None,
         sensors=None,
         balancedness_weights: tuple[float, float] = (1.1, 1.5),
         max_scenarios: int = 32,
         device=None,
     ):
         """optimizer: GoalOptimizer for the optimize=True pass (its chain
-        should be this chain), on this evaluator's device; sensors:
-        anything with counter(name).inc(n), gauge(name).set(v) and
-        timer(name).update(seconds)."""
+        should be this chain), on this evaluator's device; supervisor:
+        DeviceSupervisor shared with the optimizer, so that a failed card
+        opens one breaker for the whole analyzer surface (None: a device
+        failure raises unsupervised); sensors: anything with counter(name).inc(n),
+        gauge(name).set(v) and timer(name).update(seconds)."""
         self.device = resolve_device(device)
         if optimizer is not None and optimizer.device != self.device:
             raise ValueError(f"the optimizer runs on {optimizer.device}, the evaluator on {self.device}")
         self.chain = chain
         self.constraint = constraint
         self.optimizer = optimizer
+        self.supervisor = supervisor
         self.sensors = sensors
         self.balancedness_weights = balancedness_weights
         self.max_scenarios = max_scenarios
@@ -205,13 +216,15 @@ class ScenarioEvaluator:
     def evaluate_states(self, states: list[ClusterState]):
         """(objectives f64[N], violations f64[N, G], degraded) for N states
         of ONE shared shape: one program, one graph launch and one sync on
-        the card.  `degraded` is always False (no degraded route)."""
+        the card.  `degraded` is True when a supervised evaluator on the
+        CPU answered from the sequential CPU twin."""
         obj, viol, rec = self._score(states)
         self.last_batch = rec
-        return obj, viol, False
+        return obj, viol, rec.get("degraded", False)
 
     def _score(self, states):
-        """(objectives, violations, the batch's record) of N states."""
+        """(objectives, violations, the batch's record) of N states, the
+        record's `degraded` set where the CPU twin answered."""
         if not states:
             return np.zeros(0), np.zeros((0, len(self.chain.goals))), dict(n=0)
         shapes = {s.shape for s in states}
@@ -225,9 +238,38 @@ class ScenarioEvaluator:
                 f"{len(states)} scenario states exceed max_scenarios={self.max_scenarios}"
             )
         self._check_states(states)
-        return self._evaluate_batch(states)
+        sup = self.supervisor
+        if sup is None:
+            return self._evaluate_on_device(states)
 
-    def _evaluate_batch(self, states):
+        def degraded(reason, cause):
+            t0 = time.monotonic()
+            obj, viol = self._evaluate_cpu(states)
+            self._count_degraded()
+            return obj, viol, dict(n=len(states), degraded=True, wall_s=time.monotonic() - t0)
+
+        return sup.run(lambda: self._evaluate_on_device(states), op="scenario-eval",
+                       degraded=degraded if self.device.type == "cpu" else None)
+
+    def _count_degraded(self) -> None:
+        if self.sensors is not None:
+            self.sensors.counter("planner.degraded-evaluations").inc()
+
+    def _evaluate_cpu(self, hosts):
+        """The degraded twin: each state on the CPU scored alone, op by op
+        — the batch's numbers up to the order of float sums."""
+        weights = torch.tensor(self.chain.weights, dtype=torch.float32)
+        objs, viols = [], []
+        for s in hosts:
+            agg = compute_aggregates(s, s.members)
+            obj, viol, _ = self.chain.evaluate(s, agg=agg, constraint=self.constraint,
+                                               weights=weights)
+            objs.append(float(obj))
+            viols.append(viol.numpy().astype(np.float64))
+        return np.asarray(objs, np.float64), np.stack(viols)
+
+    @device_op("scenario.batch-eval")
+    def _evaluate_on_device(self, states):
         t0 = time.monotonic()
         # scenario states alias the shared base's tensors for every field
         # their scenario did not touch (models/whatif.py dirty tracking):
@@ -243,7 +285,7 @@ class ScenarioEvaluator:
             obj, viol = self._single_eval(states[0])
             return (np.full(n, float(obj), np.float64),
                     np.tile(np.asarray(viol, np.float64), (n, 1)),
-                    dict(n=n, identity=True, wall_s=time.monotonic() - t0))
+                    dict(n=n, identity=True, wall_s=time.monotonic() - t0, degraded=False))
         base = states[0]
         # where the replica rows' partition, position or validity differ,
         # each scenario's member table is one more varying field, padded
@@ -268,7 +310,7 @@ class ScenarioEvaluator:
             else:
                 obj, viol, rec = self._run_eager(prog, n)
         rec.update(n=n, identity=False, captured=captured, wall_s=time.monotonic() - t0,
-                   varying=sorted(varying))
+                   varying=sorted(varying), degraded=False)
         return obj.astype(np.float64), viol.astype(np.float64), rec
 
     def _new_program(self, base: ClusterState, width: int, varying, rows_vary: bool) -> _Program:
@@ -443,8 +485,26 @@ class ScenarioEvaluator:
         of ONE measured cluster state — the calibration loop's scorer: the
         SAME goal chain + constraint the decision's prediction rode, with
         the cluster stats; on the card one captured graph per shape, one
-        sync.  `degraded` is always False."""
+        sync.  Supervised like every other evaluator dispatch; on the CPU
+        its degraded route is the sequential CPU twin (`degraded` True)."""
         self._check_states([state])
+        sup = self.supervisor
+        if sup is None:
+            return (*self._score_state_on_device(state), False)
+
+        def degraded(reason, cause):
+            objs, viols = self._evaluate_cpu([state])
+            self._count_degraded()
+            return (float(objs[0]), viols[0],
+                    compute_stats(state, compute_aggregates(state, state.members)), True)
+
+        return sup.run(lambda: (*self._score_state_on_device(state), False),
+                       op="calibration-score",
+                       degraded=degraded if self.device.type == "cpu" else None)
+
+    @device_op("scenario.score-state")
+    def _score_state_on_device(self, state: ClusterState):
+        """(objective, violations f64[G], ClusterStats) of one state."""
         with self._lock:
             prog = self._score_program(state)
             for f in STATE_FIELDS:
@@ -478,7 +538,7 @@ class ScenarioEvaluator:
             v = torch.from_numpy(row[at: at + k].copy())
             stats[f] = v if k > 1 else v.reshape(())
             at += k
-        return float(row[0]), row[1: 1 + G].astype(np.float64), ClusterStats(**stats), False
+        return float(row[0]), row[1: 1 + G].astype(np.float64), ClusterStats(**stats)
 
     # ------------------------------------------------------------------
     # the full planner pass
@@ -534,6 +594,7 @@ class ScenarioEvaluator:
         states = [s for s, _ in applied]
         alive = [int(h.alive_mask().sum()) for _, h in applied]
         objs, viols, batch = self._score(states)
+        degraded = batch.get("degraded", False)
         hard = self.chain.hard_mask()
         names = self.chain.names()
         pw, sw = self.balancedness_weights
@@ -555,6 +616,7 @@ class ScenarioEvaluator:
                     ),
                     hard_goals_satisfied=bool((v[hard] <= VIOLATION_TOL).all()),
                     brokers_alive=alive[i],
+                    degraded=degraded,
                     fix=fix,
                 )
             )
@@ -577,8 +639,6 @@ class ScenarioEvaluator:
         rebinds it N-1 times."""
         result = self.optimizer.optimize(state)
         out = result.summary()
-        # the JAX package's summary key: no degraded route here
-        out["degraded"] = False
         out["violatedGoalsBefore"] = [
             n for n, v in zip(result.goal_names, result.violations_before)
             if v > VIOLATION_TOL

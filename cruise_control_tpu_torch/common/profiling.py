@@ -20,8 +20,11 @@ reading, never a route the program takes.
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import time
+
+log = logging.getLogger(__name__)
 
 
 def _cuda_devices() -> range:
@@ -97,7 +100,11 @@ def profiler_trace(dump_dir: str | None):
     """Trace the block with `torch.profiler` (CPU and, where there is a
     card, CUDA activity) and write its Chrome trace to
     `dump_dir/trace-<ms>.json`; a no-op when `dump_dir` is empty.  Yields
-    the profiler (None when off)."""
+    the profiler (None when off).
+
+    A profiler that fails to start or to write its trace (an unwritable
+    directory) never fails the block it observes, as in the JAX package:
+    the block then runs unprofiled, and the failure is logged."""
     if not dump_dir:
         yield None
         return
@@ -106,7 +113,19 @@ def profiler_trace(dump_dir: str | None):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(dump_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    try:
+        os.makedirs(dump_dir, exist_ok=True)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+    except Exception:  # noqa: BLE001 — profiling is best-effort
+        log.warning("profiler did not start; the block runs unprofiled", exc_info=True)
+        yield None
+        return
+    try:
         yield prof
-    prof.export_chrome_trace(os.path.join(dump_dir, f"trace-{int(time.time() * 1000)}.json"))
+    finally:
+        try:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(dump_dir, f"trace-{int(time.time() * 1000)}.json"))
+        except Exception:  # noqa: BLE001 — profiling is best-effort
+            log.warning("profiler trace not written", exc_info=True)

@@ -9,6 +9,11 @@ name carries a hash of its sources and flags, so an edited source is
 rebuilt and an unchanged one is reused.  `build()` starts one `nvcc` per
 missing library, all at once, and waits for all of them.
 
+A failure to build or load a library raises `KernelBuildError`, a failed
+launch `CudaLaunchError` with its `cudaError_t` code: the device
+supervisor (common/device_watchdog.py) reads them by type, so an install
+fault is never taken for a device failure.
+
 `-fmad=false` keeps `a*b+c` as a rounded multiply and a rounded add, the
 order of operations the plain PyTorch versions use; division and square
 root stay IEEE-exact (nvcc's defaults).
@@ -47,6 +52,21 @@ REUSED: set[str] = set()
 BUILT: set[str] = set()
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built or loaded: nvcc missing, a
+    compile error, a library that does not load.  An install fault, never
+    a device failure."""
+
+
+class CudaLaunchError(RuntimeError):
+    """A kernel launch (or a graph call of the kernels' libraries)
+    returned a nonzero `cudaError_t`, kept as `code`."""
+
+    def __init__(self, code: int, what: str):
+        super().__init__(f"CUDA launch of {what} failed: cudaError_t {code}")
+        self.code = int(code)
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -55,7 +75,7 @@ def nvcc_path() -> str:
     cand = Path(cuda_home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    raise KernelBuildError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
 def library_path(name: str) -> Path:
@@ -93,7 +113,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
         tmp.replace(library_path(n))
         BUILT.add(n)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took
 
 
@@ -103,7 +123,10 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            try:
+                lib = ctypes.CDLL(str(library_path(name)))
+            except OSError as e:
+                raise KernelBuildError(f"kernel library {name} does not load: {e}") from e
             _LIBS[name] = lib
         return lib
 
@@ -111,4 +134,4 @@ def library(name: str) -> ctypes.CDLL:
 def check(status: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if status != 0:
-        raise RuntimeError(f"CUDA launch of {what} failed: cudaError_t {status}")
+        raise CudaLaunchError(status, what)

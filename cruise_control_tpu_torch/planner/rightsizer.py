@@ -51,8 +51,8 @@ class CandidateResult:
     violated_hard_goals: tuple
     objective_after: float | None
     num_moves: int | None
-    #: verdict came from a degraded route (the JAX package's CPU fallback;
-    #: this package has none yet, so always False)
+    #: verdict came from a degraded route (a supervised evaluator's or
+    #: optimizer's CPU answer, given on the CPU only)
     degraded: bool = False
 
     def to_json(self) -> dict:

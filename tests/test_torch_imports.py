@@ -32,8 +32,10 @@ def _forbidden(name: str) -> bool:
 def test_import_loads_no_jax_in_subprocess():
     mods = _modules()
     assert "cruise_control_tpu_torch.analyzer.optimizer" in mods
-    # the device scheduler and the stdlib modules it needs, copied in
-    for m in ("fleet.scheduler", "detector.anomalies", "common.blackbox", "common.device_watchdog"):
+    # the device scheduler, the supervisor and the stdlib modules they
+    # need, copied in
+    for m in ("fleet.scheduler", "detector.anomalies", "common.blackbox", "common.device_watchdog",
+              "common.sensors", "common.trace", "common.exposition", "testing.faults"):
         assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"

@@ -43,7 +43,15 @@ ys those of the whole run; a segmented run bit for bit the one-launch run
 in every candidates variant and with diagnostics (placements, records, ys
 bytes, carry; one slice-graph launch and one sync a slice, no capture, the
 launches plus one EXIT a slice), and a segmented reported run's payload
-bit for bit the one-launch run's.
+bit for bit the one-launch run's.  Supervision: the watchdog's probe
+answers on a stream of its own while the current stream spins; the
+allocator's real out-of-memory error classifies as OOM, through the
+supervisor too, with no retry; a capture that fails leaves no graph
+behind, releases the capture lock, and the next run captures anew; a
+supervised optimize with an injected OOM raises `DeviceDegradedError`
+(no answer from the CPU), and after the probe the unsupervised run bit
+for bit; a call abandoned at its deadline while the card spins holds the
+breaker open until its worker returns.
 """
 
 import dataclasses
@@ -1938,3 +1946,147 @@ def test_segmented_reported_run_payload_on_card(cuda):
             assert np.array_equal(a, b), k
     t = h2[-1]
     assert t["segmented"] and t["blocking_syncs"] == t["segments"] and t["report_graph_launches"] == 2
+
+
+# ---------------------------------------------------------------- supervision
+
+
+def _spin_cycles_per_ms(dev) -> float:
+    """The card's clock, measured: cycles of `torch.cuda._sleep` a ms."""
+    torch.cuda._sleep(1000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(50_000_000)
+    end.record()
+    end.synchronize()
+    return 50_000_000 / start.elapsed_time(end)
+
+
+def test_probe_runs_on_its_own_stream(cuda):
+    """The watchdog's probe does not wait behind other work on the card:
+    with the current stream spinning ~3 s, it answers healthy at once."""
+    import time
+
+    from cruise_control_tpu_torch.common.device_watchdog import device_watchdog
+
+    assert device_watchdog(30.0, device=cuda) is None  # warm: the stream pool, the allocator
+    torch.cuda._sleep(int(3000 * _spin_cycles_per_ms(cuda)))
+    t0 = time.monotonic()
+    diagnosis = device_watchdog(30.0, device=cuda)
+    took = time.monotonic() - t0
+    spinning = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert diagnosis is None and spinning and took < 1.0, (diagnosis, spinning, took)
+
+
+def test_real_oom_classifies_as_oom(cuda):
+    """The caching allocator's own out-of-memory error is OOM, through the
+    supervisor too, and leaves the allocator's bytes as they were."""
+    from cruise_control_tpu_torch.common.device_watchdog import (
+        BreakerState,
+        DeviceDegradedError,
+        DeviceSupervisor,
+        FailureClass,
+        classify_failure,
+    )
+
+    too_many = torch.cuda.get_device_properties(cuda).total_memory + 1
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(too_many, dtype=torch.uint8, device=cuda)
+    assert classify_failure(ei.value) is FailureClass.OOM
+    sup = DeviceSupervisor(op_timeout_s=30.0, max_retries=2, breaker_failure_threshold=1)
+    with pytest.raises(DeviceDegradedError) as ei:
+        sup.call(lambda: torch.empty(too_many, dtype=torch.uint8, device=cuda), op="optimize")
+    assert ei.value.failure_class is FailureClass.OOM and sup.num_retries == 0
+    assert sup.breaker.state is BreakerState.OPEN
+    assert torch.cuda.memory_allocated(cuda) == before
+
+
+def test_failed_capture_leaves_no_graph(cuda):
+    """An OOM raised inside a capture leaves none of that capture's graphs
+    in the engine, releases the capture lock, and the next run captures
+    anew and equals a fresh engine's run."""
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    eng = Engine(state, DEFAULT_CHAIN, config=CFG)
+    real = eng._full_check
+    calls = []
+
+    def failing(ws):
+        calls.append(1)
+        if len(calls) == 2:  # the warm-up ran; this is the capture
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (raised inside the capture)")
+        return real(ws)
+
+    eng._full_check = failing
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        eng.run()
+    assert not kernels._CAPTURE_LOCK.locked()
+    assert set(eng._ws.graphs).isdisjoint({"init", "eval", "body"}) and not eng._ws.loops
+    eng._full_check = real
+    f1, h1 = eng.run()
+    f2, h2 = Engine(state, DEFAULT_CHAIN, config=CFG).run()
+    for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+        assert torch.equal(getattr(f1, f), getattr(f2, f)), f
+    assert [h for h in h1 if "round" in h] == [h for h in h2 if "round" in h]
+
+
+def test_supervised_optimize_degrades_and_recovers_on_card(cuda):
+    """A supervised optimize on the card with an OOM injected on
+    "engine.run": `DeviceDegradedError` of class OOM, never a CPU answer,
+    the breaker open and the engine purged; then the probe closes it and
+    the card's answer is the unsupervised run's bit for bit."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.common.device_watchdog import (
+        DeviceDegradedError,
+        DeviceSupervisor,
+        FailureClass,
+    )
+    from cruise_control_tpu_torch.testing import faults
+
+    state = fixtures.dead_broker_cluster(cuda)
+    want = GoalOptimizer(config=CFG, device=cuda).optimize(state)
+    sup = DeviceSupervisor(op_timeout_s=120.0, max_retries=0, breaker_failure_threshold=1,
+                           probe_interval_s=0.0, device=cuda)
+    opt = GoalOptimizer(config=CFG, device=cuda, supervisor=sup, degraded_budget_s=10.0)
+    with faults.device_oom(schedule=faults.first(1)):
+        with pytest.raises(DeviceDegradedError) as ei:
+            opt.optimize(state)
+    assert ei.value.failure_class is FailureClass.OOM and sup.is_degraded
+    assert not opt.has_engine_for(state.shape, config=CFG)
+    again = opt.optimize(state)
+    assert not again.degraded and not sup.is_degraded
+    for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+        assert torch.equal(getattr(again.state_after, f), getattr(want.state_after, f)), f
+    assert len(again.proposals) == len(want.proposals)
+
+
+def test_abandoned_spin_holds_the_breaker_open_on_card(cuda):
+    """A call that spins the card past its budget is abandoned as a HANG;
+    while its worker waits for the spin the default probe fails and the
+    breaker stays open, and once the worker returns the probe closes it."""
+    import time
+
+    from cruise_control_tpu_torch.common.device_watchdog import (
+        DeviceDegradedError,
+        DeviceSupervisor,
+        FailureClass,
+    )
+
+    sup = DeviceSupervisor(op_timeout_s=0.5, max_retries=0, breaker_failure_threshold=1,
+                           probe_interval_s=0.0, device=cuda)
+    cpm = _spin_cycles_per_ms(cuda)
+
+    def spin():
+        torch.cuda._sleep(int(2000 * cpm))
+        torch.cuda.current_stream().synchronize()
+
+    with pytest.raises(DeviceDegradedError) as ei:
+        sup.call(spin, op="optimize")
+    assert ei.value.failure_class is FailureClass.HANG
+    assert not sup.available() and "abandoned" in sup.last_failure["error"]
+    deadline = time.monotonic() + 30.0
+    while sup.abandoned_running() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert sup.available() and not sup.is_degraded

@@ -7,9 +7,11 @@ is delayed but never starved, sheds are counted, brownout degrades
 instead of skipping, and segmentation changes when the device is used,
 never what it computes.  Its tests that need no service are pointed at
 the port here, name for name (their line in tests/test_scheduler.py in
-each docstring's first line is the JAX test's); the ones that wait for the
-device supervisor (ROADMAP queue 1 item 7a) and the service (item 9) are
-listed in ROADMAP.md.  The port adds what only it has: the same-bucket
+each docstring's first line is the JAX test's); with the device
+supervisor, its pause-clock test (:438), the three `device_slowdown`
+tests (:575-:636) and the slow chaos gate (:638) are here too, at the
+end; the ones that wait for the service (item 9) are listed in
+ROADMAP.md.  The port adds what only it has: the same-bucket
 preemption through one GoalOptimizer, where the paused run lets go of the
 engine that the urgent run needs (analyzer/engine.py `_let_go`), the fast
 path and the shed ladder around real optimize calls, and the brownout
@@ -43,6 +45,7 @@ from cruise_control_tpu_torch.fleet.scheduler import (
     effective_class,
     tagged,
 )
+from cruise_control_tpu_torch.testing import faults
 from cruise_control_tpu_torch.testing.fixtures import small_cluster
 
 FAST = OptimizerConfig(
@@ -651,3 +654,169 @@ def test_state_json_reports_the_ladder():
     assert s["enabled"] and s["queueDepth"] == 0 and s["holder"] is None
     assert s["dispatches"]["interactive"] == 1 and s["fastPathGrants"] == 1
     assert s["shedTotal"] == {"urgent": 0, "interactive": 0, "background": 0}
+
+
+# ------------------------------------------ the supervisor and the slowdown injector
+
+
+def test_supervisor_hang_budget_excludes_scheduler_pause():
+    """Regression (review): time a preempted dispatch spends parked at a
+    checkpoint is the scheduler doing its job — it must extend the
+    DeviceSupervisor's hang deadline, not consume it."""
+    from cruise_control_tpu_torch.common.device_watchdog import (
+        DeviceDegradedError,
+        DeviceSupervisor,
+        pause_clock_scope,
+    )
+
+    sup = DeviceSupervisor(op_timeout_s=0.4, max_retries=0)
+    pause = {"s": 0.0}
+
+    def paused_fn():
+        time.sleep(0.2)
+        pause["s"] += 0.5  # "the scheduler paused us for 0.5s"
+        time.sleep(0.4)
+        return "ok"
+
+    with pause_clock_scope(lambda: pause["s"]):
+        # 0.6s wall against a 0.4s budget, but 0.5s of it is pause
+        assert sup.call(paused_fn, op="optimize") == "ok"
+    # without a pause clock the same wall is a genuine hang
+    with pytest.raises(DeviceDegradedError):
+        sup.call(lambda: time.sleep(0.6) or "ok", op="optimize")
+
+
+def test_device_slowdown_scales_wall_and_restores():
+    from cruise_control_tpu_torch.common.device_watchdog import device_op
+    from cruise_control_tpu_torch.common import device_watchdog as wd
+
+    calls = []
+
+    @device_op("engine.run")
+    def fake_run():
+        calls.append(1)
+        time.sleep(0.05)
+        return 42
+
+    t0 = time.monotonic()
+    assert fake_run() == 42
+    base = time.monotonic() - t0
+
+    with faults.device_slowdown(3.0) as log:
+        t0 = time.monotonic()
+        assert fake_run() == 42
+        slowed = time.monotonic() - t0
+    assert log.calls.get("engine.run") == 1
+    assert log.fired.get("engine.run") == 1
+    # ~3x the observed wall (generous bounds for CI noise)
+    assert slowed >= 2.0 * base
+    # nest-safe restore: the hook is gone, walls are back to normal
+    assert wd._DEVICE_OP_HOOK is None
+    t0 = time.monotonic()
+    fake_run()
+    assert time.monotonic() - t0 < 2.0 * base + 0.05
+
+
+def test_device_slowdown_nests_inside_other_injectors():
+    from cruise_control_tpu_torch.common.device_watchdog import device_op
+
+    @device_op("engine.run")
+    def fake_run():
+        return "ok"
+
+    @device_op("probe")
+    def fake_probe():
+        return "probe"
+
+    with faults.device_slowdown(1.5) as outer:
+        with faults.device_slowdown(
+            1.5, ops=("probe",)
+        ) as inner:
+            assert fake_probe() == "probe"
+            assert fake_run() == "ok"
+    assert inner.calls.get("probe") == 1
+    assert outer.calls.get("engine.run") == 1
+    assert outer.calls.get("probe") is None  # inner consumed it first
+
+
+def test_device_slowdown_rejects_bad_factor():
+    with pytest.raises(ValueError):
+        with faults.device_slowdown(0.5):
+            pass
+
+
+@pytest.mark.slow
+def test_overload_chaos_gate_urgent_wait_bounded():
+    """The acceptance soak: under device_slowdown x a 20-cluster synthetic
+    burst, an injected broker-failure-fix dispatch's queue-to-dispatch
+    wait stays <= one slice budget, BACKGROUND cycles shed (counted),
+    zero URGENT sheds, and FLEET_OVERLOAD fires exactly once for the
+    episode."""
+    from cruise_control_tpu_torch.common.device_watchdog import device_op
+
+    anomalies = []
+    slice_s = 0.1
+    sched = DeviceScheduler(
+        slice_budget_s=slice_s * 1.5, freshness_slo_s=1.0, aging_s=0.5,
+        shed_queue_depth=6, brownout_after_s=120.0,
+        anomaly_sink=anomalies.append,
+    )
+
+    @device_op("engine.run")
+    def device_cycle():
+        # one "anneal slice" of device wall; the injector scales it
+        time.sleep(0.02)
+
+    def background_cycle():
+        from cruise_control_tpu_torch.analyzer.engine import current_segment_context
+
+        ctx = current_segment_context()
+        for i in range(3):
+            device_cycle()
+            if ctx is not None and ctx.checkpoint is not None and i < 2:
+                ctx.checkpoint()
+
+    shed = [0]
+    urgent_waits = []
+    stop = threading.Event()
+
+    def cluster_loop(cid):
+        while not stop.is_set():
+            try:
+                sched.run(
+                    WorkClass.BACKGROUND, background_cycle,
+                    cluster_id=f"c{cid}", op="cycle",
+                )
+            except BackgroundShedError:
+                shed[0] += 1
+                time.sleep(0.02)
+
+    with faults.device_slowdown(3.0) as log:
+        threads = [
+            threading.Thread(target=cluster_loop, args=(i,), daemon=True)
+            for i in range(20)
+        ]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)  # let the burst overload the queue
+        for _ in range(5):
+            t0 = time.monotonic()
+            sched.run(
+                WorkClass.URGENT, device_cycle, cluster_id="cX",
+                op="fix:broker-failure",
+            )
+            urgent_waits.append(time.monotonic() - t0 - 0.02 * 3.0)
+            time.sleep(0.1)
+        stop.set()
+        for t in threads:
+            t.join(5.0)
+    assert log.total_calls > 0  # the slowdown actually hit device ops
+    # URGENT p99 (here: max of 5) queue-to-dispatch wait <= one slice
+    # budget — one slowed background slice (0.06s) + scheduling slack
+    assert max(urgent_waits) <= sched.slice_budget_s + 0.1, urgent_waits
+    assert sched.stats["sheds"]["urgent"] == 0
+    assert shed[0] >= 1, "background never shed under the burst"
+    assert sched.stats["sheds"]["background"] == shed[0]
+    episodes = sched.stats["overload_episodes"]
+    assert len(anomalies) == episodes >= 1
+    assert all(a.anomaly_type is AnomalyType.FLEET_OVERLOAD for a in anomalies)
