@@ -8,7 +8,8 @@ result line when any phase fails or no CUDA device is present.
 Phases:
   1. The card: its name and power limit, then the build of the eleven CUDA
      kernel libraries from cruise_control_tpu_torch/kernels/csrc, and the
-     CUDA runtime and driver versions (the loop graph needs 12.4+).
+     CUDA runtime and driver versions (the loop graph needs 12.4+); then
+     the monitor's native serde (g++, phase 23's).
   2. Each kernel against its plain PyTorch version on the card, on the
      inputs of one north-star anneal step, with the kernel's and the plain
      version's times and the least time the card could take: the step's
@@ -211,8 +212,39 @@ Phases:
      16's, not degraded; then with a real OOM on "scenario.batch-eval":
      `DeviceDegradedError` of class OOM; then, the probe passed, phase
      16's scores bit for bit again.
+ 23. The monitor on the card (cruise_control_tpu_torch/monitor), no new
+     kernel: (a) the north-star fixture's topology (2,600 brokers on 52
+     racks, 200 topics, 200,000 partitions, its replicas in position
+     order) and leader loads as a monitored cluster, capacities its broker
+     capacity, an aggregator of 5 one-hour windows; (b) one window over
+     the wire at full width: every broker's records (CPU, bytes in and out
+     of each topic it leads, each led partition's size) serialized by
+     MetricSerde, framed and decoded by the native C++ serde (built with
+     g++ into the package's _build/; it must be the path that ran),
+     turned into partition samples by CruiseControlMetricsReporterSampler
+     and added to the aggregator, with seconds and records per second;
+     (c) the other windows with those samples through
+     add_samples_columnar, the one in progress at x1.1 on every 7th
+     partition; (d) LoadMonitor.cluster_model() on the card (the monitor
+     names no device, so it builds on the current CUDA device), split into
+     the aggregation, the join and the build with its copy to the card:
+     every tensor on CUDA, every field byte for byte the same monitor's
+     build with device="cpu", validate passing; (e) GoalOptimizer.optimize
+     on that model with the north-star search config, every hard goal met;
+     (f) the window roll: the next window's samples complete the x1.1
+     window; history_snapshot, extract_window_delta, the partitions'
+     replica rows (partition_replica_table and the catalog lookup, as the
+     JAX package's streaming controller builds them at a reflatten, then
+     the window's rows), follower_loads, each timed; the delta's changed
+     set exactly the x1.1 partitions; then optimize_streaming_cycle on a
+     LiveState of (d)'s model: one blocking sync, no capture, the two
+     counted dispatches, the window's loads scattered, every hard goal
+     met.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
+
+`python3 chip_smoke.py --monitor` runs phase 1, the fixture and phase 23
+alone, and ends with a short JSON line instead of the results.
 
 `python3 chip_smoke.py --sticky-child` is phase 22's child alone; it
 needs the kernels built (phase 1) and leaves its process's CUDA context
@@ -325,6 +357,11 @@ PADDED_RUN: dict = {}
 SCENARIO_SCORES: dict = {}
 #: the results phases 4-21 checked for `degraded` False, by kind
 AUDIT: dict = {}
+#: phase 23's aggregator: windows kept and a window's span (the JAX
+#: package's num.partition.metrics.windows and partition.metrics.window.ms
+#: defaults)
+MONITOR_WINDOWS = 5
+MONITOR_WINDOW_MS = 3_600_000
 
 
 def check(ok, message: str) -> None:
@@ -3269,6 +3306,358 @@ def check_supervision(state, cfg, exact: dict) -> dict:
     return out
 
 
+def monitor_topology(host: dict, shape):
+    """The ClusterTopology of a fixture's host arrays, as a metadata
+    provider would report it: broker b on rack "r<rack>" and host
+    "h<host>"; partition p of topic t as ("topic-<t>", its rank among t's
+    partitions), its replicas' brokers in position order, its leader the
+    leader replica's broker.  Also f32[P, 4] the leader load of each
+    partition, in topology order."""
+    import numpy as np
+
+    from cruise_control_tpu_torch.monitor.topology import BrokerNode, ClusterTopology, PartitionInfo
+
+    v = host["replica_valid"]
+    rp, rt = host["replica_partition"][v], host["replica_topic"][v]
+    rb, lead = host["replica_broker"][v], host["replica_is_leader"][v]
+    P = shape.P
+    order = np.lexsort((host["replica_pos"][v], rp))
+    counts = np.bincount(rp, minlength=P)
+    groups = np.split(rb[order], np.cumsum(counts)[:-1])
+    part_topic = np.zeros(P, np.int64)
+    part_topic[rp] = rt
+    leader = np.full(P, -1, np.int64)
+    leader[rp[lead]] = rb[lead]
+    ll = np.zeros((P, 4), np.float32)
+    ll[rp[lead]] = host["replica_load_leader"][v][lead]
+    by_topic = np.lexsort((np.arange(P), part_topic))
+    first = np.searchsorted(part_topic[by_topic], part_topic[by_topic])
+    part_num = np.empty(P, np.int64)
+    part_num[by_topic] = np.arange(P) - first
+    names = [f"topic-{t:03d}" for t in range(int(part_topic.max()) + 1)]
+    parts = tuple(
+        PartitionInfo(names[t], n, leader=ld, replicas=tuple(g.tolist()))
+        for t, n, ld, g in zip(part_topic.tolist(), part_num.tolist(), leader.tolist(), groups)
+    )
+    brokers = tuple(
+        BrokerNode(b, rack=f"r{r}", host=f"h{h}", alive=bool(a))
+        for b, (r, h, a) in enumerate(zip(host["broker_rack"].tolist(), host["broker_host"].tolist(),
+                                          host["broker_alive"].tolist()))
+    )
+    return ClusterTopology(brokers=brokers, partitions=parts), ll
+
+
+def monitor_records(topo, ll, time_ms: int) -> list:
+    """One reporting round of every broker, from the partitions' leader
+    loads: BROKER_CPU_UTIL (the CPU of the partitions it leads),
+    TOPIC_BYTES_IN / TOPIC_BYTES_OUT of each topic it leads, and
+    PARTITION_SIZE (the disk load) of each partition it leads."""
+    import numpy as np
+
+    from cruise_control_tpu_torch.common.resources import Resource
+    from cruise_control_tpu_torch.reporter.metrics import BrokerMetric, MetricType, PartitionMetric, TopicMetric
+
+    cols = topo.columns()
+    leader = np.fromiter((p.leader for p in topo.partitions), np.int64, count=len(topo.partitions))
+    B = len(topo.brokers)
+    cpu = np.zeros(B)
+    np.add.at(cpu, leader, ll[:, Resource.CPU].astype(np.float64))
+    pair = leader * len(cols.topic_names) + cols.part_topic
+    keys, inv = np.unique(pair, return_inverse=True)
+    tb_in, tb_out = np.zeros(keys.size), np.zeros(keys.size)
+    np.add.at(tb_in, inv, ll[:, Resource.NW_IN].astype(np.float64))
+    np.add.at(tb_out, inv, ll[:, Resource.NW_OUT].astype(np.float64))
+    names = cols.topic_names
+    T = len(names)
+    recs = [BrokerMetric(MetricType.BROKER_CPU_UTIL, time_ms, b, float(c)) for b, c in enumerate(cpu.tolist())]
+    for k, i, o in zip(keys.tolist(), tb_in.tolist(), tb_out.tolist()):
+        b, t = divmod(k, T)
+        recs.append(TopicMetric(MetricType.TOPIC_BYTES_IN, time_ms, b, i, topic=names[t]))
+        recs.append(TopicMetric(MetricType.TOPIC_BYTES_OUT, time_ms, b, o, topic=names[t]))
+    for p, d in zip(topo.partitions, ll[:, Resource.DISK].tolist()):
+        recs.append(PartitionMetric(MetricType.PARTITION_SIZE, time_ms, p.leader, d, topic=p.topic,
+                                    partition=p.partition))
+    return recs
+
+
+def check_monitor(state, cfg) -> dict:
+    """Phase 23: the monitor on the card, at the north star's width.  (a)
+    The north-star fixture's topology and leader loads as a monitored
+    cluster (capacities its broker capacity).  (b) One window over the
+    wire: every broker's records serialized by MetricSerde into a
+    transport, framed and decoded by the native C++ path, turned into
+    partition samples by CruiseControlMetricsReporterSampler and added to
+    the aggregator (the C++ path must have run).  (c) The other windows
+    with those samples, through add_samples_columnar; the window in
+    progress at x1.1 on every 7th partition.  (d) cluster_model() on the
+    card: every tensor on CUDA, every field byte for byte the same
+    monitor's build on the CPU, validate passes.  (e) GoalOptimizer
+    .optimize on it with SEARCH: every hard goal met.  (f) The window
+    roll: the next window's samples complete the x1.1 window; the host
+    stages of the controller's delta (history_snapshot,
+    extract_window_delta, the partitions' replica rows through
+    partition_replica_table, follower_loads) timed, the changed set
+    exactly the x1.1 partitions, then one optimize_streaming_cycle on a
+    LiveState of (d)'s model: one blocking sync, no capture, the two
+    counted dispatches."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch import kernels, native
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.engine import partition_replica_table
+    from cruise_control_tpu_torch.analyzer.goals import HARD_GOAL_NAMES
+    from cruise_control_tpu_torch.analyzer.proposals import fetch_before_host
+    from cruise_control_tpu_torch.common.dispatch import dispatch_meter
+    from cruise_control_tpu_torch.convert import to_numpy
+    from cruise_control_tpu_torch.models import builder
+    from cruise_control_tpu_torch.models.state import STATE_FIELDS, validate
+    from cruise_control_tpu_torch.models.whatif import LiveState
+    from cruise_control_tpu_torch.monitor import (
+        KAFKA_METRIC_DEF, FixedCapacityResolver, LoadMonitor, ModelCompletenessRequirements,
+        StaticMetadataProvider, WindowedMetricSampleAggregator,
+    )
+    from cruise_control_tpu_torch.monitor.delta import extract_window_delta
+    from cruise_control_tpu_torch.monitor.reporter_sampler import CruiseControlMetricsReporterSampler
+    from cruise_control_tpu_torch.native import batch_deserialize, frame_records
+    from cruise_control_tpu_torch.reporter import InMemoryTransport, MetricSerde
+
+    dev = state.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    W, window_ms = MONITOR_WINDOWS, MONITOR_WINDOW_MS
+    mid = lambda w: w * window_ms + window_ms // 2  # noqa: E731
+    out: dict = {"phase": "monitor"}
+    t_phase = time.monotonic()
+    # (a) the monitored cluster
+    t0 = time.monotonic()
+    keys = ("replica_valid", "replica_partition", "replica_topic", "replica_pos", "replica_broker",
+            "replica_is_leader", "replica_load_leader", "broker_rack", "broker_host", "broker_alive")
+    host = {k: getattr(state, k).cpu().numpy() for k in keys}
+    topo, ll = monitor_topology(host, state.shape)
+    cols = topo.columns()
+    out["topology"] = dict(seconds=time.monotonic() - t0, brokers=len(topo.brokers),
+                           racks=len({b.rack for b in topo.brokers}), topics=len(cols.topic_names),
+                           partitions=len(topo.partitions), replicas=topo.num_replicas)
+    check(topo.num_replicas == int(host["replica_valid"].sum()), "the topology lost replicas")
+    agg = WindowedMetricSampleAggregator(W, window_ms, 1, KAFKA_METRIC_DEF)
+
+    # (b) one window over the wire
+    t0 = time.monotonic()
+    recs = monitor_records(topo, ll, mid(0))
+    t_records = time.monotonic() - t0
+    t0 = time.monotonic()
+    payloads = [MetricSerde.serialize(r) for r in recs]
+    t_serialize = time.monotonic() - t0
+    t0 = time.monotonic()
+    framed = frame_records(payloads)
+    t_frame = time.monotonic() - t0
+    t0 = time.monotonic()
+    batch = batch_deserialize(framed)
+    t_decode = time.monotonic() - t0
+    check(len(batch) == len(recs), "the native decoder lost records")
+    transport = InMemoryTransport()
+    for p in payloads:
+        transport.send(p)
+    sampler = CruiseControlMetricsReporterSampler(transport, lambda: topo)
+    check(native.native_available(), "the native serde did not build")
+    calls = native.native_calls()
+    t0 = time.monotonic()
+    res = sampler.get_samples([], 0, window_ms - 1)
+    t_sampler = time.monotonic() - t0
+    check(native.native_calls() == calls + 1, "the sampler did not decode its batch on the C++ path")
+    samples = res.partition_samples
+    ents = [s.entity for s in samples]
+    check(len(ents) == len(topo.partitions) and len(set(ents)) == len(ents),
+          f"the sampler gave {len(ents)} partition samples for {len(topo.partitions)} partitions")
+    vals = np.stack([s.values for s in samples])
+    t0 = time.monotonic()
+    check(agg.add_samples_columnar(ents, samples[0].time_ms, vals), "the wire window was refused")
+    t_add = time.monotonic() - t0
+    wire_s = t_serialize + t_frame + t_sampler + t_add
+    out["wire"] = dict(records=len(recs), bytes=len(framed), build_records_s=t_records,
+                       serialize_s=t_serialize, frame_s=t_frame, native_decode_s=t_decode,
+                       native_decode_records_per_s=len(recs) / t_decode,
+                       sampler_s=t_sampler, aggregator_add_s=t_add, seconds=wire_s,
+                       records_per_s=len(recs) / wire_s, native_available=True,
+                       native_calls=native.native_calls() - calls)
+
+    # (c) the other windows; the one in progress at x1.1 on every 7th
+    # partition (topology order)
+    row = {(e.topic, e.partition): i for i, e in enumerate(ents)}
+    topo_rows = np.fromiter((row[(int(t), int(p))] for t, p in zip(cols.part_topic, cols.part_num)),
+                            np.int64, count=len(ents))
+    hot = np.zeros(len(ents), bool)
+    hot[topo_rows[::7]] = True
+    v_hot = vals.copy()
+    v_hot[hot] *= np.float32(1.1)
+    per_window = []
+    for w in range(1, W + 1):
+        t0 = time.monotonic()
+        check(agg.add_samples_columnar(ents, mid(w), v_hot if w == W else vals), f"window {w} refused")
+        per_window.append(time.monotonic() - t0)
+    out["columnar_windows_s"] = per_window
+
+    # (d) cluster_model on the card, and on the CPU from the same monitor
+    metadata = StaticMetadataProvider(topo)
+    capacity = FixedCapacityResolver(list(NORTH_STAR_SPEC["broker_capacity"]))
+    req = ModelCompletenessRequirements(min_required_num_windows=W)
+    spans: dict = {}
+    orig_build, orig_aggregate = builder.build_state_columnar, agg.aggregate
+
+    def timed_build(*a, **kw):
+        t0 = time.monotonic()
+        r = orig_build(*a, **kw)
+        sync()
+        spans["build_s"] = time.monotonic() - t0
+        return r
+
+    def timed_aggregate(*a, **kw):
+        t0 = time.monotonic()
+        r = orig_aggregate(*a, **kw)
+        spans["aggregate_s"] = time.monotonic() - t0
+        return r
+
+    models = {}
+    builder.build_state_columnar, agg.aggregate = timed_build, timed_aggregate
+    try:
+        # the card's monitor names no device: it builds on the current
+        # CUDA device by default
+        for name, kw in (("card", {} if cuda else {"device": dev}), ("cpu", {"device": "cpu"})):
+            mon = LoadMonitor(metadata, capacity, agg, **kw)
+            sync()
+            t0 = time.monotonic()
+            st = mon.cluster_model(req)
+            sync()
+            wall = time.monotonic() - t0
+            models[name] = (mon, st)
+            out[f"cluster_model_{name}"] = dict(
+                seconds=wall, aggregate_s=spans["aggregate_s"], build_s=spans["build_s"],
+                join_s=wall - spans["aggregate_s"] - spans["build_s"])
+    finally:
+        builder.build_state_columnar = orig_build
+        del agg.aggregate
+    monitor, model = models["card"]
+    off = [f for f in STATE_FIELDS if getattr(model, f).device != torch.device(dev)]
+    check(not off, f"cluster_model left fields off {dev}: {off}")
+    got, want = to_numpy(model), to_numpy(models["cpu"][1])
+    differ = [f for f in STATE_FIELDS if got[f].dtype != want[f].dtype or got[f].tobytes() != want[f].tobytes()]
+    check(model.shape == models["cpu"][1].shape and not differ,
+          f"the card's model differs from the CPU build: {differ}")
+    check(validate(model) == [], "the monitored model fails validate")
+    s = model.shape
+    out["model"] = dict(brokers=s.B, partitions=s.P, replicas=s.R, topics=s.num_topics,
+                        racks=s.num_racks, on=str(dev), card_equals_cpu=True, validate=True)
+    del models
+
+    # (e) optimize on it
+    live = LiveState(model)
+    opt = GoalOptimizer(config=cfg, device=dev)
+    sync()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    res_e = opt.optimize(live.state)
+    sync()
+    wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    hard = {n: float(v) for n, v in zip(res_e.goal_names, res_e.violations_after) if n in HARD_GOAL_NAMES}
+    timing = next(h for h in res_e.history if h.get("timing"))
+    out["optimize"] = dict(wall_s=wall, proposals=len(res_e.proposals), captured=timing["captured"],
+                           objective=[res_e.objective_before, res_e.objective_after],
+                           hard_goals_max=max(hard.values()), launches=launches)
+    check(all(v <= 1e-6 for v in hard.values()), f"hard goals violated on the monitored model: {hard}")
+    if cuda:
+        missing = [k for k in PATH_KERNELS if launches[k] == 0]
+        check(not missing, f"kernels never launched on the monitored model's optimize: {missing}")
+
+    # (f) the window roll into the streaming cycle
+    stages: dict = {}
+
+    def stage(name, fn):
+        t0 = time.monotonic()
+        r = fn()
+        stages[name] = time.monotonic() - t0
+        return r
+
+    prev = agg.history_snapshot()
+    check(agg.add_samples_columnar(ents, mid(W + 1), v_hot), "the roll's window was refused")
+    cur = stage("history_snapshot_s", agg.history_snapshot)
+    delta = stage("extract_window_delta_s", lambda: extract_window_delta(prev, cur, KAFKA_METRIC_DEF))
+    got_hot = {(e.topic, e.partition) for e, c in zip(delta.entities, delta.changed) if c}
+    want_hot = {(ents[i].topic, ents[i].partition) for i in np.nonzero(hot)[0]}
+    check(got_hot == want_hot and not delta.requires_reflatten and not delta.stale,
+          f"the delta changed {len(got_hot)} partitions, the x1.1 window {len(want_hot)}")
+    # the reflatten's tables (streaming.py _reflatten), then the window's
+    # rows (streaming.py _delta_rows)
+    part_rows = stage("partition_replica_table_s", lambda: partition_replica_table(live.state))
+
+    def lookup():
+        pid = {key: i for i, key in enumerate(monitor.last_catalog.partitions)}
+        first_seen: dict = {}
+        for p in topo.partitions:
+            first_seen.setdefault(p.topic, len(first_seen))
+        return {(first_seen[p.topic], int(p.partition)): pid[(p.topic, int(p.partition))]
+                for p in topo.partitions}
+
+    part_lookup = stage("partition_lookup_s", lookup)
+    before_host = stage("fetch_before_host_s", lambda: fetch_before_host(live.state))
+
+    def delta_rows():
+        changed = delta.changed
+        ll_c = delta.loads[changed]
+        pids = np.fromiter((part_lookup[(int(e.topic), int(e.partition))]
+                            for e, c in zip(delta.entities, changed) if c), np.int64)
+        rows_p = part_rows[pids]
+        valid = rows_p < s.R
+        return rows_p[valid].astype(np.int32), ll_c, valid.sum(1)
+
+    rows, ll_c, per_part = stage("delta_rows_s", delta_rows)
+    fl_c = stage("follower_loads_s", lambda: monitor.follower_loads(ll_c))
+    ll_rows = np.repeat(ll_c, per_part, axis=0)
+    fl_rows = np.repeat(fl_c, per_part, axis=0)
+    warm = tuple(getattr(res_e.state_after, f) for f in PLACEMENT)
+    sync()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    with dispatch_meter() as m:
+        cyc = opt.optimize_streaming_cycle(live.state, rows=rows, leader_loads=ll_rows,
+                                           follower_loads=fl_rows, initial_placement=warm,
+                                           before_host=before_host)
+    sync()
+    stages["optimize_streaming_cycle_s"] = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(cyc is not None, "no cached engine for the monitored model's cycle")
+    res_f, (n_ll, n_fl) = cyc
+    live.adopt_loads(n_ll, n_fl)
+    t = next(h for h in res_f.history if h.get("timing"))
+    host_stages = ("history_snapshot_s", "extract_window_delta_s", "delta_rows_s", "follower_loads_s")
+    out["roll"] = dict(
+        **stages, window_host_s=sum(stages[k] for k in host_stages), changed_partitions=len(got_hot),
+        rows=int(rows.size), blocking_syncs=t["blocking_syncs"], captured=t["captured"],
+        dispatches=dict(m.counts), fused_cycle=bool(t.get("fused_cycle")), device_s=t["device_s"],
+        host_extract_s=t["host_extract_s"], proposals=len(res_f.proposals), launches=launches)
+    check(t.get("fused_cycle") and t["blocking_syncs"] == 1 and t["captured"] == []
+          and dict(m.counts) == {"engine.cycle": 1, "engine.extract": 1},
+          f"the monitored window's cycle broke its contract: {out['roll']}")
+    hard = [n for n, v in zip(res_f.goal_names, res_f.violations_after) if n in HARD_GOAL_NAMES and v > 1e-6]
+    check(not hard, f"hard goals violated after the monitored window's cycle: {hard}")
+    scattered = live.state.replica_load_leader[torch.from_numpy(rows).to(dev).long()].cpu().numpy()
+    check(np.array_equal(scattered, ll_rows), "the cycle did not scatter the window's loads")
+    if cuda:
+        check(launches["scatter_loads"] == 1, f"the cycle launched scatter_loads {launches['scatter_loads']} times")
+        missing = [k for k in PATH_KERNELS if launches[k] == 0]
+        check(not missing, f"kernels never launched by the monitored window's cycle: {missing}")
+    out["seconds"] = time.monotonic() - t_phase
+    log(json.dumps(out))
+    for engine in opt._engines.values():
+        engine.release()
+    return out
+
+
 def sticky_child() -> int:
     """Phase 22 (c), in a process of its own: one supervised optimize on a
     small fixture on the card, then a device-side assert inside
@@ -3340,9 +3729,13 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--sticky-child"]:
         return sticky_child()
+    if sys.argv[1:] not in ([], ["--monitor"]):
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from cruise_control_tpu_torch import native
     from cruise_control_tpu_torch.analyzer import GoalOptimizer, OptimizerConfig
     from cruise_control_tpu_torch.kernels import _build
     from cruise_control_tpu_torch.kernels import schedule as sched_k
@@ -3361,6 +3754,11 @@ def main() -> int:
     log(json.dumps({"phase": "build", "seconds": time.monotonic() - t0,
                     "per_library_s": took, "dir": str(_build.BUILD_DIR.relative_to(ROOT)),
                     "cuda_runtime": runtime, "cuda_driver": driver}))
+    # the monitor's native serde (host C++, g++), phase 23's
+    t0 = time.monotonic()
+    check(native.native_available(), "the native serde did not build")
+    log(json.dumps({"phase": "build_native", "seconds": time.monotonic() - t0,
+                    "library": str(native.library_path().relative_to(ROOT))}))
     torch.backends.cuda.matmul.allow_tf32 = False
 
     cfg = OptimizerConfig(**SEARCH)
@@ -3370,6 +3768,10 @@ def main() -> int:
     s = state.shape
     log(json.dumps({"phase": "fixture", "seconds": time.monotonic() - t0, "brokers": s.B,
                     "partitions": s.P, "replicas": s.R, "topics": s.num_topics, "racks": s.num_racks}))
+    if sys.argv[1:] == ["--monitor"]:
+        check_monitor(state, cfg)
+        print(json.dumps({"ok": True, "phases": [1, 23]}), flush=True)
+        return 0
 
     # phase 2: kernels against their plain versions on one real step
     kstats = check_kernels(state, cfg)
@@ -3492,6 +3894,9 @@ def main() -> int:
     # phase 22: supervision on the card (real OOM, hang, sticky error,
     # supervised scenario batch)
     check_supervision(state, cfg, exact)
+    torch.cuda.empty_cache()
+    # phase 23: the monitor on the card, from the north star's topology
+    check_monitor(state, cfg)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

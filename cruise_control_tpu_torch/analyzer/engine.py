@@ -165,6 +165,7 @@ from cruise_control_tpu_torch.models.state import (
     STATE_FIELDS,
     ClusterShape,
     ClusterState,
+    member_table,
     replica_members,
     validate_on_device,
 )
@@ -368,6 +369,26 @@ class SamplingPlan:
     count: torch.Tensor  # i32[B] replicas per broker
     replica_cost: torch.Tensor  # f32 scalar: price per strayed replica
     lead_cost: torch.Tensor  # f32 scalar: price per strayed leadership
+
+
+def partition_replica_table(
+    state: ClusterState, max_rf: int | None = None, *, host: dict | None = None
+) -> np.ndarray:
+    """i32[P, max_rf] replica indices per partition, padded with R (host
+    numpy; the JAX package's engine.py `partition_replica_table`).
+
+    `max_rf` forces a table width (None: the most valid replicas of one
+    partition).  `host` supplies numpy copies of `replica_valid`,
+    `replica_partition` and `replica_pos` already fetched; without it the
+    three are read from the state's device.  Unlike `replica_members`, a
+    narrow forced width keeps the JAX semantics (a later row overwrites
+    its cell) instead of raising.
+    """
+    if host is None:
+        host = {f: getattr(state, f).cpu().numpy()
+                for f in ("replica_valid", "replica_partition", "replica_pos")}
+    return member_table(host["replica_valid"], host["replica_partition"],
+                        host["replica_pos"], state.shape, max_rf)
 
 
 def _prior_fields(prior, T: int, B: int, dest_idx: np.ndarray) -> tuple[np.ndarray, float]:

@@ -258,19 +258,31 @@ def replica_members(valid: np.ndarray, part: np.ndarray, pos: np.ndarray,
     valid row exactly once: two valid rows of one partition whose positions
     clamp to one slot would drop a row (the refresh counts partition x rack
     cells from this table)."""
+    table = member_table(valid, part, pos, shape)
+    held, n_valid = int((table < shape.R).sum()), int(np.count_nonzero(valid))
+    if held != n_valid:
+        raise ValueError(f"replica positions collide: the member table holds {held} of "
+                         f"{n_valid} valid replicas")
+    return table
+
+
+def member_table(valid: np.ndarray, part: np.ndarray, pos: np.ndarray,
+                 shape: ClusterShape, max_rf: int | None = None) -> np.ndarray:
+    """i32[P, max_rf] the valid replica rows of each partition, by position,
+    padded with R (host numpy), as the JAX package's
+    `partition_replica_table` builds it: `max_rf` None is the most valid
+    replicas of one partition (at least 1); a position past the last
+    column lands in it, and of two rows in one cell the later one stays."""
     P, R = shape.P, shape.R
-    max_rf = 1
-    counts = np.bincount(part[valid], minlength=P)
-    if counts.size:
-        max_rf = max(1, int(counts.max()))
+    if max_rf is None:
+        max_rf = 1
+        counts = np.bincount(part[valid], minlength=P)
+        if counts.size:
+            max_rf = max(1, int(counts.max()))
     table = np.full((P, max_rf), R, np.int32)
     idx = np.nonzero(valid)[0]
     slot = np.minimum(pos[idx], max_rf - 1)
     table[part[idx], slot] = idx
-    held = int((table < R).sum())
-    if held != idx.size:
-        raise ValueError(f"replica positions collide: the member table holds {held} of "
-                         f"{idx.size} valid replicas")
     return table
 
 

@@ -35,7 +35,11 @@ def test_import_loads_no_jax_in_subprocess():
     # the device scheduler, the supervisor and the stdlib modules they
     # need, copied in
     for m in ("fleet.scheduler", "detector.anomalies", "common.blackbox", "common.device_watchdog",
-              "common.sensors", "common.trace", "common.exposition", "testing.faults"):
+              "common.sensors", "common.trace", "common.exposition", "testing.faults",
+              # the monitor and what it brings: the reporter, the native
+              # serde and the synthetic workload
+              "monitor.load_monitor", "monitor.task_runner", "monitor.reporter_sampler",
+              "reporter.reporter", "native", "testing.synthetic"):
         assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
