@@ -240,11 +240,27 @@ Phases:
      LiveState of (d)'s model: one blocking sync, no capture, the two
      counted dispatches, the window's loads scattered, every hard goal
      met.
+ 24. The self-healing loop on phase 23's monitored cluster, no new
+     kernel: brokers 2,574-2,599 die; AnomalyDetector.run_once with a
+     BrokerFailureDetector and a GoalViolationDetector on the monitor's
+     model on the card (one sync a detection, its lists and violations
+     the CPU's), the broker failure's fix started by a SelfHealingNotifier;
+     the fix builds the model on the card, optimizes it with SEARCH and
+     executes every proposal through the Executor on a
+     SimulatedClusterAdmin (link 1e12 B/s) with a journal at fsync batch
+     1: no dead task, no replica on a dead broker, each partition its
+     proposal's, the generation grown by one a landed reassignment and an
+     election, no hard goal violated on the executed topology; then the
+     same execution crashed halfway and recovered by a fresh Executor over
+     the journal: no reassignment submitted twice, no throttle left, the
+     same topology.  The walls of each part are printed.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 
 `python3 chip_smoke.py --monitor` runs phase 1, the fixture and phase 23
-alone, and ends with a short JSON line instead of the results.
+alone, and ends with a short JSON line instead of the results;
+`python3 chip_smoke.py --executor` runs phase 1, the fixture and phases 23
+and 24 so.
 
 `python3 chip_smoke.py --sticky-child` is phase 22's child alone; it
 needs the kernels built (phase 1) and leaves its process's CUDA context
@@ -3655,6 +3671,406 @@ def check_monitor(state, cfg) -> dict:
     log(json.dumps(out))
     for engine in opt._engines.values():
         engine.release()
+    # phase 24 goes on from this monitored cluster
+    return out, dict(metadata=metadata, monitor=monitor, aggregator=agg, capacity=capacity,
+                     requirements=req, device=dev)
+
+
+class RecordingChain:
+    """A goal chain that keeps the violations of its last evaluation (the
+    tensor, on the state's device; reading it is the caller's sync)."""
+
+    def __init__(self, chain):
+        self.chain = chain
+        self.violations = None
+
+    def evaluate(self, state, *a, **kw):
+        out = self.chain.evaluate(state, *a, **kw)
+        self.violations = out[1]
+        return out
+
+    @property
+    def weights(self):
+        return self.chain.weights
+
+    def names(self):
+        return self.chain.names()
+
+    def hard_mask(self):
+        return self.chain.hard_mask()
+
+
+@contextlib.contextmanager
+def executor_spans(admin, executor, journal):
+    """Time an execution's parts: the planner's drains (its class's methods,
+    the planner being made inside the execution), the admin's submissions,
+    ticks and reads, the per-tick topology snapshot
+    (`Executor._partitions_by_key`) and the journal's appends and fsyncs.
+    Also counts the reassignments the ticks landed."""
+    from cruise_control_tpu_torch.executor import ExecutionTaskPlanner
+
+    spans: dict = {"landed": 0}
+    undo = []
+
+    def wrap(owner, name, key, on_class=False):
+        orig = getattr(owner, name)
+        # an instance attribute set before (a spy) comes back on exit
+        prev = vars(owner).get(name) if not on_class else orig
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                r = orig(*a, **kw)
+            finally:
+                spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+                spans[key + "_calls"] = spans.get(key + "_calls", 0) + 1
+            if name == "tick":
+                spans["landed"] += len(r)
+            return r
+
+        setattr(owner, name, timed)
+        undo.append((owner, name, prev))
+
+    for name in ("get_inter_broker_replica_movement_tasks", "get_intra_broker_replica_movement_tasks",
+                 "get_leadership_movement_tasks"):
+        wrap(ExecutionTaskPlanner, name, "drain_s", on_class=True)
+    for name in ("reassign_partitions", "elect_leaders", "set_replication_throttle", "clear_replication_throttle"):
+        wrap(admin, name, "admin_submit_s")
+    wrap(admin, "tick", "admin_tick_s")
+    for name in ("in_progress_reassignments", "in_progress_logdir_moves", "topology"):
+        wrap(admin, name, "admin_read_s")
+    wrap(executor, "_partitions_by_key", "snapshot_s")
+    wrap(journal, "append", "journal_s")
+    wrap(journal, "_fsync_locked", "fsync_s")
+    try:
+        yield spans
+    finally:
+        for owner, name, orig in reversed(undo):
+            if orig is not None:
+                setattr(owner, name, orig)
+            else:
+                delattr(owner, name)
+
+
+def check_executor(cfg, mon: dict) -> dict:
+    """Phase 24: the self-healing loop at the north star's width, from phase
+    23's monitored cluster.  (a) 1% of the brokers die (2,574-2,599, as
+    bench.py's config_5 picks them).  (b) AnomalyDetector.run_once with a
+    BrokerFailureDetector (its failure times in a temporary file) and a
+    GoalViolationDetector on the monitor's model built on the card, under
+    a SelfHealingNotifier that fixes broker failures at once: the broker
+    failure's record FIX_STARTED; the detection one sync (counted with
+    PyTorch's sync debug mode) and its violations the CPU evaluation of the
+    same monitor's CPU model (the same violated set; values within rtol
+    1e-5, atol 1e-6, the detector's own tolerance).  (c) The fix, in the
+    action: cluster_model on the card, GoalOptimizer.optimize with SEARCH,
+    then Executor(SimulatedClusterAdmin(link 1e12 B/s), the monitor's
+    catalog, an ExecutionJournal at fsync batch 1) with the dead brokers
+    removed and a replication throttle.  (d) No task dead, no replica on a
+    dead broker, every proposal's partition with its replica set and leader,
+    the topology's generation grown by one per landed reassignment and one
+    per election, the journal finished, and the goal-violation detector on
+    the card over a model rebuilt from the executed topology with no hard
+    goal violated.  (e) The same execution from the topology before the
+    fix, a fresh admin and journal, crashed (testing/faults.process_crash)
+    on the tick halfway through; a fresh Executor over the journal enters
+    RECOVERING and resume_recovered_execution runs to the end: no
+    reassignment submitted twice, no throttle left, (d)'s final replica
+    sets and leaders.  (f) Walls: the detection, the model build and
+    optimize, the execution split into its parts, the replay and resume.
+    Every proposal of the fix executes: the topology starts from the
+    fixture's placement, which is not rack-aware, so only the whole
+    proposal meets the hard goals."""
+    import shutil
+    import tempfile
+    import traceback
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.goals import HARD_GOAL_NAMES
+    from cruise_control_tpu_torch.analyzer.objective import DEFAULT_CHAIN
+    from cruise_control_tpu_torch.detector import (
+        AnomalyDetector, AnomalyType, BrokerFailureDetector, GoalViolationDetector, SelfHealingNotifier,
+    )
+    from cruise_control_tpu_torch.executor import (
+        ExecutionJournal, ExecutionOptions, Executor, ExecutorState, SimulatedClusterAdmin,
+    )
+    from cruise_control_tpu_torch.monitor import LoadMonitor
+    from cruise_control_tpu_torch.testing import faults
+
+    metadata, monitor, req, dev = mon["metadata"], mon["monitor"], mon["requirements"], mon["device"]
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out: dict = {"phase": "executor"}
+    t_phase = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-executor-"))
+    try:
+        # (a) 1% of the brokers die
+        topo0 = metadata.topology()
+        B = len(topo0.brokers)
+        n_dead = max(2, B // 100)
+        dead = set(range(B - n_dead, B))
+        metadata.set_topology(dataclasses.replace(topo0, brokers=tuple(
+            dataclasses.replace(b, alive=b.broker_id not in dead) for b in topo0.brokers)))
+        out["dead"] = dict(brokers=[min(dead), max(dead)], count=n_dead,
+                           replicas=sum(1 for p in topo0.partitions for r in p.replicas if r in dead))
+
+        # (b) detect
+        sync()
+        t0 = time.monotonic()
+        model_b = monitor.cluster_model(req)
+        sync()
+        out["detect_model_s"] = time.monotonic() - t0
+        chain = RecordingChain(DEFAULT_CHAIN)
+        gvd = GoalViolationDetector(lambda: model_b, chain)
+        seen: dict = {}
+
+        def goal_violations():
+            syncs: list = []
+
+            def noted(message, category, filename, lineno, file=None, line=None):
+                # a sync's line, its thread and the Python frames above it
+                if "called a synchronizing CUDA operation" in str(message):
+                    frames = traceback.extract_stack()[-9:-1]
+                    syncs.append(dict(at=f"{Path(filename).name}:{lineno}", thread=threading.current_thread().name,
+                                      stack=[f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in frames]))
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = noted
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.monotonic()
+                try:
+                    found = gvd.detect()
+                except BaseException as e:
+                    seen["goal_error"] = repr(e)
+                    raise
+                finally:
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode("default")
+                seen["goal_s"] = time.monotonic() - t0
+            seen["goal_syncs"], seen["goal_sync_sites"] = len(syncs), syncs
+            seen["goal"] = found
+            return found
+
+        bfd = BrokerFailureDetector(metadata.topology, persist_path=str(tmp / "failed-brokers.json"))
+
+        def broker_failures():
+            t0 = time.monotonic()
+            found = bfd.detect()
+            seen["broker_s"] = time.monotonic() - t0
+            seen["broker"] = found
+            return found
+
+        fix: dict = {}
+
+        class Actions:
+            is_busy = False
+
+            def remove_brokers(self, broker_ids, reason):
+                try:
+                    fix.update(run_fix(set(broker_ids)))
+                except BaseException as e:
+                    fix["error"] = repr(e)
+                    raise
+                return True
+
+        notifier = SelfHealingNotifier(self_healing={AnomalyType.BROKER_FAILURE: True},
+                                       broker_failure_alert_threshold_ms=0,
+                                       broker_failure_self_healing_threshold_ms=0)
+        detector = AnomalyDetector(notifier, Actions())
+        detector.register_detector(broker_failures)
+        detector.register_detector(goal_violations)
+
+        # the CPU evaluation of the same monitor's CPU model
+        cpu_model = LoadMonitor(metadata, mon["capacity"], mon["aggregator"], device="cpu").cluster_model(req)
+        cpu_chain = RecordingChain(DEFAULT_CHAIN)
+        cpu_found = GoalViolationDetector(lambda: cpu_model, cpu_chain).detect()
+
+        options = ExecutionOptions(replication_throttle_bytes_per_s=1e12)
+
+        def execute(proposals, journal_dir: Path, uuid: str, admin, *, crash_at=None):
+            journal = ExecutionJournal(str(journal_dir / "execution-journal.jsonl"))
+            ex = Executor(admin, catalog=monitor.last_catalog, journal=journal)
+            t0 = time.monotonic()
+            with executor_spans(admin, ex, journal) as spans:
+                if crash_at is None:
+                    res = ex.execute_proposals(proposals, options, uuid=uuid, removed_brokers=dead)
+                else:
+                    res = None
+                    with faults.process_crash(admin, schedule=faults.FaultSchedule(calls=[crash_at])):
+                        try:
+                            ex.execute_proposals(proposals, options, uuid=uuid, removed_brokers=dead)
+                        except faults.SimulatedProcessCrash:
+                            spans["crashed"] = True
+            spans["wall_s"] = time.monotonic() - t0
+            spans["records"], spans["fsyncs"] = journal.records_written, journal.fsyncs
+            return res, journal, spans
+
+        def run_fix(broker_ids: set) -> dict:
+            check(broker_ids == dead, f"the fix was asked to remove {sorted(broker_ids)}")
+            r: dict = {}
+            sync()
+            t0 = time.monotonic()
+            model = monitor.cluster_model(req)
+            sync()
+            r["model_s"] = time.monotonic() - t0
+            opt = GoalOptimizer(config=cfg, device=dev)
+            t0 = time.monotonic()
+            res = opt.optimize(model)
+            sync()
+            r["optimize_s"] = time.monotonic() - t0
+            for engine in opt._engines.values():
+                engine.release()
+            hard = {n: float(v) for n, v in zip(res.goal_names, res.violations_after) if n in HARD_GOAL_NAMES}
+            check(all(v <= 1e-6 for v in hard.values()), f"the fix's proposal violates hard goals: {hard}")
+            proposals = list(res.proposals)
+            r["proposals"] = len(proposals)
+            r["evacuations"] = sum(1 for p in proposals if dead & set(p.old_replicas))
+            r["executed_proposals"] = proposals
+            r["before"] = metadata.topology()
+            admin = SimulatedClusterAdmin(metadata, link_rate_bytes_per_s=1e12)
+            gen0 = metadata.topology().generation
+            result, journal, spans = execute(proposals, tmp / "fix", "phase-24-fix", admin)
+            r.update(result=result, journal=journal, spans=spans, admin=admin, generation_before=gen0)
+            return r
+
+        # run the detection round; the fix runs in its action
+        t0 = time.monotonic()
+        records = detector.run_once()
+        round_s = time.monotonic() - t0
+        check("goal_error" not in seen and "goal" in seen and "broker" in seen,
+              f"a detector failed: {seen.get('goal_error')}")
+        check("error" not in fix and "result" in fix, f"the fix failed: {fix.get('error')}")
+        status = {r.anomaly.anomaly_type.name: r.status for r in records}
+        check(status.get("BROKER_FAILURE") == "FIX_STARTED", f"the broker failure was not fixed: {status}")
+        check(seen["broker"] is not None and set(seen["broker"].failed_brokers) == dead,
+              "the broker failure detector did not report the dead brokers")
+        found = seen["goal"]
+        got_v = chain.violations.double().cpu().numpy()
+        want_v = cpu_chain.violations.double().numpy()
+        lists = lambda v: None if v is None else (v.fixable_violations, v.unfixable_violations)  # noqa: E731
+        check(lists(found) == lists(cpu_found),
+              f"the card's detection {lists(found)} differs from the CPU's {lists(cpu_found)}")
+        check(bool(np.all(np.abs(got_v - want_v) <= 1e-5 * np.abs(want_v) + 1e-6)),
+              f"the card's violations differ from the CPU's: {got_v.tolist()} vs {want_v.tolist()}")
+        check(found is not None and "RackAwareGoal" not in (found.unfixable_violations or []),
+              "the dead brokers raised no goal violation")
+        # the same detection again on the same model: the first call's
+        # one-time costs apart
+        t0 = time.monotonic()
+        check(lists(gvd.detect()) == lists(found), "a repeated detection differs")
+        repeat_s = time.monotonic() - t0
+        out["detect"] = dict(
+            seconds=seen["goal_s"] + seen["broker_s"], round_with_fix_s=round_s, goal_violation_s=seen["goal_s"],
+            goal_violation_repeat_s=repeat_s, goal_violation_syncs=seen["goal_syncs"],
+            sync_sites=seen["goal_sync_sites"],
+            broker_failure_s=seen["broker_s"], statuses=status, fixable=found.fixable_violations,
+            unfixable=found.unfixable_violations, violations_max_abs_diff=float(np.abs(got_v - want_v).max()))
+        out["fix"] = dict(model_s=fix["model_s"], optimize_s=fix["optimize_s"], proposals=fix["proposals"],
+                          evacuations=fix["evacuations"])
+        fix["journal"].close()
+
+        # (d) the fix landed
+        result, admin, spans = fix["result"], fix["admin"], fix["spans"]
+        proposals = fix["executed_proposals"]
+        after = metadata.topology()
+        on_dead = sum(1 for p in after.partitions for r in p.replicas if r in dead)
+        by_key = {(p.topic, p.partition): p for p in after.partitions}
+        catalog = monitor.last_catalog
+        wrong = 0
+        for p in proposals:
+            got = by_key[catalog.partition_key(p.partition)]
+            if set(got.replicas) != set(p.new_replicas) or (p.new_leader >= 0 and got.leader != p.new_leader):
+                wrong += 1
+        grown = after.generation - fix["generation_before"]
+        want_grown = spans["landed"] + admin.election_calls
+        unfinished = fix["journal"].unfinished_execution()
+        tasks = result.completed + result.aborted + result.dead
+        exec_spans = {k: v for k, v in spans.items() if k.endswith("_s") or k.endswith("_calls")}
+        out["execute"] = dict(
+            ticks=result.ticks, tasks=tasks, completed=result.completed, dead=result.dead,
+            aborted=result.aborted, tasks_per_s=tasks / spans["wall_s"], landed=spans["landed"],
+            elections=admin.election_calls, generation_grown=grown, journal_records=spans["records"],
+            journal_fsyncs=spans["fsyncs"], **exec_spans,
+            other_s=spans["wall_s"] - sum(spans.get(k, 0.0) for k in (
+                "drain_s", "admin_submit_s", "admin_tick_s", "admin_read_s", "snapshot_s", "journal_s")))
+        check(result.dead == 0 and result.aborted == 0 and not result.stopped,
+              f"the fix's execution: {result.completed} completed, {result.aborted} aborted, {result.dead} dead")
+        check(on_dead == 0, f"{on_dead} replicas left on dead brokers")
+        check(wrong == 0, f"{wrong} partitions differ from their proposals")
+        check(grown == want_grown, f"the generation grew by {grown}, the reference's count is {want_grown}")
+        check(unfinished is None, "the journal holds an unfinished execution")
+        sync()
+        t0 = time.monotonic()
+        healed = GoalViolationDetector(lambda: monitor.cluster_model(req), DEFAULT_CHAIN).detect()
+        sync()
+        hard_left = [] if healed is None else [
+            n for n in healed.fixable_violations + healed.unfixable_violations if n in HARD_GOAL_NAMES]
+        out["after"] = dict(detect_s=time.monotonic() - t0, replicas_on_dead=on_dead,
+                            violated=None if healed is None else healed.fixable_violations + healed.unfixable_violations)
+        check(not hard_left, f"hard goals violated after the fix: {hard_left}")
+        final = [(p.topic, p.partition, p.leader, p.replicas) for p in after.partitions]
+
+        # (e) crash halfway and recover
+        metadata.set_topology(fix["before"])
+        admin2 = SimulatedClusterAdmin(metadata, link_rate_bytes_per_s=1e12)
+        submitted: dict = {}
+        submit = admin2.reassign_partitions
+
+        def counted(specs):
+            for sp in specs:
+                submitted[(sp.topic, sp.partition)] = submitted.get((sp.topic, sp.partition), 0) + 1
+            return submit(specs)
+
+        admin2.reassign_partitions = counted
+        crash_at = max(1, result.ticks // 2)
+        _, _, crash_spans = execute(proposals, tmp / "crash", "phase-24-crash", admin2, crash_at=crash_at)
+        check(crash_spans.get("crashed"), "the execution did not crash")
+        check(admin2.throttle_rate is not None, "the crashed execution left no throttle to sweep")
+        t0 = time.monotonic()
+        journal3 = ExecutionJournal(str(tmp / "crash" / "execution-journal.jsonl"))
+        ex3 = Executor(admin2, catalog=catalog, journal=journal3)
+        replay_s = time.monotonic() - t0
+        check(ex3.state == ExecutorState.RECOVERING, f"the fresh executor is {ex3.state}")
+        recovery = ex3.recovery_info()
+        check(admin2.throttle_rate is None, "the recovery did not sweep the throttle")
+        t0 = time.monotonic()
+        res3 = ex3.resume_recovered_execution()
+        resume_s = time.monotonic() - t0
+        check(res3 is not None and res3.dead == 0 and res3.aborted == 0,
+              f"the resumed execution: {res3}")
+        twice = sum(1 for n in submitted.values() if n > 1)
+        check(twice == 0, f"{twice} reassignments were submitted twice")
+        check(admin2.throttle_rate is None and not admin2.throttled_topics, "a throttle was left set")
+        check(journal3.unfinished_execution() is None, "the recovered journal holds an unfinished execution")
+        again = [(p.topic, p.partition, p.leader, p.replicas) for p in metadata.topology().partitions]
+        journal3.close()
+        check(again == final, "the recovered execution's topology differs from the fix's")
+        out["recover"] = dict(crash_tick=crash_at, crashed_after_s=crash_spans["wall_s"],
+                              crashed_records=crash_spans["records"], replay_s=replay_s, resume_s=resume_s,
+                              submissions=sum(submitted.values()), submitted_twice=twice,
+                              completed=res3.completed, ticks=res3.ticks, recovery=recovery,
+                              same_topology=True)
+        if cuda:
+            check(seen["goal_syncs"] == 1,
+                  f"the detection synced {seen['goal_syncs']} times: {seen['goal_sync_sites']}")
+    except BaseException as e:
+        out["failed"] = repr(e)
+        log(json.dumps(out, default=str))
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_phase
+    log(json.dumps(out))
     return out
 
 
@@ -3729,7 +4145,7 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--sticky-child"]:
         return sticky_child()
-    if sys.argv[1:] not in ([], ["--monitor"]):
+    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -3771,6 +4187,13 @@ def main() -> int:
     if sys.argv[1:] == ["--monitor"]:
         check_monitor(state, cfg)
         print(json.dumps({"ok": True, "phases": [1, 23]}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--executor"]:
+        _, monitored = check_monitor(state, cfg)
+        del state
+        torch.cuda.empty_cache()
+        check_executor(cfg, monitored)
+        print(json.dumps({"ok": True, "phases": [1, 23, 24]}), flush=True)
         return 0
 
     # phase 2: kernels against their plain versions on one real step
@@ -3896,7 +4319,11 @@ def main() -> int:
     check_supervision(state, cfg, exact)
     torch.cuda.empty_cache()
     # phase 23: the monitor on the card, from the north star's topology
-    check_monitor(state, cfg)
+    _, monitored = check_monitor(state, cfg)
+    torch.cuda.empty_cache()
+    # phase 24: the self-healing loop (detect, fix, execute, crash and
+    # recover) on phase 23's monitored cluster
+    check_executor(cfg, monitored)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

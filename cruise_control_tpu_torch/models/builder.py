@@ -24,6 +24,7 @@ from cruise_control_tpu_torch.models.state import (
     ClusterShape,
     ClusterState,
     ShapeBucketPolicy,
+    replica_members,
 )
 
 
@@ -210,7 +211,14 @@ def _assemble_state(
         disk_capacity=_pad_rows(ba.disk_capacity, B)[:, :D],
         disk_alive=_pad_rows(ba.disk_alive, B)[:, :D],
     )
-    return state_from_numpy(arrays, shape, device)
+    state = state_from_numpy(arrays, shape, device)
+    # the member table (`ClusterState.members`) from the host arrays at
+    # hand: a model built on the card reads nothing back for it
+    state.__dict__["members"] = torch.as_tensor(
+        replica_members(arrays["replica_valid"], arrays["replica_partition"], arrays["replica_pos"], shape),
+        device=state.device,
+    )
+    return state
 
 
 def _replica_arrays(R: int) -> dict:

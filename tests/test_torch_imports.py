@@ -39,7 +39,11 @@ def test_import_loads_no_jax_in_subprocess():
               # the monitor and what it brings: the reporter, the native
               # serde and the synthetic workload
               "monitor.load_monitor", "monitor.task_runner", "monitor.reporter_sampler",
-              "reporter.reporter", "native", "testing.synthetic"):
+              "reporter.reporter", "native", "testing.synthetic",
+              # the executor, the fleet's leases and the detectors
+              "executor.tasks", "executor.strategy", "executor.admin", "executor.throttle",
+              "executor.planner", "executor.journal", "executor.executor", "fleet.leases",
+              "detector.notifier", "detector.detector", "detector.detectors"):
         assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
