@@ -254,13 +254,35 @@ Phases:
      same execution crashed halfway and recovered by a fresh Executor over
      the journal: no reassignment submitted twice, no throttle left, the
      same topology.  The walls of each part are printed.
+ 25. The real-cluster loop over the Kafka wire protocol, no new kernel,
+     against the port's in-process fake cluster (testing/fake_kafka.py:
+     one selector thread serves a listener a broker, each on its host's
+     loopback address, and every connection): the north
+     star's data plane (the fake built from phase 23's topology, Metadata,
+     the metadata provider's refresh and the admin's topology timed and
+     the topology phase 23's); phase 23's wire window produced into
+     __CruiseControlMetrics and fetched back through the native decoder,
+     bit for bit phase 23's window, and cluster_model over the wire byte
+     for byte phase 23's model; a warm restart through KafkaSampleStore;
+     then at configuration 3's width: 1% of the brokers killed, detected
+     over the wire, the fix optimized on the card and executed through
+     KafkaClusterAdmin with the journal at fsync batch 1 (no dead task, no
+     replica on a dead broker, no throttle left, no hard goal violated on
+     a model rebuilt from the wire), crashed halfway and recovered with no
+     reassignment submitted twice, and the decision ledger around it (the
+     record from the card's result in one transfer, its outcome and a
+     calibration).
+ 26. BASELINE configuration 2 on the card against the committed converged
+     greedy baseline (BASELINE_GREEDY.json config2, fingerprint checked;
+     the greedy oracle runs on the card only if it is stale): the wall,
+     both objectives and tpu_beats_greedy as bench.py decides it.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 
 `python3 chip_smoke.py --monitor` runs phase 1, the fixture and phase 23
 alone, and ends with a short JSON line instead of the results;
 `python3 chip_smoke.py --executor` runs phase 1, the fixture and phases 23
-and 24 so.
+and 24 so, and `python3 chip_smoke.py --kafka` phases 1, 23 and 25.
 
 `python3 chip_smoke.py --sticky-child` is phase 22's child alone; it
 needs the kernels built (phase 1) and leaves its process's CUDA context
@@ -269,6 +291,7 @@ unusable, so it exits without CUDA teardown.
 
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import os
 import subprocess
@@ -302,6 +325,12 @@ MID_SPEC = dict(num_brokers=500, num_racks=20, num_topics=100, num_partitions=50
                 mean_nw_in=500.0, mean_nw_out=600.0, mean_disk=5000.0)
 CONFIG3_CHAIN = ("RackAwareGoal", "DiskCapacityGoal", "IntraBrokerDiskCapacityGoal",
                  "IntraBrokerDiskUsageDistributionGoal")
+# BASELINE.md configuration 2: bench.py's SMALL_SPEC (bench.py:77), SEARCH_SMALL
+# (:86) and config_2's chain (:200)
+SMALL_SPEC = dict(num_brokers=50, num_partitions=5000, num_racks=5, num_topics=20, skew=0.8)
+SEARCH_SMALL = dict(num_candidates=2048, leadership_candidates=512, steps_per_round=64, num_rounds=8, seed=0)
+CONFIG2_CHAIN = ("ReplicaCapacityGoal", "DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal",
+                 "NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal")
 PLACEMENT = ("replica_broker", "replica_is_leader", "replica_disk")
 FAST = dict(num_candidates=256, leadership_candidates=64, steps_per_round=24, num_rounds=3, seed=1)
 
@@ -3322,45 +3351,63 @@ def check_supervision(state, cfg, exact: dict) -> dict:
     return out
 
 
-def monitor_topology(host: dict, shape):
-    """The ClusterTopology of a fixture's host arrays, as a metadata
-    provider would report it: broker b on rack "r<rack>" and host
-    "h<host>"; partition p of topic t as ("topic-<t>", its rank among t's
-    partitions), its replicas' brokers in position order, its leader the
-    leader replica's broker.  Also f32[P, 4] the leader load of each
-    partition, in topology order."""
+def loopback(h: int) -> str:
+    """Host h's loopback address, 127.0.0.1 upward: the fake Kafka cluster
+    binds each broker's listener on its host's address (phase 25)."""
+    return f"127.0.{h // 254}.{h % 254 + 1}"
+
+
+def partition_keys(host: dict, P: int):
+    """Partition p's topic name ("topic-<t>") and number (its rank among
+    its topic's partitions), and the partitions in (topic, number) order,
+    the order a Kafka cluster's Metadata reports them in."""
     import numpy as np
 
-    from cruise_control_tpu_torch.monitor.topology import BrokerNode, ClusterTopology, PartitionInfo
-
     v = host["replica_valid"]
-    rp, rt = host["replica_partition"][v], host["replica_topic"][v]
-    rb, lead = host["replica_broker"][v], host["replica_is_leader"][v]
-    P = shape.P
-    order = np.lexsort((host["replica_pos"][v], rp))
-    counts = np.bincount(rp, minlength=P)
-    groups = np.split(rb[order], np.cumsum(counts)[:-1])
     part_topic = np.zeros(P, np.int64)
-    part_topic[rp] = rt
-    leader = np.full(P, -1, np.int64)
-    leader[rp[lead]] = rb[lead]
-    ll = np.zeros((P, 4), np.float32)
-    ll[rp[lead]] = host["replica_load_leader"][v][lead]
+    part_topic[host["replica_partition"][v]] = host["replica_topic"][v]
     by_topic = np.lexsort((np.arange(P), part_topic))
     first = np.searchsorted(part_topic[by_topic], part_topic[by_topic])
     part_num = np.empty(P, np.int64)
     part_num[by_topic] = np.arange(P) - first
     names = [f"topic-{t:03d}" for t in range(int(part_topic.max()) + 1)]
+    return [names[t] for t in part_topic.tolist()], part_num, by_topic
+
+
+def monitor_topology(host: dict, shape):
+    """The ClusterTopology of a fixture's host arrays, as a metadata
+    provider would report it: broker b on rack "r<rack>" and the loopback
+    address of its host; partition p of topic t as ("topic-<t>", its rank
+    among t's partitions), its replicas' brokers in position order, its
+    leader the leader replica's broker, the partitions in (topic, number)
+    order.  Also f32[P, 4] the leader load of each partition, in topology
+    order."""
+    import numpy as np
+
+    from cruise_control_tpu_torch.monitor.topology import BrokerNode, ClusterTopology, PartitionInfo
+
+    v = host["replica_valid"]
+    rp = host["replica_partition"][v]
+    rb, lead = host["replica_broker"][v], host["replica_is_leader"][v]
+    P = shape.P
+    order = np.lexsort((host["replica_pos"][v], rp))
+    counts = np.bincount(rp, minlength=P)
+    groups = np.split(rb[order], np.cumsum(counts)[:-1])
+    leader = np.full(P, -1, np.int64)
+    leader[rp[lead]] = rb[lead]
+    ll = np.zeros((P, 4), np.float32)
+    ll[rp[lead]] = host["replica_load_leader"][v][lead]
+    names, part_num, by_topic = partition_keys(host, P)
     parts = tuple(
-        PartitionInfo(names[t], n, leader=ld, replicas=tuple(g.tolist()))
-        for t, n, ld, g in zip(part_topic.tolist(), part_num.tolist(), leader.tolist(), groups)
+        PartitionInfo(names[p], int(part_num[p]), leader=int(leader[p]), replicas=tuple(groups[p].tolist()))
+        for p in by_topic.tolist()
     )
     brokers = tuple(
-        BrokerNode(b, rack=f"r{r}", host=f"h{h}", alive=bool(a))
+        BrokerNode(b, rack=f"r{r}", host=loopback(h), alive=bool(a))
         for b, (r, h, a) in enumerate(zip(host["broker_rack"].tolist(), host["broker_host"].tolist(),
                                           host["broker_alive"].tolist()))
     )
-    return ClusterTopology(brokers=brokers, partitions=parts), ll
+    return ClusterTopology(brokers=brokers, partitions=parts), ll[by_topic]
 
 
 def monitor_records(topo, ll, time_ms: int) -> list:
@@ -3394,6 +3441,38 @@ def monitor_records(topo, ll, time_ms: int) -> list:
         recs.append(PartitionMetric(MetricType.PARTITION_SIZE, time_ms, p.leader, d, topic=p.topic,
                                     partition=p.partition))
     return recs
+
+
+def aggregator_state(agg, by_entity: bool = False) -> dict:
+    """What an aggregator holds of its current window: its window indices,
+    generation, entities (in row order) and groups, and its rows'
+    accumulators, latest timestamps and counts in the window's slot
+    (copies).  `by_entity` orders the rows by entity and leaves out the
+    row order and the generation, for an aggregator that interned the same
+    entities in another order."""
+    import numpy as np
+
+    with agg._lock:
+        ents = list(agg._entity_rows)
+        rows = np.fromiter(agg._entity_rows.values(), np.int64, count=len(ents))
+        if by_entity:
+            order = sorted(range(len(ents)), key=lambda i: (ents[i].topic, ents[i].partition))
+            ents, rows = [ents[i] for i in order], rows[order]
+        slot = agg._slot(agg._current_window)
+        out = dict(current=agg._current_window, oldest=agg._oldest_window, entities=ents,
+                   groups=dict(agg._entity_group), acc=agg._acc[rows, slot].copy(),
+                   latest=agg._latest_ts[rows, slot].copy(), counts=agg._counts[rows, slot].copy())
+        if not by_entity:
+            out["generation"] = agg._generation
+        return out
+
+
+def same_aggregator_state(a: dict, b: dict) -> list:
+    """The keys of two aggregator_state()s that differ (arrays bit for bit)."""
+    import numpy as np
+
+    return [k for k in a if not (np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                                 if isinstance(a[k], np.ndarray) else a[k] == b[k])]
 
 
 def check_monitor(state, cfg) -> dict:
@@ -3495,6 +3574,7 @@ def check_monitor(state, cfg) -> dict:
     check(agg.add_samples_columnar(ents, samples[0].time_ms, vals), "the wire window was refused")
     t_add = time.monotonic() - t0
     wire_s = t_serialize + t_frame + t_sampler + t_add
+    wire_state = aggregator_state(agg)
     out["wire"] = dict(records=len(recs), bytes=len(framed), build_records_s=t_records,
                        serialize_s=t_serialize, frame_s=t_frame, native_decode_s=t_decode,
                        native_decode_records_per_s=len(recs) / t_decode,
@@ -3560,7 +3640,9 @@ def check_monitor(state, cfg) -> dict:
     monitor, model = models["card"]
     off = [f for f in STATE_FIELDS if getattr(model, f).device != torch.device(dev)]
     check(not off, f"cluster_model left fields off {dev}: {off}")
-    got, want = to_numpy(model), to_numpy(models["cpu"][1])
+    # copies: the window roll below rewrites the model's loads in place
+    got = {f: a.copy() for f, a in to_numpy(model).items()}
+    want = to_numpy(models["cpu"][1])
     differ = [f for f in STATE_FIELDS if got[f].dtype != want[f].dtype or got[f].tobytes() != want[f].tobytes()]
     check(model.shape == models["cpu"][1].shape and not differ,
           f"the card's model differs from the CPU build: {differ}")
@@ -3671,9 +3753,11 @@ def check_monitor(state, cfg) -> dict:
     log(json.dumps(out))
     for engine in opt._engines.values():
         engine.release()
-    # phase 24 goes on from this monitored cluster
+    # phases 24 and 25 go on from this monitored cluster
     return out, dict(metadata=metadata, monitor=monitor, aggregator=agg, capacity=capacity,
-                     requirements=req, device=dev)
+                     requirements=req, device=dev, topology=topo, payloads=payloads,
+                     wire_state=wire_state, entities=ents, values=vals, hot_values=v_hot,
+                     model=got)
 
 
 class RecordingChain:
@@ -3700,19 +3784,52 @@ class RecordingChain:
         return self.chain.hard_mask()
 
 
+def count_syncs(fn, cuda: bool):
+    """fn() under PyTorch's sync debug mode ("warn") on the card: its
+    result and the synchronizing CUDA operations it made, each with its
+    line, thread and the Python frames above it."""
+    import traceback
+    import warnings
+
+    import torch
+
+    syncs: list = []
+
+    def noted(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = traceback.extract_stack()[-9:-1]
+            syncs.append(dict(at=f"{Path(filename).name}:{lineno}", thread=threading.current_thread().name,
+                              stack=[f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in frames]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = noted
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    return out, syncs
+
+
 @contextlib.contextmanager
 def executor_spans(admin, executor, journal):
     """Time an execution's parts: the planner's drains (its class's methods,
     the planner being made inside the execution), the admin's submissions,
-    ticks and reads, the per-tick topology snapshot
+    ticks and reads (each topology read's wall apart), the per-tick
+    topology snapshot
     (`Executor._partitions_by_key`) and the journal's appends and fsyncs.
     Also counts the reassignments the ticks landed."""
     from cruise_control_tpu_torch.executor import ExecutionTaskPlanner
 
-    spans: dict = {"landed": 0}
+    spans: dict = {"landed": 0, "topology_walls": []}
     undo = []
 
     def wrap(owner, name, key, on_class=False):
+        if not hasattr(owner, name):
+            return  # not this admin's (a real cluster's admin has no tick)
         orig = getattr(owner, name)
         # an instance attribute set before (a spy) comes back on exit
         prev = vars(owner).get(name) if not on_class else orig
@@ -3722,8 +3839,11 @@ def executor_spans(admin, executor, journal):
             try:
                 r = orig(*a, **kw)
             finally:
-                spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+                wall = time.perf_counter() - t0
+                spans[key] = spans.get(key, 0.0) + wall
                 spans[key + "_calls"] = spans.get(key + "_calls", 0) + 1
+                if name == "topology":
+                    spans["topology_walls"].append(wall)
             if name == "tick":
                 spans["landed"] += len(r)
             return r
@@ -3783,8 +3903,6 @@ def check_executor(cfg, mon: dict) -> dict:
     proposal meets the hard goals."""
     import shutil
     import tempfile
-    import traceback
-    import warnings
 
     import numpy as np
     import torch
@@ -3833,30 +3951,13 @@ def check_executor(cfg, mon: dict) -> dict:
         seen: dict = {}
 
         def goal_violations():
-            syncs: list = []
-
-            def noted(message, category, filename, lineno, file=None, line=None):
-                # a sync's line, its thread and the Python frames above it
-                if "called a synchronizing CUDA operation" in str(message):
-                    frames = traceback.extract_stack()[-9:-1]
-                    syncs.append(dict(at=f"{Path(filename).name}:{lineno}", thread=threading.current_thread().name,
-                                      stack=[f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in frames]))
-
-            with warnings.catch_warnings():
-                warnings.simplefilter("always")
-                warnings.showwarning = noted
-                if cuda:
-                    torch.cuda.set_sync_debug_mode("warn")
-                t0 = time.monotonic()
-                try:
-                    found = gvd.detect()
-                except BaseException as e:
-                    seen["goal_error"] = repr(e)
-                    raise
-                finally:
-                    if cuda:
-                        torch.cuda.set_sync_debug_mode("default")
-                seen["goal_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            try:
+                found, syncs = count_syncs(gvd.detect, cuda)
+            except BaseException as e:
+                seen["goal_error"] = repr(e)
+                raise
+            seen["goal_s"] = time.monotonic() - t0
             seen["goal_syncs"], seen["goal_sync_sites"] = len(syncs), syncs
             seen["goal"] = found
             return found
@@ -4074,6 +4175,647 @@ def check_executor(cfg, mon: dict) -> dict:
     return out
 
 
+#: phase 25's execution runs at configuration 3's width (a cut of the north
+#: star: the executor reads one wire topology a progress tick, one Metadata
+#: and one DescribeLogDirs a broker, 20.4 s at the north star against 4.4 s
+#: at this width on a CPU host)
+KAFKA_EXEC_SPEC = {**MID_SPEC, "disks_per_broker": 4}
+#: the service's own topics, left out of the model (the reporter sampler's
+#: default exclusion)
+OWN_TOPICS = r"^__(KafkaCruiseControl|CruiseControlMetrics).*"
+
+
+def fake_spec(topo, logdirs=None) -> tuple:
+    """FakeKafkaCluster's (brokers, topics) of a ClusterTopology: each
+    broker on its rack and at its host's address, with `logdirs(b)`."""
+    brokers = {b.broker_id: {"rack": b.rack, "host": b.host, **({"logdirs": logdirs(b.broker_id)} if logdirs else {})}
+               for b in topo.brokers}
+    topics: dict = {}
+    for p in topo.partitions:
+        topics.setdefault(p.topic, []).append({"partition": p.partition, "leader": p.leader,
+                                               "replicas": list(p.replicas)})
+    return brokers, topics
+
+
+def raise_fd_limit(need: int) -> dict:
+    """Raise this process's open-file soft limit to its hard limit; fail if
+    the hard limit cannot hold `need` descriptors."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard != resource.RLIM_INFINITY and hard < need:
+        check(False, f"the open-file hard limit {hard} cannot hold the ~{need} descriptors the fake "
+                     "cluster's listeners and connections need")
+    target = hard if hard != resource.RLIM_INFINITY else max(soft, need)
+    resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
+    return dict(soft_before=soft, hard=hard, soft=target, need=need)
+
+
+def kafka_window(client, payloads: list, topology, agg, window_ms: int) -> tuple:
+    """One window of metric records over the wire: `payloads` produced
+    through KafkaMetricsTransport into a one-partition
+    __CruiseControlMetrics (one partition keeps the records' order), then
+    CruiseControlMetricsReporterSampler fetches them through
+    KafkaMetricsConsumer.poll_framed and decodes them on the native path;
+    the window's partition samples go into `agg` as phase 23 adds its wire
+    window.  Returns the walls and the sampling result."""
+    import numpy as np
+
+    from cruise_control_tpu_torch import native
+    from cruise_control_tpu_torch.kafka.transport import DEFAULT_TOPIC, KafkaMetricsConsumer, KafkaMetricsTransport
+    from cruise_control_tpu_torch.monitor.reporter_sampler import CruiseControlMetricsReporterSampler
+
+    codes = client.create_topics([(DEFAULT_TOPIC, 1, 1)])
+    check(codes == {DEFAULT_TOPIC: 0}, f"creating {DEFAULT_TOPIC}: {codes}")
+    transport = KafkaMetricsTransport(client, flush_every=10_000)
+    t0 = time.monotonic()
+    for p in payloads:
+        transport.send(p)
+    transport.flush()
+    produce_s = time.monotonic() - t0
+    consumer = KafkaMetricsConsumer(client)
+    fetched: dict = {}
+    poll = consumer.poll_framed
+
+    def timed_poll(*a, **kw):
+        t0 = time.monotonic()
+        framed = poll(*a, **kw)
+        fetched.update(fetch_s=time.monotonic() - t0, framed_bytes=len(framed))
+        return framed
+
+    consumer.poll_framed = timed_poll
+    sampler = CruiseControlMetricsReporterSampler(consumer, lambda: topology)
+    calls = native.native_calls()
+    t0 = time.monotonic()
+    res = sampler.get_samples([], 0, window_ms - 1)
+    sampler_s = time.monotonic() - t0
+    check(native.native_calls() == calls + 1, "the sampler did not decode the fetched batch on the C++ path")
+    samples = res.partition_samples
+    t0 = time.monotonic()
+    check(agg.add_samples_columnar([s.entity for s in samples], samples[0].time_ms,
+                                   np.stack([s.values for s in samples])), "the wire window was refused")
+    add_s = time.monotonic() - t0
+    n = len(payloads)
+    decode_s = sampler_s - fetched["fetch_s"]
+    return dict(records=n, produce_s=produce_s, produce_records_per_s=n / produce_s,
+                fetch_s=fetched["fetch_s"], fetch_records_per_s=n / fetched["fetch_s"],
+                decode_s=decode_s, decode_records_per_s=n / decode_s, framed_bytes=fetched["framed_bytes"],
+                aggregator_add_s=add_s, samples=len(samples)), res
+
+
+def on_cpu_result(res):
+    """The OptimizerResult with every tensor a decision record reads (the
+    state before, the stats after) moved to the CPU."""
+    from cruise_control_tpu_torch.models.state import STATE_FIELDS
+    from cruise_control_tpu_torch.models.stats import ClusterStats
+
+    st, stats = res.state_before, res.stats_after
+    return dataclasses.replace(
+        res, state_before=dataclasses.replace(st, **{f: getattr(st, f).cpu() for f in STATE_FIELDS}),
+        stats_after=ClusterStats(**{f.name: getattr(stats, f.name).cpu() for f in dataclasses.fields(stats)}))
+
+
+def check_kafka(cfg, mon: dict) -> dict:
+    """Phase 25: the real-cluster loop over the Kafka wire protocol, from
+    phase 23's monitored cluster, against the port's in-process fake
+    cluster (testing/fake_kafka.py: one selector thread serves every
+    broker's listener, each on its host's loopback address, and every
+    connection, with real sockets and frames).  (a) The north
+    star's data plane: the fake built from phase 23's topology (2,600
+    brokers, 200,000 partitions) and started, with the open-file limit
+    raised; one Metadata round trip, KafkaMetadataProvider.refresh and one
+    KafkaClusterAdmin.topology timed; the provider's topology phase 23's.
+    (b) Phase 23's wire window (its records) produced into
+    __CruiseControlMetrics and fetched back into a fresh aggregator: its
+    window bit for bit phase 23's; with phase 23's other windows,
+    LoadMonitor.cluster_model on the card over the provider (the service's
+    own topics left out) byte for byte phase 23's model.  (c) The window's
+    samples stored by KafkaSampleStore and loaded by a fresh store over a
+    fresh client into a fresh aggregator (MetricFetcherManager
+    .load_samples, the warm restart): the window entity by entity bit for
+    bit.  (d) At configuration 3's width (KAFKA_EXEC_SPEC, seed 42; each
+    replica on its replica_disk's logdir), the samples over the wire, a
+    model on the card; brokers 495-499 killed; BrokerFailureDetector over
+    the provider reports exactly them; GoalViolationDetector on the card
+    with one sync; the fix's optimize on the card; Executor over
+    KafkaClusterAdmin (the fake completes a reassignment on the next poll,
+    a logdir copy takes one DescribeLogDirs poll; the journal at fsync
+    batch 1, the default caps): no dead task, no replica on a dead broker
+    in the wire topology, each partition its proposal's replicas, no
+    throttle config left (DescribeConfigs), no hard goal violated on a model
+    rebuilt from the wire.  (e) The same execution on a fresh fake, the
+    executor abandoned on the progress tick halfway, a fresh Executor over
+    a fresh client and the journal replays and reconciles against
+    ListPartitionReassignments, then resumes: no partition's reassignment
+    submitted twice over the wire, (d)'s final topology.  (f) A
+    DecisionLedger around (d): the fix's decision record from the card's
+    result in one transfer (one sync), equal to the record of the result
+    copied to the CPU but for wallSeconds; the outcome joined when (d)
+    ends; a calibration record from the monitor's model of the executed
+    topology (its stats on the card); replay() one decision, one outcome,
+    one calibration, no pending outcome."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import ledger as ledger_mod
+    from cruise_control_tpu_torch.analyzer.goals import HARD_GOAL_NAMES
+    from cruise_control_tpu_torch.analyzer.objective import DEFAULT_CHAIN
+    from cruise_control_tpu_torch.convert import to_numpy
+    from cruise_control_tpu_torch.detector import BrokerFailureDetector, GoalViolationDetector
+    from cruise_control_tpu_torch.executor import ExecutionJournal, ExecutionOptions, Executor, ExecutorState
+    from cruise_control_tpu_torch.kafka import KafkaAdminClient, KafkaClusterAdmin, KafkaMetadataProvider
+    from cruise_control_tpu_torch.kafka.sample_store import KafkaSampleStore
+    from cruise_control_tpu_torch.models.state import STATE_FIELDS
+    from cruise_control_tpu_torch.models.stats import compute_stats
+    from cruise_control_tpu_torch.monitor import (
+        KAFKA_METRIC_DEF, FixedCapacityResolver, LoadMonitor, MetricFetcherManager, WindowedMetricSampleAggregator,
+    )
+    from cruise_control_tpu_torch.reporter import MetricSerde
+    from cruise_control_tpu_torch.testing import faults
+    from cruise_control_tpu_torch.testing.fake_kafka import FakeKafkaCluster
+    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster_fast
+
+    dev, req, topo0 = mon["device"], mon["requirements"], mon["topology"]
+    cuda = torch.device(dev).type == "cuda"
+    card = {} if cuda else {"device": dev}
+    W, window_ms = MONITOR_WINDOWS, MONITOR_WINDOW_MS
+    mid = lambda w: w * window_ms + window_ms // 2  # noqa: E731
+    own = re.compile(OWN_TOPICS)
+    keep = lambda name: not own.match(name)  # noqa: E731
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def rows(topo):
+        return ([dataclasses.astuple(b) for b in topo.brokers], [dataclasses.astuple(p) for p in topo.partitions])
+
+    def other_windows(agg, ents, vals, hot):
+        for w in range(1, W + 1):
+            check(agg.add_samples_columnar(ents, mid(w), hot if w == W else vals), f"window {w} refused")
+
+    out: dict = {"phase": "kafka"}
+    t_phase = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-kafka-"))
+    clusters, clients = [], []
+
+    def start(brokers, topics):
+        cluster = FakeKafkaCluster(brokers, topics).start()
+        clusters.append(cluster)
+        return cluster
+
+    def connect(cluster):
+        client = KafkaAdminClient(cluster.bootstrap(), timeout_s=300.0)
+        clients.append(client)
+        return client
+
+    try:
+        # (a) the north star's data plane
+        B = len(topo0.brokers)
+        out["fd_limit"] = raise_fd_limit(3 * B + 1024)
+        t0 = time.monotonic()
+        brokers, topics = fake_spec(topo0)
+        fake = FakeKafkaCluster(brokers, topics)
+        build_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        fake.start()
+        clusters.append(fake)
+        start_s = time.monotonic() - t0
+        client = connect(fake)
+        t0 = time.monotonic()
+        md = client.metadata()
+        metadata_s = time.monotonic() - t0
+        provider = KafkaMetadataProvider(client)
+        t0 = time.monotonic()
+        wire_topo = provider.refresh()
+        refresh_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        admin_topo = KafkaClusterAdmin(client).topology()
+        topology_s = time.monotonic() - t0
+        check(rows(wire_topo) == rows(topo0), "the wire topology differs from phase 23's")
+        check(all(b.logdirs == ("/data/d0",) for b in admin_topo.brokers)
+              and rows(admin_topo)[1] == rows(wire_topo)[1], "the admin's topology differs from the provider's")
+        out["data_plane"] = dict(brokers=B, partitions=len(wire_topo.partitions), replicas=wire_topo.num_replicas,
+                                 racks=len({b.rack for b in wire_topo.brokers}), build_s=build_s, start_s=start_s,
+                                 metadata_s=metadata_s, metadata_partitions=sum(len(t["partitions"])
+                                                                                for t in md["topics"]),
+                                 provider_refresh_s=refresh_s, admin_topology_s=topology_s,
+                                 requests=dict(fake.requests), threads=threading.active_count(),
+                                 equals_phase_23=True)
+        log(json.dumps({"phase": "kafka_data_plane", **out["data_plane"], "fd_limit": out["fd_limit"]}))
+
+        # (b) phase 23's wire window over the wire, then its model
+        agg = WindowedMetricSampleAggregator(W, window_ms, 1, KAFKA_METRIC_DEF)
+        out["stream"], res_b = kafka_window(client, mon["payloads"], wire_topo, agg, window_ms)
+        differ = same_aggregator_state(aggregator_state(agg), mon["wire_state"])
+        check(not differ, f"the window fetched over the wire differs from phase 23's: {differ}")
+        window_b = aggregator_state(agg, by_entity=True)
+        other_windows(agg, mon["entities"], mon["values"], mon["hot_values"])
+        monitor = LoadMonitor(provider, mon["capacity"], agg, topic_filter=keep, **card)
+        sync()
+        t0 = time.monotonic()
+        model = monitor.cluster_model(req)
+        sync()
+        model_s = time.monotonic() - t0
+        got = to_numpy(model)
+        differ = [f for f in STATE_FIELDS
+                  if got[f].dtype != mon["model"][f].dtype or got[f].tobytes() != mon["model"][f].tobytes()]
+        check(str(model.device) == str(torch.device(dev)) and not differ,
+              f"the model over the wire differs from phase 23's: {differ}")
+        out["stream"].update(window_equals_phase_23=True, cluster_model_s=model_s, model_equals_phase_23=True)
+        log(json.dumps({"phase": "kafka_stream", **out["stream"]}))
+        del model, got, monitor
+
+        # (c) the warm restart through the sample store
+        names = wire_topo.columns().topic_names
+        ids = {n: i for i, n in enumerate(names)}
+        store = KafkaSampleStore(client, topic_name_fn=names.__getitem__, topic_id_fn=ids.__getitem__)
+        t0 = time.monotonic()
+        store.store(res_b)
+        store_s = time.monotonic() - t0
+        client2 = connect(fake)
+        fresh = WindowedMetricSampleAggregator(W, window_ms, 1, KAFKA_METRIC_DEF)
+        loader = MetricFetcherManager(None, fresh, None,
+                                      sample_store=KafkaSampleStore(client2, topic_name_fn=names.__getitem__,
+                                                                    topic_id_fn=ids.__getitem__))
+        t0 = time.monotonic()
+        loaded = loader.load_samples()
+        load_s = time.monotonic() - t0
+        # the groups apart: the warm restart adds samples one by one with
+        # their topic as group, a columnar window adds none
+        loaded_state = aggregator_state(fresh, by_entity=True)
+        groups = loaded_state.pop("groups")
+        check(groups == {e: e.group for e in loaded_state["entities"]}, "the warm restart's groups")
+        differ = same_aggregator_state(loaded_state, {k: v for k, v in window_b.items() if k != "groups"})
+        check(loaded == len(res_b.partition_samples) and not differ,
+              f"the warm restart loaded {loaded} samples of {len(res_b.partition_samples)}; differs: {differ}")
+        out["warm_restart"] = dict(samples=loaded, store_s=store_s, load_s=load_s, wall_s=store_s + load_s,
+                                   window_equals=True)
+        log(json.dumps({"phase": "kafka_warm_restart", **out["warm_restart"]}))
+        out["north_star_requests"] = dict(fake.requests)
+        for c in clients:
+            c.close()
+        fake.stop()
+        clients.clear()
+        clusters.clear()
+        del fake, agg, fresh, res_b, store
+
+        # (d) detect, fix and execute at configuration 3's width
+        t0 = time.monotonic()
+        state3 = random_cluster_fast(RandomClusterSpec(**KAFKA_EXEC_SPEC), seed=42, device=dev)
+        keys = ("replica_valid", "replica_partition", "replica_topic", "replica_pos", "replica_broker",
+                "replica_is_leader", "replica_load_leader", "replica_disk", "broker_rack", "broker_host",
+                "broker_alive")
+        host3 = {k: getattr(state3, k).cpu().numpy() for k in keys}
+        topo3, ll3 = monitor_topology(host3, state3.shape)
+        D = state3.shape.max_disks_per_broker
+        logdirs = lambda b: [f"/data/{b}/d{k}" for k in range(D)]  # noqa: E731
+        brokers3, topics3 = fake_spec(topo3, logdirs)
+        pnames, pnums, _ = partition_keys(host3, state3.shape.P)
+        v = host3["replica_valid"]
+        placed = list(zip(host3["replica_partition"][v].tolist(), host3["replica_broker"][v].tolist(),
+                          host3["replica_disk"][v].tolist()))
+
+        def place(cluster):
+            # each replica on its replica_disk's logdir
+            for p, b, d in placed:
+                key = (pnames[p], int(pnums[p]))
+                dirs = cluster.placement[b]
+                dirs[f"/data/{b}/d0"].discard(key)
+                dirs[f"/data/{b}/d{d}"].add(key)
+
+        payloads3 = [MetricSerde.serialize(r) for r in monitor_records(topo3, ll3, mid(0))]
+        n_dead = max(2, len(topo3.brokers) // 100)
+        dead = set(range(len(topo3.brokers) - n_dead, len(topo3.brokers)))
+        fixture_s = time.monotonic() - t0
+        del state3
+        fake3 = start(brokers3, topics3)
+        place(fake3)
+        fake3.auto_complete_after(1)
+        fake3.intra_copy_polls = 1
+        client3 = connect(fake3)
+        provider3 = KafkaMetadataProvider(client3)
+        topo3_wire = provider3.refresh()
+        check(rows(topo3_wire) == rows(topo3), "configuration 3's wire topology differs from its fixture's")
+        agg3 = WindowedMetricSampleAggregator(W, window_ms, 1, KAFKA_METRIC_DEF)
+        stream3, res3 = kafka_window(client3, payloads3, topo3_wire, agg3, window_ms)
+        samples3 = res3.partition_samples
+        ents3, vals3 = [s.entity for s in samples3], np.stack([s.values for s in samples3])
+        other_windows(agg3, ents3, vals3, vals3)
+        capacity3 = FixedCapacityResolver(list(KAFKA_EXEC_SPEC["broker_capacity"]))
+        monitor3 = LoadMonitor(provider3, capacity3, agg3, topic_filter=keep, **card)
+        for b in sorted(dead):
+            fake3.kill_broker(b)
+        t0 = time.monotonic()
+        found_b = BrokerFailureDetector(provider3.refresh, persist_path=str(tmp / "failed-brokers.json")).detect()
+        broker_s = time.monotonic() - t0
+        check(found_b is not None and set(found_b.failed_brokers) == dead,
+              f"the broker failure detector reported {None if found_b is None else sorted(found_b.failed_brokers)}")
+        sync()
+        t0 = time.monotonic()
+        model3 = monitor3.cluster_model(req)
+        sync()
+        model3_s = time.monotonic() - t0
+        catalog = monitor3.last_catalog
+        gvd = GoalViolationDetector(lambda: model3, DEFAULT_CHAIN)
+        t0 = time.monotonic()
+        found_g, syncs = count_syncs(gvd.detect, cuda)
+        goal_s = time.monotonic() - t0
+        check(found_g is not None, "the dead brokers raised no goal violation")
+        opt = GoalOptimizer(config=cfg, device=dev)
+        t0 = time.monotonic()
+        res = opt.optimize(model3)
+        sync()
+        optimize_s = time.monotonic() - t0
+        for engine in opt._engines.values():
+            engine.release()
+        hard = {n: float(v) for n, v in zip(res.goal_names, res.violations_after) if n in HARD_GOAL_NAMES}
+        check(all(v <= 1e-6 for v in hard.values()), f"the fix's proposal violates hard goals: {hard}")
+        proposals = list(res.proposals)
+        out["detect_fix"] = dict(
+            brokers=len(topo3.brokers), partitions=len(topo3.partitions), logdirs_per_broker=D,
+            cut="configuration 3's width, not the north star's: the executor reads one wire topology a "
+                "progress tick (one Metadata and one DescribeLogDirs a broker), 20.4 s at the north star "
+                "against 4.4 s at this width on a CPU host",
+            fixture_s=fixture_s, stream=stream3, dead=sorted(dead), broker_failure_s=broker_s,
+            model_s=model3_s, goal_violation_s=goal_s, goal_violation_syncs=len(syncs), sync_sites=syncs,
+            fixable=found_g.fixable_violations, unfixable=found_g.unfixable_violations,
+            optimize_s=optimize_s, proposals=len(proposals),
+            evacuations=sum(1 for p in proposals if dead & set(p.old_replicas)))
+        log(json.dumps({"phase": "kafka_detect_fix", **out["detect_fix"]}))
+        if cuda:
+            check(len(syncs) == 1, f"the detection synced {len(syncs)} times: {syncs}")
+
+        # (f) the decision record, from the card's result in one transfer
+        ledger = ledger_mod.DecisionLedger(str(tmp / "ledger" / "decision-ledger.jsonl"))
+        transfers = ledger_mod.TRANSFERS
+        record, rec_syncs = count_syncs(lambda: ledger_mod.build_decision_record(
+            res, source="self-healing", trace_id="phase-25", cluster_id="configuration-3",
+            work_class="URGENT"), cuda)
+        rec_transfers = ledger_mod.TRANSFERS - transfers
+        host_record = ledger_mod.build_decision_record(
+            on_cpu_result(res), source="self-healing", trace_id="phase-25", cluster_id="configuration-3",
+            work_class="URGENT")
+        check(ledger_mod.TRANSFERS - transfers == rec_transfers, "the CPU copy's record made a transfer")
+        strip = lambda r: json.dumps({k: v for k, v in r.items() if k != "wallSeconds"})  # noqa: E731
+        check(strip(record) == strip(host_record), "the card's decision record differs from the CPU copy's")
+        if cuda:
+            check(rec_transfers == 1 and len(rec_syncs) == 1,
+                  f"the decision record made {rec_transfers} transfers and {len(rec_syncs)} syncs: {rec_syncs}")
+        did = ledger.record_decision(record)
+        ledger.begin_outcome(did)
+
+        def execute(cluster, journal_path, crash_at=None) -> tuple:
+            client_x = connect(cluster)
+            admin = KafkaClusterAdmin(client_x)
+            journal = ExecutionJournal(str(journal_path))
+            # the topic names too: with a catalog alone the executor names a
+            # throttled topic by its dense id (ROADMAP queue 3)
+            ex = Executor(admin, catalog=catalog, topic_names=catalog.topic_names_by_id(), journal=journal)
+            options = ExecutionOptions(replication_throttle_bytes_per_s=1e12, progress_check_interval_s=0.0)
+            t0 = time.monotonic()
+            with executor_spans(admin, ex, journal) as spans:
+                if crash_at is None:
+                    result = ex.execute_proposals(proposals, options, uuid="phase-25-fix", removed_brokers=dead)
+                else:
+                    result = None
+                    with faults.process_crash(admin, on="in_progress_reassignments",
+                                              schedule=faults.FaultSchedule(calls=[crash_at])):
+                        try:
+                            ex.execute_proposals(proposals, options, uuid="phase-25-fix", removed_brokers=dead)
+                        except faults.SimulatedProcessCrash:
+                            spans["crashed"] = True
+            spans["wall_s"] = time.monotonic() - t0
+            spans["records"], spans["fsyncs"] = journal.records_written, journal.fsyncs
+            journal.close()
+            return result, spans
+        requests0 = dict(fake3.requests)
+        result, spans = execute(fake3, tmp / "fix" / "execution-journal.jsonl")
+        requests = {k: n - requests0.get(k, 0) for k, n in fake3.requests.items() if n > requests0.get(k, 0)}
+        after = provider3.refresh()
+        by_key = {(p.topic, p.partition): p for p in after.partitions}
+        on_dead = sum(1 for p in after.partitions for r in p.replicas if r in dead)
+        wrong = sum(1 for p in proposals if set(by_key[catalog.partition_key(p.partition)].replicas)
+                    != set(p.new_replicas))
+        live = sorted(b.broker_id for b in after.brokers if b.alive)
+        left = {}
+        for b in live:
+            left.update({k: c for k, c in client3.describe_configs([(4, str(b))], node_id=b).items() if c})
+        left.update({k: c for k, c in client3.describe_configs(
+            [(2, t) for t in sorted({p.topic for p in after.partitions})]).items() if c})
+        # and on no resource DescribeConfigs of the cluster's own cannot see
+        left.update({k: c for k, c in fake3.configs.items() if c})
+        tasks = result.completed + result.aborted + result.dead
+        walls = spans["topology_walls"]
+        admin_s = sum(spans.get(k, 0.0) for k in ("admin_submit_s", "admin_read_s"))
+        out["execute"] = dict(
+            ticks=result.ticks, tasks=tasks, completed=result.completed, dead=result.dead, aborted=result.aborted,
+            tasks_per_s=tasks / spans["wall_s"], wall_s=spans["wall_s"], wire_admin_s=admin_s,
+            topology_s=sum(walls), topology_walls=walls, drain_s=spans.get("drain_s", 0.0),
+            journal_s=spans.get("journal_s", 0.0), fsync_s=spans.get("fsync_s", 0.0),
+            journal_records=spans["records"], journal_fsyncs=spans["fsyncs"],
+            snapshot_s=spans.get("snapshot_s", 0.0),
+            other_s=spans["wall_s"] - admin_s - sum(spans.get(k, 0.0) for k in ("drain_s", "journal_s",
+                                                                                 "snapshot_s")),
+            requests=requests, replicas_on_dead=on_dead, partitions_not_their_proposal=wrong,
+            throttle_configs_left=len(left))
+        check(result.dead == 0 and result.aborted == 0 and not result.stopped,
+              f"the fix's execution: {result.completed} completed, {result.aborted} aborted, {result.dead} dead")
+        check(on_dead == 0, f"{on_dead} replicas left on dead brokers")
+        check(wrong == 0, f"{wrong} partitions differ from their proposals")
+        check(not left, f"throttle configs left: {left}")
+        sync()
+        t0 = time.monotonic()
+        model_after = monitor3.cluster_model(req)
+        healed = GoalViolationDetector(lambda: model_after, DEFAULT_CHAIN).detect()
+        sync()
+        hard_left = [] if healed is None else [
+            n for n in healed.fixable_violations + healed.unfixable_violations if n in HARD_GOAL_NAMES]
+        out["execute"].update(after_detect_s=time.monotonic() - t0, violated_after=None if healed is None else
+                              healed.fixable_violations + healed.unfixable_violations)
+        check(not hard_left, f"hard goals violated after the fix: {hard_left}")
+        log(json.dumps({"phase": "kafka_execute", **out["execute"]}))
+        final = {t: {p: (d["leader"], tuple(d["replicas"])) for p, d in parts.items()}
+                 for t, parts in fake3.topics.items() if keep(t)}
+
+        # (f) the outcome and a calibration record
+        ledger.record_outcome(did, dict(completed=result.completed, aborted=result.aborted, dead=result.dead,
+                                        ticks=result.ticks, wallSeconds=spans["wall_s"]))
+        measured = ledger_mod.load_summary(compute_stats(model_after))
+        error = ledger_mod.load_summary_error(record["predictedLoad"], measured)
+        ledger.record_calibration(did, dict(predictedLoad=record["predictedLoad"], measuredLoad=measured,
+                                            error=error))
+        kinds = [r["t"] for r in ledger.replay()]
+        out["ledger"] = dict(record_transfers=rec_transfers, record_syncs=len(rec_syncs),
+                             moves=len(record["moves"]), max_abs_avg_error=error["maxAbsAvgError"],
+                             records=kinds, pending=sorted(ledger.pending_outcomes()))
+        check(kinds == ["decision", "outcome", "calibration"] and not ledger.pending_outcomes(),
+              f"the ledger replays {kinds}, pending {ledger.pending_outcomes()}")
+        ledger.close()
+        log(json.dumps({"phase": "kafka_ledger", **out["ledger"]}))
+        del model3, model_after, res
+
+        # (e) crash halfway and recover, on a fresh fake of the same cluster
+        fake_e = start(brokers3, topics3)
+        place(fake_e)
+        fake_e.auto_complete_after(1)
+        fake_e.intra_copy_polls = 1
+        for b in sorted(dead):
+            fake_e.kill_broker(b)
+        submitted: dict = {}
+        landed_again: list = []
+        handle = fake_e.handle
+
+        def counted(node_id, api, body):
+            if api.name == "AlterPartitionReassignments":
+                with fake_e._lock:
+                    for t in body["topics"] or []:
+                        for p in t["partitions"] or []:
+                            key = (t["name"], p["partition_index"])
+                            cur = fake_e.topics.get(key[0], {}).get(key[1])
+                            if p["replicas"] is None or cur is None:
+                                continue
+                            if p["replicas"] == cur["replicas"]:
+                                # a landed move submitted again (an election's
+                                # reorder always changes the list)
+                                landed_again.append(key)
+                            elif set(p["replicas"]) != set(cur["replicas"]):
+                                submitted[key] = submitted.get(key, 0) + 1
+            return handle(node_id, api, body)
+
+        fake_e.handle = counted
+        crash_at = max(1, result.ticks // 2)
+        journal_path = tmp / "crash" / "execution-journal.jsonl"
+        _, crash_spans = execute(fake_e, journal_path, crash_at=crash_at)
+        check(crash_spans.get("crashed"), "the execution did not crash")
+        clients[-1].close()  # the dead process's sockets
+        t0 = time.monotonic()
+        admin_r = KafkaClusterAdmin(connect(fake_e))
+        journal_r = ExecutionJournal(str(journal_path))
+        ex_r = Executor(admin_r, catalog=catalog, topic_names=catalog.topic_names_by_id(), journal=journal_r)
+        replay_s = time.monotonic() - t0
+        check(ex_r.state == ExecutorState.RECOVERING, f"the fresh executor is {ex_r.state}")
+        recovery = ex_r.recovery_info()
+        t0 = time.monotonic()
+        res_r = ex_r.resume_recovered_execution()
+        resume_s = time.monotonic() - t0
+        journal_r.close()
+        check(res_r is not None and res_r.dead == 0 and res_r.aborted == 0, f"the resumed execution: {res_r}")
+        twice = sorted(k for k, n in submitted.items() if n > 1) + landed_again
+        check(not twice, f"{len(twice)} partitions' reassignments were submitted twice, first {twice[:3]}")
+        again = {t: {p: (d["leader"], tuple(d["replicas"])) for p, d in parts.items()}
+                 for t, parts in fake_e.topics.items() if keep(t)}
+        diff = [(t, p, final[t].get(p), again[t].get(p)) for t in final for p in final[t]
+                if again.get(t, {}).get(p) != final[t][p]]
+        check(again.keys() == final.keys() and not diff,
+              f"the recovered execution's topology differs from the fix's in {len(diff)} partitions: {diff[:5]}")
+        left = {k: c for k, c in fake_e.configs.items() if c}
+        check(not left, f"throttle configs left: {sorted(left.items())[:3]}")
+        out["recover"] = dict(crash_tick=crash_at, crashed_after_s=crash_spans["wall_s"],
+                              crashed_records=crash_spans["records"], replay_s=replay_s, resume_s=resume_s,
+                              submissions=sum(submitted.values()), submitted_twice=len(twice),
+                              completed=res_r.completed, ticks=res_r.ticks, recovery=recovery,
+                              same_topology=True)
+        log(json.dumps({"phase": "kafka_recover", **out["recover"]}, default=str))
+    except BaseException as e:
+        out["failed"] = repr(e)
+        log(json.dumps(out, default=str))
+        raise
+    finally:
+        for c in clients:
+            c.close()
+        for cluster in clusters:
+            cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_phase
+    log(json.dumps({k: v for k, v in out.items() if k not in ("detect_fix", "execute")} | dict(
+        seconds=out["seconds"]), default=str))
+    return out
+
+
+def config2_fingerprint(state, chain) -> str:
+    """bench.py's _baseline_fingerprint: the identity of the (cluster,
+    goal chain) a committed greedy baseline was built for, on the host
+    copy of the state (4 significant digits of the leader load, so the
+    card's last f32 bits do not move it)."""
+    import hashlib
+
+    import numpy as np
+
+    host = {f: getattr(state, f).cpu().numpy() for f in
+            ("replica_valid", "broker_valid", "broker_alive", "replica_load_leader")}
+    s = state.shape
+    alive = host["broker_valid"] & host["broker_alive"]
+    load_sig = float(np.asarray(host["replica_load_leader"], np.float64).sum())
+    names = ",".join(g.name for g in chain.goals)
+    raw = (f"{s.B}x{s.P}x{int(host['replica_valid'].sum())}|{int(alive.sum())}|"
+           f"{int(np.nonzero(~alive)[0].sum())}|{load_sig:.4g}|{names}")
+    return hashlib.sha256(raw.encode()).hexdigest()[:16]
+
+
+def check_config2() -> dict:
+    """Phase 26: BASELINE configuration 2 on the card (bench.py config_2:
+    SMALL_SPEC, seed 42, its five goals, SEARCH_SMALL; a warm-up run, then
+    the timed one, as bench.py's _run_tpu): every hard goal met.  The
+    greedy bar is the one bench.py prefers, the committed converged
+    baseline (BASELINE_GREEDY.json config2, after its fingerprint
+    matches); a budget-truncated greedy would understate it.  Only when
+    the fingerprint is stale does the port's greedy oracle run on the card
+    with bench.py's settings (400 moves a goal, 8 destinations, seed 0, a
+    60 s budget), labelled unconverged when cut off.  tpu_beats_greedy as
+    bench.py decides it: objective <= greedy's x (1 + 1e-4) + 1e-9."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer, OptimizerConfig
+    from cruise_control_tpu_torch.analyzer.objective import GoalChain
+    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster_fast
+
+    chain = GoalChain.from_names(list(CONFIG2_CHAIN))
+    state = random_cluster_fast(RandomClusterSpec(**SMALL_SPEC), seed=42, device="cuda")
+    opt = GoalOptimizer(chain=chain, config=OptimizerConfig(**SEARCH_SMALL), device="cuda")
+    warm = opt.optimize(state)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = opt.optimize(state)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for engine in opt._engines.values():
+        engine.release()
+    with open(ROOT / "BASELINE_GREEDY.json") as f:
+        entry = json.load(f)["config2"]
+    fingerprint = config2_fingerprint(state, chain)
+    if entry.get("fingerprint") == fingerprint:
+        greedy = dict(greedy_source="BASELINE_GREEDY.json config2", greedy_objective=entry["objective"],
+                      greedy_converged=entry["converged"], greedy_moves=entry["moves"],
+                      baseline_greedy_s=entry["seconds"])
+    else:
+        from cruise_control_tpu_torch.analyzer.greedy import greedy_optimize
+
+        log(f"phase 26: greedy baseline config2 is stale (fingerprint {entry.get('fingerprint')} "
+            f"!= {fingerprint}); running the port's greedy oracle on the card")
+        t0 = time.monotonic()
+        final, info = greedy_optimize(state, chain, max_moves_per_goal=400, candidate_dests=8, seed=0,
+                                      time_budget_s=60.0, return_info=True, device="cuda")
+        greedy = dict(greedy_source="greedy oracle on the card", greedy_objective=float(chain.evaluate(final)[0]),
+                      greedy_converged=info["converged"], greedy_moves=info["moves"],
+                      greedy_s=time.monotonic() - t0)
+    hard = chain.hard_mask()
+    out = dict(phase="config2", brokers=state.shape.B, partitions=state.shape.P, wall_s=wall,
+               warm_s=warm.wall_seconds, objective=[res.objective_before, res.objective_after],
+               violated_after=res.violated_goals_after(), moves=res.num_inter_broker_moves,
+               fingerprint=fingerprint, **greedy,
+               tpu_beats_greedy=bool(res.objective_after <= greedy["greedy_objective"] * (1 + 1e-4) + 1e-9))
+    log(json.dumps(out))
+    check(all(v <= 1e-6 for v, h in zip(res.violations_after, hard) if h),
+          f"configuration 2 violates a hard goal: {res.violations_after}")
+    return out
+
+
 def sticky_child() -> int:
     """Phase 22 (c), in a process of its own: one supervised optimize on a
     small fixture on the card, then a device-side assert inside
@@ -4145,10 +4887,13 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--sticky-child"]:
         return sticky_child()
-    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"]):
+    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # a hang leaves every thread's stack on standard error before the
+    # script's 1200 s limit ends it
+    faulthandler.dump_traceback_later(1140, exit=False)
     import numpy as np
 
     from cruise_control_tpu_torch import native
@@ -4194,6 +4939,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_executor(cfg, monitored)
         print(json.dumps({"ok": True, "phases": [1, 23, 24]}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--kafka"]:
+        _, monitored = check_monitor(state, cfg)
+        del state
+        torch.cuda.empty_cache()
+        check_kafka(cfg, monitored)
+        print(json.dumps({"ok": True, "phases": [1, 23, 25]}), flush=True)
         return 0
 
     # phase 2: kernels against their plain versions on one real step
@@ -4324,6 +5076,13 @@ def main() -> int:
     # phase 24: the self-healing loop (detect, fix, execute, crash and
     # recover) on phase 23's monitored cluster
     check_executor(cfg, monitored)
+    torch.cuda.empty_cache()
+    # phase 25: the real-cluster loop over the Kafka wire protocol
+    check_kafka(cfg, monitored)
+    del monitored
+    torch.cuda.empty_cache()
+    # phase 26: BASELINE configuration 2 against the converged greedy baseline
+    check_config2()
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

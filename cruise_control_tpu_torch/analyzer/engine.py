@@ -865,11 +865,12 @@ class _Workspace:
     stash: dict | None = None
 
     def close(self) -> None:
-        for lg in (*self.loops.values(), *self.slices.values()):
-            lg.close()
-        self.loops.clear()
-        self.slices.clear()
-        self.graphs.clear()
+        with kernels.graph_lock():
+            for lg in (*self.loops.values(), *self.slices.values()):
+                lg.close()
+            self.loops.clear()
+            self.slices.clear()
+            self.graphs.clear()
 
 
 class _WarmPool:

@@ -126,10 +126,11 @@ class _Program:
     host: dict | None = None  # pinned staging (ctrl) and host outputs
 
     def close(self) -> None:
-        if self.graph is not None:
-            self.graph.close()
-            self.graph = None
-        self.body = None
+        with kernels.graph_lock():
+            if self.graph is not None:
+                self.graph.close()
+                self.graph = None
+            self.body = None
 
 
 @dataclasses.dataclass

@@ -518,13 +518,17 @@ class Executor:
                 # recording a failed one would make the leak permanently
                 # invisible to future recoveries
                 self.journal.append({"t": "throttle_cleared"})
-        # 3. task reconciliation against live topology + controller state
+        # 3. task reconciliation against live topology + controller state.
+        # The controller's in-progress set is read BEFORE the topology: a
+        # move only goes from in progress to landed, so each one is seen in
+        # progress or landed; read the other way round, a move landing
+        # between the two reads looks vanished and is submitted again
+        in_prog = self.admin.in_progress_reassignments()
         topo = self.admin.topology()
         placement = {
             (p.topic, p.partition): set(p.replicas) for p in topo.partitions
         }
         leaders = {(p.topic, p.partition): p.leader for p in topo.partitions}
-        in_prog = self.admin.in_progress_reassignments()
         logdir_pending = (
             self.admin.in_progress_logdir_moves()
             if hasattr(self.admin, "in_progress_logdir_moves")

@@ -19,7 +19,13 @@ capture synchronises the whole device, which a capture in flight on
 another thread forbids.  The interpreter's cyclic garbage collector is
 off while a capture lasts: a collection inside it could destroy an
 unreachable CUDA graph, whose reset a capturing stream forbids, and the
-capture would fail.
+capture would fail.  The same lock (`graph_lock`) is held around every
+build and destroy of an instantiated graph of the package's libraries
+(the loop, slice, scenario and node-floor graphs) and around an engine's
+release of its captured graphs: on an H100, two threads instantiating
+loop graphs at once deadlocked inside the CUDA graph build once
+torch.profiler had traced the process, so the package instantiates and
+destroys its graphs one at a time.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import threading
 
 _LOCK = threading.Lock()
 _TLS = threading.local()
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.RLock()
 
 LAUNCHES: dict[str, int] = {
     "threefry_uniform": 0,
@@ -62,6 +68,13 @@ def count(name: str, n: int = 1) -> None:
         return
     with _LOCK:
         LAUNCHES[name] += n
+
+
+def graph_lock() -> threading.RLock:
+    """The process's graph lock, re-entrant: held by every capture
+    (`capture`), and around every build and destroy of an instantiated
+    graph and every release of captured graphs."""
+    return _CAPTURE_LOCK
 
 
 @contextlib.contextmanager

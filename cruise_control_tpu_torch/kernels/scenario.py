@@ -140,9 +140,10 @@ class ScenarioGraph:
                                                  ctypes.POINTER(ctypes.c_void_p),
                                                  ctypes.POINTER(ctypes.c_void_p)])
         self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
-        _build.check(fn(body_graph.raw_cuda_graph(), self._ptrs, self._dims,
-                        ctypes.byref(self._exec), ctypes.byref(self._graph)),
-                     "scenario graph build")
+        with kernels.graph_lock():
+            status = fn(body_graph.raw_cuda_graph(), self._ptrs, self._dims,
+                        ctypes.byref(self._exec), ctypes.byref(self._graph))
+        _build.check(status, "scenario graph build")
         self._keep = (s, body_graph)
         self.launches = 0
 

@@ -351,7 +351,9 @@ def launch_graph_exec(exec_: ctypes.c_void_p, stream: int, what: str) -> None:
 def destroy_graph_exec(exec_: ctypes.c_void_p, graph: ctypes.c_void_p, what: str) -> None:
     """Destroy an instantiated graph and its template (opaque handles)."""
     fn = _lib_fn("cc_loop_graph_destroy", [ctypes.c_void_p, ctypes.c_void_p])
-    _build.check(fn(exec_, graph), f"{what} destroy")
+    with kernels.graph_lock():
+        status = fn(exec_, graph)
+    _build.check(status, f"{what} destroy")
 
 
 class _Copy(ctypes.Structure):
@@ -400,9 +402,10 @@ class LoopGraph:
             return g.raw_cuda_graph() if g is not None else None
 
         post_specs, specs = _copy_specs(post_copies), _copy_specs(copies)
-        status = fn(raw(init_graph), raw(eval_graph), raw(body_graph), raw(obj_graph),
-                    raw(post_graph), post_specs, len(post_copies), specs, len(copies), self._ptrs,
-                    self._dims, ctypes.byref(self._exec), ctypes.byref(self._graph))
+        with kernels.graph_lock():
+            status = fn(raw(init_graph), raw(eval_graph), raw(body_graph), raw(obj_graph),
+                        raw(post_graph), post_specs, len(post_copies), specs, len(copies),
+                        self._ptrs, self._dims, ctypes.byref(self._exec), ctypes.byref(self._graph))
         _build.check(status, "loop graph build")
         self._keep = (s, init_graph, eval_graph, body_graph, obj_graph, post_graph, tuple(copies),
                       tuple(post_copies))
@@ -433,8 +436,10 @@ class NodeFloorGraph:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_void_p)])
         self._exec, self._graph = ctypes.c_void_p(), ctypes.c_void_p()
-        _build.check(fn(self._counter.data_ptr(), iters, extra, ctypes.byref(self._exec),
-                        ctypes.byref(self._graph)), "node floor graph build")
+        with kernels.graph_lock():
+            status = fn(self._counter.data_ptr(), iters, extra, ctypes.byref(self._exec),
+                        ctypes.byref(self._graph))
+        _build.check(status, "node floor graph build")
 
     def launch(self, stream: int) -> None:
         launch_graph_exec(self._exec, stream, "node floor graph")

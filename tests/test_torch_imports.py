@@ -43,7 +43,11 @@ def test_import_loads_no_jax_in_subprocess():
               # the executor, the fleet's leases and the detectors
               "executor.tasks", "executor.strategy", "executor.admin", "executor.throttle",
               "executor.planner", "executor.journal", "executor.executor", "fleet.leases",
-              "detector.notifier", "detector.detector", "detector.detectors"):
+              "detector.notifier", "detector.detector", "detector.detectors",
+              # the Kafka wire path, its fake cluster, the SLOs and the ledger
+              "kafka", "kafka.codec", "kafka.protocol", "kafka.sasl", "kafka.client",
+              "kafka.records", "kafka.transport", "kafka.admin", "kafka.sample_store",
+              "testing.fake_kafka", "common.slo", "analyzer.ledger"):
         assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"

@@ -8,12 +8,13 @@ test_unverifiable_copy_bounded_then_dead,
 test_vanished_copy_without_landing_is_reexecuted,
 test_partition_size_finder_wired_and_excludable,
 test_intra_concurrency_cap_holds_while_copies_drain,
-test_intra_cap_change_mid_execution and
-test_graceful_stop_drains_tracked_copies.
+test_intra_cap_change_mid_execution,
+test_graceful_stop_drains_tracked_copies,
+test_transient_describe_failure_keeps_copies_pending and
+test_unreachable_broker_backs_off_but_can_recover (these two drive the
+port's kafka/admin.py KafkaClusterAdmin).
 Left out: test_partition_size_detection_enabled_via_config (it builds the
-simulated service; item 9), and test_transient_describe_failure_keeps_copies_pending
-and test_unreachable_broker_backs_off_but_can_recover (they drive only
-kafka/admin.py's KafkaClusterAdmin, which comes with item 8c).
+simulated service; item 9).
 """
 
 import dataclasses
@@ -355,3 +356,76 @@ def test_graceful_stop_drains_tracked_copies():
     assert not ex.tracker.tasks(state=TaskState.IN_PROGRESS)
     assert res.completed + res.aborted + res.dead == len(ex.tracker.tasks())
     assert res.completed >= 1  # the tracked copy was drained, not dropped
+
+
+def test_transient_describe_failure_keeps_copies_pending():
+    """A DescribeLogDirs timeout must not read as 'no copies pending' —
+    the executor treats absence as completion (kafka/admin.py
+    in_progress_logdir_moves last-known fallback)."""
+    from cruise_control_tpu_torch.kafka.admin import KafkaClusterAdmin
+
+    class FlakyClient:
+        def __init__(self):
+            self.fail_next = False
+            self.dirs = {
+                "/d0": {"error_code": 0, "replicas": {}, "future_replicas": {("T0", 0)}},
+                "/d1": {"error_code": 0, "replicas": {("T0", 0): 10}, "future_replicas": set()},
+            }
+
+        def describe_logdirs(self, node_id):
+            if self.fail_next:
+                self.fail_next = False
+                raise OSError("socket timeout")
+            return self.dirs
+
+    admin = KafkaClusterAdmin(FlakyClient())
+    admin._logdir_move_brokers = {3}
+
+    assert admin.in_progress_logdir_moves() == {("T0", 0, 3)}
+    # transient failure: last-known pending set still reported
+    admin.client.fail_next = True
+    assert admin.in_progress_logdir_moves() == {("T0", 0, 3)}
+    # copy finishes: broker drops out of the polling set
+    admin.client.dirs["/d0"]["future_replicas"] = set()
+    assert admin.in_progress_logdir_moves() == set()
+    assert admin._logdir_move_brokers == set()
+    # landed-verification: the replica reports under dense dir index 1
+    assert admin.logdir_of("T0", 0, 3) == 1
+
+
+def test_unreachable_broker_backs_off_but_can_recover():
+    """Past the consecutive-failure cap the broker is only PROBED every
+    few polls (no per-tick socket timeout), its copies stay pending, and a
+    recovered broker is re-observed — landed copies are not reported dead."""
+    from cruise_control_tpu_torch.kafka.admin import KafkaClusterAdmin
+
+    class FlakyDeadClient:
+        calls = 0
+        recovered = False
+
+        def describe_logdirs(self, node_id):
+            FlakyDeadClient.calls += 1
+            if not FlakyDeadClient.recovered:
+                raise OSError("unreachable")
+            return {
+                "/d0": {"error_code": 0, "replicas": {("T0", 0): 10},
+                        "future_replicas": set()},
+            }
+
+    admin = KafkaClusterAdmin(FlakyDeadClient())
+    admin._logdir_move_brokers = {7}
+    admin._last_futures = {7: {("T0", 0, 7)}}
+    # while failing: copies stay pending (a timeout is not completion)
+    for _ in range(admin._max_describe_failures + 1):
+        assert admin.in_progress_logdir_moves() == {("T0", 0, 7)}
+    # backed off: most polls do NOT dial, pending still reported
+    before = FlakyDeadClient.calls
+    for _ in range(admin._probe_every - 1):
+        assert admin.in_progress_logdir_moves() == {("T0", 0, 7)}
+    assert FlakyDeadClient.calls == before
+    # broker recovers; the next probe observes the landed copy
+    FlakyDeadClient.recovered = True
+    for _ in range(admin._probe_every + 1):
+        pending = admin.in_progress_logdir_moves()
+    assert pending == set()
+    assert admin.logdir_of("T0", 0, 7) == 0

@@ -1,0 +1,244 @@
+"""The port's decision ledger (cruise_control_tpu_torch.analyzer.ledger) and
+the convergence diagnostics it records, on the CPU: tests/test_ledger.py's 6
+tests that build no service and no mesh, pointed at the port (the engines
+on the CPU).  Left out: test_diagnostics_byte_parity_mesh (the mesh, item
+10) and the five that build the service or the fleet (item 9).  The port
+adds test_card_result_record_costs_one_transfer: a decision record built
+from a result on the card costs one device-to-host transfer, and its JSON
+is the CPU copy's but for wallSeconds (marked cuda; it skips without a
+card).  The reference's notes follow.
+
+Decision ledger + convergence diagnostics tests: torn-tail
+durability, rotation/retention honoring pending outcomes, fleet
+two-cluster namespace isolation, the disabled path writing zero bytes,
+diagnostics byte-parity across plain/segmented/mesh runs, MODEL_DRIFT
+episode discipline, and the decision→outcome→calibration→/explain
+acceptance story on the simulated cluster."""
+
+import dataclasses as dc
+import json
+import os
+
+import numpy as np
+import pytest
+
+from cruise_control_tpu_torch.analyzer.engine import (
+    Engine,
+    FUSED_DIAG_YS_KEYS,
+    FUSED_YS_KEYS,
+    OptimizerConfig,
+    SegmentContext,
+    segmented_execution,
+)
+from cruise_control_tpu_torch.analyzer.ledger import DecisionLedger
+from cruise_control_tpu_torch.analyzer.objective import DEFAULT_CHAIN
+from cruise_control_tpu_torch.testing.fixtures import (
+    RandomClusterSpec,
+    random_cluster_fast,
+)
+
+SMALL = RandomClusterSpec(
+    num_brokers=12, num_partitions=200, num_racks=4, num_topics=6, skew=1.0
+)
+CFG = OptimizerConfig(
+    num_candidates=128, leadership_candidates=32, swap_candidates=16,
+    steps_per_round=8, num_rounds=3, seed=0,
+)
+
+
+def _placements(state):
+    return tuple(
+        np.asarray(getattr(state, f))
+        for f in ("replica_broker", "replica_is_leader", "replica_disk")
+    )
+
+
+def _same_placement(a, b) -> bool:
+    return all(bool((x == y).all()) for x, y in zip(_placements(a), _placements(b)))
+
+
+# ------------------------------------------------------------- store
+
+
+def test_torn_tail_append_after_truncate(tmp_path):
+    """A crash-torn final line must neither poison replay nor glue onto
+    the next append: reopening truncates back to the last valid record,
+    and the episode written after the tear joins cleanly."""
+    path = tmp_path / "decision-ledger.jsonl"
+    led = DecisionLedger(str(path))
+    did = led.record_decision({"source": "test", "goals": {}})
+    led.close()
+    with open(path, "ab") as f:
+        f.write(b'{"t": "outco')  # torn mid-record
+    # replay of the torn file trusts only the complete prefix
+    led2 = DecisionLedger(str(path))
+    assert [r["t"] for r in led2.replay()] == ["decision"]
+    # appending repairs the tear first: the outcome joins its decision
+    led2.record_outcome(did, {"completed": 3})
+    entries = led2.entries()
+    assert len(entries) == 1
+    assert entries[0]["decision"]["id"] == did
+    assert entries[0]["outcome"]["completed"] == 3
+    # the file holds exactly two valid lines — no half-line remains
+    lines = path.read_bytes().splitlines()
+    assert len(lines) == 2
+    for line in lines:
+        json.loads(line)
+
+
+def test_rotation_and_retention_respect_pending_outcomes(tmp_path):
+    """The live file never rotates while a decision in it awaits its
+    outcome, and prune_archives never deletes an archive holding a
+    pending episode."""
+    path = tmp_path / "decision-ledger.jsonl"
+    led = DecisionLedger(str(path), rotate_records=2, retention_count=1)
+    d1 = led.record_decision({"source": "test"})
+    led.begin_outcome(d1)
+    led.record_decision({"source": "test"})
+    # live file is at the rotation bound but d1's outcome is pending:
+    # the next decision must NOT rotate it away
+    d3 = led.record_decision({"source": "test"})
+    assert led._archives() == []
+    assert {e["decision"]["id"] for e in led.entries()} >= {d1, d3}
+    # outcome lands -> the following decision rotates the full file
+    led.record_outcome(d1, {"completed": 1})
+    led.record_decision({"source": "test"})
+    assert len(led._archives()) == 1
+    # retention: a pending episode inside an archive is sacrosanct
+    d5 = led.record_decision({"source": "test"})
+    led.begin_outcome(d5)
+    led.record_decision({"source": "test"})
+    led.record_decision({"source": "test"})  # would rotate, but d5 pending
+    # force the bookkeeping: rotate only once d5 resolves
+    led.record_outcome(d5, {"completed": 1})
+    led.record_decision({"source": "test"})
+    archives = led._archives()
+    assert len(archives) >= 1
+    # prune with an artificially pending id living in the oldest archive
+    oldest = archives[-1][1]
+    ids_in_oldest = {
+        r["id"] for r in DecisionLedger._replay_file(oldest)
+        if r.get("t") == "decision"
+    }
+    led.begin_outcome(next(iter(ids_in_oldest)))
+    assert led.prune_archives() == 0 or os.path.exists(oldest)
+    assert os.path.exists(oldest)
+    # resolving it makes the archive prunable again
+    for i in ids_in_oldest:
+        led.record_outcome(i, {"completed": 0})
+    led.prune_archives()
+    assert len(led._archives()) <= led.retention_count
+
+
+def test_entries_join_newest_first(tmp_path):
+    led = DecisionLedger(str(tmp_path / "l.jsonl"))
+    a = led.record_decision({"source": "a"})
+    b = led.record_decision({"source": "b"})
+    led.record_outcome(b, {"completed": 2})
+    led.record_calibration(b, {"error": {"goalMaxAbs": 0.1}})
+    entries = led.entries(limit=10)
+    assert [e["decision"]["id"] for e in entries] == [b, a]
+    assert entries[0]["calibration"]["error"]["goalMaxAbs"] == 0.1
+    assert entries[1]["outcome"] is None
+    assert led.find(decision_id=a)["decision"]["source"] == "a"
+    assert led.find(decision_id="nope") is None
+
+
+# ------------------------------------------- convergence diagnostics
+
+
+def test_diagnostics_byte_parity_plain_and_history_schema():
+    state = random_cluster_fast(SMALL, seed=3, device="cpu")
+    off, hist_off = Engine(state, DEFAULT_CHAIN, config=CFG).run()
+    on, hist_on = Engine(
+        state, DEFAULT_CHAIN, config=dc.replace(CFG, diagnostics=True)
+    ).run()
+    assert _same_placement(off, on)
+    rounds_off = [h for h in hist_off if not h.get("timing")]
+    rounds_on = [h for h in hist_on if not h.get("timing")]
+    assert len(rounds_off) == len(rounds_on)
+    # the off path reports today's records bit-for-bit (no diag fields)
+    for rec in rounds_off:
+        assert "goal_violations" not in rec and "objective" not in rec
+    assert "convergence" not in next(h for h in hist_off if h.get("timing"))
+    # the on path carries the full per-round diagnostics
+    n_goals = len(DEFAULT_CHAIN.goals)
+    for rec in rounds_on:
+        assert len(rec["goal_violations"]) == n_goals
+        assert set(rec["accepted_by_kind"]) == {"replica", "swap", "leadership"}
+        assert rec["accepted"] == sum(rec["accepted_by_kind"].values())
+        assert rec["prior"] == {"candidates": 0, "accepted": 0}  # prior off
+    conv = next(h for h in hist_on if h.get("timing"))["convergence"]
+    assert conv["rounds"] == len(rounds_on)
+    assert len(conv["objective_trajectory"]) == conv["rounds"]
+    assert conv["goal_names"] == DEFAULT_CHAIN.names()
+    assert len(conv["final_goal_violations"]) == n_goals
+    # the trajectory is a real anneal: monotone-ish improvement start->end
+    assert conv["objective_trajectory"][-1] <= conv["objective_trajectory"][0]
+
+
+def test_diagnostics_byte_parity_segmented():
+    state = random_cluster_fast(SMALL, seed=5, device="cpu")
+    base, _ = Engine(
+        state, DEFAULT_CHAIN, config=dc.replace(CFG, diagnostics=True)
+    ).run()
+    eng = Engine(state, DEFAULT_CHAIN, config=dc.replace(CFG, diagnostics=True))
+    with segmented_execution(SegmentContext(slice_budget_s=1e-4)):
+        seg, hist = eng.run()
+    assert _same_placement(base, seg)
+    timing = next(h for h in hist if h.get("timing"))
+    assert timing["segmented"] and timing["segments"] >= 2
+    conv = timing["convergence"]
+    assert conv["rounds"] >= 1 and conv["goal_names"] == DEFAULT_CHAIN.names()
+
+
+def test_diag_ys_key_constants_are_consistent():
+    assert set(FUSED_YS_KEYS) < set(FUSED_DIAG_YS_KEYS)
+    eng_off = Engine(
+        random_cluster_fast(SMALL, seed=3, device="cpu"), DEFAULT_CHAIN, config=CFG
+    )
+    eng_on = Engine(
+        random_cluster_fast(SMALL, seed=3, device="cpu"), DEFAULT_CHAIN,
+        config=dc.replace(CFG, diagnostics=True),
+    )
+    assert eng_off._ys_keys() == FUSED_YS_KEYS
+    assert eng_on._ys_keys() == FUSED_DIAG_YS_KEYS
+
+
+# ------------------------------------------------- a result on the card
+
+
+def _on_cpu(res):
+    """The result with every tensor the decision record reads moved to the
+    CPU (the state before, the stats after)."""
+    from cruise_control_tpu_torch.models.state import STATE_FIELDS
+    from cruise_control_tpu_torch.models.stats import ClusterStats
+
+    st = res.state_before
+    stats = res.stats_after
+    return dc.replace(
+        res, state_before=dc.replace(st, **{f: getattr(st, f).cpu() for f in STATE_FIELDS}),
+        stats_after=ClusterStats(**{f.name: getattr(stats, f.name).cpu() for f in dc.fields(stats)}))
+
+
+@pytest.mark.cuda
+def test_card_result_record_costs_one_transfer():
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import ledger as ledger_mod
+    from cruise_control_tpu_torch.models.stats import compute_stats
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a result on the card")
+    state = random_cluster_fast(SMALL, seed=3, device="cuda")
+    res = GoalOptimizer(config=CFG, device="cuda").optimize(state)
+    res = dc.replace(res, stats_after=compute_stats(res.state_after))
+    assert res.state_before.broker_rack.is_cuda and res.stats_after.avg.is_cuda
+    before = ledger_mod.TRANSFERS
+    card = ledger_mod.build_decision_record(res, source="card")
+    assert ledger_mod.TRANSFERS == before + 1
+    host = ledger_mod.build_decision_record(_on_cpu(res), source="card")
+    assert ledger_mod.TRANSFERS == before + 1
+    card.pop("wallSeconds"), host.pop("wallSeconds")
+    assert json.dumps(card) == json.dumps(host)
