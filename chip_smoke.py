@@ -256,8 +256,8 @@ Phases:
      same topology.  The walls of each part are printed.
  25. The real-cluster loop over the Kafka wire protocol, no new kernel,
      against the port's in-process fake cluster (testing/fake_kafka.py:
-     one selector thread serves a listener a broker, each on its host's
-     loopback address, and every connection): the north
+     one selector thread serves every broker's listener, each on its
+     host's loopback address, and every connection): the north
      star's data plane (the fake built from phase 23's topology, Metadata,
      the metadata provider's refresh and the admin's topology timed and
      the topology phase 23's); phase 23's wire window produced into
@@ -276,13 +276,29 @@ Phases:
      greedy baseline (BASELINE_GREEDY.json config2, fingerprint checked;
      the greedy oracle runs on the card only if it is stale): the wall,
      both objectives and tpu_beats_greedy as bench.py decides it.
+ 27. The REST service on the card (service/*, no new kernel), from phase
+     23's topology and windows at the north star's width, nothing cut:
+     build_service(device="cuda") with a SimulatedClusterAdmin and the
+     config keys of phase 4's SEARCH, served over loopback HTTP.  GET
+     /proposals cold, cached and with ignore_proposal_cache=true, every
+     main-path kernel launched, the served result bit for bit
+     GoalOptimizer.optimize on the same monitor's model, every hard goal
+     met; /state, /load, /partition_load and /kafka_cluster_state with
+     their walls and sizes; a 1% /remove_broker dry run bit for bit the
+     same decommission built as phase 5 builds it; /simulate with four
+     what-ifs; a real OOM under a request: 503 with its failure class,
+     the breaker open on /state, one OPTIMIZER_DEGRADED, a 503 with
+     Retry-After while open, then 200 with the same proposals; cccli
+     proposals and state; an executed /demote_broker polled on
+     /user_tasks to its end, no leader left on the broker (check_service).
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 
 `python3 chip_smoke.py --monitor` runs phase 1, the fixture and phase 23
 alone, and ends with a short JSON line instead of the results;
 `python3 chip_smoke.py --executor` runs phase 1, the fixture and phases 23
-and 24 so, and `python3 chip_smoke.py --kafka` phases 1, 23 and 25.
+and 24 so, `python3 chip_smoke.py --kafka` phases 1, 23 and 25, and
+`python3 chip_smoke.py --service` phases 1, 23 and 27.
 
 `python3 chip_smoke.py --sticky-child` is phase 22's child alone; it
 needs the kernels built (phase 1) and leaves its process's CUDA context
@@ -1266,11 +1282,15 @@ def run_proposal(opt, state, label, initial_placement=None, prior=None):
     from cruise_control_tpu_torch.models import validate
     from cruise_control_tpu_torch.models.state import member_width
 
-    torch.cuda.synchronize()
+    # the caller's stream, not the device: phase 20 runs this while the
+    # warm pool captures on another thread, and a device-wide sync during
+    # a capture is refused ("operation not permitted when stream is
+    # capturing")
+    torch.cuda.current_stream().synchronize()
     kernels.reset_launches()
     t0 = time.monotonic()
     res = opt.optimize(state, initial_placement=initial_placement, prior=prior)
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     wall = time.monotonic() - t0
     launches = dict(kernels.LAUNCHES)
     check(validate(res.state_after, strict=False) == [], "optimized state fails validate")
@@ -3891,12 +3911,14 @@ def check_executor(cfg, mon: dict) -> dict:
     the topology's generation grown by one per landed reassignment and one
     per election, the journal finished, and the goal-violation detector on
     the card over a model rebuilt from the executed topology with no hard
-    goal violated.  (e) The same execution from the topology before the
-    fix, a fresh admin and journal, crashed (testing/faults.process_crash)
-    on the tick halfway through; a fresh Executor over the journal enters
-    RECOVERING and resume_recovered_execution runs to the end: no
-    reassignment submitted twice, no throttle left, (d)'s final replica
-    sets and leaders.  (f) Walls: the detection, the model build and
+    goal violated.  (e) Every RECOVERY_STRIDE-th proposal of the fix (a cut
+    of depth since PR 19: the whole fix executes in (d)) from the topology
+    before the fix, a fresh admin and journal, crashed
+    (testing/faults.process_crash) a third of the way through; a fresh
+    Executor over the journal enters RECOVERING and
+    resume_recovered_execution runs to the end: no reassignment submitted
+    twice, no throttle left, (d)'s final replica sets and leaders on those
+    proposals' partitions and the topology before the fix elsewhere.  (f) Walls: the detection, the model build and
     optimize, the execution split into its parts, the replay and resume.
     Every proposal of the fix executes: the topology starts from the
     fixture's placement, which is not rack-aware, so only the whole
@@ -4119,9 +4141,13 @@ def check_executor(cfg, mon: dict) -> dict:
         out["after"] = dict(detect_s=time.monotonic() - t0, replicas_on_dead=on_dead,
                             violated=None if healed is None else healed.fixable_violations + healed.unfixable_violations)
         check(not hard_left, f"hard goals violated after the fix: {hard_left}")
-        final = [(p.topic, p.partition, p.leader, p.replicas) for p in after.partitions]
+        final = {(p.topic, p.partition): (p.leader, p.replicas) for p in after.partitions}
 
-        # (e) crash halfway and recover
+        # (e) crash and recover, on every RECOVERY_STRIDE-th proposal
+        subset = proposals[::RECOVERY_STRIDE]
+        sub_keys = {catalog.partition_key(p.partition) for p in subset}
+        want = {(p.topic, p.partition): final[(p.topic, p.partition)] if (p.topic, p.partition) in sub_keys
+                else (p.leader, p.replicas) for p in fix["before"].partitions}
         metadata.set_topology(fix["before"])
         admin2 = SimulatedClusterAdmin(metadata, link_rate_bytes_per_s=1e12)
         submitted: dict = {}
@@ -4133,8 +4159,8 @@ def check_executor(cfg, mon: dict) -> dict:
             return submit(specs)
 
         admin2.reassign_partitions = counted
-        crash_at = max(1, result.ticks // 2)
-        _, _, crash_spans = execute(proposals, tmp / "crash", "phase-24-crash", admin2, crash_at=crash_at)
+        crash_at = max(1, result.ticks // (3 * RECOVERY_STRIDE))
+        _, _, crash_spans = execute(subset, tmp / "crash", "phase-24-crash", admin2, crash_at=crash_at)
         check(crash_spans.get("crashed"), "the execution did not crash")
         check(admin2.throttle_rate is not None, "the crashed execution left no throttle to sweep")
         t0 = time.monotonic()
@@ -4153,10 +4179,10 @@ def check_executor(cfg, mon: dict) -> dict:
         check(twice == 0, f"{twice} reassignments were submitted twice")
         check(admin2.throttle_rate is None and not admin2.throttled_topics, "a throttle was left set")
         check(journal3.unfinished_execution() is None, "the recovered journal holds an unfinished execution")
-        again = [(p.topic, p.partition, p.leader, p.replicas) for p in metadata.topology().partitions]
+        again = {(p.topic, p.partition): (p.leader, p.replicas) for p in metadata.topology().partitions}
         journal3.close()
-        check(again == final, "the recovered execution's topology differs from the fix's")
-        out["recover"] = dict(crash_tick=crash_at, crashed_after_s=crash_spans["wall_s"],
+        check(again == want, "the recovered execution's topology differs from the fix's")
+        out["recover"] = dict(proposals=len(subset), crash_tick=crash_at, crashed_after_s=crash_spans["wall_s"],
                               crashed_records=crash_spans["records"], replay_s=replay_s, resume_s=resume_s,
                               submissions=sum(submitted.values()), submitted_twice=twice,
                               completed=res3.completed, ticks=res3.ticks, recovery=recovery,
@@ -4173,6 +4199,12 @@ def check_executor(cfg, mon: dict) -> dict:
     out["seconds"] = time.monotonic() - t_phase
     log(json.dumps(out))
     return out
+
+
+#: phases 24 and 25 crash and recover every RECOVERY_STRIDE-th proposal of
+#: the fix, not the whole fix (a cut of depth: (d) executes the whole fix),
+#: and crash that execution a third of the way through its ticks
+RECOVERY_STRIDE = 4
 
 
 #: phase 25's execution runs at configuration 3's width (a cut of the north
@@ -4303,11 +4335,14 @@ def check_kafka(cfg, mon: dict) -> dict:
     batch 1, the default caps): no dead task, no replica on a dead broker
     in the wire topology, each partition its proposal's replicas, no
     throttle config left (DescribeConfigs), no hard goal violated on a model
-    rebuilt from the wire.  (e) The same execution on a fresh fake, the
-    executor abandoned on the progress tick halfway, a fresh Executor over
-    a fresh client and the journal replays and reconciles against
-    ListPartitionReassignments, then resumes: no partition's reassignment
-    submitted twice over the wire, (d)'s final topology.  (f) A
+    rebuilt from the wire.  (e) Every RECOVERY_STRIDE-th proposal of the
+    fix (a cut of depth since PR 19: the whole fix executes in (d)) on a
+    fresh fake, the executor abandoned on the progress tick a third of the
+    way through, a fresh Executor over a fresh client and the journal
+    replays and reconciles against ListPartitionReassignments, then
+    resumes: no partition's reassignment submitted twice over the wire,
+    (d)'s final topology on those proposals' partitions, the fresh fake's
+    elsewhere.  (f) A
     DecisionLedger around (d): the fix's decision record from the card's
     result in one transfer (one sync), equal to the record of the result
     copied to the CPU but for wallSeconds; the outcome joined when (d)
@@ -4570,7 +4605,7 @@ def check_kafka(cfg, mon: dict) -> dict:
         did = ledger.record_decision(record)
         ledger.begin_outcome(did)
 
-        def execute(cluster, journal_path, crash_at=None) -> tuple:
+        def execute(cluster, journal_path, crash_at=None, proposals=proposals) -> tuple:
             client_x = connect(cluster)
             admin = KafkaClusterAdmin(client_x)
             journal = ExecutionJournal(str(journal_path))
@@ -4660,13 +4695,19 @@ def check_kafka(cfg, mon: dict) -> dict:
         log(json.dumps({"phase": "kafka_ledger", **out["ledger"]}))
         del model3, model_after, res
 
-        # (e) crash halfway and recover, on a fresh fake of the same cluster
+        # (e) crash and recover every RECOVERY_STRIDE-th proposal, on a
+        # fresh fake of the same cluster
         fake_e = start(brokers3, topics3)
         place(fake_e)
         fake_e.auto_complete_after(1)
         fake_e.intra_copy_polls = 1
         for b in sorted(dead):
             fake_e.kill_broker(b)
+        subset = proposals[::RECOVERY_STRIDE]
+        sub_keys = {catalog.partition_key(p.partition) for p in subset}
+        want = {t: {p: final[t][p] if (t, p) in sub_keys else (d["leader"], tuple(d["replicas"]))
+                    for p, d in parts.items()}
+                for t, parts in fake_e.topics.items() if keep(t)}
         submitted: dict = {}
         landed_again: list = []
         handle = fake_e.handle
@@ -4689,9 +4730,9 @@ def check_kafka(cfg, mon: dict) -> dict:
             return handle(node_id, api, body)
 
         fake_e.handle = counted
-        crash_at = max(1, result.ticks // 2)
+        crash_at = max(1, result.ticks // (3 * RECOVERY_STRIDE))
         journal_path = tmp / "crash" / "execution-journal.jsonl"
-        _, crash_spans = execute(fake_e, journal_path, crash_at=crash_at)
+        _, crash_spans = execute(fake_e, journal_path, crash_at=crash_at, proposals=subset)
         check(crash_spans.get("crashed"), "the execution did not crash")
         clients[-1].close()  # the dead process's sockets
         t0 = time.monotonic()
@@ -4710,13 +4751,13 @@ def check_kafka(cfg, mon: dict) -> dict:
         check(not twice, f"{len(twice)} partitions' reassignments were submitted twice, first {twice[:3]}")
         again = {t: {p: (d["leader"], tuple(d["replicas"])) for p, d in parts.items()}
                  for t, parts in fake_e.topics.items() if keep(t)}
-        diff = [(t, p, final[t].get(p), again[t].get(p)) for t in final for p in final[t]
-                if again.get(t, {}).get(p) != final[t][p]]
-        check(again.keys() == final.keys() and not diff,
+        diff = [(t, p, want[t].get(p), again[t].get(p)) for t in want for p in want[t]
+                if again.get(t, {}).get(p) != want[t][p]]
+        check(again.keys() == want.keys() and not diff,
               f"the recovered execution's topology differs from the fix's in {len(diff)} partitions: {diff[:5]}")
         left = {k: c for k, c in fake_e.configs.items() if c}
         check(not left, f"throttle configs left: {sorted(left.items())[:3]}")
-        out["recover"] = dict(crash_tick=crash_at, crashed_after_s=crash_spans["wall_s"],
+        out["recover"] = dict(proposals=len(subset), crash_tick=crash_at, crashed_after_s=crash_spans["wall_s"],
                               crashed_records=crash_spans["records"], replay_s=replay_s, resume_s=resume_s,
                               submissions=sum(submitted.values()), submitted_twice=len(twice),
                               completed=res_r.completed, ticks=res_r.ticks, recovery=recovery,
@@ -4736,6 +4777,370 @@ def check_kafka(cfg, mon: dict) -> dict:
     log(json.dumps({k: v for k, v in out.items() if k not in ("detect_fix", "execute")} | dict(
         seconds=out["seconds"]), default=str))
     return out
+
+
+#: phase 27's service config: phase 4's SEARCH as the service's keys,
+#: phase 23's windows, the supervisor on with a breaker that opens at one
+#: failure and a 30 s probe interval (the Retry-After of its 503)
+SERVICE_PROBE_INTERVAL_S = 30.0
+
+
+class IdleSampler:
+    """The service's metric sampler in phase 27, never asked for samples:
+    the phase fills the monitor's windows with phase 23's samples through
+    add_samples_columnar."""
+
+    def get_samples(self, *a, **kw):
+        raise AssertionError("phase 27 fetches no samples")
+
+
+def http_call(app, method: str, path: str, headers: dict | None = None, poll: bool = True):
+    """(status, body, bytes, headers) of one request; a 202 is polled with
+    its User-Task-ID until it answers, unless `poll` is False."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{app.port}{app.prefix}{path}"
+    headers = dict(headers or {})
+    deadline = time.monotonic() + 600
+    while True:
+        req = urllib.request.Request(url, method=method, headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, raw, hdrs = r.status, r.read(), dict(r.headers)
+        except urllib.error.HTTPError as e:
+            raw, hdrs = e.read(), dict(e.headers)
+            return e.code, json.loads(raw), len(raw), hdrs
+        body = json.loads(raw)
+        if status != 202 or not poll or time.monotonic() > deadline:
+            return status, body, len(raw), hdrs
+        headers["User-Task-ID"] = hdrs["User-Task-ID"]
+        time.sleep(0.02)
+
+
+def check_service(cfg, mon: dict, smi: str) -> dict:
+    """Phase 27: the port's REST service on the card, at the north star's
+    width, over loopback HTTP.  (a) `build_service(device="cuda")` over phase
+    23's topology (2,600 brokers, 200,000 partitions, nothing cut) with a
+    SimulatedClusterAdmin (link 1e12 B/s), its capacity resolver, and the
+    config keys of phase 4's SEARCH; the monitor's windows filled with
+    phase 23's samples through add_samples_columnar (the columnar path:
+    `build_simulated_service`'s fetch through a synthetic sampler would
+    build a sample object a partition a window); the server on 127.0.0.1,
+    an ephemeral port.  (b) GET /proposals cold (the model build, the
+    capture and the anneal; every main-path kernel launched, counted from
+    0 just before), cached, and with ignore_proposal_cache=true: the
+    served result bit for bit `GoalOptimizer.optimize` of the same
+    monitor's cluster_model with the same config and seed (placements,
+    every proposal, the first 100 as served), every hard goal <= 1e-6.
+    (c) /state, /load, /partition_load and /kafka_cluster_state, each wall
+    and JSON size; POST /remove_broker?dryrun=true for 1% of the brokers
+    (2,574-2,599, phase 5's): the facade's result bit for bit phase 5's
+    decommission built the same way on the service's model (the monitored
+    model renumbers topics and partitions and is bucket-padded, so phase
+    5's own proposals are not this model's), no replica left on them, its
+    summary the served one; POST /simulate with four what-ifs.  (e) A
+    real device failure: the allocator's OOM on "engine.run" (phase 22's
+    injection) under GET /proposals: 503 with failureClass "oom"; /state
+    shows the breaker open; the detector records one OPTIMIZER_DEGRADED
+    (and none in its next round); the next request 503 "breaker-open"
+    with Retry-After 30 and no device call; once the probe is due, 200
+    with (b)'s placements.  (f) `cccli proposals` and `cccli state` against
+    the server: the served summary.  (d) POST /demote_broker?brokerid=0
+    &dryrun=false, polled on /user_tasks until done: every leadership
+    move completed, no leader left on broker 0.  (e) and (f) run before
+    (d), whose execution changes the cluster.  Every wall is printed with
+    the card's name and power limit."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import urllib.parse
+
+    import torch
+
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.goals import HARD_GOAL_NAMES
+    from cruise_control_tpu_torch.client import cccli
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.executor import SimulatedClusterAdmin
+    from cruise_control_tpu_torch.monitor import StaticMetadataProvider
+    from cruise_control_tpu_torch.service.main import build_service
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    dev = torch.device(mon["device"])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out: dict = {"phase": "service", "card": smi}
+    t_phase = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-service-"))
+    app = None
+    try:
+        # (a) the service on the card
+        W, window_ms = MONITOR_WINDOWS, MONITOR_WINDOW_MS
+        config = CruiseControlConfig({
+            "tpu.num.candidates": SEARCH["num_candidates"],
+            "tpu.leadership.candidates": SEARCH["leadership_candidates"],
+            "tpu.steps.per.round": SEARCH["steps_per_round"],
+            "tpu.num.rounds": SEARCH["num_rounds"],
+            "analyzer.diagnostics.enabled": False,
+            "partition.metrics.window.ms": window_ms,
+            "num.partition.metrics.windows": W,
+            "min.samples.per.partition.metrics.window": 1,
+            "execution.progress.check.interval.ms": 100,
+            "webserver.http.address": "127.0.0.1",
+            "webserver.http.port": 0,
+            "tpu.supervisor.enabled": True,
+            "tpu.supervisor.max.retries": 0,
+            "tpu.supervisor.breaker.failure.threshold": 1,
+            "tpu.supervisor.probe.interval.s": SERVICE_PROBE_INTERVAL_S,
+            "tpu.compile.cache.dir": str(tmp / "cache"),
+        })
+        t0 = time.monotonic()
+        metadata = StaticMetadataProvider(mon["topology"])
+        admin = SimulatedClusterAdmin(metadata, link_rate_bytes_per_s=1e12)
+        app, _fetcher = build_service(config, metadata, admin, IdleSampler(),
+                                      capacity_resolver=mon["capacity"], device=dev)
+        cc = app.cc
+        build_s = time.monotonic() - t0
+        check(cc.optimizer.config == cfg, f"the service's config is not phase 4's: {cc.optimizer.config}")
+        check(cc.device == dev and cc.monitor.device == dev and cc.scenario_evaluator.device == dev,
+              "the service was not built on one device")
+        agg = cc.monitor.partition_aggregator
+        ents, vals, hot = mon["entities"], mon["values"], mon["hot_values"]
+        t0 = time.monotonic()
+        for w in range(W + 1):
+            check(agg.add_samples_columnar(ents, w * window_ms + window_ms // 2, hot if w == W else vals),
+                  f"the service's window {w} was refused")
+        fill_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        app.start()
+        out["build"] = dict(build_service_s=build_s, fill_windows_s=fill_s, windows=W + 1,
+                            fill="columnar (phase 23 (c))", start_s=time.monotonic() - t0,
+                            partitions=len(ents), brokers=len(mon["topology"].brokers))
+
+        # (b) proposals over HTTP
+        walls: dict = {}
+
+        def timed(name, method, path, **kw):
+            sync()
+            t0 = time.monotonic()
+            r = http_call(app, method, path, **kw)
+            walls[name] = time.monotonic() - t0
+            return r
+
+        kernels.reset_launches()
+        st, cold, nb, _ = timed("proposals_cold_s", "GET", "/proposals")
+        launches = dict(kernels.LAUNCHES)
+        check(st == 200, f"cold /proposals answered {st}: {cold}")
+        if cuda:
+            missing = [k for k in PATH_KERNELS if launches[k] == 0]
+            check(not missing, f"kernels never launched by the service's proposal: {missing}")
+        st, cached, _, _ = timed("proposals_cached_s", "GET", "/proposals")
+        check(st == 200 and cached["wallSeconds"] == cold["wallSeconds"], "the second /proposals was not cached")
+        st, fresh, _, _ = timed("proposals_ignore_cache_s", "GET", "/proposals?ignore_proposal_cache=true")
+        check(st == 200, f"/proposals?ignore_proposal_cache=true answered {st}")
+        served = cc._valid_cache()
+        check(served is not None, "no cached proposal after the request")
+        model = cc._cluster_model(OperationProgress())
+        direct_opt = GoalOptimizer(config=cfg, device=dev)
+        t0 = time.monotonic()
+        direct = direct_opt.optimize(model)
+        sync()
+        walls["direct_optimize_s"] = time.monotonic() - t0
+        same = {f: bool(torch.equal(getattr(served.state_after, f), getattr(direct.state_after, f)))
+                for f in PLACEMENT}
+        served_json = [p.to_json() for p in served.proposals]
+        direct_json = [p.to_json() for p in direct.proposals]
+        check(all(same.values()), f"the service's placements differ from optimize's: {same}")
+        check(served_json == direct_json, "the service's proposals differ from optimize's")
+        check(fresh["proposals"] == direct_json[:100] and cold["proposals"] == direct_json[:100],
+              "the served proposals are not optimize's")
+        hard = {n: float(v) for n, v in zip(direct.goal_names, direct.violations_after) if n in HARD_GOAL_NAMES}
+        check(all(v <= 1e-6 for v in hard.values()), f"hard goals violated by the served proposal: {hard}")
+        check(not set(fresh["violatedGoalsAfter"]) & set(HARD_GOAL_NAMES), "the served summary violates hard goals")
+        exact_b = {f: getattr(served.state_after, f).clone() for f in PLACEMENT}
+        out["proposals"] = dict(
+            proposals=len(direct_json), served=len(cold["proposals"]), bytes=nb,
+            objective=[direct.objective_before, direct.objective_after], hard_goals_max=max(hard.values()),
+            equal_to_optimize=True, launches=launches,
+            engine_cache=dict(hits=cc.optimizer.engine_cache_hits, misses=cc.optimizer.engine_cache_misses),
+            service_wall_seconds=[cold["wallSeconds"], fresh["wallSeconds"]])
+        del served, direct, served_json, direct_json
+
+        # (c) the read endpoints and the dry runs
+        sizes: dict = {}
+        for name, path in (("state", "/state"), ("load", "/load"), ("partition_load", "/partition_load"),
+                           ("kafka_cluster_state", "/kafka_cluster_state")):
+            st, body, nb, _ = timed(f"{name}_s", "GET", path)
+            check(st == 200, f"{path} answered {st}: {str(body)[:300]}")
+            sizes[name] = nb
+        check(len(body["KafkaBrokerState"]) == out["build"]["brokers"], "/kafka_cluster_state lost brokers")
+        B = out["build"]["brokers"]
+        removed = list(range(B - max(2, B // 100), B))
+        results: list = []
+        orig_optimize = cc.optimizer.optimize
+
+        def spy(*a, **kw):
+            r = orig_optimize(*a, **kw)
+            results.append(r)
+            return r
+
+        cc.optimizer.optimize = spy
+        try:
+            st, dec, _, _ = timed("remove_broker_dryrun_s", "POST",
+                                  "/remove_broker?dryrun=true&brokerid=" + ",".join(map(str, removed)))
+        finally:
+            del cc.optimizer.optimize
+        check(st == 200 and len(results) == 1, f"/remove_broker answered {st}: {str(dec)[:300]}")
+        facade_res = results.pop()
+        alive = model.broker_alive.clone()
+        alive[removed] = False
+        decom = dataclasses.replace(
+            model, broker_alive=alive, disk_alive=alive[:, None] & model.disk_alive,
+            replica_offline=(model.replica_offline | ~alive[model.replica_broker.long()]) & model.replica_valid)
+        t0 = time.monotonic()
+        direct_dec = direct_opt.optimize(decom)
+        sync()
+        walls["direct_decommission_s"] = time.monotonic() - t0
+        same = {f: bool(torch.equal(getattr(facade_res.state_after, f), getattr(direct_dec.state_after, f)))
+                for f in PLACEMENT}
+        check(all(same.values()) and len(facade_res.proposals) == len(direct_dec.proposals),
+              f"the service's decommission differs from phase 5's construction: {same}")
+        after = direct_dec.state_after
+        left = int((after.replica_valid & ~after.broker_alive[after.replica_broker.long()]).sum())
+        check(left == 0, f"{left} replicas left on the removed brokers")
+        for k in ("numReplicaMovements", "numLeaderMovements", "dataToMoveMB"):
+            check(dec[k] == direct_dec.summary()[k], f"the served decommission's {k} is not optimize's")
+        scenarios = [{"name": "lose-rack-0", "killRacks": ["r0"]}, {"name": "add-3", "addBrokers": [{"count": 3}]},
+                     {"name": "remove-0", "removeBrokers": [0]},
+                     {"name": "double-topic-0", "topicLoadFactors": {"topic-000": 2.0}}]
+        st, sim, nb, _ = timed("simulate_s", "POST",
+                               "/simulate?scenarios=" + urllib.parse.quote(json.dumps(scenarios)))
+        check(st == 200 and [x["name"] for x in sim["scenarios"]] == [x["name"] for x in scenarios]
+              and not sim["degraded"], f"/simulate answered {st}: {str(sim)[:300]}")
+        sizes["simulate"] = nb
+        out["reads"] = dict(bytes=sizes, remove_broker=dict(
+            brokers=[removed[0], removed[-1]], proposals=len(direct_dec.proposals),
+            moves=dec["numReplicaMovements"], equal_to_optimize=True, replicas_left=left),
+            simulate=[dict(name=x["name"], objective=x["objective"], brokersAlive=x["brokersAlive"])
+                      for x in sim["scenarios"]])
+        for engine in direct_opt._engines.values():
+            engine.release()
+        del facade_res, direct_dec, decom, model, direct_opt, after
+
+        # (e) a real device failure under a request (on the card only: a
+        # service on the CPU answers a supervised failure with the flagged
+        # greedy proposal, as the JAX package does)
+        rec = fresh
+        if cuda:
+            out["failure"] = check_service_failure(app, exact_b, fresh, timed)
+
+        # (f) the CLI
+        cli: dict = {}
+        for argv in (["proposals"], ["state", "--substates", "analyzer,executor"]):
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                rc = cccli.main(["-a", f"http://127.0.0.1:{app.port}", "--poll-interval", "0.05", *argv])
+            walls[f"cli_{argv[0]}_s"] = time.monotonic() - t0
+            check(rc == 0, f"cccli {argv} exited {rc}")
+            cli[argv[0]] = json.loads(buf.getvalue())
+        check(cli["proposals"]["proposals"] == rec["proposals"]
+              and cli["proposals"]["numReplicaMovements"] == rec["numReplicaMovements"],
+              "cccli proposals is not the served proposal")
+        check(cli["state"]["AnalyzerState"]["supervisor"]["breaker"] == "closed", "cccli state lost the breaker")
+
+        # (d) an executed demotion
+        t0 = time.monotonic()
+        st, started, _, hdrs = http_call(app, "POST", "/demote_broker?brokerid=0&dryrun=false", poll=False)
+        check(st in (200, 202), f"/demote_broker answered {st}: {started}")
+        tid = hdrs["User-Task-ID"]
+        polls = 0
+        while True:
+            polls += 1
+            st, tasks, _, _ = http_call(app, "GET", "/user_tasks?user_task_ids=" + tid)
+            row = [t for t in tasks["userTasks"] if t["UserTaskId"] == tid]
+            check(st == 200 and len(row) == 1, f"/user_tasks lost the demotion's task: {tasks}")
+            if row[0]["Status"] != "Active":
+                break
+            check(time.monotonic() - t0 < 300, "the demotion did not finish in 300 s")
+            time.sleep(0.1)
+        walls["demote_execute_s"] = time.monotonic() - t0
+        check(row[0]["Status"] == "Completed", f"the demotion's task ended {row[0]['Status']}")
+        st, done, _, _ = http_call(app, "POST", "/demote_broker?brokerid=0&dryrun=false",
+                                   headers={"User-Task-ID": tid})
+        check(st == 200 and done["execution"]["completed"] == done["numLeaderMovements"] > 0
+              and done["execution"]["dead"] == 0, f"the demotion's execution: {done.get('execution')}")
+        led = sum(1 for p in admin.topology().partitions if p.leader == 0)
+        check(led == 0, f"{led} partitions are still led by the demoted broker 0")
+        out["demote"] = dict(leadership_moves=done["numLeaderMovements"], completed=done["execution"]["completed"],
+                             polls=polls, leaders_left=led)
+    except BaseException as e:
+        out["failed"] = repr(e)
+        log(json.dumps(out, default=str))
+        raise
+    finally:
+        if app is not None:
+            app.stop()
+            app.cc.shutdown()
+            for engine in app.cc.optimizer._engines.values():
+                engine.release()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["walls"] = walls
+    out["seconds"] = time.monotonic() - t_phase
+    out["within_budget_150_s"] = out["seconds"] <= 150.0
+    log(json.dumps(out, default=str))
+    return out
+
+
+def check_service_failure(app, exact_b: dict, fresh: dict, timed) -> dict:
+    """Phase 27 (e): a real OOM under GET /proposals on the card (module
+    docstring); `timed` is the phase's request timer, `exact_b` and
+    `fresh` (b)'s placements and served answer."""
+    import torch
+
+    from cruise_control_tpu_torch.detector import AnomalyType
+    from cruise_control_tpu_torch.testing import faults
+
+    cc = app.cc
+    sup = cc.supervisor
+    with faults.device_fault(real_oom, schedule=faults.first(1)) as fl:
+        st, err, _, _ = timed("oom_request_s", "GET", "/proposals?ignore_proposal_cache=true")
+    check(fl.fired == {"engine.run": 1}, f"the OOM did not fire once on engine.run: {fl.fired}")
+    check(st == 503 and err.get("failureClass") == "oom", f"the OOM request answered {st}: {err}")
+    state_st = cc.state(["analyzer"])["AnalyzerState"]
+    check(state_st["degraded"] is True and state_st["supervisor"]["breaker"] == "open",
+          f"/state does not show the breaker open: {state_st.get('supervisor')}")
+    t0 = time.monotonic()
+    kinds = [r.anomaly.anomaly_type for r in cc.anomaly_detector.run_once()]
+    round_s = time.monotonic() - t0
+    again = [r.anomaly.anomaly_type for r in cc.anomaly_detector.run_once()]
+    check(kinds.count(AnomalyType.OPTIMIZER_DEGRADED) == 1 and AnomalyType.OPTIMIZER_DEGRADED not in again,
+          f"OPTIMIZER_DEGRADED recorded {kinds.count(AnomalyType.OPTIMIZER_DEGRADED)} then "
+          f"{again.count(AnomalyType.OPTIMIZER_DEGRADED)} times")
+    with faults.device_fault(real_oom) as fl2:
+        st, refused, _, hdrs = timed("breaker_open_request_s", "GET", "/proposals?ignore_proposal_cache=true")
+    check(st == 503 and refused.get("failureClass") == "breaker-open" and refused.get("openedBy") == "oom"
+          and hdrs.get("Retry-After") == str(int(SERVICE_PROBE_INTERVAL_S)) and not fl2.fired,
+          f"the open breaker answered {st} {refused} {hdrs.get('Retry-After')}, device calls {fl2.fired}")
+    # the probe's due time brought forward: the phase does not wait the
+    # 30 s interval out
+    sup.breaker._next_probe_at = 0.0
+    st, rec, _, _ = timed("recovered_request_s", "GET", "/proposals?ignore_proposal_cache=true")
+    check(st == 200 and not rec["degraded"], f"the recovered request answered {st}: {str(rec)[:300]}")
+    recovered = cc._valid_cache()
+    check(all(torch.equal(getattr(recovered.state_after, f), exact_b[f]) for f in PLACEMENT)
+          and rec["proposals"] == fresh["proposals"], "the recovered proposals are not (b)'s")
+    check(sup.breaker.state.value == "closed", "the probe did not close the breaker")
+    return dict(error=err["errorMessage"][:200], failure_class=err["failureClass"],
+                retry_after=hdrs.get("Retry-After"), probes=sup.num_probes, detector_round_s=round_s,
+                anomalies=[k.name for k in kinds], recovered_equal_to_b=True)
 
 
 def config2_fingerprint(state, chain) -> str:
@@ -4887,7 +5292,7 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--sticky-child"]:
         return sticky_child()
-    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"]):
+    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"], ["--service"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -4946,6 +5351,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_kafka(cfg, monitored)
         print(json.dumps({"ok": True, "phases": [1, 23, 25]}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--service"]:
+        _, monitored = check_monitor(state, cfg)
+        del state
+        torch.cuda.empty_cache()
+        check_service(cfg, monitored, smi)
+        print(json.dumps({"ok": True, "phases": [1, 23, 27]}), flush=True)
         return 0
 
     # phase 2: kernels against their plain versions on one real step
@@ -5079,10 +5491,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 25: the real-cluster loop over the Kafka wire protocol
     check_kafka(cfg, monitored)
-    del monitored
     torch.cuda.empty_cache()
     # phase 26: BASELINE configuration 2 against the converged greedy baseline
     check_config2()
+    torch.cuda.empty_cache()
+    # phase 27: the REST service on the card over phase 23's cluster
+    check_service(cfg, monitored, smi)
+    del monitored
+    torch.cuda.empty_cache()
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -72,6 +72,7 @@ from cruise_control_tpu_torch.analyzer.proposals import (
 )
 from cruise_control_tpu_torch.common.blackbox import RECORDER as _BLACKBOX
 from cruise_control_tpu_torch.common.blackbox import blackbox_context
+from cruise_control_tpu_torch.common.profiling import profiler_trace
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.models.aggregates import compute_aggregates
@@ -144,6 +145,23 @@ class OptimizerResult:
         }
 
 
+def parse_parallel_mode(mode: str) -> tuple[int, int] | None:
+    """Validate "single" / "sharded" / "grid:RxM"; returns (R, M) for grid
+    modes, None otherwise.  The single source of truth for the mode syntax
+    (the config validator delegates here).  This package runs "single"
+    only; the other modes parse as in the JAX package."""
+    import re
+
+    if mode in ("single", "sharded"):
+        return None
+    m = re.fullmatch(r"grid:([1-9]\d*)x([1-9]\d*)", str(mode))
+    if m:
+        return int(m.group(1)), int(m.group(2))
+    raise ValueError(
+        f"tpu.parallel.mode must be single | sharded | grid:RxM, got {mode!r}"
+    )
+
+
 class GoalOptimizer:
     """Entry point of a proposal (reference GoalOptimizer.optimizations:416).
 
@@ -161,6 +179,9 @@ class GoalOptimizer:
     `analyzer.degraded-proposals` counter; `tracer` is the flight
     recorder every `optimize` opens an `analyzer.optimize` span on
     (common/trace.py; the process-wide TRACER by default).
+    `profiler_dir` (config tpu.profiler.*): when set, every engine run is
+    traced with `torch.profiler` into that directory
+    (common/profiling.py `profiler_trace`).
     """
 
     def __init__(
@@ -177,6 +198,7 @@ class GoalOptimizer:
         degraded_budget_s: float = 30.0,
         sensors=None,
         tracer=None,
+        profiler_dir: str | None = None,
     ):
         if engine_cache_size < 1:
             raise ValueError(f"engine_cache_size must be >= 1, got {engine_cache_size}")
@@ -207,6 +229,7 @@ class GoalOptimizer:
         from cruise_control_tpu_torch.common.trace import TRACER
 
         self.tracer = tracer if tracer is not None else TRACER
+        self.profiler_dir = profiler_dir
         #: the breaker's open epoch last seen: the cache is purged once per
         #: open transition (`_maybe_purge_after_open`)
         self._breaker_epoch = supervisor.open_epoch if supervisor is not None else 0
@@ -549,8 +572,9 @@ class GoalOptimizer:
         with self._engine_for(state, options, cfg, prior=prior) as (engine, hit):
             build_s = time.monotonic() - t_build
             before_host = fetch_before_host(state)
-            final, history, out = engine.run_reported(verbose=verbose,
-                                                      initial_placement=initial_placement)
+            with profiler_trace(self.profiler_dir):
+                final, history, out = engine.run_reported(verbose=verbose,
+                                                          initial_placement=initial_placement)
             max_rf = engine.max_rf
         t_extract = time.monotonic()
         proposals = extract_proposals(state, final, before_host=before_host, after_host=out)

@@ -10,6 +10,8 @@
   exact and the padded build give the same objective, violations,
   balancedness and proposals, bit for bit, and the padded run's
   placements are the JAX package's padded run's.
+- At the end, tests/test_bucketing.py's config and facade tests (:347,
+  :374, :401), on the port's config and facade.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from cruise_control_tpu_torch.analyzer import OptimizerConfig as TConfig
 from cruise_control_tpu_torch.analyzer.objective import GoalChain as TChain
 from cruise_control_tpu_torch.convert import from_jax_arrays
 from cruise_control_tpu_torch.models.state import STATE_FIELDS
+from types import SimpleNamespace
 
 #: tests/test_bucketing.py's FAST and POLICY
 FAST = dict(num_candidates=128, leadership_candidates=32, swap_candidates=16,
@@ -294,3 +297,70 @@ def test_bucketed_run_matches_jax(padded_runs):
     assert rounds(t_pad) == rounds(j_pad)
     timing = next(h for h in t_pad.history if h.get("timing"))
     assert timing["bucket"]["B"] == t_pad.state_after.shape.B
+
+
+# ------------------- the config and the facade (tests/test_bucketing.py :347-430)
+
+
+def test_config_shape_bucket_keys_wire_through():
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+
+    cfg = CruiseControlConfig({
+        "tpu.shape.bucket.growth": 1.5,
+        "tpu.shape.bucket.floor": 16,
+        "tpu.engine.cache.size": 3,
+    })
+    pol = cfg.shape_bucket_policy()
+    assert pol.enabled and pol.growth == 1.5 and pol.floor == 16
+    assert cfg.get("tpu.engine.cache.size") == 3
+    off = CruiseControlConfig({"tpu.shape.bucket.enabled": "false"})
+    assert off.shape_bucket_policy().bucket(37) == 37
+
+
+def test_proposal_cache_expiry_uses_monotonic_clock(monkeypatch):
+    """A backwards wall-clock step must not make cached proposals
+    immortal: expiry is judged on time.monotonic()."""
+    import time as time_mod
+
+    from cruise_control_tpu_torch.service.facade import CruiseControl, _CachedResult
+
+    gen = object()
+    dummy = SimpleNamespace(
+        _cache_lock=__import__("threading").Lock(),
+        _cache=_CachedResult(
+            result="RESULT",
+            computed_ms=int(time_mod.time() * 1000) + 10**12,  # wall far future
+            computed_mono=time_mod.monotonic() - 100.0,  # monotonic: 100s old
+            model_generation=gen,
+        ),
+        _proposal_expiration_ms=50_000,
+        monitor=SimpleNamespace(model_generation=lambda: gen),
+    )
+    # 100s old > 50s expiry -> stale, even though wall clock says "future"
+    assert CruiseControl._valid_cache(dummy) is None
+    dummy._cache = _CachedResult(
+        "RESULT", 0, time_mod.monotonic(), gen
+    )
+    assert CruiseControl._valid_cache(dummy) == "RESULT"
+
+
+def test_strict_destination_mask_rejects_padding_brokers():
+    """add_broker aimed at a padding-row id must fail loudly, not silently
+    degrade into an unconstrained rebalance."""
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.models.state import ShapeBucketPolicy
+    from cruise_control_tpu_torch.testing.fixtures import small_cluster
+
+    base = small_cluster("cpu")
+    state = pad_state(base, ShapeBucketPolicy(**POLICY).bucket_shape(base.shape))
+    assert state.shape.B > 3  # padded broker axis
+    cc = SimpleNamespace(
+        config=SimpleNamespace(get=lambda k: ""),
+        monitor=SimpleNamespace(last_catalog=None),
+    )
+    from cruise_control_tpu_torch.service.facade import CruiseControl
+
+    with pytest.raises(ValueError, match="not in the cluster model"):
+        CruiseControl._build_options(cc, state, destination_broker_ids=[state.shape.B - 1])
+    opts = CruiseControl._build_options(cc, state, destination_broker_ids=[1])
+    assert opts.requested_destination_brokers is not None

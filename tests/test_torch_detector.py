@@ -9,8 +9,8 @@ test_self_healing_notifier_broker_failure_thresholds,
 test_detector_dispatch_and_busy_backoff,
 test_self_healing_end_to_end_dead_broker and
 test_slow_broker_finder_requires_majority_of_metric_families.
-Left out: test_slow_broker_detector_wired_into_service (it builds the
-simulated service; item 9).  Also tests/test_faults.py's
+At the end, test_slow_broker_detector_wired_into_service (:274), over
+the port's simulated service.  Also tests/test_faults.py's
 test_detector_loop_survives_handler_exceptions.
 
 Dead brokers must end with their replicas rebuilt elsewhere, as in the
@@ -350,3 +350,23 @@ def test_detector_loop_survives_handler_exceptions():
         det.shutdown()
     # the loop kept ticking across >= 2 failing rounds instead of dying
     assert sensors.counter("detector.loop-failures").count >= 2
+
+
+# ------------------------- the service's slow-broker wiring (tests/test_detector.py :274)
+
+
+def test_slow_broker_detector_wired_into_service():
+    """The facade registers a SlowBrokerFinder fed from the broker
+    aggregator (reference AnomalyDetector.java:63-68 wiring + metric
+    sources SlowBrokerFinder.java:99)."""
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    app, fetcher, admin, sampler = build_simulated_service(seed=17, device="cpu")
+    try:
+        assert app.cc.slow_broker_finder is not None
+        # a full detection round must execute the slow-broker feed without
+        # error against the live broker aggregator
+        records = app.cc.anomaly_detector.run_once()
+        assert isinstance(records, list)
+    finally:
+        app.stop()

@@ -22,8 +22,8 @@ test_resume_restores_journaled_adaptive_cap,
 test_adaptive_not_fooled_by_intra_only_throughput,
 test_execution_stuck_alert_not_delayed_by_busy_executor and
 test_executor_injected_clock_drives_reservation_retention.
-Left out: test_facade_wires_journal_and_recovery (it builds the simulated
-service; item 9).
+At the end, test_facade_wires_journal_and_recovery, over the port's
+simulated service.
 
 The matrix kills the executor "process" (testing/faults.process_crash: the
 progress loop raises and the dying process's cleanup calls never reach the
@@ -58,6 +58,7 @@ from cruise_control_tpu_torch.monitor.topology import (
     StaticMetadataProvider,
 )
 from cruise_control_tpu_torch.testing import faults
+import json
 
 
 def proposal(topic, part, old, new, old_leader=None, new_leader=None, data=100.0,
@@ -732,3 +733,46 @@ def test_executor_injected_clock_drives_reservation_retention():
     assert ex.removed_brokers == {2}
     now["ms"] += 2
     assert ex.removed_brokers == set()
+
+
+# ------------------------- the facade's journal wiring (tests/test_executor_recovery.py :700)
+
+
+def test_facade_wires_journal_and_recovery(tmp_path):
+    """build_simulated_service with executor.journal.dir: executions
+    journal + finish cleanly; a second facade over the same dir starts
+    clean (no recovery) and /state carries the executor block."""
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    cfg = {
+        "partition.metrics.window.ms": 1000,
+        "min.samples.per.partition.metrics.window": 1,
+        "execution.progress.check.interval.ms": 100,
+        "webserver.http.port": 0,
+        "tpu.num.candidates": 64,
+        "tpu.leadership.candidates": 16,
+        "tpu.steps.per.round": 8,
+        "tpu.num.rounds": 1,
+        "executor.journal.dir": str(tmp_path),
+    }
+    app, fetcher, admin, sampler = build_simulated_service(CruiseControlConfig(cfg), device="cpu")
+    cc = app.cc
+    assert cc.executor.journal is not None
+    assert cc.executor.anomaly_sink == cc.anomaly_detector.add_anomaly
+    opts = cc._exec_options({})
+    assert opts.reaper_stuck_timeout_s == 900.0
+    assert opts.adaptive_enabled is True
+    cc.executor.topic_names = {0: "T0"}  # fixture-built proposal below
+    res = cc.executor.execute_proposals(
+        [proposal(0, 0, [0, 1], [2, 1], old_leader=1, new_leader=1, data=10.0)],
+        opts,
+    )
+    assert res.completed == len(cc.executor.tracker.tasks())
+    journal_path = os.path.join(str(tmp_path), "execution-journal.jsonl")
+    assert os.path.exists(journal_path)
+    records = [json.loads(line) for line in open(journal_path)]
+    assert records[0]["t"] == "start" and records[-1]["t"] == "finished"
+    # restart: nothing to recover
+    app2, *_ = build_simulated_service(CruiseControlConfig(cfg), device="cpu")
+    assert app2.cc.executor.recovery_info() is None

@@ -22,10 +22,11 @@ test_torn_first_line_journal_is_no_unfinished_execution,
 test_lease_partition_fail_injector_accounting,
 test_lease_partition_hang_injector_releases_on_exit,
 test_clock_skew_injector and test_chaos_schedule_single_holder_invariant.
-Left out, as they build the simulated fleet service (item 9):
+At the end, over the port's simulated fleet service:
 test_ha_disabled_default_is_classic_fleet,
 test_kill_and_takeover_acceptance_story and
-test_zombie_writer_is_fenced_everywhere.
+test_zombie_writer_is_fenced_everywhere (the last two marked slow, as in
+the JAX package).
 
 The invariants: at most one lease holder per cluster at any instant
 (provable from the lease store's audit trail); a fenced zombie can neither
@@ -58,6 +59,9 @@ from cruise_control_tpu_torch.testing import faults
 from cruise_control_tpu_torch.testing.synthetic import (
     synthetic_topology,
 )
+from cruise_control_tpu_torch.service.main import build_simulated_fleet
+from cruise_control_tpu_torch.service.schemas import validate_response
+from cruise_control_tpu_torch.testing.synthetic import SyntheticWorkloadSampler, synthetic_topology
 
 # ---------------------------------------------------------------- helpers
 
@@ -572,3 +576,264 @@ def test_chaos_schedule_single_holder_invariant(tmp_path):
 
 # -------------------------------- two-instance failover (the chaos gate)
 
+
+
+# ------------------------- the simulated fleet (tests/test_fleet_ha.py :624-800)
+
+
+def test_ha_disabled_default_is_classic_fleet(tmp_path):
+    """fleet.ha.enabled=false (the default): no lease store on disk, no
+    lease manager, contexts start immediately, journal records carry no
+    epoch, /fleet carries no ownership/ha fields."""
+    app, fleet = build_simulated_fleet(
+        {"executor.journal.dir": str(tmp_path),
+         "tpu.prewarm.enabled": "false"},  # see build_instance
+        clusters={"solo": dict(num_brokers=4, topics={"T0": 4})},
+        sampled_windows=1, device="cpu",
+    )
+    try:
+        assert fleet.lease_manager is None
+        assert not (tmp_path / "_leases").exists()
+        cc = fleet.facade("solo")
+        assert cc.fence is None
+        fleet.start_up()
+        assert fleet.contexts["solo"].started
+        ex = cc.executor
+        ex.topic_names[0] = "T0"
+        props = rotation_proposals(cc.admin)[:2]
+        res = ex.execute_proposals(props, ExecutionOptions(
+            progress_check_interval_s=0.1))
+        assert res.completed == len(ex.tracker.tasks()) and res.dead == 0
+        records = ExecutionJournal(ex.journal.path).replay()
+        assert records and all("epoch" not in r for r in records)
+        state = fleet.fleet_state()
+        assert "ha" not in state
+        assert "ownership" not in state["clusters"]["solo"]
+        assert validate_response("fleet", state) == []
+    finally:
+        fleet.shutdown()
+
+
+@pytest.mark.slow
+def test_kill_and_takeover_acceptance_story(tmp_path):
+    """Instance A crashes mid-inter-broker batch (process_crash); B's
+    heartbeat takes the lease over after expiry, replays A's journal,
+    sweeps the leaked throttle and resumes the batch with ZERO duplicate
+    submissions; the audit trail shows a clean single-holder handover."""
+    clock = FakeClock()
+    backends = shared_backends(("c1",), link_rate=1000.0)
+    inner_admin = backends["c1"][1]
+    counts = spy_submissions(inner_admin)
+
+    app_a, fleet_a = build_instance("A", tmp_path, backends, clock)
+    lm_a = fleet_a.lease_manager
+    lm_a.poll_once()
+    assert lm_a.owns("c1")
+    ex_a = fleet_a.facade("c1").executor
+    assert wait_until(lambda: fleet_a.contexts["c1"].started
+                      and not ex_a.has_ongoing_execution)
+    ex_a.topic_names[0] = "T0"
+    props = rotation_proposals(inner_admin, data=3000.0)
+    with faults.process_crash(inner_admin,
+                              schedule=faults.FaultSchedule(calls=[4])):
+        with pytest.raises(faults.SimulatedProcessCrash):
+            ex_a.execute_proposals(props, ExecutionOptions(
+                concurrent_partition_movements_per_broker=2,
+                progress_check_interval_s=1.0,
+                replication_throttle_bytes_per_s=5000.0,
+            ))
+    # the dead process left its throttle + in-flight moves behind
+    assert inner_admin.throttle_rate == 5000.0
+    assert inner_admin.in_progress_reassignments()
+    journal_path = ex_a.journal.path
+    records = ExecutionJournal(journal_path).replay()
+    assert all(r["epoch"] == 1 for r in records)
+
+    # A is dead: its heartbeat never runs again; the lease expires
+    clock.advance(12.0)
+    app_b, fleet_b = build_instance("B", tmp_path, backends, clock)
+    lm_b = fleet_b.lease_manager
+    lm_b.poll_once()
+    assert lm_b.owns("c1")
+    cc_b = fleet_b.facade("c1")
+    # activation (async) reconciles A's journal: the throttle sweep is
+    # journaled into the recovery report before anything resumes
+    assert wait_until(lambda: cc_b.executor.recovery_info() is not None)
+    info = cc_b.executor.recovery_info()
+    assert info["sweptThrottle"] is True
+
+    # the resume thread drives the remainder to completion
+    assert wait_until(
+        lambda: (not cc_b.executor.has_recovered_execution
+                 and not cc_b.executor.has_ongoing_execution
+                 and fleet_b.contexts["c1"].started),
+        timeout=60,
+    )
+    assert cc_b.executor.state == ExecutorState.NO_TASK_IN_PROGRESS
+    # ZERO duplicate submissions across the kill-and-takeover
+    assert counts and all(n == 1 for n in counts.values()), counts
+    # every partition landed on its rotated replica set
+    topo = inner_admin.topology()
+    n = len(topo.brokers)
+    by_key = {(p.topic, p.partition): set(p.replicas) for p in topo.partitions}
+    for p in props:
+        assert by_key[("T0", p.partition)] == set(p.new_replicas)
+    assert inner_admin.throttle_rate is None  # zero leaked throttles
+    # B's resume journaled at its own (higher) epoch
+    records = ExecutionJournal(journal_path).replay()
+    assert {r["epoch"] for r in records} == {1, 2}
+    violations = single_holder_violations(
+        lm_b.store.audit_events()
+    )
+    assert violations == [], violations
+
+    # A wakes up a zombie: degraded, fenced, loud
+    lm_a.poll_once()  # discovers the loss
+    ctx_a = fleet_a.contexts["c1"]
+    assert ctx_a.degraded
+    state = fleet_a.fleet_state()
+    own = state["clusters"]["c1"]["ownership"]
+    assert own["owned"] is False and own["degraded"] is True
+    assert own.get("holderId") == "B"
+    assert validate_response("fleet", state) == []
+    # the FLEET_LEASE_LOST anomaly reached the notifier (alert-only)
+    cc_a = fleet_a.facade("c1")
+    handled = cc_a.anomaly_detector._drain()
+    assert any(
+        r.anomaly.anomaly_type.name == "FLEET_LEASE_LOST" for r in handled
+    )
+    assert any(
+        a.anomaly_type.name == "FLEET_LEASE_LOST"
+        for a, _fix in cc_a.notifier.alerts
+    )
+    fleet_a.shutdown()
+    fleet_b.shutdown()
+
+
+@pytest.mark.slow
+def test_zombie_writer_is_fenced_everywhere(tmp_path):
+    """A's stalled thread wakes AFTER the takeover: every journal append
+    and every admin mutation is rejected with FencedError, and neither
+    the journal file nor the cluster sees the write."""
+    clock = FakeClock()
+    backends = shared_backends(("c1",), link_rate=1000.0)
+    inner_admin = backends["c1"][1]
+
+    app_a, fleet_a = build_instance("A", tmp_path, backends, clock)
+    fleet_a.lease_manager.poll_once()
+    cc_a = fleet_a.facade("c1")
+    ex_a = cc_a.executor
+    assert wait_until(lambda: fleet_a.contexts["c1"].started
+                      and not ex_a.has_ongoing_execution)
+    ex_a.topic_names[0] = "T0"
+    # A journals a live execution start, then its process stalls
+    props = rotation_proposals(inner_admin, data=10_000.0)[:2]
+    with faults.process_crash(inner_admin,
+                              schedule=faults.FaultSchedule(calls=[1])):
+        with pytest.raises(faults.SimulatedProcessCrash):
+            ex_a.execute_proposals(props, ExecutionOptions(
+                progress_check_interval_s=1.0))
+    clock.advance(12.0)  # A's lease expires while it is stalled
+
+    app_b, fleet_b = build_instance("B", tmp_path, backends, clock)
+    fleet_b.lease_manager.poll_once()
+    assert fleet_b.lease_manager.owns("c1")
+
+    # ...now A's stalled thread wakes and tries to keep going
+    reassign_calls = inner_admin.reassign_calls
+    journal_size = os.path.getsize(ex_a.journal.path)
+    with pytest.raises(FencedError):
+        ex_a.journal.append({"t": "task", "id": 0, "state": "COMPLETED",
+                             "ms": 99})
+    from cruise_control_tpu_torch.executor.admin import ReassignmentSpec
+
+    with pytest.raises(FencedError):
+        cc_a.admin.reassign_partitions([
+            ReassignmentSpec("T0", 0, (0, 1), 1.0)
+        ])
+    with pytest.raises(FencedError):
+        cc_a.admin.clear_replication_throttle()
+    # a full re-execution attempt through the facade gate is fenced too
+    with pytest.raises(FencedError):
+        cc_a.fence.check(op="execute")
+    assert inner_admin.reassign_calls == reassign_calls
+    assert os.path.getsize(ex_a.journal.path) == journal_size
+    # B is unaffected: its fenced-in resume finishes the batch
+    cc_b = fleet_b.facade("c1")
+    assert wait_until(
+        lambda: (fleet_b.contexts["c1"].started
+                 and not cc_b.executor.has_recovered_execution
+                 and not cc_b.executor.has_ongoing_execution),
+        timeout=60,
+    )
+    assert cc_b.executor.state == ExecutorState.NO_TASK_IN_PROGRESS
+    fleet_a.shutdown()
+    fleet_b.shutdown()
+
+
+# the simulated fleet's helpers (tests/test_fleet_ha.py :78-167)
+
+
+def shared_backends(cluster_ids=("c1",), *, link_rate=1e12, num_brokers=4,
+                    partitions=8, seed=7):
+    """{cid: (metadata, admin, sampler)} over ONE set of simulated
+    clusters — passed to every instance of a multi-instance harness so
+    all of them 'see' the same Kafka fleet."""
+    out = {}
+    for i, cid in enumerate(cluster_ids):
+        topo = synthetic_topology(
+            num_brokers=num_brokers, topics={"T0": partitions}, seed=seed + i
+        )
+        meta = StaticMetadataProvider(topo)
+        admin = SimulatedClusterAdmin(meta, link_rate_bytes_per_s=link_rate)
+        out[cid] = (meta, admin, SyntheticWorkloadSampler(topo, seed=seed + i))
+    return out
+
+
+def build_instance(instance_id, journal_dir, backends, clock, **extra):
+    """One in-process tpu-cruise instance of an HA fleet.  Instances
+    share ONLY the journal/lease directory and the simulated backends —
+    the coordination surface real instances would share."""
+    props = {
+        "fleet.clusters": ",".join(backends),
+        "fleet.ha.enabled": "true",
+        "fleet.ha.instance.id": instance_id,
+        "fleet.ha.lease.ttl.s": 10.0,
+        "fleet.ha.renew.s": 2.0,
+        "fleet.ha.skew.slack.s": 1.0,
+        "executor.journal.dir": str(journal_dir),
+        "anomaly.detection.interval.ms": 3_600_000,
+        # keep start_up free of background compile threads (boot prewarm /
+        # warm pool): a live XLA worker at interpreter exit segfaults the
+        # pytest process (pre-existing; irrelevant to what HA pins here)
+        "tpu.prewarm.enabled": "false",
+    }
+    props.update(extra)
+    return build_simulated_fleet(
+        props, backends=backends, ha_clock=clock, sampled_windows=1, device="cpu"
+    )
+
+
+def wait_until(cond, timeout=30.0):
+    """Poll `cond` until true — cluster activation (reconcile + start_up)
+    runs on its own thread off the lease heartbeat."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def spy_submissions(admin):
+    """Per-partition reassignment submission counts across 'processes'."""
+    counts: dict = {}
+    orig = admin.reassign_partitions
+
+    def wrapper(specs):
+        for s in specs:
+            counts[(s.topic, s.partition)] = counts.get((s.topic, s.partition), 0) + 1
+        return orig(specs)
+
+    admin.reassign_partitions = wrapper
+    return counts

@@ -47,7 +47,12 @@ def test_import_loads_no_jax_in_subprocess():
               # the Kafka wire path, its fake cluster, the SLOs and the ledger
               "kafka", "kafka.codec", "kafka.protocol", "kafka.sasl", "kafka.client",
               "kafka.records", "kafka.transport", "kafka.admin", "kafka.sample_store",
-              "testing.fake_kafka", "common.slo", "analyzer.ledger"):
+              "testing.fake_kafka", "common.slo", "analyzer.ledger",
+              # configuration, the REST service, the fleet manager and the CLI
+              "config.config_def", "config.endpoints", "config.app_config", "parallel.ft",
+              "service.progress", "service.purgatory", "service.tasks", "service.schemas",
+              "service.security", "service.parameters", "service.facade", "fleet.manager",
+              "service.server", "service.main", "client.cccli"):
         assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"

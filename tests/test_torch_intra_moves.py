@@ -13,8 +13,8 @@ test_graceful_stop_drains_tracked_copies,
 test_transient_describe_failure_keeps_copies_pending and
 test_unreachable_broker_backs_off_but_can_recover (these two drive the
 port's kafka/admin.py KafkaClusterAdmin).
-Left out: test_partition_size_detection_enabled_via_config (it builds the
-simulated service; item 9).
+At the end, test_partition_size_detection_enabled_via_config, over the
+port's simulated service.
 """
 
 import dataclasses
@@ -429,3 +429,27 @@ def test_unreachable_broker_backs_off_but_can_recover():
         pending = admin.in_progress_logdir_moves()
     assert pending == set()
     assert admin.logdir_of("T0", 0, 7) == 0
+
+
+# ------------------------- the simulated service (tests/test_intra_moves.py :302)
+
+
+def test_partition_size_detection_enabled_via_config():
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    config = CruiseControlConfig({
+        "partition.metrics.window.ms": 1000,
+        "min.samples.per.partition.metrics.window": 1,
+        "webserver.http.port": 0,
+        "tpu.num.candidates": 128,
+        "tpu.leadership.candidates": 32,
+        "tpu.steps.per.round": 8,
+        "tpu.num.rounds": 2,
+        "partition.size.detection.enabled": "true",
+        "self.healing.partition.size.threshold.byte": "1",  # everything flags
+    })
+    app, *_ = build_simulated_service(config, seed=5, device="cpu")
+    records = app.cc.anomaly_detector.run_once()
+    kinds = {type(r.anomaly).__name__ for r in records}
+    assert "TopicPartitionSizeAnomaly" in kinds

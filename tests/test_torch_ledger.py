@@ -2,7 +2,9 @@
 the convergence diagnostics it records, on the CPU: tests/test_ledger.py's 6
 tests that build no service and no mesh, pointed at the port (the engines
 on the CPU).  Left out: test_diagnostics_byte_parity_mesh (the mesh, item
-10) and the five that build the service or the fleet (item 9).  The port
+10) and test_controller_first_publish_excluded_from_calibration (the
+streaming controller, slice 20).  The four that build the service or the
+fleet are at the end, over the port's simulated service.  The port
 adds test_card_result_record_costs_one_transfer: a decision record built
 from a result on the card costs one device-to-host transfer, and its JSON
 is the CPU copy's but for wallSeconds (marked cuda; it skips without a
@@ -36,6 +38,9 @@ from cruise_control_tpu_torch.testing.fixtures import (
     RandomClusterSpec,
     random_cluster_fast,
 )
+import urllib.error
+import urllib.request
+from cruise_control_tpu_torch.config.app_config import CruiseControlConfig
 
 SMALL = RandomClusterSpec(
     num_brokers=12, num_partitions=200, num_racks=4, num_topics=6, skew=1.0
@@ -242,3 +247,187 @@ def test_card_result_record_costs_one_transfer():
     assert ledger_mod.TRANSFERS == before + 1
     card.pop("wallSeconds"), host.pop("wallSeconds")
     assert json.dumps(card) == json.dumps(host)
+
+
+# ------------------------- the service and the fleet (tests/test_ledger.py :223-430)
+
+
+def _ledger_service(tmp_path, extra=None, seed=11):
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    props = {
+        "partition.metrics.window.ms": 1000,
+        "min.samples.per.partition.metrics.window": 1,
+        "num.partition.metrics.windows": 3,
+        "execution.progress.check.interval.ms": 100,
+        "webserver.http.port": 0,
+        "tpu.num.candidates": 128,
+        "tpu.leadership.candidates": 32,
+        "tpu.steps.per.round": 16,
+        "tpu.num.rounds": 2,
+        "executor.journal.dir": str(tmp_path / "journal"),
+        "tpu.prewarm.enabled": "false",
+    }
+    props.update(extra or {})
+    return build_simulated_service(CruiseControlConfig(props), seed=seed, device="cpu")
+
+
+def test_decision_outcome_calibration_explain_acceptance(tmp_path):
+    """The acceptance story: one rebalance executed on the simulated
+    cluster yields a ledger with linked decision → outcome → calibration
+    records, and GET /explain replays it."""
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fetcher, admin, sampler = _ledger_service(tmp_path)
+    cc = app.cc
+    assert cc.ledger is not None  # derived from executor.journal.dir
+    result = cc.proposals(OperationProgress(), ignore_cache=True)
+    did = cc._ledger_decision_id(result)
+    assert did is not None
+    out = cc.rebalance(OperationProgress(), dryrun=False)
+    assert out["execution"]["completed"] > 0
+    entry = cc.ledger.find(decision_id=did)
+    assert entry["outcome"] is not None
+    assert entry["outcome"]["completed"] == out["execution"]["completed"]
+    assert entry["outcome"]["fencedAbort"] is False
+    assert entry["calibration"] is None  # no window rolled yet
+    # decision features: goals, predicted load, moves, convergence
+    d = entry["decision"]
+    assert d["goals"]["names"] == cc.chain.names()
+    assert d["convergence"]["rounds"] >= 1  # diagnostics default-on
+    assert d["predictedLoad"]["avg"]
+    assert d["moves"] and "destinations" in d["moves"][0]
+    # roll the next complete metric window -> calibration joins
+    parts = sampler.all_partition_entities()
+    fetcher.fetch_once(parts, 5000, 5999)
+    assert cc._detect_model_drift() is None  # healthy: no drift anomaly
+    entry = cc.ledger.find(decision_id=did)
+    assert entry["calibration"] is not None
+    err = entry["calibration"]["error"]
+    assert err["goalMaxAbs"] >= 0.0 and "load" in err
+    assert cc.calibration_state()["samples"] == 1
+    # /explain replays the episode (facade + HTTP)
+    ex = cc.explain(decision_id=did)
+    assert ex["decisionId"] == did
+    assert ex["outcome"]["completed"] == out["execution"]["completed"]
+    assert ex["calibration"] is not None
+    assert len(ex["goalDeltas"]) == len(cc.chain.names())
+    with pytest.raises(KeyError):
+        cc.explain(decision_id="nope")
+    with pytest.raises(ValueError):
+        cc.explain()
+    app.start()
+    try:
+        base = f"http://{app.host}:{app.port}{app.prefix}"
+        with urllib.request.urlopen(
+            base + f"/explain?proposal={did}", timeout=30
+        ) as resp:
+            payload = json.loads(resp.read())
+        assert payload["decisionId"] == did
+        from cruise_control_tpu_torch.service.schemas import validate_response
+
+        assert validate_response("explain", payload) == []
+        with urllib.request.urlopen(base + "/ledger?limit=5", timeout=30) as resp:
+            led = json.loads(resp.read())
+        assert led["enabled"] and led["entries"]
+        assert validate_response("ledger", led) == []
+        # unknown episode -> 404; bare /explain -> 400
+        with pytest.raises(urllib.error.HTTPError) as e404:
+            urllib.request.urlopen(base + "/explain?proposal=nope", timeout=30)
+        assert e404.value.code == 404
+        with pytest.raises(urllib.error.HTTPError) as e400:
+            urllib.request.urlopen(base + "/explain", timeout=30)
+        assert e400.value.code == 400
+    finally:
+        app.stop()
+
+
+def test_disabled_path_writes_zero_bytes(tmp_path):
+    """analyzer.ledger.enabled=false: no ledger object, no _ledger
+    directory, zero bytes — even across a real execution."""
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fetcher, admin, sampler = _ledger_service(
+        tmp_path, extra={"analyzer.ledger.enabled": "false"}
+    )
+    cc = app.cc
+    assert cc.ledger is None
+    cc.rebalance(OperationProgress(), dryrun=False)
+    assert not (tmp_path / "journal" / "_ledger").exists()
+    assert cc.ledger_entries() == []
+    st = cc.state(["analyzer"])
+    assert "ledger" not in st["AnalyzerState"]
+
+
+def test_model_drift_fires_once_per_episode(tmp_path):
+    """Sustained prediction error opens ONE MODEL_DRIFT episode; the
+    episode re-arms only after the mean error recovers."""
+    app, fetcher, admin, sampler = _ledger_service(
+        tmp_path,
+        extra={
+            "analyzer.calibration.drift.threshold": "0.1",
+            "analyzer.calibration.drift.min.samples": "2",
+        },
+    )
+    cc = app.cc
+
+    def feed(goal_err, n=2):
+        for _ in range(n):
+            cc._calibration_errors.append((goal_err, 0.0))
+
+    feed(0.5)
+    anom = cc._detect_model_drift()
+    assert anom is not None and anom.episode == 1
+    assert anom.mean_goal_error > 0.1 and not anom.fixable
+    # still burning: the same episode stays silent
+    feed(0.6)
+    assert cc._detect_model_drift() is None
+    assert cc.calibration_state()["driftActive"]
+    # recovery re-arms...
+    feed(0.0)
+    assert cc._detect_model_drift() is None
+    assert not cc.calibration_state()["driftActive"]
+    # ...and a new burn opens episode 2
+    feed(0.7)
+    anom2 = cc._detect_model_drift()
+    assert anom2 is not None and anom2.episode == 2
+
+
+def test_fleet_two_cluster_ledger_isolation(tmp_path):
+    """Each fleet cluster owns a namespaced ledger under the journal
+    dir: east's decisions never appear in west's ledger (and vice
+    versa), and the /fleet rollup carries per-cluster ledger blocks."""
+    from cruise_control_tpu_torch.service.main import build_simulated_fleet
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fleet = build_simulated_fleet(
+        props={
+            "fleet.clusters": "east,west",
+            "executor.journal.dir": str(tmp_path / "journal"),
+            "tpu.prewarm.enabled": "false",
+        },
+        clusters={
+            "east": dict(num_brokers=6, topics={"T0": 12, "T1": 12}),
+            "west": dict(num_brokers=6, topics={"T0": 12, "T1": 12}),
+        }, device="cpu",
+    )
+    east = fleet.facade("east")
+    west = fleet.facade("west")
+    assert east.ledger is not None and west.ledger is not None
+    assert east.ledger.path != west.ledger.path
+    assert os.path.join("_ledger", "east") in east.ledger.path
+    r_e = east.proposals(OperationProgress(), ignore_cache=True)
+    did_e = east._ledger_decision_id(r_e)
+    r_w = west.proposals(OperationProgress(), ignore_cache=True)
+    did_w = west._ledger_decision_id(r_w)
+    assert did_e and did_w and did_e != did_w
+    assert east.ledger.find(decision_id=did_e) is not None
+    assert east.ledger.find(decision_id=did_w) is None
+    assert west.ledger.find(decision_id=did_w) is not None
+    assert west.ledger.find(decision_id=did_e) is None
+    # decision records carry their cluster id
+    assert east.ledger.find(decision_id=did_e)["decision"]["cluster"] == "east"
+    rollup = fleet.fleet_state()
+    for cid in ("east", "west"):
+        assert rollup["clusters"][cid]["ledger"]["recordsWritten"] >= 1
+        assert "calibration" in rollup["clusters"][cid]

@@ -7,8 +7,11 @@ contract: a prewarm builds and never rebinds, leaves the hit and miss
 counters alone, holds its engine pinned until the warm pool is done with
 it, and hands a capture's error to the run that waits for it.  On the CPU
 an engine has no graphs: the warm pool allocates its run's buffers, which
-the first request then uses.  The JAX package's AOT-artifact tests and its
-service tests have no counterpart in the port (ROADMAP.md).
+the first request then uses.  The JAX package's AOT-artifact tests have no
+counterpart in the port (ROADMAP.md); its two service tests that set no
+`controller.enabled` are at the end (marked slow, as in the JAX package),
+and test_controller_first_cycle_waits_for_boot_gate waits for the
+streaming controller (slice 20).
 """
 
 import dataclasses
@@ -416,3 +419,91 @@ def test_optimizer_notes_its_buckets_and_boot_prewarms_them(tmp_path, state):
     assert (boot.engine_cache_hits, boot.engine_cache_misses) == (1, 0)
     assert np.isfinite(res.objective_after)
     assert engine_mod.bucket_key(shape) == bucket_key(shape)
+
+
+# ------------------------- the service's boot prewarm (tests/test_prewarm.py :376-459)
+
+
+def _service(props, tmp, seed=3, **geometry):
+    from cruise_control_tpu_torch.config.app_config import CruiseControlConfig
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    base = {
+        "partition.metrics.window.ms": 1000,
+        "min.samples.per.partition.metrics.window": 1,
+        "num.partition.metrics.windows": 3,
+        "webserver.http.port": 0,
+        "tpu.num.candidates": 128, "tpu.leadership.candidates": 32,
+        "tpu.steps.per.round": 8, "tpu.num.rounds": 2,
+        "tpu.compile.cache.dir": os.path.join(tmp, "xla"),
+        "tpu.prewarm.manifest.dir": os.path.join(tmp, "prewarm"),
+    }
+    base.update(props)
+    return build_simulated_service(CruiseControlConfig(base), seed=seed, **geometry, device="cpu")
+
+
+@pytest.mark.slow
+def test_start_up_boot_prewarms_manifest_bucket(tmp_path):
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    tmp = str(tmp_path)
+    app, fetcher, admin, sampler = _service({}, tmp)
+    cc = app.cc
+    r1 = cc.proposals(OperationProgress(), ignore_cache=True)
+    cc.core.prewarm_store.drain(300)
+    cc.shutdown()
+
+    app2, fetcher2, admin2, sampler2 = _service({}, tmp)
+    cc2 = app2.cc
+    cc2.start_up(detection_interval_s=3600)
+    assert cc2._boot_prewarm_done.wait(120)
+    assert cc2.optimizer.has_engine_for(r1.state_before.shape)
+    snap = cc2.sensors.snapshot()
+    assert snap["analyzer.boot-prewarm-buckets"]["count"] >= 1
+    r2 = cc2.proposals(OperationProgress(), ignore_cache=True)
+    assert _same_placement(r1.state_after, r2.state_after)
+    cc2.shutdown()
+
+
+@pytest.mark.slow
+def test_fleet_facades_merge_one_manifest_and_both_prewarm(tmp_path):
+    """Fleet satellite: two clusters with DIFFERENT shape buckets over
+    one shared AnalyzerCore record into ONE merged manifest (dedup, not
+    last-writer-wins), and a restart prewarns BOTH clusters' buckets."""
+    from cruise_control_tpu_torch.service.main import build_simulated_fleet
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    tmp = str(tmp_path)
+    clusters = {
+        "east": dict(num_brokers=6, topics={"T0": 12, "T1": 12}),
+        "south": dict(num_brokers=12, topics={"T0": 48, "T1": 48}),
+    }
+    props = {
+        "tpu.compile.cache.dir": os.path.join(tmp, "xla"),
+        "tpu.prewarm.manifest.dir": os.path.join(tmp, "prewarm"),
+    }
+    app, fleet = build_simulated_fleet(props, clusters=clusters, seed=31, device="cpu")
+    shapes = {}
+    for cid in ("east", "south"):
+        res = fleet.facade(cid).proposals(OperationProgress(), ignore_cache=True)
+        shapes[cid] = res.state_before.shape
+        # twice: recency touches must dedup, not duplicate
+        fleet.facade(cid).proposals(OperationProgress(), ignore_cache=True)
+    assert shapes["east"] != shapes["south"], "test needs two distinct buckets"
+    store = fleet.core.prewarm_store
+    assert store is not None
+    store.drain(300)
+    keys = store.manifest_bucket_keys()
+    assert sorted(keys) == sorted(
+        {bucket_key(shapes["east"]), bucket_key(shapes["south"])}
+    )
+    fleet.shutdown()
+
+    app2, fleet2 = build_simulated_fleet(props, clusters=clusters, seed=31, device="cpu")
+    fleet2.start_up(detection_interval_s=3600)
+    for cid in ("east", "south"):
+        assert fleet2.facade(cid)._boot_prewarm_done.wait(120)
+    opt = fleet2.core.optimizer
+    assert opt.has_engine_for(shapes["east"]), "east bucket not prewarmed"
+    assert opt.has_engine_for(shapes["south"]), "south bucket not prewarmed"
+    fleet2.shutdown()

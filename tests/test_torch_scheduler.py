@@ -10,8 +10,9 @@ the port here, name for name (their line in tests/test_scheduler.py in
 each docstring's first line is the JAX test's); with the device
 supervisor, its pause-clock test (:438), the three `device_slowdown`
 tests (:575-:636) and the slow chaos gate (:638) are here too, at the
-end; the ones that wait for the service (item 9) are listed in
-ROADMAP.md.  The port adds what only it has: the same-bucket
+end; then its service tests (:483-:828) over the port's simulated
+service; test_controller_cycle_sheds_counted waits for the streaming
+controller (slice 20, ROADMAP.md).  The port adds what only it has: the same-bucket
 preemption through one GoalOptimizer, where the paused run lets go of the
 engine that the urgent run needs (analyzer/engine.py `_let_go`), the fast
 path and the shed ladder around real optimize calls, and the brownout
@@ -47,6 +48,7 @@ from cruise_control_tpu_torch.fleet.scheduler import (
 )
 from cruise_control_tpu_torch.testing import faults
 from cruise_control_tpu_torch.testing.fixtures import small_cluster
+from cruise_control_tpu_torch.service.tasks import UserTaskManager
 
 FAST = OptimizerConfig(
     num_candidates=256, leadership_candidates=64, steps_per_round=24,
@@ -820,3 +822,204 @@ def test_overload_chaos_gate_urgent_wait_bounded():
     episodes = sched.stats["overload_episodes"]
     assert len(anomalies) == episodes >= 1
     assert all(a.anomaly_type is AnomalyType.FLEET_OVERLOAD for a in anomalies)
+
+
+# ------------------------- the service under the scheduler (tests/test_scheduler.py :483-828)
+
+
+def test_precompute_refresh_is_background_class():
+    """The periodic proposal refresh is exactly the steady-state load
+    the shed ladder exists to relieve — it must dispatch BACKGROUND."""
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fetcher, admin, sampler = build_simulated_service(
+        _scheduler_service_config(), device="cpu"
+    )
+    try:
+        cc = app.cc
+        cc.proposals(
+            OperationProgress(), ignore_cache=True,
+            work_class=WorkClass.BACKGROUND,
+        )
+        assert cc.scheduler.stats["dispatches"]["background"] == 1
+        assert cc.scheduler.stats["dispatches"]["interactive"] == 0
+    finally:
+        app.stop()
+
+
+def test_cluster_override_of_shared_scheduler_and_tenant_keys_rejected():
+    from cruise_control_tpu_torch.config.app_config import (
+        ConfigException,
+        CruiseControlConfig,
+    )
+
+    base = {"fleet.clusters": "east"}
+    # the per-cluster freshness SLO IS overridable...
+    cfg = CruiseControlConfig(
+        {**base, "fleet.east.fleet.scheduler.freshness.slo.s": 10.0,
+         "fleet.scheduler.freshness.slo.s": 45.0}
+    )
+    assert cfg.cluster_config("east").get(
+        "fleet.scheduler.freshness.slo.s"
+    ) == 10.0
+    # ...every other scheduler/tenant knob configures the ONE shared
+    # scheduler/purgatory and must be rejected, not silently ignored
+    for key in (
+        "fleet.east.fleet.scheduler.slice.budget.s",
+        "fleet.east.fleet.tenant.retry.after.s",
+    ):
+        with pytest.raises(ConfigException):
+            CruiseControlConfig({**base, key: 2.0}).cluster_config("east")
+
+
+def test_tenant_retry_after_drain_rate_and_fallback():
+    m = UserTaskManager(num_threads=2)
+    try:
+        # no history: config default wins
+        assert m.retry_after_s("east", default_s=7.0) == 7.0
+        # fabricate a drain history: 5 completions 1s apart -> 1 task/s
+        import collections
+
+        stamps = collections.deque(maxlen=32)
+        base = time.monotonic()
+        for i in range(5):
+            stamps.append(base + i)
+        m._completions["east"] = stamps
+        gate = threading.Event()
+        for _ in range(3):
+            m.submit("proposals", lambda p: gate.wait(5.0), cluster_id="east")
+        ra = m.retry_after_s("east", default_s=7.0)
+        # 3 pending / 1 per second ~ 3s (never below 1, never 300)
+        assert 2.0 <= ra <= 4.0, ra
+        gate.set()
+    finally:
+        m.shutdown()
+
+
+def test_tenant_overload_error_carries_retry_after():
+    m = UserTaskManager(num_threads=2)
+    try:
+        gate = threading.Event()
+        m.submit("proposals", lambda p: gate.wait(5.0), cluster_id="east",
+                 cluster_max_active=1)
+        from cruise_control_tpu_torch.service.tasks import TenantOverloadError
+
+        with pytest.raises(TenantOverloadError):
+            m.submit("proposals", lambda p: None, cluster_id="east",
+                     cluster_max_active=1)
+        gate.set()
+    finally:
+        m.shutdown()
+
+
+def _scheduler_service_config(**extra):
+    from cruise_control_tpu_torch.config.app_config import CruiseControlConfig
+
+    props = {
+        "partition.metrics.window.ms": 1000,
+        "min.samples.per.partition.metrics.window": 1,
+        "num.partition.metrics.windows": 3,
+        "execution.progress.check.interval.ms": 100,
+        "webserver.http.port": 0,
+        "tpu.num.candidates": 128,
+        "tpu.leadership.candidates": 32,
+        "tpu.steps.per.round": 16,
+        "tpu.num.rounds": 2,
+        # memory note: prewarm threads + pytest teardown don't mix
+        "tpu.prewarm.enabled": "false",
+        "fleet.scheduler.enabled": "true",
+        "fleet.scheduler.slice.budget.s": 0.2,
+    }
+    props.update(extra)
+    return CruiseControlConfig(props)
+
+
+def test_service_proposals_fast_path_unsegmented_when_alone():
+    # A lone INTERACTIVE proposals call takes the scheduler's fast path:
+    # with nobody else queued there is no one to preempt for, so the
+    # grant runs the plain unsegmented fused program.
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fetcher, admin, sampler = build_simulated_service(
+        _scheduler_service_config(), device="cpu"
+    )
+    try:
+        cc = app.cc
+        assert cc.scheduler is not None
+        result = cc.proposals(OperationProgress(), ignore_cache=True)
+        timing = next(h for h in result.history if h.get("timing"))
+        assert timing.get("segmented") is not True
+        assert cc.scheduler.stats["dispatches"]["interactive"] == 1
+        assert cc.scheduler.stats["fast_path_grants"] == 1
+        # published-proposal age surfaces on the gauge and /fleet rollup
+        age = cc.sensors.snapshot()["analyzer.proposal-age-seconds"]["value"]
+        assert age >= 0.0
+        from cruise_control_tpu_torch.fleet.manager import shared_core_rollup
+
+        shared = shared_core_rollup(cc.core)
+        assert shared["scheduler"]["enabled"] is True
+        assert shared["scheduler"]["dispatches"]["interactive"] == 1
+        assert shared["scheduler"]["fastPathGrants"] == 1
+    finally:
+        app.stop()
+
+
+def test_service_proposals_run_segmented_with_fast_path_off():
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fetcher, admin, sampler = build_simulated_service(
+        _scheduler_service_config(
+            **{"fleet.scheduler.fast.path.enabled": "false"}
+        ), device="cpu"
+    )
+    try:
+        cc = app.cc
+        assert cc.scheduler is not None
+        result = cc.proposals(OperationProgress(), ignore_cache=True)
+        timing = next(h for h in result.history if h.get("timing"))
+        assert timing.get("segmented") is True
+        assert cc.scheduler.stats["dispatches"]["interactive"] == 1
+        assert cc.scheduler.stats["fast_path_grants"] == 0
+    finally:
+        app.stop()
+
+
+def test_scheduler_default_off_is_todays_path():
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fetcher, admin, sampler = build_simulated_service(
+        _scheduler_service_config(**{"fleet.scheduler.enabled": "false"}), device="cpu"
+    )
+    try:
+        cc = app.cc
+        assert cc.scheduler is None
+        result = cc.proposals(OperationProgress(), ignore_cache=True)
+        timing = next(h for h in result.history if h.get("timing"))
+        # the plain fused program: one dispatch, one blocking sync,
+        # nothing segmented — byte-for-byte today's dispatch
+        assert "segmented" not in timing
+        assert timing["blocking_syncs"] == 1
+        from cruise_control_tpu_torch.fleet.manager import shared_core_rollup
+
+        assert "scheduler" not in shared_core_rollup(cc.core)
+    finally:
+        app.stop()
+
+
+def test_self_healing_fix_dispatches_urgent():
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    app, fetcher, admin, sampler = build_simulated_service(
+        _scheduler_service_config(), device="cpu"
+    )
+    try:
+        cc = app.cc
+        assert cc.actions.rebalance("test-fix") is True
+        assert cc.scheduler.stats["dispatches"]["urgent"] >= 1
+        assert cc.scheduler.stats["sheds"]["urgent"] == 0
+    finally:
+        app.stop()

@@ -1,7 +1,7 @@
 """Sensor registry tests, pointed at the port: tests/test_sensors.py's
 tests :18-:110 name for name against the port's common/sensors.py and
-common/exposition.py (its service test, :112, waits for the port's
-service, ROADMAP queue 1 item 9)."""
+common/exposition.py, and its service test (:117) over the port's
+simulated service."""
 
 import math
 import time
@@ -115,3 +115,28 @@ def test_registry_get_never_creates():
     assert reg.get("controller.window-roll-to-publish-seconds") is None
     h = reg.histogram("h", buckets=(1.0,))
     assert reg.get("h") is h
+
+
+# ------------------------------------------- the service (tests/test_sensors.py :117)
+
+
+def test_headline_sensors_reach_state_endpoint():
+    """facade.state() must expose the (per-instance) sensor catalog under
+    /state; a second service instance must not see the first's counters."""
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    app, fetcher, admin, sampler = build_simulated_service(seed=5, device="cpu")
+    app2, *_ = build_simulated_service(seed=6, device="cpu")
+    try:
+        app.cc.sensors.timer("analyzer.proposal-computation-timer").update(0.5)
+        out = app.cc.state()
+        assert "Sensors" in out
+        sensors = out["Sensors"]
+        assert sensors["analyzer.proposal-computation-timer"]["count"] == 1
+        assert "anomaly-detector.self-healing-enabled-ratio" in sensors
+        # isolation: instance 2 never computed a proposal
+        s2 = app2.cc.state()["Sensors"]
+        assert "analyzer.proposal-computation-timer" not in s2
+    finally:
+        app.stop()
+        app2.stop()

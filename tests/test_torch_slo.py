@@ -1,8 +1,8 @@
 """The port's SLO registry (cruise_control_tpu_torch.common.slo) on the CPU:
 tests/test_slo.py's 11 tests that build no service, pointed at the port
 (the SLO_BURN anomaly is the port's detector.anomalies.SloBurn, the
-scheduler the port's fleet.scheduler).  Left out: test_service_slo_surface
-and test_slo_disabled_leaves_no_registry, which build the service (item 9).
+scheduler the port's fleet.scheduler).  At the end, test_service_slo_surface
+and test_slo_disabled_leaves_no_registry, over the port's simulated service.
 The reference's notes follow.
 
 SLO registry tests (common/slo.py): burn-rate windows, once-per-
@@ -14,6 +14,8 @@ import pytest
 from cruise_control_tpu_torch.common.exposition import parse_exposition, prometheus_text
 from cruise_control_tpu_torch.common.sensors import SensorRegistry
 from cruise_control_tpu_torch.common.slo import SloRegistry, SloSpec
+import json
+import urllib.request
 
 
 class Clock:
@@ -226,3 +228,66 @@ def test_scheduler_feeds_urgent_queue_wait():
     sched.run(WorkClass.BACKGROUND, lambda: None)  # background: no sample
     (state,) = reg.tick()
     assert state["samples"] == 1 and state["badSamples"] == 0
+
+
+# ------------------------- the service's SLO surface (tests/test_slo.py :232-300)
+
+
+def test_service_slo_surface():
+    """The full wiring: a simulated service registers the SLO set, the
+    cold-start sample lands on the first proposal, GET /slo serves the
+    registry, /fleet carries the burn summary, and the exposition (with
+    the slo gauges) lints clean over HTTP."""
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+    from cruise_control_tpu_torch.service.progress import OperationProgress
+
+    app, fetcher, admin, sampler = build_simulated_service(seed=11, device="cpu")
+    app.start()
+    try:
+        cc = app.cc
+        assert cc.slo_registry is not None
+        assert cc.slo_registry.names() == [
+            "cold-start", "proposal-freshness", "streaming-publish",
+        ]
+        cc.proposals(OperationProgress())
+        state = {s["name"]: s for s in cc.slo_registry.tick()}
+        assert state["cold-start"]["samples"] == 1
+        # a second proposal must not re-record the one-shot sample
+        cc.proposals(OperationProgress(), ignore_cache=True)
+        state = {s["name"]: s for s in cc.slo_registry.tick()}
+        assert state["cold-start"]["samples"] == 1
+        # the freshness probe sees the cached proposal: a good sample
+        assert state["proposal-freshness"]["badSamples"] == 0
+        base = f"http://{app.host}:{app.port}{app.prefix}"
+        with urllib.request.urlopen(base + "/slo", timeout=30) as r:
+            body = json.loads(r.read())
+        assert body["numClusters"] == 1
+        slos = {s["name"] for s in body["clusters"]["default"]["slos"]}
+        assert "proposal-freshness" in slos
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            families = parse_exposition(r.read().decode())
+        assert "cruisecontrol_slo_burn_rate" in families
+        # /fleet rollup (single-cluster synthetic entry) carries the
+        # per-SLO burn summary
+        with urllib.request.urlopen(base + "/fleet", timeout=30) as r:
+            fleet = json.loads(r.read())
+        assert "proposal-freshness" in fleet["clusters"]["default"]["slo"]
+    finally:
+        app.stop()
+
+
+def test_slo_disabled_leaves_no_registry():
+    from cruise_control_tpu_torch.config.app_config import CruiseControlConfig
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    app, *_ = build_simulated_service(
+        CruiseControlConfig({
+            "webserver.http.port": 0, "slo.enabled": False,
+        }),
+        seed=12, device="cpu",
+    )
+    try:
+        assert app.cc.slo_registry is None
+        assert app.cc.sensors.get("slo.burn-rate") is None
+    finally:
+        app.stop()

@@ -4,12 +4,13 @@ tests/test_task_runner.py's tests of the runner's methods, pointed at the
 port: the bootstrap modes (RANGE, SINCE, RECENT), the exclusive busy
 states, training and the follower-CPU estimator's switch to the trained
 regression, and the broker window's own span in /train's range.  The JAX
-tests build the whole simulated service; the port has no service yet, so
-`_stack` wires the monitor the way the JAX package's service/main.py
-`_build_cluster_stack` does (aggregators, fetcher, regression, monitor,
-runner, with that config's defaults) and feeds it as
-`build_simulated_service` does.  The HTTP test
-(`test_bootstrap_and_train_endpoints`) waits for the service's port.
+tests build the whole simulated service; these were ported before the
+service, so `_stack` wires the monitor the way the JAX package's
+service/main.py `_build_cluster_stack` does (aggregators, fetcher,
+regression, monitor, runner, with that config's defaults) and feeds it
+as `build_simulated_service` does.  The HTTP test
+(`test_bootstrap_and_train_endpoints`) runs at the end over the port's
+simulated service.
 
 Then the runner's auto-train loop (its thread stopped in a `finally`),
 and the trained regression and the bootstrapped aggregation against the
@@ -24,6 +25,8 @@ import numpy as np
 import pytest
 
 from cruise_control_tpu_torch.monitor.load_monitor import MonitorState
+from cruise_control_tpu_torch.config import CruiseControlConfig
+from cruise_control_tpu_torch.service.main import build_simulated_service
 
 # the JAX package's config defaults (config/app_config.py) for the keys the
 # stack reads, with tests/test_task_runner.py's overrides
@@ -213,3 +216,64 @@ def test_runner_matches_jax():
         x, y = getattr(ra, f), getattr(rb, f)
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), f
     assert t.runner.state() == j.runner.state()
+
+
+# ------------------------- over HTTP through the service (tests/test_task_runner.py :19, :109)
+
+
+def _fresh_service(seed=11, **extra):
+    config = CruiseControlConfig(
+        {
+            "partition.metrics.window.ms": 1000,
+            "min.samples.per.partition.metrics.window": 1,
+            "broker.metrics.window.ms": 1000,
+            "execution.progress.check.interval.ms": 100,
+            "webserver.http.port": 0,
+            **extra,
+        }
+    )
+    return build_simulated_service(config, seed=seed, device="cpu")
+
+
+def test_bootstrap_and_train_endpoints():
+    import json
+    import urllib.request
+
+    app, fetcher, admin, sampler = _fresh_service()
+    app.cc.task_runner.regression.min_samples_to_train = 5
+    app.start()
+    try:
+        def poll(endpoint, **params):
+            q = "&".join(f"{k}={v}" for k, v in params.items())
+            url = f"http://{app.host}:{app.port}{app.prefix}/{endpoint}" + (
+                f"?{q}" if q else ""
+            )
+            req = urllib.request.Request(url, method="GET")
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                payload = json.loads(resp.read())
+                tid = resp.headers.get("User-Task-ID")
+                status = resp.status
+            deadline = time.time() + 30
+            while status == 202 and time.time() < deadline:
+                time.sleep(0.2)
+                req = urllib.request.Request(
+                    url, method="GET", headers={"User-Task-ID": tid}
+                )
+                with urllib.request.urlopen(req, timeout=30) as resp:
+                    payload = json.loads(resp.read())
+                    status = resp.status
+            return status, payload
+
+        status, payload = poll("bootstrap", start="0", end="3000")
+        assert status == 200
+        assert payload["mode"] == "RANGE" and payload["samplesAbsorbed"] > 0
+        status, payload = poll("bootstrap", start="0")
+        assert status == 200 and payload["mode"] == "SINCE"
+        status, payload = poll("train")
+        assert status == 200
+        assert payload["trained"] is True
+        # /state surfaces the training state
+        status, payload = poll("state", substates="monitor")
+        assert payload["MonitorState"]["trainingState"]["trained"] is True
+    finally:
+        app.stop()
