@@ -291,14 +291,34 @@ Phases:
      Retry-After while open, then 200 with the same proposals; cccli
      proposals and state; an executed /demote_broker polled on
      /user_tasks to its end, no leader left on the broker (check_service).
+ 28. The streaming controller on the card through the service (no new
+     kernel), from phase 23's topology and windows at the north star's
+     width, nothing cut: build_service(device="cuda") with phase 27's
+     SEARCH keys, controller.enabled=true and the prior at its defaults,
+     cycles driven by run_once().  The windows: (a) the initial reflatten,
+     (b) phase 23's x1.1 window, (c) an empty window, (d) and (e) 200
+     partitions x1.2 each, (f) every partition x1.03, (g) a broker death
+     through the metadata; every hard goal met after every cycle, 2
+     reflattens and 5 delta applies over (a)-(g), every cycle fused that
+     can be (at most 2 dispatches, one sync, no capture, one scatter_loads
+     launch), the live loads a fresh model's after each delta window;
+     GET /proposals serving the last publish with no kernel launched; (h)
+     a real OOM in a fused cycle on the loop thread, counted, the previous
+     publish served; (i) the reflatten after it; (j) start_up's loop
+     thread publishing on its own, joined by shutdown; a cold-mode service
+     byte for byte a direct optimize.  Prints each stage's walls and
+     histograms, history_snapshot's walls, the cold cycles, each cycle's
+     rounds, the streaming-publish SLO and a cProfile of one steady
+     window's host stages (check_controller).
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 
 `python3 chip_smoke.py --monitor` runs phase 1, the fixture and phase 23
 alone, and ends with a short JSON line instead of the results;
 `python3 chip_smoke.py --executor` runs phase 1, the fixture and phases 23
-and 24 so, `python3 chip_smoke.py --kafka` phases 1, 23 and 25, and
-`python3 chip_smoke.py --service` phases 1, 23 and 27.
+and 24 so, `python3 chip_smoke.py --kafka` phases 1, 23 and 25,
+`python3 chip_smoke.py --service` phases 1, 23 and 27, and
+`python3 chip_smoke.py --controller` phases 1, 23 and 28.
 
 `python3 chip_smoke.py --sticky-child` is phase 22's child alone; it
 needs the kernels built (phase 1) and leaves its process's CUDA context
@@ -3777,7 +3797,7 @@ def check_monitor(state, cfg) -> dict:
     return out, dict(metadata=metadata, monitor=monitor, aggregator=agg, capacity=capacity,
                      requirements=req, device=dev, topology=topo, payloads=payloads,
                      wire_state=wire_state, entities=ents, values=vals, hot_values=v_hot,
-                     model=got)
+                     model=got, hot=hot, topology_rows=topo_rows)
 
 
 class RecordingChain:
@@ -5143,6 +5163,455 @@ def check_service_failure(app, exact_b: dict, fresh: dict, timed) -> dict:
                 anomalies=[k.name for k in kinds], recovered_equal_to_b=True)
 
 
+#: phase 28's controller: the loop thread's poll interval, the (d) and (e)
+#: windows' partitions (200 each, in topology order) and the windows'
+#: factors
+CONTROLLER_POLL_MS = 50
+CONTROLLER_DELTA_PARTITIONS = 200
+
+
+def controller_window(seq: list, W: int, disk_col: int, mask=None, factor: float = 1.0):
+    """The samples of the next window of phase 28's aggregator, which keeps
+    `W` complete windows, so that when it completes the loads change only
+    on `mask`'s rows (all rows when `mask` is None and `factor` is not 1):
+    those rows get the newest window's samples x `factor`; every other row
+    gets the samples of the window its completion drops (so each metric's
+    mean over the kept windows holds) with the newest window's DISK (the
+    reduction's latest value).  `seq` holds every window's samples so far."""
+    import numpy as np
+
+    new = seq[-W].copy()
+    new[:, disk_col] = seq[-1][:, disk_col]
+    if factor != 1.0:
+        rows = slice(None) if mask is None else mask
+        new[rows] = seq[-1][rows] * np.float32(factor)
+    return new
+
+
+def quantile_bound(hist, q: float):
+    """The upper bound of the histogram bucket that holds quantile `q` (the
+    exposition's resolution), or None for an empty histogram."""
+    if hist is None:
+        return None
+    cum, _total, n = hist.cumulative()
+    if n == 0:
+        return None
+    for bound, c in cum:
+        if c >= q * n:
+            return bound
+    return float("inf")
+
+
+def check_controller(cfg, mon: dict, smi: str) -> dict:
+    """Phase 28: the streaming controller on the card through the service,
+    from phase 23's topology and windows at the north star's width,
+    nothing cut.  `build_service(device="cuda")` with phase 27's SEARCH
+    keys, `controller.enabled=true` and the prior at its defaults; the
+    monitor's windows filled with phase 23's samples, the x1.1 window in
+    progress; cycles driven by `run_once()`.  Windows: (a) the initial
+    reflatten; (b) phase 23's x1.1 window; (c) an empty window (plan-sized
+    to K/8: staged); (d) and (e) 200 partitions x1.2 each (plan-sized to
+    K/4: (d) staged with one capture, (e) fused); (f) every partition
+    x1.03 (fused); (g) broker 0 dies through the metadata (a reflatten,
+    "topology").  Checked after every cycle: every hard goal met, never a
+    CPU answer; over (a)-(g) 2 reflattens (initial, topology) and 5 delta
+    applies; each fused cycle at most 2 dispatches, one blocking sync, no
+    capture and one scatter_loads launch; after each delta window the live
+    loads are a fresh cluster_model's, byte for byte on the changed rows
+    and within the delta's rtol 1e-6 elsewhere.  After (f), GET /proposals
+    serves the controller's last result with no main-path kernel launched.
+    (h) A real OOM in a fused cycle run by the loop thread: counted, the
+    previous publish still served; (i) the next window reflattens
+    ("failed-cycle") and publishes; (j) `start_up()` with the loop at a
+    50 ms poll publishes after a window roll on its own and `shutdown()`
+    joins it.  A second service in cold mode (warm starts, delta and the
+    prior off) publishes a placement byte for byte a direct optimize of a
+    freshly built model.  Printed: each stage's walls and the sensors'
+    histograms, history_snapshot's wall, the cold cycles, the rounds of
+    each cycle, the streaming-publish SLO and a cProfile of one steady
+    window's host stages."""
+    import cProfile
+    import io
+    import pstats
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch import kernels
+    from cruise_control_tpu_torch.analyzer.goals import HARD_GOAL_NAMES
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.executor import SimulatedClusterAdmin
+    from cruise_control_tpu_torch.monitor import KAFKA_METRIC_DEF, StaticMetadataProvider
+    from cruise_control_tpu_torch.monitor.delta import extract_window_delta
+    from cruise_control_tpu_torch.service.main import build_service
+    from cruise_control_tpu_torch.testing import faults
+
+    dev = torch.device(mon["device"])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out: dict = {"phase": "controller", "card": smi}
+    t_phase = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-controller-"))
+    W, window_ms = MONITOR_WINDOWS, MONITOR_WINDOW_MS
+    ents, vals, hot = mon["entities"], mon["values"], mon["hot_values"]
+    disk_col = KAFKA_METRIC_DEF.metric_id("DISK_USAGE")
+    base = {
+        "tpu.num.candidates": SEARCH["num_candidates"],
+        "tpu.leadership.candidates": SEARCH["leadership_candidates"],
+        "tpu.steps.per.round": SEARCH["steps_per_round"],
+        "tpu.num.rounds": SEARCH["num_rounds"],
+        "analyzer.diagnostics.enabled": False,
+        "partition.metrics.window.ms": window_ms,
+        "num.partition.metrics.windows": W,
+        "min.samples.per.partition.metrics.window": 1,
+        "execution.progress.check.interval.ms": 100,
+        "webserver.http.address": "127.0.0.1",
+        "webserver.http.port": 0,
+        "tpu.supervisor.enabled": True,
+        "tpu.supervisor.max.retries": 0,
+        "tpu.supervisor.breaker.failure.threshold": 1,
+        "tpu.supervisor.probe.interval.s": SERVICE_PROBE_INTERVAL_S,
+        "tpu.prewarm.enabled": False,
+        "tpu.compile.cache.dir": str(tmp / "cache"),
+        "controller.enabled": True,
+        "controller.poll.interval.ms": CONTROLLER_POLL_MS,
+    }
+
+    def service(extra: dict):
+        metadata = StaticMetadataProvider(mon["topology"])
+        admin = SimulatedClusterAdmin(metadata, link_rate_bytes_per_s=1e12)
+        app, _ = build_service(CruiseControlConfig({**base, **extra}), metadata, admin, IdleSampler(),
+                               capacity_resolver=mon["capacity"], device=dev)
+        agg = app.cc.monitor.partition_aggregator
+        seq = [vals] * W + [hot]
+        for w, v in enumerate(seq):
+            check(agg.add_samples_columnar(ents, w * window_ms + window_ms // 2, v),
+                  f"the controller service's window {w} was refused")
+        return app, metadata, agg, seq
+
+    def hard_violated(res) -> list:
+        return [n for n, v in zip(res.goal_names, res.violations_after) if n in HARD_GOAL_NAMES and v > 1e-6]
+
+    app = cold_app = None
+    try:
+        t0 = time.monotonic()
+        app, metadata, agg, seq = service({})
+        cc = app.cc
+        ctl = cc.controller
+        check(ctl is not None and ctl.optimizer.device == dev and cc.monitor.device == dev,
+              "the service did not build its controller on the card")
+        check(ctl.optimizer.config == cfg, f"the controller's base config is not phase 4's: {ctl.optimizer.config}")
+        app.start()
+        out["build"] = dict(seconds=time.monotonic() - t0, prior_mix=ctl.prior.mix,
+                            plan_sizing=ctl.plan_sizing, fusion=ctl.fusion_enabled)
+        # spies: the delta triples, each stage's wall, history_snapshot's wall
+        triples, stage_walls, snapshot_walls = [], [], []
+        current = ["a"]  # the cycle the stage walls belong to
+        orig_rows, orig_observe, orig_snapshot = ctl._delta_rows, ctl._stage_observe, agg.history_snapshot
+
+        def rows_spy(delta):
+            r = orig_rows(delta)
+            triples.append(r)
+            return r
+
+        def observe_spy(name, wall_s, sp):
+            stage_walls.append((current[0], name, wall_s))
+            orig_observe(name, wall_s, sp)
+
+        def snapshot_spy():
+            t = time.monotonic()
+            r = orig_snapshot()
+            snapshot_walls.append((current[0], time.monotonic() - t))
+            return r
+
+        ctl._delta_rows, ctl._stage_observe, agg.history_snapshot = rows_spy, observe_spy, snapshot_spy
+        cycles: list = []
+        results: dict = {}
+
+        def roll(label, mask=None, factor=1.0):
+            """Add the next window's samples (phase 28's `controller_window`
+            for the window after it), completing the window before."""
+            nxt = controller_window(seq, W, disk_col, mask, factor)
+            w = len(seq)
+            check(agg.add_samples_columnar(ents, w * window_ms + window_ms // 2, nxt),
+                  f"window {w} ({label}) was refused")
+            seq.append(nxt)
+
+        def cycle(label, expect: dict):
+            current[0] = label
+            n_rows = len(triples)
+            sync()
+            kernels.reset_launches()
+            t0 = time.monotonic()
+            info = ctl.run_once()
+            sync()
+            wall = time.monotonic() - t0
+            launches = dict(kernels.LAUNCHES)
+            check(info is not None, f"cycle {label}: no window roll seen")
+            res = info["result"]
+            timing = next(h for h in res.history if h.get("timing"))
+            stats = ctl.state_json()
+            plan = ctl._opt_config.num_candidates
+            if not info["reflattened"] and ctl.plan_sizing:
+                plan = ctl._plan_config(ctl._opt_config, info["delta_partitions"]).num_candidates
+            rec = dict(cycle=label, wall_s=wall, controller_wall_s=stats["lastWallSeconds"],
+                       reflattened=info["reflattened"], reason=info.get("reflatten_reason"),
+                       delta_partitions=info["delta_partitions"], fused=info["fused"],
+                       published=info["published"], warm_start=info["warm_start"], rounds=info["rounds"],
+                       plan_candidates=plan, dispatches=info["dispatches"],
+                       blocking_syncs=timing.get("blocking_syncs"), captured=len(timing.get("captured") or []),
+                       scatter_launches=launches.get("scatter_loads", 0), proposals=len(res.proposals),
+                       objective=res.objective_after, degraded=res.degraded)
+            cycles.append(rec)
+            results[label] = res
+            for k, v in expect.items():
+                check(rec[k] == v, f"cycle {label}: {k} is {rec[k]!r}, expected {v!r}: {rec}")
+            check(info["published"] and not res.degraded and res.state_after.replica_broker.device == dev,
+                  f"cycle {label} did not publish a card answer: {rec}")
+            bad = hard_violated(res)
+            check(not bad, f"cycle {label}: hard goals violated: {bad}")
+            if info["fused"]:
+                check(stats["lastCycleDispatches"] <= 2 and rec["blocking_syncs"] == 1 and rec["captured"] == 0
+                      and (not cuda or rec["scatter_launches"] == 1),
+                      f"fused cycle {label} broke its contract: {rec}")
+            if not info["reflattened"]:
+                # the live loads against a fresh model of the same windows
+                new = triples[n_rows:]
+                check(len(new) == 1, f"cycle {label}: {len(new)} delta triples")
+                rows = new[0][0]
+                fresh = cc.monitor.cluster_model(ctl._requirements)
+                live = ctl._live.state
+                for f in ("replica_load_leader", "replica_load_follower"):
+                    a, b = getattr(live, f).cpu().numpy(), getattr(fresh, f).cpu().numpy()
+                    if rows is not None:
+                        check(a[rows].tobytes() == b[rows].tobytes(),
+                              f"cycle {label}: the changed rows' {f} differ from a fresh model's")
+                    np.testing.assert_allclose(a, b, rtol=1e-6, atol=0,
+                                               err_msg=f"cycle {label}: {f} against a fresh model")
+                rec["live_equals_fresh"] = True
+                del fresh
+            log(json.dumps({"phase": "controller_cycle", **rec}, default=str))
+            return info
+
+        order = np.asarray(mon["topology_rows"])
+        step = max(4, len(order) // (2 * CONTROLLER_DELTA_PARTITIONS))
+        set_d = np.zeros(len(ents), bool)
+        set_d[order[1::step][:CONTROLLER_DELTA_PARTITIONS]] = True
+        set_e = np.zeros(len(ents), bool)
+        set_e[order[3::step][:CONTROLLER_DELTA_PARTITIONS]] = True
+        K = cfg.num_candidates
+
+        # (a) the reflatten; each roll adds the samples of the window that
+        # completes at the roll after it
+        cycle("a", dict(reflattened=True, reason="initial", fused=False, plan_candidates=K))
+        # (b) phase 23's x1.1 window completes
+        roll("b")
+        info_b = cycle("b", dict(reflattened=False, fused=True, plan_candidates=K,
+                                 delta_partitions=int(mon["hot"].sum())))
+        # (c) an empty window: plan-sized to K/8, a new width, so staged
+        roll("c", set_d, 1.2)
+        cycle("c", dict(reflattened=False, fused=False, delta_partitions=0, plan_candidates=K // 8))
+        # (d) and (e): 200 partitions x1.2 each, K/4: staged once, then fused
+        roll("d", set_e, 1.2)
+        cycle("d", dict(reflattened=False, fused=False, delta_partitions=CONTROLLER_DELTA_PARTITIONS,
+                        plan_candidates=K // 4))
+        if cuda:
+            check(all(c["captured"] > 0 for c in cycles if c["cycle"] in ("a", "c", "d")),
+                  "a new plan width did not capture its engine")
+        roll("e", None, 1.03)
+        cycle("e", dict(reflattened=False, fused=True, delta_partitions=CONTROLLER_DELTA_PARTITIONS,
+                        plan_candidates=K // 4))
+        # (f) every partition x1.03: full width, fused
+        roll("f")
+        prev_f, prev_f_red = ctl._index.history, ctl._index.reduced
+        info_f = cycle("f", dict(reflattened=False, fused=True, plan_candidates=K,
+                                 delta_partitions=len(mon["topology"].partitions)))
+        # GET /proposals serves (f)'s result with no main-path kernel launched
+        sync()
+        kernels.reset_launches()
+        st, body, _, _ = http_call(app, "GET", "/proposals")
+        sync()
+        req_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        served_state = cc.state(["analyzer", "controller"])
+        check(st == 200 and served_state["AnalyzerState"]["proposalSource"] == "controller",
+              f"/proposals after (f) answered {st}, source {served_state['AnalyzerState'].get('proposalSource')}")
+        check(cc._valid_cache() is info_f["result"]
+              and body["proposals"] == [p.to_json() for p in info_f["result"].proposals[:100]]
+              and body["numReplicaMovements"] == info_f["result"].summary()["numReplicaMovements"],
+              "the served proposals are not the controller's last result")
+        check(not req_launches, f"/proposals launched kernels: {req_launches}")
+        out["served"] = dict(status=st, proposals=len(info_f["result"].proposals), launches=req_launches,
+                             source="controller")
+        # the host stages of window (f), profiled: history_snapshot,
+        # extract_window_delta and _delta_rows on the same snapshots
+        t0 = time.monotonic()
+        cur = orig_snapshot()
+        t1 = time.monotonic()
+        delta = extract_window_delta(prev_f, cur, KAFKA_METRIC_DEF, prev_reduced=prev_f_red)
+        t2 = time.monotonic()
+        orig_rows(delta)
+        out["host_stages_f"] = dict(history_snapshot_s=t1 - t0, extract_window_delta_s=t2 - t1,
+                                    delta_rows_s=time.monotonic() - t2)
+        prof = cProfile.Profile()
+        t0 = time.monotonic()
+        prof.enable()
+        cur = orig_snapshot()
+        delta = extract_window_delta(prev_f, cur, KAFKA_METRIC_DEF, prev_reduced=prev_f_red)
+        orig_rows(delta)
+        prof.disable()
+        profiled_s = time.monotonic() - t0
+        buf = io.StringIO()
+        # Python 3.12's profiler also records calls of the service's other
+        # threads (the HTTP server's selector, the SLO ticker): left out
+        pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(
+            r"^(?!.*(selectors|select\.poll|threading|socket|sleep|\bwait\b)).*$", 15)
+        log(f"phase 28 host stages of window (f) under cProfile ({profiled_s:.3f} s):\n{buf.getvalue()}")
+        out["host_profile_s"] = profiled_s
+        # (g) broker 0 dies through the metadata: a reflatten
+        topo = metadata.topology()
+        metadata.set_topology(dataclasses.replace(topo, brokers=tuple(
+            dataclasses.replace(b, alive=b.broker_id != 0) for b in topo.brokers)))
+        roll("g", None, 1.03)
+        info_g = cycle("g", dict(reflattened=True, reason="topology", fused=False, warm_start=False))
+        after = info_g["result"].state_after
+        left = int((after.replica_valid & (after.replica_broker == 0)).sum())
+        check(left == 0, f"{left} replicas left on the dead broker after (g)")
+        stats = ctl.state_json()
+        check(stats["fullReflattens"] == 2 and stats["fullReflattensByReason"] == {"initial": 1, "topology": 1}
+              and stats["deltaApplies"] == 5,
+              f"over (a)-(g): {stats['fullReflattens']} reflattens {stats['fullReflattensByReason']}, "
+              f"{stats['deltaApplies']} delta applies")
+        # (h) a real OOM in a fused cycle (every partition x1.03, full
+        # width), run by the loop thread
+        roll("h")
+        current[0] = "h (loop thread)"
+        served_g = cc._valid_cache()
+        t0 = time.monotonic()
+
+        def stop_then_oom(op, fn, args, kwargs):
+            # the loop ends after this cycle: the next window is (i)'s, run by run_once
+            ctl._stop.set()
+            return real_oom(op, fn, args, kwargs)
+
+        with faults.device_fault(stop_then_oom, ops=("engine.cycle",), schedule=faults.first(1)) as fl:
+            ctl.start()
+            ctl._thread.join(120)
+            ctl.stop(timeout_s=60)
+        stats = ctl.state_json()
+        check(fl.fired == {"engine.cycle": 1} and stats["loopFailures"] == 1
+              and "out of memory" in (stats["lastError"] or "").lower(),
+              f"the OOM in the fused cycle: fired {fl.fired}, {stats['loopFailures']} failures, {stats['lastError']}")
+        st, body, _, _ = http_call(app, "GET", "/proposals")
+        check(st == 200 and cc._valid_cache() is served_g is info_g["result"]
+              and body["proposals"] == [p.to_json() for p in served_g.proposals[:100]],
+              "after the OOM /proposals does not serve (g)'s publish")
+        out["oom"] = dict(seconds=time.monotonic() - t0, error=stats["lastError"][:200],
+                          loop_failures=stats["loopFailures"], served="g")
+        # (i) the next window reflattens and publishes
+        roll("i")
+        info_i = cycle("i", dict(reflattened=True, reason="failed-cycle", fused=False))
+        fresh = cc.monitor.cluster_model(ctl._requirements)
+        check(all(torch.equal(getattr(ctl._live.state, f), getattr(fresh, f))
+                  for f in ("replica_load_leader", "replica_load_follower")),
+              "the reflatten after the OOM does not hold a fresh model's loads")
+        del fresh, info_i
+        # (j) the loop thread on its own, through start_up and shutdown
+        rolls, published = ctl.state_json()["windowRolls"], ctl.state_json()["proposalsPublished"]
+        cc.start_up(detection_interval_s=3600)
+        check(ctl.running, "start_up did not start the controller")
+        thread = ctl._thread
+        current[0] = "j (loop thread)"
+        roll("j")
+        t0 = time.monotonic()
+        while ctl.state_json()["proposalsPublished"] == published and time.monotonic() - t0 < 120:
+            time.sleep(0.01)
+        publish_wall = time.monotonic() - t0
+        cc.shutdown()
+        thread.join(60)
+        stats = ctl.state_json()
+        check(stats["windowRolls"] == rolls + 1 and stats["proposalsPublished"] == published + 1
+              and not ctl.running and not thread.is_alive(),
+              f"the loop thread: {stats['windowRolls'] - rolls} rolls, "
+              f"{stats['proposalsPublished'] - published} publishes, running {ctl.running}")
+        out["loop_thread"] = dict(publish_after_roll_s=publish_wall, poll_ms=CONTROLLER_POLL_MS,
+                                  joined=True)
+        ctl._delta_rows, ctl._stage_observe, agg.history_snapshot = orig_rows, orig_observe, orig_snapshot
+
+        # what the run measured
+        stages = {}
+        for stage in ("window-roll-to-publish", "delta-extract", "scatter", "anneal", "host-extract",
+                      "publish"):
+            h = cc.sensors.get(f"controller.{stage}-seconds")
+            stages[stage] = dict(count=h.count if h else 0, p50_le=quantile_bound(h, 0.5),
+                                 p99_le=quantile_bound(h, 0.99),
+                                 walls={c: w for c, n, w in stage_walls if n == f"controller.{stage}-seconds"}
+                                 if stage != "window-roll-to-publish" else
+                                 {c["cycle"]: c["controller_wall_s"] for c in cycles})
+        stats = ctl.state_json()
+        slo = [s for s in cc.slo_registry.state_json()["slos"] if s.get("name") == "streaming-publish"] \
+            if cc.slo_registry is not None else []
+        out["stages"] = stages
+        out["history_snapshot_s"] = dict(snapshot_walls)
+        out["cold"] = dict(coldCycleSeconds=stats["coldCycleSeconds"],
+                           fusedColdCycleSeconds=stats["fusedColdCycleSeconds"])
+        out["rounds"] = {c["cycle"]: c["rounds"] for c in cycles}
+        out["slo_streaming_publish"] = slo
+        out["stats"] = {k: v for k, v in stats.items() if k != "prior"}
+        out["prior"] = stats["prior"]
+        app.stop()
+        for engine in cc.optimizer._engines.values():
+            engine.release()
+        app = None
+        del results, info_b, info_f, info_g, served_g
+        torch.cuda.empty_cache() if cuda else None
+
+        # cold mode: one window, byte for byte a direct optimize
+        cold_app, _, _, _ = service({"controller.warm.start.enabled": False, "controller.delta.enabled": False,
+                                     "controller.prior.mix": 0.0})
+        ccc = cold_app.cc
+        t0 = time.monotonic()
+        info = ccc.controller.run_once()
+        sync()
+        cold_wall = time.monotonic() - t0
+        check(info is not None and info["reflattened"] and info["published"], "the cold cycle did not publish")
+        fresh = ccc.monitor.cluster_model(ccc.controller._requirements)
+        t0 = time.monotonic()
+        direct = ccc.optimizer.optimize(fresh, options=ccc._build_options(fresh))
+        sync()
+        direct_wall = time.monotonic() - t0
+        same = {f: bool(torch.equal(getattr(info["result"].state_after, f), getattr(direct.state_after, f)))
+                for f in PLACEMENT}
+        check(all(same.values()), f"the cold cycle's placement is not a direct optimize's: {same}")
+        check(not hard_violated(info["result"]), "the cold cycle violates hard goals")
+        out["cold_mode"] = dict(cycle_s=cold_wall, direct_optimize_s=direct_wall, equal_to_optimize=True,
+                                rounds=info["rounds"], proposals=len(info["result"].proposals))
+        del info, fresh, direct
+    except BaseException as e:
+        out["failed"] = repr(e)
+        out["cycles"] = cycles if "cycles" in locals() else []
+        log(json.dumps(out, default=str))
+        raise
+    finally:
+        for a in (app, cold_app):
+            if a is not None:
+                a.stop()
+                a.cc.shutdown()
+                for engine in a.cc.optimizer._engines.values():
+                    engine.release()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["cycles"] = cycles
+    out["seconds"] = time.monotonic() - t_phase
+    out["within_budget_150_s"] = out["seconds"] <= 150.0
+    log(json.dumps(out, default=str))
+    return out
+
+
 def config2_fingerprint(state, chain) -> str:
     """bench.py's _baseline_fingerprint: the identity of the (cluster,
     goal chain) a committed greedy baseline was built for, on the host
@@ -5292,7 +5761,7 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--sticky-child"]:
         return sticky_child()
-    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"], ["--service"]):
+    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"], ["--service"], ["--controller"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -5358,6 +5827,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_service(cfg, monitored, smi)
         print(json.dumps({"ok": True, "phases": [1, 23, 27]}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--controller"]:
+        _, monitored = check_monitor(state, cfg)
+        del state
+        torch.cuda.empty_cache()
+        check_controller(cfg, monitored, smi)
+        print(json.dumps({"ok": True, "phases": [1, 23, 28]}), flush=True)
         return 0
 
     # phase 2: kernels against their plain versions on one real step
@@ -5497,6 +5973,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 27: the REST service on the card over phase 23's cluster
     check_service(cfg, monitored, smi)
+    torch.cuda.empty_cache()
+    # phase 28: the streaming controller through the service, phase 23's
+    # cluster and windows
+    check_controller(cfg, monitored, smi)
     del monitored
     torch.cuda.empty_cache()
 

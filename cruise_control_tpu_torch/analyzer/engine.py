@@ -1035,6 +1035,27 @@ class Engine:
         self.statics = statics
         return self
 
+    def bound_to(self, state: ClusterState, options: OptimizationOptions) -> bool:
+        """True when the last rebind was of `state`'s generation under
+        equal `options`: the same tensors in every field but the two load
+        tables (a streaming cycle passes the loads itself) and the same
+        option masks.  Another cluster of the bucket, a re-flatten of this
+        one, or a request with options of its own rebinds the engine, and
+        then this is False.  Ask under the run lock (`locked`), so that no
+        rebind comes between the answer and the run."""
+        bound, bound_options, _ = self._bound_args
+        if any(getattr(bound, f.name) is not getattr(state, f.name)
+               for f in dataclasses.fields(state)
+               if f.name not in ("replica_load_leader", "replica_load_follower")):
+            return False
+        if bound_options is options:
+            return True
+        for f in dataclasses.fields(options):
+            a, b = getattr(bound_options, f.name), getattr(options, f.name)
+            if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+                return False
+        return True
+
     def rebind_prior(self, prior) -> None:
         """Refresh only the learned prior (the streaming controller's
         per-window refresh): its CDF and mix, computed on the host from the

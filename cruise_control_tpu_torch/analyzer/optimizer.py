@@ -184,6 +184,10 @@ class GoalOptimizer:
     (common/profiling.py `profiler_trace`).
     """
 
+    #: the engine layer this optimizer runs on; the mesh modes are ROADMAP
+    #: queue 1 item 10, and the service refuses them until then
+    parallel_mode = "single"
+
     def __init__(
         self,
         chain: GoalChain = DEFAULT_CHAIN,
@@ -695,9 +699,11 @@ class GoalOptimizer:
 
         `state` is the live state (models/whatif.py LiveState): the cycle
         runs on the engine that the last `optimize` of (state.shape,
-        config) bound, which keeps that generation's statics (the live
-        cluster's, unchanged between reflattens), and `options`
-        is accepted for the staged path's signature only.  `rows`,
+        config) bound, and only while that engine is still bound to this
+        live state under equal `options` (`Engine.bound_to`), since it runs
+        on the statics of its last rebind: another cluster of the bucket,
+        a re-flatten, or a request with options of its own may have
+        rebound it since.  `rows`,
         `leader_loads` and `follower_loads` are the window (i32[n] replica
         rows, f32[n, 4] each); `initial_placement` the warm start, device
         tensors of the state's dtypes (a previous result's state_after
@@ -707,7 +713,8 @@ class GoalOptimizer:
         Returns `(OptimizerResult, (new_ll, new_fl))`: `state`'s own load
         tensors, scattered in place, which the caller adopts as the live
         pair (`LiveState.adopt_loads`); or None when that engine is not
-        cached (none was bound, or it was evicted) — the caller then
+        cached (none was bound, or it was evicted) or is bound to another
+        state or other options, before any scatter — the caller then
         takes the staged path
         (`LiveState.set_partition_loads` + `optimize`), which builds and
         caches one, so the NEXT cycle goes fused.
@@ -738,11 +745,14 @@ class GoalOptimizer:
             engine = None if rf is None else self._pin((state.shape, rf, cfg))
             if engine is None:
                 return None
-            self.engine_cache_hits += 1
-        self._sense_cache(True)
         t0 = time.monotonic()
         try:
             with engine.locked():
+                if not engine.bound_to(state, options):
+                    return None
+                with self._cache_lock:
+                    self.engine_cache_hits += 1
+                self._sense_cache(True)
                 engine.rebind_prior(prior)
                 ll, fl, out, history = engine.run_cycle(
                     state.replica_load_leader, state.replica_load_follower, rows, leader_loads,

@@ -28,11 +28,15 @@ class DispatchMeter:
     def __init__(self):
         self.counts: dict[str, int] = {}
 
+    @property
+    def total(self) -> int:
+        return sum(self.counts.values())
+
     def count(self, tag: str, n: int = 1) -> None:
         self.counts[tag] = self.counts.get(tag, 0) + n
 
     def __repr__(self) -> str:
-        return f"DispatchMeter(counts={self.counts})"
+        return f"DispatchMeter(total={self.total}, counts={self.counts})"
 
 
 def count_dispatch(tag: str, n: int = 1) -> None:

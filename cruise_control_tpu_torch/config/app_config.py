@@ -11,9 +11,9 @@ TPU-specific knobs (candidate batch etc.) are new keys under the
 The same keys, defaults, validators and messages as the JAX package's
 config/app_config.py, `tpu.*` names included, so one properties file loads
 in both packages with the same values.  The accessors build this
-package's objects.  Two key families parse but have no counterpart here
-yet, and the service refuses them (service/facade.py): a `tpu.parallel.mode`
-other than "single" and `controller.enabled=true`.
+package's objects.  One key parses but has no counterpart here yet, and
+the service refuses it (service/facade.py): a `tpu.parallel.mode` other
+than "single".
 `tpu.prewarm.aot.enabled` parses and has no effect.
 """
 

@@ -16,10 +16,11 @@ evaluator and rightsizer run on it, and the monitor builds its models
 there (service/main.py resolves it once).  On the card a supervised
 route that fails raises `DeviceDegradedError` or `BreakerOpenError`
 (common/device_watchdog.py), which the REST layer answers with a 503; no
-work of the card is answered on the CPU.  Two modes of the JAX package
-are not in this package yet and are refused with a `ConfigException`
-naming the key: a `tpu.parallel.mode` other than "single" (the mesh
-engine layer) and `controller.enabled=true` (the streaming controller).
+work of the card is answered on the CPU.  One mode of the JAX package is
+not in this package yet and is refused with a `ConfigException` naming
+the key: a `tpu.parallel.mode` other than "single" (the mesh engine
+layer, ROADMAP queue 1 item 10).  `controller.enabled=true` builds the
+streaming controller (controller/streaming.py) on the facade's device.
 """
 
 from __future__ import annotations
@@ -74,19 +75,14 @@ log = logging.getLogger(__name__)
 
 def refuse_unported_modes(config: CruiseControlConfig) -> None:
     """Raise `ConfigException` for a mode the JAX package runs and this
-    package does not have yet; the config itself parses both as the JAX
-    package does."""
+    package does not have yet (the mesh modes, ROADMAP queue 1 item 10);
+    the config itself parses them as the JAX package does."""
     mode = config.parallel_mode()
     if mode != "single":
         raise ConfigException(
             f"tpu.parallel.mode={mode!r} is not supported by this package "
             "yet: only 'single' runs (the mesh engine layer is ROADMAP "
             "queue 1 item 10)"
-        )
-    if config.get("controller.enabled"):
-        raise ConfigException(
-            "controller.enabled=true is not supported by this package yet: "
-            "the streaming controller is ROADMAP queue 1 slice 20"
         )
 
 
@@ -636,6 +632,12 @@ class CruiseControl:
         #: prewarm would otherwise re-pad).  In a fleet, every cluster
         #: facade builds its own instance from its cluster config.
         self.controller = None
+        if config.get("controller.enabled"):
+            from cruise_control_tpu_torch.controller.streaming import (
+                StreamingController,
+            )
+
+            self.controller = StreamingController(self)
         self._compile_cache_reported = False
         #: set once the boot-time manifest prewarm has ENQUEUED its
         #: engines (compiles continue on the warm pool); pre-set so

@@ -2,9 +2,9 @@
 the convergence diagnostics it records, on the CPU: tests/test_ledger.py's 6
 tests that build no service and no mesh, pointed at the port (the engines
 on the CPU).  Left out: test_diagnostics_byte_parity_mesh (the mesh, item
-10) and test_controller_first_publish_excluded_from_calibration (the
-streaming controller, slice 20).  The four that build the service or the
-fleet are at the end, over the port's simulated service.  The port
+10).  The five that build the service or the fleet are at the end, over
+the port's simulated service, the streaming controller's
+test_controller_first_publish_excluded_from_calibration among them.  The port
 adds test_card_result_record_costs_one_transfer: a decision record built
 from a result on the card costs one device-to-host transfer, and its JSON
 is the CPU copy's but for wallSeconds (marked cuda; it skips without a
@@ -431,3 +431,26 @@ def test_fleet_two_cluster_ledger_isolation(tmp_path):
     for cid in ("east", "west"):
         assert rollup["clusters"][cid]["ledger"]["recordsWritten"] >= 1
         assert "calibration" in rollup["clusters"][cid]
+
+
+def test_controller_first_publish_excluded_from_calibration(tmp_path):
+    """(tests/test_ledger.py:364) The controller's first (cold-capture)
+    publish is calibration-ineligible — a restart can never fire a
+    spurious MODEL_DRIFT — while later publishes are eligible."""
+    app, fetcher, admin, sampler = _ledger_service(
+        tmp_path, extra={"controller.enabled": "true"}
+    )
+    cc = app.cc
+    ctl = cc.controller
+    parts = sampler.all_partition_entities()
+    for w in range(4, 6):
+        fetcher.fetch_once(parts, w * 1000, (w + 1) * 1000 - 1)
+        assert ctl.run_once() is not None
+    entries = cc.ledger_entries()
+    flags = [
+        e["decision"]["calibrationEligible"]
+        for e in entries
+        if e["decision"]["source"] == "controller"
+    ]
+    # newest first: the LAST publish is eligible, the FIRST is not
+    assert flags[-1] is False and flags[0] is True

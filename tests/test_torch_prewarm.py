@@ -10,8 +10,7 @@ an engine has no graphs: the warm pool allocates its run's buffers, which
 the first request then uses.  The JAX package's AOT-artifact tests have no
 counterpart in the port (ROADMAP.md); its two service tests that set no
 `controller.enabled` are at the end (marked slow, as in the JAX package),
-and test_controller_first_cycle_waits_for_boot_gate waits for the
-streaming controller (slice 20).
+and test_controller_first_cycle_waits_for_boot_gate after them.
 """
 
 import dataclasses
@@ -507,3 +506,29 @@ def test_fleet_facades_merge_one_manifest_and_both_prewarm(tmp_path):
     assert opt.has_engine_for(shapes["east"]), "east bucket not prewarmed"
     assert opt.has_engine_for(shapes["south"]), "south bucket not prewarmed"
     fleet2.shutdown()
+
+
+def test_controller_first_cycle_waits_for_boot_gate(tmp_path):
+    """(tests/test_prewarm.py:461) The controller thread starts at once
+    (running=True) but its first cycle waits for the boot gate, so the
+    manifest's captures are in flight before it takes ownership of
+    proposal publishing."""
+    tmp = str(tmp_path)
+    app, fetcher, admin, sampler = _service(
+        {"controller.enabled": True, "controller.poll.interval.ms": 50}, tmp
+    )
+    cc = app.cc
+    ctl = cc.controller
+    gate = threading.Event()
+    ctl.start(boot_gate=gate)
+    assert ctl.running
+    parts = sampler.all_partition_entities()
+    fetcher.fetch_once(parts, 4000, 4999)  # a rolled window is waiting
+    time.sleep(0.5)
+    assert ctl._stats["windowRolls"] == 0, "cycle ran before the boot gate"
+    gate.set()
+    deadline = time.monotonic() + 30
+    while ctl._stats["windowRolls"] == 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert ctl._stats["windowRolls"] >= 1
+    cc.shutdown()

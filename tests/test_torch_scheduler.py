@@ -11,8 +11,7 @@ each docstring's first line is the JAX test's); with the device
 supervisor, its pause-clock test (:438), the three `device_slowdown`
 tests (:575-:636) and the slow chaos gate (:638) are here too, at the
 end; then its service tests (:483-:828) over the port's simulated
-service; test_controller_cycle_sheds_counted waits for the streaming
-controller (slice 20, ROADMAP.md).  The port adds what only it has: the same-bucket
+service, test_controller_cycle_sheds_counted (:829) with them.  The port adds what only it has: the same-bucket
 preemption through one GoalOptimizer, where the paused run lets go of the
 engine that the urgent run needs (analyzer/engine.py `_let_go`), the fast
 path and the shed ladder around real optimize calls, and the brownout
@@ -1021,5 +1020,34 @@ def test_self_healing_fix_dispatches_urgent():
         assert cc.actions.rebalance("test-fix") is True
         assert cc.scheduler.stats["dispatches"]["urgent"] >= 1
         assert cc.scheduler.stats["sheds"]["urgent"] == 0
+    finally:
+        app.stop()
+
+
+def test_controller_cycle_sheds_counted(monkeypatch):
+    """(tests/test_scheduler.py:829) A shed controller cycle is counted and
+    skipped — never silent, never a crash."""
+    from cruise_control_tpu_torch.service.main import build_simulated_service
+
+    app, fetcher, admin, sampler = build_simulated_service(
+        _scheduler_service_config(**{"controller.enabled": "true"}), device="cpu"
+    )
+    try:
+        cc = app.cc
+        ctrl = cc.controller
+        assert ctrl is not None
+
+        def always_shed(work_class, fn, **kw):
+            if work_class is WorkClass.BACKGROUND:
+                cc.scheduler.shed_background(op=kw.get("op", ""))
+                raise BackgroundShedError("injected")
+            return fn()
+
+        monkeypatch.setattr(cc.scheduler, "run", always_shed)
+        info = ctrl.run_once()
+        assert info is not None and info.get("shed") is True
+        assert ctrl.state_json()["cyclesShed"] == 1
+        assert cc.sensors.counter("controller.cycles-shed").count == 1
+        assert cc.scheduler.stats["sheds"]["background"] == 1
     finally:
         app.stop()

@@ -8,8 +8,11 @@ the CPU.
   heals the same request answers 200.  No CPU answer stands in for the
   card's work (the "card" is the CPU read as another device, as in
   tests/test_torch_faults.py's `on_a_card`).
-- The modes not yet in the port (a parallel mode other than "single",
-  `controller.enabled=true`) parse and are refused by the builders.
+- The mode not yet in the port (a parallel mode other than "single")
+  parses and is refused by the builders; `controller.enabled=true` builds
+  the streaming controller on the service's device, in a fleet too, and on
+  the card (marked cuda) a reflatten and a fused cycle publish what
+  /proposals serves.
 - Without CUDA and without a device, every builder and `main` raise.
 - Over testing/fake_kafka.py the facade throttles topics by their real
   names (the JAX facade names them by dense id, ROADMAP queue 3).
@@ -134,7 +137,6 @@ def test_card_route_failure_answers_503_then_recovers(monkeypatch):
 @pytest.mark.parametrize("props,key", [
     ({"tpu.parallel.mode": "sharded"}, "tpu.parallel.mode"),
     ({"tpu.parallel.mode": "grid:2x2"}, "tpu.parallel.mode"),
-    ({"controller.enabled": "true"}, "controller.enabled"),
 ])
 def test_builders_refuse_modes_not_yet_ported(props, key):
     config = CruiseControlConfig({**PROPS, **props})  # parses, as in the JAX package
@@ -144,6 +146,72 @@ def test_builders_refuse_modes_not_yet_ported(props, key):
     assert "ROADMAP queue 1" in str(e.value)
     with pytest.raises(ConfigException, match=key):
         service_main.build_simulated_fleet(props, device="cpu")
+
+
+def test_controller_enabled_builds_the_controller_on_the_service_device():
+    """`controller.enabled=true` builds a StreamingController on the
+    service's device, through build_simulated_service and in each of
+    build_simulated_fleet's cluster facades, and GET /fleet carries each
+    cluster's `controller` block."""
+    from cruise_control_tpu_torch.controller import StreamingController
+
+    config = CruiseControlConfig({**PROPS, "controller.enabled": "true"})
+    app, *_ = build_simulated_service(config, device="cpu")
+    try:
+        ctl = app.cc.controller
+        assert isinstance(ctl, StreamingController)
+        assert ctl.optimizer is app.cc.optimizer and ctl.optimizer.device == torch.device("cpu")
+        assert ctl.monitor.device == torch.device("cpu")
+    finally:
+        app.stop()
+    app, fleet = service_main.build_simulated_fleet({"controller.enabled": "true"}, device="cpu")
+    try:
+        app.start()
+        for cid in fleet.contexts:
+            cc = fleet.facade(cid)
+            assert isinstance(cc.controller, StreamingController)
+            assert cc.controller.cc is cc and cc.controller.optimizer.device == torch.device("cpu")
+        status, body, _ = _get(app, "/fleet")
+        assert status == 200
+        for cid in fleet.contexts:
+            block = body["clusters"][cid]["controller"]
+            assert block["running"] is False and block["windowRolls"] == 0
+    finally:
+        fleet.shutdown()
+        app.stop()
+
+
+@pytest.mark.cuda
+def test_controller_on_the_card_reflattens_then_fuses_and_serves():
+    """On the card: a small simulated service with the controller; its first
+    window reflattens, its second goes fused with at most two dispatches,
+    and /proposals serves the controller's publish."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    config = CruiseControlConfig({**PROPS, "controller.enabled": "true"})
+    app, fetcher, admin, sampler = build_simulated_service(config, device="cuda")
+    try:
+        app.start()
+        cc = app.cc
+        ctl = cc.controller
+        assert ctl.optimizer.device.type == "cuda"
+        parts = sampler.all_partition_entities()
+        infos = []
+        for w in (4, 5):
+            sampler.drift(1.05)
+            fetcher.fetch_once(parts, w * 1000, (w + 1) * 1000 - 1)
+            infos.append(ctl.run_once())
+        assert infos[0]["reflattened"] and infos[0]["reflatten_reason"] == "initial"
+        assert not infos[1]["reflattened"] and infos[1]["fused"]
+        stats = ctl.state_json()
+        assert stats["lastCycleDispatches"] <= 2 and stats["fusedCycles"] == 1
+        assert ctl._live.state.replica_load_leader.device.type == "cuda"
+        status, body, _ = _get(app, "/proposals")
+        assert status == 200
+        assert cc.state(["analyzer"])["AnalyzerState"]["proposalSource"] == "controller"
+        assert body["proposals"] == [p.to_json() for p in infos[1]["result"].proposals[:100]]
+    finally:
+        app.stop()
 
 
 def test_no_cuda_and_no_device_raises():
