@@ -310,6 +310,15 @@ Phases:
      histograms, history_snapshot's walls, the cold cycles, each cycle's
      rounds, the streaming-publish SLO and a cProfile of one steady
      window's host stages (check_controller).
+ 29. The replicated mesh (parallel/mesh.py): (a) the candidates kernel's
+     lane slices at n = 2, 4 and 8, concatenated, bit for bit the full-K
+     launch on one real step of the default, prior and bf16 kinds (the
+     north star) and the intra kind (configuration 3's JBOD cluster), each
+     slice against its plain version's, the slice launches timed at K/2
+     and K/4 (check_mesh_slices); (b) a 1x1 rank group over NCCL at the
+     north star: placements, objective and history bit for bit the
+     single-device engine's, no collective, the group's start-up and a
+     repeated run's wall against the plain engine's (check_mesh_one_card).
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 final JSON line naming the device.
 
@@ -317,8 +326,14 @@ final JSON line naming the device.
 alone, and ends with a short JSON line instead of the results;
 `python3 chip_smoke.py --executor` runs phase 1, the fixture and phases 23
 and 24 so, `python3 chip_smoke.py --kafka` phases 1, 23 and 25,
-`python3 chip_smoke.py --service` phases 1, 23 and 27, and
-`python3 chip_smoke.py --controller` phases 1, 23 and 28.
+`python3 chip_smoke.py --service` phases 1, 23 and 27,
+`python3 chip_smoke.py --controller` phases 1, 23 and 28, and
+`python3 chip_smoke.py --mesh` phases 1 and 29; with four cards or more it
+adds (c): 1x4, 2x2 and 4x1 at the north star over NCCL, 1x4 bit for bit the
+single-device engine, every portfolio and grid chain bit for bit a
+one-card run from its key, the carries of each model row bitwise equal,
+and the collective bytes and count a step, walls and syncs
+(check_mesh_cards).
 
 `python3 chip_smoke.py --sticky-child` is phase 22's child alone; it
 needs the kernels built (phase 1) and leaves its process's CUDA context
@@ -5690,6 +5705,280 @@ def check_config2() -> dict:
     return out
 
 
+def slice_kinds(eng, ln) -> tuple:
+    """The valid lanes of a slice's outputs (a lane below its kind's K):
+    bool masks over the bundle, the relocation rows, the leadership rows
+    and the took-the-prior mask."""
+    import torch
+
+    def valid(base, n, k):
+        return torch.arange(base, base + n) < k
+
+    vr, vs, vl = valid(ln.base_r, ln.n_r, eng.K_r), valid(ln.base_s, ln.n_s, eng.K_s), valid(
+        ln.base_l, ln.n_l, eng.K_l)
+    return torch.cat([vr, vs, vl]), torch.cat([vr, vs, vs]), vl, vr
+
+
+def concat_slices(eng, parts) -> dict:
+    """The full-K outputs from n slices' (lanes, outputs): each kind's lanes
+    of every slice in order, the lanes past K dropped."""
+    import torch
+
+    def kinds(x, ln, rows):
+        a, b = ln.n_r, ln.n_r + ln.n_s
+        if rows == "payl":
+            return (x,)
+        if rows == "payr":
+            return x[:a], x[a:b], x[b:]
+        return x[:a], x[a:b], x[b:]
+
+    sizes = {"out": (eng.K_r, eng.K_s, eng.K_l), "payr": (eng.K_r, eng.K_s, eng.K_s),
+             "payl": (eng.K_l,)}
+    out: dict = {}
+    for grp, fields in (("out", ("delta", "feas", "accept", "src", "dst", "part1", "part2")),
+                        ("payr", tuple(parts[0][1]["payr"])), ("payl", tuple(parts[0][1]["payl"]))):
+        for f in fields:
+            segs = [kinds(p[f] if grp == "out" else p[grp][f], ln, grp) for ln, p in parts]
+            out[(grp, f)] = torch.cat([torch.cat([s[k] for s in segs])[:sizes[grp][k]]
+                                       for k in range(len(sizes[grp]))])
+    if parts[0][1]["from_prior"] is not None:
+        out[("out", "from_prior")] = torch.cat([p["from_prior"] for _, p in parts])[:eng.K_r]
+    return out
+
+
+def bits(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def check_slice_variant(eng, cap, label: str) -> dict:
+    """Phase 29 (a) for one kind: the candidates kernel at n = 2, 4 and 8
+    slices, concatenated, bit for bit the full-K launch on one real step;
+    each slice against its plain version's slice (ids, masks, payload and
+    acceptance exact; deltas bit for bit wherever the full-K launch's are,
+    the rest within the delta bar); the slice launches timed at K/2 and K/4."""
+    import torch
+
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
+
+    (c_args, c_kw), = cap.calls["candidates"]
+    cp = c_args[0]
+    full = cand_k.candidates(*c_args, **c_kw)
+    full = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in full.items()}
+    plain = cand_k.candidates_plain(*c_args, **c_kw)
+    same_full = int((bits(full["delta"]) == bits(plain["delta"])).sum())
+    rec = dict(name=label, K=[cp.K_r, cp.K_s, cp.K_l], full_delta_bits_equal=same_full, n={})
+    flat = {("out", k): full[k] for k in ("delta", "feas", "accept", "src", "dst", "part1", "part2")}
+    flat.update({("payr", k): v for k, v in full["payr"].items()})
+    flat.update({("payl", k): v for k, v in full["payl"].items()})
+    if full["from_prior"] is not None:
+        flat[("out", "from_prior")] = full["from_prior"]
+    for n in (2, 4, 8):
+        parts, same, worst = [], 0, 0.0
+        for j in range(n):
+            ln = cand_k.Lanes.shard(cp, j, n)
+            ks = cand_k.candidates(*c_args, **c_kw, lanes=ln)
+            ks = dict(ks, payr=dict(ks["payr"]), payl=dict(ks["payl"]))
+            ks = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in ks.items()}
+            ps = cand_k.candidates_plain(*c_args, **c_kw, lanes=ln)
+            vb, vr, vl, vp = (m.to(ks["delta"].device) for m in slice_kinds(eng, ln))
+            for f in ("feas", "accept", "src", "dst", "part1", "part2"):
+                check(torch.equal(ks[f][vb], ps[f][vb]), f"{label} n={n} j={j}: slice {f} differs from plain")
+            for grp, m in (("payr", vr), ("payl", vl)):
+                for f, want in ps[grp].items():
+                    check(torch.equal(ks[grp][f][m], want[m]),
+                          f"{label} n={n} j={j}: slice {grp}.{f} differs from plain")
+            if ps["from_prior"] is not None:
+                check(torch.equal(ks["from_prior"][vp], ps["from_prior"][vp]),
+                      f"{label} n={n} j={j}: slice from_prior differs from plain")
+            same += int((bits(ks["delta"][vb]) == bits(ps["delta"][vb])).sum())
+            d = (ks["delta"][vb] - ps["delta"][vb]).abs()
+            bar = 1e-4 * (ps["delta"][vb].abs() + 1e-2 * float(plain["delta"].abs().max())) + 1e-12
+            check(bool((d <= bar).all()), f"{label} n={n} j={j}: slice deltas outside the delta bar")
+            worst = max(worst, float(d.max()) if d.numel() else 0.0)
+            parts.append((ln, ks))
+        cat = concat_slices(eng, parts)
+        for key, want in flat.items():
+            check(torch.equal(bits(cat[key]), bits(want)),
+                  f"{label}: {n} slices concatenated differ from the full-K launch in {key}")
+        check(same == same_full, f"{label} n={n}: {same} slice deltas bit for bit their plain "
+                                 f"version's, the full-K launch {same_full}")
+        rec["n"][n] = dict(bit_for_bit_full=True, plain_delta_bits_equal=same, max_abs_err=worst)
+    rec["full_ms"] = measure(lambda: cand_k.candidates(*c_args, **c_kw))["ms"]
+    for n in (2, 4):
+        ln = cand_k.Lanes.shard(cp, 0, n)
+        rec[f"slice_1_of_{n}_ms"] = measure(lambda: cand_k.candidates(*c_args, **c_kw, lanes=ln))["ms"]
+    log(json.dumps({"phase": "candidate_slice", **rec}))
+    return rec
+
+
+def check_mesh_slices(state, cfg) -> dict:
+    """Phase 29 (a): the candidate slice on the default, prior, bf16 and
+    intra kinds (the intra kind on BASELINE configuration 3's JBOD
+    cluster), one real step each."""
+    import torch
+
+    from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, prior_table, random_cluster_fast
+
+    s = state.shape
+    out = {}
+    for label, c, prior in (("default", cfg, None),
+                            ("prior", dataclasses.replace(cfg, prior_enabled=True), prior_table(s, 7, 0.25)),
+                            ("bf16", dataclasses.replace(cfg, score_dtype="bfloat16"), None)):
+        eng, cap = capture_step(state, c, prior)
+        out[label] = check_slice_variant(eng, cap, label)
+        eng.release()
+        del eng, cap
+    jbod = random_cluster_fast(RandomClusterSpec(**{**MID_SPEC, "disks_per_broker": 4}), seed=42,
+                               device="cuda")
+    eng, cap = capture_step(jbod, dataclasses.replace(cfg, intra_broker=True))
+    out["intra"] = check_slice_variant(eng, cap, "intra")
+    eng.release()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_run(me, reports: bool = True):
+    """A mesh engine's run and its driver wall."""
+    t0 = time.monotonic()
+    out = me.run_reported() if reports else (*me.run(), None)
+    return out, time.monotonic() - t0
+
+
+def check_mesh_one_card(state, cfg, exact: dict, smi: str) -> dict:
+    """Phase 29 (b): a 1x1 rank group over NCCL at the north star: its
+    placements, objective and history bit for bit the single-device
+    engine's (a plain engine here, and phase 4's run, `exact`, where the
+    script ran it; an empty `exact` is filled from the plain engine's run), 0 collectives in the
+    loop; the group's start-up (spawn, import, NCCL join, build, first run
+    with its capture) and a repeated run's wall against the plain engine's
+    repeated wall, the process boundary's cost."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+    from cruise_control_tpu_torch.parallel import ShardedEngine, close_rank_groups, model_mesh
+
+    plain = Engine(state, DEFAULT_CHAIN, config=cfg)
+    walls_plain = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        p_final, p_hist, p_out = plain.run_reported()
+        walls_plain.append(time.monotonic() - t0)
+    if not exact:
+        exact.update({f: getattr(p_final, f).clone() for f in PLACEMENT})
+        exact["objective_after"] = float(p_out["obj_after"])
+    t0 = time.monotonic()
+    me = ShardedEngine(state, DEFAULT_CHAIN, mesh=model_mesh(["cuda:0"]), config=cfg, timeout_s=600)
+    build_s = time.monotonic() - t0
+    (m_final, m_hist, m_out), first_s = mesh_run(me)
+    (m_final2, m_hist2, m_out2), repeat_s = mesh_run(me)
+    same = {f: bool(torch.equal(getattr(m_final, f), getattr(p_final, f))) and
+            bool(torch.equal(getattr(m_final, f), exact[f])) for f in PLACEMENT}
+    rounds_m = [{k: v for k, v in h.items()} for h in m_hist if "round" in h]
+    rounds_p = [{k: v for k, v in h.items()} for h in p_hist if "round" in h]
+    timing = m_hist[-1]
+    rec = dict(
+        phase="mesh_1x1", card=smi, ranks=1, backend=timing["backend"], cards=1,
+        placements_equal=same, history_equal=rounds_m == rounds_p,
+        objective_equal=bool(np.float32(m_out["obj_after"]) == np.float32(p_out["obj_after"])
+                             == np.float32(exact["objective_after"])),
+        collectives=timing["collectives"], gather_calls=me.last_info["gather_calls"],
+        collective_bytes_per_step=me.collective_bytes_per_step, loop_route=timing["loop_route"],
+        start=dict(me.build_info, first_run_s=first_s), repeat_wall_s=repeat_s,
+        plain_repeat_wall_s=walls_plain[1], plain_first_wall_s=walls_plain[0],
+        process_boundary_s=repeat_s - walls_plain[1], rank_repeat_wall_s=me.last_info["rank_walls"],
+        blocking_syncs=timing["blocking_syncs"],
+        rank_device_s=timing["device_s"], digests=me.carry_digests(),
+    )
+    log(json.dumps(rec))
+    check(all(same.values()), f"1x1 mesh placements differ from the single-device engine: {same}")
+    check(rec["history_equal"], "1x1 mesh history differs from the single-device engine's")
+    check(rec["objective_equal"], "1x1 mesh objective differs from the single-device engine's")
+    check(rec["collectives"] == 0 and rec["gather_calls"] == [0], "a 1x1 mesh gathered")
+    me.release()
+    plain.release()
+    close_rank_groups()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_mesh_cards(state, cfg, exact: dict, smi: str, devs=None) -> dict:
+    """Phase 29 (c), four cards or more: 1x4, 2x2 and 4x1 at the north
+    star over NCCL.  1x4 bit for bit the single-device engine; every chain
+    of the portfolio and the grid bit for bit a one-card run from the
+    chain's key (its final carry's digest and carry objective); the carries
+    of each model row bitwise equal; collective bytes and count a step,
+    walls and syncs.  `devs` (cuda:0-3 when None) lets the CPU rehearse it
+    over gloo ranks, the one-card references on the state's device."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, DEFAULT_OPTIONS
+    from cruise_control_tpu_torch.analyzer.draws import Key
+    from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT
+    from cruise_control_tpu_torch.parallel import GridEngine, ShardedEngine, close_rank_groups, grid_mesh, model_mesh
+    from cruise_control_tpu_torch.parallel.mesh import RankEngine, _carry_digest
+
+    devs = devs or [f"cuda:{i}" for i in range(4)]
+    out = {}
+    # one-card chains from each portfolio key, on cuda:0 in this process
+    chain_ref = {}
+    for R in (2, 4):
+        for r, key in enumerate(Key.from_seed(cfg.seed).split(R)):
+            eng = RankEngine(state, DEFAULT_CHAIN, DEFAULT_CONSTRAINT, DEFAULT_OPTIONS, cfg,
+                             key=key, shard=(0, 1))
+            eng.run()
+            chain_ref[(R, r)] = dict(digest=_carry_digest(eng._ws.carry),
+                                     objective=float(eng.carry_objective(eng._ws.carry)))
+            eng.release()
+    torch.cuda.empty_cache()
+    for label, (R, M) in (("1x4", (1, 4)), ("2x2", (2, 2)), ("4x1", (4, 1))):
+        t0 = time.monotonic()
+        mesh = model_mesh(devs) if R == 1 else grid_mesh(R, M, devs)
+        me = (ShardedEngine if R == 1 else GridEngine)(state, DEFAULT_CHAIN, mesh=mesh, config=cfg,
+                                                        timeout_s=600)
+        build_s = time.monotonic() - t0
+        (f1, h1, o1), first_s = mesh_run(me)
+        (f2, h2, o2), repeat_s = mesh_run(me)
+        digests = me.carry_digests()
+        info = me.last_info
+        timing = h2[-1]
+        rows_equal = all(len(set(digests[r * M:(r + 1) * M])) == 1 for r in range(R))
+        rec = dict(phase="mesh_cards", layout=label, card=smi, ranks=R * M, backend=timing["backend"],
+                   cards=R * M, build_s=build_s, first_run_s=first_s, repeat_wall_s=repeat_s,
+                   rank_repeat_walls_s=info["rank_walls"], rank_syncs=timing["blocking_syncs"],
+                   rank_device_s=timing["device_s"], blocking_syncs=timing["blocking_syncs"],
+                   collectives_per_run=timing["collectives"],
+                   collectives_per_step=(1 if M > 1 else 0),
+                   collective_bytes_per_step=me.collective_bytes_per_step,
+                   loop_route=info["loop_route"], loop_error=info["loop_error"],
+                   rows_bitwise_equal=rows_equal, objectives=[float(x) for x in info["objectives"]],
+                   winner=info["winner"], group_start=me.build_info)
+        if R == 1:
+            same = {f: bool(torch.equal(getattr(f2, f), exact[f])) for f in PLACEMENT}
+            rec["placements_equal_single"] = same
+            check(all(same.values()), f"1x4 placements differ from the single-device engine: {same}")
+        else:
+            chains = []
+            for r in range(R):
+                ref = chain_ref[(R, r)]
+                chains.append(dict(
+                    digest_equal=digests[r * M] == ref["digest"],
+                    objective_equal=bool(np.float32(info["objectives"][r]) == np.float32(ref["objective"]))))
+            rec["chains_equal_one_card"] = chains
+            check(all(c["digest_equal"] and c["objective_equal"] for c in chains),
+                  f"{label}: a chain differs from its one-card run: {chains}")
+        log(json.dumps(rec))
+        check(rows_equal, f"{label}: the carries of a model row differ: {digests}")
+        out[label] = rec
+        me.release()
+    close_rank_groups()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sticky_child() -> int:
     """Phase 22 (c), in a process of its own: one supervised optimize on a
     small fixture on the card, then a device-side assert inside
@@ -5761,7 +6050,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--sticky-child"]:
         return sticky_child()
-    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"], ["--service"], ["--controller"]):
+    if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"], ["--service"], ["--controller"],
+                            ["--mesh"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -5834,6 +6124,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_controller(cfg, monitored, smi)
         print(json.dumps({"ok": True, "phases": [1, 23, 28]}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        t29 = time.monotonic()
+        check_mesh_slices(state, cfg)
+        exact_mesh: dict = {}
+        check_mesh_one_card(state, cfg, exact_mesh, smi)
+        log(json.dumps({"phase": "mesh", "seconds": time.monotonic() - t29}))
+        phases = [1, 29]
+        if torch.cuda.device_count() >= 4:
+            check_mesh_cards(state, cfg, exact_mesh, smi)
+            phases.append("29c")
+        print(json.dumps({"ok": True, "phases": phases, "cards": torch.cuda.device_count()}), flush=True)
         return 0
 
     # phase 2: kernels against their plain versions on one real step
@@ -5979,6 +6281,13 @@ def main() -> int:
     check_controller(cfg, monitored, smi)
     del monitored
     torch.cuda.empty_cache()
+    # phase 29: the replicated mesh: the candidate slice, and a 1x1 rank
+    # group over NCCL against phase 4's single-device run
+    t29 = time.monotonic()
+    check_mesh_slices(state, cfg)
+    check_mesh_one_card(state, cfg, {f: PLACEMENTS["4"][f] for f in PLACEMENT}
+                        | {"objective_after": exact["objective_after"]}, smi)
+    log(json.dumps({"phase": "mesh", "seconds": time.monotonic() - t29}))
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

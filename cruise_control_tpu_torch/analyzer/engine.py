@@ -1364,20 +1364,25 @@ class Engine:
     def _n_rounds(self) -> int:
         return self.config.num_rounds + self.config.extra_round_budget
 
+    def _run_key(self) -> Key:
+        """The key of a run's chain: PRNGKey(seed); a portfolio chain of the
+        mesh layer has a key of its own (parallel/mesh.py)."""
+        return Key.from_seed(self.config.seed)
+
     def _workspace(self) -> _Workspace:
         if self._ws is not None:
             return self._ws
         cfg, dev, s = self.config, self.device, self.shape
         total = self._n_rounds()
         table = torch.from_numpy(cand_k.key_table(
-            Key.from_seed(cfg.seed), total * cfg.steps_per_round, intra=cfg.intra_broker,
+            self._run_key(), total * cfg.steps_per_round, intra=cfg.intra_broker,
             prior=self.cand.prior).view(np.int32))
         group = Grouping.empty(s.R, s.B, dev)
         cuda = dev.type == "cuda"
         K = self.K_r + self.K_s + self.K_l
         f32, i32 = torch.float32, torch.int32
         self._ws = _Workspace(
-            carry=self._empty_carry(Key.from_seed(cfg.seed)),
+            carry=self._empty_carry(self._run_key()),
             plan=self._empty_plan(group),
             group=group,
             gbuf=torch.empty(glob_k.size(s.num_topics), dtype=torch.float32, device=dev),
@@ -1677,34 +1682,44 @@ class Engine:
         return _placed_state(self._state, c.replica_broker.clone(), c.replica_is_leader.clone(),
                              c.replica_disk.clone())
 
-    def _round_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims) -> None:
+    def _round_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims, pieces=None) -> None:
         """One round of the fused schedule op by op (the CPU route): the
-        conditionals read the flags the loop graph's IF nodes read."""
+        conditionals read the flags the loop graph's IF nodes read.
+        `pieces` replaces the full check, round body and objective by
+        callables (the mesh layer's host loop replays their graphs)."""
+        full_check, body, objective = pieces or (
+            lambda: self._full_check(ws), lambda: self._round_body(ws),
+            lambda: self._objective(ws))
         sched_k.round_schedule(sched_k.GATE, ws.sched, dims)
         if ws.sched.si[sched_k.NEED_FULL]:
-            self._full_check(ws)
+            full_check()
         sched_k.round_schedule(sched_k.DECIDE, ws.sched, dims)
         if ws.sched.si[sched_k.RUN]:
-            self._round_body(ws)
+            body()
             if dims.verbose and not dims.diag:
-                self._objective(ws)
+                objective()
         sched_k.round_schedule(sched_k.CLOSE, ws.sched, dims)
 
-    def _loop_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims, reports: bool) -> None:
+    def _loop_eager(self, ws: _Workspace, dims: sched_k.ScheduleDims, reports: bool,
+                    pieces=None) -> int:
         """The loop graph's loop op by op (the CPU route): round after round
         until CLOSE ends the loop (the run is done, or its launch reached
         SLICE_END), then EXIT, and with `reports` the after-report and the
-        checks once the run is over."""
+        checks once the run is over.  `pieces` as `_round_eager` takes
+        them.  Returns the rounds it iterated."""
+        rounds = 0
         while True:
-            self._round_eager(ws, dims)
+            self._round_eager(ws, dims, pieces)
+            rounds += 1
             if not ws.sched.si[sched_k.LOOP]:
                 break
         sched_k.round_schedule(sched_k.EXIT, ws.sched, dims)
         if reports and sched_k.run_over(ws.sched, dims):
             self._cycle_post(ws)
+        return rounds
 
     def _capture(self, ws: _Workspace, verbose: bool, reports: bool = False,
-                 source: str = "request") -> sched_k.LoopGraph:
+                 source: str = "request", loop: bool = True) -> sched_k.LoopGraph | None:
         """The loop graph of this engine (and verbose flag), capturing the
         init, full check, round body and objective graphs on first use,
         and with `reports` the reported run's `pre` and `post` graphs:
@@ -1725,7 +1740,7 @@ class Engine:
             ("pre", "post") if reports else ())
         todo = [n for n in names if n not in ws.graphs]
         lg = ws.loops.get(verbose)
-        if lg is not None and not todo:
+        if (lg is not None or not loop) and not todo:
             return lg
         pieces = dict(init=lambda: self._init_run(ws, dims), eval=lambda: self._full_check(ws),
                       body=lambda: self._round_body(ws), obj=lambda: self._objective(ws),
@@ -1757,7 +1772,7 @@ class Engine:
                 ws.graph_launches.pop(name, None)
             raise
         t_cap = time.monotonic()
-        if lg is None:
+        if lg is None and loop:
             lg = sched_k.LoopGraph(ws.sched, dims, ws.graphs["init"], ws.graphs["eval"],
                                    ws.graphs["body"], ws.graphs["obj"] if obj else None)
             ws.loops[verbose] = lg
@@ -1843,6 +1858,7 @@ class Engine:
             ys = ws.sched.ys.numpy().copy()
             count = ws.sched.count.numpy().copy()
         t_sync = time.monotonic()
+        self.last_ys = ys
         history = self._fused_history(ys, verbose=verbose)
         timing = dict(
             timing=True, fused=True, blocking_syncs=1, graph_launches=graph_launches,

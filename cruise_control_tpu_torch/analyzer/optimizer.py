@@ -10,6 +10,18 @@ width of the member table (`models/state.py member_width`), sizes an
 engine's buffers beside the shape, as it sizes the JAX package's compiled
 programs.
 
+The mesh modes (`parallel_mode` "sharded" or "grid:RxM", the JAX
+package's `Mesh(1, n)` and `Mesh(R, M)`) run on a rank group of the host's
+cards, one rank process a card over NCCL (parallel/mesh.py `MeshEngine`;
+on the CPU over gloo, with the rank count named by `mesh_max_devices`).
+Mesh engines are cached per (shape, config, devices) beside the plain
+ones and rebound the same way.  On a one-device host "sharded" is
+"single", as in the JAX package.  The sharded-model mode and mesh fault
+tolerance are not here (ROADMAP queue 1 items 10b and 10c): an enabled
+`mesh_ft` controller with a mesh mode raises `MeshFtNotPortedError`, and
+a state at or above `model_shard_min_partitions` on a model axis wider
+than 1 raises `ModelShardNotPortedError`.
+
 Callers may share one optimizer across threads.  A lock guards the engine
 cache; a run pins its engine until its result is on the host, and an
 eviction that finds the engine pinned leaves its release to the last
@@ -145,11 +157,16 @@ class OptimizerResult:
         }
 
 
+class MeshFtNotPortedError(NotImplementedError):
+    """Mesh fault tolerance (the width ladder, probes, checkpoint and
+    resume) is ROADMAP queue 1 item 10c: a mesh mode runs only with it
+    disabled."""
+
+
 def parse_parallel_mode(mode: str) -> tuple[int, int] | None:
     """Validate "single" / "sharded" / "grid:RxM"; returns (R, M) for grid
     modes, None otherwise.  The single source of truth for the mode syntax
-    (the config validator delegates here).  This package runs "single"
-    only; the other modes parse as in the JAX package."""
+    (the config validator delegates here)."""
     import re
 
     if mode in ("single", "sharded"):
@@ -184,10 +201,6 @@ class GoalOptimizer:
     (common/profiling.py `profiler_trace`).
     """
 
-    #: the engine layer this optimizer runs on; the mesh modes are ROADMAP
-    #: queue 1 item 10, and the service refuses them until then
-    parallel_mode = "single"
-
     def __init__(
         self,
         chain: GoalChain = DEFAULT_CHAIN,
@@ -203,13 +216,48 @@ class GoalOptimizer:
         sensors=None,
         tracer=None,
         profiler_dir: str | None = None,
+        parallel_mode: str = "single",
+        mesh_max_devices: int = 0,
+        model_shard_min_partitions: int = 0,
+        mesh_ft=None,
     ):
         if engine_cache_size < 1:
             raise ValueError(f"engine_cache_size must be >= 1, got {engine_cache_size}")
+        if mesh_max_devices < 0:
+            raise ValueError(f"mesh_max_devices must be >= 0, got {mesh_max_devices}")
+        if model_shard_min_partitions < 0:
+            raise ValueError(
+                f"model_shard_min_partitions must be >= 0, got {model_shard_min_partitions}")
         self.chain = chain
         self.constraint = constraint
         self.config = config
         self.device = resolve_device(device)
+        #: "single", "sharded" or "grid:RxM" (the JAX package's modes)
+        self.parallel_mode = parallel_mode
+        self.mesh_max_devices = mesh_max_devices
+        self.model_shard_min_partitions = model_shard_min_partitions
+        self._grid_shape = parse_parallel_mode(parallel_mode)
+        if self._grid_shape is not None:
+            r, m = self._grid_shape
+            n_avail = len(self._mesh_devices())
+            if n_avail < r * m:
+                raise ValueError(
+                    f"tpu.parallel.mode={parallel_mode!r} needs {r * m} devices, host has "
+                    f"{n_avail} (tpu.mesh.max.devices={mesh_max_devices})")
+        elif parallel_mode != "single" and len(self._mesh_devices()) < 2:
+            # a one-device host: sharded degenerates to the local engine
+            self.parallel_mode = "single"
+        #: the mesh fault-tolerance controller (parallel/ft.py); an enabled
+        #: one is item 10c's ladder, refused with a mesh mode
+        self._mesh_ft = mesh_ft
+        if self.parallel_mode != "single" and mesh_ft is not None and mesh_ft.enabled:
+            raise MeshFtNotPortedError(
+                f"tpu.parallel.mode={parallel_mode!r} with mesh fault tolerance enabled "
+                "(tpu.mesh.ft.enabled=true) runs the width ladder, ROADMAP queue 1 item 10c, "
+                "which is not ported yet: set tpu.mesh.ft.enabled=false")
+        #: mesh engines per (ClusterShape, config, devices) in LRU order,
+        #: under `_cache_lock` like `_engines`
+        self._parallel_engines: OrderedDict = OrderedDict()
         self.balancedness_weights = balancedness_weights
         #: engines per (ClusterShape, max_rf, config) in LRU order; a hit
         #: rebinds.  `_cache_lock` guards it, every engine's pin count and
@@ -245,7 +293,7 @@ class GoalOptimizer:
     def cache_size(self) -> int:
         """Engines currently cached."""
         with self._cache_lock:
-            return len(self._engines)
+            return len(self._engines) + len(self._parallel_engines)
 
     def _sense_cache(self, hit: bool | None) -> None:
         """The engine cache's sensors: a hit or a miss (None: neither) and
@@ -256,11 +304,16 @@ class GoalOptimizer:
             self.sensors.counter(f"analyzer.engine-cache-{'hits' if hit else 'misses'}").inc()
         self.sensors.gauge("analyzer.engine-cache-size").set(self.cache_size)
 
+    def _cache_of(self, key) -> OrderedDict:
+        """The cache a key belongs to: mesh engines' keys start "mesh"."""
+        return self._parallel_engines if key[0] == "mesh" else self._engines
+
     def _pin(self, key) -> Engine | None:
         """The cached engine of `key`, pinned, or None (under the lock)."""
-        engine = self._engines.get(key)
+        cache = self._cache_of(key)
+        engine = cache.get(key)
         if engine is not None:
-            self._engines.move_to_end(key)
+            cache.move_to_end(key)
             engine._cc_pins += 1
         return engine
 
@@ -280,13 +333,14 @@ class GoalOptimizer:
         `count`: a miss or hit in the cache's counters (a prewarm's is
         neither)."""
         evicted = []
+        cache = self._cache_of(key)
         with self._cache_lock:
             won = self._pin(key)
             if won is None:
                 engine._cc_pins = 1
-                self._engines[key] = engine
-                while len(self._engines) > self._cache_capacity:
-                    old = self._engines.popitem(last=False)[1]
+                cache[key] = engine
+                while len(cache) > self._cache_capacity:
+                    old = cache.popitem(last=False)[1]
                     old._cc_evicted = True
                     if old._cc_pins == 0:
                         evicted.append(old)
@@ -334,6 +388,81 @@ class GoalOptimizer:
                     self._bound[(state.shape, config)] = key[1]
                 if self.prewarm_store is not None:
                     self.prewarm_store.note(state.shape, engine.max_rf, config)
+                yield engine, hit
+        finally:
+            self._unpin(engine)
+
+    # ------------------------------------------------------------------
+    # the mesh modes
+    # ------------------------------------------------------------------
+
+    def _mesh_devices(self) -> list[str]:
+        """The devices the mesh layer may use: every card of the host
+        (cuda:0..N-1), capped by mesh_max_devices; on the CPU exactly
+        mesh_max_devices gloo ranks (one when 0): a CPU rank count is
+        named, never inferred."""
+        from cruise_control_tpu_torch.parallel.ranks import cpu_devices, local_devices
+
+        if self.device.type == "cpu":
+            return cpu_devices(max(1, self.mesh_max_devices))
+        devices = local_devices()
+        if self.mesh_max_devices:
+            devices = devices[: self.mesh_max_devices]
+        return devices
+
+    def _parallel_key(self, shape, config: OptimizerConfig, devices) -> tuple:
+        """Mesh engines cache per (shape, config, device set)."""
+        return ("mesh", shape, config, tuple(devices))
+
+    def _build_parallel_engine(self, state: ClusterState, options: OptimizationOptions,
+                               config: OptimizerConfig):
+        """The mesh engine of the parallel mode over the mesh devices,
+        unpinned: "sharded" one model row over all of them, "grid:RxM" R
+        rows of M over the first R*M."""
+        from cruise_control_tpu_torch.parallel.grid import GridEngine, grid_mesh
+        from cruise_control_tpu_torch.parallel.sharded import ShardedEngine, model_mesh
+
+        devices = self._mesh_devices()
+        common = dict(constraint=self.constraint, options=options, config=config,
+                      model_shard_min_partitions=self.model_shard_min_partitions)
+        if self.parallel_mode == "sharded":
+            built = ShardedEngine(state, self.chain, mesh=model_mesh(devices), **common)
+        else:
+            r, m = self._grid_shape
+            built = GridEngine(state, self.chain, mesh=grid_mesh(r, m, devices), **common)
+        built._cc_pins, built._cc_evicted, built._cc_fresh = 0, False, True
+        return built
+
+    @contextlib.contextmanager
+    def _parallel_engine_for(self, state: ClusterState, options: OptimizationOptions,
+                             config: OptimizerConfig):
+        """The cached mesh engine of (shape, config, devices) bound to
+        `state`, built on a miss, pinned and under its run lock for the
+        body; yields (engine, hit).  A rebind whose shape no longer fits
+        builds a new engine."""
+        key = self._parallel_key(state.shape, config, self._mesh_devices())
+        with self._cache_lock:
+            engine = self._pin(key)
+            if engine is not None:
+                self.engine_cache_hits += 1
+        hit = engine is not None
+        if hit:
+            self._sense_cache(True)
+        else:
+            t0 = time.monotonic()
+            built = self._build_parallel_engine(state, options, config)
+            engine = self._publish(key, built)
+            hit = engine is not built
+            if not hit:
+                self._attribute(state.shape, buildSeconds=time.monotonic() - t0)
+        try:
+            with engine.locked():
+                if hit or not engine._cc_fresh:
+                    engine.rebind(state, options)
+                engine._cc_fresh = False
+                if self.prewarm_store is not None:
+                    self.prewarm_store.note(state.shape, engine.max_rf, config,
+                                            parallel_mode=self.parallel_mode)
                 yield engine, hit
         finally:
             self._unpin(engine)
@@ -386,12 +515,18 @@ class GoalOptimizer:
         if state.device != self.device:
             raise ValueError(f"state is on {state.device}, the optimizer runs on {self.device}")
         cfg = config or self.config
-        key = (state.shape, member_width(state), cfg)
+        if self.parallel_mode != "single":
+            key = self._parallel_key(state.shape, cfg, self._mesh_devices())
+        else:
+            key = (state.shape, member_width(state), cfg)
         with self._cache_lock:
-            if key in self._engines:
+            if key in self._cache_of(key):
                 return
         t0 = time.monotonic()
-        built = self._new_engine(state, options, cfg)
+        if self.parallel_mode != "single":
+            built = self._build_parallel_engine(state, options, cfg)
+        else:
+            built = self._new_engine(state, options, cfg)
         engine = self._publish(key, built, count=False)
         if engine is not built:
             self._unpin(engine)  # a request cached one first
@@ -435,7 +570,8 @@ class GoalOptimizer:
         cfg = config or self.config
         with self._cache_lock:
             return any(k[0] == shape and k[2] == cfg and max_rf in (None, k[1])
-                       for k in self._engines)
+                       for k in self._engines) or any(
+                k[1] == shape and k[2] == cfg for k in self._parallel_engines)
 
     def _result(self, state_before, state_after, out: dict, proposals, history, t0) -> OptimizerResult:
         """The OptimizerResult of a reported run's payload `out`."""
@@ -512,7 +648,7 @@ class GoalOptimizer:
                 ctx = blackbox_context(
                     bucket=bucket_key(state.shape),
                     config_fp=hashlib.sha1(repr(cfg).encode()).hexdigest()[:12],
-                    parallel_mode="single",
+                    parallel_mode=self.parallel_mode,
                 )
             else:
                 ctx = contextlib.nullcontext()
@@ -521,7 +657,7 @@ class GoalOptimizer:
                                                initial_placement=initial_placement, prior=prior)
             timing = next((h for h in result.history if h.get("timing")), {})
             sp.set(
-                parallel_mode="single",
+                parallel_mode=self.parallel_mode,
                 degraded=result.degraded,
                 wall_s=round(result.wall_seconds, 6),
                 num_proposals=len(result.proposals),
@@ -531,7 +667,8 @@ class GoalOptimizer:
                                        zip(result.goal_names, np.asarray(result.violations_after))},
                 **{k: timing.get(k) for k in (
                     "device_s", "blocking_syncs", "host_extract_s", "engine_cache_hit",
-                    "engine_build_s", "bucket", "segmented", "segments", "convergence",
+                    "engine_build_s", "bucket", "mesh_shape", "collective_bytes", "segmented",
+                    "segments", "convergence",
                 ) if timing.get(k) is not None},
             )
             return result
@@ -573,12 +710,21 @@ class GoalOptimizer:
             bad = [n for n, c in zip(DEVICE_CHECKS, input_checks) if c]
             raise ValueError(f"input state failed sanity checks: {bad}")
         t_build = time.monotonic()
-        with self._engine_for(state, options, cfg, prior=prior) as (engine, hit):
+        if self.parallel_mode != "single":
+            if initial_placement is not None or prior is not None:
+                raise ValueError(
+                    "warm-start placement / move-acceptance prior are single-device only "
+                    f"(tpu.parallel.mode={self.parallel_mode!r})")
+            engines = self._parallel_engine_for(state, options, cfg)
+        else:
+            engines = self._engine_for(state, options, cfg, prior=prior)
+        with engines as (engine, hit):
             build_s = time.monotonic() - t_build
             before_host = fetch_before_host(state)
+            run_kwargs = {} if initial_placement is None else dict(
+                initial_placement=initial_placement)
             with profiler_trace(self.profiler_dir):
-                final, history, out = engine.run_reported(verbose=verbose,
-                                                          initial_placement=initial_placement)
+                final, history, out = engine.run_reported(verbose=verbose, **run_kwargs)
             max_rf = engine.max_rf
         t_extract = time.monotonic()
         proposals = extract_proposals(state, final, before_host=before_host, after_host=out)
@@ -590,6 +736,13 @@ class GoalOptimizer:
         timing["bucket"] = dict(R=s.R, B=s.B, P=s.P, T=s.num_topics, max_rf=max_rf)
         if timing.get("captured"):
             self._attribute(s, coldWallSeconds=time.monotonic() - t0)
+        if self.sensors is not None and timing.get("mesh_shape"):
+            # the shard count and the per-round gathered bytes say whether
+            # the candidate axis pays (docs: analyzer.mesh-*)
+            self.sensors.counter("analyzer.mesh-runs").inc()
+            self.sensors.gauge("analyzer.mesh-shards").set(int(timing["mesh_shape"][1]))
+            self.sensors.gauge("analyzer.mesh-collective-bytes").set(
+                int(timing.get("collective_bytes") or 0))
         if out["checks"].any():
             bad = [n for n, c in zip(DEVICE_CHECKS, out["checks"]) if c]
             validate(final)
@@ -619,14 +772,16 @@ class GoalOptimizer:
             if sup.open_epoch == self._breaker_epoch:
                 return
             self._breaker_epoch = sup.open_epoch
+            engines = [*self._engines.values(), *self._parallel_engines.values()]
             if sup.context_lost:
-                self._abandoned_engines.extend(self._engines.values())
+                self._abandoned_engines.extend(engines)
             else:
-                for engine in self._engines.values():
+                for engine in engines:
                     engine._cc_evicted = True
                     if engine._cc_pins == 0:
                         free.append(engine)
             self._engines.clear()
+            self._parallel_engines.clear()
             self._bound.clear()
         for engine in free:
             engine.release()

@@ -216,6 +216,51 @@ class CandParams:
         return int(round(n * self.importance_fraction)) if plan is not None else 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Lanes:
+    """The candidates one launch runs: per kind (relocations or intra
+    moves, swaps, leadership transfers) the first global candidate and the
+    lane count.  Lane t of a kind is global candidate base + t, drawn,
+    scored and accepted exactly as in the full-K launch (the same keys,
+    counters and Metropolis u), and lands at t of the launch's own layout;
+    a lane past its kind's K holds anything (the kernel stores nothing
+    there, the plain version repeats the kind's last candidate).  The JAX
+    package's `_slice_draws` (engine.py:1872) slices the full draws the same
+    way, edge-padding where the port leaves its lanes past K unused."""
+
+    base_r: int
+    n_r: int
+    base_s: int
+    n_s: int
+    base_l: int
+    n_l: int
+
+    @staticmethod
+    def full(cp: "CandParams") -> "Lanes":
+        return Lanes(0, cp.K_r, 0, cp.K_s, 0, cp.K_l)
+
+    @staticmethod
+    def shard(cp: "CandParams", j: int, n: int) -> "Lanes":
+        """Shard j of n of `cp`'s kinds (`split`)."""
+        return Lanes.split((cp.K_r, cp.K_s, cp.K_l), j, n)
+
+    @staticmethod
+    def split(ks: tuple[int, int, int], j: int, n: int) -> "Lanes":
+        """Shard j of n of kinds of (K_r, K_s, K_l) candidates: ceil(K/n)
+        lanes of each kind from j * ceil(K/n)."""
+        s_r, s_s, s_l = (-(-k // n) for k in ks)
+        return Lanes(j * s_r, s_r, j * s_s, s_s, j * s_l, s_l)
+
+    @property
+    def total(self) -> int:
+        return self.n_r + self.n_s + self.n_l
+
+
+def _lane_index(base: int, n: int, k: int, dev) -> torch.Tensor:
+    """The global candidates of n lanes from base, clamped to the kind's last."""
+    return torch.clamp(torch.arange(base, base + n, dtype=torch.int64, device=dev), max=max(k - 1, 0))
+
+
 # ----------------------------------------------------------------------
 # plain PyTorch version (the engine's candidate generation)
 # ----------------------------------------------------------------------
@@ -297,12 +342,16 @@ def _sample_dests(cp: CandParams, sx, keys: StepKeys, n: int, r: torch.Tensor):
     return torch.where(use, p_idx, uni), use
 
 
-def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
-    """K_r replica-move candidates -> (delta, feasible, src, dst, part, payload)."""
+def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan, sl=None):
+    """K_r replica-move candidates -> (delta, feasible, src, dst, part, payload);
+    `sl` (an index of global candidates) keeps a slice of the draws."""
     st = sx.state
     K = cp.K_r
     r = _sample_sources(cp, sx, keys.rel_src, K, plan)
     pos, from_prior = _sample_dests(cp, sx, keys, K, r)
+    if sl is not None:
+        r, pos = r[sl], pos[sl]
+        from_prior = None if from_prior is None else from_prior[sl]
     dst = sx.dest_ids[pos]
     src = carry.replica_broker[r]
     part = st.replica_partition[r]
@@ -374,7 +423,7 @@ def _replica_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     return delta, feasible, src, dst, part, payload
 
 
-def _intra_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
+def _intra_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan, sl=None):
     """K_r intra-broker disk moves (rebalance_disk mode): a replica moves to
     the most-free alive logdir of its own broker, so only the intra-broker
     disk terms, the offline term and the logdir pricing move.  Returned in
@@ -383,6 +432,9 @@ def _intra_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     K = cp.K_r
     D = st.shape.max_disks_per_broker
     r = _sample_sources(cp, sx, keys.rel_src, K, plan)
+    if sl is not None:
+        r = r[sl]
+    K = int(r.shape[0])
     b = carry.replica_broker[r]
     d_src = carry.replica_disk[r]
     part = st.replica_partition[r]
@@ -432,7 +484,7 @@ def _intra_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     return delta, feasible, b, b, part, payload
 
 
-def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
+def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan, sl=None):
     """K_s replica-swap candidates: r <-> q exchange brokers (and disk
     slots), escaping local optima single relocations cannot leave
     (reference ResourceDistributionGoal swap-in/out :502-599).
@@ -441,7 +493,7 @@ def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     st = sx.state
     K = cp.K_s
     dev = sx.alive.device
-    if K == 0:
+    if K == 0 or (sl is not None and sl.numel() == 0):
         z = torch.zeros(0, dtype=torch.float32, device=dev)
         zi = torch.zeros(0, dtype=torch.int32, device=dev)
         zb = torch.zeros(0, dtype=torch.bool, device=dev)
@@ -451,6 +503,8 @@ def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
         return z, zb, zi, zi, zi, zi, payload
     r = _sample_sources(cp, sx, keys.swap_src, K, plan)
     q = _uniform_idx(keys.swap_q, K, sx.gen.n_source, dev)
+    if sl is not None:
+        r, q = r[sl], q[sl]
     src, dst = carry.replica_broker[r], carry.replica_broker[q]
     part_r, part_q = st.replica_partition[r], st.replica_partition[q]
     d_r, d_q = carry.replica_disk[r], carry.replica_disk[q]
@@ -542,13 +596,13 @@ def _swap_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
     return delta, feasible, src, dst, part_r, part_q, payload
 
 
-def _leadership_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
+def _leadership_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan, sl=None):
     """K_l leadership-transfer candidates (reference relocateLeadership:374)."""
     st = sx.state
     K = cp.K_l
     R = st.shape.R
     dev = sx.alive.device
-    if K == 0:
+    if K == 0 or (sl is not None and sl.numel() == 0):
         z = torch.zeros(0, dtype=torch.float32, device=dev)
         zi = torch.zeros(0, dtype=torch.int32, device=dev)
         zb = torch.zeros(0, dtype=torch.bool, device=dev)
@@ -556,6 +610,9 @@ def _leadership_candidates(cp: CandParams, sx, carry, keys: StepKeys, g, plan):
         payload = dict(rf=zi, rt=zi, dl_f=zl, dl_t=zl, dlbin_src=z, dlbin_dst=z)
         return z, zb, zi, zi, zi, payload
     rt = _uniform_idx(keys.lead, K, sx.gen.n_source, dev)
+    if sl is not None:
+        rt = rt[sl]
+    K = int(rt.shape[0])
     part = st.replica_partition[rt]
     members = sx.part_replicas[part]  # [K, max_rf]
     m_idx = torch.clamp(members, max=R - 1)
@@ -647,26 +704,41 @@ def _assemble_prop(sx, carry, raw_r, raw_s, raw_l) -> dict:
     )
 
 
-def accept_plain(keys: StepKeys, delta, feas, temperature) -> torch.Tensor:
+def accept_plain(keys: StepKeys, delta, feas, temperature, index=None, k: int | None = None
+                 ) -> torch.Tensor:
     """Metropolis acceptance: delta < -T log u - 1e-12 (greedy at T=0);
-    T an f32 value or an f32[1] tensor."""
-    u = threefry.uniform_plain(keys.u.words, int(delta.shape[0]), U_MIN, 1.0, delta.device)
+    T an f32 value or an f32[1] tensor.  `index` (of the k candidates of
+    the full step) picks each lane's u from the full-K stream."""
+    n = int(delta.shape[0]) if index is None else int(k)
+    u = threefry.uniform_plain(keys.u.words, n, U_MIN, 1.0, delta.device)
+    if index is not None:
+        u = u[index]
     thresh = -temperature * torch.log(u)
     return feas & (delta < thresh - 1e-12)
 
 
-def candidates_plain(cp: CandParams, sx, carry, keys, g, plan, temperature) -> dict:
+def candidates_plain(cp: CandParams, sx, carry, keys, g, plan, temperature,
+                     lanes: Lanes | None = None) -> dict:
     """`keys` a StepKeys or a KeyCursor (read on the host), `temperature`
-    an f32 value or an f32[1] tensor."""
+    an f32 value or an f32[1] tensor, `lanes` the slice of the candidate
+    axis to run (all of it when None)."""
     if isinstance(keys, KeyCursor):
         keys = keys.step_keys()
+    sl_r = sl_s = sl_l = index = None
+    if lanes is not None:
+        dev = sx.alive.device
+        sl_r = _lane_index(lanes.base_r, lanes.n_r, cp.K_r, dev)
+        sl_s = _lane_index(lanes.base_s, lanes.n_s, cp.K_s, dev)
+        sl_l = _lane_index(lanes.base_l, lanes.n_l, cp.K_l, dev)
+        index = torch.cat([sl_r, cp.K_r + sl_s, cp.K_r + cp.K_s + sl_l])
     prop = _assemble_prop(
         sx, carry,
-        (_intra_candidates if cp.intra else _replica_candidates)(cp, sx, carry, keys, g, plan),
-        _swap_candidates(cp, sx, carry, keys, g, plan),
-        _leadership_candidates(cp, sx, carry, keys, g, plan),
+        (_intra_candidates if cp.intra else _replica_candidates)(cp, sx, carry, keys, g, plan, sl_r),
+        _swap_candidates(cp, sx, carry, keys, g, plan, sl_s),
+        _leadership_candidates(cp, sx, carry, keys, g, plan, sl_l),
     )
-    prop["accept"] = accept_plain(keys, prop["delta"], prop["feas"], temperature)
+    prop["accept"] = accept_plain(keys, prop["delta"], prop["feas"], temperature, index,
+                                  cp.K_r + cp.K_s + cp.K_l)
     return prop
 
 
@@ -677,7 +749,8 @@ def candidates_plain(cp: CandParams, sx, carry, keys, g, plan, temperature) -> d
 
 class _Dims(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in (
-        "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "R", "B", "P", "T", "D", "H", "racks",
+        "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "base_r", "base_s", "base_l", "n_r", "n_s",
+        "n_l", "R", "B", "P", "T", "D", "H", "racks",
         "max_rf", "has_plan", "has_topic", "has_pref",
         "price_r", "price_l", "cdf_in_smem", "intra", "step", "steps_per_round", "prior", "bf16",
     )]
@@ -753,34 +826,38 @@ def _ptr(name, t, dtype, shape) -> int:
     return t.data_ptr()
 
 
-def candidate_buffers(cp: CandParams, device) -> dict:
-    """The kernel's outputs, allocated once and reused by every step: the
-    bundle (with the relocations' took-the-prior mask under the prior),
-    the relocation rows `payr` and the leadership rows `payl`."""
-    K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
+def buffer_layout(prior: bool, ln: Lanes) -> dict:
+    """{group: {field: (shape, dtype)}} of a launch's outputs (the bundle
+    `out`, with the relocations' took-the-prior mask under the prior, the
+    relocation rows `payr`, the leadership rows `payl`), sized by the
+    launch's lanes."""
+    K_r, K_s, K_l = ln.n_r, ln.n_s, ln.n_l
     K, nr = K_r + K_s + K_l, K_r + 2 * K_s
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    out = dict(delta=((K,), f32), feas=((K,), b8), accept=((K,), b8), src=((K,), i32),
+               dst=((K,), i32), part1=((K,), i32), part2=((K,), i32))
+    if prior:
+        out["from_prior"] = ((K_r,), b8)
+    payr = dict(r=((nr,), i32), src=((nr,), i32), dst=((nr,), i32), d_src=((nr,), i32),
+                d_dst=((nr,), i32), load=((nr, 4), f32), is_lead=((nr,), b8), pot=((nr,), f32),
+                lbin=((nr,), f32), topic=((nr,), i32), part=((nr,), i32))
+    payl = dict(rf=((K_l,), i32), rt=((K_l,), i32), src_b=((K_l,), i32), dst_b=((K_l,), i32),
+                dl_f=((K_l, 4), f32), dl_t=((K_l, 4), f32), dlbin_src=((K_l,), f32),
+                dlbin_dst=((K_l,), f32), d_f=((K_l,), i32), d_t=((K_l,), i32))
+    return dict(out=out, payr=payr, payl=payl)
 
-    def e(*shape, dtype=i32):
-        return torch.empty(shape, dtype=dtype, device=device)
 
-    out = dict(delta=e(K, dtype=f32), feas=e(K, dtype=b8), accept=e(K, dtype=b8), src=e(K),
-               dst=e(K), part1=e(K), part2=e(K))
-    if cp.prior:
-        out["from_prior"] = e(K_r, dtype=b8)
-    return dict(
-        out=out,
-        payr=dict(r=e(nr), src=e(nr), dst=e(nr), d_src=e(nr), d_dst=e(nr), load=e(nr, 4, dtype=f32),
-                  is_lead=e(nr, dtype=b8), pot=e(nr, dtype=f32), lbin=e(nr, dtype=f32), topic=e(nr),
-                  part=e(nr)),
-        payl=dict(rf=e(K_l), rt=e(K_l), src_b=e(K_l), dst_b=e(K_l), dl_f=e(K_l, 4, dtype=f32),
-                  dl_t=e(K_l, 4, dtype=f32), dlbin_src=e(K_l, dtype=f32), dlbin_dst=e(K_l, dtype=f32),
-                  d_f=e(K_l), d_t=e(K_l)),
-    )
+def candidate_buffers(cp: CandParams, device, lanes: Lanes | None = None) -> dict:
+    """The kernel's outputs, allocated once and reused by every step: the
+    bundle (with the relocations' took-the-prior mask under the prior),
+    the relocation rows `payr` and the leadership rows `payl`, sized by
+    `lanes` (all K when None)."""
+    return {grp: {k: torch.empty(shape, dtype=dt, device=device) for k, (shape, dt) in fields.items()}
+            for grp, fields in buffer_layout(cp.prior, lanes or Lanes.full(cp)).items()}
 
 
 def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, temperature: torch.Tensor,
-                    bufs: dict | None = None) -> dict:
+                    bufs: dict | None = None, lanes: Lanes | None = None) -> dict:
     st = sx.state
     s = st.shape
     dev = carry.broker_load.device
@@ -788,7 +865,6 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
     B, R, P, T, D, H = s.B, s.R, s.P, s.num_topics, s.max_disks_per_broker, s.num_hosts
     racks, max_rf = s.num_racks, int(sx.part_replicas.shape[1])
     K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
-    K = K_r + K_s + K_l
     n_keys = int(keys.table.shape[0])
     inputs = dict(
         orig_broker=(st.replica_broker, i32, (R,)), part_of=(st.replica_partition, i32, (R,)),
@@ -830,9 +906,12 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
             replica_cost=(plan.replica_cost, f32, ()), lead_cost=(plan.lead_cost, f32, ()),
         )
     c_in = _Inputs(**{k: _ptr(k, *v) for k, v in inputs.items()})
+    ln = lanes or Lanes.full(cp)
     if bufs is None:
-        bufs = candidate_buffers(cp, dev)
+        bufs = candidate_buffers(cp, dev, ln)
     out, payr, payl = bufs["out"], bufs["payr"], bufs["payl"]
+    if int(out["delta"].shape[0]) != ln.total or int(payl["rf"].shape[0]) != ln.n_l:
+        raise ValueError("candidates: the output buffers are not sized by the launch's lanes")
     rows = {("r_" + k if k in ("src", "dst") else k): t for k, t in payr.items()}
     if cp.prior and "from_prior" not in out:
         raise ValueError("candidates: a prior-enabled step needs a from_prior buffer")
@@ -840,6 +919,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
     tt = cp.topic_tt
     dims = _Dims(
         K_r=K_r, K_s=K_s, K_l=K_l, n_imp_r=cp.n_imp(K_r, plan), n_imp_s=cp.n_imp(K_s, plan),
+        base_r=ln.base_r, base_s=ln.base_s, base_l=ln.base_l, n_r=ln.n_r, n_s=ln.n_s, n_l=ln.n_l,
         R=R, B=B, P=P, T=T, D=D, H=H, racks=racks, max_rf=max_rf, has_plan=plan is not None,
         has_topic=cp.w_topic != 0.0, has_pref=cp.w_pref != 0.0,
         price_r=plan is not None and bool(cp.replica_move_cost),
@@ -853,26 +933,29 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         topic_tt=tt, topic_tt_low=max(0.0, 2.0 - tt), num_parts=float(cp.num_parts),
         u_min=float(lo), u_span=float(np.float32(np.float32(1.0) - lo)),
     )
-    if K > 0:
+    if ln.total > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _fn()(dims, cp.tp.c_struct, scalars, c_in, c_out, stream)
         _build.check(status, "candidates")
         kernels.count("candidates")
-    return dict(out, nr=K_r, ns=K_s, payr=payr, payl=payl, from_prior=out.get("from_prior"))
+    return dict(out, nr=ln.n_r, ns=ln.n_s, payr=payr, payl=payl, from_prior=out.get("from_prior"))
 
 
-def candidates(cp: CandParams, sx, carry, keys, g, plan, temperature, bufs: dict | None = None) -> dict:
+def candidates(cp: CandParams, sx, carry, keys, g, plan, temperature, bufs: dict | None = None,
+               lanes: Lanes | None = None) -> dict:
     """One step's candidate bundle (delta, feas, accept, src, dst, part1,
     part2, nr, ns, payr, payl): the kernel for CUDA tensors, writing into
     `bufs` (`candidate_buffers`) when given, the plain version for CPU
     tensors.  `keys` is a KeyCursor (a StepKeys is uploaded as one row),
     `g` the step's globals as `step_globals` returns them (the kernel reads
-    their "vec"), `temperature` an f32[1] tensor (a float is uploaded)."""
+    their "vec"), `temperature` an f32[1] tensor (a float is uploaded).
+    `lanes` runs a slice of the candidate axis (`Lanes.shard`), laid out
+    by its own lane counts; all K when None."""
     if kernels.route(carry.broker_load, carry.replica_broker, sx.alive) == "cpu":
-        return candidates_plain(cp, sx, carry, keys, g, plan, temperature)
+        return candidates_plain(cp, sx, carry, keys, g, plan, temperature, lanes)
     dev = carry.broker_load.device
     if not isinstance(keys, KeyCursor):
         keys = KeyCursor.of(keys, dev)
     if not isinstance(temperature, torch.Tensor):
         temperature = torch.full((1,), float(temperature), dtype=torch.float32, device=dev)
-    return candidates_cuda(cp, sx, carry, keys, g, plan, temperature, bufs)
+    return candidates_cuda(cp, sx, carry, keys, g, plan, temperature, bufs, lanes)

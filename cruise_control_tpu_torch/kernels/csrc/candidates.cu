@@ -125,6 +125,9 @@ struct StepKeys {
 
 struct CandDims {
   int K_r, K_s, K_l, n_imp_r, n_imp_s;
+  // the launch's lanes: per kind, the first global candidate and the lane
+  // count (the outputs' sizes); the full-K launch has bases 0 and counts K
+  int base_r, base_s, base_l, n_r, n_s, n_l;
   int R, B, P, T, D, H, racks, max_rf;
   int has_plan, has_topic, has_pref, price_r, price_l, cdf_in_smem;
   int intra;  // the K_r lanes are intra-broker disk moves
@@ -207,13 +210,13 @@ struct CandOutputs {
   int* dst;
   int* part1;
   int* part2;
-  // relocation rows: K_r relocations, then each swap at K_r + i and K_r + K_s + i
+  // relocation rows: n_r relocations, then each swap at n_r + t and n_r + n_s + t (CandDims)
   int* r;
   int* r_src;
   int* r_dst;
   int* d_src;
   int* d_dst;
-  float* load;  // [K_r + 2 K_s, 4]
+  float* load;  // [n_r + 2 n_s, 4]
   bool* is_lead;
   float* pot;
   float* lbin;
@@ -224,13 +227,13 @@ struct CandOutputs {
   int* rt;
   int* src_b;
   int* dst_b;
-  float* dl_f;  // [K_l, 4]
-  float* dl_t;  // [K_l, 4]
+  float* dl_f;  // [n_l, 4]
+  float* dl_t;  // [n_l, 4]
   float* dlbin_src;
   float* dlbin_dst;
   int* d_f;
   int* d_t;
-  // the relocations' took-the-prior mask [K_r] (PRIOR)
+  // the relocations' took-the-prior mask [n_r] (PRIOR)
   bool* from_prior;
 };
 
@@ -710,7 +713,7 @@ __device__ __forceinline__ void lane_quotients(const Team<N>& tm, const float nu
 // topic cells' operands -> host rows, member brokers, cells), so the
 // chain is as deep as its data dependences and no deeper.
 template <bool DISK, bool PRIOR, bool BF16>
-__device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, bool on,
+__device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, int o, bool on,
                                 const float* cdf, bool staged) {
   const CandInputs& in = c.in;
   const StepKeys& ks = keys(c);
@@ -817,16 +820,16 @@ __device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, bool
   if (c.n.price_r) {
     delta = delta + in.replica_cost[0] * (f01(dst != x.orig) - f01(src != x.orig));
   }
-  put_candidate(c, L, on, i, delta, feas, accepted(c, u_acc, delta, feas), src, dst, x.part,
-                x.part, PRIOR ? c.out.from_prior : nullptr, i, took);
-  put_rel_row(c, L, on, i, r, src, dst, x.disk, d_dst, load, x.lead, pot, lbin, x.topic, x.part);
+  put_candidate(c, L, on, o, delta, feas, accepted(c, u_acc, delta, feas), src, dst, x.part,
+                x.part, PRIOR ? c.out.from_prior : nullptr, o, took);
+  put_rel_row(c, L, on, o, r, src, dst, x.disk, d_dst, load, x.lead, pot, lbin, x.topic, x.part);
 }
 
 // An intra-broker disk move (`_intra_disk_candidates`): replica r to the
 // most-free other alive logdir of its own broker b.
 template <bool DISK>
-__device__ void cand_intra(const Ctx& c, const Team<kTeam>& tm, int i, bool on, const float* cdf,
-                           bool staged) {
+__device__ void cand_intra(const Ctx& c, const Team<kTeam>& tm, int i, int o, bool on,
+                           const float* cdf, bool staged) {
   const CandInputs& in = c.in;
   const StepKeys& ks = keys(c);
   const int L = tm.lane;
@@ -873,14 +876,14 @@ __device__ void cand_intra(const Ctx& c, const Team<kTeam>& tm, int i, bool on, 
   if (c.n.price_r) {
     delta = delta + in.replica_cost[0] * (f01(d_dst != orig) - f01(d_src != orig));
   }
-  put_candidate(c, L, on, i, delta, feas, accepted(c, u_acc, delta, feas), b, b, part, part,
+  put_candidate(c, L, on, o, delta, feas, accepted(c, u_acc, delta, feas), b, b, part, part,
                 nullptr, 0, false);
-  put_rel_row(c, L, on, i, r, b, b, d_src, d_dst, load, is_lead, ll[2], is_lead ? ll[1] : 0.0f,
+  put_rel_row(c, L, on, o, r, b, b, d_src, d_dst, load, is_lead, ll[2], is_lead ? ll[1] : 0.0f,
               topic, part);
 }
 
 template <bool DISK, bool BF16>
-__device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, bool on,
+__device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, int o, bool on,
                           const float* cdf, bool staged) {
   const CandInputs& in = c.in;
   const StepKeys& ks = keys(c);
@@ -983,20 +986,20 @@ __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, bool o
                         f01(dst != orig_q);
     delta = delta + in.replica_cost[0] * stray;
   }
-  put_candidate(c, L4, on && side == 0, c.n.K_r + i, delta, feas, accepted(c, u_acc, delta, feas),
+  put_candidate(c, L4, on && side == 0, c.n.n_r + o, delta, feas, accepted(c, u_acc, delta, feas),
                 src, dst, xr.part, xq.part, nullptr, 0, false);
   // r -> (dst, q's disk slot) on lanes 0-3, q -> (src, r's disk slot) on 4-7
   if (side == 0) {
-    put_rel_row(c, L4, on, c.n.K_r + i, r, src, dst, xr.disk, xq.disk, load_r, xr.lead, pot_r,
+    put_rel_row(c, L4, on, c.n.n_r + o, r, src, dst, xr.disk, xq.disk, load_r, xr.lead, pot_r,
                 lbin_r, xr.topic, xr.part);
   } else {
-    put_rel_row(c, L4, on, c.n.K_r + c.n.K_s + i, q, dst, src, xq.disk, xr.disk, load_q, xq.lead,
+    put_rel_row(c, L4, on, c.n.n_r + c.n.n_s + o, q, dst, src, xq.disk, xr.disk, load_q, xq.lead,
                 pot_q, lbin_q, xq.topic, xq.part);
   }
 }
 
 template <bool DISK, bool BF16>
-__device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, bool on) {
+__device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, int o, bool on) {
   const CandInputs& in = c.in;
   const StepKeys& ks = keys(c);
   const int R = c.n.R;
@@ -1077,20 +1080,28 @@ __device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, bool
   if (c.n.price_l) {
     delta = delta + in.lead_cost[0] * (f01(!orig_lead_t) - f01(!orig_lead_f));
   }
-  put_candidate(c, L, on, k, delta, feas, accepted(c, u_acc, delta, feas), src, dst, part, part,
-                nullptr, 0, false);
-  const CandOutputs& o = c.out;
-  put_lanes<int>(L, on, i, o.rf, rf, o.rt, rt, o.src_b, src, o.dst_b, dst);
-  put_lanes<int>(L, on, i, o.d_f, disk_f, o.d_t, disk_t, (int*)nullptr, 0, (int*)nullptr, 0);
-  put_lanes<float>(L, on, i, o.dlbin_src, dlbin_src, o.dlbin_dst, dlbin, (float*)nullptr, 0.0f,
+  put_candidate(c, L, on, c.n.n_r + c.n.n_s + o, delta, feas, accepted(c, u_acc, delta, feas), src,
+                dst, part, part, nullptr, 0, false);
+  const CandOutputs& out = c.out;
+  put_lanes<int>(L, on, o, out.rf, rf, out.rt, rt, out.src_b, src, out.dst_b, dst);
+  put_lanes<int>(L, on, o, out.d_f, disk_f, out.d_t, disk_t, (int*)nullptr, 0, (int*)nullptr, 0);
+  put_lanes<float>(L, on, o, out.dlbin_src, dlbin_src, out.dlbin_dst, dlbin, (float*)nullptr, 0.0f,
                    (float*)nullptr, 0.0f);
-  if (on && L == 2) put4(o.dl_f, i, dl_f);
-  if (on && L == 3) put4(o.dl_t, i, dl_t);
+  if (on && L == 2) put4(out.dl_f, o, dl_f);
+  if (on && L == 3) put4(out.dl_t, o, dl_t);
 }
 
 // ---------------------------------------------------------------------------
 // the candidate launch: blocks [0, nb_r) relocations (or intra moves), then
 // swaps, then leadership transfers
+//
+// A launch may run a slice of each kind's candidates (the mesh engine's
+// candidate axis, parallel/mesh.py): lane t of kind x is global candidate
+// base_x + t, drawn, scored and accepted under the same keys, counters and
+// Metropolis u as in the full-K launch, and stored at t of the launch's
+// own layout (n_r relocation lanes, then n_s swaps, then n_l leadership
+// transfers; payload rows likewise).  A lane past its kind's K stores
+// nothing.  The full-K launch is the slice with bases 0 and counts K.
 // ---------------------------------------------------------------------------
 
 // DISK: the chain weighs the intra-broker disk goals; INTRA: the K_r
@@ -1104,16 +1115,18 @@ template <bool DISK, bool INTRA, bool PRIOR, bool BF16>
 __global__ void __launch_bounds__(kThreads, 4) candidates_kernel(Ctx c) {
   extern __shared__ float s_cdf[];
   constexpr int per_r = kThreads / kTeam, per_s = kThreads / kSwapTeam;
-  const int nb_r = (c.n.K_r + per_r - 1) / per_r;
-  const int nb_s = (c.n.K_s + per_s - 1) / per_s;
+  const int nb_r = (c.n.n_r + per_r - 1) / per_r;
+  const int nb_s = (c.n.n_s + per_s - 1) / per_s;
   int b = blockIdx.x;
-  int kind, n, n_imp, per;
+  int kind, n, n_imp, per, base, lanes;
   if (b < nb_r) {
-    kind = 0, n = c.n.K_r, n_imp = c.n.n_imp_r, per = per_r;
+    kind = 0, n = c.n.K_r, n_imp = c.n.n_imp_r, per = per_r, base = c.n.base_r, lanes = c.n.n_r;
   } else if (b < nb_r + nb_s) {
     kind = 1, n = c.n.K_s, n_imp = c.n.n_imp_s, per = per_s, b -= nb_r;
+    base = c.n.base_s, lanes = c.n.n_s;
   } else {
     kind = 2, n = c.n.K_l, n_imp = 0, per = per_r, b -= nb_r + nb_s;
+    base = c.n.base_l, lanes = c.n.n_l;
   }
   // the generation block, then (in blocks holding importance-sampled
   // sources, block-uniform) the CDF: two commit groups, the copies in
@@ -1123,7 +1136,8 @@ __global__ void __launch_bounds__(kThreads, 4) candidates_kernel(Ctx c) {
                             sizeof(int));
   }
   __pipeline_commit();
-  const bool staged = c.n.cdf_in_smem && kind < 2 && n_imp > 0 && (b + 1) * per > n - n_imp;
+  const bool staged =
+      c.n.cdf_in_smem && kind < 2 && n_imp > 0 && base + (b + 1) * per > n - n_imp;
   if (staged) {
     for (int j = threadIdx.x; j < c.n.B; j += kThreads) {
       __pipeline_memcpy_async(s_cdf + j, c.in.cdf + j, sizeof(float));
@@ -1131,17 +1145,18 @@ __global__ void __launch_bounds__(kThreads, 4) candidates_kernel(Ctx c) {
   }
   __pipeline_commit();
   const float* cdf = staged ? s_cdf : c.in.cdf;
-  const int i_raw = b * per + threadIdx.x / (kind == 1 ? kSwapTeam : kTeam);
-  const bool on = i_raw < n;
+  const int t = b * per + threadIdx.x / (kind == 1 ? kSwapTeam : kTeam);
+  const int i_raw = base + t;
+  const bool on = t < lanes && i_raw < n;
   const int i = min(i_raw, n - 1);
   if (INTRA) {
-    cand_intra<DISK>(c, Team<kTeam>(threadIdx.x), i, on, cdf, staged);  // K_s = K_l = 0
+    cand_intra<DISK>(c, Team<kTeam>(threadIdx.x), i, t, on, cdf, staged);  // K_s = K_l = 0
   } else if (kind == 0) {
-    cand_relocation<DISK, PRIOR, BF16>(c, Team<kTeam>(threadIdx.x), i, on, cdf, staged);
+    cand_relocation<DISK, PRIOR, BF16>(c, Team<kTeam>(threadIdx.x), i, t, on, cdf, staged);
   } else if (kind == 1) {
-    cand_swap<DISK, BF16>(c, Team<kSwapTeam>(threadIdx.x), i, on, cdf, staged);
+    cand_swap<DISK, BF16>(c, Team<kSwapTeam>(threadIdx.x), i, t, on, cdf, staged);
   } else {
-    cand_leadership<DISK, BF16>(c, Team<kTeam>(threadIdx.x), i, on);
+    cand_leadership<DISK, BF16>(c, Team<kTeam>(threadIdx.x), i, t, on);
   }
 }
 
@@ -1154,9 +1169,9 @@ static cudaError_t launch_candidates(const Ctx& c, cudaStream_t st) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const unsigned int blocks = cc_blocks(c.n.K_r, kThreads / kTeam) +
-                              cc_blocks(c.n.K_s, kThreads / kSwapTeam) +
-                              cc_blocks(c.n.K_l, kThreads / kTeam);
+  const unsigned int blocks = cc_blocks(c.n.n_r, kThreads / kTeam) +
+                              cc_blocks(c.n.n_s, kThreads / kSwapTeam) +
+                              cc_blocks(c.n.n_l, kThreads / kTeam);
   candidates_kernel<DISK, INTRA, PRIOR, BF16><<<blocks, kThreads, smem, st>>>(c);
   return cudaGetLastError();
 }
@@ -1175,10 +1190,14 @@ static cudaError_t launch_inter(const Ctx& c, cudaStream_t st) {
 
 CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in, CandOutputs out,
                             void* stream) {
-  const long long K = (long long)n.K_r + n.K_s + n.K_l;
-  if (K <= 0) return 0;
+  const long long lanes = (long long)n.n_r + n.n_s + n.n_l;
+  if (lanes <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (n.intra && (n.K_s > 0 || n.K_l > 0 || n.prior)) return (int)cudaErrorInvalidValue;
+  if (n.base_r < 0 || n.base_s < 0 || n.base_l < 0 || (n.n_r > 0 && n.K_r <= 0) ||
+      (n.n_s > 0 && n.K_s <= 0) || (n.n_l > 0 && n.K_l <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (in.gen == nullptr) return (int)cudaErrorInvalidValue;
   if (n.prior && (in.prior_keys == nullptr || in.prior_cdf == nullptr || in.prior_mix == nullptr ||
                   out.from_prior == nullptr)) {

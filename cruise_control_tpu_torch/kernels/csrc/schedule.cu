@@ -55,6 +55,8 @@
 // into the row of a round that ran, the objective into Y_OBJ; a round that
 // did not run, EXIT's included, gets 0 counts and NaN violations.  Only
 // these one-thread phases read the flag.
+#include <stdlib.h>
+
 #include "common.cuh"
 
 // indices into the int state (kernels/schedule.py)
@@ -404,6 +406,28 @@ CC_EXPORT int cc_loop_graph_build(void* init, void* eval, void* body, void* obj,
     return 0;
   } while (0);
   cudaGraphDestroy(g);
+  // a refused build leaves its error as the runtime's last error, which the
+  // next launch of this library would report as its own (the mesh layer's
+  // host loop launches round_schedule after a refused build)
+  (void)cudaGetLastError();
+  return (int)e;
+}
+
+// A graph's top-level nodes counted by cudaGraphNodeType: counts[t] for
+// t < n (what a captured graph holds, e.g. NCCL's nodes in a round body).
+CC_EXPORT int cc_graph_node_types(void* graph, int* counts, int n) {
+  size_t num = 0;
+  cudaError_t e = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &num);
+  if (e != cudaSuccess || num == 0) return (int)e;
+  cudaGraphNode_t* nodes = (cudaGraphNode_t*)malloc(num * sizeof(cudaGraphNode_t));
+  if (nodes == nullptr) return (int)cudaErrorMemoryAllocation;
+  e = cudaGraphGetNodes((cudaGraph_t)graph, nodes, &num);
+  for (size_t i = 0; e == cudaSuccess && i < num; ++i) {
+    cudaGraphNodeType t;
+    e = cudaGraphNodeGetType(nodes[i], &t);
+    if (e == cudaSuccess && (int)t >= 0 && (int)t < n) counts[(int)t] += 1;
+  }
+  free(nodes);
   return (int)e;
 }
 

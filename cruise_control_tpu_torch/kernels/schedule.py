@@ -322,6 +322,21 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> tuple[int, int]:
     return n.value, k.value
 
 
+#: cudaGraphNodeType's names, in its order (CUDA 12.4)
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+              "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc", "mem_free",
+              "batch_mem_op", "conditional")
+
+
+def graph_node_types(graph: torch.cuda.CUDAGraph) -> dict[str, int]:
+    """A captured graph's top-level nodes by type (kept with keep_graph)."""
+    fn = _lib_fn("cc_graph_node_types", [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int])
+    counts = (ctypes.c_int * 32)()
+    _build.check(fn(graph.raw_cuda_graph(), counts, 32), "cudaGraphGetNodes")
+    return {(NODE_TYPES[t] if t < len(NODE_TYPES) else str(t)): counts[t] for t in range(32)
+            if counts[t]}
+
+
 def cuda_versions() -> tuple[int, int]:
     """(runtime, driver) CUDA versions, e.g. 12040 for 12.4."""
     fn = _lib_fn("cc_cuda_versions", [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])

@@ -1,13 +1,64 @@
-"""Multi-device parallelism.
+"""Multi-device parallelism: ONE rank-group engine layer (mesh.py).
 
-Only the mesh fault-tolerance controller is here so far: the config's
-`tpu.mesh.ft.*` keys build it (config/app_config.py
-`mesh_ft_controller`).  The mesh engine layer that would use it (the JAX
-package's parallel/{mesh,grid,portfolio,sharded,model_shard}.py) is not
-ported yet, so the service refuses every `tpu.parallel.mode` but
-"single" (service/facade.py `refuse_unported_modes`).
+Every multi-device mode is a view of the same run over an explicit 2D
+(restart, model) layout of devices, one rank process a device
+(ranks.py, the port's counterpart of `jax.sharding.Mesh`):
+
+  * sharded.py   -- (1, n): one chain, candidate axis sharded n ways;
+  * portfolio.py -- (n, 1): independent SA chains racing to the best
+    objective;
+  * grid.py      -- (R, M): a portfolio OF candidate-sharded chains.
+
+ft.py holds the mesh fault-tolerance controller that the config's
+`tpu.mesh.ft.*` keys build; the ladder that would drive it (ROADMAP queue 1
+item 10c) is not ported, and a mesh mode with it enabled is refused.
 """
 
 from cruise_control_tpu_torch.parallel.ft import CheckpointSlot, MeshFtController
+from cruise_control_tpu_torch.parallel.grid import GridEngine
+from cruise_control_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    RESTART_AXIS,
+    MeshEngine,
+    ModelShardNotPortedError,
+    SegmentedMeshNotPortedError,
+    default_mesh,
+    grid_mesh,
+    model_mesh,
+    normalize_mesh,
+)
+from cruise_control_tpu_torch.parallel.portfolio import portfolio_run
+from cruise_control_tpu_torch.parallel.ranks import (
+    Layout,
+    RankDiedError,
+    RankGroupError,
+    RankTimeoutError,
+    close_rank_groups,
+    cpu_devices,
+    rank_group,
+)
+from cruise_control_tpu_torch.parallel.sharded import ShardedEngine
 
-__all__ = ["CheckpointSlot", "MeshFtController"]
+__all__ = [
+    "CheckpointSlot",
+    "GridEngine",
+    "Layout",
+    "MODEL_AXIS",
+    "MeshEngine",
+    "MeshFtController",
+    "ModelShardNotPortedError",
+    "RESTART_AXIS",
+    "RankDiedError",
+    "RankGroupError",
+    "RankTimeoutError",
+    "SegmentedMeshNotPortedError",
+    "ShardedEngine",
+    "close_rank_groups",
+    "cpu_devices",
+    "default_mesh",
+    "grid_mesh",
+    "model_mesh",
+    "normalize_mesh",
+    "portfolio_run",
+    "rank_group",
+]

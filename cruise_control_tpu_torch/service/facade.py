@@ -16,10 +16,13 @@ evaluator and rightsizer run on it, and the monitor builds its models
 there (service/main.py resolves it once).  On the card a supervised
 route that fails raises `DeviceDegradedError` or `BreakerOpenError`
 (common/device_watchdog.py), which the REST layer answers with a 503; no
-work of the card is answered on the CPU.  One mode of the JAX package is
-not in this package yet and is refused with a `ConfigException` naming
-the key: a `tpu.parallel.mode` other than "single" (the mesh engine
-layer, ROADMAP queue 1 item 10).  `controller.enabled=true` builds the
+work of the card is answered on the CPU.  The mesh modes
+(`tpu.parallel.mode` "sharded" or "grid:RxM") run on a rank group of the
+host's cards (parallel/mesh.py; on a CPU service, `tpu.mesh.max.devices`
+gloo ranks).  One configuration of the JAX package is not in this package
+yet and is refused with a `ConfigException` naming the key: a mesh mode
+with `tpu.mesh.ft.enabled=true`, the JAX default (mesh fault tolerance,
+ROADMAP queue 1 item 10c).  `controller.enabled=true` builds the
 streaming controller (controller/streaming.py) on the facade's device.
 """
 
@@ -74,15 +77,16 @@ log = logging.getLogger(__name__)
 
 
 def refuse_unported_modes(config: CruiseControlConfig) -> None:
-    """Raise `ConfigException` for a mode the JAX package runs and this
-    package does not have yet (the mesh modes, ROADMAP queue 1 item 10);
-    the config itself parses them as the JAX package does."""
+    """Raise `ConfigException` for a configuration the JAX package runs and
+    this package does not have yet: a mesh mode with mesh fault tolerance
+    enabled (ROADMAP queue 1 item 10c); the config itself parses it as the
+    JAX package does."""
     mode = config.parallel_mode()
-    if mode != "single":
+    if mode != "single" and config.get("tpu.mesh.ft.enabled"):
         raise ConfigException(
-            f"tpu.parallel.mode={mode!r} is not supported by this package "
-            "yet: only 'single' runs (the mesh engine layer is ROADMAP "
-            "queue 1 item 10)"
+            f"tpu.parallel.mode={mode!r} with tpu.mesh.ft.enabled=true is not supported by "
+            "this package yet (mesh fault tolerance is ROADMAP queue 1 item 10c): set "
+            "tpu.mesh.ft.enabled=false"
         )
 
 
@@ -265,6 +269,9 @@ class AnalyzerCore:
             tracer=self.tracer,
             profiler_dir=self.profiler_dir,
             prewarm_store=self.prewarm_store,
+            parallel_mode=config.parallel_mode(),
+            mesh_max_devices=config.mesh_max_devices(),
+            model_shard_min_partitions=config.mesh_model_shard_min_partitions(),
         )
         # per-bucket cold-start attribution as labeled /metrics series
         # (only the core's long-lived default optimizer feeds it; ad-hoc
@@ -1029,7 +1036,7 @@ class CruiseControl:
             for rank, entry in enumerate(entries):
                 try:
                     shape, max_rf, cfg, pmode = store.entry_engine_inputs(entry)
-                    if pmode != "single":
+                    if pmode != self.optimizer.parallel_mode:
                         continue
                     from cruise_control_tpu_torch.models.builder import prewarm_state
 
@@ -1087,8 +1094,10 @@ class CruiseControl:
         busiest.  Pre-warming a zero-padded copy of the latest model at the
         next bucket makes that overflow hit a compiled engine instead —
         `Engine` programs never depend on the padding data, only the shape.
+        Single-device mode only, as in the JAX package: a mesh engine's
+        prewarm would start its ranks' captures on a speculative shape.
         """
-        if not self.bucket_policy.enabled:
+        if not self.bucket_policy.enabled or self.optimizer.parallel_mode != "single":
             return
         if self.controller is not None and self.controller.running:
             # the controller's donated in-place updates invalidate the

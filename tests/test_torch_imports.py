@@ -52,7 +52,10 @@ def test_import_loads_no_jax_in_subprocess():
               "config.config_def", "config.endpoints", "config.app_config", "parallel.ft",
               "service.progress", "service.purgatory", "service.tasks", "service.schemas",
               "service.security", "service.parameters", "service.facade", "fleet.manager",
-              "service.server", "service.main", "client.cccli"):
+              "service.server", "service.main", "client.cccli",
+              # the replicated mesh layer
+              "common.collectives", "models.sharding", "parallel.ranks", "parallel.mesh",
+              "parallel.sharded", "parallel.portfolio", "parallel.grid"):
         assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"

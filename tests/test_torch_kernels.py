@@ -2090,3 +2090,120 @@ def test_abandoned_spin_holds_the_breaker_open_on_card(cuda):
     while sup.abandoned_running() and time.monotonic() < deadline:
         time.sleep(0.05)
     assert sup.available() and not sup.is_degraded
+
+
+# ----------------------------------------------------------------------
+# the mesh layer's lane slices and routes (parallel/mesh.py)
+# ----------------------------------------------------------------------
+
+
+def _slice_parts(out: dict, ln, grp: str):
+    """A launch's outputs of one group split by kind (relocations, swaps,
+    leadership; the relocation rows' two swap halves)."""
+    a, b = ln.n_r, ln.n_r + ln.n_s
+    if grp == "payl":
+        return (out,)
+    return out[:a], out[a:b], out[b:]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("variant", CAND_VARIANTS)
+def test_candidate_slices_match_the_full_launch_and_plain(cuda, variant, n):
+    """The candidates kernel's lane slices (`Lanes.shard`, the mesh
+    layer's candidate axis): the n slices' lanes, kind by kind, are the
+    full-K launch bit for bit, and each slice's ids, masks, payload and
+    acceptance are its plain version's slice exactly, its deltas within
+    move_delta's bar, on the lanes below each kind's K."""
+    eng, carry, g, keys, plan = _variant_step(cuda, variant, "random", split=PARTIAL_SPLITS["odd"]
+                                              if variant != "intra" else (119, 0, 0))
+    cp = eng.cand
+    T = 0.01
+    full = cand_k.candidates(cp, eng.statics, carry, keys, g, plan, T)
+    full = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in full.items()}
+    sizes = {"out": (cp.K_r, cp.K_s, cp.K_l), "payr": (cp.K_r, cp.K_s, cp.K_s), "payl": (cp.K_l,)}
+    parts = []
+    for j in range(n):
+        ln = cand_k.Lanes.shard(cp, j, n)
+        got = cand_k.candidates(cp, eng.statics, carry, keys, g, plan, T, lanes=ln)
+        got = dict(got, payr={k: v.clone() for k, v in got["payr"].items()},
+                   payl={k: v.clone() for k, v in got["payl"].items()})
+        want = cand_k.candidates_plain(cp, eng.statics, carry, keys, g, plan, T, lanes=ln)
+        valid = [torch.arange(b, b + m, device=cuda) < k for b, m, k in
+                 ((ln.base_r, ln.n_r, cp.K_r), (ln.base_s, ln.n_s, cp.K_s), (ln.base_l, ln.n_l, cp.K_l))]
+        vb = torch.cat(valid)
+        for f in ("feas", "accept", "src", "dst", "part1", "part2"):
+            assert torch.equal(got[f][vb], want[f][vb]), (j, f)
+        bar = 1e-4 * want["delta"][vb].abs() + 1e-6 * float(full["delta"].abs().max()) + 1e-12
+        assert bool(((got["delta"][vb] - want["delta"][vb]).abs() <= bar).all())
+        for grp, m in (("payr", torch.cat([valid[0], valid[1], valid[1]])), ("payl", valid[2])):
+            for f, t in want[grp].items():
+                assert torch.equal(got[grp][f][m], t[m]), (j, grp, f)
+        parts.append((ln, got))
+    for grp in ("out", "payr", "payl"):
+        names = ("delta", "feas", "accept", "src", "dst", "part1", "part2") if grp == "out" \
+            else tuple(full[grp])
+        for f in names:
+            segs = [_slice_parts(p[f] if grp == "out" else p[grp][f], ln, grp) for ln, p in parts]
+            cat = torch.cat([torch.cat([s[k] for s in segs])[:sizes[grp][k]]
+                             for k in range(len(sizes[grp]))])
+            ref = full[f] if grp == "out" else full[grp][f]
+            a, b = (cat.view(torch.int32), ref.view(torch.int32)) if ref.dtype == torch.float32 \
+                else (cat, ref)
+            assert torch.equal(a, b), (grp, f)
+    if full["from_prior"] is not None:
+        assert torch.equal(torch.cat([p["from_prior"] for _, p in parts])[:cp.K_r],
+                           full["from_prior"])
+
+
+def test_mesh_host_loop_matches_the_loop_graph(cuda):
+    """The mesh layer's host-loop route (the rounds driven from the host
+    over the captured graphs, where the card refuses a loop graph holding
+    a collective) is the loop graph's run bit for bit: placements, ys and
+    payload; 3 syncs a round and one at the end."""
+    from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS
+    from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT
+    from cruise_control_tpu_torch.parallel.mesh import RankEngine
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    plain = Engine(state, DEFAULT_CHAIN, config=CFG)
+    p_final, p_hist, p_out = plain.run_reported()
+    eng = RankEngine(state, DEFAULT_CHAIN, DEFAULT_CONSTRAINT, DEFAULT_OPTIONS, CFG,
+                     key=Key.from_seed(CFG.seed), shard=(0, 1))
+    eng.loop_route = "host"
+    for _ in range(2):
+        h_final, h_hist, h_out = eng._run_fused(reports=True)
+        for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+            assert torch.equal(getattr(h_final, f), getattr(p_final, f)), f
+        assert plain.last_ys.tobytes() == eng.last_ys.tobytes()
+        assert [h for h in h_hist if "round" in h] == [h for h in p_hist if "round" in h]
+        assert float(h_out["obj_after"]) == float(p_out["obj_after"])
+        rounds = h_hist[-1]["loop_iterations"]
+        assert h_hist[-1]["blocking_syncs"] == 3 * rounds + 1
+
+
+def test_mesh_over_nccl_matches_the_plain_engine(cuda):
+    """A 1x1 rank group over NCCL (and 1x2 where the host has two cards)
+    runs the plain engine's anneal: placements and round records bit for
+    bit, no gather at 1x1, one a step at 1x2, the row's carries equal."""
+    from cruise_control_tpu_torch.parallel import ShardedEngine, close_rank_groups, model_mesh
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    p_final, p_hist = Engine(state, DEFAULT_CHAIN, config=CFG).run()
+    widths = [1, 2] if torch.cuda.device_count() >= 2 else [1]
+    try:
+        for n in widths:
+            se = ShardedEngine(state, DEFAULT_CHAIN, mesh=model_mesh([f"cuda:{i}" for i in range(n)]),
+                               config=CFG, timeout_s=300)
+            m_final, m_hist = se.run()
+            for f in ("replica_broker", "replica_is_leader", "replica_disk"):
+                assert torch.equal(getattr(m_final, f), getattr(p_final, f)), (n, f)
+            assert [h for h in m_hist if "round" in h] == [h for h in p_hist if "round" in h]
+            assert m_hist[-1]["backend"] == "nccl"
+            ran = len([h for h in m_hist if "round" in h])
+            assert m_hist[-1]["collectives"] == (0 if n == 1 else ran * CFG.steps_per_round)
+            assert len(set(se.carry_digests())) == 1
+            se.release()
+    finally:
+        close_rank_groups()
