@@ -368,6 +368,10 @@ NORTH_STAR_SPEC = dict(
     mean_nw_out=500.0,
     mean_disk=4000.0,
 )
+# the sharded-model mode's own deployment (the JAX package's
+# parallel/mesh.py docstring: 25k brokers and 2M partitions): the north
+# star's spec ten times over, its racks, replication and loads kept
+TARGET_SPEC = dict(NORTH_STAR_SPEC, num_brokers=25_000, num_topics=2_000, num_partitions=2_000_000)
 SEARCH = dict(num_candidates=16384, leadership_candidates=4096, steps_per_round=64, num_rounds=8, seed=0)
 # BASELINE.md configuration 3: bench.py's MID_SPEC (bench.py:65) with 4
 # logdirs a broker, and config_3's chain (bench.py:230)
@@ -393,7 +397,8 @@ ALU_OPS_PER_S = 67e12
 #: the package's own CUDA kernels, by the names the profiler reports
 OWN_KERNELS = ("threefry_uniform_kernel", "move_delta_kernel", "candidates_kernel", "select_survivors_kernel", "apply_moves_kernel",
                "group_by_broker_kernel", "refresh_aggregates_kernel", "step_globals_kernel",
-               "round_schedule_kernel", "scatter_loads_kernel", "scenario_step_kernel")
+               "round_schedule_kernel", "scatter_loads_kernel", "scenario_step_kernel",
+               "shard_sources_kernel", "own_rows_kernel", "own_parts_kernel", "shard_prc_kernel")
 
 
 def kernel_name(name: str) -> str:
@@ -5979,6 +5984,677 @@ def check_mesh_cards(state, cfg, exact: dict, smi: str, devs=None) -> dict:
     return out
 
 
+def bits_equal(a, b) -> bool:
+    """Two tensors equal bit for bit (floats by their bits)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+    return bool(torch.equal(a, b))
+
+
+#: phase 30's kernels, as rows of their own in the kernels line
+SHARD_CASES = {
+    "candidates_shard": ("candidates.cu", "cruise_control_tpu/parallel/model_shard.py:222"),
+    "shard_sources": ("model_shard.cu", "cruise_control_tpu/parallel/model_shard.py:285"),
+    "own_rows": ("model_shard.cu", "cruise_control_tpu/parallel/model_shard.py:196"),
+    "own_parts": ("model_shard.cu", "cruise_control_tpu/parallel/model_shard.py:226"),
+    "shard_prc": ("model_shard.cu", "cruise_control_tpu/models/aggregates.py:93"),
+    "apply_moves_offsets": ("apply.cu", "cruise_control_tpu/parallel/model_shard.py:323"),
+    "refresh_aggregates_local": ("refresh.cu", "cruise_control_tpu/models/aggregates.py:58"),
+}
+
+
+class ShardEmulation:
+    """The sharded-model step of n shards on one device (phase 30 (a)):
+    each shard's kernels on its own row blocks (`shard_views`), and a torch
+    sum of the shard bundles in place of the all_reduce (NCCL takes one
+    rank a card)."""
+
+    def __init__(self, eng, carry, plan, n: int):
+        import torch
+
+        from cruise_control_tpu_torch.kernels import model_shard as ms_k
+        from cruise_control_tpu_torch.kernels.group import group_placement
+        from cruise_control_tpu_torch.parallel.model_shard import ShardPlan, shard_views
+
+        s = eng.shape
+        self.eng, self.n = eng, n
+        self.blks = [ms_k.Block.of(s.R, s.P, j, n) for j in range(n)]
+        self.views = [shard_views(eng.statics, carry, b) for b in self.blks]
+        groups = [group_placement(c.replica_broker, sx.state.replica_valid, s.B)
+                  for sx, c in self.views]
+        counts = torch.stack([gp.count for gp in groups])
+        self.plans = [ShardPlan(
+            broker_cdf=plan.broker_cdf, order=gp.order, start=gp.start, count=plan.count,
+            count_local=gp.count, below=counts[:j].sum(0).to(torch.int32), start_global=plan.start,
+            replica_cost=plan.replica_cost, lead_cost=plan.lead_cost) for j, gp in enumerate(groups)]
+        self.groups = groups
+
+    def hop(self, fn):
+        """One hop: every shard's own-or-zero bundle, summed."""
+        parts = [fn(j, sx, c) for j, ((sx, c), _b) in enumerate(zip(self.views, self.blks))]
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out += p
+        return out
+
+    def bundles(self, cursor):
+        import torch
+
+        from cruise_control_tpu_torch.kernels import candidates as cand_k
+        from cruise_control_tpu_torch.kernels import model_shard as ms_k
+
+        eng = self.eng
+        cp = eng.cand
+        max_rf, racks = eng.max_rf, eng.shape.num_racks
+        n_rs, pw = cp.K_r + 2 * cp.K_s, max_rf + racks
+        ids = self.hop(lambda j, sx, c: ms_k.shard_sources(cp, cursor, self.plans[j], sx.gen,
+                                                           self.blks[j], True))
+        rows = self.hop(lambda j, sx, c: ms_k.own_rows(ids, ms_k.ROW_WORDS,
+                                                       ms_k.row_columns(sx.state, c), self.blks[j]))
+        parts = self.hop(lambda j, sx, c: ms_k.own_parts(rows.view(-1)[1:], int(ids.shape[0]),
+                                                         ms_k.ROW_WORDS, sx.part_replicas,
+                                                         c.part_rack_count, self.blks[j]))
+        mb = self.hop(lambda j, sx, c: ms_k.own_rows(parts, 1, ms_k.row_columns(sx.state, c),
+                                                     self.blks[j], m=max_rf, stride=pw, n=n_rs))
+        ml = self.hop(lambda j, sx, c: ms_k.own_rows(parts[n_rs:], ms_k.ROW_WORDS,
+                                                     ms_k.row_columns(sx.state, c), self.blks[j],
+                                                     m=max_rf, stride=pw, n=cp.K_l))
+        return cand_k.ShardBundles(ids=ids, rows=rows, parts=parts, mb=mb, ml=ml,
+                                   shape=eng.shape, row_words=ms_k.ROW_WORDS)
+
+
+def check_model_shard_step(state, cfg, smi: str) -> dict:
+    """Phase 30 (a): the sharded-model step emulated on one card at the
+    north star, for n = 2 and n = 4 shards (`ShardEmulation`), on loads
+    rounded to integers (every partial sum exact).  The assembled bundles
+    are the whole model's gathers at the same ids, bit for bit; the
+    candidates kernel's SHARD body gives the full-model fused launch's
+    deltas, acceptance and payload bit for bit; `apply_moves` with each
+    shard's row offsets writes the whole apply's rows of its block and
+    the same aggregates; the local refresh's sums over the shards are the
+    whole refresh's; the local groupings rebuild the global grouped order.
+    Each new or changed kernel is held against its plain version and
+    timed.  The path's launches are counted over one emulated step at
+    n = 4 (`launches`)."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch import kernels as kernels_mod
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+    from cruise_control_tpu_torch.analyzer.draws import Key
+    from cruise_control_tpu_torch.kernels import apply as apply_k
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+    from cruise_control_tpu_torch.kernels import select as select_k
+    from cruise_control_tpu_torch.kernels.refresh import refresh_aggregates, refresh_plain
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.models.sharding import shard_multiple_shape
+    from cruise_control_tpu_torch.parallel.model_shard import loads_quantized
+
+    t_phase = time.monotonic()
+    dev = state.device
+    st = loads_quantized(pad_state(state, shard_multiple_shape(state.shape, 4)), scale=1.0)
+    eng = Engine(st, DEFAULT_CHAIN, config=cfg)
+    carry = eng.init_carry(Key.from_seed(cfg.seed))
+    plan = eng.plan(carry)
+    g = eng._globals(carry)
+    cp = eng.cand
+    s = eng.shape
+    keys = cand_k.StepKeys.of(carry.key, intra=False, prior=False)
+    cursor = cand_k.KeyCursor.of(keys, dev)
+    temp = torch.full((1,), float(eng.evaluate(carry)[0]) * cfg.init_temperature_scale,
+                      dtype=torch.float32, device=dev)
+    full = cand_k.candidates(cp, eng.statics, carry, cursor, g, plan, temp)
+    full_blk = ms_k.Block(0, s.R, 0, s.P, 0, 1)
+    cols = ms_k.row_columns(eng.statics.state, carry)
+    max_rf, racks = eng.max_rf, s.num_racks
+    n_rs, pw = cp.K_r + 2 * cp.K_s, max_rf + racks
+    want_ids = torch.cat([full["payr"]["r"], full["payl"]["rt"]]).to(torch.int32)
+    out: dict = dict(phase="model_shard_step", card=smi, R=s.R, P=s.P, B=s.B, K=cp.K_r + cp.K_s + cp.K_l)
+    prop_fields = ("delta", "feas", "accept", "src", "dst", "part1", "part2")
+    em4 = None
+    for n in (2, 4):
+        em = ShardEmulation(eng, carry, plan, n)
+        sh = em.bundles(cursor)
+        rows_want = ms_k.own_rows_plain(sh.ids, ms_k.ROW_WORDS, cols, full_blk)
+        parts_want = ms_k.own_parts_plain(sh.rows[:, 1], eng.statics.part_replicas,
+                                          carry.part_rack_count, full_blk)
+        mb_want = ms_k.own_rows_plain(sh.parts[:n_rs, :max_rf], 1, cols, full_blk)
+        ml_want = ms_k.own_rows_plain(sh.parts[n_rs:, :max_rf], ms_k.ROW_WORDS, cols, full_blk)
+        body = cand_k.candidates_shard(cp, em.views[0][0], em.views[0][1], cursor, g, em.plans[0],
+                                       temp, sh)
+        same = dict(
+            ids=bits_equal(sh.ids, want_ids), rows=bits_equal(sh.rows, rows_want),
+            parts=bits_equal(sh.parts, parts_want), mb=bits_equal(sh.mb, mb_want),
+            ml=bits_equal(sh.ml, ml_want),
+            **{f: bits_equal(body[f], full[f]) for f in prop_fields},
+            payr=all(bits_equal(body["payr"][f], full["payr"][f]) for f in full["payr"]),
+            payl=all(bits_equal(body["payl"][f], full["payl"][f]) for f in full["payl"]),
+        )
+        out[f"n{n}_bit_equal_full"] = same
+        check(all(same.values()), f"model shard n={n}: the emulated step differs from the full "
+                                  f"launch: {same}")
+        if n == 4:
+            em4 = (em, sh, body)
+    em, sh, body = em4
+    # apply_moves with row offsets: each shard's block of the whole apply
+    survive, sv_r, _ = select_k.select_survivors(
+        full["accept"], full["delta"], full["src"], full["dst"], full["part1"], full["part2"],
+        num_brokers=s.B, num_parts=s.P, n_r=full["nr"], n_s=full["ns"])
+    sv_l = survive[full["nr"] + full["ns"]:]
+    whole = carry.clone()
+    apply_k.apply_moves(eng.statics, whole, sv_r, full["payr"], sv_l, full["payl"])
+    agg_names = ("broker_load", "broker_replica_count", "broker_leader_count",
+                 "broker_potential_nw_out", "broker_leader_bytes_in", "broker_topic_count",
+                 "disk_load", "host_load")
+    applied = {}
+    for j, b in enumerate(em.blks):
+        sx_j, c_j = em.views[j]
+        c = dataclasses.replace(carry.clone(), **{
+            f: getattr(c_j, f).clone() for f in ("replica_broker", "replica_is_leader",
+                                                 "replica_disk", "part_rack_count")})
+        apply_k.apply_moves(sx_j, c, sv_r, full["payr"], sv_l, full["payl"], r_off=b.r_off,
+                            p_off=b.p_off)
+        r0, r1, p0, p1 = b.r_off, b.r_off + b.r_local, b.p_off, b.p_off + b.p_local
+        applied[j] = all([
+            bits_equal(c.replica_broker, whole.replica_broker[r0:r1]),
+            bits_equal(c.replica_is_leader, whole.replica_is_leader[r0:r1]),
+            bits_equal(c.replica_disk, whole.replica_disk[r0:r1]),
+            bits_equal(c.part_rack_count, whole.part_rack_count[p0:p1]),
+            *(bits_equal(getattr(c, f), getattr(whole, f)) for f in agg_names)])
+        if j == 0:
+            pc = dataclasses.replace(carry.clone(), **{
+                f: getattr(c_j, f).clone() for f in ("replica_broker", "replica_is_leader",
+                                                     "replica_disk", "part_rack_count")})
+            apply_k.apply_plain(sx_j, pc, sv_r, full["payr"], sv_l, full["payl"], b.r_off, b.p_off)
+            out["apply_offsets_kernel_equals_plain"] = all(
+                bits_equal(getattr(pc, f), getattr(c, f))
+                for f in ("replica_broker", "replica_is_leader", "replica_disk", "part_rack_count",
+                          *agg_names))
+    out["apply_offsets_block_equal_whole"] = applied
+    check(all(applied.values()) and out["apply_offsets_kernel_equals_plain"],
+          f"apply_moves with row offsets differs: {applied}")
+    # the local refresh: sums over the shards are the whole refresh's
+    fresh = eng.init_carry(Key.from_seed(cfg.seed))
+    sums, prc = None, None
+    for j, b in enumerate(em.blks):
+        sx_j, c_j = em.views[j]
+        view = dataclasses.replace(sx_j.state, replica_partition=torch.zeros_like(
+            sx_j.state.replica_partition))
+        part = {k: torch.zeros_like(getattr(fresh, k)) for k in agg_names if k != "host_load"}
+        part["part_rack_count"] = torch.zeros((b.p_local, racks), dtype=torch.int32, device=dev)
+        refresh_aggregates(view, c_j.replica_broker, c_j.replica_is_leader, c_j.replica_disk, part,
+                           members=torch.full((b.p_local, 1), -1, dtype=torch.int32, device=dev))
+        contrib = ms_k.shard_prc(sx_j.state, c_j.replica_broker, s.P)
+        if j == 0:
+            out["shard_prc_kernel_equals_plain"] = bits_equal(
+                contrib, ms_k.shard_prc_plain(sx_j.state, c_j.replica_broker, s.P))
+        sums = part if sums is None else {k: sums[k] + part[k] for k in sums}
+        prc = contrib if prc is None else prc + contrib
+    refreshed = {k: bits_equal(sums[k], getattr(fresh, k)) for k in agg_names if k != "host_load"}
+    refreshed["part_rack_count"] = bits_equal(prc, fresh.part_rack_count)
+    out["refresh_local_sum_equal_whole"] = refreshed
+    check(all(refreshed.values()) and out["shard_prc_kernel_equals_plain"],
+          f"the local refresh differs from the whole: {refreshed}")
+    # the local groupings rebuild the global grouped order
+    rebuilt = torch.full((s.R,), -1, dtype=torch.int64, device=dev)
+    for j, (b, gp) in enumerate(zip(em.blks, em.groups)):
+        c_j = em.views[j][1]
+        k = torch.arange(int(gp.count.sum()), device=dev)
+        bro = c_j.replica_broker[gp.order[k].long()].long()
+        pos = plan.start[bro] + em.plans[j].below[bro] + (k - gp.start[bro])
+        rebuilt[pos] = gp.order[k].long() + b.r_off
+    n_grouped = int(plan.count.sum())
+    out["grouped_order_rebuilt"] = bool(torch.equal(rebuilt[:n_grouped], plan.order[:n_grouped].long()))
+    check(out["grouped_order_rebuilt"], "the shards' local groupings do not rebuild the global order")
+    # kernels against their plain versions, on the same inputs (n = 4, shard 0)
+    sx0, c0 = em.views[0]
+    b0, sp0 = em.blks[0], em.plans[0]
+    cols0 = ms_k.row_columns(sx0.state, c0)
+    # (the plain versions are PyTorch ops: they run on the card's tensors)
+    # the body against its plain version: phase 2's bar for candidates (the
+    # plain version's CUDA ops multiply by reciprocals where the kernel
+    # divides): every integer and boolean output equal, deltas within
+    # `delta_bar`
+    plain_body = cand_k.candidates_shard_plain(cp, sx0, c0, keys, g, sp0, temp, sh)
+    body_err = (body["delta"] - plain_body["delta"]).abs()
+    out["candidates_shard_max_abs_err"] = float(body_err.max())
+    out["candidates_shard_kernel_equals_plain"] = bool(
+        (body_err <= delta_bar(plain_body["delta"])).all()) and all(
+        bits_equal(body[f], plain_body[f]) for f in prop_fields if f != "delta")
+    pairs = dict(
+        shard_sources=(ms_k.shard_sources(cp, cursor, sp0, sx0.gen, b0, True),
+                       ms_k.shard_sources_plain(cp, keys, sp0, sx0.gen, b0, True)),
+        own_rows=(ms_k.own_rows(sh.ids, ms_k.ROW_WORDS, cols0, b0),
+                  ms_k.own_rows_plain(sh.ids, ms_k.ROW_WORDS, cols0, b0)),
+        own_parts=(ms_k.own_parts(sh.rows.view(-1)[1:], int(sh.ids.shape[0]), ms_k.ROW_WORDS,
+                                  sx0.part_replicas, c0.part_rack_count, b0),
+                   ms_k.own_parts_plain(sh.rows[:, 1], sx0.part_replicas, c0.part_rack_count, b0)),
+    )
+    for name, (k, p) in pairs.items():
+        out[f"{name}_kernel_equals_plain"] = bits_equal(k, p)
+    bad = [k for k, v in out.items() if k.endswith("kernel_equals_plain") and not v]
+    check(not bad, f"model shard kernels differ from their plain versions: {bad}")
+    # the path's launches: one emulated step at n = 4 from a reset count
+    kernels_mod.reset_launches()
+    em_l = ShardEmulation(eng, carry, plan, 4)
+    sh_l = em_l.bundles(cursor)
+    prop = cand_k.candidates_shard(cp, em_l.views[0][0], em_l.views[0][1], cursor, g, em_l.plans[0],
+                                   temp, sh_l)
+    sv2, svr2, _ = select_k.select_survivors(
+        prop["accept"], prop["delta"], prop["src"], prop["dst"], prop["part1"], prop["part2"],
+        num_brokers=s.B, num_parts=s.P, n_r=prop["nr"], n_s=prop["ns"])
+    scratch = carry.clone()
+    for j, b in enumerate(em_l.blks):
+        sx_j, c_j = em_l.views[j]
+        c = dataclasses.replace(scratch, replica_broker=c_j.replica_broker.clone(),
+                                replica_is_leader=c_j.replica_is_leader.clone(),
+                                replica_disk=c_j.replica_disk.clone(),
+                                part_rack_count=c_j.part_rack_count.clone())
+        apply_k.apply_moves(sx_j, c, svr2, prop["payr"], sv2[prop["nr"] + prop["ns"]:],
+                            prop["payl"], r_off=b.r_off, p_off=b.p_off)
+        ms_k.shard_prc(sx_j.state, c.replica_broker, s.P)
+        view = dataclasses.replace(sx_j.state, replica_partition=torch.zeros_like(
+            sx_j.state.replica_partition))
+        part = {k: torch.zeros_like(getattr(scratch, k)) for k in agg_names if k != "host_load"}
+        part["part_rack_count"] = torch.zeros((b.p_local, racks), dtype=torch.int32, device=dev)
+        refresh_aggregates(view, c.replica_broker, c.replica_is_leader, c.replica_disk, part,
+                           members=torch.full((b.p_local, 1), -1, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernels_mod.LAUNCHES.items() if v}
+    out["launches"] = launched
+    launches = dict(candidates_shard=launched.get("candidates_shard", 0),
+                    shard_sources=launched.get("shard_sources", 0),
+                    own_rows=launched.get("own_rows", 0), own_parts=launched.get("own_parts", 0),
+                    shard_prc=launched.get("shard_prc", 0),
+                    apply_moves_offsets=launched.get("apply_moves", 0),
+                    refresh_aggregates_local=launched.get("refresh_aggregates", 0))
+    check(all(v > 0 for v in launches.values()), f"a model-shard kernel did not launch: {launches}")
+    # times: a launch each (n = 4, shard 0), the plain version on the same
+    # device inputs, the bound from the bytes each moves
+    n_slots = int(sh.ids.shape[0])
+    rows = {}
+
+    def row(name, kfn, pfn, nb, ops, lib=None, err=0.0):
+        # the kernel's device time by the profiler; the plain version's and
+        # the library call's by CUDA events (a profiler session costs
+        # seconds of set-up, and they are yardsticks)
+        k = measure(kfn)
+        b_ms, b_by = bound(nb, ops)
+        rows[name] = dict(launches=launches[name], max_abs_err=err, ms=k["ms"],
+                          plain_ms=time_ms(pfn, 10), bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None if lib is None else time_ms(lib, 10))
+
+    words_rows = n_slots * ms_k.ROW_WORDS
+    row("shard_sources", lambda: ms_k.shard_sources(cp, cursor, sp0, sx0.gen, b0, True),
+        lambda: ms_k.shard_sources_plain(cp, keys, sp0, sx0.gen, b0, True),
+        4 * n_slots + 4 * 4 * s.B, 600.0 * n_slots)
+    row("own_rows", lambda: ms_k.own_rows(sh.ids, ms_k.ROW_WORDS, cols0, b0),
+        lambda: ms_k.own_rows_plain(sh.ids, ms_k.ROW_WORDS, cols0, b0),
+        4 * n_slots + 2 * 4 * words_rows, float(words_rows))
+    row("own_parts", lambda: ms_k.own_parts(sh.rows.view(-1)[1:], n_slots, ms_k.ROW_WORDS,
+                                            sx0.part_replicas, c0.part_rack_count, b0),
+        lambda: ms_k.own_parts_plain(sh.rows[:, 1], sx0.part_replicas, c0.part_rack_count, b0),
+        4 * n_slots + 2 * 4 * n_slots * pw, float(n_slots * pw))
+    seg = torch.where(sx0.state.replica_valid, sx0.state.replica_partition.long() * racks
+                      + sx0.state.broker_rack[c0.replica_broker.long()].long(), s.P * racks)
+    row("shard_prc", lambda: ms_k.shard_prc(sx0.state, c0.replica_broker, s.P),
+        lambda: ms_k.shard_prc_plain(sx0.state, c0.replica_broker, s.P),
+        9 * b0.r_local + 4 * s.P * racks, float(b0.r_local),
+        lib=lambda: torch.bincount(seg, minlength=s.P * racks + 1))
+    row("candidates_shard", lambda: cand_k.candidates_shard(cp, sx0, c0, cursor, g, sp0, temp, sh),
+        lambda: cand_k.candidates_shard_plain(cp, sx0, c0, keys, g, sp0, temp, sh),
+        nbytes(sh.ids, sh.rows, sh.parts, sh.mb, sh.ml) + 22 * out["K"], 600.0 * out["K"],
+        err=out["candidates_shard_max_abs_err"])
+    scratch4 = dataclasses.replace(carry.clone(), replica_broker=c0.replica_broker.clone(),
+                                   replica_is_leader=c0.replica_is_leader.clone(),
+                                   replica_disk=c0.replica_disk.clone(),
+                                   part_rack_count=c0.part_rack_count.clone())
+    n_surv = int(survive.sum())
+    row("apply_moves_offsets",
+        lambda: apply_k.apply_moves(sx0, scratch4, sv_r, full["payr"], sv_l, full["payl"],
+                                    r_off=b0.r_off, p_off=b0.p_off),
+        lambda: apply_k.apply_plain(sx0, scratch4, sv_r, full["payr"], sv_l, full["payl"],
+                                    b0.r_off, b0.p_off),
+        int(survive.numel()) + 64 * n_surv + 120 * n_surv, 30.0 * n_surv)
+    view0 = dataclasses.replace(sx0.state, replica_partition=torch.zeros_like(sx0.state.replica_partition))
+    pad0 = torch.full((b0.p_local, 1), -1, dtype=torch.int32, device=dev)
+    part0 = {k: torch.zeros_like(getattr(fresh, k)) for k in agg_names if k != "host_load"}
+    part0["part_rack_count"] = torch.zeros((b0.p_local, racks), dtype=torch.int32, device=dev)
+    grp0 = em.groups[0]
+    row("refresh_aggregates_local",
+        lambda: refresh_aggregates(view0, c0.replica_broker, c0.replica_is_leader, c0.replica_disk,
+                                   part0, members=pad0, group=grp0),
+        lambda: refresh_plain(view0, c0.replica_broker, c0.replica_is_leader, c0.replica_disk,
+                              part0, None),
+        int(b0.r_local) * 33 + nbytes(*part0.values()), float(b0.r_local) * 12)
+    out["kernels"] = rows
+    out["bundle_bytes_per_step"] = nbytes(sh.ids, sh.rows, sh.parts, sh.mb, sh.ml)
+    out["all_reduces_per_step"] = 4
+    out["seconds"] = time.monotonic() - t_phase
+    log(json.dumps({k: v for k, v in out.items() if k != "kernels"}))
+    log(json.dumps({"phase": "model_shard_kernels", "card": smi, "kernels": rows}))
+    eng.release()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kill_at_boundary(devices, rank: int, at: int, marks: dict, sig=None):
+    """A scheduler checkpoint callback that, at slice boundary `at`, kills
+    (SIGKILL, or `sig`) the process of `rank` of the live rank group of
+    `devices`; the wall clock of the kill goes to marks["t_kill"]."""
+    import signal
+
+    from cruise_control_tpu_torch.parallel.ranks import live_group
+
+    seen = {"n": 0}
+
+    def chk():
+        seen["n"] += 1
+        if seen["n"] == at:
+            g = live_group(devices)
+            marks["pid"] = g.pids[rank]
+            marks["t_kill"] = time.time()
+            os.kill(g.pids[rank], sig if sig is not None else signal.SIGKILL)
+
+    return chk
+
+
+def check_mesh_ft_one_card(state, cfg, exact: dict, smi: str, devs=("cuda:0",)) -> dict:
+    """Phase 30 (b): a 1x1 rank group over NCCL with mesh fault tolerance.
+    A segmented run with a checkpoint every slice, and a resume from a
+    mid-run checkpoint, are bit for bit phase 4's placements (`exact`;
+    filled from a plain optimizer where empty).  Then a supervised
+    "grid:1x1" optimizer with a controller checkpointing every slice,
+    whose rank is SIGKILLed at the second slice boundary: the supervisor
+    names DEVICE_LOST on cuda:0 (its device health and the controller's
+    event), no mesh width is left, and the plain engine on the card
+    answers, bit for bit phase 4, never the CPU.  The seconds from the
+    kill to the typed error and to the answer are recorded.  `devs` lets
+    the CPU rehearse it over a gloo rank."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.engine import SegmentContext, segmented_execution
+    from cruise_control_tpu_torch.common.device_watchdog import DeviceSupervisor
+    from cruise_control_tpu_torch.parallel import GridEngine, MeshFtController, close_rank_groups, grid_mesh
+
+    t_phase = time.monotonic()
+    dev = str(state.device)
+    devs = list(devs)
+    if not exact:
+        plain = GoalOptimizer(config=cfg, device=dev).optimize(state)
+        exact.update({f: getattr(plain.state_after, f).clone() for f in PLACEMENT})
+        exact["objective_after"] = plain.objective_after
+    me = GridEngine(state, DEFAULT_CHAIN, mesh=grid_mesh(1, 1, devs), config=cfg, timeout_s=600)
+    snaps = []
+    ctx = SegmentContext(0.0, snapshot_every=1, snapshot_sink=snaps.append)
+    t0 = time.monotonic()
+    with segmented_execution(ctx):
+        f_seg, h_seg, o_seg = me.run_reported()
+    ctx.wait_snapshot()
+    seg_s = time.monotonic() - t0
+    ck = snaps[len(snaps) // 2]
+    t0 = time.monotonic()
+    f_res, h_res, _ = me.run_reported(resume=ck)
+    res_s = time.monotonic() - t0
+    out = dict(
+        phase="mesh_ft_1x1", card=smi,
+        segmented=dict(equal_phase4={f: bool(torch.equal(getattr(f_seg, f), exact[f])) for f in PLACEMENT},
+                       segments=h_seg[-1]["segments"], snapshots=h_seg[-1].get("snapshots"),
+                       snapshot_s=h_seg[-1].get("snapshot_s"), wall_s=seg_s,
+                       objective_equal=bool(float(o_seg["obj_after"]) == float(exact["objective_after"]))),
+        resumed=dict(from_round=h_res[-1].get("resumed_from_round"),
+                     equal_phase4={f: bool(torch.equal(getattr(f_res, f), exact[f])) for f in PLACEMENT},
+                     wall_s=res_s, checkpoints=len(snaps)))
+    me.release()
+    check(all(out["segmented"]["equal_phase4"].values()) and out["segmented"]["objective_equal"],
+          f"the segmented 1x1 mesh run differs from phase 4: {out['segmented']}")
+    check(all(out["resumed"]["equal_phase4"].values()),
+          f"the resumed 1x1 mesh run differs from phase 4: {out['resumed']}")
+    sup = DeviceSupervisor(op_timeout_s=300.0, max_retries=0, probe_timeout_s=10.0, device=dev)
+    ft = MeshFtController(checkpoint_every_slices=1)
+    opt = GoalOptimizer(config=cfg, device=dev, parallel_mode="grid:1x1", supervisor=sup,
+                        mesh_ft=ft, mesh_max_devices=1)
+    marks: dict = {}
+    with segmented_execution(SegmentContext(0.0, kill_at_boundary(devs, 0, 2, marks))):
+        res = opt.optimize(state)
+    t_answer = time.time()
+    event = ft.last_event or {}
+    rec = next((h for h in res.history if h.get("mesh_ft")), {})
+    health = sup.device_health()
+    killed = dict(
+        degraded=res.degraded, failure_class=event.get("failure_class"),
+        lost_devices=rec.get("lost_devices"), width=rec.get("width"),
+        device_health={k: v["healthy"] for k, v in health.items()},
+        main_breaker=sup.breaker.state.value, width_breakers=ft.state_json()["breakers"],
+        equal_phase4={f: bool(torch.equal(getattr(res.state_after, f), exact[f])) for f in PLACEMENT},
+        kill_to_error_s=(event.get("ms", 0) / 1e3 - marks["t_kill"]) if "t_kill" in marks else None,
+        kill_to_answer_s=t_answer - marks["t_kill"] if "t_kill" in marks else None,
+        answer_on=str(res.state_after.replica_broker.device))
+    out["killed"] = killed
+    out["seconds"] = time.monotonic() - t_phase
+    log(json.dumps(out))
+    check("t_kill" in marks, "the rank was never killed")
+    check(killed["failure_class"] == "device_lost" and killed["lost_devices"] == [0],
+          f"the killed rank was not named DEVICE_LOST on cuda:0: {killed}")
+    check(health.get(0, {}).get("healthy") is False, f"cuda:0's health does not show the loss: {health}")
+    check(not res.degraded and killed["answer_on"] == dev,
+          f"the ladder's floor did not answer from the card: {killed}")
+    check(all(killed["equal_phase4"].values()), f"the floor's answer differs from phase 4: {killed}")
+    check(sup.breaker.state.value == "closed", "the mesh failure opened the single-device breaker")
+    for e in opt._engines.values():
+        e.release()
+    close_rank_groups()
+    torch.cuda.empty_cache()
+    return out
+
+
+def goal_quality(chain, a, b) -> dict:
+    """The float-load bar: every hard goal of both results at or below
+    1e-6, the same violated set, and the objectives within 1e-6 of each
+    other (the broker sums add in another order; a converged north-star
+    objective is ~5e-9, at the f32 noise of its terms, so the bar is the
+    violation threshold's, not relative)."""
+    import numpy as np
+
+    oa, va, _ = chain.evaluate(a)
+    ob, vb, _ = chain.evaluate(b)
+    hard = chain.hard_mask()
+    va, vb = va.cpu().numpy(), vb.cpu().numpy()
+    return dict(hard_max=[float(va[hard].max()), float(vb[hard].max())],
+                violated_same=bool(((va > 1e-6) == (vb > 1e-6)).all()),
+                objective=[float(oa), float(ob)],
+                objective_rel_diff=float(abs(float(oa) - float(ob)) / max(abs(float(ob)), 1e-12)),
+                ok=bool(float(va[hard].max()) <= 1e-6 and float(vb[hard].max()) <= 1e-6
+                        and ((va > 1e-6) == (vb > 1e-6)).all()
+                        and abs(float(oa) - float(ob)) <= 1e-6))
+
+
+def check_model_shard_cards(state, cfg, smi: str, devs, label: str = "north_star",
+                            compare: bool = True) -> dict:
+    """--mesh (c), and (d) at the mode's own target: the sharded-model mode
+    1x4 over NCCL.  With loads rounded to integers its placements and
+    objective are bit for bit the replicated 1x4's and the single-device
+    engine's (`compare`); with the float loads, goal quality against the
+    single-device engine.  Per-card state bytes against the replicated
+    mode, the all_reduces and bytes a step (measured by the ranks' own
+    collective counts, and the analytic count) and the walls."""
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.models.sharding import shard_multiple_shape
+    from cruise_control_tpu_torch.parallel import ShardedEngine, close_rank_groups, model_mesh
+    from cruise_control_tpu_torch.parallel.model_shard import loads_quantized
+
+    n = len(devs)
+    padded = pad_state(state, shard_multiple_shape(state.shape, n))
+    out = dict(phase=f"model_shard_cards_{label}", card=smi, cards=n, R=padded.shape.R,
+               P=padded.shape.P, B=padded.shape.B)
+    runs = {}
+    for loads, st in (("integer", loads_quantized(padded, scale=1.0)), ("float", padded)):
+        if loads == "integer" and not compare:
+            continue
+        t0 = time.monotonic()
+        me = ShardedEngine(st, DEFAULT_CHAIN, mesh=model_mesh(devs), config=cfg, timeout_s=900,
+                           model_shard_min_partitions=1)
+        build_s = time.monotonic() - t0
+        (f1, h1, o1), first_s = mesh_run(me)
+        (f2, h2, o2), repeat_s = mesh_run(me)
+        t = h2[-1]
+        steps = sum(1 for h in h2 if "round" in h) * cfg.steps_per_round
+        coll = t["model_collectives"]
+        rec = dict(build_s=build_s, first_run_s=first_s, repeat_wall_s=repeat_s,
+                   model_sharded=t.get("model_sharded"), rank_state_bytes=me.build_info["rank_state_bytes"],
+                   collectives_per_run=coll, steps=steps,
+                   bytes_per_step_analytic=me.collective_bytes_per_step,
+                   bytes_per_round_analytic=t["model_psum_bytes"],
+                   rank_walls=me.last_info["rank_walls"], blocking_syncs=t["blocking_syncs"],
+                   objective_after=float(o2["obj_after"]))
+        me.release()
+        close_rank_groups()
+        torch.cuda.empty_cache()
+        if compare:
+            plain = Engine(st, DEFAULT_CHAIN, config=cfg)
+            pf, _ = plain.run()
+            plain.release()
+            if loads == "integer":
+                rp = ShardedEngine(st, DEFAULT_CHAIN, mesh=model_mesh(devs), config=cfg, timeout_s=900)
+                (rf, rh, ro), rep_s = mesh_run(rp)
+                rec["replicated_rank_state_bytes"] = rp.build_info["rank_state_bytes"]
+                rec["replicated_wall_s"] = rep_s
+                rp.release()
+                close_rank_groups()
+                rec["equal_replicated"] = {f: bool(torch.equal(getattr(f2, f), getattr(rf, f)))
+                                           for f in PLACEMENT}
+                rec["equal_single"] = {f: bool(torch.equal(getattr(f2, f), getattr(pf, f).cpu()
+                                                           .to(getattr(f2, f).device)))
+                                       for f in PLACEMENT}
+                rec["objective_equal"] = bool(float(o2["obj_after"]) == float(ro["obj_after"]))
+                rec["exact"] = bool(all(rec["equal_replicated"].values())
+                                    and all(rec["equal_single"].values()) and rec["objective_equal"])
+            else:
+                rec["goal_quality"] = goal_quality(DEFAULT_CHAIN, f2, pf)
+            torch.cuda.empty_cache()
+        runs[loads] = rec
+        log(json.dumps(dict(phase=f"model_shard_cards_{label}", loads=loads, card=smi, **rec)))
+        check(rec.get("exact", True), f"model shard 1x{n} with integer loads differs: {rec}")
+        if "goal_quality" in rec:
+            check(rec["goal_quality"]["ok"], f"model shard 1x{n} float loads: {rec['goal_quality']}")
+    out["runs"] = runs
+    return out
+
+
+def check_mesh_ft_cards(state, cfg, smi: str, devs) -> dict:
+    """--mesh (e): the width ladder on four cards.  A supervised "sharded"
+    optimizer over cuda:0-3 with a controller checkpointing every slice;
+    the rank on cuda:3 is SIGKILLed at the second slice boundary (after the
+    first checkpoint): DEVICE_LOST names cuda:3, the engines touching it
+    are purged and the others kept, the mesh is rebuilt at width 2 on
+    cuda:0-1 and resumes, the final placements are bit for bit the
+    uninterrupted run's, the result carries a `mesh_ft` record, and the
+    facade's detector fires MESH_DEGRADED once.  Then one rank is
+    SIGSTOPped mid-run: the supervisor's deadline probes the ranks and
+    names it, a COLLECTIVE_STALL.  Seconds of detect, purge, rebuild and
+    resume are recorded."""
+    import signal
+    import types
+
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.engine import SegmentContext, segmented_execution
+    from cruise_control_tpu_torch.common.device_watchdog import DeviceSupervisor
+    from cruise_control_tpu_torch.parallel import MeshFtController, close_rank_groups
+    from cruise_control_tpu_torch.service.facade import CruiseControl
+
+    from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS
+    from cruise_control_tpu_torch.parallel.ranks import device_ids
+
+    dev = str(state.device)
+    clean_opt = GoalOptimizer(config=cfg, device=dev, parallel_mode="sharded", mesh_max_devices=4)
+    clean = clean_opt.optimize(state)
+    for e in clean_opt._parallel_engines.values():
+        e.release()
+    close_rank_groups()
+    sup = DeviceSupervisor(op_timeout_s=300.0, max_retries=0, probe_timeout_s=10.0, device=dev)
+    ft = MeshFtController(checkpoint_every_slices=1)
+    opt = GoalOptimizer(config=cfg, device=dev, parallel_mode="sharded", mesh_max_devices=4,
+                        supervisor=sup, mesh_ft=ft)
+    # an engine on the survivors' subset, cached beforehand, must survive the purge
+    with opt._parallel_engine_for(state, DEFAULT_OPTIONS, cfg, devs[:2]):
+        pass
+    marks: dict = {}
+    t0 = time.time()
+    with segmented_execution(SegmentContext(0.0, kill_at_boundary(devs, 3, 2, marks))):
+        res = opt.optimize(state)
+    t_answer = time.time()
+    rec = next((h for h in res.history if h.get("mesh_ft")), {})
+    timing = next(h for h in res.history if h.get("timing"))
+    event = dict(ft.last_event or {})
+    stub = types.SimpleNamespace(optimizer=opt)
+    fired = [CruiseControl._detect_mesh_degraded(stub) for _ in range(2)]
+    cached = [list(k[3]) for k in opt._parallel_engines]
+    killed = dict(
+        failure_class=event.get("failure_class"), lost_devices=rec.get("lost_devices"),
+        width=rec.get("width"), resumed=rec.get("resumed"),
+        resumed_from_round=rec.get("resumed_from_round"), mesh_shape=timing.get("mesh_shape"),
+        devices=timing.get("devices"), cached_engines=cached,
+        equal_uninterrupted={f: bool(torch.equal(getattr(res.state_after, f),
+                                                 getattr(clean.state_after, f))) for f in PLACEMENT},
+        mesh_degraded_fired=[a is not None for a in fired], degraded=res.degraded,
+        device_health={k: v["healthy"] for k, v in sup.device_health().items()},
+        main_breaker=sup.breaker.state.value,
+        detect_s=event.get("ms", 0) / 1e3 - marks.get("t_kill", t0),
+        answer_s=t_answer - marks.get("t_kill", t0), wall_s=t_answer - t0,
+        resumed_run_device_s=timing.get("device_s"), resumed_segments=timing.get("segments"))
+    log(json.dumps(dict(phase="mesh_ft_cards_kill", card=smi, **killed)))
+    check(killed["failure_class"] == "device_lost" and killed["lost_devices"] == [3],
+          f"the SIGKILLed rank on cuda:3 was not named DEVICE_LOST: {killed}")
+    check(killed["width"] == 2 and killed["devices"] == list(devs[:2]) and killed["resumed"],
+          f"the ladder did not resume at width 2 on cuda:0-1: {killed}")
+    check(all(killed["equal_uninterrupted"].values()), f"the resumed run differs: {killed}")
+    check(all(3 not in device_ids(k) for k in cached) and any(k == list(devs[:2]) for k in cached),
+          f"the purge is not scoped to cuda:3: {cached}")
+    check(killed["mesh_degraded_fired"] == [True, False], f"MESH_DEGRADED fired {fired}")
+    check(not res.degraded and killed["main_breaker"] == "closed", f"{killed}")
+    for e in [*opt._parallel_engines.values(), *opt._engines.values()]:
+        e.release()
+    close_rank_groups()
+    torch.cuda.empty_cache()
+    # a stopped rank: the supervisor's deadline, the probes, a stall
+    sup2 = DeviceSupervisor(op_timeout_s=45.0, max_retries=0, probe_timeout_s=10.0, device=dev)
+    ft2 = MeshFtController(checkpoint_every_slices=1)
+    opt2 = GoalOptimizer(config=cfg, device=dev, parallel_mode="sharded", mesh_max_devices=4,
+                         supervisor=sup2, mesh_ft=ft2)
+    marks2: dict = {}
+    t0 = time.time()
+    with segmented_execution(SegmentContext(0.0, kill_at_boundary(devs, 2, 2, marks2, signal.SIGSTOP))):
+        res2 = opt2.optimize(state)
+    event2 = dict(ft2.last_event or {})
+    stalled = dict(failure_class=event2.get("failure_class"), lost_devices=event2.get("lost_devices"),
+                   to_width=event2.get("to_width"), degraded=res2.degraded,
+                   device_health={k: v["healthy"] for k, v in sup2.device_health().items()},
+                   detect_s=event2.get("ms", 0) / 1e3 - marks2.get("t_kill", t0),
+                   answer_s=time.time() - marks2.get("t_kill", t0),
+                   equal_uninterrupted={f: bool(torch.equal(getattr(res2.state_after, f),
+                                                            getattr(clean.state_after, f)))
+                                        for f in PLACEMENT})
+    log(json.dumps(dict(phase="mesh_ft_cards_stall", card=smi, **stalled)))
+    check(stalled["failure_class"] == "collective_stall" and stalled["lost_devices"] == [2],
+          f"the SIGSTOPped rank on cuda:2 was not named a COLLECTIVE_STALL: {stalled}")
+    for e in [*opt2._parallel_engines.values(), *opt2._engines.values()]:
+        e.release()
+    close_rank_groups()
+    torch.cuda.empty_cache()
+    return dict(killed=killed, stalled=stalled)
+
+
 def sticky_child() -> int:
     """Phase 22 (c), in a process of its own: one supervised optimize on a
     small fixture on the card, then a device-side assert inside
@@ -6051,7 +6727,7 @@ def main() -> int:
     if sys.argv[1:] == ["--sticky-child"]:
         return sticky_child()
     if sys.argv[1:] not in ([], ["--monitor"], ["--executor"], ["--kafka"], ["--service"], ["--controller"],
-                            ["--mesh"]):
+                            ["--mesh"], ["--model-shard"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -6125,6 +6801,11 @@ def main() -> int:
         check_controller(cfg, monitored, smi)
         print(json.dumps({"ok": True, "phases": [1, 23, 28]}), flush=True)
         return 0
+    if sys.argv[1:] == ["--model-shard"]:
+        check_model_shard_step(state, cfg, smi)
+        check_mesh_ft_one_card(state, cfg, {}, smi)
+        print(json.dumps({"ok": True, "phases": [1, "30a", "30b"]}), flush=True)
+        return 0
     if sys.argv[1:] == ["--mesh"]:
         t29 = time.monotonic()
         check_mesh_slices(state, cfg)
@@ -6133,8 +6814,22 @@ def main() -> int:
         log(json.dumps({"phase": "mesh", "seconds": time.monotonic() - t29}))
         phases = [1, 29]
         if torch.cuda.device_count() >= 4:
+            devs = [f"cuda:{i}" for i in range(4)]
             check_mesh_cards(state, cfg, exact_mesh, smi)
             phases.append("29c")
+            # phase 30 (c)-(e): the sharded-model mode and the ladder on four cards
+            t30 = time.monotonic()
+            check_model_shard_cards(state, cfg, smi, devs)
+            phases.append("30c")
+            check_mesh_ft_cards(state, cfg, smi, devs)
+            phases.append("30e")
+            del state
+            torch.cuda.empty_cache()
+            target = random_cluster_fast(RandomClusterSpec(**TARGET_SPEC), seed=42, device="cuda")
+            torch.cuda.synchronize()
+            check_model_shard_cards(target, cfg, smi, devs, label="target", compare=False)
+            phases.append("30d")
+            log(json.dumps({"phase": "model_shard_cards", "seconds": time.monotonic() - t30}))
         print(json.dumps({"ok": True, "phases": phases, "cards": torch.cuda.device_count()}), flush=True)
         return 0
 
@@ -6288,6 +6983,13 @@ def main() -> int:
     check_mesh_one_card(state, cfg, {f: PLACEMENTS["4"][f] for f in PLACEMENT}
                         | {"objective_after": exact["objective_after"]}, smi)
     log(json.dumps({"phase": "mesh", "seconds": time.monotonic() - t29}))
+    # phase 30: the sharded-model step emulated on one card, and a 1x1
+    # rank group with mesh fault tolerance against phase 4
+    t30 = time.monotonic()
+    shard = check_model_shard_step(state, cfg, smi)
+    check_mesh_ft_one_card(state, cfg, {f: PLACEMENTS["4"][f] for f in PLACEMENT}
+                           | {"objective_after": exact["objective_after"]}, smi)
+    log(json.dumps({"phase": "model_shard", "seconds": time.monotonic() - t30}))
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
@@ -6298,6 +7000,15 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
+        })
+    for name, (src, replaces) in SHARD_CASES.items():
+        k = shard["kernels"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"cruise_control_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
+            "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
         })
     for name, (src, replaces) in {**JBOD_CASES, **VARIANT_CASES, **STREAM_CASES, **SCENARIO_CASES}.items():
         k = jbod[name] if name in jbod else variants[name]

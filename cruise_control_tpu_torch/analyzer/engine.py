@@ -143,6 +143,7 @@ from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, Optimizat
 from cruise_control_tpu_torch.analyzer.prewarm import bucket_key
 from cruise_control_tpu_torch.common import compilation_cache
 from cruise_control_tpu_torch.common.blackbox import RECORDER as _BLACKBOX
+from cruise_control_tpu_torch.common.collectives import gsum
 from cruise_control_tpu_torch.common.device_watchdog import device_op
 from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
@@ -1219,16 +1220,18 @@ class Engine:
             b, carry.broker_load, carry.broker_replica_count, carry.broker_leader_count,
             carry.broker_potential_nw_out, carry.broker_leader_bytes_in, g,
         ).sum()
-        rack = torch.clamp(carry.part_rack_count - 1, min=0).sum().to(torch.float32)
+        # the partition and replica rows' sums: over the model axis in the
+        # sharded-model mode (common/collectives.py), plain sums otherwise
+        rack = gsum(torch.clamp(carry.part_rack_count - 1, min=0)).to(torch.float32)
         terms = terms + md.div(self.w.rack * rack, sx.gen, "n_valid")
         st = sx.state
-        offline = (
+        offline = gsum(
             st.replica_valid
             & ~(
                 st.broker_alive[carry.replica_broker]
                 & st.disk_alive[carry.replica_broker, carry.replica_disk]
             )
-        ).sum().to(torch.float32)
+        ).to(torch.float32)
         terms = terms + md.div(self.w.offline * offline, sx.gen, "n_valid")
         return terms + self._tie_term(g["pct_sum"], g["pct_sumsq"])
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from cruise_control_tpu_torch.common.collectives import gsum
 from cruise_control_tpu_torch.config.balancing import BalancingConstraint
 from cruise_control_tpu_torch.models.aggregates import BrokerAggregates
 from cruise_control_tpu_torch.models.state import ClusterState
@@ -56,3 +57,11 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 def count_f32(mask: torch.Tensor) -> torch.Tensor:
     """Number of set entries as an f32 scalar."""
     return mask.sum().to(torch.float32)
+
+
+def count_rows(mask: torch.Tensor) -> torch.Tensor:
+    """`count_f32` of a replica- or partition-row mask, which the
+    sharded-model mode holds a block of on each shard: summed over the
+    model axis under its scope (common/collectives.py), the plain count
+    otherwise."""
+    return gsum(mask).to(torch.float32)

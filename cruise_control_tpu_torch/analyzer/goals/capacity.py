@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from cruise_control_tpu_torch.analyzer.goals.base import Goal, alive_mask, count_f32, relu
+from cruise_control_tpu_torch.analyzer.goals.base import Goal, alive_mask, count_rows, relu
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.models.aggregates import BrokerAggregates, segment_sum
 from cruise_control_tpu_torch.models.state import ClusterState
@@ -70,7 +70,7 @@ class ReplicaCapacityGoal(Goal):
         mask = alive_mask(state)
         count = torch.where(mask, agg.broker_replica_count, 0)
         excess = relu((count - constraint.max_replicas_per_broker).to(torch.float32))
-        n_valid = count_f32(state.replica_valid) + 1e-12
+        n_valid = count_rows(state.replica_valid) + 1e-12
         return excess.sum() / n_valid
 
 
@@ -103,5 +103,5 @@ class OfflineReplicaGoal(Goal):
         dead_broker = ~state.broker_alive[state.replica_broker]
         dead_disk = ~state.disk_alive[state.replica_broker, state.replica_disk]
         bad = state.replica_valid & (dead_broker | dead_disk)
-        n_valid = count_f32(state.replica_valid) + 1e-12
-        return count_f32(bad) / n_valid
+        n_valid = count_rows(state.replica_valid) + 1e-12
+        return count_rows(bad) / n_valid

@@ -8,7 +8,10 @@ eligible.
 
 from __future__ import annotations
 
-from cruise_control_tpu_torch.analyzer.goals.base import Goal, count_f32
+import torch
+
+from cruise_control_tpu_torch.analyzer.goals.base import Goal
+from cruise_control_tpu_torch.common.collectives import global_rows, gsum
 from cruise_control_tpu_torch.models.aggregates import BrokerAggregates
 from cruise_control_tpu_torch.models.state import ClusterState
 
@@ -22,4 +25,4 @@ class PreferredLeaderElectionGoal(Goal):
         eligible = state.broker_alive[state.replica_broker] & ~state.replica_offline
         # partition is violated if its preferred replica is eligible but not leader
         bad = state.replica_valid & preferred & eligible & ~state.replica_is_leader
-        return count_f32(bad) / max(state.shape.P, 1)
+        return gsum(bad).to(torch.float32) / max(global_rows(state.shape.P), 1)

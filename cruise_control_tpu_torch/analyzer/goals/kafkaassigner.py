@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import torch
 
-from cruise_control_tpu_torch.analyzer.goals.base import Goal, alive_mask, count_f32, relu
+from cruise_control_tpu_torch.analyzer.goals.base import Goal, alive_mask, count_rows, relu
+from cruise_control_tpu_torch.common.collectives import gsegment_sum, gsum
 from cruise_control_tpu_torch.common.resources import Resource
-from cruise_control_tpu_torch.models.aggregates import BrokerAggregates, segment_sum
+from cruise_control_tpu_torch.models.aggregates import BrokerAggregates
 from cruise_control_tpu_torch.models.state import ClusterState
 from cruise_control_tpu_torch.models.stats import exact_sqrt
 
@@ -27,8 +28,8 @@ class KafkaAssignerEvenRackAwareGoal(Goal):
     def violation(self, state: ClusterState, agg: BrokerAggregates, constraint):
         # (a) rack-awareness term, identical to RackAwareGoal
         excess = relu((agg.part_rack_count - 1).to(torch.float32))
-        n_valid = count_f32(state.replica_valid) + 1e-12
-        out = excess.sum() / n_valid
+        n_valid = count_rows(state.replica_valid) + 1e-12
+        out = gsum(excess) / n_valid
 
         # (b) per-position evenness: count replicas at position q per broker
         B = state.shape.B
@@ -37,7 +38,7 @@ class KafkaAssignerEvenRackAwareGoal(Goal):
         seg = torch.where(
             state.replica_valid, pos * B + state.broker_segment_ids(), max_pos * B
         )
-        counts = segment_sum(
+        counts = gsegment_sum(
             state.replica_valid.to(torch.int32), seg, max_pos * B + 1
         )[: max_pos * B].reshape(max_pos, B)
         mask = alive_mask(state)

@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from cruise_control_tpu_torch.analyzer.goals.base import Goal, count_f32, relu
+from cruise_control_tpu_torch.analyzer.goals.base import Goal, count_rows, relu
 from cruise_control_tpu_torch.analyzer.goals.distribution import _band_violation
+from cruise_control_tpu_torch.common.collectives import gsum
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.models.aggregates import BrokerAggregates
 from cruise_control_tpu_torch.models.state import ClusterState
@@ -29,8 +30,8 @@ class RackAwareGoal(Goal):
 
     def violation(self, state: ClusterState, agg: BrokerAggregates, constraint):
         excess = relu((agg.part_rack_count - 1).to(torch.float32))
-        n_valid = count_f32(state.replica_valid) + 1e-12
-        return excess.sum() / n_valid
+        n_valid = count_rows(state.replica_valid) + 1e-12
+        return gsum(excess) / n_valid
 
 
 class IntraBrokerDiskCapacityGoal(Goal):

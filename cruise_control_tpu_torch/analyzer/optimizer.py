@@ -16,11 +16,14 @@ cards, one rank process a card over NCCL (parallel/mesh.py `MeshEngine`;
 on the CPU over gloo, with the rank count named by `mesh_max_devices`).
 Mesh engines are cached per (shape, config, devices) beside the plain
 ones and rebound the same way.  On a one-device host "sharded" is
-"single", as in the JAX package.  The sharded-model mode and mesh fault
-tolerance are not here (ROADMAP queue 1 items 10b and 10c): an enabled
-`mesh_ft` controller with a mesh mode raises `MeshFtNotPortedError`, and
-a state at or above `model_shard_min_partitions` on a model axis wider
-than 1 raises `ModelShardNotPortedError`.
+"single", as in the JAX package.  A state at or above
+`model_shard_min_partitions` on a model axis wider than 1 runs the
+sharded-model mode (parallel/model_shard.py).  A supervised mesh mode with
+mesh fault tolerance (`mesh_ft`, a parallel/ft.py MeshFtController; one is
+built by default, as in the JAX package) runs the width ladder
+(`_optimize_mesh_ft`): a lost card or a stalled collective rebuilds the
+mesh over the surviving cards at the next lower width and resumes from
+the last checkpoint; where no width is left, the plain engine on one card.
 
 Callers may share one optimizer across threads.  A lock guards the engine
 cache; a run pins its engine until its result is on the host, and an
@@ -84,6 +87,7 @@ from cruise_control_tpu_torch.analyzer.proposals import (
 )
 from cruise_control_tpu_torch.common.blackbox import RECORDER as _BLACKBOX
 from cruise_control_tpu_torch.common.blackbox import blackbox_context
+from cruise_control_tpu_torch.common.device_watchdog import BreakerOpenError
 from cruise_control_tpu_torch.common.profiling import profiler_trace
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.device import resolve_device
@@ -155,12 +159,6 @@ class OptimizerResult:
             "wallSeconds": self.wall_seconds,
             "degraded": self.degraded,
         }
-
-
-class MeshFtNotPortedError(NotImplementedError):
-    """Mesh fault tolerance (the width ladder, probes, checkpoint and
-    resume) is ROADMAP queue 1 item 10c: a mesh mode runs only with it
-    disabled."""
 
 
 def parse_parallel_mode(mode: str) -> tuple[int, int] | None:
@@ -247,14 +245,14 @@ class GoalOptimizer:
         elif parallel_mode != "single" and len(self._mesh_devices()) < 2:
             # a one-device host: sharded degenerates to the local engine
             self.parallel_mode = "single"
-        #: the mesh fault-tolerance controller (parallel/ft.py); an enabled
-        #: one is item 10c's ladder, refused with a mesh mode
-        self._mesh_ft = mesh_ft
-        if self.parallel_mode != "single" and mesh_ft is not None and mesh_ft.enabled:
-            raise MeshFtNotPortedError(
-                f"tpu.parallel.mode={parallel_mode!r} with mesh fault tolerance enabled "
-                "(tpu.mesh.ft.enabled=true) runs the width ladder, ROADMAP queue 1 item 10c, "
-                "which is not ported yet: set tpu.mesh.ft.enabled=false")
+        #: mesh fault tolerance (parallel/ft.py): a supervised mesh mode
+        #: gets a default controller, so a lost card degrades the width
+        #: ladder (`_optimize_mesh_ft`); "single" carries None
+        if mesh_ft is None and self.parallel_mode != "single" and supervisor is not None:
+            from cruise_control_tpu_torch.parallel.ft import MeshFtController
+
+            mesh_ft = MeshFtController(sensors=sensors)
+        self._mesh_ft = mesh_ft if self.parallel_mode != "single" else None
         #: mesh engines per (ClusterShape, config, devices) in LRU order,
         #: under `_cache_lock` like `_engines`
         self._parallel_engines: OrderedDict = OrderedDict()
@@ -415,32 +413,36 @@ class GoalOptimizer:
         return ("mesh", shape, config, tuple(devices))
 
     def _build_parallel_engine(self, state: ClusterState, options: OptimizationOptions,
-                               config: OptimizerConfig):
-        """The mesh engine of the parallel mode over the mesh devices,
-        unpinned: "sharded" one model row over all of them, "grid:RxM" R
-        rows of M over the first R*M."""
+                               config: OptimizerConfig, devices=None):
+        """The mesh engine of the parallel mode over the mesh devices (or
+        `devices`, a rung of the width ladder), unpinned: "sharded" one
+        model row over all of them, "grid:RxM" R rows of M over the first
+        R*M (a rung keeps R and narrows M)."""
         from cruise_control_tpu_torch.parallel.grid import GridEngine, grid_mesh
         from cruise_control_tpu_torch.parallel.sharded import ShardedEngine, model_mesh
 
-        devices = self._mesh_devices()
+        devices = list(devices) if devices is not None else self._mesh_devices()
         common = dict(constraint=self.constraint, options=options, config=config,
                       model_shard_min_partitions=self.model_shard_min_partitions)
         if self.parallel_mode == "sharded":
             built = ShardedEngine(state, self.chain, mesh=model_mesh(devices), **common)
         else:
             r, m = self._grid_shape
+            m = min(m, len(devices) // r)
             built = GridEngine(state, self.chain, mesh=grid_mesh(r, m, devices), **common)
         built._cc_pins, built._cc_evicted, built._cc_fresh = 0, False, True
         return built
 
     @contextlib.contextmanager
     def _parallel_engine_for(self, state: ClusterState, options: OptimizationOptions,
-                             config: OptimizerConfig):
+                             config: OptimizerConfig, devices=None):
         """The cached mesh engine of (shape, config, devices) bound to
         `state`, built on a miss, pinned and under its run lock for the
         body; yields (engine, hit).  A rebind whose shape no longer fits
-        builds a new engine."""
-        key = self._parallel_key(state.shape, config, self._mesh_devices())
+        builds a new engine.  `devices` (a rung of the width ladder) in
+        place of every mesh device."""
+        devices = list(devices) if devices is not None else self._mesh_devices()
+        key = self._parallel_key(state.shape, config, devices)
         with self._cache_lock:
             engine = self._pin(key)
             if engine is not None:
@@ -450,7 +452,7 @@ class GoalOptimizer:
             self._sense_cache(True)
         else:
             t0 = time.monotonic()
-            built = self._build_parallel_engine(state, options, config)
+            built = self._build_parallel_engine(state, options, config, devices)
             engine = self._publish(key, built)
             hit = engine is not built
             if not hit:
@@ -688,6 +690,20 @@ class GoalOptimizer:
         if self.device.type == "cpu":
             def degraded(reason, cause):
                 return self._optimize_degraded(state, options, cfg, reason=reason, cause=cause)
+        ft = self._mesh_ft
+        if ft is not None and ft.enabled:
+            if initial_placement is not None or prior is not None:
+                raise ValueError(
+                    "warm-start placement / move-acceptance prior are single-device only "
+                    f"(tpu.parallel.mode={self.parallel_mode!r})")
+            if not sup.available():
+                if degraded is None:
+                    raise BreakerOpenError("optimize", sup.opened_by)
+                return degraded("breaker-open", None)
+            try:
+                return self._optimize_mesh_ft(state, options, verbose, cfg, sup, ft, degraded)
+            finally:
+                self._maybe_purge_after_open()
         try:
             return sup.run(
                 lambda: self._optimize_on_device(state, options, verbose=verbose, config=cfg,
@@ -698,10 +714,168 @@ class GoalOptimizer:
         finally:
             self._maybe_purge_after_open()
 
+    # ------------------------------------------------------------------
+    # mesh fault tolerance: the width ladder
+    # ------------------------------------------------------------------
+
+    def _reduced_mesh_devices(self, survivors, *, below: int):
+        """The next rung's device list after a failure at width `below`
+        (the JAX package's): the widest power-of-two model width the
+        survivors carry, strictly below the failed width even when no card
+        was named (a blind halving still leaves a wedged card out half the
+        time).  Grid modes keep the restart axis (a checkpoint's chains map
+        one to one onto the rebuilt layout) and narrow the model axis.
+        None: no mesh width is left (the plain rung)."""
+        r = self._grid_shape[0] if self._grid_shape is not None else 1
+        cap = min(len(survivors), below - 1)
+        if cap < max(2, r):
+            return None
+        m = 1
+        while m * 2 * r <= cap:
+            m *= 2
+        return list(survivors[: r * m])
+
+    def _purge_parallel_for_mesh_failure(self, suspect_ids, failed_ids) -> None:
+        """Drop the mesh engines whose devices include a failed card: a lost
+        or stalled card's rank group holds state of unknown integrity.
+        Engines on disjoint survivor subsets, and every single-device
+        engine, stay cached (a pinned one is released at its last unpin)."""
+        from cruise_control_tpu_torch.parallel.ranks import device_ids
+
+        bad = set(suspect_ids) if suspect_ids else set(failed_ids)
+        free = []
+        with self._cache_lock:
+            for key in [k for k in self._parallel_engines if bad & set(device_ids(k[3]))]:
+                engine = self._parallel_engines.pop(key)
+                engine._cc_evicted = True
+                if engine._cc_pins == 0:
+                    free.append(engine)
+        for engine in free:
+            engine.release()
+        self._sense_cache(None)
+
+    def _optimize_mesh_ft(self, state: ClusterState, options: OptimizationOptions, verbose: bool,
+                          cfg: OptimizerConfig, sup, ft, degraded=None) -> OptimizerResult:
+        """The mesh width ladder (the JAX package's `_optimize_mesh_ft`): the
+        widest usable rung first; on a classified mesh failure (a lost
+        card, a stalled collective) the engines touching the failed cards
+        are purged, the mesh is rebuilt over the survivors at the next
+        lower power-of-two width, and the anneal resumes from the last
+        slice-boundary checkpoint where one exists.  Each rung runs under
+        its width's breaker with attribution armed (`sup.call(breaker=,
+        mesh_devices=)`); a failure that names no card is answered as the
+        supervised path answers it.  With no width left, the plain engine
+        on one card under the single-device breaker: on the card its
+        failure raises, and only a state on the CPU gets the greedy
+        answer (`degraded`)."""
+        from cruise_control_tpu_torch.analyzer.engine import (
+            SegmentContext,
+            current_segment_context,
+            segmented_execution,
+        )
+        from cruise_control_tpu_torch.common.device_watchdog import (
+            MESH_FAILURE_CLASSES,
+            CheckpointClock,
+            DeviceDegradedError,
+            checkpoint_clock_scope,
+        )
+        from cruise_control_tpu_torch.parallel.ft import CheckpointSlot
+        from cruise_control_tpu_torch.parallel.ranks import device_ids
+
+        devices = list(self._mesh_devices())
+        full_width = len(devices)
+        slot = CheckpointSlot()
+        clock = CheckpointClock()
+        resume = None
+        lost: list[int] = []
+        last_mesh_error = None
+        while devices is not None:
+            width = len(devices)
+            brk = ft.acquire_width(width)
+            if brk is None:  # this width's breaker is open and no probe is due
+                devices = self._reduced_mesh_devices(devices, below=width)
+                continue
+            every = ft.checkpoint_every_slices
+            if every > 0:
+                # an ambient segmented request (the scheduler's budget and
+                # pause callback kept) whose boundaries feed the slot; 0
+                # installs nothing
+                ambient = current_segment_context()
+                seg_ctx = SegmentContext(
+                    ambient.slice_budget_s if ambient is not None else float("inf"),
+                    ambient.checkpoint if ambient is not None else None,
+                    snapshot_every=every, snapshot_sink=slot.offer, checkpoint_clock=clock)
+                scope = segmented_execution(seg_ctx)
+            else:
+                seg_ctx = None
+                scope = contextlib.nullcontext()
+            this_resume, devs = resume, devices
+            try:
+                with checkpoint_clock_scope(clock), scope:
+                    result = sup.call(
+                        lambda: self._optimize_on_device(state, options, verbose=verbose,
+                                                         config=cfg, devices=devs,
+                                                         resume=this_resume),
+                        op="optimize", breaker=brk, mesh_devices=devs)
+            except DeviceDegradedError as e:
+                ft.note_width_result(width, ok=False)
+                if seg_ctx is not None:
+                    # land the snapshot in flight before reading the slot
+                    seg_ctx.wait_snapshot()
+                    ft.note_checkpoint_seconds(seg_ctx.snapshot_seconds)
+                if e.failure_class not in MESH_FAILURE_CLASSES:
+                    if degraded is None:
+                        raise
+                    return degraded(e.reason, e)
+                suspects = tuple(int(d) for d in (e.device_ids or ()))
+                lost.extend(suspects)
+                ids = device_ids(devices)
+                self._purge_parallel_for_mesh_failure(suspects, ids)
+                survivors = ([d for d, i in zip(devices, ids) if i not in set(suspects)]
+                             if suspects else devices)
+                nxt = self._reduced_mesh_devices(survivors, below=width)
+                ft.note_degrade(lost=suspects, from_width=width,
+                                to_width=len(nxt) if nxt is not None else 1,
+                                failure_class=e.failure_class.value)
+                resume = slot.latest()
+                last_mesh_error = e
+                devices = nxt
+                continue
+            ft.note_width_result(width, ok=True)
+            if seg_ctx is not None:
+                seg_ctx.wait_snapshot()
+                ft.note_checkpoint_seconds(seg_ctx.snapshot_seconds)
+            ft.note_run_completed(width=width, full_width=full_width,
+                                  resumed=this_resume is not None)
+            if lost or width < full_width:
+                # the degrade on the result: which cards were lost and
+                # whether the anneal resumed or restarted
+                result.history.append(dict(
+                    mesh_ft=True, lost_devices=sorted(set(lost)), width=width,
+                    full_width=full_width, resumed=this_resume is not None,
+                    resumed_from_round=int(this_resume.base) if this_resume is not None else None))
+            return result
+        # no mesh width is left: the plain engine on one card under the
+        # single-device breaker
+        result = sup.run(
+            lambda: self._optimize_on_device(state, options, verbose=verbose, config=cfg,
+                                             force_single=True),
+            op="optimize", degraded=degraded)
+        if lost:
+            result.history.append(dict(
+                mesh_ft=True, lost_devices=sorted(set(lost)), width=1, full_width=full_width,
+                resumed=False, resumed_from_round=None,
+                mesh_failure=repr(last_mesh_error) if last_mesh_error is not None else None))
+        return result
+
     def _optimize_on_device(self, state: ClusterState, options: OptimizationOptions, *,
                             verbose: bool = False, config: OptimizerConfig | None = None,
-                            initial_placement=None, prior=None) -> OptimizerResult:
-        """The device path."""
+                            initial_placement=None, prior=None, devices=None, resume=None,
+                            force_single: bool = False) -> OptimizerResult:
+        """The device path.  `devices`, `resume` and `force_single` are the
+        width ladder's (`_optimize_mesh_ft`): the mesh engine over a
+        survivor subset, an anneal continued from a checkpoint's slice
+        boundary, the plain engine's rung below the mesh."""
         t0 = time.monotonic()
         cfg = config or self.config
         input_checks = validate_on_device(state).cpu().numpy()
@@ -710,12 +884,13 @@ class GoalOptimizer:
             bad = [n for n, c in zip(DEVICE_CHECKS, input_checks) if c]
             raise ValueError(f"input state failed sanity checks: {bad}")
         t_build = time.monotonic()
-        if self.parallel_mode != "single":
+        single = self.parallel_mode == "single" or force_single
+        if not single:
             if initial_placement is not None or prior is not None:
                 raise ValueError(
                     "warm-start placement / move-acceptance prior are single-device only "
                     f"(tpu.parallel.mode={self.parallel_mode!r})")
-            engines = self._parallel_engine_for(state, options, cfg)
+            engines = self._parallel_engine_for(state, options, cfg, devices)
         else:
             engines = self._engine_for(state, options, cfg, prior=prior)
         with engines as (engine, hit):
@@ -723,6 +898,10 @@ class GoalOptimizer:
             before_host = fetch_before_host(state)
             run_kwargs = {} if initial_placement is None else dict(
                 initial_placement=initial_placement)
+            if resume is not None and not single and not engine.model_sharded:
+                # the sharded-model mode has no segmented variant: a reduced
+                # width restarts it
+                run_kwargs["resume"] = resume
             with profiler_trace(self.profiler_dir):
                 final, history, out = engine.run_reported(verbose=verbose, **run_kwargs)
             max_rf = engine.max_rf
@@ -752,7 +931,9 @@ class GoalOptimizer:
     def _maybe_purge_after_open(self) -> None:
         """Drop the cached engines once per breaker-open transition: a card
         that just failed owns buffers of unknown integrity, and recovery
-        rebuilds engines fresh rather than rebinding onto them.  An engine
+        rebuilds engines fresh rather than rebinding onto them.  With mesh
+        fault tolerance on, only the single-device engines: the mesh ones
+        answer to their per-width breakers.  An engine
         a run still pins (a hung run's abandoned worker holds one) is
         dropped from the cache and released at its last unpin; the others
         are released now.
@@ -772,7 +953,14 @@ class GoalOptimizer:
             if sup.open_epoch == self._breaker_epoch:
                 return
             self._breaker_epoch = sup.open_epoch
-            engines = [*self._engines.values(), *self._parallel_engines.values()]
+            # scoped to the failing path: with mesh fault tolerance on, the
+            # mesh engines have their per-width breakers and are purged
+            # where they fail (`_purge_parallel_for_mesh_failure`)
+            caches = [self._engines]
+            ft = self._mesh_ft
+            if ft is None or not ft.enabled:
+                caches.append(self._parallel_engines)
+            engines = [e for cache in caches for e in cache.values()]
             if sup.context_lost:
                 self._abandoned_engines.extend(engines)
             else:
@@ -780,8 +968,8 @@ class GoalOptimizer:
                     engine._cc_evicted = True
                     if engine._cc_pins == 0:
                         free.append(engine)
-            self._engines.clear()
-            self._parallel_engines.clear()
+            for cache in caches:
+                cache.clear()
             self._bound.clear()
         for engine in free:
             engine.release()

@@ -2,7 +2,7 @@
 
 The goal chain and `compute_aggregates` reduce over the replica and
 partition axes.  When the flattened model is *sharded* over the model axis
-(ROADMAP queue 1 item 10b) those tensors are shard-local slices, so every
+(parallel/model_shard.py) those tensors are shard-local slices, so every
 such reduction must end with a sum over the model axis's process group to
 recover the global value.  When the model is replicated (the plain engine,
 the replicated mesh mode) the same code must run exactly as before.
@@ -26,6 +26,15 @@ import torch
 #: the model axis's ProcessGroup for the current scope, or None (replicated)
 _MODEL_GROUP: contextvars.ContextVar = contextvars.ContextVar("cruise_model_group", default=None)
 
+#: the model-axis collectives this process issued (a rank's own count, read
+#: per run): calls by kind and the bytes of their inputs
+COUNTS = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0, "bytes": 0}
+
+
+def counts() -> dict:
+    """A copy of `COUNTS`."""
+    return dict(COUNTS)
+
 
 def model_axis():
     """The process group reductions must sum over, or None."""
@@ -43,13 +52,32 @@ def model_axis_scope(group):
         _MODEL_GROUP.reset(tok)
 
 
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """In-place sum of `t` over `group` (the model axis), counted."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    COUNTS["all_reduce"] += 1
+    COUNTS["bytes"] += t.numel() * t.element_size()
+    return t
+
+
+def all_gather_rows(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
+    """out = the ranks' `inp` concatenated in rank order over `group`, counted."""
+    import torch.distributed as dist
+
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+    COUNTS["all_gather"] += 1
+    COUNTS["bytes"] += inp.numel() * inp.element_size()
+    return out
+
+
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the group; bool through int32 (exact: one shard contributes
     a possibly-nonzero value an element)."""
-    import torch.distributed as dist
-
     y = x.to(torch.int32) if x.dtype == torch.bool else x.clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_sum(y, group)
     return y.to(torch.bool) if x.dtype == torch.bool else y
 
 
@@ -60,6 +88,18 @@ def gsum(x: torch.Tensor) -> torch.Tensor:
     s = x.sum()
     group = _MODEL_GROUP.get()
     return s if group is None else _psum(s, group)
+
+
+def global_rows(n_local: int) -> int:
+    """The global count of a model-sharded axis of `n_local` rows a shard
+    (equal blocks): `n_local` times the group's size, `n_local` when no
+    model axis is active."""
+    group = _MODEL_GROUP.get()
+    if group is None:
+        return n_local
+    import torch.distributed as dist
+
+    return n_local * dist.get_world_size(group)
 
 
 def gsegment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -93,4 +133,6 @@ def gscatter_rows(full: torch.Tensor) -> torch.Tensor:
                       device=full.device)
     fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     fn(out, full.contiguous(), op=dist.ReduceOp.SUM, group=group)
+    COUNTS["reduce_scatter"] += 1
+    COUNTS["bytes"] += full.numel() * full.element_size()
     return out

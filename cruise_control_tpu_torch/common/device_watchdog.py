@@ -55,8 +55,21 @@ contextvar, so the clock rides the caller's context into the worker
 thread that runs the dispatch with a copy of it; unset (the default), a
 hang budget is pure wall clock.
 
-Not here (multi-device, ROADMAP queue 1 item 10): the JAX package's mesh
-half, `probe_devices`, per-device attribution and `note_device_health`.
+The mesh half (`call(breaker=, mesh_devices=)`): a mesh run's lost card
+shows as a rank process that fails (parallel/ranks.py), and the rank
+group's typed errors map onto the taxonomy: `RankDiedError` naming rank r
+is DEVICE_LOST with rank r's card the suspect; `RankTimeoutError`, and the
+supervisor's own deadline, are a HANG, attributed by `probe_devices`:
+every card of the layout probed at once, and where only a strict subset
+stays silent the failure is a COLLECTIVE_STALL of that subset.  The probe
+rides each rank's probe pipe (one tiny op on the rank's own card, from a
+thread of the rank: the caller makes no CUDA context for it), so it works
+while the ranks' main threads wait in a collective.  The verdicts go to
+`/state`'s `deviceHealth` (`note_device_health`) and the black box; a
+group with a suspect card is killed (`abort_groups_with`), so an abandoned
+command ends.  A mesh failure runs under the caller's per-width breaker
+(parallel/ft.py), never the single-device one, and a rank's sticky error
+is not the caller's context: `context_lost` stays False.
 """
 
 from __future__ import annotations
@@ -462,6 +475,14 @@ def classify_failure(exc: BaseException) -> FailureClass | None:
         return FailureClass.DEVICE_LOST
     if isinstance(exc, CollectiveStallError):
         return FailureClass.COLLECTIVE_STALL
+    if _rank_failure(exc):
+        from cruise_control_tpu_torch.parallel.ranks import RankDiedError, RankTimeoutError
+
+        # a mesh run's lost card is a rank process that fails
+        if isinstance(exc, RankDiedError):
+            return FailureClass.DEVICE_LOST
+        if isinstance(exc, RankTimeoutError):
+            return FailureClass.HANG
     if isinstance(exc, CudaLaunchError):
         if exc.code in STICKY_CUDA_CODES:
             return FailureClass.DEVICE_LOST
@@ -489,6 +510,31 @@ def classify_failure(exc: BaseException) -> FailureClass | None:
     if any(m in msg for m in _TRANSIENT_MARKERS):
         return FailureClass.TRANSIENT
     return None
+
+
+def _rank_failure(exc: BaseException) -> bool:
+    """A rank group's failure (a rank process's, not the caller's)."""
+    from cruise_control_tpu_torch.parallel.ranks import RankGroupError
+
+    return isinstance(exc, RankGroupError)
+
+
+def probe_devices(devices, timeout_s: float = 20.0) -> dict:
+    """Probe each device of a rank layout at once: {device_id: None |
+    diagnosis}, None for a card that answered within the shared budget
+    (ids: parallel/ranks.py `device_ids`).  The probes go through the live
+    rank group of the device set, one tiny op a card on each rank's probe
+    thread (`RankGroup.probe`); with no live group every device is named
+    unprobed.  This is how a hung mesh run is attributed to its card: the
+    survivors answer, the suspects do not."""
+    from cruise_control_tpu_torch.parallel.ranks import device_ids, live_group
+
+    ids = device_ids(devices)
+    g = live_group(devices)
+    if g is None:
+        return {i: f"device {i}: no live rank group of {list(devices)} to probe" for i in ids}
+    verdicts = g.probe(timeout_s)
+    return {i: verdicts.get(r, f"device {i}: not probed") for r, i in enumerate(ids)}
 
 
 def jittered_backoff_s(
@@ -712,6 +758,8 @@ class DeviceSupervisor:
         self.num_retries = 0
         self.num_probes = 0
         self.num_probe_failures = 0
+        #: per-device probe verdicts of mesh failures (`note_device_health`)
+        self._device_health: dict[int, dict] = {}
         if sensors is not None:
             # 0 closed / 0.5 probing / 1 open
             sensors.gauge(
@@ -726,7 +774,8 @@ class DeviceSupervisor:
     def _count(self, cls: FailureClass, op: str, exc: BaseException) -> None:
         with self._lock:
             self._failure_counts[cls] += 1
-            if cls is FailureClass.DEVICE_LOST:
+            if cls is FailureClass.DEVICE_LOST and not _rank_failure(exc):
+                # a rank's lost card is not this process's context
                 self.context_lost = True
             self.last_failure = {
                 "op": op,
@@ -809,16 +858,26 @@ class DeviceSupervisor:
         _BLACKBOX.end(bb_seq)
         return box.get("result")
 
-    def call(self, fn, *, op: str = "optimize", timeout_s: float | None = None):
+    def call(self, fn, *, op: str = "optimize", timeout_s: float | None = None,
+             breaker: CircuitBreaker | None = None, mesh_devices=None):
         """Run fn under the supervision contract.
 
         Success resets the breaker's consecutive count.  Classified
         failures: TRANSIENT retries up to `max_retries` with full-jitter
         backoff; exhausted/unretryable failures count one operation-level
         failure toward the breaker and raise DeviceDegradedError.
-        Unclassified exceptions propagate unchanged and touch nothing."""
+        Unclassified exceptions propagate unchanged and touch nothing.
+
+        `breaker` substitutes a caller-owned breaker (the optimizer's
+        per-mesh-width breakers) for the supervisor's single-device one,
+        so a mesh failure degrades the mesh ladder without opening the
+        single-device breaker.  `mesh_devices` (the run's device list)
+        arms attribution (`_attribute_mesh_failure`) where it holds more
+        than one card or a rank failed: a HANG or a DEVICE_LOST names its
+        suspect cards, and a HANG of a strict subset becomes a
+        COLLECTIVE_STALL."""
         budget = timeout_s if timeout_s is not None else self.op_timeout_s
-        brk = self.breaker
+        brk = breaker if breaker is not None else self.breaker
         with self.tracer.span(f"device.{op}", component="device", timeout_s=budget) as sp:
             attempt = 0
             while True:
@@ -828,6 +887,14 @@ class DeviceSupervisor:
                     cls = classify_failure(e)
                     if cls is None:
                         raise
+                    device_ids = getattr(e, "device_ids", None)
+                    # a mesh of several cards, or any mesh whose rank failed
+                    # (a one-card mesh's dead rank names its card)
+                    if (mesh_devices is not None
+                            and (len(mesh_devices) > 1 or _rank_failure(e))
+                            and cls in (FailureClass.HANG, FailureClass.DEVICE_LOST)):
+                        cls, device_ids = self._attribute_mesh_failure(op, cls, e, device_ids,
+                                                                       mesh_devices, sp)
                     self._count(cls, op, e)
                     sp.event("failure", failure_class=cls.value, error=repr(e))
                     if cls is FailureClass.TRANSIENT and attempt < self.max_retries:
@@ -847,15 +914,80 @@ class DeviceSupervisor:
                         continue
                     if brk.record_failure():
                         # a breaker flip is THE degradation moment
-                        self.opened_by = cls
+                        if brk is self.breaker:
+                            self.opened_by = cls
                         sp.event("breaker-opened", open_epoch=brk.open_epoch)
                         if self.sensors is not None:
                             self.sensors.counter("analyzer.supervisor.breaker-opened").inc()
                     sp.set(attempts=attempt + 1, failure_class=cls.value)
-                    raise DeviceDegradedError(op, cls, e, getattr(e, "device_ids", None)) from e
+                    raise DeviceDegradedError(op, cls, e, device_ids) from e
                 brk.record_success()
                 sp.set(attempts=attempt + 1)
                 return result
+
+    # -- mesh failure attribution ---------------------------------------
+
+    def _attribute_mesh_failure(self, op, cls, exc, device_ids, mesh_devices, sp):
+        """The suspects of a failed mesh run: (class, suspect device ids).
+
+        A rank that died names its card (DEVICE_LOST).  A hang (the rank
+        group's command deadline, which probed the ranks before its
+        teardown, or this supervisor's, which probes them now through
+        their probe pipes) names the cards that did not answer: a strict
+        subset of the layout is a COLLECTIVE_STALL, all or none stays a
+        HANG (nothing to exclude).  The verdicts land in `deviceHealth`
+        and the black box, and every rank group with a suspect card is
+        killed: it cannot serve another command, and killing it ends the
+        command an abandoned worker still waits on."""
+        from cruise_control_tpu_torch.parallel.ranks import (
+            RankDiedError,
+            abort_groups_with,
+            device_ids as ids_of,
+        )
+
+        ids = ids_of(mesh_devices)
+        results = None
+        try:
+            group_ids = ids_of(exc.devices) if getattr(exc, "devices", None) else ids
+            if isinstance(exc, RankDiedError) and exc.rank is not None:
+                did = group_ids[exc.rank]
+                results = {did: f"rank {exc.rank} died: {exc}"}
+            elif getattr(exc, "probe", None) is not None:
+                results = {group_ids[r]: diag for r, diag in exc.probe.items()
+                           if group_ids[r] in ids}
+            else:
+                results = probe_devices(mesh_devices, self.probe_timeout_s)
+        except BaseException as e:  # noqa: BLE001 -- attribution must not mask the failure
+            sp.event("mesh-probe-error", error=repr(e))
+            abort_groups_with(ids)
+            return cls, device_ids
+        suspects = tuple(sorted(d for d, diag in results.items() if diag))
+        healthy = tuple(sorted(d for d, diag in results.items() if not diag))
+        self.note_device_health(results)
+        sp.event("mesh-probe", suspects=list(suspects), healthy=list(healthy))
+        _BLACKBOX.event("mesh-probe", op=op, failure_class=cls.value, suspects=list(suspects),
+                        healthy=list(healthy))
+        if self.sensors is not None and suspects:
+            self.sensors.counter("analyzer.mesh-ft.device-lost").inc(len(suspects))
+        abort_groups_with(suspects or ids)
+        if cls is FailureClass.HANG and suspects and healthy:
+            return FailureClass.COLLECTIVE_STALL, suspects
+        if cls is FailureClass.DEVICE_LOST and suspects:
+            return cls, suspects
+        return cls, device_ids or (suspects or None)
+
+    def note_device_health(self, results: dict) -> None:
+        """Record per-device probe outcomes ({id: None | diagnosis})."""
+        now_ms = int(time.time() * 1000)
+        with self._lock:
+            for did, diag in results.items():
+                self._device_health[int(did)] = {"healthy": diag is None, "diagnosis": diag,
+                                                 "ms": now_ms}
+
+    def device_health(self) -> dict:
+        """Latest per-device probe verdicts, {id: {healthy, diagnosis, ms}}."""
+        with self._lock:
+            return {k: dict(v) for k, v in sorted(self._device_health.items())}
 
     def run(self, fn, *, op: str, degraded=None, timeout_s: float | None = None):
         """The supervised route of a device path, the one policy of its
@@ -966,6 +1098,7 @@ class DeviceSupervisor:
             retries, probes, probe_failures = (
                 self.num_retries, self.num_probes, self.num_probe_failures,
             )
+            health = {str(k): dict(v) for k, v in sorted(self._device_health.items())}
         out = self.breaker.snapshot()
         out["breaker"] = out.pop("state")
         out.update(
@@ -977,4 +1110,6 @@ class DeviceSupervisor:
             numProbeFailures=probe_failures,
             contextLost=self.context_lost,
         )
+        if health:
+            out["deviceHealth"] = health
         return out

@@ -11,11 +11,7 @@ TPU-specific knobs (candidate batch etc.) are new keys under the
 The same keys, defaults, validators and messages as the JAX package's
 config/app_config.py, `tpu.*` names included, so one properties file loads
 in both packages with the same values.  The accessors build this
-package's objects.  One combination parses but has no counterpart here
-yet, and the service refuses it (service/facade.py): a mesh
-`tpu.parallel.mode` with `tpu.mesh.ft.enabled=true` (ROADMAP queue 1 item
-10c).
-`tpu.prewarm.aot.enabled` parses and has no effect.
+package's objects.  `tpu.prewarm.aot.enabled` parses and has no effect.
 """
 
 from __future__ import annotations

@@ -50,6 +50,13 @@ LAUNCHES: dict[str, int] = {
     "round_schedule": 0,
     "scatter_loads": 0,
     "scenario_step": 0,
+    # the sharded-model mode's (kernels/model_shard.py; the candidates
+    # kernel's SHARD body counts as candidates_shard)
+    "candidates_shard": 0,
+    "shard_sources": 0,
+    "own_rows": 0,
+    "own_parts": 0,
+    "shard_prc": 0,
 }
 
 

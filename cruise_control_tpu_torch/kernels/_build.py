@@ -33,7 +33,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 KERNEL_SOURCES = ("threefry", "move_delta", "candidates", "select", "apply", "group", "refresh",
-                  "step_globals", "schedule", "scatter", "scenario")
+                  "step_globals", "schedule", "scatter", "scenario", "model_shard")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

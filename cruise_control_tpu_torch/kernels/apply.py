@@ -40,6 +40,14 @@ leadership transfers (`index_add_` on the CPU adds in index order).  Like
 the kernel, it drops what lies out of range: a row whose src or dst broker
 is out of range adds nothing, and a replica, topic, partition, disk or
 host id out of range drops its own write or add.
+
+In the sharded-model mode (parallel/model_shard.py) a shard's carry holds
+one block of replica and partition rows, from global ids `r_off` and
+`p_off`, while the payload keeps global ids: both versions subtract the
+offsets, so a row outside the block drops its placement and cell writes
+and the replicated broker, host and topic aggregates take every
+survivor.  With offsets 0 (every other caller) the launch is the one it
+always was.  The mode needs no collective here.
 """
 
 from __future__ import annotations
@@ -74,12 +82,12 @@ def _add(t: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ok: torch.Tenso
     t.index_add_(0, idx[ok], vals[ok])
 
 
-def apply_plain(sx, carry, sv_r, payr, sv_l, payl) -> None:
+def apply_plain(sx, carry, sv_r, payr, sv_l, payl, r_off: int = 0, p_off: int = 0) -> None:
     st = sx.state
     s = st.shape
     B, D, H, R, nr = s.B, s.max_disks_per_broker, s.num_hosts, s.R, s.num_racks
     i = torch.nonzero(sv_r).squeeze(1)
-    r = payr["r"][i].long()
+    r = payr["r"][i].long() - r_off
     placed = _within(r, R)
     carry.replica_broker[r[placed]] = payr["dst"][i][placed]
     carry.replica_disk[r[placed]] = payr["d_dst"][i][placed]
@@ -101,7 +109,7 @@ def apply_plain(sx, carry, sv_r, payr, sv_l, payl) -> None:
     tc = carry.broker_topic_count.view(-1)
     _add(tc, t * B + src, -ones, _within(t, s.num_topics))
     _add(tc, t * B + dst, ones, _within(t, s.num_topics))
-    p = payr["part"][i].long()
+    p = payr["part"][i].long() - p_off
     prc = carry.part_rack_count.view(-1)
     _add(prc, p * nr + st.broker_rack[src].long(), -ones, _within(p, s.P))
     _add(prc, p * nr + st.broker_rack[dst].long(), ones, _within(p, s.P))
@@ -115,7 +123,7 @@ def apply_plain(sx, carry, sv_r, payr, sv_l, payl) -> None:
     _add(carry.host_load, h_dst, load, _within(h_dst, H))
 
     j = torch.nonzero(sv_l).squeeze(1)
-    rf, rt = payl["rf"][j].long(), payl["rt"][j].long()
+    rf, rt = payl["rf"][j].long() - r_off, payl["rt"][j].long() - r_off
     carry.replica_is_leader[rf[_within(rf, R)]] = False
     carry.replica_is_leader[rt[_within(rt, R)]] = True
     j = j[_within(payl["src_b"][j], B) & _within(payl["dst_b"][j], B)]
@@ -135,7 +143,8 @@ def apply_plain(sx, carry, sv_r, payr, sv_l, payl) -> None:
 
 
 class _Dims(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_int) for f in ("n_rel", "n_lead", "R", "B", "T", "P", "racks", "D", "H")]
+    _fields_ = [(f, ctypes.c_int) for f in ("n_rel", "n_lead", "R", "B", "T", "P", "racks", "D", "H",
+                                            "r_off", "p_off")]
 
 
 class _RelRows(ctypes.Structure):
@@ -182,7 +191,7 @@ def _need(name, t, dtype, shape):
     return t.data_ptr()
 
 
-def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
+def apply_cuda(sx, carry, sv_r, payr, sv_l, payl, r_off: int = 0, p_off: int = 0) -> None:
     # the candidates kernel's buffers are contiguous, so on the engine's
     # path these are the tensors themselves; a strided view (a plain
     # bundle's column of [K, 4] rows) is copied, and the copy must outlive
@@ -234,7 +243,7 @@ def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
         events=_need("apply_events", sx.apply_events, f32, (2, B, 8)),
         gen=_need("gen", sx.gen.words, i32, (md.GEN_WORDS,)),
     )
-    dims = _Dims(n_rel, n_lead, R, B, T, P, s.num_racks, D, H)
+    dims = _Dims(n_rel, n_lead, R, B, T, P, s.num_racks, D, H, int(r_off), int(p_off))
     if n_rel + n_lead == 0:
         return
     n_sm = torch.cuda.get_device_properties(sv_r.device).multi_processor_count
@@ -248,10 +257,12 @@ def apply_cuda(sx, carry, sv_r, payr, sv_l, payl) -> None:
     kernels.count("apply_moves")
 
 
-def apply_moves(sx, carry, sv_r, payr, sv_l, payl) -> None:
+def apply_moves(sx, carry, sv_r, payr, sv_l, payl, *, r_off: int = 0, p_off: int = 0) -> None:
     """Scatter survivors into `carry` in place (engine.py:2715 `_apply`):
-    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    the kernel for CUDA tensors, the plain version for CPU tensors.
+    `r_off` / `p_off`: the global ids of the carry's first replica and
+    partition row (a model shard's block; 0 otherwise)."""
     if kernels.route(sv_r, sv_l, carry.broker_load) == "cpu":
-        apply_plain(sx, carry, sv_r, payr, sv_l, payl)
+        apply_plain(sx, carry, sv_r, payr, sv_l, payl, r_off, p_off)
     else:
-        apply_cuda(sx, carry, sv_r, payr, sv_l, payl)
+        apply_cuda(sx, carry, sv_r, payr, sv_l, payl, r_off, p_off)

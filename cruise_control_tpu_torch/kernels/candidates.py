@@ -753,6 +753,7 @@ class _Dims(ctypes.Structure):
         "n_l", "R", "B", "P", "T", "D", "H", "racks",
         "max_rf", "has_plan", "has_topic", "has_pref",
         "price_r", "price_l", "cdf_in_smem", "intra", "step", "steps_per_round", "prior", "bf16",
+        "shard",
     )]
 
 
@@ -782,6 +783,8 @@ _IN_FIELDS = (
     "prior_keys", "prior_cdf", "prior_mix",
     # the engine's generation block
     "gen",
+    # the sharded-model mode's assembled bundles (kernels/model_shard.py)
+    "sh_ids", "sh_rows", "sh_parts", "sh_mb", "sh_ml",
 )
 _OUT_FIELDS = (
     "delta", "feas", "accept", "src", "dst", "part1", "part2",
@@ -857,36 +860,44 @@ def candidate_buffers(cp: CandParams, device, lanes: Lanes | None = None) -> dic
 
 
 def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, temperature: torch.Tensor,
-                    bufs: dict | None = None, lanes: Lanes | None = None) -> dict:
+                    bufs: dict | None = None, lanes: Lanes | None = None, shard=None) -> dict:
+    """The launch; `shard` (a `ShardBundles`) runs the sharded-model body:
+    every replica and partition row from the assembled bundles, R and P
+    the global counts of `shard.shape`."""
     st = sx.state
-    s = st.shape
+    s = st.shape if shard is None else shard.shape
     dev = carry.broker_load.device
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     B, R, P, T, D, H = s.B, s.R, s.P, s.num_topics, s.max_disks_per_broker, s.num_hosts
     racks, max_rf = s.num_racks, int(sx.part_replicas.shape[1])
     K_r, K_s, K_l = cp.K_r, cp.K_s, cp.K_l
     n_keys = int(keys.table.shape[0])
-    inputs = dict(
+    rows = {} if shard is not None else dict(
         orig_broker=(st.replica_broker, i32, (R,)), part_of=(st.replica_partition, i32, (R,)),
         topic_of=(st.replica_topic, i32, (R,)), valid=(st.replica_valid, b8, (R,)),
         pos=(st.replica_pos, i32, (R,)), orig_lead=(st.replica_is_leader, b8, (R,)),
         orig_disk=(st.replica_disk, i32, (R,)),
         load_leader=(st.replica_load_leader, f32, (R, 4)),
         load_follower=(st.replica_load_follower, f32, (R, 4)),
+        part_replicas=(sx.part_replicas, i32, (P, max_rf)),
+        replica_broker=(carry.replica_broker, i32, (R,)),
+        replica_is_leader=(carry.replica_is_leader, b8, (R,)),
+        replica_disk=(carry.replica_disk, i32, (R,)),
+        part_rack_count=(carry.part_rack_count, i32, (P, racks)),
+    )
+    inputs = dict(
+        rows,
         broker_alive=(st.broker_alive, b8, (B,)), broker_rack=(st.broker_rack, i32, (B,)),
         broker_host=(st.broker_host, i32, (B,)), capacity=(st.broker_capacity, f32, (B, 4)),
         disk_alive=(st.disk_alive, b8, (B, D)), disk_capacity=(st.disk_capacity, f32, (B, D)),
-        part_replicas=(sx.part_replicas, i32, (P, max_rf)), alive=(sx.alive, b8, (B,)),
+        alive=(sx.alive, b8, (B,)),
         dest_ids=(sx.dest_ids, i32, (B,)), dest_ok=(sx.dest_ok, b8, (B,)),
         lead_ok=(sx.lead_ok, b8, (B,)), topic_movable=(sx.topic_movable, b8, (T,)),
         host_multi=(sx.host_multi, b8, (H,)), host_cap=(sx.host_cap, f32, (H, 4)),
-        replica_broker=(carry.replica_broker, i32, (R,)),
-        replica_is_leader=(carry.replica_is_leader, b8, (R,)),
-        replica_disk=(carry.replica_disk, i32, (R,)), broker_load=(carry.broker_load, f32, (B, 4)),
+        broker_load=(carry.broker_load, f32, (B, 4)),
         rcount=(carry.broker_replica_count, i32, (B,)), lcount=(carry.broker_leader_count, i32, (B,)),
         pot=(carry.broker_potential_nw_out, f32, (B,)), lbin=(carry.broker_leader_bytes_in, f32, (B,)),
         topic_count=(carry.broker_topic_count, i32, (T, B)),
-        part_rack_count=(carry.part_rack_count, i32, (P, racks)),
         disk_load=(carry.disk_load, f32, (B, D)), host_load=(carry.host_load, f32, (H, 4)),
         g=(g["vec"], f32, (23,)), topic_avg=(g["topic_avg"], f32, (T,)),
         key_table=(keys.table, i32, (n_keys, KEY_WORDS)), rnd=(keys.rnd, i32, (1,)),
@@ -901,9 +912,23 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         )
     if plan is not None:
         inputs.update(
-            cdf=(plan.broker_cdf, f32, (B,)), order=(plan.order, i32, (R,)),
-            start=(plan.start, i32, (B,)), count=(plan.count, i32, (B,)),
+            cdf=(plan.broker_cdf, f32, (B,)),
             replica_cost=(plan.replica_cost, f32, ()), lead_cost=(plan.lead_cost, f32, ()),
+        )
+        if shard is None:
+            inputs.update(order=(plan.order, i32, (R,)), start=(plan.start, i32, (B,)),
+                          count=(plan.count, i32, (B,)))
+    if shard is not None:
+        if cp.intra or cp.prior:
+            raise ValueError("candidates: the sharded-model body runs the default kinds only "
+                             "(no intra-broker moves, no learned prior)")
+        n_rs = K_r + 2 * K_s
+        sl = n_rs + K_l
+        inputs.update(
+            sh_ids=(shard.ids, i32, (sl,)), sh_rows=(shard.rows, i32, (sl, shard.row_words)),
+            sh_parts=(shard.parts, i32, (sl, max_rf + racks)),
+            sh_mb=(shard.mb, i32, (n_rs * max_rf, 1)),
+            sh_ml=(shard.ml, i32, (K_l * max_rf, shard.row_words)),
         )
     c_in = _Inputs(**{k: _ptr(k, *v) for k, v in inputs.items()})
     ln = lanes or Lanes.full(cp)
@@ -926,6 +951,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         price_l=plan is not None and bool(cp.leadership_move_cost),
         cdf_in_smem=plan is not None and 4 * B <= CDF_SMEM_MAX, intra=cp.intra,
         step=keys.step, steps_per_round=keys.steps_per_round, prior=cp.prior, bf16=cp.tp.bf16,
+        shard=shard is not None,
     )
     lo = np.float32(U_MIN)
     scalars = _Scalars(
@@ -937,7 +963,7 @@ def candidates_cuda(cp: CandParams, sx, carry, keys: KeyCursor, g, plan, tempera
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _fn()(dims, cp.tp.c_struct, scalars, c_in, c_out, stream)
         _build.check(status, "candidates")
-        kernels.count("candidates")
+        kernels.count("candidates" if shard is None else "candidates_shard")
     return dict(out, nr=ln.n_r, ns=ln.n_s, payr=payr, payl=payl, from_prior=out.get("from_prior"))
 
 
@@ -959,3 +985,123 @@ def candidates(cp: CandParams, sx, carry, keys, g, plan, temperature, bufs: dict
     if not isinstance(temperature, torch.Tensor):
         temperature = torch.full((1,), float(temperature), dtype=torch.float32, device=dev)
     return candidates_cuda(cp, sx, carry, keys, g, plan, temperature, bufs, lanes)
+
+
+# ----------------------------------------------------------------------
+# the sharded-model mode's body (parallel/model_shard.py)
+# ----------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardBundles:
+    """A step's assembled bundles (kernels/model_shard.py): by slot the
+    source ids i32[n], their rows i32[n, row_words], their partitions' rows
+    i32[n, max_rf + racks]; the members' brokers i32[(K_r + 2 K_s) max_rf, 1]
+    and the leadership members' rows i32[K_l max_rf, row_words]; `shape` the
+    global (padded) ClusterShape."""
+
+    ids: torch.Tensor
+    rows: torch.Tensor
+    parts: torch.Tensor
+    mb: torch.Tensor
+    ml: torch.Tensor
+    shape: object
+    row_words: int = 18
+
+
+class _Rows:
+    """A replica- or partition-indexed column served from a step's bundles:
+    indexed with global ids (any shape; a (row ids, column) pair for a
+    table), it returns the gathered values.  Every id the step's code
+    indexes was gathered."""
+
+    def __init__(self, keys: torch.Tensor, values: torch.Tensor):
+        k = keys.reshape(-1).long()
+        order = torch.argsort(k, stable=True)
+        self.k, self.v = k[order], values[order]
+
+    def _pos(self, idx: torch.Tensor) -> torch.Tensor:
+        pos = torch.searchsorted(self.k, idx.reshape(-1).long())
+        return torch.clamp(pos, max=max(int(self.k.numel()) - 1, 0))
+
+    def __getitem__(self, idx):
+        if isinstance(idx, tuple):
+            rows, col = idx
+            return self.v[self._pos(rows), col.reshape(-1).long()].reshape(rows.shape)
+        return self.v[self._pos(idx)].reshape(tuple(idx.shape) + tuple(self.v.shape[1:]))
+
+
+def _ns(obj, **over):
+    """A namespace of a dataclass's fields with some replaced."""
+    import types
+
+    return types.SimpleNamespace(**{**{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)},
+                                    **over})
+
+
+def candidates_shard_plain(cp: CandParams, sx, carry, keys, g, sp, temperature,
+                           sh: ShardBundles) -> dict:
+    """The sharded-model body as the plain engine's candidate code: the
+    statics, carry and plan are views whose replica and partition columns
+    are served from the bundles (`_Rows`), so the arithmetic is
+    `candidates_plain`'s, bit for bit."""
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+
+    if isinstance(keys, KeyCursor):
+        keys = keys.step_keys()
+    st = sx.state
+    gs = sh.shape
+    max_rf = int(sx.part_replicas.shape[1])
+    sl = ms_k.slots(cp.K_r, cp.K_s, cp.K_l)
+    i32 = torch.int32
+    mem = sh.parts[:, :max_rf]
+    rs_members, lead_members = mem[: sl["lead"]].reshape(-1), mem[sl["lead"]:].reshape(-1)
+    key_ids = torch.cat([sh.ids, lead_members])
+    full = torch.cat([sh.rows, sh.ml])
+
+    def col(w, dtype):
+        v = full[:, w]
+        return _Rows(key_ids, v.to(torch.bool) if dtype == torch.bool else v)
+
+    def loads(w0):
+        return _Rows(key_ids, full[:, w0: w0 + 4].contiguous().view(torch.float32))
+
+    broker = _Rows(torch.cat([sh.ids, lead_members, rs_members]),
+                   torch.cat([sh.rows[:, 0], sh.ml[:, 0], sh.mb[:, 0]]))
+    b8 = torch.bool
+    state = _ns(st, shape=gs, replica_partition=col(1, i32), replica_topic=col(3, i32),
+                replica_valid=col(4, b8), replica_pos=col(6, i32), replica_broker=col(7, i32),
+                replica_is_leader=col(8, b8), replica_disk=col(9, i32),
+                replica_load_leader=loads(10), replica_load_follower=loads(14))
+    sxv = _ns(sx, state=state, part_replicas=_Rows(sh.rows[:, 1], mem))
+    carryv = _ns(carry, replica_broker=broker, replica_is_leader=col(5, b8),
+                 replica_disk=col(2, i32), part_rack_count=_Rows(sh.rows[:, 1], sh.parts[:, max_rf:]))
+    # the plan: the global grouped order at the positions this step drew
+    pos, val = [], []
+    for n, keys4, at in ((cp.K_r, keys.rel_src, sl["rel"]), (cp.K_s, keys.swap_src, sl["swap_r"])):
+        n_imp = cp.n_imp(n, sp)
+        if n_imp:
+            bsel, j, _ = ms_k.importance_draws(keys4, n, n_imp, sp.broker_cdf, sp.count, sx.gen,
+                                               sp.count.device)
+            hit = sp.count[bsel] > 0
+            pos.append(torch.clamp(sp.start_global[bsel] + j, 0, gs.R - 1)[hit])
+            val.append(sh.ids[at + n - n_imp: at + n][hit])
+    order = _Rows(torch.cat(pos) if pos else torch.zeros(0, dtype=torch.int64),
+                  torch.cat(val) if val else torch.zeros(0, dtype=i32))
+    plan = None if sp is None else _ns(sp, order=order, start=sp.start_global)
+    return candidates_plain(cp, sxv, carryv, keys, g, plan, temperature)
+
+
+def candidates_shard(cp: CandParams, sx, carry, keys, g, sp, temperature, sh: ShardBundles,
+                     bufs: dict | None = None) -> dict:
+    """One sharded-model step's candidate bundle from the assembled
+    bundles `sh` (the kernel's SHARD body for CUDA tensors, the plain
+    version for CPU tensors); `sp` the round's ShardPlan."""
+    if kernels.route(carry.broker_load, sh.ids, sx.alive) == "cpu":
+        return candidates_shard_plain(cp, sx, carry, keys, g, sp, temperature, sh)
+    dev = carry.broker_load.device
+    if not isinstance(keys, KeyCursor):
+        keys = KeyCursor.of(keys, dev)
+    if not isinstance(temperature, torch.Tensor):
+        temperature = torch.full((1,), float(temperature), dtype=torch.float32, device=dev)
+    return candidates_cuda(cp, sx, carry, keys, g, sp, temperature, bufs, None, shard=sh)

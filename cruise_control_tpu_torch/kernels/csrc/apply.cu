@@ -70,8 +70,13 @@
 
 namespace cg = cooperative_groups;
 
+// R and P are the carry's rows; r_off and p_off the global ids of its
+// first replica and partition row (0 but in the sharded-model mode, where
+// a shard holds one block of rows and the payload keeps global ids: a row
+// outside the block drops its placement and cell writes, and the broker,
+// host and topic aggregates take every survivor)
 struct ApplyDims {
-  int n_rel, n_lead, R, B, T, P, racks, D, H;
+  int n_rel, n_lead, R, B, T, P, racks, D, H, r_off, p_off;
 };
 
 struct RelRows {
@@ -189,6 +194,9 @@ struct Side {
 // A side's loads (its row's src and dst brokers given): the row's fields
 // and event with its broker's floats and rack, then its host's (nothing
 // writes those before the float pass).
+// OFFSETS: the carry is a model shard's block (ApplyDims r_off, p_off); a
+// compile-time branch, so every other launch runs the code it ran before.
+template <bool OFFSETS>
 __device__ Side load_side(const ApplyDims& n, const RelRows& rel, const LeadRows& lead,
                           const Carry& c, const Owners& o, int row, int s, int d, bool dst,
                           bool shared) {
@@ -202,14 +210,14 @@ __device__ Side load_side(const ApplyDims& n, const RelRows& rel, const LeadRows
   sd.d_dst = sd.rack = 0;
   sd.is_lead = false;
   if (is_rel) {
-    sd.r = rel.r[row];
+    sd.r = OFFSETS ? rel.r[row] - n.r_off : rel.r[row];
     sd.d_dst = rel.d_dst[row];
     sd.is_lead = rel.is_lead[row];
     sd.t = rel.topic[row];
-    sd.p = rel.part[row];
+    sd.p = OFFSETS ? rel.part[row] - n.p_off : rel.part[row];
   } else {
-    sd.rf = lead.rf[j];
-    sd.rt = lead.rt[j];
+    sd.rf = OFFSETS ? lead.rf[j] - n.r_off : lead.rf[j];
+    sd.rt = OFFSETS ? lead.rt[j] - n.r_off : lead.rt[j];
   }
   sd.e = event_of(n, rel, lead, row, dst);
   sd.ok = in(s, n.B) && in(sd.d, n.B);
@@ -379,6 +387,7 @@ __device__ void float_pass(const ApplyDims& n, Carry& c, Owners& o, const Side& 
 // q - S's dst side; a thread keeps its first side in registers (a side
 // past it is loaded again after the barrier: only its broker's first
 // event writes the broker's floats, so they are still the ones before).
+template <bool OFFSETS>
 __global__ void __launch_bounds__(kThreads)
     apply_moves_kernel(ApplyDims n, RelRows rel, LeadRows lead, Carry c, Owners o, int per_block) {
   // the block's survivors in row order: rows, src and dst brokers
@@ -456,7 +465,7 @@ __global__ void __launch_bounds__(kThreads)
   mine.ok = false;
   for (int q = tid; q < 2 * S; q += kThreads) {
     const int i = q % S;
-    const Side sd = load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
+    const Side sd = load_side<OFFSETS>(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
     write_side(n, c, o, sd);
     if (q == tid) mine = sd;
   }
@@ -468,7 +477,7 @@ __global__ void __launch_bounds__(kThreads)
       const int i = q % S;
       const Side sd =
           q == tid ? mine
-                   : load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
+                   : load_side<OFFSETS>(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
       if (sd.ok) float_pass(n, c, o, sd);
     }
     return;
@@ -479,7 +488,7 @@ __global__ void __launch_bounds__(kThreads)
     const int i = q % S;
     const Side sd =
         q == tid ? mine
-                 : load_side(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
+                 : load_side<OFFSETS>(n, rel, lead, c, o, list[i], list_s[i], list_d[i], q >= S, shared);
     if (!sd.ok) continue;
     walk_host(n, rel, lead, c, o, sd);
     add_side(n, c, sd, other_of(n, o, sd));
@@ -502,18 +511,16 @@ CC_EXPORT long long cc_apply_smem_bytes(long long rows, int n_sm) {
   return 384LL * cc_apply_words_per_block(rows, n_sm);
 }
 
-// One cooperative launch of at most one block an SM (`n_sm` blocks: all
-// resident at once, as grid.sync() needs).
-CC_EXPORT int cc_apply_moves(ApplyDims n, RelRows rel, LeadRows lead, Carry c, Owners o, int n_sm,
-                             void* stream) {
+template <bool OFFSETS>
+static cudaError_t launch_apply(ApplyDims n, RelRows rel, LeadRows lead, Carry c, Owners o,
+                                int n_sm, void* stream) {
   const long long rows = (long long)n.n_rel + n.n_lead;
-  if (rows <= 0) return 0;
   const int per_block = cc_apply_words_per_block(rows, n_sm);
   const long long smem = cc_apply_smem_bytes(rows, n_sm);
   if (smem > 46 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        apply_moves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+        apply_moves_kernel<OFFSETS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)(((rows + 31) / 32 + per_block - 1) / per_block));
@@ -525,6 +532,17 @@ CC_EXPORT int cc_apply_moves(ApplyDims n, RelRows rel, LeadRows lead, Carry c, O
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, apply_moves_kernel, n, rel, lead, c, o, per_block);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, apply_moves_kernel<OFFSETS>, n, rel, lead, c, o, per_block);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// One cooperative launch of at most one block an SM (`n_sm` blocks: all
+// resident at once, as grid.sync() needs).
+CC_EXPORT int cc_apply_moves(ApplyDims n, RelRows rel, LeadRows lead, Carry c, Owners o, int n_sm,
+                             void* stream) {
+  const long long rows = (long long)n.n_rel + n.n_lead;
+  if (rows <= 0) return 0;
+  return (int)(n.r_off != 0 || n.p_off != 0 ? launch_apply<true>(n, rel, lead, c, o, n_sm, stream)
+                                            : launch_apply<false>(n, rel, lead, c, o, n_sm, stream));
 }

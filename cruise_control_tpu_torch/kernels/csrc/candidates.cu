@@ -134,6 +134,10 @@ struct CandDims {
   int step, steps_per_round;  // this step's row: (*rnd) * steps_per_round + step
   int prior;  // relocation destinations mixed from the learned prior
   int bf16;   // the broker terms summed in bf16
+  // the sharded-model mode's body (SHARD): every replica and partition row
+  // comes from the assembled bundles (CandInputs sh_*), R and P are the
+  // global counts
+  int shard;
 };
 
 struct CandScalars {
@@ -200,6 +204,16 @@ struct CandInputs {
   const float* prior_mix;
   // the engine's generation block (GenParams, kGenWords words)
   const int* gen;
+  // the sharded-model mode's assembled bundles (parallel/model_shard.py),
+  // by slot (relocations, swap sources, swap partners, leadership
+  // targets): the global replica ids, their rows (kRowWords words), their
+  // partitions' rows (max_rf member ids, then racks cells), the members'
+  // brokers (relocation and swap slots) and the leadership members' rows
+  const int* sh_ids;
+  const int* sh_rows;
+  const int* sh_parts;
+  const int* sh_mb;
+  const int* sh_ml;
 };
 
 struct CandOutputs {
@@ -662,6 +676,50 @@ __device__ __forceinline__ int topic_count(const Ctx& c, int t, int b) {
   return c.in.topic_count[(size_t)t * c.n.B + b];
 }
 
+// A replica row of the sharded-model mode's bundles: broker, partition,
+// disk, topic, valid, leader, pos, original broker, original leader,
+// original disk, then the leader and follower loads' bits
+// (kernels/model_shard.py ROW_FIELDS).
+constexpr int kRowWords = 18;
+
+__device__ __forceinline__ const int* sh_row(const Ctx& c, int slot) {
+  return c.in.sh_rows + (size_t)slot * kRowWords;
+}
+
+__device__ __forceinline__ void load_replica_shard(const Ctx& c, int slot, ReplicaRow& x) {
+  const int* w = sh_row(c, slot);
+  x.broker = w[0];
+  x.part = w[1];
+  x.disk = w[2];
+  x.topic = w[3];
+  x.valid = w[4] != 0;
+  x.lead = w[5] != 0;
+  x.pos = w[6];
+  x.orig = w[7];
+  for (int k = 0; k < 4; ++k) {
+    x.ll[k] = __int_as_float(w[10 + k]);
+    x.lf[k] = __int_as_float(w[14 + k]);
+  }
+}
+
+// A slot's partition row: member `sl` (R past the row), a rack's cell, and
+// the member's broker (-1 for padding); a leadership slot's member row.
+__device__ __forceinline__ int sh_member(const Ctx& c, int slot, int sl) {
+  return sl < c.n.max_rf ? c.in.sh_parts[(size_t)slot * (c.n.max_rf + c.n.racks) + sl] : c.n.R;
+}
+
+__device__ __forceinline__ int sh_cell(const Ctx& c, int slot, int rack) {
+  return c.in.sh_parts[(size_t)slot * (c.n.max_rf + c.n.racks) + c.n.max_rf + rack];
+}
+
+__device__ __forceinline__ int sh_mbroker(const Ctx& c, int slot, int sl) {
+  return sh_member(c, slot, sl) < c.n.R ? c.in.sh_mb[(size_t)slot * c.n.max_rf + sl] : -1;
+}
+
+__device__ __forceinline__ const int* sh_mrow(const Ctx& c, int i, int sl) {
+  return c.in.sh_ml + ((size_t)i * c.n.max_rf + sl) * kRowWords;
+}
+
 // Member slot `sl` of partition `part` (R past the row), and the broker of
 // a member id (-1 for padding).
 __device__ __forceinline__ int member_id(const Ctx& c, int part, int sl) {
@@ -676,14 +734,17 @@ __device__ __forceinline__ int member_broker(const Ctx& c, int id) {
 // Lanes [lo, lo + n) of the team scan one member slot each: slot
 // tm.lane - lo's broker v0 was loaded before; further passes take the
 // slots past n.
-template <int N>
+template <int N, bool SHARD = false>
 __device__ bool member_on(const Ctx& c, const Team<N>& tm, int part, int b, int lo, int n,
-                          int v0) {
+                          int v0, int slot = 0) {
   const int sl = tm.lane - lo;
   bool hit = v0 == b;
   for (int k0 = n; k0 < c.n.max_rf; k0 += n) {
     const int k = k0 + sl;
-    if (k < c.n.max_rf) hit = hit || member_broker(c, member_id(c, part, k)) == b;
+    if (k < c.n.max_rf) {
+      const int mb = SHARD ? sh_mbroker(c, slot, k) : member_broker(c, member_id(c, part, k));
+      hit = hit || mb == b;
+    }
   }
   return tm.ballot(hit, lo, n) != 0u;
 }
@@ -712,7 +773,7 @@ __device__ __forceinline__ void lane_quotients(const Team<N>& tm, const float nu
 // from the round before (replica row -> broker rows, member ids, rack and
 // topic cells' operands -> host rows, member brokers, cells), so the
 // chain is as deep as its data dependences and no deeper.
-template <bool DISK, bool PRIOR, bool BF16>
+template <bool DISK, bool PRIOR, bool BF16, bool SHARD = false>
 __device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, int o, bool on,
                                 const float* cdf, bool staged) {
   const CandInputs& in = c.in;
@@ -745,9 +806,13 @@ __device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, int 
   staged_wait(staged);
   const float u_acc2 = tm.from(u2, 0), u_acc1 = tm.from(u1, 1);
   const float u_acc = imp ? u_acc2 : u_acc1;
-  const int r = team_source(c, tm, imp, u1, cdf);
+  const int r = SHARD ? in.sh_ids[i] : team_source(c, tm, imp, u1, cdf);
   ReplicaRow x;
-  load_replica(c, r, x);
+  if (SHARD) {
+    load_replica_shard(c, i, x);
+  } else {
+    load_replica(c, r, x);
+  }
   const int src = x.broker;
   // the source's round: its broker rows (and the drawn destination's),
   // the member ids, the cells' operands
@@ -759,7 +824,7 @@ __device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, int 
     load_broker(c, on_s ? src : dst, br);
   }
   load_tie(c, src, L, ts);
-  const int id0 = member_id(c, x.part, L);
+  const int id0 = SHARD ? sh_member(c, i, L) : member_id(c, x.part, L);
   const bool alive_s = in.broker_alive[src];
   const bool dok_s = disk_ok(c, src, x.disk);
   const bool movable_t = in.topic_movable[x.topic];
@@ -783,13 +848,14 @@ __device__ void cand_relocation(const Ctx& c, const Team<kTeam>& tm, int i, int 
   // the last round: host rows, the members' brokers, the rack cells
   HostRows hr;
   load_host(c, br.host, hr);
-  const int v0 = member_broker(c, id0);
-  const int cnt_rs = rack_count(c, x.part, rack_s), cnt_rd = rack_count(c, x.part, rack_d);
+  const int v0 = SHARD ? sh_mbroker(c, i, L) : member_broker(c, id0);
+  const int cnt_rs = SHARD ? sh_cell(c, i, rack_s) : rack_count(c, x.part, rack_s);
+  const int cnt_rd = SHARD ? sh_cell(c, i, rack_d) : rack_count(c, x.part, rack_d);
   const bool dok_d = disk_ok(c, dst, d_dst);
 
   const bool offline = !(alive_s && dok_s);
   const bool movable = movable_t || offline;
-  const bool member = member_on(c, tm, x.part, dst, 0, kTeam, v0);
+  const bool member = member_on<kTeam, SHARD>(c, tm, x.part, dst, 0, kTeam, v0, i);
   const bool feas = x.valid && movable && src != dst && !member;
 
   float load[4];
@@ -882,7 +948,7 @@ __device__ void cand_intra(const Ctx& c, const Team<kTeam>& tm, int i, int o, bo
               topic, part);
 }
 
-template <bool DISK, bool BF16>
+template <bool DISK, bool BF16, bool SHARD = false>
 __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, int o, bool on,
                           const float* cdf, bool staged) {
   const CandInputs& in = c.in;
@@ -899,14 +965,23 @@ __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, int o,
                                    : Draw{&ks.u, (unsigned long long)(c.n.K_r + i)});
   gen_wait();
   // q is drawn: its row is in flight while r is picked
-  const int q = cc_uniform_idx(tm.from(u1, 3), s_gen.n_source);
+  const int slot_r = c.n.K_r + i, slot_q = c.n.K_r + c.n.K_s + i;
+  const int q = SHARD ? in.sh_ids[slot_q] : cc_uniform_idx(tm.from(u1, 3), s_gen.n_source);
   const float u_acc = tm.from(u1, 4);
   ReplicaRow xq;
-  load_replica(c, q, xq);
+  if (SHARD) {
+    load_replica_shard(c, slot_q, xq);
+  } else {
+    load_replica(c, q, xq);
+  }
   staged_wait(staged);
-  const int r = team_source(c, tm, imp, u1, cdf);
+  const int r = SHARD ? in.sh_ids[slot_r] : team_source(c, tm, imp, u1, cdf);
   ReplicaRow xr;
-  load_replica(c, r, xr);
+  if (SHARD) {
+    load_replica_shard(c, slot_r, xr);
+  } else {
+    load_replica(c, r, xr);
+  }
   const int src = xr.broker, dst = xq.broker;
   // the brokers' round (r's cells on lanes 0-3, q's on 4-7)
   BrokerRows br;
@@ -915,7 +990,8 @@ __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, int o,
   load_tie(c, src, L4, ts);
   load_tie(c, dst, L4, td);
   const int part_x = side ? xq.part : xr.part;
-  const int id0 = member_id(c, part_x, L4);
+  const int slot_x = side ? slot_q : slot_r;
+  const int id0 = SHARD ? sh_member(c, slot_x, L4) : member_id(c, part_x, L4);
   const bool alive_s = in.broker_alive[src], alive_d = in.broker_alive[dst];
   const bool dok_r = disk_ok(c, src, xr.disk), dok_q = disk_ok(c, dst, xq.disk);
   const bool dest_s = in.dest_ok[src], dest_d = in.dest_ok[dst];
@@ -929,16 +1005,18 @@ __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, int o,
   // the last round: host rows, the members' brokers, the rack cells
   HostRows hr;
   load_host(c, br.host, hr);
-  const int v0 = member_broker(c, id0);
+  const int v0 = SHARD ? sh_mbroker(c, slot_x, L4) : member_broker(c, id0);
   const int rack_f = side ? rack_d : rack_s, rack_t = side ? rack_s : rack_d;
-  const int cnt_rf = rack_count(c, part_x, rack_f), cnt_rt = rack_count(c, part_x, rack_t);
+  const int cnt_rf = SHARD ? sh_cell(c, slot_x, rack_f) : rack_count(c, part_x, rack_f);
+  const int cnt_rt = SHARD ? sh_cell(c, slot_x, rack_t) : rack_count(c, part_x, rack_t);
 
   const bool off_r = !(alive_s && dok_r);
   const bool off_q = !(alive_d && dok_q);
   const bool movable_r = movable_tr || off_r;
   const bool movable_q = movable_tq || off_q;
   // r's partition on dst (lanes 0-3), q's on src (lanes 4-7)
-  const bool member = member_on(c, tm, part_x, side ? src : dst, 4 * side, 4, v0);
+  const bool member =
+      member_on<kSwapTeam, SHARD>(c, tm, part_x, side ? src : dst, 4 * side, 4, v0, slot_x);
   const bool member_r = tm.from((int)member, 0) != 0, member_q = tm.from((int)member, 4) != 0;
   const bool feas = xr.valid && xq.valid && movable_r && movable_q && src != dst &&
                     xr.part != xq.part && dest_s && dest_d && dq_on_dst && dr_on_src &&
@@ -998,7 +1076,7 @@ __device__ void cand_swap(const Ctx& c, const Team<kSwapTeam>& tm, int i, int o,
   }
 }
 
-template <bool DISK, bool BF16>
+template <bool DISK, bool BF16, bool SHARD = false>
 __device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, int o, bool on) {
   const CandInputs& in = c.in;
   const StepKeys& ks = keys(c);
@@ -1010,19 +1088,32 @@ __device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, int 
   const float u1 = draw_u(L == 0 ? Draw{&ks.lead, (unsigned long long)i}
                                  : Draw{&ks.u, (unsigned long long)k});
   gen_wait();
-  const int rt = cc_uniform_idx(tm.from(u1, 0), s_gen.n_source);
+  const int slot = c.n.K_r + 2 * c.n.K_s + i;
+  const int rt = SHARD ? in.sh_ids[slot] : cc_uniform_idx(tm.from(u1, 0), s_gen.n_source);
   const float u_acc = tm.from(u1, 1);
-  const int part = in.part_of[rt];
-  const int dst = in.replica_broker[rt];
-  const int disk_t = in.replica_disk[rt];
-  const bool valid_t = in.valid[rt], lead_t = in.replica_is_leader[rt];
-  const int pos_t = in.pos[rt];
-  const bool orig_lead_t = in.orig_lead[rt];
+  int part, dst, disk_t, pos_t;
+  bool valid_t, lead_t, orig_lead_t;
   float ll_t[4], lf_t[4];
-  row4(in.load_leader, rt, ll_t);
-  row4(in.load_follower, rt, lf_t);
+  if (SHARD) {
+    const int* w = sh_row(c, slot);
+    part = w[1], dst = w[0], disk_t = w[2], pos_t = w[6];
+    valid_t = w[4] != 0, lead_t = w[5] != 0, orig_lead_t = w[8] != 0;
+    for (int j = 0; j < 4; ++j) {
+      ll_t[j] = __int_as_float(w[10 + j]);
+      lf_t[j] = __int_as_float(w[14 + j]);
+    }
+  } else {
+    part = in.part_of[rt];
+    dst = in.replica_broker[rt];
+    disk_t = in.replica_disk[rt];
+    valid_t = in.valid[rt], lead_t = in.replica_is_leader[rt];
+    pos_t = in.pos[rt];
+    orig_lead_t = in.orig_lead[rt];
+    row4(in.load_leader, rt, ll_t);
+    row4(in.load_follower, rt, lf_t);
+  }
   // the target's round: the member ids, the destination's rows
-  const int id0 = member_id(c, part, L);
+  const int id0 = SHARD ? sh_member(c, slot, L) : member_id(c, part, L);
   BrokerRows br;
   TieCol ts, td;
   if (!on_s) load_broker(c, dst, br);
@@ -1035,20 +1126,33 @@ __device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, int 
   int first = -1;
   for (int k0 = 0; k0 < c.n.max_rf; k0 += kTeam) {
     const int kk = k0 + L;
-    const int id = k0 == 0 ? id0 : member_id(c, part, kk);
-    const bool lead = kk < c.n.max_rf && id < R && in.replica_is_leader[min(id, R - 1)];
+    const int id = k0 == 0 ? id0 : SHARD ? sh_member(c, slot, kk) : member_id(c, part, kk);
+    const bool lead = kk < c.n.max_rf && id < R &&
+                      (SHARD ? sh_mrow(c, i, kk)[5] != 0 : in.replica_is_leader[min(id, R - 1)]);
     const unsigned bits = tm.ballot(lead, 0, kTeam);
     if (first < 0 && bits != 0u) first = k0 + __ffs(bits) - 1;
   }
-  const int rf = min(member_id(c, part, first < 0 ? 0 : first), R - 1);
+  const int f0 = first < 0 ? 0 : first;
+  const int rf = min(SHARD ? sh_member(c, slot, f0) : member_id(c, part, f0), R - 1);
 
-  const int src = in.replica_broker[rf];
-  const int disk_f = in.replica_disk[rf];
-  const int pos_f = in.pos[rf];
-  const bool orig_lead_f = in.orig_lead[rf];
+  int src, disk_f, pos_f;
+  bool orig_lead_f;
   float ll_f[4], lf_f[4];
-  row4(in.load_leader, rf, ll_f);
-  row4(in.load_follower, rf, lf_f);
+  if (SHARD) {
+    const int* w = sh_mrow(c, i, f0);
+    src = w[0], disk_f = w[2], pos_f = w[6], orig_lead_f = w[8] != 0;
+    for (int j = 0; j < 4; ++j) {
+      ll_f[j] = __int_as_float(w[10 + j]);
+      lf_f[j] = __int_as_float(w[14 + j]);
+    }
+  } else {
+    src = in.replica_broker[rf];
+    disk_f = in.replica_disk[rf];
+    pos_f = in.pos[rf];
+    orig_lead_f = in.orig_lead[rf];
+    row4(in.load_leader, rf, ll_f);
+    row4(in.load_follower, rf, lf_f);
+  }
   // the source's round
   if (on_s) load_broker(c, src, br);
   load_tie(c, src, L, ts);
@@ -1111,7 +1215,7 @@ __device__ void cand_leadership(const Ctx& c, const Team<kTeam>& tm, int i, int 
 // prior or bf16 runs the lanes it ran before them.  No lane returns early:
 // a team past its kind's end repeats the kind's last candidate and stores
 // nothing, so every warp collective sees all 32 lanes.
-template <bool DISK, bool INTRA, bool PRIOR, bool BF16>
+template <bool DISK, bool INTRA, bool PRIOR, bool BF16, bool SHARD>
 __global__ void __launch_bounds__(kThreads, 4) candidates_kernel(Ctx c) {
   extern __shared__ float s_cdf[];
   constexpr int per_r = kThreads / kTeam, per_s = kThreads / kSwapTeam;
@@ -1152,27 +1256,27 @@ __global__ void __launch_bounds__(kThreads, 4) candidates_kernel(Ctx c) {
   if (INTRA) {
     cand_intra<DISK>(c, Team<kTeam>(threadIdx.x), i, t, on, cdf, staged);  // K_s = K_l = 0
   } else if (kind == 0) {
-    cand_relocation<DISK, PRIOR, BF16>(c, Team<kTeam>(threadIdx.x), i, t, on, cdf, staged);
+    cand_relocation<DISK, PRIOR, BF16, SHARD>(c, Team<kTeam>(threadIdx.x), i, t, on, cdf, staged);
   } else if (kind == 1) {
-    cand_swap<DISK, BF16>(c, Team<kSwapTeam>(threadIdx.x), i, t, on, cdf, staged);
+    cand_swap<DISK, BF16, SHARD>(c, Team<kSwapTeam>(threadIdx.x), i, t, on, cdf, staged);
   } else {
-    cand_leadership<DISK, BF16>(c, Team<kTeam>(threadIdx.x), i, t, on);
+    cand_leadership<DISK, BF16, SHARD>(c, Team<kTeam>(threadIdx.x), i, t, on);
   }
 }
 
-template <bool DISK, bool INTRA, bool PRIOR, bool BF16>
+template <bool DISK, bool INTRA, bool PRIOR, bool BF16, bool SHARD = false>
 static cudaError_t launch_candidates(const Ctx& c, cudaStream_t st) {
   const size_t smem = c.n.cdf_in_smem ? sizeof(float) * (size_t)c.n.B : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(candidates_kernel<DISK, INTRA, PRIOR, BF16>,
+        cudaFuncSetAttribute(candidates_kernel<DISK, INTRA, PRIOR, BF16, SHARD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const unsigned int blocks = cc_blocks(c.n.n_r, kThreads / kTeam) +
                               cc_blocks(c.n.n_s, kThreads / kSwapTeam) +
                               cc_blocks(c.n.n_l, kThreads / kTeam);
-  candidates_kernel<DISK, INTRA, PRIOR, BF16><<<blocks, kThreads, smem, st>>>(c);
+  candidates_kernel<DISK, INTRA, PRIOR, BF16, SHARD><<<blocks, kThreads, smem, st>>>(c);
   return cudaGetLastError();
 }
 
@@ -1186,6 +1290,14 @@ static cudaError_t launch_bf16(const Ctx& c, cudaStream_t st) {
 template <bool DISK>
 static cudaError_t launch_inter(const Ctx& c, cudaStream_t st) {
   return c.n.prior ? launch_bf16<DISK, true>(c, st) : launch_bf16<DISK, false>(c, st);
+}
+
+// The sharded-model mode's body: the default kinds (no intra moves, no
+// prior) over the assembled bundles.
+template <bool DISK>
+static cudaError_t launch_shard(const Ctx& c, cudaStream_t st) {
+  return c.n.bf16 ? launch_candidates<DISK, false, false, true, true>(c, st)
+                  : launch_candidates<DISK, false, false, false, true>(c, st);
 }
 
 CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in, CandOutputs out,
@@ -1204,6 +1316,14 @@ CC_EXPORT int cc_candidates(CandDims n, MDParams p, CandScalars s, CandInputs in
     return (int)cudaErrorInvalidValue;
   }
   const Ctx c{n, p, s, in, out};
+  if (n.shard) {
+    if (n.intra || n.prior || n.base_r != 0 || n.base_s != 0 || n.base_l != 0 ||
+        in.sh_ids == nullptr || in.sh_rows == nullptr || in.sh_parts == nullptr ||
+        (n.K_r + n.K_s > 0 && in.sh_mb == nullptr) || (n.K_l > 0 && in.sh_ml == nullptr)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)(p.has_disk ? launch_shard<true>(c, st) : launch_shard<false>(c, st));
+  }
   if (n.intra) {
     // no intra candidate reads a broker term: the bf16 flag changes nothing there
     return (int)(p.has_disk ? launch_candidates<true, true, false, false>(c, st)

@@ -16,9 +16,9 @@ field's "/"-joined path, first match wins, as the JAX package's
 models/sharding.py `match_partition_rules` (SNIPPETS.md [1]-[3]) matches
 them against its pytrees' key paths.  A layout is a tuple of axis names,
 one a leading dimension ("model": split in contiguous row blocks over the
-model axis), () replicated.  Nothing reads them until the sharded-model
-mode is ported; `shard_multiple_shape` is what the mesh engine pads a
-sharded model to.
+model axis), () replicated.  The sharded-model mode (parallel/model_shard.py)
+cuts each rank's blocks of the fields the statics rules name;
+`shard_multiple_shape` is what the mesh engine pads a sharded model to.
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ Every multi-device mode is a view of the same run over an explicit 2D
     objective;
   * grid.py      -- (R, M): a portfolio OF candidate-sharded chains.
 
-ft.py holds the mesh fault-tolerance controller that the config's
-`tpu.mesh.ft.*` keys build; the ladder that would drive it (ROADMAP queue 1
-item 10c) is not ported, and a mesh mode with it enabled is refused.
+model_shard.py is the sharded-MODEL mode's rank engine (the model's
+replica and partition rows split over the model axis).  ft.py holds the
+mesh fault-tolerance controller that the config's `tpu.mesh.ft.*` keys
+build, which the optimizer's width ladder drives
+(analyzer/optimizer.py `_optimize_mesh_ft`).
 """
 
 from cruise_control_tpu_torch.parallel.ft import CheckpointSlot, MeshFtController
@@ -20,13 +22,12 @@ from cruise_control_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     RESTART_AXIS,
     MeshEngine,
-    ModelShardNotPortedError,
-    SegmentedMeshNotPortedError,
     default_mesh,
     grid_mesh,
     model_mesh,
     normalize_mesh,
 )
+from cruise_control_tpu_torch.parallel.model_shard import ModelShardEngine, ShardPlan
 from cruise_control_tpu_torch.parallel.portfolio import portfolio_run
 from cruise_control_tpu_torch.parallel.ranks import (
     Layout,
@@ -46,12 +47,12 @@ __all__ = [
     "MODEL_AXIS",
     "MeshEngine",
     "MeshFtController",
-    "ModelShardNotPortedError",
+    "ModelShardEngine",
     "RESTART_AXIS",
     "RankDiedError",
     "RankGroupError",
     "RankTimeoutError",
-    "SegmentedMeshNotPortedError",
+    "ShardPlan",
     "ShardedEngine",
     "close_rank_groups",
     "cpu_devices",

@@ -31,8 +31,8 @@ Sensors (docs/sensors.md): `analyzer.mesh-ft.resumes`,
 live here; `analyzer.mesh-ft.device-lost` is counted at the attribution
 site (common/device_watchdog.DeviceSupervisor._attribute_mesh_failure).
 
-In this package no optimizer drives the ladder yet: the mesh engine layer
-is not ported, and the service runs the single-device mode only.
+The optimizer's width ladder drives it (analyzer/optimizer.py
+`_optimize_mesh_ft`), in every mesh mode of the optimizer and the service.
 
 Reference analog: none — the reference heals the Kafka cluster, not its
 own compute substrate.

@@ -43,11 +43,26 @@ set).  The state crosses in shared memory once a rebind; each chain's
 result placement comes back in shared tensors; the ys, the objective and
 the reports ride the answers.
 
-Not here: the sharded-MODEL mode (ROADMAP queue 1 item 10b; a state at or
-above `model_shard_min_partitions` raises `ModelShardNotPortedError`) and
-mesh fault tolerance with segmented mesh runs (item 10c; a run under an
-ambient SegmentContext or with `resume=` raises
-`SegmentedMeshNotPortedError`).
+The sharded-MODEL mode (`model_shard_min_partitions` > 0 and the real
+partition count at or above it, on a model axis over 1) splits the model
+itself over the model row instead: each rank holds one block of the
+replica and partition rows and resolves the rows a step needs by
+ownership gathers (parallel/model_shard.py `ModelShardEngine`).  Its
+ranks run no reports; the caller computes them from the result
+(`_caller_reports`), as it does for a segmented run.
+
+Segmented runs (the device scheduler's preemptible grant, an ambient
+SegmentContext, or `resume=` a checkpoint: mesh fault tolerance,
+analyzer/optimizer.py `_optimize_mesh_ft`): the caller drives the slice
+boundaries over the pipes (`_run_segmented`): each rank runs rounds up to
+the slice's end as a host loop over its captured graphs (op by op on the
+CPU), the plain engine's `_run_segmented` pieces, and between slices the
+caller runs the scheduler's checkpoint and offers a snapshot.  A
+checkpoint (`checkpoint_capture`) is the host copy of one rank a chain
+(the carries of a model row are bit for bit equal), so it restores at any
+model width with the same chain count (`_restore_checkpoint`); the ranks
+copy it into their own tensors, never the other way.  The sharded-model
+mode has no segmented variant, as in the JAX package.
 
 Reference analog: none -- the reference optimizer is a single-threaded
 Java loop (analyzer/goals/AbstractGoal.java:66-107).
@@ -69,14 +84,21 @@ import torch
 from cruise_control_tpu_torch import kernels
 from cruise_control_tpu_torch.analyzer.draws import Key
 from cruise_control_tpu_torch.analyzer.engine import (
+    SEGMENT_MAX_ROUNDS,
+    CarryCheckpoint,
     Engine,
     OptimizerConfig,
+    SegmentContext,
+    _placed_state,
     current_segment_context,
     warm_pool_submit,
 )
 from cruise_control_tpu_torch.analyzer.objective import GoalChain
 from cruise_control_tpu_torch.analyzer.options import DEFAULT_OPTIONS, OptimizationOptions
+from cruise_control_tpu_torch.common import collectives
+from cruise_control_tpu_torch.common.blackbox import RECORDER as _BLACKBOX
 from cruise_control_tpu_torch.common.device_watchdog import device_op
+from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.common.dispatch import count_dispatch
 from cruise_control_tpu_torch.config.balancing import DEFAULT_CONSTRAINT, BalancingConstraint
 from cruise_control_tpu_torch.kernels import _build
@@ -99,9 +121,8 @@ from cruise_control_tpu_torch.parallel.ranks import (
 log = logging.getLogger(__name__)
 
 __all__ = [
-    "MODEL_AXIS", "RESTART_AXIS", "MeshEngine", "ModelShardNotPortedError", "RankEngine",
-    "RankServer", "SegmentedMeshNotPortedError", "default_mesh", "grid_mesh", "model_mesh",
-    "normalize_mesh",
+    "MODEL_AXIS", "RESTART_AXIS", "MeshEngine", "RankEngine", "RankServer", "default_mesh",
+    "grid_mesh", "model_mesh", "normalize_mesh",
 ]
 
 #: the step's result placement fields a chain writes into its shared slot
@@ -109,16 +130,6 @@ SLOT_FIELDS = ("replica_broker", "replica_is_leader", "replica_disk", "replica_o
                "replica_disk_bytes")
 #: the ys columns that count (summed over chains in a mesh history)
 _COUNT_YS = ("accepted", "acc_replica", "acc_swap", "acc_lead", "prior_cands", "prior_acc")
-
-
-class ModelShardNotPortedError(NotImplementedError):
-    """The sharded-model mode (a state at or above model_shard_min_partitions
-    on a model axis wider than 1) is ROADMAP queue 1 item 10b."""
-
-
-class SegmentedMeshNotPortedError(NotImplementedError):
-    """Segmented mesh runs (an ambient SegmentContext, `resume=`) and mesh
-    fault tolerance are ROADMAP queue 1 item 10c."""
 
 
 def kind_split(config: OptimizerConfig) -> tuple[int, int, int]:
@@ -479,19 +490,33 @@ class RankServer:
     def _state(self, shared: dict, shape) -> ClusterState:
         return ClusterState(**{f: shared[f].to(self.device) for f in STATE_FIELDS}, shape=shape)
 
+    @staticmethod
+    def _host_state(shared: dict, shape) -> ClusterState:
+        """The caller's shared host copy as a state (the sharded-model mode
+        cuts its own blocks from it)."""
+        return ClusterState(**{f: shared[f] for f in STATE_FIELDS}, shape=shape)
+
     def cmd_build(self, a: dict) -> dict:
         t0 = time.monotonic()
         n_model = a["n_model"]
-        eng = RankEngine(self._state(a["state"], a["shape"]), a["chain"], a["constraint"],
-                         a["options"], a["config"], key=Key(*a["key"]),
-                         shard=(a["j"], n_model), group=self.rows.get(n_model))
+        common = dict(key=Key(*a["key"]), shard=(a["j"], n_model), group=self.rows.get(n_model))
+        if a.get("model_sharded"):
+            from cruise_control_tpu_torch.parallel.model_shard import ModelShardEngine
+
+            eng = ModelShardEngine(self._host_state(a["state"], a["shape"]), a["chain"],
+                                   a["constraint"], a["options"], a["config"], device=self.device,
+                                   **common)
+        else:
+            eng = RankEngine(self._state(a["state"], a["shape"]), a["chain"], a["constraint"],
+                             a["options"], a["config"], **common)
         self.engines[a["eid"]] = dict(engine=eng, slots=a["slots"], r=a["r"], j=a["j"])
-        return dict(build_s=time.monotonic() - t0, max_rf=eng.max_rf)
+        return dict(build_s=time.monotonic() - t0, max_rf=eng.max_rf, state_bytes=model_bytes(eng))
 
     def cmd_rebind(self, a: dict) -> dict:
         e = self.engines[a["eid"]]["engine"]
         t0 = time.monotonic()
-        e.rebind(self._state(a["state"], a["shape"]), a["options"])
+        sharded = getattr(e, "blk", None) is not None
+        e.rebind((self._host_state if sharded else self._state)(a["state"], a["shape"]), a["options"])
         return dict(rebind_s=time.monotonic() - t0, max_rf=e.max_rf)
 
     def cmd_warm(self, eid: int) -> bool:
@@ -511,17 +536,19 @@ class RankServer:
         carry = getattr(e, "schedule_carry", None) if self.engines[eid].get("schedule") else None
         return _carry_digest(carry if carry is not None else e._ws.carry)
 
-    def _write_slot(self, rec: dict, values: dict) -> None:
+    def _write_slot(self, rec: dict, values: dict, at: int = 0) -> None:
         slots = rec["slots"]
         for f in SLOT_FIELDS:
             if f in values:
-                slots[f][rec["r"]].copy_(torch.as_tensor(values[f]))
+                v = torch.as_tensor(values[f])
+                slots[f][rec["r"]][at: at + v.shape[0]].copy_(v)
 
     def cmd_run(self, a: dict) -> dict:
         rec = self.engines[a["eid"]]
         eng: RankEngine = rec["engine"]
         before = dict(kernels.LAUNCHES)
         calls = GATHER_CALLS[0]
+        coll = collectives.counts()
         t0 = time.monotonic()
         final, history, payload = eng._run_fused(verbose=a["verbose"], reports=a["reports"])
         wall = time.monotonic() - t0
@@ -535,9 +562,16 @@ class RankServer:
         ran = int(eng.last_ys[:, col["ran"]].sum())
         out["collectives"] = ran * eng.config.steps_per_round if eng.n_model > 1 else 0
         out["gather_calls"] = GATHER_CALLS[0] - calls
+        out["model_collectives"] = {k: v - coll[k] for k, v in collectives.counts().items()}
         out["launches"] = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
                            if v != before.get(k, 0)}
-        if rec["j"] == 0:
+        blk = getattr(eng, "blk", None)
+        if blk is not None:
+            # a model shard's rows of the placement, at its block
+            out["collectives"] = 0
+            out["state_bytes"] = model_bytes(eng)
+            self._write_slot(rec, {f: getattr(final, f) for f in SLOT_FIELDS[:3]}, at=blk.r_off)
+        elif rec["j"] == 0:
             if payload is not None:
                 self._write_slot(rec, payload)
                 # the reports by value (numpy): a CPU tensor would cross in a
@@ -546,6 +580,123 @@ class RankServer:
                                   for k, v in payload.items() if k not in SLOT_FIELDS}
             else:
                 self._write_slot(rec, {f: getattr(final, f) for f in SLOT_FIELDS[:3]})
+        return out
+
+    # -- segmented runs: the caller drives the slice boundaries ------------
+
+    def cmd_seg_init(self, a: dict) -> bool:
+        """The run's init (the captured init graph on the card), then the
+        checkpoint's state copied into the run's own tensors where `resume`
+        holds one (this rank's chain's host arrays: only read)."""
+        rec = self.engines[a["eid"]]
+        eng: RankEngine = rec["engine"]
+        eng._wait_warm()
+        ws = eng._workspace()
+        eng._uses += 1
+        dims = eng._sched_dims(False)
+        eng._stage(ws, None)
+        replays: dict = {}
+        route = "eager"
+        if eng.device.type == "cuda":
+            eng._capture(ws, False, False, loop=False)
+            # a one-rank row runs PR 14's slice graph; a wider one a host
+            # loop over the same captured graphs (the card refuses a loop
+            # graph holding NCCL's nodes)
+            route = "slice" if eng.n_model == 1 else "host"
+            if route == "slice":
+                eng._slice_graph(ws, False)
+            ws.graphs["init"].replay()
+            replays["init"] = 1
+        else:
+            eng._init_run(ws, dims)
+        ck = a.get("resume")
+        if ck is not None:
+            carry, rest = eng._run_state(ws)
+            for part, tensors in ((ck["carry"], carry), (ck["seg"], rest)):
+                for k, t in tensors.items():
+                    t.copy_(torch.from_numpy(np.array(part[k])))
+        rec["seg"] = dict(ws=ws, dims=dims, rounds=0, slices=0, replays=replays, route=route,
+                          before=dict(kernels.LAUNCHES), calls=GATHER_CALLS[0], t0=time.monotonic())
+        return True
+
+    def cmd_seg_slice(self, a: dict) -> dict:
+        """Rounds up to the slice's end (the schedule's SLICE_END): the
+        slice graph (one launch and one sync) or a host loop over the
+        captured graphs on the card, op by op on the CPU.  Returns the ys,
+        the loop's counts and the done flag."""
+        rec = self.engines[a["eid"]]
+        eng: RankEngine = rec["engine"]
+        seg = rec["seg"]
+        ws, dims, rep_n = seg["ws"], seg["dims"], seg["replays"]
+        end = int(a["end"])
+        if seg["route"] == "slice":
+            stream = torch.cuda.current_stream(eng.device)
+            ws.sched.si[sched_k.SLICE_END: sched_k.SLICE_END + 1].fill_(end)
+            eng._slice_graph(ws, False).launch(stream.cuda_stream)
+            stream.synchronize()
+            seg["slices"] += 1
+            return dict(ys=ws.ys_host.numpy().copy(), count=ws.count_host.numpy().copy(),
+                        done=bool(ws.si_host.numpy()[sched_k.DONE]))
+        if seg["route"] == "host":
+            ws.sched.si[sched_k.SLICE_END: sched_k.SLICE_END + 1].fill_(end)
+
+            def replay(name):
+                ws.graphs[name].replay()
+                rep_n[name] = rep_n.get(name, 0) + 1
+
+            rounds = eng._loop_eager(ws, dims, False, pieces=(
+                lambda: replay("eval"), lambda: replay("body"), lambda: replay("obj")))
+            torch.cuda.current_stream(eng.device).synchronize()
+        else:
+            ws.sched.si[sched_k.SLICE_END] = end
+            rounds = eng._loop_eager(ws, dims, False)
+        seg["rounds"] += rounds
+        seg["slices"] += 1
+        si = ws.sched.si.cpu().numpy()
+        return dict(ys=ws.sched.ys.cpu().numpy().copy(), count=ws.sched.count.cpu().numpy().copy(),
+                    done=bool(si[sched_k.DONE]))
+
+    def cmd_seg_snapshot(self, eid: int) -> dict:
+        """This rank's run state at the slice boundary (the plain engine's
+        `_run_state`) as host copies in shared memory: the pipe carries
+        their handles, not their bytes (the caller copies them out)."""
+        rec = self.engines[eid]
+        count_dispatch("engine.snapshot")
+        carry, rest = rec["engine"]._run_state(rec["seg"]["ws"])
+
+        def host(d):
+            return {k: t.detach().to("cpu", copy=True).share_memory_() for k, t in d.items()}
+
+        return dict(carry=host(carry), seg=host(rest))
+
+    def cmd_seg_finish(self, a: dict) -> dict:
+        """The run's end: its launches counted, its placement into the
+        chain's slot (rank 0 of the row), its carry objective (a portfolio
+        picks the winner from it)."""
+        rec = self.engines[a["eid"]]
+        eng: RankEngine = rec["engine"]
+        seg = rec.pop("seg")
+        ws = seg["ws"]
+        if seg["route"] == "slice":
+            ys, count = ws.ys_host.numpy(), ws.count_host.numpy()
+            eng._count_replays(ws, ys, int(count[sched_k.ITERS]), False, False,
+                               exits=seg["slices"])
+        else:
+            for name, n in seg["replays"].items():
+                kernels.add_launches(ws.graph_launches[name], n)
+        syncs = seg["slices"] if seg["route"] == "slice" else 3 * seg["rounds"] + seg["slices"]
+        out = dict(wall_s=time.monotonic() - seg["t0"], syncs=syncs,
+                   gather_calls=GATHER_CALLS[0] - seg["calls"],
+                   launches={k: v - seg["before"].get(k, 0) for k, v in kernels.LAUNCHES.items()
+                             if v != seg["before"].get(k, 0)})
+        if a["objective"]:
+            out["objective"] = float(eng.carry_objective(ws.carry))
+        rec["schedule"] = False
+        if rec["j"] == 0:
+            c = ws.carry
+            self._write_slot(rec, dict(replica_broker=c.replica_broker,
+                                       replica_is_leader=c.replica_is_leader,
+                                       replica_disk=c.replica_disk))
         return out
 
     def cmd_schedule(self, a: dict) -> dict:
@@ -581,6 +732,17 @@ class _HistoryReader:
         self.config, self.chain = config, chain
 
 
+def model_bytes(eng: Engine) -> int:
+    """Bytes of a rank's model on its device: the statics' state and member
+    table, and the carry's placement and partition x rack cells (the
+    O(R) and O(P) state the sharded-model mode divides by n)."""
+    st = eng.statics.state
+    s = st.shape
+    total = sum(getattr(st, f).numel() * getattr(st, f).element_size() for f in STATE_FIELDS)
+    total += eng.statics.part_replicas.numel() * 4
+    return int(total + s.R * 9 + s.P * s.num_racks * 4)
+
+
 def _shared(state: ClusterState) -> dict:
     """CPU copies of the state's fields in shared memory, for the ranks."""
     return {f: getattr(state, f).detach().to("cpu", copy=True).share_memory_() for f in STATE_FIELDS}
@@ -594,9 +756,13 @@ class MeshEngine:
     exact and a bucketed build anneal the same; builds one `RankEngine` a
     rank of `mesh` (a `Layout`; every local card, one model row, when None)
     on the device set's rank group.  `run()` runs the plain engine's fused
-    schedule on every chain; `run_reported()` adds the optimizer's reports;
+    schedule on every chain (in slices under a SegmentContext or from a
+    checkpoint, `resume=`); `run_reported()` adds the optimizer's reports;
     `run_schedule()` runs an explicit [rounds, steps] temperature schedule
-    (the portfolio entry point).  `timeout_s` bounds each command."""
+    (the portfolio entry point).  `timeout_s` bounds each command.  With
+    `model_shard_min_partitions` > 0, a state of at least that many real
+    partitions on a model axis over 1 runs the sharded-model mode
+    (`model_sharded`; parallel/model_shard.py)."""
 
     _ids = itertools.count()
 
@@ -616,12 +782,10 @@ class MeshEngine:
         self.mesh = normalize_mesh(mesh if mesh is not None else model_mesh())
         self.n_restarts = int(self.mesh.shape[RESTART_AXIS])
         self.n = int(self.mesh.shape[MODEL_AXIS])
-        if model_shard_min_partitions > 0 and self.n > 1 and state.shape.P >= model_shard_min_partitions:
-            raise ModelShardNotPortedError(
-                f"a state of {state.shape.P} partitions >= model_shard_min_partitions="
-                f"{model_shard_min_partitions} on a model axis of {self.n} runs the sharded-model "
-                "mode, ROADMAP queue 1 item 10b, which is not ported yet")
-        self.model_sharded = False
+        # the gate reads the REAL partition count (before any padding, so
+        # padding never flips the mode between generations of a cluster)
+        self.model_sharded = (model_shard_min_partitions > 0 and self.n > 1
+                              and int(state.shape.P) >= int(model_shard_min_partitions))
         self.chain, self.constraint, self.config = chain, constraint, config
         self.options = options
         self.timeout_s = timeout_s
@@ -700,13 +864,15 @@ class MeshEngine:
             r, j = divmod(k, self.n)
             per.append(dict(eid=self._eid, state=shared, shape=self.shape, chain=self.chain,
                             constraint=self.constraint, options=self.options, config=self.config,
-                            key=keys[r].words, r=r, j=j, n_model=self.n, slots=self._slots))
+                            key=keys[r].words, r=r, j=j, n_model=self.n, slots=self._slots,
+                            model_sharded=self.model_sharded))
         answers = g.call("build", ranks=self.ranks, per_rank=per, timeout_s=self.timeout_s)
         self._group = g
         self.max_rf = int(answers[0]["max_rf"])
         self.build_info = dict(group_start_s=round(started, 6), group=g.start_info,
                                build_s=round(time.monotonic() - t0, 6),
-                               rank_build_s=max(a["build_s"] for a in answers))
+                               rank_build_s=max(a["build_s"] for a in answers),
+                               rank_state_bytes=[int(a["state_bytes"]) for a in answers])
 
     def _ensure(self) -> None:
         """Rebuild on a new rank group where the engine's group was closed
@@ -776,38 +942,231 @@ class MeshEngine:
         """Bytes each rank holds after a step's all_gather (the run's only
         collective): M slices of the rank's packed candidate columns, the
         accept column among them (the kernel accepts before the gather).
-        0 on a one-rank model axis, where nothing is gathered."""
+        0 on a one-rank model axis, where nothing is gathered.  In the
+        sharded-model mode, the bytes a rank all-reduces a step (the
+        ownership hops; parallel/model_shard.py `psum_bytes_per_step`)."""
+        if self.model_sharded:
+            from cruise_control_tpu_torch.parallel.model_shard import psum_bytes_per_step
+
+            return psum_bytes_per_step(*kind_split(self.config), self.max_rf, self.shape.num_racks)
         return packed_bytes_per_step(self.config, self.n)
 
     @property
     def collective_bytes_per_round(self) -> int:
+        if self.model_sharded:
+            from cruise_control_tpu_torch.parallel.model_shard import psum_bytes_per_round
+
+            return psum_bytes_per_round(self.shape, self.config, kind_split(self.config),
+                                        self.max_rf)
         return self.collective_bytes_per_step * self.config.steps_per_round
 
     # -- runs -------------------------------------------------------------------------
 
-    def _refuse_segmented(self, resume) -> None:
-        if resume is not None or current_segment_context() is not None:
-            raise SegmentedMeshNotPortedError(
-                "segmented mesh runs (an ambient SegmentContext or resume=) and mesh fault "
-                "tolerance are ROADMAP queue 1 item 10c, not ported yet")
+    @device_op("mesh.run")
+    def run(self, *, verbose: bool = False, resume: CarryCheckpoint | None = None):
+        """Execute (or RESUME) the fused schedule on every chain; returns
+        (final_state, history) with the plain engine's history contract
+        (the winner chain's rounds; `accepted` summed over chains) plus a
+        timing record with `mesh_shape` and `collective_bytes`.
+
+        Under an ambient SegmentContext, or with a `resume` checkpoint, the
+        replicated modes run in slices (`_run_segmented`): the scheduler's
+        preemption seam and the fault-tolerance layer's, whose checkpoints
+        ride the slice boundaries; `resume` continues the remaining rounds
+        from a checkpoint taken at any model width.  The sharded-model mode
+        has no segmented variant: it runs whole, and a resume raises (the
+        optimizer restarts it instead)."""
+        return self._run_any(verbose, resume)
 
     @device_op("mesh.run")
-    def run(self, *, verbose: bool = False, resume=None):
-        """Execute the fused schedule on every chain; returns (final_state,
-        history) with the plain engine's history contract (the winner
-        chain's rounds; `accepted` summed over chains) plus a timing record
-        with `mesh_shape` and `collective_bytes`."""
-        self._refuse_segmented(resume)
+    def run_reported(self, *, verbose: bool = False, resume: CarryCheckpoint | None = None):
+        """`run` with the optimizer's reports; returns (final_state,
+        history, payload) as `Engine.run_reported` does.  On the one-launch
+        route the winner chain's ranks compute them (their before and
+        after reports and device checks); a segmented or sharded-model run
+        computes them on the caller from the result (`_caller_reports`)."""
+        seg = current_segment_context() is not None or resume is not None
+        if self.model_sharded or (seg and not verbose):
+            final, history = self._run_any(verbose, resume)
+            return final, history, self._caller_reports(final)
+        return self._run(verbose=verbose, reports=True)
+
+    def _run_any(self, verbose: bool, resume):
+        seg_ctx = current_segment_context()
+        if not verbose and not self.model_sharded and (seg_ctx is not None or resume is not None):
+            if seg_ctx is None:
+                # a resume outside a scheduler grant: slices for the
+                # checkpoint cadence only, never for wall bounding
+                seg_ctx = SegmentContext(float("inf"))
+            return self._run_segmented(seg_ctx, resume=resume)
+        if resume is not None:
+            raise ValueError("mesh resume requires the segmented path (replicated modes, "
+                             "non-verbose)")
         final, history, _ = self._run(verbose=verbose, reports=False)
         return final, history
 
-    @device_op("mesh.run")
-    def run_reported(self, *, verbose: bool = False):
-        """`run` with the optimizer's reports, computed by the winner chain's
-        ranks (their before and after reports and device checks); returns
-        (final_state, history, payload) as `Engine.run_reported` does."""
-        self._refuse_segmented(None)
-        return self._run(verbose=verbose, reports=True)
+    def _caller_reports(self, final: ClusterState) -> dict:
+        """The optimizer's payload computed here, on the caller's device:
+        the before and after reports of the engine's (padded) state and of
+        the result placed on it, the device checks, and the result's
+        replica_offline and leader disk bytes (the rank route's
+        `_cycle_pre` / `_cycle_post`, by the same functions)."""
+        from cruise_control_tpu_torch.models.aggregates import compute_aggregates
+        from cruise_control_tpu_torch.models.state import validate_on_device
+        from cruise_control_tpu_torch.models.stats import compute_stats
+
+        st = self.state
+        R = self.global_state.shape.R
+        pad = st.shape.R - R
+        dev = st.device
+
+        def padded(t, fill):
+            t = t.to(dev)
+            return t if pad == 0 else torch.cat([t, fill[R:]])
+
+        after = _placed_state(st, padded(final.replica_broker, st.replica_broker),
+                              padded(final.replica_is_leader, st.replica_is_leader),
+                              padded(final.replica_disk, st.replica_disk))
+        weights = torch.tensor(self.chain.weights, dtype=torch.float32, device=dev)
+        out = {}
+        for when, s in (("before", st), ("after", after)):
+            agg = compute_aggregates(s, s.members)
+            obj, viol, _ = self.chain.evaluate(s, agg=agg, constraint=self.constraint,
+                                               weights=weights)
+            stats = compute_stats(s, agg)
+            out[f"obj_{when}"] = np.float32(obj.cpu())
+            out[f"viol_{when}"] = viol.cpu().numpy().astype(np.float32)
+            out[f"stats_{when}"] = dataclasses.replace(stats, **{
+                f.name: getattr(stats, f.name).cpu() for f in dataclasses.fields(stats)})
+        out["checks"] = validate_on_device(after).cpu().numpy()
+        for f in ("replica_broker", "replica_is_leader", "replica_disk", "replica_offline"):
+            out[f] = getattr(after, f)[:R].cpu().numpy().copy()
+        out["replica_disk_bytes"] = st.replica_load_leader[:R, int(Resource.DISK)].cpu().numpy().copy()
+        return out
+
+    # -- segmented runs (mesh fault tolerance) ------------------------------------
+
+    def checkpoint_capture(self, base: int, ys_parts: list) -> CarryCheckpoint:
+        """The run's state at a slice boundary (the ranks idle after the
+        slice's sync): one rank a chain (a model row's carries are bit for
+        bit equal) returns its run state as host arrays; chain r's are
+        `carry[k][r]` / `seg[k][r]`.  No device placement in it, so a
+        narrower mesh with the same chain count restores it."""
+        count_dispatch("mesh.snapshot")
+        leaders = [r * self.n for r in range(self.n_restarts)]
+        answers = self._group.call("seg_snapshot", self._eid, ranks=leaders,
+                                   timeout_s=self.timeout_s)
+        carry = {k: np.stack([a["carry"][k].numpy() for a in answers]) for k in answers[0]["carry"]}
+        seg = {k: np.stack([a["seg"][k].numpy() for a in answers]) for k in answers[0]["seg"]}
+        return CarryCheckpoint(base=int(base), carry=carry, seg=seg,
+                               ys_parts=[dict(p) for p in ys_parts], n_chains=self.n_restarts,
+                               meta=dict(seed=int(self.config.seed),
+                                         mesh_shape=[self.n_restarts, self.n]))
+
+    def _restore_checkpoint(self, ckpt: CarryCheckpoint) -> list[dict]:
+        """Chain r's part of `ckpt`, for each chain of this layout.  The
+        ranks copy it into their own tensors (`cmd_seg_init`): the
+        checkpoint is only ever read, so a second resume from it (another
+        degrade in one episode, a retry at another width) finds it whole."""
+        if int(ckpt.n_chains) != self.n_restarts:
+            raise ValueError(f"checkpoint has {ckpt.n_chains} chains; this mesh runs "
+                             f"{self.n_restarts}: a resume needs the same chains")
+        return [dict(carry={k: v[r] for k, v in ckpt.carry.items()},
+                     seg={k: v[r] for k, v in ckpt.seg.items()}) for r in range(self.n_restarts)]
+
+    def _run_segmented(self, seg_ctx: SegmentContext, *, resume: CarryCheckpoint | None = None):
+        """The mesh's fused schedule in wall-bounded slices (the JAX
+        package's `_run_segmented`): the ranks run rounds [base, base + L)
+        a slice (`cmd_seg_slice`), one command and one sync a slice, L
+        growing in powers of two up to SEGMENT_MAX_ROUNDS from an EWMA of
+        the per-round wall against `slice_budget_s`; between slices the
+        scheduler's checkpoint, then `offer_snapshot`.  The ranks replay
+        the graphs of the one-launch run on the same tensors, so the
+        rounds, placements and ys are bit for bit its own, and a resume
+        continues them from the checkpoint's round."""
+        cfg = self.config
+        self.last_info = None
+        t_start = time.monotonic()
+        total = cfg.num_rounds + cfg.extra_round_budget
+        budget = max(1e-3, float(seg_ctx.slice_budget_s))
+        R, n = self.n_restarts, self.n
+        with self._lock:
+            self._wait_warm()
+            self._ensure()
+            g = self._group
+            if resume is not None:
+                chains = self._restore_checkpoint(resume)
+                base, ys_parts = int(resume.base), [dict(p) for p in resume.ys_parts]
+            else:
+                chains, base, ys_parts = None, 0, []
+            count_dispatch("mesh.init")
+            g.call("seg_init", ranks=self.ranks, per_rank=[
+                dict(eid=self._eid, resume=None if chains is None else chains[k // n])
+                for k in self.ranks], timeout_s=self.timeout_s)
+            device_s, round_wall, L, slices = 0.0, None, 1, []
+            answers = None
+            while base < total:
+                t0s = time.monotonic()
+                seq = _BLACKBOX.begin("engine-slice", slice=len(slices), base_round=base, rounds=L,
+                                      total_rounds=total, mesh_shape=[R, n], n_devices=R * n)
+                try:
+                    count_dispatch("mesh.slice")
+                    answers = g.call("seg_slice", dict(eid=self._eid, end=base + L),
+                                     ranks=self.ranks, timeout_s=self.timeout_s)
+                    count_dispatch("mesh.sync")
+                except BaseException as e:  # noqa: BLE001 -- recorded, re-raised
+                    _BLACKBOX.end(seq, ok=False, error=repr(e))
+                    raise
+                done = all(answers[r * n]["done"] for r in range(R))
+                _BLACKBOX.end(seq, done=done)
+                wall = time.monotonic() - t0s
+                device_s += wall
+                slices.append(dict(base=base, rounds=L, wall_s=round(wall, 6)))
+                ys_parts.append(dict(base=base, end=min(base + L, total)))
+                base += L
+                per_round = wall / L
+                round_wall = per_round if round_wall is None else 0.5 * round_wall + 0.5 * per_round
+                if done or base >= total:
+                    break
+                L = 1
+                while L * 2 * round_wall <= budget and L * 2 <= SEGMENT_MAX_ROUNDS:
+                    L *= 2
+                if seg_ctx.checkpoint is not None:
+                    seg_ctx.checkpoint()
+                seg_ctx.offer_snapshot(lambda b=base, p=list(ys_parts): self.checkpoint_capture(b, p))
+            finish = g.call("seg_finish", dict(eid=self._eid, objective=R > 1), ranks=self.ranks,
+                            timeout_s=self.timeout_s)
+            objs = np.asarray([finish[r * n].get("objective", np.nan) for r in range(R)], np.float32)
+            winner = int(np.argmin(objs)) if R > 1 else 0
+            final = self._final_state(winner)
+        launches: dict = {}
+        for a in finish:
+            for k, v in a["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        kernels.add_launches(launches, 1)
+        ys_list = [answers[r * n]["ys"] for r in range(R)] if answers is not None else []
+        history = self._history(ys_list, winner, False) if ys_list else []
+        timing = dict(
+            timing=True, fused=True, segmented=True, segments=len(slices),
+            blocking_syncs=max(a["syncs"] for a in finish), slices=slices,
+            device_s=round(device_s, 6),
+            host_dispatch_s=round(time.monotonic() - t_start - device_s, 6),
+            mesh_shape=[R, n], collective_bytes=self.collective_bytes_per_round,
+            ranks=self.mesh.size, backend=g.backend, devices=list(self.mesh.devices),
+        )
+        if resume is not None:
+            timing["resumed_from_round"] = int(resume.base)
+        if seg_ctx.snapshots_taken or seg_ctx.snapshots_skipped:
+            timing["snapshots"] = seg_ctx.snapshots_taken
+            timing["snapshot_s"] = round(seg_ctx.snapshot_seconds, 6)
+        if cfg.diagnostics and ys_list:
+            timing["convergence"] = self._reader._convergence_summary(self._mixed_ys(ys_list, winner))
+        history.append(timing)
+        self.last_info = dict(objectives=objs, winner=winner, n_chains=R, n_shards=n,
+                              gather_calls=[int(a["gather_calls"]) for a in finish],
+                              rank_walls=[a["wall_s"] for a in finish], launches=launches,
+                              segments=len(slices))
+        return final, history
 
     def _run(self, *, verbose: bool, reports: bool):
         cfg = self.config
@@ -854,9 +1213,16 @@ class MeshEngine:
         if cfg.diagnostics:
             timing["convergence"] = self._reader._convergence_summary(self._mixed_ys(
                 [a["ys"] for a in leaders], winner))
+        if self.model_sharded:
+            # only in this mode: the replicated records stay as they were
+            timing["model_sharded"] = True
+            timing["model_psum_bytes"] = int(self.collective_bytes_per_round)
+            timing["model_collectives"] = answers[0]["model_collectives"]
         history.append(timing)
         self.last_info = dict(
             objectives=objs, winner=winner, n_chains=self.n_restarts, n_shards=self.n,
+            model_collectives=[a["model_collectives"] for a in answers],
+            state_bytes=[a.get("state_bytes") for a in answers],
             collectives=[int(a["collectives"]) for a in answers],
             gather_calls=[int(a["gather_calls"]) for a in answers],
             loop_route=[a["loop_route"] for a in answers],
@@ -902,6 +1268,9 @@ class MeshEngine:
         schedule (f32[S] or f32[rounds, S]); returns (best final state,
         {"objectives", "n_chains", "n_shards", "winner", "accepted"}).
         Chain r's key is split(PRNGKey(seed), R)[r]."""
+        if self.model_sharded:
+            raise ValueError("the sharded-model mode runs the fused schedule only (run_schedule "
+                             "is the portfolio's entry point)")
         temps = np.asarray(temps, np.float32)
         if temps.ndim == 1:
             temps = temps[None]

@@ -30,7 +30,16 @@ raises `RankDiedError`, one that does not answer in time
 `RankTimeoutError`, one whose command raised `RankCommandError`.  The group
 is then torn down (every rank process killed and joined) and the next
 `rank_group` call of the device set builds a new one; engines on the old
-group rebuild themselves on it.  The process groups are created with a
+group rebuild themselves on it.
+
+Each rank also serves a probe pipe on a thread of its own (`probe`): one
+tiny op on its card, on a stream of its own, answered while the rank's
+main thread may be blocked in a collective.  That is how a hung mesh run
+is attributed to a card (common/device_watchdog.py `probe_devices`): the
+surviving ranks answer, a stopped or wedged one does not.  The probe uses
+the ranks' own CUDA contexts, so the caller makes none for it.  A command
+deadline probes the ranks before it tears the group down, and the
+`RankTimeoutError` carries the verdicts (`probe`).  The process groups are created with a
 timeout, so a rank left in a collective whose peer died ends too.  No mesh
 on the card falls back to gloo or the CPU: a CUDA device list asks for
 NCCL, and a rank that cannot join raises.
@@ -65,6 +74,8 @@ START_TIMEOUT_S = 300.0
 COMMAND_TIMEOUT_S = 900.0
 #: the process groups' own timeout: a collective whose peer is gone ends
 PG_TIMEOUT_S = 300.0
+#: the most seconds a command deadline's probe of the ranks takes
+PROBE_TIMEOUT_S = 10.0
 
 
 # ----------------------------------------------------------------------
@@ -154,11 +165,15 @@ def normalize_mesh(mesh: Layout) -> Layout:
 
 class RankGroupError(RuntimeError):
     """A rank group failed; the group is torn down and the next call of its
-    device set runs on a new one.  `rank` names the rank, when one is known."""
+    device set runs on a new one.  `rank` names the rank, when one is known;
+    `devices` is the group's device list and `probe` the ranks' probe
+    verdicts ({rank: None | diagnosis}) where the failure was probed."""
 
-    def __init__(self, message: str, rank: int | None = None):
+    def __init__(self, message: str, rank: int | None = None, *, devices=None, probe=None):
         super().__init__(message)
         self.rank = rank
+        self.devices = tuple(devices) if devices is not None else None
+        self.probe = probe
 
 
 class RankDiedError(RankGroupError):
@@ -178,9 +193,32 @@ class RankCommandError(RankGroupError):
 # ----------------------------------------------------------------------
 
 
+def _probe_server(conn, device: str) -> None:
+    """A rank's probe thread: answer each probe with one tiny op on the
+    rank's card (common/device_watchdog.py `_trivial_device_op`, on a
+    stream of its own) until the pipe closes."""
+    from cruise_control_tpu_torch.common.device_watchdog import _trivial_device_op
+
+    while True:
+        try:
+            conn.recv()
+        except (EOFError, OSError):
+            return
+        try:
+            _trivial_device_op(device)
+            reply = ("ok", None)
+        except BaseException as e:  # noqa: BLE001 -- the verdict is the caller's
+            reply = ("error", f"{type(e).__name__}: {e}")
+        try:
+            conn.send(reply)
+        except (OSError, BrokenPipeError):
+            return
+
+
 def _rank_main(rank: int, world: int, device: str, backend: str, init_method: str,
-               conn, pg_timeout_s: float) -> None:
-    """A rank process: join the group, then serve commands until "exit"."""
+               conn, pg_timeout_s: float, probe_conn=None) -> None:
+    """A rank process: join the group, then serve commands until "exit"
+    (and probes on `probe_conn`, on a thread of its own)."""
     t0 = time.monotonic()
     try:
         import torch
@@ -205,6 +243,9 @@ def _rank_main(rank: int, world: int, device: str, backend: str, init_method: st
         if device != "cpu":
             torch.cuda.synchronize()
         check = float(probe.item())
+        if probe_conn is not None:
+            threading.Thread(target=_probe_server, args=(probe_conn, device), daemon=True,
+                             name="rank-probe").start()
         conn.send(("ready", dict(rank=rank, pid=os.getpid(), import_s=t_import - t0,
                                  join_s=time.monotonic() - t_import, world_sum=check,
                                  backend=dist.get_backend())))
@@ -271,6 +312,8 @@ class RankGroup:
         self.alive = False
         self._procs: list = []
         self._conns: list = []
+        self._probes: list = []
+        self._probe_lock = threading.Lock()
         self._rows: set[int] = set()
         #: start-up seconds: spawn to every rank ready, and each rank's
         #: import and join seconds
@@ -300,13 +343,16 @@ class RankGroup:
         t0 = time.monotonic()
         for rank, dev in enumerate(self.devices):
             parent, child = ctx.Pipe(duplex=True)
+            probe_parent, probe_child = ctx.Pipe(duplex=True)
             p = ctx.Process(target=_rank_main, args=(rank, self.world, dev, self.backend, init,
-                                                     child, self.pg_timeout_s),
+                                                     child, self.pg_timeout_s, probe_child),
                             daemon=True, name=f"cc-rank-{self.id}-{rank}")
             p.start()
             child.close()
+            probe_child.close()
             self._procs.append(p)
             self._conns.append(parent)
+            self._probes.append(probe_parent)
         self.alive = True
         ready = self._collect(list(range(self.world)), timeout_s, "start")
         self.start_info = dict(start_s=time.monotonic() - t0, backend=self.backend,
@@ -335,12 +381,59 @@ class RankGroup:
                 if p.is_alive():
                     p.kill()
                     p.join(10.0)
-            for c in self._conns:
+            for c in self._conns + self._probes:
                 try:
                     c.close()
                 except OSError:
                     pass
-            self._procs, self._conns = [], []
+            self._procs, self._conns, self._probes = [], [], []
+
+    def abort(self) -> None:
+        """Kill every rank now, without the command lock (a caller abandoned
+        at a deadline may hold it, waiting on the ranks): the group is
+        closed, and the waiting command sees the ranks die and returns."""
+        self.alive = False
+        for p in list(self._procs):
+            if p.is_alive():
+                p.kill()
+
+    def probe(self, timeout_s: float = 20.0) -> dict:
+        """{rank: None | diagnosis}: each rank's probe thread runs one tiny
+        op on its card; the probes go out together and share one budget.
+        A rank that does not answer in time, or whose pipe is gone, is
+        named with its diagnosis."""
+        with self._probe_lock:
+            out: dict[int, str | None] = {}
+            pending = {}
+            for r, c in enumerate(self._probes):
+                try:
+                    c.send("probe")
+                    pending[c] = r
+                except (OSError, BrokenPipeError, ValueError) as e:
+                    out[r] = f"rank {r} ({self.devices[r]}) cannot take a probe: {e}"
+            deadline = time.monotonic() + timeout_s
+            while pending:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                for c in _wait(list(pending), timeout=left):
+                    r = pending.pop(c)
+                    try:
+                        status, diag = c.recv()
+                    except (EOFError, OSError) as e:
+                        out[r] = f"rank {r} ({self.devices[r]}) closed its probe pipe: {e!r}"
+                        continue
+                    out[r] = None if status == "ok" else f"rank {r} ({self.devices[r]}) probe failed: {diag}"
+            for c, r in pending.items():
+                out[r] = (f"rank {r} ({self.devices[r]}) unresponsive: the probe did not answer "
+                          f"in {timeout_s:.1f} s")
+                # a late answer must not be read as the next probe's
+                try:
+                    c.close()
+                except OSError:
+                    pass
+                self._probes[r] = _ClosedPipe()
+            return dict(sorted(out.items()))
 
     def kill_rank(self, rank: int) -> None:
         """Kill one rank process (the fault tests' and chip_smoke's device
@@ -356,6 +449,9 @@ class RankGroup:
 
     def _fail(self, exc: RankGroupError):
         log.warning("rank group %d torn down: %s", self.id, exc)
+        # no grace period: the other ranks may wait in a collective on the
+        # one that failed, and would not read an "exit"
+        self.abort()
         self.close()
         raise exc
 
@@ -368,9 +464,12 @@ class RankGroup:
             left = deadline - time.monotonic()
             if left <= 0:
                 missing = [r for r in ranks if r not in answers]
+                # probe before the teardown: the ranks that answer are alive,
+                # the silent ones are what stalled the command
+                verdicts = self.probe(min(PROBE_TIMEOUT_S, max(1.0, timeout_s)))
                 self._fail(RankTimeoutError(
-                    f"rank(s) {missing} did not answer {what!r} within {timeout_s:.1f} s",
-                    missing[0]))
+                    f"rank(s) {missing} did not answer {what!r} within {timeout_s:.1f} s; "
+                    f"probes: {verdicts}", missing[0], devices=self.devices, probe=verdicts))
             pending = [c for c, r in by_conn.items() if r not in answers]
             ready = _wait(pending + list(by_sentinel), timeout=left)
             for obj in ready:
@@ -379,16 +478,18 @@ class RankGroup:
                     try:
                         status, payload = obj.recv()
                     except (EOFError, OSError):
-                        self._fail(RankDiedError(f"rank {r} closed its pipe during {what!r}", r))
+                        self._fail(RankDiedError(f"rank {r} closed its pipe during {what!r}", r,
+                                                 devices=self.devices))
                     if status == "error":
-                        self._fail(RankCommandError(f"rank {r} failed {what!r}: {payload}", r))
+                        self._fail(RankCommandError(f"rank {r} failed {what!r}: {payload}", r,
+                                                    devices=self.devices))
                     answers[r] = payload
                 else:
                     # a rank exits only on "exit": any other end is a death
                     r = by_sentinel[obj]
                     self._fail(RankDiedError(
                         f"rank {r} (pid {self._procs[r].pid}, {self.devices[r]}) exited with "
-                        f"code {self._procs[r].exitcode} during {what!r}", r))
+                        f"code {self._procs[r].exitcode} during {what!r}", r, devices=self.devices))
         return [answers[r] for r in ranks]
 
     def call(self, cmd: str, args=None, *, ranks=None, per_rank=None,
@@ -403,7 +504,8 @@ class RankGroup:
                 try:
                     self._conns[r].send((cmd, args if per_rank is None else per_rank[i]))
                 except (OSError, BrokenPipeError) as e:
-                    self._fail(RankDiedError(f"rank {r} cannot take {cmd!r}: {e}", r))
+                    self._fail(RankDiedError(f"rank {r} cannot take {cmd!r}: {e}", r,
+                                             devices=self.devices))
             return self._collect(ranks, COMMAND_TIMEOUT_S if timeout_s is None else timeout_s,
                                  cmd)
 
@@ -416,6 +518,24 @@ class RankGroup:
                 return
             self.call("rows", n_model)
             self._rows.add(n_model)
+
+
+class _ClosedPipe:
+    """The probe pipe of a rank whose last probe went unanswered: every
+    later probe is refused at once."""
+
+    def send(self, _):
+        raise OSError("the rank's probe pipe was closed after an unanswered probe")
+
+    def close(self) -> None:
+        pass
+
+
+def device_ids(devices) -> list[int]:
+    """The ids a mesh failure names (common/device_watchdog.py): a card's
+    index (cuda:i -> i); a CPU rank's position in the list."""
+    return [int(d.split(":")[1]) if str(d).startswith("cuda:") else i
+            for i, d in enumerate(devices)]
 
 
 _GROUPS: dict[tuple[str, ...], RankGroup] = {}
@@ -436,6 +556,32 @@ def rank_group(devices, **kwargs) -> RankGroup:
             g = RankGroup(key, **kwargs)
             _GROUPS[key] = g
         return g
+
+
+def live_group(devices) -> RankGroup | None:
+    """The live rank group serving this device set (its own or a larger
+    one that starts with it), None when there is none."""
+    key = _devices(devices)
+    with _GROUPS_LOCK:
+        for k, g in _GROUPS.items():
+            if g.alive and k[: len(key)] == key:
+                return g
+    return None
+
+
+def abort_groups_with(ids) -> list[tuple[str, ...]]:
+    """Kill every live rank group one of whose devices has an id in `ids`
+    (`device_ids`): a group with a lost or stalled card cannot serve
+    another command.  Returns their device sets."""
+    bad = set(int(i) for i in ids)
+    out = []
+    with _GROUPS_LOCK:
+        groups = [(k, g) for k, g in _GROUPS.items() if g.alive]
+    for k, g in groups:
+        if bad & set(device_ids(k)):
+            g.abort()
+            out.append(k)
+    return out
 
 
 def close_rank_groups() -> None:

@@ -19,10 +19,9 @@ route that fails raises `DeviceDegradedError` or `BreakerOpenError`
 work of the card is answered on the CPU.  The mesh modes
 (`tpu.parallel.mode` "sharded" or "grid:RxM") run on a rank group of the
 host's cards (parallel/mesh.py; on a CPU service, `tpu.mesh.max.devices`
-gloo ranks).  One configuration of the JAX package is not in this package
-yet and is refused with a `ConfigException` naming the key: a mesh mode
-with `tpu.mesh.ft.enabled=true`, the JAX default (mesh fault tolerance,
-ROADMAP queue 1 item 10c).  `controller.enabled=true` builds the
+gloo ranks), with mesh fault tolerance (`tpu.mesh.ft.*`, the JAX
+defaults: the optimizer's width ladder feeds `/state`'s `meshFt` block and
+the MESH_DEGRADED detector).  `controller.enabled=true` builds the
 streaming controller (controller/streaming.py) on the facade's device.
 """
 
@@ -46,7 +45,6 @@ from cruise_control_tpu_torch.analyzer import (
 from cruise_control_tpu_torch.analyzer.proposals import ExecutionProposal
 from cruise_control_tpu_torch.common.sensors import SensorRegistry
 from cruise_control_tpu_torch.config.app_config import CruiseControlConfig
-from cruise_control_tpu_torch.config.config_def import ConfigException
 from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.detector import (
     AnomalyDetector,
@@ -74,20 +72,6 @@ from cruise_control_tpu_torch.service.progress import (
 )
 
 log = logging.getLogger(__name__)
-
-
-def refuse_unported_modes(config: CruiseControlConfig) -> None:
-    """Raise `ConfigException` for a configuration the JAX package runs and
-    this package does not have yet: a mesh mode with mesh fault tolerance
-    enabled (ROADMAP queue 1 item 10c); the config itself parses it as the
-    JAX package does."""
-    mode = config.parallel_mode()
-    if mode != "single" and config.get("tpu.mesh.ft.enabled"):
-        raise ConfigException(
-            f"tpu.parallel.mode={mode!r} with tpu.mesh.ft.enabled=true is not supported by "
-            "this package yet (mesh fault tolerance is ROADMAP queue 1 item 10c): set "
-            "tpu.mesh.ft.enabled=false"
-        )
 
 
 @dataclasses.dataclass
@@ -131,7 +115,6 @@ class AnalyzerCore:
         """device: where the optimizer, the scenario evaluator and the
         rightsizer run — the current CUDA device when None (raising
         without one), the CPU only when the caller names it."""
-        refuse_unported_modes(config)
         self.config = config
         self.device = resolve_device(device)
         self.sensors = sensors if sensors is not None else SensorRegistry()
@@ -272,6 +255,7 @@ class AnalyzerCore:
             parallel_mode=config.parallel_mode(),
             mesh_max_devices=config.mesh_max_devices(),
             model_shard_min_partitions=config.mesh_model_shard_min_partitions(),
+            mesh_ft=config.mesh_ft_controller(sensors=self.sensors),
         )
         # per-bucket cold-start attribution as labeled /metrics series
         # (only the core's long-lived default optimizer feeds it; ad-hoc
@@ -341,7 +325,6 @@ class CruiseControl:
         device: the facade's one device (the core's when a core is
         given); None takes the monitor's, else the current CUDA device,
         raising without one.  The monitor builds its models there."""
-        refuse_unported_modes(config)
         if device is None:
             device = core.device if core is not None else getattr(monitor, "device", None)
         device = resolve_device(device)

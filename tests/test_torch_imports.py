@@ -55,7 +55,9 @@ def test_import_loads_no_jax_in_subprocess():
               "service.server", "service.main", "client.cccli",
               # the replicated mesh layer
               "common.collectives", "models.sharding", "parallel.ranks", "parallel.mesh",
-              "parallel.sharded", "parallel.portfolio", "parallel.grid"):
+              "parallel.sharded", "parallel.portfolio", "parallel.grid",
+              # the sharded-model mode
+              "parallel.model_shard", "kernels.model_shard"):
         assert f"cruise_control_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"

@@ -2207,3 +2207,93 @@ def test_mesh_over_nccl_matches_the_plain_engine(cuda):
             se.release()
     finally:
         close_rank_groups()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_model_shard_kernels_against_the_whole_model(cuda, n):
+    """The sharded-model mode's kernels (kernels/model_shard.py, the
+    candidates kernel's SHARD body, apply_moves with row offsets), n shards
+    emulated on one card: the assembled bundles are the whole model's
+    gathers, the body the full launch bit for bit, each gather kernel its
+    plain version bit for bit, each shard's offset apply its block of the
+    whole apply."""
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+    from cruise_control_tpu_torch.kernels.group import group_placement
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.models.sharding import shard_multiple_shape
+    from cruise_control_tpu_torch.parallel.model_shard import ShardPlan, shard_views
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    state = pad_state(state, shard_multiple_shape(state.shape, n))
+    eng = Engine(state, DEFAULT_CHAIN, config=CFG)
+    carry = eng.init_carry(Key.from_seed(3))
+    plan = eng.plan(carry)
+    g = eng._globals(carry)
+    keys = cand_k.StepKeys.of(carry.key)
+    cursor = cand_k.KeyCursor.of(keys, cuda)
+    temp = torch.full((1,), 0.5, device=cuda)
+    cp, s = eng.cand, eng.shape
+    full = cand_k.candidates(cp, eng.statics, carry, cursor, g, plan, temp)
+    blks = [ms_k.Block.of(s.R, s.P, j, n) for j in range(n)]
+    views = [shard_views(eng.statics, carry, b) for b in blks]
+    groups = [group_placement(c.replica_broker, sx.state.replica_valid, s.B) for sx, c in views]
+    counts = torch.stack([gp.count for gp in groups])
+    plans = [ShardPlan(broker_cdf=plan.broker_cdf, order=gp.order, start=gp.start, count=plan.count,
+                       count_local=gp.count, below=counts[:j].sum(0).to(torch.int32),
+                       start_global=plan.start, replica_cost=plan.replica_cost,
+                       lead_cost=plan.lead_cost) for j, gp in enumerate(groups)]
+
+    def hop(fn, plain):
+        out = None
+        for j, (sx, c) in enumerate(views):
+            k = fn(j, sx, c)
+            assert torch.equal(k, plain(j, sx, c))
+            out = k if out is None else out + k
+        return out
+
+    max_rf, pw = eng.max_rf, eng.max_rf + s.num_racks
+    n_rs = cp.K_r + 2 * cp.K_s
+    ids = hop(lambda j, sx, c: ms_k.shard_sources(cp, cursor, plans[j], sx.gen, blks[j], True),
+              lambda j, sx, c: ms_k.shard_sources_plain(cp, keys, plans[j], sx.gen, blks[j], True))
+    rows = hop(lambda j, sx, c: ms_k.own_rows(ids, ms_k.ROW_WORDS, ms_k.row_columns(sx.state, c),
+                                              blks[j]),
+               lambda j, sx, c: ms_k.own_rows_plain(ids, ms_k.ROW_WORDS,
+                                                    ms_k.row_columns(sx.state, c), blks[j]))
+    parts = hop(lambda j, sx, c: ms_k.own_parts(rows.view(-1)[1:], int(ids.shape[0]), ms_k.ROW_WORDS,
+                                                sx.part_replicas, c.part_rack_count, blks[j]),
+                lambda j, sx, c: ms_k.own_parts_plain(rows[:, 1], sx.part_replicas,
+                                                      c.part_rack_count, blks[j]))
+    mb = hop(lambda j, sx, c: ms_k.own_rows(parts, 1, ms_k.row_columns(sx.state, c), blks[j],
+                                            m=max_rf, stride=pw, n=n_rs),
+             lambda j, sx, c: ms_k.own_rows_plain(parts[:n_rs, :max_rf], 1,
+                                                  ms_k.row_columns(sx.state, c), blks[j]))
+    ml = hop(lambda j, sx, c: ms_k.own_rows(parts[n_rs:], ms_k.ROW_WORDS,
+                                            ms_k.row_columns(sx.state, c), blks[j], m=max_rf,
+                                            stride=pw, n=cp.K_l),
+             lambda j, sx, c: ms_k.own_rows_plain(parts[n_rs:, :max_rf], ms_k.ROW_WORDS,
+                                                  ms_k.row_columns(sx.state, c), blks[j]))
+    sh = cand_k.ShardBundles(ids=ids, rows=rows, parts=parts, mb=mb, ml=ml, shape=s)
+    before = kernels.LAUNCHES["candidates_shard"]
+    body = cand_k.candidates_shard(cp, views[0][0], views[0][1], cursor, g, plans[0], temp, sh)
+    assert kernels.LAUNCHES["candidates_shard"] == before + 1
+    for f in ("delta", "feas", "accept", "src", "dst", "part1", "part2"):
+        assert torch.equal(body[f].view(torch.int32) if f == "delta" else body[f],
+                           full[f].view(torch.int32) if f == "delta" else full[f]), f
+    survive, sv_r, _ = select_k.select_survivors(
+        full["accept"], full["delta"], full["src"], full["dst"], full["part1"], full["part2"],
+        num_brokers=s.B, num_parts=s.P, n_r=full["nr"], n_s=full["ns"])
+    sv_l = survive[full["nr"] + full["ns"]:]
+    whole = carry.clone()
+    apply_k.apply_moves(eng.statics, whole, sv_r, full["payr"], sv_l, full["payl"])
+    for b, (sx, c_j) in zip(blks, views):
+        c = dataclasses.replace(carry.clone(), **{f: getattr(c_j, f).clone() for f in (
+            "replica_broker", "replica_is_leader", "replica_disk", "part_rack_count")})
+        apply_k.apply_moves(sx, c, sv_r, full["payr"], sv_l, full["payl"], r_off=b.r_off,
+                            p_off=b.p_off)
+        assert torch.equal(c.replica_broker, whole.replica_broker[b.r_off: b.r_off + b.r_local])
+        assert torch.equal(c.part_rack_count, whole.part_rack_count[b.p_off: b.p_off + b.p_local])
+        assert torch.equal(c.broker_load.view(torch.int32), whole.broker_load.view(torch.int32))
+        prc = ms_k.shard_prc(sx.state, c_j.replica_broker, s.P)
+        assert torch.equal(prc, ms_k.shard_prc_plain(sx.state, c_j.replica_broker, s.P))
+    torch.cuda.synchronize()

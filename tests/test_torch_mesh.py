@@ -12,8 +12,10 @@ prefix of it.
   statement counts its own gather calls and packed bytes a step: 0 at n=1.
 - The layout helpers, the sharding rule tables against the JAX package's,
   and the model-axis collectives over 2 gloo ranks against one process.
-- The refusals that stay (ROADMAP queue 1 items 10b and 10c) and a killed
-  rank: a typed error inside the deadline, then a rebuilt group.
+- The entry points that refused the sharded-model mode, segmented mesh
+  runs and mesh fault tolerance before they were ported, now running them,
+  and a killed rank: a typed error inside the deadline, then a rebuilt
+  group.
 """
 
 import dataclasses
@@ -32,9 +34,7 @@ from cruise_control_tpu_torch.parallel import (
     RESTART_AXIS,
     GridEngine,
     MeshEngine,
-    ModelShardNotPortedError,
     RankDiedError,
-    SegmentedMeshNotPortedError,
     ShardedEngine,
     close_rank_groups,
     cpu_devices,
@@ -506,55 +506,72 @@ def test_collectives_over_two_gloo_ranks_match_one_process(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# the refusals that stay, and a killed rank
+# the entry points that refused before items 10b and 10c, and a killed rank
 # ----------------------------------------------------------------------
 
 
-def test_model_shard_mode_is_refused_naming_item_10b():
+def test_model_shard_mode_runs_from_its_threshold():
     state = _state(seed=9, brokers=8, parts=96)
-    with pytest.raises(ModelShardNotPortedError, match="item 10b"):
-        ShardedEngine(state, DEFAULT_CHAIN, mesh=model_mesh(DEVS[:2]), config=CFG,
-                      model_shard_min_partitions=1)
-    # below the threshold, or on one rank, the replicated mode runs
+    sh = ShardedEngine(state, DEFAULT_CHAIN, mesh=model_mesh(DEVS[:2]), config=CFG,
+                       model_shard_min_partitions=1)
+    assert sh.model_sharded
+    final, hist = sh.run()
+    assert validate(final) == [] and hist[-1]["model_sharded"] is True
+    sh.release()
+    # below the threshold the replicated mode runs
     se = ShardedEngine(state, DEFAULT_CHAIN, mesh=model_mesh(DEVS[:2]), config=CFG,
                        model_shard_min_partitions=10 ** 6)
+    assert not se.model_sharded
     assert validate(se.run()[0]) == []
     se.release()
     opt = GoalOptimizer(config=CFG, parallel_mode="sharded", device="cpu", mesh_max_devices=2,
                         model_shard_min_partitions=1)
-    with pytest.raises(ModelShardNotPortedError, match="item 10b"):
-        opt.optimize(state)
+    res = opt.optimize(state)
+    timing = next(h for h in res.history if h.get("timing"))
+    assert timing["model_sharded"] is True and timing["mesh_shape"] == [1, 2]
+    assert validate(res.state_after) == [] and not res.degraded
 
 
-def test_segmented_and_resumed_mesh_runs_are_refused_naming_item_10c():
+def test_segmented_and_resumed_mesh_runs_match_the_one_launch_run():
     state = _state(seed=9, brokers=8, parts=96)
     se = ShardedEngine(state, DEFAULT_CHAIN, mesh=model_mesh(DEVS[:2]), config=CFG)
-    with pytest.raises(SegmentedMeshNotPortedError, match="item 10c"):
-        se.run(resume=object())
-    with segmented_execution(SegmentContext(1e-3)):
-        with pytest.raises(SegmentedMeshNotPortedError, match="item 10c"):
-            se.run()
-    assert validate(se.run()[0]) == []  # outside the context it runs
+    whole, _ = se.run()
+    snaps = []
+    ctx = SegmentContext(1e-3, snapshot_every=1, snapshot_sink=snaps.append)
+    with segmented_execution(ctx):
+        sliced, hist = se.run()
+    ctx.wait_snapshot()
+    assert hist[-1]["segmented"] is True and hist[-1]["segments"] >= 2
+    assert _same_placement(whole, sliced)
+    resumed, hist_r = se.run(resume=snaps[0])
+    assert hist_r[-1]["resumed_from_round"] == snaps[0].base
+    assert _same_placement(whole, resumed)
     se.release()
 
 
-def test_mesh_ft_enabled_is_refused_naming_item_10c():
-    from cruise_control_tpu_torch.analyzer.optimizer import MeshFtNotPortedError
-    from cruise_control_tpu_torch.config import ConfigException, CruiseControlConfig
+def test_mesh_ft_enabled_runs_the_ladder():
+    from cruise_control_tpu_torch.common.device_watchdog import DeviceSupervisor
+    from cruise_control_tpu_torch.config import CruiseControlConfig
     from cruise_control_tpu_torch.service.main import build_simulated_service
 
     on = CruiseControlConfig({"tpu.parallel.mode": "sharded"}).mesh_ft_controller()
     assert on.enabled
-    with pytest.raises(MeshFtNotPortedError, match="item 10c"):
-        GoalOptimizer(config=CFG, parallel_mode="sharded", device="cpu", mesh_max_devices=2,
-                      mesh_ft=on)
-    off = CruiseControlConfig({"tpu.parallel.mode": "sharded",
-                               "tpu.mesh.ft.enabled": False}).mesh_ft_controller()
-    assert GoalOptimizer(config=CFG, parallel_mode="sharded", device="cpu", mesh_max_devices=2,
-                         mesh_ft=off).parallel_mode == "sharded"
-    with pytest.raises(ConfigException, match="item 10c"):
-        build_simulated_service(CruiseControlConfig({"tpu.parallel.mode": "grid:2x2"}),
-                                device="cpu")
+    state = _state(seed=9, brokers=8, parts=96)
+    sup = DeviceSupervisor(op_timeout_s=120.0, max_retries=0, device="cpu")
+    opt = GoalOptimizer(config=CFG, parallel_mode="sharded", device="cpu", mesh_max_devices=2,
+                        mesh_ft=on, supervisor=sup)
+    assert opt.parallel_mode == "sharded" and opt._mesh_ft is on
+    res = opt.optimize(state)
+    plain = GoalOptimizer(config=CFG, parallel_mode="sharded", device="cpu",
+                          mesh_max_devices=2).optimize(state)
+    assert not res.degraded and _same_placement(res.state_after, plain.state_after)
+    assert not any(h.get("mesh_ft") for h in res.history)  # no degrade, no record
+    app, *_ = build_simulated_service(CruiseControlConfig({"tpu.parallel.mode": "grid:2x2",
+                                                           "tpu.mesh.max.devices": 4}),
+                                      device="cpu")
+    ft = app.cc.optimizer._mesh_ft
+    assert ft is not None and ft.enabled and app.cc.optimizer.parallel_mode == "grid:2x2"
+    app.cc.shutdown()
 
 
 def test_killed_rank_raises_a_typed_error_then_the_group_is_rebuilt():

@@ -5,8 +5,8 @@ test_controller_per_width_breakers_and_probe_lifecycle,
 test_controller_episode_fires_once_and_rearms_at_full_width,
 test_offer_snapshot_cadence_one_in_flight_and_off_path,
 test_config_mesh_ft_accessor_and_validation and
-test_mesh_degraded_anomaly_and_facade_detector.  The mesh engine layer and
-the tests that drive it wait for ROADMAP queue 1 item 10.
+test_mesh_degraded_anomaly_and_facade_detector.  The tests that drive a
+mesh are tests/test_torch_mesh_ft_ladder.py.
 """
 
 import threading

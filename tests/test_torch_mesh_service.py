@@ -8,6 +8,8 @@ gloo ranks (`tpu.mesh.max.devices` names the CPU's rank count); the JAX
 package's optimizer and service, on its virtual CPU devices capped at 4,
 give the same proposals, the same placements and the same balancedness;
 the goal-chain objectives within rtol 1e-6 (ROADMAP queue 3's CPU bars).
+Under the default `tpu.mesh.ft.enabled=true` (supervised, the width ladder
+armed) both services serve the same proposals too.
 """
 
 import dataclasses
@@ -95,6 +97,25 @@ def test_service_serves_mesh_proposals_like_jax(mode):
         assert timing["mesh_shape"] == ([1, 4] if mode == "sharded" else [2, 2])
         assert t_app.cc.optimizer.parallel_mode == mode
         assert t_app.cc.sensors.get("analyzer.mesh-runs").count == 1
+    finally:
+        t_app.cc.shutdown()
+        j_app.cc.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["sharded", "grid:2x2"])
+def test_service_with_mesh_ft_enabled_serves_like_jax(mode):
+    props = {k: v for k, v in PROPS.items() if k != "tpu.mesh.ft.enabled"}
+    props["tpu.parallel.mode"] = mode
+    t_app, *_ = t_build(TCCConfig(props), seed=3, device="cpu")
+    j_app, *_ = j_build(JCCConfig(props), seed=3)
+    try:
+        ft = t_app.cc.optimizer._mesh_ft
+        assert ft is not None and ft.enabled and t_app.cc.optimizer.supervisor is not None
+        t = t_app.cc.proposals(TProgress(), ignore_cache=True)
+        j = j_app.cc.proposals(JProgress(), ignore_cache=True)
+        _same_result(t, j)
+        assert not t.degraded and not any(h.get("mesh_ft") for h in t.history)
+        assert ft.state_json()["activeWidth"] == 4 and ft.episodes == 0
     finally:
         t_app.cc.shutdown()
         j_app.cc.shutdown()

@@ -8,8 +8,8 @@ the CPU.
   heals the same request answers 200.  No CPU answer stands in for the
   card's work (the "card" is the CPU read as another device, as in
   tests/test_torch_faults.py's `on_a_card`).
-- The mode not yet in the port (a parallel mode other than "single")
-  parses and is refused by the builders; `controller.enabled=true` builds
+- The mesh modes, once refused by the builders, build with mesh fault
+  tolerance on, in a service and a fleet; `controller.enabled=true` builds
   the streaming controller on the service's device, in a fleet too, and on
   the card (marked cuda) a reflatten and a fused cycle publish what
   /proposals serves.
@@ -32,7 +32,7 @@ import torch
 import cruise_control_tpu_torch.analyzer.optimizer as optimizer_mod
 from cruise_control_tpu_torch.analyzer import GoalOptimizer
 from cruise_control_tpu_torch.analyzer.engine import OptimizerConfig
-from cruise_control_tpu_torch.config import ConfigException, CruiseControlConfig
+from cruise_control_tpu_torch.config import CruiseControlConfig
 from cruise_control_tpu_torch.detector.anomalies import AnomalyType
 from cruise_control_tpu_torch.models.state import ClusterState
 from cruise_control_tpu_torch.service import main as service_main
@@ -139,13 +139,22 @@ def test_card_route_failure_answers_503_then_recovers(monkeypatch):
     ({"tpu.parallel.mode": "grid:2x2"}, "tpu.parallel.mode"),
 ])
 def test_builders_refuse_modes_not_yet_ported(props, key):
+    """The builders refused the mesh modes until they were ported (mesh
+    fault tolerance on by default, as in the JAX package); now they build
+    them: the service's optimizer runs the mode with its controller, and a
+    fleet builds too."""
+    props = {**props, "tpu.mesh.max.devices": 4}
     config = CruiseControlConfig({**PROPS, **props})  # parses, as in the JAX package
     assert config.get(key) not in ("single", False)
-    with pytest.raises(ConfigException, match=key) as e:
-        build_simulated_service(config, device="cpu")
-    assert "ROADMAP queue 1" in str(e.value)
-    with pytest.raises(ConfigException, match=key):
-        service_main.build_simulated_fleet(props, device="cpu")
+    app, *_ = build_simulated_service(config, device="cpu")
+    try:
+        opt = app.cc.optimizer
+        assert opt.parallel_mode == props[key]
+        assert opt._mesh_ft is not None and opt._mesh_ft.enabled
+    finally:
+        app.stop()
+    app, fleet = service_main.build_simulated_fleet(props, device="cpu")
+    assert all(fleet.facade(cid).optimizer.parallel_mode == props[key] for cid in fleet.contexts)
 
 
 def test_controller_enabled_builds_the_controller_on_the_service_device():
