@@ -6000,6 +6000,7 @@ SHARD_CASES = {
     "candidates_shard": ("candidates.cu", "cruise_control_tpu/parallel/model_shard.py:222"),
     "shard_sources": ("model_shard.cu", "cruise_control_tpu/parallel/model_shard.py:285"),
     "own_rows": ("model_shard.cu", "cruise_control_tpu/parallel/model_shard.py:196"),
+    "own_member_rows": ("model_shard.cu", "cruise_control_tpu/parallel/model_shard.py:231"),
     "own_parts": ("model_shard.cu", "cruise_control_tpu/parallel/model_shard.py:226"),
     "shard_prc": ("model_shard.cu", "cruise_control_tpu/models/aggregates.py:93"),
     "apply_moves_offsets": ("apply.cu", "cruise_control_tpu/parallel/model_shard.py:323"),
@@ -6049,8 +6050,8 @@ class ShardEmulation:
 
         eng = self.eng
         cp = eng.cand
-        max_rf, racks = eng.max_rf, eng.shape.num_racks
-        n_rs, pw = cp.K_r + 2 * cp.K_s, max_rf + racks
+        max_rf = eng.max_rf
+        n_rs = cp.K_r + 2 * cp.K_s
         ids = self.hop(lambda j, sx, c: ms_k.shard_sources(cp, cursor, self.plans[j], sx.gen,
                                                            self.blks[j], True))
         rows = self.hop(lambda j, sx, c: ms_k.own_rows(ids, ms_k.ROW_WORDS,
@@ -6058,13 +6059,41 @@ class ShardEmulation:
         parts = self.hop(lambda j, sx, c: ms_k.own_parts(rows.view(-1)[1:], int(ids.shape[0]),
                                                          ms_k.ROW_WORDS, sx.part_replicas,
                                                          c.part_rack_count, self.blks[j]))
-        mb = self.hop(lambda j, sx, c: ms_k.own_rows(parts, 1, ms_k.row_columns(sx.state, c),
-                                                     self.blks[j], m=max_rf, stride=pw, n=n_rs))
-        ml = self.hop(lambda j, sx, c: ms_k.own_rows(parts[n_rs:], ms_k.ROW_WORDS,
-                                                     ms_k.row_columns(sx.state, c), self.blks[j],
-                                                     m=max_rf, stride=pw, n=cp.K_l))
+        mrows = self.hop(lambda j, sx, c: ms_k.own_member_rows(parts, n_rs, max_rf,
+                                                               ms_k.row_columns(sx.state, c),
+                                                               self.blks[j]))
+        mb, ml = mrows[: n_rs * max_rf].view(-1, 1), mrows[n_rs * max_rf:].view(-1, ms_k.ROW_WORDS)
         return cand_k.ShardBundles(ids=ids, rows=rows, parts=parts, mb=mb, ml=ml,
                                    shape=eng.shape, row_words=ms_k.ROW_WORDS)
+
+
+def owned_rows(ids, blk) -> int:
+    """The distinct replica rows among `ids` that shard `blk` owns: the
+    rows an own-or-zero gather reads."""
+    import torch
+
+    li = ids.reshape(-1).long() - blk.r_off
+    return int(torch.unique(li[(li >= 0) & (li < blk.r_local)]).numel())
+
+
+def card_state() -> dict:
+    """The card's clock, power and temperature, the processes that hold it
+    (nvidia-smi, where it answers), and this process's live threads and
+    child processes."""
+    import multiprocessing
+
+    def smi_query(*args) -> list[str]:
+        try:
+            res = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"], capture_output=True,
+                                 text=True, timeout=30)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return [f"nvidia-smi failed: {e}"]
+        return res.stdout.strip().splitlines() or [res.stderr.strip()]
+
+    return dict(gpu=smi_query("--query-gpu=clocks.sm,power.draw,temperature.gpu"),
+                apps=smi_query("--query-compute-apps=pid,used_memory"),
+                threads=sorted(t.name for t in threading.enumerate()),
+                children=len(multiprocessing.active_children()))
 
 
 def check_model_shard_step(state, cfg, smi: str) -> dict:
@@ -6234,7 +6263,19 @@ def check_model_shard_step(state, cfg, smi: str) -> dict:
         own_parts=(ms_k.own_parts(sh.rows.view(-1)[1:], int(sh.ids.shape[0]), ms_k.ROW_WORDS,
                                   sx0.part_replicas, c0.part_rack_count, b0),
                    ms_k.own_parts_plain(sh.rows[:, 1], sx0.part_replicas, c0.part_rack_count, b0)),
+        own_member_rows=(ms_k.own_member_rows(sh.parts, n_rs, max_rf, cols0, b0),
+                         ms_k.own_member_rows_plain(sh.parts, n_rs, max_rf, cols0, b0)),
     )
+    # shard_sources with the CDF probed from global memory (a CDF past the
+    # shared-memory budget), on every shard
+    kept, cand_k.CDF_SMEM_MAX = cand_k.CDF_SMEM_MAX, 0
+    try:
+        for j in range(em.n):
+            pairs[f"shard_sources_global_cdf_j{j}"] = (
+                ms_k.shard_sources(cp, cursor, em.plans[j], em.views[j][0].gen, em.blks[j], True),
+                ms_k.shard_sources_plain(cp, keys, em.plans[j], em.views[j][0].gen, em.blks[j], True))
+    finally:
+        cand_k.CDF_SMEM_MAX = kept
     for name, (k, p) in pairs.items():
         out[f"{name}_kernel_equals_plain"] = bits_equal(k, p)
     bad = [k for k, v in out.items() if k.endswith("kernel_equals_plain") and not v]
@@ -6269,11 +6310,18 @@ def check_model_shard_step(state, cfg, smi: str) -> dict:
     out["launches"] = launched
     launches = dict(candidates_shard=launched.get("candidates_shard", 0),
                     shard_sources=launched.get("shard_sources", 0),
-                    own_rows=launched.get("own_rows", 0), own_parts=launched.get("own_parts", 0),
-                    shard_prc=launched.get("shard_prc", 0),
+                    own_rows=launched.get("own_rows", 0),
+                    own_member_rows=launched.get("own_member_rows", 0),
+                    own_parts=launched.get("own_parts", 0), shard_prc=launched.get("shard_prc", 0),
                     apply_moves_offsets=launched.get("apply_moves", 0),
                     refresh_aggregates_local=launched.get("refresh_aggregates", 0))
     check(all(v > 0 for v in launches.values()), f"a model-shard kernel did not launch: {launches}")
+    # the own_rows kernel: hop 2 and hop 4's one launch, a shard a step
+    out["own_rows_kernel_launches_per_shard_step"] = (
+        launches["own_rows"] + launches["own_member_rows"]) / len(em_l.blks)
+    check(out["own_rows_kernel_launches_per_shard_step"] == 2,
+          f"own_rows' kernel ran {out['own_rows_kernel_launches_per_shard_step']} launches a shard "
+          "a step, not 2")
     # times: a launch each (n = 4, shard 0), the plain version on the same
     # device inputs, the bound from the bytes each moves
     n_slots = int(sh.ids.shape[0])
@@ -6285,17 +6333,32 @@ def check_model_shard_step(state, cfg, smi: str) -> dict:
         # seconds of set-up, and they are yardsticks)
         k = measure(kfn)
         b_ms, b_by = bound(nb, ops)
-        rows[name] = dict(launches=launches[name], max_abs_err=err, ms=k["ms"],
+        rows[name] = dict(launches=launches[name], max_abs_err=err, ms=k["ms"], call_ms=k["call_ms"],
                           plain_ms=time_ms(pfn, 10), bound_ms=b_ms, bound_by=b_by,
                           library_ms=None if lib is None else time_ms(lib, 10))
 
-    words_rows = n_slots * ms_k.ROW_WORDS
+    # what else holds the card while phase 30 times its kernels (late in
+    # the whole script, `ms` has read up to 21x the kernels' times alone)
+    out["card_state"] = card_state()
+    row_b = 4 * ms_k.ROW_WORDS
+    # shard_sources: every slot's id written, an importance-sampled slot's
+    # four plan words and order row read, the CDF and the key row once;
+    # ~80 integer operations a threefry hash, ~70 for the CDF search
+    n_imp = cp.n_imp(cp.K_r, sp0) + cp.n_imp(cp.K_s, sp0)
     row("shard_sources", lambda: ms_k.shard_sources(cp, cursor, sp0, sx0.gen, b0, True),
         lambda: ms_k.shard_sources_plain(cp, keys, sp0, sx0.gen, b0, True),
-        4 * n_slots + 4 * 4 * s.B, 600.0 * n_slots)
+        4 * n_slots + 20 * n_imp + 4 * s.B + 4 * 48, 90.0 * (n_slots - n_imp) + 330.0 * n_imp)
+    # own_rows and own_member_rows: each id read, each owned row read once
+    # (its 18 words, or its broker), every word written
     row("own_rows", lambda: ms_k.own_rows(sh.ids, ms_k.ROW_WORDS, cols0, b0),
         lambda: ms_k.own_rows_plain(sh.ids, ms_k.ROW_WORDS, cols0, b0),
-        4 * n_slots + 2 * 4 * words_rows, float(words_rows))
+        4 * n_slots + row_b * owned_rows(sh.ids, b0) + row_b * n_slots, float(n_slots))
+    mids_b, mids_l = sh.parts[:n_rs, :max_rf], sh.parts[n_rs:, :max_rf]
+    row("own_member_rows", lambda: ms_k.own_member_rows(sh.parts, n_rs, max_rf, cols0, b0),
+        lambda: ms_k.own_member_rows_plain(sh.parts, n_rs, max_rf, cols0, b0),
+        4 * (mids_b.numel() + mids_l.numel()) + 4 * owned_rows(mids_b, b0)
+        + row_b * owned_rows(mids_l, b0) + 4 * mids_b.numel() + row_b * mids_l.numel(),
+        float(mids_b.numel() + mids_l.numel()))
     row("own_parts", lambda: ms_k.own_parts(sh.rows.view(-1)[1:], n_slots, ms_k.ROW_WORDS,
                                             sx0.part_replicas, c0.part_rack_count, b0),
         lambda: ms_k.own_parts_plain(sh.rows[:, 1], sx0.part_replicas, c0.part_rack_count, b0),

@@ -51,10 +51,12 @@ LAUNCHES: dict[str, int] = {
     "scatter_loads": 0,
     "scenario_step": 0,
     # the sharded-model mode's (kernels/model_shard.py; the candidates
-    # kernel's SHARD body counts as candidates_shard)
+    # kernel's SHARD body counts as candidates_shard, the own_rows
+    # kernel's hop-4 launch as own_member_rows)
     "candidates_shard": 0,
     "shard_sources": 0,
     "own_rows": 0,
+    "own_member_rows": 0,
     "own_parts": 0,
     "shard_prc": 0,
 }

@@ -18,18 +18,40 @@
 //    position (the grouped order is the shards' local groups in shard
 //    order: `below` counts a broker's replicas on lower shards), the
 //    replicated uniform draws are written by shard 0.
-//  own_rows: replica rows (kRowWords words, or the broker alone) of ids.
+//  own_rows: replica rows (kRowWords words) and brokers (one word) of ids,
+//    as two parts of one launch (hop 2 the rows alone, hop 4 both).
 //  own_parts: partition rows (member ids, then the rack cells) of ids.
 //  shard_prc: this shard's contribution to every partition x rack cell
 //    (atomic integer adds, so their order does not matter), reduce-
 //    scattered by the caller to each shard's own rows.
 //
-// Bound: latency of scattered 4- to 72-byte rows; a thread a (slot, word)
-// or a slot.  Nothing here is worth tensor cores or TMA.
+// Bound: the latency of a few dependent loads, not bytes or operations
+// (a step's bundles are a few MB).  So each kernel issues its loads as
+// early and as wide as the data lets it, and keeps a warp on one path:
+//  shard_sources: block ranges by kind, the importance-sampled slots
+//    first.  Every block reads the step's key row and the generation block
+//    once, into shared memory (cp.async).  An importance-sampled slot is
+//    a team of four lanes: lanes 0-2 hash its source, slot and fallback
+//    draws at once, the values reach the team by shuffles; the broker CDF
+//    is staged in shared memory while they hash (the blocks of these
+//    slots only, where 4 B <= CDF_SMEM_MAX, kernels/candidates.py), so the
+//    ~12 probes of the search run there; then the four lanes load count,
+//    below, count_local and start_local at the broker in one instruction,
+//    and one lane the order row.  A uniform slot is a thread: one hash, one
+//    store; on a shard other than 0 it stores a zero and reads nothing.
+//  own_rows: the broker words (hop 4's relocation and swap members) are a
+//    thread an id; a whole row is a thread an id that tests ownership, then
+//    issues its ten column loads and the two 16-byte load rows before any
+//    is used, and a warp's 32 rows leave through shared memory as 18
+//    coalesced stores.  Hop 4 is one launch: block ranges by part.
+// Nothing here is worth tensor cores or TMA.
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kRowWords = 18;  // kernels/model_shard.py ROW_FIELDS
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Key2 {
   uint32_t k0, k1;
@@ -44,9 +66,11 @@ struct StepKeys {
   Key2 lead;
   Key2 u;
 };
+constexpr int kKeyWords = sizeof(StepKeys) / sizeof(int);
 
 struct SourceArgs {
   int K_r, K_s, K_l, n_imp_r, n_imp_s, B, r_off, r_local, shard, step, steps_per_round;
+  int cdf_in_smem;          // the CDF fits the shared memory budget
   const StepKeys* key_table;
   const int* rnd;
   const float* cdf;         // [B] the broker CDF (replicated)
@@ -59,74 +83,157 @@ struct SourceArgs {
   int* out;                 // [K_r + 2 K_s + K_l]
 };
 
+constexpr int kSrcTeam = 4;                          // lanes of an importance-sampled slot
+constexpr int kImpPerBlock = kThreads / kSrcTeam;
+
 __device__ __forceinline__ float unit(const Key2& k, unsigned long long i) {
   return cc_unit_float(k.k0, k.k1, i);
 }
 
-// `_sample_sources` of draw i of a kind whose last n_imp draws are
-// importance-sampled; returns the id and whether this shard writes it.
-__device__ int source_of(const SourceArgs& a, const GenParams& g, const Key2* ks, int n, int n_imp,
-                         int i, bool& own) {
-  const int n_uni = n - n_imp;
-  if (i < n_uni) {
-    own = a.shard == 0;
-    return cc_uniform_idx(unit(ks[0], (unsigned long long)i), g.n_source);
+// The t-th uniformly drawn slot (the relocations' uniform head, the swap
+// sources', the swap partners, the leadership targets): its slot, its
+// draw's kind (0-3) and counter; -1 past the end.
+__device__ __forceinline__ int uniform_slot(const SourceArgs& a, int t, int& kind, int& i) {
+  const int nu_r = a.K_r - a.n_imp_r, nu_s = a.K_s - a.n_imp_s;
+  kind = 0, i = t;
+  if (t < nu_r) return t;
+  t -= nu_r, kind = 1, i = t;
+  if (t < nu_s) return a.K_r + t;
+  t -= nu_s, kind = 2, i = t;
+  if (t < a.K_s) return a.K_r + a.K_s + t;
+  t -= a.K_s, kind = 3, i = t;
+  return t < a.K_l ? a.K_r + 2 * a.K_s + t : -1;
+}
+
+// Blocks [0, nb_imp): the importance-sampled slots (`_sample_sources`'
+// two-stage draw, resolved by ownership of the group position), a team of
+// kSrcTeam lanes each; then the uniformly drawn slots, a thread each.
+__global__ void __launch_bounds__(kThreads) shard_sources_kernel(SourceArgs a) {
+  extern __shared__ float4 s_cdf4[];
+  __shared__ StepKeys s_keys;
+  __shared__ GenParams s_gen;
+  const int n_imp = a.n_imp_r + a.n_imp_s;
+  const int nb_imp = (n_imp + kImpPerBlock - 1) / kImpPerBlock;
+  const bool imp = (int)blockIdx.x < nb_imp;
+  if (!imp && a.shard != 0) {
+    // the uniform draws are written by shard 0 alone
+    int kind, i;
+    const int t = ((int)blockIdx.x - nb_imp) * kThreads + (int)threadIdx.x;
+    const int slot = uniform_slot(a, t, kind, i);
+    if (slot >= 0) a.out[slot] = 0;
+    return;
   }
-  const unsigned long long ii = (unsigned long long)(i - n_uni);
-  const float u_src = unit(ks[1], ii), u_slot = unit(ks[2], ii), u_fb = unit(ks[3], ii);
+  // the key row (after the round index) and the generation block, then
+  // the CDF in the importance blocks: two commit groups
+  if (threadIdx.x < 32) {
+    const int* row = reinterpret_cast<const int*>(
+        a.key_table + ((size_t)(*a.rnd) * a.steps_per_round + a.step));
+    if (threadIdx.x < kKeyWords) {
+      __pipeline_memcpy_async(reinterpret_cast<int*>(&s_keys) + threadIdx.x, row + threadIdx.x,
+                              sizeof(int));
+    }
+  } else if (threadIdx.x < 32 + kGenWords) {
+    const int w = threadIdx.x - 32;
+    __pipeline_memcpy_async(reinterpret_cast<int*>(&s_gen) + w, a.gen + w, sizeof(int));
+  }
+  __pipeline_commit();
+  const bool staged = imp && a.cdf_in_smem;
+  float* s_cdf = reinterpret_cast<float*>(s_cdf4);
+  if (staged) {
+    const int n4 = (reinterpret_cast<uintptr_t>(a.cdf) & 15) == 0 ? a.B >> 2 : 0;
+    for (int j = threadIdx.x; j < n4; j += kThreads) {
+      __pipeline_memcpy_async(s_cdf4 + j, reinterpret_cast<const float4*>(a.cdf) + j, 16);
+    }
+    for (int j = 4 * n4 + threadIdx.x; j < a.B; j += kThreads) {
+      __pipeline_memcpy_async(s_cdf + j, a.cdf + j, sizeof(float));
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(1);
+  __syncthreads();
+  if (!imp) {
+    int kind, i;
+    const int t = ((int)blockIdx.x - nb_imp) * kThreads + (int)threadIdx.x;
+    const int slot = uniform_slot(a, t, kind, i);
+    if (slot < 0) return;
+    const Key2& k = kind == 0 ? s_keys.rel_src[0]
+                    : kind == 1 ? s_keys.swap_src[0]
+                    : kind == 2 ? s_keys.swap_q
+                                : s_keys.lead;
+    a.out[slot] = cc_uniform_idx(unit(k, (unsigned long long)i), s_gen.n_source);
+    return;
+  }
+  // a team of lanes an importance-sampled slot; past the last slot a team
+  // repeats it and stores nothing, so every shuffle sees all 32 lanes
+  const int L = threadIdx.x & (kSrcTeam - 1);
+  const int base = (threadIdx.x & 31) & ~(kSrcTeam - 1);
+  const int v_raw = blockIdx.x * kImpPerBlock + threadIdx.x / kSrcTeam;
+  const bool on = v_raw < n_imp;
+  const int v = min(v_raw, n_imp - 1);
+  const bool rel = v < a.n_imp_r;
+  const int ii = rel ? v : v - a.n_imp_r;
+  const int slot = rel ? a.K_r - a.n_imp_r + ii : a.K_r + (a.K_s - a.n_imp_s) + ii;
+  const Key2* ks = rel ? s_keys.rel_src : s_keys.swap_src;
+  // lanes 0, 1, 2: the source's, the slot's and the fallback's draws
+  const float u = unit(ks[1 + min(L, 2)], (unsigned long long)ii);
+  const float u_src = __shfl_sync(kFull, u, base);
+  const float u_slot = __shfl_sync(kFull, u, base + 1);
+  const float u_fb = __shfl_sync(kFull, u, base + 2);
+  if (staged) {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  const float* cdf = staged ? s_cdf : a.cdf;
+  // torch.searchsorted(right=True): the first index whose value is > u
   int lo = 0, hi = a.B;
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (!(a.cdf[mid] > u_src)) {
+    if (!(cdf[mid] > u_src)) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  const int bsel = max(0, min(lo, g.n_brokers - 1));
-  const int cnt = a.count[bsel];
+  const int bsel = max(0, min(lo, s_gen.n_brokers - 1));
+  // the broker's four plan words, a lane each, in one load instruction
+  const int* col = L == 0 ? a.count : L == 1 ? a.below : L == 2 ? a.count_local : a.start_local;
+  const int x = col[bsel];
+  const int cnt = __shfl_sync(kFull, x, base);
+  const int below = __shfl_sync(kFull, x, base + 1);
+  const int cnt_local = __shfl_sync(kFull, x, base + 2);
+  const int start = __shfl_sync(kFull, x, base + 3);
+  if (!on || L != 0) return;
+  int id = 0;
   if (cnt <= 0) {
-    own = a.shard == 0;
-    return cc_uniform_idx(u_fb, g.n_source);
-  }
-  const int j = __float2int_rz(__fmul_rn(u_slot, (float)cnt));
-  const int lj = j - a.below[bsel];
-  own = lj >= 0 && lj < a.count_local[bsel];
-  if (!own) return 0;
-  const int slot = max(0, min(a.start_local[bsel] + lj, a.r_local - 1));
-  return a.order_local[slot] + a.r_off;
-}
-
-__global__ void shard_sources_kernel(SourceArgs a) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = a.K_r + 2 * a.K_s + a.K_l;
-  if (k >= n) return;
-  const GenParams& g = *reinterpret_cast<const GenParams*>(a.gen);
-  const StepKeys& ks = a.key_table[(size_t)(*a.rnd) * a.steps_per_round + a.step];
-  bool own = false;
-  int id;
-  if (k < a.K_r) {
-    id = source_of(a, g, ks.rel_src, a.K_r, a.n_imp_r, k, own);
-  } else if (k < a.K_r + a.K_s) {
-    id = source_of(a, g, ks.swap_src, a.K_s, a.n_imp_s, k - a.K_r, own);
-  } else if (k < a.K_r + 2 * a.K_s) {
-    own = a.shard == 0;
-    id = cc_uniform_idx(unit(ks.swap_q, (unsigned long long)(k - a.K_r - a.K_s)), g.n_source);
+    if (a.shard == 0) id = cc_uniform_idx(u_fb, s_gen.n_source);
   } else {
-    own = a.shard == 0;
-    id = cc_uniform_idx(unit(ks.lead, (unsigned long long)(k - a.K_r - 2 * a.K_s)), g.n_source);
+    const int lj = __float2int_rz(__fmul_rn(u_slot, (float)cnt)) - below;
+    if (lj >= 0 && lj < cnt_local) {
+      id = a.order_local[max(0, min(start + lj, a.r_local - 1))] + a.r_off;
+    }
   }
-  a.out[k] = own ? id : 0;
+  a.out[slot] = id;
 }
 
 CC_EXPORT int cc_shard_sources(SourceArgs a, void* stream) {
   const long long n = (long long)a.K_r + 2LL * a.K_s + a.K_l;
   if (n <= 0) return 0;
-  if (a.gen == nullptr || a.key_table == nullptr || a.rnd == nullptr ||
-      ((a.n_imp_r > 0 || a.n_imp_s > 0) && (a.cdf == nullptr || a.count == nullptr))) {
+  const int n_imp = a.n_imp_r + a.n_imp_s;
+  if (a.gen == nullptr || a.key_table == nullptr || a.rnd == nullptr || a.n_imp_r < 0 ||
+      a.n_imp_s < 0 || a.n_imp_r > a.K_r || a.n_imp_s > a.K_s ||
+      (n_imp > 0 && (a.cdf == nullptr || a.count == nullptr || a.count_local == nullptr ||
+                     a.below == nullptr || a.start_local == nullptr ||
+                     a.order_local == nullptr || a.B <= 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  shard_sources_kernel<<<cc_blocks(n, kThreads), kThreads, 0, (cudaStream_t)stream>>>(a);
+  const size_t smem = a.cdf_in_smem && n_imp > 0 ? sizeof(float) * (size_t)a.B : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        shard_sources_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned int blocks = cc_blocks(n_imp, kImpPerBlock) + cc_blocks(n - n_imp, kThreads);
+  shard_sources_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -142,56 +249,107 @@ struct RowSrc {
   const int* orig_broker;
   const bool* orig_lead;
   const int* orig_disk;
-  const float* load_leader;    // [Rl, 4]
+  const float* load_leader;    // [Rl, 4], 16-byte rows
   const float* load_follower;  // [Rl, 4]
 };
 
-struct RowArgs {
-  int n;          // rows requested
-  int m;          // ids a request row (ids[(k / m) * stride + k % m])
-  int stride;
-  int words;      // kRowWords, or 1 (the broker alone)
-  int r_off, r_local;
+// One part of a launch: the ids of n request rows, m ids a row
+// (ids[(k / m) * stride + k % m]), and where their words go.
+struct RowPart {
+  int n, m, stride;
   const int* ids;
-  RowSrc src;
-  int* out;       // [n * m, words]
+  int* out;  // [n * m, words]
 };
 
-__device__ __forceinline__ int row_word(const RowSrc& s, int li, int w) {
-  switch (w) {
-    case 0: return s.broker[li];
-    case 1: return s.part[li];
-    case 2: return s.disk[li];
-    case 3: return s.topic[li];
-    case 4: return s.valid[li] ? 1 : 0;
-    case 5: return s.lead[li] ? 1 : 0;
-    case 6: return s.pos[li];
-    case 7: return s.orig_broker[li];
-    case 8: return s.orig_lead[li] ? 1 : 0;
-    case 9: return s.orig_disk[li];
-    default:
-      return w < 14 ? __float_as_int(s.load_leader[(size_t)li * 4 + (w - 10)])
-                    : __float_as_int(s.load_follower[(size_t)li * 4 + (w - 14)]);
+struct RowArgs {
+  int r_off, r_local;
+  RowSrc src;
+  RowPart brokers;  // one word an id: the broker
+  RowPart rows;     // kRowWords an id
+};
+
+constexpr int kRowThreads = 128;
+constexpr int kPitch = kRowWords + 1;  // a row's words in shared memory (no bank conflicts)
+
+__device__ __forceinline__ int local_row(const RowArgs& a, const RowPart& p, int k) {
+  return p.ids[(k / p.m) * p.stride + k % p.m] - a.r_off;
+}
+
+// Blocks [0, nb_b): the broker part, a thread an id; then the row part, a
+// thread an id, a warp's 32 rows stored through shared memory.
+__global__ void __launch_bounds__(kRowThreads) own_rows_kernel(RowArgs a) {
+  __shared__ int s_rows[kRowThreads * kPitch];
+  const int total_b = a.brokers.n * a.brokers.m;
+  const int nb_b = (total_b + kRowThreads - 1) / kRowThreads;
+  if ((int)blockIdx.x < nb_b) {
+    const int k = blockIdx.x * kRowThreads + threadIdx.x;
+    if (k >= total_b) return;
+    const int li = local_row(a, a.brokers, k);
+    a.brokers.out[k] = li >= 0 && li < a.r_local ? a.src.broker[li] : 0;
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int total = a.rows.n * a.rows.m;
+  const int k0 = ((int)blockIdx.x - nb_b) * kRowThreads + warp * 32;
+  const int k = k0 + lane;
+  int v[kRowWords];
+#pragma unroll
+  for (int w = 0; w < kRowWords; ++w) v[w] = 0;
+  const int li = k < total ? local_row(a, a.rows, k) : -1;
+  if (li >= 0 && li < a.r_local) {
+    // every load issued before any value is used
+    const RowSrc& s = a.src;
+    const float4 ll = reinterpret_cast<const float4*>(s.load_leader)[li];
+    const float4 lf = reinterpret_cast<const float4*>(s.load_follower)[li];
+    v[0] = s.broker[li];
+    v[1] = s.part[li];
+    v[2] = s.disk[li];
+    v[3] = s.topic[li];
+    v[4] = s.valid[li] ? 1 : 0;
+    v[5] = s.lead[li] ? 1 : 0;
+    v[6] = s.pos[li];
+    v[7] = s.orig_broker[li];
+    v[8] = s.orig_lead[li] ? 1 : 0;
+    v[9] = s.orig_disk[li];
+    v[10] = __float_as_int(ll.x);
+    v[11] = __float_as_int(ll.y);
+    v[12] = __float_as_int(ll.z);
+    v[13] = __float_as_int(ll.w);
+    v[14] = __float_as_int(lf.x);
+    v[15] = __float_as_int(lf.y);
+    v[16] = __float_as_int(lf.z);
+    v[17] = __float_as_int(lf.w);
+  }
+  int* sw = s_rows + warp * 32 * kPitch;
+#pragma unroll
+  for (int w = 0; w < kRowWords; ++w) sw[lane * kPitch + w] = v[w];
+  __syncwarp();
+  // the warp's rows are kRowWords * 32 consecutive words of the output
+  const int words = min(32, total - k0) * kRowWords;
+  int* out = a.rows.out + (size_t)k0 * kRowWords;
+#pragma unroll
+  for (int j = 0; j < kRowWords; ++j) {
+    const int f = j * 32 + lane;
+    if (f < words) out[f] = sw[(f / kRowWords) * kPitch + f % kRowWords];
   }
 }
 
-// a thread a (row, word)
-__global__ void own_rows_kernel(RowArgs a) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)a.n * a.m * a.words;
-  if (t >= total) return;
-  const long long k = t / a.words;
-  const int w = (int)(t - k * a.words);
-  const int id = a.ids[(k / a.m) * a.stride + k % a.m];
-  const int li = id - a.r_off;
-  a.out[t] = li >= 0 && li < a.r_local ? row_word(a.src, li, w) : 0;
+__host__ static bool part_ok(const RowPart& p, long long& total) {
+  total = (long long)p.n * p.m;
+  if (p.n < 0 || p.m < 0 || total > (1LL << 31) / kRowWords) return false;
+  return total == 0 || (p.ids != nullptr && p.out != nullptr && p.m >= 1 && p.stride >= p.m);
 }
 
 CC_EXPORT int cc_own_rows(RowArgs a, void* stream) {
-  const long long total = (long long)a.n * a.m * a.words;
-  if (total <= 0) return 0;
-  if (a.words != kRowWords && a.words != 1) return (int)cudaErrorInvalidValue;
-  own_rows_kernel<<<cc_blocks(total, kThreads), kThreads, 0, (cudaStream_t)stream>>>(a);
+  long long nb, nr;
+  if (!part_ok(a.brokers, nb) || !part_ok(a.rows, nr)) return (int)cudaErrorInvalidValue;
+  if (nb + nr == 0) return 0;
+  if (nr > 0 && ((reinterpret_cast<uintptr_t>(a.src.load_leader) |
+                  reinterpret_cast<uintptr_t>(a.src.load_follower)) & 15) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  const unsigned int blocks = cc_blocks(nb, kRowThreads) + cc_blocks(nr, kRowThreads);
+  own_rows_kernel<<<blocks, kRowThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

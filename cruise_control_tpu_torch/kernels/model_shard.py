@@ -26,9 +26,10 @@ the swaps' sources, the swaps' partners, the leadership targets; `slots`):
   3. `own_parts`: their partitions' rows: the member ids, then every rack's
      cell (the whole row: the destination of a relocation is not known
      before its body runs).
-  4. `own_rows` again, one bundle: the members' brokers (relocation and
-     swap slots) and the leadership targets' members' whole rows (the
-     partition's leader and its row).
+  4. `own_member_rows`, one launch of the `own_rows` kernel into one
+     bundle: the members' brokers (relocation and swap slots) and the
+     leadership targets' members' whole rows (the partition's leader and
+     its row).
 
 Then the candidates kernel's body reads the assembled bundles in place of
 the global arrays (csrc/candidates.cu SHARD).  Per round, `shard_prc` adds
@@ -36,9 +37,11 @@ this shard's rows into every partition x rack cell, which a reduce_scatter
 leaves on each shard's own rows.
 
 Bound on the card: latency; each kernel moves a step's few MB (the rows of
-K ids) once, a thread a word, and a step's time is its four all_reduces
-and the launches between them.  The plain versions are the same functions
-in PyTorch ops, which the CPU tests run over gloo.
+K ids) once, and a step's time is its four all_reduces and the launches
+between them.  `shard_sources` and `own_rows` issue their loads together
+and keep a warp on one path (csrc/model_shard.cu's note); `own_parts` and
+`shard_prc` run a thread a word and a row.  The plain versions are the
+same functions in PyTorch ops, which the CPU tests run over gloo.
 """
 
 from __future__ import annotations
@@ -162,6 +165,17 @@ def own_rows_plain(ids: torch.Tensor, words: int, cols: dict, blk: Block) -> tor
     return torch.where(own[:, None], out, 0)
 
 
+def own_member_rows_plain(parts: torch.Tensor, n_rs: int, max_rf: int, cols: dict,
+                          blk: Block) -> torch.Tensor:
+    """i32[n_rs max_rf + (n - n_rs) max_rf ROW_WORDS], hop 4's bundle: the
+    brokers of the members of the first n_rs rows of `parts` (i32[n, pw],
+    the member ids first), then the whole rows of the other rows' members,
+    own-or-zero (`own_rows_plain` of each, one after the other)."""
+    mb = own_rows_plain(parts[:n_rs, :max_rf], 1, cols, blk)
+    ml = own_rows_plain(parts[n_rs:, :max_rf], ROW_WORDS, cols, blk)
+    return torch.cat([mb.reshape(-1), ml.reshape(-1)])
+
+
 def own_parts_plain(parts: torch.Tensor, members: torch.Tensor, prc: torch.Tensor,
                     blk: Block) -> torch.Tensor:
     """i32[n, max_rf + racks]: each partition id's member ids and rack cells
@@ -192,7 +206,7 @@ def shard_prc_plain(st, replica_broker, num_parts: int) -> torch.Tensor:
 class _SourceArgs(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in (
         "K_r", "K_s", "K_l", "n_imp_r", "n_imp_s", "B", "r_off", "r_local", "shard", "step",
-        "steps_per_round")] + [(f, ctypes.c_void_p) for f in (
+        "steps_per_round", "cdf_in_smem")] + [(f, ctypes.c_void_p) for f in (
         "key_table", "rnd", "cdf", "count", "count_local", "below", "start_local", "order_local",
         "gen", "out")]
 
@@ -203,9 +217,14 @@ class _RowSrc(ctypes.Structure):
         "orig_disk", "load_leader", "load_follower")]
 
 
+class _RowPart(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("n", "m", "stride")] + [
+        (f, ctypes.c_void_p) for f in ("ids", "out")]
+
+
 class _RowArgs(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_int) for f in ("n", "m", "stride", "words", "r_off", "r_local")] + [
-        ("ids", ctypes.c_void_p), ("src", _RowSrc), ("out", ctypes.c_void_p)]
+    _fields_ = [("r_off", ctypes.c_int), ("r_local", ctypes.c_int), ("src", _RowSrc),
+                ("brokers", _RowPart), ("rows", _RowPart)]
 
 
 class _PartArgs(ctypes.Structure):
@@ -249,17 +268,17 @@ def shard_sources(cp, keys, sp, gen, blk: Block, has_plan: bool, out: torch.Tens
     """Hop 1 (see the module note): `keys` a StepKeys (CPU) or a
     KeyCursor (the kernel reads its row at the device's round index), `sp`
     the round's ShardPlan, `out` i32[slots n] (allocated when None)."""
-    from cruise_control_tpu_torch.kernels.candidates import KeyCursor
+    from cruise_control_tpu_torch.kernels import candidates as cand_k
 
     n = slots(cp.K_r, cp.K_s, cp.K_l)["n"]
     dev = sp.count.device
     if kernels.route(sp.count, gen.words) == "cpu":
-        if isinstance(keys, KeyCursor):
+        if isinstance(keys, cand_k.KeyCursor):
             keys = keys.step_keys()
         res = shard_sources_plain(cp, keys, sp, gen, blk, has_plan)
         return res if out is None else out.copy_(res)
-    if not isinstance(keys, KeyCursor):
-        keys = KeyCursor.of(keys, dev)
+    if not isinstance(keys, cand_k.KeyCursor):
+        keys = cand_k.KeyCursor.of(keys, dev)
     if cp.prior or cp.intra:
         raise ValueError("model_shard: the card's sharded-model step runs the default kinds only "
                          "(no learned prior, no intra-broker moves)")
@@ -271,6 +290,7 @@ def shard_sources(cp, keys, sp, gen, blk: Block, has_plan: bool, out: torch.Tens
         K_r=cp.K_r, K_s=cp.K_s, K_l=cp.K_l, n_imp_r=cp.n_imp(cp.K_r, plan),
         n_imp_s=cp.n_imp(cp.K_s, plan), B=B, r_off=blk.r_off, r_local=blk.r_local, shard=blk.j,
         step=keys.step, steps_per_round=keys.steps_per_round,
+        cdf_in_smem=int(4 * B <= cand_k.CDF_SMEM_MAX),
         key_table=_need("key_table", keys.table, i32, tuple(keys.table.shape)),
         rnd=_need("rnd", keys.rnd, i32, (1,)),
         cdf=_need("broker_cdf", sp.broker_cdf, f32, (B,)),
@@ -287,10 +307,30 @@ def shard_sources(cp, keys, sp, gen, blk: Block, has_plan: bool, out: torch.Tens
     return out
 
 
+def _row_src(cols: dict, blk: Block) -> _RowSrc:
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    Rl = blk.r_local
+    types = dict(valid=b8, lead=b8, orig_lead=b8)
+    src = _RowSrc(**{f: _need(f, cols[f], types.get(f, i32), (Rl,)) for f in (
+        "broker", "part", "disk", "topic", "valid", "lead", "pos", "orig_broker", "orig_lead",
+        "orig_disk")}, load_leader=_need("load_leader", cols["load_leader"], f32, (Rl, 4)),
+        load_follower=_need("load_follower", cols["load_follower"], f32, (Rl, 4)))
+    if (src.load_leader or 0) % 16 or (src.load_follower or 0) % 16:
+        raise ValueError("model_shard: the load rows must start on 16 bytes (a float4 a row)")
+    return src
+
+
+def _row_part(ids: torch.Tensor, n: int, m: int, stride: int, out: torch.Tensor) -> _RowPart:
+    if not ids.is_contiguous() or ids.dtype != torch.int32 or (
+            n and ids.numel() < (n - 1) * stride + m):
+        raise ValueError("model_shard: own_rows' ids must be a contiguous i32 buffer holding the rows")
+    return _RowPart(n=n, m=m, stride=stride, ids=ids.data_ptr(), out=out.data_ptr())
+
+
 def own_rows(ids: torch.Tensor, words: int, cols: dict, blk: Block, *, m: int = 1,
              stride: int = 1, n: int | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Hops 2 and 4: i32[n * m, words] rows of ids[(k // m) * stride + k % m]
-    (all of a 1-D `ids` by default)."""
+    """Hop 2: i32[n * m, words] rows of ids[(k // m) * stride + k % m]
+    (all of a 1-D `ids` by default), words = ROW_WORDS or 1 (the broker)."""
     if words not in (1, ROW_WORDS):
         raise ValueError(f"model_shard: a row is 1 or {ROW_WORDS} words, got {words}")
     if n is None:
@@ -300,19 +340,43 @@ def own_rows(ids: torch.Tensor, words: int, cols: dict, blk: Block, *, m: int = 
         res = own_rows_plain(sel, words, cols, blk)
         return res if out is None else out.copy_(res)
     out = torch.empty((n * m, words), dtype=torch.int32, device=ids.device) if out is None else out
-    i32, f32, b8 = torch.int32, torch.float32, torch.bool
-    Rl = blk.r_local
-    types = dict(valid=b8, lead=b8, orig_lead=b8)
-    src = _RowSrc(**{f: _need(f, cols[f], types.get(f, i32), (Rl,)) for f in (
-        "broker", "part", "disk", "topic", "valid", "lead", "pos", "orig_broker", "orig_lead",
-        "orig_disk")}, load_leader=_need("load_leader", cols["load_leader"], f32, (Rl, 4)),
-        load_follower=_need("load_follower", cols["load_follower"], f32, (Rl, 4)))
-    if not ids.is_contiguous() or ids.dtype != i32 or ids.numel() < (n - 1) * stride + m:
-        raise ValueError("model_shard: own_rows' ids must be a contiguous i32 buffer holding the rows")
-    args = _RowArgs(n=n, m=m, stride=stride, words=words, r_off=blk.r_off, r_local=Rl,
-                    ids=ids.data_ptr(), src=src, out=_need("out", out, i32, (n * m, words)))
+    _need("out", out, torch.int32, (n * m, words))
+    if n * m == 0:
+        return out
+    part = _row_part(ids, n, m, stride, out)
+    none = _RowPart(n=0, m=1, stride=1)
+    args = _RowArgs(r_off=blk.r_off, r_local=blk.r_local, src=_row_src(cols, blk),
+                    brokers=part if words == 1 else none, rows=none if words == 1 else part)
     _build.check(_fns()["cc_own_rows"](args, _stream(out)), "own_rows")
     kernels.count("own_rows")
+    return out
+
+
+def own_member_rows(parts: torch.Tensor, n_rs: int, max_rf: int, cols: dict, blk: Block,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Hop 4 in one launch of the own_rows kernel (`own_member_rows_plain`):
+    `parts` i32[n, pw] hop 3's bundle, the member ids in its first max_rf
+    words; the brokers of the first n_rs rows' members, then the whole
+    rows of the other n - n_rs rows' members, into one flat bundle."""
+    n, pw = int(parts.shape[0]), int(parts.shape[1])
+    if not 0 <= n_rs <= n or not 0 < max_rf <= pw:
+        raise ValueError(f"model_shard: hop 4 takes 0 <= n_rs <= {n} rows of {max_rf} <= {pw} "
+                         f"members, got n_rs={n_rs}, max_rf={max_rf}")
+    size = n_rs * max_rf + (n - n_rs) * max_rf * ROW_WORDS
+    if kernels.route(parts, cols["broker"]) == "cpu":
+        res = own_member_rows_plain(parts, n_rs, max_rf, cols, blk)
+        return res if out is None else out.copy_(res)
+    out = torch.empty(size, dtype=torch.int32, device=parts.device) if out is None else out
+    _need("out", out, torch.int32, (size,))
+    if size == 0:
+        return out
+    flat = parts.reshape(-1)
+    mb = out[: n_rs * max_rf]
+    args = _RowArgs(r_off=blk.r_off, r_local=blk.r_local, src=_row_src(cols, blk),
+                    brokers=_row_part(flat, n_rs, max_rf, pw, mb),
+                    rows=_row_part(flat[n_rs * pw:], n - n_rs, max_rf, pw, out[n_rs * max_rf:]))
+    _build.check(_fns()["cc_own_rows"](args, _stream(out)), "own_rows")
+    kernels.count("own_member_rows")
     return out
 
 

@@ -19,12 +19,12 @@ its member table global replica ids.
 A step (`_step`): the draws come from the replicated key, as the plain
 engine's do; each row the candidates need is resolved by ownership in
 four hops (kernels/model_shard.py: source ids, their rows, their
-partitions' rows, the members' rows), each an own-or-zero gather kernel
-and one all_reduce over the row's process group; then the candidates
-kernel's body reads the assembled bundles (csrc/candidates.cu SHARD),
-`select_survivors` runs replicated over the K columns (global partition
-ids), and `apply_moves` writes this shard's rows only (its row offsets)
-while every shard's broker, host and topic aggregates take every
+partitions' rows, the members' rows), each one launch of an own-or-zero
+gather kernel and one all_reduce over the row's process group; then the
+candidates kernel's body reads the assembled bundles (csrc/candidates.cu
+SHARD), `select_survivors` runs replicated over the K columns (global
+partition ids), and `apply_moves` writes this shard's rows only (its row
+offsets) while every shard's broker, host and topic aggregates take every
 survivor.  A round (`refresh`): the aggregates of the local rows, whose
 broker, topic and disk sums are all_reduced; the partition x rack cells
 of the local rows counted into all P rows (`shard_prc`) and reduce-
@@ -340,7 +340,6 @@ class ModelShardEngine(RankEngine):
         cols = ms_k.row_columns(st, carry)
         max_rf = self.max_rf
         n_rs = self.K_r + 2 * self.K_s
-        pw = max_rf + self.shape.num_racks
         ms_k.shard_sources(self.cand, keys, sp, self.statics.gen, blk, True, out=b["ids"])
         all_reduce_sum(b["ids"], row)
         ms_k.own_rows(b["ids"], ms_k.ROW_WORDS, cols, blk, out=b["rows"])
@@ -348,11 +347,7 @@ class ModelShardEngine(RankEngine):
         ms_k.own_parts(b["rows"].view(-1)[1:], int(b["ids"].shape[0]), ms_k.ROW_WORDS,
                        self.statics.part_replicas, carry.part_rack_count, blk, out=b["parts"])
         all_reduce_sum(b["parts"], row)
-        if n_rs:
-            ms_k.own_rows(b["parts"], 1, cols, blk, m=max_rf, stride=pw, n=n_rs, out=b["mb"])
-        if self.K_l:
-            ms_k.own_rows(b["parts"][n_rs:], ms_k.ROW_WORDS, cols, blk, m=max_rf, stride=pw,
-                          n=self.K_l, out=b["ml"])
+        ms_k.own_member_rows(b["parts"], n_rs, max_rf, cols, blk, out=b["mrows"])
         all_reduce_sum(b["mrows"], row)
         return cand_k.ShardBundles(ids=b["ids"], rows=b["rows"], parts=b["parts"], mb=b["mb"],
                                    ml=b["ml"], shape=self.gshape, row_words=ms_k.ROW_WORDS)

@@ -175,5 +175,6 @@ def test_cpu_step_launches_no_kernel():
                                      "select_survivors", "apply_moves", "group_by_broker",
                                      "refresh_aggregates", "step_globals", "round_schedule",
                                      "scatter_loads", "scenario_step", "candidates_shard",
-                                     "shard_sources", "own_rows", "own_parts", "shard_prc"}
+                                     "shard_sources", "own_rows", "own_member_rows", "own_parts",
+                                     "shard_prc"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -51,7 +51,12 @@ behind, releases the capture lock, and the next run captures anew; a
 supervised optimize with an injected OOM raises `DeviceDegradedError`
 (no answer from the CPU), and after the probe the unsupervised run bit
 for bit; a call abandoned at its deadline while the card spins holds the
-breaker open until its worker returns.
+breaker open until its worker returns.  The sharded-model mode's gathers
+byte for byte their plain versions on every shard for n = 1, 2 and 4:
+hop 4's one launch (also without leadership rows or without relocation
+and swap rows), ids at and past a shard's first and last rows, and
+`shard_sources` with the CDF in shared memory and in global memory and
+with importance draws of brokers that hold no replica.
 """
 
 import dataclasses
@@ -2209,6 +2214,38 @@ def test_mesh_over_nccl_matches_the_plain_engine(cuda):
         close_rank_groups()
 
 
+def _shard_setup(cuda, n: int):
+    """A small cluster padded for n model shards on the card: its engine,
+    first carry, plan and step keys, and the n shards' blocks, views and
+    sampling plans."""
+    from types import SimpleNamespace
+
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+    from cruise_control_tpu_torch.kernels.group import group_placement
+    from cruise_control_tpu_torch.models.builder import pad_state
+    from cruise_control_tpu_torch.models.sharding import shard_multiple_shape
+    from cruise_control_tpu_torch.parallel.model_shard import ShardPlan, shard_views
+
+    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
+                           device=cuda)
+    eng = Engine(pad_state(state, shard_multiple_shape(state.shape, n)), DEFAULT_CHAIN, config=CFG)
+    carry = eng.init_carry(Key.from_seed(3))
+    plan = eng.plan(carry)
+    s = eng.shape
+    keys = cand_k.StepKeys.of(carry.key)
+    blks = [ms_k.Block.of(s.R, s.P, j, n) for j in range(n)]
+    views = [shard_views(eng.statics, carry, b) for b in blks]
+    groups = [group_placement(c.replica_broker, sx.state.replica_valid, s.B) for sx, c in views]
+    counts = torch.stack([gp.count for gp in groups])
+    plans = [ShardPlan(broker_cdf=plan.broker_cdf, order=gp.order, start=gp.start, count=plan.count,
+                       count_local=gp.count, below=counts[:j].sum(0).to(torch.int32),
+                       start_global=plan.start, replica_cost=plan.replica_cost,
+                       lead_cost=plan.lead_cost) for j, gp in enumerate(groups)]
+    return SimpleNamespace(eng=eng, carry=carry, plan=plan, keys=keys,
+                           cursor=cand_k.KeyCursor.of(keys, cuda), blks=blks, views=views,
+                           plans=plans, whole=ms_k.Block(0, s.R, 0, s.P, 0, 1))
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_model_shard_kernels_against_the_whole_model(cuda, n):
     """The sharded-model mode's kernels (kernels/model_shard.py, the
@@ -2218,31 +2255,14 @@ def test_model_shard_kernels_against_the_whole_model(cuda, n):
     plain version bit for bit, each shard's offset apply its block of the
     whole apply."""
     from cruise_control_tpu_torch.kernels import model_shard as ms_k
-    from cruise_control_tpu_torch.kernels.group import group_placement
-    from cruise_control_tpu_torch.models.builder import pad_state
-    from cruise_control_tpu_torch.models.sharding import shard_multiple_shape
-    from cruise_control_tpu_torch.parallel.model_shard import ShardPlan, shard_views
 
-    state = random_cluster(RandomClusterSpec(num_brokers=20, num_partitions=400, skew=1.0), seed=2,
-                           device=cuda)
-    state = pad_state(state, shard_multiple_shape(state.shape, n))
-    eng = Engine(state, DEFAULT_CHAIN, config=CFG)
-    carry = eng.init_carry(Key.from_seed(3))
-    plan = eng.plan(carry)
+    t = _shard_setup(cuda, n)
+    eng, carry, plan, keys, cursor = t.eng, t.carry, t.plan, t.keys, t.cursor
+    blks, views, plans = t.blks, t.views, t.plans
     g = eng._globals(carry)
-    keys = cand_k.StepKeys.of(carry.key)
-    cursor = cand_k.KeyCursor.of(keys, cuda)
     temp = torch.full((1,), 0.5, device=cuda)
     cp, s = eng.cand, eng.shape
     full = cand_k.candidates(cp, eng.statics, carry, cursor, g, plan, temp)
-    blks = [ms_k.Block.of(s.R, s.P, j, n) for j in range(n)]
-    views = [shard_views(eng.statics, carry, b) for b in blks]
-    groups = [group_placement(c.replica_broker, sx.state.replica_valid, s.B) for sx, c in views]
-    counts = torch.stack([gp.count for gp in groups])
-    plans = [ShardPlan(broker_cdf=plan.broker_cdf, order=gp.order, start=gp.start, count=plan.count,
-                       count_local=gp.count, below=counts[:j].sum(0).to(torch.int32),
-                       start_global=plan.start, replica_cost=plan.replica_cost,
-                       lead_cost=plan.lead_cost) for j, gp in enumerate(groups)]
 
     def hop(fn, plain):
         out = None
@@ -2296,4 +2316,123 @@ def test_model_shard_kernels_against_the_whole_model(cuda, n):
         assert torch.equal(c.broker_load.view(torch.int32), whole.broker_load.view(torch.int32))
         prc = ms_k.shard_prc(sx.state, c_j.replica_broker, s.P)
         assert torch.equal(prc, ms_k.shard_prc_plain(sx.state, c_j.replica_broker, s.P))
+    torch.cuda.synchronize()
+
+
+def _hop3_bundles(t):
+    """The assembled ids, rows and parts of the setup's emulated step."""
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+
+    cp = t.eng.cand
+    ids = sum(ms_k.shard_sources(cp, t.cursor, t.plans[j], sx.gen, t.blks[j], True)
+              for j, (sx, _c) in enumerate(t.views))
+    rows = sum(ms_k.own_rows(ids, ms_k.ROW_WORDS, ms_k.row_columns(sx.state, c), t.blks[j])
+               for j, (sx, c) in enumerate(t.views))
+    parts = sum(ms_k.own_parts(rows.view(-1)[1:], int(ids.shape[0]), ms_k.ROW_WORDS,
+                               sx.part_replicas, c.part_rack_count, t.blks[j])
+                for j, (sx, c) in enumerate(t.views))
+    return ids, rows, parts
+
+
+@pytest.mark.parametrize("split", ["step", "no_leadership", "leadership_only"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_own_member_rows_one_launch_equals_plain(cuda, n, split):
+    """Hop 4's one launch of the own_rows kernel, on every shard: byte for
+    byte its plain version and the two own_rows launches it replaces, one
+    launch counted; with no leadership rows (K_l = 0) and with no
+    relocation or swap rows (n_rs = 0) too."""
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+
+    t = _shard_setup(cuda, n)
+    cp, max_rf = t.eng.cand, t.eng.max_rf
+    pw = max_rf + t.eng.shape.num_racks
+    _, _, parts = _hop3_bundles(t)
+    n_rs = dict(step=cp.K_r + 2 * cp.K_s, no_leadership=int(parts.shape[0]), leadership_only=0)[split]
+    n_l = int(parts.shape[0]) - n_rs
+    total = None
+    for j, (sx, c) in enumerate(t.views):
+        cols = ms_k.row_columns(sx.state, c)
+        before = dict(kernels.LAUNCHES)
+        got = ms_k.own_member_rows(parts, n_rs, max_rf, cols, t.blks[j])
+        assert kernels.LAUNCHES["own_member_rows"] == before["own_member_rows"] + 1
+        assert kernels.LAUNCHES["own_rows"] == before["own_rows"]
+        assert torch.equal(got, ms_k.own_member_rows_plain(parts, n_rs, max_rf, cols, t.blks[j]))
+        two = [ms_k.own_rows(parts, 1, cols, t.blks[j], m=max_rf, stride=pw, n=n_rs),
+               ms_k.own_rows(parts[n_rs:], ms_k.ROW_WORDS, cols, t.blks[j], m=max_rf, stride=pw,
+                             n=n_l)]
+        assert torch.equal(got, torch.cat([x.reshape(-1) for x in two]))
+        total = got if total is None else total + got
+    whole = ms_k.own_member_rows_plain(parts, n_rs, max_rf,
+                                       ms_k.row_columns(t.eng.statics.state, t.carry), t.whole)
+    assert torch.equal(total, whole)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_own_rows_at_a_shards_first_and_last_rows(cuda, n):
+    """Ids at every shard's first and last rows, just past them, the
+    member table's padding R and -1: hop 2's rows and hop 4's bundle are
+    their plain versions byte for byte on every shard, and sum to the
+    whole model's rows."""
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+
+    t = _shard_setup(cuda, n)
+    R, max_rf = t.eng.shape.R, t.eng.max_rf
+    edges = sorted({v for b in t.blks for v in (b.r_off - 1, b.r_off, b.r_off + b.r_local - 1,
+                                                b.r_off + b.r_local)} | {-1, 0, R - 1, R})
+    ids = torch.tensor(edges, dtype=torch.int32, device=cuda)
+    # a hop-3 bundle of k rows whose member ids run through the edges
+    k = 2 * -(-len(edges) // max_rf)
+    member_ids = ids.repeat(-(-k * max_rf // len(edges)))[: k * max_rf].view(k, max_rf)
+    parts = torch.cat([member_ids, torch.full((k, 3), 99, dtype=torch.int32, device=cuda)],
+                      1).contiguous()
+    whole_cols = ms_k.row_columns(t.eng.statics.state, t.carry)
+    rows_sum, mrows_sum = None, None
+    for j, (sx, c) in enumerate(t.views):
+        cols = ms_k.row_columns(sx.state, c)
+        rows = ms_k.own_rows(ids, ms_k.ROW_WORDS, cols, t.blks[j])
+        assert torch.equal(rows, ms_k.own_rows_plain(ids, ms_k.ROW_WORDS, cols, t.blks[j]))
+        mrows = ms_k.own_member_rows(parts, k // 2, max_rf, cols, t.blks[j])
+        assert torch.equal(mrows, ms_k.own_member_rows_plain(parts, k // 2, max_rf, cols, t.blks[j]))
+        rows_sum = rows if rows_sum is None else rows_sum + rows
+        mrows_sum = mrows if mrows_sum is None else mrows_sum + mrows
+    assert torch.equal(rows_sum, ms_k.own_rows_plain(ids, ms_k.ROW_WORDS, whole_cols, t.whole))
+    assert torch.equal(mrows_sum, ms_k.own_member_rows_plain(parts, k // 2, max_rf, whole_cols,
+                                                             t.whole))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["plan", "empty_brokers", "global_cdf"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_shard_sources_against_plain(cuda, n, case, monkeypatch):
+    """shard_sources byte for byte its plain version on every shard: with
+    the step's plan (the CDF staged in shared memory; the shards' ids sum
+    to the full launch's sources), with half the brokers' counts zeroed
+    (importance draws that take the fallback), and with a CDF past the
+    shared-memory budget (probed from global memory)."""
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
+
+    t = _shard_setup(cuda, n)
+    cp, B = t.eng.cand, t.eng.shape.B
+    plans = t.plans
+    if case == "empty_brokers":
+        count = t.plan.count.clone()
+        count[::2] = 0
+        plans = [dataclasses.replace(sp, count=count) for sp in plans]
+        bsel, _, _ = ms_k.importance_draws(t.keys.rel_src, cp.K_r, cp.n_imp(cp.K_r, plans[0]),
+                                           t.plan.broker_cdf, count, t.views[0][0].gen, cuda)
+        assert bool((count[bsel] <= 0).any()) and bool((count[bsel] > 0).any())
+    if case == "global_cdf":
+        monkeypatch.setattr(cand_k, "CDF_SMEM_MAX", 4 * B - 4)
+    total = None
+    for j, (sx, _c) in enumerate(t.views):
+        before = kernels.LAUNCHES["shard_sources"]
+        got = ms_k.shard_sources(cp, t.cursor, plans[j], sx.gen, t.blks[j], True)
+        assert kernels.LAUNCHES["shard_sources"] == before + 1
+        assert torch.equal(got, ms_k.shard_sources_plain(cp, t.keys, plans[j], sx.gen, t.blks[j], True))
+        total = got if total is None else total + got
+    if case != "empty_brokers":
+        full = cand_k.candidates(cp, t.eng.statics, t.carry, t.cursor, t.eng._globals(t.carry),
+                                 t.plan, torch.full((1,), 0.5, device=cuda))
+        assert torch.equal(total, torch.cat([full["payr"]["r"], full["payl"]["rt"]]).to(torch.int32))
     torch.cuda.synchronize()

@@ -23,7 +23,10 @@ And the plain versions of the mode's kernels, on one process with n = 2
 and n = 4 emulated shards (a sum of the shard bundles in place of the
 all_reduce): the ownership gathers and the body against the whole model's
 candidates, the offset apply against the whole apply, the local refresh
-against the whole refresh.
+against the whole refresh; hop 4's one entry (`own_member_rows`) against
+the two `own_rows` calls it merges; the assembled bundles against the JAX
+package's arrays gathered at its own step's proposals; and every gather
+raising, never taking its plain version, for a tensor off the CPU.
 """
 
 import dataclasses
@@ -36,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from cruise_control_tpu.analyzer.engine import Engine as JEngine
 from cruise_control_tpu.analyzer.engine import OptimizerConfig as JConfig
 from cruise_control_tpu.analyzer.objective import DEFAULT_CHAIN as JCHAIN
 from cruise_control_tpu.models.builder import pad_state as j_pad
@@ -46,6 +50,7 @@ from cruise_control_tpu.testing.fixtures import RandomClusterSpec as JSpec
 from cruise_control_tpu.testing.fixtures import random_cluster_fast as j_cluster
 from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine, OptimizerConfig
 from cruise_control_tpu_torch.analyzer.draws import Key
+from cruise_control_tpu_torch.analyzer.engine import SamplingPlan
 from cruise_control_tpu_torch.convert import from_jax_arrays
 from cruise_control_tpu_torch.kernels import apply as apply_k
 from cruise_control_tpu_torch.kernels import candidates as cand_k
@@ -324,3 +329,150 @@ def test_subthreshold_run_issues_no_model_axis_all_reduce(runs):
     sharded = runs["sharded"][4]
     assert all(c["all_reduce"] > 0 and c["reduce_scatter"] > 0 for c in sharded["model_collectives"])
     assert sharded["gather_calls"] == [0] * N
+
+
+def _hop3(eng, carry, keys, em):
+    """The assembled ids, rows and parts bundles of an emulated step."""
+    cp = eng.cand
+    ids = em.hop(lambda j, sx, c: ms_k.shard_sources(cp, keys, em.plans[j], sx.gen, em.blks[j], True))
+    rows = em.hop(lambda j, sx, c: ms_k.own_rows(ids, ms_k.ROW_WORDS,
+                                                 ms_k.row_columns(sx.state, c), em.blks[j]))
+    parts = em.hop(lambda j, sx, c: ms_k.own_parts(rows.view(-1)[1:], int(ids.shape[0]),
+                                                   ms_k.ROW_WORDS, sx.part_replicas,
+                                                   c.part_rack_count, em.blks[j]))
+    return ids, rows, parts
+
+
+@pytest.mark.parametrize("split", ["step", "no_leadership", "leadership_only"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_hop4_entry_equals_the_two_own_rows_calls(step, n, split):
+    """`own_member_rows` (hop 4 in one launch on the card) writes each
+    shard's bundle as the two `own_rows` calls it replaces, one after the
+    other, also with no leadership rows (K_l = 0) and with no relocation
+    or swap rows (n_rs = 0); the shards' bundles sum to the whole model's."""
+    eng, carry, plan, _g, keys, _temp, _full = step
+    cp, s = eng.cand, eng.shape
+    em = _Emulation(eng, carry, plan, n)
+    _, _, parts = _hop3(eng, carry, keys, em)
+    max_rf, pw = eng.max_rf, eng.max_rf + s.num_racks
+    n_rs = dict(step=cp.K_r + 2 * cp.K_s, no_leadership=int(parts.shape[0]), leadership_only=0)[split]
+    n_l = int(parts.shape[0]) - n_rs
+    got = []
+    for j, (sx, c) in enumerate(em.views):
+        cols = ms_k.row_columns(sx.state, c)
+        mrows = ms_k.own_member_rows(parts, n_rs, max_rf, cols, em.blks[j])
+        mb = ms_k.own_rows(parts, 1, cols, em.blks[j], m=max_rf, stride=pw, n=n_rs)
+        ml = ms_k.own_rows(parts[n_rs:], ms_k.ROW_WORDS, cols, em.blks[j], m=max_rf, stride=pw, n=n_l)
+        assert mrows.shape == (n_rs * max_rf + n_l * max_rf * ms_k.ROW_WORDS,)
+        assert torch.equal(mrows, torch.cat([mb.reshape(-1), ml.reshape(-1)]))
+        buf = torch.full_like(mrows, -7)
+        assert ms_k.own_member_rows(parts, n_rs, max_rf, cols, em.blks[j], out=buf) is buf
+        assert torch.equal(buf, mrows)
+        got.append(mrows)
+    whole = ms_k.Block(0, s.R, 0, s.P, 0, 1)
+    want = ms_k.own_member_rows_plain(parts, n_rs, max_rf, ms_k.row_columns(eng.statics.state, carry),
+                                      whole)
+    assert torch.equal(sum(got), want)
+
+
+def test_hop4_entry_refuses_a_split_past_the_bundle(step):
+    eng, carry, plan, _g, keys, _temp, _full = step
+    em = _Emulation(eng, carry, plan, 2)
+    _, _, parts = _hop3(eng, carry, keys, em)
+    sx, c = em.views[0]
+    cols = ms_k.row_columns(sx.state, c)
+    for n_rs, max_rf in ((-1, eng.max_rf), (int(parts.shape[0]) + 1, eng.max_rf), (0, 0),
+                         (0, int(parts.shape[1]) + 1)):
+        with pytest.raises(ValueError, match="hop 4"):
+            ms_k.own_member_rows(parts, n_rs, max_rf, cols, em.blks[0])
+
+
+@pytest.fixture(scope="module")
+def jax_step(states):
+    """The JAX package's plain engine on the module's fixture: its step's
+    proposals (the same keys as the port's `step` fixture), its plan, its
+    statics and carry."""
+    js, _ = states
+    je = JEngine(js, JCHAIN, config=JConfig(num_candidates=256, leadership_candidates=64, seed=1))
+    jc = je._jit_init(je.statics, jax.random.PRNGKey(1))
+    jp = je._jit_plan(je.statics, jc)
+    _, k_r, k_s, k_l, _ = jax.random.split(jc.key, 5)
+    raw = je._propose_kinds(je.statics, jc, k_r, k_s, k_l, je._globals(je.statics, jc), jp)
+    return je, jc, jp, je._assemble_prop(je.statics, jc, *raw)
+
+
+def _gather_rows(cols: dict, ids: np.ndarray, R: int) -> np.ndarray:
+    """i32[ids.size, 18]: the JAX arrays' replica rows at ids (ROW_FIELDS,
+    floats as their bits), zeros at ids out of [0, R)."""
+    flat = ids.reshape(-1)
+    ok = (flat >= 0) & (flat < R)
+    at = np.where(ok, flat, 0)
+    out = np.concatenate([
+        np.stack([cols[f][at].astype(np.int32) for f in ms_k.ROW_FIELDS[:10]], 1),
+        cols["load_leader"][at].astype(np.float32).view(np.int32),
+        cols["load_follower"][at].astype(np.float32).view(np.int32),
+    ], 1)
+    return np.where(ok[:, None], out, 0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_bundles_equal_the_jax_packages_gathers(step, jax_step, n):
+    """The bundles the shards assemble (the four hops, hop 4 through its
+    one entry) are the JAX package's arrays gathered at its plain engine's
+    step: the source ids of its proposals, their replica rows, their
+    partitions' member ids and rack cells, the members' brokers and rows."""
+    eng, carry, _plan, _g, keys, _temp, _full = step
+    je, jc, jp, jprop = jax_step
+    cp, s = eng.cand, eng.shape
+    assert (cp.K_r, cp.K_s, cp.K_l) == (je.K_r, je.K_s, je.K_l)
+    tplan = SamplingPlan(**{f.name: torch.from_numpy(np.asarray(getattr(jp, f.name)).copy())
+                            for f in dataclasses.fields(SamplingPlan)})
+    em = _Emulation(eng, carry, tplan, n)
+    ids, rows, parts = _hop3(eng, carry, keys, em)
+    max_rf, n_rs = eng.max_rf, cp.K_r + 2 * cp.K_s
+    mrows = em.hop(lambda j, sx, c: ms_k.own_member_rows(parts, n_rs, max_rf,
+                                                         ms_k.row_columns(sx.state, c), em.blks[j]))
+    jst = je.statics.state
+    cols = {f: np.asarray(getattr(jc if f in ("broker", "lead", "disk") else jst, a))
+            for f, a in (("broker", "replica_broker"), ("part", "replica_partition"),
+                         ("disk", "replica_disk"), ("topic", "replica_topic"),
+                         ("valid", "replica_valid"), ("lead", "replica_is_leader"),
+                         ("pos", "replica_pos"), ("orig_broker", "replica_broker"),
+                         ("orig_lead", "replica_is_leader"), ("orig_disk", "replica_disk"),
+                         ("load_leader", "replica_load_leader"),
+                         ("load_follower", "replica_load_follower"))}
+    want_ids = np.concatenate([np.asarray(jprop["payr"]["r"]), np.asarray(jprop["payl"]["rt"])])
+    np.testing.assert_array_equal(ids.numpy(), want_ids.astype(np.int32))
+    want_rows = _gather_rows(cols, want_ids, s.R)
+    np.testing.assert_array_equal(rows.numpy(), want_rows)
+    part = want_rows[:, 1]
+    members = np.asarray(je.statics.part_replicas)[part]
+    want_parts = np.concatenate([members, np.asarray(jc.part_rack_count)[part]], 1)
+    np.testing.assert_array_equal(parts.numpy(), want_parts.astype(np.int32))
+    want_mb = _gather_rows(cols, members[:n_rs], s.R)[:, 0]
+    want_ml = _gather_rows(cols, members[n_rs:], s.R)
+    np.testing.assert_array_equal(mrows.numpy(), np.concatenate([want_mb, want_ml.reshape(-1)]))
+
+
+@pytest.mark.parametrize("gather", ["shard_sources", "own_rows", "own_member_rows", "own_parts"])
+def test_gathers_raise_for_a_tensor_off_the_cpu(step, gather):
+    """A gather handed a tensor that does not lie on the CPU (a "meta"
+    tensor stands in for a CUDA one on this host) launches its kernel or
+    raises: it never answers with its plain version."""
+    eng, carry, plan, _g, keys, _temp, _full = step
+    em = _Emulation(eng, carry, plan, 2)
+    ids, rows, parts = _hop3(eng, carry, keys, em)
+    sx, c = em.views[0]
+    blk, cols = em.blks[0], ms_k.row_columns(sx.state, c)
+    meta = torch.device("meta")
+    calls = dict(
+        shard_sources=lambda: ms_k.shard_sources(eng.cand, keys, dataclasses.replace(
+            em.plans[0], count=em.plans[0].count.to(meta)), sx.gen, blk, True),
+        own_rows=lambda: ms_k.own_rows(ids.to(meta), ms_k.ROW_WORDS, cols, blk),
+        own_member_rows=lambda: ms_k.own_member_rows(parts.to(meta), eng.cand.K_r, eng.max_rf,
+                                                     cols, blk),
+        own_parts=lambda: ms_k.own_parts(rows.view(-1)[1:].to(meta), int(ids.shape[0]),
+                                         ms_k.ROW_WORDS, sx.part_replicas, c.part_rack_count, blk),
+    )
+    with pytest.raises(ValueError, match="CUDA or all on the CPU"):
+        calls[gather]()
