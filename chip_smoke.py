@@ -319,8 +319,10 @@ Phases:
      north star: placements, objective and history bit for bit the
      single-device engine's, no collective, the group's start-up and a
      repeated run's wall against the plain engine's (check_mesh_one_card).
-Then one JSON line of per-kernel results, the nvidia-smi line, and the
-final JSON line naming the device.
+Then one JSON line of per-kernel results (each row's `ms_source` says how
+its `ms` was taken: "profiler", or "cuda graph" where torch.profiler saw
+no device activity in PROFILER_ATTEMPTS sessions), the nvidia-smi line,
+and the final JSON line naming the device.
 
 `python3 chip_smoke.py --monitor` runs phase 1, the fixture and phase 23
 alone, and ends with a short JSON line instead of the results;
@@ -500,6 +502,36 @@ def time_ms(fn, reps=50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=20, replays=5) -> float:
+    """Device time per call of fn() without the profiler: reps calls
+    captured into one CUDA graph (the package's `capture`, so the launches
+    count nowhere), CUDA events around `replays` replays after a warm one.
+    The graph's nodes run back to back with no host between them, so this
+    is the device time plus the gap from one node to the next."""
+    import torch
+
+    from cruise_control_tpu_torch.kernels import capture, graph_lock, recording
+
+    with recording():
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with capture(g, torch.cuda.Stream()):
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    with graph_lock():
+        del g
+    return start.elapsed_time(end) / (replays * reps)
+
+
 def device_ms(fn, reps=20) -> tuple[float, float, dict] | None:
     """(device time per call of everything fn() launches, of which the
     package's own kernels, {device operation: [ms per event, events per
@@ -536,16 +568,31 @@ def device_ms(fn, reps=20) -> tuple[float, float, dict] | None:
     return total, own, by_name
 
 
-def measure(fn, reps=20) -> dict:
+#: Sessions of torch.profiler a measurement tries: from a few minutes into
+#: the script on, about half of the sessions show no device activity, at
+#: random (PERF.md §6).
+PROFILER_ATTEMPTS = 3
+
+
+def measure(fn, reps=20, graph=True) -> dict:
     """A function's time on the card two ways: `ms`, device time per call
-    (profiler); `call_ms`, the wall between CUDA events around reps
-    back-to-back calls, which the host's issue rate bounds when kernels
-    are short.  Without profiler device activity `ms` is `call_ms`."""
+    (profiler, up to PROFILER_ATTEMPTS sessions: `profiler_attempts`);
+    `call_ms`, the wall between CUDA events around reps back-to-back calls,
+    which the host's issue rate bounds when kernels are short.  Without
+    profiler device activity `ms` is `graph_ms`'s device time (`ms_source`
+    "cuda graph"), or, for a function a graph cannot capture (`graph=False`:
+    the plain versions and library calls), `call_ms` (`ms_source` "cuda
+    events")."""
     call = time_ms(fn, reps)
-    dev = device_ms(fn, reps)
-    if dev is None:
-        return dict(ms=call, own_kernel_ms=None, call_ms=call, ms_source="cuda events", by_kernel=None)
-    return dict(ms=dev[0], own_kernel_ms=dev[1], call_ms=call, ms_source="profiler", by_kernel=dev[2])
+    for attempt in range(1, PROFILER_ATTEMPTS + 1):
+        dev = device_ms(fn, reps)
+        if dev is not None:
+            return dict(ms=dev[0], own_kernel_ms=dev[1], call_ms=call, ms_source="profiler",
+                        profiler_attempts=attempt, by_kernel=dev[2])
+    if graph:
+        return dict(ms=graph_ms(fn, reps), own_kernel_ms=None, call_ms=call, ms_source="cuda graph",
+                    by_kernel=None)
+    return dict(ms=call, own_kernel_ms=None, call_ms=call, ms_source="cuda events", by_kernel=None)
 
 
 class Capture:
@@ -717,7 +764,7 @@ def check_kernels(state, cfg) -> dict:
     differ = ck["accept"] != cpl["accept"]
     check(not bool((differ & ~near).any()), "candidates: acceptance differs away from the threshold")
     kt = measure(lambda: cand_k.candidates(*c_args, **c_kw))
-    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw))
+    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw), graph=False)
     if kt["by_kernel"] is not None:
         own = {k: v[1] for k, v in kt["by_kernel"].items() if k in OWN_KERNELS}
         check(list(own) == ["candidates_kernel"] and round(own["candidates_kernel"]) == 1,
@@ -746,7 +793,7 @@ def check_kernels(state, cfg) -> dict:
     err = max(float((uk - u).abs().max()), float((ik - ip).abs().max()))
     check(same, f"threefry_uniform differs from its plain version (max err {err})")
     kt = measure(lambda: threefry.uniform(keys.u.words, K, minval=cand_k.U_MIN, maxval=1.0, device=dev))
-    pt = measure(lambda: threefry.uniform_plain(keys.u.words, K, cand_k.U_MIN, 1.0, dev))
+    pt = measure(lambda: threefry.uniform_plain(keys.u.words, K, cand_k.U_MIN, 1.0, dev), graph=False)
     # 4 bytes written per draw; ~80 integer operations per draw (20 rounds of
     # add/rotate/xor, key injections, the float tail)
     b_ms, b_by = bound(4 * K, 80.0 * K)
@@ -773,7 +820,7 @@ def check_kernels(state, cfg) -> dict:
               f"move_delta ({kind}): {bad} deltas outside tolerance (max err {err})")
         flips = int(((dk < 0) != (dp < 0)).sum())
         kt = measure(lambda a=args, kw=kw: md.move_delta(*a, **kw))
-        pt = measure(lambda a=args, kw=kw: md.move_delta_plain(*a, **kw))
+        pt = measure(lambda a=args, kw=kw: md.move_delta_plain(*a, **kw), graph=False)
         st = sx.state
         # bytes the function needs: each candidate's inputs and output once,
         # the broker rows of the brokers this call touches (aggregates,
@@ -828,7 +875,7 @@ def check_kernels(state, cfg) -> dict:
     Ks = int(args[0].shape[0])
     bufs = select_k.select_buffers(Ks, sizes["n_r"], sizes["n_s"], sizes["B"], sizes["P"], dev)
     kt = measure(lambda: select_k.select_survivors(*args, **{**kw, "acc": acc, "bufs": bufs}))
-    pt = measure(lambda: select_k.select_plain(*args, *sizes.values()))
+    pt = measure(lambda: select_k.select_plain(*args, *sizes.values()), graph=False)
     b_ms, b_by = bound(nbytes(*args, survive, sv_r, acc), 12.0 * Ks)
     out["select_survivors"] = dict(max_abs_err=float(diff), **timings(kt, pt), bound_ms=b_ms,
                                    bound_by=b_by,
@@ -861,7 +908,7 @@ def check_kernels(state, cfg) -> dict:
     # again, which is the same work (the values drift, the indices do not)
     kt = measure(lambda: apply_k.apply_moves(sx_a, ck, sv_r, payr, sv_l, payl))
     one_launch(kt, "apply_moves_kernel")
-    pt = measure(lambda: apply_k.apply_plain(sx_a, cp, sv_r, payr, sv_l, payl))
+    pt = measure(lambda: apply_k.apply_plain(sx_a, cp, sv_r, payr, sv_l, payl), graph=False)
     n_rel, n_lead = int(sv_r.sum()), int(sv_l.sum())
     # every row's survivor flag is read; only a survivor reads its payload
     # row, and it reads and writes its placement and aggregate words: 264 B
@@ -1015,8 +1062,8 @@ def check_round_kernels(eng, carry) -> dict:
         check(torch.equal(getattr(by_seg, f), getattr(want, f)), f"group_by_broker (seg entry): {f} differs")
     kt = measure(lambda: group_placement(carry.replica_broker, st.replica_valid, B, out=got))
     one_launch(kt, "group_by_broker_kernel")
-    pt = measure(lambda: group_plain(placement_segments(carry.replica_broker, st.replica_valid, B), B, want))
-    lib = measure(lambda: (torch.argsort(seg, stable=True), torch.bincount(seg, minlength=B + 1)))
+    pt = measure(lambda: group_plain(placement_segments(carry.replica_broker, st.replica_valid, B), B, want), graph=False)
+    lib = measure(lambda: (torch.argsort(seg, stable=True), torch.bincount(seg, minlength=B + 1)), graph=False)
     # each row's broker id and valid flag read once, its id written once
     # into the order, and the per-broker count and start written once;
     # ~10 integer operations a row
@@ -1046,7 +1093,7 @@ def check_round_kernels(eng, carry) -> dict:
     kt = measure(lambda: refresh_aggregates(st, *place, res, **kw))
     one_launch(kt, "refresh_aggregates_kernel")
     plain_out = {f: torch.empty_like(t) for f, t in res.items()}
-    pt = measure(lambda: refresh_plain(st, *place, plain_out, sx.host_groups))
+    pt = measure(lambda: refresh_plain(st, *place, plain_out, sx.host_groups), graph=False)
     # the passes: without the host pass (and its barrier), the host pass alone
     no_hosts = measure(lambda: refresh_aggregates(st, *place, res, **dict(kw, hosts=None)))
     hosts_only = measure(lambda: refresh_aggregates(st, *place, res, hosts=sx.host_groups, brokers=False))
@@ -1096,7 +1143,7 @@ def check_round_kernels(eng, carry) -> dict:
         check(torch.equal(buf.view(torch.int32), first.view(torch.int32)), "step_globals differs run to run")
     kt = measure(lambda: gk.step_globals(sx, carry, buf))
     pbuf = torch.empty_like(buf)
-    pt = measure(lambda: gk.globals_plain(sx, carry, pbuf))
+    pt = measure(lambda: gk.globals_plain(sx, carry, pbuf), graph=False)
     nb = B * (1 + 16 + 16 + 12 + 5 * D) + 4 * T * B + 16 + 4 * gk.size(T)
     b_ms, b_by = bound(nb, 40.0 * B + T * B)
     out["step_globals"] = dict(max_abs_err=err, max_rel_err=rel, **timings(kt, pt), library_ms=None,
@@ -1590,7 +1637,7 @@ def check_jbod_step(state, chain, cfg, label: str) -> dict:
     check(bool(torch.isfinite(ck["delta"]).all()) and bad == 0,
           f"{label}: {bad} candidate deltas outside tolerance (max err {err})")
     kt = measure(lambda: cand_k.candidates(*c_args, **c_kw))
-    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw))
+    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw), graph=False)
     if eng.config.intra_broker:
         nb = candidates_intra_bound_bytes(eng, c_args[0], c_args[5], ck)
     else:
@@ -1891,7 +1938,7 @@ def check_candidates_variant(eng, cap, label: str, extra_ops: float, extra_bytes
     check(not bitwise or (same_bits == same_bits_cpu == K and accept_cpu),
           f"{label}: deltas not bit for bit: {same_bits} / {same_bits_cpu} of {K} (card / CPU plain)")
     kt = measure(lambda: cand_k.candidates(*c_args, **c_kw))
-    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw))
+    pt = measure(lambda: cand_k.candidates_plain(*c_args, **c_kw), graph=False)
     nb = candidates_bound_bytes(eng, c_args[2], ck) + extra_bytes(ck, c_args[3])
     s = eng.shape
     b_ms, b_by = bound(nb, (600.0 + extra_ops) * K + 90.0 * (s.B + s.num_hosts))
@@ -2006,7 +2053,7 @@ def check_diagnostics(state, cfg, exact: dict) -> dict:
     kt = measure(lambda: select_k.select_survivors(*args, **{**kw, "acc": acc_t, "bufs": bufs,
                                                              "from_prior": fp, "diag": True}))
     one_launch(kt, "select_survivors_kernel")
-    pt = measure(lambda: select_k.select_plain(*args, *sizes.values(), from_prior=fp, diag=True))
+    pt = measure(lambda: select_k.select_plain(*args, *sizes.values(), from_prior=fp, diag=True), graph=False)
     acc1 = torch.zeros(1, dtype=torch.int64, device=dev)
     default = measure(lambda: select_k.select_survivors(*args, **{**kw, "acc": acc1, "bufs": bufs}))
     # the default kernel's bytes, the mask (1 B a relocation) and five more
@@ -2215,10 +2262,10 @@ def check_scatter_kernel(state, windows: list) -> dict:
     out = [t.clone() for t in base]
     kt = measure(lambda: scatter_k.scatter_loads(*out, *args))
     one_launch(kt, "scatter_loads_kernel")
-    pt = measure(lambda: scatter_k.scatter_loads_plain(*out, *args))
+    pt = measure(lambda: scatter_k.scatter_loads_plain(*out, *args), graph=False)
     idx = torch.from_numpy(rows2.astype(np.int64)).to(dev)
     new_ll, new_fl = torch.from_numpy(ll2).to(dev), torch.from_numpy(fl2).to(dev)
-    lib = measure(lambda: (out[0].index_copy_(0, idx, new_ll), out[1].index_copy_(0, idx, new_fl)))
+    lib = measure(lambda: (out[0].index_copy_(0, idx, new_ll), out[1].index_copy_(0, idx, new_fl)), graph=False)
     n = int(rows2.size)
     nb = 68 * n  # a row's index, two new rows read, two rows written
     b_ms, b_by = bound(nb, 0.0)
@@ -6076,26 +6123,6 @@ def owned_rows(ids, blk) -> int:
     return int(torch.unique(li[(li >= 0) & (li < blk.r_local)]).numel())
 
 
-def card_state() -> dict:
-    """The card's clock, power and temperature, the processes that hold it
-    (nvidia-smi, where it answers), and this process's live threads and
-    child processes."""
-    import multiprocessing
-
-    def smi_query(*args) -> list[str]:
-        try:
-            res = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader"], capture_output=True,
-                                 text=True, timeout=30)
-        except (OSError, subprocess.TimeoutExpired) as e:
-            return [f"nvidia-smi failed: {e}"]
-        return res.stdout.strip().splitlines() or [res.stderr.strip()]
-
-    return dict(gpu=smi_query("--query-gpu=clocks.sm,power.draw,temperature.gpu"),
-                apps=smi_query("--query-compute-apps=pid,used_memory"),
-                threads=sorted(t.name for t in threading.enumerate()),
-                children=len(multiprocessing.active_children()))
-
-
 def check_model_shard_step(state, cfg, smi: str) -> dict:
     """Phase 30 (a): the sharded-model step emulated on one card at the
     north star, for n = 2 and n = 4 shards (`ShardEmulation`), on loads
@@ -6268,14 +6295,14 @@ def check_model_shard_step(state, cfg, smi: str) -> dict:
     )
     # shard_sources with the CDF probed from global memory (a CDF past the
     # shared-memory budget), on every shard
-    kept, cand_k.CDF_SMEM_MAX = cand_k.CDF_SMEM_MAX, 0
+    kept, ms_k.SOURCES_CDF_SMEM_MAX = ms_k.SOURCES_CDF_SMEM_MAX, 0
     try:
         for j in range(em.n):
             pairs[f"shard_sources_global_cdf_j{j}"] = (
                 ms_k.shard_sources(cp, cursor, em.plans[j], em.views[j][0].gen, em.blks[j], True),
                 ms_k.shard_sources_plain(cp, keys, em.plans[j], em.views[j][0].gen, em.blks[j], True))
     finally:
-        cand_k.CDF_SMEM_MAX = kept
+        ms_k.SOURCES_CDF_SMEM_MAX = kept
     for name, (k, p) in pairs.items():
         out[f"{name}_kernel_equals_plain"] = bits_equal(k, p)
     bad = [k for k, v in out.items() if k.endswith("kernel_equals_plain") and not v]
@@ -6328,18 +6355,18 @@ def check_model_shard_step(state, cfg, smi: str) -> dict:
     rows = {}
 
     def row(name, kfn, pfn, nb, ops, lib=None, err=0.0):
-        # the kernel's device time by the profiler; the plain version's and
-        # the library call's by CUDA events (a profiler session costs
-        # seconds of set-up, and they are yardsticks)
+        # the kernel's device time by the profiler, and by a CUDA graph of
+        # its launches whether or not the profiler sees the card; the plain
+        # version's and the library call's by CUDA events (a profiler
+        # session costs seconds of set-up, and they are yardsticks)
         k = measure(kfn)
         b_ms, b_by = bound(nb, ops)
-        rows[name] = dict(launches=launches[name], max_abs_err=err, ms=k["ms"], call_ms=k["call_ms"],
-                          plain_ms=time_ms(pfn, 10), bound_ms=b_ms, bound_by=b_by,
+        rows[name] = dict(launches=launches[name], max_abs_err=err, ms=k["ms"], ms_source=k["ms_source"],
+                          profiler_attempts=k.get("profiler_attempts"),
+                          graph_ms=k["ms"] if k["ms_source"] == "cuda graph" else graph_ms(kfn),
+                          call_ms=k["call_ms"], plain_ms=time_ms(pfn, 10), bound_ms=b_ms, bound_by=b_by,
                           library_ms=None if lib is None else time_ms(lib, 10))
 
-    # what else holds the card while phase 30 times its kernels (late in
-    # the whole script, `ms` has read up to 21x the kernels' times alone)
-    out["card_state"] = card_state()
     row_b = 4 * ms_k.ROW_WORDS
     # shard_sources: every slot's id written, an importance-sampled slot's
     # four plan words and order row read, the CDF and the key row once;
@@ -7061,8 +7088,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"cruise_control_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k.get("library_ms"),
+            "ms_source": k["ms_source"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
         })
     for name, (src, replaces) in SHARD_CASES.items():
         k = shard["kernels"][name]
@@ -7070,8 +7097,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"cruise_control_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            "ms_source": k["ms_source"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
     for name, (src, replaces) in {**JBOD_CASES, **VARIANT_CASES, **STREAM_CASES, **SCENARIO_CASES}.items():
         k = jbod[name] if name in jbod else variants[name]
@@ -7079,8 +7106,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"cruise_control_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            "ms_source": k["ms_source"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
     check(all(np.isfinite([r["ms"], r["plain_ms"], r["bound_ms"]]).all() for r in rows),
           "non-finite kernel timing")

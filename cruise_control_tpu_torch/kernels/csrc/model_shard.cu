@@ -34,8 +34,10 @@
 //    a team of four lanes: lanes 0-2 hash its source, slot and fallback
 //    draws at once, the values reach the team by shuffles; the broker CDF
 //    is staged in shared memory while they hash (the blocks of these
-//    slots only, where 4 B <= CDF_SMEM_MAX, kernels/candidates.py), so the
-//    ~12 probes of the search run there; then the four lanes load count,
+//    slots only, where 4 B <= SOURCES_CDF_SMEM_MAX, kernels/model_shard.py:
+//    each such block copies the whole CDF, which costs more than the
+//    probes it saves past ~6,000 brokers), so the ~12 probes of the search
+//    run there; then the four lanes load count,
 //    below, count_local and start_local at the broker in one instruction,
 //    and one lane the order row.  A uniform slot is a thread: one hash, one
 //    store; on a shard other than 0 it stores a zero and reads nothing.

@@ -252,6 +252,15 @@ def _fns():
     return _FNS
 
 
+#: `shard_sources` stages the broker CDF in shared memory, for its
+#: binary search, where the CDF's 4 B bytes fit this; past it the search
+#: probes global memory.  Every block of importance-sampled slots copies the
+#: whole CDF, so the copy outgrows the probes it saves as B grows: on an
+#: H100 staging saves ~10% up to 5,000 brokers and loses from 7,500 on
+#: (PERF.md §6, `scripts/time_model_shard.py --brokers`).
+SOURCES_CDF_SMEM_MAX = 24 * 1024
+
+
 def _need(name, t, dtype, shape) -> int:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() or not t.is_cuda:
         raise ValueError(f"model_shard: {name} must be contiguous CUDA {dtype}{list(shape)}, "
@@ -290,7 +299,7 @@ def shard_sources(cp, keys, sp, gen, blk: Block, has_plan: bool, out: torch.Tens
         K_r=cp.K_r, K_s=cp.K_s, K_l=cp.K_l, n_imp_r=cp.n_imp(cp.K_r, plan),
         n_imp_s=cp.n_imp(cp.K_s, plan), B=B, r_off=blk.r_off, r_local=blk.r_local, shard=blk.j,
         step=keys.step, steps_per_round=keys.steps_per_round,
-        cdf_in_smem=int(4 * B <= cand_k.CDF_SMEM_MAX),
+        cdf_in_smem=int(4 * B <= SOURCES_CDF_SMEM_MAX),
         key_table=_need("key_table", keys.table, i32, tuple(keys.table.shape)),
         rnd=_need("rnd", keys.rnd, i32, (1,)),
         cdf=_need("broker_cdf", sp.broker_cdf, f32, (B,)),

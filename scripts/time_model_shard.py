@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the sharded-model mode's ownership gathers of one checkout on one GPU, and hold two checkouts' outputs byte for byte.
 
-    python3 scripts/time_model_shard.py DIR OUT.npz
-    python3 scripts/time_model_shard.py --mesh DIR OUT.npz
+    python3 scripts/time_model_shard.py [--target | --brokers N] DIR OUT.npz
+    python3 scripts/time_model_shard.py --mesh [--target] DIR OUT.npz
     python3 scripts/time_model_shard.py --compare A.npz B.npz [...]
 
 DIR is a checkout of the repository (for example an earlier commit
@@ -15,9 +15,10 @@ the first step of the first round, emulated on one card for n = 2 and 4
 shards (each shard's kernels on its own row blocks, a sum of the shard
 bundles in place of the all_reduce):
 
-- hop 1, `shard_sources` (`:global_cdf`: again with the broker CDF probed
-  from global memory, `CDF_SMEM_MAX` set to 0; a tree that does not read
-  the gate runs its one path);
+- hop 1, `shard_sources` (on shard 0 again with the broker CDF probed
+  from global memory, `:global_cdf`, and staged in shared memory,
+  `:smem_cdf`, whatever `SOURCES_CDF_SMEM_MAX` says, where the tree has
+  that gate);
 - hop 2, `own_rows` of the source ids (18 words a row);
 - hop 4, the members' brokers and the leadership members' rows: DIR's
   `own_member_rows` where it has one (one launch), else its two `own_rows`
@@ -26,9 +27,10 @@ bundles in place of the all_reduce):
 Each case is timed with this checkout's chip_smoke.py `measure` whatever
 DIR is (device time per call from torch.profiler, its own kernels, the
 CUDA-event wall of back-to-back calls), on shard 0 and on the last shard.
-The SHA-256 of every shard's bundle of every hop, and of the assembled
-bundles, goes into OUT.npz; one JSON line holds the times, the rows each
-hop gathers and the rows the timed shard owns.
+The SHA-256 of the fixture's placement columns, of the plan's CDF and
+counts, of each shard's grouped index, of every shard's bundle of every
+hop and of the assembled bundles goes into OUT.npz; one JSON line holds
+the times, the rows each hop gathers and the rows the timed shard owns.
 
 The second form needs four cards: it runs DIR's sharded-model mode 1x4
 over NCCL on the same padded north star with integer loads (chip_smoke.py
@@ -36,6 +38,12 @@ over NCCL on the same padded north star with integer loads (chip_smoke.py
 run's wall as the caller sees it, each rank's wall and a step's ms (the
 slowest rank's wall over the run's steps); the SHA-256 of each run's final
 placement goes into OUT.npz.
+
+With `--target` both forms run chip_smoke.py's TARGET_SPEC (25,000
+brokers, 2,000,000 partitions) in place of the north star, padded the
+same way; the second form then keeps the float loads, as chip_smoke.py
+`--mesh` (d) does.  `--brokers N` runs the first form on the north star
+with N brokers (the CDF's length, which decides where staging it pays).
 
 The third form compares the files' arrays byte for byte, prints one JSON
 line, and exits 1 on any difference.  The first two need CUDA, nvcc and
@@ -181,7 +189,7 @@ def _setup(tree: str, cards: int):
     return root, cs, smi
 
 
-def mesh(tree: str, out: str) -> int:
+def mesh(tree: str, out: str, spec: str) -> int:
     import time
 
     got = _setup(tree, 4)
@@ -196,8 +204,10 @@ def mesh(tree: str, out: str) -> int:
     from cruise_control_tpu_torch.testing.fixtures import RandomClusterSpec, random_cluster_fast
 
     cfg = OptimizerConfig(**cs.SEARCH)
-    state = random_cluster_fast(RandomClusterSpec(**cs.NORTH_STAR_SPEC), seed=42, device="cuda")
-    st = loads_quantized(pad_state(state, shard_multiple_shape(state.shape, 4)), scale=1.0)
+    state = random_cluster_fast(RandomClusterSpec(**getattr(cs, spec)), seed=42, device="cuda")
+    st = pad_state(state, shard_multiple_shape(state.shape, 4))
+    if spec == "NORTH_STAR_SPEC":
+        st = loads_quantized(st, scale=1.0)
     del state
     t0 = time.monotonic()
     me = ShardedEngine(st, DEFAULT_CHAIN, mesh=model_mesh([f"cuda:{i}" for i in range(4)]),
@@ -218,12 +228,12 @@ def mesh(tree: str, out: str) -> int:
         me.release()
         close_rank_groups()
     np.savez(out, **arrays)
-    print(json.dumps({"tree": str(root), "card": smi, "mesh": "1x4", "R": st.shape.R,
+    print(json.dumps({"tree": str(root), "card": smi, "mesh": "1x4", "spec": spec, "R": st.shape.R,
                       "build_s": build_s, "runs": runs}), flush=True)
     return 0
 
 
-def main(tree: str, out: str) -> int:
+def main(tree: str, out: str, spec: str, brokers: int | None = None) -> int:
     import torch
 
     got = _setup(tree, 1)
@@ -233,6 +243,7 @@ def main(tree: str, out: str) -> int:
     from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine, OptimizerConfig
     from cruise_control_tpu_torch.analyzer.draws import Key
     from cruise_control_tpu_torch.kernels import candidates as cand_k
+    from cruise_control_tpu_torch.kernels import model_shard as ms_k
     from cruise_control_tpu_torch.models.builder import pad_state
     from cruise_control_tpu_torch.models.sharding import shard_multiple_shape
     from cruise_control_tpu_torch.parallel.model_shard import loads_quantized
@@ -242,7 +253,8 @@ def main(tree: str, out: str) -> int:
     for line in ptxas:
         print("ptxas", line, flush=True)
     cfg = OptimizerConfig(**cs.SEARCH)
-    state = random_cluster_fast(RandomClusterSpec(**cs.NORTH_STAR_SPEC), seed=42, device="cuda")
+    shape = dict(getattr(cs, spec), **({} if brokers is None else {"num_brokers": brokers}))
+    state = random_cluster_fast(RandomClusterSpec(**shape), seed=42, device="cuda")
     st = loads_quantized(pad_state(state, shard_multiple_shape(state.shape, 4)), scale=1.0)
     del state
     eng = Engine(st, DEFAULT_CHAIN, config=cfg)
@@ -251,8 +263,14 @@ def main(tree: str, out: str) -> int:
     keys = cand_k.StepKeys.of(carry.key, intra=False, prior=False)
     cursor = cand_k.KeyCursor.of(keys, "cuda")
     arrays, times = {}, {}
+    for f in ("replica_broker", "replica_partition", "replica_valid", "replica_is_leader"):
+        arrays[f"state/{f}"] = digest(getattr(st, f))
+    arrays["plan/broker_cdf"], arrays["plan/count"] = digest(plan.broker_cdf), digest(plan.count)
     for n in (2, 4):
         sh = Shards(eng, carry, plan, n)
+        for j, sp in enumerate(sh.plans):
+            for f in ("order", "start", "count_local", "below"):
+                arrays[f"n{n}/j{j}/plan/{f}"] = digest(getattr(sp, f))
         bundles: dict = {}
         for hop in ("shard_sources", "own_rows", "own_parts", "hop4"):
             calls = hop_calls(eng, sh, cursor, bundles.get("shard_sources"),
@@ -278,19 +296,23 @@ def main(tree: str, out: str) -> int:
                 times[f"n{n}/j{j}/{hop}"] = dict(
                     ms=rec["ms"], own_kernel_ms=rec["own_kernel_ms"], call_ms=rec["call_ms"],
                     by_kernel=rec["by_kernel"], owned_rows=owned)
-        kept, cand_k.CDF_SMEM_MAX = cand_k.CDF_SMEM_MAX, 0
-        try:
-            got = calls["shard_sources"][0]()
-            arrays[f"n{n}/j0/shard_sources:global_cdf"] = digest(got)
-            rec = cs.measure(calls["shard_sources"][0])
-            times[f"n{n}/j0/shard_sources:global_cdf"] = dict(
-                ms=rec["ms"], own_kernel_ms=rec["own_kernel_ms"], call_ms=rec["call_ms"],
-                by_kernel=rec["by_kernel"])
-        finally:
-            cand_k.CDF_SMEM_MAX = kept
+        kept = getattr(ms_k, "SOURCES_CDF_SMEM_MAX", None)
+        for tag, gate in ((":global_cdf", 0), (":smem_cdf", 4 * eng.shape.B)):
+            if kept is None:
+                break
+            ms_k.SOURCES_CDF_SMEM_MAX = gate
+            try:
+                got = calls["shard_sources"][0]()
+                arrays[f"n{n}/j0/shard_sources{tag}"] = digest(got)
+                rec = cs.measure(calls["shard_sources"][0])
+                times[f"n{n}/j0/shard_sources{tag}"] = dict(
+                    ms=rec["ms"], own_kernel_ms=rec["own_kernel_ms"], call_ms=rec["call_ms"],
+                    by_kernel=rec["by_kernel"])
+            finally:
+                ms_k.SOURCES_CDF_SMEM_MAX = kept
     cp = eng.cand
     np.savez(out, **arrays)
-    print(json.dumps({"tree": str(root), "card": smi, "ptxas": ptxas, "R": eng.shape.R,
+    print(json.dumps({"tree": str(root), "card": smi, "spec": spec, "ptxas": ptxas, "R": eng.shape.R,
                       "B": eng.shape.B, "K": [cp.K_r, cp.K_s, cp.K_l],
                       "n_imp": [cp.n_imp(cp.K_r, plan), cp.n_imp(cp.K_s, plan)],
                       "slots": int(bundles["shard_sources"].shape[0]), "max_rf": eng.max_rf,
@@ -300,14 +322,14 @@ def main(tree: str, out: str) -> int:
 
 def compare(paths: list[str]) -> int:
     """Byte-for-byte comparison of the dumps' arrays against the first's;
-    a `:global_cdf` case is held against its case too."""
+    a `:global_cdf` or `:smem_cdf` case is held against its case too."""
     ref = np.load(paths[0])
     report, ok = {}, True
     for p in paths[1:]:
         other = np.load(p)
         diff = [k for k in other.files if k not in ref.files or ref[k].tobytes() != other[k].tobytes()]
-        diff += [k for k in other.files if k.endswith(":global_cdf")
-                 and other[k].tobytes() != other[k.removesuffix(":global_cdf")].tobytes()]
+        diff += [k for k in other.files if ":" in k
+                 and other[k].tobytes() != other[k.partition(":")[0]].tobytes()]
         missing = sorted(k for k in ref.files if k not in other.files)
         report[p] = dict(arrays=len(other.files), differ=sorted(diff), missing=missing)
         ok = ok and not diff and not missing
@@ -316,8 +338,13 @@ def compare(paths: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1 and sys.argv[1] == "--compare":
-        sys.exit(compare(sys.argv[2:]))
-    if len(sys.argv) > 1 and sys.argv[1] == "--mesh":
-        sys.exit(mesh(sys.argv[2], sys.argv[3]))
-    sys.exit(main(sys.argv[1], sys.argv[2]))
+    args = sys.argv[1:]
+    if args[:1] == ["--compare"]:
+        sys.exit(compare(args[1:]))
+    run = mesh if args[:1] == ["--mesh"] else main
+    args = args[1:] if run is mesh else args
+    if args[:1] == ["--target"]:
+        sys.exit(run(*args[1:], "TARGET_SPEC"))
+    if run is main and args[:1] == ["--brokers"]:
+        sys.exit(main(*args[2:], "NORTH_STAR_SPEC", int(args[1])))
+    sys.exit(run(*args, "NORTH_STAR_SPEC"))

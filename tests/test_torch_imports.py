@@ -2,8 +2,8 @@
 
 Importing every module of the port in a fresh interpreter must load
 neither `jax` nor any `cruise_control_tpu.` module, and an AST scan of the
-package, of chip_smoke.py and of scripts/time_model_shard.py must find no
-import of either.
+package, of chip_smoke.py and of scripts/time_model_shard.py and
+scripts/profiler_probe.py must find no import of either.
 """
 
 import ast
@@ -87,7 +87,8 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_ast_scan_finds_no_forbidden_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "time_model_shard.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "time_model_shard.py",
+                                         ROOT / "scripts" / "profiler_probe.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): [n for n in _imports(f) if _forbidden(n)] for f in files}
     assert {k: v for k, v in bad.items() if v} == {}

@@ -2423,7 +2423,7 @@ def test_shard_sources_against_plain(cuda, n, case, monkeypatch):
                                            t.plan.broker_cdf, count, t.views[0][0].gen, cuda)
         assert bool((count[bsel] <= 0).any()) and bool((count[bsel] > 0).any())
     if case == "global_cdf":
-        monkeypatch.setattr(cand_k, "CDF_SMEM_MAX", 4 * B - 4)
+        monkeypatch.setattr(ms_k, "SOURCES_CDF_SMEM_MAX", 4 * B - 4)
     total = None
     for j, (sx, _c) in enumerate(t.views):
         before = kernels.LAUNCHES["shard_sources"]
