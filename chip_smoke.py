@@ -6307,6 +6307,44 @@ def check_model_shard_step(state, cfg, smi: str) -> dict:
         out[f"{name}_kernel_equals_plain"] = bits_equal(k, p)
     bad = [k for k, v in out.items() if k.endswith("kernel_equals_plain") and not v]
     check(not bad, f"model shard kernels differ from their plain versions: {bad}")
+    # float loads: the emulated step at n = 4 twice on the unquantized loads;
+    # the second's bundles, deltas and acceptance are the first's, and the
+    # full launch's, bit for bit
+    eng_f = Engine(pad_state(state, shard_multiple_shape(state.shape, 4)), DEFAULT_CHAIN, config=cfg)
+    carry_f = eng_f.init_carry(Key.from_seed(cfg.seed))
+    plan_f = eng_f.plan(carry_f)
+    g_f = eng_f._globals(carry_f)
+    temp_f = torch.full((1,), float(eng_f.evaluate(carry_f)[0]) * cfg.init_temperature_scale,
+                        dtype=torch.float32, device=dev)
+    full_f = cand_k.candidates(eng_f.cand, eng_f.statics, carry_f, cursor, g_f, plan_f, temp_f)
+    emulated = []
+    for _ in range(2):
+        em_f = ShardEmulation(eng_f, carry_f, plan_f, 4)
+        sh_f = em_f.bundles(cursor)
+        emulated.append((sh_f, cand_k.candidates_shard(eng_f.cand, em_f.views[0][0], em_f.views[0][1],
+                                                       cursor, g_f, em_f.plans[0], temp_f, sh_f)))
+    (sh_a, body_a), (sh_b, body_b) = emulated
+    same = {f: bits_equal(getattr(sh_a, f), getattr(sh_b, f)) for f in ("ids", "rows", "parts", "mb", "ml")}
+    same.update({f: bits_equal(body_a[f], body_b[f]) for f in prop_fields})
+    same["full_launch"] = all(bits_equal(body_a[f], full_f[f]) for f in prop_fields)
+    out["float_loads_repeat_bit_equal"] = same
+    check(all(same.values()), f"model shard float loads: the emulated step differs between two "
+                              f"emulations or from the full launch: {same}")
+    eng_f.release()
+    del eng_f, carry_f, plan_f, full_f, emulated
+    # the broker CDF's scan at the target's 25,000 brokers: the card's bits
+    # are the CPU's (elementwise adds in one order) in every repeat, where
+    # PyTorch's CUDA cumsum varies
+    from cruise_control_tpu_torch.analyzer.engine import scan_fixed_order
+
+    probs = torch.from_numpy(np.random.default_rng(42).lognormal(0.0, 2.0, 25_000).astype(np.float32))
+    want = scan_fixed_order(probs)
+    on_card = probs.to(dev)
+    seen = {bytes(scan_fixed_order(on_card).cpu().numpy().tobytes()) for _ in range(50)}
+    seen_cumsum = {bytes(torch.cumsum(on_card, 0).cpu().numpy().tobytes()) for _ in range(50)}
+    out["cdf_scan"] = dict(n=25_000, repeats=50, results=len(seen), equal_cpu=seen == {
+        bytes(want.numpy().tobytes())}, torch_cumsum_results=len(seen_cumsum))
+    check(out["cdf_scan"]["equal_cpu"], f"the fixed-order scan differs on the card: {out['cdf_scan']}")
     # the path's launches: one emulated step at n = 4 from a reset count
     kernels_mod.reset_launches()
     em_l = ShardEmulation(eng, carry, plan, 4)
@@ -6565,22 +6603,38 @@ def goal_quality(chain, a, b) -> dict:
                         and abs(float(oa) - float(ob)) <= 1e-6))
 
 
+def placement_digest(final) -> str:
+    """SHA-256 of a final state's placement columns."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in PLACEMENT:
+        h.update(getattr(final, f).detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def check_model_shard_cards(state, cfg, smi: str, devs, label: str = "north_star",
                             compare: bool = True) -> dict:
     """--mesh (c), and (d) at the mode's own target: the sharded-model mode
     1x4 over NCCL.  With loads rounded to integers its placements and
     objective are bit for bit the replicated 1x4's and the single-device
     engine's (`compare`); with the float loads, goal quality against the
-    single-device engine.  Per-card state bytes against the replicated
-    mode, the all_reduces and bytes a step (measured by the ranks' own
-    collective counts, and the analytic count) and the walls."""
+    single-device engine (`compare`), and reproducibility: a repeated run
+    of one engine and a run of a fresh engine on a fresh rank group give
+    the same placements and objective, bit for bit, and after each run the
+    four ranks hold the same replicated carry (`carry_digests`).  Per-card
+    state bytes against the replicated mode, the all_reduces and bytes a
+    step (measured by the ranks' own collective counts, and the analytic
+    count), the refresh's float sum a round (the words each rank gathers
+    and the device ms of the gather and fold) and the walls."""
+    import numpy as np
     import torch
 
     from cruise_control_tpu_torch.analyzer import DEFAULT_CHAIN, Engine
     from cruise_control_tpu_torch.models.builder import pad_state
     from cruise_control_tpu_torch.models.sharding import shard_multiple_shape
     from cruise_control_tpu_torch.parallel import ShardedEngine, close_rank_groups, model_mesh
-    from cruise_control_tpu_torch.parallel.model_shard import loads_quantized
+    from cruise_control_tpu_torch.parallel.model_shard import loads_quantized, refresh_sum_words
 
     n = len(devs)
     padded = pad_state(state, shard_multiple_shape(state.shape, n))
@@ -6595,18 +6649,47 @@ def check_model_shard_cards(state, cfg, smi: str, devs, label: str = "north_star
                            model_shard_min_partitions=1)
         build_s = time.monotonic() - t0
         (f1, h1, o1), first_s = mesh_run(me)
+        digests = [me.carry_digests()]
         (f2, h2, o2), repeat_s = mesh_run(me)
+        digests.append(me.carry_digests())
         t = h2[-1]
         steps = sum(1 for h in h2 if "round" in h) * cfg.steps_per_round
         coll = t["model_collectives"]
+        float_words = refresh_sum_words(st.shape)[0]
+        sum_ms = [float(np.mean(ms)) for ms in me.last_info["float_sum_ms"]]
         rec = dict(build_s=build_s, first_run_s=first_s, repeat_wall_s=repeat_s,
                    model_sharded=t.get("model_sharded"), rank_state_bytes=me.build_info["rank_state_bytes"],
                    collectives_per_run=coll, steps=steps,
                    bytes_per_step_analytic=me.collective_bytes_per_step,
                    bytes_per_round_analytic=t["model_psum_bytes"],
                    rank_walls=me.last_info["rank_walls"], blocking_syncs=t["blocking_syncs"],
-                   objective_after=float(o2["obj_after"]))
+                   objective_after=float(o2["obj_after"]),
+                   refresh_float_sum=dict(bytes_sent=4 * float_words,
+                                          bytes_received=4 * float_words * n,
+                                          ms_per_round_by_rank=sum_ms,
+                                          rounds=len(me.last_info["float_sum_ms"][0])))
         me.release()
+        if loads == "float":
+            # a fresh engine on a fresh rank group (new rank processes)
+            close_rank_groups()
+            fresh = ShardedEngine(st, DEFAULT_CHAIN, mesh=model_mesh(devs), config=cfg, timeout_s=900,
+                                  model_shard_min_partitions=1)
+            (f3, _h3, o3), fresh_s = mesh_run(fresh)
+            digests.append(fresh.carry_digests())
+            fresh.release()
+            runs3 = [(f1, o1, first_s), (f2, o2, repeat_s), (f3, o3, fresh_s)]
+            rec["runs"] = [dict(run=name, wall_s=wall, placement_sha256=placement_digest(f),
+                                objective_after=float(o["obj_after"]), rank_carry_sha1=d)
+                           for name, (f, o, wall), d in zip(
+                               ("engine1_run1", "engine1_run2", "engine2_fresh_group"), runs3,
+                               digests)]
+            rec["reproducible"] = bool(
+                len({r["placement_sha256"] for r in rec["runs"]}) == 1
+                and all(bits_equal(getattr(f, k), getattr(f1, k)) for f, _, _ in runs3
+                        for k in PLACEMENT)
+                and len({np.float32(r["objective_after"]).tobytes() for r in rec["runs"]}) == 1)
+        # every rank's replicated carry (aggregates, key) after each run
+        rec["ranks_agree"] = [len(set(d)) == 1 for d in digests]
         close_rank_groups()
         torch.cuda.empty_cache()
         if compare:
@@ -6634,6 +6717,8 @@ def check_model_shard_cards(state, cfg, smi: str, devs, label: str = "north_star
         runs[loads] = rec
         log(json.dumps(dict(phase=f"model_shard_cards_{label}", loads=loads, card=smi, **rec)))
         check(rec.get("exact", True), f"model shard 1x{n} with integer loads differs: {rec}")
+        check(rec.get("reproducible", True) and all(rec.get("ranks_agree", [True])),
+              f"model shard 1x{n} float loads: runs or ranks differ: {rec.get('runs')}")
         if "goal_quality" in rec:
             check(rec["goal_quality"]["ok"], f"model shard 1x{n} float loads: {rec['goal_quality']}")
     out["runs"] = runs

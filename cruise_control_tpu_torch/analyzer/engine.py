@@ -788,13 +788,34 @@ def _relu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive f32 prefix sum accumulated in f32, element after element.
-    PyTorch's CPU cumsum accumulates in f64, which rounds differently from
-    the reference's f32 scan; numpy's f32 cumsum is the sequential f32
-    sum.  On CUDA the prefix sum is PyTorch's (a parallel scan)."""
+    """Inclusive f32 prefix sum accumulated in f32, the same bits in every
+    run.  On the CPU element after element: PyTorch's CPU cumsum
+    accumulates in f64, which rounds differently from the reference's f32
+    scan; numpy's f32 cumsum is the sequential f32 sum.  On CUDA
+    `scan_fixed_order`: PyTorch's cumsum of a vector there is a single-pass
+    scan (decoupled look-back) in which a tile adds the prefix of the
+    tiles before it from whichever of their sums is published first, so
+    over more than one tile its bits may change from run to run; the
+    broker CDF's did at 25,000 brokers."""
     if x.device.type == "cpu":
         return torch.from_numpy(np.cumsum(x.numpy(), dtype=np.float32))
-    return torch.cumsum(x, 0)
+    return scan_fixed_order(x)
+
+
+def scan_fixed_order(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a vector in an order fixed by each index:
+    ceil(log2 n) passes of elementwise adds, y[i] += y[i - 2^k] (Hillis and
+    Steele), so element i's sum depends on x[:i + 1] alone, then a running
+    maximum (exact in any order), so that a vector of non-negative terms
+    gives a nondecreasing result, as a binary search over a CDF needs."""
+    y, nxt = x.clone(), torch.empty_like(x)
+    off, n = 1, x.numel()
+    while off < n:
+        nxt[:off].copy_(y[:off])
+        torch.add(y[off:], y[:-off], out=nxt[off:])
+        y, nxt = nxt, y
+        off *= 2
+    return torch.cummax(y, 0).values
 
 
 def _placed_state(base: ClusterState, replica_broker, replica_is_leader,

@@ -128,6 +128,8 @@ __all__ = [
 #: the step's result placement fields a chain writes into its shared slot
 SLOT_FIELDS = ("replica_broker", "replica_is_leader", "replica_disk", "replica_offline",
                "replica_disk_bytes")
+#: a model shard's carry fields that hold its row blocks (parallel/model_shard.py)
+_SHARD_ROWS = ("replica_broker", "replica_is_leader", "replica_disk", "part_rack_count")
 #: the ys columns that count (summed over chains in a mesh history)
 _COUNT_YS = ("accepted", "acc_replica", "acc_swap", "acc_lead", "prior_cands", "prior_acc")
 
@@ -441,10 +443,13 @@ def _stats_of(arrays: dict):
     return ClusterStats(**{k: torch.from_numpy(v) for k, v in arrays.items()})
 
 
-def _carry_digest(carry) -> str:
-    """sha1 of every tensor of a carry (its placement, aggregates, key)."""
+def _carry_digest(carry, skip=()) -> str:
+    """sha1 of every tensor of a carry (its placement, aggregates, key)
+    but the fields `skip` names."""
     h = hashlib.sha1()
     for f in dataclasses.fields(carry):
+        if f.name in skip:
+            continue
         v = getattr(carry, f.name)
         if isinstance(v, torch.Tensor):
             h.update(f.name.encode())
@@ -534,7 +539,9 @@ class RankServer:
     def cmd_digest(self, eid: int) -> str:
         e = self.engines[eid]["engine"]
         carry = getattr(e, "schedule_carry", None) if self.engines[eid].get("schedule") else None
-        return _carry_digest(carry if carry is not None else e._ws.carry)
+        # a model shard's row blocks differ by shard: its replicated fields alone
+        skip = _SHARD_ROWS if getattr(e, "blk", None) is not None else ()
+        return _carry_digest(carry if carry is not None else e._ws.carry, skip)
 
     def _write_slot(self, rec: dict, values: dict, at: int = 0) -> None:
         slots = rec["slots"]
@@ -1228,6 +1235,7 @@ class MeshEngine:
             loop_route=[a["loop_route"] for a in answers],
             loop_error=next((a["loop_error"] for a in answers if a["loop_error"]), None),
             rank_walls=[a["wall_s"] for a in answers], launches=launches,
+            float_sum_ms=[a["timing"].get("float_sum_ms") for a in answers],
         )
         return final, history, payload
 
@@ -1292,7 +1300,9 @@ class MeshEngine:
 
     def carry_digests(self) -> list[str]:
         """Each rank's sha1 of its last run's final carry: equal within a
-        model row (the replicated carries stay bit for bit equal)."""
+        model row (the replicated carries stay bit for bit equal; in the
+        sharded-model mode the carry's replicated fields, its row blocks
+        left out)."""
         with self._lock:
             return self._group.call("digest", self._eid, ranks=self.ranks,
                                     timeout_s=self.timeout_s)

@@ -26,9 +26,10 @@ SHARD), `select_survivors` runs replicated over the K columns (global
 partition ids), and `apply_moves` writes this shard's rows only (its row
 offsets) while every shard's broker, host and topic aggregates take every
 survivor.  A round (`refresh`): the aggregates of the local rows, whose
-broker, topic and disk sums are all_reduced; the partition x rack cells
-of the local rows counted into all P rows (`shard_prc`) and reduce-
-scattered to each shard's own; `group_by_broker` over the local rows,
+broker, topic and disk sums are summed over the row (the float ones
+gathered and folded in rank order, common/collectives.py); the partition
+x rack cells of the local rows counted into all P rows (`shard_prc`) and
+reduce-scattered to each shard's own; `group_by_broker` over the local rows,
 unchanged; the sampling plan's global counts by one all_reduce and
 `below` from an all_gather (`ShardPlan`).  The objective and the goal
 chain reduce their replica and partition rows over the model axis
@@ -36,10 +37,18 @@ chain reduce their replica and partition rows over the model axis
 
 Parity: the bundles are the plain engine's gathers bit for bit (one owner
 a word), and the acceptance consumes the same inputs, so the placements
-are the replicated mesh's and the plain engine's wherever the all-reduced
-float sums are exact, which integer-quantized loads make them
-(tests/test_torch_model_shard.py); float loads track to the last bits of
-the broker sums, and the bar there is goal quality.
+are the replicated mesh's and the plain engine's wherever the summed
+float partials are exact, which integer-quantized loads make them
+(tests/test_torch_model_shard.py).  On float loads the broker sums add in
+another order than one device's, so the bar against the plain engine is
+goal quality.  But every float sum over the row is a left fold of the
+ranks' partials in rank order (`all_reduce_sum`), and every replicated
+float computation a rank runs adds in a fixed order (the plan's broker CDF
+too: analyzer/engine.py `scan_fixed_order`), so every rank holds the same
+replicated aggregates after every round and a run is a function of
+(state, seed, config, mesh width) alone: a repeated run, a fresh engine
+and a fresh process give the same placements and objective, bit for bit
+(tests/test_torch_model_shard_determinism.py, chip_smoke.py `--mesh`).
 
 The port's `group_by_broker` is a counting sort (kernels/group.py), so the
 JAX package's `stable_grouped_order` (a guard against an XLA:CPU
@@ -76,7 +85,7 @@ from cruise_control_tpu_torch.models.state import STATE_FIELDS, ClusterState
 from cruise_control_tpu_torch.parallel.mesh import MODEL_AXIS, RankEngine
 
 __all__ = ["ModelShardEngine", "ShardPlan", "local_shape", "psum_bytes_per_round",
-           "psum_bytes_per_step"]
+           "psum_bytes_per_step", "refresh_sum_words"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,14 +147,29 @@ def psum_bytes_per_step(K_r: int, K_s: int, K_l: int, max_rf: int, racks: int) -
     return 4 * (n + n * w + n * (max_rf + racks) + (K_r + 2 * K_s) * max_rf + K_l * max_rf * w)
 
 
-def psum_bytes_per_round(shape, config, split, max_rf: int) -> int:
-    """`psum_bytes_per_step` times the steps, plus a round's refresh (the
-    broker, topic and disk sums all-reduced, the partition x rack cells
-    reduce-scattered), the plan's counts (all_reduce and all_gather) and a
-    flat 64 words for the chain's and the objective's scalar sums."""
+def refresh_sum_words(shape) -> tuple[int, int, int]:
+    """The words a rank puts into a round's refresh sums: the float broker
+    and disk sums (one all_gather, folded in rank order: a rank receives n
+    times these), the integer counts (one all_reduce) and the partition x
+    rack cells (one reduce_scatter)."""
     B, T, D = shape.B, shape.num_topics, shape.max_disks_per_broker
-    refresh = (B * 6 + B * D) + (2 * B + T * B) + shape.P * shape.num_racks
-    plan = B + B
+    return B * 6 + B * D, 2 * B + T * B, shape.P * shape.num_racks
+
+
+#: the words of the plan's sums beyond its counts: its carry objective's
+#: rack-excess and offline counts (an int64 all_reduce each)
+PLAN_OBJECTIVE_WORDS = 4
+
+
+def psum_bytes_per_round(shape, config, split, max_rf: int) -> int:
+    """The bytes a rank puts into a round's collectives (the inputs,
+    `collectives.COUNTS`' measure): `psum_bytes_per_step` times the steps,
+    plus the refresh (`refresh_sum_words`), the plan's counts (all_reduce
+    and all_gather) and its carry objective's sums, and a flat 64 words
+    for the goal chain's scalar sums (a full check or an objective, when
+    the schedule asks for one)."""
+    refresh = sum(refresh_sum_words(shape))
+    plan = shape.B + shape.B + PLAN_OBJECTIVE_WORDS
     return (psum_bytes_per_step(*split, max_rf, shape.num_racks) * config.steps_per_round
             + 4 * (refresh + plan + 64))
 
@@ -164,6 +188,8 @@ class ModelShardEngine(RankEngine):
         self.blk = ms_k.Block.of(state.shape.R, state.shape.P, int(shard[0]), int(shard[1]))
         self._global = state
         self._bufs_shard: dict | None = None
+        #: CUDA events around each refresh's float sum of the current run
+        self._sum_events: list = []
         super().__init__(local_state(state, self.blk, device), chain, constraint, options, config,
                          key=key, shard=shard, group=group)
         # the preferred-leader term's denominator is the global partition count
@@ -270,7 +296,8 @@ class ModelShardEngine(RankEngine):
 
     def refresh(self, carry, group=None):
         """Every aggregate of the carry (the plain engine's refresh over
-        this shard's rows): broker, topic and disk partial sums all-reduced,
+        this shard's rows): broker, topic and disk partial sums summed over
+        the row (`all_reduce_sum`: the float ones folded in rank order),
         partition x rack cells from every shard's rows reduce-scattered to
         this shard's, host load from the global broker load."""
         b = self._shard_bufs()
@@ -287,7 +314,14 @@ class ModelShardEngine(RankEngine):
         ints = ("broker_replica_count", "broker_leader_count", "broker_topic_count")
         for names in (floats, ints):
             packed = torch.cat([out[k].reshape(-1) for k in names])
+            timed = names is floats and self.device.type == "cuda"
+            if timed:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
             all_reduce_sum(packed, row)
+            if timed:
+                ev[1].record()
+                self._sum_events.append(ev)
             at = 0
             for k in names:
                 n = out[k].numel()
@@ -397,6 +431,7 @@ class ModelShardEngine(RankEngine):
         self._uses += 1
         dims = self._sched_dims(verbose)
         count_dispatch("engine.init")
+        self._sum_events = []
         self._stage(ws, None)
         self._init_run(ws, dims)
         count_dispatch("engine.run")
@@ -417,6 +452,9 @@ class ModelShardEngine(RankEngine):
             masked_rounds=int(count[sched_k.MASKED]), host_dispatch_s=round(t_disp - t_start, 6),
             device_s=round(t_sync - t_disp, 6),
         )
+        if self._sum_events:
+            # the refreshes' float sums (gather and fold), device ms each
+            timing["float_sum_ms"] = [a.elapsed_time(b) for a, b in self._sum_events]
         conv = self._convergence_summary(ys)
         if conv is not None:
             timing["convergence"] = conv

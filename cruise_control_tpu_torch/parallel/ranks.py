@@ -279,6 +279,12 @@ def _rank_main(rank: int, world: int, device: str, backend: str, init_method: st
     os._exit(0)
 
 
+#: starts a group tries when its store's port was taken between
+#: `_free_port`'s choice and rank 0's bind (EADDRINUSE): the port is free
+#: when chosen, not held
+START_ATTEMPTS = 3
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -318,7 +324,14 @@ class RankGroup:
         #: start-up seconds: spawn to every rank ready, and each rank's
         #: import and join seconds
         self.start_info: dict = {}
-        self._start(start_timeout_s)
+        for attempt in range(START_ATTEMPTS):
+            try:
+                self._start(start_timeout_s)
+                break
+            except RankCommandError as e:
+                # the group is closed; a taken port gets a new one
+                if "EADDRINUSE" not in str(e) or attempt + 1 == START_ATTEMPTS:
+                    raise
 
     # -- life ---------------------------------------------------------------
 
